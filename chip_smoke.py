@@ -1,0 +1,459 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port on one NVIDIA H100.
+
+    python3 chip_smoke.py            # from the repository root, on the card
+
+Builds the port's CUDA kernels from ``src/repro_torch/csrc`` and drives the
+port's main path, ``repro_torch.api.KMeans`` fit/predict/score, unprotected
+and ABFT-protected, at M = 2**20 rows x F = 128 features x K = 1000
+clusters. Phases, one line each:
+
+  1. device: the card, its power limit, the kernels' build time;
+  2. kernels vs their plain PyTorch versions (TF32 off) at M = 65,573,
+     F = 100, K = 1000 and 100, plus planted FT faults;
+  3. unprotected fit (``fused``) + predict + score, and the one-pass
+     ``lloyd`` fit from the same centroids;
+  4. protected fit, clean and under an SEU campaign;
+  5. per-kernel launches on the main path (phases 3-4), time per launch at
+     the phase-3 shape, the plain version's time, the bound and a library
+     yardstick (``torch.addmm`` + ``min``; ``index_add_`` for the update),
+     and the two-pass update with and without DMR.
+
+Any failed check exits non-zero. Imports nothing of JAX or the reference
+package. The last line is ``{"ok": true, "device": {...}}``.
+"""
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+M_FULL, F_FULL, K_FULL = 1_048_576, 128, 1000
+M_SMALL, F_SMALL = 65_573, 100
+ITERS = 10
+SEED = 0
+
+
+class SmokeFailure(RuntimeError):
+    pass
+
+
+def expect(cond: bool, what: str) -> None:
+    if not cond:
+        raise SmokeFailure(what)
+
+
+def emit(obj: dict) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def blob_centers(k: int, f: int, seed: int):
+    """The centres ``make_blobs(.., k, seed=seed)`` draws its blobs around."""
+    import numpy as np
+    return (np.random.default_rng(seed).normal(size=(k, f)) * 10.0
+            ).astype(np.float32)
+
+
+def cuda_ms(fn, reps: int = 5) -> float:
+    """Mean device time of ``fn`` over ``reps`` launches (CUDA events),
+    after one warm-up call."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def wall(fn):
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def max_err(a, b) -> float:
+    return float((a.double() - b.double()).abs().max())
+
+
+def rel_ok(a, b, rtol: float) -> tuple[bool, float]:
+    err = max_err(a, b)
+    return err <= rtol * max(float(b.abs().max()), 1.0), err
+
+
+def phase_kernels(torch, ops, kern) -> dict:
+    """Phase 2: each kernel against its plain version on the card."""
+    from repro_torch.data.blobs import make_blobs
+    da, ll, daft, llft = kern
+    out = {"phase": 2, "shapes": []}
+    for k in (1000, 100):
+        x_np, _ = make_blobs(M_SMALL, F_SMALL, k, seed=SEED + k)
+        x = torch.from_numpy(x_np).cuda()
+        c = torch.from_numpy(blob_centers(k, F_SMALL, SEED + k)).cuda()
+        params = ops.clamp_params(M_SMALL, k, F_SMALL, ops.DEFAULT_PARAMS)
+        plan = ops.plan_data(x, params)
+        kp = -(-k // params.block_k) * params.block_k
+        cp, cn = ops._pad_centroids(c, k, kp, plan.xp.shape[1])
+        tiles = dict(block_m=params.block_m, block_k=params.block_k,
+                     block_f=params.block_f)
+        factor = ops.threshold_factor(plan.xp.shape[1], torch.float32)
+        rec = {"k": k, "centroid_tiles": kp // params.block_k,
+               "tol_rel": 1e-5}
+
+        md, am = da.distance_argmin(plan.xp, cp, cn, **tiles)
+        md_p, am_p = da.distance_argmin_plain(plan.xp, cp, cn)
+        ok, rec["distance_argmin_err"] = rel_ok(md, md_p, 1e-5)
+        expect(ok, f"distance_argmin min distances K={k}")
+        expect(bool((am == am_p).all()), f"distance_argmin labels K={k}")
+
+        r = ll.lloyd_step(plan.xp, cp, cn, plan.m, **tiles)
+        r_p = ll.lloyd_step_plain(plan.xp, cp, cn, plan.m, params.block_m)
+        expect(bool((r[1] == am).all()) and bool(torch.equal(r[0], md)),
+               f"lloyd_step assignment differs from distance_argmin K={k}")
+        ok, rec["lloyd_step_sums_err"] = rel_ok(r[2], r_p[2], 1e-5)
+        expect(ok, f"lloyd_step sums K={k}")
+        expect(bool(torch.equal(r[3], r_p[3])), f"lloyd_step counts K={k}")
+        t_s, t_c = torch.empty_like(r[2]), torch.empty_like(r[3])
+        ll.tile_update(plan.xp, am, t_s, t_c, true_m=plan.m,
+                       block_m=params.block_m)
+        expect(bool(torch.equal(t_s, r[2])) and bool(torch.equal(t_c, r[3])),
+               f"tile_update is not bit for bit lloyd_step's update K={k}")
+        del t_s, t_c
+
+        no_d = daft.no_injection().cuda()
+        f_md, f_am, f_det = daft.distance_argmin_ft(
+            plan.xp, cp, cn, no_d, factor=factor, **tiles)
+        p_md, p_am, p_det = daft.distance_argmin_ft_plain(
+            plan.xp, cp, cn, no_d, params.block_m, params.block_k,
+            params.block_f, factor)
+        rec["clean_det"] = int(f_det.sum())
+        expect(rec["clean_det"] == 0 and int(p_det.sum()) == 0,
+               f"clean distance_argmin_ft detected {rec['clean_det']} K={k}")
+        expect(bool(torch.equal(f_md, md)) and bool(torch.equal(f_am, am)),
+               f"clean distance_argmin_ft differs from distance_argmin K={k}")
+        ok, rec["distance_argmin_ft_err"] = rel_ok(f_md, p_md, 1e-5)
+        expect(ok and bool((p_am == am).all()),
+               f"distance_argmin_ft vs plain K={k}")
+        inj = ops.plan_injection_tile(M_SMALL, k, F_SMALL, params,
+                                      row=M_SMALL // 3, col=k - 3, f_step=1,
+                                      delta=2.0 ** 20).cuda()
+        _, i_am, i_det = daft.distance_argmin_ft(plan.xp, cp, cn, inj,
+                                                 factor=factor, **tiles)
+        rec["fault_det"] = int(i_det.sum())
+        expect(rec["fault_det"] == 1 and bool(torch.equal(i_am, am)),
+               f"distance fault not corrected once K={k}")
+
+        no_l = llft.no_injection().cuda()
+        q = llft.lloyd_step_ft(plan.xp, cp, cn, no_l, plan.m, factor=factor,
+                               **tiles)
+        q_p = llft.lloyd_step_ft_plain(plan.xp, cp, cn, no_l, plan.m,
+                                       params.block_m, params.block_k,
+                                       params.block_f, factor)
+        expect(int(q[2].sum()) == 0, f"clean lloyd_step_ft detected K={k}")
+        expect(bool(torch.equal(q[3], r[2])) and bool(torch.equal(q[4], r[3])),
+               f"lloyd_step_ft sums/counts differ from lloyd_step K={k}")
+        ok, rec["lloyd_step_ft_ucheck_err"] = rel_ok(q[5], q_p[5], 1e-5)
+        expect(ok and bool(torch.equal(q[6], q_p[6])),
+               f"lloyd_step_ft update checksums vs plain K={k}")
+        clean = ops.fused_lloyd_ft(plan, c, inj=no_l)
+        expect(int(clean[4]) == 0, f"clean fused_lloyd_ft detected K={k}")
+        for slot in ("distance", "update"):
+            arm = {"distance": (7, 0, 1, 9, 5, -2.0 ** 21)} if \
+                slot == "distance" else {"update": (11, 3, 17, 2.0 ** 19)}
+            hit = ops.fused_lloyd_ft(plan, c,
+                                     inj=llft.make_injection(**arm).cuda())
+            rec[f"{slot}_slot_det"] = int(hit[4])
+            expect(rec[f"{slot}_slot_det"] == 1,
+                   f"{slot}-slot fault detected {int(hit[4])} times K={k}")
+            expect(bool(torch.equal(hit[0], clean[0])),
+                   f"{slot}-slot fault changed the assignment K={k}")
+            expect(bool(torch.equal(hit[2], clean[2]))
+                   and bool(torch.equal(hit[3], clean[3])),
+                   f"{slot}-slot fault: sums not bitwise clean K={k}")
+        out["shapes"].append(rec)
+        del plan, r, r_p, q, q_p
+        torch.cuda.empty_cache()
+    return out
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this smoke "
+              "run needs an NVIDIA GPU", file=sys.stderr)
+        return 2
+    if not (ROOT / "src" / "repro_torch" / "csrc").is_dir():
+        print(f"chip_smoke: no src/repro_torch beside {__file__}; run it "
+              f"from a checkout of the repository", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT / "src"))
+    import numpy as np
+
+    from repro_torch import hw
+    from repro_torch.api import FaultPolicy, InjectionCampaign, KMeans
+    from repro_torch.data.blobs import make_blobs
+    from repro_torch.kernels import _build, ops, ref
+    from repro_torch.kernels import distance_argmin as da
+    from repro_torch.kernels import distance_argmin_ft as daft
+    from repro_torch.kernels import lloyd_step as ll
+    from repro_torch.kernels import lloyd_step_ft as llft
+
+    ref.full_f32(torch.device("cuda"))
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60)
+    smi_line = smi.stdout.strip().splitlines()[0] if smi.stdout.strip() \
+        else "unknown"
+    kind = torch.cuda.get_device_name(0)
+    t0 = time.perf_counter()
+    lib = _build.library()
+    build_s = time.perf_counter() - t0
+    ptxas = [ln.strip() for ln in lib.ptxas_log.splitlines()
+             if "registers" in ln or "spill" in ln]
+    emit({"phase": 1, "device": kind, "nvidia_smi": smi_line,
+          "torch": torch.__version__, "cuda": torch.version.cuda,
+          "build_s": round(build_s, 3), "nvcc_s": round(lib.build_seconds, 3),
+          "ptxas": ptxas})
+
+    kern = (da, ll, daft, llft)
+    emit(phase_kernels(torch, ops, kern))
+
+    # --- phase 3: unprotected fit at full size ------------------------------
+    x_np, _ = make_blobs(M_FULL, F_FULL, K_FULL, seed=SEED)
+    x = torch.from_numpy(x_np).cuda()
+    del x_np
+    wrappers = {"distance_argmin": da.distance_argmin,
+                "lloyd_step": ll.lloyd_step,
+                "distance_argmin_ft": daft.distance_argmin_ft,
+                "lloyd_step_ft": llft.lloyd_step_ft,
+                "tile_update": ll.tile_update}
+    for w in wrappers.values():
+        w.launches = 0
+    base = dict(n_clusters=K_FULL, max_iter=ITERS, tol=0.0, random_state=SEED)
+    km_seed, seed_s = wall(lambda: KMeans(fault=FaultPolicy.off(),
+                                          **base).fit(x))
+    c_init = km_seed.init_centroids(x)
+    km_off, off_s = wall(lambda: KMeans(fault=FaultPolicy.off(), **base)
+                         .fit(x, centroids=c_init))
+    labels = km_off.predict(x)
+    score = km_off.score(x)
+    km_ll, ll_s = wall(lambda: KMeans(fault=FaultPolicy.off(),
+                                      backend="lloyd", **base)
+                       .fit(x, centroids=c_init))
+    # both update in emit_update's order, so they agree bit for bit
+    expect(bool(torch.equal(km_ll.labels_, km_off.labels_)),
+           "lloyd fit labels differ from the fused fit")
+    c_err = max_err(km_ll.cluster_centers_, km_off.cluster_centers_)
+    expect(c_err == 0.0, f"lloyd fit centroids differ from the fused fit "
+           f"({c_err})")
+    expect(bool(torch.isfinite(km_off.cluster_centers_).all())
+           and km_off.cluster_centers_.shape == (K_FULL, F_FULL),
+           "fit centroids not finite or of the wrong shape")
+    expect(labels.shape == (M_FULL,) and int(labels.min()) >= 0
+           and int(labels.max()) < K_FULL, "predict labels out of range")
+    expect(np.isfinite(score) and score < 0, f"score {score}")
+    emit({"phase": 3, "m": M_FULL, "f": F_FULL, "k": K_FULL,
+          "seeded_fit_s": round(seed_s, 4), "n_iter": km_off.n_iter_,
+          "fused_ms_per_iter": 1e3 * off_s / km_off.n_iter_,
+          "lloyd_ms_per_iter": 1e3 * ll_s / km_ll.n_iter_,
+          "inertia": km_off.inertia_, "score": score,
+          "lloyd_centroid_err": c_err, "n_host_syncs": km_off._n_host_syncs})
+
+    # --- phase 4: protected fit, clean and under a campaign ------------------
+    km_ft, ft_s = wall(lambda: KMeans(fault=FaultPolicy.correct(), **base)
+                       .fit(x, centroids=c_init))
+    expect(km_ft.detected_errors_ == 0,
+           f"clean protected fit detected {km_ft.detected_errors_}")
+    expect(bool(torch.equal(km_ft.cluster_centers_, km_ll.cluster_centers_)),
+           "clean protected fit is not bit for bit the lloyd fit")
+    camp = FaultPolicy.correct(injection=InjectionCampaign(rate=1.0,
+                                                           targets="both"))
+    km_camp, camp_s = wall(lambda: KMeans(fault=camp, **base)
+                           .fit(x, centroids=c_init))
+    expect(km_camp.detected_errors_ > 0, "campaign detected nothing")
+    expect(bool(torch.equal(km_camp.cluster_centers_, km_ft.cluster_centers_)),
+           "campaign centroids are not bitwise the clean protected fit's")
+    ft_labels = km_ft.predict(x)
+    ft_score = km_ft.score(x)
+    expect(bool(torch.equal(ft_labels, km_ll.predict(x))),
+           "protected predict differs from unprotected predict")
+    torch.cuda.synchronize()
+    launches = {name: w.launches for name, w in wrappers.items()}
+    off_ms = 1e3 * off_s / km_off.n_iter_
+    ft_ms = 1e3 * ft_s / km_ft.n_iter_
+    emit({"phase": 4, "clean_detected": km_ft.detected_errors_,
+          "campaign_detected": km_camp.detected_errors_,
+          "ft_ms_per_iter": ft_ms, "campaign_ms_per_iter":
+          1e3 * camp_s / km_camp.n_iter_, "ft_overhead_vs_fused":
+          ft_ms / off_ms, "ft_overhead_vs_lloyd":
+          ft_ms / (1e3 * ll_s / km_ll.n_iter_), "score": ft_score,
+          "n_host_syncs": km_ft._n_host_syncs})
+    for name, n in launches.items():
+        expect(n > 0, f"{name} was not launched on the main path")
+
+    # --- phase 5: per-kernel times at the phase-3 shape ----------------------
+    params = ops.clamp_params(M_FULL, K_FULL, F_FULL, ops.DEFAULT_PARAMS)
+    plan = ops.plan_data(x, params)
+    # blob centres as centroids: the main path's shapes, with margins wide
+    # enough that kernel and plain version must agree on every label
+    c = torch.from_numpy(blob_centers(K_FULL, F_FULL, SEED)).cuda()
+    kp = -(-K_FULL // params.block_k) * params.block_k
+    cp, cn = ops._pad_centroids(c, K_FULL, kp, plan.xp.shape[1])
+    mp, fp = plan.xp.shape
+    nt = mp // params.block_m
+    tiles = dict(block_m=params.block_m, block_k=params.block_k,
+                 block_f=params.block_f)
+    factor = ops.threshold_factor(fp, torch.float32)
+    no_d, no_l = daft.no_injection().cuda(), llft.no_injection().cuda()
+    gemm = 2.0 * mp * kp * fp
+    x_bytes, c_bytes = 4.0 * mp * fp, 4.0 * kp * fp
+    part_bytes = 4.0 * nt * kp * fp + 4.0 * nt * kp
+    assign_out = 8.0 * mp
+
+    def library_call():
+        d = torch.addmm(cn[None, :], plan.xp, cp.T, beta=1.0, alpha=-2.0)
+        return d.min(dim=1)
+    lib_ms = cuda_ms(library_call)
+
+    def bound(ops_n: float, bytes_n: float) -> tuple[float, str]:
+        t_ops = ops_n / hw.PEAK_FLOPS_F32
+        t_bytes = bytes_n / hw.HBM_BW
+        return (1e3 * max(t_ops, t_bytes),
+                "operations" if t_ops >= t_bytes else "bytes")
+
+    rows = []
+    specs = [
+        ("distance_argmin", "src/repro/kernels/distance_argmin.py:140",
+         lambda: da.distance_argmin(plan.xp, cp, cn, **tiles),
+         lambda: da.distance_argmin_plain(plan.xp, cp, cn),
+         gemm, x_bytes + c_bytes + assign_out),
+        ("lloyd_step", "src/repro/kernels/lloyd_step.py:345",
+         lambda: ll.lloyd_step(plan.xp, cp, cn, plan.m, **tiles),
+         lambda: ll.lloyd_step_plain(plan.xp, cp, cn, plan.m,
+                                     params.block_m),
+         gemm + mp * fp, x_bytes + c_bytes + assign_out + part_bytes),
+        ("distance_argmin_ft", "src/repro/kernels/distance_argmin_ft.py:207",
+         lambda: daft.distance_argmin_ft(plan.xp, cp, cn, no_d,
+                                         factor=factor, **tiles),
+         lambda: daft.distance_argmin_ft_plain(plan.xp, cp, cn, no_d,
+                                               params.block_m,
+                                               params.block_k,
+                                               params.block_f, factor),
+         gemm, x_bytes + c_bytes + assign_out + 4.0 * nt),
+        ("lloyd_step_ft", "src/repro/kernels/lloyd_step_ft.py:292",
+         lambda: llft.lloyd_step_ft(plan.xp, cp, cn, no_l, plan.m,
+                                    factor=factor, **tiles),
+         lambda: llft.lloyd_step_ft_plain(plan.xp, cp, cn, no_l, plan.m,
+                                          params.block_m, params.block_k,
+                                          params.block_f, factor),
+         gemm + 3.0 * mp * fp, x_bytes + c_bytes + assign_out + part_bytes
+         + 4.0 * nt * (2 * fp + 3)),
+    ]
+    for name, replaces, kfn, pfn, ops_n, bytes_n in specs:
+        k_out = kfn()
+        p_out = pfn()
+        pairs = [(a, b) for a, b in zip(k_out, p_out) if a.is_floating_point()]
+        err = max(max_err(a, b) for a, b in pairs)
+        expect(all(rel_ok(a, b, 1e-5)[0] for a, b in pairs),
+               f"{name} disagrees with its plain version beyond rtol 1e-5")
+        expect(bool(torch.equal(k_out[1], p_out[1])),
+               f"{name} labels differ from its plain version")
+        del k_out, p_out, pairs
+        torch.cuda.empty_cache()
+        b_ms, b_by = bound(ops_n, bytes_n)
+        rows.append({"name": name, "route": "cuda",
+                     "source": "src/repro_torch/csrc/fk_kernels.cu",
+                     "replaces": replaces, "launches": launches[name],
+                     "max_abs_err": err,
+                     "ms": cuda_ms(kfn), "plain_ms": cuda_ms(pfn, reps=2),
+                     "bound_ms": b_ms, "bound_by": b_by,
+                     "library_ms": lib_ms})
+        torch.cuda.empty_cache()
+    # the update alone (emit_update over every row tile): the fused fit's
+    # two-pass update; one gated tile of it is the FT recompute
+    bm = params.block_m
+    am = da.distance_argmin(plan.xp, cp, cn, **tiles)[1]
+    want_s, want_c = ll.lloyd_step(plan.xp, cp, cn, plan.m, **tiles)[2:]
+    sums_p, counts_p = torch.empty_like(want_s), torch.empty_like(want_c)
+
+    def update():
+        ll.tile_update(plan.xp, am, sums_p, counts_p, true_m=plan.m,
+                       block_m=bm)
+        return sums_p, counts_p
+    update()
+    expect(bool(torch.equal(sums_p, want_s))
+           and bool(torch.equal(counts_p, want_c)),
+           "tile_update is not bit for bit lloyd_step's update")
+    mid = nt // 2
+    sums_p[mid] = 0.0
+    ll.tile_update(plan.xp, am, sums_p, counts_p, true_m=plan.m, block_m=bm,
+                   tile=torch.tensor(mid, dtype=torch.int32, device="cuda"),
+                   gate=torch.tensor(1, dtype=torch.int32, device="cuda"))
+    expect(bool(torch.equal(sums_p, want_s)),
+           "tile_update of one tile is not bit for bit the kernel's tile")
+    del want_s, want_c
+    torch.cuda.empty_cache()
+    valid = (torch.arange(mp, device="cuda") < plan.m).view(nt, bm)
+
+    def update_plain():
+        return ll.tile_update_plain(plan.xp.view(nt, bm, fp), am.view(nt, bm),
+                                    valid, kp)
+    p_s, p_c = update_plain()
+    ok, upd_err = rel_ok(sums_p, p_s, 1e-5)
+    expect(ok and bool(torch.equal(counts_p, p_c)),
+           "tile_update disagrees with its plain version")
+    del p_s, p_c
+    torch.cuda.empty_cache()
+    am_long = am.long()
+    upd_bound, upd_by = bound(mp * fp, x_bytes + 4.0 * mp + part_bytes)
+    rows.append({
+        "name": "tile_update", "route": "cuda",
+        "source": "src/repro_torch/csrc/fk_kernels.cu",
+        "replaces": "src/repro/kernels/lloyd_step.py:162",
+        "launches": launches["tile_update"], "max_abs_err": upd_err,
+        "ms": cuda_ms(update), "plain_ms": cuda_ms(update_plain, reps=2),
+        "bound_ms": upd_bound, "bound_by": upd_by,
+        "library_ms": cuda_ms(lambda: torch.zeros(
+            kp, fp, device="cuda").index_add_(0, am_long, plan.xp))})
+    del sums_p, counts_p
+    torch.cuda.empty_cache()
+    # the two-pass update as the fused fit runs it (tile_update + tree
+    # sum), and under DMR (a replica, a compare, a recompute gated off)
+    am_m = am[:plan.m]
+    torch.cuda.synchronize()
+    base_bytes = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    ops.tiled_update(plan, am_m, K_FULL)
+    torch.cuda.synchronize()
+    peak_gb = (torch.cuda.max_memory_allocated() - base_bytes) / 1e9
+    emit({"phase": 5, "tiled_update_peak_gb": peak_gb,
+          "tiled_update_ms": cuda_ms(
+              lambda: ops.tiled_update(plan, am_m, K_FULL), reps=3),
+          "tiled_update_dmr_ms": cuda_ms(
+              lambda: ops.tiled_update(plan, am_m, K_FULL, use_dmr=True),
+              reps=3)})
+    print(json.dumps({"kernels": rows}), flush=True)
+    print(smi_line, flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind,
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    try:
+        sys.exit(main())
+    except SmokeFailure as e:
+        print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
+        sys.exit(1)

@@ -1,0 +1,475 @@
+"""cuML/sklearn-shaped K-means estimator over the port's kernels
+(counterpart of ``repro.api.estimator``).
+
+    km = KMeans(n_clusters=8, fault=FaultPolicy.correct())   # on the card
+    labels = km.fit_predict(x)
+    km2 = KMeans.from_state(km.get_state())
+
+Protection is a :class:`~repro_torch.api.policy.FaultPolicy`, resolved to a
+registered assignment backend. The full-batch fit builds its
+:class:`~repro_torch.kernels.ops.DataPlan` once and runs the Lloyd loop in
+Python with the convergence test on the device: a ``done`` flag freezes
+the remaining steps of a chunk, and the host reads progress once per
+``sync_every`` iterations, through :func:`_host_read`.
+"""
+from __future__ import annotations
+
+import warnings
+from typing import Any, Callable, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.api.policy import FaultPolicy, InjectionCampaign
+from repro_torch.api.registry import AssignmentBackend, get_backend
+from repro_torch.core import fault as fault_mod
+from repro_torch.core import kmeans as km_mod
+from repro_torch.kernels import distance_argmin_ft as _daft
+from repro_torch.kernels import ops, ref
+
+_INITS = ("kmeans++", "random")
+_LATER_DTYPES = ("bfloat16", "float16", "int8")
+_PREDICT_CHUNK_ROWS = 65_536
+
+
+class NotFittedError(RuntimeError):
+    pass
+
+
+def _host_read(value: Any) -> Any:
+    """The single device->host funnel of the fit loop: once per
+    ``sync_every``-iteration chunk plus once for the final counters, so a
+    test can count the reads by patching one name."""
+    if isinstance(value, tuple):
+        return tuple(_host_read(v) for v in value)
+    return None if value is None else value.cpu()
+
+
+def resolve_device(device: Any) -> torch.device:
+    """The estimator's device. Asking for CUDA without a card raises: the
+    port never drifts to the CPU."""
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "device='cuda' requested but torch.cuda.is_available() is "
+                "False; pass device='cpu' to run the kernels' plain versions")
+        if dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+    elif dev.type != "cpu":
+        raise ValueError(f"device must be 'cuda' or 'cpu', got {device!r}")
+    return dev
+
+
+def _dtype_name(dtype: Any) -> str:
+    name = getattr(dtype, "name", None) or str(dtype)
+    return name.replace("torch.", "")
+
+
+class KMeans:
+    """K-means estimator with composable fault tolerance.
+
+    Parameters are the reference's (``n_clusters``, ``max_iter``, ``tol``,
+    ``init``, ``fault``, ``backend``, ``params``, ``sync_every``,
+    ``predict_chunk_rows``, ``random_state``) plus ``device`` ("cuda" by
+    default, "cpu" for the plain versions). ``batch_size``, ``compute_dtype``
+    other than float32 and ``init="kmeans++-fused"`` belong to later slices
+    and raise ``NotImplementedError``.
+
+    Attributes: ``cluster_centers_`` (K, F) f32 and ``labels_`` (M,) int32
+    tensors on ``device``; ``inertia_``, ``n_iter_``, ``detected_errors_``
+    and ``_n_host_syncs`` plain numbers.
+    """
+
+    def __init__(self, n_clusters: int = 8, *, max_iter: int = 100,
+                 tol: float = 1e-4, init: str = "kmeans++",
+                 fault: Optional[FaultPolicy] = None,
+                 backend: Optional[str] = None,
+                 batch_size: Optional[int] = None,
+                 params: Optional[ops.KernelParams] = None,
+                 sync_every: int = 10, compute_dtype: Any = "float32",
+                 predict_chunk_rows: Optional[int] = None,
+                 random_state: int = 0, device: Any = "cuda") -> None:
+        if n_clusters < 1:
+            raise ValueError(f"n_clusters must be >= 1, got {n_clusters}")
+        if init == "kmeans++-fused":
+            raise NotImplementedError(
+                "init='kmeans++-fused' (the kmeanspp_round kernel) comes with "
+                "the batched slice (ROADMAP Queue 1, item 7)")
+        if init not in _INITS:
+            raise ValueError(f"init must be one of {_INITS}, got {init!r}")
+        if sync_every < 1:
+            raise ValueError(f"sync_every must be >= 1, got {sync_every}")
+        dtype = _dtype_name(compute_dtype)
+        if dtype in _LATER_DTYPES:
+            raise NotImplementedError(
+                f"compute_dtype={dtype!r} is not ported yet; this slice runs "
+                f"float32 (ROADMAP Queue 1)")
+        if dtype != "float32":
+            raise ValueError(f"compute_dtype must be 'float32', got "
+                             f"{compute_dtype!r}")
+        if batch_size is not None:
+            raise NotImplementedError(
+                "mini-batch fits (batch_size=) are not ported yet; they come "
+                "with a later slice (ROADMAP Queue 1)")
+        if predict_chunk_rows is not None and predict_chunk_rows < 1:
+            raise ValueError(f"predict_chunk_rows must be >= 1, "
+                             f"got {predict_chunk_rows}")
+        self.n_clusters = n_clusters
+        self.max_iter = max_iter
+        self.tol = tol
+        self.init = init
+        self.fault = fault if fault is not None else FaultPolicy.off()
+        self.backend = backend
+        self.batch_size = batch_size
+        self.params = params
+        self.sync_every = sync_every
+        self.compute_dtype = torch.float32
+        self.predict_chunk_rows = predict_chunk_rows
+        self.random_state = random_state
+        self.device = resolve_device(device)
+
+        self._backend: AssignmentBackend = self.fault.resolve_backend(backend)
+        self._use_dmr = self.fault.dmr_enabled(self._backend)
+        if self.fault.update_dmr and self._backend.fuses_update:
+            warnings.warn(
+                f"FaultPolicy.update_dmr is a two-pass-backend knob; backend "
+                f"{self._backend.name!r} fuses the centroid update into the "
+                f"kernel epilogue; the flag is ignored here",
+                DeprecationWarning, stacklevel=2)
+        self._n_host_syncs: int = 0
+        self._counts: Optional[torch.Tensor] = None
+
+        self.cluster_centers_: Optional[torch.Tensor] = None
+        self.labels_: Optional[torch.Tensor] = None
+        self.inertia_: Optional[float] = None
+        self.n_iter_: int = 0
+        self.detected_errors_: int = 0
+
+    # ------------------------------------------------------------------
+    # internals
+    # ------------------------------------------------------------------
+
+    def _check_fitted(self) -> None:
+        if self.cluster_centers_ is None:
+            raise NotFittedError("this KMeans instance is not fitted yet; "
+                                 "call fit() or partial_fit() first")
+
+    def _tensor(self, x: Any) -> torch.Tensor:
+        if not isinstance(x, torch.Tensor):
+            x = np.asarray(x, dtype=np.float32)
+            if not x.flags.writeable:       # e.g. a view of a jax array
+                x = x.copy()
+        return torch.as_tensor(x, dtype=torch.float32, device=self.device)
+
+    def _resolve_params(self, m: int, f: int, *,
+                        backend: Optional[AssignmentBackend] = None
+                        ) -> Optional[ops.KernelParams]:
+        """Tiles for one problem shape: the explicit override, else the
+        port's H100 defaults, clamped to the shape."""
+        backend = backend if backend is not None else self._backend
+        if not backend.takes_params:
+            return None
+        p = self.params if self.params is not None else ops.DEFAULT_PARAMS
+        return ops.clamp_params(m, self.n_clusters, f, p)
+
+    def _predict_backend(self) -> AssignmentBackend:
+        """Prediction is assignment-only, at the fit's protection level:
+        the one-pass FT backend predicts through ``fused_ft``, the plain
+        one-pass backend through ``fused``."""
+        b = self._backend
+        if not b.fuses_update:
+            return b
+        return get_backend("fused_ft" if b.supports_ft else "fused")
+
+    def _apply_update(self, out: tuple, x: Any,
+                      centroids: torch.Tensor) -> tuple:
+        """One centroid update from a backend result: one-pass backends
+        carry (sums, counts); two-pass backends pay the second pass."""
+        if self._backend.fuses_update:
+            am, md, det, sums, counts = out
+            new_c = km_mod.means_from_sums(sums, counts, centroids)
+        else:
+            am, md, det = out
+            new_c, counts = km_mod.centroid_update(
+                x, am, self.n_clusters, centroids, use_dmr=self._use_dmr)
+        return am, md, det, new_c, counts
+
+    def _campaign_rng(self, offset: int = 0) -> np.random.Generator:
+        """Injection-schedule RNG, seeded exactly as the reference's."""
+        camp = self.fault.injection
+        camp_seed = camp.seed if camp is not None else 0
+        return np.random.default_rng(
+            [0x1427, camp_seed, self.random_state, offset])
+
+    def _draw_injection(self, rng: np.random.Generator, m: int, f: int,
+                        params: Optional[ops.KernelParams]) -> torch.Tensor:
+        """Per-iteration campaign draw -> injection descriptor (CPU)."""
+        camp = self.fault.injection
+        kind = self._backend.kernel_kind
+        if camp is None or not camp.enabled():
+            return fault_mod.no_step_injection(kind)
+        return fault_mod.draw_step_injection(
+            rng, m, self.n_clusters, f, params, rate=camp.rate,
+            targets=camp.resolved_targets(self._backend), kind=kind)
+
+    def init_centroids(self, x: torch.Tensor,
+                       gen: Optional[torch.Generator] = None) -> torch.Tensor:
+        if gen is None:
+            gen = torch.Generator(device=x.device)
+            gen.manual_seed(self.random_state)
+        fn = km_mod.init_kmeanspp if self.init == "kmeans++" \
+            else km_mod.init_random
+        return fn(gen, x, self.n_clusters)
+
+    # ------------------------------------------------------------------
+    # estimator API
+    # ------------------------------------------------------------------
+
+    def fit(self, x: Any, *, centroids: Any = None,
+            on_iteration: Optional[Callable] = None) -> "KMeans":
+        """Run Lloyd iterations to convergence (or ``max_iter``).
+
+        ``centroids`` seeds the run (warm start); ``on_iteration(it,
+        centroids, inertia, shift)`` is replayed from each chunk's history.
+        """
+        x = self._tensor(x)
+        if centroids is None:
+            centroids = self.init_centroids(x)
+        centroids = self._tensor(centroids)
+        return self._fit_fullbatch(x, centroids, on_iteration)
+
+    def _fit_fullbatch(self, x: torch.Tensor, centroids: torch.Tensor,
+                       on_iteration: Optional[Callable]) -> "KMeans":
+        m, f = x.shape
+        dev = x.device
+        backend = self._backend
+        params = self._resolve_params(m, f)
+        takes_inj = backend.takes_injection
+        inj_rng = self._campaign_rng()
+        plan = ops.plan_data(x, params)
+        xa = plan if backend.takes_params else plan.x
+
+        am = torch.zeros(m, dtype=torch.int32, device=dev)
+        det = torch.zeros((), dtype=torch.int32, device=dev)
+        inertia = torch.full((), float("inf"), device=dev)
+        done = torch.zeros((), dtype=torch.bool, device=dev)
+        inertia_host = float("inf")
+        it0 = 0
+        self._n_host_syncs = 0
+        while it0 < self.max_iter:
+            n_steps = min(self.sync_every, self.max_iter - it0)
+            inj_stack = None
+            if takes_inj:
+                # the chunk's campaign schedule, drawn in the reference's
+                # order and moved to the device in one copy
+                inj_stack = torch.stack([
+                    self._draw_injection(inj_rng, m, f, params)
+                    for _ in range(n_steps)]).to(dev)
+            hist = []
+            for t in range(n_steps):
+                out = backend(xa, centroids, params=params,
+                              inj=None if inj_stack is None else inj_stack[t])
+                am_b, md, det_i, new_c, counts = self._apply_update(
+                    out, xa, centroids)
+                inertia_i = md.sum()
+                shift_i = ((new_c - centroids) ** 2).sum().sqrt()
+                new_c = km_mod.reseed_empty(plan.x, new_c, counts, md)
+                # a converged fit freezes: later steps pass their state on
+                live = ~done
+                centroids = torch.where(live, new_c, centroids)
+                am = torch.where(live, am_b, am)
+                inertia = torch.where(live, inertia_i, inertia)
+                shift = torch.where(live, shift_i, 0.0)
+                det = det + torch.where(live, det_i.to(torch.int32), 0)
+                done = done | (shift < self.tol)
+                hist.append((centroids, inertia, shift, live))
+            # the chunk boundary: the only device->host read of the window
+            in_d = torch.stack([h[1] for h in hist])
+            sh_d = torch.stack([h[2] for h in hist])
+            act_d = torch.stack([h[3] for h in hist])
+            cs_d = torch.stack([h[0] for h in hist]) \
+                if on_iteration is not None else None
+            done_h, in_h, sh_h, act_h, cs_h = _host_read(
+                (done, in_d, sh_d, act_d, cs_d))
+            self._n_host_syncs += 1
+            executed = int(act_h.sum())
+            if on_iteration is not None:
+                for t in range(executed):
+                    on_iteration(it0 + t, cs_h[t], float(in_h[t]),
+                                 float(sh_h[t]))
+            if executed:
+                inertia_host = float(in_h[executed - 1])
+            it0 += executed
+            if bool(done_h):
+                break
+
+        self.cluster_centers_ = centroids
+        self.n_iter_ = max(1, it0)
+        self.detected_errors_ = int(_host_read(det))
+        self._n_host_syncs += 1
+        self._counts = None
+        self.labels_ = am
+        self.inertia_ = inertia_host
+        return self
+
+    def partial_fit(self, x: Any) -> "KMeans":
+        """One streaming update from a data block (the first call seeds):
+        centres move by count-weighted running means."""
+        x = self._tensor(x)
+        if self.cluster_centers_ is None:
+            self.cluster_centers_ = self.init_centroids(x)
+            self.detected_errors_ = 0
+            self.n_iter_ = 0
+        if self._counts is None:
+            self._counts = torch.zeros(self.n_clusters, device=self.device)
+        backend = self._backend
+        params = self._resolve_params(x.shape[0], x.shape[1])
+        xa = x if params is None else ops.plan_data(x, params)
+        inj = None
+        if backend.takes_injection:
+            inj = self._draw_injection(self._campaign_rng(self.n_iter_),
+                                       x.shape[0], x.shape[1],
+                                       params).to(self.device)
+        c = self.cluster_centers_
+        out = backend(xa, c, params=params, inj=inj)
+        if backend.fuses_update:
+            am, md, det, sums, bcnt = out
+        else:
+            am, md, det = out
+            sums, bcnt = km_mod.protected_sums(xa, am, self.n_clusters,
+                                               use_dmr=self._use_dmr)
+        counts = self._counts + bcnt
+        eta = (bcnt / counts.clamp_min(1.0))[:, None]
+        bmean = sums / bcnt.clamp_min(1.0)[:, None]
+        self.cluster_centers_ = torch.where(
+            (bcnt > 0)[:, None], (1.0 - eta) * c + eta * bmean, c)
+        self._counts = counts
+        self.labels_ = am
+        inertia_h, det_h = _host_read((md.sum(), det))
+        self.inertia_ = float(inertia_h)
+        self.n_iter_ += 1
+        self.detected_errors_ += int(det_h)
+        return self
+
+    def _row_chunks(self, m: int) -> list[slice]:
+        chunk = self.predict_chunk_rows or _PREDICT_CHUNK_ROWS
+        return [slice(s, min(s + chunk, m)) for s in range(0, m, chunk)]
+
+    def _predict_block(self, x: torch.Tensor) -> tuple:
+        if x.shape[0] == 0:
+            return (torch.zeros(0, dtype=torch.int32, device=x.device),
+                    torch.zeros(0, device=x.device),
+                    torch.zeros((), dtype=torch.int32, device=x.device))
+        backend = self._predict_backend()
+        params = self._resolve_params(x.shape[0], x.shape[1], backend=backend)
+        if backend.takes_injection:
+            return backend(x, self.cluster_centers_, params=params,
+                           inj=_daft.no_injection())
+        return backend(x, self.cluster_centers_, params=params)
+
+    def _predict_full(self, x: torch.Tensor) -> tuple:
+        parts = [self._predict_block(x[s]) for s in self._row_chunks(
+            x.shape[0])] or [self._predict_block(x)]
+        return (torch.cat([p[0] for p in parts]),
+                torch.cat([p[1] for p in parts]),
+                torch.stack([p[2] for p in parts]).sum())
+
+    def predict(self, x: Any) -> torch.Tensor:
+        """Nearest-centroid labels for new data (no injection, ever)."""
+        self._check_fitted()
+        return self._predict_full(self._tensor(x))[0]
+
+    def fit_predict(self, x: Any) -> torch.Tensor:
+        return self.fit(x).labels_
+
+    def transform(self, x: Any) -> torch.Tensor:
+        """Distances to every centroid, (M, n_clusters), chunked over rows."""
+        self._check_fitted()
+        x = self._tensor(x)
+        blocks = [ref.distance_matrix(x[s], self.cluster_centers_)
+                  .clamp_min(0.0).sqrt() for s in self._row_chunks(x.shape[0])]
+        return torch.cat(blocks) if blocks else torch.zeros(
+            (0, self.n_clusters), device=x.device)
+
+    def score(self, x: Any) -> float:
+        """Negative inertia on ``x`` (higher is better)."""
+        self._check_fitted()
+        return -float(self._predict_full(self._tensor(x))[1].sum())
+
+    def to_service(self, **_: Any) -> Any:
+        raise NotImplementedError(
+            "the serving layer (repro.serve) is not ported yet; it comes with "
+            "a later slice (ROADMAP Queue 1, item 8)")
+
+    # ------------------------------------------------------------------
+    # serializable state
+    # ------------------------------------------------------------------
+
+    def get_state(self) -> dict:
+        """Fitted state as a flat dict of plain types and numpy arrays, the
+        reference's layout plus ``config["device"]``."""
+        self._check_fitted()
+        camp = self.fault.injection
+        return {
+            "cluster_centers": self.cluster_centers_.cpu().numpy(),
+            "counts": (None if self._counts is None
+                       else self._counts.cpu().numpy()),
+            "n_iter": int(self.n_iter_),
+            "inertia": (None if self.inertia_ is None
+                        else float(self.inertia_)),
+            "detected_errors": int(self.detected_errors_),
+            "config": {
+                "n_clusters": self.n_clusters,
+                "max_iter": self.max_iter,
+                "tol": self.tol,
+                "init": self.init,
+                "backend": self.backend,
+                "batch_size": self.batch_size,
+                "sync_every": self.sync_every,
+                "compute_dtype": "float32",
+                "predict_chunk_rows": self.predict_chunk_rows,
+                "random_state": self.random_state,
+                "params": (None if self.params is None else
+                           [self.params.block_m, self.params.block_k,
+                            self.params.block_f]),
+                "fault": {
+                    "mode": self.fault.mode,
+                    "update_dmr": self.fault.update_dmr,
+                    "injection": (None if camp is None else {
+                        "rate": camp.rate, "seed": camp.seed,
+                        "targets": camp.targets}),
+                },
+                "device": str(self.device),
+            },
+        }
+
+    @classmethod
+    def from_state(cls, state: dict, *, device: Any = None) -> "KMeans":
+        """Rebuild a fitted estimator from :meth:`get_state` output (or from
+        ``repro_torch.convert.from_reference_state``). ``device`` overrides
+        the state's device; the default is "cuda"."""
+        cfg = state["config"]
+        fp = cfg["fault"]
+        camp = fp.get("injection")
+        fault = FaultPolicy(
+            mode=fp["mode"], update_dmr=fp["update_dmr"],
+            injection=None if camp is None else InjectionCampaign(**camp))
+        tiles = cfg.get("params")
+        km = cls(cfg["n_clusters"], max_iter=cfg["max_iter"], tol=cfg["tol"],
+                 init=cfg["init"], fault=fault, backend=cfg["backend"],
+                 batch_size=cfg["batch_size"],
+                 params=None if tiles is None else ops.KernelParams(*tiles),
+                 sync_every=cfg.get("sync_every", 10),
+                 compute_dtype=cfg.get("compute_dtype", "float32"),
+                 predict_chunk_rows=cfg.get("predict_chunk_rows"),
+                 random_state=cfg["random_state"],
+                 device=device or cfg.get("device") or "cuda")
+        km.cluster_centers_ = km._tensor(state["cluster_centers"])
+        counts = state.get("counts")
+        km._counts = None if counts is None else km._tensor(counts)
+        km.n_iter_ = int(state["n_iter"])
+        inertia = state.get("inertia")
+        km.inertia_ = None if inertia is None else float(inertia)
+        km.detected_errors_ = int(state.get("detected_errors", 0))
+        return km

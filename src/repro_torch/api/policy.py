@@ -1,0 +1,124 @@
+"""Typed fault-tolerance policy (counterpart of ``repro.api.policy``).
+
+``mode`` sets the protection of the assignment step: ``"off"`` (no
+checksums) or ``"correct"`` (the fused online ABFT detect -> locate ->
+correct kernel, resolved to the one-pass FT kernel, whose epilogue
+checksums also protect the update). ``"detect"`` (offline checksums on the
+materialised product) belongs to a later slice of the port and raises.
+``update_dmr`` protects the update of two-pass backends; ``injection``
+attaches an SEU campaign (§V-C). Resolution is the same on every device:
+``off`` -> ``fused``, ``correct`` and any campaign -> ``lloyd_ft``.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+from repro_torch.api.registry import (AssignmentBackend, BackendCapabilityError,
+                                      get_backend)
+
+MODES = ("off", "detect", "correct")
+TARGETS = ("auto", "distance", "update", "both")
+
+
+@dataclasses.dataclass(frozen=True)
+class InjectionCampaign:
+    """SEU injection campaign (paper §II-A): ``rate`` expected injections
+    per Lloyd step (Bernoulli for ``rate <= 1``), ``targets`` the intervals
+    it may corrupt (``"distance"``, ``"update"``, ``"both"`` or ``"auto"``
+    = every interval the backend protects), ``seed`` the schedule's seed."""
+
+    rate: float = 1.0
+    seed: int = 0
+    targets: str = "auto"
+
+    def __post_init__(self) -> None:
+        if self.rate < 0:
+            raise ValueError(f"InjectionCampaign.rate must be >= 0, "
+                             f"got {self.rate}")
+        if self.targets not in TARGETS:
+            raise ValueError(f"InjectionCampaign.targets must be one of "
+                             f"{TARGETS}, got {self.targets!r}")
+
+    def enabled(self) -> bool:
+        return self.rate > 0
+
+    def resolved_targets(self, backend: AssignmentBackend) -> tuple[str, ...]:
+        """The concrete interval list for a resolved backend."""
+        one_pass_ft = backend.fuses_update and backend.takes_injection
+        if self.targets in ("update", "both") and not one_pass_ft:
+            raise BackendCapabilityError(
+                f"injection targets={self.targets!r} corrupts the update "
+                f"epilogue, which only a one-pass FT backend protects; "
+                f"backend {backend.name!r} is not one -- use "
+                f"backend='lloyd_ft' or targets='distance'")
+        if self.targets == "distance":
+            return ("distance",)
+        if self.targets == "update":
+            return ("update",)
+        return ("distance", "update") if one_pass_ft else ("distance",)
+
+
+@dataclasses.dataclass(frozen=True)
+class FaultPolicy:
+    """Protection policy for one estimator; :meth:`resolve_backend` picks
+    the kernel."""
+
+    mode: str = "off"
+    update_dmr: Optional[bool] = None
+    injection: Optional[InjectionCampaign] = None
+
+    def __post_init__(self) -> None:
+        if self.mode not in MODES:
+            raise ValueError(f"FaultPolicy.mode must be one of {MODES}, "
+                             f"got {self.mode!r}")
+        if self.injection is not None and self.mode == "off":
+            raise ValueError("an injection campaign needs a protected "
+                             "assignment backend; use mode='correct'")
+
+    @classmethod
+    def off(cls) -> "FaultPolicy":
+        """No protection anywhere (performance baseline)."""
+        return cls(mode="off", update_dmr=False)
+
+    @classmethod
+    def correct(cls, *, update_dmr: Optional[bool] = None,
+                injection: Optional[InjectionCampaign] = None
+                ) -> "FaultPolicy":
+        return cls(mode="correct", update_dmr=update_dmr, injection=injection)
+
+    @property
+    def protected(self) -> bool:
+        return self.mode != "off"
+
+    def dmr_enabled(self, backend: AssignmentBackend) -> bool:
+        """DMR never on one-pass backends, on by default for two-pass."""
+        if backend.fuses_update:
+            return False
+        return True if self.update_dmr is None else self.update_dmr
+
+    def resolve_backend(self, name: Optional[str] = None) -> AssignmentBackend:
+        """Pick the assignment backend: ``name`` pins one (validated against
+        the policy); otherwise ``off`` -> ``fused`` and ``correct`` or a
+        campaign -> ``lloyd_ft``."""
+        if self.mode == "detect":
+            raise NotImplementedError(
+                "FaultPolicy(mode='detect') (the abft_offline baseline) is "
+                "not ported yet; it comes with a later slice (ROADMAP Queue "
+                "1, item 4)")
+        if name is None:
+            name = "lloyd_ft" if self.protected else "fused"
+        backend = get_backend(name)
+        if self.protected and not backend.supports_ft:
+            raise BackendCapabilityError(
+                f"FaultPolicy(mode={self.mode!r}) needs a fault-tolerant "
+                f"assignment backend, but {backend.name!r} declares "
+                f"supports_ft=False")
+        if self.injection is not None:
+            if not backend.takes_injection:
+                raise BackendCapabilityError(
+                    f"injection campaign requires takes_injection=True, but "
+                    f"backend {backend.name!r} cannot inject in-kernel; use "
+                    f"backend='lloyd_ft' (or 'fused_ft')")
+            self.injection.resolved_targets(backend)
+        return backend

@@ -1,0 +1,88 @@
+"""Cluster-assignment backends of the main path (counterpart of
+``repro.core.assignment``).
+
+Each maps (x (M, F) or a DataPlan, c (K, F)) to (assign (M,) int32, true
+squared distance (M,) f32, detected errors), one-pass backends adding
+(sums (K, F), counts (K,)):
+
+  gemm_fused  plain PyTorch: full distance matrix, then argmin (the
+              cuML-style baseline; no kernel of this package)
+  fused       the fused distance/argmin kernel (paper V4/V5)
+  fused_ft    the fused kernel with online dual-checksum ABFT (§IV)
+  lloyd       the one-pass Lloyd kernel (assignment + update sums)
+  lloyd_ft    the one-pass kernel with ABFT on the distance GEMM and a
+              checksum-verified update: the ``correct`` protection path
+
+On the CPU every kernel backend runs its kernel's plain version.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.api.registry import AssignmentBackend, register_backend
+from repro_torch.kernels import ops, ref
+
+
+def _zero(device: torch.device) -> torch.Tensor:
+    return torch.zeros((), dtype=torch.int32, device=device)
+
+
+def _row_norms(x) -> torch.Tensor:
+    """True-distance offset: the plan's precomputed norms, else computed."""
+    if isinstance(x, ops.DataPlan):
+        return x.xn
+    return (x.float() ** 2).sum(1)
+
+
+def _data(x) -> torch.Tensor:
+    return x.x if isinstance(x, ops.DataPlan) else x
+
+
+def assign_gemm_fused(x, c: torch.Tensor):
+    d = ref.distance_matrix(_data(x), c)
+    mn, am = ref.first_min(d)
+    return am, mn, _zero(d.device)
+
+
+def assign_fused(x, c: torch.Tensor, params=None):
+    am, md = ops.fused_assign(x, c, params)
+    return am, md + _row_norms(x), _zero(md.device)
+
+
+def assign_fused_ft(x, c: torch.Tensor, params=None,
+                    inj: Optional[torch.Tensor] = None):
+    am, md, det = ops.fused_assign_ft(x, c, params, inj=inj)
+    return am, md + _row_norms(x), det
+
+
+def assign_lloyd(x, c: torch.Tensor, params=None):
+    am, md, sums, counts = ops.fused_lloyd(x, c, params)
+    return am, md, _zero(md.device), sums, counts
+
+
+def assign_lloyd_ft(x, c: torch.Tensor, params=None,
+                    inj: Optional[torch.Tensor] = None):
+    am, md, sums, counts, det = ops.fused_lloyd_ft(x, c, params, inj=inj)
+    return am, md, det, sums, counts
+
+
+register_backend(AssignmentBackend(
+    "gemm_fused", assign_gemm_fused,
+    doc="plain PyTorch distance matrix + argmin (cuML-style baseline)"))
+register_backend(AssignmentBackend(
+    "fused", assign_fused, takes_params=True,
+    doc="fused distance/argmin CUDA kernel (paper V4/V5)"))
+register_backend(AssignmentBackend(
+    "fused_ft", assign_fused_ft, supports_ft=True, takes_params=True,
+    takes_injection=True,
+    doc="fused kernel + dual-checksum online ABFT correction (paper §IV)"))
+register_backend(AssignmentBackend(
+    "lloyd", assign_lloyd, takes_params=True, fuses_update=True,
+    doc="one-pass Lloyd CUDA kernel: assignment + per-cluster sums"))
+register_backend(AssignmentBackend(
+    "lloyd_ft", assign_lloyd_ft, supports_ft=True, takes_params=True,
+    takes_injection=True, fuses_update=True,
+    doc="one-pass FT Lloyd CUDA kernel: ABFT on the distance GEMM + "
+        "checksum-verified update"))

@@ -1,0 +1,83 @@
+"""K-means numerics behind the estimator (counterpart of
+``repro.core.kmeans``): seeding, the DMR-protected two-pass update, the
+one-pass means and empty-cluster reseeding.
+
+Randomness comes from an explicit ``torch.Generator`` on the data's device;
+it cannot reproduce ``jax.random`` draws, so seeding is held to its
+properties (K distinct real rows, deterministic per seed), not to samples.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core import dmr as dmr_mod
+from repro_torch.kernels import ops, ref
+
+
+def init_random(gen: torch.Generator, x: torch.Tensor, k: int) -> torch.Tensor:
+    """K distinct rows drawn uniformly."""
+    idx = torch.randperm(x.shape[0], generator=gen, device=x.device)[:k]
+    return x[idx]
+
+
+def init_kmeanspp(gen: torch.Generator, x: torch.Tensor,
+                  k: int) -> torch.Tensor:
+    """k-means++ seeding (D^2 sampling). Each round draws on the device, so
+    seeding never synchronises with the host."""
+    m = x.shape[0]
+    first = torch.randint(m, (1,), generator=gen, device=x.device)
+    centroids = torch.empty((k, x.shape[1]), dtype=x.dtype, device=x.device)
+    centroids[0] = x[first[0]]
+    d2 = ((x - centroids[0]) ** 2).sum(1)
+    for i in range(1, k):
+        probs = d2 / d2.sum().clamp_min(1e-30)
+        idx = torch.multinomial(probs, 1, generator=gen)
+        centroids[i] = x[idx[0]]
+        d2 = torch.minimum(d2, ((x - centroids[i]) ** 2).sum(1))
+    return centroids
+
+
+def protected_sums(x, assign: torch.Tensor, k: int, *,
+                   use_dmr: bool = True):
+    """Per-cluster (sums, counts), optionally under DMR. ``x`` is the raw
+    (M, F) data or a :class:`~repro_torch.kernels.ops.DataPlan`. A padded
+    plan sums in the one-pass kernels' order
+    (:func:`~repro_torch.kernels.ops.tiled_update`), which recomputes on a
+    DMR mismatch only, gated on the device. The raw path (backends without
+    tiles) runs a plain reduction; under DMR it always computes the
+    recompute and selects it by the flag, so the fit never waits on the
+    host: three updates per step."""
+    if isinstance(x, ops.DataPlan) and x.params is not None:
+        return ops.tiled_update(x, assign, k, use_dmr=use_dmr)
+    if isinstance(x, ops.DataPlan):
+        x = x.x
+    if not use_dmr:
+        return ref.centroid_update(x, assign, k)
+    (sums, counts), bad = dmr_mod.dmr(ref.centroid_update, x, assign, k)
+    sums3, counts3 = ref.centroid_update(x, assign, k)
+    return torch.where(bad, sums3, sums), torch.where(bad, counts3, counts)
+
+
+def means_from_sums(sums: torch.Tensor, counts: torch.Tensor,
+                    prev: torch.Tensor) -> torch.Tensor:
+    """New centroids; empty clusters keep their previous centroid."""
+    means = sums / counts.clamp_min(1.0)[:, None]
+    return torch.where((counts > 0)[:, None], means, prev)
+
+
+def centroid_update(x, assign: torch.Tensor, k: int,
+                    prev: torch.Tensor, *, use_dmr: bool = True):
+    """Means of assigned points; empty clusters keep their previous one."""
+    sums, counts = protected_sums(x, assign, k, use_dmr=use_dmr)
+    return means_from_sums(sums, counts, prev), counts
+
+
+def reseed_empty(x: torch.Tensor, centroids: torch.Tensor,
+                 counts: torch.Tensor, min_dist: torch.Tensor) -> torch.Tensor:
+    """Move empty clusters onto the points farthest from their centroid,
+    farthest first; a stable sort, so ties keep row order exactly as the
+    reference's ``jnp.argsort`` does. Draws nothing at random."""
+    order = torch.argsort(-min_dist, stable=True)
+    empty_rank = torch.cumsum((counts == 0).long(), 0) - 1
+    donor = order[empty_rank.clamp(0, x.shape[0] - 1)]
+    return torch.where((counts == 0)[:, None], x[donor], centroids)

@@ -1,0 +1,609 @@
+// Hand-written Hopper (sm_90a) kernels for the FT K-means main path.
+//
+// One templated tile kernel, lloyd_tile_kernel<BM, kFT, kUpdate>, carries the
+// four Pallas TPU kernels of the reference package:
+//
+//   kFT  kUpdate   replaces (src/repro/kernels/...)
+//   no   no        distance_argmin.py    distance_argmin
+//   no   yes       lloyd_step.py         lloyd_step
+//   yes  no        distance_argmin_ft.py distance_argmin_ft
+//   yes  yes       lloyd_step_ft.py      lloyd_step_ft
+//
+// The epilogues are single __device__ definitions (tile_min_argmin, fold_min,
+// locate_and_correct, emit_update) so the four variants agree bit for bit by
+// construction, as the reference's shared tile_min_argmin/_emit_update do.
+// update_tiles_kernel launches emit_update alone: over every row tile it is
+// the two-pass centroid update (ops.tiled_update), in the one-pass kernels'
+// summation order by construction; for one row tile it is the recompute of a
+// tile whose update checksums mismatched (ops._verify_update_partials).
+//
+// Design (right and simple first):
+//   * one thread block owns one row tile of BM rows (the TPU grid's row axis);
+//     a loop over centroid tiles of kBK = 128 and feature chunks of kChunk =
+//     32 replaces the TPU's sequential (centroid, feature) grid axes;
+//   * X and C chunks are staged transposed in shared memory; each of the 256
+//     threads keeps a (BM/16) x 8 f32 accumulator in registers (CUDA-core FMA,
+//     no tensor cores, no TF32);
+//   * at the end of a centroid tile the accumulator goes to shared memory
+//     (Ds); row r's min/argmin is scanned by thread r with a strict '<', so
+//     the lowest index wins a tie inside a tile and the earlier tile wins a
+//     tie across tiles -- the jnp.argmin tie-break;
+//   * ABFT (kFT): expected e1/e2 column and row checksums accumulate from the
+//     staged chunks; at each (row tile, centroid tile) interval the observed
+//     checksums of Ds are compared, a fault is located by the e2/e1 ratio and
+//     corrected in Ds before the min/argmin scan;
+//   * update (kUpdate): rows are ranked by (cluster, row) in shared memory and
+//     each (k, f) partial sum is one thread's sequential sum over its
+//     cluster's rows in row order -- no atomics, so the sums are
+//     deterministic and a recompute reproduces them bit for bit.
+//
+// Bound on the H100: the distance GEMM, 2*M*Kp*Fp FLOPs on f32 CUDA cores
+// (67 TFLOP/s), above the bytes of X (read once per centroid tile, mostly
+// from L2) and the (M/BM, Kp, Fp) partial-sum buffer of the update variants.
+// wgmma, TMA and a shared-memory X stash are later work.
+//
+// Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler
+// -fPIC (no --use_fast_math: +inf norms of padded centroids must stay +inf
+// and the e2/e1 division must round correctly).
+#include <cuda_runtime.h>
+#include <cfloat>
+#include <cstddef>
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int kChunk = 32;   // features staged per step
+constexpr int kBK = 128;     // centroid tile
+constexpr int kTN = kBK / 16;
+
+// Injection descriptor slots, as in the reference:
+//   distance slot: [0] enabled [1] m_tile [2] c_tile [3] f_tile [4] row
+//                  [5] col [6] delta (f32 bits)
+//   update slot (lloyd_step_ft only, words 7..11): [7] enabled [8] m_tile
+//                  [9] cluster row [10] feature col [11] delta (f32 bits)
+struct DistInj {
+  int enabled, m_tile, c_tile, f_tile, row, col;
+  float delta;
+};
+struct UpdInj {
+  int enabled, m_tile, row, col;
+  float delta;
+};
+
+__device__ __forceinline__ DistInj load_dist_inj(const int* p) {
+  DistInj d{p[0], p[1], p[2], p[3], p[4], p[5], __int_as_float(p[6])};
+  return d;
+}
+__device__ __forceinline__ UpdInj load_upd_inj(const int* p) {
+  UpdInj u{p[7], p[8], p[9], p[10], __int_as_float(p[11])};
+  return u;
+}
+
+// Shared-memory layout of one block (dynamic shared memory, 4-byte words).
+template <int BM>
+struct Layout {
+  static constexpr int kDs = 0;                          // BM x (kBK+1)
+  static constexpr int kXs = kDs + BM * (kBK + 1);       // kChunk x (BM+1)
+  static constexpr int kCs = kXs + kChunk * (BM + 1);    // kChunk x (kBK+1)
+  static constexpr int kCn = kCs + kChunk * (kBK + 1);   // kBK
+  static constexpr int kCol1 = kCn + kBK;                // expected, kBK
+  static constexpr int kCol2 = kCol1 + kBK;
+  static constexpr int kRow1 = kCol2 + kBK;              // expected, BM
+  static constexpr int kRow2 = kRow1 + BM;
+  static constexpr int kResC1 = kRow2 + BM;              // residuals
+  static constexpr int kResC2 = kResC1 + kBK;
+  static constexpr int kResR1 = kResC2 + kBK;
+  static constexpr int kResR2 = kResR1 + BM;
+  static constexpr int kPart = kResR2 + BM;              // 4 x 8 x kChunk
+  static constexpr int kEnc = kPart + 4 * 8 * kChunk;    // 4 x kChunk
+  static constexpr int kAm = kEnc + 4 * kChunk;          // ints below
+  static constexpr int kKey = kAm + BM;
+  static constexpr int kOrder = kKey + BM;
+  static constexpr int kSKey = kOrder + BM;
+  static constexpr int kVerdict = kSKey + BM;            // 4 words
+  static constexpr int kWords = kVerdict + 4;
+  static constexpr size_t kBytes = size_t(kWords) * 4;
+};
+
+// Update-only layout (recompute kernel): the int region alone.
+template <int BM>
+struct UpdLayout {
+  static constexpr int kAm = 0, kKey = BM, kOrder = 2 * BM, kSKey = 3 * BM;
+  static constexpr int kWords = 4 * BM;
+};
+
+// --- epilogue 1: min/argmin of one row of a distance tile -----------------
+// d = cn - 2*acc; the first (lowest-index) minimum wins inside the tile.
+__device__ __forceinline__ void tile_min_argmin(const float* ds_row,
+                                                const float* cn, int base_col,
+                                                float* lmin, int* larg) {
+  float best = cn[0] - 2.0f * ds_row[0];
+  int arg = 0;
+  for (int c = 1; c < kBK; ++c) {
+    float d = cn[c] - 2.0f * ds_row[c];
+    if (d < best) {
+      best = d;
+      arg = c;
+    }
+  }
+  *lmin = best;
+  *larg = arg + base_col;
+}
+
+// --- epilogue 2: fold a tile's (min, argmin) into the running row state ---
+// Strict compare: the earlier centroid tile wins ties.
+__device__ __forceinline__ void fold_min(float* best, int* arg, float lmin,
+                                         int larg) {
+  if (lmin < *best) {
+    *best = lmin;
+    *arg = larg;
+  }
+}
+
+__device__ __forceinline__ int clamp_index(float v, int hi) {
+  // (round(r) - 1) -> int32 -> clip(0, hi - 1), saturating like XLA's convert
+  v = fminf(fmaxf(v, -1.0f), float(hi));
+  int i = int(v);
+  return i < 0 ? 0 : (i > hi - 1 ? hi - 1 : i);
+}
+
+// Warp-wide (max |v|, first index) over n values.
+__device__ __forceinline__ void warp_absmax(const float* v, int n, int lane,
+                                            float* out_v, int* out_i) {
+  float bv = -1.0f;
+  int bi = 0x7fffffff;
+  for (int t = lane; t < n; t += 32) {
+    float a = fabsf(v[t]);
+    if (a > bv) {
+      bv = a;
+      bi = t;
+    }
+  }
+  for (int off = 16; off > 0; off >>= 1) {
+    float ov = __shfl_xor_sync(0xffffffffu, bv, off);
+    int oi = __shfl_xor_sync(0xffffffffu, bi, off);
+    if (ov > bv || (ov == bv && oi < bi)) {
+      bv = ov;
+      bi = oi;
+    }
+  }
+  *out_v = bv;
+  *out_i = bi;
+}
+
+__device__ __forceinline__ float warp_max(float v) {
+  for (int off = 16; off > 0; off >>= 1)
+    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
+  return v;
+}
+
+// --- epilogue 3: ABFT verification interval of one (row, centroid) tile ---
+// Run by warp 0 after the residuals are in shared memory. Detect against
+// thr = factor * max(max|col1|, max|row1|, 1) (the expected, clean side),
+// locate with the e2/e1 ratio, correct Ds in place. Returns 1 if detected.
+template <int BM>
+__device__ int locate_and_correct(float* sm, int lane, float thr_factor) {
+  using L = Layout<BM>;
+  const float* col1 = sm + L::kCol1;
+  const float* row1 = sm + L::kRow1;
+  const float* rc1 = sm + L::kResC1;
+  const float* rc2 = sm + L::kResC2;
+  const float* rr1 = sm + L::kResR1;
+  const float* rr2 = sm + L::kResR2;
+  float sc = 0.0f;
+  for (int t = lane; t < kBK; t += 32) sc = fmaxf(sc, fabsf(col1[t]));
+  for (int t = lane; t < BM; t += 32) sc = fmaxf(sc, fabsf(row1[t]));
+  const float scale = fmaxf(warp_max(sc), 1.0f);
+  const float thr = thr_factor * scale;
+  float max_c, max_r;
+  int j, i_direct;
+  warp_absmax(rc1, kBK, lane, &max_c, &j);
+  warp_absmax(rr1, BM, lane, &max_r, &i_direct);
+  const int detected = (max_c > thr) || (max_r > thr);
+  if (lane == 0 && detected) {
+    const float dcol = rc1[j];
+    const float safe = dcol == 0.0f ? 1.0f : dcol;
+    const bool use_ratio = fabsf(dcol) > thr;
+    const int i = use_ratio ? clamp_index(rintf(rc2[j] / safe) - 1.0f, BM)
+                            : i_direct;
+    const float drow = rr1[i];
+    const float delta = fabsf(dcol) > fabsf(drow) ? dcol : drow;
+    const float safe_r = drow == 0.0f ? 1.0f : drow;
+    const int jj = use_ratio ? j
+                             : clamp_index(rintf(rr2[i] / safe_r) - 1.0f, kBK);
+    sm[L::kDs + i * (kBK + 1) + jj] -= delta;
+  }
+  return detected;
+}
+
+// --- epilogue 4: the one-pass update of one row tile ----------------------
+// am: the tile's final assignment (shared). Rows >= true_m are padding and
+// enter neither sums nor counts. Writes the tile's (kp, fp) partial sums and
+// (kp,) counts. Each (k, f) sum starts at 0 and adds its cluster's rows in
+// row order. Called by all threads of the block.
+template <int BM>
+__device__ void emit_update(const int* am, int* key, int* order, int* skey,
+                            const float* __restrict__ x, int m0, int true_m,
+                            int kp, int fp, float* __restrict__ sums,
+                            float* __restrict__ counts) {
+  const int tid = threadIdx.x;
+  if (tid < BM) key[tid] = (m0 + tid < true_m) ? am[tid] : -1;
+  __syncthreads();
+  if (tid < BM) {
+    const int kr = key[tid];
+    int rank = 0;
+    for (int r = 0; r < BM; ++r) {
+      const int kq = key[r];
+      rank += (kq < kr) || (kq == kr && r < tid);
+    }
+    order[rank] = tid;
+  }
+  __syncthreads();
+  if (tid < BM) skey[tid] = key[order[tid]];
+  __syncthreads();
+  const int warp = tid / 32, lane = tid % 32;
+  for (int k = warp; k < kp; k += kThreads / 32) {
+    // [lo, hi): the rows of cluster k in the sorted order
+    int lo = 0, hi = BM;
+    while (lo < hi) {
+      const int mid = (lo + hi) / 2;
+      if (skey[mid] < k) lo = mid + 1; else hi = mid;
+    }
+    int end = lo;
+    hi = BM;
+    while (end < hi) {
+      const int mid = (end + hi) / 2;
+      if (skey[mid] < k + 1) end = mid + 1; else hi = mid;
+    }
+    if (lane == 0) counts[k] = float(end - lo);
+    for (int f = lane; f < fp; f += 32) {
+      float s = 0.0f;
+      for (int p = lo; p < end; ++p)
+        s += x[size_t(m0 + order[p]) * fp + f];
+      sums[size_t(k) * fp + f] = s;
+    }
+  }
+}
+
+template <int BM, bool kFT, bool kUpdate>
+__global__ void __launch_bounds__(kThreads)
+lloyd_tile_kernel(const float* __restrict__ x, const float* __restrict__ c,
+                  const float* __restrict__ cn, const int* __restrict__ inj,
+                  float* __restrict__ mind, int* __restrict__ argmin,
+                  int* __restrict__ det, float* __restrict__ sums,
+                  float* __restrict__ counts, float* __restrict__ ucheck,
+                  float* __restrict__ ccheck, int kp, int fp, int bf,
+                  int true_m, float thr_factor) {
+  using L = Layout<BM>;
+  constexpr int kTM = BM / 16;
+  extern __shared__ float sm[];
+  float* Ds = sm + L::kDs;
+  float* Xs = sm + L::kXs;
+  float* Cs = sm + L::kCs;
+  float* cnS = sm + L::kCn;
+  int* smi = reinterpret_cast<int*>(sm);
+
+  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+  const int lane = tid % 32;
+  const int mt = blockIdx.x, m0 = mt * BM;
+  const int nkt = kp / kBK, nch = fp / kChunk, ch_per_tile = bf / kChunk;
+  DistInj dinj{0, 0, 0, 0, 0, 0, 0.0f};
+  if (kFT) dinj = load_dist_inj(inj);
+
+  float best = FLT_MAX;   // running row state, owned by thread tid < BM
+  int best_arg = 0;
+  int det_count = 0;      // owned by thread 0
+
+  for (int kt = 0; kt < nkt; ++kt) {
+    const int c0 = kt * kBK;
+    float acc[kTM][kTN];
+#pragma unroll
+    for (int i = 0; i < kTM; ++i)
+#pragma unroll
+      for (int j = 0; j < kTN; ++j) acc[i][j] = 0.0f;
+    if (tid < kBK) {
+      cnS[tid] = cn[c0 + tid];
+      if (kFT) sm[L::kCol1 + tid] = sm[L::kCol2 + tid] = 0.0f;
+    } else if (kFT && tid - kBK < BM) {
+      sm[L::kRow1 + tid - kBK] = sm[L::kRow2 + tid - kBK] = 0.0f;
+    }
+
+    for (int ch = 0; ch < nch; ++ch) {
+      const int f0 = ch * kChunk;
+      for (int idx = tid; idx < BM * kChunk; idx += kThreads) {
+        const int r = idx / kChunk, f = idx % kChunk;
+        Xs[f * (BM + 1) + r] = x[size_t(m0 + r) * fp + f0 + f];
+      }
+      for (int idx = tid; idx < kBK * kChunk; idx += kThreads) {
+        const int r = idx / kChunk, f = idx % kChunk;
+        Cs[f * (kBK + 1) + r] = c[size_t(c0 + r) * fp + f0 + f];
+      }
+      __syncthreads();
+#pragma unroll 4
+      for (int f = 0; f < kChunk; ++f) {
+        float a[kTM], b[kTN];
+#pragma unroll
+        for (int i = 0; i < kTM; ++i) a[i] = Xs[f * (BM + 1) + ty + 16 * i];
+#pragma unroll
+        for (int j = 0; j < kTN; ++j) b[j] = Cs[f * (kBK + 1) + tx + 16 * j];
+#pragma unroll
+        for (int i = 0; i < kTM; ++i)
+#pragma unroll
+          for (int j = 0; j < kTN; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+      }
+      if (kFT) {
+        // expected checksums from the resident chunk: e1/e2 encodings of
+        // the X and C chunks (8 partials per feature, then a fixed-order sum)
+        float* part = sm + L::kPart;
+        float* enc = sm + L::kEnc;
+        {
+          const int f = tid % kChunk, s = tid / kChunk;
+          float x1 = 0.0f, x2 = 0.0f, c1 = 0.0f, c2 = 0.0f;
+          for (int r = s; r < BM; r += 8) {
+            const float v = Xs[f * (BM + 1) + r];
+            x1 += v;
+            x2 = fmaf(float(r + 1), v, x2);
+          }
+          for (int r = s; r < kBK; r += 8) {
+            const float v = Cs[f * (kBK + 1) + r];
+            c1 += v;
+            c2 = fmaf(float(r + 1), v, c2);
+          }
+          part[(0 * 8 + s) * kChunk + f] = x1;
+          part[(1 * 8 + s) * kChunk + f] = x2;
+          part[(2 * 8 + s) * kChunk + f] = c1;
+          part[(3 * 8 + s) * kChunk + f] = c2;
+        }
+        __syncthreads();
+        if (tid < 4 * kChunk) {
+          const int q = tid / kChunk, f = tid % kChunk;
+          float s = 0.0f;
+          for (int p = 0; p < 8; ++p) s += part[(q * 8 + p) * kChunk + f];
+          enc[q * kChunk + f] = s;
+        }
+        __syncthreads();
+        if (tid < kBK) {
+          float s1 = sm[L::kCol1 + tid], s2 = sm[L::kCol2 + tid];
+          for (int f = 0; f < kChunk; ++f) {
+            const float cv = Cs[f * (kBK + 1) + tid];
+            s1 = fmaf(enc[0 * kChunk + f], cv, s1);
+            s2 = fmaf(enc[1 * kChunk + f], cv, s2);
+          }
+          sm[L::kCol1 + tid] = s1;
+          sm[L::kCol2 + tid] = s2;
+        } else if (tid - kBK < BM) {
+          const int r = tid - kBK;
+          float s1 = sm[L::kRow1 + r], s2 = sm[L::kRow2 + r];
+          for (int f = 0; f < kChunk; ++f) {
+            const float xv = Xs[f * (BM + 1) + r];
+            s1 = fmaf(xv, enc[2 * kChunk + f], s1);
+            s2 = fmaf(xv, enc[3 * kChunk + f], s2);
+          }
+          sm[L::kRow1 + r] = s1;
+          sm[L::kRow2 + r] = s2;
+        }
+        // simulated SEU: after the last chunk of feature tile f_tile
+        if (dinj.enabled && mt == dinj.m_tile && kt == dinj.c_tile &&
+            ch == (dinj.f_tile + 1) * ch_per_tile - 1) {
+#pragma unroll
+          for (int i = 0; i < kTM; ++i)
+#pragma unroll
+            for (int j = 0; j < kTN; ++j)
+              if (ty + 16 * i == dinj.row && tx + 16 * j == dinj.col)
+                acc[i][j] += dinj.delta;
+        }
+      }
+      __syncthreads();
+    }
+
+#pragma unroll
+    for (int i = 0; i < kTM; ++i)
+#pragma unroll
+      for (int j = 0; j < kTN; ++j)
+        Ds[(ty + 16 * i) * (kBK + 1) + tx + 16 * j] = acc[i][j];
+    __syncthreads();
+
+    if (kFT) {
+      if (tid < kBK) {
+        float s1 = 0.0f, s2 = 0.0f;
+        for (int r = 0; r < BM; ++r) {
+          const float v = Ds[r * (kBK + 1) + tid];
+          s1 += v;
+          s2 += float(r + 1) * v;
+        }
+        sm[L::kResC1 + tid] = s1 - sm[L::kCol1 + tid];
+        sm[L::kResC2 + tid] = s2 - sm[L::kCol2 + tid];
+      } else if (tid - kBK < BM) {
+        const int r = tid - kBK;
+        float s1 = 0.0f, s2 = 0.0f;
+        for (int cc = 0; cc < kBK; ++cc) {
+          const float v = Ds[r * (kBK + 1) + cc];
+          s1 += v;
+          s2 += float(cc + 1) * v;
+        }
+        sm[L::kResR1 + r] = s1 - sm[L::kRow1 + r];
+        sm[L::kResR2 + r] = s2 - sm[L::kRow2 + r];
+      }
+      __syncthreads();
+      if (tid < 32) {
+        const int d = locate_and_correct<BM>(sm, lane, thr_factor);
+        if (tid == 0) det_count += d;
+      }
+      __syncthreads();
+    }
+
+    if (tid < BM) {
+      float lmin;
+      int larg;
+      tile_min_argmin(Ds + tid * (kBK + 1), cnS, c0, &lmin, &larg);
+      fold_min(&best, &best_arg, lmin, larg);
+    }
+    __syncthreads();
+  }
+
+  if (tid < BM) {
+    mind[m0 + tid] = best;
+    argmin[m0 + tid] = best_arg;
+  }
+  if (kFT && tid == 0) det[mt] = det_count;
+  if (!kUpdate) return;
+
+  int* am = smi + L::kAm;
+  if (tid < BM) am[tid] = best_arg;
+  float* sums_t = sums + size_t(mt) * kp * fp;
+  emit_update<BM>(am, smi + L::kKey, smi + L::kOrder, smi + L::kSKey, x, m0,
+                  true_m, kp, fp, sums_t, counts + size_t(mt) * kp);
+  if (!kFT) return;
+
+  // expected update checksums from the assignment and X, never from the
+  // sums they verify: valid^T X and (valid * (am + 1))^T X
+  for (int f = tid; f < fp; f += kThreads) {
+    float u0 = 0.0f, u1 = 0.0f;
+    for (int r = 0; r < BM && m0 + r < true_m; ++r) {
+      const float v = x[size_t(m0 + r) * fp + f];
+      u0 += v;
+      u1 = fmaf(float(am[r] + 1), v, u1);
+    }
+    ucheck[size_t(mt) * 2 * fp + f] = u0;
+    ucheck[size_t(mt) * 2 * fp + fp + f] = u1;
+  }
+  if (tid == 0) {
+    float c0s = 0.0f, c1s = 0.0f;
+    for (int r = 0; r < BM && m0 + r < true_m; ++r) {
+      c0s += 1.0f;
+      c1s += float(am[r] + 1);
+    }
+    ccheck[mt * 2] = c0s;
+    ccheck[mt * 2 + 1] = c1s;
+  }
+  __syncthreads();
+  // simulated SEU in the update product, after the invariant side
+  const UpdInj uinj = load_upd_inj(inj);
+  if (tid == 0 && uinj.enabled && mt == uinj.m_tile)
+    sums_t[size_t(uinj.row) * fp + uinj.col] += uinj.delta;
+}
+
+// emit_update on the argmin rows of row tiles, one block per tile: tile
+// blockIdx.x, or the one tile *tile when tile is given. When gate is given
+// the launch is a no-op while *gate == 0. Tile index and gate live on the
+// device, so a caller that recomputes on a mismatch never synchronises.
+template <int BM>
+__global__ void __launch_bounds__(kThreads)
+update_tiles_kernel(const float* __restrict__ x,
+                    const int* __restrict__ argmin,
+                    const int* __restrict__ tile, const int* __restrict__ gate,
+                    float* __restrict__ sums, float* __restrict__ counts,
+                    int kp, int fp, int true_m) {
+  using L = UpdLayout<BM>;
+  __shared__ int smi[L::kWords];
+  if (gate != nullptr && *gate == 0) return;
+  const int mt = tile != nullptr ? *tile : int(blockIdx.x);
+  const int m0 = mt * BM, tid = threadIdx.x;
+  if (tid < BM) smi[L::kAm + tid] = argmin[m0 + tid];
+  emit_update<BM>(smi + L::kAm, smi + L::kKey, smi + L::kOrder,
+                  smi + L::kSKey, x, m0, true_m, kp, fp,
+                  sums + size_t(mt) * kp * fp, counts + size_t(mt) * kp);
+}
+
+template <int BM, bool kFT, bool kUpdate>
+int launch_tile(const float* x, const float* c, const float* cn,
+                const int* inj, float* mind, int* argmin, int* det,
+                float* sums, float* counts, float* ucheck, float* ccheck,
+                int mp, int kp, int fp, int bf, int true_m, float thr_factor,
+                cudaStream_t stream) {
+  auto kernel = lloyd_tile_kernel<BM, kFT, kUpdate>;
+  const size_t bytes = Layout<BM>::kBytes;
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(bytes));
+  if (e != cudaSuccess) return int(e);
+  kernel<<<mp / BM, kThreads, bytes, stream>>>(
+      x, c, cn, inj, mind, argmin, det, sums, counts, ucheck, ccheck, kp, fp,
+      bf, true_m, thr_factor);
+  return int(cudaGetLastError());
+}
+
+template <bool kFT, bool kUpdate>
+int dispatch(int bm, const float* x, const float* c, const float* cn,
+             const int* inj, float* mind, int* argmin, int* det, float* sums,
+             float* counts, float* ucheck, float* ccheck, int mp, int kp,
+             int fp, int bf, int true_m, float thr_factor,
+             cudaStream_t stream) {
+  if ((bm != 64 && bm != 128) || mp % bm || kp % kBK || bf < kChunk ||
+      bf % kChunk || fp % bf)
+    return int(cudaErrorInvalidValue);
+  if (bm == 128)
+    return launch_tile<128, kFT, kUpdate>(x, c, cn, inj, mind, argmin, det,
+                                          sums, counts, ucheck, ccheck, mp, kp,
+                                          fp, bf, true_m, thr_factor, stream);
+  if (bm == 64)
+    return launch_tile<64, kFT, kUpdate>(x, c, cn, inj, mind, argmin, det,
+                                         sums, counts, ucheck, ccheck, mp, kp,
+                                         fp, bf, true_m, thr_factor, stream);
+  return int(cudaErrorInvalidValue);
+}
+
+}  // namespace
+
+extern "C" {
+
+int fk_distance_argmin(const float* x, const float* c, const float* cn,
+                       float* mind, int* argmin, int mp, int kp, int fp,
+                       int bm, int bf, void* stream) {
+  return dispatch<false, false>(bm, x, c, cn, nullptr, mind, argmin, nullptr,
+                                nullptr, nullptr, nullptr, nullptr, mp, kp, fp,
+                                bf, mp, 0.0f,
+                                static_cast<cudaStream_t>(stream));
+}
+
+int fk_lloyd_step(const float* x, const float* c, const float* cn,
+                  float* mind, int* argmin, float* sums, float* counts,
+                  int true_m, int mp, int kp, int fp, int bm, int bf,
+                  void* stream) {
+  return dispatch<false, true>(bm, x, c, cn, nullptr, mind, argmin, nullptr,
+                               sums, counts, nullptr, nullptr, mp, kp, fp, bf,
+                               true_m, 0.0f,
+                               static_cast<cudaStream_t>(stream));
+}
+
+int fk_distance_argmin_ft(const float* x, const float* c, const float* cn,
+                          const int* inj, float* mind, int* argmin, int* det,
+                          float thr_factor, int mp, int kp, int fp, int bm,
+                          int bf, void* stream) {
+  return dispatch<true, false>(bm, x, c, cn, inj, mind, argmin, det, nullptr,
+                               nullptr, nullptr, nullptr, mp, kp, fp, bf, mp,
+                               thr_factor, static_cast<cudaStream_t>(stream));
+}
+
+int fk_lloyd_step_ft(const float* x, const float* c, const float* cn,
+                     const int* inj, float* mind, int* argmin, int* det,
+                     float* sums, float* counts, float* ucheck, float* ccheck,
+                     float thr_factor, int true_m, int mp, int kp, int fp,
+                     int bm, int bf, void* stream) {
+  return dispatch<true, true>(bm, x, c, cn, inj, mind, argmin, det, sums,
+                              counts, ucheck, ccheck, mp, kp, fp, bf, true_m,
+                              thr_factor, static_cast<cudaStream_t>(stream));
+}
+
+// tile and gate may be null: every one of n_tiles row tiles, ungated.
+int fk_update_tiles(const float* x, const int* argmin, const int* tile,
+                    const int* gate, float* sums, float* counts, int true_m,
+                    int kp, int fp, int bm, int n_tiles, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int grid = tile != nullptr ? 1 : n_tiles;
+  if (grid < 1) return int(cudaErrorInvalidValue);
+  if (bm == 128)
+    update_tiles_kernel<128><<<grid, kThreads, 0, s>>>(
+        x, argmin, tile, gate, sums, counts, kp, fp, true_m);
+  else if (bm == 64)
+    update_tiles_kernel<64><<<grid, kThreads, 0, s>>>(
+        x, argmin, tile, gate, sums, counts, kp, fp, true_m);
+  else
+    return int(cudaErrorInvalidValue);
+  return int(cudaGetLastError());
+}
+
+const char* fk_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+}  // extern "C"

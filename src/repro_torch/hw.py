@@ -1,0 +1,36 @@
+"""NVIDIA H100 SXM constants and the port's default kernel tiles.
+
+The peak rates are NVIDIA's data-sheet numbers for the SXM part at its full
+700 W power limit (dense, no sparsity). A card capped below 700 W runs
+slower under load; measurements name the card and its limit beside them.
+None of the reference package's TPU numbers apply here.
+"""
+from __future__ import annotations
+
+SMS: int = 132
+SMEM_PER_BLOCK: int = 232_448          # bytes, opt-in dynamic shared memory
+HBM_BW: float = 3.35e12                # bytes/s
+
+PEAK_FLOPS_F32: float = 67e12          # CUDA cores, FMA = 2 FLOPs
+PEAK_FLOPS_TF32: float = 495e12        # tensor cores
+PEAK_FLOPS_BF16: float = 989e12        # tensor cores (fp16 the same)
+
+# Default verification tile of the port's kernels (KernelParams): one thread
+# block of 256 threads owns BLOCK_M rows; the kernel walks centroid
+# tiles of BLOCK_K and stages features in chunks of 32. BLOCK_M = 128 keeps
+# the (M/BLOCK_M, Kp, Fp) f32 partial-sum buffer of the one-pass kernels at
+# 4.3 GB for M = 2**20, Kp = 1024, Fp = 128 (256 would halve it, but needs
+# twice the shared-memory distance tile); BLOCK_F = 32 makes the padded
+# feature width a multiple of 32 only.
+BLOCK_M: int = 128
+BLOCK_K: int = 128
+BLOCK_F: int = 32
+
+# Tiles the CUDA kernels are built for, and the alignment clamp_params
+# keeps when it shrinks a tile to a small problem.
+SUPPORTED_BLOCK_M: tuple[int, ...] = (64, 128)
+SUPPORTED_BLOCK_K: tuple[int, ...] = (128,)
+FEATURE_CHUNK: int = 32
+ALIGN_M: int = 64
+ALIGN_K: int = 128
+ALIGN_F: int = 32

@@ -1,0 +1,149 @@
+"""Build and bind the port's CUDA kernels (nvcc + ctypes, no PyTorch headers).
+
+``csrc/*.cu`` holds a plain C interface. At first use on a CUDA device the
+source is compiled for Hopper with
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
+         -Xcompiler -fPIC -Xptxas -v -o _build/<name>-<hash>.so csrc/<name>.cu
+
+into the package's git-ignored ``_build/`` directory and loaded with
+``ctypes``. The library file name carries a hash of the source, so an edited
+source rebuilds and an unchanged one is reused. Every C entry point returns
+``cudaGetLastError()`` after its launch; :func:`check` turns a non-zero code
+into a ``RuntimeError``. Nothing here runs at import time: this module is
+imported on machines without ``nvcc``.
+"""
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+_PKG = Path(__file__).resolve().parent.parent
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+
+# argtypes of every C entry point (pointers and the stream as c_void_p, so
+# 64-bit addresses are never cut to a 32-bit int)
+SIGNATURES: dict[str, tuple] = {
+    "fk_distance_argmin": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "fk_lloyd_step": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    "fk_distance_argmin_ft": (_P, _P, _P, _P, _P, _P, _P, _F, _I, _I, _I, _I,
+                              _I, _P),
+    "fk_lloyd_step_ft": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _F, _I,
+                         _I, _I, _I, _I, _I, _P),
+    "fk_update_tiles": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+}
+
+
+@dataclasses.dataclass(frozen=True)
+class KernelLibrary:
+    """A loaded kernel library: the ctypes handle, where it came from, how
+    long the build took (0 when an up-to-date build was reused) and what
+    ``ptxas -v`` said about registers, shared memory and spills."""
+
+    lib: ctypes.CDLL
+    path: Path
+    build_seconds: float
+    ptxas_log: str
+
+
+def nvcc_path() -> str:
+    for var in ("CUDA_HOME", "CUDA_PATH"):
+        root = os.environ.get(var)
+        if root and (Path(root) / "bin" / "nvcc").exists():
+            return str(Path(root) / "bin" / "nvcc")
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = Path("/usr/local/cuda/bin/nvcc")
+    if default.exists():
+        return str(default)
+    raise RuntimeError("nvcc not found (set CUDA_HOME); the CUDA kernels are "
+                       "built from source at first use")
+
+
+def build(name: str = "fk_kernels") -> KernelLibrary:
+    """Compile ``csrc/<name>.cu`` (unless an up-to-date build exists) and
+    load it with its argtypes set."""
+    src = CSRC / f"{name}.cu"
+    digest = hashlib.sha256(src.read_bytes()
+                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    out = BUILD_DIR / f"{name}-{digest}.so"
+    log_path = out.with_suffix(".log")
+    seconds = 0.0
+    if not out.exists():
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        t0 = time.perf_counter()
+        proc = subprocess.run([nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
+                               str(src)], capture_output=True, text=True)
+        seconds = time.perf_counter() - t0
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            raise RuntimeError(f"nvcc failed for {src.name} "
+                               f"(exit {proc.returncode}):\n{proc.stderr}")
+        log_path.write_text(proc.stdout + proc.stderr)
+        os.replace(tmp, out)
+    lib = ctypes.CDLL(str(out))
+    for fn, argtypes in SIGNATURES.items():
+        getattr(lib, fn).argtypes = list(argtypes)
+        getattr(lib, fn).restype = ctypes.c_int
+    lib.fk_error_string.argtypes = [ctypes.c_int]
+    lib.fk_error_string.restype = ctypes.c_char_p
+    log = log_path.read_text() if log_path.exists() else ""
+    return KernelLibrary(lib=lib, path=out, build_seconds=seconds,
+                         ptxas_log=log)
+
+
+@functools.lru_cache(maxsize=None)
+def library() -> KernelLibrary:
+    """The process's kernel library, built at first use."""
+    return build()
+
+
+def check(code: int, what: str) -> None:
+    """Raise if a C entry point reported a CUDA error for its launch."""
+    if code != 0:
+        msg = library().lib.fk_error_string(code).decode()
+        raise RuntimeError(f"{what}: CUDA error {code} ({msg})")
+
+
+# --- launch helpers shared by the kernel wrappers --------------------------
+
+def on_cpu(*tensors) -> bool:
+    """True when every tensor lies on the CPU (the wrappers then take their
+    plain version); False when all lie on one CUDA device. Anything else
+    raises: a wrapper never moves data between devices or falls back."""
+    kinds = {t.device.type for t in tensors}
+    if kinds == {"cpu"}:
+        return True
+    if kinds == {"cuda"} and len({t.device for t in tensors}) == 1:
+        return False
+    raise RuntimeError(f"kernel inputs must all lie on the CPU or on one CUDA "
+                       f"device, got {sorted(str(t.device) for t in tensors)}")
+
+
+def ptr(t, dtype, what: str) -> int:
+    """Device pointer of a contiguous CUDA tensor of ``dtype``."""
+    if t.dtype != dtype or not t.is_contiguous():
+        raise ValueError(f"{what} must be a contiguous {dtype} tensor, got "
+                         f"{t.dtype} (contiguous={t.is_contiguous()})")
+    return t.data_ptr()
+
+
+def stream_of(t) -> int:
+    import torch
+    return torch.cuda.current_stream(t.device).cuda_stream

@@ -1,0 +1,137 @@
+"""One-pass Lloyd iteration kernel (paper §III, Fig. 4, fused update).
+
+Replaces the Pallas TPU kernel ``lloyd_step`` of
+``src/repro/kernels/lloyd_step.py`` (bodies ``_kernel``/``_kernel_smallk``,
+update epilogue ``_emit_update``). It is ``distance_argmin`` plus, once a
+row tile's argmin is final, that tile's per-cluster partial sums
+(M/bm, Kp, Fp) and counts (M/bm, Kp); rows >= ``true_m`` are padding and
+enter neither. ``ops._tree_sum`` collapses the partial blocks.
+
+CUDA kernel: ``lloyd_tile_kernel<BM, false, true>`` in
+``csrc/fk_kernels.cu``. Its update epilogue ``emit_update`` ranks the tile's
+rows by (cluster, row) in shared memory; each (k, f) partial sum is then one
+thread's sum over its cluster's rows in row order, starting from 0. No
+atomics: the sums are deterministic, so :func:`tile_update` (the same
+``emit_update`` launched alone, ``update_tiles_kernel``) reproduces a tile
+bit for bit -- the contract ``ops._verify_update_partials`` rests on, and
+the reason a two-pass ``fused`` fit sums exactly as a ``lloyd`` fit does.
+
+Bound on the H100: the distance GEMM (2 * Mp * Kp * Fp FLOPs on f32 CUDA
+cores) plus writing the partial-sum buffer, (Mp/bm) * Kp * Fp * 4 bytes
+(4.3 GB at M = 2**20, Kp = 1024, Fp = 128, bm = 128). The buffer keeps the
+reference's layout; collapsing it in-kernel is later work. X rows of the
+update are re-read from global memory (L2-resident right after the tile's
+GEMM) instead of from a shared-memory stash.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import _build, ref
+from repro_torch.kernels.distance_argmin import (check_padded,
+                                                 distance_argmin_plain)
+
+
+def tile_update_plain(x_tiles: torch.Tensor, am_tiles: torch.Tensor,
+                      valid: torch.Tensor, kp: int
+                      ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain update of row tiles: x_tiles (T, bm, Fp), am_tiles (T, bm),
+    valid (T, bm) bool -> sums (T, Kp, Fp), counts (T, Kp). The single
+    definition used for every tile and for a recomputed one, so both sum in
+    one order."""
+    ref.full_f32(x_tiles.device)
+    onehot = ref.one_hot(am_tiles, kp) * valid[..., None].float()
+    return torch.bmm(onehot.transpose(1, 2), x_tiles), onehot.sum(1)
+
+
+def lloyd_step_plain(x: torch.Tensor, c: torch.Tensor, cn: torch.Tensor,
+                     true_m: int, block_m: int):
+    """Plain PyTorch version: (min, argmin, sums (T, Kp, Fp), counts (T, Kp))."""
+    mind, am = distance_argmin_plain(x, c, cn)
+    mp, fp = x.shape
+    nt = mp // block_m
+    rows = torch.arange(mp, device=x.device).view(nt, block_m)
+    sums, counts = tile_update_plain(x.view(nt, block_m, fp),
+                                     am.view(nt, block_m), rows < true_m,
+                                     c.shape[0])
+    return mind, am, sums, counts
+
+
+def lloyd_step(x: torch.Tensor, c: torch.Tensor, cn: torch.Tensor,
+               true_m: int, *, block_m: int, block_k: int, block_f: int):
+    """Raw one-pass kernel entry on pre-padded f32 inputs. Returns
+    (min (Mp,), argmin (Mp,), sums (Mp/bm, Kp, Fp), counts (Mp/bm, Kp))."""
+    check_padded(x, c, cn, block_m, block_k, block_f)
+    if _build.on_cpu(x, c, cn):
+        return lloyd_step_plain(x, c, cn, true_m, block_m)
+    mp, fp = x.shape
+    kp = c.shape[0]
+    nt = mp // block_m
+    dev = x.device
+    mind = torch.empty(mp, dtype=torch.float32, device=dev)
+    am = torch.empty(mp, dtype=torch.int32, device=dev)
+    sums = torch.empty((nt, kp, fp), dtype=torch.float32, device=dev)
+    counts = torch.empty((nt, kp), dtype=torch.float32, device=dev)
+    f32 = torch.float32
+    code = _build.library().lib.fk_lloyd_step(
+        _build.ptr(x, f32, "x"), _build.ptr(c, f32, "c"),
+        _build.ptr(cn, f32, "cn"), mind.data_ptr(), am.data_ptr(),
+        sums.data_ptr(), counts.data_ptr(), true_m, mp, kp, fp, block_m,
+        block_f, _build.stream_of(x))
+    _build.check(code, "lloyd_step")
+    lloyd_step.launches += 1
+    return mind, am, sums, counts
+
+
+lloyd_step.launches = 0
+
+
+def tile_update(xp: torch.Tensor, am: torch.Tensor, sums_p: torch.Tensor,
+                counts_p: torch.Tensor, *, true_m: int, block_m: int,
+                tile: Optional[torch.Tensor] = None,
+                gate: Optional[torch.Tensor] = None) -> None:
+    """Write the update of row tiles into ``sums_p`` (T, Kp, Fp) and
+    ``counts_p`` (T, Kp) in place, from padded X (Mp, Fp) and the padded
+    assignment ``am`` (Mp,) int32: every tile, or only tile ``tile`` (0-d
+    int32). With ``gate`` (0-d int32) it writes only when ``gate > 0``.
+    Both stay on the data's device, so the caller never synchronises.
+
+    On the card this launches ``emit_update`` alone (``update_tiles_kernel``),
+    the function the one-pass kernels run, so every tile sums bit for bit as
+    theirs: over all tiles it is the two-pass update of ``ops.tiled_update``,
+    for one gated tile the recompute of ``ops._verify_update_partials``. On
+    the CPU it is :func:`tile_update_plain` on the same tiles."""
+    nt, kp, fp = sums_p.shape
+    if _build.on_cpu(xp, am, sums_p):
+        if tile is None:
+            idx = torch.arange(nt)
+            x_t, am_t = xp.view(nt, block_m, fp), am.view(nt, block_m)
+        else:
+            idx = tile.view(1).long()
+            x_t = xp.view(nt, block_m, fp).index_select(0, idx)
+            am_t = am.view(nt, block_m).index_select(0, idx)
+        rows = idx[:, None] * block_m + torch.arange(block_m)[None, :]
+        new_s, new_c = tile_update_plain(x_t, am_t, rows < true_m, kp)
+        if gate is not None:
+            keep = gate.view(1, 1) > 0
+            new_s = torch.where(keep[..., None], new_s,
+                                sums_p.index_select(0, idx))
+            new_c = torch.where(keep, new_c, counts_p.index_select(0, idx))
+        sums_p.index_copy_(0, idx, new_s)
+        counts_p.index_copy_(0, idx, new_c)
+        return
+    i32, f32 = torch.int32, torch.float32
+    code = _build.library().lib.fk_update_tiles(
+        _build.ptr(xp, f32, "xp"), _build.ptr(am, i32, "am"),
+        None if tile is None else _build.ptr(tile, i32, "tile"),
+        None if gate is None else _build.ptr(gate, i32, "gate"),
+        _build.ptr(sums_p, f32, "sums_p"),
+        _build.ptr(counts_p, f32, "counts_p"), true_m, kp, fp, block_m, nt,
+        _build.stream_of(xp))
+    _build.check(code, "tile_update")
+    tile_update.launches += 1
+
+
+tile_update.launches = 0

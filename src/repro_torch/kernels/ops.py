@@ -1,0 +1,304 @@
+"""Padding and planning layer around the CUDA kernels (counterpart of the
+main-path part of ``repro.kernels.ops``).
+
+Pads inputs to the kernel tile grid (masked so results are exact), builds
+the per-fit :class:`DataPlan`, reduces per-row-tile partial sums, verifies
+the one-pass FT kernel's update checksums and plans injection descriptors.
+A tensor on the CPU runs every kernel's plain version; a CUDA tensor runs
+the kernels. Tiles come from explicit :class:`KernelParams` or the port's
+H100 defaults (``repro_torch.hw``); an autotuned table is later work.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch import hw
+from repro_torch.core import dmr as dmr_mod
+from repro_torch.core.checksum import threshold_factor
+from repro_torch.kernels import distance_argmin as _da
+from repro_torch.kernels import distance_argmin_ft as _daft
+from repro_torch.kernels import lloyd_step as _ll
+from repro_torch.kernels import lloyd_step_ft as _llft
+from repro_torch.kernels import ref
+
+
+@dataclasses.dataclass(frozen=True)
+class KernelParams:
+    """Verification tile of the kernels: ``block_m`` rows per thread block,
+    ``block_k`` centroids per centroid tile, ``block_f`` features per
+    feature tile (the unit an injection descriptor's ``f_tile`` counts).
+    The same triple means the same tiling, and the same descriptor the same
+    fault, as in the reference package."""
+
+    block_m: int = hw.BLOCK_M
+    block_k: int = hw.BLOCK_K
+    block_f: int = hw.BLOCK_F
+
+
+DEFAULT_PARAMS = KernelParams()
+
+
+def check_cuda_params(params: KernelParams) -> None:
+    """Raise for a tile the CUDA kernels are not built for."""
+    if (params.block_m not in hw.SUPPORTED_BLOCK_M
+            or params.block_k not in hw.SUPPORTED_BLOCK_K
+            or params.block_f % hw.FEATURE_CHUNK):
+        raise ValueError(
+            f"{params} is not a tile of the CUDA kernels: block_m in "
+            f"{hw.SUPPORTED_BLOCK_M}, block_k in {hw.SUPPORTED_BLOCK_K}, "
+            f"block_f a multiple of {hw.FEATURE_CHUNK}")
+
+
+def _round_up(x: int, m: int) -> int:
+    return ((x + m - 1) // m) * m
+
+
+@dataclasses.dataclass(frozen=True)
+class DataPlan:
+    """Per-fit data plan: X padded to the tile grid and its f32 row squared
+    norms, computed once and reused by every Lloyd iteration.
+
+    x      : (m, f)   the original samples (update pass / reseeding)
+    xp     : (mp, fp) X padded to the tile grid (== x when params is None)
+    xn     : (m,)     row squared norms, f32
+    m, f   : true (unpadded) dimensions
+    params : the KernelParams the padding was laid out for
+    """
+
+    x: torch.Tensor
+    xp: torch.Tensor
+    xn: torch.Tensor
+    m: int
+    f: int
+    params: Optional[KernelParams]
+
+
+def plan_data(x: torch.Tensor,
+              params: Optional[KernelParams] = None) -> DataPlan:
+    """Build the per-fit :class:`DataPlan` (pad + row norms, once)."""
+    m, f = x.shape
+    xn = (x.float() ** 2).sum(1)
+    if params is None:
+        return DataPlan(x=x, xp=x, xn=xn, m=m, f=f, params=None)
+    mp = _round_up(m, params.block_m)
+    fp = _round_up(f, params.block_f)
+    xp = F.pad(x, (0, fp - f, 0, mp - m)).contiguous()
+    return DataPlan(x=x, xp=xp, xn=xn, m=m, f=f, params=params)
+
+
+def _pad_centroids(c: torch.Tensor, k: int, kp: int,
+                   fp: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Pad centroids to (kp, fp); padded slots get +inf squared norms so
+    they never win the argmin."""
+    cpad = F.pad(c, (0, fp - c.shape[1], 0, kp - c.shape[0])).contiguous()
+    cn = (cpad.float() ** 2).sum(1)
+    slot = torch.arange(kp, device=c.device)
+    cn = torch.where(slot < k, cn, torch.inf).contiguous()
+    return cpad, cn
+
+
+def clamp_params(m: int, k: int, f: int,
+                 params: KernelParams) -> KernelParams:
+    """Shrink tiles that exceed the (padded) problem, keeping the port's
+    alignments (rows 64, centroids 128, features 32)."""
+    def shrink(block: int, dim: int, align: int) -> int:
+        while block > align and block > _round_up(dim, align):
+            block //= 2
+        return max(block, align)
+    return KernelParams(
+        block_m=shrink(params.block_m, m, hw.ALIGN_M),
+        block_k=shrink(params.block_k, k, hw.ALIGN_K),
+        block_f=shrink(params.block_f, f, hw.ALIGN_F),
+    )
+
+
+def _resolve_padded(x, c: torch.Tensor,
+                    params: Optional[KernelParams]) -> tuple:
+    """Accept a raw X or a prebuilt :class:`DataPlan`; return (plan, padded
+    centroids, masked centroid norms, params)."""
+    k = c.shape[0]
+    if isinstance(x, DataPlan):
+        plan = x
+        params = plan.params
+        if params is None:
+            raise ValueError("DataPlan was built without KernelParams; build "
+                             "it with plan_data(x, params) before feeding a "
+                             "kernel")
+    else:
+        params = clamp_params(x.shape[0], k, x.shape[1],
+                              params or DEFAULT_PARAMS)
+        plan = plan_data(x, params)
+    if plan.xp.dtype != torch.float32:
+        raise NotImplementedError(
+            f"compute dtype {plan.xp.dtype}: this slice of the port runs "
+            f"float32 only (bf16/fp16 tiles are ROADMAP Queue 1 work)")
+    if plan.xp.is_cuda:
+        check_cuda_params(params)
+    c = c.to(plan.xp.dtype)
+    cp, cn = _pad_centroids(c, k, _round_up(k, params.block_k),
+                            plan.xp.shape[1])
+    return plan, cp, cn, params
+
+
+def fused_assign(x, c: torch.Tensor, params: Optional[KernelParams] = None
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Nearest-centroid assignment via the fused kernel. ``x`` is a raw
+    (M, F) tensor or a :class:`DataPlan`. Returns (assign (M,) int32,
+    partial min distance (M,) f32); add ``sum(x**2, -1)`` for true
+    squared distances."""
+    if not isinstance(x, DataPlan) and x.shape[0] == 0:
+        return (torch.zeros(0, dtype=torch.int32, device=x.device),
+                torch.zeros(0, dtype=torch.float32, device=x.device))
+    plan, cp, cn, params = _resolve_padded(x, c, params)
+    mind, am = _da.distance_argmin(
+        plan.xp, cp, cn, block_m=params.block_m, block_k=params.block_k,
+        block_f=params.block_f)
+    return am[:plan.m], mind[:plan.m]
+
+
+def _tree_sum(a: torch.Tensor) -> torch.Tensor:
+    """Balanced pairwise reduction over axis 0 (deterministic on every
+    device: elementwise adds in a fixed tree)."""
+    while a.shape[0] > 1:
+        half = a.shape[0] // 2
+        a = torch.cat([a[:half] + a[half:2 * half], a[2 * half:]], 0)
+    return a[0]
+
+
+def tiled_update(plan: DataPlan, am: torch.Tensor, k: int, *,
+                 use_dmr: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
+    """The two-pass centroid update in the one-pass kernels' order: each
+    row tile's partial sums/counts by :func:`lloyd_step.tile_update` (on the
+    card the one-pass kernels' own ``emit_update``), then
+    :func:`_tree_sum`. A ``fused`` fit therefore sums bit for bit as a
+    ``lloyd`` fit does, by construction.
+
+    ``use_dmr`` runs the update twice and compares the partial blocks; on a
+    mismatch every tile is recomputed in place, gated on the device, so a
+    clean step pays two updates and never waits on the host. Returns
+    (sums (K, F), counts (K,))."""
+    p = plan.params
+    mp, fp = plan.xp.shape
+    nt, kp = mp // p.block_m, _round_up(k, p.block_k)
+    amp = F.pad(am.to(torch.int32), (0, mp - plan.m)).contiguous()
+
+    def update(out=None, gate=None):
+        if out is None:
+            out = (plan.xp.new_empty((nt, kp, fp)),
+                   plan.xp.new_empty((nt, kp)))
+        _ll.tile_update(plan.xp, amp, *out, true_m=plan.m,
+                        block_m=p.block_m, gate=gate)
+        return out
+
+    sums_p, counts_p = update()
+    if use_dmr:
+        bad = dmr_mod.mismatch((sums_p, counts_p), update())
+        update((sums_p, counts_p), gate=bad.to(torch.int32))
+    return _tree_sum(sums_p)[:k, :plan.f], _tree_sum(counts_p)[:k]
+
+
+def fused_lloyd(x, c: torch.Tensor, params: Optional[KernelParams] = None):
+    """One-pass Lloyd step: assignment plus the per-cluster sums/counts, X
+    read once. Returns (assign (M,) int32, true squared distance (M,) f32,
+    sums (K, F) f32, counts (K,) f32)."""
+    plan, cp, cn, params = _resolve_padded(x, c, params)
+    k, m = c.shape[0], plan.m
+    mind, am, sums, counts = _ll.lloyd_step(
+        plan.xp, cp, cn, m, block_m=params.block_m, block_k=params.block_k,
+        block_f=params.block_f)
+    sums = _tree_sum(sums)[:k, :plan.f]
+    counts = _tree_sum(counts)[:k]
+    return am[:m], mind[:m] + plan.xn, sums, counts
+
+
+def _verify_update_partials(plan: DataPlan, am: torch.Tensor,
+                            sums_p: torch.Tensor, counts_p: torch.Tensor,
+                            ucheck: torch.Tensor, ccheck: torch.Tensor,
+                            params: KernelParams) -> tuple:
+    """Verification interval of the fused update: compare each row tile's
+    observed e1/e2 checksums of its partial sums/counts with the expected
+    ones the kernel emitted, and recompute the first mismatched tile in
+    place (bit-identical to a clean one). Every mismatch is counted. Runs
+    without a host synchronisation: the recompute is told on the device
+    whether there is anything to do."""
+    ref.full_f32(sums_p.device)
+    num_m, kp, fp = sums_p.shape
+    w_k = torch.arange(1, kp + 1, dtype=torch.float32, device=sums_p.device)
+    obs1 = sums_p.sum(1)                                      # (num_m, fp)
+    obs2 = torch.matmul(w_k, sums_p)                          # (num_m, fp)
+    res1 = (obs1 - ucheck[:, 0]).abs()
+    res2 = (obs2 - ucheck[:, 1]).abs()
+    cres1 = (counts_p.sum(1) - ccheck[:, 0]).abs()
+    cres2 = ((w_k * counts_p).sum(1) - ccheck[:, 1]).abs()
+    # contraction length is the row tile; each e1/e2 pair thresholds
+    # against its own clean-side magnitude
+    factor = threshold_factor(params.block_m, plan.xp.dtype)
+    one = torch.ones((), device=sums_p.device)
+    scale1 = torch.maximum(ucheck[:, 0].abs().amax(1), one)
+    scale2 = torch.maximum(ucheck[:, 1].abs().amax(1), one)
+    bad = ((res1.amax(1) > factor * scale1)
+           | (res2.amax(1) > factor * scale2)
+           | (cres1 > factor * torch.maximum(ccheck[:, 0].abs(), one))
+           | (cres2 > factor * torch.maximum(ccheck[:, 1].abs(), one)))
+    n_bad = bad.sum().to(torch.int32)
+    worst = bad.to(torch.int32).argmax().to(torch.int32)
+    _ll.tile_update(plan.xp, am, sums_p, counts_p, true_m=plan.m,
+                    block_m=params.block_m, tile=worst, gate=n_bad)
+    return sums_p, counts_p, n_bad
+
+
+def fused_lloyd_ft(x, c: torch.Tensor,
+                   params: Optional[KernelParams] = None, *,
+                   inj: Optional[torch.Tensor] = None):
+    """One-pass FT Lloyd step: ABFT around the distance GEMM plus the
+    checksum-protected update. ``inj`` is a 12-word
+    :func:`~repro_torch.kernels.lloyd_step_ft.make_injection` descriptor.
+    Returns (assign (M,) int32, true squared distance (M,) f32, sums (K, F),
+    counts (K,), detected (0-d int32): corrected distance errors plus
+    recomputed update tiles)."""
+    plan, cp, cn, params = _resolve_padded(x, c, params)
+    if inj is None:
+        inj = _llft.no_injection()
+    inj = inj.to(plan.xp.device)
+    k, m = c.shape[0], plan.m
+    factor = threshold_factor(plan.xp.shape[1], plan.xp.dtype)
+    mind, am, det, sums_p, counts_p, ucheck, ccheck = _llft.lloyd_step_ft(
+        plan.xp, cp, cn, inj, m, block_m=params.block_m,
+        block_k=params.block_k, block_f=params.block_f, factor=factor)
+    sums_p, counts_p, det_up = _verify_update_partials(
+        plan, am, sums_p, counts_p, ucheck, ccheck, params)
+    sums = _tree_sum(sums_p)[:k, :plan.f]
+    counts = _tree_sum(counts_p)[:k]
+    return (am[:m], mind[:m] + plan.xn, sums, counts,
+            det.sum().to(torch.int32) + det_up)
+
+
+def fused_assign_ft(x, c: torch.Tensor,
+                    params: Optional[KernelParams] = None, *,
+                    inj: Optional[torch.Tensor] = None):
+    """FT assignment: detect + locate + correct inside the kernel. Returns
+    (assign, partial min distance, corrected error count (0-d int32))."""
+    plan, cp, cn, params = _resolve_padded(x, c, params)
+    if inj is None:
+        inj = _daft.no_injection()
+    inj = inj.to(plan.xp.device)
+    factor = threshold_factor(plan.xp.shape[1], plan.xp.dtype)
+    mind, am, det = _daft.distance_argmin_ft(
+        plan.xp, cp, cn, inj, block_m=params.block_m,
+        block_k=params.block_k, block_f=params.block_f, factor=factor)
+    return am[:plan.m], mind[:plan.m], det.sum().to(torch.int32)
+
+
+def plan_injection_tile(m: int, k: int, f: int, params: KernelParams,
+                        row: int, col: int, f_step: int,
+                        delta: float) -> torch.Tensor:
+    """Translate a global (row, col) error position into tile coordinates."""
+    params = clamp_params(m, k, f, params)
+    return _daft.make_injection(
+        row // params.block_m, col // params.block_k,
+        f_step % max(f // params.block_f, 1),
+        row % params.block_m, col % params.block_k, delta)

@@ -1,0 +1,91 @@
+"""Plain PyTorch oracles, the counterparts of ``repro.kernels.ref``.
+
+They define the semantics the CUDA kernels are held to, in f32 with f32
+accumulation. On a CUDA device every product runs in full f32: the oracles
+switch TF32 off for matrix products and convolutions wherever they run.
+"""
+from __future__ import annotations
+
+import torch
+
+
+def full_f32(device: torch.device) -> None:
+    """Pin full-f32 products on the card (TF32 keeps ~3 decimal digits)."""
+    if device.type == "cuda":
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+
+
+def distance_matrix(x: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """Full squared-distance matrix ||x_i - c_j||^2, shape (M, K), f32."""
+    full_f32(x.device)
+    xf = x.float()
+    cf = c.float()
+    xn = (xf * xf).sum(1, keepdim=True)
+    cn = (cf * cf).sum(1)[None, :]
+    return xn + cn - 2.0 * (xf @ cf.T)
+
+
+def first_min(d: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Row min and the lowest column index attaining it (jnp.argmin's
+    tie-break), written out so it does not rest on a library's choice."""
+    mn = d.min(dim=1).values
+    cols = torch.arange(d.shape[1], device=d.device, dtype=torch.int32)
+    big = torch.iinfo(torch.int32).max
+    arg = torch.where(d == mn[:, None], cols[None, :], big).min(dim=1).values
+    return mn, arg.to(torch.int32)
+
+
+def distance_argmin(x: torch.Tensor, c: torch.Tensor
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(min partial distance ||c||^2 - 2 x.c, argmin); add ||x||^2 for the
+    true squared distance."""
+    full_f32(x.device)
+    cf = c.float()
+    cn = (cf * cf).sum(1)[None, :]
+    return first_min(cn - 2.0 * (x.float() @ cf.T))
+
+
+def distance_argmin_ft(x: torch.Tensor, c: torch.Tensor,
+                       inject_delta: float | None = None,
+                       inject_pos: tuple[int, int] | None = None):
+    """Oracle for the FT kernel over one whole-matrix interval: plant one
+    additive fault at ``inject_pos`` of X C^T, verify with the dual
+    checksums, locate, correct, reduce. Returns (min partial distance,
+    argmin, detected count). The threshold scales with the expected
+    checksums, as the kernels' does."""
+    from repro_torch.core.checksum import threshold_factor
+    from repro_torch.kernels import distance_argmin_ft as _daft
+    full_f32(x.device)
+    (m, f), k = x.shape, c.shape[0]
+    xf, cf = x.float(), c.float()
+    inj = _daft.no_injection()
+    if inject_delta is not None and inject_pos is not None:
+        inj = _daft.make_injection(0, 0, 0, *inject_pos, inject_delta)
+    acc, det = _daft.abft_correct_plain(xf @ cf.T, xf, cf, inj.to(x.device),
+                                        m, k, f, threshold_factor(f))
+    mn, am = first_min((cf * cf).sum(1)[None, :] - 2.0 * acc)
+    return mn, am, det.sum()
+
+
+def centroid_update(x: torch.Tensor, assign: torch.Tensor, k: int
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-cluster (sums (K, F) f32, counts (K,) f32)."""
+    full_f32(x.device)
+    onehot = one_hot(assign, k)
+    return onehot.T @ x.float(), onehot.sum(0)
+
+
+def one_hot(assign: torch.Tensor, k: int) -> torch.Tensor:
+    """f32 one-hot rows of ``assign`` (..., k), built in place (no int64
+    intermediate: at M = 2**20, K = 1000 that would be 8 GB)."""
+    out = torch.zeros((*assign.shape, k), dtype=torch.float32,
+                      device=assign.device)
+    return out.scatter_(-1, assign.long()[..., None], 1.0)
+
+
+def lloyd_step(x: torch.Tensor, c: torch.Tensor):
+    """(min partial distance, argmin, sums (K, F), counts (K,))."""
+    md, am = distance_argmin(x, c)
+    sums, counts = centroid_update(x, am, c.shape[0])
+    return md, am, sums, counts
