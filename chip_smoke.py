@@ -4,9 +4,14 @@
     python3 chip_smoke.py            # from the repository root, on the card
 
 Builds the port's CUDA kernels from ``src/repro_torch/csrc`` and drives the
-port's main path, ``repro_torch.api.KMeans`` fit/predict/score, unprotected
-and ABFT-protected, at M = 2**20 rows x F = 128 features x K = 1000
-clusters. Phases, one line each:
+port's two main paths: ``repro_torch.api.KMeans`` fit/predict/score,
+unprotected and ABFT-protected, at M = 2**20 rows x F = 128 features x
+K = 1000 clusters; and ``repro_torch.batch.BatchedKMeans`` seeding, fit,
+predict and score at the width of product-quantisation codebook training
+for an IVF-PQ index over 768-d embeddings: B = 48 sub-quantisers of
+F = 16 dimensions, K = 256 centroids (8-bit codes), N = 65,536 training rows
+each (FAISS ``max_points_per_centroid`` 256 x K; FAISS's ``niter`` = 25).
+Phases, one line each:
 
   1. device: the card, its power limit, the kernels' build time;
   2. kernels vs their plain PyTorch versions (TF32 off) at M = 65,573,
@@ -17,7 +22,17 @@ clusters. Phases, one line each:
   5. per-kernel launches on the main path (phases 3-4), time per launch at
      the phase-3 shape, the plain version's time, the bound and a library
      yardstick (``torch.addmm`` + ``min``; ``index_add_`` for the update),
-     and the two-pass update with and without DMR.
+     and the two-pass update with and without DMR;
+  6. the batched one-pass step and the k-means++ round against their plain
+     versions at the PQ shape, at B = 7, N = 10,007, F = 20, K = 200 (two
+     centroid tiles, ragged rows and features) and K = 100 (one tile), and
+     batched problems against ``lloyd_step`` on each problem alone;
+  7. ``BatchedKMeans`` at the PQ shape: fused k-means++ seeding, 25 steps at
+     tol = 0 held bit for bit to 48 single-problem ``lloyd`` fits from the
+     same seeds, predict and score, a tol = 1e-4 fit, a ``torch.profiler``
+     trace of one batched and one single-problem fit (kernels put on the
+     card, device-busy share), ``lloyd_step`` on one problem alone, and the
+     launches, times, bounds and yardsticks of the two batched kernels.
 
 Any failed check exits non-zero. Imports nothing of JAX or the reference
 package. The last line is ``{"ok": true, "device": {...}}``.
@@ -35,6 +50,8 @@ M_FULL, F_FULL, K_FULL = 1_048_576, 128, 1000
 M_SMALL, F_SMALL = 65_573, 100
 ITERS = 10
 SEED = 0
+B_PQ, N_PQ, F_PQ, K_PQ = 48, 65_536, 16, 256
+PQ_ITERS = 25
 
 
 class SmokeFailure(RuntimeError):
@@ -186,6 +203,258 @@ def phase_kernels(torch, ops, kern) -> dict:
     return out
 
 
+def pq_stack(torch, b: int, n: int, f: int, k: int):
+    """Problem i of a stack is ``make_blobs(n, f, k, seed=i)``; the blob
+    centres of each problem serve as its centroids where a check needs
+    wide label margins."""
+    import numpy as np
+    from repro_torch.data.blobs import make_blobs
+    x = np.stack([make_blobs(n, f, k, seed=i)[0] for i in range(b)])
+    c = np.stack([blob_centers(k, f, i) for i in range(b)])
+    return torch.from_numpy(x).cuda(), torch.from_numpy(c).cuda()
+
+
+def round_inputs(torch, kpp, hw, x):
+    """The inputs of a second seeding round (the first run by the plain
+    version, so the running minimum is real): (xp, xn, c, d2, block_n)."""
+    import torch.nn.functional as F
+    b, n, _ = x.shape
+    bn = kpp.clamp_init_block(n, hw.INIT_BLOCK_N)
+    np_ = -(-n // bn) * bn
+    xp = F.pad(x, (0, 0, 0, np_ - n)).contiguous()
+    xn = (xp * xp).sum(2)
+    d2 = torch.where(torch.arange(np_, device=x.device) < n, torch.inf,
+                     0.0).expand(b, np_).contiguous()
+    d2, _ = kpp.kmeanspp_round_plain(xp, xn, xp[:, 3:4].contiguous(), d2, bn)
+    return xp, xn, xp[:, n // 2:n // 2 + 1].contiguous(), d2, bn
+
+
+def phase_batched_kernels(torch, ops, hw, ll, kpp) -> dict:
+    """Phase 6: the batched step and the seeding round against their plain
+    versions on the card, and batched problems against lloyd_step alone."""
+    out = {"phase": 6, "shapes": []}
+    for b, n, f, k in ((B_PQ, N_PQ, F_PQ, K_PQ), (7, 10_007, 20, 200),
+                       (7, 10_007, 20, 100)):
+        x, c = pq_stack(torch, b, n, f, k)
+        params = ops.clamp_params(n, k, f, ops.DEFAULT_PARAMS)
+        plan = ops.plan_data_batched(x, params)
+        kp = -(-k // params.block_k) * params.block_k
+        cp, cn = ops._pad_centroids(c, k, kp, plan.xp.shape[2])
+        tiles = dict(block_m=params.block_m, block_k=params.block_k,
+                     block_f=params.block_f)
+        rec = {"b": b, "n": n, "f": f, "k": k,
+               "centroid_tiles": kp // params.block_k, "tol_rel": 1e-5}
+        got = ll.lloyd_step_batched(plan.xp, cp, cn, n, **tiles)
+        want = ll.lloyd_step_batched_plain(plan.xp, cp, cn, n,
+                                           params.block_m)
+        expect(bool(torch.equal(got[1], want[1])),
+               f"lloyd_step_batched labels vs plain {rec}")
+        ok, rec["lloyd_step_batched_min_err"] = rel_ok(got[0], want[0], 1e-5)
+        expect(ok, f"lloyd_step_batched distances vs plain {rec}")
+        ok, rec["lloyd_step_batched_sums_err"] = rel_ok(got[2], want[2], 1e-5)
+        expect(ok, f"lloyd_step_batched sums vs plain {rec}")
+        expect(bool(torch.equal(got[3], want[3])),
+               f"lloyd_step_batched counts vs plain {rec}")
+        del want
+        for i in (0, b // 2, b - 1):
+            one = ll.lloyd_step(plan.xp[i], cp[i], cn[i], n, **tiles)
+            expect(all(bool(torch.equal(g[i], o)) for g, o in zip(got, one)),
+                   f"batched problem {i} is not bit for bit lloyd_step {rec}")
+        del got, one
+
+        xp, xn, c1, d2, bn = round_inputs(torch, kpp, hw, x)
+        d2k, tsk = kpp.kmeanspp_round(xp, xn, c1, d2, block_n=bn)
+        d2p, tsp = kpp.kmeanspp_round_plain(xp, xn, c1, d2, bn)
+        rec["round_block_n"] = bn
+        rec["round_d2_err"] = max_err(d2k, d2p)
+        expect(rec["round_d2_err"] <= 1e-5 * float(xn.max()),
+               f"kmeanspp_round d2 vs plain beyond 1e-5 x max xn {rec}")
+        rec["round_tile_sum_rel_err"] = float(
+            ((tsk - tsp).abs() / tsp.abs()).max())
+        expect(rec["round_tile_sum_rel_err"] <= 1e-5,
+               f"kmeanspp_round tile sums vs plain {rec}")
+        expect(bool((d2k[:, n:] == 0).all()),
+               f"kmeanspp_round padded rows are not 0 {rec}")
+        again = kpp.kmeanspp_round(xp, xn, c1, d2, block_n=bn)
+        expect(bool(torch.equal(again[0], d2k))
+               and bool(torch.equal(again[1], tsk)),
+               f"kmeanspp_round does not repeat bit for bit {rec}")
+        out["shapes"].append(rec)
+        del x, c, plan, cp, cn, xp, xn, d2, d2k, d2p, again
+        torch.cuda.empty_cache()
+    return out
+
+
+def device_trace(torch, fn) -> dict:
+    """Run ``fn`` once under ``torch.profiler`` (CPU and CUDA activity):
+    the kernels it put on the card, the card's busy time (the union of its
+    kernel, copy and set intervals) against the traced wall time, and the
+    five kernels that took the most device time. Busy and idle are None
+    when the trace holds no device event."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    dev = sorted((e.time_range.start, e.time_range.end, e.name)
+                 for e in prof.events() if e.device_type == DeviceType.CUDA)
+    busy_us, reach = 0.0, float("-inf")
+    for start, end, _ in dev:
+        busy_us += max(0.0, end - max(start, reach))
+        reach = max(reach, end)
+    kernels = [d for d in dev if not d[2].startswith(("Memcpy", "Memset"))]
+    per_name: dict = {}
+    for start, end, name in kernels:
+        per_name[name] = per_name.get(name, 0.0) + (end - start) / 1e3
+    top = sorted(per_name.items(), key=lambda kv: -kv[1])[:5]
+    busy_ms = busy_us / 1e3 if dev else None
+    return {"kernels": len(kernels), "device_events": len(dev),
+            "busy_ms": busy_ms, "wall_ms": wall_ms,
+            "idle_share": None if busy_ms is None else 1.0 - busy_ms / wall_ms,
+            "top_kernels_ms": {name[:80]: ms for name, ms in top}}
+
+
+def seeds_are_rows(torch, x, seeds) -> bool:
+    """Every seed of problem i equals some row of problem i exactly."""
+    for xi, si in zip(x, seeds):
+        for part in si.split(32):
+            if not bool((xi[None] == part[:, None]).all(-1).any(-1).all()):
+                return False
+    return True
+
+
+def phase_batched_fit(torch, ops, hw, ll, kpp, bound, KMeans,
+                      BatchedKMeans) -> tuple[dict, list]:
+    """Phase 7: BatchedKMeans at the PQ shape, then its kernels' rows."""
+    import numpy as np
+    x, _ = pq_stack(torch, B_PQ, N_PQ, F_PQ, K_PQ)
+    base = dict(n_clusters=K_PQ, random_state=SEED)
+    wrappers = {"lloyd_step_batched": ll.lloyd_step_batched,
+                "kmeanspp_round": kpp.kmeanspp_round}
+    for w in wrappers.values():
+        w.launches = 0
+    bkm = BatchedKMeans(init="kmeans++-fused", max_iter=PQ_ITERS, tol=0.0,
+                        **base)
+    seeds, seed_s = wall(lambda: bkm.init_centroids(x))
+    again = BatchedKMeans(init="kmeans++-fused", **base).init_centroids(x)
+    _, fit_s = wall(lambda: bkm.fit(x, centroids=seeds))
+    labels = bkm.predict(x)
+    score = bkm.score(x)
+    conv = BatchedKMeans(max_iter=100, tol=1e-4, **base).fit(
+        x, centroids=seeds)
+    torch.cuda.synchronize()
+    launches = {name: w.launches for name, w in wrappers.items()}
+    for name, n in launches.items():
+        expect(n > 0, f"{name} was not launched on the batched path")
+    expect(bool(torch.equal(seeds, again)),
+           "fused seeding does not repeat bit for bit")
+    expect(seeds_are_rows(torch, x, seeds),
+           "a fused seed is not a row of its problem")
+    expect(all(torch.unique(s, dim=0).shape[0] == K_PQ for s in seeds),
+           "fused seeding chose a row twice")
+    expect(np.isfinite(score).all() and bool((score < 0).all()),
+           f"batched score {score}")
+
+    # the loop of single-problem one-pass fits from the same seeds
+    singles = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(B_PQ):
+        singles.append(KMeans(K_PQ, backend="lloyd", max_iter=PQ_ITERS,
+                              tol=0.0, random_state=SEED + i)
+                       .fit(x[i], centroids=seeds[i]))
+    torch.cuda.synchronize()
+    loop_s = time.perf_counter() - t0
+    for i, one in enumerate(singles):
+        expect(bool(torch.equal(one.cluster_centers_,
+                                bkm.cluster_centers_[i]))
+               and bool(torch.equal(one.labels_, bkm.labels_[i])),
+               f"batched problem {i} is not bit for bit its single fit")
+        expect(bool(torch.equal(one.predict(x[i]), labels[i])),
+               f"batched predict of problem {i} differs from its single fit")
+    inertia_rel = max(abs(one.inertia_ - bkm.inertia_[i]) / one.inertia_
+                      for i, one in enumerate(singles))
+    expect(inertia_rel <= 1e-6, f"batched inertia vs single {inertia_rel}")
+    rec = {"phase": 7, "b": B_PQ, "n": N_PQ, "f": F_PQ, "k": K_PQ,
+           "seeding_s": seed_s, "n_iter": bkm.n_iter_.tolist()[:3],
+           "batched_ms_per_iter": 1e3 * fit_s / PQ_ITERS,
+           "single_loop_ms_per_iter": 1e3 * loop_s / PQ_ITERS,
+           "singles_bitwise": B_PQ, "inertia_max_rel_err": inertia_rel,
+           "n_host_syncs": bkm._n_host_syncs,
+           "tol_1e-4_n_iter": conv.n_iter_.tolist(),
+           "score_sum": float(score.sum()), "launches": launches}
+    del singles, conv, again
+    torch.cuda.empty_cache()
+    # where a step's time goes: one traced batched fit and one traced
+    # single-problem fit, 25 steps each at tol = 0 (after the counts)
+    rec["trace_batched_fit"] = device_trace(torch, lambda: BatchedKMeans(
+        max_iter=PQ_ITERS, tol=0.0, **base).fit(x, centroids=seeds))
+    rec["trace_single_fit"] = device_trace(torch, lambda: KMeans(
+        K_PQ, backend="lloyd", max_iter=PQ_ITERS, tol=0.0,
+        random_state=SEED).fit(x[0], centroids=seeds[0]))
+    torch.cuda.empty_cache()
+
+    # kernel rows at the PQ shape
+    params = ops.clamp_params(N_PQ, K_PQ, F_PQ, ops.DEFAULT_PARAMS)
+    plan = ops.plan_data_batched(x, params)
+    kp = -(-K_PQ // params.block_k) * params.block_k
+    cp, cn = ops._pad_centroids(seeds, K_PQ, kp, plan.xp.shape[2])
+    tiles = dict(block_m=params.block_m, block_k=params.block_k,
+                 block_f=params.block_f)
+    b, np_, fp = plan.xp.shape
+    nt = np_ // params.block_m
+    xp, xn, c1, d2, bn = round_inputs(torch, kpp, hw, x)
+    specs = [
+        ("lloyd_step_batched", "src/repro/kernels/lloyd_step.py:278",
+         lambda: ll.lloyd_step_batched(plan.xp, cp, cn, N_PQ, **tiles),
+         lambda: ll.lloyd_step_batched_plain(plan.xp, cp, cn, N_PQ,
+                                             params.block_m),
+         lambda: torch.baddbmm(cn[:, None, :], plan.xp, cp.transpose(1, 2),
+                               alpha=-2.0).min(dim=2),
+         2.0 * b * N_PQ * K_PQ * F_PQ + b * N_PQ * F_PQ,
+         4.0 * (b * N_PQ * F_PQ + b * K_PQ * F_PQ + b * K_PQ + 2 * b * N_PQ
+                + b * nt * K_PQ * F_PQ + b * nt * K_PQ)),
+        ("kmeanspp_round", "src/repro/kernels/kmeanspp_init.py:95",
+         lambda: kpp.kmeanspp_round(xp, xn, c1, d2, block_n=bn),
+         lambda: kpp.kmeanspp_round_plain(xp, xn, c1, d2, bn),
+         lambda: torch.bmm(xp, c1.transpose(1, 2)),
+         2.0 * b * xp.shape[1] * F_PQ + 5.0 * b * xp.shape[1],
+         4.0 * (b * xp.shape[1] * (F_PQ + 3) + b * F_PQ
+                + b * xp.shape[1] // bn)),
+    ]
+    rows = []
+    for name, replaces, kfn, pfn, lfn, ops_n, bytes_n in specs:
+        k_out, p_out = kfn(), pfn()
+        err = max(max_err(a, b) for a, b in zip(k_out, p_out)
+                  if a.is_floating_point())
+        del k_out, p_out
+        b_ms, b_by = bound(ops_n, bytes_n)
+        rows.append({"name": name, "route": "cuda",
+                     "source": "src/repro_torch/csrc/fk_kernels.cu",
+                     "replaces": replaces, "launches": launches[name],
+                     "max_abs_err": err, "ms": cuda_ms(kfn, reps=20),
+                     "plain_ms": cuda_ms(pfn, reps=3),
+                     "bound_ms": b_ms, "bound_by": b_by,
+                     "library_ms": cuda_ms(lfn, reps=20)})
+        torch.cuda.empty_cache()
+    # the bound counts the GEMM the problem needs (F = 16); the kernel
+    # multiplies the features padded to Fp as well
+    rec["gemm_flop"] = {"needed": 2.0 * b * N_PQ * K_PQ * F_PQ,
+                        "padded": 2.0 * b * np_ * kp * fp}
+    rec["lloyd_step_one_problem_ms"] = cuda_ms(
+        lambda: ll.lloyd_step(plan.xp[0], cp[0], cn[0], N_PQ, **tiles),
+        reps=20)
+    rec["library_calls"] = {
+        "lloyd_step_batched": "baddbmm(cn, X, C^T, alpha=-2) + min(dim=2): "
+                              "the same distances and labels, no update",
+        "kmeanspp_round": "bmm(X, c_last^T): the cross term alone"}
+    return rec, rows
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -201,10 +470,12 @@ def main() -> int:
 
     from repro_torch import hw
     from repro_torch.api import FaultPolicy, InjectionCampaign, KMeans
+    from repro_torch.batch import BatchedKMeans
     from repro_torch.data.blobs import make_blobs
     from repro_torch.kernels import _build, ops, ref
     from repro_torch.kernels import distance_argmin as da
     from repro_torch.kernels import distance_argmin_ft as daft
+    from repro_torch.kernels import kmeanspp_init as kpp
     from repro_torch.kernels import lloyd_step as ll
     from repro_torch.kernels import lloyd_step_ft as llft
 
@@ -220,7 +491,8 @@ def main() -> int:
     lib = _build.library()
     build_s = time.perf_counter() - t0
     ptxas = [ln.strip() for ln in lib.ptxas_log.splitlines()
-             if "registers" in ln or "spill" in ln]
+             if "registers" in ln or "spill" in ln
+             or "Compiling entry function" in ln]
     emit({"phase": 1, "device": kind, "nvidia_smi": smi_line,
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "build_s": round(build_s, 3), "nvcc_s": round(lib.build_seconds, 3),
@@ -443,6 +715,15 @@ def main() -> int:
           "tiled_update_dmr_ms": cuda_ms(
               lambda: ops.tiled_update(plan, am_m, K_FULL, use_dmr=True),
               reps=3)})
+    del x, plan, am, am_m, am_long, valid
+    torch.cuda.empty_cache()
+
+    # --- phases 6-7: the batched path at the PQ shape -----------------------
+    emit(phase_batched_kernels(torch, ops, hw, ll, kpp))
+    rec7, rows7 = phase_batched_fit(torch, ops, hw, ll, kpp, bound, KMeans,
+                                    BatchedKMeans)
+    emit(rec7)
+    rows.extend(rows7)
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi_line, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -72,9 +72,11 @@ class KMeans:
     Parameters are the reference's (``n_clusters``, ``max_iter``, ``tol``,
     ``init``, ``fault``, ``backend``, ``params``, ``sync_every``,
     ``predict_chunk_rows``, ``random_state``) plus ``device`` ("cuda" by
-    default, "cpu" for the plain versions). ``batch_size``, ``compute_dtype``
-    other than float32 and ``init="kmeans++-fused"`` belong to later slices
-    and raise ``NotImplementedError``.
+    default, "cpu" for the plain versions). ``batch_size`` and
+    ``compute_dtype`` other than float32 belong to later slices and raise
+    ``NotImplementedError``. ``init`` is "kmeans++" or "random", as in the
+    reference; the fused seeding belongs to
+    :class:`~repro_torch.batch.BatchedKMeans`.
 
     Attributes: ``cluster_centers_`` (K, F) f32 and ``labels_`` (M,) int32
     tensors on ``device``; ``inertia_``, ``n_iter_``, ``detected_errors_``
@@ -92,10 +94,6 @@ class KMeans:
                  random_state: int = 0, device: Any = "cuda") -> None:
         if n_clusters < 1:
             raise ValueError(f"n_clusters must be >= 1, got {n_clusters}")
-        if init == "kmeans++-fused":
-            raise NotImplementedError(
-                "init='kmeans++-fused' (the kmeanspp_round kernel) comes with "
-                "the batched slice (ROADMAP Queue 1, item 7)")
         if init not in _INITS:
             raise ValueError(f"init must be one of {_INITS}, got {init!r}")
         if sync_every < 1:

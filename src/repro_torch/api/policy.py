@@ -109,6 +109,12 @@ class FaultPolicy:
         if name is None:
             name = "lloyd_ft" if self.protected else "fused"
         backend = get_backend(name)
+        if backend.supports_batch:
+            raise BackendCapabilityError(
+                f"backend {backend.name!r} is a batched (supports_batch) "
+                f"backend with a stacked (B, N, F) contract; KMeans drives "
+                f"single (M, F) problems -- use repro_torch.batch."
+                f"BatchedKMeans for problem stacks")
         if self.protected and not backend.supports_ft:
             raise BackendCapabilityError(
                 f"FaultPolicy(mode={self.mode!r}) needs a fault-tolerant "

@@ -29,6 +29,10 @@ class AssignmentBackend:
     takes_injection: accepts an in-kernel SEU injection descriptor.
     fuses_update:    one-pass backend returning ``(assign, min_dist,
                      detected, sums, counts)``.
+    supports_batch:  many-problem backend: ``x`` is a (B, N, F) stack (or a
+                     ``BatchPlan``), ``c`` (B, K, F), and every output
+                     carries a leading B axis. Only ``BatchedKMeans`` drives
+                     it; ``KMeans`` refuses it.
     """
 
     name: str
@@ -37,13 +41,16 @@ class AssignmentBackend:
     takes_params: bool = False
     takes_injection: bool = False
     fuses_update: bool = False
+    supports_batch: bool = False
     doc: str = ""
 
     @property
     def kernel_kind(self) -> str:
         """The kernel family whose tiles this backend uses: the
-        assignment-only kernel, the one-pass kernel or the one-pass FT
-        kernel."""
+        assignment-only kernel, the batched one-pass kernel, the one-pass
+        kernel or the one-pass FT kernel."""
+        if self.supports_batch:
+            return "batched"
         if self.fuses_update:
             return "lloyd_ft" if self.supports_ft else "lloyd"
         return "assign"

@@ -9,6 +9,11 @@ Going to the reference, these get the reference's defaults.
 ``config["params"]`` keeps its meaning in both, because ``KernelParams``
 names the same tile. A model fitted by one package predicts the same labels
 after loading into the other.
+
+Batched states (``BatchedKMeans.get_state()``) have the same keys in both
+packages but for ``config["device"]``; the reference's host-only backend
+``lloyd_batched_xla`` becomes the port's ``lloyd_batched`` (its plain
+version is the port's CPU path), and every other name passes through.
 """
 from __future__ import annotations
 
@@ -57,4 +62,35 @@ def to_reference_state(state: dict) -> dict:
     cfg["fault"]["worker_loss"] = _REF_WORKER_LOSS
     if cfg["fault"].get("injection") is not None:
         cfg["fault"]["injection"].update(_REF_BITS)
+    return out
+
+
+_REF_BATCHED_BACKENDS = {"lloyd_batched_xla": "lloyd_batched"}
+
+
+def _batched_arrays(state: dict) -> dict:
+    out = copy.deepcopy({k: v for k, v in state.items()
+                         if k not in ("cluster_centers", "n_iter", "inertia")})
+    out["cluster_centers"] = np.asarray(state["cluster_centers"], np.float32)
+    out["n_iter"] = np.asarray(state["n_iter"])
+    inertia = state.get("inertia")
+    out["inertia"] = None if inertia is None else np.asarray(inertia)
+    return out
+
+
+def from_reference_batched_state(state: dict) -> dict:
+    """Reference ``BatchedKMeans.get_state()`` dict -> the port's (device
+    left to ``BatchedKMeans.from_state``, "cuda" unless it is given)."""
+    out = _batched_arrays(state)
+    cfg = out["config"]
+    cfg["device"] = None
+    cfg["backend"] = _REF_BATCHED_BACKENDS.get(cfg["backend"],
+                                               cfg["backend"])
+    return out
+
+
+def to_reference_batched_state(state: dict) -> dict:
+    """Port ``BatchedKMeans.get_state()`` dict -> the reference's."""
+    out = _batched_arrays(state)
+    out["config"].pop("device", None)
     return out

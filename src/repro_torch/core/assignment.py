@@ -12,6 +12,9 @@ squared distance (M,) f32, detected errors), one-pass backends adding
   lloyd       the one-pass Lloyd kernel (assignment + update sums)
   lloyd_ft    the one-pass kernel with ABFT on the distance GEMM and a
               checksum-verified update: the ``correct`` protection path
+  lloyd_batched
+              the one-pass kernel over B stacked problems in one launch
+              ((B, N, F) in, every output with a leading B axis)
 
 On the CPU every kernel backend runs its kernel's plain version.
 """
@@ -62,6 +65,11 @@ def assign_lloyd(x, c: torch.Tensor, params=None):
     return am, md, _zero(md.device), sums, counts
 
 
+def assign_lloyd_batched(x, c: torch.Tensor, params=None):
+    am, md, sums, counts = ops.fused_lloyd_batched(x, c, params)
+    return am, md, _zero(md.device), sums, counts
+
+
 def assign_lloyd_ft(x, c: torch.Tensor, params=None,
                     inj: Optional[torch.Tensor] = None):
     am, md, sums, counts, det = ops.fused_lloyd_ft(x, c, params, inj=inj)
@@ -86,3 +94,8 @@ register_backend(AssignmentBackend(
     takes_injection=True, fuses_update=True,
     doc="one-pass FT Lloyd CUDA kernel: ABFT on the distance GEMM + "
         "checksum-verified update"))
+register_backend(AssignmentBackend(
+    "lloyd_batched", assign_lloyd_batched, takes_params=True,
+    fuses_update=True, supports_batch=True,
+    doc="batched one-pass Lloyd CUDA kernel: B independent problems per "
+        "launch, one (row tile, problem) grid"))

@@ -60,9 +60,10 @@ def protected_sums(x, assign: torch.Tensor, k: int, *,
 
 def means_from_sums(sums: torch.Tensor, counts: torch.Tensor,
                     prev: torch.Tensor) -> torch.Tensor:
-    """New centroids; empty clusters keep their previous centroid."""
-    means = sums / counts.clamp_min(1.0)[:, None]
-    return torch.where((counts > 0)[:, None], means, prev)
+    """New centroids; empty clusters keep their previous centroid. Leading
+    axes broadcast: (K, F) for one problem, (B, K, F) for a stack."""
+    means = sums / counts.clamp_min(1.0)[..., None]
+    return torch.where((counts > 0)[..., None], means, prev)
 
 
 def centroid_update(x, assign: torch.Tensor, k: int,
@@ -76,8 +77,14 @@ def reseed_empty(x: torch.Tensor, centroids: torch.Tensor,
                  counts: torch.Tensor, min_dist: torch.Tensor) -> torch.Tensor:
     """Move empty clusters onto the points farthest from their centroid,
     farthest first; a stable sort, so ties keep row order exactly as the
-    reference's ``jnp.argsort`` does. Draws nothing at random."""
-    order = torch.argsort(-min_dist, stable=True)
-    empty_rank = torch.cumsum((counts == 0).long(), 0) - 1
-    donor = order[empty_rank.clamp(0, x.shape[0] - 1)]
-    return torch.where((counts == 0)[:, None], x[donor], centroids)
+    reference's ``jnp.argsort`` does. Draws nothing at random. Leading axes
+    are problems of a stack: x (..., N, F), centroids (..., K, F), counts
+    (..., K), min_dist (..., N); each problem sorts its own rows, so it
+    picks the donors it picks alone (the reference vmaps this function)."""
+    n, f = x.shape[-2:]
+    order = torch.argsort(-min_dist, dim=-1, stable=True)
+    empty = counts == 0
+    empty_rank = torch.cumsum(empty.long(), -1) - 1
+    donor = order.gather(-1, empty_rank.clamp(0, n - 1))
+    rows = x.gather(-2, donor[..., None].expand(*donor.shape, f))
+    return torch.where(empty[..., None], rows, centroids)

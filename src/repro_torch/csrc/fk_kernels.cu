@@ -1,16 +1,28 @@
-// Hand-written Hopper (sm_90a) kernels for the FT K-means main path.
+// Hand-written Hopper (sm_90a) kernels for the FT K-means main paths.
 //
-// One templated tile kernel, lloyd_tile_kernel<BM, kFT, kUpdate>, carries the
-// four Pallas TPU kernels of the reference package:
+// One templated tile kernel, lloyd_tile_kernel<BM, kFT, kUpdate>, carries
+// five Pallas TPU kernels of the reference package:
 //
-//   kFT  kUpdate   replaces (src/repro/kernels/...)
-//   no   no        distance_argmin.py    distance_argmin
-//   no   yes       lloyd_step.py         lloyd_step
-//   yes  no        distance_argmin_ft.py distance_argmin_ft
-//   yes  yes       lloyd_step_ft.py      lloyd_step_ft
+//   kFT  kUpdate   problems  replaces (src/repro/kernels/...)
+//   no   no        1         distance_argmin.py    distance_argmin
+//   no   yes       1         lloyd_step.py         lloyd_step
+//   no   yes       B         lloyd_step.py         lloyd_step_batched
+//   yes  no        1         distance_argmin_ft.py distance_argmin_ft
+//   yes  yes       1         lloyd_step_ft.py      lloyd_step_ft
+//
+// The batched one-pass step is the single-problem instantiation launched
+// over a (row tile, problem) grid: blockIdx.y picks the problem and moves
+// every base pointer to that problem's slab, so problem b of a batched
+// launch runs, bit for bit, the code lloyd_step runs on problem b alone.
+// Only <BM, false, true> has the problem axis.
+// kmeanspp_round_kernel replaces kmeanspp_init.py kmeanspp_round (one D^2
+// seeding round over (row tile, problem)).
+//
+// Instantiations: lloyd_tile_kernel 2 (BM = 64, 128) x 4 (kFT, kUpdate) = 8,
+// update_tiles_kernel 2 (BM), kmeanspp_round_kernel 1: 11 kernels.
 //
 // The epilogues are single __device__ definitions (tile_min_argmin, fold_min,
-// locate_and_correct, emit_update) so the four variants agree bit for bit by
+// locate_and_correct, emit_update) so the variants agree bit for bit by
 // construction, as the reference's shared tile_min_argmin/_emit_update do.
 // update_tiles_kernel launches emit_update alone: over every row tile it is
 // the two-pass centroid update (ops.tiled_update), in the one-pass kernels'
@@ -35,11 +47,16 @@
 //   * update (kUpdate): rows are ranked by (cluster, row) in shared memory and
 //     each (k, f) partial sum is one thread's sequential sum over its
 //     cluster's rows in row order -- no atomics, so the sums are
-//     deterministic and a recompute reproduces them bit for bit.
+//     deterministic and a recompute reproduces them bit for bit;
+//   * seeding round: the block stages 256 rows x 32 features of its tile in
+//     shared memory (coalesced), thread r dots row r with the centroid row,
+//     and the tile sum is a fixed-order warp butterfly plus an in-order sum
+//     of the 8 warp partials -- no atomics, so a round repeats bit for bit.
 //
 // Bound on the H100: the distance GEMM, 2*M*Kp*Fp FLOPs on f32 CUDA cores
 // (67 TFLOP/s), above the bytes of X (read once per centroid tile, mostly
 // from L2) and the (M/BM, Kp, Fp) partial-sum buffer of the update variants.
+// The seeding round is bound by the bytes of X (one GEMV per round).
 // wgmma, TMA and a shared-memory X stash are later work.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler
@@ -55,6 +72,8 @@ constexpr int kThreads = 256;
 constexpr int kChunk = 32;   // features staged per step
 constexpr int kBK = 128;     // centroid tile
 constexpr int kTN = kBK / 16;
+constexpr int kMaxProblems = 65535;   // gridDim.y: one problem per grid row
+constexpr int kRoundRows = kThreads;  // seeding: rows staged per step
 
 // Injection descriptor slots, as in the reference:
 //   distance slot: [0] enabled [1] m_tile [2] c_tile [3] f_tile [4] row
@@ -177,6 +196,14 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
+// Butterfly sum: a fixed order, and every lane ends with the same bits
+// (a + b == b + a at each step).
+__device__ __forceinline__ float warp_sum(float v) {
+  for (int off = 16; off > 0; off >>= 1)
+    v += __shfl_xor_sync(0xffffffffu, v, off);
+  return v;
+}
+
 // --- epilogue 3: ABFT verification interval of one (row, centroid) tile ---
 // Run by warp 0 after the residuals are in shared memory. Detect against
 // thr = factor * max(max|col1|, max|row1|, 1) (the expected, clean side),
@@ -276,6 +303,23 @@ lloyd_tile_kernel(const float* __restrict__ x, const float* __restrict__ c,
                   int true_m, float thr_factor) {
   using L = Layout<BM>;
   constexpr int kTM = BM / 16;
+  if (!kFT && kUpdate) {
+    // problem blockIdx.y of a batched launch: every base pointer moves to
+    // its problem's slab of nt = gridDim.x row tiles (offsets in size_t:
+    // B*Mp*Fp passes 2^31). Only this instantiation, which lloyd_step and
+    // lloyd_step_batched share, has the problem axis, and it reads the slab
+    // size from the grid, so no instantiation takes a parameter for it
+    // (with the axis, distance_argmin and distance_argmin_ft ran 2-4 %
+    // slower on an H100, PERF.md).
+    const size_t pb = blockIdx.y, nt = gridDim.x, mp = nt * BM;
+    x += pb * mp * fp;
+    c += pb * kp * fp;
+    cn += pb * kp;
+    mind += pb * mp;
+    argmin += pb * mp;
+    sums += pb * nt * kp * fp;
+    counts += pb * nt * kp;
+  }
   extern __shared__ float sm[];
   float* Ds = sm + L::kDs;
   float* Xs = sm + L::kXs;
@@ -505,18 +549,77 @@ update_tiles_kernel(const float* __restrict__ x,
                   sums + size_t(mt) * kp * fp, counts + size_t(mt) * kp);
 }
 
+// One k-means++ D^2 round: problem blockIdx.y, row tile blockIdx.x of bn
+// rows of its (np, f) stack. For every row
+//   d2o = min(d2, max(xn - 2 <x, c> + ||c||^2, 0))
+// and ts[problem, tile] = the tile's sum of d2o. Padded rows come in with
+// d2 = 0 and stay 0. The block stages kRoundRows rows x kChunk features of
+// its tile in shared memory (consecutive threads read consecutive floats),
+// thread r dots row r with the centroid row in feature order, and the tile
+// sum is each thread's rows in order, a warp butterfly, then the 8 warp
+// partials in order: no atomics, the same bits on every run.
+__global__ void __launch_bounds__(kThreads)
+kmeanspp_round_kernel(const float* __restrict__ x,
+                      const float* __restrict__ xn,
+                      const float* __restrict__ c,
+                      const float* __restrict__ d2, float* __restrict__ d2o,
+                      float* __restrict__ ts, int np, int f, int bn) {
+  __shared__ float xs[kRoundRows * (kChunk + 1)];
+  __shared__ float cs[kChunk];
+  __shared__ float wsum[kThreads / 32];
+  const int tid = threadIdx.x;
+  const size_t b = blockIdx.y;
+  const size_t tile0 = b * np + size_t(blockIdx.x) * bn;
+  c += b * f;
+  float part = 0.0f;
+  for (int s0 = 0; s0 < bn; s0 += kRoundRows) {
+    const int rows = min(kRoundRows, bn - s0);
+    const float* xt = x + (tile0 + s0) * f;
+    float cross = 0.0f, cn = 0.0f;
+    for (int f0 = 0; f0 < f; f0 += kChunk) {
+      const int cw = min(kChunk, f - f0);
+      __syncthreads();  // the previous chunk is consumed
+      if (tid < cw) cs[tid] = c[f0 + tid];
+      for (int e = tid; e < rows * cw; e += kThreads) {
+        const int r = e / cw, q = e - r * cw;
+        xs[r * (kChunk + 1) + q] = xt[size_t(r) * f + f0 + q];
+      }
+      __syncthreads();
+      for (int q = 0; q < cw; ++q) cn = fmaf(cs[q], cs[q], cn);
+      if (tid < rows)
+        for (int q = 0; q < cw; ++q)
+          cross = fmaf(xs[tid * (kChunk + 1) + q], cs[q], cross);
+    }
+    if (tid < rows) {
+      const size_t r = tile0 + s0 + tid;
+      const float nd = fmaxf(xn[r] - 2.0f * cross + cn, 0.0f);
+      const float v = fminf(d2[r], nd);
+      d2o[r] = v;
+      part += v;
+    }
+  }
+  part = warp_sum(part);
+  if (tid % 32 == 0) wsum[tid / 32] = part;
+  __syncthreads();
+  if (tid == 0) {
+    float s = 0.0f;
+    for (int w = 0; w < kThreads / 32; ++w) s += wsum[w];
+    ts[b * gridDim.x + blockIdx.x] = s;
+  }
+}
+
 template <int BM, bool kFT, bool kUpdate>
 int launch_tile(const float* x, const float* c, const float* cn,
                 const int* inj, float* mind, int* argmin, int* det,
                 float* sums, float* counts, float* ucheck, float* ccheck,
-                int mp, int kp, int fp, int bf, int true_m, float thr_factor,
-                cudaStream_t stream) {
+                int nb, int mp, int kp, int fp, int bf, int true_m,
+                float thr_factor, cudaStream_t stream) {
   auto kernel = lloyd_tile_kernel<BM, kFT, kUpdate>;
   const size_t bytes = Layout<BM>::kBytes;
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(bytes));
   if (e != cudaSuccess) return int(e);
-  kernel<<<mp / BM, kThreads, bytes, stream>>>(
+  kernel<<<dim3(mp / BM, nb), kThreads, bytes, stream>>>(
       x, c, cn, inj, mind, argmin, det, sums, counts, ucheck, ccheck, kp, fp,
       bf, true_m, thr_factor);
   return int(cudaGetLastError());
@@ -525,20 +628,23 @@ int launch_tile(const float* x, const float* c, const float* cn,
 template <bool kFT, bool kUpdate>
 int dispatch(int bm, const float* x, const float* c, const float* cn,
              const int* inj, float* mind, int* argmin, int* det, float* sums,
-             float* counts, float* ucheck, float* ccheck, int mp, int kp,
-             int fp, int bf, int true_m, float thr_factor,
+             float* counts, float* ucheck, float* ccheck, int nb, int mp,
+             int kp, int fp, int bf, int true_m, float thr_factor,
              cudaStream_t stream) {
   if ((bm != 64 && bm != 128) || mp % bm || kp % kBK || bf < kChunk ||
-      bf % kChunk || fp % bf)
+      bf % kChunk || fp % bf || nb < 1 || nb > kMaxProblems ||
+      (nb > 1 && (kFT || !kUpdate)))
     return int(cudaErrorInvalidValue);
   if (bm == 128)
     return launch_tile<128, kFT, kUpdate>(x, c, cn, inj, mind, argmin, det,
-                                          sums, counts, ucheck, ccheck, mp, kp,
-                                          fp, bf, true_m, thr_factor, stream);
+                                          sums, counts, ucheck, ccheck, nb, mp,
+                                          kp, fp, bf, true_m, thr_factor,
+                                          stream);
   if (bm == 64)
     return launch_tile<64, kFT, kUpdate>(x, c, cn, inj, mind, argmin, det,
-                                         sums, counts, ucheck, ccheck, mp, kp,
-                                         fp, bf, true_m, thr_factor, stream);
+                                         sums, counts, ucheck, ccheck, nb, mp,
+                                         kp, fp, bf, true_m, thr_factor,
+                                         stream);
   return int(cudaErrorInvalidValue);
 }
 
@@ -550,8 +656,8 @@ int fk_distance_argmin(const float* x, const float* c, const float* cn,
                        float* mind, int* argmin, int mp, int kp, int fp,
                        int bm, int bf, void* stream) {
   return dispatch<false, false>(bm, x, c, cn, nullptr, mind, argmin, nullptr,
-                                nullptr, nullptr, nullptr, nullptr, mp, kp, fp,
-                                bf, mp, 0.0f,
+                                nullptr, nullptr, nullptr, nullptr, 1, mp, kp,
+                                fp, bf, mp, 0.0f,
                                 static_cast<cudaStream_t>(stream));
 }
 
@@ -560,8 +666,20 @@ int fk_lloyd_step(const float* x, const float* c, const float* cn,
                   int true_m, int mp, int kp, int fp, int bm, int bf,
                   void* stream) {
   return dispatch<false, true>(bm, x, c, cn, nullptr, mind, argmin, nullptr,
-                               sums, counts, nullptr, nullptr, mp, kp, fp, bf,
-                               true_m, 0.0f,
+                               sums, counts, nullptr, nullptr, 1, mp, kp, fp,
+                               bf, true_m, 0.0f,
+                               static_cast<cudaStream_t>(stream));
+}
+
+// nb stacked problems, each (mp, fp) rows against its own (kp, fp)
+// centroids; they share true_m (padded together).
+int fk_lloyd_step_batched(const float* x, const float* c, const float* cn,
+                          float* mind, int* argmin, float* sums,
+                          float* counts, int true_m, int nb, int mp, int kp,
+                          int fp, int bm, int bf, void* stream) {
+  return dispatch<false, true>(bm, x, c, cn, nullptr, mind, argmin, nullptr,
+                               sums, counts, nullptr, nullptr, nb, mp, kp, fp,
+                               bf, true_m, 0.0f,
                                static_cast<cudaStream_t>(stream));
 }
 
@@ -570,7 +688,7 @@ int fk_distance_argmin_ft(const float* x, const float* c, const float* cn,
                           float thr_factor, int mp, int kp, int fp, int bm,
                           int bf, void* stream) {
   return dispatch<true, false>(bm, x, c, cn, inj, mind, argmin, det, nullptr,
-                               nullptr, nullptr, nullptr, mp, kp, fp, bf, mp,
+                               nullptr, nullptr, nullptr, 1, mp, kp, fp, bf, mp,
                                thr_factor, static_cast<cudaStream_t>(stream));
 }
 
@@ -580,7 +698,7 @@ int fk_lloyd_step_ft(const float* x, const float* c, const float* cn,
                      float thr_factor, int true_m, int mp, int kp, int fp,
                      int bm, int bf, void* stream) {
   return dispatch<true, true>(bm, x, c, cn, inj, mind, argmin, det, sums,
-                              counts, ucheck, ccheck, mp, kp, fp, bf, true_m,
+                              counts, ucheck, ccheck, 1, mp, kp, fp, bf, true_m,
                               thr_factor, static_cast<cudaStream_t>(stream));
 }
 
@@ -599,6 +717,18 @@ int fk_update_tiles(const float* x, const int* argmin, const int* tile,
         x, argmin, tile, gate, sums, counts, kp, fp, true_m);
   else
     return int(cudaErrorInvalidValue);
+  return int(cudaGetLastError());
+}
+
+// nb problems of np = (np / bn) * bn rows and f features each.
+int fk_kmeanspp_round(const float* x, const float* xn, const float* c,
+                      const float* d2, float* d2o, float* ts, int nb, int np,
+                      int f, int bn, void* stream) {
+  if (nb < 1 || nb > kMaxProblems || f < 1 || bn < 1 || np < bn || np % bn)
+    return int(cudaErrorInvalidValue);
+  kmeanspp_round_kernel<<<dim3(np / bn, nb), kThreads, 0,
+                          static_cast<cudaStream_t>(stream)>>>(
+      x, xn, c, d2, d2o, ts, np, f, bn);
   return int(cudaGetLastError());
 }
 

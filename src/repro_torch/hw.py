@@ -34,3 +34,11 @@ FEATURE_CHUNK: int = 32
 ALIGN_M: int = 64
 ALIGN_K: int = 128
 ALIGN_F: int = 32
+
+# Default row tile of the k-means++ D^2 round (kmeanspp_round): one thread
+# block per (problem, INIT_BLOCK_N rows). 512 gives B * N / 512 blocks
+# (6,144 at B = 48, N = 65,536: ~47 per SM, enough to hide the latency of a
+# bytes-bound GEMV) while keeping the selection short: a cumulative sum
+# over N / 512 tile sums, then over the chosen tile's 512 rows. The CPU
+# path uses the same tile, so both walk the same two-level CDF.
+INIT_BLOCK_N: int = 512

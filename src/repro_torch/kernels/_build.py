@@ -7,8 +7,13 @@ source is compiled for Hopper with
          -Xcompiler -fPIC -Xptxas -v -o _build/<name>-<hash>.so csrc/<name>.cu
 
 into the package's git-ignored ``_build/`` directory and loaded with
-``ctypes``. The library file name carries a hash of the source, so an edited
-source rebuilds and an unchanged one is reused. Every C entry point returns
+``ctypes``. The one source holds every kernel of the port: the tile kernel
+behind ``distance_argmin``, ``lloyd_step`` (one problem, or B stacked
+problems over a (row tile, problem) grid: ``fk_lloyd_step_batched``),
+``distance_argmin_ft`` and ``lloyd_step_ft``, the update epilogue launched
+alone, and the k-means++ D^2 round (``fk_kmeanspp_round``). The library file
+name carries a hash of the source, so an edited source rebuilds and an
+unchanged one is reused. Every C entry point returns
 ``cudaGetLastError()`` after its launch; :func:`check` turns a non-zero code
 into a ``RuntimeError``. Nothing here runs at import time: this module is
 imported on machines without ``nvcc``.
@@ -45,6 +50,9 @@ SIGNATURES: dict[str, tuple] = {
     "fk_lloyd_step_ft": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _F, _I,
                          _I, _I, _I, _I, _I, _P),
     "fk_update_tiles": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "fk_lloyd_step_batched": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                              _I, _I, _P),
+    "fk_kmeanspp_round": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
 }
 
 

@@ -1,8 +1,9 @@
 """One-pass Lloyd iteration kernel (paper §III, Fig. 4, fused update).
 
-Replaces the Pallas TPU kernel ``lloyd_step`` of
+Replaces the Pallas TPU kernels ``lloyd_step`` of
 ``src/repro/kernels/lloyd_step.py`` (bodies ``_kernel``/``_kernel_smallk``,
-update epilogue ``_emit_update``). It is ``distance_argmin`` plus, once a
+update epilogue ``_emit_update``) and, for B stacked problems,
+``lloyd_step_batched`` (body ``_kernel_batched``). It is ``distance_argmin`` plus, once a
 row tile's argmin is final, that tile's per-cluster partial sums
 (M/bm, Kp, Fp) and counts (M/bm, Kp); rows >= ``true_m`` are padding and
 enter neither. ``ops._tree_sum`` collapses the partial blocks.
@@ -15,6 +16,13 @@ atomics: the sums are deterministic, so :func:`tile_update` (the same
 ``emit_update`` launched alone, ``update_tiles_kernel``) reproduces a tile
 bit for bit -- the contract ``ops._verify_update_partials`` rests on, and
 the reason a two-pass ``fused`` fit sums exactly as a ``lloyd`` fit does.
+
+Batched: :func:`lloyd_step_batched` launches the same instantiation over a
+(row tile, problem) grid; ``blockIdx.y`` moves every base pointer to its
+problem's slab, so problem b of the launch is, bit for bit, :func:`lloyd_step`
+on problem b alone (the reference's contract, ``tests/test_batched.py``).
+The TPU kernel wants padded K to be one centroid tile; this one loops over
+128-wide centroid tiles as the single-problem kernel does, so any K works.
 
 Bound on the H100: the distance GEMM (2 * Mp * Kp * Fp FLOPs on f32 CUDA
 cores) plus writing the partial-sum buffer, (Mp/bm) * Kp * Fp * 4 bytes
@@ -135,3 +143,61 @@ def tile_update(xp: torch.Tensor, am: torch.Tensor, sums_p: torch.Tensor,
 
 
 tile_update.launches = 0
+
+
+# problems per batched launch: one per grid row (gridDim.y <= 65535)
+MAX_PROBLEMS = 65_535
+
+
+def check_padded_batched(x: torch.Tensor, c: torch.Tensor, cn: torch.Tensor,
+                         block_m: int, block_k: int, block_f: int) -> None:
+    if x.dim() != 3 or c.dim() != 3 or cn.dim() != 2 or x.shape[0] < 1 \
+            or not x.shape[0] == c.shape[0] == cn.shape[0]:
+        raise ValueError(f"batched shapes must be x (B, Np, Fp), c (B, Kp, "
+                         f"Fp), cn (B, Kp) with B >= 1; got {tuple(x.shape)}, "
+                         f"{tuple(c.shape)}, {tuple(cn.shape)}")
+    check_padded(x[0], c[0], cn[0], block_m, block_k, block_f)
+    if x.shape[0] > MAX_PROBLEMS:
+        raise ValueError(f"{x.shape[0]} problems in one launch; the kernel's "
+                         f"grid holds at most {MAX_PROBLEMS} (gridDim.y)")
+
+
+def lloyd_step_batched_plain(x: torch.Tensor, c: torch.Tensor,
+                             cn: torch.Tensor, true_m: int, block_m: int):
+    """Plain PyTorch version: :func:`lloyd_step_plain` per problem, stacked,
+    so each problem is bit for bit the single-problem plain step."""
+    outs = [lloyd_step_plain(x[b], c[b], cn[b], true_m, block_m)
+            for b in range(x.shape[0])]
+    return tuple(torch.stack(parts) for parts in zip(*outs))
+
+
+def lloyd_step_batched(x: torch.Tensor, c: torch.Tensor, cn: torch.Tensor,
+                       true_m: int, *, block_m: int, block_k: int,
+                       block_f: int):
+    """Raw batched one-pass entry on pre-padded f32 inputs: x (B, Np, Fp),
+    c (B, Kp, Fp), cn (B, Kp) (+inf in padded slots); every problem has
+    ``true_m`` real rows. Returns (min (B, Np), argmin (B, Np), sums
+    (B, Np/bm, Kp, Fp), counts (B, Np/bm, Kp))."""
+    check_padded_batched(x, c, cn, block_m, block_k, block_f)
+    if _build.on_cpu(x, c, cn):
+        return lloyd_step_batched_plain(x, c, cn, true_m, block_m)
+    nb, mp, fp = x.shape
+    kp = c.shape[1]
+    nt = mp // block_m
+    dev = x.device
+    mind = torch.empty((nb, mp), dtype=torch.float32, device=dev)
+    am = torch.empty((nb, mp), dtype=torch.int32, device=dev)
+    sums = torch.empty((nb, nt, kp, fp), dtype=torch.float32, device=dev)
+    counts = torch.empty((nb, nt, kp), dtype=torch.float32, device=dev)
+    f32 = torch.float32
+    code = _build.library().lib.fk_lloyd_step_batched(
+        _build.ptr(x, f32, "x"), _build.ptr(c, f32, "c"),
+        _build.ptr(cn, f32, "cn"), mind.data_ptr(), am.data_ptr(),
+        sums.data_ptr(), counts.data_ptr(), true_m, nb, mp, kp, fp, block_m,
+        block_f, _build.stream_of(x))
+    _build.check(code, "lloyd_step_batched")
+    lloyd_step_batched.launches += 1
+    return mind, am, sums, counts
+
+
+lloyd_step_batched.launches = 0

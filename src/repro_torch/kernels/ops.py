@@ -2,8 +2,9 @@
 main-path part of ``repro.kernels.ops``).
 
 Pads inputs to the kernel tile grid (masked so results are exact), builds
-the per-fit :class:`DataPlan`, reduces per-row-tile partial sums, verifies
-the one-pass FT kernel's update checksums and plans injection descriptors.
+the per-fit :class:`DataPlan` (one problem) or :class:`BatchPlan` (B stacked
+problems), reduces per-row-tile partial sums, verifies the one-pass FT
+kernel's update checksums and plans injection descriptors.
 A tensor on the CPU runs every kernel's plain version; a CUDA tensor runs
 the kernels. Tiles come from explicit :class:`KernelParams` or the port's
 H100 defaults (``repro_torch.hw``); an autotuned table is later work.
@@ -92,10 +93,11 @@ def plan_data(x: torch.Tensor,
 
 def _pad_centroids(c: torch.Tensor, k: int, kp: int,
                    fp: int) -> tuple[torch.Tensor, torch.Tensor]:
-    """Pad centroids to (kp, fp); padded slots get +inf squared norms so
-    they never win the argmin."""
-    cpad = F.pad(c, (0, fp - c.shape[1], 0, kp - c.shape[0])).contiguous()
-    cn = (cpad.float() ** 2).sum(1)
+    """Pad centroids (..., K, F) to (..., kp, fp); padded slots get +inf
+    squared norms (..., kp) so they never win the argmin. Leading axes
+    are problems of a stack."""
+    cpad = F.pad(c, (0, fp - c.shape[-1], 0, kp - c.shape[-2])).contiguous()
+    cn = (cpad.float() ** 2).sum(-1)
     slot = torch.arange(kp, device=c.device)
     cn = torch.where(slot < k, cn, torch.inf).contiguous()
     return cpad, cn
@@ -291,6 +293,81 @@ def fused_assign_ft(x, c: torch.Tensor,
         plan.xp, cp, cn, inj, block_m=params.block_m,
         block_k=params.block_k, block_f=params.block_f, factor=factor)
     return am[:plan.m], mind[:plan.m], det.sum().to(torch.int32)
+
+
+@dataclasses.dataclass(frozen=True)
+class BatchPlan:
+    """Per-fit data plan for B stacked problems: the (B, N, F) block padded
+    to the tile grid once, and its per-problem row squared norms.
+
+    x      : (b, n, f)   the original stacked samples (reseeding donors)
+    xp     : (b, np, fp) X padded to the tile grid
+    xn     : (b, n)      per-problem row squared norms, f32
+    n, f   : true (unpadded) dimensions of one problem
+    params : the KernelParams the padding was laid out for
+    """
+
+    x: torch.Tensor
+    xp: torch.Tensor
+    xn: torch.Tensor
+    n: int
+    f: int
+    params: KernelParams
+
+
+def plan_data_batched(x: torch.Tensor, params: KernelParams) -> BatchPlan:
+    """Build the per-fit :class:`BatchPlan`: one pad of the whole stack.
+    Each problem's norms are :func:`plan_data`'s own op on its (n, f) slab,
+    so a problem's true distances are bit for bit a single fit's."""
+    _, n, f = x.shape
+    xn = torch.stack([(xb.float() ** 2).sum(1) for xb in x])
+    np_ = _round_up(n, params.block_m)
+    fp = _round_up(f, params.block_f)
+    xp = F.pad(x, (0, fp - f, 0, np_ - n)).contiguous()
+    return BatchPlan(x=x, xp=xp, xn=xn, n=n, f=f, params=params)
+
+
+def _resolve_padded_batched(x, c: torch.Tensor,
+                            params: Optional[KernelParams]) -> tuple:
+    """Batched front end: a raw (B, N, F) stack or a prebuilt
+    :class:`BatchPlan` -> (plan, padded centroids (B, Kp, Fp), masked norms
+    (B, Kp), params). Tiles come from ``params`` or the port's H100
+    defaults, clamped to one problem's shape."""
+    k = c.shape[1]
+    if isinstance(x, BatchPlan):
+        plan, params = x, x.params
+    else:
+        params = clamp_params(x.shape[1], k, x.shape[2],
+                              params or DEFAULT_PARAMS)
+        plan = plan_data_batched(x, params)
+    if plan.xp.dtype != torch.float32:
+        raise NotImplementedError(
+            f"compute dtype {plan.xp.dtype}: this slice of the port runs "
+            f"float32 only (bf16/fp16 tiles are ROADMAP Queue 1 work)")
+    if plan.xp.is_cuda:
+        check_cuda_params(params)
+    cp, cn = _pad_centroids(c.to(plan.xp.dtype), k,
+                            _round_up(k, params.block_k), plan.xp.shape[2])
+    return plan, cp, cn, params
+
+
+def fused_lloyd_batched(x, c: torch.Tensor,
+                        params: Optional[KernelParams] = None):
+    """One-pass Lloyd step for B stacked problems in one launch. ``x`` is a
+    raw (B, N, F) stack or a :class:`BatchPlan`; ``c`` is (B, K, F). The
+    row-tile partials collapse with :func:`_tree_sum` over axis 1, per
+    problem in the single-problem path's pairwise order, so problem b is
+    bit for bit :func:`fused_lloyd` on problem b. Returns (assign (B, N)
+    int32, true squared distance (B, N) f32, sums (B, K, F), counts
+    (B, K))."""
+    plan, cp, cn, params = _resolve_padded_batched(x, c, params)
+    k, n = c.shape[1], plan.n
+    mind, am, sums, counts = _ll.lloyd_step_batched(
+        plan.xp, cp, cn, n, block_m=params.block_m, block_k=params.block_k,
+        block_f=params.block_f)
+    sums = _tree_sum(sums.movedim(1, 0))[:, :k, :plan.f]
+    counts = _tree_sum(counts.movedim(1, 0))[:, :k]
+    return am[:, :n], mind[:, :n] + plan.xn, sums, counts
 
 
 def plan_injection_tile(m: int, k: int, f: int, params: KernelParams,

@@ -29,6 +29,7 @@ from repro_torch.core import kmeans as t_kmeans  # noqa: E402
 from repro_torch.data.blobs import make_blobs  # noqa: E402
 from repro_torch.kernels import distance_argmin as da  # noqa: E402
 from repro_torch.kernels import distance_argmin_ft as daft  # noqa: E402
+from repro_torch.kernels import kmeanspp_init as kpp  # noqa: E402
 from repro_torch.kernels import lloyd_step as ll  # noqa: E402
 from repro_torch.kernels import lloyd_step_ft as llft  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
@@ -37,7 +38,8 @@ ROOT = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py"]
 WRAPPERS = (da.distance_argmin, ll.lloyd_step, daft.distance_argmin_ft,
-            llft.lloyd_step_ft, ll.tile_update)
+            llft.lloyd_step_ft, ll.tile_update, ll.lloyd_step_batched,
+            kpp.kmeanspp_round)
 
 
 def _imports(path):
@@ -80,6 +82,9 @@ def test_wrappers_count_no_launch_on_cpu():
     am = ops.fused_assign(xt, c, p)[0]
     ops.tiled_update(ops.plan_data(xt, ops.clamp_params(300, 150, 70, p)),
                      am, 150, use_dmr=True)
+    stack = xt.view(3, 100, 70)
+    ops.fused_lloyd_batched(stack, stack[:, :7], p)
+    kpp.init_kmeanspp_fused(stack, 5, [0, 1, 2])
     assert [w.launches for w in WRAPPERS] == before == [0] * len(WRAPPERS)
 
 
@@ -101,6 +106,25 @@ def test_wrapper_rejects_unpadded_shapes():
         da.distance_argmin(torch.zeros(100, 32), torch.zeros(128, 32),
                            torch.zeros(128), block_m=128, block_k=128,
                            block_f=32)
+    with pytest.raises(ValueError, match="unpadded"):
+        ll.lloyd_step_batched(torch.zeros(2, 100, 32),
+                              torch.zeros(2, 128, 32), torch.zeros(2, 128),
+                              100, block_m=128, block_k=128, block_f=32)
+    with pytest.raises(ValueError, match="unpadded"):
+        kpp.kmeanspp_round(torch.zeros(2, 300, 5), torch.zeros(2, 300),
+                           torch.zeros(2, 1, 5), torch.zeros(2, 300),
+                           block_n=128)
+
+
+def test_batched_wrappers_refuse_other_devices():
+    x = torch.empty((2, 128, 32), device="meta")
+    c = torch.empty((2, 128, 32), device="meta")
+    cn = torch.empty((2, 128), device="meta")
+    with pytest.raises(RuntimeError, match="CPU or on one CUDA"):
+        ll.lloyd_step_batched(x, c, cn, 128, block_m=128, block_k=128,
+                              block_f=32)
+    with pytest.raises(RuntimeError, match="CPU or on one CUDA"):
+        kpp.kmeanspp_round(x, cn, c[:, :1], cn, block_n=128)
 
 
 @pytest.mark.parametrize("tile", [(256, 128, 32), (128, 256, 32),
@@ -120,7 +144,7 @@ def test_default_tiles_are_buildable():
     (dict(batch_size=64), NotImplementedError),
     (dict(compute_dtype="bfloat16"), NotImplementedError),
     (dict(compute_dtype="int8"), NotImplementedError),
-    (dict(init="kmeans++-fused"), NotImplementedError),
+    (dict(init="kmeans++-fused"), ValueError),
     (dict(fault=FaultPolicy(mode="detect")), NotImplementedError),
     (dict(compute_dtype="float64"), ValueError),
     (dict(init="nope"), ValueError),
@@ -128,6 +152,19 @@ def test_default_tiles_are_buildable():
 def test_later_slices_raise(kw, err):
     with pytest.raises(err):
         KMeans(4, device="cpu", **kw)
+
+
+def test_fused_init_refused_like_reference():
+    """The single-problem estimator of neither package has the fused
+    seeding; both refuse it with the same error type."""
+    from repro.api import KMeans as JKMeans
+    errors = []
+    for make in (lambda: JKMeans(4, init="kmeans++-fused"),
+                 lambda: KMeans(4, init="kmeans++-fused", device="cpu")):
+        with pytest.raises(Exception) as info:
+            make()
+        errors.append(type(info.value))
+    assert errors == [ValueError, ValueError]
 
 
 def test_to_service_not_ported():
@@ -151,7 +188,8 @@ def test_policy_resolution():
 
 @pytest.mark.parametrize("name,kind,intervals", [
     ("fused", "assign", 0), ("fused_ft", "assign", 1), ("lloyd", "lloyd", 0),
-    ("lloyd_ft", "lloyd_ft", 2), ("gemm_fused", "assign", 0)])
+    ("lloyd_ft", "lloyd_ft", 2), ("gemm_fused", "assign", 0),
+    ("lloyd_batched", "batched", 0)])
 def test_registry_flags_match_reference(name, kind, intervals):
     from repro.api import get_backend as j_get_backend
     b, jb = get_backend(name), j_get_backend(name)
@@ -159,7 +197,7 @@ def test_registry_flags_match_reference(name, kind, intervals):
     assert (b.kernel_kind, b.protected_intervals) == (jb.kernel_kind,
                                                       jb.protected_intervals)
     for flag in ("supports_ft", "takes_params", "takes_injection",
-                 "fuses_update"):
+                 "fuses_update", "supports_batch"):
         assert getattr(b, flag) == getattr(jb, flag)
 
 
@@ -205,6 +243,24 @@ def test_reseed_empty_matches_reference():
     want = j_kmeans.reseed_empty(None, jnp.asarray(x), jnp.asarray(c),
                                  jnp.asarray(counts), jnp.asarray(md))
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def test_reseed_empty_is_per_problem():
+    """The stacked reseed picks, problem by problem, the single-problem
+    donors (the reference vmaps its reseed), ties included."""
+    rng = np.random.default_rng(5)
+    x = rng.normal(size=(3, 40, 4)).astype(np.float32)
+    c = rng.normal(size=(3, 6, 4)).astype(np.float32)
+    counts = rng.integers(0, 3, size=(3, 6)).astype(np.float32)
+    md = rng.integers(0, 4, size=(3, 40)).astype(np.float32)
+    got = t_kmeans.reseed_empty(*map(torch.from_numpy,
+                                             (x, c, counts, md)))
+    for b in range(3):
+        want = j_kmeans.reseed_empty(None, jnp.asarray(x[b]),
+                                     jnp.asarray(c[b]),
+                                     jnp.asarray(counts[b]),
+                                     jnp.asarray(md[b]))
+        np.testing.assert_array_equal(got[b].numpy(), np.asarray(want))
 
 
 def test_means_and_centroid_update_match_reference():
