@@ -4,8 +4,9 @@
     python3 chip_smoke.py            # from the repository root, on the card
 
 Builds the port's CUDA kernels from ``src/repro_torch/csrc`` and drives the
-port's two main paths: ``repro_torch.api.KMeans`` fit/predict/score,
-unprotected and ABFT-protected, at M = 2**20 rows x F = 128 features x
+port's paths: ``repro_torch.api.KMeans`` fit/predict/score, unprotected and
+ABFT-protected, pruned (``backend="lloyd_pruned"``) and quantised
+(``compute_dtype="int8"``), at M = 2**20 rows x F = 128 features x
 K = 1000 clusters; and ``repro_torch.batch.BatchedKMeans`` seeding, fit,
 predict and score at the width of product-quantisation codebook training
 for an IVF-PQ index over 768-d embeddings: B = 48 sub-quantisers of
@@ -32,7 +33,25 @@ Phases, one line each:
      same seeds, predict and score, a tol = 1e-4 fit, a ``torch.profiler``
      trace of one batched and one single-problem fit (kernels put on the
      card, device-busy share), ``lloyd_step`` on one problem alone, and the
-     launches, times, bounds and yardsticks of the two batched kernels.
+     launches, times, bounds and yardsticks of the two batched kernels;
+  8. the pruned one-pass step and the int8 distance kernel against their
+     plain versions at phase 2's shapes: a random skip mask on integer data
+     (every sum exact, so labels, sums, counts bitwise), the all-zero mask
+     against ``lloyd_step`` bitwise, int8 on float data bitwise against its
+     plain version (exact integer products on both sides) and on
+     quantisation-safe data against ``distance_argmin``;
+  9. at the phase-3 shape: ``lloyd_pruned`` fits bitwise equal to ``lloyd``
+     fits with rows in random order (prune fraction near 0: the
+     bookkeeping's cost) and sorted by generating label from the first row
+     of each label (centroid tiles aligned with row tiles: >= 50 % pruned
+     in the last third); an int8 fit from phase 3's seeds whose exact
+     inertia is at most 5 % above the ``fused`` fit's, one from the blob
+     centres within 5 % of it, predict and score, and the exact inertia of
+     int8 and ``fused`` fits from four more k-means++ seeds; the two
+     kernels' rows.
+
+A kernel's bound counts the work of the function at the true M, K and F,
+not at the padded tile grid; the padded figures are printed beside it.
 
 Any failed check exits non-zero. Imports nothing of JAX or the reference
 package. The last line is ``{"ok": true, "device": {...}}``.
@@ -40,6 +59,7 @@ package. The last line is ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import json
+import math
 import subprocess
 import sys
 import time
@@ -52,6 +72,8 @@ ITERS = 10
 SEED = 0
 B_PQ, N_PQ, F_PQ, K_PQ = 48, 65_536, 16, 256
 PQ_ITERS = 25
+INT8_INERTIA_RTOL = 0.05   # the reference's bar, tests/test_int8.py
+INT8_SWEEP_SEEDS = (1, 2, 3, 4)   # more k-means++ seeds for phase 9 (c)
 
 
 class SmokeFailure(RuntimeError):
@@ -455,6 +477,322 @@ def phase_batched_fit(torch, ops, hw, ll, kpp, bound, KMeans,
     return rec, rows
 
 
+def safe_rows(torch, m: int, f: int, seed: int):
+    """Quantisation-safe rows (``tests/test_int8.py``): integers in
+    [-127, 127] with a +-127 pinned in every row, so every per-row scale is
+    exactly 1.0 and quantising changes nothing."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    a = rng.integers(-127, 128, size=(m, f)).astype(np.float32)
+    a[np.arange(m), rng.integers(0, f, m)] = 127.0
+    return torch.from_numpy(a).cuda()
+
+
+def phase_pruned_int8_kernels(torch, ops, ll, llp, dai) -> dict:
+    """Phase 8: the pruned step and the int8 kernel against their plain
+    versions on the card (TF32 off), and against the kernels they must
+    equal bit for bit."""
+    import numpy as np
+    import torch.nn.functional as F
+    from repro_torch.data.blobs import make_blobs
+    out = {"phase": 8, "shapes": []}
+    for k in (1000, 100):
+        params = ops.clamp_params(M_SMALL, k, F_SMALL, ops.DEFAULT_PARAMS)
+        bm, bk = params.block_m, params.block_k
+        tiles = dict(block_m=bm, block_k=bk, block_f=params.block_f)
+        kp = -(-k // bk) * bk
+        rec = {"k": k, "centroid_tiles": kp // bk, "tol_rel": 1e-5}
+        rng = np.random.default_rng(SEED + k)
+
+        def padded(x, c):
+            plan = ops.plan_data(x, params)
+            cp, cn = ops._pad_centroids(c, k, kp, plan.xp.shape[1])
+            xn = F.pad(plan.xn, (0, plan.xp.shape[0] - plan.m)).contiguous()
+            return plan, cp, cn, xn
+
+        # a random mask on small integers: every product and sum is exact
+        # in f32 in any order, so labels, sums and counts must be bitwise
+        xi = rng.integers(-3, 4, size=(M_SMALL, F_SMALL)).astype(np.float32)
+        ci = rng.integers(-3, 4, size=(k, F_SMALL)).astype(np.float32)
+        plan, cp, cn, xn = padded(torch.from_numpy(xi).cuda(),
+                                  torch.from_numpy(ci).cuda())
+        nt = plan.xp.shape[0] // bm
+        skip = torch.from_numpy((rng.random((nt, kp // bk)) < 0.5)
+                                .astype(np.int32)).cuda()
+        got = llp.lloyd_step_pruned(plan.xp, cp, cn, xn, skip, plan.m, **tiles)
+        want = llp.lloyd_step_pruned_plain(plan.xp, cp, cn, xn, skip, plan.m,
+                                           bm, bk)
+        for i, what in ((1, "argmin"), (2, "sums"), (3, "counts")):
+            expect(bool(torch.equal(got[i], want[i])),
+                   f"lloyd_step_pruned {what} vs plain, random mask K={k}")
+        ok, rec["pruned_random_min_err"] = rel_ok(got[0], want[0], 1e-5)
+        expect(ok, f"lloyd_step_pruned min vs plain, random mask K={k}")
+        ok, rec["pruned_random_tmin_err"] = rel_ok(got[4], want[4], 1e-5)
+        expect(ok, f"lloyd_step_pruned tmin vs plain, random mask K={k}")
+        rec["random_mask_skipped"] = float(skip.float().mean())
+        del got, want
+
+        # no skips on blob data: bit for bit lloyd_step
+        x_np, _ = make_blobs(M_SMALL, F_SMALL, k, seed=SEED + k)
+        x = torch.from_numpy(x_np).cuda()
+        c = torch.from_numpy(blob_centers(k, F_SMALL, SEED + k)).cuda()
+        plan, cp, cn, xn = padded(x, c)
+        zero = torch.zeros_like(skip)
+        got = llp.lloyd_step_pruned(plan.xp, cp, cn, xn, zero, plan.m, **tiles)
+        one = ll.lloyd_step(plan.xp, cp, cn, plan.m, **tiles)
+        expect(all(bool(torch.equal(a, b)) for a, b in zip(got, one)),
+               f"lloyd_step_pruned without skips is not lloyd_step K={k}")
+        want = llp.lloyd_step_pruned_plain(plan.xp, cp, cn, xn, zero, plan.m,
+                                           bm, bk)
+        ok, rec["pruned_tmin_err"] = rel_ok(got[4], want[4], 1e-5)
+        expect(ok and bool(torch.equal(got[1], want[1])),
+               f"lloyd_step_pruned tmin or labels vs plain, no skips K={k}")
+        del got, one, want
+
+        # int8 on float data: exact integer products on both sides
+        qplan, cq, sc, cn8, _ = ops._resolve_padded_int8(x, c, params)
+        got = dai.distance_argmin_int8(qplan.xq, cq, qplan.sx, sc, cn8, **tiles)
+        want = dai.distance_argmin_int8_plain(qplan.xq, cq, qplan.sx, sc, cn8)
+        rec["int8_min_err"] = max_err(got[0], want[0])
+        expect(bool(torch.equal(got[0], want[0]))
+               and bool(torch.equal(got[1], want[1])),
+               f"distance_argmin_int8 vs plain is not bitwise K={k}")
+        # quantisation-safe data: bit for bit distance_argmin
+        xs, cs = safe_rows(torch, M_SMALL, F_SMALL, SEED + k), \
+            safe_rows(torch, k, F_SMALL, SEED + k + 1)
+        am8, md8 = ops.fused_assign_int8(xs, cs, params)
+        am32, md32 = ops.fused_assign(xs, cs, params)
+        expect(bool(torch.equal(am8, am32)) and bool(torch.equal(md8, md32)),
+               f"distance_argmin_int8 on safe data is not distance_argmin "
+               f"K={k}")
+        out["shapes"].append(rec)
+        del x, plan, qplan, got, want, xs, cs
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_pruned_int8_fits(torch, ops, hw, llp, dai, KMeans, x, labels_true,
+                           c_init, km_ll, km_off, lib_ms,
+                           bound) -> tuple[dict, list]:
+    """Phase 9: the pruned and int8 paths at the phase-3 shape, then the
+    rows of their kernels."""
+    import torch.nn.functional as F
+    from repro_torch.core.kmeans import means_from_sums
+    base = dict(n_clusters=K_FULL, max_iter=ITERS, tol=0.0, random_state=SEED)
+    wrappers = {"lloyd_step_pruned": llp.lloyd_step_pruned,
+                "distance_argmin_int8": dai.distance_argmin_int8}
+    for w in wrappers.values():
+        w.launches = 0
+    # (a) rows in random order: little to prune, the bookkeeping's cost
+    km_pr, pr_s = wall(lambda: KMeans(backend="lloyd_pruned", **base)
+                       .fit(x, centroids=c_init))
+    _, ll_s = wall(lambda: KMeans(backend="lloyd", **base)
+                   .fit(x, centroids=c_init))
+    expect(bool(torch.equal(km_pr.cluster_centers_, km_ll.cluster_centers_))
+           and bool(torch.equal(km_pr.labels_, km_ll.labels_)),
+           "lloyd_pruned fit is not bit for bit the lloyd fit (random order)")
+    # (b) rows sorted by generating label, seeded by each label's first
+    # row: centroid tiles aligned with row tiles
+    order = torch.argsort(labels_true, stable=True)
+    xs, lab = x[order].contiguous(), labels_true[order]
+    first = torch.searchsorted(lab, torch.arange(K_FULL, device=lab.device,
+                                                 dtype=lab.dtype))
+    expect(bool((lab[first] == torch.arange(K_FULL, device=lab.device)).all()),
+           "a generating label has no row")
+    seeds = xs[first]
+    km_apr, apr_s = wall(lambda: KMeans(backend="lloyd_pruned", **base)
+                         .fit(xs, centroids=seeds))
+    km_all, all_s = wall(lambda: KMeans(backend="lloyd", **base)
+                         .fit(xs, centroids=seeds))
+    expect(bool(torch.equal(km_apr.cluster_centers_, km_all.cluster_centers_))
+           and bool(torch.equal(km_apr.labels_, km_all.labels_)),
+           "lloyd_pruned fit is not bit for bit the lloyd fit (sorted rows)")
+    hist = km_apr.prune_history_
+    third = hist[-max(1, len(hist) // 3):]
+    expect(len(hist) == km_apr.n_iter_ and hist[0] == 0.0
+           and min(third) >= 0.5,
+           f"aligned pruning below 50 % in the last third: {hist}")
+    expect(km_apr._n_host_syncs == km_all._n_host_syncs,
+           "the pruned fit reads the host more often than the lloyd fit")
+    # (c) the int8 fit, predict and score. From c_init (k-means++ seeds,
+    # blobs without a seed are split on margins the quantisation moves) the
+    # int8 and f32 fits converge to different optima; the reference's own
+    # int8 fit leaves its f32 fit alike on such data
+    # (tests/test_torch_int8.py::test_int8_leaves_f32_alike_in_both_packages).
+    # So the reference's 5 % bar is held two ways: the exact (f32) inertia
+    # of the int8 fit's centroids is at most 5 % above the fused fit's, and
+    # from the blob centres, where both fits share their optimum, the int8
+    # fit's inertia is within 5 % of the fused fit's.
+    km8, i8_s = wall(lambda: KMeans(compute_dtype="int8", **base)
+                     .fit(x, centroids=c_init))
+    labels8 = km8.predict(x)
+    score8 = km8.score(x)
+    centres = torch.from_numpy(blob_centers(K_FULL, F_FULL, SEED)).cuda()
+    c8 = KMeans(compute_dtype="int8", **base).fit(x, centroids=centres)
+    cf = KMeans(**base).fit(x, centroids=centres)
+    torch.cuda.synchronize()
+    launches = {name: w.launches for name, w in wrappers.items()}
+    for name, n in launches.items():
+        expect(n > 0, f"{name} was not launched on its path")
+    xn = (x * x).sum(1)
+
+    def exact_inertia(c):
+        return float((ops.fused_assign(x, c)[1] + xn).sum())
+    exact8 = exact_inertia(km8.cluster_centers_)
+    exact_f = exact_inertia(km_off.cluster_centers_)
+    rel8 = abs(km8.inertia_ - km_off.inertia_) / km_off.inertia_
+    rel_centres = abs(c8.inertia_ - cf.inertia_) / cf.inertia_
+    expect(km8._backend.name == "int8"
+           and exact8 <= (1.0 + INT8_INERTIA_RTOL) * exact_f,
+           f"int8 fit's exact inertia {exact8} over 1.05 x fused {exact_f}")
+    expect(rel_centres <= INT8_INERTIA_RTOL
+           and bool(torch.equal(c8.labels_, cf.labels_)),
+           f"int8 fit from the blob centres: inertia {rel_centres:.4f} from "
+           f"the fused fit's, or other labels")
+    expect(km8.cluster_centers_.dtype == torch.float32
+           and bool(torch.isfinite(km8.cluster_centers_).all()),
+           "int8 centroids are not finite f32")
+    expect(labels8.shape == (M_FULL,) and int(labels8.min()) >= 0
+           and int(labels8.max()) < K_FULL and score8 < 0,
+           f"int8 predict/score out of range ({score8})")
+    # the same readings from other k-means++ seeds (after the launch
+    # counts): how far, and to which side, the int8 fit's optimum lies
+    sweep = [{"seed": SEED, "int8_exact_inertia": exact8,
+              "fused_exact_inertia": exact_f}]
+    for s in INT8_SWEEP_SEEDS:
+        c_s = KMeans(**dict(base, random_state=s)).init_centroids(x)
+        sweep.append({"seed": s, "int8_exact_inertia": exact_inertia(
+            KMeans(compute_dtype="int8", **base).fit(
+                x, centroids=c_s).cluster_centers_),
+            "fused_exact_inertia": exact_inertia(KMeans(**base).fit(
+                x, centroids=c_s).cluster_centers_)})
+    for r in sweep:
+        r["rel"] = r["int8_exact_inertia"] / r["fused_exact_inertia"] - 1.0
+        expect(math.isfinite(r["rel"]), f"int8 seed sweep not finite: {r}")
+    rec = {"phase": 9, "m": M_FULL, "f": F_FULL, "k": K_FULL,
+           "random_order": {"lloyd_pruned_ms_per_iter": 1e3 * pr_s / ITERS,
+                            "lloyd_ms_per_iter": 1e3 * ll_s / ITERS,
+                            "prune_history": km_pr.prune_history_},
+           "label_sorted": {"lloyd_pruned_ms_per_iter": 1e3 * apr_s / ITERS,
+                            "lloyd_ms_per_iter": 1e3 * all_s / ITERS,
+                            "prune_history": hist},
+           "int8_ms_per_iter": 1e3 * i8_s / km8.n_iter_,
+           "int8_inertia": km8.inertia_, "fused_inertia": km_off.inertia_,
+           "int8_inertia_rel_to_fused": rel8,
+           "int8_exact_inertia": exact8, "fused_exact_inertia": exact_f,
+           "from_centres_inertia_rel": rel_centres, "int8_score": score8,
+           "int8_seed_sweep": sweep,
+           "n_host_syncs": {"lloyd_pruned": km_apr._n_host_syncs,
+                            "lloyd": km_all._n_host_syncs},
+           "launches": launches}
+    del km_pr, km_all, km8, labels8, c8, cf, xn
+    torch.cuda.empty_cache()
+
+    # the pruned kernel's row: the inputs of the sorted fit's third step
+    params = ops.clamp_params(M_FULL, K_FULL, F_FULL, ops.DEFAULT_PARAMS)
+    bm, bk = params.block_m, params.block_k
+    tiles = dict(block_m=bm, block_k=bk, block_f=params.block_f)
+    plan = ops.plan_data(xs, params)
+    c, bounds = seeds, None
+    for _ in range(2):
+        _, _, sums, counts, bounds, _ = ops.fused_lloyd_pruned(
+            plan, c, params, bounds=bounds)
+        c = means_from_sums(sums, counts, c)
+    kp = -(-K_FULL // bk) * bk
+    cp, cn = ops._pad_centroids(c, K_FULL, kp, plan.xp.shape[1])
+    skip, _ = ops.prune_mask(bounds, cp, plan.m, params)
+    skip = skip.contiguous()
+    mp, fp = plan.xp.shape
+    nt, nkt = mp // bm, kp // bk
+    xn = F.pad(plan.xn, (0, mp - plan.m)).contiguous()
+    computed = int((skip == 0).sum())
+    rec["pruned_row_skipped"] = 1.0 - computed / (nt * nkt)
+    # the computed cells' true rows x columns (the last centroid tile holds
+    # K - 7 * 128 = 104 of its 128)
+    ar = torch.arange(max(nt, nkt), device=skip.device)
+    rows_in = (plan.m - ar[:nt] * bm).clamp(max=bm)
+    cols_in = (K_FULL - ar[:nkt] * bk).clamp(max=bk)
+    cells = float(((skip == 0) * rows_in[:, None] * cols_in[None, :]).sum())
+
+    def pruned():
+        return llp.lloyd_step_pruned(plan.xp, cp, cn, xn, skip, plan.m,
+                                     **tiles)
+
+    def pruned_plain():
+        return llp.lloyd_step_pruned_plain(plan.xp, cp, cn, xn, skip, plan.m,
+                                           bm, bk)
+    k_out, p_out = pruned(), pruned_plain()
+    expect(bool(torch.equal(k_out[1], p_out[1]))
+           and bool(torch.equal(k_out[3], p_out[3])),
+           "lloyd_step_pruned labels or counts vs plain at the phase-3 shape")
+    pr_err = max(max_err(a, b) for a, b in zip(k_out, p_out)
+                 if a.is_floating_point())
+    del k_out, p_out
+    torch.cuda.empty_cache()
+    rec["lloyd_step_pruned_no_skip_ms"] = cuda_ms(
+        lambda: llp.lloyd_step_pruned(plan.xp, cp, cn, xn,
+                                      torch.zeros_like(skip), plan.m,
+                                      **tiles))
+    m_f = float(M_FULL * F_FULL)
+    b_ms, b_by = bound(2.0 * cells * F_FULL + m_f,
+                       4.0 * m_f + 4.0 * K_FULL * F_FULL + 12.0 * M_FULL
+                       + 4.0 * nt * K_FULL * (F_FULL + 1) + 8.0 * nt * nkt)
+    rec["bound_padded_ms"] = {"lloyd_step_pruned": bound(
+        2.0 * computed * bm * bk * fp + mp * fp,
+        4.0 * mp * fp + 4.0 * kp * fp + 12.0 * mp
+        + 4.0 * nt * kp * (fp + 1) + 8.0 * nt * nkt)[0]}
+    rows = [{"name": "lloyd_step_pruned", "route": "cuda",
+             "source": "src/repro_torch/csrc/fk_kernels.cu",
+             "replaces": "src/repro/kernels/lloyd_step_pruned.py:189",
+             "launches": launches["lloyd_step_pruned"], "max_abs_err": pr_err,
+             "ms": cuda_ms(pruned), "plain_ms": cuda_ms(pruned_plain, reps=2),
+             "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms}]
+    del plan, xs, bounds, sums, counts
+    torch.cuda.empty_cache()
+
+    # the int8 kernel's row: the int8 fit's first step
+    qplan, cq, sc, cn8, _ = ops._resolve_padded_int8(x, c_init, params)
+
+    def int8():
+        return dai.distance_argmin_int8(qplan.xq, cq, qplan.sx, sc, cn8,
+                                        **tiles)
+
+    def int8_plain():
+        return dai.distance_argmin_int8_plain(qplan.xq, cq, qplan.sx, sc, cn8)
+
+    def int8_library():
+        acc = torch._int_mm(qplan.xq, cq.T)
+        return (cn8[None, :] - 2.0 * (qplan.sx[:, None]
+                                      * (acc.float() * sc[None, :]))).min(1)
+    k_out, p_out = int8(), int8_plain()
+    expect(bool(torch.equal(k_out[0], p_out[0]))
+           and bool(torch.equal(k_out[1], p_out[1])),
+           "distance_argmin_int8 vs plain is not bitwise at the phase-3 shape")
+    i8_err = max_err(k_out[0], p_out[0])
+    del k_out, p_out
+    torch.cuda.empty_cache()
+    b_ms, b_by = bound(2.0 * m_f * K_FULL,
+                       m_f + 12.0 * M_FULL + K_FULL * F_FULL + 8.0 * K_FULL,
+                       peak=hw.PEAK_OPS_INT8)
+    rec["bound_padded_ms"]["distance_argmin_int8"] = bound(
+        2.0 * mp * kp * fp, mp * fp + 12.0 * mp + kp * fp + 8.0 * kp,
+        peak=hw.PEAK_OPS_INT8)[0]
+    rows.append({"name": "distance_argmin_int8", "route": "cuda",
+                 "source": "src/repro_torch/csrc/fk_kernels.cu",
+                 "replaces": "src/repro/kernels/distance_argmin_int8.py:123",
+                 "launches": launches["distance_argmin_int8"],
+                 "max_abs_err": i8_err, "ms": cuda_ms(int8, reps=20),
+                 "plain_ms": cuda_ms(int8_plain, reps=2),
+                 "bound_ms": b_ms, "bound_by": b_by,
+                 "library_ms": cuda_ms(int8_library)})
+    rec["library_calls"] = {
+        "lloyd_step_pruned": "addmm(cn, X, C^T, alpha=-2) + min(dim=1) at "
+                             "the phase-5 inputs (as rows 1-2): every tile",
+        "distance_argmin_int8": "_int_mm(Xq, Cq^T) + scale correction + "
+                                "min(dim=1)"}
+    return rec, rows
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -475,9 +813,11 @@ def main() -> int:
     from repro_torch.kernels import _build, ops, ref
     from repro_torch.kernels import distance_argmin as da
     from repro_torch.kernels import distance_argmin_ft as daft
+    from repro_torch.kernels import distance_argmin_int8 as dai
     from repro_torch.kernels import kmeanspp_init as kpp
     from repro_torch.kernels import lloyd_step as ll
     from repro_torch.kernels import lloyd_step_ft as llft
+    from repro_torch.kernels import lloyd_step_pruned as llp
 
     ref.full_f32(torch.device("cuda"))
     smi = subprocess.run(
@@ -502,9 +842,10 @@ def main() -> int:
     emit(phase_kernels(torch, ops, kern))
 
     # --- phase 3: unprotected fit at full size ------------------------------
-    x_np, _ = make_blobs(M_FULL, F_FULL, K_FULL, seed=SEED)
+    x_np, labels_np = make_blobs(M_FULL, F_FULL, K_FULL, seed=SEED)
     x = torch.from_numpy(x_np).cuda()
-    del x_np
+    labels_true = torch.from_numpy(labels_np).cuda()
+    del x_np, labels_np
     wrappers = {"distance_argmin": da.distance_argmin,
                 "lloyd_step": ll.lloyd_step,
                 "distance_argmin_ft": daft.distance_argmin_ft,
@@ -588,23 +929,27 @@ def main() -> int:
                  block_f=params.block_f)
     factor = ops.threshold_factor(fp, torch.float32)
     no_d, no_l = daft.no_injection().cuda(), llft.no_injection().cuda()
-    gemm = 2.0 * mp * kp * fp
-    x_bytes, c_bytes = 4.0 * mp * fp, 4.0 * kp * fp
-    part_bytes = 4.0 * nt * kp * fp + 4.0 * nt * kp
-    assign_out = 8.0 * mp
+    # a bound counts the function's work at the true M, K and F; the
+    # figures at the padded grid (Kp = 1024) are printed beside it
+    gemm = 2.0 * M_FULL * K_FULL * F_FULL
+    x_bytes, c_bytes = 4.0 * M_FULL * F_FULL, 4.0 * K_FULL * F_FULL
+    part_bytes = 4.0 * nt * K_FULL * F_FULL + 4.0 * nt * K_FULL
+    assign_out = 8.0 * M_FULL
+    padded_gemm = 2.0 * mp * kp * fp
 
     def library_call():
         d = torch.addmm(cn[None, :], plan.xp, cp.T, beta=1.0, alpha=-2.0)
         return d.min(dim=1)
     lib_ms = cuda_ms(library_call)
 
-    def bound(ops_n: float, bytes_n: float) -> tuple[float, str]:
-        t_ops = ops_n / hw.PEAK_FLOPS_F32
+    def bound(ops_n: float, bytes_n: float,
+              peak: float = hw.PEAK_FLOPS_F32) -> tuple[float, str]:
+        t_ops = ops_n / peak
         t_bytes = bytes_n / hw.HBM_BW
         return (1e3 * max(t_ops, t_bytes),
                 "operations" if t_ops >= t_bytes else "bytes")
 
-    rows = []
+    rows, padded_bounds = [], {}
     specs = [
         ("distance_argmin", "src/repro/kernels/distance_argmin.py:140",
          lambda: da.distance_argmin(plan.xp, cp, cn, **tiles),
@@ -614,7 +959,8 @@ def main() -> int:
          lambda: ll.lloyd_step(plan.xp, cp, cn, plan.m, **tiles),
          lambda: ll.lloyd_step_plain(plan.xp, cp, cn, plan.m,
                                      params.block_m),
-         gemm + mp * fp, x_bytes + c_bytes + assign_out + part_bytes),
+         gemm + M_FULL * F_FULL,
+         x_bytes + c_bytes + assign_out + part_bytes),
         ("distance_argmin_ft", "src/repro/kernels/distance_argmin_ft.py:207",
          lambda: daft.distance_argmin_ft(plan.xp, cp, cn, no_d,
                                          factor=factor, **tiles),
@@ -629,8 +975,8 @@ def main() -> int:
          lambda: llft.lloyd_step_ft_plain(plan.xp, cp, cn, no_l, plan.m,
                                           params.block_m, params.block_k,
                                           params.block_f, factor),
-         gemm + 3.0 * mp * fp, x_bytes + c_bytes + assign_out + part_bytes
-         + 4.0 * nt * (2 * fp + 3)),
+         gemm + 3.0 * M_FULL * F_FULL, x_bytes + c_bytes + assign_out
+         + part_bytes + 4.0 * nt * (2 * F_FULL + 3)),
     ]
     for name, replaces, kfn, pfn, ops_n, bytes_n in specs:
         k_out = kfn()
@@ -644,6 +990,7 @@ def main() -> int:
         del k_out, p_out, pairs
         torch.cuda.empty_cache()
         b_ms, b_by = bound(ops_n, bytes_n)
+        padded_bounds[name] = bound(ops_n - gemm + padded_gemm, bytes_n)[0]
         rows.append({"name": name, "route": "cuda",
                      "source": "src/repro_torch/csrc/fk_kernels.cu",
                      "replaces": replaces, "launches": launches[name],
@@ -688,7 +1035,8 @@ def main() -> int:
     del p_s, p_c
     torch.cuda.empty_cache()
     am_long = am.long()
-    upd_bound, upd_by = bound(mp * fp, x_bytes + 4.0 * mp + part_bytes)
+    upd_bound, upd_by = bound(M_FULL * F_FULL,
+                              x_bytes + 4.0 * M_FULL + part_bytes)
     rows.append({
         "name": "tile_update", "route": "cuda",
         "source": "src/repro_torch/csrc/fk_kernels.cu",
@@ -709,13 +1057,14 @@ def main() -> int:
     ops.tiled_update(plan, am_m, K_FULL)
     torch.cuda.synchronize()
     peak_gb = (torch.cuda.max_memory_allocated() - base_bytes) / 1e9
-    emit({"phase": 5, "tiled_update_peak_gb": peak_gb,
+    emit({"phase": 5, "gemm_bound_padded_ms": padded_bounds,
+          "tiled_update_peak_gb": peak_gb,
           "tiled_update_ms": cuda_ms(
               lambda: ops.tiled_update(plan, am_m, K_FULL), reps=3),
           "tiled_update_dmr_ms": cuda_ms(
               lambda: ops.tiled_update(plan, am_m, K_FULL, use_dmr=True),
               reps=3)})
-    del x, plan, am, am_m, am_long, valid
+    del plan, am, am_m, am_long, valid
     torch.cuda.empty_cache()
 
     # --- phases 6-7: the batched path at the PQ shape -----------------------
@@ -724,6 +1073,14 @@ def main() -> int:
                                     BatchedKMeans)
     emit(rec7)
     rows.extend(rows7)
+
+    # --- phases 8-9: the pruned and int8 paths --------------------------------
+    emit(phase_pruned_int8_kernels(torch, ops, ll, llp, dai))
+    rec9, rows9 = phase_pruned_int8_fits(torch, ops, hw, llp, dai, KMeans, x,
+                                         labels_true, c_init, km_ll, km_off,
+                                         lib_ms, bound)
+    emit(rec9)
+    rows.extend(rows9)
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi_line, flush=True)
     print(json.dumps({"ok": True, "device": {

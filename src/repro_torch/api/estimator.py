@@ -7,13 +7,19 @@
 
 Protection is a :class:`~repro_torch.api.policy.FaultPolicy`, resolved to a
 registered assignment backend. The full-batch fit builds its
-:class:`~repro_torch.kernels.ops.DataPlan` once and runs the Lloyd loop in
-Python with the convergence test on the device: a ``done`` flag freezes
-the remaining steps of a chunk, and the host reads progress once per
-``sync_every`` iterations, through :func:`_host_read`.
+:class:`~repro_torch.kernels.ops.DataPlan` (a
+:class:`~repro_torch.kernels.ops.QuantPlan` for ``compute_dtype="int8"``)
+once and runs the Lloyd loop in Python with the convergence test on the
+device: a ``done`` flag freezes the remaining steps of a chunk, and the host
+reads progress once per ``sync_every`` iterations, through
+:func:`_host_read`. A pruned backend (``supports_bounds``) carries its
+:class:`~repro_torch.kernels.ops.BoundsState` from step to step on the
+device, from a fresh state at every fit; its per-step prune fractions cross
+to the host in the same reads.
 """
 from __future__ import annotations
 
+import dataclasses
 import warnings
 from typing import Any, Callable, Optional
 
@@ -28,7 +34,7 @@ from repro_torch.kernels import distance_argmin_ft as _daft
 from repro_torch.kernels import ops, ref
 
 _INITS = ("kmeans++", "random")
-_LATER_DTYPES = ("bfloat16", "float16", "int8")
+_LATER_DTYPES = ("bfloat16", "float16")
 _PREDICT_CHUNK_ROWS = 65_536
 
 
@@ -72,15 +78,20 @@ class KMeans:
     Parameters are the reference's (``n_clusters``, ``max_iter``, ``tol``,
     ``init``, ``fault``, ``backend``, ``params``, ``sync_every``,
     ``predict_chunk_rows``, ``random_state``) plus ``device`` ("cuda" by
-    default, "cpu" for the plain versions). ``batch_size`` and
-    ``compute_dtype`` other than float32 belong to later slices and raise
-    ``NotImplementedError``. ``init`` is "kmeans++" or "random", as in the
-    reference; the fused seeding belongs to
+    default, "cpu" for the plain versions). ``compute_dtype`` is
+    "float32" or "int8": int8 picks the quantised ``int8`` backend (an
+    unprotected, assignment-only kernel) and keeps X and the centroids f32 at
+    the kernel boundary, since int8 is quantisation per row, not a cast.
+    ``batch_size`` and the bf16/fp16 compute dtypes belong to later slices
+    and raise ``NotImplementedError``. ``init`` is "kmeans++" or "random",
+    as in the reference; the fused seeding belongs to
     :class:`~repro_torch.batch.BatchedKMeans`.
 
     Attributes: ``cluster_centers_`` (K, F) f32 and ``labels_`` (M,) int32
     tensors on ``device``; ``inertia_``, ``n_iter_``, ``detected_errors_``
-    and ``_n_host_syncs`` plain numbers.
+    and ``_n_host_syncs`` plain numbers; ``prune_history_``, the pruned
+    tile fraction of each step of the last fit on a pruned backend (empty
+    otherwise).
     """
 
     def __init__(self, n_clusters: int = 8, *, max_iter: int = 100,
@@ -101,10 +112,10 @@ class KMeans:
         dtype = _dtype_name(compute_dtype)
         if dtype in _LATER_DTYPES:
             raise NotImplementedError(
-                f"compute_dtype={dtype!r} is not ported yet; this slice runs "
-                f"float32 (ROADMAP Queue 1)")
-        if dtype != "float32":
-            raise ValueError(f"compute_dtype must be 'float32', got "
+                f"compute_dtype={dtype!r} is not ported yet; the port runs "
+                f"float32 and int8 (ROADMAP Queue 1)")
+        if dtype not in ("float32", "int8"):
+            raise ValueError(f"compute_dtype must be 'float32' or 'int8', got "
                              f"{compute_dtype!r}")
         if batch_size is not None:
             raise NotImplementedError(
@@ -122,12 +133,24 @@ class KMeans:
         self.batch_size = batch_size
         self.params = params
         self.sync_every = sync_every
-        self.compute_dtype = torch.float32
+        self.compute_dtype = torch.int8 if dtype == "int8" else torch.float32
         self.predict_chunk_rows = predict_chunk_rows
         self.random_state = random_state
         self.device = resolve_device(device)
 
+        is_int8 = dtype == "int8"
+        if is_int8 and backend is None:
+            # the quantised kernel is assignment-only; the policy still
+            # validates the pick (int8 has no FT variant)
+            backend = "int8"
         self._backend: AssignmentBackend = self.fault.resolve_backend(backend)
+        if is_int8 != self._backend.supports_int8:
+            raise ValueError(
+                f"backend {self._backend.name!r} "
+                + ("does not consume int8-quantized operands; pick a "
+                   "supports_int8 backend or drop compute_dtype='int8'"
+                   if is_int8 else
+                   "is an int8 template and needs compute_dtype='int8'"))
         self._use_dmr = self.fault.dmr_enabled(self._backend)
         if self.fault.update_dmr and self._backend.fuses_update:
             warnings.warn(
@@ -143,6 +166,7 @@ class KMeans:
         self.inertia_: Optional[float] = None
         self.n_iter_: int = 0
         self.detected_errors_: int = 0
+        self.prune_history_: list = []
 
     # ------------------------------------------------------------------
     # internals
@@ -152,6 +176,15 @@ class KMeans:
         if self.cluster_centers_ is None:
             raise NotFittedError("this KMeans instance is not fitted yet; "
                                  "call fit() or partial_fit() first")
+
+    def _plan(self, x: torch.Tensor, params: Optional[ops.KernelParams]):
+        """The per-call data plan: quantised for int8 backends, padded f32
+        for the other tile backends, the raw rows for the rest."""
+        if params is None:
+            return x
+        if self._backend.supports_int8:
+            return ops.plan_data_int8(x, params)
+        return ops.plan_data(x, params)
 
     def _tensor(self, x: Any) -> torch.Tensor:
         if not isinstance(x, torch.Tensor):
@@ -183,9 +216,10 @@ class KMeans:
     def _apply_update(self, out: tuple, x: Any,
                       centroids: torch.Tensor) -> tuple:
         """One centroid update from a backend result: one-pass backends
-        carry (sums, counts); two-pass backends pay the second pass."""
+        carry (sums, counts) (pruned ones then the bounds and the prune
+        fraction); two-pass backends pay the second pass."""
         if self._backend.fuses_update:
-            am, md, det, sums, counts = out
+            am, md, det, sums, counts = out[:5]
             new_c = km_mod.means_from_sums(sums, counts, centroids)
         else:
             am, md, det = out
@@ -245,8 +279,13 @@ class KMeans:
         params = self._resolve_params(m, f)
         takes_inj = backend.takes_injection
         inj_rng = self._campaign_rng()
-        plan = ops.plan_data(x, params)
-        xa = plan if backend.takes_params else plan.x
+        xa = self._plan(x, params)
+        # a pruned fit starts from fresh bounds: a warm start or a restored
+        # state never inherits bounds computed against other centroids
+        bounds = backend.bounds_init(m, self.n_clusters, f, params,
+                                     device=dev) \
+            if backend.supports_bounds else None
+        self.prune_history_ = []
 
         am = torch.zeros(m, dtype=torch.int32, device=dev)
         det = torch.zeros((), dtype=torch.int32, device=dev)
@@ -264,15 +303,16 @@ class KMeans:
                 inj_stack = torch.stack([
                     self._draw_injection(inj_rng, m, f, params)
                     for _ in range(n_steps)]).to(dev)
-            hist = []
+            hist, prune = [], []
             for t in range(n_steps):
                 out = backend(xa, centroids, params=params,
-                              inj=None if inj_stack is None else inj_stack[t])
+                              inj=None if inj_stack is None else inj_stack[t],
+                              bounds=bounds)
                 am_b, md, det_i, new_c, counts = self._apply_update(
                     out, xa, centroids)
                 inertia_i = md.sum()
                 shift_i = ((new_c - centroids) ** 2).sum().sqrt()
-                new_c = km_mod.reseed_empty(plan.x, new_c, counts, md)
+                new_c = km_mod.reseed_empty(x, new_c, counts, md)
                 # a converged fit freezes: later steps pass their state on
                 live = ~done
                 centroids = torch.where(live, new_c, centroids)
@@ -280,6 +320,12 @@ class KMeans:
                 inertia = torch.where(live, inertia_i, inertia)
                 shift = torch.where(live, shift_i, 0.0)
                 det = det + torch.where(live, det_i.to(torch.int32), 0)
+                if bounds is not None:
+                    bounds = ops.BoundsState(*(
+                        torch.where(live, getattr(out[5], fld.name),
+                                    getattr(bounds, fld.name))
+                        for fld in dataclasses.fields(bounds)))
+                    prune.append(torch.where(live, out[6], 0.0))
                 done = done | (shift < self.tol)
                 hist.append((centroids, inertia, shift, live))
             # the chunk boundary: the only device->host read of the window
@@ -288,14 +334,17 @@ class KMeans:
             act_d = torch.stack([h[3] for h in hist])
             cs_d = torch.stack([h[0] for h in hist]) \
                 if on_iteration is not None else None
-            done_h, in_h, sh_h, act_h, cs_h = _host_read(
-                (done, in_d, sh_d, act_d, cs_d))
+            pf_d = torch.stack(prune) if prune else None
+            done_h, in_h, sh_h, act_h, cs_h, pf_h = _host_read(
+                (done, in_d, sh_d, act_d, cs_d, pf_d))
             self._n_host_syncs += 1
             executed = int(act_h.sum())
             if on_iteration is not None:
                 for t in range(executed):
                     on_iteration(it0 + t, cs_h[t], float(in_h[t]),
                                  float(sh_h[t]))
+            if pf_h is not None:
+                self.prune_history_.extend(float(v) for v in pf_h[:executed])
             if executed:
                 inertia_host = float(in_h[executed - 1])
             it0 += executed
@@ -313,7 +362,8 @@ class KMeans:
 
     def partial_fit(self, x: Any) -> "KMeans":
         """One streaming update from a data block (the first call seeds):
-        centres move by count-weighted running means."""
+        centres move by count-weighted running means. A pruned backend runs
+        unpruned here: streaming blocks share no bounds."""
         x = self._tensor(x)
         if self.cluster_centers_ is None:
             self.cluster_centers_ = self.init_centroids(x)
@@ -323,7 +373,7 @@ class KMeans:
             self._counts = torch.zeros(self.n_clusters, device=self.device)
         backend = self._backend
         params = self._resolve_params(x.shape[0], x.shape[1])
-        xa = x if params is None else ops.plan_data(x, params)
+        xa = self._plan(x, params)
         inj = None
         if backend.takes_injection:
             inj = self._draw_injection(self._campaign_rng(self.n_iter_),
@@ -332,7 +382,7 @@ class KMeans:
         c = self.cluster_centers_
         out = backend(xa, c, params=params, inj=inj)
         if backend.fuses_update:
-            am, md, det, sums, bcnt = out
+            am, md, det, sums, bcnt = out[:5]
         else:
             am, md, det = out
             sums, bcnt = km_mod.protected_sums(xa, am, self.n_clusters,
@@ -425,7 +475,7 @@ class KMeans:
                 "backend": self.backend,
                 "batch_size": self.batch_size,
                 "sync_every": self.sync_every,
-                "compute_dtype": "float32",
+                "compute_dtype": _dtype_name(self.compute_dtype),
                 "predict_chunk_rows": self.predict_chunk_rows,
                 "random_state": self.random_state,
                 "params": (None if self.params is None else

@@ -7,8 +7,13 @@ but for three: the port adds ``config["device"]``, and it has no
 slice) and no ``injection["bit_low"/"bit_high"]`` (no draw reads them).
 Going to the reference, these get the reference's defaults.
 ``config["params"]`` keeps its meaning in both, because ``KernelParams``
-names the same tile. A model fitted by one package predicts the same labels
-after loading into the other.
+names the same tile, and ``config["compute_dtype"]`` ("float32" or "int8")
+passes through. The reference's host-only single-problem backends become
+the port's kernel backends, whose plain versions are the port's CPU path:
+``int8_xla`` -> ``int8``, ``lloyd_pruned_xla`` -> ``lloyd_pruned``. Pruning
+bounds are never part of a state (every fit starts from fresh ones). A model
+fitted by one package predicts the same labels after loading into the
+other.
 
 Batched states (``BatchedKMeans.get_state()``) have the same keys in both
 packages but for ``config["device"]``; the reference's host-only backend
@@ -22,6 +27,7 @@ import copy
 import numpy as np
 
 _REF_WORKER_LOSS = "fail"
+_REF_BACKENDS = {"int8_xla": "int8", "lloyd_pruned_xla": "lloyd_pruned"}
 _REF_BITS = {"bit_low": 20, "bit_high": 30}
 
 
@@ -42,6 +48,7 @@ def from_reference_state(state: dict) -> dict:
     out = _arrays_f32(state)
     cfg = out["config"]
     cfg["device"] = None
+    cfg["backend"] = _REF_BACKENDS.get(cfg["backend"], cfg["backend"])
     fault = cfg["fault"]
     if fault.pop("worker_loss", _REF_WORKER_LOSS) != _REF_WORKER_LOSS:
         raise NotImplementedError(

@@ -15,6 +15,14 @@ squared distance (M,) f32, detected errors), one-pass backends adding
   lloyd_batched
               the one-pass kernel over B stacked problems in one launch
               ((B, N, F) in, every output with a leading B axis)
+  lloyd_pruned
+              the one-pass kernel with tile-granular triangle-inequality
+              pruning: bit for bit ``lloyd``; takes and returns the carried
+              ``ops.BoundsState`` (extended 7-tuple: + new bounds, pruned
+              tile fraction)
+  int8        the int8 distance kernel: X and C quantised per row, exact
+              int32 tile products, f32 scale correction, exact norm terms;
+              takes an ``ops.QuantPlan``
 
 On the CPU every kernel backend runs its kernel's plain version.
 """
@@ -33,13 +41,16 @@ def _zero(device: torch.device) -> torch.Tensor:
 
 
 def _row_norms(x) -> torch.Tensor:
-    """True-distance offset: the plan's precomputed norms, else computed."""
+    """True-distance offset: the plan's precomputed norms (a QuantPlan's are
+    the unquantised rows'), else computed."""
+    x = ops.f32_plan(x)
     if isinstance(x, ops.DataPlan):
         return x.xn
     return (x.float() ** 2).sum(1)
 
 
 def _data(x) -> torch.Tensor:
+    x = ops.f32_plan(x)
     return x.x if isinstance(x, ops.DataPlan) else x
 
 
@@ -63,6 +74,17 @@ def assign_fused_ft(x, c: torch.Tensor, params=None,
 def assign_lloyd(x, c: torch.Tensor, params=None):
     am, md, sums, counts = ops.fused_lloyd(x, c, params)
     return am, md, _zero(md.device), sums, counts
+
+
+def assign_int8(x, c: torch.Tensor, params=None):
+    am, md = ops.fused_assign_int8(x, c, params)
+    return am, md + _row_norms(x), _zero(md.device)
+
+
+def assign_lloyd_pruned(x, c: torch.Tensor, params=None, *, bounds=None):
+    am, md, sums, counts, new_bounds, frac = ops.fused_lloyd_pruned(
+        x, c, params, bounds=bounds)
+    return am, md, _zero(md.device), sums, counts, new_bounds, frac
 
 
 def assign_lloyd_batched(x, c: torch.Tensor, params=None):
@@ -94,6 +116,17 @@ register_backend(AssignmentBackend(
     takes_injection=True, fuses_update=True,
     doc="one-pass FT Lloyd CUDA kernel: ABFT on the distance GEMM + "
         "checksum-verified update"))
+register_backend(AssignmentBackend(
+    "int8", assign_int8, takes_params=True, supports_int8=True,
+    doc="int8 distance CUDA kernel: per-row quantised X/C, exact int32 "
+        "tile products, f32 scale-corrected epilogue with exact norm terms "
+        "(bit-exact argmin on quantisation-safe data)"))
+register_backend(AssignmentBackend(
+    "lloyd_pruned", assign_lloyd_pruned, takes_params=True,
+    fuses_update=True, supports_bounds=True, bounds_init=ops.init_bounds,
+    doc="pruned one-pass Lloyd CUDA kernel: Hamerly bounds skip whole "
+        "centroid tiles that provably lose (bit-identical to lloyd; "
+        "extended 7-tuple with bounds state + prune fraction)"))
 register_backend(AssignmentBackend(
     "lloyd_batched", assign_lloyd_batched, takes_params=True,
     fuses_update=True, supports_batch=True,

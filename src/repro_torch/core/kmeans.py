@@ -40,13 +40,15 @@ def init_kmeanspp(gen: torch.Generator, x: torch.Tensor,
 def protected_sums(x, assign: torch.Tensor, k: int, *,
                    use_dmr: bool = True):
     """Per-cluster (sums, counts), optionally under DMR. ``x`` is the raw
-    (M, F) data or a :class:`~repro_torch.kernels.ops.DataPlan`. A padded
+    (M, F) data, a :class:`~repro_torch.kernels.ops.DataPlan` or a
+    :class:`~repro_torch.kernels.ops.QuantPlan` (its f32 DataPlan). A padded
     plan sums in the one-pass kernels' order
     (:func:`~repro_torch.kernels.ops.tiled_update`), which recomputes on a
     DMR mismatch only, gated on the device. The raw path (backends without
     tiles) runs a plain reduction; under DMR it always computes the
     recompute and selects it by the flag, so the fit never waits on the
     host: three updates per step."""
+    x = ops.f32_plan(x)
     if isinstance(x, ops.DataPlan) and x.params is not None:
         return ops.tiled_update(x, assign, k, use_dmr=use_dmr)
     if isinstance(x, ops.DataPlan):

@@ -17,9 +17,17 @@
 // Only <BM, false, true> has the problem axis.
 // kmeanspp_round_kernel replaces kmeanspp_init.py kmeanspp_round (one D^2
 // seeding round over (row tile, problem)).
+// lloyd_pruned_kernel replaces lloyd_step_pruned.py lloyd_step_pruned: the
+// one-pass trip over a centroid tile, gated by a (row tile, centroid tile)
+// skip mask, plus the tile's Euclidean bound. It is a __global__ of its own,
+// so the instantiations above keep their signatures and code.
+// int8_tile_kernel replaces distance_argmin_int8.py distance_argmin_int8:
+// __dp4a over packed int8 words, the f32 scale correction, then the shared
+// min/argmin epilogue.
 //
 // Instantiations: lloyd_tile_kernel 2 (BM = 64, 128) x 4 (kFT, kUpdate) = 8,
-// update_tiles_kernel 2 (BM), kmeanspp_round_kernel 1: 11 kernels.
+// update_tiles_kernel 2 (BM), kmeanspp_round_kernel 1, lloyd_pruned_kernel 2
+// (BM), int8_tile_kernel 2 (BM): 15 kernels.
 //
 // The epilogues are single __device__ definitions (tile_min_argmin, fold_min,
 // locate_and_correct, emit_update) so the variants agree bit for bit by
@@ -56,6 +64,9 @@
 // Bound on the H100: the distance GEMM, 2*M*Kp*Fp FLOPs on f32 CUDA cores
 // (67 TFLOP/s), above the bytes of X (read once per centroid tile, mostly
 // from L2) and the (M/BM, Kp, Fp) partial-sum buffer of the update variants.
+// The pruned step needs the GEMM of its computed tiles only. The int8 GEMM
+// is bound by the int8 tensor cores' 1,979 Tera-op/s, which __dp4a on the
+// CUDA cores does not reach (mma.sync/wgmma s8 is later work).
 // The seeding round is bound by the bytes of X (one GEMV per round).
 // wgmma, TMA and a shared-memory X stash are later work.
 //
@@ -549,6 +560,216 @@ update_tiles_kernel(const float* __restrict__ x,
                   sums + size_t(mt) * kp * fp, counts + size_t(mt) * kp);
 }
 
+// The one-pass step of lloyd_tile_kernel<BM, false, true> with each trip over
+// a centroid tile gated by skip[mt * nkt + kt] (1 = the tile cannot win any
+// row of the row tile). The flag is read by every thread, after the previous
+// trip's last barrier, so the whole block skips staging, the FMA loop, the Ds
+// write and the fold together. A computed trip runs the tile kernel's code
+// (same FMA order, tile_min_argmin, fold_min), so where the mask skips only
+// tiles that strictly lose, the outputs are bit for bit lloyd_step's. It also
+// writes tmin[mt, kt] = min over the valid rows r of
+// sqrt(max(lmin_r + xn_r, 0)) (min is exact, so any order gives the same
+// bits); a skipped trip writes FLT_MAX there, a placeholder that the caller
+// replaces by the decayed bound. The final min/argmin writes and emit_update
+// run whatever the mask says.
+template <int BM>
+__global__ void __launch_bounds__(kThreads)
+lloyd_pruned_kernel(const float* __restrict__ x, const float* __restrict__ c,
+                    const float* __restrict__ cn, const float* __restrict__ xn,
+                    const int* __restrict__ skip, float* __restrict__ mind,
+                    int* __restrict__ argmin, float* __restrict__ sums,
+                    float* __restrict__ counts, float* __restrict__ tmin,
+                    int kp, int fp, int true_m) {
+  using L = Layout<BM>;
+  constexpr int kTM = BM / 16;
+  extern __shared__ float sm[];
+  float* Ds = sm + L::kDs;
+  float* Xs = sm + L::kXs;
+  float* Cs = sm + L::kCs;
+  float* cnS = sm + L::kCn;
+  float* wmin = sm + L::kPart;  // BM / 32 warp minima of the tile bound
+  int* smi = reinterpret_cast<int*>(sm);
+
+  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+  const int mt = blockIdx.x, m0 = mt * BM;
+  const int nkt = kp / kBK, nch = fp / kChunk;
+
+  float best = FLT_MAX;   // running row state, owned by thread tid < BM
+  int best_arg = 0;
+
+  for (int kt = 0; kt < nkt; ++kt) {
+    if (skip[mt * nkt + kt]) {   // block-uniform
+      if (tid == 0) tmin[mt * nkt + kt] = FLT_MAX;
+      continue;
+    }
+    const int c0 = kt * kBK;
+    float acc[kTM][kTN];
+#pragma unroll
+    for (int i = 0; i < kTM; ++i)
+#pragma unroll
+      for (int j = 0; j < kTN; ++j) acc[i][j] = 0.0f;
+    if (tid < kBK) cnS[tid] = cn[c0 + tid];
+
+    for (int ch = 0; ch < nch; ++ch) {
+      const int f0 = ch * kChunk;
+      for (int idx = tid; idx < BM * kChunk; idx += kThreads) {
+        const int r = idx / kChunk, f = idx % kChunk;
+        Xs[f * (BM + 1) + r] = x[size_t(m0 + r) * fp + f0 + f];
+      }
+      for (int idx = tid; idx < kBK * kChunk; idx += kThreads) {
+        const int r = idx / kChunk, f = idx % kChunk;
+        Cs[f * (kBK + 1) + r] = c[size_t(c0 + r) * fp + f0 + f];
+      }
+      __syncthreads();
+#pragma unroll 4
+      for (int f = 0; f < kChunk; ++f) {
+        float a[kTM], b[kTN];
+#pragma unroll
+        for (int i = 0; i < kTM; ++i) a[i] = Xs[f * (BM + 1) + ty + 16 * i];
+#pragma unroll
+        for (int j = 0; j < kTN; ++j) b[j] = Cs[f * (kBK + 1) + tx + 16 * j];
+#pragma unroll
+        for (int i = 0; i < kTM; ++i)
+#pragma unroll
+          for (int j = 0; j < kTN; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+      }
+      __syncthreads();
+    }
+
+#pragma unroll
+    for (int i = 0; i < kTM; ++i)
+#pragma unroll
+      for (int j = 0; j < kTN; ++j)
+        Ds[(ty + 16 * i) * (kBK + 1) + tx + 16 * j] = acc[i][j];
+    __syncthreads();
+
+    if (tid < BM) {
+      float lmin;
+      int larg;
+      tile_min_argmin(Ds + tid * (kBK + 1), cnS, c0, &lmin, &larg);
+      fold_min(&best, &best_arg, lmin, larg);
+      // the row's Euclidean distance to this tile; padding rows bound nothing
+      float e = m0 + tid < true_m ? sqrtf(fmaxf(lmin + xn[m0 + tid], 0.0f))
+                                  : FLT_MAX;
+      for (int off = 16; off > 0; off >>= 1)
+        e = fminf(e, __shfl_xor_sync(0xffffffffu, e, off));
+      if (tid % 32 == 0) wmin[tid / 32] = e;
+    }
+    __syncthreads();
+    if (tid == 0) {
+      float e = wmin[0];
+      for (int w = 1; w < BM / 32; ++w) e = fminf(e, wmin[w]);
+      tmin[mt * nkt + kt] = e;
+    }
+  }
+
+  int* am = smi + L::kAm;
+  if (tid < BM) {
+    mind[m0 + tid] = best;
+    argmin[m0 + tid] = best_arg;
+    am[tid] = best_arg;
+  }
+  emit_update<BM>(am, smi + L::kKey, smi + L::kOrder, smi + L::kSKey, x, m0,
+                  true_m, kp, fp, sums + size_t(mt) * kp * fp,
+                  counts + size_t(mt) * kp);
+}
+
+// int8 distance tile kernel: one block per row tile of BM rows, a loop over
+// centroid tiles of kBK and feature chunks of kChunk int8 values, staged in
+// shared memory as kChunk / 4 packed 32-bit words (transposed, like the f32
+// kernel's chunks). Each thread keeps a (BM/16) x 8 int32 accumulator and
+// adds four products per __dp4a: exact, so the order does not matter. The
+// epilogue is the reference's _scaled_acc, sx_i * (float(acc_ij) * sc_j), in
+// that order, into Ds, then the shared tile_min_argmin (d = cn - 2 v) and
+// fold_min.
+constexpr int kChunkWords = kChunk / 4;
+
+template <int BM>
+__global__ void __launch_bounds__(kThreads)
+int8_tile_kernel(const int* __restrict__ xq, const int* __restrict__ cq,
+                 const float* __restrict__ sx, const float* __restrict__ sc,
+                 const float* __restrict__ cn, float* __restrict__ mind,
+                 int* __restrict__ argmin, int kp, int fw) {
+  using L = Layout<BM>;
+  constexpr int kTM = BM / 16;
+  extern __shared__ float sm[];
+  float* Ds = sm + L::kDs;
+  int* Xw = reinterpret_cast<int*>(sm + L::kXs);  // kChunkWords x (BM + 1)
+  int* Cw = reinterpret_cast<int*>(sm + L::kCs);  // kChunkWords x (kBK + 1)
+  float* cnS = sm + L::kCn;
+  float* scS = sm + L::kCol1;
+
+  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+  const int m0 = blockIdx.x * BM;
+  const int nkt = kp / kBK, nch = fw / kChunkWords;
+  float sxv[kTM];
+#pragma unroll
+  for (int i = 0; i < kTM; ++i) sxv[i] = sx[m0 + ty + 16 * i];
+
+  float best = FLT_MAX;   // running row state, owned by thread tid < BM
+  int best_arg = 0;
+
+  for (int kt = 0; kt < nkt; ++kt) {
+    const int c0 = kt * kBK;
+    int acc[kTM][kTN];
+#pragma unroll
+    for (int i = 0; i < kTM; ++i)
+#pragma unroll
+      for (int j = 0; j < kTN; ++j) acc[i][j] = 0;
+    if (tid < kBK) {
+      cnS[tid] = cn[c0 + tid];
+      scS[tid] = sc[c0 + tid];
+    }
+
+    for (int ch = 0; ch < nch; ++ch) {
+      const int w0 = ch * kChunkWords;
+      for (int idx = tid; idx < BM * kChunkWords; idx += kThreads) {
+        const int r = idx / kChunkWords, w = idx % kChunkWords;
+        Xw[w * (BM + 1) + r] = xq[size_t(m0 + r) * fw + w0 + w];
+      }
+      for (int idx = tid; idx < kBK * kChunkWords; idx += kThreads) {
+        const int r = idx / kChunkWords, w = idx % kChunkWords;
+        Cw[w * (kBK + 1) + r] = cq[size_t(c0 + r) * fw + w0 + w];
+      }
+      __syncthreads();
+#pragma unroll
+      for (int w = 0; w < kChunkWords; ++w) {
+        int a[kTM], b[kTN];
+#pragma unroll
+        for (int i = 0; i < kTM; ++i) a[i] = Xw[w * (BM + 1) + ty + 16 * i];
+#pragma unroll
+        for (int j = 0; j < kTN; ++j) b[j] = Cw[w * (kBK + 1) + tx + 16 * j];
+#pragma unroll
+        for (int i = 0; i < kTM; ++i)
+#pragma unroll
+          for (int j = 0; j < kTN; ++j) acc[i][j] = __dp4a(a[i], b[j], acc[i][j]);
+      }
+      __syncthreads();
+    }
+
+#pragma unroll
+    for (int i = 0; i < kTM; ++i)
+#pragma unroll
+      for (int j = 0; j < kTN; ++j)
+        Ds[(ty + 16 * i) * (kBK + 1) + tx + 16 * j] =
+            sxv[i] * (float(acc[i][j]) * scS[tx + 16 * j]);
+    __syncthreads();
+
+    if (tid < BM) {
+      float lmin;
+      int larg;
+      tile_min_argmin(Ds + tid * (kBK + 1), cnS, c0, &lmin, &larg);
+      fold_min(&best, &best_arg, lmin, larg);
+    }
+    __syncthreads();
+  }
+
+  if (tid < BM) {
+    mind[m0 + tid] = best;
+    argmin[m0 + tid] = best_arg;
+  }
+}
+
 // One k-means++ D^2 round: problem blockIdx.y, row tile blockIdx.x of bn
 // rows of its (np, f) stack. For every row
 //   d2o = min(d2, max(xn - 2 <x, c> + ||c||^2, 0))
@@ -648,6 +869,40 @@ int dispatch(int bm, const float* x, const float* c, const float* cn,
   return int(cudaErrorInvalidValue);
 }
 
+template <int BM>
+int launch_pruned(const float* x, const float* c, const float* cn,
+                  const float* xn, const int* skip, float* mind, int* argmin,
+                  float* sums, float* counts, float* tmin, int mp, int kp,
+                  int fp, int true_m, cudaStream_t stream) {
+  auto kernel = lloyd_pruned_kernel<BM>;
+  const size_t bytes = Layout<BM>::kBytes;
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(bytes));
+  if (e != cudaSuccess) return int(e);
+  kernel<<<mp / BM, kThreads, bytes, stream>>>(
+      x, c, cn, xn, skip, mind, argmin, sums, counts, tmin, kp, fp, true_m);
+  return int(cudaGetLastError());
+}
+
+template <int BM>
+int launch_int8(const int* xq, const int* cq, const float* sx,
+                const float* sc, const float* cn, float* mind, int* argmin,
+                int mp, int kp, int fp, cudaStream_t stream) {
+  auto kernel = int8_tile_kernel<BM>;
+  const size_t bytes = Layout<BM>::kBytes;
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(bytes));
+  if (e != cudaSuccess) return int(e);
+  kernel<<<mp / BM, kThreads, bytes, stream>>>(xq, cq, sx, sc, cn, mind,
+                                               argmin, kp, fp / 4);
+  return int(cudaGetLastError());
+}
+
+bool tile_shape_ok(int bm, int mp, int kp, int fp) {
+  return (bm == 64 || bm == 128) && mp > 0 && mp % bm == 0 && kp > 0 &&
+         kp % kBK == 0 && fp > 0 && fp % kChunk == 0;
+}
+
 }  // namespace
 
 extern "C" {
@@ -718,6 +973,37 @@ int fk_update_tiles(const float* x, const int* argmin, const int* tile,
   else
     return int(cudaErrorInvalidValue);
   return int(cudaGetLastError());
+}
+
+// skip: (mp / bm, kp / 128) int32; xn: (mp,) row squared norms; tmin:
+// (mp / bm, kp / 128) f32 out.
+int fk_lloyd_step_pruned(const float* x, const float* c, const float* cn,
+                         const float* xn, const int* skip, float* mind,
+                         int* argmin, float* sums, float* counts, float* tmin,
+                         int true_m, int mp, int kp, int fp, int bm,
+                         void* stream) {
+  if (!tile_shape_ok(bm, mp, kp, fp)) return int(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (bm == 128)
+    return launch_pruned<128>(x, c, cn, xn, skip, mind, argmin, sums, counts,
+                              tmin, mp, kp, fp, true_m, s);
+  return launch_pruned<64>(x, c, cn, xn, skip, mind, argmin, sums, counts,
+                           tmin, mp, kp, fp, true_m, s);
+}
+
+// xq (mp, fp) and cq (kp, fp) int8, 4-byte aligned; sx (mp,), sc (kp,) and
+// cn (kp,) f32.
+int fk_distance_argmin_int8(const void* xq, const void* cq, const float* sx,
+                            const float* sc, const float* cn, float* mind,
+                            int* argmin, int mp, int kp, int fp, int bm,
+                            void* stream) {
+  if (!tile_shape_ok(bm, mp, kp, fp)) return int(cudaErrorInvalidValue);
+  const int* xw = static_cast<const int*>(xq);
+  const int* cw = static_cast<const int*>(cq);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (bm == 128)
+    return launch_int8<128>(xw, cw, sx, sc, cn, mind, argmin, mp, kp, fp, s);
+  return launch_int8<64>(xw, cw, sx, sc, cn, mind, argmin, mp, kp, fp, s);
 }
 
 // nb problems of np = (np / bn) * bn rows and f features each.

@@ -14,6 +14,7 @@ HBM_BW: float = 3.35e12                # bytes/s
 PEAK_FLOPS_F32: float = 67e12          # CUDA cores, FMA = 2 FLOPs
 PEAK_FLOPS_TF32: float = 495e12        # tensor cores
 PEAK_FLOPS_BF16: float = 989e12        # tensor cores (fp16 the same)
+PEAK_OPS_INT8: float = 1979e12         # tensor cores, int8 op/s (MAC = 2)
 
 # Default verification tile of the port's kernels (KernelParams): one thread
 # block of 256 threads owns BLOCK_M rows; the kernel walks centroid

@@ -11,7 +11,9 @@ into the package's git-ignored ``_build/`` directory and loaded with
 behind ``distance_argmin``, ``lloyd_step`` (one problem, or B stacked
 problems over a (row tile, problem) grid: ``fk_lloyd_step_batched``),
 ``distance_argmin_ft`` and ``lloyd_step_ft``, the update epilogue launched
-alone, and the k-means++ D^2 round (``fk_kmeanspp_round``). The library file
+alone, the k-means++ D^2 round (``fk_kmeanspp_round``), the pruned one-pass
+step (``fk_lloyd_step_pruned``) and the int8 distance kernel
+(``fk_distance_argmin_int8``). The library file
 name carries a hash of the source, so an edited source rebuilds and an
 unchanged one is reused. Every C entry point returns
 ``cudaGetLastError()`` after its launch; :func:`check` turns a non-zero code
@@ -53,6 +55,10 @@ SIGNATURES: dict[str, tuple] = {
     "fk_lloyd_step_batched": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                               _I, _I, _P),
     "fk_kmeanspp_round": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    "fk_lloyd_step_pruned": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                             _I, _I, _I, _P),
+    "fk_distance_argmin_int8": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                _P),
 }
 
 

@@ -1,0 +1,106 @@
+"""Tile-pruned one-pass Lloyd iteration kernel (Hamerly bounds per tile).
+
+Replaces the Pallas TPU kernel ``lloyd_step_pruned`` of
+``src/repro/kernels/lloyd_step_pruned.py`` (bodies ``_kernel_pruned`` and
+``_kernel_smallk_pruned``, bound ``_tile_bound``). It is
+:func:`~repro_torch.kernels.lloyd_step.lloyd_step` with an int32 skip mask
+(Mp/bm, Kp/bk): a set cell's centroid tile is not multiplied, scanned or
+folded for that row tile. Computed cells also return ``tmin``, the minimum
+over the row tile's valid rows of sqrt(max(local min + ||x||^2, 0)), the
+Euclidean distance of the row to its nearest centroid of that tile. Skipped
+cells hold a ``MIN_INIT`` placeholder that ``ops.fused_lloyd_pruned``
+replaces by the decayed bound. The update epilogue and the final min/argmin
+writes run whatever the mask says. Where the mask only skips tiles that lose
+strictly, every output is bit for bit ``lloyd_step``'s.
+
+CUDA kernel: ``lloyd_pruned_kernel<BM>`` in ``csrc/fk_kernels.cu``, a
+``__global__`` of its own whose computed trips are the one-pass tile
+kernel's code (so the other instantiations keep their signatures). The skip
+flag is read by the whole block before the trip's first barrier, so a
+skipped tile costs the block nothing but the flag. The reference's
+``smallk`` body needs no counterpart: with one centroid tile the caller
+forces the mask to zero.
+
+Bound on the H100: the GEMM of the computed cells, 2 * bm * bk * Fp FLOPs
+each on the f32 CUDA cores, plus the partial-sum buffer the update writes
+(as ``lloyd_step``).
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import _build, ref
+from repro_torch.kernels.distance_argmin import check_padded
+from repro_torch.kernels.lloyd_step import tile_update_plain
+
+# the kernels' running-min start and the placeholder of a skipped cell
+MIN_INIT = float(torch.finfo(torch.float32).max)
+
+
+def lloyd_step_pruned_plain(x: torch.Tensor, c: torch.Tensor,
+                            cn: torch.Tensor, xn: torch.Tensor,
+                            skip: torch.Tensor, true_m: int, block_m: int,
+                            block_k: int):
+    """Plain PyTorch version: the full distance matrix as
+    ``distance_argmin_plain`` computes it, skipped cells set to ``MIN_INIT``
+    (they never win: the kernel never folds them, and a row tile whose
+    every cell is skipped keeps the kernel's start, ``MIN_INIT`` at
+    index 0). Returns (min (Mp,), argmin (Mp,), sums (T, Kp, Fp), counts
+    (T, Kp), tmin (T, Kp/bk))."""
+    ref.full_f32(x.device)
+    mp, fp = x.shape
+    kp = c.shape[0]
+    nt, nkt = mp // block_m, kp // block_k
+    d = cn[None, :] - 2.0 * (x @ c.T)                          # (Mp, Kp)
+    cells = d.view(nt, block_m, nkt, block_k)
+    local = cells.amin(3)                                      # (T, bm, nkt)
+    rows = torch.arange(mp, device=x.device).view(nt, block_m, 1)
+    row_e = (local + xn.view(nt, block_m, 1)).clamp_min(0.0).sqrt()
+    row_e = torch.where(rows < true_m, row_e, MIN_INIT)
+    dead = skip.bool()                                         # (T, nkt)
+    tmin = torch.where(dead, MIN_INIT, row_e.amin(1))
+    cells = cells.masked_fill(dead[:, None, :, None], MIN_INIT)
+    mind, am = ref.first_min(cells.reshape(mp, kp))
+    sums, counts = tile_update_plain(x.view(nt, block_m, fp),
+                                     am.view(nt, block_m),
+                                     rows.view(nt, block_m) < true_m, kp)
+    return mind, am, sums, counts, tmin
+
+
+def lloyd_step_pruned(x: torch.Tensor, c: torch.Tensor, cn: torch.Tensor,
+                      xn: torch.Tensor, skip: torch.Tensor, true_m: int, *,
+                      block_m: int, block_k: int, block_f: int):
+    """Raw pruned one-pass entry on pre-padded f32 inputs: x (Mp, Fp), c
+    (Kp, Fp), cn (Kp,) with +inf in padded slots, xn (Mp,) row squared
+    norms (0 in padded rows), skip (Mp/bm, Kp/bk) int32. Returns (min (Mp,),
+    argmin (Mp,), sums (Mp/bm, Kp, Fp), counts (Mp/bm, Kp), tmin (Mp/bm,
+    Kp/bk))."""
+    check_padded(x, c, cn, block_m, block_k, block_f)
+    mp, fp = x.shape
+    kp = c.shape[0]
+    nt, nkt = mp // block_m, kp // block_k
+    if xn.shape != (mp,) or skip.shape != (nt, nkt):
+        raise ValueError(f"xn {tuple(xn.shape)} and skip {tuple(skip.shape)} "
+                         f"must be ({mp},) and ({nt}, {nkt})")
+    if _build.on_cpu(x, c, cn, xn, skip):
+        return lloyd_step_pruned_plain(x, c, cn, xn, skip, true_m, block_m,
+                                       block_k)
+    dev = x.device
+    mind = torch.empty(mp, dtype=torch.float32, device=dev)
+    am = torch.empty(mp, dtype=torch.int32, device=dev)
+    sums = torch.empty((nt, kp, fp), dtype=torch.float32, device=dev)
+    counts = torch.empty((nt, kp), dtype=torch.float32, device=dev)
+    tmin = torch.empty((nt, nkt), dtype=torch.float32, device=dev)
+    f32 = torch.float32
+    code = _build.library().lib.fk_lloyd_step_pruned(
+        _build.ptr(x, f32, "x"), _build.ptr(c, f32, "c"),
+        _build.ptr(cn, f32, "cn"), _build.ptr(xn, f32, "xn"),
+        _build.ptr(skip, torch.int32, "skip"), mind.data_ptr(),
+        am.data_ptr(), sums.data_ptr(), counts.data_ptr(), tmin.data_ptr(),
+        true_m, mp, kp, fp, block_m, _build.stream_of(x))
+    _build.check(code, "lloyd_step_pruned")
+    lloyd_step_pruned.launches += 1
+    return mind, am, sums, counts, tmin
+
+
+lloyd_step_pruned.launches = 0

@@ -2,9 +2,19 @@
 main-path part of ``repro.kernels.ops``).
 
 Pads inputs to the kernel tile grid (masked so results are exact), builds
-the per-fit :class:`DataPlan` (one problem) or :class:`BatchPlan` (B stacked
-problems), reduces per-row-tile partial sums, verifies the one-pass FT
-kernel's update checksums and plans injection descriptors.
+the per-fit :class:`DataPlan` (one problem), :class:`QuantPlan` (one problem,
+quantised to int8) or :class:`BatchPlan` (B stacked problems), reduces
+per-row-tile partial sums, verifies the one-pass FT kernel's update
+checksums, carries the pruned step's :class:`BoundsState` and plans
+injection descriptors.
+
+The int8 path differs from the reference in one place. Its
+:class:`QuantPlan` also holds the padded f32 :class:`DataPlan` of the same
+rows, so the two-pass update of an int8 fit runs :func:`tiled_update`, the
+``emit_update`` kernel, as a ``fused`` fit's does: one int8 step on
+quantisation-safe X and centroids is then bit for bit one ``fused`` step
+(labels, min distances, sums, counts). The reference's update is plain XLA
+outside any kernel, so nothing compared across the packages changes.
 A tensor on the CPU runs every kernel's plain version; a CUDA tensor runs
 the kernels. Tiles come from explicit :class:`KernelParams` or the port's
 H100 defaults (``repro_torch.hw``); an autotuned table is later work.
@@ -20,10 +30,13 @@ import torch.nn.functional as F
 from repro_torch import hw
 from repro_torch.core import dmr as dmr_mod
 from repro_torch.core.checksum import threshold_factor
+from repro_torch.dist.compression import quantize_rows
 from repro_torch.kernels import distance_argmin as _da
 from repro_torch.kernels import distance_argmin_ft as _daft
+from repro_torch.kernels import distance_argmin_int8 as _dai
 from repro_torch.kernels import lloyd_step as _ll
 from repro_torch.kernels import lloyd_step_ft as _llft
+from repro_torch.kernels import lloyd_step_pruned as _llp
 from repro_torch.kernels import ref
 
 
@@ -89,6 +102,39 @@ def plan_data(x: torch.Tensor,
     fp = _round_up(f, params.block_f)
     xp = F.pad(x, (0, fp - f, 0, mp - m)).contiguous()
     return DataPlan(x=x, xp=xp, xn=xn, m=m, f=f, params=params)
+
+
+@dataclasses.dataclass(frozen=True)
+class QuantPlan:
+    """Per-fit plan of the int8 kernel: X quantised per row
+    (:func:`~repro_torch.dist.compression.quantize_rows`) and padded to the
+    tile grid, once per fit, beside the padded f32 :class:`DataPlan` of the
+    same rows (the update pass, reseeding and the exact row norms).
+
+    data : the f32 DataPlan (x, xp, xn, m, f, params)
+    xq   : (mp, fp) int8 quantised X, zero padded
+    sx   : (mp,)    f32 per-row scales (1.0 in padded rows)
+    """
+
+    data: DataPlan
+    xq: torch.Tensor
+    sx: torch.Tensor
+
+
+def f32_plan(x):
+    """The f32 side of a plan: a :class:`QuantPlan`'s :class:`DataPlan`;
+    a :class:`DataPlan` or a raw tensor as given."""
+    return x.data if isinstance(x, QuantPlan) else x
+
+
+def plan_data_int8(x: torch.Tensor, params: KernelParams) -> QuantPlan:
+    """Build the per-fit :class:`QuantPlan` (quantise + pad + norms, once)."""
+    data = plan_data(x, params)
+    q, sx = quantize_rows(x)
+    mp, fp = data.xp.shape
+    xq = F.pad(q, (0, fp - data.f, 0, mp - data.m)).contiguous()
+    sxp = F.pad(sx[:, 0], (0, mp - data.m), value=1.0).contiguous()
+    return QuantPlan(data=data, xq=xq, sx=sxp)
 
 
 def _pad_centroids(c: torch.Tensor, k: int, kp: int,
@@ -162,6 +208,49 @@ def fused_assign(x, c: torch.Tensor, params: Optional[KernelParams] = None
     return am[:plan.m], mind[:plan.m]
 
 
+def _resolve_padded_int8(x, c: torch.Tensor,
+                         params: Optional[KernelParams]) -> tuple:
+    """int8 front end: a raw X or a :class:`QuantPlan` -> (plan, quantised
+    padded centroids (Kp, Fp) int8, their scales (Kp,) with 1.0 in padded
+    slots, masked norms (Kp,) of the unquantised centroids, params).
+    Centroids move every iteration, so unlike X they are quantised per
+    call."""
+    k = c.shape[0]
+    if isinstance(x, QuantPlan):
+        plan, params = x, x.data.params
+    else:
+        params = clamp_params(x.shape[0], k, x.shape[1],
+                              params or DEFAULT_PARAMS)
+        plan = plan_data_int8(x, params)
+    if plan.xq.is_cuda:
+        check_cuda_params(params)
+    cf = c.float()
+    kp, fp = _round_up(k, params.block_k), plan.xq.shape[1]
+    _, cn = _pad_centroids(cf, k, kp, fp)
+    cq, sc = quantize_rows(cf)
+    cqp = F.pad(cq, (0, fp - cf.shape[1], 0, kp - k)).contiguous()
+    scp = F.pad(sc[:, 0], (0, kp - k), value=1.0).contiguous()
+    return plan, cqp, scp, cn, params
+
+
+def fused_assign_int8(x, c: torch.Tensor,
+                      params: Optional[KernelParams] = None
+                      ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Nearest-centroid assignment via the int8 kernel. ``x`` is a raw
+    (M, F) tensor (quantised here) or a :class:`QuantPlan`; ``c`` the
+    unquantised (K, F) centroids. Returns (assign (M,) int32, partial min
+    distance (M,) f32). On quantisation-safe data it is bit for bit
+    :func:`fused_assign`."""
+    if not isinstance(x, QuantPlan) and x.shape[0] == 0:
+        return (torch.zeros(0, dtype=torch.int32, device=x.device),
+                torch.zeros(0, dtype=torch.float32, device=x.device))
+    plan, cq, sc, cn, params = _resolve_padded_int8(x, c, params)
+    mind, am = _dai.distance_argmin_int8(
+        plan.xq, cq, plan.sx, sc, cn, block_m=params.block_m,
+        block_k=params.block_k, block_f=params.block_f)
+    return am[:plan.data.m], mind[:plan.data.m]
+
+
 def _tree_sum(a: torch.Tensor) -> torch.Tensor:
     """Balanced pairwise reduction over axis 0 (deterministic on every
     device: elementwise adds in a fixed tree)."""
@@ -215,6 +304,105 @@ def fused_lloyd(x, c: torch.Tensor, params: Optional[KernelParams] = None):
     sums = _tree_sum(sums)[:k, :plan.f]
     counts = _tree_sum(counts)[:k]
     return am[:m], mind[:m] + plan.xn, sums, counts
+
+
+# Relative + absolute slack of the tile skip test: the bounds are f32 and
+# come from rounded kernel outputs, so a wrong skip needs a bound error
+# orders of magnitude above f32 rounding (the reference's value).
+PRUNE_SLACK = 1e-3
+
+
+@dataclasses.dataclass(frozen=True)
+class BoundsState:
+    """Hamerly bounds carried between pruned one-pass steps: device tensors
+    in a frozen dataclass, built for one (params, k, f). Anything that moves
+    centroids outside the step's own update (``partial_fit``,
+    ``from_state``, a warm start) starts from :func:`init_bounds`, whose
+    ``fresh`` flag makes the next step compute every tile.
+
+    ub     : (m,)       f32 upper bound of each row's distance to its centroid
+    assign : (m,)       int32 assignment the upper bounds pair with
+    tmin   : (nmt, nkt) f32 per-(row tile, centroid tile) lower bound
+    c_prev : (kp, fp)   f32 padded centroids the bounds were computed against
+    fresh  : ()         bool, True = placeholder: skip nothing, seed bounds
+    """
+
+    ub: torch.Tensor
+    assign: torch.Tensor
+    tmin: torch.Tensor
+    c_prev: torch.Tensor
+    fresh: torch.Tensor
+
+
+def init_bounds(m: int, k: int, f: int,
+                params: Optional[KernelParams] = None, *,
+                device: torch.device | str) -> BoundsState:
+    """Fresh (all-invalid) :class:`BoundsState` shaped for the clamped tile
+    grid of (m, k, f) on ``device`` (the data's), with ``fresh`` set so the
+    first step computes every tile."""
+    p = clamp_params(m, k, f, params or DEFAULT_PARAMS)
+    mp, kp = _round_up(m, p.block_m), _round_up(k, p.block_k)
+    fp = _round_up(f, p.block_f)
+    return BoundsState(
+        ub=torch.zeros(m, device=device),
+        assign=torch.zeros(m, dtype=torch.int32, device=device),
+        tmin=torch.zeros((mp // p.block_m, kp // p.block_k), device=device),
+        c_prev=torch.zeros((kp, fp), device=device),
+        fresh=torch.ones((), dtype=torch.bool, device=device))
+
+
+def prune_mask(bounds: BoundsState, cp: torch.Tensor, m: int,
+               params: KernelParams) -> tuple[torch.Tensor, torch.Tensor]:
+    """The skip test of one step, on the device: decay each recorded tile
+    bound by its centroid tile's largest drift (``tlb``) and skip a cell
+    when ``tlb > maxub * (1 + slack) + slack``, ``maxub`` the row tile's
+    largest upper bound grown by each row's own centroid drift. The tile
+    that holds a row's centroid has ``tlb <= maxub``, so it is never
+    skipped. One centroid tile, or a fresh state, skips nothing. Returns
+    (skip (nmt, nkt) int32, tlb (nmt, nkt) f32)."""
+    bm, bk = params.block_m, params.block_k
+    nmt, nkt = bounds.tmin.shape
+    drift = ((cp - bounds.c_prev) ** 2).sum(1).sqrt()             # (kp,)
+    maxdrift = drift.view(nkt, bk).amax(1)                        # (nkt,)
+    ub_adj = bounds.ub + drift[bounds.assign.long()]              # (m,)
+    maxub = F.pad(ub_adj, (0, nmt * bm - m),
+                  value=-torch.inf).view(nmt, bm).amax(1)         # (nmt,)
+    tlb = bounds.tmin - maxdrift[None, :]
+    if nkt == 1:
+        return torch.zeros_like(tlb, dtype=torch.int32), tlb
+    can_skip = tlb > maxub[:, None] * (1.0 + PRUNE_SLACK) + PRUNE_SLACK
+    return torch.where(bounds.fresh, 0, can_skip.to(torch.int32)), tlb
+
+
+def fused_lloyd_pruned(x, c: torch.Tensor,
+                       params: Optional[KernelParams] = None, *,
+                       bounds: Optional[BoundsState] = None):
+    """One-pass Lloyd step with tile-granular triangle-inequality pruning:
+    :func:`fused_lloyd` plus a carried :class:`BoundsState`. Skipping only
+    omits folds that lose strictly, so assignments, distances, sums and
+    counts are bit for bit :func:`fused_lloyd`'s at the same tiles.
+    ``bounds=None`` (or a fresh state) computes every tile and seeds the
+    bounds. Nothing here reads the device. Returns (assign (M,) int32, true
+    squared distance (M,), sums (K, F), counts (K,), new bounds, pruned
+    tile fraction (0-d f32))."""
+    plan, cp, cn, params = _resolve_padded(x, c, params)
+    k, m = c.shape[0], plan.m
+    mp = plan.xp.shape[0]
+    if bounds is None:
+        bounds = init_bounds(m, k, plan.f, params, device=plan.xp.device)
+    skip, tlb = prune_mask(bounds, cp, m, params)
+    xnp = F.pad(plan.xn, (0, mp - m)).contiguous()
+    mind, am, sums, counts, tmin_k = _llp.lloyd_step_pruned(
+        plan.xp, cp, cn, xnp, skip.contiguous(), m, block_m=params.block_m,
+        block_k=params.block_k, block_f=params.block_f)
+    md = mind[:m] + plan.xn
+    new_bounds = BoundsState(
+        ub=md.clamp_min(0.0).sqrt(), assign=am[:m],
+        # skipped cells keep the decayed bound; computed cells refresh it
+        tmin=torch.where(skip == 1, tlb, tmin_k), c_prev=cp,
+        fresh=torch.zeros((), dtype=torch.bool, device=cp.device))
+    return (am[:m], md, _tree_sum(sums)[:k, :plan.f],
+            _tree_sum(counts)[:k], new_bounds, skip.float().mean())
 
 
 def _verify_update_partials(plan: DataPlan, am: torch.Tensor,

@@ -143,7 +143,7 @@ def test_default_tiles_are_buildable():
 @pytest.mark.parametrize("kw,err", [
     (dict(batch_size=64), NotImplementedError),
     (dict(compute_dtype="bfloat16"), NotImplementedError),
-    (dict(compute_dtype="int8"), NotImplementedError),
+    (dict(compute_dtype="float16"), NotImplementedError),
     (dict(init="kmeans++-fused"), ValueError),
     (dict(fault=FaultPolicy(mode="detect")), NotImplementedError),
     (dict(compute_dtype="float64"), ValueError),
