@@ -4,9 +4,10 @@
     python3 chip_smoke.py            # from the repository root, on the card
 
 Builds the port's CUDA kernels from ``src/repro_torch/csrc`` and drives the
-port's paths: ``repro_torch.api.KMeans`` fit/predict/score, unprotected and
-ABFT-protected, pruned (``backend="lloyd_pruned"``) and quantised
-(``compute_dtype="int8"``), at M = 2**20 rows x F = 128 features x
+port's paths: ``repro_torch.api.KMeans`` fit/predict/score, unprotected,
+ABFT-protected online (``correct``) and offline (``detect``), pruned
+(``backend="lloyd_pruned"``) and quantised (``compute_dtype="int8"``), at
+M = 2**20 rows x F = 128 features x
 K = 1000 clusters; and ``repro_torch.batch.BatchedKMeans`` seeding, fit,
 predict and score at the width of product-quantisation codebook training
 for an IVF-PQ index over 768-d embeddings: B = 48 sub-quantisers of
@@ -48,7 +49,20 @@ Phases, one line each:
      inertia is at most 5 % above the ``fused`` fit's, one from the blob
      centres within 5 % of it, predict and score, and the exact inertia of
      int8 and ``fused`` fits from four more k-means++ seeds; the two
-     kernels' rows.
+     kernels' rows;
+ 10. ``FaultPolicy.detect()`` (offline ABFT, backend ``abft_offline``) fit,
+     predict and score from phase 3's seeds at the phase-3 shape: ms/iter
+     beside ``fused`` and ``lloyd_ft``, labels against the ``fused`` fit
+     (>= 99.9 %), inertia (1e-4), detections and the clean product's
+     checksum residual over ``ft_matmul``'s threshold; a detect campaign
+     (resolves to ``lloyd_ft``, centroids bitwise its clean fit's); the ABFT
+     GEMM (``ops.abft_matmul``) at the detect fit's product and at
+     internlm2-1.8b's FFN up-projection (8192 x 2048 x 8192), clean and with
+     a 5e4 fault, against its plain version, ``torch.matmul`` and
+     ``ft_matmul``; the DMR update (``centroid_update_dmr``) on the fused
+     fit's labels against its plain version, a corrupted shadow partial,
+     ``index_add_`` + ``bincount`` and ``ops.tiled_update(use_dmr=True)``;
+     the two kernels' rows.
 
 A kernel's bound counts the work of the function at the true M, K and F,
 not at the padded tile grid; the padded figures are printed beside it.
@@ -74,6 +88,17 @@ B_PQ, N_PQ, F_PQ, K_PQ = 48, 65_536, 16, 256
 PQ_ITERS = 25
 INT8_INERTIA_RTOL = 0.05   # the reference's bar, tests/test_int8.py
 INT8_SWEEP_SEEDS = (1, 2, 3, 4)   # more k-means++ seeds for phase 9 (c)
+# phase 10: the reference's bar for a fit against the fused fit
+# (tests/test_kmeans.py), and the inertia of the detect fit against it
+DETECT_LABEL_AGREEMENT = 0.999
+DETECT_INERTIA_RTOL = 1e-4
+# phase 10's LM product: internlm2-1.8b's FFN up-projection
+# (src/repro/configs/internlm2_1_8b.py: d_model 2048, d_ff 8192), 4 x 2048
+# tokens
+LM_TOKENS, LM_D_MODEL, LM_D_FF = 4 * 2048, 2048, 8192
+# the DMR update's debug fault: (slab, cluster, feature, delta), an
+# exponent-bit-flip-sized delta (the campaigns' 2^18..2^23 range)
+SHADOW_FAULT = (0, 3, 5, 2.0 ** 20)
 
 
 class SmokeFailure(RuntimeError):
@@ -793,6 +818,219 @@ def phase_pruned_int8_fits(torch, ops, hw, llp, dai, KMeans, x, labels_true,
     return rec, rows
 
 
+def phase_detect(torch, ops, hw, ll, mma, cud, KMeans, FaultPolicy,
+                 InjectionCampaign, x, c_init, km_off, km_ft, off_ms, ft_ms,
+                 bound) -> tuple[dict, list]:
+    """Phase 10: ``FaultPolicy.detect()`` (offline ABFT) fits at the phase-3
+    shape, then the ABFT GEMM (``ops.abft_matmul``) at the detect fit's
+    product and at an LM FFN up-projection, and the DMR update
+    (``centroid_update_dmr``) on the fused fit's labels: the path's launches,
+    each kernel against its plain version, and the rows of both kernels."""
+    from repro_torch.core import checksum
+    from repro_torch.core.ft_gemm import ft_matmul
+    base = dict(n_clusters=K_FULL, max_iter=ITERS, tol=0.0, random_state=SEED)
+    wrappers = {"matmul_abft": mma.matmul_abft,
+                "centroid_update_dmr": cud.centroid_update_dmr,
+                "tile_update": ll.tile_update}
+    dev = x.device
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    # the LM shape: internlm2-1.8b's FFN up-projection, 4 x 2048 tokens
+    xb = torch.randn(LM_TOKENS, LM_D_MODEL, generator=gen, device=dev)
+    wb = torch.randn(LM_D_MODEL, LM_D_FF, generator=gen,
+                     device=dev) / math.sqrt(LM_D_MODEL)
+    labels_off = km_off.labels_
+    for w in wrappers.values():
+        w.launches = 0
+    # --- the path: detect fit, predict, score, a detect campaign, the ABFT
+    # GEMM at both shapes (clean and with a planted fault), the DMR update
+    # (clean and with its debug shadow fault)
+    km_det, det_s = wall(lambda: KMeans(fault=FaultPolicy.detect(), **base)
+                         .fit(x, centroids=c_init))
+    det_labels = km_det.predict(x)
+    det_score = km_det.score(x)
+    camp = FaultPolicy.detect(injection=InjectionCampaign(rate=1.0))
+    km_camp, camp_s = wall(lambda: KMeans(fault=camp, **base)
+                           .fit(x, centroids=c_init))
+    ya = km_det.cluster_centers_.T.contiguous()
+    shapes = {"a": (x, ya), "b": (xb, wb)}
+    gemm_out = {}
+    for key, (xg, yg) in shapes.items():
+        m, k = xg.shape
+        n = yg.shape[1]
+        bm, bn, bk = ops.abft_tiles(m, n, k)
+        tiles = (-(-m // bm), -(-n // bn), -(-k // bk))
+        # a fault of 5e4 in a middle tile, after a middle k-step (the only
+        # one at K = 128)
+        inj = mma.make_injection(tiles[0] // 2, tiles[1] // 2, tiles[2] // 2,
+                                 7, 31, 5e4).cuda()
+        d, det = ops.abft_matmul(xg, yg)
+        d_f, det_f = ops.abft_matmul(xg, yg, inj=inj)
+        gemm_out[key] = (d, det, d_f, det_f, inj, (bm, bn, bk), tiles)
+    sums, counts, bad = cud.centroid_update_dmr(x, labels_off, K_FULL)
+    _, _, bad_f = cud.centroid_update_dmr(x, labels_off, K_FULL,
+                                          shadow_fault=SHADOW_FAULT)
+    torch.cuda.synchronize()
+    launches = {name: w.launches for name, w in wrappers.items()}
+    for name, n in launches.items():
+        expect(n > 0, f"{name} was not launched on the detect path")
+
+    # --- the fits
+    expect(km_det._backend.name == "abft_offline"
+           and km_camp._backend.name == "lloyd_ft",
+           f"detect resolved to {km_det._backend.name}, its campaign to "
+           f"{km_camp._backend.name}")
+    agree = float((km_det.labels_ == labels_off).float().mean())
+    inertia_rel = abs(km_det.inertia_ - km_off.inertia_) / km_off.inertia_
+    expect(agree >= DETECT_LABEL_AGREEMENT,
+           f"detect fit labels agree with the fused fit on {agree:.6f}")
+    expect(inertia_rel <= DETECT_INERTIA_RTOL,
+           f"detect fit inertia {km_det.inertia_} vs fused "
+           f"{km_off.inertia_} (rel {inertia_rel:.3e})")
+    expect(bool(torch.isfinite(km_det.cluster_centers_).all())
+           and det_labels.shape == (M_FULL,) and int(det_labels.min()) >= 0
+           and int(det_labels.max()) < K_FULL and det_score < 0,
+           f"detect predict/score out of range ({det_score})")
+    expect(km_camp.detected_errors_ > 0, "detect campaign detected nothing")
+    expect(bool(torch.equal(km_camp.cluster_centers_,
+                            km_ft.cluster_centers_)),
+           "detect campaign centroids are not bitwise the clean lloyd_ft "
+           "fit's")
+    # the clean product's checksum residuals against ft_matmul's threshold
+    # (scale max|D|); columns sum over all M rows
+    da = x @ ya
+    exp = checksum.expected_checksums(x, ya)
+    obs = checksum.observed_checksums(da)
+    thr = checksum.default_threshold(F_FULL) * max(
+        float(da.abs().max()), 1.0)
+    margin = {"col": float((obs.col1 - exp.col1).abs().max()) / thr,
+              "row": float((obs.row1 - exp.row1).abs().max()) / thr}
+    del da, exp, obs
+    torch.cuda.empty_cache()
+    rec = {"phase": 10, "m": M_FULL, "f": F_FULL, "k": K_FULL,
+           "detect_ms_per_iter": 1e3 * det_s / km_det.n_iter_,
+           "fused_ms_per_iter": off_ms, "lloyd_ft_ms_per_iter": ft_ms,
+           "detect_over_fused": 1e3 * det_s / km_det.n_iter_ / off_ms,
+           "detect_over_lloyd_ft": 1e3 * det_s / km_det.n_iter_ / ft_ms,
+           "detected_errors": km_det.detected_errors_,
+           "label_agreement_with_fused": agree,
+           "inertia": km_det.inertia_, "fused_inertia": km_off.inertia_,
+           "inertia_rel": inertia_rel, "score": det_score,
+           "clean_residual_over_threshold": margin,
+           "campaign_detected": km_camp.detected_errors_,
+           "campaign_ms_per_iter": 1e3 * camp_s / km_camp.n_iter_,
+           "n_host_syncs": km_det._n_host_syncs, "launches": launches}
+    del km_det, km_camp, det_labels
+    torch.cuda.empty_cache()
+
+    # --- the ABFT GEMM against its plain version, then its times
+    rows = []
+    no_inj = mma.no_injection().cuda()
+    for key, (xg, yg) in shapes.items():
+        d, det, d_f, det_f, inj, (bm, bn, bk), tiles = gemm_out[key]
+        m, k = xg.shape
+        n = yg.shape[1]
+        mp, np_, kp = tiles[0] * bm, tiles[1] * bn, tiles[2] * bk
+        xp = ops._pad_to(xg, mp, kp)
+        yp = ops._pad_to(yg, kp, np_)
+        factor = ops.threshold_factor(kp, torch.float32)
+        pd, pdet = mma.matmul_abft_plain(xp, yp, no_inj, bm, bn, bk, factor)
+        pd = pd[:m, :n]
+        ok, err = rel_ok(d, pd, 1e-5)
+        expect(int(det) == 0 and int(pdet.sum()) == 0 and ok,
+               f"abft_matmul ({key}) clean: det {int(det)}, plain det "
+               f"{int(pdet.sum())}, err {err}")
+        fix_err = float(((d_f - pd).abs() - 2e-4 * pd.abs()).max())
+        expect(int(det_f) == 1 and fix_err <= 2e-2,
+               f"abft_matmul ({key}) with a 5e4 fault: det {int(det_f)}, "
+               f"corrected D off the plain product by {fix_err} over "
+               f"rtol 2e-4")
+        del d, d_f, pd, pdet
+        gemm_out[key] = None
+        torch.cuda.empty_cache()
+
+        def kern():
+            return mma.matmul_abft(xp, yp, no_inj, block_m=bm, block_n=bn,
+                                   block_k=bk, factor=factor)
+
+        def plain():
+            return mma.matmul_abft_plain(xp, yp, no_inj, bm, bn, bk, factor)
+        flops = 2.0 * m * n * k
+        b_ms, b_by = bound(flops, 4.0 * (m * k + k * n + m * n))
+        t = {"ms": cuda_ms(kern), "plain_ms": cuda_ms(plain, reps=2),
+             "library_ms": cuda_ms(lambda: torch.matmul(xg, yg)),
+             "ft_matmul_ms": cuda_ms(lambda: ft_matmul(xg, yg), reps=3),
+             "bound_ms": b_ms, "bound_by": b_by,
+             "bound_padded_ms": bound(2.0 * mp * np_ * kp,
+                                      4.0 * (mp * kp + kp * np_
+                                             + mp * np_))[0],
+             "tiles": [bm, bn, bk], "max_abs_err": err,
+             "fault_tile": [int(v) for v in inj[1:6].tolist()],
+             "corrected_err_over_rtol": fix_err}
+        rec[f"abft_matmul_{key}"] = t
+        if key == "a":
+            rows.append({"name": "matmul_abft", "route": "cuda",
+                         "source": "src/repro_torch/csrc/fk_kernels.cu",
+                         "replaces": "src/repro/kernels/matmul_abft.py:127",
+                         "launches": launches["matmul_abft"],
+                         "max_abs_err": err, "ms": t["ms"],
+                         "plain_ms": t["plain_ms"], "bound_ms": b_ms,
+                         "bound_by": b_by, "library_ms": t["library_ms"]})
+        del xp, yp
+        torch.cuda.empty_cache()
+    del xb, wb, ya
+    torch.cuda.empty_cache()
+
+    # --- the DMR update against its plain version, then its times
+    ps, pc, pbad = cud.centroid_update_dmr_plain(x, labels_off, K_FULL,
+                                                 hw.DMR_BLOCK_M)
+    _, _, pbad_f = cud.centroid_update_dmr_plain(
+        x, labels_off, K_FULL, hw.DMR_BLOCK_M, shadow_fault=SHADOW_FAULT)
+    ok, dmr_err = rel_ok(sums, ps, 1e-5)
+    expect(ok and bool(torch.equal(counts, pc)) and int(bad) == 0
+           and int(pbad) == 0,
+           f"centroid_update_dmr vs plain: err {dmr_err}, counts equal "
+           f"{bool(torch.equal(counts, pc))}, bad {int(bad)}/{int(pbad)}")
+    expect(int(bad_f) == 1 and int(pbad_f) == 1,
+           f"a corrupted shadow partial was not flagged ({int(bad_f)}, "
+           f"{int(pbad_f)})")
+    del ps, pc, sums, counts
+    torch.cuda.empty_cache()
+    lab_long = labels_off.long()
+
+    def library():
+        return (torch.zeros(K_FULL, F_FULL, device=dev).index_add_(
+                    0, lab_long, x),
+                torch.bincount(lab_long, minlength=K_FULL))
+    params = ops.clamp_params(M_FULL, K_FULL, F_FULL, ops.DEFAULT_PARAMS)
+    plan = ops.plan_data(x, params)
+    m_f = float(M_FULL * F_FULL)
+    b_ms, b_by = bound(2.0 * m_f, 4.0 * m_f + 4.0 * M_FULL
+                       + 4.0 * K_FULL * (F_FULL + 1) + 4.0)
+    dmr = {"ms": cuda_ms(lambda: cud.centroid_update_dmr(x, labels_off,
+                                                         K_FULL), reps=10),
+           "plain_ms": cuda_ms(lambda: cud.centroid_update_dmr_plain(
+               x, labels_off, K_FULL, hw.DMR_BLOCK_M), reps=2),
+           "library_ms": cuda_ms(library, reps=10),
+           "tiled_update_dmr_ms": cuda_ms(lambda: ops.tiled_update(
+               plan, labels_off, K_FULL, use_dmr=True), reps=3),
+           "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": dmr_err}
+    rec["centroid_update_dmr"] = dmr
+    rec["library_calls"] = {
+        "matmul_abft": "torch.matmul(X, Y): the unprotected product",
+        "centroid_update_dmr": "index_add_(0, labels, X) + bincount: one "
+                               "unprotected update"}
+    rows.append({"name": "centroid_update_dmr", "route": "cuda",
+                 "source": "src/repro_torch/csrc/fk_kernels.cu",
+                 "replaces": "src/repro/kernels/centroid_update_dmr.py:72",
+                 "launches": launches["centroid_update_dmr"],
+                 "max_abs_err": dmr_err, "ms": dmr["ms"],
+                 "plain_ms": dmr["plain_ms"], "bound_ms": b_ms,
+                 "bound_by": b_by, "library_ms": dmr["library_ms"]})
+    del plan
+    torch.cuda.empty_cache()
+    return rec, rows
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -818,6 +1056,8 @@ def main() -> int:
     from repro_torch.kernels import lloyd_step as ll
     from repro_torch.kernels import lloyd_step_ft as llft
     from repro_torch.kernels import lloyd_step_pruned as llp
+    from repro_torch.kernels import centroid_update_dmr as cud
+    from repro_torch.kernels import matmul_abft as mma
 
     ref.full_f32(torch.device("cuda"))
     smi = subprocess.run(
@@ -1081,6 +1321,13 @@ def main() -> int:
                                          lib_ms, bound)
     emit(rec9)
     rows.extend(rows9)
+
+    # --- phase 10: detect (offline ABFT), the ABFT GEMM, the DMR update ----
+    rec10, rows10 = phase_detect(torch, ops, hw, ll, mma, cud, KMeans,
+                                 FaultPolicy, InjectionCampaign, x, c_init,
+                                 km_off, km_ft, off_ms, ft_ms, bound)
+    emit(rec10)
+    rows.extend(rows10)
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi_line, flush=True)
     print(json.dumps({"ok": True, "device": {

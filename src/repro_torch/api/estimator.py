@@ -179,9 +179,14 @@ class KMeans:
 
     def _plan(self, x: torch.Tensor, params: Optional[ops.KernelParams]):
         """The per-call data plan: quantised for int8 backends, padded f32
-        for the other tile backends, the raw rows for the rest."""
+        for the other tile backends. A backend without tiles (``gemm_fused``,
+        ``abft_offline``) reads the plan's raw rows; its two-pass update
+        reads the padded ones, at the tiles ``fused`` would use, so it sums
+        as ``fused``'s update does and DMR recomputes only on a mismatch."""
         if params is None:
-            return x
+            p = self.params if self.params is not None else ops.DEFAULT_PARAMS
+            return ops.plan_data(x, ops.clamp_params(
+                x.shape[0], self.n_clusters, x.shape[1], p))
         if self._backend.supports_int8:
             return ops.plan_data_int8(x, params)
         return ops.plan_data(x, params)
@@ -205,9 +210,10 @@ class KMeans:
         return ops.clamp_params(m, self.n_clusters, f, p)
 
     def _predict_backend(self) -> AssignmentBackend:
-        """Prediction is assignment-only, at the fit's protection level:
-        the one-pass FT backend predicts through ``fused_ft``, the plain
-        one-pass backend through ``fused``."""
+        """Prediction is assignment-only, at the fit's protection level: a
+        two-pass backend (``abft_offline`` too) predicts through itself, the
+        one-pass FT backend through ``fused_ft``, the plain one-pass backend
+        through ``fused``."""
         b = self._backend
         if not b.fuses_update:
             return b

@@ -1,13 +1,14 @@
 """Typed fault-tolerance policy (counterpart of ``repro.api.policy``).
 
 ``mode`` sets the protection of the assignment step: ``"off"`` (no
-checksums) or ``"correct"`` (the fused online ABFT detect -> locate ->
-correct kernel, resolved to the one-pass FT kernel, whose epilogue
-checksums also protect the update). ``"detect"`` (offline checksums on the
-materialised product) belongs to a later slice of the port and raises.
+checksums), ``"detect"`` (offline checksums on the materialised product,
+the Wu-et-al. baseline, backend ``abft_offline``) or ``"correct"`` (the
+fused online ABFT detect -> locate -> correct kernel, resolved to the
+one-pass FT kernel, whose epilogue checksums also protect the update).
 ``update_dmr`` protects the update of two-pass backends; ``injection``
 attaches an SEU campaign (§V-C). Resolution is the same on every device:
-``off`` -> ``fused``, ``correct`` and any campaign -> ``lloyd_ft``.
+``off`` -> ``fused``, ``detect`` -> ``abft_offline``, ``correct`` and any
+campaign -> ``lloyd_ft`` (in-kernel injection is its surface).
 """
 from __future__ import annotations
 
@@ -73,13 +74,22 @@ class FaultPolicy:
             raise ValueError(f"FaultPolicy.mode must be one of {MODES}, "
                              f"got {self.mode!r}")
         if self.injection is not None and self.mode == "off":
-            raise ValueError("an injection campaign needs a protected "
-                             "assignment backend; use mode='correct'")
+            raise ValueError(
+                "an injection campaign needs a protected assignment backend; "
+                "use mode='correct' (or 'detect') with injection=...")
 
     @classmethod
     def off(cls) -> "FaultPolicy":
         """No protection anywhere (performance baseline)."""
         return cls(mode="off", update_dmr=False)
+
+    @classmethod
+    def detect(cls, *, update_dmr: Optional[bool] = None,
+               injection: Optional[InjectionCampaign] = None
+               ) -> "FaultPolicy":
+        """Offline ABFT on the materialised product (``abft_offline``), DMR
+        on its two-pass update by default."""
+        return cls(mode="detect", update_dmr=update_dmr, injection=injection)
 
     @classmethod
     def correct(cls, *, update_dmr: Optional[bool] = None,
@@ -99,15 +109,16 @@ class FaultPolicy:
 
     def resolve_backend(self, name: Optional[str] = None) -> AssignmentBackend:
         """Pick the assignment backend: ``name`` pins one (validated against
-        the policy); otherwise ``off`` -> ``fused`` and ``correct`` or a
-        campaign -> ``lloyd_ft``."""
-        if self.mode == "detect":
-            raise NotImplementedError(
-                "FaultPolicy(mode='detect') (the abft_offline baseline) is "
-                "not ported yet; it comes with a later slice (ROADMAP Queue "
-                "1, item 4)")
+        the policy); otherwise a campaign -> ``lloyd_ft`` (it hosts
+        ``detect``-mode campaigns too), ``off`` -> ``fused``, ``detect`` ->
+        ``abft_offline``, ``correct`` -> ``lloyd_ft``."""
         if name is None:
-            name = "lloyd_ft" if self.protected else "fused"
+            if self.injection is not None or self.mode == "correct":
+                name = "lloyd_ft"
+            elif self.mode == "detect":
+                name = "abft_offline"
+            else:
+                name = "fused"
         backend = get_backend(name)
         if backend.supports_batch:
             raise BackendCapabilityError(

@@ -12,6 +12,12 @@ squared distance (M,) f32, detected errors), one-pass backends adding
   lloyd       the one-pass Lloyd kernel (assignment + update sums)
   lloyd_ft    the one-pass kernel with ABFT on the distance GEMM and a
               checksum-verified update: the ``correct`` protection path
+  abft_offline
+              plain PyTorch: ``ft_gemm.ft_matmul`` (full-f32 product,
+              then dual-checksum verify + correct on the materialised
+              product), then the distances and first-min argmin: the
+              ``detect`` protection path (the Wu-et-al. offline baseline;
+              no kernel of this package, as the reference's is plain XLA)
   lloyd_batched
               the one-pass kernel over B stacked problems in one launch
               ((B, N, F) in, every output with a leading B axis)
@@ -33,6 +39,7 @@ from typing import Optional
 import torch
 
 from repro_torch.api.registry import AssignmentBackend, register_backend
+from repro_torch.core.ft_gemm import ft_matmul
 from repro_torch.kernels import ops, ref
 
 
@@ -58,6 +65,17 @@ def assign_gemm_fused(x, c: torch.Tensor):
     d = ref.distance_matrix(_data(x), c)
     mn, am = ref.first_min(d)
     return am, mn, _zero(d.device)
+
+
+def assign_abft_offline(x, c: torch.Tensor):
+    cross, detected = ft_matmul(_data(x), c.T)
+    # the reference's assembly order: (||x||^2 + ||c||^2) - 2 x.c; the
+    # subtraction runs in place (2 x.c is exact, so the result is the same)
+    d = _row_norms(x)[:, None] + (c * c).sum(1)[None, :]
+    d.sub_(cross, alpha=2.0)
+    del cross
+    mn, am = ref.first_min(d)
+    return am, mn, detected.to(torch.int32)
 
 
 def assign_fused(x, c: torch.Tensor, params=None):
@@ -108,6 +126,10 @@ register_backend(AssignmentBackend(
     "fused_ft", assign_fused_ft, supports_ft=True, takes_params=True,
     takes_injection=True,
     doc="fused kernel + dual-checksum online ABFT correction (paper §IV)"))
+register_backend(AssignmentBackend(
+    "abft_offline", assign_abft_offline, supports_ft=True,
+    doc="Wu-et-al-style baseline: checksummed full-f32 product, offline "
+        "verification and correction on the materialised product"))
 register_backend(AssignmentBackend(
     "lloyd", assign_lloyd, takes_params=True, fuses_update=True,
     doc="one-pass Lloyd CUDA kernel: assignment + per-cluster sums"))

@@ -7,8 +7,6 @@ barrier is needed between them.
 """
 from __future__ import annotations
 
-from typing import Callable
-
 import torch
 
 
@@ -24,8 +22,3 @@ def mismatch(primary: tuple, replica: tuple,
             bad = bad | (a != b).any()
     return bad
 
-
-def dmr(fn: Callable, *args, atol: float = 0.0):
-    """Run ``fn`` twice; return (first result, :func:`mismatch` flag)."""
-    primary = fn(*args)
-    return primary, mismatch(primary, fn(*args), atol)

@@ -10,8 +10,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.core import dmr as dmr_mod
-from repro_torch.kernels import ops, ref
+from repro_torch.kernels import ops
 
 
 def init_random(gen: torch.Generator, x: torch.Tensor, k: int) -> torch.Tensor:
@@ -39,25 +38,22 @@ def init_kmeanspp(gen: torch.Generator, x: torch.Tensor,
 
 def protected_sums(x, assign: torch.Tensor, k: int, *,
                    use_dmr: bool = True):
-    """Per-cluster (sums, counts), optionally under DMR. ``x`` is the raw
-    (M, F) data, a :class:`~repro_torch.kernels.ops.DataPlan` or a
-    :class:`~repro_torch.kernels.ops.QuantPlan` (its f32 DataPlan). A padded
-    plan sums in the one-pass kernels' order
-    (:func:`~repro_torch.kernels.ops.tiled_update`), which recomputes on a
-    DMR mismatch only, gated on the device. The raw path (backends without
-    tiles) runs a plain reduction; under DMR it always computes the
-    recompute and selects it by the flag, so the fit never waits on the
-    host: three updates per step."""
+    """Per-cluster (sums, counts), optionally under DMR, in the one-pass
+    kernels' order (:func:`~repro_torch.kernels.ops.tiled_update`). ``x`` is
+    a padded :class:`~repro_torch.kernels.ops.DataPlan`, a
+    :class:`~repro_torch.kernels.ops.QuantPlan` (its f32 DataPlan) or the
+    raw (M, F) data, which is planned here at the default tiles. Under DMR
+    a clean step runs two updates and the recompute runs only on a
+    mismatch, gated on the device: the fit never waits on the host."""
     x = ops.f32_plan(x)
-    if isinstance(x, ops.DataPlan) and x.params is not None:
-        return ops.tiled_update(x, assign, k, use_dmr=use_dmr)
     if isinstance(x, ops.DataPlan):
-        x = x.x
-    if not use_dmr:
-        return ref.centroid_update(x, assign, k)
-    (sums, counts), bad = dmr_mod.dmr(ref.centroid_update, x, assign, k)
-    sums3, counts3 = ref.centroid_update(x, assign, k)
-    return torch.where(bad, sums3, sums), torch.where(bad, counts3, counts)
+        if x.params is None:
+            x = x.x
+        else:
+            return ops.tiled_update(x, assign, k, use_dmr=use_dmr)
+    params = ops.clamp_params(x.shape[0], k, x.shape[1], ops.DEFAULT_PARAMS)
+    return ops.tiled_update(ops.plan_data(x, params), assign, k,
+                            use_dmr=use_dmr)
 
 
 def means_from_sums(sums: torch.Tensor, counts: torch.Tensor,

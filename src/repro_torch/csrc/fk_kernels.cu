@@ -24,10 +24,20 @@
 // int8_tile_kernel replaces distance_argmin_int8.py distance_argmin_int8:
 // __dp4a over packed int8 words, the f32 scale correction, then the shared
 // min/argmin epilogue.
+// matmul_abft_kernel replaces matmul_abft.py matmul_abft: a plain SGEMM
+// D = X Y with the dual-checksum ABFT per (bm x bn) output tile, one block
+// per tile, its k loop inside the block, the tile walked in 128 x 128
+// sub-tiles; warp 0 verifies the finished tile and corrects D in place.
+// dmr_partials_kernel, dmr_reduce_kernel and dmr_verdict_kernel replace
+// centroid_update_dmr.py centroid_update_dmr: per (cluster group, row slab,
+// feature group) two replicas of the partial sums from one load of X (the
+// shadow in reversed order within each 32-row group), summed per slab in a
+// second pass and compared in a third. No float atomics anywhere.
 //
 // Instantiations: lloyd_tile_kernel 2 (BM = 64, 128) x 4 (kFT, kUpdate) = 8,
 // update_tiles_kernel 2 (BM), kmeanspp_round_kernel 1, lloyd_pruned_kernel 2
-// (BM), int8_tile_kernel 2 (BM): 15 kernels.
+// (BM), int8_tile_kernel 2 (BM), matmul_abft_kernel 1, the three DMR
+// kernels: 19 kernels.
 //
 // The epilogues are single __device__ definitions (tile_min_argmin, fold_min,
 // locate_and_correct, emit_update) so the variants agree bit for bit by
@@ -67,7 +77,9 @@
 // The pruned step needs the GEMM of its computed tiles only. The int8 GEMM
 // is bound by the int8 tensor cores' 1,979 Tera-op/s, which __dp4a on the
 // CUDA cores does not reach (mma.sync/wgmma s8 is later work).
-// The seeding round is bound by the bytes of X (one GEMV per round).
+// The seeding round is bound by the bytes of X (one GEMV per round). The
+// ABFT GEMM is bound by its 2*M*N*K FLOPs on the f32 CUDA cores; the DMR
+// update by the bytes of X and the assignments, read once.
 // wgmma, TMA and a shared-memory X stash are later work.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler
@@ -898,6 +910,428 @@ int launch_int8(const int* xq, const int* cq, const float* sx,
   return int(cudaGetLastError());
 }
 
+// --- ABFT GEMM (matmul_abft) ----------------------------------------------
+// One block per (bm x bn) output tile, walked in kMmSub x kMmSub sub-tiles.
+constexpr int kMmSub = 128;
+constexpr int kMmLd = kMmSub + 1;
+
+// Shared-memory layout of matmul_abft_kernel (4-byte words); the checksum
+// vectors follow the tile's bm and bn, known at launch.
+struct MmLayout {
+  int ds, xs, ys, part, enc, ecol1, ecol2, erow1, erow2, ocol1, ocol2,
+      orow1, orow2, words;
+  __host__ __device__ MmLayout(int bm, int bn) {
+    ds = 0;                          // kMmSub x kMmLd, one finished sub-tile
+    xs = ds + kMmSub * kMmLd;        // kChunk x kMmLd, X chunk transposed
+    ys = xs + kChunk * kMmLd;        // kChunk x kMmLd, Y chunk
+    part = ys + kChunk * kMmLd;      // 4 x 8 x kChunk encoding partials
+    enc = part + 4 * 8 * kChunk;     // 4 x kChunk encodings
+    ecol1 = enc + 4 * kChunk;        // expected checksums: bn, bn, bm, bm
+    ecol2 = ecol1 + bn;
+    erow1 = ecol2 + bn;
+    erow2 = erow1 + bm;
+    ocol1 = erow2 + bm;              // observed, then residuals
+    ocol2 = ocol1 + bn;
+    orow1 = ocol2 + bn;
+    orow2 = orow1 + bm;
+    words = orow2 + bm;
+  }
+};
+
+// ABFT verification of one output tile, run by warp 0: locate_and_correct's
+// decode with the tile's sizes at run time. col1/row1 are the expected
+// checksums, rc*/rr* the residuals. Returns 1 if detected, with the element
+// (i, j) and the delta to subtract.
+__device__ int locate_tile(const float* col1, const float* row1,
+                           const float* rc1, const float* rc2,
+                           const float* rr1, const float* rr2, int bm,
+                           int bn, int lane, float thr_factor, int* oi,
+                           int* oj, float* odelta) {
+  float sc = 0.0f;
+  for (int t = lane; t < bn; t += 32) sc = fmaxf(sc, fabsf(col1[t]));
+  for (int t = lane; t < bm; t += 32) sc = fmaxf(sc, fabsf(row1[t]));
+  const float thr = thr_factor * fmaxf(warp_max(sc), 1.0f);
+  float max_c, max_r;
+  int j, i_direct;
+  warp_absmax(rc1, bn, lane, &max_c, &j);
+  warp_absmax(rr1, bm, lane, &max_r, &i_direct);
+  const float dcol = rc1[j];
+  const float safe = dcol == 0.0f ? 1.0f : dcol;
+  const bool use_ratio = fabsf(dcol) > thr;
+  const int i = use_ratio ? clamp_index(rintf(rc2[j] / safe) - 1.0f, bm)
+                          : i_direct;
+  const float drow = rr1[i];
+  const float safe_r = drow == 0.0f ? 1.0f : drow;
+  *oi = i;
+  *oj = use_ratio ? j : clamp_index(rintf(rr2[i] / safe_r) - 1.0f, bn);
+  *odelta = fabsf(dcol) > fabsf(drow) ? dcol : drow;
+  return (max_c > thr) || (max_r > thr);
+}
+
+// D = X Y for X (mp, kp), Y (kp, np) with the dual-checksum ABFT per
+// (bm x bn) tile (blockIdx.x = m-tile, blockIdx.y = n-tile). The expected
+// checksums accumulate from every staged chunk; a sub-tile's accumulator
+// goes through Ds (observed checksums, fixed-order sums) to D; warp 0 then
+// verifies the tile and corrects D in place. det (mp/bm, np/bn) gets the
+// tile's detection. inj: [enabled, m_tile, n_tile, k_step, row, col,
+// delta bits], planted after k-step k_step (bk deep).
+__global__ void __launch_bounds__(kThreads)
+matmul_abft_kernel(const float* __restrict__ x, const float* __restrict__ y,
+                   const int* __restrict__ inj, float* __restrict__ d,
+                   int* __restrict__ det, int np, int kp, int bm, int bn,
+                   int bk, float thr_factor) {
+  extern __shared__ float sm[];
+  const MmLayout L(bm, bn);
+  float* Ds = sm + L.ds;
+  float* Xs = sm + L.xs;
+  float* Ys = sm + L.ys;
+  float* part = sm + L.part;
+  float* enc = sm + L.enc;
+  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+  const int mt = blockIdx.x, nt = blockIdx.y;
+  const size_t m0 = size_t(mt) * bm;
+  const int n0 = nt * bn;
+  const int nch = kp / kChunk, ch_per_step = bk / kChunk;
+  const DistInj dinj = load_dist_inj(inj);
+  const bool inj_tile = dinj.enabled && dinj.m_tile == mt &&
+                        dinj.c_tile == nt;
+  for (int t = tid; t < bn; t += kThreads)
+    sm[L.ecol1 + t] = sm[L.ecol2 + t] = sm[L.ocol1 + t] = sm[L.ocol2 + t] =
+        0.0f;
+  for (int t = tid; t < bm; t += kThreads)
+    sm[L.erow1 + t] = sm[L.erow2 + t] = sm[L.orow1 + t] = sm[L.orow2 + t] =
+        0.0f;
+
+  for (int rb = 0; rb < bm; rb += kMmSub) {
+    const int rows = bm - rb < kMmSub ? bm - rb : kMmSub;
+    for (int cb = 0; cb < bn; cb += kMmSub) {
+      float acc[8][8];
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] = 0.0f;
+      for (int ch = 0; ch < nch; ++ch) {
+        const int k0 = ch * kChunk;
+        for (int idx = tid; idx < kMmSub * kChunk; idx += kThreads) {
+          const int r = idx / kChunk, f = idx % kChunk;
+          Xs[f * kMmLd + r] =
+              r < rows ? x[(m0 + rb + r) * kp + k0 + f] : 0.0f;
+        }
+        for (int idx = tid; idx < kChunk * kMmSub; idx += kThreads) {
+          const int f = idx / kMmSub, c = idx % kMmSub;
+          Ys[f * kMmLd + c] = y[size_t(k0 + f) * np + n0 + cb + c];
+        }
+        __syncthreads();
+#pragma unroll 4
+        for (int f = 0; f < kChunk; ++f) {
+          float a[8], b[8];
+#pragma unroll
+          for (int i = 0; i < 8; ++i) a[i] = Xs[f * kMmLd + ty + 16 * i];
+#pragma unroll
+          for (int j = 0; j < 8; ++j) b[j] = Ys[f * kMmLd + tx + 16 * j];
+#pragma unroll
+          for (int i = 0; i < 8; ++i)
+#pragma unroll
+            for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+        }
+        // expected checksums from the resident chunk: e1/e2 encodings of
+        // the X chunk over the sub-tile's rows and of the Y chunk over its
+        // columns (8 partials per k, then a fixed-order sum); weights are
+        // the row / column index within the whole tile, plus 1
+        {
+          const int f = tid % kChunk, s = tid / kChunk;
+          float x1 = 0.0f, x2 = 0.0f, y1 = 0.0f, y2 = 0.0f;
+          for (int r = s; r < rows; r += 8) {
+            const float v = Xs[f * kMmLd + r];
+            x1 += v;
+            x2 = fmaf(float(rb + r + 1), v, x2);
+          }
+          for (int c = s; c < kMmSub; c += 8) {
+            const float v = Ys[f * kMmLd + c];
+            y1 += v;
+            y2 = fmaf(float(cb + c + 1), v, y2);
+          }
+          part[(0 * 8 + s) * kChunk + f] = x1;
+          part[(1 * 8 + s) * kChunk + f] = x2;
+          part[(2 * 8 + s) * kChunk + f] = y1;
+          part[(3 * 8 + s) * kChunk + f] = y2;
+        }
+        __syncthreads();
+        if (tid < 4 * kChunk) {
+          const int q = tid / kChunk, f = tid % kChunk;
+          float s = 0.0f;
+          for (int p = 0; p < 8; ++p) s += part[(q * 8 + p) * kChunk + f];
+          enc[q * kChunk + f] = s;
+        }
+        __syncthreads();
+        if (tid < kMmSub) {
+          float* c1 = sm + L.ecol1 + cb + tid;
+          float* c2 = sm + L.ecol2 + cb + tid;
+          float s1 = *c1, s2 = *c2;
+          for (int f = 0; f < kChunk; ++f) {
+            const float yv = Ys[f * kMmLd + tid];
+            s1 = fmaf(enc[0 * kChunk + f], yv, s1);
+            s2 = fmaf(enc[1 * kChunk + f], yv, s2);
+          }
+          *c1 = s1;
+          *c2 = s2;
+        } else if (tid - kMmSub < rows) {
+          const int r = tid - kMmSub;
+          float* r1 = sm + L.erow1 + rb + r;
+          float* r2 = sm + L.erow2 + rb + r;
+          float s1 = *r1, s2 = *r2;
+          for (int f = 0; f < kChunk; ++f) {
+            const float xv = Xs[f * kMmLd + r];
+            s1 = fmaf(xv, enc[2 * kChunk + f], s1);
+            s2 = fmaf(xv, enc[3 * kChunk + f], s2);
+          }
+          *r1 = s1;
+          *r2 = s2;
+        }
+        // simulated SEU: after the last chunk of k-step k_step
+        if (inj_tile && ch == (dinj.f_tile + 1) * ch_per_step - 1) {
+#pragma unroll
+          for (int i = 0; i < 8; ++i)
+#pragma unroll
+            for (int j = 0; j < 8; ++j)
+              if (rb + ty + 16 * i == dinj.row && cb + tx + 16 * j == dinj.col)
+                acc[i][j] += dinj.delta;
+        }
+        __syncthreads();
+      }
+
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          Ds[(ty + 16 * i) * kMmLd + tx + 16 * j] = acc[i][j];
+      __syncthreads();
+      // observed checksums of the sub-tile, then the sub-tile to D
+      if (tid < kMmSub) {
+        float s1 = 0.0f, s2 = 0.0f;
+        for (int r = 0; r < rows; ++r) {
+          const float v = Ds[r * kMmLd + tid];
+          s1 += v;
+          s2 = fmaf(float(rb + r + 1), v, s2);
+        }
+        sm[L.ocol1 + cb + tid] += s1;
+        sm[L.ocol2 + cb + tid] += s2;
+      } else if (tid - kMmSub < rows) {
+        const int r = tid - kMmSub;
+        float s1 = 0.0f, s2 = 0.0f;
+        for (int c = 0; c < kMmSub; ++c) {
+          const float v = Ds[r * kMmLd + c];
+          s1 += v;
+          s2 = fmaf(float(cb + c + 1), v, s2);
+        }
+        sm[L.orow1 + rb + r] += s1;
+        sm[L.orow2 + rb + r] += s2;
+      }
+      for (int idx = tid; idx < rows * kMmSub; idx += kThreads) {
+        const int r = idx / kMmSub, c = idx % kMmSub;
+        d[(m0 + rb + r) * np + n0 + cb + c] = Ds[r * kMmLd + c];
+      }
+      __syncthreads();
+    }
+  }
+
+  // residuals, observed - expected, in place of the observed checksums
+  for (int t = tid; t < bn; t += kThreads) {
+    sm[L.ocol1 + t] -= sm[L.ecol1 + t];
+    sm[L.ocol2 + t] -= sm[L.ecol2 + t];
+  }
+  for (int t = tid; t < bm; t += kThreads) {
+    sm[L.orow1 + t] -= sm[L.erow1 + t];
+    sm[L.orow2 + t] -= sm[L.erow2 + t];
+  }
+  __syncthreads();
+  if (tid < 32) {
+    int i, j;
+    float delta;
+    const int detected = locate_tile(
+        sm + L.ecol1, sm + L.erow1, sm + L.ocol1, sm + L.ocol2, sm + L.orow1,
+        sm + L.orow2, bm, bn, tid, thr_factor, &i, &j, &delta);
+    if (tid == 0) {
+      // D's element was written by this block before the barrier above
+      if (detected) d[(m0 + i) * np + n0 + j] -= delta;
+      det[size_t(mt) * gridDim.y + nt] = detected;
+    }
+  }
+}
+
+// --- DMR centroid update (centroid_update_dmr) ------------------------------
+constexpr int kDmrWarpClusters = 8;
+constexpr int kDmrClusters = (kThreads / 32) * kDmrWarpClusters;  // 64
+constexpr int kDmrScan = 1024;   // assignments staged per step
+
+// Shared-memory layout of dmr_partials_kernel (4-byte words).
+struct DmrLayout {
+  static constexpr int kSa = 0;                              // kDmrScan ints
+  static constexpr int kAcc1 = kSa + kDmrScan;               // clusters x 32
+  static constexpr int kAcc2 = kAcc1 + kDmrClusters * 32;
+  static constexpr int kBuf = kAcc2 + kDmrClusters * 32;     // warps x 32 x 32
+  static constexpr int kN1 = kBuf + (kThreads / 32) * 32 * 32;  // ints
+  static constexpr int kN2 = kN1 + kDmrClusters;
+  static constexpr int kWords = kN2 + kDmrClusters;
+  static constexpr size_t kBytes = size_t(kWords) * 4;
+};
+
+// Pass 1: block (cluster group, slab, 32-feature group). Warp w owns the
+// kDmrWarpClusters clusters from k0, lane l feature col. For each 32-row
+// group a ballot finds the warp's rows; each is loaded once. The primary
+// replica adds them in row order; the shadow adds the same values, kept in
+// shared memory, in reversed order (a different association into other
+// accumulators: two computations, not one). Counts are exact integers.
+__global__ void __launch_bounds__(kThreads)
+dmr_partials_kernel(const float* __restrict__ x,
+                    const int* __restrict__ assign,
+                    float* __restrict__ part1, float* __restrict__ part2,
+                    int* __restrict__ cnt1, int* __restrict__ cnt2, int m,
+                    int f, int k, int slab_rows, int fs, int fk, int ff,
+                    float fdelta) {
+  using L = DmrLayout;
+  extern __shared__ float sm[];
+  int* smi = reinterpret_cast<int*>(sm);
+  const int tid = threadIdx.x, w = tid / 32, lane = tid % 32;
+  const int k0 = blockIdx.x * kDmrClusters + w * kDmrWarpClusters;
+  const int slab = blockIdx.y;
+  const int r0 = slab * slab_rows;
+  const int r1 = m - r0 < slab_rows ? m : r0 + slab_rows;
+  const int col = blockIdx.z * 32 + lane;
+  const bool has_col = col < f;
+  float* acc1 = sm + L::kAcc1 + w * kDmrWarpClusters * 32;
+  float* acc2 = sm + L::kAcc2 + w * kDmrWarpClusters * 32;
+  float* buf = sm + L::kBuf + w * 32 * 32;
+  int* n1 = smi + L::kN1 + w * kDmrWarpClusters;
+  int* n2 = smi + L::kN2 + w * kDmrWarpClusters;
+  for (int c = 0; c < kDmrWarpClusters; ++c)
+    acc1[c * 32 + lane] = acc2[c * 32 + lane] = 0.0f;
+  if (lane < kDmrWarpClusters) n1[lane] = n2[lane] = 0;
+  __syncwarp();
+  for (int c0 = r0; c0 < r1; c0 += kDmrScan) {
+    __syncthreads();
+    for (int t = tid; t < kDmrScan; t += kThreads)
+      smi[L::kSa + t] = c0 + t < r1 ? assign[c0 + t] : -1;
+    __syncthreads();
+    const int n = r1 - c0 < kDmrScan ? r1 - c0 : kDmrScan;
+    for (int g = 0; g < n; g += 32) {
+      const int* sa = smi + L::kSa + g;
+      const int a = sa[lane];
+      const bool own = a >= k0 && a < k0 + kDmrWarpClusters && a < k;
+      const unsigned mask = __ballot_sync(0xffffffffu, own);
+      if (mask == 0u) continue;
+      int cnt = 0;
+      for (unsigned mm = mask; mm != 0u; mm &= mm - 1u) {
+        const int i = __ffs(mm) - 1;
+        const int slot = sa[i] - k0;
+        const float v = has_col ? x[size_t(c0 + g + i) * f + col] : 0.0f;
+        acc1[slot * 32 + lane] += v;
+        buf[cnt * 32 + lane] = v;
+        if (lane == 0) n1[slot] += 1;
+        ++cnt;
+      }
+      int j = cnt - 1;
+      for (unsigned mm = mask; mm != 0u; --j) {
+        const int i = 31 - __clz(mm);
+        mm &= ~(1u << i);
+        const int slot = sa[i] - k0;
+        acc2[slot * 32 + lane] += buf[j * 32 + lane];
+        if (lane == 0) n2[slot] += 1;
+      }
+    }
+  }
+  __syncwarp();
+  for (int c = 0; c < kDmrWarpClusters && k0 + c < k; ++c) {
+    if (!has_col) break;
+    const int kk = k0 + c;
+    const size_t o = (size_t(slab) * k + kk) * f + col;
+    part1[o] = acc1[c * 32 + lane];
+    float v2 = acc2[c * 32 + lane];
+    if (slab == fs && kk == fk && col == ff) v2 += fdelta;  // debug fault
+    part2[o] = v2;
+  }
+  if (blockIdx.z == 0 && lane < kDmrWarpClusters && k0 + lane < k) {
+    cnt1[size_t(slab) * k + k0 + lane] = n1[lane];
+    cnt2[size_t(slab) * k + k0 + lane] = n2[lane];
+  }
+}
+
+// Pass 2: sums[kf] = the slabs' primary partials in slab order (the shadow
+// likewise), counts from the integer partials; per block the largest
+// |sums - sums2|, the largest |sums| and whether any count differs, into
+// red (3 floats per block).
+__global__ void __launch_bounds__(kThreads)
+dmr_reduce_kernel(const float* __restrict__ part1,
+                  const float* __restrict__ part2,
+                  const int* __restrict__ cnt1, const int* __restrict__ cnt2,
+                  int slabs, int k, int f, float* __restrict__ sums,
+                  float* __restrict__ counts, float* __restrict__ red) {
+  __shared__ float wred[3][kThreads / 32];
+  const int tid = threadIdx.x, lane = tid % 32, w = tid / 32;
+  const size_t kf = size_t(k) * f;
+  const size_t idx = size_t(blockIdx.x) * kThreads + tid;
+  float diff = 0.0f, mag = 0.0f, cbad = 0.0f;
+  if (idx < kf) {
+    float s1 = 0.0f, s2 = 0.0f;
+    for (int s = 0; s < slabs; ++s) {
+      s1 += part1[s * kf + idx];
+      s2 += part2[s * kf + idx];
+    }
+    sums[idx] = s1;
+    diff = fabsf(s1 - s2);
+    mag = fabsf(s1);
+  }
+  if (idx < size_t(k)) {
+    int c1 = 0, c2 = 0;
+    for (int s = 0; s < slabs; ++s) {
+      c1 += cnt1[size_t(s) * k + idx];
+      c2 += cnt2[size_t(s) * k + idx];
+    }
+    counts[idx] = float(c1);
+    cbad = c1 != c2 ? 1.0f : 0.0f;
+  }
+  diff = warp_max(diff);
+  mag = warp_max(mag);
+  cbad = warp_max(cbad);
+  if (lane == 0) {
+    wred[0][w] = diff;
+    wred[1][w] = mag;
+    wred[2][w] = cbad;
+  }
+  __syncthreads();
+  if (tid < 3) {
+    float v = 0.0f;
+    for (int i = 0; i < kThreads / 32; ++i) v = fmaxf(v, wred[tid][i]);
+    red[size_t(blockIdx.x) * 3 + tid] = v;
+  }
+}
+
+// Pass 3: bad = max|sums - sums2| > 1e-4 * max(max|sums|, 1) or a count
+// differs (the reference's comparison).
+__global__ void __launch_bounds__(kThreads)
+dmr_verdict_kernel(const float* __restrict__ red, int nblocks,
+                   int* __restrict__ bad) {
+  __shared__ float wred[3][kThreads / 32];
+  const int tid = threadIdx.x, lane = tid % 32, w = tid / 32;
+  float v[3] = {0.0f, 0.0f, 0.0f};
+  for (int b = tid; b < nblocks; b += kThreads)
+    for (int q = 0; q < 3; ++q) v[q] = fmaxf(v[q], red[size_t(b) * 3 + q]);
+  for (int q = 0; q < 3; ++q) {
+    const float r = warp_max(v[q]);
+    if (lane == 0) wred[q][w] = r;
+  }
+  __syncthreads();
+  if (tid == 0) {
+    float diff = 0.0f, mag = 0.0f, cbad = 0.0f;
+    for (int i = 0; i < kThreads / 32; ++i) {
+      diff = fmaxf(diff, wred[0][i]);
+      mag = fmaxf(mag, wred[1][i]);
+      cbad = fmaxf(cbad, wred[2][i]);
+    }
+    *bad = (diff > 1e-4f * fmaxf(mag, 1.0f)) || cbad > 0.0f;
+  }
+}
+
 bool tile_shape_ok(int bm, int mp, int kp, int fp) {
   return (bm == 64 || bm == 128) && mp > 0 && mp % bm == 0 && kp > 0 &&
          kp % kBK == 0 && fp > 0 && fp % kChunk == 0;
@@ -1015,6 +1449,63 @@ int fk_kmeanspp_round(const float* x, const float* xn, const float* c,
   kmeanspp_round_kernel<<<dim3(np / bn, nb), kThreads, 0,
                           static_cast<cudaStream_t>(stream)>>>(
       x, xn, c, d2, d2o, ts, np, f, bn);
+  return int(cudaGetLastError());
+}
+
+// x (mp, kp), y (kp, np), d (mp, np) f32; det (mp/bm, np/bn) int32.
+int fk_matmul_abft(const float* x, const float* y, const int* inj, float* d,
+                   int* det, float thr_factor, int mp, int np, int kp, int bm,
+                   int bn, int bk, void* stream) {
+  if (bm < 8 || bm % 8 || (bm > kMmSub && bm % kMmSub) || bm > 1024 ||
+      bn < kMmSub || bn % kMmSub || bn > 1024 || bk < kChunk || bk % kChunk ||
+      mp < bm || mp % bm || np < bn || np % bn || kp < bk || kp % bk ||
+      np / bn > kMaxProblems)
+    return int(cudaErrorInvalidValue);
+  const size_t bytes = size_t(MmLayout(bm, bn).words) * 4;
+  cudaError_t e = cudaFuncSetAttribute(
+      matmul_abft_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      int(bytes));
+  if (e != cudaSuccess) return int(e);
+  matmul_abft_kernel<<<dim3(mp / bm, np / bn), kThreads, bytes,
+                       static_cast<cudaStream_t>(stream)>>>(
+      x, y, inj, d, det, np, kp, bm, bn, bk, thr_factor);
+  return int(cudaGetLastError());
+}
+
+// x (m, f) f32, assign (m,) int32; part (2, slabs, k, f) f32 and cnt
+// (2, slabs, k) int32 scratch; sums (k, f), counts (k,); red
+// (ceil(k*f/256), 3) f32 scratch; bad a 0-d int32. fs < 0: no debug fault.
+int fk_centroid_update_dmr(const float* x, const int* assign, float* part,
+                           int* cnt, float* sums, float* counts, float* red,
+                           int* bad, int m, int f, int k, int slab_rows,
+                           int fs, int fk, int ff, float fdelta,
+                           void* stream) {
+  if (m < 0 || f < 1 || k < 1 || slab_rows < 32 || slab_rows % 32)
+    return int(cudaErrorInvalidValue);
+  const int slabs = m > slab_rows ? (m + slab_rows - 1) / slab_rows : 1;
+  const int fgroups = (f + 31) / 32;
+  if (slabs > kMaxProblems || fgroups > kMaxProblems)
+    return int(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t e = cudaFuncSetAttribute(
+      dmr_partials_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      int(DmrLayout::kBytes));
+  if (e != cudaSuccess) return int(e);
+  const size_t skf = size_t(slabs) * k * f, sk = size_t(slabs) * k;
+  dmr_partials_kernel<<<dim3((k + kDmrClusters - 1) / kDmrClusters, slabs,
+                             fgroups),
+                        kThreads, DmrLayout::kBytes, s>>>(
+      x, assign, part, part + skf, cnt, cnt + sk, m, f, k, slab_rows, fs, fk,
+      ff, fdelta);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return int(e);
+  const int nred = int((size_t(k) * f + kThreads - 1) / kThreads);
+  dmr_reduce_kernel<<<nred, kThreads, 0, s>>>(part, part + skf, cnt,
+                                              cnt + sk, slabs, k, f, sums,
+                                              counts, red);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return int(e);
+  dmr_verdict_kernel<<<1, kThreads, 0, s>>>(red, nred, bad);
   return int(cudaGetLastError());
 }
 

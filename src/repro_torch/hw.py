@@ -43,3 +43,24 @@ ALIGN_F: int = 32
 # over N / 512 tile sums, then over the chosen tile's 512 rows. The CPU
 # path uses the same tile, so both walk the same two-level CDF.
 INIT_BLOCK_N: int = 512
+
+# Default verification tile of the ABFT GEMM (ops.abft_matmul, kernel
+# matmul_abft): one thread block per ABFT_BLOCK_M x ABFT_BLOCK_N output
+# tile, its k loop inside the block in 32-deep chunks; ABFT_BLOCK_K is the
+# k-step an injection descriptor counts. The clamp keeps the reference's
+# alignments (rows 8, columns 128, k 128), so the reference's tiles, passed
+# explicitly, stay the same tiles. The kernel takes rows a multiple of 8 up
+# to 128 or a multiple of 128, columns a multiple of 128, k a multiple of
+# 32.
+ABFT_BLOCK_M: int = 128
+ABFT_BLOCK_N: int = 128
+ABFT_BLOCK_K: int = 128
+ABFT_ALIGN_M: int = 8
+ABFT_ALIGN_N: int = 128
+ABFT_ALIGN_K: int = 128
+
+# Rows per slab of the DMR centroid update (centroid_update_dmr): each
+# thread block owns 64 clusters x 32 features of one slab, so the two
+# replicas' partial sums take 2 * ceil(M / DMR_BLOCK_M) * K * F * 4 bytes
+# (16 MB at M = 2**20, K = 1000, F = 128) and X is read once.
+DMR_BLOCK_M: int = 65_536

@@ -12,8 +12,10 @@ behind ``distance_argmin``, ``lloyd_step`` (one problem, or B stacked
 problems over a (row tile, problem) grid: ``fk_lloyd_step_batched``),
 ``distance_argmin_ft`` and ``lloyd_step_ft``, the update epilogue launched
 alone, the k-means++ D^2 round (``fk_kmeanspp_round``), the pruned one-pass
-step (``fk_lloyd_step_pruned``) and the int8 distance kernel
-(``fk_distance_argmin_int8``). The library file
+step (``fk_lloyd_step_pruned``), the int8 distance kernel
+(``fk_distance_argmin_int8``), the ABFT GEMM (``fk_matmul_abft``) and the
+DMR centroid update (``fk_centroid_update_dmr``, three launches: partials,
+slab reduction, verdict). The library file
 name carries a hash of the source, so an edited source rebuilds and an
 unchanged one is reused. Every C entry point returns
 ``cudaGetLastError()`` after its launch; :func:`check` turns a non-zero code
@@ -59,6 +61,9 @@ SIGNATURES: dict[str, tuple] = {
                              _I, _I, _I, _P),
     "fk_distance_argmin_int8": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                 _P),
+    "fk_matmul_abft": (_P, _P, _P, _P, _P, _F, _I, _I, _I, _I, _I, _I, _P),
+    "fk_centroid_update_dmr": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                               _I, _I, _I, _I, _F, _P),
 }
 
 

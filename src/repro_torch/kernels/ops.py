@@ -37,6 +37,7 @@ from repro_torch.kernels import distance_argmin_int8 as _dai
 from repro_torch.kernels import lloyd_step as _ll
 from repro_torch.kernels import lloyd_step_ft as _llft
 from repro_torch.kernels import lloyd_step_pruned as _llp
+from repro_torch.kernels import matmul_abft as _mma
 from repro_torch.kernels import ref
 
 
@@ -556,6 +557,56 @@ def fused_lloyd_batched(x, c: torch.Tensor,
     sums = _tree_sum(sums.movedim(1, 0))[:, :k, :plan.f]
     counts = _tree_sum(counts.movedim(1, 0))[:, :k]
     return am[:, :n], mind[:, :n] + plan.xn, sums, counts
+
+
+def _pad_to(t: torch.Tensor, rows: int, cols: int) -> torch.Tensor:
+    """``t`` zero-padded to (rows, cols), contiguous; no copy when it
+    already is."""
+    if t.shape == (rows, cols) and t.is_contiguous():
+        return t
+    return F.pad(t, (0, cols - t.shape[1], 0, rows - t.shape[0])).contiguous()
+
+
+def abft_tiles(m: int, n: int, k: int, block_m: int = hw.ABFT_BLOCK_M,
+               block_n: int = hw.ABFT_BLOCK_N,
+               block_k: int = hw.ABFT_BLOCK_K) -> tuple[int, int, int]:
+    """The ABFT GEMM's (bm, bn, bk) for an (m, k) x (k, n) product: each
+    block halved while it exceeds the padded dimension, with the
+    reference's alignments (8, 128, 128), so the reference's clamped tiles
+    passed explicitly are kept as they are."""
+    def shrink(block: int, dim: int, align: int) -> int:
+        while block > align and block > _round_up(dim, align):
+            block //= 2
+        return max(block, align)
+    return (shrink(block_m, m, hw.ABFT_ALIGN_M),
+            shrink(block_n, n, hw.ABFT_ALIGN_N),
+            shrink(block_k, k, hw.ABFT_ALIGN_K))
+
+
+def abft_matmul(x: torch.Tensor, y: torch.Tensor, *,
+                inj: Optional[torch.Tensor] = None,
+                block_m: int = hw.ABFT_BLOCK_M,
+                block_n: int = hw.ABFT_BLOCK_N,
+                block_k: int = hw.ABFT_BLOCK_K
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """ABFT GEMM D = X @ Y with in-kernel detection and correction, X
+    (M, K), Y (K, N) f32. Pads to :func:`abft_tiles`, launches
+    :func:`~repro_torch.kernels.matmul_abft.matmul_abft` (its plain version
+    on the CPU) and slices. ``inj`` is a
+    :func:`~repro_torch.kernels.matmul_abft.make_injection` descriptor
+    (m-tile, n-tile, k-step, row, col, delta) at those tiles. Returns
+    (D (M, N), detected count 0-d int32)."""
+    m, k = x.shape
+    n = y.shape[1]
+    bm, bn, bk = abft_tiles(m, n, k, block_m, block_n, block_k)
+    mp, np_, kp = _round_up(m, bm), _round_up(n, bn), _round_up(k, bk)
+    xp = _pad_to(x.float(), mp, kp)
+    yp = _pad_to(y.float(), kp, np_)
+    inj = (_mma.no_injection() if inj is None else inj).to(xp.device)
+    d, det = _mma.matmul_abft(xp, yp, inj, block_m=bm, block_n=bn,
+                              block_k=bk,
+                              factor=threshold_factor(kp, xp.dtype))
+    return d[:m, :n], det.sum().to(torch.int32)
 
 
 def plan_injection_tile(m: int, k: int, f: int, params: KernelParams,

@@ -8,6 +8,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.core import checksum
+
 
 def full_f32(device: torch.device) -> None:
     """Pin full-f32 products on the card (TF32 keeps ~3 decimal digits)."""
@@ -49,23 +51,32 @@ def distance_argmin(x: torch.Tensor, c: torch.Tensor
 def distance_argmin_ft(x: torch.Tensor, c: torch.Tensor,
                        inject_delta: float | None = None,
                        inject_pos: tuple[int, int] | None = None):
-    """Oracle for the FT kernel over one whole-matrix interval: plant one
-    additive fault at ``inject_pos`` of X C^T, verify with the dual
-    checksums, locate, correct, reduce. Returns (min partial distance,
-    argmin, detected count). The threshold scales with the expected
-    checksums, as the kernels' does."""
-    from repro_torch.core.checksum import threshold_factor
-    from repro_torch.kernels import distance_argmin_ft as _daft
+    """Oracle for the FT kernels, the reference's: plant one additive fault
+    at ``inject_pos`` of X C^T, then :func:`~repro_torch.core.checksum.verify`
+    with the threshold ``default_threshold(F) * max(max|X C^T|, 1)`` taken
+    from the (possibly corrupted) product, correct, reduce. Returns (min
+    partial distance, argmin, detected 0-d int32). The kernels and their
+    plain versions scale by the expected checksums instead, so near the
+    threshold this oracle and the kernels may disagree, in both packages."""
     full_f32(x.device)
-    (m, f), k = x.shape, c.shape[0]
     xf, cf = x.float(), c.float()
-    inj = _daft.no_injection()
+    cn = (cf * cf).sum(1)[None, :]
+    cross = xf @ cf.T
+    expected = checksum.expected_checksums(xf, cf.T)
     if inject_delta is not None and inject_pos is not None:
-        inj = _daft.make_injection(0, 0, 0, *inject_pos, inject_delta)
-    acc, det = _daft.abft_correct_plain(xf @ cf.T, xf, cf, inj.to(x.device),
-                                        m, k, f, threshold_factor(f))
-    mn, am = first_min((cf * cf).sum(1)[None, :] - 2.0 * acc)
-    return mn, am, det.sum()
+        cross[inject_pos] += inject_delta
+    scale = torch.clamp_min(cross.abs().max(), 1.0)
+    thr = checksum.default_threshold(x.shape[1], cross.dtype) * scale
+    verdict = checksum.verify(cross, expected, thr)
+    cross = checksum.correct(cross, verdict)
+    mn, am = first_min(cn - 2.0 * cross)
+    return mn, am, verdict.detected.to(torch.int32)
+
+
+def matmul(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """Oracle for the ABFT matmul kernel: the plain f32 product."""
+    full_f32(x.device)
+    return torch.matmul(x.float(), y.float())
 
 
 def centroid_update(x: torch.Tensor, assign: torch.Tensor, k: int

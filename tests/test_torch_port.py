@@ -145,7 +145,7 @@ def test_default_tiles_are_buildable():
     (dict(compute_dtype="bfloat16"), NotImplementedError),
     (dict(compute_dtype="float16"), NotImplementedError),
     (dict(init="kmeans++-fused"), ValueError),
-    (dict(fault=FaultPolicy(mode="detect")), NotImplementedError),
+    (dict(fault=FaultPolicy.detect(), batch_size=64), NotImplementedError),
     (dict(compute_dtype="float64"), ValueError),
     (dict(init="nope"), ValueError),
 ])
