@@ -3,14 +3,16 @@
 
     python3 chip_smoke.py            # from the repository root, on the card
 
-Builds the port's CUDA kernels from ``src/repro_torch/csrc`` and drives the
-port's paths: ``repro_torch.api.KMeans`` fit/predict/score, unprotected,
-ABFT-protected online (``correct``) and offline (``detect``), pruned
-(``backend="lloyd_pruned"``) and quantised (``compute_dtype="int8"``), at
-M = 2**20 rows x F = 128 features x
-K = 1000 clusters; and ``repro_torch.batch.BatchedKMeans`` seeding, fit,
-predict and score at the width of product-quantisation codebook training
-for an IVF-PQ index over 768-d embeddings: B = 48 sub-quantisers of
+Builds the port's CUDA kernels from ``src/repro_torch/csrc`` (one nvcc per
+source, in parallel) and drives the port's paths: ``repro_torch.api.KMeans``
+fit/predict/score, unprotected, ABFT-protected online (``correct``) and
+offline (``detect``), pruned (``backend="lloyd_pruned"``) and quantised
+(``compute_dtype="int8"``), at M = 2**20 rows x F = 128 features x
+K = 1000 clusters; internlm2-1.8b serving (``repro_torch.launch.serve``,
+prefill + greedy decode through the micro-batcher on the flash kernel);
+and ``repro_torch.batch.BatchedKMeans`` seeding, fit, predict and score at
+the width of product-quantisation codebook training for an IVF-PQ index
+over 768-d embeddings: B = 48 sub-quantisers of
 F = 16 dimensions, K = 256 centroids (8-bit codes), N = 65,536 training rows
 each (FAISS ``max_points_per_centroid`` 256 x K; FAISS's ``niter`` = 25).
 Phases, one line each:
@@ -62,7 +64,22 @@ Phases, one line each:
      ``ft_matmul``; the DMR update (``centroid_update_dmr``) on the fused
      fit's labels against its plain version, a corrupted shadow partial,
      ``index_add_`` + ``bincount`` and ``ops.tiled_update(use_dmr=True)``;
-     the two kernels' rows.
+     the two kernels' rows;
+ 11. the flash-attention kernel against its plain version (the f32 oracle)
+     at internlm2-1.8b's prefill (B = 4, H = 16, KV = 8, S = 2048,
+     hd = 128, bf16, causal) and decode (one query, a 2080-slot cache with
+     cold slots; bf16 and f32) shapes, each under its bars with a control
+     that must fail them, with its time, the plain version's, SDPA's and
+     the bounds; the tensor-core kernel on a decode's K/V; the reference
+     test's f32 shape, windows, ragged ends, a fully masked row (mean of v,
+     or zero with ``zero_empty_rows``), head dims 256 and 16, strided views;
+ 12. ``repro_torch.launch.serve`` serving 8 requests of internlm2-1.8b at
+     full width and depth (seeded weights; waves of 4, prompt 2048, 32
+     generated tokens; 1536 flash launches), the first wave teacher-forced
+     through the kernel and the plain attention routes (logits within 5e-2
+     x max|logit|), traces of one prefill and one decode step, and an FT
+     K-means codebook over the wave's 1,572,864 prefill keys under an SEU
+     campaign (``examples/kv_quantize.py`` at full width).
 
 A kernel's bound counts the work of the function at the true M, K and F,
 not at the padded tile grid; the padded figures are printed beside it.
@@ -72,6 +89,8 @@ package. The last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import math
 import subprocess
@@ -99,6 +118,33 @@ LM_TOKENS, LM_D_MODEL, LM_D_FF = 4 * 2048, 2048, 8192
 # the DMR update's debug fault: (slab, cluster, feature, delta), an
 # exponent-bit-flip-sized delta (the campaigns' 2^18..2^23 range)
 SHADOW_FAULT = (0, 3, 5, 2.0 ** 20)
+# phases 11-12: internlm2-1.8b serving (src/repro/configs/internlm2_1_8b.py:
+# 24 layers, d_model 2048, 16 query heads, 8 KV heads, head dim 128), full
+# width and depth, seeded random weights; 8 requests in waves of 4, prompt
+# 2048, 32 generated tokens
+LM_ARCH = "internlm2-1.8b"
+LM_SMOKE = False                # full width and depth
+DEV = "cuda"                    # phases 11-12 run on the card
+LM_BATCH, LM_HEADS, LM_KV_HEADS, LM_HD = 4, 16, 8, 128
+LM_PROMPT, LM_GEN, LM_REQUESTS = 2048, 32, 8
+NEG_POS = -(1 << 30)            # an empty cache slot (models.attention)
+# phase 11, the kernel against the f32 oracle: |err| <= atol + rtol |want|
+# under every bar of its dtype. The reference test's bars
+# (tests/test_kernels_extra.py): f32 (2e-6, 1e-3), bf16 (2e-2, 1e-3). The
+# reference's bf16 bar is 2/3 of a decode output (~0.03), so every bf16
+# check also holds one bf16 ulp at 1 (2^-8), absolute and relative (p is
+# rounded to bf16 before P V: up to ~2e-3 on short rows at prefill), and
+# the decode shape, which averages over 2049 keys, a quarter of that in
+# absolute terms. A control that must fail each bar, a kernel that lets
+# the cold slots in (or, at prefill, sees one key past the causal edge),
+# shows the bar would catch it.
+FLASH_F32_BARS = ((2e-6, 1e-3),)
+FLASH_BF16_BARS = ((2e-2, 1e-3), (2.0 ** -8, 2.0 ** -8))
+FLASH_DECODE_BARS = FLASH_BF16_BARS + ((2.0 ** -10, 2.0 ** -8),)
+# teacher-forced logits, kernel route vs plain route: a bf16 bar through
+# 24 layers, x max|logit|
+LM_LOGIT_RTOL = 5e-2
+KV_CODEBOOK = 64                # examples/kv_quantize.py's codebook
 
 
 class SmokeFailure(RuntimeError):
@@ -1031,6 +1077,339 @@ def phase_detect(torch, ops, hw, ll, mma, cud, KMeans, FaultPolicy,
     return rec, rows
 
 
+def phase_flash(torch, fa, hw) -> tuple[dict, dict]:
+    """Phase 11: the flash-attention kernel against its plain version on
+    the card. At internlm2-1.8b's prefill (B = 4, H = 16, KV = 8, S = 2048,
+    hd = 128, bf16, causal) and decode (one query against a 2080-slot cache
+    whose last 31 slots are cold, NEG_POS; bf16 and f32) shapes: error
+    against the plain version in f32 (the reference test's oracle) under
+    the bars, a control per shape that must fail them, kernel, plain and
+    SDPA times and the bounds (the causal-useful work; the full tiles
+    beside it), and the tensor-core kernel on a decode's K/V (Sq = 17).
+    Then the reference test's f32 shape, a window, a ragged window, a fully
+    masked row (the mean of v, or zero with ``zero_empty_rows``), head dims
+    256 and 16 (zero-padded), and transposed (B, S, H, hd) views, which
+    must give the contiguous result bit for bit. Returns (record, the
+    kernel row without launches)."""
+    import torch.nn.functional as F
+    gen = torch.Generator(device=DEV).manual_seed(SEED)
+    bf16, f32 = torch.bfloat16, torch.float32
+
+    def qkv(b, h, kv, sq, skv, hd, dtype):
+        def draw(*shape):
+            return torch.randn(*shape, generator=gen, device=DEV)
+        q = draw(b, h, sq, hd) * hd ** -0.5      # as attend scales q
+        return (q.to(dtype), draw(b, kv, skv, hd).to(dtype),
+                draw(b, kv, skv, hd).to(dtype))
+
+    def oracle(q, k, v, qpos, kpos, causal=True, window=0):
+        return fa.flash_attention_plain(q.float(), k.float(), v.float(),
+                                        qpos, kpos, causal=causal,
+                                        window=window)
+
+    def ratio(got, want, bars):
+        """max |err| / (atol + rtol |want|) over the elements and bars."""
+        d, w = (got.double() - want.double()).abs(), want.double().abs()
+        return max(float((d / (a + r * w)).max()) for a, r in bars)
+
+    def bars_of(dtype):
+        return FLASH_F32_BARS if dtype == f32 else FLASH_BF16_BARS
+
+    def check(name, q, k, v, qpos, kpos, causal=True, window=0, bars=None):
+        got = fa.flash_attention(q, k, v, qpos, kpos, causal=causal,
+                                 window=window)
+        r = ratio(got, oracle(q, k, v, qpos, kpos, causal, window),
+                  bars or bars_of(q.dtype))
+        expect(r <= 1.0 and got.dtype == q.dtype and got.shape == q.shape,
+               f"flash_attention {name}: error {r} x its bar")
+        return got, r
+
+    def control(name, q, k, v, qpos, kpos, kpos_seen, bars):
+        """The kernel given ``kpos_seen`` (what a faulty mask would let in)
+        against the oracle on the true ``kpos``: it must break the bars."""
+        r = ratio(fa.flash_attention(q, k, v, qpos, kpos_seen),
+                  oracle(q, k, v, qpos, kpos), bars)
+        expect(r > 1.0, f"control {name}: error {r} x the bar; the bar "
+               f"would not catch the fault")
+        return r
+
+    def bound(flops, nbytes, peak):
+        t_ops, t_bytes = flops / peak, nbytes / hw.HBM_BW
+        return {"bound_ms": 1e3 * max(t_ops, t_bytes),
+                "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+                "ops_ms": 1e3 * t_ops, "bytes_ms": 1e3 * t_bytes}
+
+    rec = {"phase": 11, "bars": {"f32": FLASH_F32_BARS,
+                                 "bf16": FLASH_BF16_BARS,
+                                 "bf16_decode": FLASH_DECODE_BARS}}
+    b, h, kvh, s, hd = LM_BATCH, LM_HEADS, LM_KV_HEADS, LM_PROMPT, LM_HD
+    # --- prefill shape: the causal-useful work is key <= query, 4 * B * H *
+    # hd * S (S + 1) / 2 FLOPs; the full tiles (4 B H S^2 hd) beside it
+    q, k, v = qkv(b, h, kvh, s, s, hd, bf16)
+    pos = torch.arange(s, dtype=torch.int32, device=DEV)
+    _, r_p = check("prefill", q, k, v, pos, pos)
+    flops = 4.0 * b * h * hd * s * (s + 1) / 2
+    full_flops = 4.0 * b * h * s * s * hd
+    bytes_p = 2.0 * (2 * b * h * s * hd + 2 * b * kvh * s * hd) + 8.0 * s
+    prefill = {
+        "shape": [b, h, kvh, s, s, hd], "dtype": "bfloat16", "causal": True,
+        "err_over_bar": r_p,
+        "control_past_causal_edge": control(
+            "prefill, one key past the causal edge", q, k, v, pos, pos,
+            (pos - 1).clamp(min=0), FLASH_BF16_BARS),
+        "max_abs_err": max_err(fa.flash_attention(q, k, v, pos, pos),
+                               oracle(q, k, v, pos, pos)),
+        "ms": cuda_ms(lambda: fa.flash_attention(q, k, v, pos, pos)),
+        "plain_ms": cuda_ms(lambda: fa.flash_attention_plain(q, k, v, pos,
+                                                             pos), reps=2),
+        "sdpa_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, scale=1.0, enable_gqa=True)),
+        "gflop": flops / 1e9, "gflop_full_tiles": full_flops / 1e9,
+        "gbytes": bytes_p / 1e9,
+        **bound(flops, bytes_p, hw.PEAK_FLOPS_BF16),
+        "full_work_ms": 1e3 * full_flops / hw.PEAK_FLOPS_BF16}
+    prefill["tflops_useful"] = flops / prefill["ms"] / 1e9
+    rec["prefill"] = prefill
+    # transposed views of (B, S, H, hd) tensors: the attend route's layout
+    qt, kt, vt = (t.transpose(1, 2).contiguous().transpose(1, 2)
+                  for t in (q, k, v))
+    expect(bool(torch.equal(fa.flash_attention(qt, kt, vt, pos, pos),
+                            fa.flash_attention(q, k, v, pos, pos))),
+           "flash_attention on strided views differs from contiguous inputs")
+    del q, k, v, qt, kt, vt
+    torch.cuda.empty_cache()
+    # --- decode shape: one query at position 2048, slots 2049.. cold; a
+    # kernel without the kpos >= 0 test would take the cold slots as keys
+    # before the query (the control hands it kpos clamped at 0)
+    skv = LM_PROMPT + LM_GEN
+    kpos = torch.arange(skv, dtype=torch.int32, device=DEV)
+    kpos[LM_PROMPT + 1:] = NEG_POS
+    cold_in = kpos.clamp(min=0)
+    qpos = torch.tensor([LM_PROMPT], dtype=torch.int32, device=DEV)
+    valid = LM_PROMPT + 1
+    decode = {}
+    for dt, bars in ((f32, FLASH_F32_BARS), (bf16, FLASH_DECODE_BARS)):
+        name = "decode_" + str(dt).split(".")[1]
+        q, k, v = qkv(b, h, kvh, 1, skv, hd, dt)
+        _, r_d = check(name, q, k, v, qpos, kpos, bars=bars)
+        elem = q.element_size()
+        flops_d = 4.0 * b * h * valid * hd
+        bytes_d = elem * (2 * b * h * hd + 2 * b * kvh * valid * hd) \
+            + 4.0 * (valid + 1)
+        d = {"shape": [b, h, kvh, 1, skv, hd], "cold_slots": skv - valid,
+             "err_over_bar": r_d,
+             "control_cold_slots_in": control(
+                 name + ", cold slots let in", q, k, v, qpos, kpos, cold_in,
+                 bars),
+             "max_abs_err": max_err(fa.flash_attention(q, k, v, qpos, kpos),
+                                    oracle(q, k, v, qpos, kpos)),
+             "ms": cuda_ms(lambda: fa.flash_attention(q, k, v, qpos, kpos),
+                           reps=20),
+             "mbytes": bytes_d / 1e6,
+             **bound(flops_d, bytes_d, hw.PEAK_FLOPS_BF16 if dt == bf16
+                     else hw.PEAK_FLOPS_F32)}
+        d["gbytes_per_s"] = bytes_d / d["ms"] / 1e6
+        if dt == bf16:
+            mask = (kpos >= 0)[None, :] & (kpos[None, :] <= qpos[:, None])
+            d["plain_ms"] = cuda_ms(lambda: fa.flash_attention_plain(
+                q, k, v, qpos, kpos), reps=20)
+            d["sdpa_ms"] = cuda_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, attn_mask=mask, scale=1.0, enable_gqa=True),
+                reps=20)
+            # the tensor-core kernel on the same K/V: Sq just past the
+            # CUDA-core decode tile, so one 64-row tile per (batch, head)
+            sq = hw.FLASH_BLOCK_Q_DECODE + 1
+            qm = qkv(b, h, kvh, sq, 1, hd, dt)[0]
+            qmp = torch.arange(LM_PROMPT - sq + 1, LM_PROMPT + 1,
+                               dtype=torch.int32, device=DEV)
+            check("decode K/V on the tensor-core kernel", qm, k, v, qmp,
+                  kpos)
+            d["mma_sq17_ms"] = cuda_ms(lambda: fa.flash_attention(
+                qm, k, v, qmp, kpos), reps=20)
+        decode[name] = d
+        del q, k, v
+    rec["decode"] = decode
+    decode = decode["decode_bfloat16"]
+    # --- the reference test's shapes and the edges
+    errs = {}
+    for name, (bb, hh, kk, sq, skv_, d), dt, causal, window in [
+            ("ref_f32", (1, 4, 2, 512, 512, 64), f32, True, 0),
+            ("ref_f32_window", (1, 4, 2, 512, 512, 64), f32, True, 128),
+            ("ref_f32_full", (1, 4, 2, 512, 512, 64), f32, False, 0),
+            ("ref_bf16_window", (1, 4, 2, 512, 512, 64), bf16, True, 128),
+            ("ragged_window", (2, 4, 2, 333, 333, 128), f32, True, 100),
+            ("ragged_window_bf16", (2, 4, 2, 333, 333, 128), bf16, True,
+             100),
+            ("hd256", (1, 8, 4, 257, 257, 256), bf16, True, 0),
+            ("hd16_padded", (1, 4, 2, 100, 100, 16), f32, True, 0)]:
+        q, k, v = qkv(bb, hh, kk, sq, skv_, d, dt)
+        qp = torch.arange(sq, dtype=torch.int32, device=DEV)
+        errs[name] = check(name, q, k, v, qp, qp[:skv_], causal, window)[1]
+    # a fully masked row (query 0 sees no key): the mean of v, as the
+    # reference kernel gives; zero with zero_empty_rows (attend's contract),
+    # every other row unchanged; on the CUDA-core (f32) and tensor-core
+    # (bf16) kernels
+    for dt in (f32, bf16):
+        name = "fully_masked_row_" + str(dt).split(".")[1]
+        q, k, v = qkv(1, 4, 2, 512, 512, 64, dt)
+        qp = torch.arange(512, dtype=torch.int32, device=DEV)
+        got, errs[name] = check(name, q, k, v, qp, qp + 1)
+        mean_v = v.float().mean(dim=2).repeat_interleave(2, dim=1)
+        expect(ratio(got[:, :, 0], mean_v, bars_of(dt)) <= 1.0,
+               f"{name}: not the mean of v")
+        zero = fa.flash_attention(q, k, v, qp, qp + 1, zero_empty_rows=True)
+        expect(bool((zero[:, :, 0] == 0).all())
+               and bool(torch.equal(zero[:, :, 1:], got[:, :, 1:])),
+               f"{name}: zero_empty_rows did not zero exactly that row")
+    rec["edges_err_over_bar"] = errs
+    rec["library_call"] = ("F.scaled_dot_product_attention(enable_gqa=True, "
+                           "scale=1.0): is_causal at prefill, the boolean "
+                           "mask at decode")
+    row = {"name": "flash_attention", "route": "cuda",
+           "source": "src/repro_torch/csrc/fk_attention.cu",
+           "replaces": "src/repro/kernels/flash_attention.py:76",
+           "max_abs_err": prefill["max_abs_err"],
+           "ms": prefill["ms"], "plain_ms": prefill["plain_ms"],
+           "bound_ms": prefill["bound_ms"], "bound_by": prefill["bound_by"],
+           "library_ms": prefill["sdpa_ms"],
+           "decode": {key: decode[key] for key in
+                      ("ms", "plain_ms", "bound_ms", "bound_by", "sdpa_ms",
+                       "max_abs_err")}}
+    torch.cuda.empty_cache()
+    return rec, row
+
+
+@contextlib.contextmanager
+def plain_attention(attn):
+    """``attend`` on the card through the chunked plain math instead of the
+    flash kernel (the CPU route), for the teacher-forced comparison."""
+    kernel = attn._attend_kernel
+    attn._attend_kernel = attn._attend_local
+    try:
+        yield
+    finally:
+        attn._attend_kernel = kernel
+
+
+def phase_lm_serve(torch, fa, KMeans, FaultPolicy,
+                   InjectionCampaign) -> dict:
+    """Phase 12: ``repro_torch.launch.serve.main`` serves 8 requests of
+    internlm2-1.8b at full width (2 waves of 4, prompt 2048, 32 generated
+    tokens) with seeded weights; every attention of prefill and decode
+    runs the flash kernel (24 layers x 2 waves x (1 prefill + 31 decode
+    steps) launches). Then the first wave again, teacher-forced, through
+    the kernel route and the plain ``attend`` route: logits within
+    LM_LOGIT_RTOL x max|logit| at the prefill and every decode step (greedy
+    agreement printed, not gated); ``torch.profiler`` traces of one prefill
+    and one decode step; and ``examples/kv_quantize.py``'s flow at full
+    width: an FT K-means codebook over the wave's prefill key cache."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import LM
+    from repro_torch.models import attention as attn
+    from repro_torch.models.model import greedy
+    cfg = get_config(LM_ARCH, smoke=LM_SMOKE)
+    argv = ["--arch", LM_ARCH, "--smoke" if LM_SMOKE else "--no-smoke",
+            "--requests", str(LM_REQUESTS), "--batch", str(LM_BATCH),
+            "--prompt-len", str(LM_PROMPT), "--gen", str(LM_GEN),
+            "--device", DEV]
+    fa.flash_attention.launches = 0
+    text = io.StringIO()
+    with contextlib.redirect_stdout(text):
+        out = serve.main(argv)
+    torch.cuda.synchronize()
+    launches = fa.flash_attention.launches
+    waves = -(-LM_REQUESTS // LM_BATCH)
+    want = cfg.num_layers * waves * LM_GEN
+    lines = text.getvalue().strip().splitlines()
+    expect(f"served {LM_REQUESTS}/{LM_REQUESTS}" in text.getvalue(),
+           f"the launcher did not serve every request: {lines}")
+    expect(out["finite"], "non-finite logits while serving")
+    expect(launches == want, f"flash_attention launched {launches} times "
+           f"while serving, want {want}")
+    decode_ms = 1e3 * sum(out["decode_s"]) / out["decode_steps"]
+    rec = {"phase": 12, "arch": LM_ARCH, "argv": argv, "launcher": lines,
+           "params_b": cfg.param_count() / 1e9,
+           "flash_launches": launches,
+           "prefill_ms": [1e3 * t for t in out["prefill_s"]],
+           "decode_ms_per_step": decode_ms,
+           "decode_ms_per_wave": [1e3 * t for t in out["decode_s"]],
+           "tokens": out["tokens"], "serve_s": out["seconds"],
+           "tokens_per_s": out["tokens"] / out["seconds"]}
+    # --- teacher-forced: kernel route against the plain attend route
+    lm = LM(cfg, device=DEV, seed=0)
+    prompts = torch.as_tensor(out["prompts"][:LM_BATCH], dtype=torch.int32,
+                              device=DEV)
+    forced = torch.as_tensor(out["generated"][:LM_BATCH], dtype=torch.int32,
+                             device=DEV)
+    max_len = LM_PROMPT + LM_GEN
+    errs, agree = [], []
+
+    def compare(kern, plain, what):
+        err = max_err(kern, plain) / float(plain.abs().max())
+        expect(err <= LM_LOGIT_RTOL, f"{what}: kernel-route logits "
+               f"{err} x max|logit| from the plain route")
+        errs.append(err)
+        agree.append(float((greedy(kern) == greedy(plain)).float().mean()))
+
+    with torch.no_grad():
+        logits_k, caches_k = lm.prefill({"tokens": prompts}, max_len)
+        expect(bool(torch.isfinite(logits_k).all()), "non-finite logits")
+        greedy_k = [greedy(logits_k)]
+        with plain_attention(attn):
+            logits_p, caches_p = lm.prefill({"tokens": prompts}, max_len)
+        compare(logits_k, logits_p, "prefill")
+        del logits_k, logits_p
+        torch.cuda.empty_cache()
+        for t in range(LM_GEN - 1):
+            tok, pos = forced[:, t:t + 1], LM_PROMPT + t
+            lk, caches_k = lm.decode_step(caches_k, tok, pos)
+            with plain_attention(attn):
+                lp, caches_p = lm.decode_step(caches_p, tok, pos)
+            compare(lk, lp, f"decode step {t}")
+            greedy_k.append(greedy(lk))
+        launcher_match = float((torch.cat(greedy_k, 1) == forced)
+                               .float().mean())
+        del caches_p
+        torch.cuda.empty_cache()
+        rec["teacher_forced"] = {
+            "max_err_over_max_logit": max(errs), "prefill_err": errs[0],
+            "decode_errs": errs[1:], "tolerance": LM_LOGIT_RTOL,
+            "greedy_agreement_kernel_vs_plain": agree,
+            "kernel_route_greedy_equals_launcher": launcher_match}
+        # --- traces: one decode step (the last cache slot) and one prefill
+        last = LM_PROMPT + LM_GEN - 1
+        rec["decode_trace"] = device_trace(
+            torch, lambda: lm.decode_step(caches_k, forced[:, -1:], last))
+        rec["prefill_trace"] = device_trace(
+            torch, lambda: lm.prefill({"tokens": prompts}, max_len))
+        # --- the KV cache codebook (examples/kv_quantize.py at full width)
+        keys = torch.stack([c["kv"].k[:, :LM_PROMPT] for c in caches_k])
+        del caches_k, lm
+        torch.cuda.empty_cache()
+        vecs = keys.reshape(-1, keys.shape[-1]).float()
+        del keys
+    km, fit_s = wall(lambda: KMeans(
+        n_clusters=KV_CODEBOOK, max_iter=25, random_state=0, device=DEV,
+        fault=FaultPolicy.correct(injection=InjectionCampaign(rate=0.5)))
+        .fit(vecs))
+    recon = km.cluster_centers_[km.labels_.long()]
+    rel = float(torch.linalg.norm(vecs - recon) / torch.linalg.norm(vecs))
+    expect(math.isfinite(rel) and bool(torch.isfinite(
+        km.cluster_centers_).all()), "KV codebook not finite")
+    expect(km.detected_errors_ > 0, "KV codebook campaign detected nothing")
+    rec["kv_codebook"] = {
+        "rows": vecs.shape[0], "dim": vecs.shape[1], "k": KV_CODEBOOK,
+        "gbytes_f32": 4.0 * vecs.numel() / 1e9, "fit_s": fit_s,
+        "n_iter": km.n_iter_, "rel_recon_err": rel,
+        "detected_errors": km.detected_errors_,
+        "compression": vecs.shape[1] * 2 / (
+            2 + km.cluster_centers_.numel() * 2 / vecs.shape[0])}
+    del vecs, recon, km
+    torch.cuda.empty_cache()
+    return rec
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1057,6 +1436,7 @@ def main() -> int:
     from repro_torch.kernels import lloyd_step_ft as llft
     from repro_torch.kernels import lloyd_step_pruned as llp
     from repro_torch.kernels import centroid_update_dmr as cud
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import matmul_abft as mma
 
     ref.full_f32(torch.device("cuda"))
@@ -1068,14 +1448,17 @@ def main() -> int:
         else "unknown"
     kind = torch.cuda.get_device_name(0)
     t0 = time.perf_counter()
-    lib = _build.library()
+    libs = _build.build_all()          # one nvcc per source, in parallel
     build_s = time.perf_counter() - t0
-    ptxas = [ln.strip() for ln in lib.ptxas_log.splitlines()
+    ptxas = [ln.strip() for lib in libs.values()
+             for ln in lib.ptxas_log.splitlines()
              if "registers" in ln or "spill" in ln
              or "Compiling entry function" in ln]
     emit({"phase": 1, "device": kind, "nvidia_smi": smi_line,
           "torch": torch.__version__, "cuda": torch.version.cuda,
-          "build_s": round(build_s, 3), "nvcc_s": round(lib.build_seconds, 3),
+          "build_s": round(build_s, 3),
+          "nvcc_s": {name: round(lib.build_seconds, 3)
+                     for name, lib in libs.items()},
           "ptxas": ptxas})
 
     kern = (da, ll, daft, llft)
@@ -1328,6 +1711,13 @@ def main() -> int:
                                  km_off, km_ft, off_ms, ft_ms, bound)
     emit(rec10)
     rows.extend(rows10)
+
+    # --- phases 11-12: the flash kernel, internlm2-1.8b serving -------------
+    rec11, row11 = phase_flash(torch, fa, hw)
+    emit(rec11)
+    rec12 = phase_lm_serve(torch, fa, KMeans, FaultPolicy, InjectionCampaign)
+    emit(rec12)
+    rows.append(dict(row11, launches=rec12["flash_launches"]))
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi_line, flush=True)
     print(json.dumps({"ok": True, "device": {

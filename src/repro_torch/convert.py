@@ -19,12 +19,21 @@ Batched states (``BatchedKMeans.get_state()``) have the same keys in both
 packages but for ``config["device"]``; the reference's host-only backend
 ``lloyd_batched_xla`` becomes the port's ``lloyd_batched`` (its plain
 version is the port's CPU path), and every other name passes through.
+
+LM weights and caches: the reference's ``LM.init`` tree stacks full periods
+of the layer pattern (``params["periods"][slot][...]`` with a leading
+``n_periods`` dimension, remainder layers in ``params["tail"]``), and so do
+its prefill caches. :func:`lm_params_from_reference` and
+:func:`lm_caches_from_reference` unstack both into the port's per-layer
+``LM.state_dict()`` and cache list, from numpy arrays (bf16 arrays as
+``ml_dtypes.bfloat16``, which numpy reports as ``bfloat16``).
 """
 from __future__ import annotations
 
 import copy
 
 import numpy as np
+import torch
 
 _REF_WORKER_LOSS = "fail"
 _REF_BACKENDS = {"int8_xla": "int8", "lloyd_pruned_xla": "lloyd_pruned"}
@@ -100,4 +109,58 @@ def to_reference_batched_state(state: dict) -> dict:
     """Port ``BatchedKMeans.get_state()`` dict -> the reference's."""
     out = _batched_arrays(state)
     out["config"].pop("device", None)
+    return out
+
+
+def _tensor(a) -> torch.Tensor:
+    """numpy array -> CPU tensor (a copy); bf16 arrays keep their bits."""
+    a = np.array(a, order="C")
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(a)
+
+
+def _layer_trees(tree: dict, cfg) -> list:
+    """Per-layer subtrees of a reference tree stacked by period: layer
+    t * period + j is ``tree["periods"][j]`` at index t, the remainder
+    ``tree["tail"]``."""
+    period = len(cfg.layer_pattern)
+    n_periods = cfg.num_layers // period if cfg.scan_layers else 0
+    out = []
+    for i in range(n_periods * period):
+        t, j = divmod(i, period)
+        out.append(_map(tree["periods"][j], lambda a, t=t: a[t]))
+    out.extend(tree.get("tail", []))
+    return out
+
+
+def _map(tree, fn):
+    if isinstance(tree, dict):
+        return {k: _map(v, fn) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(_map(v, fn) for v in tree))
+    return fn(tree)
+
+
+def lm_params_from_reference(params: dict, cfg) -> dict:
+    """The reference ``LM.init`` params (numpy leaves) -> the port's
+    ``LM.state_dict()`` for ``cfg`` (CPU tensors; ``load_state_dict`` copies
+    them to the model's device)."""
+    sd = {f"embed.{k}": _tensor(v) for k, v in params["embed"].items()}
+    sd["final_norm.scale"] = _tensor(params["final_norm"]["scale"])
+    for i, layer in enumerate(_layer_trees(params, cfg)):
+        for block, names in layer.items():
+            for name, a in names.items():
+                sd[f"layers.{i}.{block}.{name}"] = _tensor(a)
+    return sd
+
+
+def lm_caches_from_reference(caches: dict, cfg, device=None) -> list:
+    """The reference's prefill caches (numpy leaves, ``KVCache``
+    namedtuples) -> the port's per-layer cache list on ``device``."""
+    from repro_torch.models.attention import KVCache
+    out = []
+    for layer in _layer_trees(caches, cfg):
+        kv = layer["kv"]
+        out.append({"kv": KVCache(*(_tensor(a).to(device) for a in kv))})
     return out

@@ -64,3 +64,19 @@ ABFT_ALIGN_K: int = 128
 # replicas' partial sums take 2 * ceil(M / DMR_BLOCK_M) * K * F * 4 bytes
 # (16 MB at M = 2**20, K = 1000, F = 128) and X is read once.
 DMR_BLOCK_M: int = 65_536
+
+# Tiles of the flash-attention kernels (flash_attention), fixed in
+# csrc/fk_attention.cu (kBK, kMmaBQ, 16 * RI) and picked there from Sq, the
+# dtype and the head dim: these record them and set nothing. One thread
+# block per (batch * head, query tile) walks KV tiles of FLASH_BLOCK_K keys.
+# The query tile is FLASH_BLOCK_Q rows, or FLASH_BLOCK_Q_DECODE when
+# Sq <= FLASH_BLOCK_Q_DECODE (a decode step's one query row then shares its
+# block with 15 idle rows, not 63). Shared memory per block: the bf16
+# tensor-core kernel (64-row tiles, head dim 64 or 128) stages Q, K and V^T
+# as bf16, 53 KB at head dim 128; the CUDA-core kernel stages them as f32,
+# 118 KB at 128 and 217 KB at 256, the widest head dim built (64 and 128
+# are the others; narrower ones are zero-padded to 64).
+FLASH_BLOCK_Q: int = 64
+FLASH_BLOCK_Q_DECODE: int = 16
+FLASH_BLOCK_K: int = 64
+FLASH_HEAD_DIMS: tuple[int, ...] = (64, 128, 256)

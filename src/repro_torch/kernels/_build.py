@@ -1,13 +1,14 @@
 """Build and bind the port's CUDA kernels (nvcc + ctypes, no PyTorch headers).
 
-``csrc/*.cu`` holds a plain C interface. At first use on a CUDA device the
-source is compiled for Hopper with
+Each ``csrc/<name>.cu`` is one shared library with a plain C interface. At
+first use on a CUDA device a source is compiled for Hopper with
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
          -Xcompiler -fPIC -Xptxas -v -o _build/<name>-<hash>.so csrc/<name>.cu
 
 into the package's git-ignored ``_build/`` directory and loaded with
-``ctypes``. The one source holds every kernel of the port: the tile kernel
+``ctypes``; :func:`build_all` starts one nvcc per source, all at once.
+``fk_kernels.cu`` holds every k-means kernel of the port: the tile kernel
 behind ``distance_argmin``, ``lloyd_step`` (one problem, or B stacked
 problems over a (row tile, problem) grid: ``fk_lloyd_step_batched``),
 ``distance_argmin_ft`` and ``lloyd_step_ft``, the update epilogue launched
@@ -15,22 +16,22 @@ alone, the k-means++ D^2 round (``fk_kmeanspp_round``), the pruned one-pass
 step (``fk_lloyd_step_pruned``), the int8 distance kernel
 (``fk_distance_argmin_int8``), the ABFT GEMM (``fk_matmul_abft``) and the
 DMR centroid update (``fk_centroid_update_dmr``, three launches: partials,
-slab reduction, verdict). The library file
-name carries a hash of the source, so an edited source rebuilds and an
-unchanged one is reused. Every C entry point returns
-``cudaGetLastError()`` after its launch; :func:`check` turns a non-zero code
-into a ``RuntimeError``. Nothing here runs at import time: this module is
-imported on machines without ``nvcc``.
+slab reduction, verdict). ``fk_attention.cu`` holds the LM stack's flash
+attention (``fk_flash_attention``). A library's file name carries a hash of
+its source, so an edited source rebuilds and an unchanged one is reused.
+Every C entry point returns ``cudaGetLastError()`` after its launch;
+:func:`check` turns a non-zero code into a ``RuntimeError``. Nothing here
+runs at import time: this module is imported on machines without ``nvcc``.
 """
 from __future__ import annotations
 
 import ctypes
 import dataclasses
-import functools
 import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -43,9 +44,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 
-# argtypes of every C entry point (pointers and the stream as c_void_p, so
-# 64-bit addresses are never cut to a 32-bit int)
+# argtypes of every C entry point of each source (pointers and the stream as
+# c_void_p, so 64-bit addresses are never cut to a 32-bit int)
 SIGNATURES: dict[str, tuple] = {
     "fk_distance_argmin": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     "fk_lloyd_step": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
@@ -64,6 +66,18 @@ SIGNATURES: dict[str, tuple] = {
     "fk_matmul_abft": (_P, _P, _P, _P, _P, _F, _I, _I, _I, _I, _I, _I, _P),
     "fk_centroid_update_dmr": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                                _I, _I, _I, _I, _F, _P),
+}
+# q, k, v, q_positions, kv_positions, out; B, H, KV, Sq, Skv, hd; the
+# (batch, head, sequence) element strides of q, k, v and out; causal,
+# window, zero_empty, bf16; stream
+ATTENTION_SIGNATURES: dict[str, tuple] = {
+    "fk_flash_attention": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                           _L, _L, _L, _L, _L, _L, _L, _L, _L, _L, _L, _L,
+                           _I, _I, _I, _I, _P),
+}
+SOURCES: dict[str, dict[str, tuple]] = {
+    "fk_kernels": SIGNATURES,
+    "fk_attention": ATTENTION_SIGNATURES,
 }
 
 
@@ -94,49 +108,93 @@ def nvcc_path() -> str:
                        "built from source at first use")
 
 
-def build(name: str = "fk_kernels") -> KernelLibrary:
-    """Compile ``csrc/<name>.cu`` (unless an up-to-date build exists) and
-    load it with its argtypes set."""
+def _paths(name: str) -> tuple[Path, Path]:
+    """(source, library) of ``name``; the library name hashes the source
+    and the flags."""
     src = CSRC / f"{name}.cu"
     digest = hashlib.sha256(src.read_bytes()
                             + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    out = BUILD_DIR / f"{name}-{digest}.so"
-    log_path = out.with_suffix(".log")
-    seconds = 0.0
-    if not out.exists():
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        t0 = time.perf_counter()
-        proc = subprocess.run([nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
-                               str(src)], capture_output=True, text=True)
-        seconds = time.perf_counter() - t0
-        if proc.returncode != 0:
-            tmp.unlink(missing_ok=True)
-            raise RuntimeError(f"nvcc failed for {src.name} "
-                               f"(exit {proc.returncode}):\n{proc.stderr}")
-        log_path.write_text(proc.stdout + proc.stderr)
-        os.replace(tmp, out)
+    return src, BUILD_DIR / f"{name}-{digest}.so"
+
+
+def _load(name: str, out: Path, seconds: float) -> KernelLibrary:
     lib = ctypes.CDLL(str(out))
-    for fn, argtypes in SIGNATURES.items():
+    for fn, argtypes in SOURCES[name].items():
         getattr(lib, fn).argtypes = list(argtypes)
         getattr(lib, fn).restype = ctypes.c_int
     lib.fk_error_string.argtypes = [ctypes.c_int]
     lib.fk_error_string.restype = ctypes.c_char_p
+    log_path = out.with_suffix(".log")
     log = log_path.read_text() if log_path.exists() else ""
     return KernelLibrary(lib=lib, path=out, build_seconds=seconds,
                          ptxas_log=log)
 
 
-@functools.lru_cache(maxsize=None)
-def library() -> KernelLibrary:
-    """The process's kernel library, built at first use."""
-    return build()
+def build(*names: str) -> dict[str, KernelLibrary]:
+    """Compile the named sources of ``SOURCES`` that have no up-to-date
+    build, one nvcc process per source, all started at once; then load
+    each with its argtypes set."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    jobs = {}
+    t0 = time.perf_counter()
+    try:
+        for name in names:
+            src, out = _paths(name)
+            if not out.exists():
+                tmp = out.with_suffix(f".{os.getpid()}.tmp")
+                jobs[name] = (subprocess.Popen(
+                    [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
+                    stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                    text=True), tmp, out)
+        seconds, errors = {}, []
+        for name, (proc, tmp, out) in jobs.items():
+            stdout, stderr = proc.communicate()
+            seconds[name] = time.perf_counter() - t0
+            if proc.returncode != 0:
+                tmp.unlink(missing_ok=True)
+                errors.append(f"nvcc failed for {name}.cu (exit "
+                              f"{proc.returncode}):\n{stderr}")
+                continue
+            out.with_suffix(".log").write_text(stdout + stderr)
+            os.replace(tmp, out)
+    finally:
+        for proc, tmp, _ in jobs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+                tmp.unlink(missing_ok=True)
+    if errors:
+        raise RuntimeError("\n".join(errors))
+    return {name: _load(name, _paths(name)[1], seconds.get(name, 0.0))
+            for name in names}
 
 
-def check(code: int, what: str) -> None:
-    """Raise if a C entry point reported a CUDA error for its launch."""
+_LIBS: dict[str, KernelLibrary] = {}
+_LIBS_LOCK = threading.Lock()
+
+
+def build_all() -> dict[str, KernelLibrary]:
+    """Every source's library, the missing ones built in parallel."""
+    with _LIBS_LOCK:
+        missing = [n for n in SOURCES if n not in _LIBS]
+        if missing:
+            _LIBS.update(build(*missing))
+        return dict(_LIBS)
+
+
+def library(name: str = "fk_kernels") -> KernelLibrary:
+    """The process's library of one source, built at first use."""
+    with _LIBS_LOCK:
+        if name not in _LIBS:
+            _LIBS.update(build(name))
+        return _LIBS[name]
+
+
+def check(code: int, what: str, source: str = "fk_kernels") -> None:
+    """Raise if a C entry point of ``source`` reported a CUDA error for its
+    launch."""
     if code != 0:
-        msg = library().lib.fk_error_string(code).decode()
+        msg = library(source).lib.fk_error_string(code).decode()
         raise RuntimeError(f"{what}: CUDA error {code} ({msg})")
 
 

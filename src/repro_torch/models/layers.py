@@ -1,0 +1,179 @@
+"""Shared LM building blocks: seeded parameters, norms, MLPs, RoPE, embedding.
+
+The port of ``repro.models.layers``. Every ``init_*`` returns a dict of
+tensors drawn from an explicit ``torch.Generator`` (the reference returns
+the params with their logical sharding axes; the port runs on one device
+and has none). Every ``apply_*`` is a plain function of a params mapping.
+Dense contractions route through ``repro_torch.ft.abft_dense.ft_einsum``,
+so the paper's ABFT protection is a config switch, not a code change.
+
+Where bf16 rounds matters on the card: the logits contract in f32 (the
+reference's ``preferred_element_type=float32``), and a scalar that the
+reference multiplies in the working dtype is rounded to it first.
+"""
+from __future__ import annotations
+
+import math
+from typing import Mapping, Optional
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.ft.abft_dense import ft_einsum
+
+
+# ---------------------------------------------------------------------------
+# Param construction
+# ---------------------------------------------------------------------------
+
+def param(gen: torch.Generator, shape: tuple, dtype: torch.dtype, *,
+          scale: Optional[float] = None) -> torch.Tensor:
+    """Normal(0, scale) weight, drawn in f32 on the generator's device and
+    cast to ``dtype``; ``scale`` defaults to 1/sqrt(fan_in)."""
+    if scale is None:
+        fan_in = shape[0] if len(shape) >= 2 else shape[-1]
+        scale = 1.0 / math.sqrt(max(fan_in, 1))
+    w = torch.randn(shape, generator=gen, dtype=torch.float32,
+                    device=gen.device) * scale
+    return w.to(dtype)
+
+
+def build(gen: torch.Generator, specs: dict, dtype: torch.dtype) -> dict:
+    """specs: {name: shape} or {name: (shape, scale)}; drawn in order."""
+    params = {}
+    for name, spec in specs.items():
+        if isinstance(spec[0], tuple):
+            shape, scale = spec
+        else:
+            shape, scale = spec, None
+        params[name] = param(gen, tuple(shape), dtype, scale=scale)
+    return params
+
+
+# ---------------------------------------------------------------------------
+# Norms
+# ---------------------------------------------------------------------------
+
+def init_rmsnorm(d: int, dtype: torch.dtype, device) -> dict:
+    return {"scale": torch.ones((d,), dtype=dtype, device=device)}
+
+
+def rmsnorm(params: Mapping, x: torch.Tensor,
+            eps: float = 1e-6) -> torch.Tensor:
+    dt = x.dtype
+    x = x.float()
+    var = torch.mean(x * x, dim=-1, keepdim=True)
+    x = x * torch.rsqrt(var + eps)
+    return (x * params["scale"].float()).to(dt)
+
+
+# ---------------------------------------------------------------------------
+# MLPs (gated silu/gelu; ungated squared-ReLU for nemotron-4)
+# ---------------------------------------------------------------------------
+
+def mlp_gated(act: str) -> bool:
+    return act in ("silu", "gelu")
+
+
+def init_mlp(gen: torch.Generator, d: int, f: int, act: str,
+             dtype: torch.dtype) -> dict:
+    if mlp_gated(act):
+        specs = {"wi": (d, f), "wg": (d, f), "wo": (f, d)}
+    else:
+        specs = {"wi": (d, f), "wo": (f, d)}
+    return build(gen, specs, dtype)
+
+
+def _act(name: str, x: torch.Tensor) -> torch.Tensor:
+    if name == "silu":
+        return F.silu(x)
+    if name == "gelu":                       # jax.nn.gelu's tanh form
+        return F.gelu(x, approximate="tanh")
+    if name == "relu2":                      # nemotron-4 squared ReLU
+        r = F.relu(x)
+        return r * r
+    raise ValueError(name)
+
+
+def apply_mlp(params: Mapping, x: torch.Tensor, act: str) -> torch.Tensor:
+    h = ft_einsum("bsd,df->bsf", x, params["wi"])
+    if mlp_gated(act):
+        g = ft_einsum("bsd,df->bsf", x, params["wg"])
+        h = _act(act, g) * h
+    else:
+        h = _act(act, h)
+    return ft_einsum("bsf,fd->bsd", h, params["wo"])
+
+
+# ---------------------------------------------------------------------------
+# Rotary embeddings (standard + M-RoPE sections for qwen2-vl)
+# ---------------------------------------------------------------------------
+
+def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
+    return 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32,
+                                         device=device) / head_dim))
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
+               sections: tuple = ()) -> torch.Tensor:
+    """x (B, S, H, hd); positions (B, S) or (B, S, 3) for M-RoPE.
+
+    M-RoPE (qwen2-vl): the hd/2 frequency slots are split into
+    ``sections`` = (t, h, w) groups; each group rotates by its own position
+    stream. Text tokens carry the same id in all three streams, reducing to
+    standard RoPE.
+    """
+    hd = x.shape[-1]
+    freqs = rope_freqs(hd, theta, x.device)                     # (hd/2,)
+    if positions.dim() == 2:
+        angles = positions[..., None].float() * freqs            # (B,S,hd/2)
+    else:
+        if not sections or sum(sections) != hd // 2:
+            raise ValueError(f"M-RoPE sections {sections} do not split "
+                             f"hd/2 = {hd // 2}")
+        parts = []
+        start = 0
+        for i, sec in enumerate(sections):
+            f = freqs[start:start + sec]
+            parts.append(positions[..., i, None].float() * f)
+            start += sec
+        angles = torch.cat(parts, dim=-1)                       # (B,S,hd/2)
+    cos = torch.cos(angles)[:, :, None, :]
+    sin = torch.sin(angles)[:, :, None, :]
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Embedding / logits
+# ---------------------------------------------------------------------------
+
+def init_embed(gen: torch.Generator, vocab: int, d: int, dtype: torch.dtype,
+               tie: bool) -> dict:
+    # stddev 1/sqrt(d): with the sqrt(d) input multiplier this gives
+    # unit-variance activations AND O(1) tied logits.
+    specs = {"embedding": ((vocab, d), d ** -0.5)}
+    if not tie:
+        specs["unembed"] = (d, vocab)
+    return build(gen, specs, dtype)
+
+
+def embed(params: Mapping, tokens: torch.Tensor) -> torch.Tensor:
+    return params["embedding"][tokens]
+
+
+def scaled(x: torch.Tensor, s: float) -> torch.Tensor:
+    """``x * s`` with ``s`` rounded to x's dtype first, as the reference's
+    ``x * jnp.asarray(s, x.dtype)`` (a bf16 tensor times a Python float
+    would multiply by the unrounded f32 value)."""
+    return x * torch.tensor(s, dtype=x.dtype, device=x.device)
+
+
+def logits(params: Mapping, x: torch.Tensor, *, tie: bool) -> torch.Tensor:
+    """f32 logits (B, S, V). The operands are upcast, so a bf16 model's
+    products are exact in f32 and accumulate in f32, as the reference's
+    ``preferred_element_type=float32``; a bf16-output product would round
+    the logits and move greedy ties."""
+    w = params["embedding"].float().t() if tie else params["unembed"].float()
+    return torch.matmul(x.float(), w)
