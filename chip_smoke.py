@@ -6,8 +6,9 @@
 Builds the port's CUDA kernels from ``src/repro_torch/csrc`` (one nvcc per
 source, in parallel) and drives the port's paths: ``repro_torch.api.KMeans``
 fit/predict/score, unprotected, ABFT-protected online (``correct``) and
-offline (``detect``), pruned (``backend="lloyd_pruned"``) and quantised
-(``compute_dtype="int8"``), at M = 2**20 rows x F = 128 features x
+offline (``detect``), pruned (``backend="lloyd_pruned"``), quantised
+(``compute_dtype="int8"``) and in bf16 / fp16 (``compute_dtype=
+"bfloat16"/"float16"``, tensor cores), at M = 2**20 rows x F = 128 features x
 K = 1000 clusters; internlm2-1.8b serving (``repro_torch.launch.serve``,
 prefill + greedy decode through the micro-batcher on the flash kernel);
 and ``repro_torch.batch.BatchedKMeans`` seeding, fit, predict and score at
@@ -79,7 +80,18 @@ Phases, one line each:
      through the kernel and the plain attention routes (logits within 5e-2
      x max|logit|), traces of one prefill and one decode step, and an FT
      K-means codebook over the wave's 1,572,864 prefill keys under an SEU
-     campaign (``examples/kv_quantize.py`` at full width).
+     campaign (``examples/kv_quantize.py`` at full width);
+ 13. ``KMeans(compute_dtype="bfloat16"/"float16")`` on the tensor-core
+     variants (``mma.sync``) of ``distance_argmin``, ``lloyd_step``,
+     ``distance_argmin_ft``, ``lloyd_step_ft`` and ``tile_update``: each
+     against its plain version at phase 2's shapes with phase 2's planted
+     faults (labels equal but for near ties); full-size fits from phase 3's
+     seeds (``fused`` = ``lloyd`` = clean ``lloyd_ft`` = campaign bit for
+     bit, predict = the labels of one more step from the final centroids,
+     exact inertia and labels against the f32 fit); each variant's row at
+     the phase-3 shape; and the clean residual
+     margins of the two FT kernels at f32, bf16 and fp16 with the
+     campaign's smallest delta against the thresholds.
 
 A kernel's bound counts the work of the function at the true M, K and F,
 not at the padded tile grid; the padded figures are printed beside it.
@@ -145,6 +157,17 @@ FLASH_DECODE_BARS = FLASH_BF16_BARS + ((2.0 ** -10, 2.0 ** -8),)
 # 24 layers, x max|logit|
 LM_LOGIT_RTOL = 5e-2
 KV_CODEBOOK = 64                # examples/kv_quantize.py's codebook
+# phase 13, the bf16 / fp16 variants: a kernel label may differ from its
+# plain version's only on a near tie (the two best plain distances within
+# 2^-20 of the larger's magnitude), on at most 0.01 % of the rows; a fit's
+# exact f32 inertia within 2 % of the f32 fused fit's and its labels >= 98 %
+# equal to them (the reference's bars, tests/test_templates.py:274-280)
+LOWP_TIE_RTOL = 2.0 ** -20
+LOWP_TIE_SHARE = 1e-4
+LOWP_INERTIA_RTOL = 0.02
+LOWP_LABEL_AGREEMENT = 0.98
+# the campaign's smallest delta (core/fault.py: 2^18..2^23, either sign)
+CAMPAIGN_MIN_DELTA = 2.0 ** 18
 
 
 class SmokeFailure(RuntimeError):
@@ -1410,6 +1433,433 @@ def phase_lm_serve(torch, fa, KMeans, FaultPolicy,
     return rec
 
 
+def near_tie_rows(torch, xp, cp, cn, am, am_p, what: str) -> int:
+    """Rows whose kernel label differs from the plain version's. Each must be
+    a near tie of the plain distances (the two best within LOWP_TIE_RTOL of
+    the larger's magnitude) and they may be at most LOWP_TIE_SHARE of the
+    rows: the tensor cores sum a k-step in their own order, so a label may
+    move only where f32 rounding can decide. Returns their count."""
+    rows = (am != am_p).nonzero()[:, 0]
+    n = int(rows.numel())
+    if n:
+        d = cn[None, :] - 2.0 * (xp[rows].float() @ cp.float().T)
+        two = d.topk(2, dim=1, largest=False).values
+        gap = two[:, 1] - two[:, 0]
+        scale = torch.maximum(two[:, 0].abs(), two[:, 1].abs())
+        expect(bool((gap <= LOWP_TIE_RTOL * scale).all()),
+               f"{what}: {n} labels differ from the plain version's, not "
+               f"all on near ties")
+    expect(n <= LOWP_TIE_SHARE * am.numel(),
+           f"{what}: {n} of {am.numel()} labels differ from the plain "
+           f"version's")
+    return n
+
+
+def phase_lowp_kernels(torch, ops, kern, dtype) -> dict:
+    """Phase 13 (a): the 2-byte variants of the four kernels and
+    ``tile_update`` against their plain versions at phase 2's shapes, with
+    phase 2's planted FT faults."""
+    from repro_torch.data.blobs import make_blobs
+    da, ll, daft, llft = kern
+    dt = getattr(torch, dtype)
+    out = []
+    for k in (1000, 100):
+        x_np, _ = make_blobs(M_SMALL, F_SMALL, k, seed=SEED + k)
+        x = torch.from_numpy(x_np).cuda().to(dt)
+        c = torch.from_numpy(blob_centers(k, F_SMALL, SEED + k)).cuda()
+        params = ops.clamp_params(M_SMALL, k, F_SMALL, ops.DEFAULT_PARAMS)
+        plan, cp, cn, _ = ops._resolve_padded(ops.plan_data(x, params), c,
+                                              None)
+        mp, fp = plan.xp.shape
+        kp, bm = cp.shape[0], params.block_m
+        nt = mp // bm
+        tiles = dict(block_m=bm, block_k=params.block_k,
+                     block_f=params.block_f)
+        factor = ops.threshold_factor(fp, dt)
+        rec = {"k": k, "tol_rel": 1e-5}
+        md, am = da.distance_argmin(plan.xp, cp, cn, **tiles)
+        md_p, am_p = da.distance_argmin_plain(plan.xp, cp, cn)
+        ok, rec["distance_argmin_err"] = rel_ok(md, md_p, 1e-5)
+        expect(ok, f"{dtype} distance_argmin min distances K={k}")
+        rec["near_tie_labels"] = near_tie_rows(
+            torch, plan.xp, cp, cn, am, am_p, f"{dtype} distance_argmin K={k}")
+
+        r = ll.lloyd_step(plan.xp, cp, cn, plan.m, **tiles)
+        expect(bool(torch.equal(r[1], am)) and bool(torch.equal(r[0], md)),
+               f"{dtype} lloyd_step assignment differs from distance_argmin "
+               f"K={k}")
+        valid = (torch.arange(mp, device=x.device) < plan.m).view(nt, bm)
+        s_p, c_p = ll.tile_update_plain(plan.xp.view(nt, bm, fp),
+                                        am.view(nt, bm), valid, kp)
+        ok, rec["lloyd_step_sums_err"] = rel_ok(r[2], s_p, 1e-5)
+        expect(ok and bool(torch.equal(r[3], c_p)),
+               f"{dtype} lloyd_step sums/counts vs the plain update K={k}")
+        t_s, t_c = torch.empty_like(r[2]), torch.empty_like(r[3])
+        ll.tile_update(plan.xp, am, t_s, t_c, true_m=plan.m, block_m=bm)
+        expect(bool(torch.equal(t_s, r[2])) and bool(torch.equal(t_c, r[3])),
+               f"{dtype} tile_update is not bit for bit lloyd_step's update "
+               f"K={k}")
+        del t_s, t_c, s_p, c_p
+
+        no_d = daft.no_injection().cuda()
+        f_md, f_am, f_det = daft.distance_argmin_ft(
+            plan.xp, cp, cn, no_d, factor=factor, **tiles)
+        p_md, _, p_det = daft.distance_argmin_ft_plain(
+            plan.xp, cp, cn, no_d, bm, params.block_k, params.block_f,
+            factor)
+        rec["clean_det"] = int(f_det.sum())
+        expect(rec["clean_det"] == 0 and int(p_det.sum()) == 0,
+               f"clean {dtype} distance_argmin_ft detected "
+               f"{rec['clean_det']} K={k}")
+        expect(bool(torch.equal(f_md, md)) and bool(torch.equal(f_am, am)),
+               f"clean {dtype} distance_argmin_ft differs from "
+               f"distance_argmin K={k}")
+        ok, rec["distance_argmin_ft_err"] = rel_ok(f_md, p_md, 1e-5)
+        expect(ok, f"{dtype} distance_argmin_ft vs plain K={k}")
+        inj = ops.plan_injection_tile(M_SMALL, k, F_SMALL, params,
+                                      row=M_SMALL // 3, col=k - 3, f_step=1,
+                                      delta=2.0 ** 20).cuda()
+        _, i_am, i_det = daft.distance_argmin_ft(plan.xp, cp, cn, inj,
+                                                 factor=factor, **tiles)
+        rec["fault_det"] = int(i_det.sum())
+        expect(rec["fault_det"] == 1 and bool(torch.equal(i_am, am)),
+               f"{dtype} distance fault not corrected once K={k}")
+
+        no_l = llft.no_injection().cuda()
+        q = llft.lloyd_step_ft(plan.xp, cp, cn, no_l, plan.m, factor=factor,
+                               **tiles)
+        q_p = llft.lloyd_step_ft_plain(plan.xp, cp, cn, no_l, plan.m, bm,
+                                       params.block_k, params.block_f, factor)
+        expect(int(q[2].sum()) == 0, f"clean {dtype} lloyd_step_ft detected "
+               f"K={k}")
+        expect(bool(torch.equal(q[1], am)) and bool(torch.equal(q[3], r[2]))
+               and bool(torch.equal(q[4], r[3])),
+               f"{dtype} lloyd_step_ft labels/sums/counts differ from "
+               f"lloyd_step K={k}")
+        ok, rec["lloyd_step_ft_ucheck_err"] = rel_ok(q[5], q_p[5], 1e-5)
+        expect(ok and bool(torch.equal(q[6], q_p[6])),
+               f"{dtype} lloyd_step_ft update checksums vs plain K={k}")
+        clean = ops.fused_lloyd_ft(plan, c, inj=no_l)
+        expect(int(clean[4]) == 0, f"clean {dtype} fused_lloyd_ft detected "
+               f"K={k}")
+        for slot in ("distance", "update"):
+            arm = {"distance": (7, 0, 1, 9, 5, -2.0 ** 21)} if \
+                slot == "distance" else {"update": (11, 3, 17, 2.0 ** 19)}
+            hit = ops.fused_lloyd_ft(plan, c,
+                                     inj=llft.make_injection(**arm).cuda())
+            rec[f"{slot}_slot_det"] = int(hit[4])
+            expect(rec[f"{slot}_slot_det"] == 1,
+                   f"{dtype} {slot}-slot fault detected {int(hit[4])} times "
+                   f"K={k}")
+            expect(bool(torch.equal(hit[0], clean[0]))
+                   and bool(torch.equal(hit[2], clean[2]))
+                   and bool(torch.equal(hit[3], clean[3])),
+                   f"{dtype} {slot}-slot fault: not bitwise clean K={k}")
+        out.append(rec)
+        del plan, r, q, q_p, clean, hit
+        torch.cuda.empty_cache()
+    return out
+
+
+def clean_margin_log2(run, factor: float, steps: int = 14) -> list:
+    """[lo, hi]: log2 of the threshold over the largest clean residual of
+    any tile lies in [lo, hi). ``run(f)`` launches the FT kernel clean with
+    threshold factor ``f`` and returns its detections; the factor is lowered
+    by 2**-e, e bisected in [0, 64], until a launch flags."""
+    if run(factor) > 0:
+        return [float("-inf"), 0.0]
+    lo, hi = 0.0, 64.0
+    if run(factor * 2.0 ** -hi) == 0:
+        return [hi, float("inf")]
+    for _ in range(steps):
+        mid = 0.5 * (lo + hi)
+        if run(factor * 2.0 ** -mid) > 0:
+            hi = mid
+        else:
+            lo = mid
+    return [lo, hi]
+
+
+def phase_lowp(torch, ops, hw, kern, KMeans, FaultPolicy, InjectionCampaign,
+               x, c_init, km_off, f32_ms, bound) -> tuple[dict, list]:
+    """Phase 13: ``KMeans(compute_dtype="bfloat16"/"float16")`` on the
+    tensor-core variants of the four kernels and ``tile_update``: (a) each
+    against its plain version at phase 2's shapes, (b) full-size fits from
+    phase 3's seeds (bitwise contracts, detections, exact inertia and
+    labels against the f32 ``fused`` fit), (c) each variant's row at the
+    phase-3 shape, (e) the clean residual margins of the FT kernels at f32,
+    bf16 and fp16 and how far the campaign's smallest delta clears the
+    thresholds."""
+    da, ll, daft, llft = kern
+    wrappers = {"distance_argmin": da.distance_argmin,
+                "lloyd_step": ll.lloyd_step,
+                "distance_argmin_ft": daft.distance_argmin_ft,
+                "lloyd_step_ft": llft.lloyd_step_ft,
+                "tile_update": ll.tile_update}
+    replaces = {"distance_argmin": "src/repro/kernels/distance_argmin.py:140",
+                "lloyd_step": "src/repro/kernels/lloyd_step.py:345",
+                "distance_argmin_ft":
+                    "src/repro/kernels/distance_argmin_ft.py:207",
+                "lloyd_step_ft": "src/repro/kernels/lloyd_step_ft.py:292",
+                "tile_update": "src/repro/kernels/lloyd_step.py:162"}
+    base = dict(n_clusters=K_FULL, max_iter=ITERS, tol=0.0, random_state=SEED)
+    xn = (x * x).sum(1)
+
+    def exact_inertia(c):
+        return float((ops.fused_assign(x, c)[1] + xn).sum())
+    exact_f32 = exact_inertia(km_off.cluster_centers_)
+    params = ops.clamp_params(M_FULL, K_FULL, F_FULL, ops.DEFAULT_PARAMS)
+    bm, bk = params.block_m, params.block_k
+    tiles = dict(block_m=bm, block_k=bk, block_f=params.block_f)
+    centres = torch.from_numpy(blob_centers(K_FULL, F_FULL, SEED)).cuda()
+    rec = {"phase": 13, "dtype": "float32 beside them", "m": M_FULL,
+           "f": F_FULL, "k": K_FULL, "f32_ms_per_iter": f32_ms,
+           "f32_fused_exact_inertia": exact_f32}
+    rows, margins = [], {}
+    for dtype, tag in (("bfloat16", "bf16"), ("float16", "fp16")):
+        dt = getattr(torch, dtype)
+        r = {"kernels": phase_lowp_kernels(torch, ops, kern, dtype)}
+        # (b) the full-size fits, counting the launches of this dtype's path
+        for w in wrappers.values():
+            w.launches = 0
+        kw = dict(base, compute_dtype=dtype)
+        camp = FaultPolicy.correct(injection=InjectionCampaign(
+            rate=1.0, targets="both"))
+        km_f, f_s = wall(lambda: KMeans(**kw).fit(x, centroids=c_init))
+        km_l, l_s = wall(lambda: KMeans(backend="lloyd", **kw)
+                         .fit(x, centroids=c_init))
+        km_ft, ft_s = wall(lambda: KMeans(fault=FaultPolicy.correct(), **kw)
+                           .fit(x, centroids=c_init))
+        km_c, c_s = wall(lambda: KMeans(fault=camp, **kw)
+                         .fit(x, centroids=c_init))
+        labels_f, labels_ft = km_f.predict(x), km_ft.predict(x)
+        score = km_f.score(x)
+        # labels_ of a fit at tol 0 are against the centroids before its
+        # last update, so predict (the final centroids) is held to one more
+        # step of each fit from its own centroids: the predict kernels
+        # (distance_argmin / distance_argmin_ft) agree with the fit's
+        one = dict(kw, max_iter=1)
+        step_f = KMeans(**one).fit(x, centroids=km_f.cluster_centers_)
+        step_ft = KMeans(fault=FaultPolicy.correct(), **one).fit(
+            x, centroids=km_ft.cluster_centers_)
+        torch.cuda.synchronize()
+        launches = {n: w.launches for n, w in wrappers.items()}
+        for n, v in launches.items():
+            expect(v > 0, f"{dtype} {n} was not launched on the main path")
+        expect(km_f._backend.name == "fused"
+               and km_ft._backend.name == "lloyd_ft",
+               f"{dtype} fits resolved to other backends")
+        for a, b, what in ((km_l, km_f, "lloyd fit vs fused fit"),
+                           (km_ft, km_l, "clean lloyd_ft fit vs lloyd fit"),
+                           (km_c, km_ft, "campaign fit vs clean fit")):
+            expect(bool(torch.equal(a.cluster_centers_, b.cluster_centers_))
+                   and bool(torch.equal(a.labels_, b.labels_)),
+                   f"{dtype} {what}: not bit for bit")
+        expect(km_ft.detected_errors_ == 0 and km_c.detected_errors_ > 0,
+               f"{dtype} detections: clean {km_ft.detected_errors_}, "
+               f"campaign {km_c.detected_errors_}")
+        expect(bool(torch.equal(labels_f, step_f.labels_))
+               and bool(torch.equal(labels_ft, step_ft.labels_)),
+               f"{dtype} predict differs from one more fit step's labels "
+               f"(fused / fused_ft)")
+        expect(km_f.cluster_centers_.dtype == torch.float32
+               and bool(torch.isfinite(km_f.cluster_centers_).all())
+               and math.isfinite(score) and score < 0,
+               f"{dtype} centroids not finite f32, or score {score}")
+        exact = exact_inertia(km_f.cluster_centers_)
+        agree = float((km_f.labels_ == km_off.labels_).float().mean())
+        r["fits"] = {
+            "fused_ms_per_iter": 1e3 * f_s / km_f.n_iter_,
+            "lloyd_ms_per_iter": 1e3 * l_s / km_l.n_iter_,
+            "lloyd_ft_ms_per_iter": 1e3 * ft_s / km_ft.n_iter_,
+            "campaign_ms_per_iter": 1e3 * c_s / km_c.n_iter_,
+            "campaign_detected": km_c.detected_errors_,
+            "inertia": km_f.inertia_, "exact_inertia": exact,
+            "exact_inertia_rel_to_f32": exact / exact_f32 - 1.0,
+            "label_agreement_with_f32": agree, "score": score,
+            "predict_rows_moved_from_labels": int(
+                (labels_f != km_f.labels_).sum()),
+            "n_host_syncs": km_f._n_host_syncs, "launches": launches}
+        expect(abs(exact / exact_f32 - 1.0) <= LOWP_INERTIA_RTOL
+               and agree >= LOWP_LABEL_AGREEMENT,
+               f"{dtype} fit: exact inertia {exact} vs f32 {exact_f32}, "
+               f"labels agree {agree}")
+        del km_f, km_l, km_ft, km_c, labels_f, labels_ft, step_f, step_ft
+        torch.cuda.empty_cache()
+
+        # (c) each variant at the phase-3 shape, blob centres as centroids
+        plan, cp, cn, _ = ops._resolve_padded(
+            ops.plan_data(x.to(dt), params), centres, None)
+        mp, fp = plan.xp.shape
+        kp, nt = cp.shape[0], mp // bm
+        factor = ops.threshold_factor(fp, dt)
+        no_d, no_l = daft.no_injection().cuda(), llft.no_injection().cuda()
+        gemm = 2.0 * M_FULL * K_FULL * F_FULL
+        x_bytes, c_bytes = 2.0 * M_FULL * F_FULL, 2.0 * K_FULL * F_FULL
+        part_bytes = 4.0 * nt * K_FULL * F_FULL + 4.0 * nt * K_FULL
+        assign_out = 8.0 * M_FULL
+        cn_lo = cn.to(dt)
+
+        def library_call():
+            d = torch.addmm(cn_lo[None, :], plan.xp, cp.T, beta=1.0,
+                            alpha=-2.0)
+            return d.min(dim=1)
+        lib_ms = cuda_ms(library_call)
+        specs = [
+            ("distance_argmin",
+             lambda: da.distance_argmin(plan.xp, cp, cn, **tiles),
+             lambda: da.distance_argmin_plain(plan.xp, cp, cn),
+             gemm, x_bytes + c_bytes + assign_out),
+            ("lloyd_step",
+             lambda: ll.lloyd_step(plan.xp, cp, cn, plan.m, **tiles),
+             lambda: ll.lloyd_step_plain(plan.xp, cp, cn, plan.m, bm),
+             gemm + M_FULL * F_FULL,
+             x_bytes + c_bytes + assign_out + part_bytes),
+            ("distance_argmin_ft",
+             lambda: daft.distance_argmin_ft(plan.xp, cp, cn, no_d,
+                                             factor=factor, **tiles),
+             lambda: daft.distance_argmin_ft_plain(
+                 plan.xp, cp, cn, no_d, bm, bk, params.block_f, factor),
+             gemm, x_bytes + c_bytes + assign_out + 4.0 * nt),
+            ("lloyd_step_ft",
+             lambda: llft.lloyd_step_ft(plan.xp, cp, cn, no_l, plan.m,
+                                        factor=factor, **tiles),
+             lambda: llft.lloyd_step_ft_plain(plan.xp, cp, cn, no_l, plan.m,
+                                              bm, bk, params.block_f,
+                                              factor),
+             gemm + 3.0 * M_FULL * F_FULL, x_bytes + c_bytes + assign_out
+             + part_bytes + 4.0 * nt * (2 * F_FULL + 3)),
+        ]
+        for name, kfn, pfn, ops_n, bytes_n in specs:
+            k_out, p_out = kfn(), pfn()
+            near = near_tie_rows(torch, plan.xp, cp, cn, k_out[1], p_out[1],
+                                 f"{dtype} {name} at the phase-3 shape")
+            # distances against the plain version; an update's sums against
+            # the plain update of the kernel's own labels
+            err = max_err(k_out[0], p_out[0])
+            expect(rel_ok(k_out[0], p_out[0], 1e-5)[0],
+                   f"{dtype} {name} distances vs plain beyond rtol 1e-5")
+            if name in ("lloyd_step", "lloyd_step_ft"):
+                s_i = 2 if name == "lloyd_step" else 3
+                valid = (torch.arange(mp, device=x.device)
+                         < plan.m).view(nt, bm)
+                s_p, c_p = ll.tile_update_plain(
+                    plan.xp.view(nt, bm, fp), k_out[1].view(nt, bm), valid, kp)
+                ok, s_err = rel_ok(k_out[s_i], s_p, 1e-5)
+                expect(ok and bool(torch.equal(k_out[s_i + 1], c_p)),
+                       f"{dtype} {name} sums/counts vs the plain update")
+                err = max(err, s_err)
+                del s_p, c_p
+            del k_out, p_out
+            torch.cuda.empty_cache()
+            b_ms, b_by = bound(ops_n, bytes_n, peak=hw.PEAK_FLOPS_BF16)
+            rows.append({"name": f"{name}_{tag}", "route": "cuda",
+                         "source": "src/repro_torch/csrc/fk_kernels.cu",
+                         "replaces": replaces[name],
+                         "launches": launches[name], "max_abs_err": err,
+                         "ms": cuda_ms(kfn), "plain_ms": cuda_ms(pfn, reps=2),
+                         "bound_ms": b_ms, "bound_by": b_by,
+                         "library_ms": lib_ms})
+            r.setdefault("near_tie_labels_phase3", {})[name] = near
+            torch.cuda.empty_cache()
+        am = da.distance_argmin(plan.xp, cp, cn, **tiles)[1]
+        sums_p = torch.empty((nt, kp, fp), device=x.device)
+        counts_p = torch.empty((nt, kp), device=x.device)
+        valid = (torch.arange(mp, device=x.device) < plan.m).view(nt, bm)
+
+        def update():
+            ll.tile_update(plan.xp, am, sums_p, counts_p, true_m=plan.m,
+                           block_m=bm)
+
+        def update_plain():
+            return ll.tile_update_plain(plan.xp.view(nt, bm, fp),
+                                        am.view(nt, bm), valid, kp)
+        update()
+        p_s, p_c = update_plain()
+        ok, upd_err = rel_ok(sums_p, p_s, 1e-5)
+        expect(ok and bool(torch.equal(counts_p, p_c)),
+               f"{dtype} tile_update disagrees with its plain version")
+        del p_s, p_c
+        torch.cuda.empty_cache()
+        am_long = am.long()
+        upd_bound, upd_by = bound(M_FULL * F_FULL,
+                                  x_bytes + 4.0 * M_FULL + part_bytes)
+        rows.append({
+            "name": f"tile_update_{tag}", "route": "cuda",
+            "source": "src/repro_torch/csrc/fk_kernels.cu",
+            "replaces": replaces["tile_update"],
+            "launches": launches["tile_update"], "max_abs_err": upd_err,
+            "ms": cuda_ms(update), "plain_ms": cuda_ms(update_plain, reps=2),
+            "bound_ms": upd_bound, "bound_by": upd_by,
+            "library_ms": cuda_ms(lambda: torch.zeros(
+                kp, fp, dtype=dt, device=x.device).index_add_(0, am_long,
+                                                              plan.xp))})
+        del sums_p, counts_p, am, am_long, valid
+        torch.cuda.empty_cache()
+        margins[dtype] = lowp_margins(torch, ops, daft, llft, plan, cp, cn,
+                                      params, tiles, dt)
+        r["queue3_margins"] = margins[dtype]
+        emit(dict(phase=13, dtype=dtype, **r))
+        del plan, cp, cn, cn_lo
+        torch.cuda.empty_cache()
+    plan, cp, cn, _ = ops._resolve_padded(ops.plan_data(x, params), centres,
+                                          None)
+    margins["float32"] = lowp_margins(torch, ops, daft, llft, plan, cp, cn,
+                                      params, tiles, torch.float32)
+    rec["queue3_margins"] = {"float32": margins["float32"]}
+    rec["library_calls"] = {
+        "kernels": "addmm(cn, X, C^T, alpha=-2) + min(dim=1) in the 2-byte "
+                   "dtype (tensor cores, 2-byte output)",
+        "tile_update": "index_add_ into a (Kp, Fp) 2-byte accumulator"}
+    del plan, cp, cn, xn
+    torch.cuda.empty_cache()
+    return rec, rows
+
+
+def lowp_margins(torch, ops, daft, llft, plan, cp, cn, params, tiles,
+                 dt) -> dict:
+    """Phase 13 (e): the clean residual margin of each FT kernel at the
+    phase-3 shape (log2 of threshold / largest residual, bracketed), and
+    how far the campaign's smallest delta clears each slot's thresholds:
+    the distance slot's per (row tile, centroid tile), factor x max(max
+    |col1|, max |row1|, 1) from the expected checksums, and the update
+    slot's per row tile, factor(bm) x max(max |valid^T X|, 1)."""
+    mp, fp = plan.xp.shape
+    kp, bm, bk = cp.shape[0], params.block_m, params.block_k
+    nt, nkt = mp // bm, kp // bk
+    factor = ops.threshold_factor(fp, dt)
+    no_d, no_l = daft.no_injection().cuda(), llft.no_injection().cuda()
+
+    def run_assign(f):
+        return int(daft.distance_argmin_ft(plan.xp, cp, cn, no_d, factor=f,
+                                           **tiles)[2].sum())
+
+    def run_lloyd(f):
+        return int(llft.lloyd_step_ft(plan.xp, cp, cn, no_l, plan.m,
+                                      factor=f, **tiles)[2].sum())
+    out = {"threshold_factor": factor,
+           "distance_argmin_ft_log2": clean_margin_log2(run_assign, factor),
+           "lloyd_step_ft_log2": clean_margin_log2(run_lloyd, factor)}
+    xf = plan.xp.float()
+    cf = cp.float()
+    col1 = (xf.view(nt, bm, fp).sum(1) @ cf.T).view(nt, nkt, bk).abs() \
+        .amax(-1)
+    row1 = (xf @ cf.view(nkt, bk, fp).sum(1).T).view(nt, bm, nkt).abs() \
+        .amax(1)
+    thr_d = factor * torch.clamp_min(torch.maximum(col1, row1), 1.0)
+    thr_u = ops.threshold_factor(bm, dt) * torch.clamp_min(
+        xf.view(nt, bm, fp).sum(1).abs().amax(1), 1.0)
+    out["min_delta_over_distance_threshold"] = {
+        "worst_tile": CAMPAIGN_MIN_DELTA / float(thr_d.max()),
+        "median_tile": CAMPAIGN_MIN_DELTA / float(thr_d.median())}
+    out["min_delta_over_update_threshold"] = {
+        "worst_tile": CAMPAIGN_MIN_DELTA / float(thr_u.max()),
+        "median_tile": CAMPAIGN_MIN_DELTA / float(thr_u.median())}
+    del xf, cf, col1, row1
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1718,6 +2168,14 @@ def main() -> int:
     rec12 = phase_lm_serve(torch, fa, KMeans, FaultPolicy, InjectionCampaign)
     emit(rec12)
     rows.append(dict(row11, launches=rec12["flash_launches"]))
+
+    # --- phase 13: the bf16 / fp16 compute dtypes ---------------------------
+    rec13, rows13 = phase_lowp(
+        torch, ops, hw, kern, KMeans, FaultPolicy, InjectionCampaign, x,
+        c_init, km_off, {"fused": off_ms, "lloyd": 1e3 * ll_s / km_ll.n_iter_,
+                         "lloyd_ft": ft_ms}, bound)
+    emit(rec13)
+    rows.extend(rows13)
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi_line, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -9,7 +9,9 @@ Protection is a :class:`~repro_torch.api.policy.FaultPolicy`, resolved to a
 registered assignment backend. The full-batch fit builds its
 :class:`~repro_torch.kernels.ops.DataPlan` (a
 :class:`~repro_torch.kernels.ops.QuantPlan` for ``compute_dtype="int8"``)
-once and runs the Lloyd loop in Python with the convergence test on the
+once, from X cast to the compute dtype (bf16 and fp16 plans hold 2-byte X;
+only the (K, F) centroids are cast per step), and runs the Lloyd loop in
+Python with the convergence test on the
 device: a ``done`` flag freezes the remaining steps of a chunk, and the host
 reads progress once per ``sync_every`` iterations, through
 :func:`_host_read`. A pruned backend (``supports_bounds``) carries its
@@ -34,7 +36,11 @@ from repro_torch.kernels import distance_argmin_ft as _daft
 from repro_torch.kernels import ops, ref
 
 _INITS = ("kmeans++", "random")
-_LATER_DTYPES = ("bfloat16", "float16")
+_COMPUTE_DTYPES = ("float32", "bfloat16", "float16", "int8")
+# backends whose 2-byte kernels are not ported yet -> where ROADMAP.md files
+# them
+_LATER_LOWP_BACKENDS = {"lloyd_pruned": "Queue 2 A6 (2-byte pruned step)",
+                        "abft_offline": "Queue 1 item 2 (2-byte detect)"}
 _PREDICT_CHUNK_ROWS = 65_536
 
 
@@ -79,13 +85,17 @@ class KMeans:
     ``init``, ``fault``, ``backend``, ``params``, ``sync_every``,
     ``predict_chunk_rows``, ``random_state``) plus ``device`` ("cuda" by
     default, "cpu" for the plain versions). ``compute_dtype`` is
-    "float32" or "int8": int8 picks the quantised ``int8`` backend (an
-    unprotected, assignment-only kernel) and keeps X and the centroids f32 at
-    the kernel boundary, since int8 is quantisation per row, not a cast.
-    ``batch_size`` and the bf16/fp16 compute dtypes belong to later slices
-    and raise ``NotImplementedError``. ``init`` is "kmeans++" or "random",
-    as in the reference; the fused seeding belongs to
-    :class:`~repro_torch.batch.BatchedKMeans`.
+    "float32", "bfloat16", "float16" or "int8". bf16 and fp16 cast X (once
+    per fit) and the centroids (per step) at the kernel boundary; the
+    kernels multiply 2-byte tiles on the tensor cores into f32, and
+    centroids, distances and inertia stay f32. int8 picks the quantised
+    ``int8`` backend (an unprotected, assignment-only kernel) and keeps X
+    and the centroids f32 at the kernel boundary, since int8 is
+    quantisation per row, not a cast. ``batch_size``, and the
+    ``lloyd_pruned`` and ``detect`` (``abft_offline``) backends at bf16 /
+    fp16, belong to later slices and raise ``NotImplementedError``.
+    ``init`` is "kmeans++" or "random", as in the reference; the fused
+    seeding belongs to :class:`~repro_torch.batch.BatchedKMeans`.
 
     Attributes: ``cluster_centers_`` (K, F) f32 and ``labels_`` (M,) int32
     tensors on ``device``; ``inertia_``, ``n_iter_``, ``detected_errors_``
@@ -110,13 +120,9 @@ class KMeans:
         if sync_every < 1:
             raise ValueError(f"sync_every must be >= 1, got {sync_every}")
         dtype = _dtype_name(compute_dtype)
-        if dtype in _LATER_DTYPES:
-            raise NotImplementedError(
-                f"compute_dtype={dtype!r} is not ported yet; the port runs "
-                f"float32 and int8 (ROADMAP Queue 1)")
-        if dtype not in ("float32", "int8"):
-            raise ValueError(f"compute_dtype must be 'float32' or 'int8', got "
-                             f"{compute_dtype!r}")
+        if dtype not in _COMPUTE_DTYPES:
+            raise ValueError(f"compute_dtype must be one of {_COMPUTE_DTYPES}"
+                             f", got {compute_dtype!r}")
         if batch_size is not None:
             raise NotImplementedError(
                 "mini-batch fits (batch_size=) are not ported yet; they come "
@@ -133,7 +139,7 @@ class KMeans:
         self.batch_size = batch_size
         self.params = params
         self.sync_every = sync_every
-        self.compute_dtype = torch.int8 if dtype == "int8" else torch.float32
+        self.compute_dtype = getattr(torch, dtype)
         self.predict_chunk_rows = predict_chunk_rows
         self.random_state = random_state
         self.device = resolve_device(device)
@@ -151,6 +157,12 @@ class KMeans:
                    "supports_int8 backend or drop compute_dtype='int8'"
                    if is_int8 else
                    "is an int8 template and needs compute_dtype='int8'"))
+        later = _LATER_LOWP_BACKENDS.get(self._backend.name)
+        if dtype in ("bfloat16", "float16") and later is not None:
+            raise NotImplementedError(
+                f"backend {self._backend.name!r} at compute_dtype={dtype!r} "
+                f"is not ported yet; it comes with a later slice (ROADMAP "
+                f"{later})")
         self._use_dmr = self.fault.dmr_enabled(self._backend)
         if self.fault.update_dmr and self._backend.fuses_update:
             warnings.warn(
@@ -177,12 +189,21 @@ class KMeans:
             raise NotFittedError("this KMeans instance is not fitted yet; "
                                  "call fit() or partial_fit() first")
 
+    def _cast(self, a: torch.Tensor) -> torch.Tensor:
+        """Cast to the compute dtype at the kernel boundary (a no-op at f32).
+        int8 is quantisation, not a cast: its boundary stays f32."""
+        dt = torch.float32 if self.compute_dtype == torch.int8 \
+            else self.compute_dtype
+        return a.to(dt)
+
     def _plan(self, x: torch.Tensor, params: Optional[ops.KernelParams]):
-        """The per-call data plan: quantised for int8 backends, padded f32
-        for the other tile backends. A backend without tiles (``gemm_fused``,
-        ``abft_offline``) reads the plan's raw rows; its two-pass update
-        reads the padded ones, at the tiles ``fused`` would use, so it sums
-        as ``fused``'s update does and DMR recomputes only on a mismatch."""
+        """The per-call data plan of X cast to the compute dtype: quantised
+        for int8 backends, padded for the other tile backends. A backend
+        without tiles (``gemm_fused``, ``abft_offline``) reads the plan's raw
+        rows; its two-pass update reads the padded ones, at the tiles
+        ``fused`` would use, so it sums as ``fused``'s update does and DMR
+        recomputes only on a mismatch."""
+        x = self._cast(x)
         if params is None:
             p = self.params if self.params is not None else ops.DEFAULT_PARAMS
             return ops.plan_data(x, ops.clamp_params(
@@ -286,6 +307,7 @@ class KMeans:
         takes_inj = backend.takes_injection
         inj_rng = self._campaign_rng()
         xa = self._plan(x, params)
+        x_rows = ops.f32_plan(xa).x
         # a pruned fit starts from fresh bounds: a warm start or a restored
         # state never inherits bounds computed against other centroids
         bounds = backend.bounds_init(m, self.n_clusters, f, params,
@@ -311,14 +333,16 @@ class KMeans:
                     for _ in range(n_steps)]).to(dev)
             hist, prune = [], []
             for t in range(n_steps):
-                out = backend(xa, centroids, params=params,
+                out = backend(xa, self._cast(centroids), params=params,
                               inj=None if inj_stack is None else inj_stack[t],
                               bounds=bounds)
                 am_b, md, det_i, new_c, counts = self._apply_update(
                     out, xa, centroids)
                 inertia_i = md.sum()
                 shift_i = ((new_c - centroids) ** 2).sum().sqrt()
-                new_c = km_mod.reseed_empty(x, new_c, counts, md)
+                # donors are rows of the plan (the cast X), as the
+                # reference reseeds from plan.x
+                new_c = km_mod.reseed_empty(x_rows, new_c, counts, md)
                 # a converged fit freezes: later steps pass their state on
                 live = ~done
                 centroids = torch.where(live, new_c, centroids)
@@ -386,7 +410,7 @@ class KMeans:
                                        x.shape[0], x.shape[1],
                                        params).to(self.device)
         c = self.cluster_centers_
-        out = backend(xa, c, params=params, inj=inj)
+        out = backend(xa, self._cast(c), params=params, inj=inj)
         if backend.fuses_update:
             am, md, det, sums, bcnt = out[:5]
         else:
@@ -417,10 +441,10 @@ class KMeans:
                     torch.zeros((), dtype=torch.int32, device=x.device))
         backend = self._predict_backend()
         params = self._resolve_params(x.shape[0], x.shape[1], backend=backend)
+        x, c = self._cast(x), self._cast(self.cluster_centers_)
         if backend.takes_injection:
-            return backend(x, self.cluster_centers_, params=params,
-                           inj=_daft.no_injection())
-        return backend(x, self.cluster_centers_, params=params)
+            return backend(x, c, params=params, inj=_daft.no_injection())
+        return backend(x, c, params=params)
 
     def _predict_full(self, x: torch.Tensor) -> tuple:
         parts = [self._predict_block(x[s]) for s in self._row_chunks(
@@ -438,7 +462,9 @@ class KMeans:
         return self.fit(x).labels_
 
     def transform(self, x: Any) -> torch.Tensor:
-        """Distances to every centroid, (M, n_clusters), chunked over rows."""
+        """Distances to every centroid, (M, n_clusters), chunked over rows:
+        f32 X against the f32 centroids at every compute dtype, as the
+        reference's ``transform``."""
         self._check_fitted()
         x = self._tensor(x)
         blocks = [ref.distance_matrix(x[s], self.cluster_centers_)

@@ -73,8 +73,8 @@ class BatchedKMeans:
         dtype = _dtype_name(compute_dtype)
         if dtype in _LATER_DTYPES:
             raise NotImplementedError(
-                f"compute_dtype={dtype!r} is not ported yet; this slice runs "
-                f"float32 (ROADMAP Queue 1)")
+                f"compute_dtype={dtype!r} is not ported yet; BatchedKMeans "
+                f"runs float32 (ROADMAP Queue 1 item 2, Queue 2 A3)")
         if dtype != "float32":
             raise ValueError(f"compute_dtype must be 'float32', got "
                              f"{compute_dtype!r}")

@@ -7,9 +7,11 @@ but for three: the port adds ``config["device"]``, and it has no
 slice) and no ``injection["bit_low"/"bit_high"]`` (no draw reads them).
 Going to the reference, these get the reference's defaults.
 ``config["params"]`` keeps its meaning in both, because ``KernelParams``
-names the same tile, and ``config["compute_dtype"]`` ("float32" or "int8")
-passes through. The reference's host-only single-problem backends become
-the port's kernel backends, whose plain versions are the port's CPU path:
+names the same tile, and ``config["compute_dtype"]`` ("float32",
+"bfloat16", "float16" or "int8") passes through in both directions: a model
+fitted in bf16 or fp16 by one package loads into the other at that dtype.
+The reference's host-only single-problem backends become the port's kernel
+backends, whose plain versions are the port's CPU path:
 ``int8_xla`` -> ``int8``, ``lloyd_pruned_xla`` -> ``lloyd_pruned``. Pruning
 bounds are never part of a state (every fit starts from fresh ones). A model
 fitted by one package predicts the same labels after loading into the

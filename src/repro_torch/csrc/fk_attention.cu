@@ -70,6 +70,8 @@
 #include <cstddef>
 #include <cstdint>
 
+#include "fk_mma.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -345,22 +347,9 @@ struct MmaSmem {
   static constexpr size_t bytes = size_t(kpos_bytes) + 4 * kBK;
 };
 
-__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&h);
-}
-
-__device__ __forceinline__ uint32_t ld32(const unsigned short* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
 }
 
 // rows x HD bf16 elements from row0 (row stride rs) into shared rows of LD

@@ -10,6 +10,13 @@
 //   yes  no        1         distance_argmin_ft.py distance_argmin_ft
 //   yes  yes       1         lloyd_step_ft.py      lloyd_step_ft
 //
+// Its inputs are f32 (CUDA-core FMAs). lloyd_tile_mma_kernel<T, BM, kFT,
+// kUpdate> is the same kernel for __nv_bfloat16 or __half X and C (the
+// reference's 2-byte templates): mma.sync m16n8k16 on the tensor cores with
+// f32 accumulation, and the f32 kernel's checksums, epilogues and update,
+// for the single-problem rows of the table (the batched 2-byte step is
+// later work).
+//
 // The batched one-pass step is the single-problem instantiation launched
 // over a (row tile, problem) grid: blockIdx.y picks the problem and moves
 // every base pointer to that problem's slab, so problem b of a batched
@@ -35,9 +42,10 @@
 // second pass and compared in a third. No float atomics anywhere.
 //
 // Instantiations: lloyd_tile_kernel 2 (BM = 64, 128) x 4 (kFT, kUpdate) = 8,
-// update_tiles_kernel 2 (BM), kmeanspp_round_kernel 1, lloyd_pruned_kernel 2
-// (BM), int8_tile_kernel 2 (BM), matmul_abft_kernel 1, the three DMR
-// kernels: 19 kernels.
+// lloyd_tile_mma_kernel 2 (T) x 2 (BM) x 4 = 16, update_tiles_kernel 3 (T)
+// x 2 (BM), kmeanspp_round_kernel 1, lloyd_pruned_kernel 2 (BM),
+// int8_tile_kernel 2 (BM), matmul_abft_kernel 1, the three DMR kernels: 39
+// kernels.
 //
 // The epilogues are single __device__ definitions (tile_min_argmin, fold_min,
 // locate_and_correct, emit_update) so the variants agree bit for bit by
@@ -51,15 +59,20 @@
 //   * one thread block owns one row tile of BM rows (the TPU grid's row axis);
 //     a loop over centroid tiles of kBK = 128 and feature chunks of kChunk =
 //     32 replaces the TPU's sequential (centroid, feature) grid axes;
-//   * X and C chunks are staged transposed in shared memory; each of the 256
-//     threads keeps a (BM/16) x 8 f32 accumulator in registers (CUDA-core FMA,
-//     no tensor cores, no TF32);
+//   * f32: X and C chunks are staged transposed in shared memory; each of the
+//     256 threads keeps a (BM/16) x 8 f32 accumulator in registers (CUDA-core
+//     FMA, no tensor cores, no TF32);
+//   * bf16/fp16: X and C chunks are staged row-major as T (16-byte loads);
+//     the 8 warps tile the BM x 128 accumulator 2 x 4, each warp (BM/2) x 32
+//     as (BM/32) x 4 m16n8 f32 fragments, two k16 mma.sync a chunk;
 //   * at the end of a centroid tile the accumulator goes to shared memory
 //     (Ds); row r's min/argmin is scanned by thread r with a strict '<', so
 //     the lowest index wins a tie inside a tile and the earlier tile wins a
 //     tie across tiles -- the jnp.argmin tie-break;
-//   * ABFT (kFT): expected e1/e2 column and row checksums accumulate from the
-//     staged chunks; at each (row tile, centroid tile) interval the observed
+//   * ABFT (kFT): expected e1/e2 column and row checksums accumulate in f32
+//     from the staged chunks (2-byte values widened, exactly, as the
+//     reference's xf/cf casts); at each (row tile, centroid tile) interval the
+//     observed
 //     checksums of Ds are compared, a fault is located by the e2/e1 ratio and
 //     corrected in Ds before the min/argmin scan;
 //   * update (kUpdate): rows are ranked by (cluster, row) in shared memory and
@@ -74,6 +87,9 @@
 // Bound on the H100: the distance GEMM, 2*M*Kp*Fp FLOPs on f32 CUDA cores
 // (67 TFLOP/s), above the bytes of X (read once per centroid tile, mostly
 // from L2) and the (M/BM, Kp, Fp) partial-sum buffer of the update variants.
+// At bf16/fp16 the GEMM's tensor-core bound (989 TFLOP/s) falls below the
+// bytes: X once and, for the update variants, the f32 partial-sum buffer.
+// The 2-byte product is unpipelined (no ldmatrix, cp.async, wgmma or TMA).
 // The pruned step needs the GEMM of its computed tiles only. The int8 GEMM
 // is bound by the int8 tensor cores' 1,979 Tera-op/s, which __dp4a on the
 // CUDA cores does not reach (mma.sync/wgmma s8 is later work).
@@ -88,6 +104,10 @@
 #include <cuda_runtime.h>
 #include <cfloat>
 #include <cstddef>
+#include <cstdint>
+#include <type_traits>
+
+#include "fk_mma.cuh"
 
 namespace {
 
@@ -270,10 +290,11 @@ __device__ int locate_and_correct(float* sm, int lane, float thr_factor) {
 // am: the tile's final assignment (shared). Rows >= true_m are padding and
 // enter neither sums nor counts. Writes the tile's (kp, fp) partial sums and
 // (kp,) counts. Each (k, f) sum starts at 0 and adds its cluster's rows in
-// row order. Called by all threads of the block.
-template <int BM>
+// row order, each widened to f32 (exact for 2-byte T). Called by all
+// threads of the block.
+template <typename T, int BM>
 __device__ void emit_update(const int* am, int* key, int* order, int* skey,
-                            const float* __restrict__ x, int m0, int true_m,
+                            const T* __restrict__ x, int m0, int true_m,
                             int kp, int fp, float* __restrict__ sums,
                             float* __restrict__ counts) {
   const int tid = threadIdx.x;
@@ -309,7 +330,7 @@ __device__ void emit_update(const int* am, int* key, int* order, int* skey,
     for (int f = lane; f < fp; f += 32) {
       float s = 0.0f;
       for (int p = lo; p < end; ++p)
-        s += x[size_t(m0 + order[p]) * fp + f];
+        s += to_f32(x[size_t(m0 + order[p]) * fp + f]);
       sums[size_t(k) * fp + f] = s;
     }
   }
@@ -518,8 +539,9 @@ lloyd_tile_kernel(const float* __restrict__ x, const float* __restrict__ c,
   int* am = smi + L::kAm;
   if (tid < BM) am[tid] = best_arg;
   float* sums_t = sums + size_t(mt) * kp * fp;
-  emit_update<BM>(am, smi + L::kKey, smi + L::kOrder, smi + L::kSKey, x, m0,
-                  true_m, kp, fp, sums_t, counts + size_t(mt) * kp);
+  emit_update<float, BM>(am, smi + L::kKey, smi + L::kOrder, smi + L::kSKey,
+                         x, m0, true_m, kp, fp, sums_t,
+                         counts + size_t(mt) * kp);
   if (!kFT) return;
 
   // expected update checksums from the assignment and X, never from the
@@ -550,13 +572,331 @@ lloyd_tile_kernel(const float* __restrict__ x, const float* __restrict__ c,
     sums_t[size_t(uinj.row) * fp + uinj.col] += uinj.delta;
 }
 
+// --- bf16 / fp16: the tile kernel on the tensor cores ----------------------
+// lloyd_tile_mma_kernel<T, BM, kFT, kUpdate> is lloyd_tile_kernel above with
+// its f32 product replaced by MmaProduct<T, BM>: stage() copies one
+// kChunk-feature chunk of X's row tile and C's centroid tile to shared
+// memory (regions L::kXs, L::kCs), mac() adds the chunk's product on the
+// tensor cores, xs(f, r) / cs(f, r) read staged element (row r, feature f)
+// widened to f32 for the checksum encodings, add_at() adds to one element
+// (the simulated SEU), store() writes the accumulator to Ds. Checksums,
+// locate_and_correct, tile_min_argmin / fold_min and emit_update are the
+// f32 kernel's own functions, so the instantiations of one T agree bit for
+// bit. (The f32 kernel keeps its inline product: the same code behind a
+// product object ran 0.5-3 % slower on an H100, PERF.md.)
+//
+// MmaProduct: chunks staged row-major as T with a row pitch of kLd = kChunk
+// + 8 elements (80 bytes: a fragment load's 8 rows x 4 words fall in 32
+// distinct banks), 16 bytes a load. Warp w owns rows (w / 4) * BM/2 .. +
+// BM/2 and columns (w % 4) * 32 .. + 32, as kMF x kNF m16n8 fragments
+// (fk_mma.cuh); a chunk is two k-steps of 16.
+template <typename T, int BM>
+struct MmaProduct {
+  using L = Layout<BM>;
+  static constexpr int kLd = kChunk + 8;
+  static constexpr int kVec = 16 / int(sizeof(T));   // T values a 16-byte load
+  static constexpr int kWM = BM / 2;                 // rows of a warp
+  static constexpr int kMF = kWM / 16, kNF = 32 / 8;
+  static_assert(sizeof(T) == 2, "2-byte input types only");
+  static_assert(BM * kLd <= 2 * kChunk * (BM + 1) &&
+                    kBK * kLd <= 2 * kChunk * (kBK + 1),
+                "the staged chunks fit the f32 layout's regions");
+  float acc[kMF][kNF][4];
+
+  __device__ __forceinline__ void zero() {
+#pragma unroll
+    for (int i = 0; i < kMF; ++i)
+#pragma unroll
+      for (int j = 0; j < kNF; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.0f;
+  }
+
+  template <int ROWS>
+  __device__ __forceinline__ static void stage_rows(const T* __restrict__ src,
+                                                    T* dst, int row0, int f0,
+                                                    int fp) {
+    constexpr int kPerRow = kChunk / kVec;
+    for (int idx = threadIdx.x; idx < ROWS * kPerRow; idx += kThreads) {
+      const int r = idx / kPerRow, q = idx % kPerRow;
+      *reinterpret_cast<uint4*>(dst + r * kLd + q * kVec) =
+          *reinterpret_cast<const uint4*>(src + size_t(row0 + r) * fp + f0 +
+                                          q * kVec);
+    }
+  }
+
+  __device__ __forceinline__ static void stage(const T* __restrict__ x,
+                                               const T* __restrict__ c,
+                                               float* sm, int m0, int c0,
+                                               int f0, int fp) {
+    stage_rows<BM>(x, reinterpret_cast<T*>(sm + L::kXs), m0, f0, fp);
+    stage_rows<kBK>(c, reinterpret_cast<T*>(sm + L::kCs), c0, f0, fp);
+  }
+
+  __device__ __forceinline__ void mac(const float* sm) {
+    const T* Xh = reinterpret_cast<const T*>(sm + L::kXs);
+    const T* Ch = reinterpret_cast<const T*>(sm + L::kCs);
+    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+    const int g = lane / 4, t = lane % 4;
+    const int r0 = (warp / 4) * kWM, n0 = (warp % 4) * 32;
+#pragma unroll
+    for (int ks = 0; ks < kChunk; ks += 16) {
+      uint32_t a[kMF][4], b[kNF][2];
+#pragma unroll
+      for (int i = 0; i < kMF; ++i) {
+        const T* p = Xh + (r0 + 16 * i + g) * kLd + ks + 2 * t;
+        a[i][0] = ld32(p);
+        a[i][1] = ld32(p + 8 * kLd);
+        a[i][2] = ld32(p + 8);
+        a[i][3] = ld32(p + 8 * kLd + 8);
+      }
+#pragma unroll
+      for (int j = 0; j < kNF; ++j) {
+        const T* p = Ch + (n0 + 8 * j + g) * kLd + ks + 2 * t;
+        b[j][0] = ld32(p);
+        b[j][1] = ld32(p + 8);
+      }
+#pragma unroll
+      for (int i = 0; i < kMF; ++i)
+#pragma unroll
+        for (int j = 0; j < kNF; ++j)
+          mma_16816<T>(acc[i][j], a[i], b[j][0], b[j][1]);
+    }
+  }
+
+  __device__ __forceinline__ static float xs(const float* sm, int f, int r) {
+    return to_f32(reinterpret_cast<const T*>(sm + L::kXs)[r * kLd + f]);
+  }
+  __device__ __forceinline__ static float cs(const float* sm, int f, int r) {
+    return to_f32(reinterpret_cast<const T*>(sm + L::kCs)[r * kLd + f]);
+  }
+
+  // element e of fragment (i, j) of this lane: row r0 + 16 i + g + 8 (e / 2),
+  // column n0 + 8 j + 2 t + e % 2
+  __device__ __forceinline__ void add_at(int row, int col, float delta) {
+    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+    const int g = lane / 4, t = lane % 4;
+    const int r0 = (warp / 4) * kWM, n0 = (warp % 4) * 32;
+#pragma unroll
+    for (int i = 0; i < kMF; ++i)
+#pragma unroll
+      for (int j = 0; j < kNF; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (r0 + 16 * i + g + 8 * (e / 2) == row &&
+              n0 + 8 * j + 2 * t + e % 2 == col)
+            acc[i][j][e] += delta;
+  }
+
+  __device__ __forceinline__ void store(float* Ds) const {
+    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+    const int g = lane / 4, t = lane % 4;
+    const int r0 = (warp / 4) * kWM, n0 = (warp % 4) * 32;
+#pragma unroll
+    for (int i = 0; i < kMF; ++i)
+#pragma unroll
+      for (int j = 0; j < kNF; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          Ds[(r0 + 16 * i + g + 8 * (e / 2)) * (kBK + 1) + n0 + 8 * j + 2 * t +
+             e % 2] = acc[i][j][e];
+  }
+};
+
+template <typename T, int BM, bool kFT, bool kUpdate>
+__global__ void __launch_bounds__(kThreads)
+lloyd_tile_mma_kernel(const T* __restrict__ x, const T* __restrict__ c,
+                      const float* __restrict__ cn,
+                      const int* __restrict__ inj, float* __restrict__ mind,
+                      int* __restrict__ argmin, int* __restrict__ det,
+                      float* __restrict__ sums, float* __restrict__ counts,
+                      float* __restrict__ ucheck, float* __restrict__ ccheck,
+                      int kp, int fp, int bf, int true_m, float thr_factor) {
+  using L = Layout<BM>;
+  using P = MmaProduct<T, BM>;
+  // 16-byte aligned: the staging stores 16 bytes at a time
+  extern __shared__ __align__(16) float sm_tile[];
+  float* sm = sm_tile;
+  float* Ds = sm + L::kDs;
+  float* cnS = sm + L::kCn;
+  int* smi = reinterpret_cast<int*>(sm);
+
+  const int tid = threadIdx.x;
+  const int lane = tid % 32;
+  const int mt = blockIdx.x, m0 = mt * BM;
+  const int nkt = kp / kBK, nch = fp / kChunk, ch_per_tile = bf / kChunk;
+  DistInj dinj{0, 0, 0, 0, 0, 0, 0.0f};
+  if (kFT) dinj = load_dist_inj(inj);
+
+  float best = FLT_MAX;   // running row state, owned by thread tid < BM
+  int best_arg = 0;
+  int det_count = 0;      // owned by thread 0
+
+  for (int kt = 0; kt < nkt; ++kt) {
+    const int c0 = kt * kBK;
+    P prod;
+    prod.zero();
+    if (tid < kBK) {
+      cnS[tid] = cn[c0 + tid];
+      if (kFT) sm[L::kCol1 + tid] = sm[L::kCol2 + tid] = 0.0f;
+    } else if (kFT && tid - kBK < BM) {
+      sm[L::kRow1 + tid - kBK] = sm[L::kRow2 + tid - kBK] = 0.0f;
+    }
+
+    for (int ch = 0; ch < nch; ++ch) {
+      P::stage(x, c, sm, m0, c0, ch * kChunk, fp);
+      __syncthreads();
+      prod.mac(sm);
+      if (kFT) {
+        // expected checksums from the resident chunk: e1/e2 encodings of
+        // the X and C chunks (8 partials per feature, then a fixed-order sum)
+        float* part = sm + L::kPart;
+        float* enc = sm + L::kEnc;
+        {
+          const int f = tid % kChunk, s = tid / kChunk;
+          float x1 = 0.0f, x2 = 0.0f, c1 = 0.0f, c2 = 0.0f;
+          for (int r = s; r < BM; r += 8) {
+            const float v = P::xs(sm, f, r);
+            x1 += v;
+            x2 = fmaf(float(r + 1), v, x2);
+          }
+          for (int r = s; r < kBK; r += 8) {
+            const float v = P::cs(sm, f, r);
+            c1 += v;
+            c2 = fmaf(float(r + 1), v, c2);
+          }
+          part[(0 * 8 + s) * kChunk + f] = x1;
+          part[(1 * 8 + s) * kChunk + f] = x2;
+          part[(2 * 8 + s) * kChunk + f] = c1;
+          part[(3 * 8 + s) * kChunk + f] = c2;
+        }
+        __syncthreads();
+        if (tid < 4 * kChunk) {
+          const int q = tid / kChunk, f = tid % kChunk;
+          float s = 0.0f;
+          for (int p = 0; p < 8; ++p) s += part[(q * 8 + p) * kChunk + f];
+          enc[q * kChunk + f] = s;
+        }
+        __syncthreads();
+        if (tid < kBK) {
+          float s1 = sm[L::kCol1 + tid], s2 = sm[L::kCol2 + tid];
+          for (int f = 0; f < kChunk; ++f) {
+            const float cv = P::cs(sm, f, tid);
+            s1 = fmaf(enc[0 * kChunk + f], cv, s1);
+            s2 = fmaf(enc[1 * kChunk + f], cv, s2);
+          }
+          sm[L::kCol1 + tid] = s1;
+          sm[L::kCol2 + tid] = s2;
+        } else if (tid - kBK < BM) {
+          const int r = tid - kBK;
+          float s1 = sm[L::kRow1 + r], s2 = sm[L::kRow2 + r];
+          for (int f = 0; f < kChunk; ++f) {
+            const float xv = P::xs(sm, f, r);
+            s1 = fmaf(xv, enc[2 * kChunk + f], s1);
+            s2 = fmaf(xv, enc[3 * kChunk + f], s2);
+          }
+          sm[L::kRow1 + r] = s1;
+          sm[L::kRow2 + r] = s2;
+        }
+        // simulated SEU: after the last chunk of feature tile f_tile, into
+        // the accumulator element of the thread (lane) that holds it
+        if (dinj.enabled && mt == dinj.m_tile && kt == dinj.c_tile &&
+            ch == (dinj.f_tile + 1) * ch_per_tile - 1)
+          prod.add_at(dinj.row, dinj.col, dinj.delta);
+      }
+      __syncthreads();
+    }
+
+    prod.store(Ds);
+    __syncthreads();
+
+    if (kFT) {
+      if (tid < kBK) {
+        float s1 = 0.0f, s2 = 0.0f;
+        for (int r = 0; r < BM; ++r) {
+          const float v = Ds[r * (kBK + 1) + tid];
+          s1 += v;
+          s2 += float(r + 1) * v;
+        }
+        sm[L::kResC1 + tid] = s1 - sm[L::kCol1 + tid];
+        sm[L::kResC2 + tid] = s2 - sm[L::kCol2 + tid];
+      } else if (tid - kBK < BM) {
+        const int r = tid - kBK;
+        float s1 = 0.0f, s2 = 0.0f;
+        for (int cc = 0; cc < kBK; ++cc) {
+          const float v = Ds[r * (kBK + 1) + cc];
+          s1 += v;
+          s2 += float(cc + 1) * v;
+        }
+        sm[L::kResR1 + r] = s1 - sm[L::kRow1 + r];
+        sm[L::kResR2 + r] = s2 - sm[L::kRow2 + r];
+      }
+      __syncthreads();
+      if (tid < 32) {
+        const int d = locate_and_correct<BM>(sm, lane, thr_factor);
+        if (tid == 0) det_count += d;
+      }
+      __syncthreads();
+    }
+
+    if (tid < BM) {
+      float lmin;
+      int larg;
+      tile_min_argmin(Ds + tid * (kBK + 1), cnS, c0, &lmin, &larg);
+      fold_min(&best, &best_arg, lmin, larg);
+    }
+    __syncthreads();
+  }
+
+  if (tid < BM) {
+    mind[m0 + tid] = best;
+    argmin[m0 + tid] = best_arg;
+  }
+  if (kFT && tid == 0) det[mt] = det_count;
+  if (!kUpdate) return;
+
+  int* am = smi + L::kAm;
+  if (tid < BM) am[tid] = best_arg;
+  float* sums_t = sums + size_t(mt) * kp * fp;
+  emit_update<T, BM>(am, smi + L::kKey, smi + L::kOrder, smi + L::kSKey, x,
+                     m0, true_m, kp, fp, sums_t, counts + size_t(mt) * kp);
+  if (!kFT) return;
+
+  // expected update checksums from the assignment and X, never from the
+  // sums they verify: valid^T X and (valid * (am + 1))^T X
+  for (int f = tid; f < fp; f += kThreads) {
+    float u0 = 0.0f, u1 = 0.0f;
+    for (int r = 0; r < BM && m0 + r < true_m; ++r) {
+      const float v = to_f32(x[size_t(m0 + r) * fp + f]);
+      u0 += v;
+      u1 = fmaf(float(am[r] + 1), v, u1);
+    }
+    ucheck[size_t(mt) * 2 * fp + f] = u0;
+    ucheck[size_t(mt) * 2 * fp + fp + f] = u1;
+  }
+  if (tid == 0) {
+    float c0s = 0.0f, c1s = 0.0f;
+    for (int r = 0; r < BM && m0 + r < true_m; ++r) {
+      c0s += 1.0f;
+      c1s += float(am[r] + 1);
+    }
+    ccheck[mt * 2] = c0s;
+    ccheck[mt * 2 + 1] = c1s;
+  }
+  __syncthreads();
+  // simulated SEU in the update product, after the invariant side
+  const UpdInj uinj = load_upd_inj(inj);
+  if (tid == 0 && uinj.enabled && mt == uinj.m_tile)
+    sums_t[size_t(uinj.row) * fp + uinj.col] += uinj.delta;
+}
+
 // emit_update on the argmin rows of row tiles, one block per tile: tile
 // blockIdx.x, or the one tile *tile when tile is given. When gate is given
 // the launch is a no-op while *gate == 0. Tile index and gate live on the
 // device, so a caller that recomputes on a mismatch never synchronises.
-template <int BM>
+template <typename T, int BM>
 __global__ void __launch_bounds__(kThreads)
-update_tiles_kernel(const float* __restrict__ x,
+update_tiles_kernel(const T* __restrict__ x,
                     const int* __restrict__ argmin,
                     const int* __restrict__ tile, const int* __restrict__ gate,
                     float* __restrict__ sums, float* __restrict__ counts,
@@ -567,9 +907,9 @@ update_tiles_kernel(const float* __restrict__ x,
   const int mt = tile != nullptr ? *tile : int(blockIdx.x);
   const int m0 = mt * BM, tid = threadIdx.x;
   if (tid < BM) smi[L::kAm + tid] = argmin[m0 + tid];
-  emit_update<BM>(smi + L::kAm, smi + L::kKey, smi + L::kOrder,
-                  smi + L::kSKey, x, m0, true_m, kp, fp,
-                  sums + size_t(mt) * kp * fp, counts + size_t(mt) * kp);
+  emit_update<T, BM>(smi + L::kAm, smi + L::kKey, smi + L::kOrder,
+                     smi + L::kSKey, x, m0, true_m, kp, fp,
+                     sums + size_t(mt) * kp * fp, counts + size_t(mt) * kp);
 }
 
 // The one-pass step of lloyd_tile_kernel<BM, false, true> with each trip over
@@ -681,9 +1021,9 @@ lloyd_pruned_kernel(const float* __restrict__ x, const float* __restrict__ c,
     argmin[m0 + tid] = best_arg;
     am[tid] = best_arg;
   }
-  emit_update<BM>(am, smi + L::kKey, smi + L::kOrder, smi + L::kSKey, x, m0,
-                  true_m, kp, fp, sums + size_t(mt) * kp * fp,
-                  counts + size_t(mt) * kp);
+  emit_update<float, BM>(am, smi + L::kKey, smi + L::kOrder, smi + L::kSKey,
+                         x, m0, true_m, kp, fp, sums + size_t(mt) * kp * fp,
+                         counts + size_t(mt) * kp);
 }
 
 // int8 distance tile kernel: one block per row tile of BM rows, a loop over
@@ -841,13 +1181,22 @@ kmeanspp_round_kernel(const float* __restrict__ x,
   }
 }
 
-template <int BM, bool kFT, bool kUpdate>
-int launch_tile(const float* x, const float* c, const float* cn,
+// the tile kernel of input type T: the f32 kernel or the tensor-core one
+template <typename T, int BM, bool kFT, bool kUpdate>
+constexpr auto tile_kernel() {
+  if constexpr (std::is_same<T, float>::value)
+    return lloyd_tile_kernel<BM, kFT, kUpdate>;
+  else
+    return lloyd_tile_mma_kernel<T, BM, kFT, kUpdate>;
+}
+
+template <typename T, int BM, bool kFT, bool kUpdate>
+int launch_tile(const T* x, const T* c, const float* cn,
                 const int* inj, float* mind, int* argmin, int* det,
                 float* sums, float* counts, float* ucheck, float* ccheck,
                 int nb, int mp, int kp, int fp, int bf, int true_m,
                 float thr_factor, cudaStream_t stream) {
-  auto kernel = lloyd_tile_kernel<BM, kFT, kUpdate>;
+  auto kernel = tile_kernel<T, BM, kFT, kUpdate>();
   const size_t bytes = Layout<BM>::kBytes;
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(bytes));
@@ -858,26 +1207,57 @@ int launch_tile(const float* x, const float* c, const float* cn,
   return int(cudaGetLastError());
 }
 
-template <bool kFT, bool kUpdate>
-int dispatch(int bm, const float* x, const float* c, const float* cn,
+template <typename T, bool kFT, bool kUpdate>
+int dispatch(int bm, const T* x, const T* c, const float* cn,
              const int* inj, float* mind, int* argmin, int* det, float* sums,
              float* counts, float* ucheck, float* ccheck, int nb, int mp,
              int kp, int fp, int bf, int true_m, float thr_factor,
              cudaStream_t stream) {
   if ((bm != 64 && bm != 128) || mp % bm || kp % kBK || bf < kChunk ||
       bf % kChunk || fp % bf || nb < 1 || nb > kMaxProblems ||
-      (nb > 1 && (kFT || !kUpdate)))
+      (nb > 1 && (kFT || !kUpdate || !std::is_same<T, float>::value)))
     return int(cudaErrorInvalidValue);
   if (bm == 128)
-    return launch_tile<128, kFT, kUpdate>(x, c, cn, inj, mind, argmin, det,
-                                          sums, counts, ucheck, ccheck, nb, mp,
-                                          kp, fp, bf, true_m, thr_factor,
-                                          stream);
+    return launch_tile<T, 128, kFT, kUpdate>(x, c, cn, inj, mind, argmin,
+                                             det, sums, counts, ucheck, ccheck,
+                                             nb, mp, kp, fp, bf, true_m,
+                                             thr_factor, stream);
   if (bm == 64)
-    return launch_tile<64, kFT, kUpdate>(x, c, cn, inj, mind, argmin, det,
-                                         sums, counts, ucheck, ccheck, nb, mp,
-                                         kp, fp, bf, true_m, thr_factor,
-                                         stream);
+    return launch_tile<T, 64, kFT, kUpdate>(x, c, cn, inj, mind, argmin,
+                                            det, sums, counts, ucheck, ccheck,
+                                            nb, mp, kp, fp, bf, true_m,
+                                            thr_factor, stream);
+  return int(cudaErrorInvalidValue);
+}
+
+// emit_update alone over n_tiles row tiles, or the one tile *tile
+template <typename T>
+int launch_update(const T* x, const int* argmin, const int* tile,
+                  const int* gate, float* sums, float* counts, int true_m,
+                  int kp, int fp, int bm, int n_tiles, cudaStream_t s) {
+  const int grid = tile != nullptr ? 1 : n_tiles;
+  if (grid < 1) return int(cudaErrorInvalidValue);
+  if (bm == 128)
+    update_tiles_kernel<T, 128><<<grid, kThreads, 0, s>>>(
+        x, argmin, tile, gate, sums, counts, kp, fp, true_m);
+  else if (bm == 64)
+    update_tiles_kernel<T, 64><<<grid, kThreads, 0, s>>>(
+        x, argmin, tile, gate, sums, counts, kp, fp, true_m);
+  else
+    return int(cudaErrorInvalidValue);
+  return int(cudaGetLastError());
+}
+
+// Runs fn(Tag<T>{}) for the 2-byte type named by half: 0 __nv_bfloat16,
+// 1 __half (the *_lp entry points' dtype code).
+template <typename T>
+struct Tag {
+  using type = T;
+};
+template <typename Fn>
+int by_half(int half, Fn fn) {
+  if (half == 0) return fn(Tag<__nv_bfloat16>{});
+  if (half == 1) return fn(Tag<__half>{});
   return int(cudaErrorInvalidValue);
 }
 
@@ -1344,20 +1724,19 @@ extern "C" {
 int fk_distance_argmin(const float* x, const float* c, const float* cn,
                        float* mind, int* argmin, int mp, int kp, int fp,
                        int bm, int bf, void* stream) {
-  return dispatch<false, false>(bm, x, c, cn, nullptr, mind, argmin, nullptr,
-                                nullptr, nullptr, nullptr, nullptr, 1, mp, kp,
-                                fp, bf, mp, 0.0f,
-                                static_cast<cudaStream_t>(stream));
+  return dispatch<float, false, false>(
+      bm, x, c, cn, nullptr, mind, argmin, nullptr, nullptr, nullptr, nullptr,
+      nullptr, 1, mp, kp, fp, bf, mp, 0.0f, static_cast<cudaStream_t>(stream));
 }
 
 int fk_lloyd_step(const float* x, const float* c, const float* cn,
                   float* mind, int* argmin, float* sums, float* counts,
                   int true_m, int mp, int kp, int fp, int bm, int bf,
                   void* stream) {
-  return dispatch<false, true>(bm, x, c, cn, nullptr, mind, argmin, nullptr,
-                               sums, counts, nullptr, nullptr, 1, mp, kp, fp,
-                               bf, true_m, 0.0f,
-                               static_cast<cudaStream_t>(stream));
+  return dispatch<float, false, true>(
+      bm, x, c, cn, nullptr, mind, argmin, nullptr, sums, counts, nullptr,
+      nullptr, 1, mp, kp, fp, bf, true_m, 0.0f,
+      static_cast<cudaStream_t>(stream));
 }
 
 // nb stacked problems, each (mp, fp) rows against its own (kp, fp)
@@ -1366,19 +1745,19 @@ int fk_lloyd_step_batched(const float* x, const float* c, const float* cn,
                           float* mind, int* argmin, float* sums,
                           float* counts, int true_m, int nb, int mp, int kp,
                           int fp, int bm, int bf, void* stream) {
-  return dispatch<false, true>(bm, x, c, cn, nullptr, mind, argmin, nullptr,
-                               sums, counts, nullptr, nullptr, nb, mp, kp, fp,
-                               bf, true_m, 0.0f,
-                               static_cast<cudaStream_t>(stream));
+  return dispatch<float, false, true>(
+      bm, x, c, cn, nullptr, mind, argmin, nullptr, sums, counts, nullptr,
+      nullptr, nb, mp, kp, fp, bf, true_m, 0.0f,
+      static_cast<cudaStream_t>(stream));
 }
 
 int fk_distance_argmin_ft(const float* x, const float* c, const float* cn,
                           const int* inj, float* mind, int* argmin, int* det,
                           float thr_factor, int mp, int kp, int fp, int bm,
                           int bf, void* stream) {
-  return dispatch<true, false>(bm, x, c, cn, inj, mind, argmin, det, nullptr,
-                               nullptr, nullptr, nullptr, 1, mp, kp, fp, bf, mp,
-                               thr_factor, static_cast<cudaStream_t>(stream));
+  return dispatch<float, true, false>(
+      bm, x, c, cn, inj, mind, argmin, det, nullptr, nullptr, nullptr, nullptr,
+      1, mp, kp, fp, bf, mp, thr_factor, static_cast<cudaStream_t>(stream));
 }
 
 int fk_lloyd_step_ft(const float* x, const float* c, const float* cn,
@@ -1386,27 +1765,86 @@ int fk_lloyd_step_ft(const float* x, const float* c, const float* cn,
                      float* sums, float* counts, float* ucheck, float* ccheck,
                      float thr_factor, int true_m, int mp, int kp, int fp,
                      int bm, int bf, void* stream) {
-  return dispatch<true, true>(bm, x, c, cn, inj, mind, argmin, det, sums,
-                              counts, ucheck, ccheck, 1, mp, kp, fp, bf, true_m,
-                              thr_factor, static_cast<cudaStream_t>(stream));
+  return dispatch<float, true, true>(
+      bm, x, c, cn, inj, mind, argmin, det, sums, counts, ucheck, ccheck, 1,
+      mp, kp, fp, bf, true_m, thr_factor, static_cast<cudaStream_t>(stream));
 }
 
 // tile and gate may be null: every one of n_tiles row tiles, ungated.
 int fk_update_tiles(const float* x, const int* argmin, const int* tile,
                     const int* gate, float* sums, float* counts, int true_m,
                     int kp, int fp, int bm, int n_tiles, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int grid = tile != nullptr ? 1 : n_tiles;
-  if (grid < 1) return int(cudaErrorInvalidValue);
-  if (bm == 128)
-    update_tiles_kernel<128><<<grid, kThreads, 0, s>>>(
-        x, argmin, tile, gate, sums, counts, kp, fp, true_m);
-  else if (bm == 64)
-    update_tiles_kernel<64><<<grid, kThreads, 0, s>>>(
-        x, argmin, tile, gate, sums, counts, kp, fp, true_m);
-  else
-    return int(cudaErrorInvalidValue);
-  return int(cudaGetLastError());
+  return launch_update<float>(x, argmin, tile, gate, sums, counts, true_m, kp,
+                              fp, bm, n_tiles,
+                              static_cast<cudaStream_t>(stream));
+}
+
+// --- 2-byte inputs: the entry points above for X and C (and the update's X)
+// of one type, bf16 (half = 0) or fp16 (half = 1), 16-byte aligned; norms,
+// outputs and scratch stay f32 / int32.
+int fk_distance_argmin_lp(const void* x, const void* c, const float* cn,
+                          float* mind, int* argmin, int mp, int kp, int fp,
+                          int bm, int bf, int half, void* stream) {
+  return by_half(half, [&](auto tag) {
+    using T = typename decltype(tag)::type;
+    return dispatch<T, false, false>(
+        bm, static_cast<const T*>(x), static_cast<const T*>(c), cn, nullptr,
+        mind, argmin, nullptr, nullptr, nullptr, nullptr, nullptr, 1, mp, kp,
+        fp, bf, mp, 0.0f, static_cast<cudaStream_t>(stream));
+  });
+}
+
+int fk_lloyd_step_lp(const void* x, const void* c, const float* cn,
+                     float* mind, int* argmin, float* sums, float* counts,
+                     int true_m, int mp, int kp, int fp, int bm, int bf,
+                     int half, void* stream) {
+  return by_half(half, [&](auto tag) {
+    using T = typename decltype(tag)::type;
+    return dispatch<T, false, true>(
+        bm, static_cast<const T*>(x), static_cast<const T*>(c), cn, nullptr,
+        mind, argmin, nullptr, sums, counts, nullptr, nullptr, 1, mp, kp, fp,
+        bf, true_m, 0.0f, static_cast<cudaStream_t>(stream));
+  });
+}
+
+int fk_distance_argmin_ft_lp(const void* x, const void* c, const float* cn,
+                             const int* inj, float* mind, int* argmin,
+                             int* det, float thr_factor, int mp, int kp,
+                             int fp, int bm, int bf, int half, void* stream) {
+  return by_half(half, [&](auto tag) {
+    using T = typename decltype(tag)::type;
+    return dispatch<T, true, false>(
+        bm, static_cast<const T*>(x), static_cast<const T*>(c), cn, inj, mind,
+        argmin, det, nullptr, nullptr, nullptr, nullptr, 1, mp, kp, fp, bf, mp,
+        thr_factor, static_cast<cudaStream_t>(stream));
+  });
+}
+
+int fk_lloyd_step_ft_lp(const void* x, const void* c, const float* cn,
+                        const int* inj, float* mind, int* argmin, int* det,
+                        float* sums, float* counts, float* ucheck,
+                        float* ccheck, float thr_factor, int true_m, int mp,
+                        int kp, int fp, int bm, int bf, int half,
+                        void* stream) {
+  return by_half(half, [&](auto tag) {
+    using T = typename decltype(tag)::type;
+    return dispatch<T, true, true>(
+        bm, static_cast<const T*>(x), static_cast<const T*>(c), cn, inj, mind,
+        argmin, det, sums, counts, ucheck, ccheck, 1, mp, kp, fp, bf, true_m,
+        thr_factor, static_cast<cudaStream_t>(stream));
+  });
+}
+
+int fk_update_tiles_lp(const void* x, const int* argmin, const int* tile,
+                       const int* gate, float* sums, float* counts, int true_m,
+                       int kp, int fp, int bm, int n_tiles, int half,
+                       void* stream) {
+  return by_half(half, [&](auto tag) {
+    using T = typename decltype(tag)::type;
+    return launch_update<T>(static_cast<const T*>(x), argmin, tile, gate, sums,
+                            counts, true_m, kp, fp, bm, n_tiles,
+                            static_cast<cudaStream_t>(stream));
+  });
 }
 
 // skip: (mp / bm, kp / 128) int32; xn: (mp,) row squared norms; tmin:

@@ -1,0 +1,63 @@
+// Tensor-core helpers shared by fk_kernels.cu and fk_attention.cu: one
+// warp-wide mma.sync.aligned.m16n8k16 with f32 accumulation on bf16 or fp16
+// operands, the 32-bit shared-memory load of a fragment register (two
+// 2-byte values), and the widening of an input value to f32.
+//
+// Fragment layout of m16n8k16 (PTX ISA, "mma.m16n8k16"), lane = 4 g + t:
+//   A (16 x 16, row-major)    a[0]: row g,     k 2t, 2t+1    a[1]: row g + 8
+//                             a[2]: row g,     k 2t+8, 2t+9  a[3]: row g + 8
+//   B (16 x 8, column-major)  b0:   col g,     k 2t, 2t+1    b1:   k 2t+8, 2t+9
+//   C (16 x 8, f32)           c[0], c[1]: row g, cols 2t, 2t+1
+//                             c[2], c[3]: row g + 8, the same cols
+// Products of two bf16 or two fp16 values are exact in f32; the sum of a
+// k-step runs in the tensor core's own order, the same on every launch.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
+#include <cstdint>
+
+__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ void mma_f16(float* c, const uint32_t* a,
+                                        uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// c += A B for the operand type T (__nv_bfloat16 or __half)
+template <typename T>
+__device__ __forceinline__ void mma_16816(float* c, const uint32_t* a,
+                                          uint32_t b0, uint32_t b1);
+template <>
+__device__ __forceinline__ void mma_16816<__nv_bfloat16>(
+    float* c, const uint32_t* a, uint32_t b0, uint32_t b1) {
+  mma_bf16(c, a, b0, b1);
+}
+template <>
+__device__ __forceinline__ void mma_16816<__half>(
+    float* c, const uint32_t* a, uint32_t b0, uint32_t b1) {
+  mma_f16(c, a, b0, b1);
+}
+
+// two consecutive 2-byte values (4-byte aligned) as one fragment register
+template <typename T>
+__device__ __forceinline__ uint32_t ld32(const T* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+__device__ __forceinline__ float to_f32(__half v) { return __half2float(v); }

@@ -11,14 +11,19 @@ into the package's git-ignored ``_build/`` directory and loaded with
 ``fk_kernels.cu`` holds every k-means kernel of the port: the tile kernel
 behind ``distance_argmin``, ``lloyd_step`` (one problem, or B stacked
 problems over a (row tile, problem) grid: ``fk_lloyd_step_batched``),
-``distance_argmin_ft`` and ``lloyd_step_ft``, the update epilogue launched
-alone, the k-means++ D^2 round (``fk_kmeanspp_round``), the pruned one-pass
+``distance_argmin_ft`` and ``lloyd_step_ft``, and the update epilogue
+launched alone (``fk_update_tiles``), each also for bf16 or fp16 X and C on
+the tensor cores (the ``*_lp`` entry points, one more int argument before
+the stream: :data:`HALF_KINDS`), the k-means++ D^2 round
+(``fk_kmeanspp_round``), the pruned one-pass
 step (``fk_lloyd_step_pruned``), the int8 distance kernel
 (``fk_distance_argmin_int8``), the ABFT GEMM (``fk_matmul_abft``) and the
 DMR centroid update (``fk_centroid_update_dmr``, three launches: partials,
 slab reduction, verdict). ``fk_attention.cu`` holds the LM stack's flash
-attention (``fk_flash_attention``). A library's file name carries a hash of
-its source, so an edited source rebuilds and an unchanged one is reused.
+attention (``fk_flash_attention``); both include ``csrc/fk_mma.cuh`` (the
+tensor-core ``mma.sync`` helpers). A library's file name carries a hash of
+its source and the headers of ``csrc/``, so an edited source or header
+rebuilds and an unchanged one is reused.
 Every C entry point returns ``cudaGetLastError()`` after its launch;
 :func:`check` turns a non-zero code into a ``RuntimeError``. Nothing here
 runs at import time: this module is imported on machines without ``nvcc``.
@@ -67,6 +72,14 @@ SIGNATURES: dict[str, tuple] = {
     "fk_centroid_update_dmr": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                                _I, _I, _I, _I, _F, _P),
 }
+# the 2-byte entry points: their f32 twin's arguments, then the dtype code
+# (HALF_KINDS), then the stream
+LOWP_ENTRIES = ("fk_distance_argmin", "fk_lloyd_step",
+                "fk_distance_argmin_ft", "fk_lloyd_step_ft", "fk_update_tiles")
+SIGNATURES.update({f"{name}_lp": SIGNATURES[name][:-1] + (_I, _P)
+                   for name in LOWP_ENTRIES})
+# dtype code of the *_lp entry points, by torch dtype name
+HALF_KINDS = {"bfloat16": 0, "float16": 1}
 # q, k, v, q_positions, kv_positions, out; B, H, KV, Sq, Skv, hd; the
 # (batch, head, sequence) element strides of q, k, v and out; causal,
 # window, zero_empty, bf16; stream
@@ -109,10 +122,11 @@ def nvcc_path() -> str:
 
 
 def _paths(name: str) -> tuple[Path, Path]:
-    """(source, library) of ``name``; the library name hashes the source
-    and the flags."""
+    """(source, library) of ``name``; the library name hashes the source,
+    the headers of ``csrc/`` and the flags."""
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(src.read_bytes() + headers
                             + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return src, BUILD_DIR / f"{name}-{digest}.so"
 
@@ -214,11 +228,39 @@ def on_cpu(*tensors) -> bool:
 
 
 def ptr(t, dtype, what: str) -> int:
-    """Device pointer of a contiguous CUDA tensor of ``dtype``."""
+    """Device pointer of a contiguous CUDA tensor of ``dtype``; a 2-byte
+    tensor must also be 16-byte aligned (the kernels stage it 16 bytes at a
+    time)."""
     if t.dtype != dtype or not t.is_contiguous():
         raise ValueError(f"{what} must be a contiguous {dtype} tensor, got "
                          f"{t.dtype} (contiguous={t.is_contiguous()})")
+    if t.element_size() == 2 and t.data_ptr() % 16:
+        raise ValueError(f"{what} ({t.dtype}) must start on a 16-byte "
+                         f"boundary, got address {t.data_ptr():#x}")
     return t.data_ptr()
+
+
+def input_dtype(*tensors):
+    """The one input dtype of a tile kernel's X and C: float32, bfloat16 or
+    float16. Anything else, or a mix, raises."""
+    import torch
+    dtypes = {t.dtype for t in tensors}
+    if len(dtypes) != 1 or not dtypes <= {torch.float32, torch.bfloat16,
+                                          torch.float16}:
+        raise ValueError(f"X and C must share one dtype of float32, bfloat16 "
+                         f"or float16, got {sorted(map(str, dtypes))}")
+    return dtypes.pop()
+
+
+def launch(name: str, dtype, *args) -> int:
+    """Call C entry point ``name`` for ``dtype``: the f32 kernel as it is,
+    a 2-byte dtype through ``name + "_lp"`` with its dtype code inserted
+    before the last argument (the stream)."""
+    lib = library().lib
+    code = HALF_KINDS.get(str(dtype).replace("torch.", ""))
+    if code is None:
+        return getattr(lib, name)(*args)
+    return getattr(lib, f"{name}_lp")(*args[:-1], code, args[-1])
 
 
 def stream_of(t) -> int:

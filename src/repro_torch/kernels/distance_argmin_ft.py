@@ -16,9 +16,15 @@ located by the e2/e1 ratio, corrected in place, and the min/argmin runs on
 the corrected tile. An 8-word descriptor plants one fault; the kernel
 returns the detections per row tile.
 
-CUDA kernel: ``lloyd_tile_kernel<BM, true, false>`` in
+CUDA kernels: ``lloyd_tile_kernel<BM, true, false>`` (f32) and
+``lloyd_tile_mma_kernel<T, BM, true, false>`` (bf16, fp16) in
 ``csrc/fk_kernels.cu``; the descriptor is injected after the last chunk of
-feature tile ``f_tile``, as on the TPU. Bound on the H100: the distance
+feature tile ``f_tile``, as on the TPU (at bf16 / fp16 into the ``mma.sync``
+fragment element of the lane that holds it). X and C are f32, bf16 or fp16;
+the checksums always run in f32 on the widened tiles, as the reference's
+``xf``/``cf`` casts, and ``factor`` is the caller's
+``threshold_factor(Fp, input dtype)``: 16 sqrt(Fp) max(eps_in, eps_f32),
+8,192x (fp16) to 65,536x (bf16) f32's. Bound on the H100: the distance
 GEMM, as ``distance_argmin``; the checksums add O((bm + bk) * Fp) work per
 tile and a shared-memory pass over the tile (the TPU verifies in VMEM).
 """
@@ -58,7 +64,9 @@ def abft_correct_plain(acc: torch.Tensor, x: torch.Tensor, c: torch.Tensor,
     fault (words 0..6), detect, locate by the e2/e1 ratio and correct.
     Returns (corrected acc, detections per row tile (Mp/bm,) int32). The
     fault is added to the finished product, not after feature tile
-    ``f_tile``; the detection and correction rules are the kernel's."""
+    ``f_tile``; the detection and correction rules are the kernel's. The
+    expected checksums run in f32 on the widened x and c."""
+    x, c = x.float(), c.float()
     dev = acc.device
     mp, kp = acc.shape
     fp = x.shape[1]
@@ -121,10 +129,11 @@ def abft_correct_plain(acc: torch.Tensor, x: torch.Tensor, c: torch.Tensor,
 
 def distance_argmin_ft_plain(x, c, cn, inj, block_m, block_k, block_f,
                              factor):
-    """Plain PyTorch version: (min (Mp,), argmin (Mp,), det (Mp/bm,))."""
+    """Plain PyTorch version: (min (Mp,), argmin (Mp,), det (Mp/bm,)); the
+    product in f32 on the widened values, as :func:`distance_argmin_plain`."""
     ref.full_f32(x.device)
-    acc, det = abft_correct_plain(x @ c.T, x, c, inj, block_m, block_k,
-                                  block_f, factor)
+    acc, det = abft_correct_plain(x.float() @ c.float().T, x, c, inj,
+                                  block_m, block_k, block_f, factor)
     mind, am = ref.first_min(cn[None, :] - 2.0 * acc)
     return mind, am, det
 
@@ -132,10 +141,12 @@ def distance_argmin_ft_plain(x, c, cn, inj, block_m, block_k, block_f,
 def distance_argmin_ft(x: torch.Tensor, c: torch.Tensor, cn: torch.Tensor,
                        inj: torch.Tensor, *, block_m: int, block_k: int,
                        block_f: int, factor: float):
-    """Raw FT kernel entry on pre-padded f32 inputs; ``inj`` is an int32
-    descriptor on the data's device and ``factor`` the static part of the
-    detection threshold. Returns (min (Mp,), argmin (Mp,), det (Mp/bm,))."""
+    """Raw FT kernel entry on pre-padded inputs (X and C f32, bf16 or fp16);
+    ``inj`` is an int32 descriptor on the data's device and ``factor`` the
+    static part of the detection threshold. Returns (min (Mp,), argmin
+    (Mp,), det (Mp/bm,))."""
     check_padded(x, c, cn, block_m, block_k, block_f)
+    dt = _build.input_dtype(x, c)
     if inj.shape[0] < 7:
         raise ValueError(f"injection descriptor too short: {inj.shape}")
     if _build.on_cpu(x, c, cn, inj):
@@ -146,10 +157,10 @@ def distance_argmin_ft(x: torch.Tensor, c: torch.Tensor, cn: torch.Tensor,
     mind = torch.empty(mp, dtype=torch.float32, device=dev)
     am = torch.empty(mp, dtype=torch.int32, device=dev)
     det = torch.empty(mp // block_m, dtype=torch.int32, device=dev)
-    f32 = torch.float32
-    code = _build.library().lib.fk_distance_argmin_ft(
-        _build.ptr(x, f32, "x"), _build.ptr(c, f32, "c"),
-        _build.ptr(cn, f32, "cn"), _build.ptr(inj, torch.int32, "inj"),
+    code = _build.launch(
+        "fk_distance_argmin_ft", dt, _build.ptr(x, dt, "x"),
+        _build.ptr(c, dt, "c"), _build.ptr(cn, torch.float32, "cn"),
+        _build.ptr(inj, torch.int32, "inj"),
         mind.data_ptr(), am.data_ptr(), det.data_ptr(), factor, mp,
         c.shape[0], fp, block_m, block_f, _build.stream_of(x))
     _build.check(code, "distance_argmin_ft")

@@ -8,14 +8,18 @@ row tile's argmin is final, that tile's per-cluster partial sums
 (M/bm, Kp, Fp) and counts (M/bm, Kp); rows >= ``true_m`` are padding and
 enter neither. ``ops._tree_sum`` collapses the partial blocks.
 
-CUDA kernel: ``lloyd_tile_kernel<BM, false, true>`` in
-``csrc/fk_kernels.cu``. Its update epilogue ``emit_update`` ranks the tile's
-rows by (cluster, row) in shared memory; each (k, f) partial sum is then one
-thread's sum over its cluster's rows in row order, starting from 0. No
+CUDA kernels: ``lloyd_tile_kernel<BM, false, true>`` (f32) and
+``lloyd_tile_mma_kernel<T, BM, false, true>`` (bf16, fp16) in
+``csrc/fk_kernels.cu`` (T the input dtype: f32 on the CUDA cores, bf16 or
+fp16 on the tensor cores, as ``distance_argmin``). Its update epilogue
+``emit_update`` ranks the tile's rows by (cluster, row) in shared memory;
+each (k, f) partial sum is then one thread's f32 sum over its cluster's
+rows in row order, starting from 0 (2-byte rows widened exactly). No
 atomics: the sums are deterministic, so :func:`tile_update` (the same
-``emit_update`` launched alone, ``update_tiles_kernel``) reproduces a tile
-bit for bit -- the contract ``ops._verify_update_partials`` rests on, and
-the reason a two-pass ``fused`` fit sums exactly as a ``lloyd`` fit does.
+``emit_update`` launched alone, ``update_tiles_kernel<T, BM>``) reproduces a
+tile bit for bit -- the contract ``ops._verify_update_partials`` rests on,
+and the reason a two-pass ``fused`` fit sums exactly as a ``lloyd`` fit
+does, at every input dtype.
 
 Batched: :func:`lloyd_step_batched` launches the same instantiation over a
 (row tile, problem) grid; ``blockIdx.y`` moves every base pointer to its
@@ -23,6 +27,7 @@ problem's slab, so problem b of the launch is, bit for bit, :func:`lloyd_step`
 on problem b alone (the reference's contract, ``tests/test_batched.py``).
 The TPU kernel wants padded K to be one centroid tile; this one loops over
 128-wide centroid tiles as the single-problem kernel does, so any K works.
+The batched step takes f32 only: its 2-byte variant is ROADMAP Queue 2 A3.
 
 Bound on the H100: the distance GEMM (2 * Mp * Kp * Fp FLOPs on f32 CUDA
 cores) plus writing the partial-sum buffer, (Mp/bm) * Kp * Fp * 4 bytes
@@ -46,12 +51,12 @@ def tile_update_plain(x_tiles: torch.Tensor, am_tiles: torch.Tensor,
                       valid: torch.Tensor, kp: int
                       ) -> tuple[torch.Tensor, torch.Tensor]:
     """Plain update of row tiles: x_tiles (T, bm, Fp), am_tiles (T, bm),
-    valid (T, bm) bool -> sums (T, Kp, Fp), counts (T, Kp). The single
-    definition used for every tile and for a recomputed one, so both sum in
-    one order."""
+    valid (T, bm) bool -> sums (T, Kp, Fp), counts (T, Kp), f32 whatever
+    the rows' dtype. The single definition used for every tile and for a
+    recomputed one, so both sum in one order."""
     ref.full_f32(x_tiles.device)
     onehot = ref.one_hot(am_tiles, kp) * valid[..., None].float()
-    return torch.bmm(onehot.transpose(1, 2), x_tiles), onehot.sum(1)
+    return torch.bmm(onehot.transpose(1, 2), x_tiles.float()), onehot.sum(1)
 
 
 def lloyd_step_plain(x: torch.Tensor, c: torch.Tensor, cn: torch.Tensor,
@@ -69,9 +74,11 @@ def lloyd_step_plain(x: torch.Tensor, c: torch.Tensor, cn: torch.Tensor,
 
 def lloyd_step(x: torch.Tensor, c: torch.Tensor, cn: torch.Tensor,
                true_m: int, *, block_m: int, block_k: int, block_f: int):
-    """Raw one-pass kernel entry on pre-padded f32 inputs. Returns
-    (min (Mp,), argmin (Mp,), sums (Mp/bm, Kp, Fp), counts (Mp/bm, Kp))."""
+    """Raw one-pass kernel entry on pre-padded inputs (X and C f32, bf16 or
+    fp16, as :func:`distance_argmin`). Returns (min (Mp,), argmin (Mp,),
+    sums (Mp/bm, Kp, Fp), counts (Mp/bm, Kp)), all f32 but argmin."""
     check_padded(x, c, cn, block_m, block_k, block_f)
+    dt = _build.input_dtype(x, c)
     if _build.on_cpu(x, c, cn):
         return lloyd_step_plain(x, c, cn, true_m, block_m)
     mp, fp = x.shape
@@ -82,10 +89,9 @@ def lloyd_step(x: torch.Tensor, c: torch.Tensor, cn: torch.Tensor,
     am = torch.empty(mp, dtype=torch.int32, device=dev)
     sums = torch.empty((nt, kp, fp), dtype=torch.float32, device=dev)
     counts = torch.empty((nt, kp), dtype=torch.float32, device=dev)
-    f32 = torch.float32
-    code = _build.library().lib.fk_lloyd_step(
-        _build.ptr(x, f32, "x"), _build.ptr(c, f32, "c"),
-        _build.ptr(cn, f32, "cn"), mind.data_ptr(), am.data_ptr(),
+    code = _build.launch(
+        "fk_lloyd_step", dt, _build.ptr(x, dt, "x"), _build.ptr(c, dt, "c"),
+        _build.ptr(cn, torch.float32, "cn"), mind.data_ptr(), am.data_ptr(),
         sums.data_ptr(), counts.data_ptr(), true_m, mp, kp, fp, block_m,
         block_f, _build.stream_of(x))
     _build.check(code, "lloyd_step")
@@ -101,9 +107,10 @@ def tile_update(xp: torch.Tensor, am: torch.Tensor, sums_p: torch.Tensor,
                 tile: Optional[torch.Tensor] = None,
                 gate: Optional[torch.Tensor] = None) -> None:
     """Write the update of row tiles into ``sums_p`` (T, Kp, Fp) and
-    ``counts_p`` (T, Kp) in place, from padded X (Mp, Fp) and the padded
-    assignment ``am`` (Mp,) int32: every tile, or only tile ``tile`` (0-d
-    int32). With ``gate`` (0-d int32) it writes only when ``gate > 0``.
+    ``counts_p`` (T, Kp) in place (f32), from padded X (Mp, Fp; f32, bf16
+    or fp16) and the padded assignment ``am`` (Mp,) int32: every tile, or
+    only tile ``tile`` (0-d int32). With ``gate`` (0-d int32) it writes
+    only when ``gate > 0``.
     Both stay on the data's device, so the caller never synchronises.
 
     On the card this launches ``emit_update`` alone (``update_tiles_kernel``),
@@ -131,8 +138,10 @@ def tile_update(xp: torch.Tensor, am: torch.Tensor, sums_p: torch.Tensor,
         counts_p.index_copy_(0, idx, new_c)
         return
     i32, f32 = torch.int32, torch.float32
-    code = _build.library().lib.fk_update_tiles(
-        _build.ptr(xp, f32, "xp"), _build.ptr(am, i32, "am"),
+    dt = _build.input_dtype(xp)
+    code = _build.launch(
+        "fk_update_tiles", dt, _build.ptr(xp, dt, "xp"),
+        _build.ptr(am, i32, "am"),
         None if tile is None else _build.ptr(tile, i32, "tile"),
         None if gate is None else _build.ptr(gate, i32, "gate"),
         _build.ptr(sums_p, f32, "sums_p"),
@@ -157,6 +166,10 @@ def check_padded_batched(x: torch.Tensor, c: torch.Tensor, cn: torch.Tensor,
                          f"Fp), cn (B, Kp) with B >= 1; got {tuple(x.shape)}, "
                          f"{tuple(c.shape)}, {tuple(cn.shape)}")
     check_padded(x[0], c[0], cn[0], block_m, block_k, block_f)
+    if x.dtype != torch.float32 or c.dtype != torch.float32:
+        raise NotImplementedError(
+            f"lloyd_step_batched runs float32 only, got {x.dtype} / "
+            f"{c.dtype}: the 2-byte batched step is ROADMAP Queue 2 A3")
     if x.shape[0] > MAX_PROBLEMS:
         raise ValueError(f"{x.shape[0]} problems in one launch; the kernel's "
                          f"grid holds at most {MAX_PROBLEMS} (gridDim.y)")

@@ -16,11 +16,14 @@ partial blocks and recomputes a mismatched tile
 (``lloyd_step.recompute_update``). The 12-word descriptor has two slots:
 the distance GEMM and the update product.
 
-CUDA kernel: ``lloyd_tile_kernel<BM, true, true>`` in
-``csrc/fk_kernels.cu``, sharing ``locate_and_correct`` with
+CUDA kernels: ``lloyd_tile_kernel<BM, true, true>`` (f32) and
+``lloyd_tile_mma_kernel<T, BM, true, true>`` (bf16, fp16) in
+``csrc/fk_kernels.cu``, sharing the product with every instantiation of
+its input dtype T (f32, bf16 or fp16), ``locate_and_correct`` with
 ``distance_argmin_ft`` and ``emit_update`` with ``lloyd_step``, so it is bit
-for bit the unprotected kernels plus the checksums. Bound on the H100: as
-``lloyd_step``, plus the (Mp/bm, 2, Fp) expected-checksum output.
+for bit the unprotected kernels of its dtype plus the checksums. Bound on
+the H100: as ``lloyd_step``, plus the (Mp/bm, 2, Fp) expected-checksum
+output.
 """
 from __future__ import annotations
 
@@ -66,17 +69,18 @@ def make_injection(*, distance: Optional[tuple] = None,
 def lloyd_step_ft_plain(x, c, cn, inj, true_m, block_m, block_k, block_f,
                         factor):
     """Plain PyTorch version: (min, argmin, det, sums, counts, ucheck,
-    ccheck), the kernel's shapes."""
+    ccheck), the kernel's shapes, every product in f32 on the widened
+    values."""
     ref.full_f32(x.device)
-    acc, det = abft_correct_plain(x @ c.T, x, c, inj, block_m, block_k,
-                                  block_f, factor)
+    acc, det = abft_correct_plain(x.float() @ c.float().T, x, c, inj,
+                                  block_m, block_k, block_f, factor)
     mind, am = ref.first_min(cn[None, :] - 2.0 * acc)
     mp, fp = x.shape
     kp = c.shape[0]
     nt = mp // block_m
     rows = torch.arange(mp, device=x.device).view(nt, block_m)
     valid = rows < true_m
-    xt = x.view(nt, block_m, fp)
+    xt = x.float().view(nt, block_m, fp)
     sums, counts = tile_update_plain(xt, am.view(nt, block_m), valid, kp)
     vf = valid.float()
     enc = torch.stack([vf, vf * (am.view(nt, block_m) + 1).float()], -1)
@@ -96,10 +100,12 @@ def lloyd_step_ft_plain(x, c, cn, inj, true_m, block_m, block_k, block_f,
 def lloyd_step_ft(x: torch.Tensor, c: torch.Tensor, cn: torch.Tensor,
                   inj: torch.Tensor, true_m: int, *, block_m: int,
                   block_k: int, block_f: int, factor: float):
-    """Raw one-pass FT kernel entry on pre-padded f32 inputs. Returns
-    (min (Mp,), argmin (Mp,), det (T,), sums (T, Kp, Fp), counts (T, Kp),
-    ucheck (T, 2, Fp), ccheck (T, 2)) with T = Mp / block_m."""
+    """Raw one-pass FT kernel entry on pre-padded inputs (X and C f32, bf16
+    or fp16). Returns (min (Mp,), argmin (Mp,), det (T,), sums (T, Kp, Fp),
+    counts (T, Kp), ucheck (T, 2, Fp), ccheck (T, 2)) with T = Mp /
+    block_m, all f32 but argmin and det."""
     check_padded(x, c, cn, block_m, block_k, block_f)
+    dt = _build.input_dtype(x, c)
     if inj.shape[0] != INJ_LEN:
         raise ValueError(f"lloyd_step_ft takes a {INJ_LEN}-word descriptor, "
                          f"got {tuple(inj.shape)}")
@@ -118,9 +124,10 @@ def lloyd_step_ft(x: torch.Tensor, c: torch.Tensor, cn: torch.Tensor,
     counts = torch.empty((nt, kp), dtype=f32, device=dev)
     ucheck = torch.empty((nt, 2, fp), dtype=f32, device=dev)
     ccheck = torch.empty((nt, 2), dtype=f32, device=dev)
-    code = _build.library().lib.fk_lloyd_step_ft(
-        _build.ptr(x, f32, "x"), _build.ptr(c, f32, "c"),
-        _build.ptr(cn, f32, "cn"), _build.ptr(inj, torch.int32, "inj"),
+    code = _build.launch(
+        "fk_lloyd_step_ft", dt, _build.ptr(x, dt, "x"),
+        _build.ptr(c, dt, "c"), _build.ptr(cn, f32, "cn"),
+        _build.ptr(inj, torch.int32, "inj"),
         mind.data_ptr(), am.data_ptr(), det.data_ptr(), sums.data_ptr(),
         counts.data_ptr(), ucheck.data_ptr(), ccheck.data_ptr(), factor,
         true_m, mp, kp, fp, block_m, block_f, _build.stream_of(x))

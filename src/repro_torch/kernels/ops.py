@@ -18,6 +18,14 @@ outside any kernel, so nothing compared across the packages changes.
 A tensor on the CPU runs every kernel's plain version; a CUDA tensor runs
 the kernels. Tiles come from explicit :class:`KernelParams` or the port's
 H100 defaults (``repro_torch.hw``); an autotuned table is later work.
+
+Compute dtypes: the single-problem entries (:func:`fused_assign`,
+:func:`fused_lloyd`, :func:`fused_assign_ft`, :func:`fused_lloyd_ft`,
+:func:`tiled_update`) take X in f32, bf16 or fp16, as the reference's
+templates do: the plan keeps X in its dtype, the centroids are cast to it,
+and norms, distances, sums and checksums stay f32. The batched, pruned and
+int8 entries take f32 X only (their 2-byte variants are ROADMAP Queue 2
+A3 and A6; int8 quantises f32 rows).
 """
 from __future__ import annotations
 
@@ -31,6 +39,7 @@ from repro_torch import hw
 from repro_torch.core import dmr as dmr_mod
 from repro_torch.core.checksum import threshold_factor
 from repro_torch.dist.compression import quantize_rows
+from repro_torch.kernels import _build
 from repro_torch.kernels import distance_argmin as _da
 from repro_torch.kernels import distance_argmin_ft as _daft
 from repro_torch.kernels import distance_argmin_int8 as _dai
@@ -57,6 +66,15 @@ class KernelParams:
 DEFAULT_PARAMS = KernelParams()
 
 
+def require_f32(dtype: torch.dtype, what: str, queue: str) -> None:
+    """Raise NotImplementedError for an entry whose 2-byte variant is not
+    ported yet (``queue``: where ROADMAP.md files it)."""
+    if dtype != torch.float32:
+        raise NotImplementedError(
+            f"{what} runs float32 only, got {dtype}; its bf16/fp16 variant "
+            f"is ROADMAP {queue}")
+
+
 def check_cuda_params(params: KernelParams) -> None:
     """Raise for a tile the CUDA kernels are not built for."""
     if (params.block_m not in hw.SUPPORTED_BLOCK_M
@@ -75,11 +93,12 @@ def _round_up(x: int, m: int) -> int:
 @dataclasses.dataclass(frozen=True)
 class DataPlan:
     """Per-fit data plan: X padded to the tile grid and its f32 row squared
-    norms, computed once and reused by every Lloyd iteration.
+    norms, computed once and reused by every Lloyd iteration. X keeps its
+    dtype, the fit's compute dtype (f32, bf16 or fp16).
 
     x      : (m, f)   the original samples (update pass / reseeding)
     xp     : (mp, fp) X padded to the tile grid (== x when params is None)
-    xn     : (m,)     row squared norms, f32
+    xn     : (m,)     row squared norms of x as it is, summed in f32
     m, f   : true (unpadded) dimensions
     params : the KernelParams the padding was laid out for
     """
@@ -181,12 +200,11 @@ def _resolve_padded(x, c: torch.Tensor,
         params = clamp_params(x.shape[0], k, x.shape[1],
                               params or DEFAULT_PARAMS)
         plan = plan_data(x, params)
-    if plan.xp.dtype != torch.float32:
-        raise NotImplementedError(
-            f"compute dtype {plan.xp.dtype}: this slice of the port runs "
-            f"float32 only (bf16/fp16 tiles are ROADMAP Queue 1 work)")
+    _build.input_dtype(plan.xp)      # f32, bf16 or fp16, else it raises
     if plan.xp.is_cuda:
         check_cuda_params(params)
+    # the kernels' product takes one input dtype: C is cast to X's, and its
+    # norms are the f32 norms of the cast centroids (the reference's order)
     c = c.to(plan.xp.dtype)
     cp, cn = _pad_centroids(c, k, _round_up(k, params.block_k),
                             plan.xp.shape[1])
@@ -220,6 +238,7 @@ def _resolve_padded_int8(x, c: torch.Tensor,
     if isinstance(x, QuantPlan):
         plan, params = x, x.data.params
     else:
+        require_f32(x.dtype, "the int8 kernel's plan", "Queue 1 item 2")
         params = clamp_params(x.shape[0], k, x.shape[1],
                               params or DEFAULT_PARAMS)
         plan = plan_data_int8(x, params)
@@ -280,8 +299,9 @@ def tiled_update(plan: DataPlan, am: torch.Tensor, k: int, *,
 
     def update(out=None, gate=None):
         if out is None:
-            out = (plan.xp.new_empty((nt, kp, fp)),
-                   plan.xp.new_empty((nt, kp)))
+            f32 = dict(dtype=torch.float32, device=plan.xp.device)
+            out = (torch.empty((nt, kp, fp), **f32),
+                   torch.empty((nt, kp), **f32))
         _ll.tile_update(plan.xp, amp, *out, true_m=plan.m,
                         block_m=p.block_m, gate=gate)
         return out
@@ -387,6 +407,7 @@ def fused_lloyd_pruned(x, c: torch.Tensor,
     squared distance (M,), sums (K, F), counts (K,), new bounds, pruned
     tile fraction (0-d f32))."""
     plan, cp, cn, params = _resolve_padded(x, c, params)
+    require_f32(plan.xp.dtype, "lloyd_step_pruned", "Queue 2 A6")
     k, m = c.shape[0], plan.m
     mp = plan.xp.shape[0]
     if bounds is None:
@@ -529,10 +550,7 @@ def _resolve_padded_batched(x, c: torch.Tensor,
         params = clamp_params(x.shape[1], k, x.shape[2],
                               params or DEFAULT_PARAMS)
         plan = plan_data_batched(x, params)
-    if plan.xp.dtype != torch.float32:
-        raise NotImplementedError(
-            f"compute dtype {plan.xp.dtype}: this slice of the port runs "
-            f"float32 only (bf16/fp16 tiles are ROADMAP Queue 1 work)")
+    require_f32(plan.xp.dtype, "lloyd_step_batched", "Queue 2 A3")
     if plan.xp.is_cuda:
         check_cuda_params(params)
     cp, cn = _pad_centroids(c.to(plan.xp.dtype), k,
@@ -590,22 +608,25 @@ def abft_matmul(x: torch.Tensor, y: torch.Tensor, *,
                 block_k: int = hw.ABFT_BLOCK_K
                 ) -> tuple[torch.Tensor, torch.Tensor]:
     """ABFT GEMM D = X @ Y with in-kernel detection and correction, X
-    (M, K), Y (K, N) f32. Pads to :func:`abft_tiles`, launches
-    :func:`~repro_torch.kernels.matmul_abft.matmul_abft` (its plain version
-    on the CPU) and slices. ``inj`` is a
+    (M, K), Y (K, N) f32, bf16 or fp16. Pads to :func:`abft_tiles`,
+    launches :func:`~repro_torch.kernels.matmul_abft.matmul_abft` (its plain
+    version on the CPU) on the values widened to f32 (the kernel's 2-byte
+    tiles are ROADMAP Queue 2 A7) and slices. The detection threshold is
+    the inputs' dtype's, as the reference kernel's: a bf16 product is held
+    to bf16 rounding, not to f32's. ``inj`` is a
     :func:`~repro_torch.kernels.matmul_abft.make_injection` descriptor
     (m-tile, n-tile, k-step, row, col, delta) at those tiles. Returns
-    (D (M, N), detected count 0-d int32)."""
+    (D (M, N) f32, detected count 0-d int32)."""
     m, k = x.shape
     n = y.shape[1]
     bm, bn, bk = abft_tiles(m, n, k, block_m, block_n, block_k)
     mp, np_, kp = _round_up(m, bm), _round_up(n, bn), _round_up(k, bk)
+    factor = threshold_factor(kp, torch.promote_types(x.dtype, y.dtype))
     xp = _pad_to(x.float(), mp, kp)
     yp = _pad_to(y.float(), kp, np_)
     inj = (_mma.no_injection() if inj is None else inj).to(xp.device)
     d, det = _mma.matmul_abft(xp, yp, inj, block_m=bm, block_n=bn,
-                              block_k=bk,
-                              factor=threshold_factor(kp, xp.dtype))
+                              block_k=bk, factor=factor)
     return d[:m, :n], det.sum().to(torch.int32)
 
 

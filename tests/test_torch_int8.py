@@ -286,7 +286,8 @@ def test_protected_int8_refused_like_reference():
 
 
 @pytest.mark.parametrize("kw", [dict(compute_dtype="int8", batch_size=64),
-                                dict(compute_dtype="bfloat16")])
+                                dict(compute_dtype="float16",
+                                     backend="lloyd_pruned")])
 def test_later_slices_still_raise(kw):
     with pytest.raises(NotImplementedError):
         KMeans(4, device="cpu", **kw)
