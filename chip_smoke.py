@@ -10,7 +10,8 @@ offline (``detect``), pruned (``backend="lloyd_pruned"``), quantised
 (``compute_dtype="int8"``) and in bf16 / fp16 (``compute_dtype=
 "bfloat16"/"float16"``, tensor cores), at M = 2**20 rows x F = 128 features x
 K = 1000 clusters; internlm2-1.8b serving (``repro_torch.launch.serve``,
-prefill + greedy decode through the micro-batcher on the flash kernel);
+prefill + greedy decode through the micro-batcher on the flash kernel;
+fp16 flash attention through ``attend``);
 and ``repro_torch.batch.BatchedKMeans`` seeding, fit, predict and score at
 the width of product-quantisation codebook training for an IVF-PQ index
 over 768-d embeddings: B = 48 sub-quantisers of
@@ -92,6 +93,22 @@ Phases, one line each:
      the phase-3 shape; and the clean residual
      margins of the two FT kernels at f32, bf16 and fp16 with the
      campaign's smallest delta against the thresholds.
+ 14. the rest of the 2-byte variants, at bf16 and fp16: (a) the batched
+     step (B = 7, N = 10,007, F = 20, K = 200 and 100), the pruned step (a
+     random mask on integer data; the all-zero mask bit for bit the 2-byte
+     ``lloyd_step``) and the 2-byte ABFT GEMM (clean, a fault over the
+     dtype's threshold, one under it) against their plain versions, and the
+     fp16 flash kernel at internlm2-1.8b's prefill and decode shapes under
+     the fp16 bars with failing controls, through ``attend`` and the op;
+     (b) ``BatchedKMeans`` at the PQ shape, 25 steps at tol = 0 bit for bit
+     48 single-problem 2-byte ``lloyd`` fits from the same seeds, predict
+     and score; (c) ``lloyd_pruned`` at the phase-3 shape with rows sorted
+     by label, bit for bit the 2-byte ``lloyd`` fit (prune fraction,
+     ms/iter); (d) ``FaultPolicy.detect()`` from phase 3's seeds (ms/iter,
+     detections, labels against the same dtype's ``fused`` fit, the exact
+     inertia of its centroids at most 5 % above that fit's) and the
+     2-byte ABFT GEMM at phase 10's shapes (clean, a planted fault found
+     and corrected); (e) the rows of the new kernels.
 
 A kernel's bound counts the work of the function at the true M, K and F,
 not at the padded tile grid; the padded figures are printed beside it.
@@ -168,6 +185,17 @@ LOWP_INERTIA_RTOL = 0.02
 LOWP_LABEL_AGREEMENT = 0.98
 # the campaign's smallest delta (core/fault.py: 2^18..2^23, either sign)
 CAMPAIGN_MIN_DELTA = 2.0 ** 18
+# phase 14: fp16 flash against the f32 oracle under the reference test's
+# bf16 bar scaled by fp16's eps (2^-10 against 2^-7: atol 2e-2 -> 2.5e-3);
+# decode also under a quarter of one fp16 ulp at 1, as the bf16 decode bar
+FLASH_FP16_BARS = ((2.5e-3, 1e-3),)
+FLASH_FP16_DECODE_BARS = FLASH_FP16_BARS + ((2.0 ** -12, 2.0 ** -10),)
+# a planted ABFT GEMM fault is this many times the threshold of its tile
+# (rounded up to a power of two), so it must be found at every dtype; the
+# corrected element then holds to f32 rounding at the fault's magnitude
+# (each package subtracts its own f32 checksum residual): 2^-16 |delta|
+ABFT_FAULT_OVER_THRESHOLD = 8.0
+ABFT_FIX_RTOL = 2.0 ** -16
 
 
 class SmokeFailure(RuntimeError):
@@ -1860,6 +1888,682 @@ def lowp_margins(torch, ops, daft, llft, plan, cp, cn, params, tiles,
     return out
 
 
+def abft_fault_delta(torch, ops, xg, yg, tiles, tile_ix, dt):
+    """(delta, threshold): a fault ABFT_FAULT_OVER_THRESHOLD x the threshold
+    of output tile ``tile_ix`` (m-tile, n-tile), rounded up to a power of
+    two. The threshold is the kernel's, factor(Kp, dtype) x max(max |col1|,
+    max |row1|, 1) from the expected checksums of the tile's inputs."""
+    bm, bn, bk = tiles
+    i, j = tile_ix
+    kp = -(-xg.shape[1] // bk) * bk
+    xt = xg[i * bm:(i + 1) * bm].float()
+    yt = yg[:, j * bn:(j + 1) * bn].float()
+    scale = max(float((xt.sum(0) @ yt).abs().max()),
+                float((xt @ yt.sum(1)).abs().max()), 1.0)
+    thr = ops.threshold_factor(kp, dt) * scale
+    return 2.0 ** math.ceil(math.log2(ABFT_FAULT_OVER_THRESHOLD * thr)), thr
+
+
+def abft_checks(torch, ops, mma, xg, yg, dt, under: bool) -> dict:
+    """The 2-byte ABFT GEMM (``ops.abft_matmul``) on xg (m, k) . yg (k, n),
+    both of dtype ``dt``, against the plain product of the same values:
+    clean (no detection, D within rtol 1e-5 of the plain version), a fault
+    over its tile's threshold in a middle tile after a middle k-step (one
+    detection; every other element within rtol 1e-5 of the clean plain
+    product, the corrected one within ABFT_FIX_RTOL |delta|) and, with
+    ``under``, a fault of a 64th of the threshold at the same place (no
+    detection, D off by it there)."""
+    m, k = xg.shape
+    n = yg.shape[1]
+    bm, bn, bk = ops.abft_tiles(m, n, k)
+    tiles = (-(-m // bm), -(-n // bn), -(-k // bk))
+    mp, np_, kp = tiles[0] * bm, tiles[1] * bn, tiles[2] * bk
+    xp, yp = ops._pad_to(xg, mp, kp), ops._pad_to(yg, kp, np_)
+    factor = ops.threshold_factor(kp, dt)
+    no_inj = mma.no_injection().cuda()
+    d, det = ops.abft_matmul(xg, yg)
+    pd, pdet = mma.matmul_abft_plain(xp, yp, no_inj, bm, bn, bk, factor)
+    pd = pd[:m, :n]
+    ok, err = rel_ok(d, pd, 1e-5)
+    what = f"{dt} abft_matmul {m} x {k} x {n}"
+    expect(int(det) == 0 and int(pdet.sum()) == 0 and ok,
+           f"{what} clean: det {int(det)}, plain det {int(pdet.sum())}, "
+           f"err {err}")
+    ti, tj, tk = tiles[0] // 2, tiles[1] // 2, tiles[2] // 2
+    row, col = 7, 31
+    gi, gj = ti * bm + row, tj * bn + col
+    delta, thr = abft_fault_delta(torch, ops, xg, yg, (bm, bn, bk), (ti, tj),
+                                  dt)
+    d_f, det_f = ops.abft_matmul(
+        xg, yg, inj=mma.make_injection(ti, tj, tk, row, col, delta).cuda())
+    fix = abs(float(d_f[gi, gj]) - float(pd[gi, gj]))
+    d_f[gi, gj] = pd[gi, gj]
+    ok_rest, _ = rel_ok(d_f, pd, 1e-5)
+    expect(int(det_f) == 1 and ok_rest and fix <= ABFT_FIX_RTOL * delta,
+           f"{what}: a fault of {delta} (threshold {thr}) detected "
+           f"{int(det_f)} times, corrected element off by {fix}, the rest "
+           f"within rtol 1e-5: {ok_rest}")
+    out = {"tiles": [bm, bn, bk], "clean_max_abs_err": err,
+           "fault_delta": delta, "fault_tile_threshold": thr,
+           "fault_detected": int(det_f), "corrected_element_err": fix}
+    del d_f
+    if under:
+        small = thr / 64.0
+        d_u, det_u = ops.abft_matmul(
+            xg, yg, inj=mma.make_injection(ti, tj, tk, row, col,
+                                           small).cuda())
+        off = float(d_u[gi, gj]) - float(pd[gi, gj])
+        expect(int(det_u) == 0 and abs(off - small) <= 1e-3 * small
+               + 1e-5 * float(pd.abs().max()),
+               f"{what}: a fault of {small} under the threshold detected "
+               f"{int(det_u)} times or D off by {off} there")
+        out.update(under_delta=small, under_detected=int(det_u))
+        del d_u
+    del d, pd, xp, yp
+    torch.cuda.empty_cache()
+    return out
+
+
+def abft_times(torch, ops, hw, mma, xg, yg, dt, bound) -> dict:
+    """The 2-byte ABFT GEMM's time at xg (m, k) . yg (k, n) beside its
+    plain version's, ``torch.matmul`` in the 2-byte dtype (D rounded to 2
+    bytes) and its bound: the tensor-core FLOPs or the bytes of 2-byte X and
+    Y and the f32 D."""
+    m, k = xg.shape
+    n = yg.shape[1]
+    bm, bn, bk = ops.abft_tiles(m, n, k)
+    mp, np_, kp = -(-m // bm) * bm, -(-n // bn) * bn, -(-k // bk) * bk
+    xp, yp = ops._pad_to(xg, mp, kp), ops._pad_to(yg, kp, np_)
+    factor = ops.threshold_factor(kp, dt)
+    no_inj = mma.no_injection().cuda()
+    b_ms, b_by = bound(2.0 * m * n * k, 2.0 * (m * k + k * n) + 4.0 * m * n,
+                       peak=hw.PEAK_FLOPS_BF16)
+    out = {"ms": cuda_ms(lambda: mma.matmul_abft(
+               xp, yp, no_inj, block_m=bm, block_n=bn, block_k=bk,
+               factor=factor)),
+           "plain_ms": cuda_ms(lambda: mma.matmul_abft_plain(
+               xp, yp, no_inj, bm, bn, bk, factor), reps=2),
+           "library_ms": cuda_ms(lambda: torch.matmul(xg, yg)),
+           "bound_ms": b_ms, "bound_by": b_by}
+    del xp, yp
+    torch.cuda.empty_cache()
+    return out
+
+
+def tile_bound_ok(torch, got, want, xn) -> tuple[bool, float]:
+    """The pruned step's tile bounds, sqrt(max(d, 0)) of true squared
+    distances d, which cancel the row norms: where the plain version
+    computed a cell, the squares agree to rtol 1e-5 of the largest row norm
+    (the kernel's and the plain version's f32 sums run in other orders, and
+    the root of a small d amplifies that); elsewhere both hold the
+    placeholder. Returns (ok, the largest squared difference)."""
+    live = want < 3e38
+    err = float((got[live].double() ** 2 - want[live].double() ** 2)
+                .abs().max()) if bool(live.any()) else 0.0
+    ok = bool(torch.equal(got[~live], want[~live]))
+    return ok and err <= 1e-5 * max(float(xn.max()), 1.0), err
+
+
+def phase_lowp_rest_kernels(torch, ops, ll, llp, mma, dtype) -> dict:
+    """Phase 14 (a): the 2-byte batched step, pruned step and ABFT GEMM
+    against their plain versions and the kernels they must equal."""
+    import numpy as np
+    import torch.nn.functional as F
+    from repro_torch.data.blobs import make_blobs
+    dt = getattr(torch, dtype)
+    out = {"batched": [], "pruned": [], "abft_matmul": []}
+    for b, n, f, k in ((7, 10_007, 20, 200), (7, 10_007, 20, 100)):
+        x, c = pq_stack(torch, b, n, f, k)
+        params = ops.clamp_params(n, k, f, ops.DEFAULT_PARAMS)
+        plan, cp, cn, params = ops._resolve_padded_batched(
+            ops.plan_data_batched(x.to(dt), params), c, None)
+        tiles = dict(block_m=params.block_m, block_k=params.block_k,
+                     block_f=params.block_f)
+        _, np_, fp = plan.xp.shape
+        kp, bm = cp.shape[1], params.block_m
+        nt = np_ // bm
+        rec = {"b": b, "n": n, "f": f, "k": k, "tol_rel": 1e-5}
+        got = ll.lloyd_step_batched(plan.xp, cp, cn, n, **tiles)
+        want = ll.lloyd_step_batched_plain(plan.xp, cp, cn, n, bm)
+        ok, rec["min_err"] = rel_ok(got[0], want[0], 1e-5)
+        expect(ok, f"{dtype} lloyd_step_batched distances vs plain {rec}")
+        valid = (torch.arange(np_, device=x.device) < n).view(nt, bm)
+        near, s_err = 0, 0.0
+        for i in range(b):
+            near += near_tie_rows(torch, plan.xp[i], cp[i], cn[i], got[1][i],
+                                  want[1][i], f"{dtype} lloyd_step_batched "
+                                  f"problem {i} K={k}")
+            # sums against the plain update of the kernel's own labels
+            s_p, c_p = ll.tile_update_plain(plan.xp[i].view(nt, bm, fp),
+                                            got[1][i].view(nt, bm), valid, kp)
+            ok, e = rel_ok(got[2][i], s_p, 1e-5)
+            expect(ok and bool(torch.equal(got[3][i], c_p)),
+                   f"{dtype} lloyd_step_batched problem {i} sums/counts vs "
+                   f"the plain update K={k}")
+            s_err = max(s_err, e)
+            one = ll.lloyd_step(plan.xp[i], cp[i], cn[i], n, **tiles)
+            expect(all(bool(torch.equal(g[i], o)) for g, o in zip(got, one)),
+                   f"{dtype} batched problem {i} is not bit for bit "
+                   f"lloyd_step K={k}")
+        rec.update(near_tie_labels=near, sums_err=s_err)
+        out["batched"].append(rec)
+        del x, c, plan, got, want, one
+        torch.cuda.empty_cache()
+    rng = np.random.default_rng(SEED + 14)
+    for k in (1000, 100):
+        params = ops.clamp_params(M_SMALL, k, F_SMALL, ops.DEFAULT_PARAMS)
+        bm, bk = params.block_m, params.block_k
+        tiles = dict(block_m=bm, block_k=bk, block_f=params.block_f)
+        rec = {"k": k, "tol_rel": 1e-5}
+
+        def padded(x, c):
+            plan, cp, cn, _ = ops._resolve_padded(
+                ops.plan_data(x.to(dt), params), c, None)
+            xn = F.pad(plan.xn, (0, plan.xp.shape[0] - plan.m)).contiguous()
+            return plan, cp, cn, xn
+
+        # a random mask on small integers: every product and sum exact
+        xi = rng.integers(-3, 4, size=(M_SMALL, F_SMALL)).astype(np.float32)
+        ci = rng.integers(-3, 4, size=(k, F_SMALL)).astype(np.float32)
+        plan, cp, cn, xn = padded(torch.from_numpy(xi).cuda(),
+                                  torch.from_numpy(ci).cuda())
+        nt, nkt = plan.xp.shape[0] // bm, cp.shape[0] // bk
+        skip = torch.from_numpy((rng.random((nt, nkt)) < 0.5)
+                                .astype(np.int32)).cuda()
+        got = llp.lloyd_step_pruned(plan.xp, cp, cn, xn, skip, plan.m, **tiles)
+        want = llp.lloyd_step_pruned_plain(plan.xp, cp, cn, xn, skip, plan.m,
+                                           bm, bk)
+        for i, what in ((1, "argmin"), (2, "sums"), (3, "counts")):
+            expect(bool(torch.equal(got[i], want[i])),
+                   f"{dtype} lloyd_step_pruned {what} vs plain, random mask "
+                   f"K={k}")
+        ok, rec["random_min_err"] = rel_ok(got[0], want[0], 1e-5)
+        ok2, rec["random_tmin_err"] = rel_ok(got[4], want[4], 1e-5)
+        expect(ok and ok2, f"{dtype} lloyd_step_pruned min / tmin vs plain, "
+               f"random mask K={k}")
+        rec["random_mask_skipped"] = float(skip.float().mean())
+        # no skips on blob data: bit for bit the 2-byte lloyd_step
+        x_np, _ = make_blobs(M_SMALL, F_SMALL, k, seed=SEED + k)
+        x = torch.from_numpy(x_np).cuda()
+        c = torch.from_numpy(blob_centers(k, F_SMALL, SEED + k)).cuda()
+        plan, cp, cn, xn = padded(x, c)
+        zero = torch.zeros_like(skip)
+        got = llp.lloyd_step_pruned(plan.xp, cp, cn, xn, zero, plan.m, **tiles)
+        one = ll.lloyd_step(plan.xp, cp, cn, plan.m, **tiles)
+        expect(all(bool(torch.equal(a, b_)) for a, b_ in zip(got, one)),
+               f"{dtype} lloyd_step_pruned without skips is not the 2-byte "
+               f"lloyd_step K={k}")
+        want = llp.lloyd_step_pruned_plain(plan.xp, cp, cn, xn, zero, plan.m,
+                                           bm, bk)
+        ok, rec["no_skip_tmin_sq_err"] = tile_bound_ok(torch, got[4], want[4],
+                                                       xn)
+        expect(ok, f"{dtype} lloyd_step_pruned tmin vs plain K={k}: squared "
+               f"bounds off by {rec['no_skip_tmin_sq_err']}")
+        rec["near_tie_labels"] = near_tie_rows(
+            torch, plan.xp, cp, cn, got[1], want[1],
+            f"{dtype} lloyd_step_pruned K={k}")
+        out["pruned"].append(rec)
+        del plan, got, want, one, xi, ci
+        torch.cuda.empty_cache()
+        # the ABFT GEMM at the kernels' product shape, on normal data
+        gen = torch.Generator(device=DEV).manual_seed(SEED + k)
+        xg = torch.randn(M_SMALL, F_SMALL, generator=gen,
+                         device=DEV).to(dt)
+        yg = torch.randn(F_SMALL, k, generator=gen, device=DEV).to(dt)
+        out["abft_matmul"].append(dict(
+            k=k, **abft_checks(torch, ops, mma, xg, yg, dt, under=True)))
+        del x, c, xg, yg
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_flash_fp16(torch, fa, attn, hw) -> tuple[dict, dict]:
+    """Phase 14 (a), fp16 flash attention at internlm2-1.8b's prefill (B =
+    4, H = 16, KV = 8, S = 2048, hd = 128, causal) and decode (one query,
+    2080 slots, the last 31 cold) shapes: through ``attend`` (the path;
+    launches counted) against the chunked plain math, then the op against
+    the f32 oracle under the fp16 bars with a control that must break them,
+    kernel / plain / SDPA times and the bounds (as phase 11). Returns
+    (record, the kernel row)."""
+    import torch.nn.functional as F
+    dev, f16 = DEV, torch.float16
+    gen = torch.Generator(device=dev).manual_seed(SEED + 16)
+    b, h, kvh, s, hd = LM_BATCH, LM_HEADS, LM_KV_HEADS, LM_PROMPT, LM_HD
+
+    def draw(*shape):
+        return torch.randn(*shape, generator=gen, device=dev)
+
+    def ratio(got, want, bars):
+        d, w = (got.double() - want.double()).abs(), want.double().abs()
+        return max(float((d / (a + r * w)).max()) for a, r in bars)
+
+    def oracle(q, k, v, qpos, kpos):
+        return fa.flash_attention_plain(q.float(), k.float(), v.float(),
+                                        qpos, kpos)
+
+    skv = LM_PROMPT + LM_GEN
+    kpos_d = torch.arange(skv, dtype=torch.int32, device=dev)
+    kpos_d[LM_PROMPT + 1:] = NEG_POS
+    qpos_d = torch.tensor([LM_PROMPT], dtype=torch.int32, device=dev)
+    pos = torch.arange(s, dtype=torch.int32, device=dev)
+    # (B, S, H, hd) layout, as the model calls attend
+    qa, ka, va = (draw(b, s, h, hd).to(f16), draw(b, s, kvh, hd).to(f16),
+                  draw(b, s, kvh, hd).to(f16))
+    qd, kd, vd = (draw(b, 1, h, hd).to(f16), draw(b, skv, kvh, hd).to(f16),
+                  draw(b, skv, kvh, hd).to(f16))
+    fa.flash_attention.launches = 0
+    got_p = attn.attend(qa, ka, va, q_positions=pos, kv_positions=pos)
+    got_d = attn.attend(qd, kd, vd, q_positions=qpos_d, kv_positions=kpos_d)
+    torch.cuda.synchronize()
+    launches = fa.flash_attention.launches
+    expect(launches == 2, f"fp16 attend launched the flash kernel "
+           f"{launches} times, not 2")
+    rec = {"bars": {"fp16": FLASH_FP16_BARS,
+                    "fp16_decode": FLASH_FP16_DECODE_BARS},
+           "attend_launches": launches}
+    for name, got, (q, k, v, qp, kp), bars in (
+            ("attend_prefill", got_p, (qa, ka, va, pos, pos),
+             FLASH_FP16_BARS),
+            ("attend_decode", got_d, (qd, kd, vd, qpos_d, kpos_d),
+             FLASH_FP16_DECODE_BARS)):
+        want = attn._attend_local(q.float(), k.float(), v.float(),
+                                  q_positions=qp, kv_positions=kp,
+                                  causal=True, window=0, chunk=attn.Q_CHUNK)
+        r = ratio(got, want, bars)
+        expect(got.dtype == f16 and got.shape == q.shape and r <= 1.0,
+               f"fp16 {name} vs the chunked f32 math: {r} x its bar")
+        rec[name + "_err_over_bar"] = r
+    del got_p, got_d, qa, ka, va, qd, kd, vd
+    torch.cuda.empty_cache()
+
+    def qkv(sq, skv_):
+        q = draw(b, h, sq, hd) * hd ** -0.5
+        return (q.to(f16), draw(b, kvh, skv_, hd).to(f16),
+                draw(b, kvh, skv_, hd).to(f16))
+    # prefill: the op against the f32 oracle, the control one key past the
+    # causal edge, times, bounds (causal-useful work)
+    q, k, v = qkv(s, s)
+    got = fa.flash_attention(q, k, v, pos, pos)
+    want = oracle(q, k, v, pos, pos)
+    r_p = ratio(got, want, FLASH_FP16_BARS)
+    expect(got.dtype == f16 and r_p <= 1.0,
+           f"fp16 flash prefill: {r_p} x its bar")
+    ctrl = ratio(fa.flash_attention(q, k, v, pos, (pos - 1).clamp(min=0)),
+                 want, FLASH_FP16_BARS)
+    expect(ctrl > 1.0, f"fp16 prefill control: {ctrl} x the bar; the bar "
+           f"would not catch the fault")
+    flops = 4.0 * b * h * hd * s * (s + 1) / 2
+    bytes_p = 2.0 * (2 * b * h * s * hd + 2 * b * kvh * s * hd) + 8.0 * s
+    t_ops, t_bytes = flops / hw.PEAK_FLOPS_BF16, bytes_p / hw.HBM_BW
+    prefill = {
+        "shape": [b, h, kvh, s, s, hd], "err_over_bar": r_p,
+        "control_past_causal_edge": ctrl, "max_abs_err": max_err(got, want),
+        "ms": cuda_ms(lambda: fa.flash_attention(q, k, v, pos, pos)),
+        "plain_ms": cuda_ms(lambda: fa.flash_attention_plain(q, k, v, pos,
+                                                             pos), reps=2),
+        "sdpa_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, scale=1.0, enable_gqa=True)),
+        "bound_ms": 1e3 * max(t_ops, t_bytes),
+        "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+    rec["prefill"] = prefill
+    del q, k, v, got, want
+    torch.cuda.empty_cache()
+    # decode: cold slots; the control lets them in
+    q, k, v = qkv(1, skv)
+    got = fa.flash_attention(q, k, v, qpos_d, kpos_d)
+    want = oracle(q, k, v, qpos_d, kpos_d)
+    r_d = ratio(got, want, FLASH_FP16_DECODE_BARS)
+    expect(r_d <= 1.0, f"fp16 flash decode: {r_d} x its bar")
+    ctrl = ratio(fa.flash_attention(q, k, v, qpos_d, kpos_d.clamp(min=0)),
+                 want, FLASH_FP16_DECODE_BARS)
+    expect(ctrl > 1.0, f"fp16 decode control: {ctrl} x the bar")
+    valid = LM_PROMPT + 1
+    flops_d = 4.0 * b * h * valid * hd
+    bytes_d = 2.0 * (2 * b * h * hd + 2 * b * kvh * valid * hd) \
+        + 4.0 * (valid + 1)
+    t_ops, t_bytes = flops_d / hw.PEAK_FLOPS_BF16, bytes_d / hw.HBM_BW
+    mask = (kpos_d >= 0)[None, :] & (kpos_d[None, :] <= qpos_d[:, None])
+    decode = {
+        "shape": [b, h, kvh, 1, skv, hd], "err_over_bar": r_d,
+        "control_cold_slots_in": ctrl, "max_abs_err": max_err(got, want),
+        "ms": cuda_ms(lambda: fa.flash_attention(q, k, v, qpos_d, kpos_d),
+                      reps=20),
+        "plain_ms": cuda_ms(lambda: fa.flash_attention_plain(
+            q, k, v, qpos_d, kpos_d), reps=20),
+        "sdpa_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=mask, scale=1.0, enable_gqa=True), reps=20),
+        "bound_ms": 1e3 * max(t_ops, t_bytes),
+        "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+    rec["decode"] = decode
+    del q, k, v, got, want
+    torch.cuda.empty_cache()
+    row = {"name": "flash_attention_fp16", "route": "cuda",
+           "source": "src/repro_torch/csrc/fk_attention.cu",
+           "replaces": "src/repro/kernels/flash_attention.py:76",
+           "launches": launches, "max_abs_err": prefill["max_abs_err"],
+           "ms": prefill["ms"], "plain_ms": prefill["plain_ms"],
+           "bound_ms": prefill["bound_ms"], "bound_by": prefill["bound_by"],
+           "library_ms": prefill["sdpa_ms"],
+           "decode": {key: decode[key] for key in
+                      ("ms", "plain_ms", "bound_ms", "bound_by", "sdpa_ms",
+                       "max_abs_err")}}
+    return rec, row
+
+
+def phase_lowp_rest(torch, ops, hw, ll, llp, mma, fa, attn, KMeans,
+                    BatchedKMeans, FaultPolicy, x, labels_true, c_init,
+                    bound) -> tuple[dict, list]:
+    """Phase 14: the rest of the 2-byte variants at bf16 and fp16. (a) the
+    kernels against their plain versions (and fp16 flash), (b)
+    ``BatchedKMeans`` at the PQ shape bit for bit 48 single 2-byte ``lloyd``
+    fits, (c) ``lloyd_pruned`` at the phase-3 shape with rows sorted by
+    label bit for bit the 2-byte ``lloyd`` fit, (d) ``FaultPolicy.detect()``
+    and the 2-byte ABFT GEMM at phase 10's shapes, (e) the kernels' rows.
+    Each path's launches are counted from zero just before it runs."""
+    import torch.nn.functional as F
+    from repro_torch.core.kmeans import means_from_sums
+    rec = {"phase": 14}
+    rows = []
+    rec_f, row_f = phase_flash_fp16(torch, fa, attn, hw)
+    rec["flash_fp16"] = rec_f
+    rows.append(row_f)
+    base = dict(n_clusters=K_FULL, max_iter=ITERS, tol=0.0, random_state=SEED)
+    params = ops.clamp_params(M_FULL, K_FULL, F_FULL, ops.DEFAULT_PARAMS)
+    bm, bk = params.block_m, params.block_k
+    tiles = dict(block_m=bm, block_k=bk, block_f=params.block_f)
+    kp = -(-K_FULL // bk) * bk
+    # the PQ stack and its fused seeds (f32, as the reference seeds)
+    xq, _ = pq_stack(torch, B_PQ, N_PQ, F_PQ, K_PQ)
+    pq_base = dict(n_clusters=K_PQ, random_state=SEED)
+    seeds = BatchedKMeans(init="kmeans++-fused", **pq_base).init_centroids(xq)
+    # rows sorted by generating label, seeded by each label's first row
+    order = torch.argsort(labels_true, stable=True)
+    xs, lab = x[order].contiguous(), labels_true[order]
+    first = torch.searchsorted(lab, torch.arange(K_FULL, device=lab.device,
+                                                 dtype=lab.dtype))
+    seeds_s = xs[first]
+    gen = torch.Generator(device=DEV).manual_seed(SEED)
+    xb = torch.randn(LM_TOKENS, LM_D_MODEL, generator=gen, device=DEV)
+    wb = torch.randn(LM_D_MODEL, LM_D_FF, generator=gen,
+                     device=DEV) / math.sqrt(LM_D_MODEL)
+    m_f = float(M_FULL * F_FULL)
+    for dtype, tag in (("bfloat16", "bf16"), ("float16", "fp16")):
+        dt = getattr(torch, dtype)
+        r = {"kernels": phase_lowp_rest_kernels(torch, ops, ll, llp, mma,
+                                                dtype)}
+        # --- (b) BatchedKMeans at the PQ shape
+        ll.lloyd_step_batched.launches = 0
+        bkm, fit_s = wall(lambda: BatchedKMeans(
+            max_iter=PQ_ITERS, tol=0.0, compute_dtype=dtype, **pq_base)
+            .fit(xq, centroids=seeds))
+        labels = bkm.predict(xq)
+        score = bkm.score(xq)
+        torch.cuda.synchronize()
+        launches_b = ll.lloyd_step_batched.launches
+        expect(launches_b > 0, f"{dtype} lloyd_step_batched was not launched "
+               f"on the batched path")
+        singles = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(B_PQ):
+            singles.append(KMeans(K_PQ, backend="lloyd", max_iter=PQ_ITERS,
+                                  tol=0.0, compute_dtype=dtype,
+                                  random_state=SEED + i)
+                           .fit(xq[i], centroids=seeds[i]))
+        torch.cuda.synchronize()
+        loop_s = time.perf_counter() - t0
+        for i, one in enumerate(singles):
+            expect(bool(torch.equal(one.cluster_centers_,
+                                    bkm.cluster_centers_[i]))
+                   and bool(torch.equal(one.labels_, bkm.labels_[i])),
+                   f"{dtype} batched problem {i} is not bit for bit its "
+                   f"single fit")
+            expect(bool(torch.equal(one.predict(xq[i]), labels[i])),
+                   f"{dtype} batched predict of problem {i} differs from "
+                   f"its single fit")
+        expect(bkm.cluster_centers_.dtype == torch.float32
+               and bool(torch.isfinite(bkm.cluster_centers_).all())
+               and bool((torch.from_numpy(score) < 0).all()),
+               f"{dtype} batched centroids not finite f32, or score {score}")
+        r["batched"] = {"b": B_PQ, "n": N_PQ, "f": F_PQ, "k": K_PQ,
+                        "batched_ms_per_iter": 1e3 * fit_s / PQ_ITERS,
+                        "single_loop_ms_per_iter": 1e3 * loop_s / PQ_ITERS,
+                        "singles_bitwise": B_PQ,
+                        "score_sum": float(score.sum()),
+                        "n_host_syncs": bkm._n_host_syncs,
+                        "launches": launches_b}
+        del singles, bkm, labels
+        torch.cuda.empty_cache()
+        # --- (c) lloyd_pruned at the phase-3 shape, rows sorted by label
+        llp.lloyd_step_pruned.launches = 0
+        km_apr, apr_s = wall(lambda: KMeans(
+            backend="lloyd_pruned", compute_dtype=dtype, **base)
+            .fit(xs, centroids=seeds_s))
+        torch.cuda.synchronize()
+        launches_p = llp.lloyd_step_pruned.launches
+        expect(launches_p > 0, f"{dtype} lloyd_step_pruned was not launched "
+               f"on the pruned path")
+        km_all, all_s = wall(lambda: KMeans(
+            backend="lloyd", compute_dtype=dtype, **base)
+            .fit(xs, centroids=seeds_s))
+        expect(bool(torch.equal(km_apr.cluster_centers_,
+                                km_all.cluster_centers_))
+               and bool(torch.equal(km_apr.labels_, km_all.labels_)),
+               f"{dtype} lloyd_pruned fit is not bit for bit the lloyd fit")
+        hist = km_apr.prune_history_
+        third = hist[-max(1, len(hist) // 3):]
+        expect(len(hist) == km_apr.n_iter_ and hist[0] == 0.0
+               and min(third) >= 0.5,
+               f"{dtype} aligned pruning below 50 % in the last third: "
+               f"{hist}")
+        r["pruned"] = {"lloyd_pruned_ms_per_iter": 1e3 * apr_s / ITERS,
+                       "lloyd_ms_per_iter": 1e3 * all_s / ITERS,
+                       "prune_history": hist, "launches": launches_p}
+        del km_apr, km_all
+        torch.cuda.empty_cache()
+        # --- (d) detect fit from phase 3's seeds, and the ABFT GEMM at
+        # phase 10's shapes
+        mma.matmul_abft.launches = 0
+        km_det, det_s = wall(lambda: KMeans(
+            fault=FaultPolicy.detect(), compute_dtype=dtype, **base)
+            .fit(x, centroids=c_init))
+        det_labels = km_det.predict(x)
+        det_score = km_det.score(x)
+        ya = km_det.cluster_centers_.T.contiguous()
+        r["abft_matmul_a"] = abft_checks(torch, ops, mma, x.to(dt),
+                                         ya.to(dt), dt, under=False)
+        r["abft_matmul_b"] = abft_checks(torch, ops, mma, xb.to(dt),
+                                         wb.to(dt), dt, under=False)
+        torch.cuda.synchronize()
+        launches_m = mma.matmul_abft.launches
+        expect(launches_m > 0, f"{dtype} matmul_abft was not launched")
+        km_f, f_s = wall(lambda: KMeans(compute_dtype=dtype, **base)
+                         .fit(x, centroids=c_init))
+        # the detect fit's distances are 2-byte (the reference's arithmetic),
+        # so labels near a tie move and the fit may settle in another
+        # optimum: the exact f32 inertia of its centroids is held one-sided
+        # to the fused fit's of its dtype (the int8 fit's bar), its labels
+        # reported
+        agree = float((km_det.labels_ == km_f.labels_).float().mean())
+        xn = (x * x).sum(1)
+        exact_det, exact_f = (
+            float((ops.fused_assign(x, c)[1] + xn).sum())
+            for c in (km_det.cluster_centers_, km_f.cluster_centers_))
+        del xn
+        expect(km_det._backend.name == "abft_offline"
+               and exact_det <= (1.0 + INT8_INERTIA_RTOL) * exact_f,
+               f"{dtype} detect fit ({km_det._backend.name}): exact inertia "
+               f"{exact_det} vs the fused fit's {exact_f}")
+        # at fp16 the reference's arithmetic overflows: the checksums of
+        # thousands of rows pass fp16's 65504 (the e2 weights alone do past
+        # 65504 rows), so a residual is inf and one element a product is
+        # "corrected" to NaN, in both packages; the score is then NaN
+        overflow = dtype == "float16" and math.isnan(det_score)
+        expect(bool(torch.isfinite(km_det.cluster_centers_).all())
+               and det_labels.shape == (M_FULL,)
+               and int(det_labels.min()) >= 0
+               and int(det_labels.max()) < K_FULL
+               and (det_score < 0 or overflow),
+               f"{dtype} detect predict/score out of range ({det_score})")
+        r["detect"] = {
+            "detect_ms_per_iter": 1e3 * det_s / km_det.n_iter_,
+            "fused_ms_per_iter": 1e3 * f_s / km_f.n_iter_,
+            "detected_errors": km_det.detected_errors_,
+            "label_agreement_with_fused": agree,
+            "exact_inertia": exact_det, "fused_exact_inertia": exact_f,
+            "inertia": km_det.inertia_, "fused_inertia": km_f.inertia_,
+            "score": det_score, "fp16_checksum_overflow": overflow,
+            "n_host_syncs": km_det._n_host_syncs,
+            "matmul_abft_launches": launches_m}
+        del km_det, km_f, det_labels
+        torch.cuda.empty_cache()
+
+        # --- (e) the rows. The batched step at the PQ shape
+        pq_params = ops.clamp_params(N_PQ, K_PQ, F_PQ, ops.DEFAULT_PARAMS)
+        plan, cp, cn, _ = ops._resolve_padded_batched(
+            ops.plan_data_batched(xq.to(dt), pq_params), seeds, None)
+        pq_tiles = dict(block_m=pq_params.block_m, block_k=pq_params.block_k,
+                        block_f=pq_params.block_f)
+        b_, np_, fp = plan.xp.shape
+        nt = np_ // pq_params.block_m
+        cn_lo = cn.to(dt)
+
+        def batched():
+            return ll.lloyd_step_batched(plan.xp, cp, cn, N_PQ, **pq_tiles)
+
+        def batched_plain():
+            return ll.lloyd_step_batched_plain(plan.xp, cp, cn, N_PQ,
+                                               pq_params.block_m)
+        # labels against the plain version's but for near ties, distances
+        # to rtol 1e-5, sums against the plain update of the kernel's own
+        # labels
+        k_out, p_out = batched(), batched_plain()
+        ok, b_err = rel_ok(k_out[0], p_out[0], 1e-5)
+        expect(ok, f"{dtype} lloyd_step_batched distances vs plain at the "
+               f"PQ shape")
+        valid = (torch.arange(np_, device=x.device) < N_PQ).view(
+            nt, pq_params.block_m)
+        near = 0
+        for i in range(b_):
+            near += near_tie_rows(torch, plan.xp[i], cp[i], cn[i],
+                                  k_out[1][i], p_out[1][i],
+                                  f"{dtype} lloyd_step_batched problem {i} "
+                                  f"at the PQ shape")
+            s_p, c_p = ll.tile_update_plain(
+                plan.xp[i].view(nt, pq_params.block_m, fp),
+                k_out[1][i].view(nt, pq_params.block_m), valid, cp.shape[1])
+            ok, e = rel_ok(k_out[2][i], s_p, 1e-5)
+            expect(ok and bool(torch.equal(k_out[3][i], c_p)),
+                   f"{dtype} lloyd_step_batched problem {i} sums/counts vs "
+                   f"the plain update at the PQ shape")
+            b_err = max(b_err, e)
+        r["batched"]["near_tie_labels_row"] = near
+        del k_out, p_out, s_p, c_p, valid
+        bq = float(B_PQ)
+        b_ms, b_by = bound(
+            2.0 * bq * N_PQ * K_PQ * F_PQ + bq * N_PQ * F_PQ,
+            2.0 * bq * (N_PQ + K_PQ) * F_PQ + 4.0 * bq * K_PQ
+            + 8.0 * bq * N_PQ + 4.0 * bq * nt * K_PQ * (F_PQ + 1),
+            peak=hw.PEAK_FLOPS_BF16)
+        rows.append({"name": f"lloyd_step_batched_{tag}", "route": "cuda",
+                     "source": "src/repro_torch/csrc/fk_kernels.cu",
+                     "replaces": "src/repro/kernels/lloyd_step.py:278",
+                     "launches": launches_b, "max_abs_err": b_err,
+                     "ms": cuda_ms(batched, reps=20),
+                     "plain_ms": cuda_ms(batched_plain, reps=3),
+                     "bound_ms": b_ms, "bound_by": b_by,
+                     "library_ms": cuda_ms(lambda: torch.baddbmm(
+                         cn_lo[:, None, :], plan.xp, cp.transpose(1, 2),
+                         alpha=-2.0).min(dim=2), reps=20)})
+        del plan, cp, cn, cn_lo
+        torch.cuda.empty_cache()
+        # the pruned step at the sorted fit's step-3 mask
+        plan = ops.plan_data(xs.to(dt), params)
+        c, bounds = seeds_s, None
+        for _ in range(2):
+            _, _, sums, counts, bounds, _ = ops.fused_lloyd_pruned(
+                plan, c, params, bounds=bounds)
+            c = means_from_sums(sums, counts, c)
+        _, cp, cn, _ = ops._resolve_padded(plan, c, params)
+        skip, _ = ops.prune_mask(bounds, cp, plan.m, params)
+        skip = skip.contiguous()
+        mp, fp = plan.xp.shape
+        nt, nkt = mp // bm, kp // bk
+        xn = F.pad(plan.xn, (0, mp - plan.m)).contiguous()
+        computed = int((skip == 0).sum())
+        ar = torch.arange(max(nt, nkt), device=skip.device)
+        rows_in = (plan.m - ar[:nt] * bm).clamp(max=bm)
+        cols_in = (K_FULL - ar[:nkt] * bk).clamp(max=bk)
+        cells = float(((skip == 0) * rows_in[:, None]
+                       * cols_in[None, :]).sum())
+
+        def pruned():
+            return llp.lloyd_step_pruned(plan.xp, cp, cn, xn, skip, plan.m,
+                                         **tiles)
+
+        def pruned_plain():
+            return llp.lloyd_step_pruned_plain(plan.xp, cp, cn, xn, skip,
+                                               plan.m, bm, bk)
+        k_out, p_out = pruned(), pruned_plain()
+        r["pruned"]["near_tie_labels_row"] = near_tie_rows(
+            torch, plan.xp, cp, cn, k_out[1], p_out[1],
+            f"{dtype} lloyd_step_pruned at the phase-3 shape")
+        pr_err = max(max_err(a, b) for a, b in zip(k_out, p_out)
+                     if a.is_floating_point())
+        del k_out, p_out
+        torch.cuda.empty_cache()
+        r["pruned"]["row_skipped"] = 1.0 - computed / (nt * nkt)
+        r["pruned"]["no_skip_ms"] = cuda_ms(
+            lambda: llp.lloyd_step_pruned(plan.xp, cp, cn, xn,
+                                          torch.zeros_like(skip), plan.m,
+                                          **tiles))
+        cn_lo = cn.to(dt)
+        lib_ms = cuda_ms(lambda: torch.addmm(
+            cn_lo[None, :], plan.xp, cp.T, beta=1.0, alpha=-2.0).min(dim=1))
+        b_ms, b_by = bound(2.0 * cells * F_FULL + m_f,
+                           2.0 * m_f + 2.0 * K_FULL * F_FULL + 12.0 * M_FULL
+                           + 4.0 * nt * K_FULL * (F_FULL + 1)
+                           + 8.0 * nt * nkt, peak=hw.PEAK_FLOPS_BF16)
+        rows.append({"name": f"lloyd_step_pruned_{tag}", "route": "cuda",
+                     "source": "src/repro_torch/csrc/fk_kernels.cu",
+                     "replaces": "src/repro/kernels/lloyd_step_pruned.py:189",
+                     "launches": launches_p, "max_abs_err": pr_err,
+                     "ms": cuda_ms(pruned),
+                     "plain_ms": cuda_ms(pruned_plain, reps=2),
+                     "bound_ms": b_ms, "bound_by": b_by,
+                     "library_ms": lib_ms})
+        del plan, cp, cn, cn_lo, xn, skip, bounds, sums, counts
+        torch.cuda.empty_cache()
+        # the ABFT GEMM at phase 10's shapes: the row is shape (a)
+        for key, (xg, yg) in (("a", (x, ya)), ("b", (xb, wb))):
+            r[f"abft_matmul_{key}"].update(abft_times(
+                torch, ops, hw, mma, xg.to(dt), yg.to(dt), dt, bound))
+        g = r["abft_matmul_a"]
+        rows.append({"name": f"matmul_abft_{tag}", "route": "cuda",
+                     "source": "src/repro_torch/csrc/fk_kernels.cu",
+                     "replaces": "src/repro/kernels/matmul_abft.py:127",
+                     "launches": launches_m,
+                     "max_abs_err": g["clean_max_abs_err"], "ms": g["ms"],
+                     "plain_ms": g["plain_ms"], "bound_ms": g["bound_ms"],
+                     "bound_by": g["bound_by"],
+                     "library_ms": g["library_ms"]})
+        del ya
+        torch.cuda.empty_cache()
+        emit(dict(phase=14, dtype=dtype, **r))
+    rec["library_calls"] = {
+        "lloyd_step_batched": "baddbmm(cn, X, C^T, alpha=-2) + min(dim=2) "
+                              "in the 2-byte dtype: distances and labels, "
+                              "no update",
+        "lloyd_step_pruned": "addmm(cn, X, C^T, alpha=-2) + min(dim=1) in "
+                             "the 2-byte dtype: every tile",
+        "matmul_abft": "torch.matmul(X, Y) in the 2-byte dtype: unprotected, "
+                       "D rounded to 2 bytes",
+        "flash_attention_fp16": "F.scaled_dot_product_attention at fp16"}
+    del xq, seeds, xs, lab, seeds_s, xb, wb
+    torch.cuda.empty_cache()
+    return rec, rows
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1888,6 +2592,7 @@ def main() -> int:
     from repro_torch.kernels import centroid_update_dmr as cud
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import matmul_abft as mma
+    from repro_torch.models import attention as attn
 
     ref.full_f32(torch.device("cuda"))
     smi = subprocess.run(
@@ -2176,6 +2881,13 @@ def main() -> int:
                          "lloyd_ft": ft_ms}, bound)
     emit(rec13)
     rows.extend(rows13)
+
+    # --- phase 14: the rest of the 2-byte variants --------------------------
+    rec14, rows14 = phase_lowp_rest(
+        torch, ops, hw, ll, llp, mma, fa, attn, KMeans, BatchedKMeans,
+        FaultPolicy, x, labels_true, c_init, bound)
+    emit(rec14)
+    rows.extend(rows14)
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi_line, flush=True)
     print(json.dumps({"ok": True, "device": {

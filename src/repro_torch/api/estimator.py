@@ -37,10 +37,6 @@ from repro_torch.kernels import ops, ref
 
 _INITS = ("kmeans++", "random")
 _COMPUTE_DTYPES = ("float32", "bfloat16", "float16", "int8")
-# backends whose 2-byte kernels are not ported yet -> where ROADMAP.md files
-# them
-_LATER_LOWP_BACKENDS = {"lloyd_pruned": "Queue 2 A6 (2-byte pruned step)",
-                        "abft_offline": "Queue 1 item 2 (2-byte detect)"}
 _PREDICT_CHUNK_ROWS = 65_536
 
 
@@ -88,14 +84,15 @@ class KMeans:
     "float32", "bfloat16", "float16" or "int8". bf16 and fp16 cast X (once
     per fit) and the centroids (per step) at the kernel boundary; the
     kernels multiply 2-byte tiles on the tensor cores into f32, and
-    centroids, distances and inertia stay f32. int8 picks the quantised
-    ``int8`` backend (an unprotected, assignment-only kernel) and keeps X
-    and the centroids f32 at the kernel boundary, since int8 is
-    quantisation per row, not a cast. ``batch_size``, and the
-    ``lloyd_pruned`` and ``detect`` (``abft_offline``) backends at bf16 /
-    fp16, belong to later slices and raise ``NotImplementedError``.
-    ``init`` is "kmeans++" or "random", as in the reference; the fused
-    seeding belongs to :class:`~repro_torch.batch.BatchedKMeans`.
+    centroids, distances and inertia stay f32, but for ``detect``
+    (``abft_offline``), whose product, norms and distances are in the
+    compute dtype, as the reference's. int8 picks the quantised ``int8``
+    backend (an unprotected, assignment-only kernel) and keeps X and the
+    centroids f32 at the kernel boundary, since int8 is quantisation per
+    row, not a cast. ``batch_size`` belongs to a later slice and raises
+    ``NotImplementedError``. ``init`` is "kmeans++" or "random", as in the
+    reference; the fused seeding belongs to
+    :class:`~repro_torch.batch.BatchedKMeans`.
 
     Attributes: ``cluster_centers_`` (K, F) f32 and ``labels_`` (M,) int32
     tensors on ``device``; ``inertia_``, ``n_iter_``, ``detected_errors_``
@@ -157,12 +154,6 @@ class KMeans:
                    "supports_int8 backend or drop compute_dtype='int8'"
                    if is_int8 else
                    "is an int8 template and needs compute_dtype='int8'"))
-        later = _LATER_LOWP_BACKENDS.get(self._backend.name)
-        if dtype in ("bfloat16", "float16") and later is not None:
-            raise NotImplementedError(
-                f"backend {self._backend.name!r} at compute_dtype={dtype!r} "
-                f"is not ported yet; it comes with a later slice (ROADMAP "
-                f"{later})")
         self._use_dmr = self.fault.dmr_enabled(self._backend)
         if self.fault.update_dmr and self._backend.fuses_update:
             warnings.warn(

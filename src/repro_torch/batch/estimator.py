@@ -15,7 +15,8 @@ problems. The loop runs in Python in ``sync_every``-step chunks: per-problem
 desynchronising the batch, and the host reads once per chunk and once at
 the end, through the counted ``_host_read``. Problem b seeds from
 ``random_state + b``, so at ``tol=0`` it is, bit for bit, the single-problem
-``KMeans(backend="lloyd", random_state=random_state + b)`` fit.
+``KMeans(backend="lloyd", random_state=random_state + b)`` fit, at every
+compute dtype.
 """
 from __future__ import annotations
 
@@ -32,7 +33,7 @@ from repro_torch.core import kmeans as km_mod
 from repro_torch.kernels import kmeanspp_init, ops
 
 _INITS = ("kmeans++", "random", "kmeans++-fused")
-_LATER_DTYPES = ("bfloat16", "float16")
+_COMPUTE_DTYPES = ("float32", "bfloat16", "float16")
 
 
 class BatchedKMeans:
@@ -43,8 +44,10 @@ class BatchedKMeans:
     ``random_state``) plus ``device`` ("cuda" by default, "cpu" for the
     kernels' plain versions). There is no ``autotune``: tiles are explicit
     ``KernelParams`` or ``ops.DEFAULT_PARAMS``, clamped to one problem's
-    shape. ``compute_dtype`` other than float32 belongs to a later slice and
-    raises ``NotImplementedError``.
+    shape. ``compute_dtype`` is "float32", "bfloat16" or "float16", as in
+    the reference: X is cast once per fit (the plan) and the centroids per
+    step, at the kernel boundary; seeding runs on the uncast f32 rows, and
+    centroids, distances and inertia stay f32.
 
     ``init``: "kmeans++" and "random" seed problem b as
     ``KMeans(random_state=random_state + b).init_centroids(x[b])`` does;
@@ -71,13 +74,9 @@ class BatchedKMeans:
         if sync_every < 1:
             raise ValueError(f"sync_every must be >= 1, got {sync_every}")
         dtype = _dtype_name(compute_dtype)
-        if dtype in _LATER_DTYPES:
-            raise NotImplementedError(
-                f"compute_dtype={dtype!r} is not ported yet; BatchedKMeans "
-                f"runs float32 (ROADMAP Queue 1 item 2, Queue 2 A3)")
-        if dtype != "float32":
-            raise ValueError(f"compute_dtype must be 'float32', got "
-                             f"{compute_dtype!r}")
+        if dtype not in _COMPUTE_DTYPES:
+            raise ValueError(f"compute_dtype must be one of "
+                             f"{_COMPUTE_DTYPES}, got {compute_dtype!r}")
         self.n_clusters = n_clusters
         self.max_iter = max_iter
         self.tol = tol
@@ -85,7 +84,7 @@ class BatchedKMeans:
         self.backend = backend
         self.params = params
         self.sync_every = sync_every
-        self.compute_dtype = torch.float32
+        self.compute_dtype = getattr(torch, dtype)
         self.random_state = random_state
         self.device = resolve_device(device)
 
@@ -120,6 +119,11 @@ class BatchedKMeans:
         if self.cluster_centers_ is None:
             raise NotFittedError("this BatchedKMeans instance is not fitted "
                                  "yet; call fit() first")
+
+    def _cast(self, a: torch.Tensor) -> torch.Tensor:
+        """Cast to the compute dtype at the kernel boundary (a no-op at
+        f32)."""
+        return a.to(self.compute_dtype)
 
     def _stack(self, x: Any) -> torch.Tensor:
         if not isinstance(x, torch.Tensor):
@@ -171,7 +175,9 @@ class BatchedKMeans:
             raise ValueError(f"centroids must be {(bsz, self.n_clusters, f)},"
                              f" got {tuple(centroids.shape)}")
         params = self._resolve_params(n, f)
-        plan = ops.plan_data_batched(x, params)
+        # the plan holds X in the compute dtype; reseeding donors are its
+        # rows (the reference's plan.x), the seeds came from the f32 rows
+        plan = ops.plan_data_batched(self._cast(x), params)
         dev = x.device
 
         am = torch.zeros((bsz, n), dtype=torch.int32, device=dev)
@@ -186,7 +192,7 @@ class BatchedKMeans:
             live_hist = []
             for _ in range(n_steps):
                 am_n, md, det_i, sums, counts = self._backend(
-                    plan, centroids, params=params)
+                    plan, self._cast(centroids), params=params)
                 new_c = km_mod.means_from_sums(sums, counts, centroids)
                 shift = ((new_c - centroids) ** 2).sum((1, 2)).sqrt()
                 new_c = km_mod.reseed_empty(plan.x, new_c, counts, md)
@@ -229,7 +235,8 @@ class BatchedKMeans:
                 f"problems of F={c.shape[2]} features, got shape "
                 f"{tuple(x.shape)}")
         params = self._resolve_params(x.shape[1], x.shape[2])
-        return self._backend(x, c, params=params)[:2]
+        return self._backend(self._cast(x), self._cast(c),
+                             params=params)[:2]
 
     def predict(self, x: Any) -> torch.Tensor:
         """Per-problem nearest-centroid labels (B, N') int32."""
@@ -263,7 +270,7 @@ class BatchedKMeans:
                 "init": self.init,
                 "backend": self.backend,
                 "sync_every": self.sync_every,
-                "compute_dtype": "float32",
+                "compute_dtype": _dtype_name(self.compute_dtype),
                 "random_state": self.random_state,
                 "params": (None if self.params is None else
                            [self.params.block_m, self.params.block_k,

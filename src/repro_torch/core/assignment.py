@@ -13,11 +13,14 @@ squared distance (M,) f32, detected errors), one-pass backends adding
   lloyd_ft    the one-pass kernel with ABFT on the distance GEMM and a
               checksum-verified update: the ``correct`` protection path
   abft_offline
-              plain PyTorch: ``ft_gemm.ft_matmul`` (full-f32 product,
-              then dual-checksum verify + correct on the materialised
-              product), then the distances and first-min argmin: the
-              ``detect`` protection path (the Wu-et-al. offline baseline;
-              no kernel of this package, as the reference's is plain XLA)
+              plain PyTorch: ``ft_gemm.ft_matmul`` (the product in the
+              compute dtype, then dual-checksum verify + correct on the
+              materialised product), then the distances and first-min
+              argmin: the ``detect`` protection path (the Wu-et-al.
+              offline baseline; no kernel of this package, as the
+              reference's is plain XLA). At bf16 / fp16 the product, its
+              checksums, the norms and the distances are 2-byte, as the
+              reference's ``jnp`` arithmetic on 2-byte operands
   lloyd_batched
               the one-pass kernel over B stacked problems in one launch
               ((B, N, F) in, every output with a leading B axis)
@@ -68,14 +71,21 @@ def assign_gemm_fused(x, c: torch.Tensor):
 
 
 def assign_abft_offline(x, c: torch.Tensor):
-    cross, detected = ft_matmul(_data(x), c.T)
+    rows = _data(x)
+    cross, detected = ft_matmul(rows, c.T)
     # the reference's assembly order: (||x||^2 + ||c||^2) - 2 x.c; the
-    # subtraction runs in place (2 x.c is exact, so the result is the same)
-    d = _row_norms(x)[:, None] + (c * c).sum(1)[None, :]
+    # subtraction runs in place (2 x.c is exact, so the result is the same).
+    # At f32 the row norms are the plan's; at bf16 / fp16 every term is in
+    # the compute dtype, each op rounded to it, as jnp computes them
+    xn = _row_norms(x) if rows.dtype == torch.float32 \
+        else (rows * rows).sum(1)
+    d = xn[:, None] + (c * c).sum(1)[None, :]
     d.sub_(cross, alpha=2.0)
     del cross
     mn, am = ref.first_min(d)
-    return am, mn, detected.to(torch.int32)
+    # the backends' contract: f32 distances (a 2-byte value widens exactly),
+    # so the fit's inertia is an f32 sum, as every other backend's
+    return am, mn.float(), detected.to(torch.int32)
 
 
 def assign_fused(x, c: torch.Tensor, params=None):
@@ -128,8 +138,9 @@ register_backend(AssignmentBackend(
     doc="fused kernel + dual-checksum online ABFT correction (paper §IV)"))
 register_backend(AssignmentBackend(
     "abft_offline", assign_abft_offline, supports_ft=True,
-    doc="Wu-et-al-style baseline: checksummed full-f32 product, offline "
-        "verification and correction on the materialised product"))
+    doc="Wu-et-al-style baseline: checksummed product in the compute "
+        "dtype, offline verification and correction on the materialised "
+        "product"))
 register_backend(AssignmentBackend(
     "lloyd", assign_lloyd, takes_params=True, fuses_update=True,
     doc="one-pass Lloyd CUDA kernel: assignment + per-cluster sums"))

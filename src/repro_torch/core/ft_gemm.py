@@ -1,12 +1,15 @@
 """ABFT-protected matrix product with online detection and correction, the
 counterpart of ``repro.core.ft_gemm``.
 
-The product itself is ``torch.matmul`` in full f32 (TF32 off on the card),
-as the reference leaves it to ``jnp.matmul``: this is the offline ABFT of
-the ``abft_offline`` backend (``FaultPolicy.detect()``, the Wu-et-al.
-baseline the fused kernels beat), which checks the materialised product
-after the fact. The kernel that fuses the same invariant into the tile loop
-is ``kernels.matmul_abft``.
+The product itself is ``torch.matmul`` in the operands' dtype, as the
+reference leaves it to ``jnp.matmul``: full f32 for f32 operands (TF32 off
+on the card), and for bf16 / fp16 operands a product accumulated in f32
+(cuBLAS's reduced-precision split-K reductions off on the card) and
+rounded to the operands' dtype, with the checksums in that dtype too. It
+is the offline ABFT of the ``abft_offline`` backend
+(``FaultPolicy.detect()``, the Wu-et-al. baseline the fused kernels beat),
+which checks the materialised product after the fact. The kernel that
+fuses the same invariant into the tile loop is ``kernels.matmul_abft``.
 
 Overhead model (paper §IV-A): for D = X @ Y with X (m, k), Y (k, n) the
 checksums add O((m + n) k) encode work and four one-row products, plus the
@@ -41,6 +44,11 @@ def ft_matmul(x: torch.Tensor, y: torch.Tensor, *,
     with D the possibly corrupted product, the reference's scale. Nothing
     is read on the host."""
     ref.full_f32(x.device)
+    if x.device.type == "cuda" and x.element_size() == 2:
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction \
+            = False
+        torch.backends.cuda.matmul.allow_fp16_reduced_precision_reduction \
+            = False
     expected = checksum.expected_checksums(x, y)
     d = torch.matmul(x, y)
     if inject_gen is not None and fault is not None and fault.enabled():

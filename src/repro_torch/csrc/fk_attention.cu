@@ -1,6 +1,6 @@
 // Hand-written Hopper (sm_90a) flash attention for the port's LM stack.
 //
-// flash_mma_kernel<HD> and flash_kernel<T, HD, RI> replace the Pallas TPU
+// flash_mma_kernel<T, HD> and flash_kernel<T, HD, RI> replace the Pallas TPU
 // kernel flash_attention of src/repro/kernels/flash_attention.py (body
 // _kernel): online-softmax GQA
 // attention, q (B, H, Sq, hd) against k, v (B, KV, Skv, hd), query head h
@@ -33,14 +33,15 @@
 // causal skip): a fully masked row keeps the reference kernel's result.
 // Two kernels share that walk:
 //
-//   * flash_mma_kernel<HD> (bf16, 64-row query tiles, hd 64 or 128: the
-//     prefill launch): the products on the bf16 tensor cores with
+//   * flash_mma_kernel<T, HD> (T bf16 or fp16, 64-row query tiles, hd 64 or
+//     128: the prefill launch): the products on the tensor cores with
 //     mma.sync m16n8k16 and f32 accumulation (below);
-//   * flash_kernel<T, HD, RI> (f32 at every tile and hd; bf16 decode
-//     launches, 16-row tiles, and bf16 at hd 256): the products as f32 FMAs
-//     on the CUDA cores. The query tile (once) and each K and V tile are
-//     staged in shared memory as f32 (bf16 widened exactly), rows padded by
-//     4 words so the 16-byte reads of the score loop hit distinct banks.
+//   * flash_kernel<T, HD, RI> (f32 at every tile and hd; bf16 / fp16 decode
+//     launches, 16-row tiles, and bf16 / fp16 at hd 256): the products as
+//     f32 FMAs on the CUDA cores. The query tile (once) and each K and V
+//     tile are staged in shared memory as f32 (2-byte values widened
+//     exactly), rows padded by 4 words so the 16-byte reads of the score
+//     loop hit distinct banks.
 //     Thread (ty, tx) = (tid / 16, tid % 16) owns query rows ty * RI + i
 //     and, for the scores, keys tx + 16 j (j < 4): S = Q K^T with a (RI x 4)
 //     register tile; the row max and row sum of the online softmax are
@@ -50,14 +51,14 @@
 //     Sq <= 16, e.g. a decode launch, else RI = 4 (64-row tiles).
 //
 // The entry point picks the kernel and tile from Sq, the dtype and hd
-// alone. bf16 decode stays on the CUDA-core kernel: the tensor-core one
+// alone. 2-byte decode stays on the CUDA-core kernel: the tensor-core one
 // would spend a 64-row tile (4 warps, 128 threads) on the one query row
 // and stage the same K/V bytes with half the threads. chip_smoke.py phase
 // 11 times it on a decode's K/V (Sq = 17) beside this kernel at Sq = 1.
 //
 // Bound on the H100: at prefill the 4 * B * H * Sq * Skv * hd FLOPs of the
-// two products (bf16 tensor cores, 989 TFLOP/s); at decode (Sq = 1) the
-// bytes of the KV cache, read once per launch (3.35 TB/s). Neither kernel
+// two products (bf16 / fp16 tensor cores, 989 TFLOP/s); at decode (Sq = 1)
+// the bytes of the KV cache, read once per launch (3.35 TB/s). Neither kernel
 // pipelines its loads (no cp.async / TMA), the decode launch has one block
 // per (batch, head) and re-reads each KV tile once per query head of a
 // group; wgmma tiles, TMA staging, a split KV walk for decode, GQA packing
@@ -115,6 +116,47 @@ struct Vec<__nv_bfloat16> {
     __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(p);
     h[0] = __floats2bfloat162_rn(v[0], v[1]);
     h[1] = __floats2bfloat162_rn(v[2], v[3]);
+  }
+};
+
+template <>
+struct Vec<__half> {
+  static constexpr int N = 8;      // 16 bytes
+  __device__ static void load(const __half* p, float* o) {
+    const uint4 raw = *reinterpret_cast<const uint4*>(p);
+    const __half2* h = reinterpret_cast<const __half2*>(&raw);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 f = __half22float2(h[i]);
+      o[2 * i] = f.x;
+      o[2 * i + 1] = f.y;
+    }
+  }
+  __device__ static float round(float x) {
+    return __half2float(__float2half_rn(x));
+  }
+  __device__ static void store4(__half* p, const float* v) {
+    __half2* h = reinterpret_cast<__half2*>(p);
+    h[0] = __floats2half2_rn(v[0], v[1]);
+    h[1] = __floats2half2_rn(v[2], v[3]);
+  }
+};
+
+// Two values of a 2-byte type T packed in one 32-bit word (round to nearest)
+template <typename T>
+struct Pair;
+template <>
+struct Pair<__nv_bfloat16> {
+  using type = __nv_bfloat162;
+  __device__ static type make(float lo, float hi) {
+    return __floats2bfloat162_rn(lo, hi);
+  }
+};
+template <>
+struct Pair<__half> {
+  using type = __half2;
+  __device__ static type make(float lo, float hi) {
+    return __floats2half2_rn(lo, hi);
   }
 };
 
@@ -320,14 +362,15 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-// --- bf16 on the tensor cores: mma.sync m16n8k16, f32 accumulation --------
+// --- bf16 / fp16 on the tensor cores: mma.sync m16n8k16, f32 accumulation -
 //
-// flash_mma_kernel<HD>: the same function for bf16 at 64-row query tiles and
-// HD <= 128. Four warps per block, each owning 16 query rows: S = Q K^T is
-// 8 (keys) x HD/16 (depth) mma.sync per KV tile with Q's fragments held in
-// registers for the whole walk; the online softmax runs on the S fragments
-// (a row's values live in the 4 lanes of a quad: butterflies over xor 1, 2);
-// p, rounded to bf16 as the reference's p.astype(v.dtype), is repacked in
+// flash_mma_kernel<T, HD>: the same function for T = bf16 or fp16 at 64-row
+// query tiles and HD <= 128. Four warps per block, each owning 16 query
+// rows: S = Q K^T is 8 (keys) x HD/16 (depth) mma.sync per KV tile with Q's
+// fragments held in registers for the whole walk; the online softmax runs on
+// the S fragments (a row's values live in the 4 lanes of a quad: butterflies
+// over xor 1, 2);
+// p, rounded to T as the reference's p.astype(v.dtype), is repacked in
 // registers as the A operand of O += P V (HD/8 x 4 mma.sync per tile). K is
 // staged in shared memory as it is (row-major), V transposed, so every
 // fragment is one 32-bit shared load; rows are padded by 16 bytes so a
@@ -338,27 +381,27 @@ constexpr int kMmaBQ = 16 * kMmaWarps;
 
 template <int HD>
 struct MmaSmem {
-  static constexpr int LD = HD + 8;       // bf16 elements per Q / K row
+  static constexpr int LD = HD + 8;       // 2-byte elements per Q / K row
   static constexpr int VLD = kBK + 8;     // per transposed V row
-  static constexpr int q = 0;             // offsets in bf16 elements
+  static constexpr int q = 0;             // offsets in 2-byte elements
   static constexpr int k = q + kMmaBQ * LD;
   static constexpr int v = k + kBK * LD;
   static constexpr int kpos_bytes = 2 * (v + HD * VLD);
   static constexpr size_t bytes = size_t(kpos_bytes) + 4 * kBK;
 };
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+template <typename T>
+__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
+  const typename Pair<T>::type h = Pair<T>::make(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&h);
 }
 
-// rows x HD bf16 elements from row0 (row stride rs) into shared rows of LD
-// elements, as they are; rows at or past nrows are zero.
-template <int HD, int LD>
-__device__ __forceinline__ void stage_bf16(unsigned short* dst,
-                                           const __nv_bfloat16* src,
-                                           long long rs, int nrows,
-                                           int rows) {
+// rows x HD 2-byte elements from row0 (row stride rs) into shared rows of
+// LD elements, as they are; rows at or past nrows are zero.
+template <typename T, int HD, int LD>
+__device__ __forceinline__ void stage_2byte(unsigned short* dst,
+                                            const T* src, long long rs,
+                                            int nrows, int rows) {
   constexpr int per_row = HD / 8;
   for (int idx = threadIdx.x; idx < rows * per_row; idx += kMmaThreads) {
     const int r = idx / per_row;
@@ -369,13 +412,12 @@ __device__ __forceinline__ void stage_bf16(unsigned short* dst,
   }
 }
 
-template <int HD>
+template <typename T, int HD>
 __global__ void __launch_bounds__(kMmaThreads)
-flash_mma_kernel(const __nv_bfloat16* __restrict__ q,
-                 const __nv_bfloat16* __restrict__ k,
-                 const __nv_bfloat16* __restrict__ v,
-                 const int* __restrict__ qpos, const int* __restrict__ kpos,
-                 __nv_bfloat16* __restrict__ out, int H, int group, int Sq,
+flash_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                 const T* __restrict__ v, const int* __restrict__ qpos,
+                 const int* __restrict__ kpos, T* __restrict__ out, int H,
+                 int group, int Sq,
                  int Skv, long long qsb, long long qsh, long long qss,
                  long long ksb, long long ksh, long long kss, long long vsb,
                  long long vsh, long long vss, long long osb, long long osh,
@@ -397,10 +439,10 @@ flash_mma_kernel(const __nv_bfloat16* __restrict__ q,
   const int b = bh / H, h = bh - b * H;
   const int kvh = h / group;
   const int q0 = blockIdx.x * kMmaBQ;
-  const __nv_bfloat16* kb = k + b * ksb + kvh * ksh;
-  const __nv_bfloat16* vb = v + b * vsb + kvh * vsh;
+  const T* kb = k + b * ksb + kvh * ksh;
+  const T* vb = v + b * vsb + kvh * vsh;
 
-  stage_bf16<HD, S::LD>(Qs, q + b * qsb + h * qsh + q0 * qss, qss, Sq - q0,
+  stage_2byte<T, HD, S::LD>(Qs, q + b * qsb + h * qsh + q0 * qss, qss, Sq - q0,
                         kMmaBQ);
   __syncthreads();
   // this warp's Q fragments, rows warp*16 + g (+8), for the whole walk
@@ -429,7 +471,7 @@ flash_mma_kernel(const __nv_bfloat16* __restrict__ q,
 
   for (int k0 = 0; k0 < Skv; k0 += kBK) {
     __syncthreads();   // the previous tile's readers are done
-    stage_bf16<HD, S::LD>(Ks, kb + k0 * kss, kss, Skv - k0, kBK);
+    stage_2byte<T, HD, S::LD>(Ks, kb + k0 * kss, kss, Skv - k0, kBK);
     // V transposed: lanes take consecutive keys, so the 2-byte stores of
     // a warp fill consecutive words
     for (int idx = tid; idx < kBK * (HD / 8); idx += kMmaThreads) {
@@ -454,7 +496,8 @@ flash_mma_kernel(const __nv_bfloat16* __restrict__ q,
       const unsigned short* kr = Ks + (nt * 8 + g) * S::LD + tig * 2;
 #pragma unroll
       for (int kk = 0; kk < KD; ++kk)
-        mma_bf16(s[nt], aq[kk], ld32(kr + kk * 16), ld32(kr + kk * 16 + 8));
+        mma_16816<T>(s[nt], aq[kk], ld32(kr + kk * 16),
+                     ld32(kr + kk * 16 + 8));
     }
 
     // mask and online softmax; s[nt][e] is row g + 8 (e / 2), key
@@ -511,15 +554,15 @@ flash_mma_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
     for (int kk = 0; kk < kBK / 16; ++kk) {
       const uint32_t pa[4] = {
-          pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-          pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-          pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-          pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+          pack2<T>(s[2 * kk][0], s[2 * kk][1]),
+          pack2<T>(s[2 * kk][2], s[2 * kk][3]),
+          pack2<T>(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+          pack2<T>(s[2 * kk + 1][2], s[2 * kk + 1][3])};
 #pragma unroll
       for (int dt = 0; dt < DT; ++dt) {
         const unsigned short* vr = Vt + (dt * 8 + g) * S::VLD + kk * 16
                                    + tig * 2;
-        mma_bf16(o[dt], pa, ld32(vr), ld32(vr + 8));
+        mma_16816<T>(o[dt], pa, ld32(vr), ld32(vr + 8));
       }
     }
   }
@@ -530,11 +573,12 @@ flash_mma_kernel(const __nv_bfloat16* __restrict__ q,
     if (qi >= Sq) continue;
     const float den = fmaxf(l[r], 1e-30f);
     const bool zero = zero_empty && m[r] == kNeg;
-    __nv_bfloat16* orow = out + b * osb + h * osh + qi * oss + tig * 2;
+    T* orow = out + b * osb + h * osh + qi * oss + tig * 2;
 #pragma unroll
     for (int dt = 0; dt < DT; ++dt)
-      *reinterpret_cast<__nv_bfloat162*>(orow + dt * 8) = __floats2bfloat162_rn(
-          zero ? 0.0f : o[dt][2 * r] / den, zero ? 0.0f : o[dt][2 * r + 1] / den);
+      *reinterpret_cast<typename Pair<T>::type*>(orow + dt * 8) =
+          Pair<T>::make(zero ? 0.0f : o[dt][2 * r] / den,
+                        zero ? 0.0f : o[dt][2 * r + 1] / den);
   }
 }
 
@@ -577,39 +621,58 @@ int by_hd(int hd, const void* q, const void* k, const void* v,
   }
 }
 
-template <int HD>
+template <typename T, int HD>
 int launch_mma(const void* q, const void* k, const void* v, const int* qpos,
                const int* kpos, void* out, int B, int H, int KV, int Sq,
                int Skv, const long long* st, int causal, int window,
                int zero_empty, cudaStream_t s) {
   using L = MmaSmem<HD>;
-  auto kern = flash_mma_kernel<HD>;
+  auto kern = flash_mma_kernel<T, HD>;
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, int(L::bytes));
   if (e != cudaSuccess) return int(e);
   const dim3 grid((Sq + kMmaBQ - 1) / kMmaBQ, B * H);
   kern<<<grid, kMmaThreads, L::bytes, s>>>(
-      static_cast<const __nv_bfloat16*>(q),
-      static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), qpos, kpos,
-      static_cast<__nv_bfloat16*>(out), H, H / KV, Sq, Skv, st[0], st[1],
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), qpos, kpos, static_cast<T*>(out), H, H / KV,
+      Sq, Skv, st[0], st[1],
       st[2], st[3], st[4], st[5], st[6], st[7], st[8], st[9], st[10], st[11],
       causal, window, zero_empty);
   return int(cudaGetLastError());
+}
+
+// a 2-byte T: 16-row tiles of flash_kernel when Sq <= 16, else the
+// tensor-core kernel at hd 64 and 128 and flash_kernel's 64-row tiles at 256
+template <typename T>
+int launch_2byte(int hd, bool small, const void* q, const void* k,
+                 const void* v, const int* qpos, const int* kpos, void* out,
+                 int B, int H, int KV, int Sq, int Skv, const long long* st,
+                 int causal, int window, int zero_empty, cudaStream_t s) {
+#define FK_ARGS q, k, v, qpos, kpos, out, B, H, KV, Sq, Skv, st, causal, \
+                window, zero_empty, s
+  if (small) return by_hd<T, 1>(hd, FK_ARGS);
+  switch (hd) {
+    case 64: return launch_mma<T, 64>(FK_ARGS);
+    case 128: return launch_mma<T, 128>(FK_ARGS);
+    case 256: return launch<T, 256, 4>(FK_ARGS);
+    default: return int(cudaErrorInvalidValue);
+  }
+#undef FK_ARGS
 }
 
 }  // namespace
 
 extern "C" {
 
-// q, k, v, out: T = bf16 (bf16 != 0) or f32, addressed as
-// base + b * s_b + head * s_h + pos * s_s + d with d contiguous; the 12
-// strides are (q, k, v, out) x (batch, head, sequence) in elements, each a
-// multiple of 16 bytes. hd in {64, 128, 256}; H a multiple of KV. The tile
-// follows from Sq, the dtype and hd: 16-row tiles of flash_kernel when
-// Sq <= 16; else bf16 at hd 64 or 128 on flash_mma_kernel (64-row tiles),
-// and flash_kernel's 64-row tiles for the rest. zero_empty != 0 writes zero
-// for a row with no valid key (else the mean of v, as the reference kernel).
+// q, k, v, out: T = f32 (dtype 0), bf16 (dtype 1) or fp16 (dtype 2),
+// addressed as base + b * s_b + head * s_h + pos * s_s + d with d
+// contiguous; the 12 strides are (q, k, v, out) x (batch, head, sequence) in
+// elements, each a multiple of 16 bytes. hd in {64, 128, 256}; H a multiple
+// of KV. The tile follows from Sq, the dtype and hd: 16-row tiles of
+// flash_kernel when Sq <= 16; else a 2-byte dtype at hd 64 or 128 on
+// flash_mma_kernel (64-row tiles), and flash_kernel's 64-row tiles for the
+// rest. zero_empty != 0 writes zero for a row with no valid key (else the
+// mean of v, as the reference kernel).
 int fk_flash_attention(const void* q, const void* k, const void* v,
                        const int* qpos, const int* kpos, void* out, int B,
                        int H, int KV, int Sq, int Skv, int hd, long long qsb,
@@ -617,9 +680,9 @@ int fk_flash_attention(const void* q, const void* k, const void* v,
                        long long ksh, long long kss, long long vsb,
                        long long vsh, long long vss, long long osb,
                        long long osh, long long oss, int causal, int window,
-                       int zero_empty, int bf16, void* stream) {
+                       int zero_empty, int dtype, void* stream) {
   if (B < 1 || H < 1 || KV < 1 || H % KV || Sq < 1 || Skv < 1 ||
-      window < 0 || B * H > kMaxRows)
+      window < 0 || B * H > kMaxRows || dtype < 0 || dtype > 2)
     return int(cudaErrorInvalidValue);
   const long long st[12] = {qsb, qsh, qss, ksb, ksh, kss,
                             vsb, vsh, vss, osb, osh, oss};
@@ -627,15 +690,8 @@ int fk_flash_attention(const void* q, const void* k, const void* v,
 #define FK_ARGS q, k, v, qpos, kpos, out, B, H, KV, Sq, Skv, st, causal, \
                 window, zero_empty, s
   const bool small = Sq <= 16;
-  if (bf16) {
-    if (small) return by_hd<__nv_bfloat16, 1>(hd, FK_ARGS);
-    switch (hd) {
-      case 64: return launch_mma<64>(FK_ARGS);
-      case 128: return launch_mma<128>(FK_ARGS);
-      case 256: return launch<__nv_bfloat16, 256, 4>(FK_ARGS);
-      default: return int(cudaErrorInvalidValue);
-    }
-  }
+  if (dtype == 1) return launch_2byte<__nv_bfloat16>(hd, small, FK_ARGS);
+  if (dtype == 2) return launch_2byte<__half>(hd, small, FK_ARGS);
   return small ? by_hd<float, 1>(hd, FK_ARGS) : by_hd<float, 4>(hd, FK_ARGS);
 #undef FK_ARGS
 }

@@ -14,20 +14,21 @@
 // kUpdate> is the same kernel for __nv_bfloat16 or __half X and C (the
 // reference's 2-byte templates): mma.sync m16n8k16 on the tensor cores with
 // f32 accumulation, and the f32 kernel's checksums, epilogues and update,
-// for the single-problem rows of the table (the batched 2-byte step is
-// later work).
+// for every row of the table.
 //
 // The batched one-pass step is the single-problem instantiation launched
 // over a (row tile, problem) grid: blockIdx.y picks the problem and moves
 // every base pointer to that problem's slab, so problem b of a batched
 // launch runs, bit for bit, the code lloyd_step runs on problem b alone.
-// Only <BM, false, true> has the problem axis.
+// Only <BM, false, true> (and <T, BM, false, true>) has the problem axis.
 // kmeanspp_round_kernel replaces kmeanspp_init.py kmeanspp_round (one D^2
 // seeding round over (row tile, problem)).
 // lloyd_pruned_kernel replaces lloyd_step_pruned.py lloyd_step_pruned: the
 // one-pass trip over a centroid tile, gated by a (row tile, centroid tile)
 // skip mask, plus the tile's Euclidean bound. It is a __global__ of its own,
 // so the instantiations above keep their signatures and code.
+// lloyd_pruned_mma_kernel<T, BM> is its bf16 / fp16 twin, whose trips run
+// lloyd_tile_mma_kernel's product.
 // int8_tile_kernel replaces distance_argmin_int8.py distance_argmin_int8:
 // __dp4a over packed int8 words, the f32 scale correction, then the shared
 // min/argmin epilogue.
@@ -35,6 +36,8 @@
 // D = X Y with the dual-checksum ABFT per (bm x bn) output tile, one block
 // per tile, its k loop inside the block, the tile walked in 128 x 128
 // sub-tiles; warp 0 verifies the finished tile and corrects D in place.
+// matmul_abft_mma_kernel<T> is the same for bf16 / fp16 X and Y, its
+// sub-tile product on mma.sync m16n8k16, D and the checksums f32.
 // dmr_partials_kernel, dmr_reduce_kernel and dmr_verdict_kernel replace
 // centroid_update_dmr.py centroid_update_dmr: per (cluster group, row slab,
 // feature group) two replicas of the partial sums from one load of X (the
@@ -44,8 +47,9 @@
 // Instantiations: lloyd_tile_kernel 2 (BM = 64, 128) x 4 (kFT, kUpdate) = 8,
 // lloyd_tile_mma_kernel 2 (T) x 2 (BM) x 4 = 16, update_tiles_kernel 3 (T)
 // x 2 (BM), kmeanspp_round_kernel 1, lloyd_pruned_kernel 2 (BM),
-// int8_tile_kernel 2 (BM), matmul_abft_kernel 1, the three DMR kernels: 39
-// kernels.
+// lloyd_pruned_mma_kernel 2 (T) x 2 (BM), int8_tile_kernel 2 (BM),
+// matmul_abft_kernel 1, matmul_abft_mma_kernel 2 (T), the three DMR
+// kernels: 45 kernels.
 //
 // The epilogues are single __device__ definitions (tile_min_argmin, fold_min,
 // locate_and_correct, emit_update) so the variants agree bit for bit by
@@ -71,9 +75,8 @@
 //     tie across tiles -- the jnp.argmin tie-break;
 //   * ABFT (kFT): expected e1/e2 column and row checksums accumulate in f32
 //     from the staged chunks (2-byte values widened, exactly, as the
-//     reference's xf/cf casts); at each (row tile, centroid tile) interval the
-//     observed
-//     checksums of Ds are compared, a fault is located by the e2/e1 ratio and
+//     reference's xf/cf casts); at each (row tile, centroid tile) interval
+//     the observed checksums of Ds are compared, a fault is located by the e2/e1 ratio and
 //     corrected in Ds before the min/argmin scan;
 //   * update (kUpdate): rows are ranked by (cluster, row) in shared memory and
 //     each (k, f) partial sum is one thread's sequential sum over its
@@ -90,12 +93,16 @@
 // At bf16/fp16 the GEMM's tensor-core bound (989 TFLOP/s) falls below the
 // bytes: X once and, for the update variants, the f32 partial-sum buffer.
 // The 2-byte product is unpipelined (no ldmatrix, cp.async, wgmma or TMA).
-// The pruned step needs the GEMM of its computed tiles only. The int8 GEMM
-// is bound by the int8 tensor cores' 1,979 Tera-op/s, which __dp4a on the
-// CUDA cores does not reach (mma.sync/wgmma s8 is later work).
+// The pruned step needs the GEMM of its computed tiles only; at 2-byte
+// inputs the partial-sum buffer's bytes bound it, as the update variants.
+// The int8 GEMM is bound by the int8 tensor cores' 1,979 Tera-op/s, which
+// __dp4a on the CUDA cores does not reach (mma.sync/wgmma s8 is later
+// work).
 // The seeding round is bound by the bytes of X (one GEMV per round). The
-// ABFT GEMM is bound by its 2*M*N*K FLOPs on the f32 CUDA cores; the DMR
-// update by the bytes of X and the assignments, read once.
+// ABFT GEMM is bound by its 2*M*N*K FLOPs on the f32 CUDA cores; at 2-byte
+// inputs by the same FLOPs on the tensor cores or, for a short K, by the
+// bytes of its f32 D. The DMR update is bound by the bytes of X and the
+// assignments, read once.
 // wgmma, TMA and a shared-memory X stash are later work.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler
@@ -714,6 +721,20 @@ lloyd_tile_mma_kernel(const T* __restrict__ x, const T* __restrict__ c,
                       int kp, int fp, int bf, int true_m, float thr_factor) {
   using L = Layout<BM>;
   using P = MmaProduct<T, BM>;
+  if (!kFT && kUpdate) {
+    // problem blockIdx.y of a batched launch, as in lloyd_tile_kernel: the
+    // one instantiation that lloyd_step and lloyd_step_batched share moves
+    // every base pointer to its problem's slab (a slab of 2-byte X is
+    // mp * fp * 2 bytes, fp a multiple of 32: 16-byte alignment holds)
+    const size_t pb = blockIdx.y, nt = gridDim.x, mp = nt * BM;
+    x += pb * mp * fp;
+    c += pb * kp * fp;
+    cn += pb * kp;
+    mind += pb * mp;
+    argmin += pb * mp;
+    sums += pb * nt * kp * fp;
+    counts += pb * nt * kp;
+  }
   // 16-byte aligned: the staging stores 16 bytes at a time
   extern __shared__ __align__(16) float sm_tile[];
   float* sm = sm_tile;
@@ -923,7 +944,59 @@ update_tiles_kernel(const T* __restrict__ x,
 // sqrt(max(lmin_r + xn_r, 0)) (min is exact, so any order gives the same
 // bits); a skipped trip writes FLT_MAX there, a placeholder that the caller
 // replaces by the decayed bound. The final min/argmin writes and emit_update
-// run whatever the mask says.
+// run whatever the mask says. lloyd_pruned_mma_kernel below is the same step
+// for 2-byte X and C; the two share pruned_trip_end and pruned_finish.
+
+// The end of a computed trip, once Ds holds the tile's products: fold the
+// tile into each row's running (min, argmin) and write the tile's bound
+// tmin_cell. Called by all threads of the block.
+template <int BM>
+__device__ __forceinline__ void pruned_trip_end(
+    const float* Ds, const float* cnS, float* wmin, int c0, int m0,
+    int true_m, const float* __restrict__ xn, float* best, int* best_arg,
+    float* tmin_cell) {
+  const int tid = threadIdx.x;
+  if (tid < BM) {
+    float lmin;
+    int larg;
+    tile_min_argmin(Ds + tid * (kBK + 1), cnS, c0, &lmin, &larg);
+    fold_min(best, best_arg, lmin, larg);
+    // the row's Euclidean distance to this tile; padding rows bound nothing
+    float e = m0 + tid < true_m ? sqrtf(fmaxf(lmin + xn[m0 + tid], 0.0f))
+                                : FLT_MAX;
+    for (int off = 16; off > 0; off >>= 1)
+      e = fminf(e, __shfl_xor_sync(0xffffffffu, e, off));
+    if (tid % 32 == 0) wmin[tid / 32] = e;
+  }
+  __syncthreads();
+  if (tid == 0) {
+    float e = wmin[0];
+    for (int w = 1; w < BM / 32; ++w) e = fminf(e, wmin[w]);
+    *tmin_cell = e;
+  }
+}
+
+// The final min/argmin writes and the update of the row tile, whatever the
+// mask said. Called by all threads of the block.
+template <typename T, int BM>
+__device__ __forceinline__ void pruned_finish(
+    int* smi, const T* __restrict__ x, float best, int best_arg, int mt,
+    int true_m, int kp, int fp, float* __restrict__ mind,
+    int* __restrict__ argmin, float* __restrict__ sums,
+    float* __restrict__ counts) {
+  using L = Layout<BM>;
+  const int tid = threadIdx.x, m0 = mt * BM;
+  int* am = smi + L::kAm;
+  if (tid < BM) {
+    mind[m0 + tid] = best;
+    argmin[m0 + tid] = best_arg;
+    am[tid] = best_arg;
+  }
+  emit_update<T, BM>(am, smi + L::kKey, smi + L::kOrder, smi + L::kSKey, x,
+                     m0, true_m, kp, fp, sums + size_t(mt) * kp * fp,
+                     counts + size_t(mt) * kp);
+}
+
 template <int BM>
 __global__ void __launch_bounds__(kThreads)
 lloyd_pruned_kernel(const float* __restrict__ x, const float* __restrict__ c,
@@ -940,7 +1013,6 @@ lloyd_pruned_kernel(const float* __restrict__ x, const float* __restrict__ c,
   float* Cs = sm + L::kCs;
   float* cnS = sm + L::kCn;
   float* wmin = sm + L::kPart;  // BM / 32 warp minima of the tile bound
-  int* smi = reinterpret_cast<int*>(sm);
 
   const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
   const int mt = blockIdx.x, m0 = mt * BM;
@@ -994,36 +1066,66 @@ lloyd_pruned_kernel(const float* __restrict__ x, const float* __restrict__ c,
       for (int j = 0; j < kTN; ++j)
         Ds[(ty + 16 * i) * (kBK + 1) + tx + 16 * j] = acc[i][j];
     __syncthreads();
+    pruned_trip_end<BM>(Ds, cnS, wmin, c0, m0, true_m, xn, &best, &best_arg,
+                        tmin + mt * nkt + kt);
+  }
+  pruned_finish<float, BM>(reinterpret_cast<int*>(sm), x, best, best_arg,
+                           mt, true_m, kp, fp, mind, argmin, sums, counts);
+}
 
-    if (tid < BM) {
-      float lmin;
-      int larg;
-      tile_min_argmin(Ds + tid * (kBK + 1), cnS, c0, &lmin, &larg);
-      fold_min(&best, &best_arg, lmin, larg);
-      // the row's Euclidean distance to this tile; padding rows bound nothing
-      float e = m0 + tid < true_m ? sqrtf(fmaxf(lmin + xn[m0 + tid], 0.0f))
-                                  : FLT_MAX;
-      for (int off = 16; off > 0; off >>= 1)
-        e = fminf(e, __shfl_xor_sync(0xffffffffu, e, off));
-      if (tid % 32 == 0) wmin[tid / 32] = e;
+// lloyd_pruned_kernel for bf16 / fp16 X and C: the same trips, skip test,
+// tile bound and update, with the product of lloyd_tile_mma_kernel
+// (MmaProduct<T, BM>: stage, mac and store in that kernel's order, then
+// tile_min_argmin and fold_min), so a computed trip gives the 2-byte
+// lloyd_step's Ds bit for bit, and where the mask skips only tiles that
+// lose strictly, every output is the 2-byte lloyd_step's. The f32 kernel
+// above keeps its own inline product (a product object cost the f32 tile
+// kernel 0.5-3 % on an H100, PERF.md).
+template <typename T, int BM>
+__global__ void __launch_bounds__(kThreads)
+lloyd_pruned_mma_kernel(const T* __restrict__ x, const T* __restrict__ c,
+                        const float* __restrict__ cn,
+                        const float* __restrict__ xn,
+                        const int* __restrict__ skip, float* __restrict__ mind,
+                        int* __restrict__ argmin, float* __restrict__ sums,
+                        float* __restrict__ counts, float* __restrict__ tmin,
+                        int kp, int fp, int true_m) {
+  using L = Layout<BM>;
+  using P = MmaProduct<T, BM>;
+  extern __shared__ __align__(16) float sm_pruned[];
+  float* sm = sm_pruned;
+  float* Ds = sm + L::kDs;
+  float* cnS = sm + L::kCn;
+
+  const int tid = threadIdx.x;
+  const int mt = blockIdx.x, m0 = mt * BM;
+  const int nkt = kp / kBK, nch = fp / kChunk;
+
+  float best = FLT_MAX;   // running row state, owned by thread tid < BM
+  int best_arg = 0;
+
+  for (int kt = 0; kt < nkt; ++kt) {
+    if (skip[mt * nkt + kt]) {   // block-uniform
+      if (tid == 0) tmin[mt * nkt + kt] = FLT_MAX;
+      continue;
     }
+    const int c0 = kt * kBK;
+    P prod;
+    prod.zero();
+    if (tid < kBK) cnS[tid] = cn[c0 + tid];
+    for (int ch = 0; ch < nch; ++ch) {
+      P::stage(x, c, sm, m0, c0, ch * kChunk, fp);
+      __syncthreads();
+      prod.mac(sm);
+      __syncthreads();
+    }
+    prod.store(Ds);
     __syncthreads();
-    if (tid == 0) {
-      float e = wmin[0];
-      for (int w = 1; w < BM / 32; ++w) e = fminf(e, wmin[w]);
-      tmin[mt * nkt + kt] = e;
-    }
+    pruned_trip_end<BM>(Ds, cnS, sm + L::kPart, c0, m0, true_m, xn, &best,
+                        &best_arg, tmin + mt * nkt + kt);
   }
-
-  int* am = smi + L::kAm;
-  if (tid < BM) {
-    mind[m0 + tid] = best;
-    argmin[m0 + tid] = best_arg;
-    am[tid] = best_arg;
-  }
-  emit_update<float, BM>(am, smi + L::kKey, smi + L::kOrder, smi + L::kSKey,
-                         x, m0, true_m, kp, fp, sums + size_t(mt) * kp * fp,
-                         counts + size_t(mt) * kp);
+  pruned_finish<T, BM>(reinterpret_cast<int*>(sm), x, best, best_arg, mt,
+                       true_m, kp, fp, mind, argmin, sums, counts);
 }
 
 // int8 distance tile kernel: one block per row tile of BM rows, a loop over
@@ -1215,7 +1317,7 @@ int dispatch(int bm, const T* x, const T* c, const float* cn,
              cudaStream_t stream) {
   if ((bm != 64 && bm != 128) || mp % bm || kp % kBK || bf < kChunk ||
       bf % kChunk || fp % bf || nb < 1 || nb > kMaxProblems ||
-      (nb > 1 && (kFT || !kUpdate || !std::is_same<T, float>::value)))
+      (nb > 1 && (kFT || !kUpdate)))
     return int(cudaErrorInvalidValue);
   if (bm == 128)
     return launch_tile<T, 128, kFT, kUpdate>(x, c, cn, inj, mind, argmin,
@@ -1261,12 +1363,21 @@ int by_half(int half, Fn fn) {
   return int(cudaErrorInvalidValue);
 }
 
-template <int BM>
-int launch_pruned(const float* x, const float* c, const float* cn,
+// the pruned kernel of input type T: the f32 kernel or the tensor-core one
+template <typename T, int BM>
+constexpr auto pruned_kernel() {
+  if constexpr (std::is_same<T, float>::value)
+    return lloyd_pruned_kernel<BM>;
+  else
+    return lloyd_pruned_mma_kernel<T, BM>;
+}
+
+template <typename T, int BM>
+int launch_pruned(const T* x, const T* c, const float* cn,
                   const float* xn, const int* skip, float* mind, int* argmin,
                   float* sums, float* counts, float* tmin, int mp, int kp,
                   int fp, int true_m, cudaStream_t stream) {
-  auto kernel = lloyd_pruned_kernel<BM>;
+  auto kernel = pruned_kernel<T, BM>();
   const size_t bytes = Layout<BM>::kBytes;
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(bytes));
@@ -1348,6 +1459,141 @@ __device__ int locate_tile(const float* col1, const float* row1,
   return (max_c > thr) || (max_r > thr);
 }
 
+// The expected checksums of one resident k-chunk, for both ABFT GEMM
+// kernels: the e1/e2 encodings of the X chunk over the sub-tile's rows and
+// of the Y chunk over its columns (8 partials per k, then a fixed-order
+// sum), then col1/col2 += enc(X) Y_chunk and row1/row2 += X_chunk enc(Y);
+// the weights are the row / column index within the whole tile, plus 1.
+// xv(k, r) and yv(k, c) read staged element (row r or column c, k) as f32.
+// Called by all threads.
+template <typename XV, typename YV>
+__device__ __forceinline__ void abft_encode_chunk(float* sm, const MmLayout& L,
+                                                  int rows, int rb, int cb,
+                                                  XV xv, YV yv) {
+  float* part = sm + L.part;
+  float* enc = sm + L.enc;
+  const int tid = threadIdx.x;
+  {
+    const int f = tid % kChunk, s = tid / kChunk;
+    float x1 = 0.0f, x2 = 0.0f, y1 = 0.0f, y2 = 0.0f;
+    for (int r = s; r < rows; r += 8) {
+      const float v = xv(f, r);
+      x1 += v;
+      x2 = fmaf(float(rb + r + 1), v, x2);
+    }
+    for (int c = s; c < kMmSub; c += 8) {
+      const float v = yv(f, c);
+      y1 += v;
+      y2 = fmaf(float(cb + c + 1), v, y2);
+    }
+    part[(0 * 8 + s) * kChunk + f] = x1;
+    part[(1 * 8 + s) * kChunk + f] = x2;
+    part[(2 * 8 + s) * kChunk + f] = y1;
+    part[(3 * 8 + s) * kChunk + f] = y2;
+  }
+  __syncthreads();
+  if (tid < 4 * kChunk) {
+    const int q = tid / kChunk, f = tid % kChunk;
+    float s = 0.0f;
+    for (int p = 0; p < 8; ++p) s += part[(q * 8 + p) * kChunk + f];
+    enc[q * kChunk + f] = s;
+  }
+  __syncthreads();
+  if (tid < kMmSub) {
+    float* c1 = sm + L.ecol1 + cb + tid;
+    float* c2 = sm + L.ecol2 + cb + tid;
+    float s1 = *c1, s2 = *c2;
+    for (int f = 0; f < kChunk; ++f) {
+      const float yv_f = yv(f, tid);
+      s1 = fmaf(enc[0 * kChunk + f], yv_f, s1);
+      s2 = fmaf(enc[1 * kChunk + f], yv_f, s2);
+    }
+    *c1 = s1;
+    *c2 = s2;
+  } else if (tid - kMmSub < rows) {
+    const int r = tid - kMmSub;
+    float* r1 = sm + L.erow1 + rb + r;
+    float* r2 = sm + L.erow2 + rb + r;
+    float s1 = *r1, s2 = *r2;
+    for (int f = 0; f < kChunk; ++f) {
+      const float xv_f = xv(f, r);
+      s1 = fmaf(xv_f, enc[2 * kChunk + f], s1);
+      s2 = fmaf(xv_f, enc[3 * kChunk + f], s2);
+    }
+    *r1 = s1;
+    *r2 = s2;
+  }
+}
+
+// A finished sub-tile in Ds: its observed checksums (fixed-order sums) into
+// the tile's, then the sub-tile to D. Called by all threads; ends with a
+// barrier.
+__device__ __forceinline__ void abft_subtile_out(float* sm, const MmLayout& L,
+                                                 float* __restrict__ d,
+                                                 size_t m0, int n0, int np,
+                                                 int rb, int cb, int rows) {
+  const float* Ds = sm + L.ds;
+  const int tid = threadIdx.x;
+  if (tid < kMmSub) {
+    float s1 = 0.0f, s2 = 0.0f;
+    for (int r = 0; r < rows; ++r) {
+      const float v = Ds[r * kMmLd + tid];
+      s1 += v;
+      s2 = fmaf(float(rb + r + 1), v, s2);
+    }
+    sm[L.ocol1 + cb + tid] += s1;
+    sm[L.ocol2 + cb + tid] += s2;
+  } else if (tid - kMmSub < rows) {
+    const int r = tid - kMmSub;
+    float s1 = 0.0f, s2 = 0.0f;
+    for (int c = 0; c < kMmSub; ++c) {
+      const float v = Ds[r * kMmLd + c];
+      s1 += v;
+      s2 = fmaf(float(cb + c + 1), v, s2);
+    }
+    sm[L.orow1 + rb + r] += s1;
+    sm[L.orow2 + rb + r] += s2;
+  }
+  for (int idx = tid; idx < rows * kMmSub; idx += kThreads) {
+    const int r = idx / kMmSub, c = idx % kMmSub;
+    d[(m0 + rb + r) * np + n0 + cb + c] = Ds[r * kMmLd + c];
+  }
+  __syncthreads();
+}
+
+// The finished tile: residuals (observed - expected, in place of the
+// observed checksums), then warp 0 verifies, corrects D in place and writes
+// the tile's detection. Called by all threads.
+__device__ __forceinline__ void abft_tile_verify(float* sm, const MmLayout& L,
+                                                 float* __restrict__ d,
+                                                 int* __restrict__ det,
+                                                 size_t m0, int n0, int np,
+                                                 int bm, int bn, int mt,
+                                                 int nt, float thr_factor) {
+  const int tid = threadIdx.x;
+  for (int t = tid; t < bn; t += kThreads) {
+    sm[L.ocol1 + t] -= sm[L.ecol1 + t];
+    sm[L.ocol2 + t] -= sm[L.ecol2 + t];
+  }
+  for (int t = tid; t < bm; t += kThreads) {
+    sm[L.orow1 + t] -= sm[L.erow1 + t];
+    sm[L.orow2 + t] -= sm[L.erow2 + t];
+  }
+  __syncthreads();
+  if (tid < 32) {
+    int i, j;
+    float delta;
+    const int detected = locate_tile(
+        sm + L.ecol1, sm + L.erow1, sm + L.ocol1, sm + L.ocol2, sm + L.orow1,
+        sm + L.orow2, bm, bn, tid, thr_factor, &i, &j, &delta);
+    if (tid == 0) {
+      // D's element was written by this block before the barrier above
+      if (detected) d[(m0 + i) * np + n0 + j] -= delta;
+      det[size_t(mt) * gridDim.y + nt] = detected;
+    }
+  }
+}
+
 // D = X Y for X (mp, kp), Y (kp, np) with the dual-checksum ABFT per
 // (bm x bn) tile (blockIdx.x = m-tile, blockIdx.y = n-tile). The expected
 // checksums accumulate from every staged chunk; a sub-tile's accumulator
@@ -1365,8 +1611,6 @@ matmul_abft_kernel(const float* __restrict__ x, const float* __restrict__ y,
   float* Ds = sm + L.ds;
   float* Xs = sm + L.xs;
   float* Ys = sm + L.ys;
-  float* part = sm + L.part;
-  float* enc = sm + L.enc;
   const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
   const int mt = blockIdx.x, nt = blockIdx.y;
   const size_t m0 = size_t(mt) * bm;
@@ -1414,60 +1658,11 @@ matmul_abft_kernel(const float* __restrict__ x, const float* __restrict__ y,
 #pragma unroll
             for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
         }
-        // expected checksums from the resident chunk: e1/e2 encodings of
-        // the X chunk over the sub-tile's rows and of the Y chunk over its
-        // columns (8 partials per k, then a fixed-order sum); weights are
-        // the row / column index within the whole tile, plus 1
-        {
-          const int f = tid % kChunk, s = tid / kChunk;
-          float x1 = 0.0f, x2 = 0.0f, y1 = 0.0f, y2 = 0.0f;
-          for (int r = s; r < rows; r += 8) {
-            const float v = Xs[f * kMmLd + r];
-            x1 += v;
-            x2 = fmaf(float(rb + r + 1), v, x2);
-          }
-          for (int c = s; c < kMmSub; c += 8) {
-            const float v = Ys[f * kMmLd + c];
-            y1 += v;
-            y2 = fmaf(float(cb + c + 1), v, y2);
-          }
-          part[(0 * 8 + s) * kChunk + f] = x1;
-          part[(1 * 8 + s) * kChunk + f] = x2;
-          part[(2 * 8 + s) * kChunk + f] = y1;
-          part[(3 * 8 + s) * kChunk + f] = y2;
-        }
-        __syncthreads();
-        if (tid < 4 * kChunk) {
-          const int q = tid / kChunk, f = tid % kChunk;
-          float s = 0.0f;
-          for (int p = 0; p < 8; ++p) s += part[(q * 8 + p) * kChunk + f];
-          enc[q * kChunk + f] = s;
-        }
-        __syncthreads();
-        if (tid < kMmSub) {
-          float* c1 = sm + L.ecol1 + cb + tid;
-          float* c2 = sm + L.ecol2 + cb + tid;
-          float s1 = *c1, s2 = *c2;
-          for (int f = 0; f < kChunk; ++f) {
-            const float yv = Ys[f * kMmLd + tid];
-            s1 = fmaf(enc[0 * kChunk + f], yv, s1);
-            s2 = fmaf(enc[1 * kChunk + f], yv, s2);
-          }
-          *c1 = s1;
-          *c2 = s2;
-        } else if (tid - kMmSub < rows) {
-          const int r = tid - kMmSub;
-          float* r1 = sm + L.erow1 + rb + r;
-          float* r2 = sm + L.erow2 + rb + r;
-          float s1 = *r1, s2 = *r2;
-          for (int f = 0; f < kChunk; ++f) {
-            const float xv = Xs[f * kMmLd + r];
-            s1 = fmaf(xv, enc[2 * kChunk + f], s1);
-            s2 = fmaf(xv, enc[3 * kChunk + f], s2);
-          }
-          *r1 = s1;
-          *r2 = s2;
-        }
+        // expected checksums from the resident chunk
+        abft_encode_chunk(
+            sm, L, rows, rb, cb,
+            [&](int f, int r) { return Xs[f * kMmLd + r]; },
+            [&](int f, int c) { return Ys[f * kMmLd + c]; });
         // simulated SEU: after the last chunk of k-step k_step
         if (inj_tile && ch == (dinj.f_tile + 1) * ch_per_step - 1) {
 #pragma unroll
@@ -1486,57 +1681,174 @@ matmul_abft_kernel(const float* __restrict__ x, const float* __restrict__ y,
         for (int j = 0; j < 8; ++j)
           Ds[(ty + 16 * i) * kMmLd + tx + 16 * j] = acc[i][j];
       __syncthreads();
-      // observed checksums of the sub-tile, then the sub-tile to D
-      if (tid < kMmSub) {
-        float s1 = 0.0f, s2 = 0.0f;
-        for (int r = 0; r < rows; ++r) {
-          const float v = Ds[r * kMmLd + tid];
-          s1 += v;
-          s2 = fmaf(float(rb + r + 1), v, s2);
-        }
-        sm[L.ocol1 + cb + tid] += s1;
-        sm[L.ocol2 + cb + tid] += s2;
-      } else if (tid - kMmSub < rows) {
-        const int r = tid - kMmSub;
-        float s1 = 0.0f, s2 = 0.0f;
-        for (int c = 0; c < kMmSub; ++c) {
-          const float v = Ds[r * kMmLd + c];
-          s1 += v;
-          s2 = fmaf(float(cb + c + 1), v, s2);
-        }
-        sm[L.orow1 + rb + r] += s1;
-        sm[L.orow2 + rb + r] += s2;
-      }
-      for (int idx = tid; idx < rows * kMmSub; idx += kThreads) {
-        const int r = idx / kMmSub, c = idx % kMmSub;
-        d[(m0 + rb + r) * np + n0 + cb + c] = Ds[r * kMmLd + c];
-      }
-      __syncthreads();
+      abft_subtile_out(sm, L, d, m0, n0, np, rb, cb, rows);
     }
   }
+  abft_tile_verify(sm, L, d, det, m0, n0, np, bm, bn, mt, nt, thr_factor);
+}
 
-  // residuals, observed - expected, in place of the observed checksums
-  for (int t = tid; t < bn; t += kThreads) {
-    sm[L.ocol1 + t] -= sm[L.ecol1 + t];
-    sm[L.ocol2 + t] -= sm[L.ecol2 + t];
-  }
-  for (int t = tid; t < bm; t += kThreads) {
-    sm[L.orow1 + t] -= sm[L.erow1 + t];
-    sm[L.orow2 + t] -= sm[L.erow2 + t];
-  }
-  __syncthreads();
-  if (tid < 32) {
-    int i, j;
-    float delta;
-    const int detected = locate_tile(
-        sm + L.ecol1, sm + L.erow1, sm + L.ocol1, sm + L.ocol2, sm + L.orow1,
-        sm + L.orow2, bm, bn, tid, thr_factor, &i, &j, &delta);
-    if (tid == 0) {
-      // D's element was written by this block before the barrier above
-      if (detected) d[(m0 + i) * np + n0 + j] -= delta;
-      det[size_t(mt) * gridDim.y + nt] = detected;
+// matmul_abft_kernel for bf16 / fp16 X and Y: the same tiles, sub-tiles,
+// checksums, injection, verification and f32 D, with the sub-tile product
+// on the tensor cores (mma.sync m16n8k16, f32 accumulation; products of
+// 2-byte values are exact in f32). A chunk of X (sub-tile rows x kChunk) is
+// staged row-major as T and one of Y transposed, (column, k), both with a
+// row pitch of kLd = kChunk + 8 elements, so each fragment register is one
+// 32-bit shared load (MmaProduct's layout). The 8 warps tile the 128 x 128
+// sub-tile 2 x 4, each warp 64 x 32 as 4 x 4 m16n8 fragments. The expected
+// checksums are encoded in f32 from the same staged 2-byte values, widened
+// exactly, as the f32 kernel encodes its f32 ones.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+matmul_abft_mma_kernel(const T* __restrict__ x, const T* __restrict__ y,
+                       const int* __restrict__ inj, float* __restrict__ d,
+                       int* __restrict__ det, int np, int kp, int bm, int bn,
+                       int bk, float thr_factor) {
+  constexpr int kLd = kChunk + 8;
+  constexpr int kVec = 16 / int(sizeof(T));
+  constexpr int kMF = 4, kNF = 4;        // fragments of a warp's 64 x 32
+  extern __shared__ __align__(16) float sm_abft[];
+  float* sm = sm_abft;
+  const MmLayout L(bm, bn);
+  static_assert(kMmSub * kLd * sizeof(T) <= kChunk * kMmLd * sizeof(float),
+                "a staged 2-byte chunk fits the f32 chunk's region");
+  float* Ds = sm + L.ds;
+  T* Xh = reinterpret_cast<T*>(sm + L.xs);   // (row, k)
+  T* Yh = reinterpret_cast<T*>(sm + L.ys);   // (column, k)
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int wr = (warp / 4) * 64, wc = (warp % 4) * 32;
+  const int mt = blockIdx.x, nt = blockIdx.y;
+  const size_t m0 = size_t(mt) * bm;
+  const int n0 = nt * bn;
+  const int nch = kp / kChunk, ch_per_step = bk / kChunk;
+  const DistInj dinj = load_dist_inj(inj);
+  const bool inj_tile = dinj.enabled && dinj.m_tile == mt &&
+                        dinj.c_tile == nt;
+  for (int u = tid; u < bn; u += kThreads)
+    sm[L.ecol1 + u] = sm[L.ecol2 + u] = sm[L.ocol1 + u] = sm[L.ocol2 + u] =
+        0.0f;
+  for (int u = tid; u < bm; u += kThreads)
+    sm[L.erow1 + u] = sm[L.erow2 + u] = sm[L.orow1 + u] = sm[L.orow2 + u] =
+        0.0f;
+
+  for (int rb = 0; rb < bm; rb += kMmSub) {
+    const int rows = bm - rb < kMmSub ? bm - rb : kMmSub;
+    for (int cb = 0; cb < bn; cb += kMmSub) {
+      float acc[kMF][kNF][4];
+#pragma unroll
+      for (int i = 0; i < kMF; ++i)
+#pragma unroll
+        for (int j = 0; j < kNF; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.0f;
+      for (int ch = 0; ch < nch; ++ch) {
+        const int k0 = ch * kChunk;
+        // X rows, 16 bytes a load; rows past the tile's are zero
+        for (int idx = tid; idx < kMmSub * (kChunk / kVec); idx += kThreads) {
+          const int r = idx / (kChunk / kVec), q = idx % (kChunk / kVec);
+          uint4 v = make_uint4(0u, 0u, 0u, 0u);
+          if (r < rows)
+            v = *reinterpret_cast<const uint4*>(x + (m0 + rb + r) * kp + k0 +
+                                                q * kVec);
+          *reinterpret_cast<uint4*>(Xh + r * kLd + q * kVec) = v;
+        }
+        // Y transposed: lane f loads row k0 + f (16 bytes: kVec columns)
+        // and stores each value in its column's row, so the 2-byte stores
+        // of a warp fall on consecutive addresses
+        for (int idx = tid; idx < kChunk * (kMmSub / kVec); idx += kThreads) {
+          const int f = idx % kChunk, q = idx / kChunk;
+          const uint4 v = *reinterpret_cast<const uint4*>(
+              y + size_t(k0 + f) * np + n0 + cb + q * kVec);
+          const T* e = reinterpret_cast<const T*>(&v);
+#pragma unroll
+          for (int u = 0; u < kVec; ++u) Yh[(q * kVec + u) * kLd + f] = e[u];
+        }
+        __syncthreads();
+#pragma unroll
+        for (int ks = 0; ks < kChunk; ks += 16) {
+          uint32_t a[kMF][4], b[kNF][2];
+#pragma unroll
+          for (int i = 0; i < kMF; ++i) {
+            const T* pa = Xh + (wr + 16 * i + g) * kLd + ks + 2 * t;
+            a[i][0] = ld32(pa);
+            a[i][1] = ld32(pa + 8 * kLd);
+            a[i][2] = ld32(pa + 8);
+            a[i][3] = ld32(pa + 8 * kLd + 8);
+          }
+#pragma unroll
+          for (int j = 0; j < kNF; ++j) {
+            const T* pb = Yh + (wc + 8 * j + g) * kLd + ks + 2 * t;
+            b[j][0] = ld32(pb);
+            b[j][1] = ld32(pb + 8);
+          }
+#pragma unroll
+          for (int i = 0; i < kMF; ++i)
+#pragma unroll
+            for (int j = 0; j < kNF; ++j)
+              mma_16816<T>(acc[i][j], a[i], b[j][0], b[j][1]);
+        }
+        // expected checksums from the resident chunk, as the f32 kernel
+        abft_encode_chunk(
+            sm, L, rows, rb, cb,
+            [&](int f, int r) { return to_f32(Xh[r * kLd + f]); },
+            [&](int f, int c) { return to_f32(Yh[c * kLd + f]); });
+        // simulated SEU: after the last chunk of k-step k_step, into the
+        // accumulator element of the lane that holds (row, col)
+        if (inj_tile && ch == (dinj.f_tile + 1) * ch_per_step - 1) {
+#pragma unroll
+          for (int i = 0; i < kMF; ++i)
+#pragma unroll
+            for (int j = 0; j < kNF; ++j)
+#pragma unroll
+              for (int e = 0; e < 4; ++e)
+                if (rb + wr + 16 * i + g + 8 * (e / 2) == dinj.row &&
+                    cb + wc + 8 * j + 2 * t + e % 2 == dinj.col)
+                  acc[i][j][e] += dinj.delta;
+        }
+        __syncthreads();
+      }
+
+#pragma unroll
+      for (int i = 0; i < kMF; ++i)
+#pragma unroll
+        for (int j = 0; j < kNF; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            Ds[(wr + 16 * i + g + 8 * (e / 2)) * kMmLd + wc + 8 * j + 2 * t +
+               e % 2] = acc[i][j][e];
+      __syncthreads();
+      abft_subtile_out(sm, L, d, m0, n0, np, rb, cb, rows);
     }
   }
+  abft_tile_verify(sm, L, d, det, m0, n0, np, bm, bn, mt, nt, thr_factor);
+}
+
+// the ABFT GEMM of input type T: the f32 kernel or the tensor-core one
+template <typename T>
+constexpr auto abft_kernel() {
+  if constexpr (std::is_same<T, float>::value)
+    return matmul_abft_kernel;
+  else
+    return matmul_abft_mma_kernel<T>;
+}
+
+template <typename T>
+int launch_abft(const T* x, const T* y, const int* inj, float* d, int* det,
+                float thr_factor, int mp, int np, int kp, int bm, int bn,
+                int bk, cudaStream_t stream) {
+  if (bm < 8 || bm % 8 || (bm > kMmSub && bm % kMmSub) || bm > 1024 ||
+      bn < kMmSub || bn % kMmSub || bn > 1024 || bk < kChunk || bk % kChunk ||
+      mp < bm || mp % bm || np < bn || np % bn || kp < bk || kp % bk ||
+      np / bn > kMaxProblems)
+    return int(cudaErrorInvalidValue);
+  auto kernel = abft_kernel<T>();
+  const size_t bytes = size_t(MmLayout(bm, bn).words) * 4;
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(bytes));
+  if (e != cudaSuccess) return int(e);
+  kernel<<<dim3(mp / bm, np / bn), kThreads, bytes, stream>>>(
+      x, y, inj, d, det, np, kp, bm, bn, bk, thr_factor);
+  return int(cudaGetLastError());
 }
 
 // --- DMR centroid update (centroid_update_dmr) ------------------------------
@@ -1717,6 +2029,19 @@ bool tile_shape_ok(int bm, int mp, int kp, int fp) {
          kp % kBK == 0 && fp > 0 && fp % kChunk == 0;
 }
 
+template <typename T>
+int pruned_dispatch(const T* x, const T* c, const float* cn, const float* xn,
+                    const int* skip, float* mind, int* argmin, float* sums,
+                    float* counts, float* tmin, int true_m, int mp, int kp,
+                    int fp, int bm, cudaStream_t s) {
+  if (!tile_shape_ok(bm, mp, kp, fp)) return int(cudaErrorInvalidValue);
+  if (bm == 128)
+    return launch_pruned<T, 128>(x, c, cn, xn, skip, mind, argmin, sums,
+                                 counts, tmin, mp, kp, fp, true_m, s);
+  return launch_pruned<T, 64>(x, c, cn, xn, skip, mind, argmin, sums, counts,
+                              tmin, mp, kp, fp, true_m, s);
+}
+
 }  // namespace
 
 extern "C" {
@@ -1807,6 +2132,21 @@ int fk_lloyd_step_lp(const void* x, const void* c, const float* cn,
   });
 }
 
+// fk_lloyd_step_batched at 2-byte X and C: nb stacked problems
+int fk_lloyd_step_batched_lp(const void* x, const void* c, const float* cn,
+                             float* mind, int* argmin, float* sums,
+                             float* counts, int true_m, int nb, int mp,
+                             int kp, int fp, int bm, int bf, int half,
+                             void* stream) {
+  return by_half(half, [&](auto tag) {
+    using T = typename decltype(tag)::type;
+    return dispatch<T, false, true>(
+        bm, static_cast<const T*>(x), static_cast<const T*>(c), cn, nullptr,
+        mind, argmin, nullptr, sums, counts, nullptr, nullptr, nb, mp, kp, fp,
+        bf, true_m, 0.0f, static_cast<cudaStream_t>(stream));
+  });
+}
+
 int fk_distance_argmin_ft_lp(const void* x, const void* c, const float* cn,
                              const int* inj, float* mind, int* argmin,
                              int* det, float thr_factor, int mp, int kp,
@@ -1854,13 +2194,25 @@ int fk_lloyd_step_pruned(const float* x, const float* c, const float* cn,
                          int* argmin, float* sums, float* counts, float* tmin,
                          int true_m, int mp, int kp, int fp, int bm,
                          void* stream) {
-  if (!tile_shape_ok(bm, mp, kp, fp)) return int(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (bm == 128)
-    return launch_pruned<128>(x, c, cn, xn, skip, mind, argmin, sums, counts,
-                              tmin, mp, kp, fp, true_m, s);
-  return launch_pruned<64>(x, c, cn, xn, skip, mind, argmin, sums, counts,
-                           tmin, mp, kp, fp, true_m, s);
+  return pruned_dispatch<float>(x, c, cn, xn, skip, mind, argmin, sums,
+                                counts, tmin, true_m, mp, kp, fp, bm,
+                                static_cast<cudaStream_t>(stream));
+}
+
+// fk_lloyd_step_pruned for bf16 (half = 0) or fp16 (half = 1) X and C,
+// 16-byte aligned
+int fk_lloyd_step_pruned_lp(const void* x, const void* c, const float* cn,
+                            const float* xn, const int* skip, float* mind,
+                            int* argmin, float* sums, float* counts,
+                            float* tmin, int true_m, int mp, int kp, int fp,
+                            int bm, int half, void* stream) {
+  return by_half(half, [&](auto tag) {
+    using T = typename decltype(tag)::type;
+    return pruned_dispatch<T>(static_cast<const T*>(x),
+                              static_cast<const T*>(c), cn, xn, skip, mind,
+                              argmin, sums, counts, tmin, true_m, mp, kp, fp,
+                              bm, static_cast<cudaStream_t>(stream));
+  });
 }
 
 // xq (mp, fp) and cq (kp, fp) int8, 4-byte aligned; sx (mp,), sc (kp,) and
@@ -1894,20 +2246,21 @@ int fk_kmeanspp_round(const float* x, const float* xn, const float* c,
 int fk_matmul_abft(const float* x, const float* y, const int* inj, float* d,
                    int* det, float thr_factor, int mp, int np, int kp, int bm,
                    int bn, int bk, void* stream) {
-  if (bm < 8 || bm % 8 || (bm > kMmSub && bm % kMmSub) || bm > 1024 ||
-      bn < kMmSub || bn % kMmSub || bn > 1024 || bk < kChunk || bk % kChunk ||
-      mp < bm || mp % bm || np < bn || np % bn || kp < bk || kp % bk ||
-      np / bn > kMaxProblems)
-    return int(cudaErrorInvalidValue);
-  const size_t bytes = size_t(MmLayout(bm, bn).words) * 4;
-  cudaError_t e = cudaFuncSetAttribute(
-      matmul_abft_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      int(bytes));
-  if (e != cudaSuccess) return int(e);
-  matmul_abft_kernel<<<dim3(mp / bm, np / bn), kThreads, bytes,
-                       static_cast<cudaStream_t>(stream)>>>(
-      x, y, inj, d, det, np, kp, bm, bn, bk, thr_factor);
-  return int(cudaGetLastError());
+  return launch_abft<float>(x, y, inj, d, det, thr_factor, mp, np, kp, bm, bn,
+                            bk, static_cast<cudaStream_t>(stream));
+}
+
+// fk_matmul_abft for bf16 (half = 0) or fp16 (half = 1) X and Y, 16-byte
+// aligned; D stays f32
+int fk_matmul_abft_lp(const void* x, const void* y, const int* inj, float* d,
+                      int* det, float thr_factor, int mp, int np, int kp,
+                      int bm, int bn, int bk, int half, void* stream) {
+  return by_half(half, [&](auto tag) {
+    using T = typename decltype(tag)::type;
+    return launch_abft<T>(static_cast<const T*>(x), static_cast<const T*>(y),
+                          inj, d, det, thr_factor, mp, np, kp, bm, bn, bk,
+                          static_cast<cudaStream_t>(stream));
+  });
 }
 
 // x (m, f) f32, assign (m,) int32; part (2, slabs, k, f) f32 and cnt

@@ -11,19 +11,19 @@ into the package's git-ignored ``_build/`` directory and loaded with
 ``fk_kernels.cu`` holds every k-means kernel of the port: the tile kernel
 behind ``distance_argmin``, ``lloyd_step`` (one problem, or B stacked
 problems over a (row tile, problem) grid: ``fk_lloyd_step_batched``),
-``distance_argmin_ft`` and ``lloyd_step_ft``, and the update epilogue
-launched alone (``fk_update_tiles``), each also for bf16 or fp16 X and C on
-the tensor cores (the ``*_lp`` entry points, one more int argument before
-the stream: :data:`HALF_KINDS`), the k-means++ D^2 round
-(``fk_kmeanspp_round``), the pruned one-pass
-step (``fk_lloyd_step_pruned``), the int8 distance kernel
-(``fk_distance_argmin_int8``), the ABFT GEMM (``fk_matmul_abft``) and the
-DMR centroid update (``fk_centroid_update_dmr``, three launches: partials,
-slab reduction, verdict). ``fk_attention.cu`` holds the LM stack's flash
-attention (``fk_flash_attention``); both include ``csrc/fk_mma.cuh`` (the
-tensor-core ``mma.sync`` helpers). A library's file name carries a hash of
-its source and the headers of ``csrc/``, so an edited source or header
-rebuilds and an unchanged one is reused.
+``distance_argmin_ft`` and ``lloyd_step_ft``, the update epilogue launched
+alone (``fk_update_tiles``), the pruned one-pass step
+(``fk_lloyd_step_pruned``) and the ABFT GEMM (``fk_matmul_abft``), each
+also for bf16 or fp16 inputs on the tensor cores (the ``*_lp`` entry
+points of :data:`LOWP_ENTRIES`, one more int argument before the stream:
+:data:`HALF_KINDS`), the k-means++ D^2 round (``fk_kmeanspp_round``), the
+int8 distance kernel (``fk_distance_argmin_int8``) and the DMR centroid
+update (``fk_centroid_update_dmr``, three launches: partials, slab
+reduction, verdict). ``fk_attention.cu`` holds the LM stack's flash
+attention (``fk_flash_attention``, f32, bf16 or fp16); both include
+``csrc/fk_mma.cuh`` (the tensor-core ``mma.sync`` helpers). A library's
+file name carries a hash of its source and the headers of ``csrc/``, so an
+edited source or header rebuilds and an unchanged one is reused.
 Every C entry point returns ``cudaGetLastError()`` after its launch;
 :func:`check` turns a non-zero code into a ``RuntimeError``. Nothing here
 runs at import time: this module is imported on machines without ``nvcc``.
@@ -75,14 +75,16 @@ SIGNATURES: dict[str, tuple] = {
 # the 2-byte entry points: their f32 twin's arguments, then the dtype code
 # (HALF_KINDS), then the stream
 LOWP_ENTRIES = ("fk_distance_argmin", "fk_lloyd_step",
-                "fk_distance_argmin_ft", "fk_lloyd_step_ft", "fk_update_tiles")
+                "fk_lloyd_step_batched", "fk_distance_argmin_ft",
+                "fk_lloyd_step_ft", "fk_update_tiles", "fk_lloyd_step_pruned",
+                "fk_matmul_abft")
 SIGNATURES.update({f"{name}_lp": SIGNATURES[name][:-1] + (_I, _P)
                    for name in LOWP_ENTRIES})
 # dtype code of the *_lp entry points, by torch dtype name
 HALF_KINDS = {"bfloat16": 0, "float16": 1}
 # q, k, v, q_positions, kv_positions, out; B, H, KV, Sq, Skv, hd; the
 # (batch, head, sequence) element strides of q, k, v and out; causal,
-# window, zero_empty, bf16; stream
+# window, zero_empty, dtype (0 f32, 1 bf16, 2 fp16); stream
 ATTENTION_SIGNATURES: dict[str, tuple] = {
     "fk_flash_attention": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                            _L, _L, _L, _L, _L, _L, _L, _L, _L, _L, _L, _L,
@@ -254,8 +256,9 @@ def input_dtype(*tensors):
 
 def launch(name: str, dtype, *args) -> int:
     """Call C entry point ``name`` for ``dtype``: the f32 kernel as it is,
-    a 2-byte dtype through ``name + "_lp"`` with its dtype code inserted
-    before the last argument (the stream)."""
+    a 2-byte dtype through ``name + "_lp"`` (``name`` in
+    :data:`LOWP_ENTRIES`) with its dtype code inserted before the last
+    argument (the stream)."""
     lib = library().lib
     code = HALF_KINDS.get(str(dtype).replace("torch.", ""))
     if code is None:

@@ -19,15 +19,15 @@ writes the zero itself, so ``attend`` builds no mask on the card).
 CUDA kernels in ``csrc/fk_attention.cu``, one thread block per (batch *
 head, query tile) walking the KV tiles in a loop; the C side picks the
 kernel and tile (``hw.FLASH_BLOCK_*``) from Sq, the dtype and the head dim:
-``flash_mma_kernel<HD>`` for bf16 at Sq > 16 and head dim 64 or 128 (the
-products on the tensor cores, ``mma.sync``), ``flash_kernel<T, HD, RI>``
-for the rest (f32 FMAs on the CUDA cores: every f32 launch, bf16 decode
-launches and head dim 256); see the source for the design and the bound
-(operations at prefill, KV bytes at decode). It reads q, k, v and writes
-the output through their (batch, head, sequence) strides, so transposed
-views of (B, S, H, hd) tensors need no copy, and it masks the ragged ends
-of Sq and Skv itself: unlike the reference, no shape must be padded to a
-tile. Head dims other than 64, 128 and 256 are zero-padded to the next of
+``flash_mma_kernel<T, HD>`` for bf16 or fp16 at Sq > 16 and head dim 64 or
+128 (the products on the tensor cores, ``mma.sync``),
+``flash_kernel<T, HD, RI>`` for the rest (f32 FMAs on the CUDA cores:
+every f32 launch, 2-byte decode launches and head dim 256); see the
+source for the design and the bound (operations at prefill, KV bytes at
+decode). It reads q, k, v and writes the output through their (batch,
+head, sequence) strides, so transposed views of (B, S, H, hd) tensors need
+no copy, and it masks the ragged ends of Sq and Skv itself: unlike the
+reference, no shape must be padded to a tile. Head dims other than 64, 128 and 256 are zero-padded to the next of
 them (a copy).
 
 On the CPU the wrapper runs :func:`flash_attention_plain`, the masked
@@ -43,7 +43,8 @@ from repro_torch import hw
 from repro_torch.kernels import _build, ref
 
 NEG = -1e30
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# the C entry point's dtype code
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 
 def position_mask(q_positions: torch.Tensor, kv_positions: torch.Tensor,
@@ -109,7 +110,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     zero_empty_rows: bool = False) -> torch.Tensor:
     """q (B, H, Sq, hd); k, v (B, KV, Skv, hd); positions absolute ints.
 
-    Returns (B, H, Sq, hd) in q's dtype (f32 or bf16 on the card). A row
+    Returns (B, H, Sq, hd) in q's dtype (f32, bf16 or fp16 on the
+    card). A row
     with no valid key is the mean of v, or zero with ``zero_empty_rows``.
     The reference's ``block_q``/``block_k``/``interpret`` are TPU tiling
     controls; the kernel picks its tiles itself (``hw.FLASH_BLOCK_*``).
@@ -120,8 +122,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                      causal=causal, window=window,
                                      zero_empty_rows=zero_empty_rows)
     if not (q.dtype == k.dtype == v.dtype) or q.dtype not in _DTYPES:
-        raise ValueError(f"q, k, v must share a dtype in float32/bfloat16, "
-                         f"got {q.dtype}, {k.dtype}, {v.dtype}")
+        raise ValueError(f"q, k, v must share a dtype in float32/bfloat16/"
+                         f"float16, got {q.dtype}, {k.dtype}, {v.dtype}")
     b, h, sq, hd = q.shape
     kvh, skv = k.shape[1], k.shape[2]
     if skv < 1:

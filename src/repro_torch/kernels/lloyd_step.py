@@ -21,20 +21,21 @@ tile bit for bit -- the contract ``ops._verify_update_partials`` rests on,
 and the reason a two-pass ``fused`` fit sums exactly as a ``lloyd`` fit
 does, at every input dtype.
 
-Batched: :func:`lloyd_step_batched` launches the same instantiation over a
-(row tile, problem) grid; ``blockIdx.y`` moves every base pointer to its
-problem's slab, so problem b of the launch is, bit for bit, :func:`lloyd_step`
-on problem b alone (the reference's contract, ``tests/test_batched.py``).
-The TPU kernel wants padded K to be one centroid tile; this one loops over
-128-wide centroid tiles as the single-problem kernel does, so any K works.
-The batched step takes f32 only: its 2-byte variant is ROADMAP Queue 2 A3.
+Batched: :func:`lloyd_step_batched` launches the same instantiation (of
+the input dtype, f32, bf16 or fp16) over a (row tile, problem) grid;
+``blockIdx.y`` moves every base pointer to its problem's slab, so problem b
+of the launch is, bit for bit, :func:`lloyd_step` on problem b alone (the
+reference's contract, ``tests/test_batched.py``). The TPU kernel wants
+padded K to be one centroid tile; this one loops over 128-wide centroid
+tiles as the single-problem kernel does, so any K works.
 
 Bound on the H100: the distance GEMM (2 * Mp * Kp * Fp FLOPs on f32 CUDA
-cores) plus writing the partial-sum buffer, (Mp/bm) * Kp * Fp * 4 bytes
-(4.3 GB at M = 2**20, Kp = 1024, Fp = 128, bm = 128). The buffer keeps the
-reference's layout; collapsing it in-kernel is later work. X rows of the
-update are re-read from global memory (L2-resident right after the tile's
-GEMM) instead of from a shared-memory stash.
+cores, or the bf16 / fp16 tensor cores) plus writing the partial-sum
+buffer, (Mp/bm) * Kp * Fp * 4 bytes (4.3 GB at M = 2**20, Kp = 1024,
+Fp = 128, bm = 128); at 2-byte inputs the buffer's bytes set the bound.
+The buffer keeps the reference's layout; collapsing it in-kernel is later
+work. X rows of the update are re-read from global memory (L2-resident
+right after the tile's GEMM) instead of from a shared-memory stash.
 """
 from __future__ import annotations
 
@@ -166,10 +167,7 @@ def check_padded_batched(x: torch.Tensor, c: torch.Tensor, cn: torch.Tensor,
                          f"Fp), cn (B, Kp) with B >= 1; got {tuple(x.shape)}, "
                          f"{tuple(c.shape)}, {tuple(cn.shape)}")
     check_padded(x[0], c[0], cn[0], block_m, block_k, block_f)
-    if x.dtype != torch.float32 or c.dtype != torch.float32:
-        raise NotImplementedError(
-            f"lloyd_step_batched runs float32 only, got {x.dtype} / "
-            f"{c.dtype}: the 2-byte batched step is ROADMAP Queue 2 A3")
+    _build.input_dtype(x, c)        # f32, bf16 or fp16, else it raises
     if x.shape[0] > MAX_PROBLEMS:
         raise ValueError(f"{x.shape[0]} problems in one launch; the kernel's "
                          f"grid holds at most {MAX_PROBLEMS} (gridDim.y)")
@@ -187,10 +185,11 @@ def lloyd_step_batched_plain(x: torch.Tensor, c: torch.Tensor,
 def lloyd_step_batched(x: torch.Tensor, c: torch.Tensor, cn: torch.Tensor,
                        true_m: int, *, block_m: int, block_k: int,
                        block_f: int):
-    """Raw batched one-pass entry on pre-padded f32 inputs: x (B, Np, Fp),
-    c (B, Kp, Fp), cn (B, Kp) (+inf in padded slots); every problem has
-    ``true_m`` real rows. Returns (min (B, Np), argmin (B, Np), sums
-    (B, Np/bm, Kp, Fp), counts (B, Np/bm, Kp))."""
+    """Raw batched one-pass entry on pre-padded inputs: x (B, Np, Fp) and
+    c (B, Kp, Fp) of one dtype (f32, bf16 or fp16, as :func:`lloyd_step`),
+    cn (B, Kp) f32 (+inf in padded slots); every problem has ``true_m``
+    real rows. Returns (min (B, Np), argmin (B, Np), sums (B, Np/bm, Kp,
+    Fp), counts (B, Np/bm, Kp)), all f32 but argmin."""
     check_padded_batched(x, c, cn, block_m, block_k, block_f)
     if _build.on_cpu(x, c, cn):
         return lloyd_step_batched_plain(x, c, cn, true_m, block_m)
@@ -202,12 +201,12 @@ def lloyd_step_batched(x: torch.Tensor, c: torch.Tensor, cn: torch.Tensor,
     am = torch.empty((nb, mp), dtype=torch.int32, device=dev)
     sums = torch.empty((nb, nt, kp, fp), dtype=torch.float32, device=dev)
     counts = torch.empty((nb, nt, kp), dtype=torch.float32, device=dev)
-    f32 = torch.float32
-    code = _build.library().lib.fk_lloyd_step_batched(
-        _build.ptr(x, f32, "x"), _build.ptr(c, f32, "c"),
-        _build.ptr(cn, f32, "cn"), mind.data_ptr(), am.data_ptr(),
-        sums.data_ptr(), counts.data_ptr(), true_m, nb, mp, kp, fp, block_m,
-        block_f, _build.stream_of(x))
+    dt = x.dtype
+    code = _build.launch(
+        "fk_lloyd_step_batched", dt, _build.ptr(x, dt, "x"),
+        _build.ptr(c, dt, "c"), _build.ptr(cn, torch.float32, "cn"),
+        mind.data_ptr(), am.data_ptr(), sums.data_ptr(), counts.data_ptr(),
+        true_m, nb, mp, kp, fp, block_m, block_f, _build.stream_of(x))
     _build.check(code, "lloyd_step_batched")
     lloyd_step_batched.launches += 1
     return mind, am, sums, counts

@@ -13,17 +13,22 @@ replaces by the decayed bound. The update epilogue and the final min/argmin
 writes run whatever the mask says. Where the mask only skips tiles that lose
 strictly, every output is bit for bit ``lloyd_step``'s.
 
-CUDA kernel: ``lloyd_pruned_kernel<BM>`` in ``csrc/fk_kernels.cu``, a
-``__global__`` of its own whose computed trips are the one-pass tile
-kernel's code (so the other instantiations keep their signatures). The skip
-flag is read by the whole block before the trip's first barrier, so a
-skipped tile costs the block nothing but the flag. The reference's
-``smallk`` body needs no counterpart: with one centroid tile the caller
-forces the mask to zero.
+CUDA kernels: ``lloyd_pruned_kernel<BM>`` (f32) and
+``lloyd_pruned_mma_kernel<T, BM>`` (bf16 and fp16 X and C, the reference's
+2-byte templates) in ``csrc/fk_kernels.cu``, ``__global__``s of their own
+whose computed trips are the one-pass tile kernel's code of the same input
+dtype (``lloyd_tile_kernel`` / ``lloyd_tile_mma_kernel``: the same product,
+``tile_min_argmin``, ``fold_min`` and ``emit_update``), so a pruned step
+is bit for bit the :func:`lloyd_step` of its dtype wherever the mask skips
+only losing tiles. The skip flag is read by the whole block before the
+trip's first barrier, so a skipped tile costs the block nothing but the
+flag. The reference's ``smallk`` body needs no counterpart: with one
+centroid tile the caller forces the mask to zero.
 
 Bound on the H100: the GEMM of the computed cells, 2 * bm * bk * Fp FLOPs
-each on the f32 CUDA cores, plus the partial-sum buffer the update writes
-(as ``lloyd_step``).
+each on the f32 CUDA cores (or the bf16 / fp16 tensor cores), plus the
+partial-sum buffer the update writes (as ``lloyd_step``); at 2-byte inputs
+the buffer's bytes set the bound.
 """
 from __future__ import annotations
 
@@ -45,13 +50,14 @@ def lloyd_step_pruned_plain(x: torch.Tensor, c: torch.Tensor,
     ``distance_argmin_plain`` computes it, skipped cells set to ``MIN_INIT``
     (they never win: the kernel never folds them, and a row tile whose
     every cell is skipped keeps the kernel's start, ``MIN_INIT`` at
-    index 0). Returns (min (Mp,), argmin (Mp,), sums (T, Kp, Fp), counts
-    (T, Kp), tmin (T, Kp/bk))."""
+    index 0). 2-byte X and C are widened to f32 before the product, which
+    is then exact per term, as on the tensor cores. Returns (min (Mp,),
+    argmin (Mp,), sums (T, Kp, Fp), counts (T, Kp), tmin (T, Kp/bk))."""
     ref.full_f32(x.device)
     mp, fp = x.shape
     kp = c.shape[0]
     nt, nkt = mp // block_m, kp // block_k
-    d = cn[None, :] - 2.0 * (x @ c.T)                          # (Mp, Kp)
+    d = cn[None, :] - 2.0 * (x.float() @ c.float().T)          # (Mp, Kp)
     cells = d.view(nt, block_m, nkt, block_k)
     local = cells.amin(3)                                      # (T, bm, nkt)
     rows = torch.arange(mp, device=x.device).view(nt, block_m, 1)
@@ -70,12 +76,14 @@ def lloyd_step_pruned_plain(x: torch.Tensor, c: torch.Tensor,
 def lloyd_step_pruned(x: torch.Tensor, c: torch.Tensor, cn: torch.Tensor,
                       xn: torch.Tensor, skip: torch.Tensor, true_m: int, *,
                       block_m: int, block_k: int, block_f: int):
-    """Raw pruned one-pass entry on pre-padded f32 inputs: x (Mp, Fp), c
-    (Kp, Fp), cn (Kp,) with +inf in padded slots, xn (Mp,) row squared
+    """Raw pruned one-pass entry on pre-padded inputs: x (Mp, Fp) and c
+    (Kp, Fp) of one dtype (f32, bf16 or fp16), cn (Kp,) f32 with +inf in
+    padded slots, xn (Mp,) f32 row squared
     norms (0 in padded rows), skip (Mp/bm, Kp/bk) int32. Returns (min (Mp,),
     argmin (Mp,), sums (Mp/bm, Kp, Fp), counts (Mp/bm, Kp), tmin (Mp/bm,
     Kp/bk))."""
     check_padded(x, c, cn, block_m, block_k, block_f)
+    dt = _build.input_dtype(x, c)
     mp, fp = x.shape
     kp = c.shape[0]
     nt, nkt = mp // block_m, kp // block_k
@@ -92,9 +100,10 @@ def lloyd_step_pruned(x: torch.Tensor, c: torch.Tensor, cn: torch.Tensor,
     counts = torch.empty((nt, kp), dtype=torch.float32, device=dev)
     tmin = torch.empty((nt, nkt), dtype=torch.float32, device=dev)
     f32 = torch.float32
-    code = _build.library().lib.fk_lloyd_step_pruned(
-        _build.ptr(x, f32, "x"), _build.ptr(c, f32, "c"),
-        _build.ptr(cn, f32, "cn"), _build.ptr(xn, f32, "xn"),
+    code = _build.launch(
+        "fk_lloyd_step_pruned", dt, _build.ptr(x, dt, "x"),
+        _build.ptr(c, dt, "c"), _build.ptr(cn, f32, "cn"),
+        _build.ptr(xn, f32, "xn"),
         _build.ptr(skip, torch.int32, "skip"), mind.data_ptr(),
         am.data_ptr(), sums.data_ptr(), counts.data_ptr(), tmin.data_ptr(),
         true_m, mp, kp, fp, block_m, _build.stream_of(x))

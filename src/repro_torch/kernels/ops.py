@@ -19,13 +19,14 @@ A tensor on the CPU runs every kernel's plain version; a CUDA tensor runs
 the kernels. Tiles come from explicit :class:`KernelParams` or the port's
 H100 defaults (``repro_torch.hw``); an autotuned table is later work.
 
-Compute dtypes: the single-problem entries (:func:`fused_assign`,
+Compute dtypes: every tile entry (:func:`fused_assign`,
 :func:`fused_lloyd`, :func:`fused_assign_ft`, :func:`fused_lloyd_ft`,
-:func:`tiled_update`) take X in f32, bf16 or fp16, as the reference's
-templates do: the plan keeps X in its dtype, the centroids are cast to it,
-and norms, distances, sums and checksums stay f32. The batched, pruned and
-int8 entries take f32 X only (their 2-byte variants are ROADMAP Queue 2
-A3 and A6; int8 quantises f32 rows).
+:func:`tiled_update`, :func:`fused_lloyd_batched`,
+:func:`fused_lloyd_pruned`) and :func:`abft_matmul` take X in f32, bf16 or
+fp16, as the reference's templates do: the plan keeps X in its dtype, the
+centroids are cast to it, and norms, distances, sums, checksums and the
+ABFT GEMM's D stay f32. The int8 entry quantises f32 rows (a raw 2-byte X
+is widened first, as the reference's plan does).
 """
 from __future__ import annotations
 
@@ -64,15 +65,6 @@ class KernelParams:
 
 
 DEFAULT_PARAMS = KernelParams()
-
-
-def require_f32(dtype: torch.dtype, what: str, queue: str) -> None:
-    """Raise NotImplementedError for an entry whose 2-byte variant is not
-    ported yet (``queue``: where ROADMAP.md files it)."""
-    if dtype != torch.float32:
-        raise NotImplementedError(
-            f"{what} runs float32 only, got {dtype}; its bf16/fp16 variant "
-            f"is ROADMAP {queue}")
 
 
 def check_cuda_params(params: KernelParams) -> None:
@@ -238,10 +230,10 @@ def _resolve_padded_int8(x, c: torch.Tensor,
     if isinstance(x, QuantPlan):
         plan, params = x, x.data.params
     else:
-        require_f32(x.dtype, "the int8 kernel's plan", "Queue 1 item 2")
         params = clamp_params(x.shape[0], k, x.shape[1],
                               params or DEFAULT_PARAMS)
-        plan = plan_data_int8(x, params)
+        # int8 quantises f32 rows; a 2-byte X widens exactly
+        plan = plan_data_int8(x.float(), params)
     if plan.xq.is_cuda:
         check_cuda_params(params)
     cf = c.float()
@@ -345,6 +337,7 @@ class BoundsState:
     assign : (m,)       int32 assignment the upper bounds pair with
     tmin   : (nmt, nkt) f32 per-(row tile, centroid tile) lower bound
     c_prev : (kp, fp)   f32 padded centroids the bounds were computed against
+                        (the compute dtype's values, widened)
     fresh  : ()         bool, True = placeholder: skip nothing, seed bounds
     """
 
@@ -383,7 +376,8 @@ def prune_mask(bounds: BoundsState, cp: torch.Tensor, m: int,
     (skip (nmt, nkt) int32, tlb (nmt, nkt) f32)."""
     bm, bk = params.block_m, params.block_k
     nmt, nkt = bounds.tmin.shape
-    drift = ((cp - bounds.c_prev) ** 2).sum(1).sqrt()             # (kp,)
+    # in f32 whatever the compute dtype (the reference's cpf)
+    drift = ((cp.float() - bounds.c_prev) ** 2).sum(1).sqrt()     # (kp,)
     maxdrift = drift.view(nkt, bk).amax(1)                        # (nkt,)
     ub_adj = bounds.ub + drift[bounds.assign.long()]              # (m,)
     maxub = F.pad(ub_adj, (0, nmt * bm - m),
@@ -407,7 +401,6 @@ def fused_lloyd_pruned(x, c: torch.Tensor,
     squared distance (M,), sums (K, F), counts (K,), new bounds, pruned
     tile fraction (0-d f32))."""
     plan, cp, cn, params = _resolve_padded(x, c, params)
-    require_f32(plan.xp.dtype, "lloyd_step_pruned", "Queue 2 A6")
     k, m = c.shape[0], plan.m
     mp = plan.xp.shape[0]
     if bounds is None:
@@ -421,7 +414,7 @@ def fused_lloyd_pruned(x, c: torch.Tensor,
     new_bounds = BoundsState(
         ub=md.clamp_min(0.0).sqrt(), assign=am[:m],
         # skipped cells keep the decayed bound; computed cells refresh it
-        tmin=torch.where(skip == 1, tlb, tmin_k), c_prev=cp,
+        tmin=torch.where(skip == 1, tlb, tmin_k), c_prev=cp.float(),
         fresh=torch.zeros((), dtype=torch.bool, device=cp.device))
     return (am[:m], md, _tree_sum(sums)[:k, :plan.f],
             _tree_sum(counts)[:k], new_bounds, skip.float().mean())
@@ -550,7 +543,7 @@ def _resolve_padded_batched(x, c: torch.Tensor,
         params = clamp_params(x.shape[1], k, x.shape[2],
                               params or DEFAULT_PARAMS)
         plan = plan_data_batched(x, params)
-    require_f32(plan.xp.dtype, "lloyd_step_batched", "Queue 2 A3")
+    _build.input_dtype(plan.xp)      # f32, bf16 or fp16, else it raises
     if plan.xp.is_cuda:
         check_cuda_params(params)
     cp, cn = _pad_centroids(c.to(plan.xp.dtype), k,
@@ -610,10 +603,11 @@ def abft_matmul(x: torch.Tensor, y: torch.Tensor, *,
     """ABFT GEMM D = X @ Y with in-kernel detection and correction, X
     (M, K), Y (K, N) f32, bf16 or fp16. Pads to :func:`abft_tiles`,
     launches :func:`~repro_torch.kernels.matmul_abft.matmul_abft` (its plain
-    version on the CPU) on the values widened to f32 (the kernel's 2-byte
-    tiles are ROADMAP Queue 2 A7) and slices. The detection threshold is
-    the inputs' dtype's, as the reference kernel's: a bf16 product is held
-    to bf16 rounding, not to f32's. ``inj`` is a
+    version on the CPU) on X and Y in their promoted dtype (two 2-byte
+    inputs of one dtype stay 2-byte: the tensor-core kernel; a mix
+    promotes to f32, as ``jnp.dot`` does) and slices. The detection
+    threshold is the inputs' dtype's, as the reference kernel's: a bf16
+    product is held to bf16 rounding, not to f32's. ``inj`` is a
     :func:`~repro_torch.kernels.matmul_abft.make_injection` descriptor
     (m-tile, n-tile, k-step, row, col, delta) at those tiles. Returns
     (D (M, N) f32, detected count 0-d int32)."""
@@ -621,9 +615,10 @@ def abft_matmul(x: torch.Tensor, y: torch.Tensor, *,
     n = y.shape[1]
     bm, bn, bk = abft_tiles(m, n, k, block_m, block_n, block_k)
     mp, np_, kp = _round_up(m, bm), _round_up(n, bn), _round_up(k, bk)
-    factor = threshold_factor(kp, torch.promote_types(x.dtype, y.dtype))
-    xp = _pad_to(x.float(), mp, kp)
-    yp = _pad_to(y.float(), kp, np_)
+    dt = torch.promote_types(x.dtype, y.dtype)
+    factor = threshold_factor(kp, dt)
+    xp = _pad_to(x.to(dt), mp, kp)
+    yp = _pad_to(y.to(dt), kp, np_)
     inj = (_mma.no_injection() if inj is None else inj).to(xp.device)
     d, det = _mma.matmul_abft(xp, yp, inj, block_m=bm, block_n=bn,
                               block_k=bk, factor=factor)

@@ -30,11 +30,15 @@ def distance_matrix(x: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
 
 def first_min(d: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """Row min and the lowest column index attaining it (jnp.argmin's
-    tie-break), written out so it does not rest on a library's choice."""
+    tie-break), written out so it does not rest on a library's choice. A
+    row holding a NaN has min NaN and its first NaN's index, as jnp.min and
+    jnp.argmin give (``d != d`` marks NaNs; a row's min is NaN exactly when
+    the row holds one)."""
     mn = d.min(dim=1).values
     cols = torch.arange(d.shape[1], device=d.device, dtype=torch.int32)
     big = torch.iinfo(torch.int32).max
-    arg = torch.where(d == mn[:, None], cols[None, :], big).min(dim=1).values
+    hit = (d == mn[:, None]) | (d != d)
+    arg = torch.where(hit, cols[None, :], big).min(dim=1).values
     return mn, arg.to(torch.int32)
 
 

@@ -261,8 +261,10 @@ def test_input_validation_and_capabilities():
         BatchedKMeans(2, backend="lloyd", device="cpu")
     with pytest.raises(BackendCapabilityError, match="BatchedKMeans"):
         KMeans(4, backend="lloyd_batched", device="cpu")
-    with pytest.raises(NotImplementedError, match="not ported"):
-        BatchedKMeans(2, compute_dtype="bfloat16", device="cpu")
+    with pytest.raises(ValueError, match="compute_dtype"):
+        BatchedKMeans(2, compute_dtype="int8", device="cpu")
+    with pytest.raises(ValueError, match="compute_dtype"):
+        JBatchedKMeans(2, compute_dtype="int8")
     with pytest.raises(ValueError):
         BatchedKMeans(2, init="nope", device="cpu")
     bkm = BatchedKMeans(2, max_iter=3, device="cpu").fit(

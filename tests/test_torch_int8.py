@@ -285,9 +285,7 @@ def test_protected_int8_refused_like_reference():
         JKMeans(4, compute_dtype="int8", fault=JFaultPolicy.correct())
 
 
-@pytest.mark.parametrize("kw", [dict(compute_dtype="int8", batch_size=64),
-                                dict(compute_dtype="float16",
-                                     backend="lloyd_pruned")])
+@pytest.mark.parametrize("kw", [dict(compute_dtype="int8", batch_size=64)])
 def test_later_slices_still_raise(kw):
     with pytest.raises(NotImplementedError):
         KMeans(4, device="cpu", **kw)

@@ -26,7 +26,6 @@ from repro.kernels import ops as jops  # noqa: E402
 from repro.kernels import matmul_abft as j_mma  # noqa: E402
 from repro_torch import convert  # noqa: E402
 from repro_torch.api import FaultPolicy, InjectionCampaign, KMeans  # noqa: E402
-from repro_torch.batch import BatchedKMeans  # noqa: E402
 from repro_torch.data.blobs import make_blobs  # noqa: E402
 from repro_torch.kernels import distance_argmin as t_da  # noqa: E402
 from repro_torch.kernels import lloyd_step_ft as t_llft  # noqa: E402
@@ -359,28 +358,6 @@ def test_plain_product_is_f32_on_the_widened_values(dtype):
     # the trap: the native 2-byte product misses that bar
     native = (tx @ tc.T).double()
     assert float((native - xd @ cd.T).abs().max()) > 1e-6 * scale
-
-
-# --- (g) paths of later slices still raise --------------------------------
-
-@pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("kw", [dict(backend="lloyd_pruned"),
-                                dict(fault=FaultPolicy.detect())])
-def test_later_lowp_backends_raise(dtype, kw):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        KMeans(4, compute_dtype=dtype, device="cpu", **kw)
-
-
-@pytest.mark.parametrize("dtype", DTYPES)
-def test_batched_and_pruned_entries_refuse_2_byte_plans(dtype):
-    with pytest.raises(NotImplementedError):
-        BatchedKMeans(4, compute_dtype=dtype, device="cpu")
-    x = torch.zeros(70, 40).to(getattr(torch, dtype))
-    c = torch.ones(3, 40)
-    with pytest.raises(NotImplementedError, match="Queue 2 A3"):
-        ops.fused_lloyd_batched(x[None], c[None])
-    with pytest.raises(NotImplementedError, match="Queue 2 A6"):
-        ops.fused_lloyd_pruned(x, c)
 
 
 # --- (h) ops.abft_matmul takes its threshold from the inputs' dtype -------

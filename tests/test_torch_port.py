@@ -142,10 +142,6 @@ def test_default_tiles_are_buildable():
 
 @pytest.mark.parametrize("kw,err", [
     (dict(batch_size=64), NotImplementedError),
-    (dict(compute_dtype="bfloat16", backend="lloyd_pruned"),
-     NotImplementedError),
-    (dict(compute_dtype="float16", fault=FaultPolicy.detect()),
-     NotImplementedError),
     (dict(init="kmeans++-fused"), ValueError),
     (dict(fault=FaultPolicy.detect(), batch_size=64), NotImplementedError),
     (dict(compute_dtype="float64"), ValueError),
