@@ -234,6 +234,31 @@ def cuda_ms(fn, reps: int = 5) -> float:
     return start.elapsed_time(end) / reps
 
 
+def queued_ms(fn, reps: int = 50) -> float:
+    """Mean device time of ``fn`` over ``reps`` launches queued behind a
+    sleep kernel that outlasts their enqueue (CUDA events), after one
+    warm-up call: for a kernel shorter than its launch's host cost (a
+    decode step's attention), whose back-to-back launches ``cuda_ms`` would
+    time at the host's pace."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    host_s = time.perf_counter() - t0
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(4e9 * host_s) + 1_000_000)   # > 2 x host_s at 2 GHz
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
 def wall(fn):
     import torch
     torch.cuda.synchronize()
@@ -1128,20 +1153,50 @@ def phase_detect(torch, ops, hw, ll, mma, cud, KMeans, FaultPolicy,
     return rec, rows
 
 
-def phase_flash(torch, fa, hw) -> tuple[dict, dict]:
-    """Phase 11: the flash-attention kernel against its plain version on
+def decode_plan(fa, b, h, kvh, sq, skv, hd, dtype) -> dict:
+    """The decode kernel's KV splits and rows a block for these shapes on
+    this card (``fk_flash_workspace``)."""
+    import ctypes
+    from repro_torch.kernels import _build
+    got = (ctypes.c_longlong * 4)()
+    code = _build.library("fk_attention").lib.fk_flash_workspace(
+        b, h, kvh, sq, skv, hd, fa._DTYPES[dtype], ctypes.addressof(got))
+    expect(code == 0, f"fk_flash_workspace failed ({code})")
+    return {"splits": int(got[2]), "rows_a_block": int(got[3]),
+            "partial_mbytes": 4e-6 * int(got[0])}
+
+
+def tile_shares(fa, qpos, kpos, block_q, block_k, causal=True, window=0):
+    """Shares of (query tile, KV tile) pairs the kernels skip (DEAD) and
+    leave unmasked (FULL), by ``live_tiles``."""
+    cls = fa.live_tiles(qpos.cpu(), kpos.cpu(), block_q, block_k, causal,
+                        window)
+    n = cls.numel()
+    return {"pairs": n, "dead_share": int((cls == fa.DEAD).sum()) / n,
+            "full_share": int((cls == fa.FULL).sum()) / n}
+
+
+def phase_flash(torch, fa, hw) -> tuple[dict, list]:
+    """Phase 11: the flash-attention kernels against their plain version on
     the card. At internlm2-1.8b's prefill (B = 4, H = 16, KV = 8, S = 2048,
-    hd = 128, bf16, causal) and decode (one query against a 2080-slot cache
-    whose last 31 slots are cold, NEG_POS; bf16 and f32) shapes: error
-    against the plain version in f32 (the reference test's oracle) under
-    the bars, a control per shape that must fail them, kernel, plain and
-    SDPA times and the bounds (the causal-useful work; the full tiles
-    beside it), and the tensor-core kernel on a decode's K/V (Sq = 17).
-    Then the reference test's f32 shape, a window, a ragged window, a fully
-    masked row (the mean of v, or zero with ``zero_empty_rows``), head dims
-    256 and 16 (zero-padded), and transposed (B, S, H, hd) views, which
-    must give the contiguous result bit for bit. Returns (record, the
-    kernel row without launches)."""
+    hd = 128, bf16, causal: the prefill kernel) and decode (one query
+    against a 2080-slot cache whose last 31 slots are cold, NEG_POS; bf16
+    and f32: the decode kernel) shapes: error against the plain version in
+    f32 (the reference test's oracle) under the bars, a control per shape
+    that must fail them, kernel, plain and SDPA times (decode: queued behind
+    a sleep, so the host's enqueue does not pace them; the paced time
+    beside), the bounds (the causal-useful work; the full tiles beside it),
+    the tile skip and the decode split plan; and the prefill kernel on a
+    decode's K/V (Sq = 17). Then the decode kernel at GQA groups 1, 2, 4
+    and 8 and Sq 2 to 16 under the decode bars; shuffled key positions,
+    positions with NEG_POS holes and a window, non-monotone query positions,
+    ragged Sq and Skv against the 128-row tiles, head dims 64, 128 and 256,
+    the reference test's f32 shape, windows, head dim 16 (zero-padded); a
+    fully masked row on the prefill, decode and f32 kernels (the mean of v,
+    or zero with ``zero_empty_rows``); transposed (B, S, H, hd) views,
+    which must give the contiguous result bit for bit at prefill and
+    decode. Returns (record, the prefill and decode kernel rows without
+    launches)."""
     import torch.nn.functional as F
     gen = torch.Generator(device=DEV).manual_seed(SEED)
     bf16, f32 = torch.bfloat16, torch.float32
@@ -1190,6 +1245,26 @@ def phase_flash(torch, fa, hw) -> tuple[dict, dict]:
                 "bound_by": "operations" if t_ops >= t_bytes else "bytes",
                 "ops_ms": 1e3 * t_ops, "bytes_ms": 1e3 * t_bytes}
 
+    def transposed(*ts):
+        """The same values as (B, S, H, hd) tensors' transposed views."""
+        return (t.transpose(1, 2).contiguous().transpose(1, 2) for t in ts)
+
+    def masked_row(name, q, k, v, qp, kp, bars, empty):
+        """Rows ``empty`` see no key: the mean of v (the reference kernel's
+        result), zero with zero_empty_rows, every other row unchanged."""
+        got, r = check(name, q, k, v, qp, kp, bars=bars)
+        g = q.shape[1] // k.shape[1]
+        mean_v = v.float().mean(dim=2).repeat_interleave(g, dim=1)
+        expect(ratio(got[:, :, empty], mean_v[:, :, None].expand(
+            -1, -1, len(empty), -1), bars) <= 1.0,
+               f"{name}: not the mean of v")
+        zero = fa.flash_attention(q, k, v, qp, kp, zero_empty_rows=True)
+        keep = [i for i in range(q.shape[2]) if i not in empty]
+        expect(bool((zero[:, :, empty] == 0).all())
+               and bool(torch.equal(zero[:, :, keep], got[:, :, keep])),
+               f"{name}: zero_empty_rows did not zero exactly those rows")
+        return r
+
     rec = {"phase": 11, "bars": {"f32": FLASH_F32_BARS,
                                  "bf16": FLASH_BF16_BARS,
                                  "bf16_decode": FLASH_DECODE_BARS}}
@@ -1210,24 +1285,25 @@ def phase_flash(torch, fa, hw) -> tuple[dict, dict]:
             (pos - 1).clamp(min=0), FLASH_BF16_BARS),
         "max_abs_err": max_err(fa.flash_attention(q, k, v, pos, pos),
                                oracle(q, k, v, pos, pos)),
-        "ms": cuda_ms(lambda: fa.flash_attention(q, k, v, pos, pos)),
+        "ms": cuda_ms(lambda: fa.flash_attention(q, k, v, pos, pos), reps=20),
         "plain_ms": cuda_ms(lambda: fa.flash_attention_plain(q, k, v, pos,
                                                              pos), reps=2),
         "sdpa_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
-            q, k, v, is_causal=True, scale=1.0, enable_gqa=True)),
+            q, k, v, is_causal=True, scale=1.0, enable_gqa=True), reps=20),
         "gflop": flops / 1e9, "gflop_full_tiles": full_flops / 1e9,
         "gbytes": bytes_p / 1e9,
+        "tiles": tile_shares(fa, pos, pos, hw.FLASH_BLOCK_Q,
+                             hw.FLASH_BLOCK_K),
         **bound(flops, bytes_p, hw.PEAK_FLOPS_BF16),
         "full_work_ms": 1e3 * full_flops / hw.PEAK_FLOPS_BF16}
     prefill["tflops_useful"] = flops / prefill["ms"] / 1e9
     rec["prefill"] = prefill
     # transposed views of (B, S, H, hd) tensors: the attend route's layout
-    qt, kt, vt = (t.transpose(1, 2).contiguous().transpose(1, 2)
-                  for t in (q, k, v))
-    expect(bool(torch.equal(fa.flash_attention(qt, kt, vt, pos, pos),
+    expect(bool(torch.equal(fa.flash_attention(*transposed(q, k, v), pos,
+                                               pos),
                             fa.flash_attention(q, k, v, pos, pos))),
            "flash_attention on strided views differs from contiguous inputs")
-    del q, k, v, qt, kt, vt
+    del q, k, v
     torch.cuda.empty_cache()
     # --- decode shape: one query at position 2048, slots 2049.. cold; a
     # kernel without the kpos >= 0 test would take the cold slots as keys
@@ -1254,80 +1330,134 @@ def phase_flash(torch, fa, hw) -> tuple[dict, dict]:
                  bars),
              "max_abs_err": max_err(fa.flash_attention(q, k, v, qpos, kpos),
                                     oracle(q, k, v, qpos, kpos)),
-             "ms": cuda_ms(lambda: fa.flash_attention(q, k, v, qpos, kpos),
-                           reps=20),
+             "ms": queued_ms(lambda: fa.flash_attention(q, k, v, qpos,
+                                                        kpos)),
+             "paced_ms": cuda_ms(lambda: fa.flash_attention(q, k, v, qpos,
+                                                            kpos), reps=20),
+             "plan": decode_plan(fa, b, h, kvh, 1, skv, hd, dt),
+             "tiles": tile_shares(fa, qpos, kpos, 1,
+                                  hw.FLASH_DECODE_TILE_BYTES
+                                  // (2 * hd * elem)),
              "mbytes": bytes_d / 1e6,
              **bound(flops_d, bytes_d, hw.PEAK_FLOPS_BF16 if dt == bf16
                      else hw.PEAK_FLOPS_F32)}
         d["gbytes_per_s"] = bytes_d / d["ms"] / 1e6
+        expect(bool(torch.equal(
+            fa.flash_attention(*transposed(q, k, v), qpos, kpos),
+            fa.flash_attention(q, k, v, qpos, kpos))),
+            f"{name} on strided views differs from contiguous inputs")
         if dt == bf16:
             mask = (kpos >= 0)[None, :] & (kpos[None, :] <= qpos[:, None])
-            d["plain_ms"] = cuda_ms(lambda: fa.flash_attention_plain(
+            d["plain_ms"] = queued_ms(lambda: fa.flash_attention_plain(
                 q, k, v, qpos, kpos), reps=20)
-            d["sdpa_ms"] = cuda_ms(lambda: F.scaled_dot_product_attention(
-                q, k, v, attn_mask=mask, scale=1.0, enable_gqa=True),
-                reps=20)
-            # the tensor-core kernel on the same K/V: Sq just past the
-            # CUDA-core decode tile, so one 64-row tile per (batch, head)
-            sq = hw.FLASH_BLOCK_Q_DECODE + 1
+            d["sdpa_ms"] = queued_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, attn_mask=mask, scale=1.0, enable_gqa=True))
+            # the prefill kernel on the same K/V: Sq just past the decode
+            # kernel's, so one 128-row tile per (batch, head)
+            sq = hw.FLASH_DECODE_MAX_SQ + 1
             qm = qkv(b, h, kvh, sq, 1, hd, dt)[0]
             qmp = torch.arange(LM_PROMPT - sq + 1, LM_PROMPT + 1,
                                dtype=torch.int32, device=DEV)
-            check("decode K/V on the tensor-core kernel", qm, k, v, qmp,
-                  kpos)
-            d["mma_sq17_ms"] = cuda_ms(lambda: fa.flash_attention(
-                qm, k, v, qmp, kpos), reps=20)
+            check("decode K/V on the prefill kernel", qm, k, v, qmp, kpos)
+            d["prefill_kernel_sq17_ms"] = queued_ms(
+                lambda: fa.flash_attention(qm, k, v, qmp, kpos), reps=20)
         decode[name] = d
         del q, k, v
     rec["decode"] = decode
     decode = decode["decode_bfloat16"]
-    # --- the reference test's shapes and the edges
+    # --- the decode kernel's row packing: GQA groups and Sq (rows g * Sq +
+    # i a block), bf16 at 2080 slots, the last queries at the cold edge
     errs = {}
-    for name, (bb, hh, kk, sq, skv_, d), dt, causal, window in [
-            ("ref_f32", (1, 4, 2, 512, 512, 64), f32, True, 0),
-            ("ref_f32_window", (1, 4, 2, 512, 512, 64), f32, True, 128),
-            ("ref_f32_full", (1, 4, 2, 512, 512, 64), f32, False, 0),
-            ("ref_bf16_window", (1, 4, 2, 512, 512, 64), bf16, True, 128),
-            ("ragged_window", (2, 4, 2, 333, 333, 128), f32, True, 100),
-            ("ragged_window_bf16", (2, 4, 2, 333, 333, 128), bf16, True,
-             100),
-            ("hd256", (1, 8, 4, 257, 257, 256), bf16, True, 0),
-            ("hd16_padded", (1, 4, 2, 100, 100, 16), f32, True, 0)]:
+    for g in (1, 2, 4, 8):
+        for sq in (1, 2, 3, 5, 8, 13, 16):
+            q, k, v = qkv(2, 4 * g, 4, sq, skv, hd, bf16)
+            qp = torch.arange(valid - sq, valid, dtype=torch.int32,
+                              device=DEV)
+            errs[f"decode_g{g}_sq{sq}"] = check(
+                f"decode, group {g}, Sq {sq}", q, k, v, qp, kpos,
+                bars=FLASH_DECODE_BARS)[1]
+    rec["decode_packing_err_over_bar"] = errs
+    # --- positions that are not in order, and the edges
+    errs = {}
+    perm = torch.randperm(333, generator=gen, device=DEV).to(torch.int32)
+    holes = perm.clone()
+    holes[torch.rand(333, generator=gen, device=DEV) < 0.2] = NEG_POS
+    ring = torch.randperm(skv, generator=gen, device=DEV).to(torch.int32)
+    ring[torch.rand(skv, generator=gen, device=DEV) < 0.2] = NEG_POS
+    shuffled_q = torch.randperm(200, generator=gen,
+                                device=DEV).to(torch.int32)
+    ar = torch.arange(4096, dtype=torch.int32, device=DEV)
+    for name, (bb, hh, kk, sq, skv_, d), dt, qp, kp, causal, window in [
+            ("prefill_shuffled_kpos", (2, 4, 2, 333, 333, 128), bf16,
+             ar[:333], perm, True, 0),
+            ("prefill_holes_window", (2, 4, 2, 333, 333, 128), bf16,
+             ar[:333], holes, True, 100),
+            ("prefill_non_monotone_qpos", (1, 4, 1, 200, 257, 64), bf16,
+             shuffled_q, ar[:257], True, 0),
+            ("decode_shuffled_ring_holes", (2, 8, 2, 4, skv, 128), bf16,
+             ar[valid - 549:valid - 545], ring, True, 0),
+            ("decode_ring_window", (2, 8, 2, 3, skv, 128), bf16,
+             ar[valid - 149:valid - 146], ring, True, 512),
+            ("ragged_129_70", (1, 4, 2, 129, 70, 128), bf16, ar[:129],
+             ar[:70], False, 0),
+            ("ragged_1000_1000", (1, 4, 2, 1000, 1000, 128), bf16, ar[:1000],
+             ar[:1000], True, 0),
+            ("ref_f32", (1, 4, 2, 512, 512, 64), f32, ar[:512], ar[:512],
+             True, 0),
+            ("ref_f32_window", (1, 4, 2, 512, 512, 64), f32, ar[:512],
+             ar[:512], True, 128),
+            ("ref_f32_full", (1, 4, 2, 512, 512, 64), f32, ar[:512],
+             ar[:512], False, 0),
+            ("ref_bf16_window", (1, 4, 2, 512, 512, 64), bf16, ar[:512],
+             ar[:512], True, 128),
+            ("ragged_window", (2, 4, 2, 333, 333, 128), f32, ar[:333],
+             ar[:333], True, 100),
+            ("ragged_window_bf16", (2, 4, 2, 333, 333, 128), bf16, ar[:333],
+             ar[:333], True, 100),
+            ("hd64", (1, 8, 4, 300, 300, 64), bf16, ar[:300], ar[:300], True,
+             0),
+            ("hd256", (1, 8, 4, 257, 257, 256), bf16, ar[:257], ar[:257],
+             True, 0),
+            ("decode_hd64", (2, 8, 2, 2, skv, 64), bf16, ar[valid - 2:valid],
+             kpos, True, 0),
+            ("decode_hd256", (2, 8, 2, 2, skv, 256), bf16, ar[valid - 2:valid],
+             kpos, True, 0),
+            ("hd16_padded", (1, 4, 2, 100, 100, 16), f32, ar[:100], ar[:100],
+             True, 0)]:
         q, k, v = qkv(bb, hh, kk, sq, skv_, d, dt)
-        qp = torch.arange(sq, dtype=torch.int32, device=DEV)
-        errs[name] = check(name, q, k, v, qp, qp[:skv_], causal, window)[1]
-    # a fully masked row (query 0 sees no key): the mean of v, as the
-    # reference kernel gives; zero with zero_empty_rows (attend's contract),
-    # every other row unchanged; on the CUDA-core (f32) and tensor-core
-    # (bf16) kernels
+        errs[name] = check(name, q, k, v, qp, kp, causal, window)[1]
+    # a fully masked row: the mean of v, as the reference kernel gives;
+    # zero with zero_empty_rows (attend's contract), every other row
+    # unchanged; on the f32, prefill and decode kernels
     for dt in (f32, bf16):
         name = "fully_masked_row_" + str(dt).split(".")[1]
         q, k, v = qkv(1, 4, 2, 512, 512, 64, dt)
-        qp = torch.arange(512, dtype=torch.int32, device=DEV)
-        got, errs[name] = check(name, q, k, v, qp, qp + 1)
-        mean_v = v.float().mean(dim=2).repeat_interleave(2, dim=1)
-        expect(ratio(got[:, :, 0], mean_v, bars_of(dt)) <= 1.0,
-               f"{name}: not the mean of v")
-        zero = fa.flash_attention(q, k, v, qp, qp + 1, zero_empty_rows=True)
-        expect(bool((zero[:, :, 0] == 0).all())
-               and bool(torch.equal(zero[:, :, 1:], got[:, :, 1:])),
-               f"{name}: zero_empty_rows did not zero exactly that row")
+        qp = ar[:512]
+        errs[name] = masked_row(name, q, k, v, qp, qp + 1, bars_of(dt), [0])
+    for dt, bars in ((f32, FLASH_F32_BARS), (bf16, FLASH_DECODE_BARS)):
+        name = "decode_masked_rows_" + str(dt).split(".")[1]
+        q, k, v = qkv(2, 8, 2, 4, skv, hd, dt)
+        qp = torch.tensor([-7, 100, 2048, -1], dtype=torch.int32,
+                          device=DEV)
+        errs[name] = masked_row(name, q, k, v, qp, kpos, bars, [0, 3])
     rec["edges_err_over_bar"] = errs
     rec["library_call"] = ("F.scaled_dot_product_attention(enable_gqa=True, "
                            "scale=1.0): is_causal at prefill, the boolean "
                            "mask at decode")
-    row = {"name": "flash_attention", "route": "cuda",
-           "source": "src/repro_torch/csrc/fk_attention.cu",
-           "replaces": "src/repro/kernels/flash_attention.py:76",
-           "max_abs_err": prefill["max_abs_err"],
-           "ms": prefill["ms"], "plain_ms": prefill["plain_ms"],
-           "bound_ms": prefill["bound_ms"], "bound_by": prefill["bound_by"],
-           "library_ms": prefill["sdpa_ms"],
-           "decode": {key: decode[key] for key in
-                      ("ms", "plain_ms", "bound_ms", "bound_by", "sdpa_ms",
-                       "max_abs_err")}}
+    common = {"route": "cuda",
+              "source": "src/repro_torch/csrc/fk_attention.cu",
+              "replaces": "src/repro/kernels/flash_attention.py:76"}
+    rows = [dict(common, name="flash_attention",
+                 max_abs_err=prefill["max_abs_err"], ms=prefill["ms"],
+                 plain_ms=prefill["plain_ms"], bound_ms=prefill["bound_ms"],
+                 bound_by=prefill["bound_by"],
+                 library_ms=prefill["sdpa_ms"]),
+            dict(common, name="flash_attention_decode",
+                 max_abs_err=decode["max_abs_err"], ms=decode["ms"],
+                 plain_ms=decode["plain_ms"], bound_ms=decode["bound_ms"],
+                 bound_by=decode["bound_by"], library_ms=decode["sdpa_ms"])]
     torch.cuda.empty_cache()
-    return rec, row
+    return rec, rows
 
 
 @contextlib.contextmanager
@@ -1365,11 +1495,14 @@ def phase_lm_serve(torch, fa, KMeans, FaultPolicy,
             "--prompt-len", str(LM_PROMPT), "--gen", str(LM_GEN),
             "--device", DEV]
     fa.flash_attention.launches = 0
+    for key in fa.flash_attention.kernel_launches:
+        fa.flash_attention.kernel_launches[key] = 0
     text = io.StringIO()
     with contextlib.redirect_stdout(text):
         out = serve.main(argv)
     torch.cuda.synchronize()
     launches = fa.flash_attention.launches
+    by_kernel = dict(fa.flash_attention.kernel_launches)
     waves = -(-LM_REQUESTS // LM_BATCH)
     want = cfg.num_layers * waves * LM_GEN
     lines = text.getvalue().strip().splitlines()
@@ -1378,10 +1511,19 @@ def phase_lm_serve(torch, fa, KMeans, FaultPolicy,
     expect(out["finite"], "non-finite logits while serving")
     expect(launches == want, f"flash_attention launched {launches} times "
            f"while serving, want {want}")
+    # one prefill launch a layer and wave, one decode launch a layer and
+    # step after the first token
+    dtype = getattr(torch, cfg.dtype)
+    want_by = dict.fromkeys(by_kernel, 0)
+    want_by[fa.kernel_for(LM_PROMPT, dtype)] += cfg.num_layers * waves
+    want_by[fa.kernel_for(1, dtype)] += cfg.num_layers * waves * (LM_GEN - 1)
+    expect(by_kernel == want_by, f"flash kernels launched {by_kernel} "
+           f"while serving, want {want_by}")
     decode_ms = 1e3 * sum(out["decode_s"]) / out["decode_steps"]
     rec = {"phase": 12, "arch": LM_ARCH, "argv": argv, "launcher": lines,
            "params_b": cfg.param_count() / 1e9,
            "flash_launches": launches,
+           "flash_launches_by_kernel": by_kernel,
            "prefill_ms": [1e3 * t for t in out["prefill_s"]],
            "decode_ms_per_step": decode_ms,
            "decode_ms_per_wave": [1e3 * t for t in out["decode_s"]],
@@ -2117,14 +2259,15 @@ def phase_lowp_rest_kernels(torch, ops, ll, llp, mma, dtype) -> dict:
     return out
 
 
-def phase_flash_fp16(torch, fa, attn, hw) -> tuple[dict, dict]:
+def phase_flash_fp16(torch, fa, attn, hw) -> tuple[dict, list]:
     """Phase 14 (a), fp16 flash attention at internlm2-1.8b's prefill (B =
     4, H = 16, KV = 8, S = 2048, hd = 128, causal) and decode (one query,
     2080 slots, the last 31 cold) shapes: through ``attend`` (the path;
-    launches counted) against the chunked plain math, then the op against
-    the f32 oracle under the fp16 bars with a control that must break them,
-    kernel / plain / SDPA times and the bounds (as phase 11). Returns
-    (record, the kernel row)."""
+    launches counted, one each on the prefill and decode kernels) against
+    the chunked plain math, then the op against the f32 oracle under the
+    fp16 bars with a control that must break them, kernel / plain / SDPA
+    times and the bounds (as phase 11), and head dims 64 and 256 on both
+    kernels. Returns (record, the prefill and decode kernel rows)."""
     import torch.nn.functional as F
     dev, f16 = DEV, torch.float16
     gen = torch.Generator(device=dev).manual_seed(SEED + 16)
@@ -2152,15 +2295,20 @@ def phase_flash_fp16(torch, fa, attn, hw) -> tuple[dict, dict]:
     qd, kd, vd = (draw(b, 1, h, hd).to(f16), draw(b, skv, kvh, hd).to(f16),
                   draw(b, skv, kvh, hd).to(f16))
     fa.flash_attention.launches = 0
+    for key in fa.flash_attention.kernel_launches:
+        fa.flash_attention.kernel_launches[key] = 0
     got_p = attn.attend(qa, ka, va, q_positions=pos, kv_positions=pos)
     got_d = attn.attend(qd, kd, vd, q_positions=qpos_d, kv_positions=kpos_d)
     torch.cuda.synchronize()
     launches = fa.flash_attention.launches
-    expect(launches == 2, f"fp16 attend launched the flash kernel "
-           f"{launches} times, not 2")
+    by_kernel = dict(fa.flash_attention.kernel_launches)
+    expect(launches == 2 and by_kernel["flash_prefill_kernel"] == 1
+           and by_kernel["flash_decode_kernel"] == 1,
+           f"fp16 attend launched the flash kernels {by_kernel}, not one "
+           f"prefill and one decode")
     rec = {"bars": {"fp16": FLASH_FP16_BARS,
                     "fp16_decode": FLASH_FP16_DECODE_BARS},
-           "attend_launches": launches}
+           "attend_launches": launches, "attend_by_kernel": by_kernel}
     for name, got, (q, k, v, qp, kp), bars in (
             ("attend_prefill", got_p, (qa, ka, va, pos, pos),
              FLASH_FP16_BARS),
@@ -2176,10 +2324,10 @@ def phase_flash_fp16(torch, fa, attn, hw) -> tuple[dict, dict]:
     del got_p, got_d, qa, ka, va, qd, kd, vd
     torch.cuda.empty_cache()
 
-    def qkv(sq, skv_):
-        q = draw(b, h, sq, hd) * hd ** -0.5
-        return (q.to(f16), draw(b, kvh, skv_, hd).to(f16),
-                draw(b, kvh, skv_, hd).to(f16))
+    def qkv(sq, skv_, hd_=hd, b_=b, h_=h, kvh_=kvh):
+        q = draw(b_, h_, sq, hd_) * hd_ ** -0.5
+        return (q.to(f16), draw(b_, kvh_, skv_, hd_).to(f16),
+                draw(b_, kvh_, skv_, hd_).to(f16))
     # prefill: the op against the f32 oracle, the control one key past the
     # causal edge, times, bounds (causal-useful work)
     q, k, v = qkv(s, s)
@@ -2198,13 +2346,14 @@ def phase_flash_fp16(torch, fa, attn, hw) -> tuple[dict, dict]:
     prefill = {
         "shape": [b, h, kvh, s, s, hd], "err_over_bar": r_p,
         "control_past_causal_edge": ctrl, "max_abs_err": max_err(got, want),
-        "ms": cuda_ms(lambda: fa.flash_attention(q, k, v, pos, pos)),
+        "ms": cuda_ms(lambda: fa.flash_attention(q, k, v, pos, pos), reps=20),
         "plain_ms": cuda_ms(lambda: fa.flash_attention_plain(q, k, v, pos,
                                                              pos), reps=2),
         "sdpa_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
-            q, k, v, is_causal=True, scale=1.0, enable_gqa=True)),
+            q, k, v, is_causal=True, scale=1.0, enable_gqa=True), reps=20),
         "bound_ms": 1e3 * max(t_ops, t_bytes),
         "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+    prefill["tflops_useful"] = flops / prefill["ms"] / 1e9
     rec["prefill"] = prefill
     del q, k, v, got, want
     torch.cuda.empty_cache()
@@ -2226,28 +2375,47 @@ def phase_flash_fp16(torch, fa, attn, hw) -> tuple[dict, dict]:
     decode = {
         "shape": [b, h, kvh, 1, skv, hd], "err_over_bar": r_d,
         "control_cold_slots_in": ctrl, "max_abs_err": max_err(got, want),
-        "ms": cuda_ms(lambda: fa.flash_attention(q, k, v, qpos_d, kpos_d),
-                      reps=20),
-        "plain_ms": cuda_ms(lambda: fa.flash_attention_plain(
+        "ms": queued_ms(lambda: fa.flash_attention(q, k, v, qpos_d, kpos_d)),
+        "paced_ms": cuda_ms(lambda: fa.flash_attention(q, k, v, qpos_d,
+                                                       kpos_d), reps=20),
+        "plain_ms": queued_ms(lambda: fa.flash_attention_plain(
             q, k, v, qpos_d, kpos_d), reps=20),
-        "sdpa_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
-            q, k, v, attn_mask=mask, scale=1.0, enable_gqa=True), reps=20),
+        "sdpa_ms": queued_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=mask, scale=1.0, enable_gqa=True)),
         "bound_ms": 1e3 * max(t_ops, t_bytes),
         "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+    decode["gbytes_per_s"] = bytes_d / decode["ms"] / 1e6
     rec["decode"] = decode
     del q, k, v, got, want
     torch.cuda.empty_cache()
-    row = {"name": "flash_attention_fp16", "route": "cuda",
-           "source": "src/repro_torch/csrc/fk_attention.cu",
-           "replaces": "src/repro/kernels/flash_attention.py:76",
-           "launches": launches, "max_abs_err": prefill["max_abs_err"],
-           "ms": prefill["ms"], "plain_ms": prefill["plain_ms"],
-           "bound_ms": prefill["bound_ms"], "bound_by": prefill["bound_by"],
-           "library_ms": prefill["sdpa_ms"],
-           "decode": {key: decode[key] for key in
-                      ("ms", "plain_ms", "bound_ms", "bound_by", "sdpa_ms",
-                       "max_abs_err")}}
-    return rec, row
+    # head dims 64 and 256 on the prefill (ragged) and decode kernels
+    errs = {}
+    ar = torch.arange(max(skv, 300), dtype=torch.int32, device=dev)
+    for hd_ in (64, 256):
+        q, k, v = qkv(300, 300, hd_, 1, 8, 4)
+        errs[f"prefill_hd{hd_}"] = ratio(fa.flash_attention(
+            q, k, v, ar[:300], ar[:300]), oracle(q, k, v, ar[:300],
+                                                 ar[:300]), FLASH_FP16_BARS)
+        q, k, v = qkv(2, skv, hd_, 2, 8, 2)
+        errs[f"decode_hd{hd_}"] = ratio(fa.flash_attention(
+            q, k, v, ar[valid - 2:valid], kpos_d), oracle(
+                q, k, v, ar[valid - 2:valid], kpos_d), FLASH_FP16_DECODE_BARS)
+    expect(max(errs.values()) <= 1.0, f"fp16 flash head dims: {errs}")
+    rec["head_dims_err_over_bar"] = errs
+    common = {"route": "cuda",
+              "source": "src/repro_torch/csrc/fk_attention.cu",
+              "replaces": "src/repro/kernels/flash_attention.py:76"}
+    rows = [dict(common, name="flash_attention_fp16",
+                 launches=by_kernel["flash_prefill_kernel"],
+                 max_abs_err=prefill["max_abs_err"], ms=prefill["ms"],
+                 plain_ms=prefill["plain_ms"], bound_ms=prefill["bound_ms"],
+                 bound_by=prefill["bound_by"], library_ms=prefill["sdpa_ms"]),
+            dict(common, name="flash_attention_decode_fp16",
+                 launches=by_kernel["flash_decode_kernel"],
+                 max_abs_err=decode["max_abs_err"], ms=decode["ms"],
+                 plain_ms=decode["plain_ms"], bound_ms=decode["bound_ms"],
+                 bound_by=decode["bound_by"], library_ms=decode["sdpa_ms"])]
+    return rec, rows
 
 
 def phase_lowp_rest(torch, ops, hw, ll, llp, mma, fa, attn, KMeans,
@@ -2264,9 +2432,9 @@ def phase_lowp_rest(torch, ops, hw, ll, llp, mma, fa, attn, KMeans,
     from repro_torch.core.kmeans import means_from_sums
     rec = {"phase": 14}
     rows = []
-    rec_f, row_f = phase_flash_fp16(torch, fa, attn, hw)
+    rec_f, rows_f = phase_flash_fp16(torch, fa, attn, hw)
     rec["flash_fp16"] = rec_f
-    rows.append(row_f)
+    rows.extend(rows_f)
     base = dict(n_clusters=K_FULL, max_iter=ITERS, tol=0.0, random_state=SEED)
     params = ops.clamp_params(M_FULL, K_FULL, F_FULL, ops.DEFAULT_PARAMS)
     bm, bk = params.block_m, params.block_k
@@ -2558,7 +2726,9 @@ def phase_lowp_rest(torch, ops, hw, ll, llp, mma, fa, attn, KMeans,
                              "the 2-byte dtype: every tile",
         "matmul_abft": "torch.matmul(X, Y) in the 2-byte dtype: unprotected, "
                        "D rounded to 2 bytes",
-        "flash_attention_fp16": "F.scaled_dot_product_attention at fp16"}
+        "flash_attention_fp16": "F.scaled_dot_product_attention at fp16",
+        "flash_attention_decode_fp16": "F.scaled_dot_product_attention at "
+                                       "fp16 with the boolean mask"}
     del xq, seeds, xs, lab, seeds_s, xb, wb
     torch.cuda.empty_cache()
     return rec, rows
@@ -2868,11 +3038,13 @@ def main() -> int:
     rows.extend(rows10)
 
     # --- phases 11-12: the flash kernel, internlm2-1.8b serving -------------
-    rec11, row11 = phase_flash(torch, fa, hw)
+    rec11, rows11 = phase_flash(torch, fa, hw)
     emit(rec11)
     rec12 = phase_lm_serve(torch, fa, KMeans, FaultPolicy, InjectionCampaign)
     emit(rec12)
-    rows.append(dict(row11, launches=rec12["flash_launches"]))
+    by_kernel = rec12["flash_launches_by_kernel"]
+    rows.append(dict(rows11[0], launches=by_kernel["flash_prefill_kernel"]))
+    rows.append(dict(rows11[1], launches=by_kernel["flash_decode_kernel"]))
 
     # --- phase 13: the bf16 / fp16 compute dtypes ---------------------------
     rec13, rows13 = phase_lowp(

@@ -1,8 +1,7 @@
 // Hand-written Hopper (sm_90a) flash attention for the port's LM stack.
 //
-// flash_mma_kernel<T, HD> and flash_kernel<T, HD, RI> replace the Pallas TPU
-// kernel flash_attention of src/repro/kernels/flash_attention.py (body
-// _kernel): online-softmax GQA
+// Three kernels replace the Pallas TPU kernel flash_attention of
+// src/repro/kernels/flash_attention.py (body _kernel): online-softmax GQA
 // attention, q (B, H, Sq, hd) against k, v (B, KV, Skv, hd), query head h
 // reading KV head h / (H / KV), masked by absolute positions with the
 // reference's contract
@@ -19,128 +18,212 @@
 // reference kernel gives; with zero_empty != 0 (models/attention.attend's
 // contract) such a row is written as zero instead. A row has no valid key
 // exactly when its running max is still NEG after the walk (a valid score
-// is a finite product, far above -1e30), so no mask is kept for it.
+// is a finite product, far above -1e30). Keys past Skv do not exist (p = 0,
+// staged K/V rows zero), so ragged Sq and Skv need no padding copy; query
+// rows past Sq are not written. q, k, v and out are addressed by (batch,
+// head, sequence) element strides with a contiguous head dim, so (B, S, H,
+// hd) tensors are read and written in place through transposed views.
 //
-// Design (right and simple first). One thread block per (batch * head,
-// query tile) walks the KV tiles of 64 keys in a loop: the loop replaces the
-// TPU grid's sequential kv axis, and the running max, denominator and the
-// f32 accumulator stay in registers across it. Keys past Skv do not exist
-// (p = 0, staged K/V rows zero), so ragged Sq and Skv need no padding copy;
-// query rows past Sq are not written. q, k, v and out are addressed by
-// (batch, head, sequence) element strides with a contiguous head dim, so
-// (B, S, H, hd) tensors are read and written in place through transposed
-// views. Every tile is visited and masked, as the Pallas grid does (no
-// causal skip): a fully masked row keeps the reference kernel's result.
-// Two kernels share that walk:
+// Tile skip by position bounds (the prefill and decode kernels).
+// Positions are arbitrary (decode caches are rings with empty slots,
+// callers shift them), so the kernels never decide by index. Before a KV
+// tile is fetched, a warp (the producer warp at prefill, every warp at
+// decode) reads its key positions (two per lane, L1) and reduces the valid
+// ones (kpos >= 0, key < Skv) to kmin, kmax and a count;
+// with the query tile's qmin, qmax the tile is
+//   dead       when no key is valid, or causal and kmin > qmax, or a window
+//              and kmax <= qmin - window: no query of the tile sees a key;
+//   fully live when all of its keys exist and are valid, and causal ->
+//              kmax <= qmin, window -> kmin > qmax - window: every query
+//              sees every key, so the per-score mask is skipped;
+//   live       otherwise (masked score by score).
+// A dead tile is not fetched. For every row with a valid key that is exact:
+// in the reference's walk such a tile gives p = exp(NEG - m) = 0 and scale
+// 1, or, before the row's first valid tile, a sum the first valid tile's
+// scale exp(NEG - m) = 0 wipes. A row left with m == NEG has no valid key;
+// with zero_empty == 0 it gets the mean of v over all Skv keys (below).
+// kernels/flash_attention.py's live_tiles states the rule in PyTorch.
 //
-//   * flash_mma_kernel<T, HD> (T bf16 or fp16, 64-row query tiles, hd 64 or
-//     128: the prefill launch): the products on the tensor cores with
-//     mma.sync m16n8k16 and f32 accumulation (below);
-//   * flash_kernel<T, HD, RI> (f32 at every tile and hd; bf16 / fp16 decode
-//     launches, 16-row tiles, and bf16 / fp16 at hd 256): the products as
-//     f32 FMAs on the CUDA cores. The query tile (once) and each K and V
-//     tile are staged in shared memory as f32 (2-byte values widened
-//     exactly), rows padded by 4 words so the 16-byte reads of the score
-//     loop hit distinct banks.
-//     Thread (ty, tx) = (tid / 16, tid % 16) owns query rows ty * RI + i
-//     and, for the scores, keys tx + 16 j (j < 4): S = Q K^T with a (RI x 4)
-//     register tile; the row max and row sum of the online softmax are
-//     butterflies over the 16 lanes that share ty. p (rounded to T) goes
-//     through shared memory to P V, where the thread owns columns
-//     c * 64 + tx * 4 + e of its rows. RI = 1 (16-row tiles) when
-//     Sq <= 16, e.g. a decode launch, else RI = 4 (64-row tiles).
+//   * flash_prefill_kernel<T, HD> (bf16 / fp16 at Sq > 16; hd 64, 128,
+//     256): Hopper's shape. A block of 288 threads takes 128 query rows:
+//     two consumer warpgroups of 64 rows and one producer warp. The
+//     producer classifies the next KV tile by position (the rule above),
+//     skips dead ones, and TMA-loads the live tile's K and V (64-value
+//     panels of 128 bytes, 128-byte swizzle, zeros past Skv) into a ring of
+//     three stages, each guarded by a "full" mbarrier (the TMA's bytes) and
+//     an "empty" one (the 256 consumer threads); a slot also carries the
+//     tile's index and class, and an index of -1 ends the walk. Query tiles
+//     go out last first (blockIdx.y reversed; heads of a GQA group on
+//     neighbouring blocks share K/V through L2), so the longest causal walks
+//     start first. Each consumer warpgroup runs S = Q K^T as wgmma.mma_async
+//     m64nBKk16 with Q (staged once by cp.async in the same swizzled panels)
+//     and K from shared memory, the online softmax on the accumulator
+//     fragments (a row's values sit in the four lanes of a quad), and O +=
+//     P V as wgmma m64nHDk16 with P from registers (rounded to T in pairs:
+//     the accumulator layout of S is the A-fragment layout) and V read as
+//     the MN-major B operand (imm-trans-b), so V is never transposed. BK =
+//     64 keys a tile (32 at hd 256, so O's 128 f32 a thread, S and P fit
+//     without spills). exp(x) is ex2.approx.ftz(x * log2(e)) on (s - m)
+//     formed first, so exp(NEG - NEG) is exactly 1 and the masked rows keep
+//     the reference's result; its error (about 2 ulp of f32) sits far under
+//     the bf16 / fp16 rounding of p, and chip_smoke.py phases 11, 12 and 14
+//     hold the result to the bars and the LM gate. A row with no valid key
+//     and zero_empty == 0 takes the fallback: its warp sums v over all Skv
+//     keys and writes the mean. (An mma.sync version of the FA2 shape, with
+//     a cp.async ring and ldmatrix from swizzled tiles, took 0.397 ms at
+//     internlm2-1.8b's prefill against this kernel's 0.247, chip_smoke.py
+//     phase 11 on an H100 80GB HBM3 at 700 W; PERF.md has the runs.)
+//   * flash_decode_kernel<T, HD, R> (f32, bf16, fp16 at Sq <= 16): split-KV
+//     with GQA packing. One block per (batch, KV head, row chunk, split)
+//     takes all group x Sq query rows that read that KV head (packed rows
+//     r = g * Sq + i, up to R = 16 a block, 8 at hd 256), so each K/V byte
+//     is read once per launch, not group times. The splits follow from Skv
+//     and B * KV * row chunks, so that about two blocks per SM are in
+//     flight. A split walks its KV tiles through a two-stage cp.async ring
+//     in T (rows padded by 16 bytes) and skips dead tiles; each of its four
+//     warps runs its own online softmax over its quarter of every tile's
+//     keys, products as f32 FMAs on the CUDA cores (decode is bound by
+//     bytes; f32 stays exact) with accurate expf. Each warp writes f32
+//     partials (m, l, acc); a warp whose row saw no valid key and
+//     zero_empty == 0 sums v over all keys of its share instead, so the
+//     combine's weights exp(m_s - M) give the reference's mean of v over
+//     all keys. The last block of a (batch, KV head, row chunk) to finish
+//     (__threadfence and an atomic ticket, reset by that block for the next
+//     launch) combines the partials and writes the rows: one launch a call.
+//     The wrapper allocates the partials and keeps the tickets.
+//   * flash_f32_kernel<HD> (f32 at Sq > 16): 64-row query tiles of f32
+//     FMAs on the CUDA cores (no tensor cores in f32 without TF32, which
+//     would change the arithmetic). The query tile (once) and each K and V
+//     tile are staged in shared memory as f32, rows padded by 4 words.
+//     Thread (ty, tx) = (tid / 16, tid % 16) owns query rows ty * 4 + i and
+//     keys tx + 16 j (j < 4); row max and row sum are butterflies over the
+//     16 lanes that share ty; p goes through shared memory to P V. It
+//     visits and masks every tile.
 //
-// The entry point picks the kernel and tile from Sq, the dtype and hd
-// alone. 2-byte decode stays on the CUDA-core kernel: the tensor-core one
-// would spend a 64-row tile (4 warps, 128 threads) on the one query row
-// and stage the same K/V bytes with half the threads. chip_smoke.py phase
-// 11 times it on a decode's K/V (Sq = 17) beside this kernel at Sq = 1.
-//
-// Bound on the H100: at prefill the 4 * B * H * Sq * Skv * hd FLOPs of the
-// two products (bf16 / fp16 tensor cores, 989 TFLOP/s); at decode (Sq = 1)
-// the bytes of the KV cache, read once per launch (3.35 TB/s). Neither kernel
-// pipelines its loads (no cp.async / TMA), the decode launch has one block
-// per (batch, head) and re-reads each KV tile once per query head of a
-// group; wgmma tiles, TMA staging, a split KV walk for decode, GQA packing
-// and a causal tile skip are later work.
+// The entry point picks the kernel from Sq, the dtype and hd, and the
+// decode kernel's rows and splits from the group and the shapes
+// (decode_plan). Bound on the H100: at prefill the 4 * B * H * hd FLOPs of
+// each (query, valid key) pair (989 TFLOP/s); at decode the bytes of the
+// KV cache, read once per launch (3.35 TB/s). The prefill kernel's tensor
+// maps come from cuTensorMapEncodeTiled, reached through
+// cudaGetDriverEntryPoint (no link against the driver library).
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler
 // -fPIC (no --use_fast_math: expf and the final division stay accurate).
+#include <cuda.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
+#include <climits>
 #include <cstddef>
 #include <cstdint>
+#include <type_traits>
 
-#include "fk_mma.cuh"
+#include "fk_wgmma.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kBK = 64;            // keys per KV tile
 constexpr float kNeg = -1e30f;     // the reference kernel's NEG
-constexpr int kMaxRows = 65535;    // gridDim.y: one (batch, head) per row
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr int kMaxRows = 65535;    // a grid dimension of (batch, head) rows
+constexpr int kDecodeMaxSq = 16;   // Sq at or below: the decode kernel
+constexpr int kMaxSplits = 64;     // KV splits of one decode row block
 
-template <typename T>
-struct Vec;
+// --- shared helpers ---------------------------------------------------------
 
-template <>
-struct Vec<float> {
-  static constexpr int N = 4;      // 16 bytes
-  __device__ static void load(const float* p, float* o) {
-    const float4 v = *reinterpret_cast<const float4*>(p);
-    o[0] = v.x; o[1] = v.y; o[2] = v.z; o[3] = v.w;
-  }
-  __device__ static float round(float x) { return x; }
-  __device__ static void store4(float* p, const float* v) {
-    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
-  }
-};
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
 
-template <>
-struct Vec<__nv_bfloat16> {
-  static constexpr int N = 8;      // 16 bytes
-  __device__ static void load(const __nv_bfloat16* p, float* o) {
-    const uint4 raw = *reinterpret_cast<const uint4*>(p);
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float2 f = __bfloat1622float2(h[i]);
-      o[2 * i] = f.x;
-      o[2 * i + 1] = f.y;
+// 16 bytes global -> shared, zero-filled when !full (src then unread)
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool full) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(full ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool full) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(full ? 4 : 0));
+}
+
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+enum TileClass : int { kDead = 0, kLive = 1, kFull = 2 };
+
+// The class of KV tile [k0, k0 + bk) for queries with positions in
+// [qmin, qmax] (see the header); the same in every lane of the warp.
+__device__ __forceinline__ int tile_class(const int* __restrict__ kpos, int k0,
+                                          int bk, int Skv, int qmin, int qmax,
+                                          int causal, int window) {
+  const int lane = threadIdx.x & 31;
+  int kmin = INT_MAX, kmax = INT_MIN, cnt = 0;
+  for (int j = lane; j < bk; j += 32) {
+    if (k0 + j < Skv) {
+      const int kp = __ldg(kpos + k0 + j);
+      if (kp >= 0) {
+        kmin = min(kmin, kp);
+        kmax = max(kmax, kp);
+        ++cnt;
+      }
     }
   }
-  __device__ static float round(float x) {
-    return __bfloat162float(__float2bfloat16(x));
-  }
-  __device__ static void store4(__nv_bfloat16* p, const float* v) {
-    __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(p);
-    h[0] = __floats2bfloat162_rn(v[0], v[1]);
-    h[1] = __floats2bfloat162_rn(v[2], v[3]);
-  }
-};
-
-template <>
-struct Vec<__half> {
-  static constexpr int N = 8;      // 16 bytes
-  __device__ static void load(const __half* p, float* o) {
-    const uint4 raw = *reinterpret_cast<const uint4*>(p);
-    const __half2* h = reinterpret_cast<const __half2*>(&raw);
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float2 f = __half22float2(h[i]);
-      o[2 * i] = f.x;
-      o[2 * i + 1] = f.y;
-    }
+  for (int off = 16; off > 0; off >>= 1) {
+    kmin = min(kmin, __shfl_xor_sync(0xffffffffu, kmin, off));
+    kmax = max(kmax, __shfl_xor_sync(0xffffffffu, kmax, off));
+    cnt += __shfl_xor_sync(0xffffffffu, cnt, off);
   }
-  __device__ static float round(float x) {
-    return __half2float(__float2half_rn(x));
+  if (cnt == 0 || (causal && kmin > qmax) ||
+      (window && (long long)kmax <= (long long)qmin - window))
+    return kDead;
+  if (cnt == bk && (!causal || kmax <= qmin) &&
+      (!window || (long long)kmin > (long long)qmax - window))
+    return kFull;
+  return kLive;
+}
+
+// min and max of qpos[i0, i0 + n), the same in every lane of the warp
+__device__ __forceinline__ void query_bounds(const int* __restrict__ qpos,
+                                             int i0, int n, int& qmin,
+                                             int& qmax) {
+  qmin = INT_MAX;
+  qmax = INT_MIN;
+  for (int i = threadIdx.x & 31; i < n; i += 32) {
+    const int p = __ldg(qpos + i0 + i);
+    qmin = min(qmin, p);
+    qmax = max(qmax, p);
   }
-  __device__ static void store4(__half* p, const float* v) {
-    __half2* h = reinterpret_cast<__half2*>(p);
-    h[0] = __floats2half2_rn(v[0], v[1]);
-    h[1] = __floats2half2_rn(v[2], v[3]);
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    qmin = min(qmin, __shfl_xor_sync(0xffffffffu, qmin, off));
+    qmax = max(qmax, __shfl_xor_sync(0xffffffffu, qmax, off));
   }
-};
+}
+
+// 2^x on the SFU (ex2.approx.ftz: about 2 ulp; results under 2^-126 flush
+// to zero, far below what a p rounded to bf16 / fp16 beside a p of 1 keeps)
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ bool key_valid(int kp, int qp, int causal,
+                                          int window) {
+  return kp >= 0 && (!causal || kp <= qp) &&
+         (!window || (long long)kp > (long long)qp - window);
+}
 
 // Two values of a 2-byte type T packed in one 32-bit word (round to nearest)
 template <typename T>
@@ -160,57 +243,124 @@ struct Pair<__half> {
   }
 };
 
+template <typename T>
+__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
+  const typename Pair<T>::type h = Pair<T>::make(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+// one 32-bit word of T widened to 4 / sizeof(T) floats
+template <typename T>
+__device__ __forceinline__ void unpack(uint32_t w, float* o);
+template <>
+__device__ __forceinline__ void unpack<float>(uint32_t w, float* o) {
+  o[0] = __uint_as_float(w);
+}
+template <>
+__device__ __forceinline__ void unpack<__nv_bfloat16>(uint32_t w, float* o) {
+  const float2 f = __bfloat1622float2(
+      *reinterpret_cast<const __nv_bfloat162*>(&w));
+  o[0] = f.x;
+  o[1] = f.y;
+}
+template <>
+__device__ __forceinline__ void unpack<__half>(uint32_t w, float* o) {
+  const float2 f = __half22float2(*reinterpret_cast<const __half2*>(&w));
+  o[0] = f.x;
+  o[1] = f.y;
+}
+
+// N consecutive values of T (N * sizeof(T) a multiple of 4 bytes, the
+// address aligned to it, up to 16) widened to f32
+template <typename T, int N>
+__device__ __forceinline__ void widen(const T* p, float* o) {
+  constexpr int W = N * int(sizeof(T)) / 4;   // 32-bit words
+  constexpr int E = 4 / int(sizeof(T));       // values per word
+  uint32_t w[W];
+  if constexpr (W % 4 == 0) {
+#pragma unroll
+    for (int i = 0; i < W / 4; ++i) {
+      const uint4 v = reinterpret_cast<const uint4*>(p)[i];
+      w[4 * i] = v.x;
+      w[4 * i + 1] = v.y;
+      w[4 * i + 2] = v.z;
+      w[4 * i + 3] = v.w;
+    }
+  } else if constexpr (W == 2) {
+    const uint2 v = *reinterpret_cast<const uint2*>(p);
+    w[0] = v.x;
+    w[1] = v.y;
+  } else {
+    w[0] = *reinterpret_cast<const uint32_t*>(p);
+  }
+#pragma unroll
+  for (int i = 0; i < W; ++i) unpack<T>(w[i], o + i * E);
+}
+
+__device__ __forceinline__ float round_to(float x, float) { return x; }
+__device__ __forceinline__ float round_to(float x, __nv_bfloat16) {
+  return __bfloat162float(__float2bfloat16(x));
+}
+__device__ __forceinline__ float round_to(float x, __half) {
+  return __half2float(__float2half_rn(x));
+}
+
+__device__ __forceinline__ void store(float* p, float x) { *p = x; }
+__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
+  *p = __float2bfloat16(x);
+}
+__device__ __forceinline__ void store(__half* p, float x) {
+  *p = __float2half_rn(x);
+}
+
+// --- f32 at Sq > 16: CUDA-core tiles ----------------------------------------
+
+constexpr int kF32Threads = 256;
+constexpr int kF32BQ = 64;         // query rows a block (4 per thread row)
+constexpr int kF32BK = 64;         // keys per KV tile
+
 // Shared memory of one block, in 4-byte words: Q (BQ x LD), K and V
-// (kBK x LD) as f32, P (BQ x (kBK + 1)) and the tile's key positions.
-template <int HD, int RI>
-struct Smem {
-  static constexpr int BQ = 16 * RI;
+// (BK x LD), P (BQ x (BK + 1)) and the tile's key positions.
+template <int HD>
+struct F32Smem {
   static constexpr int LD = HD + 4;
-  static constexpr int PLD = kBK + 1;
+  static constexpr int PLD = kF32BK + 1;
   static constexpr int q = 0;
-  static constexpr int k = q + BQ * LD;
-  static constexpr int v = k + kBK * LD;
-  static constexpr int p = v + kBK * LD;
-  static constexpr int kpos = p + BQ * PLD;
-  static constexpr int words = kpos + kBK;
+  static constexpr int k = q + kF32BQ * LD;
+  static constexpr int v = k + kF32BK * LD;
+  static constexpr int p = v + kF32BK * LD;
+  static constexpr int kpos = p + kF32BQ * PLD;
+  static constexpr int words = kpos + kF32BK;
   static constexpr size_t bytes = size_t(words) * 4;
 };
 
-// rows x HD elements of T starting at row0 (row stride `rs` elements) into
-// shared f32 rows of LD words; rows at or past `nrows` are zero.
-template <typename T, int HD, int LD>
-__device__ __forceinline__ void stage(float* dst, const T* src, long long rs,
-                                      int row0, int nrows, int rows) {
-  constexpr int V = Vec<T>::N;
-  constexpr int per_row = HD / V;
-  for (int idx = threadIdx.x; idx < rows * per_row; idx += kThreads) {
+// rows x HD floats from row 0 (row stride rs) into shared rows of LD words;
+// rows at or past nrows are zero
+template <int HD, int LD>
+__device__ __forceinline__ void stage_f32(float* dst, const float* src,
+                                          long long rs, int nrows, int rows) {
+  constexpr int per_row = HD / 4;
+  for (int idx = threadIdx.x; idx < rows * per_row; idx += kF32Threads) {
     const int r = idx / per_row;
-    const int d = (idx - r * per_row) * V;
-    float vals[V];
-    if (row0 + r < nrows) {
-      Vec<T>::load(src + (row0 + r) * rs + d, vals);
-    } else {
-#pragma unroll
-      for (int e = 0; e < V; ++e) vals[e] = 0.0f;
-    }
-#pragma unroll
-    for (int e = 0; e < V; e += 4)
-      *reinterpret_cast<float4*>(dst + r * LD + d + e) =
-          make_float4(vals[e], vals[e + 1], vals[e + 2], vals[e + 3]);
+    const int d = (idx - r * per_row) * 4;
+    float4 val = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    if (r < nrows) val = *reinterpret_cast<const float4*>(src + r * rs + d);
+    *reinterpret_cast<float4*>(dst + r * LD + d) = val;
   }
 }
 
-template <typename T, int HD, int RI>
-__global__ void __launch_bounds__(kThreads)
-flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
-             const T* __restrict__ v, const int* __restrict__ qpos,
-             const int* __restrict__ kpos, T* __restrict__ out, int H,
-             int group, int Sq, int Skv, long long qsb, long long qsh,
-             long long qss, long long ksb, long long ksh, long long kss,
-             long long vsb, long long vsh, long long vss, long long osb,
-             long long osh, long long oss, int causal, int window,
-             int zero_empty) {
-  using S = Smem<HD, RI>;
+template <int HD>
+__global__ void __launch_bounds__(kF32Threads)
+flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, const int* __restrict__ qpos,
+                 const int* __restrict__ kpos, float* __restrict__ out, int H,
+                 int group, int Sq, int Skv, long long qsb, long long qsh,
+                 long long qss, long long ksb, long long ksh, long long kss,
+                 long long vsb, long long vsh, long long vss, long long osb,
+                 long long osh, long long oss, int causal, int window,
+                 int zero_empty) {
+  using S = F32Smem<HD>;
+  constexpr int RI = kF32BQ / 16;    // query rows a thread owns
   constexpr int NC = HD / 64;        // 64-column groups of the output
   extern __shared__ __align__(16) float smem[];
   float* Qs = smem + S::q;
@@ -224,12 +374,12 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int bh = blockIdx.y;
   const int b = bh / H, h = bh - b * H;
   const int kvh = h / group;
-  const int q0 = blockIdx.x * S::BQ;
-  const T* qb = q + b * qsb + h * qsh;
-  const T* kb = k + b * ksb + kvh * ksh;
-  const T* vb = v + b * vsb + kvh * vsh;
+  const int q0 = blockIdx.x * kF32BQ;
+  const float* kb = k + b * ksb + kvh * ksh;
+  const float* vb = v + b * vsb + kvh * vsh;
 
-  stage<T, HD, S::LD>(Qs, qb + q0 * qss, qss, 0, Sq - q0, S::BQ);
+  stage_f32<HD, S::LD>(Qs, q + b * qsb + h * qsh + q0 * qss, qss, Sq - q0,
+                       kF32BQ);
 
   int qp[RI];
   float m[RI], l[RI], acc[RI][NC][4];
@@ -245,11 +395,11 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
       for (int e = 0; e < 4; ++e) acc[i][c][e] = 0.0f;
   }
 
-  for (int k0 = 0; k0 < Skv; k0 += kBK) {
+  for (int k0 = 0; k0 < Skv; k0 += kF32BK) {
     __syncthreads();   // the previous tile's readers are done
-    stage<T, HD, S::LD>(Ks, kb + k0 * kss, kss, 0, Skv - k0, kBK);
-    stage<T, HD, S::LD>(Vs, vb + k0 * vss, vss, 0, Skv - k0, kBK);
-    if (tid < kBK) Kp[tid] = k0 + tid < Skv ? kpos[k0 + tid] : 0;
+    stage_f32<HD, S::LD>(Ks, kb + k0 * kss, kss, Skv - k0, kF32BK);
+    stage_f32<HD, S::LD>(Vs, vb + k0 * vss, vss, Skv - k0, kF32BK);
+    if (tid < kF32BK) Kp[tid] = k0 + tid < Skv ? kpos[k0 + tid] : 0;
     __syncthreads();
 
     // S = Q K^T for rows ty * RI + i, keys tx + 16 j
@@ -289,13 +439,9 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int c = tx + 16 * j;
-        const int kp = Kp[c];
         ex[j] = k0 + c < Skv;
-        bool valid = ex[j] && kp >= 0;
-        if (causal) valid = valid && kp <= qp[i];
-        if (window)
-          valid = valid && (long long)kp > (long long)qp[i] - window;
-        s[i][j] = valid ? s[i][j] : kNeg;
+        s[i][j] = ex[j] && key_valid(Kp[c], qp[i], causal, window)
+                      ? s[i][j] : kNeg;
         if (ex[j]) mx = fmaxf(mx, s[i][j]);
       }
 #pragma unroll
@@ -307,7 +453,7 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
       for (int j = 0; j < 4; ++j) {
         const float p = ex[j] ? expf(s[i][j] - m_new) : 0.0f;
         psum += p;
-        Ps[(ty * RI + i) * S::PLD + tx + 16 * j] = Vec<T>::round(p);
+        Ps[(ty * RI + i) * S::PLD + tx + 16 * j] = p;
       }
 #pragma unroll
       for (int off = 8; off > 0; off >>= 1)
@@ -326,7 +472,7 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
         for (int e = 0; e < 4; ++e) acc[i][c][e] *= sc[i];
 #pragma unroll 4
-    for (int jj = 0; jj < kBK; ++jj) {
+    for (int jj = 0; jj < kF32BK; ++jj) {
       float a[RI];
 #pragma unroll
       for (int i = 0; i < RI; ++i) a[i] = Ps[(ty * RI + i) * S::PLD + jj];
@@ -351,173 +497,304 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
     if (qi >= Sq) continue;
     const float den = fmaxf(l[i], 1e-30f);
     const bool zero = zero_empty && m[i] == kNeg;
-    T* orow = out + b * osb + h * osh + qi * oss;
+    float* orow = out + b * osb + h * osh + qi * oss;
 #pragma unroll
-    for (int c = 0; c < NC; ++c) {
-      float o[4];
+    for (int c = 0; c < NC; ++c)
+      *reinterpret_cast<float4*>(orow + c * 64 + tx * 4) =
+          zero ? make_float4(0.0f, 0.0f, 0.0f, 0.0f)
+               : make_float4(acc[i][c][0] / den, acc[i][c][1] / den,
+                             acc[i][c][2] / den, acc[i][c][3] / den);
+  }
+}
+
+// --- bf16 / fp16 prefill on wgmma: TMA producer warp, two consumer
+// warpgroups --------------------------------------------------------------
+
+// v summed over all Skv keys in the chunks of 8 columns a lane owns,
+// divided by Skv, written to the rows of `rows` (bit i: query q_first + i)
+// with no valid key: the reference kernel's result for such a row
+template <typename T, int HD>
+__device__ void prefill_mean_rows(const T* __restrict__ vb, long long vss,
+                                  int Skv, unsigned rows, T* __restrict__ ob,
+                                  long long oss, int q_first) {
+  const int lane = threadIdx.x & 31;
+  for (int c = lane; c < HD / 8; c += 32) {
+    float sum[8] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+    for (int j = 0; j < Skv; ++j) {
+      float x[8];
+      widen<T, 8>(vb + j * vss + c * 8, x);
 #pragma unroll
-      for (int e = 0; e < 4; ++e) o[e] = zero ? 0.0f : acc[i][c][e] / den;
-      Vec<T>::store4(orow + c * 64 + tx * 4, o);
+      for (int e = 0; e < 8; ++e) sum[e] += x[e];
+    }
+    const float n = float(Skv);
+    for (unsigned bits = rows; bits; bits &= bits - 1) {
+      T* o = ob + (q_first + __ffs(bits) - 1) * oss + c * 8;
+#pragma unroll
+      for (int e = 0; e < 8; e += 2)
+        *reinterpret_cast<typename Pair<T>::type*>(o + e) =
+            Pair<T>::make(sum[e] / n, sum[e + 1] / n);
     }
   }
 }
 
-// --- bf16 / fp16 on the tensor cores: mma.sync m16n8k16, f32 accumulation -
-//
-// flash_mma_kernel<T, HD>: the same function for T = bf16 or fp16 at 64-row
-// query tiles and HD <= 128. Four warps per block, each owning 16 query
-// rows: S = Q K^T is 8 (keys) x HD/16 (depth) mma.sync per KV tile with Q's
-// fragments held in registers for the whole walk; the online softmax runs on
-// the S fragments (a row's values live in the 4 lanes of a quad: butterflies
-// over xor 1, 2);
-// p, rounded to T as the reference's p.astype(v.dtype), is repacked in
-// registers as the A operand of O += P V (HD/8 x 4 mma.sync per tile). K is
-// staged in shared memory as it is (row-major), V transposed, so every
-// fragment is one 32-bit shared load; rows are padded by 16 bytes so a
-// quad's loads hit distinct banks.
-constexpr int kMmaWarps = 4;
-constexpr int kMmaThreads = 32 * kMmaWarps;
-constexpr int kMmaBQ = 16 * kMmaWarps;
+constexpr int kPfThreads = 288;        // 2 consumer warpgroups + 1 producer
+constexpr int kPfBQ = 128;             // query rows a block (64 a group)
+
+// keys a KV tile: 32 at hd 256, so O (128 f32 a thread), S and P fit the
+// consumers' registers without spills
+template <int HD>
+constexpr int prefill_bk() { return HD > 128 ? 32 : 64; }
 
 template <int HD>
-struct MmaSmem {
-  static constexpr int LD = HD + 8;       // 2-byte elements per Q / K row
-  static constexpr int VLD = kBK + 8;     // per transposed V row
-  static constexpr int q = 0;             // offsets in 2-byte elements
-  static constexpr int k = q + kMmaBQ * LD;
-  static constexpr int v = k + kBK * LD;
-  static constexpr int kpos_bytes = 2 * (v + HD * VLD);
-  static constexpr size_t bytes = size_t(kpos_bytes) + 4 * kBK;
+struct PfShape {
+  static constexpr int bk = prefill_bk<HD>();
+  static constexpr int panels = HD / 64;             // 128-byte panels a row
+  static constexpr int stages = 3;
+  static constexpr int q_bytes = kPfBQ * HD * 2;
+  static constexpr int kv_bytes = bk * HD * 2;       // K or V of one tile
+  static constexpr int stage_bytes = 2 * kv_bytes;
+  static constexpr int q = 0;
+  static constexpr int kv = q_bytes;                 // K then V, a stage
+  static constexpr int bars = kv + stages * stage_bytes;
+  static constexpr int info = bars + 2 * stages * 8;
+  static constexpr size_t bytes = size_t(info) + 2 * stages * 4 + 1024;
 };
 
-template <typename T>
-__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
-  const typename Pair<T>::type h = Pair<T>::make(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&h);
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+               ::"r"(smem_u32(bar)), "r"(count) : "memory");
 }
 
-// rows x HD 2-byte elements from row0 (row stride rs) into shared rows of
-// LD elements, as they are; rows at or past nrows are zero.
-template <typename T, int HD, int LD>
-__device__ __forceinline__ void stage_2byte(unsigned short* dst,
-                                            const T* src, long long rs,
-                                            int nrows, int rows) {
-  constexpr int per_row = HD / 8;
-  for (int idx = threadIdx.x; idx < rows * per_row; idx += kMmaThreads) {
-    const int r = idx / per_row;
-    const int d = (idx - r * per_row) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (r < nrows) val = *reinterpret_cast<const uint4*>(src + r * rs + d);
-    *reinterpret_cast<uint4*>(dst + r * LD + d) = val;
-  }
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               ::"r"(smem_u32(bar)), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
+               ::"r"(smem_u32(bar)) : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done = 0;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(smem_u32(bar)), "r"(parity) : "memory");
+  } while (!done);
+}
+
+// one box {64 values, rows, 1, 1} of a 4-d tensor map into shared memory
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
+                                         uint64_t* bar, int c0, int c1,
+                                         int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n"
+      ::"r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)),
+        "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// descriptor of a 128-byte-swizzled operand in shared memory: 8-row groups
+// 1024 bytes apart, lbo bytes between 64-value panels (MN-major operands)
+__device__ __forceinline__ uint64_t sw128_desc(const void* p, uint32_t lbo) {
+  return uint64_t((smem_u32(p) & 0x3FFFF) >> 4)
+         | (uint64_t((lbo >> 4) & 0x3FFF) << 16)
+         | (uint64_t(1024 >> 4) << 32) | (uint64_t(1) << 62);
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_wait0() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// keep the compiler from moving accesses of accumulator registers across
+// the asynchronous wgmma that writes them
+template <int N>
+__device__ __forceinline__ void fence_regs(float* d) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
 template <typename T, int HD>
-__global__ void __launch_bounds__(kMmaThreads)
-flash_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, const int* __restrict__ qpos,
-                 const int* __restrict__ kpos, T* __restrict__ out, int H,
-                 int group, int Sq,
-                 int Skv, long long qsb, long long qsh, long long qss,
-                 long long ksb, long long ksh, long long kss, long long vsb,
-                 long long vsh, long long vss, long long osb, long long osh,
-                 long long oss, int causal, int window, int zero_empty) {
-  using S = MmaSmem<HD>;
-  constexpr int KD = HD / 16;     // depth steps of S = Q K^T
-  constexpr int DT = HD / 8;      // 8-wide output column tiles
-  constexpr int NT = kBK / 8;     // 8-key column tiles of S
-  extern __shared__ __align__(16) unsigned short sm16[];
-  unsigned short* Qs = sm16 + S::q;
-  unsigned short* Ks = sm16 + S::k;
-  unsigned short* Vt = sm16 + S::v;
-  int* Kp = reinterpret_cast<int*>(reinterpret_cast<char*>(sm16)
-                                   + S::kpos_bytes);
+__device__ __forceinline__ void wgmma_pv(float* o, const uint32_t* a,
+                                         uint64_t db) {
+  if constexpr (HD == 64) wgmma_rs_n64(o, a, db, T());
+  else if constexpr (HD == 128) wgmma_rs_n128(o, a, db, T());
+  else wgmma_rs_n256(o, a, db, T());
+}
+
+template <typename T, int BK>
+__device__ __forceinline__ void wgmma_qk(float* s, uint64_t da, uint64_t db,
+                                         int scale_d) {
+  if constexpr (BK == 32) wgmma_ss_n32(s, da, db, scale_d, T());
+  else wgmma_ss_n64(s, da, db, scale_d, T());
+}
+
+template <typename T, int HD>
+__global__ void __launch_bounds__(kPfThreads, 1)
+flash_prefill_kernel(const __grid_constant__ CUtensorMap kmap,
+                   const __grid_constant__ CUtensorMap vmap,
+                   const T* __restrict__ q, const T* __restrict__ v,
+                   const int* __restrict__ qpos, const int* __restrict__ kpos,
+                   T* __restrict__ out, int H, int group, int Sq, int Skv,
+                   long long qsb, long long qsh, long long qss, long long vsb,
+                   long long vsh, long long vss, long long osb, long long osh,
+                   long long oss, int causal, int window, int zero_empty) {
+  using W = PfShape<HD>;
+  constexpr int BK = W::bk;
+  constexpr int S = W::stages;
+  constexpr int NT = BK / 8;
+  constexpr int DT = HD / 8;
+  constexpr int CH = HD / 8;
+  extern __shared__ unsigned char smw_raw[];
+  unsigned char* smw = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smw_raw) + 1023) & ~uintptr_t(1023));
+  unsigned char* Qs = smw + W::q;
+  uint64_t* full = reinterpret_cast<uint64_t*>(smw + W::bars);
+  uint64_t* empty = full + S;
+  int* tile_t = reinterpret_cast<int*>(smw + W::info);
+  int* tile_c = tile_t + S;
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, tig = lane & 3;
-  const int bh = blockIdx.y;
+  const int bh = blockIdx.x;
   const int b = bh / H, h = bh - b * H;
   const int kvh = h / group;
-  const int q0 = blockIdx.x * kMmaBQ;
-  const T* kb = k + b * ksb + kvh * ksh;
-  const T* vb = v + b * vsb + kvh * vsh;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kPfBQ;
+  const int nq = min(kPfBQ, Sq - q0);
+  const int ntiles = (Skv + BK - 1) / BK;
 
-  stage_2byte<T, HD, S::LD>(Qs, q + b * qsb + h * qsh + q0 * qss, qss, Sq - q0,
-                        kMmaBQ);
+  if (tid == 0) {
+    for (int s = 0; s < S; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, 256);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
   __syncthreads();
-  // this warp's Q fragments, rows warp*16 + g (+8), for the whole walk
-  uint32_t aq[KD][4];
-  const unsigned short* qr = Qs + (warp * 16 + g) * S::LD + tig * 2;
+
+  if (warp == 8) {
+    // producer: classify the next tile by position, TMA its K and V
+    int qmin, qmax;
+    query_bounds(qpos, q0, nq, qmin, qmax);
+    int cls = kDead;
+    int t = 0;
+    for (; t < ntiles; ++t) {
+      cls = tile_class(kpos, t * BK, BK, Skv, qmin, qmax, causal,
+                       window);
+      if (cls != kDead) break;
+    }
+    for (int it = 0;; ++it) {
+      const int st = it % S;
+      mbar_wait(empty + st, ((it / S) & 1) ^ 1);
+      if (lane == 0) {
+        tile_t[st] = t < ntiles ? t : -1;
+        tile_c[st] = cls;
+        if (t < ntiles) {
+          unsigned char* Ks = smw + W::kv + st * W::stage_bytes;
+          mbar_expect_tx(full + st, W::stage_bytes);
 #pragma unroll
-  for (int kk = 0; kk < KD; ++kk) {
-    aq[kk][0] = ld32(qr + kk * 16);
-    aq[kk][1] = ld32(qr + 8 * S::LD + kk * 16);
-    aq[kk][2] = ld32(qr + kk * 16 + 8);
-    aq[kk][3] = ld32(qr + 8 * S::LD + kk * 16 + 8);
+          for (int p = 0; p < W::panels; ++p) {
+            tma_load(Ks + p * BK * 128, &kmap, full + st, p * 64,
+                     t * BK, kvh, b);
+            tma_load(Ks + W::kv_bytes + p * BK * 128, &vmap, full + st,
+                     p * 64, t * BK, kvh, b);
+          }
+        } else {
+          mbar_arrive(full + st);
+        }
+      }
+      __syncwarp();
+      if (t >= ntiles) break;
+      for (++t; t < ntiles; ++t) {
+        cls = tile_class(kpos, t * BK, BK, Skv, qmin, qmax, causal,
+                         window);
+        if (cls != kDead) break;
+      }
+    }
+    return;
+  }
+
+  // consumers: warpgroup wg owns query rows 64 wg .. 64 wg + 63
+  const int wg = warp >> 2, wi = warp & 3;
+  const int g = lane >> 2, tig = lane & 3;
+  {
+    const T* qb = q + b * qsb + h * qsh;
+    for (int idx = tid - 128 * wg; idx < 64 * CH; idx += 128) {
+      const int r = 64 * wg + idx / CH, c = idx - (idx / CH) * CH;
+      const bool ok = r < nq;
+      cp_async16(Qs + (c >> 3) * (kPfBQ * 128) + r * 128
+                     + (((c & 7) ^ (r & 7)) << 4),
+                 ok ? qb + (q0 + r) * qss + c * 8 : qb, ok);
+    }
+    cp_commit();
+    cp_wait<0>();
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
   }
   int qp[2];
-  float m[2], l[2], o[DT][4];
+  float m[2], l[2], o[HD / 2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    const int qi = q0 + warp * 16 + g + 8 * r;
+    const int qi = q0 + 64 * wg + 16 * wi + g + 8 * r;
     qp[r] = qi < Sq ? qpos[qi] : 0;
     m[r] = kNeg;
     l[r] = 0.0f;
   }
 #pragma unroll
-  for (int dt = 0; dt < DT; ++dt)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) o[dt][e] = 0.0f;
+  for (int i = 0; i < HD / 2; ++i) o[i] = 0.0f;
+  const unsigned char* Qw = Qs + 64 * wg * 128;
 
-  for (int k0 = 0; k0 < Skv; k0 += kBK) {
-    __syncthreads();   // the previous tile's readers are done
-    stage_2byte<T, HD, S::LD>(Ks, kb + k0 * kss, kss, Skv - k0, kBK);
-    // V transposed: lanes take consecutive keys, so the 2-byte stores of
-    // a warp fill consecutive words
-    for (int idx = tid; idx < kBK * (HD / 8); idx += kMmaThreads) {
-      const int j = idx % kBK;
-      const int d = (idx / kBK) * 8;
-      uint4 val = make_uint4(0u, 0u, 0u, 0u);
-      if (k0 + j < Skv)
-        val = *reinterpret_cast<const uint4*>(vb + (k0 + j) * vss + d);
-      const unsigned short* e = reinterpret_cast<const unsigned short*>(&val);
+  for (int it = 0;; ++it) {
+    const int st = it % S;
+    mbar_wait(full + st, (it / S) & 1);
+    const int t = *reinterpret_cast<volatile int*>(tile_t + st);
+    if (t < 0) break;
+    const int cls = *reinterpret_cast<volatile int*>(tile_c + st);
+    const int k0 = t * BK;
+    const unsigned char* Ks = smw + W::kv + st * W::stage_bytes;
+    const unsigned char* Vs = Ks + W::kv_bytes;
+
+    // S = Q K^T: 64 rows x 64 keys on wgmma, Q and K from shared memory
+    float s[NT * 4];
+    wg_fence();
 #pragma unroll
-      for (int t = 0; t < 8; ++t) Vt[(d + t) * S::VLD + j] = e[t];
+    for (int kk = 0; kk < HD / 16; ++kk) {
+      const int off = (kk & 3) << 5;
+      wgmma_qk<T, BK>(s,
+                      sw128_desc(Qw + (kk >> 2) * (kPfBQ * 128) + off, 16),
+                      sw128_desc(Ks + (kk >> 2) * (BK * 128) + off, 16),
+                      kk > 0);
     }
-    if (tid < kBK) Kp[tid] = k0 + tid < Skv ? kpos[k0 + tid] : 0;
-    __syncthreads();
+    wg_commit();
+    wg_wait0();
+    fence_regs<NT * 4>(s);
 
-    // S = Q K^T: this warp's 16 rows x 64 keys
-    float s[NT][4];
+    if (cls == kLive) {
 #pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
+      for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) s[nt][e] = 0.0f;
-      const unsigned short* kr = Ks + (nt * 8 + g) * S::LD + tig * 2;
-#pragma unroll
-      for (int kk = 0; kk < KD; ++kk)
-        mma_16816<T>(s[nt], aq[kk], ld32(kr + kk * 16),
-                     ld32(kr + kk * 16 + 8));
+        for (int e = 0; e < 4; ++e) {
+          const int key = k0 + nt * 8 + tig * 2 + (e & 1);
+          s[nt * 4 + e] =
+              key >= Skv ? -INFINITY
+              : key_valid(__ldg(kpos + key), qp[e >> 1], causal, window)
+                  ? s[nt * 4 + e] : kNeg;
+        }
     }
-
-    // mask and online softmax; s[nt][e] is row g + 8 (e / 2), key
-    // nt * 8 + tig * 2 + e % 2
-    float mx[2] = {kNeg, kNeg};
+    float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
     for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int c = nt * 8 + tig * 2 + (e & 1);
-        const int r = e >> 1;
-        const int kp = Kp[c];
-        const bool ex = k0 + c < Skv;
-        bool valid = ex && kp >= 0;
-        if (causal) valid = valid && kp <= qp[r];
-        if (window)
-          valid = valid && (long long)kp > (long long)qp[r] - window;
-        s[nt][e] = valid ? s[nt][e] : kNeg;
-        if (ex) mx[r] = fmaxf(mx[r], s[nt][e]);
-      }
+      for (int e = 0; e < 4; ++e)
+        mx[e >> 1] = fmaxf(mx[e >> 1], s[nt * 4 + e]);
     float sc[2], psum[2] = {0.0f, 0.0f};
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
@@ -525,139 +802,607 @@ flash_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
       mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
       mx[r] = fmaxf(m[r], mx[r]);
     }
+    uint32_t pp[NT][2];
 #pragma unroll
     for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const bool ex = k0 + nt * 8 + tig * 2 + (e & 1) < Skv;
-        const float p = ex ? expf(s[nt][e] - mx[e >> 1]) : 0.0f;
-        psum[e >> 1] += p;
-        s[nt][e] = p;
+      for (int r = 0; r < 2; ++r) {
+        const float p0 = fast_exp2((s[nt * 4 + 2 * r] - mx[r]) * kLog2e);
+        const float p1 = fast_exp2((s[nt * 4 + 2 * r + 1] - mx[r]) * kLog2e);
+        psum[r] += p0 + p1;
+        pp[nt][r] = pack2<T>(p0, p1);
       }
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       psum[r] += __shfl_xor_sync(0xffffffffu, psum[r], 1);
       psum[r] += __shfl_xor_sync(0xffffffffu, psum[r], 2);
-      sc[r] = expf(m[r] - mx[r]);
+      sc[r] = fast_exp2((m[r] - mx[r]) * kLog2e);
       l[r] = l[r] * sc[r] + psum[r];
       m[r] = mx[r];
     }
-
-    // O = O * scale + P V, P repacked from the S fragments
 #pragma unroll
     for (int dt = 0; dt < DT; ++dt) {
-      o[dt][0] *= sc[0];
-      o[dt][1] *= sc[0];
-      o[dt][2] *= sc[1];
-      o[dt][3] *= sc[1];
+      o[dt * 4] *= sc[0];
+      o[dt * 4 + 1] *= sc[0];
+      o[dt * 4 + 2] *= sc[1];
+      o[dt * 4 + 3] *= sc[1];
     }
+
+    // O += P V: P from registers, V (keys x hd, hd contiguous) from shared
+    // memory as the MN-major B operand
+    fence_regs<HD / 2>(o);
+    wg_fence();
 #pragma unroll
-    for (int kk = 0; kk < kBK / 16; ++kk) {
-      const uint32_t pa[4] = {
-          pack2<T>(s[2 * kk][0], s[2 * kk][1]),
-          pack2<T>(s[2 * kk][2], s[2 * kk][3]),
-          pack2<T>(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-          pack2<T>(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-#pragma unroll
-      for (int dt = 0; dt < DT; ++dt) {
-        const unsigned short* vr = Vt + (dt * 8 + g) * S::VLD + kk * 16
-                                   + tig * 2;
-        mma_16816<T>(o[dt], pa, ld32(vr), ld32(vr + 8));
-      }
+    for (int j = 0; j < BK / 16; ++j) {
+      const uint32_t pa[4] = {pp[2 * j][0], pp[2 * j][1], pp[2 * j + 1][0],
+                              pp[2 * j + 1][1]};
+      wgmma_pv<T, HD>(o, pa, sw128_desc(Vs + j * 16 * 128, BK * 128));
     }
+    wg_commit();
+    wg_wait0();
+    fence_regs<HD / 2>(o);
+    mbar_arrive(empty + st);
   }
 
+  T* ob = out + b * osb + h * osh;
+  const int row0 = q0 + 64 * wg + 16 * wi;
+  unsigned empty_rows = 0;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    const int qi = q0 + warp * 16 + g + 8 * r;
+    const int qi = row0 + g + 8 * r;
     if (qi >= Sq) continue;
+    if (m[r] == kNeg) {
+      empty_rows |= 1u << (g + 8 * r);
+      if (!zero_empty) continue;
+    }
+    const bool zero = m[r] == kNeg;
     const float den = fmaxf(l[r], 1e-30f);
-    const bool zero = zero_empty && m[r] == kNeg;
-    T* orow = out + b * osb + h * osh + qi * oss + tig * 2;
+    T* orow = ob + qi * oss + tig * 2;
 #pragma unroll
     for (int dt = 0; dt < DT; ++dt)
       *reinterpret_cast<typename Pair<T>::type*>(orow + dt * 8) =
-          Pair<T>::make(zero ? 0.0f : o[dt][2 * r] / den,
-                        zero ? 0.0f : o[dt][2 * r + 1] / den);
+          Pair<T>::make(zero ? 0.0f : o[dt * 4 + 2 * r] / den,
+                        zero ? 0.0f : o[dt * 4 + 2 * r + 1] / den);
   }
+  empty_rows = __reduce_or_sync(0xffffffffu, empty_rows);
+  if (empty_rows && !zero_empty)
+    prefill_mean_rows<T, HD>(v + b * vsb + kvh * vsh, vss, Skv, empty_rows,
+                             ob, oss, row0);
 }
 
-template <typename T, int HD, int RI>
-int launch(const void* q, const void* k, const void* v, const int* qpos,
-           const int* kpos, void* out, int B, int H, int KV, int Sq, int Skv,
-           const long long* st, int causal, int window, int zero_empty,
-           cudaStream_t s) {
-  using L = Smem<HD, RI>;
-  auto kern = flash_kernel<T, HD, RI>;
-  cudaError_t e = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, int(L::bytes));
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (!fn) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                cudaEnableDefault, &q) == cudaSuccess &&
+        q == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// a 4-d map over (hd, Skv, KV, B) of a 2-byte tensor with the given element
+// strides, boxes of {64, rows, 1, 1}, 128-byte swizzle, zeros past the end
+bool kv_map(CUtensorMap* map, const void* base, bool bf16, int hd, int Skv,
+            int KV, int B, long long ss, long long sh, long long sb,
+            int rows) {
+  EncodeTiled fn = encode_tiled();
+  if (!fn) return false;
+  const cuuint64_t dims[4] = {cuuint64_t(hd), cuuint64_t(Skv), cuuint64_t(KV),
+                              cuuint64_t(B)};
+  const cuuint64_t strides[3] = {cuuint64_t(ss) * 2, cuuint64_t(sh) * 2,
+                                 cuuint64_t(sb) * 2};
+  const cuuint32_t box[4] = {64, cuuint32_t(rows), 1, 1};
+  const cuuint32_t estr[4] = {1, 1, 1, 1};
+  return fn(map, bf16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                      : CU_TENSOR_MAP_DATA_TYPE_FLOAT16,
+            4, const_cast<void*>(base), dims, strides, box, estr,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// --- decode (Sq <= 16): split-KV with GQA packing on the CUDA cores --------
+
+constexpr int kDcWarps = 4;
+constexpr int kDcThreads = 32 * kDcWarps;
+
+template <typename T, int HD, int R>
+struct Dc {
+  static constexpr int KW = (4096 / (HD * int(sizeof(T)))) < 16
+                                ? 4096 / (HD * int(sizeof(T))) : 16;
+  static constexpr int BK = KW * kDcWarps;         // keys a tile
+  static constexpr int LPK = 32 / KW;              // lanes a key (scores)
+  static constexpr int EPC = 16 / int(sizeof(T));  // values a 16-byte chunk
+  static constexpr int CH = HD / EPC;              // chunks a row
+  static constexpr int CPL = CH / LPK;             // chunks a lane
+  static constexpr int COLS = HD / 32;             // output columns a lane
+  static constexpr int ROWB = HD * int(sizeof(T)) + 16;   // padded row bytes
+  // shared memory in bytes: K and V stages, Q as f32, key positions, the
+  // combine's per-row max and denominator
+  static constexpr int kv = 0;
+  static constexpr int qs = kv + 2 * 2 * BK * ROWB;
+  static constexpr int kp = qs + R * HD * 4;
+  static constexpr int rows = kp + 2 * BK * 4;
+  static constexpr size_t bytes = size_t(rows) + 2 * R * 4;
+  static_assert(KW * LPK == 32 && CPL * LPK == CH, "lane split");
+  static_assert(2 * 2 * BK * ROWB >= R * 4 * kMaxSplits * kDcWarps,
+                "the combine's weights fit in the staging buffers");
+};
+
+// the plan of one decode launch: rows a block (R, a template value), row
+// chunks, splits of the KV tiles and tiles a split
+struct DecodePlan {
+  int R, nrc, nsplit, tps, bk;
+};
+
+int sm_count() {
+  static int count[64] = {0};
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64) return 132;
+  if (!count[dev]) {
+    int n = 0;
+    if (cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) !=
+            cudaSuccess || n < 1)
+      n = 132;
+    count[dev] = n;
+  }
+  return count[dev];
+}
+
+DecodePlan decode_plan(int B, int KV, int rows, int Skv, int hd, int elt) {
+  DecodePlan p;
+  const int rcap = hd > 128 ? 8 : 16;
+  const int want = rows < rcap ? rows : rcap;
+  p.R = 1;
+  while (p.R < want) p.R *= 2;
+  p.nrc = (rows + p.R - 1) / p.R;
+  const int kw = 4096 / (hd * elt) < 16 ? 4096 / (hd * elt) : 16;
+  p.bk = kw * kDcWarps;
+  const int ntiles = (Skv + p.bk - 1) / p.bk;
+  const long long blocks = (long long)B * KV * p.nrc;
+  int n = int((2LL * sm_count() + blocks - 1) / blocks);
+  n = n < ntiles ? n : ntiles;
+  n = n < kMaxSplits ? n : kMaxSplits;
+  n = n > 1 ? n : 1;
+  p.tps = (ntiles + n - 1) / n;
+  p.nsplit = (ntiles + p.tps - 1) / p.tps;
+  return p;
+}
+
+template <typename T, int HD, int R>
+__global__ void __launch_bounds__(kDcThreads)
+flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                    const T* __restrict__ v, const int* __restrict__ qpos,
+                    const int* __restrict__ kpos, T* __restrict__ out,
+                    int KV, int group, int Sq, int Skv, long long qsb,
+                    long long qsh, long long qss, long long ksb,
+                    long long ksh, long long kss, long long vsb,
+                    long long vsh, long long vss, long long osb,
+                    long long osh, long long oss, int causal, int window,
+                    int zero_empty, int nsplit, int tps,
+                    float* __restrict__ part, int* __restrict__ tickets) {
+  using D = Dc<T, HD, R>;
+  constexpr int KW = D::KW, BK = D::BK, LPK = D::LPK, EPC = D::EPC;
+  constexpr int CH = D::CH, COLS = D::COLS, ROWB = D::ROWB;
+  extern __shared__ __align__(128) unsigned char smd[];
+  float* Qs = reinterpret_cast<float*>(smd + D::qs);
+  int* Kp = reinterpret_cast<int*>(smd + D::kp);
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int split = blockIdx.x, rc = blockIdx.y, bkv = blockIdx.z;
+  const int nrc = gridDim.y;
+  const int b = bkv / KV, kvh = bkv - b * KV;
+  const int rows = group * Sq;
+  const int r0 = rc * R;
+  const int nr = min(R, rows - r0);
+  const T* kb = k + b * ksb + kvh * ksh;
+  const T* vb = v + b * vsb + kvh * vsh;
+  const int ntiles = (Skv + BK - 1) / BK;
+  const int t0 = split * tps, t1 = min(ntiles, t0 + tps);
+
+  // the block's query rows as f32 (rows past nr zero), their positions
+  for (int idx = tid; idx < R * CH; idx += kDcThreads) {
+    const int r = idx / CH, c = idx - (idx / CH) * CH;
+    float x[EPC];
+    if (r < nr) {
+      const int rr = r0 + r, gi = rr / Sq, i = rr - gi * Sq;
+      widen<T, EPC>(q + b * qsb + (kvh * group + gi) * qsh + i * qss
+                    + c * EPC, x);
+    } else {
+#pragma unroll
+      for (int e = 0; e < EPC; ++e) x[e] = 0.0f;
+    }
+#pragma unroll
+    for (int e = 0; e < EPC; e += 4)
+      *reinterpret_cast<float4*>(Qs + r * HD + c * EPC + e) =
+          make_float4(x[e], x[e + 1], x[e + 2], x[e + 3]);
+  }
+  int qp[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int rr = r0 + (r < nr ? r : 0);
+    qp[r] = qpos[rr - (rr / Sq) * Sq];
+  }
+  int qmin, qmax;
+  query_bounds(qpos, 0, Sq, qmin, qmax);
+
+  auto load_kv = [&](int t, int st) {
+    const int k0 = t * BK;
+    unsigned char* Ks = smd + D::kv + (2 * st) * BK * ROWB;
+    unsigned char* Vs = Ks + BK * ROWB;
+    for (int idx = tid; idx < BK * CH; idx += kDcThreads) {
+      const int r = idx / CH, c = idx - (idx / CH) * CH;
+      const bool ok = k0 + r < Skv;
+      cp_async16(Ks + r * ROWB + c * 16,
+                 ok ? kb + (k0 + r) * kss + c * EPC : kb, ok);
+      cp_async16(Vs + r * ROWB + c * 16,
+                 ok ? vb + (k0 + r) * vss + c * EPC : vb, ok);
+    }
+    if (tid < BK) {
+      const bool ok = k0 + tid < Skv;
+      cp_async4(Kp + st * BK + tid, ok ? kpos + k0 + tid : kpos, ok);
+    }
+  };
+  auto next_live = [&](int t, int& cls) {
+    for (; t < t1; ++t) {
+      cls = tile_class(kpos, t * BK, BK, Skv, qmin, qmax, causal, window);
+      if (cls != kDead) break;
+    }
+    return t;
+  };
+
+  // lane (h, j) = (lane / KW, lane % KW): key warp * KW + j of each tile,
+  // chunks c = i * LPK + h of its row for the scores; output columns
+  // lane * COLS .. + COLS for P V
+  const int j = lane % KW, hh = lane / KW;
+  const int kk = warp * KW + j;
+  float m[R], l[R], acc[R][COLS];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    m[r] = kNeg;
+    l[r] = 0.0f;
+#pragma unroll
+    for (int c = 0; c < COLS; ++c) acc[r][c] = 0.0f;
+  }
+
+  int cls = kDead;
+  int t = next_live(t0, cls);
+  if (t < t1) load_kv(t, 0);
+  cp_commit();
+  int st = 0;
+  while (t < t1) {
+    int cls_next = kDead;
+    const int tn = next_live(t + 1, cls_next);
+    if (tn < t1) load_kv(tn, st ^ 1);
+    cp_commit();
+    cp_wait<1>();
+    __syncthreads();
+    const unsigned char* Ks = smd + D::kv + (2 * st) * BK * ROWB;
+    const unsigned char* Vs = Ks + BK * ROWB;
+    const int key = t * BK + kk;
+
+    float s[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) s[r] = 0.0f;
+    const T* krow = reinterpret_cast<const T*>(Ks + kk * ROWB);
+#pragma unroll
+    for (int i = 0; i < D::CPL; ++i) {
+      const int c = i * LPK + hh;
+      float kx[EPC];
+      widen<T, EPC>(krow + c * EPC, kx);
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const float* qr = Qs + r * HD + c * EPC;
+#pragma unroll
+        for (int e = 0; e < EPC; e += 4) {
+          const float4 qv = *reinterpret_cast<const float4*>(qr + e);
+          s[r] = fmaf(qv.x, kx[e], s[r]);
+          s[r] = fmaf(qv.y, kx[e + 1], s[r]);
+          s[r] = fmaf(qv.z, kx[e + 2], s[r]);
+          s[r] = fmaf(qv.w, kx[e + 3], s[r]);
+        }
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+#pragma unroll
+      for (int off = KW; off < 32; off <<= 1)
+        s[r] += __shfl_xor_sync(0xffffffffu, s[r], off);
+    }
+    if (cls == kLive) {
+      const int kp = Kp[st * BK + kk];
+      const bool ex = key < Skv;
+#pragma unroll
+      for (int r = 0; r < R; ++r)
+        s[r] = !ex ? -INFINITY
+               : key_valid(kp, qp[r], causal, window) ? s[r] : kNeg;
+    }
+
+    // online softmax over this warp's KW keys; p rounded to T for P V
+    float pr[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      float mx = s[r];
+#pragma unroll
+      for (int off = 1; off < KW; off <<= 1)
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+      const float m_new = fmaxf(m[r], mx);
+      const float p = expf(s[r] - m_new);
+      float ps = p;
+#pragma unroll
+      for (int off = 1; off < KW; off <<= 1)
+        ps += __shfl_xor_sync(0xffffffffu, ps, off);
+      const float sc = expf(m[r] - m_new);
+      l[r] = l[r] * sc + ps;
+      m[r] = m_new;
+      pr[r] = round_to(p, T());
+#pragma unroll
+      for (int c = 0; c < COLS; ++c) acc[r][c] *= sc;
+    }
+#pragma unroll
+    for (int jj = 0; jj < KW; ++jj) {
+      float vx[COLS];
+      widen<T, COLS>(reinterpret_cast<const T*>(Vs + (warp * KW + jj) * ROWB)
+                     + lane * COLS, vx);
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const float p = __shfl_sync(0xffffffffu, pr[r], jj);
+#pragma unroll
+        for (int c = 0; c < COLS; ++c) acc[r][c] = fmaf(p, vx[c], acc[r][c]);
+      }
+    }
+    __syncthreads();
+    t = tn;
+    cls = cls_next;
+    st ^= 1;
+  }
+  cp_wait<0>();
+
+  // a row with no valid key in this warp's share: the sum of v over every
+  // key of the share, and their count (the combine's weights are then 1
+  // for every share when no share saw a valid key)
+  bool any_empty = false;
+#pragma unroll
+  for (int r = 0; r < R; ++r) any_empty |= r < nr && m[r] == kNeg;
+  if (any_empty && !zero_empty) {
+    float vsum[COLS];
+#pragma unroll
+    for (int c = 0; c < COLS; ++c) vsum[c] = 0.0f;
+    int cnt = 0;
+    for (int tt = t0; tt < t1; ++tt) {
+      for (int jj = 0; jj < KW; ++jj) {
+        const int key = tt * BK + warp * KW + jj;
+        if (key >= Skv) break;
+        float vx[COLS];
+        widen<T, COLS>(vb + key * vss + lane * COLS, vx);
+#pragma unroll
+        for (int c = 0; c < COLS; ++c) vsum[c] += vx[c];
+        ++cnt;
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < R; ++r)
+      if (m[r] == kNeg) {
+        l[r] = float(cnt);
+#pragma unroll
+        for (int c = 0; c < COLS; ++c) acc[r][c] = vsum[c];
+      }
+  }
+
+  // partials of slot (row block, split, warp): (m, l) pairs, then acc rows
+  const int bkr = bkv * nrc + rc;
+  const int nslots = gridDim.x * gridDim.y * gridDim.z * kDcWarps;
+  const int slot = (bkr * nsplit + split) * kDcWarps + warp;
+  float* ml = part;
+  float* pacc = part + size_t(nslots) * R * 2;
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    if (lane == 0) {
+      ml[(size_t(slot) * R + r) * 2] = m[r];
+      ml[(size_t(slot) * R + r) * 2 + 1] = l[r];
+    }
+    float* dst = pacc + (size_t(slot) * R + r) * HD + lane * COLS;
+#pragma unroll
+    for (int c = 0; c < COLS; ++c) dst[c] = acc[r][c];
+  }
+  __threadfence();
+  __syncthreads();
+  __shared__ int last;
+  if (tid == 0) last = atomicAdd(tickets + bkr, 1) == nsplit - 1;
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+
+  // combine the row block's P = nsplit * 4 partials: per row the max M,
+  // weights exp(m_s - M) (in the staging buffers) and the denominator
+  const int P = nsplit * kDcWarps;
+  const int s0 = bkr * P;
+  float* wts = reinterpret_cast<float*>(smd + D::kv);
+  float* rowm = reinterpret_cast<float*>(smd + D::rows);
+  float* den = rowm + R;
+  for (int r = warp; r < nr; r += kDcWarps) {
+    float mm = kNeg;
+    for (int sl = lane; sl < P; sl += 32)
+      mm = fmaxf(mm, __ldcg(ml + (size_t(s0 + sl) * R + r) * 2));
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      mm = fmaxf(mm, __shfl_xor_sync(0xffffffffu, mm, off));
+    float dd = 0.0f;
+    for (int sl = lane; sl < P; sl += 32) {
+      const float* e = ml + (size_t(s0 + sl) * R + r) * 2;
+      const float w = expf(__ldcg(e) - mm);
+      wts[r * P + sl] = w;
+      dd += w * __ldcg(e + 1);
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      dd += __shfl_xor_sync(0xffffffffu, dd, off);
+    if (lane == 0) {
+      rowm[r] = mm;
+      den[r] = dd;
+    }
+  }
+  __syncthreads();
+  for (int idx = tid; idx < nr * HD; idx += kDcThreads) {
+    const int r = idx / HD, d = idx - (idx / HD) * HD;
+    float num = 0.0f;
+#pragma unroll 4
+    for (int sl = 0; sl < P; ++sl)
+      num = fmaf(wts[r * P + sl],
+                 __ldcg(pacc + (size_t(s0 + sl) * R + r) * HD + d), num);
+    const bool zero = zero_empty && rowm[r] == kNeg;
+    const int rr = r0 + r, gi = rr / Sq, i = rr - gi * Sq;
+    store(out + b * osb + (kvh * group + gi) * osh + i * oss + d,
+          zero ? 0.0f : num / fmaxf(den[r], 1e-30f));
+  }
+  if (tid == 0) tickets[bkr] = 0;   // ready for the next launch
+}
+
+// --- launches ---------------------------------------------------------------
+
+struct Args {
+  const void* q;
+  const void* k;
+  const void* v;
+  const int* qpos;
+  const int* kpos;
+  void* out;
+  int B, H, KV, Sq, Skv;
+  const long long* st;
+  int causal, window, zero_empty;
+  float* part;
+  int* tickets;
+  cudaStream_t s;
+};
+
+template <typename K>
+cudaError_t smem_attr(K kern, size_t bytes) {
+  return cudaFuncSetAttribute(kern,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              int(bytes));
+}
+
+template <int HD>
+int launch_f32(const Args& a) {
+  using L = F32Smem<HD>;
+  auto kern = flash_f32_kernel<HD>;
+  cudaError_t e = smem_attr(kern, L::bytes);
   if (e != cudaSuccess) return int(e);
-  const dim3 grid((Sq + L::BQ - 1) / L::BQ, B * H);
-  kern<<<grid, kThreads, L::bytes, s>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), qpos, kpos, static_cast<T*>(out), H, H / KV,
-      Sq, Skv, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8],
-      st[9], st[10], st[11], causal, window, zero_empty);
+  const long long* st = a.st;
+  const dim3 grid((a.Sq + kF32BQ - 1) / kF32BQ, a.B * a.H);
+  kern<<<grid, kF32Threads, L::bytes, a.s>>>(
+      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+      static_cast<const float*>(a.v), a.qpos, a.kpos,
+      static_cast<float*>(a.out), a.H, a.H / a.KV, a.Sq, a.Skv, st[0], st[1],
+      st[2], st[3], st[4], st[5], st[6], st[7], st[8], st[9], st[10], st[11],
+      a.causal, a.window, a.zero_empty);
   return int(cudaGetLastError());
 }
 
-template <typename T, int RI>
-int by_hd(int hd, const void* q, const void* k, const void* v,
-          const int* qpos, const int* kpos, void* out, int B, int H, int KV,
-          int Sq, int Skv, const long long* st, int causal, int window,
-          int zero_empty, cudaStream_t s) {
-  switch (hd) {
-    case 64:
-      return launch<T, 64, RI>(q, k, v, qpos, kpos, out, B, H, KV, Sq, Skv,
-                               st, causal, window, zero_empty, s);
-    case 128:
-      return launch<T, 128, RI>(q, k, v, qpos, kpos, out, B, H, KV, Sq, Skv,
-                                st, causal, window, zero_empty, s);
-    case 256:
-      return launch<T, 256, RI>(q, k, v, qpos, kpos, out, B, H, KV, Sq, Skv,
-                                st, causal, window, zero_empty, s);
+template <typename T, int HD>
+int launch_prefill(const Args& a) {
+  using W = PfShape<HD>;
+  const long long* st = a.st;
+  CUtensorMap km, vm;
+  const bool bf = std::is_same<T, __nv_bfloat16>::value;
+  if (!kv_map(&km, a.k, bf, HD, a.Skv, a.KV, a.B, st[5], st[4], st[3],
+              W::bk) ||
+      !kv_map(&vm, a.v, bf, HD, a.Skv, a.KV, a.B, st[8], st[7], st[6],
+              W::bk))
+    return int(cudaErrorInvalidValue);
+  auto kern = flash_prefill_kernel<T, HD>;
+  cudaError_t e = smem_attr(kern, W::bytes);
+  if (e != cudaSuccess) return int(e);
+  const int nqt = (a.Sq + kPfBQ - 1) / kPfBQ;
+  if (nqt > 65535) return int(cudaErrorInvalidValue);
+  const dim3 grid(a.B * a.H, nqt);
+  kern<<<grid, kPfThreads, W::bytes, a.s>>>(
+      km, vm, static_cast<const T*>(a.q), static_cast<const T*>(a.v), a.qpos,
+      a.kpos, static_cast<T*>(a.out), a.H, a.H / a.KV, a.Sq, a.Skv, st[0],
+      st[1], st[2], st[6], st[7], st[8], st[9], st[10], st[11], a.causal,
+      a.window, a.zero_empty);
+  return int(cudaGetLastError());
+}
+
+template <typename T, int HD, int R>
+int launch_decode_r(const Args& a, const DecodePlan& p) {
+  using D = Dc<T, HD, R>;
+  auto kern = flash_decode_kernel<T, HD, R>;
+  cudaError_t e = smem_attr(kern, D::bytes);
+  if (e != cudaSuccess) return int(e);
+  const long long* st = a.st;
+  const dim3 grid(p.nsplit, p.nrc, a.B * a.KV);
+  kern<<<grid, kDcThreads, D::bytes, a.s>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+      static_cast<const T*>(a.v), a.qpos, a.kpos, static_cast<T*>(a.out),
+      a.KV, a.H / a.KV, a.Sq, a.Skv, st[0], st[1], st[2], st[3], st[4],
+      st[5], st[6], st[7], st[8], st[9], st[10], st[11], a.causal, a.window,
+      a.zero_empty, p.nsplit, p.tps, a.part, a.tickets);
+  return int(cudaGetLastError());
+}
+
+template <typename T, int HD>
+int launch_decode(const Args& a) {
+  if (!a.part || !a.tickets) return int(cudaErrorInvalidValue);
+  const DecodePlan p = decode_plan(a.B, a.KV, (a.H / a.KV) * a.Sq, a.Skv,
+                                   HD, int(sizeof(T)));
+  if (p.nrc > 65535) return int(cudaErrorInvalidValue);
+  switch (p.R) {
+    case 1: return launch_decode_r<T, HD, 1>(a, p);
+    case 2: return launch_decode_r<T, HD, 2>(a, p);
+    case 4: return launch_decode_r<T, HD, 4>(a, p);
+    case 8: return launch_decode_r<T, HD, 8>(a, p);
     default:
+      if constexpr (HD <= 128) return launch_decode_r<T, HD, 16>(a, p);
       return int(cudaErrorInvalidValue);
   }
 }
 
-template <typename T, int HD>
-int launch_mma(const void* q, const void* k, const void* v, const int* qpos,
-               const int* kpos, void* out, int B, int H, int KV, int Sq,
-               int Skv, const long long* st, int causal, int window,
-               int zero_empty, cudaStream_t s) {
-  using L = MmaSmem<HD>;
-  auto kern = flash_mma_kernel<T, HD>;
-  cudaError_t e = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, int(L::bytes));
-  if (e != cudaSuccess) return int(e);
-  const dim3 grid((Sq + kMmaBQ - 1) / kMmaBQ, B * H);
-  kern<<<grid, kMmaThreads, L::bytes, s>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), qpos, kpos, static_cast<T*>(out), H, H / KV,
-      Sq, Skv, st[0], st[1],
-      st[2], st[3], st[4], st[5], st[6], st[7], st[8], st[9], st[10], st[11],
-      causal, window, zero_empty);
-  return int(cudaGetLastError());
-}
-
-// a 2-byte T: 16-row tiles of flash_kernel when Sq <= 16, else the
-// tensor-core kernel at hd 64 and 128 and flash_kernel's 64-row tiles at 256
 template <typename T>
-int launch_2byte(int hd, bool small, const void* q, const void* k,
-                 const void* v, const int* qpos, const int* kpos, void* out,
-                 int B, int H, int KV, int Sq, int Skv, const long long* st,
-                 int causal, int window, int zero_empty, cudaStream_t s) {
-#define FK_ARGS q, k, v, qpos, kpos, out, B, H, KV, Sq, Skv, st, causal, \
-                window, zero_empty, s
-  if (small) return by_hd<T, 1>(hd, FK_ARGS);
+int by_hd(int hd, const Args& a) {
+  const bool decode = a.Sq <= kDecodeMaxSq;
   switch (hd) {
-    case 64: return launch_mma<T, 64>(FK_ARGS);
-    case 128: return launch_mma<T, 128>(FK_ARGS);
-    case 256: return launch<T, 256, 4>(FK_ARGS);
+    case 64:
+      return decode ? launch_decode<T, 64>(a) : launch_prefill<T, 64>(a);
+    case 128:
+      return decode ? launch_decode<T, 128>(a) : launch_prefill<T, 128>(a);
+    case 256:
+      return decode ? launch_decode<T, 256>(a) : launch_prefill<T, 256>(a);
     default: return int(cudaErrorInvalidValue);
   }
-#undef FK_ARGS
+}
+
+int f32_by_hd(int hd, const Args& a) {
+  if (a.Sq <= kDecodeMaxSq) {
+    switch (hd) {
+      case 64: return launch_decode<float, 64>(a);
+      case 128: return launch_decode<float, 128>(a);
+      case 256: return launch_decode<float, 256>(a);
+      default: return int(cudaErrorInvalidValue);
+    }
+  }
+  switch (hd) {
+    case 64: return launch_f32<64>(a);
+    case 128: return launch_f32<128>(a);
+    case 256: return launch_f32<256>(a);
+    default: return int(cudaErrorInvalidValue);
+  }
+}
+
+bool bad_shape(int B, int H, int KV, int Sq, int Skv, int hd, int dtype) {
+  return B < 1 || H < 1 || KV < 1 || H % KV || Sq < 1 || Skv < 1 ||
+         B * H > kMaxRows || dtype < 0 || dtype > 2 ||
+         (hd != 64 && hd != 128 && hd != 256);
 }
 
 }  // namespace
@@ -668,11 +1413,13 @@ extern "C" {
 // addressed as base + b * s_b + head * s_h + pos * s_s + d with d
 // contiguous; the 12 strides are (q, k, v, out) x (batch, head, sequence) in
 // elements, each a multiple of 16 bytes. hd in {64, 128, 256}; H a multiple
-// of KV. The tile follows from Sq, the dtype and hd: 16-row tiles of
-// flash_kernel when Sq <= 16; else a 2-byte dtype at hd 64 or 128 on
-// flash_mma_kernel (64-row tiles), and flash_kernel's 64-row tiles for the
-// rest. zero_empty != 0 writes zero for a row with no valid key (else the
-// mean of v, as the reference kernel).
+// of KV. Sq <= 16: flash_decode_kernel (any dtype), whose f32 partials and
+// int tickets (zero before the first launch; each launch leaves them zero)
+// the caller provides at the sizes fk_flash_workspace gives, for launches
+// serialised on one stream; else flash_prefill_kernel for a 2-byte dtype
+// and flash_f32_kernel for f32 (partials and tickets unused, may be null).
+// zero_empty != 0 writes zero for a row with no valid key (else the mean of
+// v, as the reference kernel).
 int fk_flash_attention(const void* q, const void* k, const void* v,
                        const int* qpos, const int* kpos, void* out, int B,
                        int H, int KV, int Sq, int Skv, int hd, long long qsb,
@@ -680,20 +1427,37 @@ int fk_flash_attention(const void* q, const void* k, const void* v,
                        long long ksh, long long kss, long long vsb,
                        long long vsh, long long vss, long long osb,
                        long long osh, long long oss, int causal, int window,
-                       int zero_empty, int dtype, void* stream) {
-  if (B < 1 || H < 1 || KV < 1 || H % KV || Sq < 1 || Skv < 1 ||
-      window < 0 || B * H > kMaxRows || dtype < 0 || dtype > 2)
+                       int zero_empty, int dtype, void* partials,
+                       void* tickets, void* stream) {
+  if (bad_shape(B, H, KV, Sq, Skv, hd, dtype) || window < 0)
     return int(cudaErrorInvalidValue);
   const long long st[12] = {qsb, qsh, qss, ksb, ksh, kss,
                             vsb, vsh, vss, osb, osh, oss};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define FK_ARGS q, k, v, qpos, kpos, out, B, H, KV, Sq, Skv, st, causal, \
-                window, zero_empty, s
-  const bool small = Sq <= 16;
-  if (dtype == 1) return launch_2byte<__nv_bfloat16>(hd, small, FK_ARGS);
-  if (dtype == 2) return launch_2byte<__half>(hd, small, FK_ARGS);
-  return small ? by_hd<float, 1>(hd, FK_ARGS) : by_hd<float, 4>(hd, FK_ARGS);
-#undef FK_ARGS
+  const Args a{q, k, v, qpos, kpos, out, B, H, KV, Sq, Skv, st, causal,
+               window, zero_empty, static_cast<float*>(partials),
+               static_cast<int*>(tickets), static_cast<cudaStream_t>(stream)};
+  if (dtype == 1) return by_hd<__nv_bfloat16>(hd, a);
+  if (dtype == 2) return by_hd<__half>(hd, a);
+  return f32_by_hd(hd, a);
+}
+
+// sizes[0]: f32 values of the decode kernel's partials, sizes[1]: ints of
+// its tickets, for a launch of these shapes on the current device (both 0
+// when Sq > 16); sizes[2]: the KV splits, sizes[3]: rows a block
+int fk_flash_workspace(int B, int H, int KV, int Sq, int Skv, int hd,
+                       int dtype, long long* sizes) {
+  if (bad_shape(B, H, KV, Sq, Skv, hd, dtype))
+    return int(cudaErrorInvalidValue);
+  sizes[0] = sizes[1] = sizes[2] = sizes[3] = 0;
+  if (Sq > kDecodeMaxSq) return 0;
+  const DecodePlan p = decode_plan(B, KV, (H / KV) * Sq, Skv, hd,
+                                   dtype ? 2 : 4);
+  const long long blocks = (long long)B * KV * p.nrc;
+  sizes[0] = blocks * p.nsplit * kDcWarps * p.R * (hd + 2);
+  sizes[1] = blocks;
+  sizes[2] = p.nsplit;
+  sizes[3] = p.R;
+  return 0;
 }
 
 const char* fk_error_string(int code) {

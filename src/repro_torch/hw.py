@@ -66,17 +66,23 @@ ABFT_ALIGN_K: int = 128
 DMR_BLOCK_M: int = 65_536
 
 # Tiles of the flash-attention kernels (flash_attention), fixed in
-# csrc/fk_attention.cu (kBK, kMmaBQ, 16 * RI) and picked there from Sq, the
-# dtype and the head dim: these record them and set nothing. One thread
-# block per (batch * head, query tile) walks KV tiles of FLASH_BLOCK_K keys.
-# The query tile is FLASH_BLOCK_Q rows, or FLASH_BLOCK_Q_DECODE when
-# Sq <= FLASH_BLOCK_Q_DECODE (a decode step's one query row then shares its
-# block with 15 idle rows, not 63). Shared memory per block: the bf16
-# tensor-core kernel (64-row tiles, head dim 64 or 128) stages Q, K and V^T
-# as bf16, 53 KB at head dim 128; the CUDA-core kernel stages them as f32,
-# 118 KB at 128 and 217 KB at 256, the widest head dim built (64 and 128
-# are the others; narrower ones are zero-padded to 64).
-FLASH_BLOCK_Q: int = 64
-FLASH_BLOCK_Q_DECODE: int = 16
+# csrc/fk_attention.cu and picked there from Sq, the dtype and the head dim:
+# these record them and set nothing. Sq <= FLASH_DECODE_MAX_SQ runs the
+# decode kernel (every dtype): one block of 4 warps per (batch, KV head,
+# row chunk of up to 16 packed group x Sq rows, 8 at head dim 256, KV
+# split), K/V tiles of up to FLASH_DECODE_TILE_BYTES (K and V: 64 keys at 2
+# bytes and head dim 128) in two stages, ~78 KB of shared memory at bf16
+# and head dim 128, two blocks an SM. bf16 / fp16 at Sq > 16 run the prefill
+# kernel: FLASH_BLOCK_Q = 128 query rows (two warpgroups of 64 and a
+# producer warp, 288 threads) against KV tiles of FLASH_BLOCK_K keys (32 at
+# head dim 256) in a ring of three stages, Q and K/V as 2-byte values: 65,
+# 129 and 161 KB of shared memory at head dims 64, 128 and 256 (one block
+# an SM at 128). f32 at Sq > 16 runs the CUDA-core kernel: 64 query rows,
+# FLASH_BLOCK_K keys, staged as f32 (118 KB at 128, 217 KB at 256). The
+# widest head dim built is 256 (64 and 128 are the others; narrower ones
+# are zero-padded to 64).
+FLASH_DECODE_MAX_SQ: int = 16
+FLASH_DECODE_TILE_BYTES: int = 32_768
+FLASH_BLOCK_Q: int = 128
 FLASH_BLOCK_K: int = 64
 FLASH_HEAD_DIMS: tuple[int, ...] = (64, 128, 256)

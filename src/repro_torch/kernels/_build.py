@@ -20,8 +20,11 @@ points of :data:`LOWP_ENTRIES`, one more int argument before the stream:
 int8 distance kernel (``fk_distance_argmin_int8``) and the DMR centroid
 update (``fk_centroid_update_dmr``, three launches: partials, slab
 reduction, verdict). ``fk_attention.cu`` holds the LM stack's flash
-attention (``fk_flash_attention``, f32, bf16 or fp16); both include
-``csrc/fk_mma.cuh`` (the tensor-core ``mma.sync`` helpers). A library's
+attention (``fk_flash_attention``, f32, bf16 or fp16: the prefill, decode
+and f32 kernels, and ``fk_flash_workspace``, the decode kernel's workspace
+sizes). ``fk_kernels.cu`` includes ``csrc/fk_mma.cuh`` (the tensor-core
+``mma.sync`` helpers), ``fk_attention.cu`` ``csrc/fk_wgmma.cuh`` (the
+``wgmma`` wrappers of its prefill kernel). A library's
 file name carries a hash of its source and the headers of ``csrc/``, so an
 edited source or header rebuilds and an unchanged one is reused.
 Every C entry point returns ``cudaGetLastError()`` after its launch;
@@ -84,11 +87,14 @@ SIGNATURES.update({f"{name}_lp": SIGNATURES[name][:-1] + (_I, _P)
 HALF_KINDS = {"bfloat16": 0, "float16": 1}
 # q, k, v, q_positions, kv_positions, out; B, H, KV, Sq, Skv, hd; the
 # (batch, head, sequence) element strides of q, k, v and out; causal,
-# window, zero_empty, dtype (0 f32, 1 bf16, 2 fp16); stream
+# window, zero_empty, dtype (0 f32, 1 bf16, 2 fp16); the decode kernel's
+# partials and tickets; stream. fk_flash_workspace: B, H, KV, Sq, Skv, hd,
+# dtype and the address of 4 long longs it fills.
 ATTENTION_SIGNATURES: dict[str, tuple] = {
     "fk_flash_attention": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                            _L, _L, _L, _L, _L, _L, _L, _L, _L, _L, _L, _L,
-                           _I, _I, _I, _I, _P),
+                           _I, _I, _I, _I, _P, _P, _P),
+    "fk_flash_workspace": (_I, _I, _I, _I, _I, _I, _I, _P),
 }
 SOURCES: dict[str, dict[str, tuple]] = {
     "fk_kernels": SIGNATURES,

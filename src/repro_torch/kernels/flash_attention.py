@@ -16,25 +16,44 @@ of v over all keys (exp(NEG - NEG) = 1), as the reference kernel does, or
 zero with ``zero_empty_rows=True`` (``attend``'s contract; the kernel
 writes the zero itself, so ``attend`` builds no mask on the card).
 
-CUDA kernels in ``csrc/fk_attention.cu``, one thread block per (batch *
-head, query tile) walking the KV tiles in a loop; the C side picks the
-kernel and tile (``hw.FLASH_BLOCK_*``) from Sq, the dtype and the head dim:
-``flash_mma_kernel<T, HD>`` for bf16 or fp16 at Sq > 16 and head dim 64 or
-128 (the products on the tensor cores, ``mma.sync``),
-``flash_kernel<T, HD, RI>`` for the rest (f32 FMAs on the CUDA cores:
-every f32 launch, 2-byte decode launches and head dim 256); see the
-source for the design and the bound (operations at prefill, KV bytes at
-decode). It reads q, k, v and writes the output through their (batch,
+CUDA kernels in ``csrc/fk_attention.cu``; the C side picks one from Sq,
+the dtype and the head dim (``hw.FLASH_*``), see the source for the design
+and the bounds:
+
+* ``flash_decode_kernel`` at Sq <= ``hw.FLASH_DECODE_MAX_SQ`` (16), every
+  dtype: split-KV with GQA packing. One block per (batch, KV head, row
+  chunk, split) takes the group x Sq query rows of that KV head, so each
+  K/V byte is read once per launch; f32 partials (m, l, acc), combined by
+  the last block of each (batch, KV head, row chunk) to finish. The wrapper
+  allocates the partials and keeps the block tickets per device and
+  stream (the kernel leaves them zero).
+* ``flash_prefill_kernel`` for bf16 / fp16 at Sq > 16, head dims 64, 128
+  and 256: 128-row query tiles, two warpgroups on ``wgmma`` fed by a
+  producer warp's TMA loads through an ``mbarrier`` ring.
+* ``flash_f32_kernel`` for f32 at Sq > 16 (CUDA cores).
+
+The prefill and decode kernels skip KV tiles that no query of the tile
+sees and leave the mask out of tiles that every query sees whole, decided
+from the positions (:func:`live_tiles` states the rule);
+:func:`flash_split_plain` states the decode kernel's split-and-combine
+walk. Both are plain PyTorch for the tests: nothing on the card's path
+calls them.
+
+Every kernel reads q, k, v and writes the output through their (batch,
 head, sequence) strides, so transposed views of (B, S, H, hd) tensors need
-no copy, and it masks the ragged ends of Sq and Skv itself: unlike the
-reference, no shape must be padded to a tile. Head dims other than 64, 128 and 256 are zero-padded to the next of
-them (a copy).
+no copy, and masks the ragged ends of Sq and Skv itself: unlike the
+reference, no shape must be padded to a tile. Head dims other than 64,
+128 and 256 are zero-padded to the next of them (a copy).
 
 On the CPU the wrapper runs :func:`flash_attention_plain`, the masked
 softmax of the reference's test oracle with the kernel's finite ``NEG``.
-A CUDA tensor launches the kernel or raises; the wrapper counts launches.
+A CUDA tensor launches the kernel or raises; the wrapper counts its calls
+that launch (``flash_attention.launches``) and, by kernel,
+``flash_attention.kernel_launches``.
 """
 from __future__ import annotations
+
+import ctypes
 
 import torch
 import torch.nn.functional as F
@@ -45,6 +64,8 @@ from repro_torch.kernels import _build, ref
 NEG = -1e30
 # the C entry point's dtype code
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+# live_tiles' classes of a (query tile, KV tile) pair
+DEAD, LIVE, FULL = 0, 1, 2
 
 
 def position_mask(q_positions: torch.Tensor, kv_positions: torch.Tensor,
@@ -74,6 +95,104 @@ def flash_attention_plain(q, k, v, q_positions, kv_positions, *,
     if zero_empty_rows:
         p = p * mask.any(dim=-1, keepdim=True)
     return torch.matmul(p, vv).to(q.dtype)
+
+
+def live_tiles(q_positions: torch.Tensor, kv_positions: torch.Tensor,
+               block_q: int, block_k: int, causal: bool,
+               window: int) -> torch.Tensor:
+    """The kernels' tile rule: (ceil(Sq / block_q), ceil(Skv / block_k))
+    classes of (query tile, KV tile) pairs, from the valid keys' (kpos >= 0)
+    kmin / kmax / count and the query tile's qmin / qmax.
+
+    DEAD when no key of the tile is valid, or causal and kmin > qmax, or a
+    window and kmax <= qmin - window: no query of the tile sees a key of it.
+    FULL when all block_k keys exist and are valid, causal -> kmax <= qmin
+    and window -> kmin > qmax - window: every query sees every key. LIVE
+    otherwise. The kernels decide it per tile, on the card."""
+    qp = q_positions.to(torch.int64)
+    kp = kv_positions.to(torch.int64)
+    sq, skv = qp.shape[0], kp.shape[0]
+    nq, nk = -(-sq // block_q), -(-skv // block_k)
+    big = 1 << 62
+    qlo = F.pad(qp, (0, nq * block_q - sq), value=big).view(nq, block_q)
+    qhi = F.pad(qp, (0, nq * block_q - sq), value=-big).view(nq, block_q)
+    qmin, qmax = qlo.min(1).values[:, None], qhi.max(1).values[:, None]
+    kt = F.pad(kp, (0, nk * block_k - skv), value=-1).view(nk, block_k)
+    valid = kt >= 0
+    cnt = valid.sum(1)[None, :]
+    kmin = torch.where(valid, kt, big).min(1).values[None, :]
+    kmax = torch.where(valid, kt, -big).max(1).values[None, :]
+    dead = cnt == 0
+    full = cnt == block_k
+    if causal:
+        dead = dead | (kmin > qmax)
+        full = full & (kmax <= qmin)
+    if window:
+        dead = dead | (kmax <= qmin - window)
+        full = full & (kmin > qmax - window)
+    cls = torch.where(full, FULL, LIVE).expand(nq, nk)
+    return torch.where(dead, DEAD, cls).to(torch.int8)
+
+
+def flash_split_plain(q, k, v, q_positions, kv_positions, *,
+                      causal: bool = True, window: int = 0,
+                      zero_empty_rows: bool = False, splits: int = 4,
+                      block_k: int = 64) -> torch.Tensor:
+    """The decode kernel's walk in plain PyTorch (q (B, H, Sq, hd); k, v
+    (B, KV, Skv, hd)), in f32: the KV tiles of ``block_k`` keys cut into
+    ``splits`` runs of whole tiles; per split an online softmax over its
+    tiles that :func:`live_tiles` does not call DEAD for the Sq queries
+    (masked in LIVE tiles only), p rounded to v's dtype before P V, giving
+    partials (m, l, acc); a row with no valid key in a split (m = NEG) and
+    not ``zero_empty_rows`` takes acc = the sum of v over the split's keys
+    and l = their count. The combine: M = max m_s, w_s = exp(m_s - M),
+    out = sum w_s acc_s / max(sum w_s l_s, 1e-30), zero where M = NEG with
+    ``zero_empty_rows``."""
+    g = q.shape[1] // k.shape[1]
+    qf = q.float()
+    kk = k.float().repeat_interleave(g, dim=1)
+    vv = v.float().repeat_interleave(g, dim=1)
+    skv = kk.shape[2]
+    cls = live_tiles(q_positions, kv_positions, q.shape[2], block_k,
+                     causal, window)[0]
+    mask = position_mask(q_positions, kv_positions, causal, window)
+    ntiles = cls.shape[0]
+    per = -(-ntiles // splits)
+    neg = torch.tensor(NEG, device=q.device)
+    parts = []
+    for t0 in range(0, ntiles, per):
+        m = torch.full(qf.shape[:3], NEG, device=q.device)
+        l = torch.zeros_like(m)
+        acc = torch.zeros_like(qf)
+        for t in range(t0, min(t0 + per, ntiles)):
+            if cls[t] == DEAD:
+                continue
+            sl = slice(t * block_k, min((t + 1) * block_k, skv))
+            s = torch.matmul(qf, kk[:, :, sl].transpose(-1, -2))
+            if cls[t] == LIVE:
+                s = torch.where(mask[:, sl], s, neg)
+            m_new = torch.maximum(m, s.amax(-1))
+            p = torch.exp(s - m_new[..., None])
+            scale = torch.exp(m - m_new)
+            l = l * scale + p.sum(-1)
+            acc = acc * scale[..., None] + torch.matmul(
+                p.to(v.dtype).float(), vv[:, :, sl])
+            m = m_new
+        if not zero_empty_rows:
+            keys = slice(t0 * block_k, min((t0 + per) * block_k, skv))
+            empty = (m == NEG)[..., None]
+            acc = torch.where(empty, vv[:, :, keys].sum(2, keepdim=True), acc)
+            l = torch.where(empty[..., 0], float(keys.stop - keys.start), l)
+        parts.append((m, l, acc))
+    ms = torch.stack([p[0] for p in parts])
+    big_m = ms.amax(0)
+    w = torch.exp(ms - big_m)
+    den = (w * torch.stack([p[1] for p in parts])).sum(0)
+    num = (w[..., None] * torch.stack([p[2] for p in parts])).sum(0)
+    out = num / den.clamp(min=1e-30)[..., None]
+    if zero_empty_rows:
+        out = torch.where((big_m == NEG)[..., None], 0.0, out)
+    return out.to(q.dtype)
 
 
 def _check_shapes(q, k, v, q_positions, kv_positions, window):
@@ -114,7 +233,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     card). A row
     with no valid key is the mean of v, or zero with ``zero_empty_rows``.
     The reference's ``block_q``/``block_k``/``interpret`` are TPU tiling
-    controls; the kernel picks its tiles itself (``hw.FLASH_BLOCK_*``).
+    controls; the kernels pick their tiles themselves (``hw.FLASH_*``).
     """
     _check_shapes(q, k, v, q_positions, kv_positions, window)
     if _build.on_cpu(q, k, v, q_positions, kv_positions):
@@ -142,14 +261,68 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     kpos = kv_positions.to(torch.int32).contiguous()
     strides = (_strides(q, "q") + _strides(k, "k") + _strides(v, "v")
                + _strides(out, "out"))
-    code = _build.library("fk_attention").lib.fk_flash_attention(
+    lib = _build.library("fk_attention").lib
+    dev = q.device
+    stream = _build.stream_of(q)
+    name = kernel_for(sq, q.dtype)
+    part = tickets = None
+    if name == "flash_decode_kernel":
+        if dev.index != torch.cuda.current_device():
+            raise RuntimeError(
+                f"flash_attention: inputs on {dev}, current device "
+                f"cuda:{torch.cuda.current_device()}; the decode kernel's "
+                f"plan follows the current device")
+        part, tickets = _decode_workspace(
+            lib, dev, stream, (b, h, kvh, sq, skv, hdp, _DTYPES[q.dtype]))
+    code = lib.fk_flash_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), qpos.data_ptr(),
         kpos.data_ptr(), out.data_ptr(), b, h, kvh, sq, skv, hdp, *strides,
         int(causal), int(window), int(zero_empty_rows), _DTYPES[q.dtype],
-        _build.stream_of(q))
+        None if part is None else part.data_ptr(),
+        None if tickets is None else tickets.data_ptr(), stream)
     _build.check(code, "flash_attention", "fk_attention")
     flash_attention.launches += 1
+    flash_attention.kernel_launches[name] += 1
     return out if hdp == hd else out[..., :hd]
 
 
 flash_attention.launches = 0
+flash_attention.kernel_launches = dict.fromkeys(
+    ("flash_prefill_kernel", "flash_decode_kernel", "flash_f32_kernel"), 0)
+
+
+def kernel_for(sq: int, dtype: torch.dtype) -> str:
+    """The kernel the C entry point launches for Sq query rows of dtype."""
+    if sq <= hw.FLASH_DECODE_MAX_SQ:
+        return "flash_decode_kernel"
+    if dtype == torch.float32:
+        return "flash_f32_kernel"
+    return "flash_prefill_kernel"
+
+
+# the decode kernel's workspace sizes by (device, shape), and its partials
+# and block tickets by (device, stream), grown on demand: launches on one
+# stream run in order, so each finds the tickets zero (the last blocks of a
+# launch reset theirs) and may overwrite the partials of the one before
+_SIZES: dict[tuple, tuple[int, int]] = {}
+_WORKSPACE: dict[tuple[int, int], tuple[torch.Tensor, torch.Tensor]] = {}
+
+
+def _decode_workspace(lib, dev: torch.device, stream: int,
+                      shape: tuple) -> tuple[torch.Tensor, torch.Tensor]:
+    """The decode kernel's f32 partials and int tickets for this stream, at
+    least ``fk_flash_workspace``'s sizes for ``shape``."""
+    key = (dev.index, *shape)
+    sizes = _SIZES.get(key)
+    if sizes is None:
+        got = (ctypes.c_longlong * 4)()
+        _build.check(lib.fk_flash_workspace(*shape, ctypes.addressof(got)),
+                     "flash_attention workspace", "fk_attention")
+        sizes = _SIZES[key] = (int(got[0]), int(got[1]))
+    part, tickets = _WORKSPACE.get((dev.index, stream), (None, None))
+    if part is None or part.numel() < sizes[0]:
+        part = torch.empty(sizes[0], dtype=torch.float32, device=dev)
+    if tickets is None or tickets.numel() < sizes[1]:
+        tickets = torch.zeros(sizes[1], dtype=torch.int32, device=dev)
+    _WORKSPACE[(dev.index, stream)] = (part, tickets)
+    return part, tickets
