@@ -72,9 +72,10 @@ Phases, one line each:
      hd = 128, bf16, causal) and decode (one query, a 2080-slot cache with
      cold slots; bf16 and f32) shapes, each under its bars with a control
      that must fail them, with its time, the plain version's, SDPA's and
-     the bounds; the tensor-core kernel on a decode's K/V; the reference
-     test's f32 shape, windows, ragged ends, a fully masked row (mean of v,
-     or zero with ``zero_empty_rows``), head dims 256 and 16, strided views;
+     the bounds; the f32 kernel at the prefill shape beside f32 SDPA; the
+     tensor-core kernel on a decode's K/V; the reference test's f32 shape,
+     windows, ragged ends, a fully masked row (mean of v, or zero with
+     ``zero_empty_rows``), head dims 256 and 16, strided views;
  12. ``repro_torch.launch.serve`` serving 8 requests of internlm2-1.8b at
      full width and depth (seeded weights; waves of 4, prompt 2048, 32
      generated tokens; 1536 flash launches), the first wave teacher-forced
@@ -97,7 +98,9 @@ Phases, one line each:
      step (B = 7, N = 10,007, F = 20, K = 200 and 100), the pruned step (a
      random mask on integer data; the all-zero mask bit for bit the 2-byte
      ``lloyd_step``) and the 2-byte ABFT GEMM (clean, a fault over the
-     dtype's threshold, one under it) against their plain versions, and the
+     dtype's threshold, one under it, two launches bitwise equal, its
+     encodings pre-pass) against their plain versions, also at the tiles
+     its kernel treats apart (``ABFT_TILE_CASES``), and the
      fp16 flash kernel at internlm2-1.8b's prefill and decode shapes under
      the fp16 bars with failing controls, through ``attend`` and the op;
      (b) ``BatchedKMeans`` at the PQ shape, 25 steps at tol = 0 bit for bit
@@ -108,7 +111,9 @@ Phases, one line each:
      detections, labels against the same dtype's ``fused`` fit, the exact
      inertia of its centroids at most 5 % above that fit's) and the
      2-byte ABFT GEMM at phase 10's shapes (clean, a planted fault found
-     and corrected); (e) the rows of the new kernels.
+     and corrected, one under the threshold let through; launches of the
+     GEMM and of its encodings pre-pass);
+     (e) the rows of the new kernels.
 
 A kernel's bound counts the work of the function at the true M, K and F,
 not at the padded tile grid; the padded figures are printed beside it.
@@ -196,6 +201,17 @@ FLASH_FP16_DECODE_BARS = FLASH_FP16_BARS + ((2.0 ** -12, 2.0 ** -10),)
 # (each package subtracts its own f32 checksum residual): 2^-16 |delta|
 ABFT_FAULT_OVER_THRESHOLD = 8.0
 ABFT_FIX_RTOL = 2.0 ** -16
+# phase 14: the 2-byte ABFT GEMM at the tiles its kernel treats apart, each
+# on a ragged (m, k, n): one warpgroup a tile under 64 rows with a 32-deep
+# k-step (8, 40 rows; Kp not a multiple of the 64-deep stage), an odd number
+# of D bands a warp (24 rows: one in warp 1) over ~15 jobs a block on the
+# two-band staging (Kp 64), several sub-tiles a tile with a 512-deep k-step
+# (256 x 256), the largest tile
+ABFT_TILE_CASES = (((8, 128, 32), (1000, 96, 300)),
+                   ((40, 128, 32), (1000, 160, 500)),
+                   ((24, 128, 32), (3000, 64, 4000)),
+                   ((256, 256, 512), (1500, 1100, 700)),
+                   ((1024, 1024, 128), (3000, 300, 2500)))
 
 
 class SmokeFailure(RuntimeError):
@@ -1186,7 +1202,8 @@ def phase_flash(torch, fa, hw) -> tuple[dict, list]:
     that must fail them, kernel, plain and SDPA times (decode: queued behind
     a sleep, so the host's enqueue does not pace them; the paced time
     beside), the bounds (the causal-useful work; the full tiles beside it),
-    the tile skip and the decode split plan; and the prefill kernel on a
+    the tile skip and the decode split plan; the f32 kernel at the prefill
+    shape beside f32 SDPA, with its bound; and the prefill kernel on a
     decode's K/V (Sq = 17). Then the decode kernel at GQA groups 1, 2, 4
     and 8 and Sq 2 to 16 under the decode bars; shuffled key positions,
     positions with NEG_POS holes and a window, non-monotone query positions,
@@ -1303,6 +1320,28 @@ def phase_flash(torch, fa, hw) -> tuple[dict, list]:
                                                pos),
                             fa.flash_attention(q, k, v, pos, pos))),
            "flash_attention on strided views differs from contiguous inputs")
+    del q, k, v
+    torch.cuda.empty_cache()
+    # --- the f32 kernel (flash_f32_kernel, CUDA-core FMAs) at the prefill
+    # shape beside f32 SDPA; its bound is the causal-useful work at the f32
+    # CUDA-core peak (the kernel visits every tile: the full work beside)
+    q, k, v = qkv(b, h, kvh, s, s, hd, f32)
+    _, r_f = check("prefill f32", q, k, v, pos, pos)
+    bytes_f = 4.0 * (2 * b * h * s * hd + 2 * b * kvh * s * hd) + 8.0 * s
+    prefill_f32 = {
+        "shape": [b, h, kvh, s, s, hd], "dtype": "float32", "causal": True,
+        "err_over_bar": r_f,
+        "max_abs_err": max_err(fa.flash_attention(q, k, v, pos, pos),
+                               oracle(q, k, v, pos, pos)),
+        "ms": cuda_ms(lambda: fa.flash_attention(q, k, v, pos, pos), reps=3),
+        "plain_ms": cuda_ms(lambda: fa.flash_attention_plain(q, k, v, pos,
+                                                             pos), reps=1),
+        "sdpa_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, scale=1.0, enable_gqa=True), reps=3),
+        **bound(flops, bytes_f, hw.PEAK_FLOPS_F32),
+        "full_work_ms": 1e3 * full_flops / hw.PEAK_FLOPS_F32}
+    prefill_f32["tflops_useful"] = flops / prefill_f32["ms"] / 1e9
+    rec["prefill_f32"] = prefill_f32
     del q, k, v
     torch.cuda.empty_cache()
     # --- decode shape: one query at position 2048, slots 2049.. cold; a
@@ -2046,54 +2085,103 @@ def abft_fault_delta(torch, ops, xg, yg, tiles, tile_ix, dt):
     return 2.0 ** math.ceil(math.log2(ABFT_FAULT_OVER_THRESHOLD * thr)), thr
 
 
-def abft_checks(torch, ops, mma, xg, yg, dt, under: bool) -> dict:
-    """The 2-byte ABFT GEMM (``ops.abft_matmul``) on xg (m, k) . yg (k, n),
-    both of dtype ``dt``, against the plain product of the same values:
-    clean (no detection, D within rtol 1e-5 of the plain version), a fault
-    over its tile's threshold in a middle tile after a middle k-step (one
-    detection; every other element within rtol 1e-5 of the clean plain
-    product, the corrected one within ABFT_FIX_RTOL |delta|) and, with
-    ``under``, a fault of a 64th of the threshold at the same place (no
-    detection, D off by it there)."""
+def abft_checks(torch, ops, mma, xg, yg, dt, under: bool,
+                tiles=None) -> dict:
+    """The 2-byte ABFT GEMM on xg (m, k) . yg (k, n), both of dtype ``dt``,
+    against the plain product of the same values. ``tiles`` None: through
+    ``ops.abft_matmul`` at its own tiles, D compared on (m, n); ``tiles``
+    (bm, bn, bk): the raw entry ``matmul_abft`` on the padded inputs at those
+    tiles (``ops.abft_tiles`` keeps the reference's alignments, k 128, so bk
+    32 is reached only there), D compared on (Mp, Np). Clean: no detection,
+    D within rtol 1e-5 of the plain version, and a second launch bitwise
+    equal (D and the detections per tile). A fault over its tile's
+    threshold in a middle tile after a middle k-step at row 7 (or the last
+    row), col 31, and with ``tiles`` also in the last tile at its last row
+    and column after the first and after the last k-step: one detection,
+    every other element within rtol 1e-5 of the clean plain product, the
+    corrected one within ABFT_FIX_RTOL |delta|. With ``under``, a fault of a
+    64th of the threshold at the middle place: no detection, D off by it
+    there. The encodings pre-pass against its plain version (normalised
+    error under 1e-5)."""
     m, k = xg.shape
     n = yg.shape[1]
-    bm, bn, bk = ops.abft_tiles(m, n, k)
-    tiles = (-(-m // bm), -(-n // bn), -(-k // bk))
-    mp, np_, kp = tiles[0] * bm, tiles[1] * bn, tiles[2] * bk
+    bm, bn, bk = tiles or ops.abft_tiles(m, n, k)
+    nt = (-(-m // bm), -(-n // bn), -(-k // bk))
+    mp, np_, kp = nt[0] * bm, nt[1] * bn, nt[2] * bk
     xp, yp = ops._pad_to(xg, mp, kp), ops._pad_to(yg, kp, np_)
     factor = ops.threshold_factor(kp, dt)
     no_inj = mma.no_injection().cuda()
-    d, det = ops.abft_matmul(xg, yg)
+    rows, cols = (mp, np_) if tiles else (m, n)
+
+    def run(inj):
+        if tiles is None:
+            return ops.abft_matmul(xg, yg, inj=inj)
+        d, det = mma.matmul_abft(xp, yp, no_inj if inj is None else inj,
+                                 block_m=bm, block_n=bn, block_k=bk,
+                                 factor=factor)
+        return d, det.sum()
+
+    what = f"{dt} abft_matmul {m} x {k} x {n} tiles {(bm, bn, bk)}"
+    d, det = run(None)
     pd, pdet = mma.matmul_abft_plain(xp, yp, no_inj, bm, bn, bk, factor)
-    pd = pd[:m, :n]
+    pd = pd[:rows, :cols]
     ok, err = rel_ok(d, pd, 1e-5)
-    what = f"{dt} abft_matmul {m} x {k} x {n}"
     expect(int(det) == 0 and int(pdet.sum()) == 0 and ok,
            f"{what} clean: det {int(det)}, plain det {int(pdet.sum())}, "
            f"err {err}")
-    ti, tj, tk = tiles[0] // 2, tiles[1] // 2, tiles[2] // 2
-    row, col = 7, 31
-    gi, gj = ti * bm + row, tj * bn + col
-    delta, thr = abft_fault_delta(torch, ops, xg, yg, (bm, bn, bk), (ti, tj),
-                                  dt)
-    d_f, det_f = ops.abft_matmul(
-        xg, yg, inj=mma.make_injection(ti, tj, tk, row, col, delta).cuda())
-    fix = abs(float(d_f[gi, gj]) - float(pd[gi, gj]))
-    d_f[gi, gj] = pd[gi, gj]
-    ok_rest, _ = rel_ok(d_f, pd, 1e-5)
-    expect(int(det_f) == 1 and ok_rest and fix <= ABFT_FIX_RTOL * delta,
-           f"{what}: a fault of {delta} (threshold {thr}) detected "
-           f"{int(det_f)} times, corrected element off by {fix}, the rest "
-           f"within rtol 1e-5: {ok_rest}")
+    # the comparisons' own launches are not the path's: their counts are
+    # put back
+    counts = (mma.matmul_abft.launches, mma.abft_encodings.launches)
+    r1 = mma.matmul_abft(xp, yp, no_inj, block_m=bm, block_n=bn,
+                         block_k=bk, factor=factor)
+    r2 = mma.matmul_abft(xp, yp, no_inj, block_m=bm, block_n=bn,
+                         block_k=bk, factor=factor)
+    expect(all(bool(torch.equal(a, b)) for a, b in zip(r1, r2)),
+           f"{what}: two clean launches differ")
+    del r1, r2
+    ex, ey, esy = mma.abft_encodings(xp, yp, block_m=bm, block_n=bn)
+    mma.matmul_abft.launches, mma.abft_encodings.launches = counts
+    pex, pey, _ = mma.abft_encodings_plain(xp, yp, bm, bn)
+    enc_err = max(max_err(a, b) / max(float(b.abs().max()), 1.0)
+                  for a, b in ((ex, pex), (ey, pey)))
+    enc_abs = max(max_err(ex, pex), max_err(ey, pey))
+    # the split of the kernel's own E_Y: the same rounding, bit for bit
+    split_ok = bool(torch.equal(esy, mma.split_encodings(ey, bn, dt)))
+    expect(enc_err <= 1e-5 and split_ok,
+           f"{what}: encodings off their plain version by {enc_err} "
+           f"(normalised), split E_Y bitwise its plain split: {split_ok}")
+    del ex, ey, esy, pex, pey
+    row = min(7, bm - 1)
+    places = [(nt[0] // 2, nt[1] // 2, nt[2] // 2, row, 31)]
+    if tiles:
+        places += [(nt[0] - 1, nt[1] - 1, 0, bm - 1, bn - 1),
+                   (nt[0] - 1, nt[1] - 1, nt[2] - 1, bm - 1, bn - 1)]
     out = {"tiles": [bm, bn, bk], "clean_max_abs_err": err,
-           "fault_delta": delta, "fault_tile_threshold": thr,
-           "fault_detected": int(det_f), "corrected_element_err": fix}
-    del d_f
+           "encodings_err": enc_err, "encodings_max_abs_err": enc_abs,
+           "faults": []}
+    for ti, tj, tk, r, c in places:
+        gi, gj = ti * bm + r, tj * bn + c
+        delta, thr = abft_fault_delta(torch, ops, xg, yg, (bm, bn, bk),
+                                      (ti, tj), dt)
+        d_f, det_f = run(mma.make_injection(ti, tj, tk, r, c, delta).cuda())
+        fix = abs(float(d_f[gi, gj]) - float(pd[gi, gj]))
+        d_f[gi, gj] = pd[gi, gj]
+        ok_rest, _ = rel_ok(d_f, pd, 1e-5)
+        expect(int(det_f) == 1 and ok_rest and fix <= ABFT_FIX_RTOL * delta,
+               f"{what}: a fault of {delta} (threshold {thr}) at tile "
+               f"{(ti, tj)} k-step {tk} ({r}, {c}) detected {int(det_f)} "
+               f"times, corrected element off by {fix}, the rest within "
+               f"rtol 1e-5: {ok_rest}")
+        out["faults"].append({"at": [ti, tj, tk, r, c], "delta": delta,
+                              "tile_threshold": thr,
+                              "detected": int(det_f),
+                              "corrected_element_err": fix})
+        del d_f
     if under:
-        small = thr / 64.0
-        d_u, det_u = ops.abft_matmul(
-            xg, yg, inj=mma.make_injection(ti, tj, tk, row, col,
-                                           small).cuda())
+        ti, tj, tk, r, c = places[0]
+        gi, gj = ti * bm + r, tj * bn + c
+        small = out["faults"][0]["tile_threshold"] / 64.0
+        d_u, det_u = run(mma.make_injection(ti, tj, tk, r, c, small).cuda())
         off = float(d_u[gi, gj]) - float(pd[gi, gj])
         expect(int(det_u) == 0 and abs(off - small) <= 1e-3 * small
                + 1e-5 * float(pd.abs().max()),
@@ -2110,7 +2198,8 @@ def abft_times(torch, ops, hw, mma, xg, yg, dt, bound) -> dict:
     """The 2-byte ABFT GEMM's time at xg (m, k) . yg (k, n) beside its
     plain version's, ``torch.matmul`` in the 2-byte dtype (D rounded to 2
     bytes) and its bound: the tensor-core FLOPs or the bytes of 2-byte X and
-    Y and the f32 D."""
+    Y and the f32 D; and its encodings pre-pass alone beside its plain
+    version and its bound (the bytes of X and Y)."""
     m, k = xg.shape
     n = yg.shape[1]
     bm, bn, bk = ops.abft_tiles(m, n, k)
@@ -2120,13 +2209,24 @@ def abft_times(torch, ops, hw, mma, xg, yg, dt, bound) -> dict:
     no_inj = mma.no_injection().cuda()
     b_ms, b_by = bound(2.0 * m * n * k, 2.0 * (m * k + k * n) + 4.0 * m * n,
                        peak=hw.PEAK_FLOPS_BF16)
+    # the encodings pre-pass: X and Y read once, (tiles, Kpe, 2) f32 out;
+    # its sums, (m + n) k adds and as many FMAs, are far under the bytes
+    kpe = -(-kp // mma.ENC_K_ALIGN) * mma.ENC_K_ALIGN
+    e_ms, e_by = bound(4.0 * (m + n) * k, 2.0 * (m * k + k * n)
+                       + 8.0 * (mp // bm + np_ // bn) * kpe,
+                       peak=hw.PEAK_FLOPS_F32)
     out = {"ms": cuda_ms(lambda: mma.matmul_abft(
                xp, yp, no_inj, block_m=bm, block_n=bn, block_k=bk,
                factor=factor)),
            "plain_ms": cuda_ms(lambda: mma.matmul_abft_plain(
                xp, yp, no_inj, bm, bn, bk, factor), reps=2),
            "library_ms": cuda_ms(lambda: torch.matmul(xg, yg)),
-           "bound_ms": b_ms, "bound_by": b_by}
+           "bound_ms": b_ms, "bound_by": b_by,
+           "encode_ms": cuda_ms(lambda: mma.abft_encodings(
+               xp, yp, block_m=bm, block_n=bn)),
+           "encode_plain_ms": cuda_ms(lambda: mma.abft_encodings_plain(
+               xp, yp, bm, bn), reps=2),
+           "encode_bound_ms": e_ms, "encode_bound_by": e_by}
     del xp, yp
     torch.cuda.empty_cache()
     return out
@@ -2148,7 +2248,8 @@ def tile_bound_ok(torch, got, want, xn) -> tuple[bool, float]:
 
 def phase_lowp_rest_kernels(torch, ops, ll, llp, mma, dtype) -> dict:
     """Phase 14 (a): the 2-byte batched step, pruned step and ABFT GEMM
-    against their plain versions and the kernels they must equal."""
+    against their plain versions and the kernels they must equal; the ABFT
+    GEMM also at ABFT_TILE_CASES' tiles."""
     import numpy as np
     import torch.nn.functional as F
     from repro_torch.data.blobs import make_blobs
@@ -2255,6 +2356,16 @@ def phase_lowp_rest_kernels(torch, ops, ll, llp, mma, dtype) -> dict:
         out["abft_matmul"].append(dict(
             k=k, **abft_checks(torch, ops, mma, xg, yg, dt, under=True)))
         del x, c, xg, yg
+        torch.cuda.empty_cache()
+    out["abft_tiles"] = []
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 19)
+    for tiles, (m, k, n) in ABFT_TILE_CASES:
+        xg = torch.randn(m, k, generator=gen, device=DEV).to(dt)
+        yg = torch.randn(k, n, generator=gen, device=DEV).to(dt)
+        out["abft_tiles"].append(dict(
+            m=m, k=k, n=n, **abft_checks(torch, ops, mma, xg, yg, dt,
+                                         under=True, tiles=tiles)))
+        del xg, yg
         torch.cuda.empty_cache()
     return out
 
@@ -2532,6 +2643,7 @@ def phase_lowp_rest(torch, ops, hw, ll, llp, mma, fa, attn, KMeans,
         # --- (d) detect fit from phase 3's seeds, and the ABFT GEMM at
         # phase 10's shapes
         mma.matmul_abft.launches = 0
+        mma.abft_encodings.launches = 0
         km_det, det_s = wall(lambda: KMeans(
             fault=FaultPolicy.detect(), compute_dtype=dtype, **base)
             .fit(x, centroids=c_init))
@@ -2539,12 +2651,15 @@ def phase_lowp_rest(torch, ops, hw, ll, llp, mma, fa, attn, KMeans,
         det_score = km_det.score(x)
         ya = km_det.cluster_centers_.T.contiguous()
         r["abft_matmul_a"] = abft_checks(torch, ops, mma, x.to(dt),
-                                         ya.to(dt), dt, under=False)
+                                         ya.to(dt), dt, under=True)
         r["abft_matmul_b"] = abft_checks(torch, ops, mma, xb.to(dt),
-                                         wb.to(dt), dt, under=False)
+                                         wb.to(dt), dt, under=True)
         torch.cuda.synchronize()
         launches_m = mma.matmul_abft.launches
-        expect(launches_m > 0, f"{dtype} matmul_abft was not launched")
+        launches_e = mma.abft_encodings.launches
+        expect(launches_m > 0 and launches_e == launches_m,
+               f"{dtype} matmul_abft launched {launches_m} times, its "
+               f"encodings pre-pass {launches_e}")
         km_f, f_s = wall(lambda: KMeans(compute_dtype=dtype, **base)
                          .fit(x, centroids=c_init))
         # the detect fit's distances are 2-byte (the reference's arithmetic),
@@ -2582,7 +2697,8 @@ def phase_lowp_rest(torch, ops, hw, ll, llp, mma, fa, attn, KMeans,
             "inertia": km_det.inertia_, "fused_inertia": km_f.inertia_,
             "score": det_score, "fp16_checksum_overflow": overflow,
             "n_host_syncs": km_det._n_host_syncs,
-            "matmul_abft_launches": launches_m}
+            "matmul_abft_launches": launches_m,
+            "abft_encode_launches": launches_e}
         del km_det, km_f, det_labels
         torch.cuda.empty_cache()
 
@@ -2708,13 +2824,21 @@ def phase_lowp_rest(torch, ops, hw, ll, llp, mma, fa, attn, KMeans,
                 torch, ops, hw, mma, xg.to(dt), yg.to(dt), dt, bound))
         g = r["abft_matmul_a"]
         rows.append({"name": f"matmul_abft_{tag}", "route": "cuda",
-                     "source": "src/repro_torch/csrc/fk_kernels.cu",
+                     "source": "src/repro_torch/csrc/fk_abft_gemm.cu",
                      "replaces": "src/repro/kernels/matmul_abft.py:127",
                      "launches": launches_m,
                      "max_abs_err": g["clean_max_abs_err"], "ms": g["ms"],
                      "plain_ms": g["plain_ms"], "bound_ms": g["bound_ms"],
                      "bound_by": g["bound_by"],
                      "library_ms": g["library_ms"]})
+        rows.append({"name": f"abft_encode_{tag}", "route": "cuda",
+                     "source": "src/repro_torch/csrc/fk_abft_gemm.cu",
+                     "replaces": "src/repro/kernels/matmul_abft.py:127",
+                     "launches": launches_e,
+                     "max_abs_err": g["encodings_max_abs_err"],
+                     "ms": g["encode_ms"], "plain_ms": g["encode_plain_ms"],
+                     "bound_ms": g["encode_bound_ms"],
+                     "bound_by": g["encode_bound_by"], "library_ms": None})
         del ya
         torch.cuda.empty_cache()
         emit(dict(phase=14, dtype=dtype, **r))
@@ -2778,7 +2902,7 @@ def main() -> int:
     ptxas = [ln.strip() for lib in libs.values()
              for ln in lib.ptxas_log.splitlines()
              if "registers" in ln or "spill" in ln
-             or "Compiling entry function" in ln]
+             or "Compiling entry function" in ln or "C75" in ln]
     emit({"phase": 1, "device": kind, "nvidia_smi": smi_line,
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "build_s": round(build_s, 3),

@@ -106,7 +106,9 @@
 // each (query, valid key) pair (989 TFLOP/s); at decode the bytes of the
 // KV cache, read once per launch (3.35 TB/s). The prefill kernel's tensor
 // maps come from cuTensorMapEncodeTiled, reached through
-// cudaGetDriverEntryPoint (no link against the driver library).
+// cudaGetDriverEntryPoint (no link against the driver library); that and
+// the mbarrier / TMA helpers live in fk_tma.cuh, shared with
+// fk_abft_gemm.cu.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler
 // -fPIC (no --use_fast_math: expf and the final division stay accurate).
@@ -119,6 +121,7 @@
 #include <cstdint>
 #include <type_traits>
 
+#include "fk_tma.cuh"
 #include "fk_wgmma.cuh"
 
 namespace {
@@ -130,10 +133,6 @@ constexpr int kDecodeMaxSq = 16;   // Sq at or below: the decode kernel
 constexpr int kMaxSplits = 64;     // KV splits of one decode row block
 
 // --- shared helpers ---------------------------------------------------------
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
 
 // 16 bytes global -> shared, zero-filled when !full (src then unread)
 __device__ __forceinline__ void cp_async16(void* dst, const void* src,
@@ -560,69 +559,6 @@ struct PfShape {
   static constexpr size_t bytes = size_t(info) + 2 * stages * 4 + 1024;
 };
 
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
-               ::"r"(smem_u32(bar)), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               ::"r"(smem_u32(bar)), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
-               ::"r"(smem_u32(bar)) : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  uint32_t done = 0;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done) : "r"(smem_u32(bar)), "r"(parity) : "memory");
-  } while (!done);
-}
-
-// one box {64 values, rows, 1, 1} of a 4-d tensor map into shared memory
-__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
-                                         uint64_t* bar, int c0, int c1,
-                                         int c2, int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n"
-      ::"r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)),
-        "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
-      : "memory");
-}
-
-// descriptor of a 128-byte-swizzled operand in shared memory: 8-row groups
-// 1024 bytes apart, lbo bytes between 64-value panels (MN-major operands)
-__device__ __forceinline__ uint64_t sw128_desc(const void* p, uint32_t lbo) {
-  return uint64_t((smem_u32(p) & 0x3FFFF) >> 4)
-         | (uint64_t((lbo >> 4) & 0x3FFF) << 16)
-         | (uint64_t(1024 >> 4) << 32) | (uint64_t(1) << 62);
-}
-
-__device__ __forceinline__ void wg_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wg_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wg_wait0() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-// keep the compiler from moving accesses of accumulator registers across
-// the asynchronous wgmma that writes them
-template <int N>
-__device__ __forceinline__ void fence_regs(float* d) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
 template <typename T, int HD>
 __device__ __forceinline__ void wgmma_pv(float* o, const uint32_t* a,
                                          uint64_t db) {
@@ -870,26 +806,6 @@ flash_prefill_kernel(const __grid_constant__ CUtensorMap kmap,
                              ob, oss, row0);
 }
 
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
-                                 cuuint32_t, void*, const cuuint64_t*,
-                                 const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (!fn) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                cudaEnableDefault, &q) == cudaSuccess &&
-        q == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
 // a 4-d map over (hd, Skv, KV, B) of a 2-byte tensor with the given element
 // strides, boxes of {64, rows, 1, 1}, 128-byte swizzle, zeros past the end
 bool kv_map(CUtensorMap* map, const void* base, bool bf16, int hd, int Skv,
@@ -944,20 +860,6 @@ struct Dc {
 struct DecodePlan {
   int R, nrc, nsplit, tps, bk;
 };
-
-int sm_count() {
-  static int count[64] = {0};
-  int dev = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64) return 132;
-  if (!count[dev]) {
-    int n = 0;
-    if (cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) !=
-            cudaSuccess || n < 1)
-      n = 132;
-    count[dev] = n;
-  }
-  return count[dev];
-}
 
 DecodePlan decode_plan(int B, int KV, int rows, int Skv, int hd, int elt) {
   DecodePlan p;

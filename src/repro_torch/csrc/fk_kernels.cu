@@ -32,12 +32,12 @@
 // int8_tile_kernel replaces distance_argmin_int8.py distance_argmin_int8:
 // __dp4a over packed int8 words, the f32 scale correction, then the shared
 // min/argmin epilogue.
-// matmul_abft_kernel replaces matmul_abft.py matmul_abft: a plain SGEMM
-// D = X Y with the dual-checksum ABFT per (bm x bn) output tile, one block
-// per tile, its k loop inside the block, the tile walked in 128 x 128
+// matmul_abft_kernel replaces matmul_abft.py matmul_abft at f32: a plain
+// SGEMM D = X Y with the dual-checksum ABFT per (bm x bn) output tile, one
+// block per tile, its k loop inside the block, the tile walked in 128 x 128
 // sub-tiles; warp 0 verifies the finished tile and corrects D in place.
-// matmul_abft_mma_kernel<T> is the same for bf16 / fp16 X and Y, its
-// sub-tile product on mma.sync m16n8k16, D and the checksums f32.
+// (bf16 / fp16 X and Y: abft_gemm_kernel<T> in fk_abft_gemm.cu, wgmma fed
+// by TMA.)
 // dmr_partials_kernel, dmr_reduce_kernel and dmr_verdict_kernel replace
 // centroid_update_dmr.py centroid_update_dmr: per (cluster group, row slab,
 // feature group) two replicas of the partial sums from one load of X (the
@@ -48,12 +48,13 @@
 // lloyd_tile_mma_kernel 2 (T) x 2 (BM) x 4 = 16, update_tiles_kernel 3 (T)
 // x 2 (BM), kmeanspp_round_kernel 1, lloyd_pruned_kernel 2 (BM),
 // lloyd_pruned_mma_kernel 2 (T) x 2 (BM), int8_tile_kernel 2 (BM),
-// matmul_abft_kernel 1, matmul_abft_mma_kernel 2 (T), the three DMR
-// kernels: 45 kernels.
+// matmul_abft_kernel 1, the three DMR kernels: 43 kernels.
 //
-// The epilogues are single __device__ definitions (tile_min_argmin, fold_min,
-// locate_and_correct, emit_update) so the variants agree bit for bit by
-// construction, as the reference's shared tile_min_argmin/_emit_update do.
+// The epilogues are single __device__ definitions (tile_min_argmin,
+// fold_min, locate_and_correct, emit_update; the warp reductions and
+// locate_tile in fk_abft.cuh, shared with fk_abft_gemm.cu) so the variants
+// agree bit for bit by construction, as the reference's shared
+// tile_min_argmin/_emit_update do.
 // update_tiles_kernel launches emit_update alone: over every row tile it is
 // the two-pass centroid update (ops.tiled_update), in the one-pass kernels'
 // summation order by construction; for one row tile it is the recompute of a
@@ -99,10 +100,8 @@
 // __dp4a on the CUDA cores does not reach (mma.sync/wgmma s8 is later
 // work).
 // The seeding round is bound by the bytes of X (one GEMV per round). The
-// ABFT GEMM is bound by its 2*M*N*K FLOPs on the f32 CUDA cores; at 2-byte
-// inputs by the same FLOPs on the tensor cores or, for a short K, by the
-// bytes of its f32 D. The DMR update is bound by the bytes of X and the
-// assignments, read once.
+// f32 ABFT GEMM is bound by its 2*M*N*K FLOPs on the f32 CUDA cores. The
+// DMR update is bound by the bytes of X and the assignments, read once.
 // wgmma, TMA and a shared-memory X stash are later work.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler
@@ -114,6 +113,7 @@
 #include <cstdint>
 #include <type_traits>
 
+#include "fk_abft.cuh"
 #include "fk_mma.cuh"
 
 namespace {
@@ -207,51 +207,6 @@ __device__ __forceinline__ void fold_min(float* best, int* arg, float lmin,
     *best = lmin;
     *arg = larg;
   }
-}
-
-__device__ __forceinline__ int clamp_index(float v, int hi) {
-  // (round(r) - 1) -> int32 -> clip(0, hi - 1), saturating like XLA's convert
-  v = fminf(fmaxf(v, -1.0f), float(hi));
-  int i = int(v);
-  return i < 0 ? 0 : (i > hi - 1 ? hi - 1 : i);
-}
-
-// Warp-wide (max |v|, first index) over n values.
-__device__ __forceinline__ void warp_absmax(const float* v, int n, int lane,
-                                            float* out_v, int* out_i) {
-  float bv = -1.0f;
-  int bi = 0x7fffffff;
-  for (int t = lane; t < n; t += 32) {
-    float a = fabsf(v[t]);
-    if (a > bv) {
-      bv = a;
-      bi = t;
-    }
-  }
-  for (int off = 16; off > 0; off >>= 1) {
-    float ov = __shfl_xor_sync(0xffffffffu, bv, off);
-    int oi = __shfl_xor_sync(0xffffffffu, bi, off);
-    if (ov > bv || (ov == bv && oi < bi)) {
-      bv = ov;
-      bi = oi;
-    }
-  }
-  *out_v = bv;
-  *out_i = bi;
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-  for (int off = 16; off > 0; off >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
-  return v;
-}
-
-// Butterfly sum: a fixed order, and every lane ends with the same bits
-// (a + b == b + a at each step).
-__device__ __forceinline__ float warp_sum(float v) {
-  for (int off = 16; off > 0; off >>= 1)
-    v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
 }
 
 // --- epilogue 3: ABFT verification interval of one (row, centroid) tile ---
@@ -1429,38 +1384,8 @@ struct MmLayout {
   }
 };
 
-// ABFT verification of one output tile, run by warp 0: locate_and_correct's
-// decode with the tile's sizes at run time. col1/row1 are the expected
-// checksums, rc*/rr* the residuals. Returns 1 if detected, with the element
-// (i, j) and the delta to subtract.
-__device__ int locate_tile(const float* col1, const float* row1,
-                           const float* rc1, const float* rc2,
-                           const float* rr1, const float* rr2, int bm,
-                           int bn, int lane, float thr_factor, int* oi,
-                           int* oj, float* odelta) {
-  float sc = 0.0f;
-  for (int t = lane; t < bn; t += 32) sc = fmaxf(sc, fabsf(col1[t]));
-  for (int t = lane; t < bm; t += 32) sc = fmaxf(sc, fabsf(row1[t]));
-  const float thr = thr_factor * fmaxf(warp_max(sc), 1.0f);
-  float max_c, max_r;
-  int j, i_direct;
-  warp_absmax(rc1, bn, lane, &max_c, &j);
-  warp_absmax(rr1, bm, lane, &max_r, &i_direct);
-  const float dcol = rc1[j];
-  const float safe = dcol == 0.0f ? 1.0f : dcol;
-  const bool use_ratio = fabsf(dcol) > thr;
-  const int i = use_ratio ? clamp_index(rintf(rc2[j] / safe) - 1.0f, bm)
-                          : i_direct;
-  const float drow = rr1[i];
-  const float safe_r = drow == 0.0f ? 1.0f : drow;
-  *oi = i;
-  *oj = use_ratio ? j : clamp_index(rintf(rr2[i] / safe_r) - 1.0f, bn);
-  *odelta = fabsf(dcol) > fabsf(drow) ? dcol : drow;
-  return (max_c > thr) || (max_r > thr);
-}
-
-// The expected checksums of one resident k-chunk, for both ABFT GEMM
-// kernels: the e1/e2 encodings of the X chunk over the sub-tile's rows and
+// The expected checksums of one resident k-chunk of the f32 ABFT GEMM:
+// the e1/e2 encodings of the X chunk over the sub-tile's rows and
 // of the Y chunk over its columns (8 partials per k, then a fixed-order
 // sum), then col1/col2 += enc(X) Y_chunk and row1/row2 += X_chunk enc(Y);
 // the weights are the row / column index within the whole tile, plus 1.
@@ -1687,166 +1612,20 @@ matmul_abft_kernel(const float* __restrict__ x, const float* __restrict__ y,
   abft_tile_verify(sm, L, d, det, m0, n0, np, bm, bn, mt, nt, thr_factor);
 }
 
-// matmul_abft_kernel for bf16 / fp16 X and Y: the same tiles, sub-tiles,
-// checksums, injection, verification and f32 D, with the sub-tile product
-// on the tensor cores (mma.sync m16n8k16, f32 accumulation; products of
-// 2-byte values are exact in f32). A chunk of X (sub-tile rows x kChunk) is
-// staged row-major as T and one of Y transposed, (column, k), both with a
-// row pitch of kLd = kChunk + 8 elements, so each fragment register is one
-// 32-bit shared load (MmaProduct's layout). The 8 warps tile the 128 x 128
-// sub-tile 2 x 4, each warp 64 x 32 as 4 x 4 m16n8 fragments. The expected
-// checksums are encoded in f32 from the same staged 2-byte values, widened
-// exactly, as the f32 kernel encodes its f32 ones.
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-matmul_abft_mma_kernel(const T* __restrict__ x, const T* __restrict__ y,
-                       const int* __restrict__ inj, float* __restrict__ d,
-                       int* __restrict__ det, int np, int kp, int bm, int bn,
-                       int bk, float thr_factor) {
-  constexpr int kLd = kChunk + 8;
-  constexpr int kVec = 16 / int(sizeof(T));
-  constexpr int kMF = 4, kNF = 4;        // fragments of a warp's 64 x 32
-  extern __shared__ __align__(16) float sm_abft[];
-  float* sm = sm_abft;
-  const MmLayout L(bm, bn);
-  static_assert(kMmSub * kLd * sizeof(T) <= kChunk * kMmLd * sizeof(float),
-                "a staged 2-byte chunk fits the f32 chunk's region");
-  float* Ds = sm + L.ds;
-  T* Xh = reinterpret_cast<T*>(sm + L.xs);   // (row, k)
-  T* Yh = reinterpret_cast<T*>(sm + L.ys);   // (column, k)
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int g = lane / 4, t = lane % 4;
-  const int wr = (warp / 4) * 64, wc = (warp % 4) * 32;
-  const int mt = blockIdx.x, nt = blockIdx.y;
-  const size_t m0 = size_t(mt) * bm;
-  const int n0 = nt * bn;
-  const int nch = kp / kChunk, ch_per_step = bk / kChunk;
-  const DistInj dinj = load_dist_inj(inj);
-  const bool inj_tile = dinj.enabled && dinj.m_tile == mt &&
-                        dinj.c_tile == nt;
-  for (int u = tid; u < bn; u += kThreads)
-    sm[L.ecol1 + u] = sm[L.ecol2 + u] = sm[L.ocol1 + u] = sm[L.ocol2 + u] =
-        0.0f;
-  for (int u = tid; u < bm; u += kThreads)
-    sm[L.erow1 + u] = sm[L.erow2 + u] = sm[L.orow1 + u] = sm[L.orow2 + u] =
-        0.0f;
-
-  for (int rb = 0; rb < bm; rb += kMmSub) {
-    const int rows = bm - rb < kMmSub ? bm - rb : kMmSub;
-    for (int cb = 0; cb < bn; cb += kMmSub) {
-      float acc[kMF][kNF][4];
-#pragma unroll
-      for (int i = 0; i < kMF; ++i)
-#pragma unroll
-        for (int j = 0; j < kNF; ++j)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.0f;
-      for (int ch = 0; ch < nch; ++ch) {
-        const int k0 = ch * kChunk;
-        // X rows, 16 bytes a load; rows past the tile's are zero
-        for (int idx = tid; idx < kMmSub * (kChunk / kVec); idx += kThreads) {
-          const int r = idx / (kChunk / kVec), q = idx % (kChunk / kVec);
-          uint4 v = make_uint4(0u, 0u, 0u, 0u);
-          if (r < rows)
-            v = *reinterpret_cast<const uint4*>(x + (m0 + rb + r) * kp + k0 +
-                                                q * kVec);
-          *reinterpret_cast<uint4*>(Xh + r * kLd + q * kVec) = v;
-        }
-        // Y transposed: lane f loads row k0 + f (16 bytes: kVec columns)
-        // and stores each value in its column's row, so the 2-byte stores
-        // of a warp fall on consecutive addresses
-        for (int idx = tid; idx < kChunk * (kMmSub / kVec); idx += kThreads) {
-          const int f = idx % kChunk, q = idx / kChunk;
-          const uint4 v = *reinterpret_cast<const uint4*>(
-              y + size_t(k0 + f) * np + n0 + cb + q * kVec);
-          const T* e = reinterpret_cast<const T*>(&v);
-#pragma unroll
-          for (int u = 0; u < kVec; ++u) Yh[(q * kVec + u) * kLd + f] = e[u];
-        }
-        __syncthreads();
-#pragma unroll
-        for (int ks = 0; ks < kChunk; ks += 16) {
-          uint32_t a[kMF][4], b[kNF][2];
-#pragma unroll
-          for (int i = 0; i < kMF; ++i) {
-            const T* pa = Xh + (wr + 16 * i + g) * kLd + ks + 2 * t;
-            a[i][0] = ld32(pa);
-            a[i][1] = ld32(pa + 8 * kLd);
-            a[i][2] = ld32(pa + 8);
-            a[i][3] = ld32(pa + 8 * kLd + 8);
-          }
-#pragma unroll
-          for (int j = 0; j < kNF; ++j) {
-            const T* pb = Yh + (wc + 8 * j + g) * kLd + ks + 2 * t;
-            b[j][0] = ld32(pb);
-            b[j][1] = ld32(pb + 8);
-          }
-#pragma unroll
-          for (int i = 0; i < kMF; ++i)
-#pragma unroll
-            for (int j = 0; j < kNF; ++j)
-              mma_16816<T>(acc[i][j], a[i], b[j][0], b[j][1]);
-        }
-        // expected checksums from the resident chunk, as the f32 kernel
-        abft_encode_chunk(
-            sm, L, rows, rb, cb,
-            [&](int f, int r) { return to_f32(Xh[r * kLd + f]); },
-            [&](int f, int c) { return to_f32(Yh[c * kLd + f]); });
-        // simulated SEU: after the last chunk of k-step k_step, into the
-        // accumulator element of the lane that holds (row, col)
-        if (inj_tile && ch == (dinj.f_tile + 1) * ch_per_step - 1) {
-#pragma unroll
-          for (int i = 0; i < kMF; ++i)
-#pragma unroll
-            for (int j = 0; j < kNF; ++j)
-#pragma unroll
-              for (int e = 0; e < 4; ++e)
-                if (rb + wr + 16 * i + g + 8 * (e / 2) == dinj.row &&
-                    cb + wc + 8 * j + 2 * t + e % 2 == dinj.col)
-                  acc[i][j][e] += dinj.delta;
-        }
-        __syncthreads();
-      }
-
-#pragma unroll
-      for (int i = 0; i < kMF; ++i)
-#pragma unroll
-        for (int j = 0; j < kNF; ++j)
-#pragma unroll
-          for (int e = 0; e < 4; ++e)
-            Ds[(wr + 16 * i + g + 8 * (e / 2)) * kMmLd + wc + 8 * j + 2 * t +
-               e % 2] = acc[i][j][e];
-      __syncthreads();
-      abft_subtile_out(sm, L, d, m0, n0, np, rb, cb, rows);
-    }
-  }
-  abft_tile_verify(sm, L, d, det, m0, n0, np, bm, bn, mt, nt, thr_factor);
-}
-
-// the ABFT GEMM of input type T: the f32 kernel or the tensor-core one
-template <typename T>
-constexpr auto abft_kernel() {
-  if constexpr (std::is_same<T, float>::value)
-    return matmul_abft_kernel;
-  else
-    return matmul_abft_mma_kernel<T>;
-}
-
-template <typename T>
-int launch_abft(const T* x, const T* y, const int* inj, float* d, int* det,
-                float thr_factor, int mp, int np, int kp, int bm, int bn,
-                int bk, cudaStream_t stream) {
+int launch_abft(const float* x, const float* y, const int* inj, float* d,
+                int* det, float thr_factor, int mp, int np, int kp, int bm,
+                int bn, int bk, cudaStream_t stream) {
   if (bm < 8 || bm % 8 || (bm > kMmSub && bm % kMmSub) || bm > 1024 ||
       bn < kMmSub || bn % kMmSub || bn > 1024 || bk < kChunk || bk % kChunk ||
       mp < bm || mp % bm || np < bn || np % bn || kp < bk || kp % bk ||
       np / bn > kMaxProblems)
     return int(cudaErrorInvalidValue);
-  auto kernel = abft_kernel<T>();
   const size_t bytes = size_t(MmLayout(bm, bn).words) * 4;
   cudaError_t e = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(bytes));
+      matmul_abft_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      int(bytes));
   if (e != cudaSuccess) return int(e);
-  kernel<<<dim3(mp / bm, np / bn), kThreads, bytes, stream>>>(
+  matmul_abft_kernel<<<dim3(mp / bm, np / bn), kThreads, bytes, stream>>>(
       x, y, inj, d, det, np, kp, bm, bn, bk, thr_factor);
   return int(cudaGetLastError());
 }
@@ -2246,21 +2025,8 @@ int fk_kmeanspp_round(const float* x, const float* xn, const float* c,
 int fk_matmul_abft(const float* x, const float* y, const int* inj, float* d,
                    int* det, float thr_factor, int mp, int np, int kp, int bm,
                    int bn, int bk, void* stream) {
-  return launch_abft<float>(x, y, inj, d, det, thr_factor, mp, np, kp, bm, bn,
-                            bk, static_cast<cudaStream_t>(stream));
-}
-
-// fk_matmul_abft for bf16 (half = 0) or fp16 (half = 1) X and Y, 16-byte
-// aligned; D stays f32
-int fk_matmul_abft_lp(const void* x, const void* y, const int* inj, float* d,
-                      int* det, float thr_factor, int mp, int np, int kp,
-                      int bm, int bn, int bk, int half, void* stream) {
-  return by_half(half, [&](auto tag) {
-    using T = typename decltype(tag)::type;
-    return launch_abft<T>(static_cast<const T*>(x), static_cast<const T*>(y),
-                          inj, d, det, thr_factor, mp, np, kp, bm, bn, bk,
-                          static_cast<cudaStream_t>(stream));
-  });
+  return launch_abft(x, y, inj, d, det, thr_factor, mp, np, kp, bm, bn, bk,
+                     static_cast<cudaStream_t>(stream));
 }
 
 // x (m, f) f32, assign (m,) int32; part (2, slabs, k, f) f32 and cnt

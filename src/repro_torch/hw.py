@@ -45,12 +45,15 @@ ALIGN_F: int = 32
 INIT_BLOCK_N: int = 512
 
 # Default verification tile of the ABFT GEMM (ops.abft_matmul, kernel
-# matmul_abft): one thread block per ABFT_BLOCK_M x ABFT_BLOCK_N output
-# tile, its k loop inside the block in 32-deep chunks; ABFT_BLOCK_K is the
-# k-step an injection descriptor counts. The clamp keeps the reference's
-# alignments (rows 8, columns 128, k 128), so the reference's tiles, passed
-# explicitly, stay the same tiles. The kernel takes rows a multiple of 8 up
-# to 128 or a multiple of 128, columns a multiple of 128, k a multiple of
+# matmul_abft): each ABFT_BLOCK_M x ABFT_BLOCK_N output tile is verified on
+# its own; ABFT_BLOCK_K is the k-step an injection descriptor counts. At
+# f32 one thread block owns a tile and walks it in 128 x 128 sub-tiles over
+# 32-deep chunks; at bf16 / fp16 a consumer warpgroup owns it (128 x 128
+# sub-tiles, 64-deep k-stages; a fault lands at the end of the stage that
+# ends its k-step). The clamp keeps the reference's alignments (rows 8,
+# columns 128, k 128), so the reference's tiles, passed explicitly, stay the
+# same tiles. The kernels take rows a multiple of 8 up to 128 or a multiple
+# of 128 up to 1024, columns a multiple of 128 up to 1024, k a multiple of
 # 32.
 ABFT_BLOCK_M: int = 128
 ABFT_BLOCK_N: int = 128

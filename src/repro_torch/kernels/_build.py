@@ -13,18 +13,23 @@ behind ``distance_argmin``, ``lloyd_step`` (one problem, or B stacked
 problems over a (row tile, problem) grid: ``fk_lloyd_step_batched``),
 ``distance_argmin_ft`` and ``lloyd_step_ft``, the update epilogue launched
 alone (``fk_update_tiles``), the pruned one-pass step
-(``fk_lloyd_step_pruned``) and the ABFT GEMM (``fk_matmul_abft``), each
-also for bf16 or fp16 inputs on the tensor cores (the ``*_lp`` entry
-points of :data:`LOWP_ENTRIES`, one more int argument before the stream:
-:data:`HALF_KINDS`), the k-means++ D^2 round (``fk_kmeanspp_round``), the
+(``fk_lloyd_step_pruned``), each also for bf16 or fp16 inputs on the
+tensor cores (the ``*_lp`` entry points of :data:`LOWP_ENTRIES`, one more
+int argument before the stream: :data:`HALF_KINDS`), the f32 ABFT GEMM
+(``fk_matmul_abft``), the k-means++ D^2 round (``fk_kmeanspp_round``), the
 int8 distance kernel (``fk_distance_argmin_int8``) and the DMR centroid
 update (``fk_centroid_update_dmr``, three launches: partials, slab
-reduction, verdict). ``fk_attention.cu`` holds the LM stack's flash
-attention (``fk_flash_attention``, f32, bf16 or fp16: the prefill, decode
-and f32 kernels, and ``fk_flash_workspace``, the decode kernel's workspace
-sizes). ``fk_kernels.cu`` includes ``csrc/fk_mma.cuh`` (the tensor-core
-``mma.sync`` helpers), ``fk_attention.cu`` ``csrc/fk_wgmma.cuh`` (the
-``wgmma`` wrappers of its prefill kernel). A library's
+reduction, verdict). ``fk_attention.cu`` holds
+the LM stack's flash attention (``fk_flash_attention``, f32, bf16 or fp16:
+the prefill, decode and f32 kernels, and ``fk_flash_workspace``, the decode
+kernel's workspace sizes). ``fk_abft_gemm.cu`` holds the 2-byte ABFT GEMM:
+its encodings pre-pass (``fk_abft_encode``) and the ``wgmma`` GEMM
+(``fk_abft_gemm``). ``fk_kernels.cu`` includes ``csrc/fk_mma.cuh`` (the
+tensor-core ``mma.sync`` helpers); ``fk_attention.cu`` and
+``fk_abft_gemm.cu`` include ``csrc/fk_tma.cuh`` (mbarriers, TMA loads,
+tensor maps) and ``csrc/fk_wgmma.cuh`` (the ``wgmma`` wrappers);
+``fk_kernels.cu`` and ``fk_abft_gemm.cu`` include ``csrc/fk_abft.cuh``
+(the ABFT decode, ``locate_tile``). A library's
 file name carries a hash of its source and the headers of ``csrc/``, so an
 edited source or header rebuilds and an unchanged one is reused.
 Every C entry point returns ``cudaGetLastError()`` after its launch;
@@ -79,8 +84,7 @@ SIGNATURES: dict[str, tuple] = {
 # (HALF_KINDS), then the stream
 LOWP_ENTRIES = ("fk_distance_argmin", "fk_lloyd_step",
                 "fk_lloyd_step_batched", "fk_distance_argmin_ft",
-                "fk_lloyd_step_ft", "fk_update_tiles", "fk_lloyd_step_pruned",
-                "fk_matmul_abft")
+                "fk_lloyd_step_ft", "fk_update_tiles", "fk_lloyd_step_pruned")
 SIGNATURES.update({f"{name}_lp": SIGNATURES[name][:-1] + (_I, _P)
                    for name in LOWP_ENTRIES})
 # dtype code of the *_lp entry points, by torch dtype name
@@ -96,9 +100,19 @@ ATTENTION_SIGNATURES: dict[str, tuple] = {
                            _I, _I, _I, _I, _P, _P, _P),
     "fk_flash_workspace": (_I, _I, _I, _I, _I, _I, _I, _P),
 }
+# fk_abft_encode: x, y, ex, ey, esy; mp, np, kp, bm, bn, dtype code
+# (HALF_KINDS); stream. fk_abft_gemm: x, y, inj, ex, esy, d, det, the
+# workspace and its floats; the threshold factor; mp, np, kp, bm, bn, bk,
+# dtype code; stream.
+ABFT_GEMM_SIGNATURES: dict[str, tuple] = {
+    "fk_abft_encode": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    "fk_abft_gemm": (_P, _P, _P, _P, _P, _P, _P, _P, _L, _F, _I, _I, _I, _I,
+                     _I, _I, _I, _P),
+}
 SOURCES: dict[str, dict[str, tuple]] = {
     "fk_kernels": SIGNATURES,
     "fk_attention": ATTENTION_SIGNATURES,
+    "fk_abft_gemm": ABFT_GEMM_SIGNATURES,
 }
 
 

@@ -19,39 +19,64 @@ residual is degenerate) and one element corrected. An 8-word descriptor
 k-step of ``block_k``, row, col, delta) plants one fault after a k-step;
 the kernel returns the detections per (m-tile, n-tile).
 
-CUDA kernels: ``matmul_abft_kernel`` (f32) and
-``matmul_abft_mma_kernel<T>`` (bf16, fp16) in ``csrc/fk_kernels.cu``,
-``__global__``s of their own. The TPU grid carries the accumulator across
-a sequential k axis in VMEM; here one thread block owns one output tile
-and runs the k loop inside. It walks the tile in 128 x 128 sub-tiles (a
-tile of at most 128 rows is one sub-tile, its missing rows masked), each
-over 32-deep chunks staged in shared memory: at f32 a CUDA-core SGEMM with
-an 8 x 8 register tile per thread, like the port's distance kernel; at
-2-byte inputs an ``mma.sync`` m16n8k16 product with f32 accumulation (each
-warp 64 x 32 of the sub-tile; X chunks staged row-major, Y chunks
-transposed), whose expected checksums are encoded in f32 from the same
-2-byte values, widened exactly. A finished sub-tile goes through shared
-memory, where fixed-order column and row sums build the observed
-checksums, and on to D; warp 0 then verifies the whole tile and corrects D
-in place. Every sum has a fixed order, so a launch repeats bit for bit.
-Detections are written per tile (no atomics) and summed per m-tile by the
-wrapper.
+CUDA kernels. At f32 ``matmul_abft_kernel`` in ``csrc/fk_kernels.cu``:
+the TPU grid carries the accumulator across a sequential k axis in VMEM;
+here one thread block owns one output tile and runs the k loop inside,
+walking the tile in 128 x 128 sub-tiles over 32-deep chunks staged in
+shared memory, a CUDA-core SGEMM with an 8 x 8 register tile per thread
+whose finished sub-tile goes through shared memory (observed checksums)
+to D; warp 0 then verifies the tile and corrects D in place.
+
+At bf16 / fp16, two kernels in ``csrc/fk_abft_gemm.cu``:
+``abft_encode_kernel<T>`` (:func:`abft_encodings`, plain version
+:func:`abft_encodings_plain`) computes the encodings once per call, E_X =
+(e1^T X_t, e2^T X_t) per m-tile and E_Y = (Y_t e1, Y_t e2) per n-tile, in
+f32 from the 2-byte values widened exactly; ``abft_gemm_kernel<T>`` is
+persistent (a block an SM walking jobs of two m-tiles, one a consumer
+warpgroup, by one n-tile, in 128 x 128 sub-tiles): a producer warpgroup
+TMA-loads 64-deep k-stages of X (K-major) and Y (MN-major, read as it
+lies) into an ``mbarrier`` ring, the consumers run the product on
+``wgmma`` with f32 accumulators in registers, the row checksums X E_Y on
+the tensor cores too (E_Y split into three 2-byte parts a value,
+:func:`split_encodings`, an 8-column operand beside Y) and, under each
+stage's asynchronous MMA, the column checksums E_X Y_stage on the CUDA
+cores. The observed checksums are reduced from the accumulator
+registers, a tile is decoded only when its residual is over its threshold,
+and the located element is corrected in registers before D goes out by
+TMA stores (a tile of several sub-tiles, bm > 128 or bn > 128, keeps its
+checksum state in a workspace and patches the one element after its
+sub-tiles are stored). Rows past a tile under 128 rows are masked out of
+every sum and never stored. The fault lands after the 64-deep stage that
+ends its k-step.
+
+Every sum has a fixed order, so a launch repeats bit for bit. Detections
+are written per tile (no atomics) and summed per m-tile by the wrapper.
 
 Bound on the H100: at f32, 2 * M * N * K FLOPs on the CUDA cores
 (67 TFLOP/s); at bf16 / fp16 the same FLOPs on the tensor cores (989
-TFLOP/s) or, for a short K, the bytes of the f32 D. The checksums add
-O((bm + bn) * K) work per tile, a shared-memory pass over each sub-tile
-and no extra pass over D in device memory. f32 tensor cores (``wgmma``
-with an f32-exact split), ``cp.async``/TMA staging and ``wgmma`` for the
-2-byte product are later work.
+TFLOP/s) or, for a short K, the bytes of the f32 D (3.35 TB/s). The
+checksums add, per tile, 2 bn K FMAs on the CUDA cores (overlapped with
+the product) and 8 bm K MACs on the tensor cores, and one read of X and Y
+for the encodings. The f32 kernel on the tensor cores (``wgmma`` with an
+f32-exact split) is later work.
 """
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels import _build, ref
 from repro_torch.kernels.distance_argmin_ft import (  # noqa: F401 (re-export)
     INJ_LEN, abft_correct_plain, make_injection, no_injection)
+
+
+# k of the 2-byte kernel's ring stages: its encodings run to Kp rounded up
+# to this, zero past Kp
+ENC_K_ALIGN: int = 64
+
+
+def _enc_k(kp: int) -> int:
+    return -(-kp // ENC_K_ALIGN) * ENC_K_ALIGN
 
 
 def check_tiles(x: torch.Tensor, y: torch.Tensor, block_m: int,
@@ -76,6 +101,95 @@ def check_cuda_tiles(block_m: int, block_n: int, block_k: int) -> None:
             f"columns a multiple of 128 up to 1024, k a multiple of 32")
 
 
+def encoding_scales(block_n: int) -> tuple[int, int]:
+    """The powers of two (e1, e2) the split E_Y is scaled down by:
+    ceil(log2 bn) and ceil(log2 (bn (bn + 1) / 2)), the most |e1| and |e2|
+    can exceed max |y| by, so fp16 parts never overflow."""
+    return ((block_n - 1).bit_length(),
+            (block_n * (block_n + 1) // 2 - 1).bit_length())
+
+
+def split_encodings(ey: torch.Tensor, block_n: int,
+                    dtype: torch.dtype) -> torch.Tensor:
+    """The split E_Y the GEMM's row checksums take on the tensor cores:
+    for E_Y (Np/bn, Kpe, 2), a (Np/bn, 8, Kpe) tensor of ``dtype`` whose
+    rows 0-2 are e1 2^-s1 as hi + mid + lo (each rounded to nearest from
+    what the earlier parts leave), rows 3-5 e2 2^-s2 the same, rows 6-7
+    zero (:func:`encoding_scales`)."""
+    s1, s2 = encoding_scales(block_n)
+    scaled = torch.stack((ey[..., 0] * 2.0 ** -s1,
+                          ey[..., 1] * 2.0 ** -s2), 1)         # exact
+    parts = []
+    rest = scaled
+    for _ in range(3):
+        part = rest.to(dtype)
+        parts.append(part)
+        rest = rest - part.float()
+    split = torch.stack(parts, 2).flatten(1, 2)            # (nt, 6, Kpe)
+    return F.pad(split, (0, 0, 0, 2)).contiguous()
+
+
+def abft_encodings_plain(x: torch.Tensor, y: torch.Tensor, block_m: int,
+                         block_n: int
+                         ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of the 2-byte kernel's encodings of x (Mp, Kp)
+    and y (Kp, Np), in f32 from the widened values: E_X (Mp/bm, Kpe, 2),
+    E_X[mt, k] = (sum_r X[mt bm + r, k], sum_r (r + 1) X[mt bm + r, k]),
+    and E_Y (Np/bn, Kpe, 2), E_Y[nt, k] = (sum_c Y[k, nt bn + c], sum_c
+    (c + 1) Y[k, nt bn + c]), r and c within the tile; Kpe = Kp rounded up
+    to :data:`ENC_K_ALIGN`, zeros past Kp; and E_Y split
+    (:func:`split_encodings`) in x's dtype."""
+    ref.full_f32(x.device)
+    mp, kp = x.shape
+    np_ = y.shape[1]
+    dev = x.device
+    xv = x.float().view(mp // block_m, block_m, kp)
+    yv = y.float().view(kp, np_ // block_n, block_n)
+    w_m = torch.arange(1, block_m + 1, dtype=torch.float32, device=dev)
+    w_n = torch.arange(1, block_n + 1, dtype=torch.float32, device=dev)
+    ex = torch.stack((xv.sum(1), (w_m[None, :, None] * xv).sum(1)), -1)
+    ey = torch.stack((yv.sum(2), (yv * w_n).sum(2)), -1).permute(1, 0, 2)
+    pad = (0, 0, 0, _enc_k(kp) - kp)
+    ey = F.pad(ey, pad).contiguous()
+    return (F.pad(ex, pad).contiguous(), ey,
+            split_encodings(ey, block_n, x.dtype))
+
+
+def abft_encodings(x: torch.Tensor, y: torch.Tensor, *, block_m: int,
+                   block_n: int
+                   ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The 2-byte ABFT GEMM's encodings pre-pass (``abft_encode_kernel``)
+    on pre-padded bf16 or fp16 x, y; its plain version on the CPU. Returns
+    (E_X, E_Y, split E_Y) as :func:`abft_encodings_plain`."""
+    check_tiles(x, y, block_m, block_n, 32)
+    dt = _build.input_dtype(x, y)
+    if _build.on_cpu(x, y):
+        return abft_encodings_plain(x, y, block_m, block_n)
+    code = _build.HALF_KINDS.get(str(dt).replace("torch.", ""))
+    if code is None:
+        raise ValueError(f"the encodings pre-pass takes bf16 or fp16, got "
+                         f"{dt}")
+    check_cuda_tiles(block_m, block_n, 32)
+    mp, kp = x.shape
+    np_ = y.shape[1]
+    kpe = _enc_k(kp)
+    ex = torch.empty((mp // block_m, kpe, 2), dtype=torch.float32,
+                     device=x.device)
+    ey = torch.empty((np_ // block_n, kpe, 2), dtype=torch.float32,
+                     device=x.device)
+    esy = torch.empty((np_ // block_n, 8, kpe), dtype=dt, device=x.device)
+    err = _build.library("fk_abft_gemm").lib.fk_abft_encode(
+        _build.ptr(x, dt, "x"), _build.ptr(y, dt, "y"), ex.data_ptr(),
+        ey.data_ptr(), esy.data_ptr(), mp, np_, kp, block_m, block_n, code,
+        _build.stream_of(x))
+    _build.check(err, "abft_encodings", "fk_abft_gemm")
+    abft_encodings.launches += 1
+    return ex, ey, esy
+
+
+abft_encodings.launches = 0
+
+
 def matmul_abft_plain(x: torch.Tensor, y: torch.Tensor, inj: torch.Tensor,
                       block_m: int, block_n: int, block_k: int,
                       factor: float) -> tuple[torch.Tensor, torch.Tensor]:
@@ -89,6 +203,17 @@ def matmul_abft_plain(x: torch.Tensor, y: torch.Tensor, inj: torch.Tensor,
     xf, yf = x.float(), y.float()
     return abft_correct_plain(xf @ yf, xf, yf.T.contiguous(), inj, block_m,
                               block_n, block_k, factor)
+
+
+def _gemm_workspace(dev: torch.device, block_m: int,
+                    block_n: int) -> torch.Tensor:
+    """The 2-byte kernel's scratch for the checksum state of tiles larger
+    than its 128 x 128 sub-tile: 2 x 6 x 1024 floats a block, a block an
+    SM; empty for smaller tiles (their state stays in shared memory)."""
+    if block_m <= 128 and block_n <= 128:
+        return torch.empty(0, dtype=torch.float32, device=dev)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    return torch.empty(sms * 2 * 6 * 1024, dtype=torch.float32, device=dev)
 
 
 def matmul_abft(x: torch.Tensor, y: torch.Tensor, inj: torch.Tensor, *,
@@ -112,11 +237,23 @@ def matmul_abft(x: torch.Tensor, y: torch.Tensor, inj: torch.Tensor, *,
     d = torch.empty((mp, np_), dtype=torch.float32, device=dev)
     det = torch.empty((mp // block_m, np_ // block_n), dtype=torch.int32,
                       device=dev)
-    code = _build.launch(
-        "fk_matmul_abft", dt, _build.ptr(x, dt, "x"), _build.ptr(y, dt, "y"),
-        _build.ptr(inj, torch.int32, "inj"), d.data_ptr(), det.data_ptr(),
-        factor, mp, np_, kp, block_m, block_n, block_k, _build.stream_of(x))
-    _build.check(code, "matmul_abft")
+    inj_p = _build.ptr(inj, torch.int32, "inj")
+    half = _build.HALF_KINDS.get(str(dt).replace("torch.", ""))
+    if half is None:
+        err = _build.library().lib.fk_matmul_abft(
+            _build.ptr(x, dt, "x"), _build.ptr(y, dt, "y"), inj_p,
+            d.data_ptr(), det.data_ptr(), factor, mp, np_, kp, block_m,
+            block_n, block_k, _build.stream_of(x))
+        _build.check(err, "matmul_abft")
+    else:
+        ex, _, esy = abft_encodings(x, y, block_m=block_m, block_n=block_n)
+        ws = _gemm_workspace(dev, block_m, block_n)
+        err = _build.library("fk_abft_gemm").lib.fk_abft_gemm(
+            _build.ptr(x, dt, "x"), _build.ptr(y, dt, "y"), inj_p,
+            ex.data_ptr(), esy.data_ptr(), d.data_ptr(), det.data_ptr(),
+            ws.data_ptr(), ws.numel(), factor, mp, np_, kp, block_m,
+            block_n, block_k, half, _build.stream_of(x))
+        _build.check(err, "matmul_abft", "fk_abft_gemm")
     matmul_abft.launches += 1
     return d, det.sum(1, dtype=torch.int32)
 
