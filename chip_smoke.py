@@ -21,18 +21,29 @@ Phases, one line each:
 
   1. device: the card, its power limit, the kernels' build time;
   2. kernels vs their plain PyTorch versions (TF32 off) at M = 65,573,
-     F = 100, K = 1000 and 100, plus planted FT faults;
+     F = 100, K = 1000 and 100, plus planted FT faults; the compact update
+     (``update.compact_update``) and the tree kernel (``update.tree_sum``)
+     bit for bit the parent's dense route (``tile_update``'s partials,
+     then the torch tree) at 513 row tiles, at the kernel's labels and at
+     labels in random order, sorted, skewed and all in one cluster, each
+     with a control (two leaves of a cluster swapped) that must break the
+     bits, and at row tiles of 64 and 320 padded features;
   3. unprotected fit (``fused``) + predict + score, and the one-pass
      ``lloyd`` fit from the same centroids;
   4. protected fit, clean and under an SEU campaign;
   5. per-kernel launches on the main path (phases 3-4), time per launch at
      the phase-3 shape, the plain version's time, the bound and a library
      yardstick (``torch.addmm`` + ``min``; ``index_add_`` for the update),
-     and the two-pass update with and without DMR;
+     the compact update's per-tile pass and tree timed apart and together
+     beside ``index_add_`` and their bounds, the tree kernel on
+     ``lloyd_step``'s partials beside the torch tree and ``sum(0)``, and
+     ``ops.tiled_update`` with and without DMR (ms, peak GB);
   6. the batched one-pass step and the k-means++ round against their plain
      versions at the PQ shape, at B = 7, N = 10,007, F = 20, K = 200 (two
-     centroid tiles, ragged rows and features) and K = 100 (one tile), and
-     batched problems against ``lloyd_step`` on each problem alone;
+     centroid tiles, ragged rows and features) and K = 100 (one tile),
+     batched problems against ``lloyd_step`` on each problem alone, and the
+     tree kernel over the batched partials at the problem stride bit for
+     bit the ``movedim`` route (timed beside it at the PQ shape);
   7. ``BatchedKMeans`` at the PQ shape: fused k-means++ seeding, 25 steps at
      tol = 0 held bit for bit to 48 single-problem ``lloyd`` fits from the
      same seeds, predict and score, a tol = 1e-4 fit, a ``torch.profiler``
@@ -87,15 +98,19 @@ Phases, one line each:
      variants (``mma.sync``) of ``distance_argmin``, ``lloyd_step``,
      ``distance_argmin_ft``, ``lloyd_step_ft`` and ``tile_update``: each
      against its plain version at phase 2's shapes with phase 2's planted
-     faults (labels equal but for near ties); full-size fits from phase 3's
+     faults (labels equal but for near ties), and phase 2's compact-update
+     and tree checks on 2-byte X (plus rows scaled over 23 binades, whose
+     sums hang on the order); full-size fits from phase 3's
      seeds (``fused`` = ``lloyd`` = clean ``lloyd_ft`` = campaign bit for
      bit, predict = the labels of one more step from the final centroids,
      exact inertia and labels against the f32 fit); each variant's row at
-     the phase-3 shape; and the clean residual
+     the phase-3 shape, the compact update's among them; and the clean
+     residual
      margins of the two FT kernels at f32, bf16 and fp16 with the
      campaign's smallest delta against the thresholds.
  14. the rest of the 2-byte variants, at bf16 and fp16: (a) the batched
-     step (B = 7, N = 10,007, F = 20, K = 200 and 100), the pruned step (a
+     step (B = 7, N = 10,007, F = 20, K = 200 and 100; its partials' tree
+     bit for bit the ``movedim`` route), the pruned step (a
      random mask on integer data; the all-zero mask bit for bit the 2-byte
      ``lloyd_step``) and the 2-byte ABFT GEMM (clean, a fault over the
      dtype's threshold, one under it, two launches bitwise equal, its
@@ -293,9 +308,124 @@ def rel_ok(a, b, rtol: float) -> tuple[bool, float]:
     return err <= rtol * max(float(b.abs().max()), 1.0), err
 
 
+UPDATE_LABELS = ("random", "sorted", "skewed", "one")
+
+
+def update_labels(torch, kind: str, m: int, mp: int, k: int, seed: int):
+    """The label cases of ``tests/test_torch_update_tree.py`` on the card,
+    (mp,) int32 (0 past ``m``): random order, sorted, skewed (one cluster
+    holds half the rows, 90 % of the clusters empty), all in one cluster."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    if kind == "random":
+        lab = rng.integers(0, k, m)
+    elif kind == "sorted":
+        lab = np.sort(rng.integers(0, k, m))
+    elif kind == "skewed":
+        few = rng.choice(k, size=max(k // 10, 2), replace=False)
+        lab = rng.choice(few[1:], size=m)
+        lab[rng.random(m) < 0.5] = few[0]
+    else:
+        lab = np.full(m, k - 1)
+    out = torch.zeros(mp, dtype=torch.int32)
+    out[:m] = torch.from_numpy(lab.astype(np.int32))
+    return out.cuda()
+
+
+def check_update_route(torch, up, ll, xp, amp, kp: int, true_m: int,
+                       bm: int, what: str, order_matters: bool = True
+                       ) -> dict:
+    """The compact update (``update.compact_update``) and the tree kernel
+    (``update.tree_sum``) held bit for bit to the parent's route:
+    ``update_tiles_kernel``'s dense partials, then the torch tree; the
+    per-tile pass against its plain version (present entries, rtol 1e-5;
+    idx and counts equal). The control, where a cluster has three leaves
+    (two add one way only): the leftmost and rightmost leaves of the
+    busiest cluster swapped, in the entries' tree order (A) and in the
+    dense partials (B). Both kernels must then give the torch tree's bits
+    on the swapped leaves, and, where ``order_matters`` (f32 data, or
+    2-byte rows scaled over many binades: a 2-byte cluster's f32 sums are
+    often exact in any order), bits other than the unswapped result.
+    ``torch.equal`` holds finite data only (NaN is unequal to itself)."""
+    mp, fp = xp.shape
+    nt = mp // bm
+    sums_p = torch.empty((nt, kp, fp), device=xp.device)
+    counts_p = torch.empty((nt, kp), device=xp.device)
+    ll.tile_update(xp, amp, sums_p, counts_p, true_m=true_m, block_m=bm)
+    want = (up.tree_sum_plain(sums_p), up.tree_sum_plain(counts_p))
+    got = up.compact_update(xp, amp, kp, true_m=true_m, block_m=bm)
+    expect(all(bool(torch.equal(g, w)) for g, w in zip(got, want)),
+           f"{what}: the compact update is not bit for bit the dense route")
+    tree = (up.tree_sum(sums_p), up.tree_sum(counts_p))
+    expect(all(bool(torch.equal(g, w)) for g, w in zip(tree, want)),
+           f"{what}: the tree kernel is not bit for bit the torch tree")
+    entries, ecnt, idx = up.update_entries(xp, amp, kp, true_m=true_m,
+                                           block_m=bm)
+    valid = (torch.arange(mp, device=xp.device) < true_m).view(nt, bm)
+    p_ent, p_cnt, p_idx = up.update_entries_plain(
+        xp.view(nt, bm, fp), amp.view(nt, bm), valid, kp)
+    rows = idx[idx >= 0].long()
+    ok, err = rel_ok(entries[rows], p_ent[rows], 1e-5)
+    expect(ok and bool(torch.equal(idx, p_idx))
+           and bool(torch.equal(ecnt[rows], p_cnt[rows])),
+           f"{what}: update_entries disagrees with its plain version")
+    del p_ent, p_cnt, p_idx
+    per_k = (idx >= 0).sum(1)
+    busy = int(per_k.argmax())
+    broke = None
+    if int(per_k[busy]) >= 3:
+        slots = (idx[busy] >= 0).nonzero().squeeze(1)
+        first, last = int(slots[0]), int(slots[-1])
+        row_f, row_l = int(idx[busy, first]), int(idx[busy, last])
+        idx[busy, first], idx[busy, last] = row_l, row_f
+        swapped = torch.empty((kp, fp), device=xp.device)
+        up.tree_passes(entries, idx, swapped, rows=kp, ntiles=nt, width=fp)
+        t_f, t_l = row_f // bm, row_l // bm
+        sums_p[[t_f, t_l], busy] = sums_p[[t_l, t_f], busy]
+        ref_swapped = up.tree_sum_plain(sums_p)
+        expect(bool(torch.equal(swapped[busy], ref_swapped[busy]))
+               and bool(torch.equal(up.tree_sum(sums_p), ref_swapped)),
+               f"{what}: on cluster {busy}'s leaves swapped (tiles {t_f}, "
+               f"{t_l}) the kernels are not the torch tree's bits")
+        broke = not torch.equal(ref_swapped[busy], want[0][busy])
+        expect(broke or not order_matters,
+               f"{what}: cluster {busy}'s leaves swapped kept the bits")
+    return {"present_entries": int(per_k.sum()),
+            "busiest_cluster_tiles": int(per_k.max()),
+            "entries_err": err, "bitwise": True, "control_broke": broke}
+
+
+def check_tree_batched(torch, up, sums, counts, what: str,
+                       order_matters: bool = True) -> None:
+    """The tree kernel over a stack's partials (P, T, Kp, Fp) at the problem
+    stride, bit for bit the parent's ``movedim`` route. Control: problem
+    0's first and last tiles swapped, where the kernel must give the torch
+    tree's bits on the swapped tiles and, where ``order_matters``, other
+    bits than before."""
+    want = (up.tree_sum_plain(sums.movedim(1, 0)),
+            up.tree_sum_plain(counts.movedim(1, 0)))
+    got = (up.tree_sum(sums, 1), up.tree_sum(counts, 1))
+    expect(all(bool(torch.equal(g, w)) for g, w in zip(got, want)),
+           f"{what}: the strided tree is not bit for bit the movedim route")
+    nt = sums.shape[1]
+    if nt > 2:
+        swapped = sums.clone()
+        swapped[0, [0, nt - 1]] = swapped[0, [nt - 1, 0]]
+        ref_swapped = up.tree_sum_plain(swapped[0])
+        expect(bool(torch.equal(up.tree_sum(swapped, 1)[0], ref_swapped)),
+               f"{what}: on two tiles swapped the strided tree is not the "
+               f"torch tree's bits")
+        expect(not order_matters or not torch.equal(ref_swapped, want[0][0]),
+               f"{what}: two tiles swapped kept the bits")
+
+
 def phase_kernels(torch, ops, kern) -> dict:
-    """Phase 2: each kernel against its plain version on the card."""
+    """Phase 2: each kernel against its plain version on the card; the
+    compact update and the tree kernel bit for bit the parent's dense route
+    at the kernel's labels and the label cases of the CPU tests (T = 513
+    row tiles: the tree's carry)."""
     from repro_torch.data.blobs import make_blobs
+    from repro_torch.kernels import update as up
     da, ll, daft, llft = kern
     out = {"phase": 2, "shapes": []}
     for k in (1000, 100):
@@ -331,6 +461,20 @@ def phase_kernels(torch, ops, kern) -> dict:
         expect(bool(torch.equal(t_s, r[2])) and bool(torch.equal(t_c, r[3])),
                f"tile_update is not bit for bit lloyd_step's update K={k}")
         del t_s, t_c
+        mp = plan.xp.shape[0]
+        rec["update_routes"] = {"kernel_labels": check_update_route(
+            torch, up, ll, plan.xp, am, kp, plan.m, params.block_m,
+            f"labels of distance_argmin K={k}")}
+        for i, kind in enumerate(UPDATE_LABELS):
+            rec["update_routes"][kind] = check_update_route(
+                torch, up, ll, plan.xp,
+                update_labels(torch, kind, plan.m, mp, k, SEED + i), kp,
+                plan.m, params.block_m, f"{kind} labels K={k}")
+        expect(bool(torch.equal(up.tree_sum(r[2]), up.tree_sum_plain(r[2])))
+               and bool(torch.equal(up.tree_sum(r[3]),
+                                    up.tree_sum_plain(r[3]))),
+               f"the tree kernel on lloyd_step's partials is not bit for "
+               f"bit the torch tree K={k}")
 
         no_d = daft.no_injection().cuda()
         f_md, f_am, f_det = daft.distance_argmin_ft(
@@ -385,7 +529,98 @@ def phase_kernels(torch, ops, kern) -> dict:
         out["shapes"].append(rec)
         del plan, r, r_p, q, q_p
         torch.cuda.empty_cache()
+    # the update at the other row tile (64 rows: 1025 tiles, a carry) and
+    # at features past one warp's 128 (F 300 -> Fp 320)
+    out["update_routes_tiles"] = {}
+    for bm, f in ((64, F_SMALL), (128, 300)):
+        x_np, _ = make_blobs(M_SMALL, f, 100, seed=SEED + f)
+        params = ops.clamp_params(M_SMALL, 100, f,
+                                  ops.KernelParams(bm, 128, 32))
+        plan = ops.plan_data(torch.from_numpy(x_np).cuda(), params)
+        out["update_routes_tiles"][f"bm{bm}_f{f}"] = check_update_route(
+            torch, up, ll, plan.xp,
+            update_labels(torch, "random", plan.m, plan.xp.shape[0], 100,
+                          SEED), 128, plan.m, bm, f"row tile {bm}, F {f}")
+        del plan
+        torch.cuda.empty_cache()
     return out
+
+
+def compact_update_rows(torch, up, plan, am, kp: int, bm: int, sums_p,
+                        counts_p, x_bytes: float, bound, launches: dict,
+                        tag: str) -> tuple[dict, list]:
+    """Phases 5 and 13: the compact update at the phase-3 shape. ``sums_p``
+    and ``counts_p`` are the parent route's dense partials of the labels
+    ``am`` (``tile_update`` over every tile): the per-tile pass then the
+    tree over its entries, and ``update.compact_update``, are held bit for
+    bit to the torch tree over them and timed apart and together beside
+    ``index_add_`` and their byte bounds (at the true M, K, F: X and the
+    labels read once, the present entries written once and read once); the
+    per-tile pass against its plain version, and its row."""
+    mp, fp = plan.xp.shape
+    nt = mp // bm
+    dev = plan.xp.device
+    what = tag or "float32"
+    want = (up.tree_sum_plain(sums_p), up.tree_sum_plain(counts_p))
+
+    def entries():
+        return up.update_entries(plan.xp, am, kp, true_m=plan.m, block_m=bm)
+    ent, ecnt, idx = entries()
+    out = (torch.empty((kp, fp), device=dev), torch.empty(kp, device=dev))
+
+    def reduce():
+        up.tree_passes(ent, idx, out[0], rows=kp, ntiles=nt, width=fp)
+        up.tree_passes(ecnt, idx, out[1], rows=kp, ntiles=nt, width=1)
+        return out
+
+    def compact():
+        return up.compact_update(plan.xp, am, kp, true_m=plan.m, block_m=bm)
+    for route, got in (("the per-tile pass + tree", reduce()),
+                       ("compact_update", compact())):
+        expect(all(bool(torch.equal(g, w)) for g, w in zip(got, want)),
+               f"{what} {route} is not bit for bit the dense route at the "
+               f"phase-3 shape")
+    del want
+    valid = (torch.arange(mp, device=dev) < plan.m).view(nt, bm)
+
+    def entries_plain():
+        return up.update_entries_plain(plan.xp.view(nt, bm, fp),
+                                       am.view(nt, bm), valid, kp)
+    p_ent, p_cnt, p_idx = entries_plain()
+    present = idx[idx >= 0].long()
+    ok, err = rel_ok(ent[present], p_ent[present], 1e-5)
+    expect(ok and bool(torch.equal(idx, p_idx))
+           and bool(torch.equal(ecnt[present], p_cnt[present])),
+           f"{what} update_entries disagrees with its plain version")
+    n_present = present.numel()
+    del p_ent, p_cnt, p_idx, present
+    torch.cuda.empty_cache()
+    ent_bytes = n_present * (4.0 * F_FULL + 8.0)
+    out_bytes = 4.0 * (K_FULL * F_FULL + K_FULL)
+    b_ent = bound(M_FULL * F_FULL, x_bytes + 4.0 * M_FULL + ent_bytes)
+    b_all = bound(M_FULL * F_FULL,
+                  x_bytes + 4.0 * M_FULL + 2.0 * ent_bytes + out_bytes)
+    am_long = am.long()
+    rec = {"present_entries": n_present,
+           "update_entries_ms": cuda_ms(entries),
+           "update_tree_ms": cuda_ms(reduce),
+           "update_tree_bound_ms": bound(n_present * F_FULL,
+                                         ent_bytes + out_bytes)[0],
+           "compact_update_ms": cuda_ms(compact),
+           "compact_update_bound_ms": b_all[0],
+           "index_add_ms": cuda_ms(lambda: torch.zeros(
+               kp, fp, dtype=plan.xp.dtype, device=dev).index_add_(
+                   0, am_long, plan.xp))}
+    rec["compact_over_index_add"] = (rec["compact_update_ms"]
+                                     / rec["index_add_ms"])
+    row = {"name": "update_entries" + (f"_{tag}" if tag else ""),
+           "route": "cuda", "source": "src/repro_torch/csrc/fk_update.cu",
+           "replaces": "src/repro/kernels/lloyd_step.py:162",
+           "launches": launches["update_entries"], "max_abs_err": err,
+           "ms": rec["update_entries_ms"],
+           "plain_ms": cuda_ms(entries_plain, reps=2),
+           "bound_ms": b_ent[0], "bound_by": b_ent[1], "library_ms": None}
+    return rec, [row]
 
 
 def pq_stack(torch, b: int, n: int, f: int, k: int):
@@ -416,7 +651,10 @@ def round_inputs(torch, kpp, hw, x):
 
 def phase_batched_kernels(torch, ops, hw, ll, kpp) -> dict:
     """Phase 6: the batched step and the seeding round against their plain
-    versions on the card, and batched problems against lloyd_step alone."""
+    versions on the card, batched problems against lloyd_step alone, and
+    the tree kernel over the batched partials at the problem stride bit for
+    bit the parent's movedim route (timed beside it at the PQ shape)."""
+    from repro_torch.kernels import update as up
     out = {"phase": 6, "shapes": []}
     for b, n, f, k in ((B_PQ, N_PQ, F_PQ, K_PQ), (7, 10_007, 20, 200),
                        (7, 10_007, 20, 100)):
@@ -445,6 +683,19 @@ def phase_batched_kernels(torch, ops, hw, ll, kpp) -> dict:
             one = ll.lloyd_step(plan.xp[i], cp[i], cn[i], n, **tiles)
             expect(all(bool(torch.equal(g[i], o)) for g, o in zip(got, one)),
                    f"batched problem {i} is not bit for bit lloyd_step {rec}")
+        check_tree_batched(torch, up, got[2], got[3],
+                           f"batched partials {rec}")
+        if b == B_PQ:
+            nt = got[2].shape[1]
+            rec["tree_batched"] = {
+                "ms": cuda_ms(lambda: (up.tree_sum(got[2], 1),
+                                       up.tree_sum(got[3], 1))),
+                "movedim_torch_tree_ms": cuda_ms(lambda: (
+                    up.tree_sum_plain(got[2].movedim(1, 0)),
+                    up.tree_sum_plain(got[3].movedim(1, 0))), reps=2),
+                "library_ms": cuda_ms(lambda: (got[2].sum(1),
+                                               got[3].sum(1))),
+                "bound_ms": 1e3 * 4.0 * b * nt * k * (f + 1) / hw.HBM_BW}
         del got, one
 
         xp, xn, c1, d2, bn = round_inputs(torch, kpp, hw, x)
@@ -518,8 +769,10 @@ def phase_batched_fit(torch, ops, hw, ll, kpp, bound, KMeans,
     import numpy as np
     x, _ = pq_stack(torch, B_PQ, N_PQ, F_PQ, K_PQ)
     base = dict(n_clusters=K_PQ, random_state=SEED)
+    from repro_torch.kernels import update as up
     wrappers = {"lloyd_step_batched": ll.lloyd_step_batched,
-                "kmeanspp_round": kpp.kmeanspp_round}
+                "kmeanspp_round": kpp.kmeanspp_round,
+                "tree_reduce": up.tree_reduce}
     for w in wrappers.values():
         w.launches = 0
     bkm = BatchedKMeans(init="kmeans++-fused", max_iter=PQ_ITERS, tol=0.0,
@@ -742,8 +995,11 @@ def phase_pruned_int8_fits(torch, ops, hw, llp, dai, KMeans, x, labels_true,
     import torch.nn.functional as F
     from repro_torch.core.kmeans import means_from_sums
     base = dict(n_clusters=K_FULL, max_iter=ITERS, tol=0.0, random_state=SEED)
+    from repro_torch.kernels import update as up
     wrappers = {"lloyd_step_pruned": llp.lloyd_step_pruned,
-                "distance_argmin_int8": dai.distance_argmin_int8}
+                "distance_argmin_int8": dai.distance_argmin_int8,
+                "update_entries": up.update_entries,
+                "tree_reduce": up.tree_reduce}
     for w in wrappers.values():
         w.launches = 0
     # (a) rows in random order: little to prune, the bookkeeping's cost
@@ -967,9 +1223,11 @@ def phase_detect(torch, ops, hw, ll, mma, cud, KMeans, FaultPolicy,
     from repro_torch.core import checksum
     from repro_torch.core.ft_gemm import ft_matmul
     base = dict(n_clusters=K_FULL, max_iter=ITERS, tol=0.0, random_state=SEED)
+    from repro_torch.kernels import update as up
     wrappers = {"matmul_abft": mma.matmul_abft,
                 "centroid_update_dmr": cud.centroid_update_dmr,
-                "tile_update": ll.tile_update}
+                "update_entries": up.update_entries,
+                "tree_reduce": up.tree_reduce}
     dev = x.device
     gen = torch.Generator(device=dev).manual_seed(SEED)
     # the LM shape: internlm2-1.8b's FFN up-projection, 4 x 2048 tokens
@@ -1669,6 +1927,7 @@ def phase_lowp_kernels(torch, ops, kern, dtype) -> dict:
     ``tile_update`` against their plain versions at phase 2's shapes, with
     phase 2's planted FT faults."""
     from repro_torch.data.blobs import make_blobs
+    from repro_torch.kernels import update as up
     da, ll, daft, llft = kern
     dt = getattr(torch, dtype)
     out = []
@@ -1709,6 +1968,33 @@ def phase_lowp_kernels(torch, ops, kern, dtype) -> dict:
                f"{dtype} tile_update is not bit for bit lloyd_step's update "
                f"K={k}")
         del t_s, t_c, s_p, c_p
+        rec["update_routes"] = {"kernel_labels": check_update_route(
+            torch, up, ll, plan.xp, am, kp, plan.m, bm,
+            f"{dtype} labels of distance_argmin K={k}",
+            order_matters=False)}
+        for i, kind in enumerate(UPDATE_LABELS):
+            rec["update_routes"][kind] = check_update_route(
+                torch, up, ll, plan.xp,
+                update_labels(torch, kind, plan.m, mp, k, SEED + i), kp,
+                plan.m, bm, f"{dtype} {kind} labels K={k}",
+                order_matters=False)
+        # rows scaled by 2^-14 .. 2^8 (finite in fp16): 2-byte sums whose
+        # bits hang on the order, so the control must break them
+        gen = torch.Generator(device=x.device).manual_seed(SEED + k)
+        scale = torch.exp2(torch.randint(-14, 9, (mp, 1), generator=gen,
+                                         device=x.device).float())
+        xw = (plan.xp.float() * scale).to(dt)
+        expect(bool(torch.isfinite(xw).all()), f"{dtype} scaled rows")
+        rec["update_routes"]["wide_rows"] = check_update_route(
+            torch, up, ll, xw,
+            update_labels(torch, "random", plan.m, mp, k, SEED), kp,
+            plan.m, bm, f"{dtype} rows scaled over 23 binades K={k}")
+        del xw, scale
+        expect(bool(torch.equal(up.tree_sum(r[2]), up.tree_sum_plain(r[2])))
+               and bool(torch.equal(up.tree_sum(r[3]),
+                                    up.tree_sum_plain(r[3]))),
+               f"{dtype} the tree kernel on lloyd_step's partials is not bit "
+               f"for bit the torch tree K={k}")
 
         no_d = daft.no_injection().cuda()
         f_md, f_am, f_det = daft.distance_argmin_ft(
@@ -1799,12 +2085,15 @@ def phase_lowp(torch, ops, hw, kern, KMeans, FaultPolicy, InjectionCampaign,
     phase-3 shape, (e) the clean residual margins of the FT kernels at f32,
     bf16 and fp16 and how far the campaign's smallest delta clears the
     thresholds."""
+    from repro_torch.kernels import update as up
     da, ll, daft, llft = kern
     wrappers = {"distance_argmin": da.distance_argmin,
                 "lloyd_step": ll.lloyd_step,
                 "distance_argmin_ft": daft.distance_argmin_ft,
                 "lloyd_step_ft": llft.lloyd_step_ft,
-                "tile_update": ll.tile_update}
+                "tile_update": ll.tile_update,
+                "update_entries": up.update_entries,
+                "tree_reduce": up.tree_reduce}
     replaces = {"distance_argmin": "src/repro/kernels/distance_argmin.py:140",
                 "lloyd_step": "src/repro/kernels/lloyd_step.py:345",
                 "distance_argmin_ft":
@@ -2003,6 +2292,10 @@ def phase_lowp(torch, ops, hw, kern, KMeans, FaultPolicy, InjectionCampaign,
             "library_ms": cuda_ms(lambda: torch.zeros(
                 kp, fp, dtype=dt, device=x.device).index_add_(0, am_long,
                                                               plan.xp))})
+        r["compact_update"], rows_c = compact_update_rows(
+            torch, up, plan, am, kp, bm, sums_p, counts_p, x_bytes, bound,
+            launches, tag)
+        rows.extend(rows_c)
         del sums_p, counts_p, am, am_long, valid
         torch.cuda.empty_cache()
         margins[dtype] = lowp_margins(torch, ops, daft, llft, plan, cp, cn,
@@ -2253,6 +2546,7 @@ def phase_lowp_rest_kernels(torch, ops, ll, llp, mma, dtype) -> dict:
     import numpy as np
     import torch.nn.functional as F
     from repro_torch.data.blobs import make_blobs
+    from repro_torch.kernels import update as up
     dt = getattr(torch, dtype)
     out = {"batched": [], "pruned": [], "abft_matmul": []}
     for b, n, f, k in ((7, 10_007, 20, 200), (7, 10_007, 20, 100)):
@@ -2288,7 +2582,11 @@ def phase_lowp_rest_kernels(torch, ops, ll, llp, mma, dtype) -> dict:
             expect(all(bool(torch.equal(g[i], o)) for g, o in zip(got, one)),
                    f"{dtype} batched problem {i} is not bit for bit "
                    f"lloyd_step K={k}")
-        rec.update(near_tie_labels=near, sums_err=s_err)
+        check_tree_batched(torch, up, got[2], got[3],
+                           f"{dtype} batched partials K={k}",
+                           order_matters=False)
+        rec.update(near_tie_labels=near, sums_err=s_err,
+                   tree_bitwise_movedim=True)
         out["batched"].append(rec)
         del x, c, plan, got, want, one
         torch.cuda.empty_cache()
@@ -2886,6 +3184,7 @@ def main() -> int:
     from repro_torch.kernels import centroid_update_dmr as cud
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import matmul_abft as mma
+    from repro_torch.kernels import update as up
     from repro_torch.models import attention as attn
 
     ref.full_f32(torch.device("cuda"))
@@ -2922,7 +3221,9 @@ def main() -> int:
                 "lloyd_step": ll.lloyd_step,
                 "distance_argmin_ft": daft.distance_argmin_ft,
                 "lloyd_step_ft": llft.lloyd_step_ft,
-                "tile_update": ll.tile_update}
+                "tile_update": ll.tile_update,
+                "update_entries": up.update_entries,
+                "tree_reduce": up.tree_reduce}
     for w in wrappers.values():
         w.launches = 0
     base = dict(n_clusters=K_FULL, max_iter=ITERS, tol=0.0, random_state=SEED)
@@ -3118,24 +3419,65 @@ def main() -> int:
         "bound_ms": upd_bound, "bound_by": upd_by,
         "library_ms": cuda_ms(lambda: torch.zeros(
             kp, fp, device="cuda").index_add_(0, am_long, plan.xp))})
+    # the compact update (A: the per-tile pass, then the tree over its
+    # entries) and the tree kernel on the dense partials (B), each bit for
+    # bit the parent's route: these partials, then the torch tree
+    rec_a, rows_a = compact_update_rows(torch, up, plan, am, kp, bm,
+                                        sums_p, counts_p, x_bytes, bound,
+                                        launches, "")
+    rec5 = {"phase": 5, **rec_a}
+    rows.extend(rows_a)
+    lloyd_tree = (up.tree_sum_plain(sums_p), up.tree_sum_plain(counts_p))
+
+    def tree():
+        return up.tree_sum(sums_p), up.tree_sum(counts_p)
+    expect(all(bool(torch.equal(a, b)) for a, b in zip(tree(), lloyd_tree)),
+           "the tree kernel on lloyd_step's partials is not bit for bit the "
+           "torch tree")
+    del lloyd_tree
+    tree_bound, tree_by = bound(nt * K_FULL * F_FULL, part_bytes
+                                + 4.0 * (K_FULL * F_FULL + K_FULL))
+    rows.append({
+        "name": "tree_reduce", "route": "cuda",
+        "source": "src/repro_torch/csrc/fk_update.cu",
+        "replaces": "src/repro/kernels/ops.py:510 (_tree_sum, XLA in the "
+                    "reference; the port's own kernel)",
+        "launches": launches["tree_reduce"], "max_abs_err": 0.0,
+        "ms": cuda_ms(tree),
+        "plain_ms": cuda_ms(lambda: (up.tree_sum_plain(sums_p),
+                                     up.tree_sum_plain(counts_p)), reps=2),
+        "bound_ms": tree_bound, "bound_by": tree_by,
+        "library_ms": cuda_ms(lambda: (sums_p.sum(0), counts_p.sum(0)))})
     del sums_p, counts_p
     torch.cuda.empty_cache()
-    # the two-pass update as the fused fit runs it (tile_update + tree
-    # sum), and under DMR (a replica, a compare, a recompute gated off)
+    # the two-pass update as the fused fit runs it, and under DMR (a
+    # replica, a compare, a recompute gated off); peak memory of each
     am_m = am[:plan.m]
-    torch.cuda.synchronize()
-    base_bytes = torch.cuda.memory_allocated()
-    torch.cuda.reset_peak_memory_stats()
-    ops.tiled_update(plan, am_m, K_FULL)
-    torch.cuda.synchronize()
-    peak_gb = (torch.cuda.max_memory_allocated() - base_bytes) / 1e9
-    emit({"phase": 5, "gemm_bound_padded_ms": padded_bounds,
-          "tiled_update_peak_gb": peak_gb,
-          "tiled_update_ms": cuda_ms(
-              lambda: ops.tiled_update(plan, am_m, K_FULL), reps=3),
-          "tiled_update_dmr_ms": cuda_ms(
-              lambda: ops.tiled_update(plan, am_m, K_FULL, use_dmr=True),
-              reps=3)})
+
+    def peak_gb(fn):
+        torch.cuda.synchronize()
+        base_bytes = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        fn()
+        torch.cuda.synchronize()
+        return (torch.cuda.max_memory_allocated() - base_bytes) / 1e9
+    rec5.update({
+        "gemm_bound_padded_ms": padded_bounds,
+        "tiled_update_peak_gb": peak_gb(
+            lambda: ops.tiled_update(plan, am_m, K_FULL)),
+        "tiled_update_dmr_peak_gb": peak_gb(
+            lambda: ops.tiled_update(plan, am_m, K_FULL, use_dmr=True)),
+        "tiled_update_ms": cuda_ms(
+            lambda: ops.tiled_update(plan, am_m, K_FULL), reps=3),
+        "tiled_update_dmr_ms": cuda_ms(
+            lambda: ops.tiled_update(plan, am_m, K_FULL, use_dmr=True),
+            reps=3),
+        "lloyd_partials_tree": {"ms": rows[-1]["ms"],
+                                "torch_tree_ms": rows[-1]["plain_ms"],
+                                "bound_ms": tree_bound}})
+    rec5["tiled_update_over_index_add"] = (rec5["tiled_update_ms"]
+                                           / rec5["index_add_ms"])
+    emit(rec5)
     del plan, am, am_m, am_long, valid
     torch.cuda.empty_cache()
 

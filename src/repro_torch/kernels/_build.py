@@ -24,7 +24,9 @@ the LM stack's flash attention (``fk_flash_attention``, f32, bf16 or fp16:
 the prefill, decode and f32 kernels, and ``fk_flash_workspace``, the decode
 kernel's workspace sizes). ``fk_abft_gemm.cu`` holds the 2-byte ABFT GEMM:
 its encodings pre-pass (``fk_abft_encode``) and the ``wgmma`` GEMM
-(``fk_abft_gemm``). ``fk_kernels.cu`` includes ``csrc/fk_mma.cuh`` (the
+(``fk_abft_gemm``). ``fk_update.cu`` holds the two-pass centroid update's
+per-tile pass (``fk_update_entries``) and the fixed-order tree sum
+(``fk_tree_reduce``). ``fk_kernels.cu`` includes ``csrc/fk_mma.cuh`` (the
 tensor-core ``mma.sync`` helpers); ``fk_attention.cu`` and
 ``fk_abft_gemm.cu`` include ``csrc/fk_tma.cuh`` (mbarriers, TMA loads,
 tensor maps) and ``csrc/fk_wgmma.cuh`` (the ``wgmma`` wrappers);
@@ -109,10 +111,21 @@ ABFT_GEMM_SIGNATURES: dict[str, tuple] = {
     "fk_abft_gemm": (_P, _P, _P, _P, _P, _P, _P, _P, _L, _F, _I, _I, _I, _I,
                      _I, _I, _I, _P),
 }
+# fk_update_entries: x, argmin, gate, entries, ecnt, idx; true_m, kp, fp,
+# block_m, ntiles, dtype (0 f32, 1 bf16, 2 fp16); stream. fk_tree_reduce:
+# vals, idx, gate, out, out_idx; rows, slots, ntiles, rstride, tstride,
+# width, threads, vec, chunk_log2; stream.
+UPDATE_SIGNATURES: dict[str, tuple] = {
+    "fk_update_entries": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                          _P),
+    "fk_tree_reduce": (_P, _P, _P, _P, _P, _I, _I, _I, _L, _L, _I, _I, _I,
+                       _I, _P),
+}
 SOURCES: dict[str, dict[str, tuple]] = {
     "fk_kernels": SIGNATURES,
     "fk_attention": ATTENTION_SIGNATURES,
     "fk_abft_gemm": ABFT_GEMM_SIGNATURES,
+    "fk_update": UPDATE_SIGNATURES,
 }
 
 

@@ -6,7 +6,8 @@ update epilogue ``_emit_update``) and, for B stacked problems,
 ``lloyd_step_batched`` (body ``_kernel_batched``). It is ``distance_argmin`` plus, once a
 row tile's argmin is final, that tile's per-cluster partial sums
 (M/bm, Kp, Fp) and counts (M/bm, Kp); rows >= ``true_m`` are padding and
-enter neither. ``ops._tree_sum`` collapses the partial blocks.
+enter neither. ``ops._tree_sum`` collapses the partial blocks (on the card
+``update.tree_sum``'s kernel, which reads each partial once).
 
 CUDA kernels: ``lloyd_tile_kernel<BM, false, true>`` (f32) and
 ``lloyd_tile_mma_kernel<T, BM, false, true>`` (bf16, fp16) in
@@ -17,9 +18,11 @@ each (k, f) partial sum is then one thread's f32 sum over its cluster's
 rows in row order, starting from 0 (2-byte rows widened exactly). No
 atomics: the sums are deterministic, so :func:`tile_update` (the same
 ``emit_update`` launched alone, ``update_tiles_kernel<T, BM>``) reproduces a
-tile bit for bit -- the contract ``ops._verify_update_partials`` rests on,
-and the reason a two-pass ``fused`` fit sums exactly as a ``lloyd`` fit
-does, at every input dtype.
+tile bit for bit -- the contract ``ops._verify_update_partials`` rests on.
+A two-pass ``fused`` fit sums exactly as a ``lloyd`` fit does, at every
+input dtype, because its update (``update.compact_update``) writes the
+same per-tile sums for the present clusters only and combines them in
+``ops._tree_sum``'s tree.
 
 Batched: :func:`lloyd_step_batched` launches the same instantiation (of
 the input dtype, f32, bf16 or fp16) over a (row tile, problem) grid;
@@ -33,9 +36,11 @@ Bound on the H100: the distance GEMM (2 * Mp * Kp * Fp FLOPs on f32 CUDA
 cores, or the bf16 / fp16 tensor cores) plus writing the partial-sum
 buffer, (Mp/bm) * Kp * Fp * 4 bytes (4.3 GB at M = 2**20, Kp = 1024,
 Fp = 128, bm = 128); at 2-byte inputs the buffer's bytes set the bound.
-The buffer keeps the reference's layout; collapsing it in-kernel is later
-work. X rows of the update are re-read from global memory (L2-resident
-right after the tile's GEMM) instead of from a shared-memory stash.
+The one-pass kernels still write the reference's dense layout; the
+two-pass update writes only the present (tile, cluster) entries
+(``update.update_entries``). X rows of the update are re-read from global
+memory (L2-resident right after the tile's GEMM) instead of from a
+shared-memory stash.
 """
 from __future__ import annotations
 
@@ -116,9 +121,11 @@ def tile_update(xp: torch.Tensor, am: torch.Tensor, sums_p: torch.Tensor,
 
     On the card this launches ``emit_update`` alone (``update_tiles_kernel``),
     the function the one-pass kernels run, so every tile sums bit for bit as
-    theirs: over all tiles it is the two-pass update of ``ops.tiled_update``,
-    for one gated tile the recompute of ``ops._verify_update_partials``. On
-    the CPU it is :func:`tile_update_plain` on the same tiles."""
+    theirs: for one gated tile it is the recompute of
+    ``ops._verify_update_partials``; over all tiles it is the dense route
+    the compact update (``update.compact_update``) is held to bit for bit.
+    On the CPU it is :func:`tile_update_plain` on the same tiles, over all
+    tiles the two-pass update of ``ops.tiled_update``."""
     nt, kp, fp = sums_p.shape
     if _build.on_cpu(xp, am, sums_p):
         if tile is None:

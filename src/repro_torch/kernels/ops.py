@@ -4,14 +4,15 @@ main-path part of ``repro.kernels.ops``).
 Pads inputs to the kernel tile grid (masked so results are exact), builds
 the per-fit :class:`DataPlan` (one problem), :class:`QuantPlan` (one problem,
 quantised to int8) or :class:`BatchPlan` (B stacked problems), reduces
-per-row-tile partial sums, verifies the one-pass FT kernel's update
-checksums, carries the pruned step's :class:`BoundsState` and plans
+per-row-tile partial sums (``update.tree_sum``), runs the two-pass update
+(``update.compact_update`` on the card), verifies the one-pass FT kernel's
+update checksums, carries the pruned step's :class:`BoundsState` and plans
 injection descriptors.
 
 The int8 path differs from the reference in one place. Its
 :class:`QuantPlan` also holds the padded f32 :class:`DataPlan` of the same
-rows, so the two-pass update of an int8 fit runs :func:`tiled_update`, the
-``emit_update`` kernel, as a ``fused`` fit's does: one int8 step on
+rows, so the two-pass update of an int8 fit runs :func:`tiled_update` as a
+``fused`` fit's does: one int8 step on
 quantisation-safe X and centroids is then bit for bit one ``fused`` step
 (labels, min distances, sums, counts). The reference's update is plain XLA
 outside any kernel, so nothing compared across the packages changes.
@@ -31,6 +32,7 @@ is widened first, as the reference's plan does).
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional
 
 import torch
@@ -49,6 +51,7 @@ from repro_torch.kernels import lloyd_step_ft as _llft
 from repro_torch.kernels import lloyd_step_pruned as _llp
 from repro_torch.kernels import matmul_abft as _mma
 from repro_torch.kernels import ref
+from repro_torch.kernels import update as _up
 
 
 @dataclasses.dataclass(frozen=True)
@@ -263,46 +266,54 @@ def fused_assign_int8(x, c: torch.Tensor,
     return am[:plan.data.m], mind[:plan.data.m]
 
 
-def _tree_sum(a: torch.Tensor) -> torch.Tensor:
-    """Balanced pairwise reduction over axis 0 (deterministic on every
-    device: elementwise adds in a fixed tree)."""
-    while a.shape[0] > 1:
-        half = a.shape[0] // 2
-        a = torch.cat([a[:half] + a[half:2 * half], a[2 * half:]], 0)
-    return a[0]
+def _tree_sum(a: torch.Tensor, dim: int = 0) -> torch.Tensor:
+    """Balanced pairwise reduction over axis ``dim`` (0, or 1 for a stack of
+    problems) in a fixed tree, deterministic on every device: on the CPU
+    the torch halving tree (``update.tree_sum_plain``), on the card the
+    ``tree_reduce`` kernel, which reads each partial once and writes no
+    level out (:func:`~repro_torch.kernels.update.tree_sum`)."""
+    return _up.tree_sum(a, dim)
 
 
 def tiled_update(plan: DataPlan, am: torch.Tensor, k: int, *,
                  use_dmr: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
     """The two-pass centroid update in the one-pass kernels' order: each
-    row tile's partial sums/counts by :func:`lloyd_step.tile_update` (on the
-    card the one-pass kernels' own ``emit_update``), then
-    :func:`_tree_sum`. A ``fused`` fit therefore sums bit for bit as a
-    ``lloyd`` fit does, by construction.
+    row tile's per-cluster sums from 0 in row order, then the tiles in
+    :func:`_tree_sum`'s tree. A ``fused`` fit therefore sums bit for bit as
+    a ``lloyd`` fit does.
 
-    ``use_dmr`` runs the update twice and compares the partial blocks; on a
-    mismatch every tile is recomputed in place, gated on the device, so a
-    clean step pays two updates and never waits on the host. Returns
-    (sums (K, F), counts (K,))."""
+    On the card the compact route
+    (:func:`~repro_torch.kernels.update.compact_update`): one entry per
+    present (tile, cluster) pair and one tree kernel over them, the same
+    bits as the dense partials' tree. On the CPU the dense route
+    (:func:`lloyd_step.tile_update` over every tile, then the torch tree).
+
+    ``use_dmr`` runs the update twice and compares the results (on the CPU
+    the partial blocks); on a mismatch a third update writes over the first
+    in place, gated on the device, so a clean step pays two updates and
+    never waits on the host. Returns (sums (K, F), counts (K,))."""
     p = plan.params
     mp, fp = plan.xp.shape
     nt, kp = mp // p.block_m, _round_up(k, p.block_k)
     amp = F.pad(am.to(torch.int32), (0, mp - plan.m)).contiguous()
-
-    def update(out=None, gate=None):
-        if out is None:
-            f32 = dict(dtype=torch.float32, device=plan.xp.device)
-            out = (torch.empty((nt, kp, fp), **f32),
-                   torch.empty((nt, kp), **f32))
-        _ll.tile_update(plan.xp, amp, *out, true_m=plan.m,
-                        block_m=p.block_m, gate=gate)
-        return out
-
-    sums_p, counts_p = update()
+    if plan.xp.is_cuda:
+        update = functools.partial(_up.compact_update, plan.xp, amp, kp,
+                                   true_m=plan.m, block_m=p.block_m)
+    else:
+        def update(out=None, gate=None):
+            if out is None:
+                f32 = dict(dtype=torch.float32, device=plan.xp.device)
+                out = (torch.empty((nt, kp, fp), **f32),
+                       torch.empty((nt, kp), **f32))
+            _ll.tile_update(plan.xp, amp, *out, true_m=plan.m,
+                            block_m=p.block_m, gate=gate)
+            return out
+    out = update()
     if use_dmr:
-        bad = dmr_mod.mismatch((sums_p, counts_p), update())
-        update((sums_p, counts_p), gate=bad.to(torch.int32))
-    return _tree_sum(sums_p)[:k, :plan.f], _tree_sum(counts_p)[:k]
+        bad = dmr_mod.mismatch(out, update())
+        update(out=out, gate=bad.to(torch.int32))
+    sums, counts = out if plan.xp.is_cuda else map(_tree_sum, out)
+    return sums[:k, :plan.f], counts[:k]
 
 
 def fused_lloyd(x, c: torch.Tensor, params: Optional[KernelParams] = None):
@@ -565,8 +576,8 @@ def fused_lloyd_batched(x, c: torch.Tensor,
     mind, am, sums, counts = _ll.lloyd_step_batched(
         plan.xp, cp, cn, n, block_m=params.block_m, block_k=params.block_k,
         block_f=params.block_f)
-    sums = _tree_sum(sums.movedim(1, 0))[:, :k, :plan.f]
-    counts = _tree_sum(counts.movedim(1, 0))[:, :k]
+    sums = _tree_sum(sums, 1)[:, :k, :plan.f]
+    counts = _tree_sum(counts, 1)[:, :k]
     return am[:, :n], mind[:, :n] + plan.xn, sums, counts
 
 
