@@ -21,12 +21,18 @@ Phases, one line each:
 
   1. device: the card, its power limit, the kernels' build time;
   2. kernels vs their plain PyTorch versions (TF32 off) at M = 65,573,
-     F = 100, K = 1000 and 100, plus planted FT faults; the compact update
-     (``update.compact_update``) and the tree kernel (``update.tree_sum``)
-     bit for bit the parent's dense route (``tile_update``'s partials,
-     then the torch tree) at 513 row tiles, at the kernel's labels and at
-     labels in random order, sorted, skewed and all in one cluster, each
-     with a control (two leaves of a cluster swapped) that must break the
+     F = 100, K = 1000 and 100, plus planted FT faults; the one-pass
+     steps' entries (``lloyd_step``: the tree over them) bit for bit the
+     dense route (``tile_update``'s partials, then the torch tree) with a
+     control (two leaves swapped) that must break the bits, and
+     ``fused_lloyd`` = the two-pass update = clean ``fused_lloyd_ft``; the
+     FT cases (an update fault on a present (tile, cluster) pair, on an
+     absent one, in a padded cluster row, a distance fault, both) each
+     with the dense route's detection count and the clean step's bits; the
+     compact update (``update.compact_update``) and the tree kernel
+     (``update.tree_sum``) bit for bit the dense route at 513 row tiles,
+     at the kernel's labels and at labels in random order, sorted, skewed
+     and all in one cluster, each with a control that must break the
      bits, and at row tiles of 64 and 320 padded features;
   3. unprotected fit (``fused``) + predict + score, and the one-pass
      ``lloyd`` fit from the same centroids;
@@ -35,13 +41,21 @@ Phases, one line each:
      the phase-3 shape, the plain version's time, the bound and a library
      yardstick (``torch.addmm`` + ``min``; ``index_add_`` for the update),
      the compact update's per-tile pass and tree timed apart and together
-     beside ``index_add_`` and their bounds, the tree kernel on
-     ``lloyd_step``'s partials beside the torch tree and ``sum(0)``, and
-     ``ops.tiled_update`` with and without DMR (ms, peak GB);
+     beside ``index_add_`` and their bounds, the tree kernel's dense
+     variant on ``lloyd_step``-sized partials (the pruned fit's shape)
+     beside the torch tree and ``sum(0)``, ``ops.tiled_update`` with and
+     without DMR (ms, peak GB), and the one-pass steps as a fit runs them
+     (``fused_lloyd``, ``fused_lloyd_ft``: ms and peak GB past X; the tree
+     over ``lloyd_step``'s entries, the ``tree_reduce`` row: the sparse
+     variant phases 3-4 launch; the entries-form FT verification, whose
+     kernel ``verify_entries`` is held to its plain version clean and on a
+     planted fault, with its row);
   6. the batched one-pass step and the k-means++ round against their plain
      versions at the PQ shape, at B = 7, N = 10,007, F = 20, K = 200 (two
      centroid tiles, ragged rows and features) and K = 100 (one tile),
-     batched problems against ``lloyd_step`` on each problem alone, and the
+     batched problems against ``lloyd_step`` on each problem alone (the
+     tree over the dense partials bit for bit the tree over the entries),
+     and the
      tree kernel over the batched partials at the problem stride bit for
      bit the ``movedim`` route (timed beside it at the PQ shape);
   7. ``BatchedKMeans`` at the PQ shape: fused k-means++ seeding, 25 steps at
@@ -49,11 +63,15 @@ Phases, one line each:
      same seeds, predict and score, a tol = 1e-4 fit, a ``torch.profiler``
      trace of one batched and one single-problem fit (kernels put on the
      card, device-busy share), ``lloyd_step`` on one problem alone, and the
-     launches, times, bounds and yardsticks of the two batched kernels;
+     launches, times, bounds and yardsticks of the two batched kernels and
+     of the tree kernel's dense variant over the batched partials (the
+     ``tree_reduce_dense`` row: its launches are the batched fit's and
+     phase 9's pruned fits');
   8. the pruned one-pass step and the int8 distance kernel against their
      plain versions at phase 2's shapes: a random skip mask on integer data
      (every sum exact, so labels, sums, counts bitwise), the all-zero mask
-     against ``lloyd_step`` bitwise, int8 on float data bitwise against its
+     against ``lloyd_step`` bitwise (its partials' tree against the tree
+     over the entries), int8 on float data bitwise against its
      plain version (exact integer products on both sides) and on
      quantisation-safe data against ``distance_argmin``;
   9. at the phase-3 shape: ``lloyd_pruned`` fits bitwise equal to ``lloyd``
@@ -95,17 +113,19 @@ Phases, one line each:
      K-means codebook over the wave's 1,572,864 prefill keys under an SEU
      campaign (``examples/kv_quantize.py`` at full width);
  13. ``KMeans(compute_dtype="bfloat16"/"float16")`` on the tensor-core
-     variants (``mma.sync``) of ``distance_argmin``, ``lloyd_step``,
-     ``distance_argmin_ft``, ``lloyd_step_ft`` and ``tile_update``: each
-     against its plain version at phase 2's shapes with phase 2's planted
-     faults (labels equal but for near ties), and phase 2's compact-update
-     and tree checks on 2-byte X (plus rows scaled over 23 binades, whose
-     sums hang on the order); full-size fits from phase 3's
+     variants (``mma.sync``; the FT kernels' checksums on the tensor cores
+     after the C encodings' pre-pass, ``encode_centroids``) of
+     ``distance_argmin``, ``lloyd_step``, ``distance_argmin_ft`` and
+     ``lloyd_step_ft``: each against its plain version at phase 2's shapes
+     with phase 2's FT cases (labels equal but for near ties), and phase
+     2's one-pass, compact-update and tree checks on 2-byte X (plus rows
+     scaled over 23 binades, whose sums hang on the order, where the
+     controls must break the bits); full-size fits from phase 3's
      seeds (``fused`` = ``lloyd`` = clean ``lloyd_ft`` = campaign bit for
      bit, predict = the labels of one more step from the final centroids,
      exact inertia and labels against the f32 fit); each variant's row at
-     the phase-3 shape, the compact update's among them; and the clean
-     residual
+     the phase-3 shape, the compact update's and the pre-pass's among
+     them, and phase 5's one-pass step records; and the clean residual
      margins of the two FT kernels at f32, bf16 and fp16 with the
      campaign's smallest delta against the thresholds.
  14. the rest of the 2-byte variants, at bf16 and fp16: (a) the batched
@@ -419,6 +439,292 @@ def check_tree_batched(torch, up, sums, counts, what: str,
                f"{what}: two tiles swapped kept the bits")
 
 
+def entry_sums(up, out, bm: int) -> tuple:
+    """(sums (Kp, Fp), counts (Kp,)) of a one-pass step's entries: the tree
+    kernel over ``lloyd_step``'s outputs (min, argmin, entries, ecnt, idx)
+    or ``lloyd_step_ft``'s (min, argmin, det, entries, ecnt, idx, ...)."""
+    ent, ecnt, idx = out[2:5] if len(out) == 5 else out[3:6]
+    return up.reduce_entries(ent, ecnt, idx, ntiles=out[1].shape[0] // bm)
+
+
+def same_step(torch, up, dense, one, bm: int, what: str) -> None:
+    """A dense one-pass output (a batched problem's or the pruned step's:
+    min, argmin, per-tile partials, counts, ...) bit for bit ``lloyd_step``'s
+    ``one``: distances and labels equal, the tree kernel over its partials
+    equal to the tree over ``one``'s entries."""
+    got = (up.tree_sum(dense[2]), up.tree_sum(dense[3]))
+    expect(bool(torch.equal(dense[0], one[0]))
+           and bool(torch.equal(dense[1], one[1]))
+           and all(bool(torch.equal(g, w))
+                   for g, w in zip(got, entry_sums(up, one, bm))),
+           f"{what} is not bit for bit lloyd_step")
+
+
+def canon(up, name: str, out, bm: int) -> tuple:
+    """A kernel's and its plain version's outputs in one form: a one-pass
+    step's update as (sums (Kp, Fp), counts (Kp,)) -- the kernel's entries
+    through the tree over them, the plain version's dense partials through
+    the torch tree; every other output as it is."""
+    if name == "lloyd_step":
+        if len(out) == 5:
+            return (out[0], out[1], *entry_sums(up, out, bm))
+        return (out[0], out[1], up.tree_sum_plain(out[2]),
+                up.tree_sum_plain(out[3]))
+    if name == "lloyd_step_ft":
+        if len(out) == 10:
+            return (out[0], out[1], out[2], *entry_sums(up, out, bm),
+                    out[8], out[9])
+        return (out[0], out[1], out[2], up.tree_sum_plain(out[3]),
+                up.tree_sum_plain(out[4]), out[5], out[6])
+    return out
+
+
+def peak_gb(fn) -> float:
+    """Device memory a call allocates past what was held before it, GB."""
+    import torch
+    torch.cuda.synchronize()
+    base_bytes = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fn()
+    torch.cuda.synchronize()
+    return (torch.cuda.max_memory_allocated() - base_bytes) / 1e9
+
+
+def onepass_rows(torch, ops, up, llft, plan, c, params, bound,
+                 tag: str, launches: dict | None = None) -> tuple:
+    """Phases 5 and 13: the one-pass steps as a fit runs them, at the
+    phase-3 shape: ``ops.fused_lloyd`` and ``ops.fused_lloyd_ft`` (ms, and
+    the device memory each allocates past X: the peak of a ``lloyd`` and a
+    ``lloyd_ft`` step), the tree over ``lloyd_step``'s entries (ms and byte
+    bound: the present entries read once, the sums written once), the
+    entries-form verification of ``lloyd_step_ft``'s update with its gated
+    recompute (ms; clean, so the gate stays shut) and, at 2 bytes, the C
+    encodings' pre-pass. With ``launches`` (phase 5) also the rows of the
+    verification kernel (against its plain version clean and with an update
+    fault on a present pair: the tiles it flags; its byte bound: the
+    entries, keys and counts of every row tile and the expected checksums
+    read once) and of the tree kernel over these entries, the variant the
+    one-pass fits run (bit for bit the torch tree over the present entries,
+    ``pair_tree_plain``; beside ``index_add_`` of the entries by cluster;
+    its bound as above)."""
+    from repro_torch.kernels import distance_argmin_ft as daft
+    from repro_torch.kernels import lloyd_step as ll
+    bm = params.block_m
+    mp, fp = plan.xp.shape
+    nt = mp // bm
+    cp, cn = ops._pad_centroids(c.to(plan.xp.dtype), K_FULL,
+                                -(-K_FULL // params.block_k) * params.block_k,
+                                fp)
+    tiles = dict(block_m=bm, block_k=params.block_k, block_f=params.block_f)
+    r = ll.lloyd_step(plan.xp, cp, cn, plan.m, **tiles)
+    n_present = int((r[4] >= 0).sum())
+    q = list(llft.lloyd_step_ft(
+        plan.xp, cp, cn, llft.no_injection().cuda(), plan.m,
+        factor=ops.threshold_factor(fp, plan.xp.dtype), **tiles))
+    ent_b = entry_bytes(n_present, F_FULL, K_FULL, nt)
+    tree_b_ms, tree_b_by = bound(
+        n_present * F_FULL, ent_b + 4.0 * (K_FULL * F_FULL + K_FULL))
+    out = {f"onepass{tag}": {
+        "present_entries": n_present,
+        "fused_lloyd_ms": cuda_ms(lambda: ops.fused_lloyd(plan, c)),
+        "fused_lloyd_ft_ms": cuda_ms(lambda: ops.fused_lloyd_ft(plan, c)),
+        "lloyd_step_peak_gb": peak_gb(lambda: ops.fused_lloyd(plan, c)),
+        "lloyd_ft_step_peak_gb": peak_gb(
+            lambda: ops.fused_lloyd_ft(plan, c)),
+        "entries_tree_ms": cuda_ms(lambda: entry_sums(up, r, bm)),
+        "entries_tree_bound_ms": tree_b_ms,
+        "entries_tree_bound_by": tree_b_by,
+        "ft_verify_ms": cuda_ms(lambda: ops._verify_update_entries(
+            plan, q[1], q[3:8], q[8], q[9], params)),
+        "x_gb": plan.xp.numel() * plan.xp.element_size() / 1e9}}
+    if plan.xp.dtype != torch.float32:
+        out[f"onepass{tag}"]["encode_centroids_ms"] = cuda_ms(
+            lambda: daft.encode_centroids(cp))
+    rows = []
+    if launches is not None:
+        ufactor = ops.threshold_factor(bm, plan.xp.dtype)
+
+        def verify():
+            return llft.verify_entries(*q[3:5], *q[6:10], block_m=bm,
+                                       factor=ufactor)
+
+        def verify_plain():
+            return llft.verify_entries_plain(*q[3:5], *q[6:10], block_m=bm,
+                                             factor=ufactor)
+        got, want = verify(), verify_plain()
+        expect(int(got[0]) == int(want[0]) == 0,
+               f"verify_entries flags {int(got[0])} / plain {int(want[0])} "
+               f"clean tiles")
+        hit = 3                      # its first entry row holds a cluster
+        row = hit * bm
+        q[3][row, 5] += 2.0 ** 19
+        got, want = verify(), verify_plain()
+        expect(int(got[0]) == int(want[0]) == 1
+               and int(got[1]) == int(want[1]) == hit,
+               f"verify_entries on a fault in tile {hit}: {int(got[0])} "
+               f"at {int(got[1])}, plain {int(want[0])} at {int(want[1])}")
+        q[3][row, 5] -= 2.0 ** 19
+        b_ms, b_by = bound(2.0 * n_present * F_FULL, ent_b + 8.0 * mp
+                           + 4.0 * nt * (2 * F_FULL + 2))
+        rows.append({
+            "name": "verify_entries", "route": "cuda",
+            "source": "src/repro_torch/csrc/fk_update.cu",
+            "replaces": "src/repro/kernels/ops.py:771 (_verify_update_"
+                        "partials, XLA in the reference; the port's own "
+                        "kernel)",
+            "launches": launches["verify_entries"], "max_abs_err": 0.0,
+            "ms": cuda_ms(verify), "plain_ms": cuda_ms(verify_plain, reps=2),
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
+        out[f"onepass{tag}"]["verify_entries_ms"] = rows[-1]["ms"]
+        rows.append(entries_tree_row(torch, up, r, bm, launches,
+                                     out[f"onepass{tag}"]))
+    del r, q
+    torch.cuda.empty_cache()
+    return out, rows
+
+
+def entries_tree_row(torch, up, r, bm: int, launches: dict,
+                     rec: dict) -> dict:
+    """The ``tree_reduce`` row: the sparse tree over ``lloyd_step``'s
+    entries ``r`` as ``update.reduce_entries`` runs it, against the torch
+    tree over the same present entries (``pair_tree_plain`` over their
+    slots), bit for bit; the library call is ``index_add_`` of the entries
+    (sums and counts) by cluster. ``rec`` holds the entries' tree ms and
+    bound (``onepass_rows``)."""
+    ent, ecnt, idx = r[2:5]
+    kp, levels = idx.shape[0], idx.shape[1].bit_length() - 1
+    nz = (idx >= 0).nonzero()
+    k_of, slot = nz[:, 0], nz[:, 1]
+    rows_of = idx[k_of, slot].long()
+
+    def tree():
+        return entry_sums(up, r, bm)
+
+    def tree_plain():
+        return (up.pair_tree_plain(ent[rows_of], slot, k_of, levels, kp),
+                up.pair_tree_plain(ecnt[rows_of], slot, k_of, levels, kp))
+    got, want = tree(), tree_plain()
+    expect(all(bool(torch.equal(g, w)) for g, w in zip(got, want)),
+           "the tree kernel over lloyd_step's entries is not bit for bit "
+           "the torch tree over them")
+    # entry row -> its cluster; rows no idx slot points at go to row kp
+    cluster = torch.full((ent.shape[0],), kp, dtype=torch.long,
+                         device=ent.device)
+    cluster[rows_of] = k_of
+    acc = torch.zeros((kp + 1, ent.shape[1]), device=ent.device)
+    acc_c = torch.zeros(kp + 1, device=ent.device)
+    return {"name": "tree_reduce", "route": "cuda",
+            "source": "src/repro_torch/csrc/fk_update.cu",
+            "replaces": "src/repro/kernels/ops.py:510 (_tree_sum, XLA in "
+                        "the reference; the port's own kernel)",
+            "launches": launches["tree_reduce"], "max_abs_err": 0.0,
+            "ms": cuda_ms(tree), "plain_ms": cuda_ms(tree_plain, reps=2),
+            "bound_ms": rec["entries_tree_bound_ms"],
+            "bound_by": rec["entries_tree_bound_by"],
+            "library_ms": cuda_ms(lambda: (acc.index_add_(0, cluster, ent),
+                                           acc_c.index_add_(0, cluster,
+                                                            ecnt)))}
+
+
+def entry_bytes(n_present: int, f: int, k: int, nt: int) -> float:
+    """The bytes a one-pass step's entries take once: each present (tile,
+    cluster) pair's F sums and count, and the idx table of the true K
+    clusters over the tree's 2^L slots."""
+    return n_present * (4.0 * f + 4.0) + 4.0 * k * (1 << (nt - 1)
+                                                    .bit_length())
+
+
+def check_onepass(torch, up, ll, r, xp, kp: int, true_m: int, bm: int,
+                  what: str, order_matters: bool = True) -> dict:
+    """``lloyd_step``'s entries ``r`` held to the dense route on its own
+    labels: ``tile_update``'s dense partials (the reference's layout), then
+    the torch tree, bit for bit; the entries themselves bit for bit
+    ``update_entries``' (one writer). Control: the busiest cluster's first
+    and last leaves swapped in idx must give the torch tree's bits on the
+    swapped dense partials and, where ``order_matters``, other bits than
+    the unswapped result."""
+    mp, fp = xp.shape
+    nt = mp // bm
+    am = r[1]
+    sums_p = torch.empty((nt, kp, fp), device=xp.device)
+    counts_p = torch.empty((nt, kp), device=xp.device)
+    ll.tile_update(xp, am, sums_p, counts_p, true_m=true_m, block_m=bm)
+    want = (up.tree_sum_plain(sums_p), up.tree_sum_plain(counts_p))
+    expect(all(bool(torch.equal(g, w))
+               for g, w in zip(entry_sums(up, r, bm), want)),
+           f"{what}: lloyd_step's entries are not bit for bit the dense "
+           f"route")
+    ent, ecnt, idx = r[2:5]
+    e2, c2, i2 = up.update_entries(xp, am, kp, true_m=true_m, block_m=bm)
+    rows = idx[idx >= 0].long()
+    expect(bool(torch.equal(i2, idx)) and bool(torch.equal(e2[rows],
+                                                           ent[rows]))
+           and bool(torch.equal(c2[rows], ecnt[rows])),
+           f"{what}: lloyd_step's entries are not update_entries'")
+    del e2, c2, i2
+    per_k = (idx >= 0).sum(1)
+    busy = int(per_k.argmax())
+    broke = None
+    if int(per_k[busy]) >= 3:
+        slots = (idx[busy] >= 0).nonzero().squeeze(1)
+        first, last = int(slots[0]), int(slots[-1])
+        row_f, row_l = int(idx[busy, first]), int(idx[busy, last])
+        sw = idx.clone()
+        sw[busy, first], sw[busy, last] = row_l, row_f
+        swapped = up.reduce_entries(ent, ecnt, sw, ntiles=nt)[0]
+        t_f, t_l = row_f // bm, row_l // bm
+        sums_p[[t_f, t_l], busy] = sums_p[[t_l, t_f], busy]
+        ref_swapped = up.tree_sum_plain(sums_p)
+        expect(bool(torch.equal(swapped[busy], ref_swapped[busy])),
+               f"{what}: on cluster {busy}'s leaves swapped the tree over "
+               f"the entries is not the torch tree's bits")
+        broke = not torch.equal(ref_swapped[busy], want[0][busy])
+        expect(broke or not order_matters,
+               f"{what}: cluster {busy}'s leaves swapped kept the bits")
+    return {"present_entries": int(per_k.sum()), "bitwise": True,
+            "control_broke": broke}
+
+
+def check_ft_cases(torch, ops, llft, plan, c, cp, cn, params, am, k: int,
+                   what: str) -> dict:
+    """``ops.fused_lloyd_ft`` under the tentpole's injection cases, each
+    against the dense route (``lloyd_step_ft.lloyd_ft_dense_plain``: the
+    fault in the dense block, the dense verification): an update fault on
+    a present (tile, cluster) pair of row tile 1, on an absent one, in a
+    padded cluster row (k >= K), a distance fault, both slots. The
+    detections equal the dense route's and the slots armed; the corrected
+    step is bit for bit the clean one."""
+    bm, kp = params.block_m, cp.shape[0]
+    dt = plan.xp.dtype
+    clean = ops.fused_lloyd_ft(plan, c)
+    tile = am[bm:2 * bm].tolist()
+    absent = next(j for j in range(k) if j not in tile)
+    cases = {"present": {"update": (1, tile[5], 7, 2.0 ** 19)},
+             "absent": {"update": (1, absent, 3, -2.0 ** 20)},
+             "padded": {"update": (1, kp - 1, 11, 2.0 ** 21)},
+             "distance": {"distance": (7, 0, 1, 9, 5, -2.0 ** 21)},
+             "both": {"distance": (7, 0, 1, 9, 5, -2.0 ** 21),
+                      "update": (1, absent, 0, 2.0 ** 22)}}
+    expect(kp > k, f"{what}: no padded cluster row")
+    rec = {}
+    for name, arm in cases.items():
+        inj = llft.make_injection(**arm).cuda()
+        hit = ops.fused_lloyd_ft(plan, c, inj=inj)
+        dense = llft.lloyd_ft_dense_plain(
+            plan.xp, cp, cn, inj, plan.m, bm, params.block_k,
+            params.block_f, ops.threshold_factor(plan.xp.shape[1], dt),
+            ops.threshold_factor(bm, dt))
+        rec[name] = {"det": int(hit[4]), "dense_det": int(dense[2])}
+        expect(int(hit[4]) == int(dense[2]) == len(arm),
+               f"{what} {name}: detected {int(hit[4])}, the dense route "
+               f"{int(dense[2])}, {len(arm)} planted")
+        expect(all(bool(torch.equal(a, b)) for a, b in zip(hit[:4],
+                                                            clean[:4])),
+               f"{what} {name}: the corrected step is not bitwise clean")
+        del hit, dense
+    return rec
+
+
 def phase_kernels(torch, ops, kern) -> dict:
     """Phase 2: each kernel against its plain version on the card; the
     compact update and the tree kernel bit for bit the parent's dense route
@@ -452,15 +758,20 @@ def phase_kernels(torch, ops, kern) -> dict:
         r_p = ll.lloyd_step_plain(plan.xp, cp, cn, plan.m, params.block_m)
         expect(bool((r[1] == am).all()) and bool(torch.equal(r[0], md)),
                f"lloyd_step assignment differs from distance_argmin K={k}")
-        ok, rec["lloyd_step_sums_err"] = rel_ok(r[2], r_p[2], 1e-5)
+        r_sums = entry_sums(up, r, params.block_m)
+        ok, rec["lloyd_step_sums_err"] = rel_ok(
+            r_sums[0], up.tree_sum_plain(r_p[2]), 1e-5)
         expect(ok, f"lloyd_step sums K={k}")
-        expect(bool(torch.equal(r[3], r_p[3])), f"lloyd_step counts K={k}")
-        t_s, t_c = torch.empty_like(r[2]), torch.empty_like(r[3])
-        ll.tile_update(plan.xp, am, t_s, t_c, true_m=plan.m,
-                       block_m=params.block_m)
-        expect(bool(torch.equal(t_s, r[2])) and bool(torch.equal(t_c, r[3])),
-               f"tile_update is not bit for bit lloyd_step's update K={k}")
-        del t_s, t_c
+        expect(bool(torch.equal(r_sums[1], up.tree_sum_plain(r_p[3]))),
+               f"lloyd_step counts K={k}")
+        rec["onepass_entries"] = check_onepass(
+            torch, up, ll, r, plan.xp, kp, plan.m, params.block_m,
+            f"lloyd_step K={k}")
+        # fused = lloyd = clean lloyd_ft, at the ops level
+        fl = ops.fused_lloyd(plan, c)
+        fused = ops.tiled_update(plan, fl[0], k)
+        expect(all(bool(torch.equal(a, b)) for a, b in zip(fl[2:], fused)),
+               f"fused_lloyd sums are not the two-pass update's K={k}")
         mp = plan.xp.shape[0]
         rec["update_routes"] = {"kernel_labels": check_update_route(
             torch, up, ll, plan.xp, am, kp, plan.m, params.block_m,
@@ -470,10 +781,11 @@ def phase_kernels(torch, ops, kern) -> dict:
                 torch, up, ll, plan.xp,
                 update_labels(torch, kind, plan.m, mp, k, SEED + i), kp,
                 plan.m, params.block_m, f"{kind} labels K={k}")
-        expect(bool(torch.equal(up.tree_sum(r[2]), up.tree_sum_plain(r[2])))
-               and bool(torch.equal(up.tree_sum(r[3]),
-                                    up.tree_sum_plain(r[3]))),
-               f"the tree kernel on lloyd_step's partials is not bit for "
+        expect(bool(torch.equal(up.tree_sum(r_p[2]),
+                                up.tree_sum_plain(r_p[2])))
+               and bool(torch.equal(up.tree_sum(r_p[3]),
+                                    up.tree_sum_plain(r_p[3]))),
+               f"the tree kernel on dense one-pass partials is not bit for "
                f"bit the torch tree K={k}")
 
         no_d = daft.no_injection().cuda()
@@ -506,28 +818,22 @@ def phase_kernels(torch, ops, kern) -> dict:
                                        params.block_m, params.block_k,
                                        params.block_f, factor)
         expect(int(q[2].sum()) == 0, f"clean lloyd_step_ft detected K={k}")
-        expect(bool(torch.equal(q[3], r[2])) and bool(torch.equal(q[4], r[3])),
-               f"lloyd_step_ft sums/counts differ from lloyd_step K={k}")
-        ok, rec["lloyd_step_ft_ucheck_err"] = rel_ok(q[5], q_p[5], 1e-5)
-        expect(ok and bool(torch.equal(q[6], q_p[6])),
+        expect(bool(torch.equal(q[5], r[4])) and all(
+            bool(torch.equal(a, b)) for a, b in zip(
+                entry_sums(up, q, params.block_m), r_sums)),
+               f"lloyd_step_ft entries / sums differ from lloyd_step K={k}")
+        ok, rec["lloyd_step_ft_ucheck_err"] = rel_ok(q[8], q_p[5], 1e-5)
+        expect(ok and bool(torch.equal(q[9], q_p[6])),
                f"lloyd_step_ft update checksums vs plain K={k}")
         clean = ops.fused_lloyd_ft(plan, c, inj=no_l)
-        expect(int(clean[4]) == 0, f"clean fused_lloyd_ft detected K={k}")
-        for slot in ("distance", "update"):
-            arm = {"distance": (7, 0, 1, 9, 5, -2.0 ** 21)} if \
-                slot == "distance" else {"update": (11, 3, 17, 2.0 ** 19)}
-            hit = ops.fused_lloyd_ft(plan, c,
-                                     inj=llft.make_injection(**arm).cuda())
-            rec[f"{slot}_slot_det"] = int(hit[4])
-            expect(rec[f"{slot}_slot_det"] == 1,
-                   f"{slot}-slot fault detected {int(hit[4])} times K={k}")
-            expect(bool(torch.equal(hit[0], clean[0])),
-                   f"{slot}-slot fault changed the assignment K={k}")
-            expect(bool(torch.equal(hit[2], clean[2]))
-                   and bool(torch.equal(hit[3], clean[3])),
-                   f"{slot}-slot fault: sums not bitwise clean K={k}")
+        expect(int(clean[4]) == 0 and all(
+            bool(torch.equal(a, b)) for a, b in zip(clean[:4], fl)),
+               f"clean fused_lloyd_ft detected {int(clean[4])} or is not "
+               f"fused_lloyd K={k}")
+        rec["ft_cases"] = check_ft_cases(torch, ops, llft, plan, c, cp, cn,
+                                         params, r[1], k, f"f32 K={k}")
         out["shapes"].append(rec)
-        del plan, r, r_p, q, q_p
+        del plan, r, r_p, q, q_p, fl, fused, clean
         torch.cuda.empty_cache()
     # the update at the other row tile (64 rows: 1025 tiles, a carry) and
     # at features past one warp's 128 (F 300 -> Fp 320)
@@ -681,8 +987,8 @@ def phase_batched_kernels(torch, ops, hw, ll, kpp) -> dict:
         del want
         for i in (0, b // 2, b - 1):
             one = ll.lloyd_step(plan.xp[i], cp[i], cn[i], n, **tiles)
-            expect(all(bool(torch.equal(g[i], o)) for g, o in zip(got, one)),
-                   f"batched problem {i} is not bit for bit lloyd_step {rec}")
+            same_step(torch, up, [g[i] for g in got], one, params.block_m,
+                      f"batched problem {i} {rec}")
         check_tree_batched(torch, up, got[2], got[3],
                            f"batched partials {rec}")
         if b == B_PQ:
@@ -763,6 +1069,46 @@ def seeds_are_rows(torch, x, seeds) -> bool:
     return True
 
 
+def dense_tree_row(torch, up, ll, plan, cp, cn, tiles: dict, bound,
+                   launches: int) -> dict:
+    """The ``tree_reduce_dense`` row: the tree kernel's dense variant over
+    the batched kernel's partials (B, T, Kp, Fp) at the problem stride, as
+    ``fused_lloyd_batched`` runs it, bit for bit the torch tree after a
+    ``movedim``; the library call is ``sum`` over the tiles. ``launches``:
+    the dense launches of the batched fit (phase 9 adds the pruned fits').
+    Bound: the partials of the true K and F read once, the sums written
+    once."""
+    out = ll.lloyd_step_batched(plan.xp, cp, cn, N_PQ, **tiles)
+    sums, counts = out[2], out[3]
+    del out
+    b, nt = sums.shape[:2]
+
+    def tree():
+        return up.tree_sum(sums, 1), up.tree_sum(counts, 1)
+
+    def tree_plain():
+        return (up.tree_sum_plain(sums.movedim(1, 0)),
+                up.tree_sum_plain(counts.movedim(1, 0)))
+    expect(all(bool(torch.equal(g, w)) for g, w in zip(tree(), tree_plain())),
+           "the dense tree over the batched partials is not bit for bit the "
+           "torch tree")
+    b_ms, b_by = bound(b * nt * K_PQ * F_PQ,
+                       4.0 * b * (nt + 1) * (K_PQ * F_PQ + K_PQ))
+    row = {"name": "tree_reduce_dense", "route": "cuda",
+           "source": "src/repro_torch/csrc/fk_update.cu",
+           "replaces": "src/repro/kernels/ops.py:510 (_tree_sum, XLA in the "
+                       "reference; the port's own kernel)",
+           "launches": launches, "max_abs_err": 0.0,
+           "ms": cuda_ms(tree, reps=20), "plain_ms": cuda_ms(tree_plain,
+                                                            reps=3),
+           "bound_ms": b_ms, "bound_by": b_by,
+           "library_ms": cuda_ms(lambda: (sums.sum(1), counts.sum(1)),
+                                 reps=20)}
+    del sums, counts
+    torch.cuda.empty_cache()
+    return row
+
+
 def phase_batched_fit(torch, ops, hw, ll, kpp, bound, KMeans,
                       BatchedKMeans) -> tuple[dict, list]:
     """Phase 7: BatchedKMeans at the PQ shape, then its kernels' rows."""
@@ -775,6 +1121,7 @@ def phase_batched_fit(torch, ops, hw, ll, kpp, bound, KMeans,
                 "tree_reduce": up.tree_reduce}
     for w in wrappers.values():
         w.launches = 0
+    up.tree_reduce.kernel_launches.update(sparse=0, dense=0)
     bkm = BatchedKMeans(init="kmeans++-fused", max_iter=PQ_ITERS, tol=0.0,
                         **base)
     seeds, seed_s = wall(lambda: bkm.init_centroids(x))
@@ -786,6 +1133,7 @@ def phase_batched_fit(torch, ops, hw, ll, kpp, bound, KMeans,
         x, centroids=seeds)
     torch.cuda.synchronize()
     launches = {name: w.launches for name, w in wrappers.items()}
+    tree_kinds = dict(up.tree_reduce.kernel_launches)
     for name, n in launches.items():
         expect(n > 0, f"{name} was not launched on the batched path")
     expect(bool(torch.equal(seeds, again)),
@@ -824,7 +1172,8 @@ def phase_batched_fit(torch, ops, hw, ll, kpp, bound, KMeans,
            "singles_bitwise": B_PQ, "inertia_max_rel_err": inertia_rel,
            "n_host_syncs": bkm._n_host_syncs,
            "tol_1e-4_n_iter": conv.n_iter_.tolist(),
-           "score_sum": float(score.sum()), "launches": launches}
+           "score_sum": float(score.sum()), "launches": launches,
+           "tree_reduce_variants": tree_kinds}
     del singles, conv, again
     torch.cuda.empty_cache()
     # where a step's time goes: one traced batched fit and one traced
@@ -879,6 +1228,8 @@ def phase_batched_fit(torch, ops, hw, ll, kpp, bound, KMeans,
                      "bound_ms": b_ms, "bound_by": b_by,
                      "library_ms": cuda_ms(lfn, reps=20)})
         torch.cuda.empty_cache()
+    rows.append(dense_tree_row(torch, up, ll, plan, cp, cn, tiles, bound,
+                               tree_kinds["dense"]))
     # the bound counts the GEMM the problem needs (F = 16); the kernel
     # multiplies the features padded to Fp as well
     rec["gemm_flop"] = {"needed": 2.0 * b * N_PQ * K_PQ * F_PQ,
@@ -911,6 +1262,7 @@ def phase_pruned_int8_kernels(torch, ops, ll, llp, dai) -> dict:
     import numpy as np
     import torch.nn.functional as F
     from repro_torch.data.blobs import make_blobs
+    from repro_torch.kernels import update as up
     out = {"phase": 8, "shapes": []}
     for k in (1000, 100):
         params = ops.clamp_params(M_SMALL, k, F_SMALL, ops.DEFAULT_PARAMS)
@@ -956,8 +1308,8 @@ def phase_pruned_int8_kernels(torch, ops, ll, llp, dai) -> dict:
         zero = torch.zeros_like(skip)
         got = llp.lloyd_step_pruned(plan.xp, cp, cn, xn, zero, plan.m, **tiles)
         one = ll.lloyd_step(plan.xp, cp, cn, plan.m, **tiles)
-        expect(all(bool(torch.equal(a, b)) for a, b in zip(got, one)),
-               f"lloyd_step_pruned without skips is not lloyd_step K={k}")
+        same_step(torch, up, got, one, bm,
+                  f"lloyd_step_pruned without skips K={k}")
         want = llp.lloyd_step_pruned_plain(plan.xp, cp, cn, xn, zero, plan.m,
                                            bm, bk)
         ok, rec["pruned_tmin_err"] = rel_ok(got[4], want[4], 1e-5)
@@ -1002,6 +1354,7 @@ def phase_pruned_int8_fits(torch, ops, hw, llp, dai, KMeans, x, labels_true,
                 "tree_reduce": up.tree_reduce}
     for w in wrappers.values():
         w.launches = 0
+    up.tree_reduce.kernel_launches.update(sparse=0, dense=0)
     # (a) rows in random order: little to prune, the bookkeeping's cost
     km_pr, pr_s = wall(lambda: KMeans(backend="lloyd_pruned", **base)
                        .fit(x, centroids=c_init))
@@ -1051,6 +1404,7 @@ def phase_pruned_int8_fits(torch, ops, hw, llp, dai, KMeans, x, labels_true,
     cf = KMeans(**base).fit(x, centroids=centres)
     torch.cuda.synchronize()
     launches = {name: w.launches for name, w in wrappers.items()}
+    tree_kinds = dict(up.tree_reduce.kernel_launches)
     for name, n in launches.items():
         expect(n > 0, f"{name} was not launched on its path")
     xn = (x * x).sum(1)
@@ -1103,7 +1457,7 @@ def phase_pruned_int8_fits(torch, ops, hw, llp, dai, KMeans, x, labels_true,
            "int8_seed_sweep": sweep,
            "n_host_syncs": {"lloyd_pruned": km_apr._n_host_syncs,
                             "lloyd": km_all._n_host_syncs},
-           "launches": launches}
+           "launches": launches, "tree_reduce_variants": tree_kinds}
     del km_pr, km_all, km8, labels8, c8, cf, xn
     torch.cuda.empty_cache()
 
@@ -1959,15 +2313,20 @@ def phase_lowp_kernels(torch, ops, kern, dtype) -> dict:
         valid = (torch.arange(mp, device=x.device) < plan.m).view(nt, bm)
         s_p, c_p = ll.tile_update_plain(plan.xp.view(nt, bm, fp),
                                         am.view(nt, bm), valid, kp)
-        ok, rec["lloyd_step_sums_err"] = rel_ok(r[2], s_p, 1e-5)
-        expect(ok and bool(torch.equal(r[3], c_p)),
+        r_sums = entry_sums(up, r, bm)
+        ok, rec["lloyd_step_sums_err"] = rel_ok(
+            r_sums[0], up.tree_sum_plain(s_p), 1e-5)
+        expect(ok and bool(torch.equal(r_sums[1], up.tree_sum_plain(c_p))),
                f"{dtype} lloyd_step sums/counts vs the plain update K={k}")
-        t_s, t_c = torch.empty_like(r[2]), torch.empty_like(r[3])
-        ll.tile_update(plan.xp, am, t_s, t_c, true_m=plan.m, block_m=bm)
-        expect(bool(torch.equal(t_s, r[2])) and bool(torch.equal(t_c, r[3])),
-               f"{dtype} tile_update is not bit for bit lloyd_step's update "
+        del s_p, c_p
+        rec["onepass_entries"] = check_onepass(
+            torch, up, ll, r, plan.xp, kp, plan.m, bm,
+            f"{dtype} lloyd_step K={k}", order_matters=False)
+        fl = ops.fused_lloyd(plan, c)
+        fused = ops.tiled_update(plan, fl[0], k)
+        expect(all(bool(torch.equal(a, b)) for a, b in zip(fl[2:], fused)),
+               f"{dtype} fused_lloyd sums are not the two-pass update's "
                f"K={k}")
-        del t_s, t_c, s_p, c_p
         rec["update_routes"] = {"kernel_labels": check_update_route(
             torch, up, ll, plan.xp, am, kp, plan.m, bm,
             f"{dtype} labels of distance_argmin K={k}",
@@ -1989,12 +2348,13 @@ def phase_lowp_kernels(torch, ops, kern, dtype) -> dict:
             torch, up, ll, xw,
             update_labels(torch, "random", plan.m, mp, k, SEED), kp,
             plan.m, bm, f"{dtype} rows scaled over 23 binades K={k}")
+        # the one-pass step's entries on those rows: the control must break
+        # the bits there
+        rec["onepass_entries"]["wide_rows"] = check_onepass(
+            torch, up, ll, ll.lloyd_step(xw, cp, cn, plan.m, **tiles), xw,
+            kp, plan.m, bm, f"{dtype} lloyd_step, rows scaled over 23 "
+            f"binades K={k}")
         del xw, scale
-        expect(bool(torch.equal(up.tree_sum(r[2]), up.tree_sum_plain(r[2])))
-               and bool(torch.equal(up.tree_sum(r[3]),
-                                    up.tree_sum_plain(r[3]))),
-               f"{dtype} the tree kernel on lloyd_step's partials is not bit "
-               f"for bit the torch tree K={k}")
 
         no_d = daft.no_injection().cuda()
         f_md, f_am, f_det = daft.distance_argmin_ft(
@@ -2023,35 +2383,33 @@ def phase_lowp_kernels(torch, ops, kern, dtype) -> dict:
         no_l = llft.no_injection().cuda()
         q = llft.lloyd_step_ft(plan.xp, cp, cn, no_l, plan.m, factor=factor,
                                **tiles)
-        q_p = llft.lloyd_step_ft_plain(plan.xp, cp, cn, no_l, plan.m, bm,
-                                       params.block_k, params.block_f, factor)
         expect(int(q[2].sum()) == 0, f"clean {dtype} lloyd_step_ft detected "
                f"K={k}")
-        expect(bool(torch.equal(q[1], am)) and bool(torch.equal(q[3], r[2]))
-               and bool(torch.equal(q[4], r[3])),
-               f"{dtype} lloyd_step_ft labels/sums/counts differ from "
+        expect(bool(torch.equal(q[1], am)) and bool(torch.equal(q[5], r[4]))
+               and all(bool(torch.equal(a, b)) for a, b in zip(
+                   entry_sums(up, q, bm), r_sums)),
+               f"{dtype} lloyd_step_ft labels/entries/sums differ from "
                f"lloyd_step K={k}")
-        ok, rec["lloyd_step_ft_ucheck_err"] = rel_ok(q[5], q_p[5], 1e-5)
-        expect(ok and bool(torch.equal(q[6], q_p[6])),
-               f"{dtype} lloyd_step_ft update checksums vs plain K={k}")
-        clean = ops.fused_lloyd_ft(plan, c, inj=no_l)
-        expect(int(clean[4]) == 0, f"clean {dtype} fused_lloyd_ft detected "
+        # the expected update checksums against their definition on the
+        # kernel's own labels (the plain version's may move on near ties)
+        vf = valid.float()
+        enc = torch.stack([vf, vf * (am.view(nt, bm) + 1).float()], -1)
+        ok, rec["lloyd_step_ft_ucheck_err"] = rel_ok(
+            q[8], torch.bmm(enc.transpose(1, 2),
+                            plan.xp.float().view(nt, bm, fp)), 1e-5)
+        expect(ok and bool(torch.equal(q[9], enc.sum(1))),
+               f"{dtype} lloyd_step_ft update checksums vs their definition "
                f"K={k}")
-        for slot in ("distance", "update"):
-            arm = {"distance": (7, 0, 1, 9, 5, -2.0 ** 21)} if \
-                slot == "distance" else {"update": (11, 3, 17, 2.0 ** 19)}
-            hit = ops.fused_lloyd_ft(plan, c,
-                                     inj=llft.make_injection(**arm).cuda())
-            rec[f"{slot}_slot_det"] = int(hit[4])
-            expect(rec[f"{slot}_slot_det"] == 1,
-                   f"{dtype} {slot}-slot fault detected {int(hit[4])} times "
-                   f"K={k}")
-            expect(bool(torch.equal(hit[0], clean[0]))
-                   and bool(torch.equal(hit[2], clean[2]))
-                   and bool(torch.equal(hit[3], clean[3])),
-                   f"{dtype} {slot}-slot fault: not bitwise clean K={k}")
+        del vf, enc
+        clean = ops.fused_lloyd_ft(plan, c, inj=no_l)
+        expect(int(clean[4]) == 0 and all(
+            bool(torch.equal(a, b)) for a, b in zip(clean[:4], fl)),
+               f"clean {dtype} fused_lloyd_ft detected {int(clean[4])} or "
+               f"is not fused_lloyd K={k}")
+        rec["ft_cases"] = check_ft_cases(torch, ops, llft, plan, c, cp, cn,
+                                         params, am, k, f"{dtype} K={k}")
         out.append(rec)
-        del plan, r, q, q_p, clean, hit
+        del plan, r, q, clean, fl, fused
         torch.cuda.empty_cache()
     return out
 
@@ -2091,7 +2449,8 @@ def phase_lowp(torch, ops, hw, kern, KMeans, FaultPolicy, InjectionCampaign,
                 "lloyd_step": ll.lloyd_step,
                 "distance_argmin_ft": daft.distance_argmin_ft,
                 "lloyd_step_ft": llft.lloyd_step_ft,
-                "tile_update": ll.tile_update,
+                "encode_centroids": daft.encode_centroids,
+                "verify_entries": llft.verify_entries,
                 "update_entries": up.update_entries,
                 "tree_reduce": up.tree_reduce}
     replaces = {"distance_argmin": "src/repro/kernels/distance_argmin.py:140",
@@ -2099,7 +2458,9 @@ def phase_lowp(torch, ops, hw, kern, KMeans, FaultPolicy, InjectionCampaign,
                 "distance_argmin_ft":
                     "src/repro/kernels/distance_argmin_ft.py:207",
                 "lloyd_step_ft": "src/repro/kernels/lloyd_step_ft.py:292",
-                "tile_update": "src/repro/kernels/lloyd_step.py:162"}
+                "encode_centroids":
+                    "src/repro/kernels/distance_argmin_ft.py:207 (the C "
+                    "encodings of its checksums; the port's own pre-pass)"}
     base = dict(n_clusters=K_FULL, max_iter=ITERS, tol=0.0, random_state=SEED)
     xn = (x * x).sum(1)
 
@@ -2194,9 +2555,11 @@ def phase_lowp(torch, ops, hw, kern, KMeans, FaultPolicy, InjectionCampaign,
         no_d, no_l = daft.no_injection().cuda(), llft.no_injection().cuda()
         gemm = 2.0 * M_FULL * K_FULL * F_FULL
         x_bytes, c_bytes = 2.0 * M_FULL * F_FULL, 2.0 * K_FULL * F_FULL
-        part_bytes = 4.0 * nt * K_FULL * F_FULL + 4.0 * nt * K_FULL
         assign_out = 8.0 * M_FULL
         cn_lo = cn.to(dt)
+        n_present = int((ll.lloyd_step(plan.xp, cp, cn, plan.m, **tiles)[4]
+                         >= 0).sum())
+        ent_bytes = entry_bytes(n_present, F_FULL, K_FULL, nt)
 
         def library_call():
             d = torch.addmm(cn_lo[None, :], plan.xp, cp.T, beta=1.0,
@@ -2212,7 +2575,7 @@ def phase_lowp(torch, ops, hw, kern, KMeans, FaultPolicy, InjectionCampaign,
              lambda: ll.lloyd_step(plan.xp, cp, cn, plan.m, **tiles),
              lambda: ll.lloyd_step_plain(plan.xp, cp, cn, plan.m, bm),
              gemm + M_FULL * F_FULL,
-             x_bytes + c_bytes + assign_out + part_bytes),
+             x_bytes + c_bytes + assign_out + ent_bytes),
             ("distance_argmin_ft",
              lambda: daft.distance_argmin_ft(plan.xp, cp, cn, no_d,
                                              factor=factor, **tiles),
@@ -2226,10 +2589,32 @@ def phase_lowp(torch, ops, hw, kern, KMeans, FaultPolicy, InjectionCampaign,
                                               bm, bk, params.block_f,
                                               factor),
              gemm + 3.0 * M_FULL * F_FULL, x_bytes + c_bytes + assign_out
-             + part_bytes + 4.0 * nt * (2 * F_FULL + 3)),
+             + ent_bytes + 4.0 * M_FULL + 4.0 * nt * (2 * F_FULL + 3)),
+            # the FT kernels' pre-pass: C read once, its split encodings
+            # written once
+            ("encode_centroids",
+             lambda: daft.encode_centroids(cp),
+             lambda: daft.encode_centroids_plain(cp),
+             2.0 * K_FULL * F_FULL, c_bytes + 16.0 * (kp // bk) * F_FULL),
         ]
         for name, kfn, pfn, ops_n, bytes_n in specs:
-            k_out, p_out = kfn(), pfn()
+            if name == "encode_centroids":
+                got, want = kfn(), pfn()
+                expect(bool(torch.equal(got, want)),
+                       f"{dtype} encode_centroids is not bit for bit its "
+                       f"plain version")
+                b_ms, b_by = bound(ops_n, bytes_n)
+                rows.append({"name": f"{name}_{tag}", "route": "cuda",
+                             "source": "src/repro_torch/csrc/fk_kernels.cu",
+                             "replaces": replaces[name],
+                             "launches": launches[name], "max_abs_err": 0.0,
+                             "ms": cuda_ms(kfn, reps=20),
+                             "plain_ms": cuda_ms(pfn, reps=2),
+                             "bound_ms": b_ms, "bound_by": b_by,
+                             "library_ms": None})
+                continue
+            k_out = canon(up, name, kfn(), bm)
+            p_out = canon(up, name, pfn(), bm)
             near = near_tie_rows(torch, plan.xp, cp, cn, k_out[1], p_out[1],
                                  f"{dtype} {name} at the phase-3 shape")
             # distances against the plain version; an update's sums against
@@ -2243,8 +2628,9 @@ def phase_lowp(torch, ops, hw, kern, KMeans, FaultPolicy, InjectionCampaign,
                          < plan.m).view(nt, bm)
                 s_p, c_p = ll.tile_update_plain(
                     plan.xp.view(nt, bm, fp), k_out[1].view(nt, bm), valid, kp)
-                ok, s_err = rel_ok(k_out[s_i], s_p, 1e-5)
-                expect(ok and bool(torch.equal(k_out[s_i + 1], c_p)),
+                ok, s_err = rel_ok(k_out[s_i], up.tree_sum_plain(s_p), 1e-5)
+                expect(ok and bool(torch.equal(k_out[s_i + 1],
+                                               up.tree_sum_plain(c_p))),
                        f"{dtype} {name} sums/counts vs the plain update")
                 err = max(err, s_err)
                 del s_p, c_p
@@ -2274,30 +2660,20 @@ def phase_lowp(torch, ops, hw, kern, KMeans, FaultPolicy, InjectionCampaign,
                                         am.view(nt, bm), valid, kp)
         update()
         p_s, p_c = update_plain()
-        ok, upd_err = rel_ok(sums_p, p_s, 1e-5)
+        ok, _ = rel_ok(sums_p, p_s, 1e-5)
         expect(ok and bool(torch.equal(counts_p, p_c)),
                f"{dtype} tile_update disagrees with its plain version")
         del p_s, p_c
         torch.cuda.empty_cache()
-        am_long = am.long()
-        upd_bound, upd_by = bound(M_FULL * F_FULL,
-                                  x_bytes + 4.0 * M_FULL + part_bytes)
-        rows.append({
-            "name": f"tile_update_{tag}", "route": "cuda",
-            "source": "src/repro_torch/csrc/fk_kernels.cu",
-            "replaces": replaces["tile_update"],
-            "launches": launches["tile_update"], "max_abs_err": upd_err,
-            "ms": cuda_ms(update), "plain_ms": cuda_ms(update_plain, reps=2),
-            "bound_ms": upd_bound, "bound_by": upd_by,
-            "library_ms": cuda_ms(lambda: torch.zeros(
-                kp, fp, dtype=dt, device=x.device).index_add_(0, am_long,
-                                                              plan.xp))})
+        r["dense_tile_update_ms"] = cuda_ms(update)
         r["compact_update"], rows_c = compact_update_rows(
             torch, up, plan, am, kp, bm, sums_p, counts_p, x_bytes, bound,
             launches, tag)
         rows.extend(rows_c)
-        del sums_p, counts_p, am, am_long, valid
+        del sums_p, counts_p, am, valid
         torch.cuda.empty_cache()
+        r.update(onepass_rows(torch, ops, up, llft, plan, centres, params,
+                              bound, f"_{tag}")[0])
         margins[dtype] = lowp_margins(torch, ops, daft, llft, plan, cp, cn,
                                       params, tiles, dt)
         r["queue3_margins"] = margins[dtype]
@@ -2312,7 +2688,7 @@ def phase_lowp(torch, ops, hw, kern, KMeans, FaultPolicy, InjectionCampaign,
     rec["library_calls"] = {
         "kernels": "addmm(cn, X, C^T, alpha=-2) + min(dim=1) in the 2-byte "
                    "dtype (tensor cores, 2-byte output)",
-        "tile_update": "index_add_ into a (Kp, Fp) 2-byte accumulator"}
+        "update_entries": "index_add_ into a (Kp, Fp) 2-byte accumulator"}
     del plan, cp, cn, xn
     torch.cuda.empty_cache()
     return rec, rows
@@ -2579,9 +2955,8 @@ def phase_lowp_rest_kernels(torch, ops, ll, llp, mma, dtype) -> dict:
                    f"the plain update K={k}")
             s_err = max(s_err, e)
             one = ll.lloyd_step(plan.xp[i], cp[i], cn[i], n, **tiles)
-            expect(all(bool(torch.equal(g[i], o)) for g, o in zip(got, one)),
-                   f"{dtype} batched problem {i} is not bit for bit "
-                   f"lloyd_step K={k}")
+            same_step(torch, up, [g[i] for g in got], one, bm,
+                      f"{dtype} batched problem {i} K={k}")
         check_tree_batched(torch, up, got[2], got[3],
                            f"{dtype} batched partials K={k}",
                            order_matters=False)
@@ -2631,9 +3006,8 @@ def phase_lowp_rest_kernels(torch, ops, ll, llp, mma, dtype) -> dict:
         zero = torch.zeros_like(skip)
         got = llp.lloyd_step_pruned(plan.xp, cp, cn, xn, zero, plan.m, **tiles)
         one = ll.lloyd_step(plan.xp, cp, cn, plan.m, **tiles)
-        expect(all(bool(torch.equal(a, b_)) for a, b_ in zip(got, one)),
-               f"{dtype} lloyd_step_pruned without skips is not the 2-byte "
-               f"lloyd_step K={k}")
+        same_step(torch, up, got, one, bm,
+                  f"{dtype} lloyd_step_pruned without skips K={k}")
         want = llp.lloyd_step_pruned_plain(plan.xp, cp, cn, xn, zero, plan.m,
                                            bm, bk)
         ok, rec["no_skip_tmin_sq_err"] = tile_bound_ok(torch, got[4], want[4],
@@ -3221,11 +3595,12 @@ def main() -> int:
                 "lloyd_step": ll.lloyd_step,
                 "distance_argmin_ft": daft.distance_argmin_ft,
                 "lloyd_step_ft": llft.lloyd_step_ft,
-                "tile_update": ll.tile_update,
+                "verify_entries": llft.verify_entries,
                 "update_entries": up.update_entries,
                 "tree_reduce": up.tree_reduce}
     for w in wrappers.values():
         w.launches = 0
+    up.tree_reduce.kernel_launches.update(sparse=0, dense=0)
     base = dict(n_clusters=K_FULL, max_iter=ITERS, tol=0.0, random_state=SEED)
     km_seed, seed_s = wall(lambda: KMeans(fault=FaultPolicy.off(),
                                           **base).fit(x))
@@ -3276,6 +3651,9 @@ def main() -> int:
            "protected predict differs from unprotected predict")
     torch.cuda.synchronize()
     launches = {name: w.launches for name, w in wrappers.items()}
+    # the tree_reduce row is the variant over entries, the one these fits run
+    tree_kinds = dict(up.tree_reduce.kernel_launches)
+    launches["tree_reduce"] = tree_kinds["sparse"]
     off_ms = 1e3 * off_s / km_off.n_iter_
     ft_ms = 1e3 * ft_s / km_ft.n_iter_
     emit({"phase": 4, "clean_detected": km_ft.detected_errors_,
@@ -3284,7 +3662,8 @@ def main() -> int:
           1e3 * camp_s / km_camp.n_iter_, "ft_overhead_vs_fused":
           ft_ms / off_ms, "ft_overhead_vs_lloyd":
           ft_ms / (1e3 * ll_s / km_ll.n_iter_), "score": ft_score,
-          "n_host_syncs": km_ft._n_host_syncs})
+          "n_host_syncs": km_ft._n_host_syncs,
+          "tree_reduce_variants": tree_kinds})
     for name, n in launches.items():
         expect(n > 0, f"{name} was not launched on the main path")
 
@@ -3309,6 +3688,9 @@ def main() -> int:
     part_bytes = 4.0 * nt * K_FULL * F_FULL + 4.0 * nt * K_FULL
     assign_out = 8.0 * M_FULL
     padded_gemm = 2.0 * mp * kp * fp
+    n_present = int((ll.lloyd_step(plan.xp, cp, cn, plan.m, **tiles)[4]
+                     >= 0).sum())
+    ent_bytes = entry_bytes(n_present, F_FULL, K_FULL, nt)
 
     def library_call():
         d = torch.addmm(cn[None, :], plan.xp, cp.T, beta=1.0, alpha=-2.0)
@@ -3333,7 +3715,7 @@ def main() -> int:
          lambda: ll.lloyd_step_plain(plan.xp, cp, cn, plan.m,
                                      params.block_m),
          gemm + M_FULL * F_FULL,
-         x_bytes + c_bytes + assign_out + part_bytes),
+         x_bytes + c_bytes + assign_out + ent_bytes),
         ("distance_argmin_ft", "src/repro/kernels/distance_argmin_ft.py:207",
          lambda: daft.distance_argmin_ft(plan.xp, cp, cn, no_d,
                                          factor=factor, **tiles),
@@ -3349,11 +3731,11 @@ def main() -> int:
                                           params.block_m, params.block_k,
                                           params.block_f, factor),
          gemm + 3.0 * M_FULL * F_FULL, x_bytes + c_bytes + assign_out
-         + part_bytes + 4.0 * nt * (2 * F_FULL + 3)),
+         + ent_bytes + 4.0 * M_FULL + 4.0 * nt * (2 * F_FULL + 3)),
     ]
     for name, replaces, kfn, pfn, ops_n, bytes_n in specs:
-        k_out = kfn()
-        p_out = pfn()
+        k_out = canon(up, name, kfn(), params.block_m)
+        p_out = canon(up, name, pfn(), params.block_m)
         pairs = [(a, b) for a, b in zip(k_out, p_out) if a.is_floating_point()]
         err = max(max_err(a, b) for a, b in pairs)
         expect(all(rel_ok(a, b, 1e-5)[0] for a, b in pairs),
@@ -3372,11 +3754,13 @@ def main() -> int:
                      "bound_ms": b_ms, "bound_by": b_by,
                      "library_ms": lib_ms})
         torch.cuda.empty_cache()
-    # the update alone (emit_update over every row tile): the fused fit's
-    # two-pass update; one gated tile of it is the FT recompute
+    # the dense update alone (emit_update over every row tile: the parent's
+    # two-pass route, the reference every route is held to): bit for bit
+    # the dense one-pass kernel's (the batched launch of one problem)
     bm = params.block_m
     am = da.distance_argmin(plan.xp, cp, cn, **tiles)[1]
-    want_s, want_c = ll.lloyd_step(plan.xp, cp, cn, plan.m, **tiles)[2:]
+    want_s, want_c = (t[0] for t in ll.lloyd_step_batched(
+        plan.xp[None], cp[None], cn[None], plan.m, **tiles)[2:])
     sums_p, counts_p = torch.empty_like(want_s), torch.empty_like(want_c)
 
     def update():
@@ -3386,7 +3770,7 @@ def main() -> int:
     update()
     expect(bool(torch.equal(sums_p, want_s))
            and bool(torch.equal(counts_p, want_c)),
-           "tile_update is not bit for bit lloyd_step's update")
+           "tile_update is not bit for bit the dense one-pass update")
     mid = nt // 2
     sums_p[mid] = 0.0
     ll.tile_update(plan.xp, am, sums_p, counts_p, true_m=plan.m, block_m=bm,
@@ -3408,17 +3792,7 @@ def main() -> int:
     del p_s, p_c
     torch.cuda.empty_cache()
     am_long = am.long()
-    upd_bound, upd_by = bound(M_FULL * F_FULL,
-                              x_bytes + 4.0 * M_FULL + part_bytes)
-    rows.append({
-        "name": "tile_update", "route": "cuda",
-        "source": "src/repro_torch/csrc/fk_kernels.cu",
-        "replaces": "src/repro/kernels/lloyd_step.py:162",
-        "launches": launches["tile_update"], "max_abs_err": upd_err,
-        "ms": cuda_ms(update), "plain_ms": cuda_ms(update_plain, reps=2),
-        "bound_ms": upd_bound, "bound_by": upd_by,
-        "library_ms": cuda_ms(lambda: torch.zeros(
-            kp, fp, device="cuda").index_add_(0, am_long, plan.xp))})
+    dense_ms = cuda_ms(update)
     # the compact update (A: the per-tile pass, then the tree over its
     # entries) and the tree kernel on the dense partials (B), each bit for
     # bit the parent's route: these partials, then the torch tree
@@ -3435,32 +3809,27 @@ def main() -> int:
            "the tree kernel on lloyd_step's partials is not bit for bit the "
            "torch tree")
     del lloyd_tree
-    tree_bound, tree_by = bound(nt * K_FULL * F_FULL, part_bytes
-                                + 4.0 * (K_FULL * F_FULL + K_FULL))
-    rows.append({
-        "name": "tree_reduce", "route": "cuda",
-        "source": "src/repro_torch/csrc/fk_update.cu",
-        "replaces": "src/repro/kernels/ops.py:510 (_tree_sum, XLA in the "
-                    "reference; the port's own kernel)",
-        "launches": launches["tree_reduce"], "max_abs_err": 0.0,
+    # the dense variant at lloyd_step-sized partials (the pruned fit's
+    # shape; the one-pass fits reduce entries: the tree_reduce row)
+    dense_tree = {
         "ms": cuda_ms(tree),
-        "plain_ms": cuda_ms(lambda: (up.tree_sum_plain(sums_p),
-                                     up.tree_sum_plain(counts_p)), reps=2),
-        "bound_ms": tree_bound, "bound_by": tree_by,
-        "library_ms": cuda_ms(lambda: (sums_p.sum(0), counts_p.sum(0)))})
+        "torch_tree_ms": cuda_ms(lambda: (up.tree_sum_plain(sums_p),
+                                          up.tree_sum_plain(counts_p)),
+                                 reps=2),
+        "bound_ms": bound(nt * K_FULL * F_FULL, part_bytes
+                          + 4.0 * (K_FULL * F_FULL + K_FULL))[0],
+        "sum0_ms": cuda_ms(lambda: (sums_p.sum(0), counts_p.sum(0)))}
     del sums_p, counts_p
     torch.cuda.empty_cache()
     # the two-pass update as the fused fit runs it, and under DMR (a
     # replica, a compare, a recompute gated off); peak memory of each
     am_m = am[:plan.m]
 
-    def peak_gb(fn):
-        torch.cuda.synchronize()
-        base_bytes = torch.cuda.memory_allocated()
-        torch.cuda.reset_peak_memory_stats()
-        fn()
-        torch.cuda.synchronize()
-        return (torch.cuda.max_memory_allocated() - base_bytes) / 1e9
+    rec_o, rows_o = onepass_rows(torch, ops, up, llft, plan, c, params,
+                                 bound, "", launches)
+    rec5.update(rec_o)
+    rows.extend(rows_o)
+    rec5["dense_tile_update_ms"] = dense_ms
     rec5.update({
         "gemm_bound_padded_ms": padded_bounds,
         "tiled_update_peak_gb": peak_gb(
@@ -3472,9 +3841,7 @@ def main() -> int:
         "tiled_update_dmr_ms": cuda_ms(
             lambda: ops.tiled_update(plan, am_m, K_FULL, use_dmr=True),
             reps=3),
-        "lloyd_partials_tree": {"ms": rows[-1]["ms"],
-                                "torch_tree_ms": rows[-1]["plain_ms"],
-                                "bound_ms": tree_bound}})
+        "dense_partials_tree": dense_tree})
     rec5["tiled_update_over_index_add"] = (rec5["tiled_update_ms"]
                                            / rec5["index_add_ms"])
     emit(rec5)
@@ -3495,6 +3862,8 @@ def main() -> int:
                                          lib_ms, bound)
     emit(rec9)
     rows.extend(rows9)
+    dense_row = next(r for r in rows if r["name"] == "tree_reduce_dense")
+    dense_row["launches"] += rec9["tree_reduce_variants"]["dense"]
 
     # --- phase 10: detect (offline ABFT), the ABFT GEMM, the DMR update ----
     rec10, rows10 = phase_detect(torch, ops, hw, ll, mma, cud, KMeans,

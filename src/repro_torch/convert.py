@@ -12,7 +12,10 @@ names the same tile, and ``config["compute_dtype"]`` ("float32",
 fitted in bf16 or fp16 by one package loads into the other at that dtype.
 The reference's host-only single-problem backends become the port's kernel
 backends, whose plain versions are the port's CPU path:
-``int8_xla`` -> ``int8``, ``lloyd_pruned_xla`` -> ``lloyd_pruned``. Pruning
+``int8_xla`` -> ``int8``, ``lloyd_pruned_xla`` -> ``lloyd_pruned``,
+``lloyd_xla`` -> ``lloyd``, ``lloyd_ft_xla`` -> ``lloyd_ft``; every other
+name (``naive``, ``gemm``, ``gemm_fused`` and the kernel backends) passes
+through, the port registering each under the same name. Pruning
 bounds are never part of a state (every fit starts from fresh ones). A model
 fitted by one package predicts the same labels after loading into the
 other.
@@ -38,7 +41,8 @@ import numpy as np
 import torch
 
 _REF_WORKER_LOSS = "fail"
-_REF_BACKENDS = {"int8_xla": "int8", "lloyd_pruned_xla": "lloyd_pruned"}
+_REF_BACKENDS = {"int8_xla": "int8", "lloyd_pruned_xla": "lloyd_pruned",
+                 "lloyd_xla": "lloyd", "lloyd_ft_xla": "lloyd_ft"}
 _REF_BITS = {"bit_low": 20, "bit_high": 30}
 
 

@@ -5,6 +5,12 @@ Each maps (x (M, F) or a DataPlan, c (K, F)) to (assign (M,) int32, true
 squared distance (M,) f32, detected errors), one-pass backends adding
 (sums (K, F), counts (K,)):
 
+  naive       plain PyTorch: the paper's basic implementation, a
+              per-sample loop over chunks of 1024 rows, each row's
+              distances to every centroid without a GEMM, then the first
+              min
+  gemm        plain PyTorch: the paper's V1, the distance matrix
+              materialised, then a separate first-min pass
   gemm_fused  plain PyTorch: full distance matrix, then argmin (the
               cuML-style baseline; no kernel of this package)
   fused       the fused distance/argmin kernel (paper V4/V5)
@@ -62,6 +68,28 @@ def _row_norms(x) -> torch.Tensor:
 def _data(x) -> torch.Tensor:
     x = ops.f32_plan(x)
     return x.x if isinstance(x, ops.DataPlan) else x
+
+
+# rows a step of the naive backend (the reference's lax.map batch)
+NAIVE_BATCH = 1024
+
+
+def assign_naive(x, c: torch.Tensor):
+    rows = _data(x)
+    dt = torch.promote_types(rows.dtype, c.dtype)
+    cc = c.to(dt)
+    mins, args = [], []
+    for xi in rows.to(dt).split(NAIVE_BATCH):
+        mn, am = ref.first_min(((xi[:, None, :] - cc[None]) ** 2).sum(2))
+        mins.append(mn)
+        args.append(am)
+    return torch.cat(args), torch.cat(mins).float(), _zero(c.device)
+
+
+def assign_gemm(x, c: torch.Tensor):
+    d = ref.distance_matrix(_data(x), c)
+    mn, am = ref.first_min(d)
+    return am, mn, _zero(d.device)
 
 
 def assign_gemm_fused(x, c: torch.Tensor):
@@ -126,6 +154,12 @@ def assign_lloyd_ft(x, c: torch.Tensor, params=None,
     return am, md, det, sums, counts
 
 
+register_backend(AssignmentBackend(
+    "naive", assign_naive,
+    doc="paper's basic implementation: per-sample scalar loop, no GEMM"))
+register_backend(AssignmentBackend(
+    "gemm", assign_gemm,
+    doc="paper V1: GEMM + materialized D + separate first-min pass"))
 register_backend(AssignmentBackend(
     "gemm_fused", assign_gemm_fused,
     doc="plain PyTorch distance matrix + argmin (cuML-style baseline)"))

@@ -1,26 +1,35 @@
 // Hand-written Hopper (sm_90a) kernels for the FT K-means main paths.
 //
-// One templated tile kernel, lloyd_tile_kernel<BM, kFT, kUpdate>, carries
+// One templated tile kernel, lloyd_tile_kernel<BM, kFT, kUpd>, carries
 // five Pallas TPU kernels of the reference package:
 //
-//   kFT  kUpdate   problems  replaces (src/repro/kernels/...)
-//   no   no        1         distance_argmin.py    distance_argmin
-//   no   yes       1         lloyd_step.py         lloyd_step
-//   no   yes       B         lloyd_step.py         lloyd_step_batched
-//   yes  no        1         distance_argmin_ft.py distance_argmin_ft
-//   yes  yes       1         lloyd_step_ft.py      lloyd_step_ft
+//   kFT  kUpd      problems  replaces (src/repro/kernels/...)
+//   no   none      1         distance_argmin.py    distance_argmin
+//   no   entries   1         lloyd_step.py         lloyd_step
+//   no   dense     B         lloyd_step.py         lloyd_step_batched
+//   yes  none      1         distance_argmin_ft.py distance_argmin_ft
+//   yes  entries   1         lloyd_step_ft.py      lloyd_step_ft
 //
 // Its inputs are f32 (CUDA-core FMAs). lloyd_tile_mma_kernel<T, BM, kFT,
-// kUpdate> is the same kernel for __nv_bfloat16 or __half X and C (the
+// kUpd> is the same kernel for __nv_bfloat16 or __half X and C (the
 // reference's 2-byte templates): mma.sync m16n8k16 on the tensor cores with
-// f32 accumulation, and the f32 kernel's checksums, epilogues and update,
-// for every row of the table.
+// f32 accumulation, its ABFT checksums on the tensor cores and in registers
+// (see the kernel), and the f32 kernel's decode, epilogues and update, for
+// every row of the table; lloyd_encode_kernel<T> is its FT rows' pre-pass.
 //
-// The batched one-pass step is the single-problem instantiation launched
+// The update: the single-problem one-pass steps (kEntryUpdate) write the
+// tile's entries (write_entries, fk_entries.cuh: one row per present
+// cluster, its sums, count and idx slot), the layout of the two-pass
+// update's update_entries_kernel (fk_update.cu), which reduces them with the
+// same tree kernel; O(M Fp) bytes, where the reference's dense (M/BM, Kp,
+// Fp) block is O(M Kp Fp / BM). The batched step keeps the dense block
+// (kDenseUpdate, emit_update) and is the single-problem kernel launched
 // over a (row tile, problem) grid: blockIdx.y picks the problem and moves
 // every base pointer to that problem's slab, so problem b of a batched
-// launch runs, bit for bit, the code lloyd_step runs on problem b alone.
-// Only <BM, false, true> (and <T, BM, false, true>) has the problem axis.
+// launch runs, bit for bit, the code one problem's dense launch runs. Only
+// <BM, false, kDenseUpdate> (and <T, BM, false, kDenseUpdate>) has the
+// problem axis. Dense or entries, each (tile, k, f) sum is the same
+// sequence of adds, so their trees give the same bits.
 // kmeanspp_round_kernel replaces kmeanspp_init.py kmeanspp_round (one D^2
 // seeding round over (row tile, problem)).
 // lloyd_pruned_kernel replaces lloyd_step_pruned.py lloyd_step_pruned: the
@@ -44,21 +53,22 @@
 // shadow in reversed order within each 32-row group), summed per slab in a
 // second pass and compared in a third. No float atomics anywhere.
 //
-// Instantiations: lloyd_tile_kernel 2 (BM = 64, 128) x 4 (kFT, kUpdate) = 8,
-// lloyd_tile_mma_kernel 2 (T) x 2 (BM) x 4 = 16, update_tiles_kernel 3 (T)
-// x 2 (BM), kmeanspp_round_kernel 1, lloyd_pruned_kernel 2 (BM),
+// Instantiations: lloyd_tile_kernel 2 (BM = 64, 128) x 5 (kFT, kUpd: the
+// table's rows) = 10, lloyd_tile_mma_kernel 2 (T) x 2 (BM) x 5 = 20,
+// lloyd_encode_kernel 2 (T), update_tiles_kernel 3 (T) x 2 (BM),
+// kmeanspp_round_kernel 1, lloyd_pruned_kernel 2 (BM),
 // lloyd_pruned_mma_kernel 2 (T) x 2 (BM), int8_tile_kernel 2 (BM),
-// matmul_abft_kernel 1, the three DMR kernels: 43 kernels.
+// matmul_abft_kernel 1, the three DMR kernels: 53 kernels.
 //
 // The epilogues are single __device__ definitions (tile_min_argmin,
-// fold_min, locate_and_correct, emit_update; the warp reductions and
-// locate_tile in fk_abft.cuh, shared with fk_abft_gemm.cu) so the variants
-// agree bit for bit by construction, as the reference's shared
+// fold_min, locate_and_correct, emit_update, emit_entries; the warp
+// reductions and locate_tile in fk_abft.cuh, shared with fk_abft_gemm.cu;
+// write_entries in fk_entries.cuh, shared with fk_update.cu) so the
+// variants agree bit for bit by construction, as the reference's shared
 // tile_min_argmin/_emit_update do.
-// update_tiles_kernel launches emit_update alone: over every row tile it is
-// the two-pass centroid update (ops.tiled_update), in the one-pass kernels'
-// summation order by construction; for one row tile it is the recompute of a
-// tile whose update checksums mismatched (ops._verify_update_partials).
+// update_tiles_kernel launches emit_update alone over every row tile (or
+// one): the dense route, the CPU's two-pass update and the reference every
+// route's bits are held to.
 //
 // Design (right and simple first):
 //   * one thread block owns one row tile of BM rows (the TPU grid's row axis);
@@ -74,15 +84,16 @@
 //     (Ds); row r's min/argmin is scanned by thread r with a strict '<', so
 //     the lowest index wins a tie inside a tile and the earlier tile wins a
 //     tie across tiles -- the jnp.argmin tie-break;
-//   * ABFT (kFT): expected e1/e2 column and row checksums accumulate in f32
-//     from the staged chunks (2-byte values widened, exactly, as the
-//     reference's xf/cf casts); at each (row tile, centroid tile) interval
-//     the observed checksums of Ds are compared, a fault is located by the e2/e1 ratio and
-//     corrected in Ds before the min/argmin scan;
-//   * update (kUpdate): rows are ranked by (cluster, row) in shared memory and
-//     each (k, f) partial sum is one thread's sequential sum over its
-//     cluster's rows in row order -- no atomics, so the sums are
-//     deterministic and a recompute reproduces them bit for bit;
+//   * ABFT (kFT), f32: expected e1/e2 column and row checksums accumulate
+//     in f32 from the staged chunks; at each (row tile, centroid tile)
+//     interval the observed checksums of Ds are compared, a fault is
+//     located by the e2/e1 ratio and corrected in Ds before the min/argmin
+//     scan (2 bytes: the same rule on tensor-core checksums, see
+//     lloyd_tile_mma_kernel);
+//   * update: rows are ranked by (cluster, row) in shared memory and each
+//     (k, f) sum is one lane's sequential sum over its cluster's rows in
+//     row order -- no atomics, so the sums are deterministic and a
+//     recompute reproduces them bit for bit;
 //   * seeding round: the block stages 256 rows x 32 features of its tile in
 //     shared memory (coalesced), thread r dots row r with the centroid row,
 //     and the tile sum is a fixed-order warp butterfly plus an in-order sum
@@ -90,9 +101,10 @@
 //
 // Bound on the H100: the distance GEMM, 2*M*Kp*Fp FLOPs on f32 CUDA cores
 // (67 TFLOP/s), above the bytes of X (read once per centroid tile, mostly
-// from L2) and the (M/BM, Kp, Fp) partial-sum buffer of the update variants.
-// At bf16/fp16 the GEMM's tensor-core bound (989 TFLOP/s) falls below the
-// bytes: X once and, for the update variants, the f32 partial-sum buffer.
+// from L2) and the update's entries (O(M Fp)). At bf16/fp16 the GEMM's
+// tensor-core bound (989 TFLOP/s) and the bytes of 2-byte X and the f32
+// entries are close (0.27 and 0.24 ms at M = 2^20, F = 128, K = 1000); the
+// batched step's dense partial-sum buffer bounds it by bytes.
 // The 2-byte product is unpipelined (no ldmatrix, cp.async, wgmma or TMA).
 // The pruned step needs the GEMM of its computed tiles only; at 2-byte
 // inputs the partial-sum buffer's bytes bound it, as the update variants.
@@ -114,6 +126,7 @@
 #include <type_traits>
 
 #include "fk_abft.cuh"
+#include "fk_entries.cuh"
 #include "fk_mma.cuh"
 
 namespace {
@@ -124,6 +137,16 @@ constexpr int kBK = 128;     // centroid tile
 constexpr int kTN = kBK / 16;
 constexpr int kMaxProblems = 65535;   // gridDim.y: one problem per grid row
 constexpr int kRoundRows = kThreads;  // seeding: rows staged per step
+// the split C encodings of the 2-byte FT kernels: e1 and e2 over a centroid
+// tile scaled by 2^-kEnc1Shift and 2^-kEnc2Shift (ceil(log2 kBK) and
+// ceil(log2 (kBK (kBK + 1) / 2)), so fp16 parts never overflow)
+constexpr int kEnc1Shift = 7, kEnc2Shift = 14;
+static_assert(kBK == 128, "the encoding shifts are kBK = 128's");
+
+// The update a one-pass instantiation emits: none (distance_argmin[_ft]),
+// the dense (Kp, Fp) block of every row tile (lloyd_step_batched: emit_update)
+// or the tile's entries (lloyd_step, lloyd_step_ft: write_entries).
+enum UpdateMode { kNoUpdate = 0, kDenseUpdate = 1, kEntryUpdate = 2 };
 
 // Injection descriptor slots, as in the reference:
 //   distance slot: [0] enabled [1] m_tile [2] c_tile [3] f_tile [4] row
@@ -183,20 +206,35 @@ struct UpdLayout {
 
 // --- epilogue 1: min/argmin of one row of a distance tile -----------------
 // d = cn - 2*acc; the first (lowest-index) minimum wins inside the tile.
+// kSums (the 2-byte FT kernels): the same pass also sums the row's observed
+// checksums, s1 = sum_c acc[c], s2 = sum_c (c + 1) acc[c].
+template <bool kSums = false>
 __device__ __forceinline__ void tile_min_argmin(const float* ds_row,
                                                 const float* cn, int base_col,
-                                                float* lmin, int* larg) {
+                                                float* lmin, int* larg,
+                                                float* s1 = nullptr,
+                                                float* s2 = nullptr) {
   float best = cn[0] - 2.0f * ds_row[0];
   int arg = 0;
+  float a1 = ds_row[0], a2 = ds_row[0];
   for (int c = 1; c < kBK; ++c) {
-    float d = cn[c] - 2.0f * ds_row[c];
+    const float v = ds_row[c];
+    float d = cn[c] - 2.0f * v;
     if (d < best) {
       best = d;
       arg = c;
     }
+    if (kSums) {
+      a1 += v;
+      a2 = fmaf(float(c + 1), v, a2);
+    }
   }
   *lmin = best;
   *larg = arg + base_col;
+  if (kSums) {
+    *s1 = a1;
+    *s2 = a2;
+  }
 }
 
 // --- epilogue 2: fold a tile's (min, argmin) into the running row state ---
@@ -298,18 +336,76 @@ __device__ void emit_update(const int* am, int* key, int* order, int* skey,
   }
 }
 
-template <int BM, bool kFT, bool kUpdate>
+// --- epilogue 5: the one-pass update as entries (kEntryUpdate) -----------
+// write_entries on the tile's final labels (best_arg of thread tid < BM),
+// its scratch in the int region and, for the checksums' warp partials, in
+// Ds (free once the last centroid tile's min/argmin is folded). kFT: the
+// tile's expected update checksums come from the rows the sums load; then
+// the simulated SEU of the update slot lands on the tile's entry of the
+// cluster, or, where the tile has no row of that cluster, on the spare
+// entry row past the tiles' (row ntiles * BM): the dense block's zero row
+// plus delta, which idx[cluster][slot] then points at, so the tree and the
+// verification see the value the dense route would hold there. spare gets
+// (tile, cluster). Called by all threads of the block.
+template <typename T, int BM, bool kFT>
+__device__ void emit_entries(float* sm, int best_arg, const T* x, int mt,
+                             int true_m, const EntryOut& o,
+                             const int* __restrict__ inj,
+                             int* __restrict__ spare,
+                             float* __restrict__ ucheck,
+                             float* __restrict__ ccheck) {
+  using L = Layout<BM>;
+  using S = EntryScratch<BM, kThreads>;
+  static_assert(S::kInts <= 4 * BM, "the int region holds the writer's");
+  int* es = reinterpret_cast<int*>(sm) + L::kAm;
+  const int nseg = write_entries<T, BM, kThreads, kFT>(
+      best_arg, x, mt, true_m, o, false, es, sm + L::kDs,
+      kFT ? ucheck + size_t(mt) * 2 * o.fp : nullptr,
+      kFT ? ccheck + size_t(mt) * 2 : nullptr);
+  if (!kFT) return;
+  __syncthreads();
+  const UpdInj u = load_upd_inj(inj);
+  if (!u.enabled || mt != u.m_tile || u.row < 0 || u.row >= o.kp ||
+      u.col < 0 || u.col >= o.fp)
+    return;
+  int hit = -1;
+  for (int e = 0; e < nseg; ++e)
+    if (es[S::kKey + es[S::kSeg + e]] / BM == u.row) hit = e;
+  const int tid = threadIdx.x;
+  if (hit >= 0) {
+    if (tid == 0)
+      o.entries[(size_t(mt) * BM + hit) * o.fp + u.col] += u.delta;
+    return;
+  }
+  const size_t sp = size_t(o.ntiles) * BM;
+  for (int f = tid; f < o.fp; f += kThreads)
+    o.entries[sp * o.fp + f] = f == u.col ? 0.0f + u.delta : 0.0f;
+  if (tid == 0) {
+    o.ecnt[sp] = 0.0f;
+    o.ekey[sp] = u.row;
+    spare[0] = mt;
+    spare[1] = u.row;
+    o.idx[(size_t(u.row) << o.levels) + tree_slot(mt, o.ntiles, o.levels)] =
+        int(sp);
+  }
+}
+
+template <int BM, bool kFT, int kUpd>
 __global__ void __launch_bounds__(kThreads)
 lloyd_tile_kernel(const float* __restrict__ x, const float* __restrict__ c,
-                  const float* __restrict__ cn, const int* __restrict__ inj,
-                  float* __restrict__ mind, int* __restrict__ argmin,
-                  int* __restrict__ det, float* __restrict__ sums,
-                  float* __restrict__ counts, float* __restrict__ ucheck,
-                  float* __restrict__ ccheck, int kp, int fp, int bf,
-                  int true_m, float thr_factor) {
+                  const float* __restrict__ cn,
+                  const float* __restrict__ cenc,
+                  const int* __restrict__ inj, float* __restrict__ mind,
+                  int* __restrict__ argmin, int* __restrict__ det,
+                  float* __restrict__ xenc, float* __restrict__ sums,
+                  float* __restrict__ counts, int* __restrict__ idx,
+                  int* __restrict__ ekey, int* __restrict__ spare,
+                  float* __restrict__ ucheck, float* __restrict__ ccheck,
+                  int kp, int fp, int bf, int true_m, int levels,
+                  float thr_factor) {
   using L = Layout<BM>;
   constexpr int kTM = BM / 16;
-  if (!kFT && kUpdate) {
+  if (kUpd == kDenseUpdate) {
     // problem blockIdx.y of a batched launch: every base pointer moves to
     // its problem's slab of nt = gridDim.x row tiles (offsets in size_t:
     // B*Mp*Fp passes 2^31). Only this instantiation, which lloyd_step and
@@ -496,56 +592,72 @@ lloyd_tile_kernel(const float* __restrict__ x, const float* __restrict__ c,
     argmin[m0 + tid] = best_arg;
   }
   if (kFT && tid == 0) det[mt] = det_count;
-  if (!kUpdate) return;
-
-  int* am = smi + L::kAm;
-  if (tid < BM) am[tid] = best_arg;
-  float* sums_t = sums + size_t(mt) * kp * fp;
-  emit_update<float, BM>(am, smi + L::kKey, smi + L::kOrder, smi + L::kSKey,
-                         x, m0, true_m, kp, fp, sums_t,
-                         counts + size_t(mt) * kp);
-  if (!kFT) return;
-
-  // expected update checksums from the assignment and X, never from the
-  // sums they verify: valid^T X and (valid * (am + 1))^T X
-  for (int f = tid; f < fp; f += kThreads) {
-    float u0 = 0.0f, u1 = 0.0f;
-    for (int r = 0; r < BM && m0 + r < true_m; ++r) {
-      const float v = x[size_t(m0 + r) * fp + f];
-      u0 += v;
-      u1 = fmaf(float(am[r] + 1), v, u1);
-    }
-    ucheck[size_t(mt) * 2 * fp + f] = u0;
-    ucheck[size_t(mt) * 2 * fp + fp + f] = u1;
+  if constexpr (kUpd == kEntryUpdate) {
+    const EntryOut o{sums, counts, idx, ekey, kp, fp, levels, int(gridDim.x)};
+    emit_entries<float, BM, kFT>(sm, best_arg, x, mt, true_m, o, inj, spare,
+                                 ucheck, ccheck);
+  } else if constexpr (kUpd == kDenseUpdate) {
+    int* am = smi + L::kAm;
+    if (tid < BM) am[tid] = best_arg;
+    emit_update<float, BM>(am, smi + L::kKey, smi + L::kOrder,
+                           smi + L::kSKey, x, m0, true_m, kp, fp,
+                           sums + size_t(mt) * kp * fp,
+                           counts + size_t(mt) * kp);
   }
-  if (tid == 0) {
-    float c0s = 0.0f, c1s = 0.0f;
-    for (int r = 0; r < BM && m0 + r < true_m; ++r) {
-      c0s += 1.0f;
-      c1s += float(am[r] + 1);
-    }
-    ccheck[mt * 2] = c0s;
-    ccheck[mt * 2 + 1] = c1s;
-  }
-  __syncthreads();
-  // simulated SEU in the update product, after the invariant side
-  const UpdInj uinj = load_upd_inj(inj);
-  if (tid == 0 && uinj.enabled && mt == uinj.m_tile)
-    sums_t[size_t(uinj.row) * fp + uinj.col] += uinj.delta;
 }
 
 // --- bf16 / fp16: the tile kernel on the tensor cores ----------------------
-// lloyd_tile_mma_kernel<T, BM, kFT, kUpdate> is lloyd_tile_kernel above with
+// lloyd_tile_mma_kernel<T, BM, kFT, kUpd> is lloyd_tile_kernel above with
 // its f32 product replaced by MmaProduct<T, BM>: stage() copies one
 // kChunk-feature chunk of X's row tile and C's centroid tile to shared
 // memory (regions L::kXs, L::kCs), mac() adds the chunk's product on the
 // tensor cores, xs(f, r) / cs(f, r) read staged element (row r, feature f)
-// widened to f32 for the checksum encodings, add_at() adds to one element
-// (the simulated SEU), store() writes the accumulator to Ds. Checksums,
-// locate_and_correct, tile_min_argmin / fold_min and emit_update are the
-// f32 kernel's own functions, so the instantiations of one T agree bit for
-// bit. (The f32 kernel keeps its inline product: the same code behind a
-// product object ran 0.5-3 % slower on an H100, PERF.md.)
+// widened to f32, add_at() adds to one element (the simulated SEU),
+// store() writes the accumulator to Ds. tile_min_argmin / fold_min,
+// locate_and_correct, emit_update and emit_entries are the f32 kernel's
+// own functions, so the instantiations of one T agree bit for bit. (The
+// f32 kernel keeps its inline product: the same code behind a product
+// object ran 0.5-3 % slower on an H100, PERF.md.)
+//
+// Its ABFT (kFT) is the paper's tensor-core scheme (as the 2-byte ABFT
+// GEMM's, fk_abft_gemm.cu), where the f32 kernel's runs on the CUDA cores:
+//   * C's e1 / e2 encodings over each centroid tile come once a step from
+//     lloyd_encode_kernel, split into three T parts a value (cenc (Kp/kBK,
+//     8, Fp): rows 0-2 e1 2^-7, rows 3-5 e2 2^-14, rows 6-7 zero), staged
+//     with each C chunk as 8 more rows. The expected row checksums X C^T e
+//     are one more n8 fragment of mma.sync a k-step (chk): warp w takes its
+//     m fragment w % 4, so each row is done once and a warp adds one MMA to
+//     its 16; at the tile's end a quad's shuffles gather the parts, summed
+//     (hi + mid) + lo and scaled back;
+//   * X's e1 / e2 encodings over the row tile are computed once, in the
+//     first centroid tile, from the staged chunks (8 partials a feature,
+//     then a fixed-order sum), kept in xenc (Mp/BM, 2, Fp) and reloaded with
+//     each later chunk; the expected column checksums e^T X C^T are
+//     CUDA-core FMAs on them with no barrier of their own: lane 4g + q of
+//     warp w takes columns 16 w + g and 16 w + g + 8, words q, q + 4, ..
+//     of the staged C rows (conflict-free), and a quad's shuffles sum the
+//     four partials at the tile's end;
+//   * the observed checksums are sums over the stored tile in shared memory:
+//     a row's in the pass that takes its min / argmin (tile_min_argmin
+//     <true>), a column's by one more thread (conflict-free; all 256
+//     threads at BM = 128), in the same step as the residuals and the
+//     block's maxima; a tile that detects is decoded, corrected and
+//     scanned again (taking the sums from the accumulator registers by
+//     warp shuffles instead made ptxas spill under the 128-register cap,
+//     and ran slower);
+//   * detection (the threshold rule on the expected side), location by
+//     the e2/e1 ratio, correction in Ds and the first-min are the f32
+//     kernel's (locate_and_correct, tile_min_argmin); the block first
+//     takes the same maxima (residuals, expected side) from its warps'
+//     maxima, so warp 0's decode runs only on a tile that detects;
+//   * two blocks an SM at every instantiation (__launch_bounds__ min 2:
+//     at most 128 registers a thread). Left to itself ptxas takes 128 and
+//     more for the FT and entry-update instantiations and 131-132 for the
+//     distance-only and dense-update ones (124 before this kernel held the
+//     FT and entry paths), one block an SM; on an H100 every variant then
+//     ran slower, the distance-only one 2.55 -> 3.55 ms and the batched
+//     one 4.09 -> 6.4 at M = 2^20, F = 128, K = 1000 and the PQ shape.
+//     Under the bound those two take 125 registers and spill nothing.
 //
 // MmaProduct: chunks staged row-major as T with a row pitch of kLd = kChunk
 // + 8 elements (80 bytes: a fragment load's 8 rows x 4 words fall in 32
@@ -561,9 +673,62 @@ struct MmaProduct {
   static constexpr int kMF = kWM / 16, kNF = 32 / 8;
   static_assert(sizeof(T) == 2, "2-byte input types only");
   static_assert(BM * kLd <= 2 * kChunk * (BM + 1) &&
-                    kBK * kLd <= 2 * kChunk * (kBK + 1),
-                "the staged chunks fit the f32 layout's regions");
+                    (kBK + 8) * kLd <= 2 * kChunk * (kBK + 1),
+                "the staged chunks (C's with its 8 encoding rows) fit the "
+                "f32 layout's regions");
+  // a finished tile's expected column sums [col][2], in the X region
+  static constexpr int kColExp = 0;
+  static_assert(kColExp + kBK * 2 <= kChunk * (BM + 1),
+                "the expected column sums fit the X region");
+  static_assert(kThreads / 32 * 16 == kBK, "a warp's 16 expected columns");
+
+  // the expected column checksums' FMAs of one staged chunk: this lane's
+  // columns 16 w + g (+ 8), words q + 4 s, on the chunk's X encodings
+  __device__ __forceinline__ static void col_fma(const float* sm,
+                                                 const float* enc,
+                                                 float* ce1, float* ce2) {
+    const T* Ch = reinterpret_cast<const T*>(sm + L::kCs);
+    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+    const int col = 16 * warp + lane / 4, q = lane % 4;
+#pragma unroll
+    for (int s = 0; s < 4; ++s) {
+      const int f = 2 * (q + 4 * s);
+      const float2 e1 = *reinterpret_cast<const float2*>(enc + f);
+      const float2 e2 = *reinterpret_cast<const float2*>(enc + kChunk + f);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const uint32_t w = ld32(Ch + (col + 8 * h) * kLd + f);
+        const T* v = reinterpret_cast<const T*>(&w);
+        const float v0 = to_f32(v[0]), v1 = to_f32(v[1]);
+        ce1[h] = fmaf(e1.y, v1, fmaf(e1.x, v0, ce1[h]));
+        ce2[h] = fmaf(e2.y, v1, fmaf(e2.x, v0, ce2[h]));
+      }
+    }
+  }
+
+
+  // a lane's expected column partials summed over its quad, into
+  // part[kColExp + col * 2]
+  __device__ __forceinline__ static void col_out(float* part, float* ce1,
+                                                 float* ce2) {
+    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float a = ce1[h], b = ce2[h];
+#pragma unroll
+      for (int off = 1; off < 4; off <<= 1) {
+        a += __shfl_xor_sync(0xffffffffu, a, off);
+        b += __shfl_xor_sync(0xffffffffu, b, off);
+      }
+      if (lane % 4 == 0) {
+        const int col = 16 * warp + lane / 4 + 8 * h;
+        part[kColExp + col * 2] = a;
+        part[kColExp + col * 2 + 1] = b;
+      }
+    }
+  }
   float acc[kMF][kNF][4];
+  float chk[4];   // expected row checksums: row g / g + 8, parts 2t, 2t + 1
 
   __device__ __forceinline__ void zero() {
 #pragma unroll
@@ -572,6 +737,8 @@ struct MmaProduct {
       for (int j = 0; j < kNF; ++j)
 #pragma unroll
         for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.0f;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) chk[e] = 0.0f;
   }
 
   template <int ROWS>
@@ -595,6 +762,15 @@ struct MmaProduct {
     stage_rows<kBK>(c, reinterpret_cast<T*>(sm + L::kCs), c0, f0, fp);
   }
 
+  // centroid tile kt's 8 split encoding rows, below the staged C chunk
+  __device__ __forceinline__ static void stage_enc(const T* __restrict__ cenc,
+                                                   float* sm, int kt, int f0,
+                                                   int fp) {
+    stage_rows<8>(cenc, reinterpret_cast<T*>(sm + L::kCs) + kBK * kLd,
+                  kt * 8, f0, fp);
+  }
+
+  template <bool kChk>
   __device__ __forceinline__ void mac(const float* sm) {
     const T* Xh = reinterpret_cast<const T*>(sm + L::kXs);
     const T* Ch = reinterpret_cast<const T*>(sm + L::kCs);
@@ -623,6 +799,13 @@ struct MmaProduct {
 #pragma unroll
         for (int j = 0; j < kNF; ++j)
           mma_16816<T>(acc[i][j], a[i], b[j][0], b[j][1]);
+      if (kChk) {
+        const T* p = Ch + (kBK + g) * kLd + ks + 2 * t;
+        const uint32_t e0 = ld32(p), e1 = ld32(p + 8);
+#pragma unroll
+        for (int i = 0; i < kMF; ++i)
+          if (i == warp % 4) mma_16816<T>(chk, a[i], e0, e1);
+      }
     }
   }
 
@@ -663,24 +846,52 @@ struct MmaProduct {
           Ds[(r0 + 16 * i + g + 8 * (e / 2)) * (kBK + 1) + n0 + 8 * j + 2 * t +
              e % 2] = acc[i][j][e];
   }
+
+  // The finished tile's expected row checksums from chk into erow1 /
+  // erow2. Called by all threads.
+  __device__ __forceinline__ void expected_rows(float* erow1,
+                                                float* erow2) const {
+    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+    const int g = lane / 4, t = lane % 4;
+    const int r0 = (warp / 4) * kWM;
+    // chk: lane 4g + t holds parts 2t, 2t + 1 of rows g and g + 8 (e1 hi,
+    // mid, lo, e2 hi, mid, lo, 0, 0); lane 4g gathers them
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float p0 = chk[2 * h], p1 = chk[2 * h + 1];
+      const float p2 = __shfl_down_sync(0xffffffffu, p0, 1);
+      const float p3 = __shfl_down_sync(0xffffffffu, p1, 1);
+      const float p4 = __shfl_down_sync(0xffffffffu, p0, 2);
+      const float p5 = __shfl_down_sync(0xffffffffu, p1, 2);
+      if (warp % 4 < kMF && t == 0) {
+        const int r = r0 + 16 * (warp % 4) + g + 8 * h;
+        erow1[r] = ldexpf((p0 + p1) + p2, kEnc1Shift);
+        erow2[r] = ldexpf((p3 + p4) + p5, kEnc2Shift);
+      }
+    }
+  }
 };
 
-template <typename T, int BM, bool kFT, bool kUpdate>
-__global__ void __launch_bounds__(kThreads)
+template <typename T, int BM, bool kFT, int kUpd>
+__global__ void __launch_bounds__(kThreads, 2)
 lloyd_tile_mma_kernel(const T* __restrict__ x, const T* __restrict__ c,
                       const float* __restrict__ cn,
+                      const T* __restrict__ cenc,
                       const int* __restrict__ inj, float* __restrict__ mind,
                       int* __restrict__ argmin, int* __restrict__ det,
-                      float* __restrict__ sums, float* __restrict__ counts,
+                      float* __restrict__ xenc, float* __restrict__ sums,
+                      float* __restrict__ counts, int* __restrict__ idx,
+                      int* __restrict__ ekey, int* __restrict__ spare,
                       float* __restrict__ ucheck, float* __restrict__ ccheck,
-                      int kp, int fp, int bf, int true_m, float thr_factor) {
+                      int kp, int fp, int bf, int true_m, int levels,
+                      float thr_factor) {
   using L = Layout<BM>;
   using P = MmaProduct<T, BM>;
-  if (!kFT && kUpdate) {
+  if (kUpd == kDenseUpdate) {
     // problem blockIdx.y of a batched launch, as in lloyd_tile_kernel: the
-    // one instantiation that lloyd_step and lloyd_step_batched share moves
-    // every base pointer to its problem's slab (a slab of 2-byte X is
-    // mp * fp * 2 bytes, fp a multiple of 32: 16-byte alignment holds)
+    // one instantiation that lloyd_step_batched launches moves every base
+    // pointer to its problem's slab (a slab of 2-byte X is mp * fp * 2
+    // bytes, fp a multiple of 32: 16-byte alignment holds)
     const size_t pb = blockIdx.y, nt = gridDim.x, mp = nt * BM;
     x += pb * mp * fp;
     c += pb * kp * fp;
@@ -695,14 +906,21 @@ lloyd_tile_mma_kernel(const T* __restrict__ x, const T* __restrict__ c,
   float* sm = sm_tile;
   float* Ds = sm + L::kDs;
   float* cnS = sm + L::kCn;
+  float* enc = sm + L::kEnc;   // the chunk's X encodings: e1, then e2
+  float* part = sm + L::kXs;   // a finished tile's expected column sums
   int* smi = reinterpret_cast<int*>(sm);
 
   const int tid = threadIdx.x;
   const int lane = tid % 32;
   const int mt = blockIdx.x, m0 = mt * BM;
   const int nkt = kp / kBK, nch = fp / kChunk, ch_per_tile = bf / kChunk;
-  DistInj dinj{0, 0, 0, 0, 0, 0, 0.0f};
-  if (kFT) dinj = load_dist_inj(inj);
+  // the distance slot's (centroid tile, chunk) in this row tile, or -1: the
+  // rest of the descriptor is read where it lands
+  int inj_kt = -1, inj_ch = -1;
+  if (kFT && inj[0] && inj[1] == mt) {
+    inj_kt = inj[2];
+    inj_ch = (inj[3] + 1) * ch_per_tile - 1;
+  }
 
   float best = FLT_MAX;   // running row state, owned by thread tid < BM
   int best_arg = 0;
@@ -712,115 +930,125 @@ lloyd_tile_mma_kernel(const T* __restrict__ x, const T* __restrict__ c,
     const int c0 = kt * kBK;
     P prod;
     prod.zero();
-    if (tid < kBK) {
-      cnS[tid] = cn[c0 + tid];
-      if (kFT) sm[L::kCol1 + tid] = sm[L::kCol2 + tid] = 0.0f;
-    } else if (kFT && tid - kBK < BM) {
-      sm[L::kRow1 + tid - kBK] = sm[L::kRow2 + tid - kBK] = 0.0f;
-    }
+    float ce1[2] = {0.0f, 0.0f}, ce2[2] = {0.0f, 0.0f};
+    if (tid < kBK) cnS[tid] = cn[c0 + tid];
 
     for (int ch = 0; ch < nch; ++ch) {
-      P::stage(x, c, sm, m0, c0, ch * kChunk, fp);
-      __syncthreads();
-      prod.mac(sm);
+      const int f0 = ch * kChunk;
+      P::stage(x, c, sm, m0, c0, f0, fp);
       if (kFT) {
-        // expected checksums from the resident chunk: e1/e2 encodings of
-        // the X and C chunks (8 partials per feature, then a fixed-order sum)
-        float* part = sm + L::kPart;
-        float* enc = sm + L::kEnc;
-        {
-          const int f = tid % kChunk, s = tid / kChunk;
-          float x1 = 0.0f, x2 = 0.0f, c1 = 0.0f, c2 = 0.0f;
-          for (int r = s; r < BM; r += 8) {
-            const float v = P::xs(sm, f, r);
-            x1 += v;
-            x2 = fmaf(float(r + 1), v, x2);
+        P::stage_enc(cenc, sm, kt, f0, fp);
+        if (kt > 0 && tid < 2 * kChunk)
+          enc[tid] = xenc[(size_t(mt) * 2 + tid / kChunk) * fp + f0 +
+                          tid % kChunk];
+      }
+      __syncthreads();
+      prod.template mac<kFT>(sm);
+      if (kFT) {
+        if (kt == 0) {
+          // X's encodings of the chunk, once a row tile: 8 partials a
+          // feature, then a fixed-order sum, kept for the later tiles
+          float* xpart = sm + L::kPart;
+          {
+            const int f = tid % kChunk, s = tid / kChunk;
+            float x1 = 0.0f, x2 = 0.0f;
+            for (int r = s; r < BM; r += 8) {
+              const float v = P::xs(sm, f, r);
+              x1 += v;
+              x2 = fmaf(float(r + 1), v, x2);
+            }
+            xpart[(0 * 8 + s) * kChunk + f] = x1;
+            xpart[(1 * 8 + s) * kChunk + f] = x2;
           }
-          for (int r = s; r < kBK; r += 8) {
-            const float v = P::cs(sm, f, r);
-            c1 += v;
-            c2 = fmaf(float(r + 1), v, c2);
+          __syncthreads();
+          if (tid < 2 * kChunk) {
+            const int q = tid / kChunk, f = tid % kChunk;
+            float s = 0.0f;
+            for (int p = 0; p < 8; ++p) s += xpart[(q * 8 + p) * kChunk + f];
+            enc[tid] = s;
+            xenc[(size_t(mt) * 2 + q) * fp + f0 + f] = s;
           }
-          part[(0 * 8 + s) * kChunk + f] = x1;
-          part[(1 * 8 + s) * kChunk + f] = x2;
-          part[(2 * 8 + s) * kChunk + f] = c1;
-          part[(3 * 8 + s) * kChunk + f] = c2;
+          __syncthreads();
         }
-        __syncthreads();
-        if (tid < 4 * kChunk) {
-          const int q = tid / kChunk, f = tid % kChunk;
-          float s = 0.0f;
-          for (int p = 0; p < 8; ++p) s += part[(q * 8 + p) * kChunk + f];
-          enc[q * kChunk + f] = s;
-        }
-        __syncthreads();
-        if (tid < kBK) {
-          float s1 = sm[L::kCol1 + tid], s2 = sm[L::kCol2 + tid];
-          for (int f = 0; f < kChunk; ++f) {
-            const float cv = P::cs(sm, f, tid);
-            s1 = fmaf(enc[0 * kChunk + f], cv, s1);
-            s2 = fmaf(enc[1 * kChunk + f], cv, s2);
-          }
-          sm[L::kCol1 + tid] = s1;
-          sm[L::kCol2 + tid] = s2;
-        } else if (tid - kBK < BM) {
-          const int r = tid - kBK;
-          float s1 = sm[L::kRow1 + r], s2 = sm[L::kRow2 + r];
-          for (int f = 0; f < kChunk; ++f) {
-            const float xv = P::xs(sm, f, r);
-            s1 = fmaf(xv, enc[2 * kChunk + f], s1);
-            s2 = fmaf(xv, enc[3 * kChunk + f], s2);
-          }
-          sm[L::kRow1 + r] = s1;
-          sm[L::kRow2 + r] = s2;
-        }
+        // expected column checksums on the CUDA cores: e^T X_chunk C_chunk^T
+        P::col_fma(sm, enc, ce1, ce2);
         // simulated SEU: after the last chunk of feature tile f_tile, into
         // the accumulator element of the thread (lane) that holds it
-        if (dinj.enabled && mt == dinj.m_tile && kt == dinj.c_tile &&
-            ch == (dinj.f_tile + 1) * ch_per_tile - 1)
+        if (kt == inj_kt && ch == inj_ch) {
+          const DistInj dinj = load_dist_inj(inj);
           prod.add_at(dinj.row, dinj.col, dinj.delta);
+        }
       }
       __syncthreads();
     }
 
     prod.store(Ds);
+    if (kFT) {
+      prod.expected_rows(sm + L::kRow1, sm + L::kRow2);
+      P::col_out(part, ce1, ce2);
+    }
     __syncthreads();
 
+    float lmin = 0.0f;   // row tid < BM's (min, argmin) in this tile
+    int larg = 0;
     if (kFT) {
-      if (tid < kBK) {
-        float s1 = 0.0f, s2 = 0.0f;
+      // the observed checksums of Ds: row tid's in its min/argmin pass,
+      // column tid - BM's by thread tid (conflict-free, all 256 threads at
+      // BM = 128); residuals against the expected ones, and the block's
+      // largest |residual| and |expected| (locate_and_correct's detection
+      // rule) from the warps' maxima
+      float res = 0.0f, mag = 0.0f;
+      if (tid < BM) {
+        float o1, o2;
+        tile_min_argmin<true>(Ds + tid * (kBK + 1), cnS, c0, &lmin, &larg,
+                              &o1, &o2);
+        const float e1 = sm[L::kRow1 + tid];
+        sm[L::kResR1 + tid] = o1 - e1;
+        sm[L::kResR2 + tid] = o2 - sm[L::kRow2 + tid];
+        res = fabsf(o1 - e1);
+        mag = fabsf(e1);
+      } else if (tid - BM < kBK) {
+        const int cc = tid - BM;
+        float o1 = 0.0f, o2 = 0.0f;
         for (int r = 0; r < BM; ++r) {
-          const float v = Ds[r * (kBK + 1) + tid];
-          s1 += v;
-          s2 += float(r + 1) * v;
-        }
-        sm[L::kResC1 + tid] = s1 - sm[L::kCol1 + tid];
-        sm[L::kResC2 + tid] = s2 - sm[L::kCol2 + tid];
-      } else if (tid - kBK < BM) {
-        const int r = tid - kBK;
-        float s1 = 0.0f, s2 = 0.0f;
-        for (int cc = 0; cc < kBK; ++cc) {
           const float v = Ds[r * (kBK + 1) + cc];
-          s1 += v;
-          s2 += float(cc + 1) * v;
+          o1 += v;
+          o2 = fmaf(float(r + 1), v, o2);
         }
-        sm[L::kResR1 + r] = s1 - sm[L::kRow1 + r];
-        sm[L::kResR2 + r] = s2 - sm[L::kRow2 + r];
+        const float e1 = part[P::kColExp + cc * 2];
+        sm[L::kCol1 + cc] = e1;
+        sm[L::kResC1 + cc] = o1 - e1;
+        sm[L::kResC2 + cc] = o2 - part[P::kColExp + cc * 2 + 1];
+        res = fabsf(o1 - e1);
+        mag = fabsf(e1);
+      }
+      float* wmax = sm + L::kPart;   // [warp][2]
+      res = warp_max(res);
+      mag = warp_max(mag);
+      if (lane == 0) {
+        wmax[2 * (tid / 32)] = res;
+        wmax[2 * (tid / 32) + 1] = mag;
       }
       __syncthreads();
-      if (tid < 32) {
-        const int d = locate_and_correct<BM>(sm, lane, thr_factor);
-        if (tid == 0) det_count += d;
+      for (int w = 0; w < kThreads / 32; ++w) {
+        res = fmaxf(res, wmax[2 * w]);
+        mag = fmaxf(mag, wmax[2 * w + 1]);
       }
-      __syncthreads();
-    }
-
-    if (tid < BM) {
-      float lmin;
-      int larg;
+      if (res > thr_factor * fmaxf(mag, 1.0f)) {  // uniform
+        // a detecting tile: decode and correct Ds, then its rows' min /
+        // argmin again on the corrected tile
+        if (tid < 32) {
+          const int d = locate_and_correct<BM>(sm, lane, thr_factor);
+          if (tid == 0) det_count += d;
+        }
+        __syncthreads();
+        if (tid < BM)
+          tile_min_argmin(Ds + tid * (kBK + 1), cnS, c0, &lmin, &larg);
+      }
+    } else if (tid < BM) {
       tile_min_argmin(Ds + tid * (kBK + 1), cnS, c0, &lmin, &larg);
-      fold_min(&best, &best_arg, lmin, larg);
     }
+    if (tid < BM) fold_min(&best, &best_arg, lmin, larg);
     __syncthreads();
   }
 
@@ -829,41 +1057,42 @@ lloyd_tile_mma_kernel(const T* __restrict__ x, const T* __restrict__ c,
     argmin[m0 + tid] = best_arg;
   }
   if (kFT && tid == 0) det[mt] = det_count;
-  if (!kUpdate) return;
-
-  int* am = smi + L::kAm;
-  if (tid < BM) am[tid] = best_arg;
-  float* sums_t = sums + size_t(mt) * kp * fp;
-  emit_update<T, BM>(am, smi + L::kKey, smi + L::kOrder, smi + L::kSKey, x,
-                     m0, true_m, kp, fp, sums_t, counts + size_t(mt) * kp);
-  if (!kFT) return;
-
-  // expected update checksums from the assignment and X, never from the
-  // sums they verify: valid^T X and (valid * (am + 1))^T X
-  for (int f = tid; f < fp; f += kThreads) {
-    float u0 = 0.0f, u1 = 0.0f;
-    for (int r = 0; r < BM && m0 + r < true_m; ++r) {
-      const float v = to_f32(x[size_t(m0 + r) * fp + f]);
-      u0 += v;
-      u1 = fmaf(float(am[r] + 1), v, u1);
-    }
-    ucheck[size_t(mt) * 2 * fp + f] = u0;
-    ucheck[size_t(mt) * 2 * fp + fp + f] = u1;
+  if constexpr (kUpd == kEntryUpdate) {
+    const EntryOut o{sums, counts, idx, ekey, kp, fp, levels, int(gridDim.x)};
+    emit_entries<T, BM, kFT>(sm, best_arg, x, mt, true_m, o, inj, spare,
+                             ucheck, ccheck);
+  } else if constexpr (kUpd == kDenseUpdate) {
+    int* am = smi + L::kAm;
+    if (tid < BM) am[tid] = best_arg;
+    emit_update<T, BM>(am, smi + L::kKey, smi + L::kOrder, smi + L::kSKey,
+                       x, m0, true_m, kp, fp, sums + size_t(mt) * kp * fp,
+                       counts + size_t(mt) * kp);
   }
-  if (tid == 0) {
-    float c0s = 0.0f, c1s = 0.0f;
-    for (int r = 0; r < BM && m0 + r < true_m; ++r) {
-      c0s += 1.0f;
-      c1s += float(am[r] + 1);
-    }
-    ccheck[mt * 2] = c0s;
-    ccheck[mt * 2 + 1] = c1s;
+}
+
+// C's split encodings for lloyd_tile_mma_kernel's row checksums, once a
+// step: thread (centroid tile kt = blockIdx.y, feature f) sums e1 = sum_j
+// C[kt kBK + j][f] and e2 = sum_j (j + 1) C[..][f] over the tile's kBK rows
+// in j order (2-byte values widened, exactly) and writes e1 2^-kEnc1Shift
+// and e2 2^-kEnc2Shift, each split into three T parts (split3), as cenc
+// rows kt * 8 + 0..5, zeros in rows 6-7. Reads C once.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+lloyd_encode_kernel(const T* __restrict__ c, T* __restrict__ cenc, int fp) {
+  const int kt = blockIdx.y, f = blockIdx.x * kThreads + threadIdx.x;
+  if (f >= fp) return;
+  float e1 = 0.0f, e2 = 0.0f;
+  for (int j = 0; j < kBK; ++j) {
+    const float v = to_f32(c[(size_t(kt) * kBK + j) * fp + f]);
+    e1 += v;
+    e2 = fmaf(float(j + 1), v, e2);
   }
-  __syncthreads();
-  // simulated SEU in the update product, after the invariant side
-  const UpdInj uinj = load_upd_inj(inj);
-  if (tid == 0 && uinj.enabled && mt == uinj.m_tile)
-    sums_t[size_t(uinj.row) * fp + uinj.col] += uinj.delta;
+  T p[8];
+  split3(ldexpf(e1, -kEnc1Shift), p[0], p[1], p[2]);
+  split3(ldexpf(e2, -kEnc2Shift), p[3], p[4], p[5]);
+  p[6] = p[7] = from_f32<T>(0.0f);
+#pragma unroll
+  for (int q = 0; q < 8; ++q) cenc[(size_t(kt) * 8 + q) * fp + f] = p[q];
 }
 
 // emit_update on the argmin rows of row tiles, one block per tile: tile
@@ -1071,7 +1300,7 @@ lloyd_pruned_mma_kernel(const T* __restrict__ x, const T* __restrict__ c,
     for (int ch = 0; ch < nch; ++ch) {
       P::stage(x, c, sm, m0, c0, ch * kChunk, fp);
       __syncthreads();
-      prod.mac(sm);
+      prod.template mac<false>(sm);
       __syncthreads();
     }
     prod.store(Ds);
@@ -1239,52 +1468,85 @@ kmeanspp_round_kernel(const float* __restrict__ x,
 }
 
 // the tile kernel of input type T: the f32 kernel or the tensor-core one
-template <typename T, int BM, bool kFT, bool kUpdate>
+template <typename T, int BM, bool kFT, int kUpd>
 constexpr auto tile_kernel() {
   if constexpr (std::is_same<T, float>::value)
-    return lloyd_tile_kernel<BM, kFT, kUpdate>;
+    return lloyd_tile_kernel<BM, kFT, kUpd>;
   else
-    return lloyd_tile_mma_kernel<T, BM, kFT, kUpdate>;
+    return lloyd_tile_mma_kernel<T, BM, kFT, kUpd>;
 }
 
-template <typename T, int BM, bool kFT, bool kUpdate>
-int launch_tile(const T* x, const T* c, const float* cn,
-                const int* inj, float* mind, int* argmin, int* det,
-                float* sums, float* counts, float* ucheck, float* ccheck,
-                int nb, int mp, int kp, int fp, int bf, int true_m,
-                float thr_factor, cudaStream_t stream) {
-  auto kernel = tile_kernel<T, BM, kFT, kUpdate>();
+// A tile kernel's outputs and scratch past its distances: the FT ones (cenc
+// the split C encodings and xenc the X encodings' scratch of the 2-byte
+// kernels; det), the dense update's (sums, counts) or the entries' (sums,
+// counts as entries, ecnt; idx, ekey, spare, levels), the update checksums.
+// Pointers an instantiation does not use are null.
+template <typename T>
+struct TileArgs {
+  const T* cenc;
+  const int* inj;
+  int* det;
+  float* xenc;
+  float* sums;
+  float* counts;
+  int* idx;
+  int* ekey;
+  int* spare;
+  float* ucheck;
+  float* ccheck;
+  int levels;
+  float thr_factor;
+};
+
+template <typename T, int BM, bool kFT, int kUpd>
+int launch_tile(const T* x, const T* c, const float* cn, float* mind,
+                int* argmin, const TileArgs<T>& a, int nb, int mp, int kp,
+                int fp, int bf, int true_m, cudaStream_t stream) {
+  auto kernel = tile_kernel<T, BM, kFT, kUpd>();
   const size_t bytes = Layout<BM>::kBytes;
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(bytes));
   if (e != cudaSuccess) return int(e);
   kernel<<<dim3(mp / BM, nb), kThreads, bytes, stream>>>(
-      x, c, cn, inj, mind, argmin, det, sums, counts, ucheck, ccheck, kp, fp,
-      bf, true_m, thr_factor);
+      x, c, cn, a.cenc, a.inj, mind, argmin, a.det, a.xenc, a.sums, a.counts,
+      a.idx, a.ekey, a.spare, a.ucheck, a.ccheck, kp, fp, bf, true_m,
+      a.levels, a.thr_factor);
   return int(cudaGetLastError());
 }
 
-template <typename T, bool kFT, bool kUpdate>
-int dispatch(int bm, const T* x, const T* c, const float* cn,
-             const int* inj, float* mind, int* argmin, int* det, float* sums,
-             float* counts, float* ucheck, float* ccheck, int nb, int mp,
-             int kp, int fp, int bf, int true_m, float thr_factor,
-             cudaStream_t stream) {
+template <typename T, bool kFT, int kUpd>
+int dispatch(int bm, const T* x, const T* c, const float* cn, float* mind,
+             int* argmin, const TileArgs<T>& a, int nb, int mp, int kp,
+             int fp, int bf, int true_m, cudaStream_t stream) {
   if ((bm != 64 && bm != 128) || mp % bm || kp % kBK || bf < kChunk ||
       bf % kChunk || fp % bf || nb < 1 || nb > kMaxProblems ||
-      (nb > 1 && (kFT || !kUpdate)))
+      (nb > 1 && kUpd != kDenseUpdate) ||
+      (kFT && !std::is_same<T, float>::value &&
+       (a.cenc == nullptr || a.xenc == nullptr)))
     return int(cudaErrorInvalidValue);
   if (bm == 128)
-    return launch_tile<T, 128, kFT, kUpdate>(x, c, cn, inj, mind, argmin,
-                                             det, sums, counts, ucheck, ccheck,
-                                             nb, mp, kp, fp, bf, true_m,
-                                             thr_factor, stream);
-  if (bm == 64)
-    return launch_tile<T, 64, kFT, kUpdate>(x, c, cn, inj, mind, argmin,
-                                            det, sums, counts, ucheck, ccheck,
-                                            nb, mp, kp, fp, bf, true_m,
-                                            thr_factor, stream);
-  return int(cudaErrorInvalidValue);
+    return launch_tile<T, 128, kFT, kUpd>(x, c, cn, mind, argmin, a, nb, mp,
+                                          kp, fp, bf, true_m, stream);
+  return launch_tile<T, 64, kFT, kUpd>(x, c, cn, mind, argmin, a, nb, mp, kp,
+                                       fp, bf, true_m, stream);
+}
+
+// the entries' tree levels of mp / bm row tiles (0 when mp does not split)
+inline int entry_levels(int mp, int bm) {
+  return (bm == 64 || bm == 128) && mp > 0 && mp % bm == 0
+             ? tree_levels(mp / bm)
+             : 0;
+}
+
+// C's split encodings (lloyd_encode_kernel): c (kp, fp) 2-byte, cenc
+// (kp / kBK, 8, fp)
+template <typename T>
+int launch_encode(const T* c, T* cenc, int kp, int fp, cudaStream_t s) {
+  if (kp <= 0 || kp % kBK || fp <= 0 || fp % kChunk || kp / kBK > 65535)
+    return int(cudaErrorInvalidValue);
+  lloyd_encode_kernel<T><<<dim3((fp + kThreads - 1) / kThreads, kp / kBK),
+                           kThreads, 0, s>>>(c, cenc, fp);
+  return int(cudaGetLastError());
 }
 
 // emit_update alone over n_tiles row tiles, or the one tile *tile
@@ -1828,50 +2090,80 @@ extern "C" {
 int fk_distance_argmin(const float* x, const float* c, const float* cn,
                        float* mind, int* argmin, int mp, int kp, int fp,
                        int bm, int bf, void* stream) {
-  return dispatch<float, false, false>(
-      bm, x, c, cn, nullptr, mind, argmin, nullptr, nullptr, nullptr, nullptr,
-      nullptr, 1, mp, kp, fp, bf, mp, 0.0f, static_cast<cudaStream_t>(stream));
+  return dispatch<float, false, kNoUpdate>(
+      bm, x, c, cn, mind, argmin, TileArgs<float>{}, 1, mp, kp, fp, bf, mp,
+      static_cast<cudaStream_t>(stream));
 }
 
+// The one-pass step's update as entries (fk_entries.cuh): entries (mp, fp)
+// f32, ecnt (mp,) f32, idx (kp, 2^ceil(log2 (mp / bm))) int32 filled with
+// -1 by the caller.
 int fk_lloyd_step(const float* x, const float* c, const float* cn,
-                  float* mind, int* argmin, float* sums, float* counts,
-                  int true_m, int mp, int kp, int fp, int bm, int bf,
-                  void* stream) {
-  return dispatch<float, false, true>(
-      bm, x, c, cn, nullptr, mind, argmin, nullptr, sums, counts, nullptr,
-      nullptr, 1, mp, kp, fp, bf, true_m, 0.0f,
+                  float* mind, int* argmin, float* entries, float* ecnt,
+                  int* idx, int true_m, int mp, int kp, int fp, int bm,
+                  int bf, void* stream) {
+  TileArgs<float> a{};
+  a.sums = entries;
+  a.counts = ecnt;
+  a.idx = idx;
+  a.levels = entry_levels(mp, bm);
+  return dispatch<float, false, kEntryUpdate>(
+      bm, x, c, cn, mind, argmin, a, 1, mp, kp, fp, bf, true_m,
       static_cast<cudaStream_t>(stream));
 }
 
 // nb stacked problems, each (mp, fp) rows against its own (kp, fp)
-// centroids; they share true_m (padded together).
+// centroids; they share true_m (padded together). The dense update: sums
+// (nb, mp / bm, kp, fp), counts (nb, mp / bm, kp).
 int fk_lloyd_step_batched(const float* x, const float* c, const float* cn,
                           float* mind, int* argmin, float* sums,
                           float* counts, int true_m, int nb, int mp, int kp,
                           int fp, int bm, int bf, void* stream) {
-  return dispatch<float, false, true>(
-      bm, x, c, cn, nullptr, mind, argmin, nullptr, sums, counts, nullptr,
-      nullptr, nb, mp, kp, fp, bf, true_m, 0.0f,
+  TileArgs<float> a{};
+  a.sums = sums;
+  a.counts = counts;
+  return dispatch<float, false, kDenseUpdate>(
+      bm, x, c, cn, mind, argmin, a, nb, mp, kp, fp, bf, true_m,
       static_cast<cudaStream_t>(stream));
 }
 
+// cenc and xenc: the 2-byte kernels' split C encodings and X encodings'
+// scratch (null at f32, whose checksums run on the CUDA cores).
 int fk_distance_argmin_ft(const float* x, const float* c, const float* cn,
-                          const int* inj, float* mind, int* argmin, int* det,
+                          const void* cenc, const int* inj, float* mind,
+                          int* argmin, int* det, float* xenc,
                           float thr_factor, int mp, int kp, int fp, int bm,
                           int bf, void* stream) {
-  return dispatch<float, true, false>(
-      bm, x, c, cn, inj, mind, argmin, det, nullptr, nullptr, nullptr, nullptr,
-      1, mp, kp, fp, bf, mp, thr_factor, static_cast<cudaStream_t>(stream));
+  TileArgs<float> a{};
+  a.inj = inj;
+  a.det = det;
+  a.thr_factor = thr_factor;
+  (void)cenc;
+  (void)xenc;
+  return dispatch<float, true, kNoUpdate>(
+      bm, x, c, cn, mind, argmin, a, 1, mp, kp, fp, bf, mp,
+      static_cast<cudaStream_t>(stream));
 }
 
+// As fk_lloyd_step, keyed (ekey (mp + 1,) int32; the entries one row
+// longer: the spare row, spare (2,) int32 = -1, -1 from the caller), with
+// ucheck (mp / bm, 2, fp) and ccheck (mp / bm, 2).
 int fk_lloyd_step_ft(const float* x, const float* c, const float* cn,
-                     const int* inj, float* mind, int* argmin, int* det,
-                     float* sums, float* counts, float* ucheck, float* ccheck,
-                     float thr_factor, int true_m, int mp, int kp, int fp,
-                     int bm, int bf, void* stream) {
-  return dispatch<float, true, true>(
-      bm, x, c, cn, inj, mind, argmin, det, sums, counts, ucheck, ccheck, 1,
-      mp, kp, fp, bf, true_m, thr_factor, static_cast<cudaStream_t>(stream));
+                     const void* cenc, const int* inj, float* mind,
+                     int* argmin, int* det, float* xenc, float* entries,
+                     float* ecnt, int* idx, int* ekey, int* spare,
+                     float* ucheck, float* ccheck, float thr_factor,
+                     int true_m, int mp, int kp, int fp, int bm, int bf,
+                     void* stream) {
+  (void)cenc;
+  (void)xenc;
+  const TileArgs<float> a{nullptr, inj,    det,    nullptr,
+                          entries, ecnt,   idx,    ekey,
+                          spare,   ucheck, ccheck, entry_levels(mp, bm),
+                          thr_factor};
+  return dispatch<float, true, kEntryUpdate>(
+      bm, x, c, cn, mind, argmin, a, 1, mp, kp, fp, bf, true_m,
+      static_cast<cudaStream_t>(stream));
 }
 
 // tile and gate may be null: every one of n_tiles row tiles, ungated.
@@ -1891,23 +2183,28 @@ int fk_distance_argmin_lp(const void* x, const void* c, const float* cn,
                           int bm, int bf, int half, void* stream) {
   return by_half(half, [&](auto tag) {
     using T = typename decltype(tag)::type;
-    return dispatch<T, false, false>(
-        bm, static_cast<const T*>(x), static_cast<const T*>(c), cn, nullptr,
-        mind, argmin, nullptr, nullptr, nullptr, nullptr, nullptr, 1, mp, kp,
-        fp, bf, mp, 0.0f, static_cast<cudaStream_t>(stream));
+    return dispatch<T, false, kNoUpdate>(
+        bm, static_cast<const T*>(x), static_cast<const T*>(c), cn, mind,
+        argmin, TileArgs<T>{}, 1, mp, kp, fp, bf, mp,
+        static_cast<cudaStream_t>(stream));
   });
 }
 
 int fk_lloyd_step_lp(const void* x, const void* c, const float* cn,
-                     float* mind, int* argmin, float* sums, float* counts,
-                     int true_m, int mp, int kp, int fp, int bm, int bf,
-                     int half, void* stream) {
+                     float* mind, int* argmin, float* entries, float* ecnt,
+                     int* idx, int true_m, int mp, int kp, int fp, int bm,
+                     int bf, int half, void* stream) {
   return by_half(half, [&](auto tag) {
     using T = typename decltype(tag)::type;
-    return dispatch<T, false, true>(
-        bm, static_cast<const T*>(x), static_cast<const T*>(c), cn, nullptr,
-        mind, argmin, nullptr, sums, counts, nullptr, nullptr, 1, mp, kp, fp,
-        bf, true_m, 0.0f, static_cast<cudaStream_t>(stream));
+    TileArgs<T> a{};
+    a.sums = entries;
+    a.counts = ecnt;
+    a.idx = idx;
+    a.levels = entry_levels(mp, bm);
+    return dispatch<T, false, kEntryUpdate>(
+        bm, static_cast<const T*>(x), static_cast<const T*>(c), cn, mind,
+        argmin, a, 1, mp, kp, fp, bf, true_m,
+        static_cast<cudaStream_t>(stream));
   });
 }
 
@@ -1919,38 +2216,64 @@ int fk_lloyd_step_batched_lp(const void* x, const void* c, const float* cn,
                              void* stream) {
   return by_half(half, [&](auto tag) {
     using T = typename decltype(tag)::type;
-    return dispatch<T, false, true>(
-        bm, static_cast<const T*>(x), static_cast<const T*>(c), cn, nullptr,
-        mind, argmin, nullptr, sums, counts, nullptr, nullptr, nb, mp, kp, fp,
-        bf, true_m, 0.0f, static_cast<cudaStream_t>(stream));
+    TileArgs<T> a{};
+    a.sums = sums;
+    a.counts = counts;
+    return dispatch<T, false, kDenseUpdate>(
+        bm, static_cast<const T*>(x), static_cast<const T*>(c), cn, mind,
+        argmin, a, nb, mp, kp, fp, bf, true_m,
+        static_cast<cudaStream_t>(stream));
   });
 }
 
+// cenc (kp / 128, 8, fp) from fk_lloyd_encode_lp; xenc (mp / bm, 2, fp) f32
+// scratch.
 int fk_distance_argmin_ft_lp(const void* x, const void* c, const float* cn,
-                             const int* inj, float* mind, int* argmin,
-                             int* det, float thr_factor, int mp, int kp,
-                             int fp, int bm, int bf, int half, void* stream) {
+                             const void* cenc, const int* inj, float* mind,
+                             int* argmin, int* det, float* xenc,
+                             float thr_factor, int mp, int kp, int fp,
+                             int bm, int bf, int half, void* stream) {
   return by_half(half, [&](auto tag) {
     using T = typename decltype(tag)::type;
-    return dispatch<T, true, false>(
-        bm, static_cast<const T*>(x), static_cast<const T*>(c), cn, inj, mind,
-        argmin, det, nullptr, nullptr, nullptr, nullptr, 1, mp, kp, fp, bf, mp,
-        thr_factor, static_cast<cudaStream_t>(stream));
+    TileArgs<T> a{};
+    a.cenc = static_cast<const T*>(cenc);
+    a.inj = inj;
+    a.det = det;
+    a.xenc = xenc;
+    a.thr_factor = thr_factor;
+    return dispatch<T, true, kNoUpdate>(
+        bm, static_cast<const T*>(x), static_cast<const T*>(c), cn, mind,
+        argmin, a, 1, mp, kp, fp, bf, mp, static_cast<cudaStream_t>(stream));
   });
 }
 
 int fk_lloyd_step_ft_lp(const void* x, const void* c, const float* cn,
-                        const int* inj, float* mind, int* argmin, int* det,
-                        float* sums, float* counts, float* ucheck,
-                        float* ccheck, float thr_factor, int true_m, int mp,
-                        int kp, int fp, int bm, int bf, int half,
-                        void* stream) {
+                        const void* cenc, const int* inj, float* mind,
+                        int* argmin, int* det, float* xenc, float* entries,
+                        float* ecnt, int* idx, int* ekey, int* spare,
+                        float* ucheck, float* ccheck, float thr_factor,
+                        int true_m, int mp, int kp, int fp, int bm, int bf,
+                        int half, void* stream) {
   return by_half(half, [&](auto tag) {
     using T = typename decltype(tag)::type;
-    return dispatch<T, true, true>(
-        bm, static_cast<const T*>(x), static_cast<const T*>(c), cn, inj, mind,
-        argmin, det, sums, counts, ucheck, ccheck, 1, mp, kp, fp, bf, true_m,
-        thr_factor, static_cast<cudaStream_t>(stream));
+    const TileArgs<T> a{static_cast<const T*>(cenc), inj, det, xenc,
+                        entries, ecnt, idx, ekey, spare, ucheck, ccheck,
+                        entry_levels(mp, bm), thr_factor};
+    return dispatch<T, true, kEntryUpdate>(
+        bm, static_cast<const T*>(x), static_cast<const T*>(c), cn, mind,
+        argmin, a, 1, mp, kp, fp, bf, true_m,
+        static_cast<cudaStream_t>(stream));
+  });
+}
+
+// c (kp, fp) 2-byte, 16-byte aligned -> cenc (kp / 128, 8, fp): the split
+// C encodings the 2-byte FT kernels take
+int fk_lloyd_encode_lp(const void* c, void* cenc, int kp, int fp, int half,
+                       void* stream) {
+  return by_half(half, [&](auto tag) {
+    using T = typename decltype(tag)::type;
+    return launch_encode<T>(static_cast<const T*>(c), static_cast<T*>(cenc),
+                            kp, fp, static_cast<cudaStream_t>(stream));
   });
 }
 

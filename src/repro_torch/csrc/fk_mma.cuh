@@ -1,7 +1,8 @@
-// Tensor-core helpers shared by fk_kernels.cu and fk_attention.cu: one
-// warp-wide mma.sync.aligned.m16n8k16 with f32 accumulation on bf16 or fp16
+// Tensor-core helpers of fk_kernels.cu: one warp-wide
+// mma.sync.aligned.m16n8k16 with f32 accumulation on bf16 or fp16
 // operands, the 32-bit shared-memory load of a fragment register (two
-// 2-byte values), and the widening of an input value to f32.
+// 2-byte values), the widening of an input value to f32, and the split of
+// an f32 into three 2-byte parts.
 //
 // Fragment layout of m16n8k16 (PTX ISA, "mma.m16n8k16"), lane = 4 g + t:
 //   A (16 x 16, row-major)    a[0]: row g,     k 2t, 2t+1    a[1]: row g + 8
@@ -61,3 +62,25 @@ __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
   return __bfloat162float(v);
 }
 __device__ __forceinline__ float to_f32(__half v) { return __half2float(v); }
+
+// round to nearest into the operand type T (__nv_bfloat16 or __half)
+template <typename T>
+__device__ __forceinline__ T from_f32(float v);
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f32(float v) {
+  return __float2bfloat16_rn(v);
+}
+template <>
+__device__ __forceinline__ __half from_f32(float v) {
+  return __float2half_rn(v);
+}
+
+// v = hi + mid + lo in three T values, each rounded to nearest from what
+// the earlier ones leave (fk_abft_gemm.cu's split of E_Y)
+template <typename T>
+__device__ __forceinline__ void split3(float v, T& hi, T& mid, T& lo) {
+  hi = from_f32<T>(v);
+  const float r = v - to_f32(hi);
+  mid = from_f32<T>(r);
+  lo = from_f32<T>(r - to_f32(mid));
+}

@@ -7,32 +7,34 @@
 // (src/repro/kernels/ops.py:510, XLA code in the reference), which halves
 // the tile axis log2(num_m) times. The results are the same bits.
 //
-// The order every contract of the port rests on: each (tile, k, f) partial
-// starts at +0.0 and adds its cluster's rows in row order, widened to f32;
-// the tiles then combine in _tree_sum's halving tree (at a level of s nodes,
-// node i < s/2 becomes a[i] + a[i + s/2], an odd last node is carried to
-// index s/2). A partial that starts at +0.0 is never -0.0, and x + (+0.0)
-// == x bitwise for every x that is not -0.0, so the tree over the dense,
-// mostly zero leaves equals, bit for bit, the same tree over the present
-// (tile, cluster) entries only, where a node with one present child is that
-// child.
+// The order every contract rests on, the slots of the halving tree and the
+// entries' layout: fk_entries.cuh.
 //
-// Slots. Number the tree's levels l = 0 .. L-1 (L = ceil(log2 T)). Leaf t's
-// slot has bit l set when at level l its node is the right operand (index
-// in [s/2, 2 (s/2))); a left operand or a carried node gives 0. The tree
-// over T leaves is then the perfect binary tree over 2^L slots, read left
-// to right, with the slots no leaf maps to absent (a carried node is a node
-// whose right subtree is absent). tree_slot / tree_leaf map both ways.
-//
-// update_entries_kernel<T, BM> (one block of 128 threads per BM-row tile):
+// update_entries_kernel<T, BM> (one block of 128 threads per BM-row tile,
+//   or one block for the one tile *tile): write_entries (fk_entries.cuh),
+//   the writer the one-pass kernels' epilogue runs too:
 //   * ranks the tile's valid rows by (cluster, row) with a bitonic sort of
-//     BM keys in shared memory (the epilogue it replaces ranks in O(BM^2));
+//     BM keys in shared memory (emit_update ranks in O(BM^2));
 //   * writes one entry per present cluster: row t * BM + j for the tile's
 //     j-th present cluster holds its Fp sums (each one lane's f32 sum over
 //     the cluster's rows in row order, from 0, as emit_update sums), its
 //     count, and idx[k][slot(t)] = t * BM + j. The entries buffer is
 //     (Mp, Fp) f32 (O(M Fp), never O(T Kp Fp)); only present rows are
 //     written; idx (Kp, 2^L) int32 is -1 where a tile has no row of k.
+//   * for one tile (the FT recompute of lloyd_step_ft's entries) it first
+//     clears the tile's idx column, then writes the tile keyed, as the
+//     one-pass FT kernel wrote it.
+// verify_entries_kernel<BM> (one block of 128 threads per row tile): the
+//   one-pass FT step's update verification over its keyed entries, in one
+//   launch (ops._verify_update_entries; the rule is lloyd_step_ft.
+//   update_mismatch, the plain version its entries_observed and
+//   update_mismatch): a thread a feature sums the tile's BM entry rows in
+//   row order, e1 and e2 (an entry row weighs its cluster + 1; the spare
+//   row joins the tile it holds a fault of), and the block takes the
+//   largest residuals and expected magnitudes, the counts' sums likewise,
+//   in a fixed order. A tile over its thresholds adds one to verdict[0] and
+//   raises verdict[1] to ntiles - t, so ntiles - verdict[1] is the first
+//   mismatched tile (integer atomics: the same result in any order).
 // tree_reduce_kernel<V, kDense> (one pass): blocks own (row r, V-wide
 //   feature group, chunk of 2^c slots). The block lists its chunk's present
 //   slots in slot order (sparse: idx[r][slot] >= 0; dense: a slot some tile
@@ -63,152 +65,116 @@
 #include <climits>
 #include <cstddef>
 
+#include "fk_abft.cuh"
+#include "fk_entries.cuh"
+
 namespace {
 
 constexpr int kEntryThreads = 128;
+constexpr int kVerifyThreads = 128;
 constexpr int kTreeThreads = 128;         // most threads a tree block has
 constexpr int kTreeMaxLevels = 8;         // a chunk holds at most 2^8 slots
 constexpr int kTreeChunk = 1 << kTreeMaxLevels;
 constexpr int kTreeBatches = kTreeChunk / 32;
 constexpr int kTreePrefetch = 8;
 
-// --- the halving tree's slots -----------------------------------------------
-
-// levels of _tree_sum over n >= 1 leaves: ceil(log2 n)
-__host__ __device__ inline int tree_levels(int n) {
-  int l = 0;
-  while ((1LL << l) < n) ++l;
-  return l;
-}
-
-// nodes at level l of the tree over n leaves: ceil(n / 2^l)
-__device__ __forceinline__ int level_size(int n, int l) {
-  return ((n - 1) >> l) + 1;
-}
-
-__device__ int tree_slot(int t, int n, int levels) {
-  int slot = 0, i = t;
-  for (int l = 0; l < levels; ++l) {
-    const int h = level_size(n, l) >> 1;
-    if (i >= 2 * h) {
-      i = h;                      // the odd last node, carried
-    } else if (i >= h) {
-      slot |= 1 << l;             // right operand of a[i - h] + a[i]
-      i -= h;
-    }
-  }
-  return slot;
-}
-
-// the leaf at a slot, or -1 when the slot is under a carried node's empty
-// right subtree
-__device__ int tree_leaf(int slot, int n, int levels) {
-  int i = 0;
-  for (int l = levels - 1; l >= 0; --l) {
-    const int h = level_size(n, l) >> 1;
-    const int bit = (slot >> l) & 1;
-    if (i < h) {
-      i += bit * h;
-    } else {
-      if (bit) return -1;
-      i = 2 * h;
-    }
-  }
-  return i;
-}
-
 // --- the per-tile pass ------------------------------------------------------
 
-__device__ __forceinline__ void load4(const float* p, float* v) {
-  const float4 q = *reinterpret_cast<const float4*>(p);
-  v[0] = q.x; v[1] = q.y; v[2] = q.z; v[3] = q.w;
-}
-
-__device__ __forceinline__ void load4(const __nv_bfloat16* p, float* v) {
-  const uint2 q = *reinterpret_cast<const uint2*>(p);
-  const __nv_bfloat162 a = *reinterpret_cast<const __nv_bfloat162*>(&q.x);
-  const __nv_bfloat162 b = *reinterpret_cast<const __nv_bfloat162*>(&q.y);
-  v[0] = __low2float(a); v[1] = __high2float(a);
-  v[2] = __low2float(b); v[3] = __high2float(b);
-}
-
-__device__ __forceinline__ void load4(const __half* p, float* v) {
-  const uint2 q = *reinterpret_cast<const uint2*>(p);
-  const __half2 a = *reinterpret_cast<const __half2*>(&q.x);
-  const __half2 b = *reinterpret_cast<const __half2*>(&q.y);
-  v[0] = __low2float(a); v[1] = __high2float(a);
-  v[2] = __low2float(b); v[3] = __high2float(b);
-}
-
 // Rows >= true_m and labels outside [0, kp) enter nothing (emit_update's
-// rule). When gate is given the launch is a no-op while *gate == 0.
+// rule). When gate is given the launch is a no-op while *gate == 0; when
+// tile is given the block writes the one tile *tile, its idx column cleared
+// first. ekey may be null (see EntryOut).
 template <typename T, int BM>
 __global__ void __launch_bounds__(kEntryThreads)
 update_entries_kernel(const T* __restrict__ x, const int* __restrict__ argmin,
+                      const int* __restrict__ tile,
                       const int* __restrict__ gate,
                       float* __restrict__ entries, float* __restrict__ ecnt,
-                      int* __restrict__ idx, int kp, int fp, int true_m,
-                      int ntiles, int levels) {
-  __shared__ int key[BM];           // cluster * BM + row; INT_MAX: no entry
-  __shared__ int seg[BM + 1];       // first sorted position of each entry
-  __shared__ int warp_n[kEntryThreads / 32];
+                      int* __restrict__ idx, int* __restrict__ ekey, int kp,
+                      int fp, int true_m, int ntiles, int levels) {
+  __shared__ int es[EntryScratch<BM, kEntryThreads>::kInts];
   if (gate != nullptr && *gate == 0) return;
-  const int t = blockIdx.x, m0 = t * BM, tid = threadIdx.x;
+  const int t = tile != nullptr ? *tile : int(blockIdx.x);
+  const int tid = threadIdx.x;
+  const int label = tid < BM ? argmin[t * BM + tid] : -1;
+  const EntryOut o{entries, ecnt, idx, ekey, kp, fp, levels, ntiles};
+  write_entries<T, BM, kEntryThreads, false>(label, x, t, true_m, o,
+                                             tile != nullptr, es, nullptr,
+                                             nullptr, nullptr);
+}
+
+// --- the verification of the one-pass FT step's entries ---------------------
+
+// entries (ntiles * BM + 1, fp) keyed (ekey, the spare row last), ecnt,
+// spare = (tile, cluster) or -1; ucheck (ntiles, 2, fp), ccheck (ntiles, 2)
+// the expected checksums; verdict (2,) int32, zeros from the caller.
+template <int BM>
+__global__ void __launch_bounds__(kVerifyThreads)
+verify_entries_kernel(const float* __restrict__ entries,
+                      const float* __restrict__ ecnt,
+                      const int* __restrict__ ekey,
+                      const int* __restrict__ spare,
+                      const float* __restrict__ ucheck,
+                      const float* __restrict__ ccheck,
+                      int* __restrict__ verdict, int fp, float factor) {
+  constexpr int kWarps = kVerifyThreads / 32;
+  __shared__ float w[BM];
+  __shared__ float red[6][kWarps];
+  const int t = blockIdx.x, nt = gridDim.x, tid = threadIdx.x;
   const int lane = tid & 31, warp = tid >> 5;
-  if (tid < BM) {
-    const int a = argmin[m0 + tid];
-    key[tid] = (m0 + tid < true_m && a >= 0 && a < kp) ? a * BM + tid
-                                                        : INT_MAX;
-  }
-  // bitonic sort, ascending: by cluster, then row
-  for (int size = 2; size <= BM; size <<= 1) {
-    for (int stride = size >> 1; stride > 0; stride >>= 1) {
-      __syncthreads();
-      if (tid < BM / 2) {
-        const int i = 2 * tid - (tid & (stride - 1)), j = i + stride;
-        const int a = key[i], b = key[j];
-        if ((a > b) == ((i & size) == 0)) {
-          key[i] = b;
-          key[j] = a;
-        }
-      }
-    }
-  }
+  const size_t r0 = size_t(t) * BM, sp_row = size_t(nt) * BM;
+  for (int j = tid; j < BM; j += kVerifyThreads)
+    w[j] = float(ekey[r0 + j] + 1);
   __syncthreads();
-  // one entry per run of equal clusters, numbered in cluster order
-  const int v = tid < BM ? key[tid] : INT_MAX;
-  const bool head = v != INT_MAX && (tid == 0 || key[tid - 1] / BM != v / BM);
-  const unsigned ball = __ballot_sync(0xffffffffu, head);
-  if (lane == 0) warp_n[warp] = __popc(ball);
-  const int nvalid = __syncthreads_count(v != INT_MAX);
-  int j = __popc(ball & ((1u << lane) - 1u)), nseg = 0;
-  for (int w = 0; w < kEntryThreads / 32; ++w) {
-    j += w < warp ? warp_n[w] : 0;
-    nseg += warp_n[w];
-  }
-  if (head) seg[j] = tid;
-  if (tid == 0) seg[nseg] = nvalid;
-  __syncthreads();
-  const int slot = tree_slot(t, ntiles, levels);
-  for (int e = warp; e < nseg; e += kEntryThreads / 32) {
-    const int lo = seg[e], hi = seg[e + 1];
-    const int row = t * BM + e;
-    for (int f0 = lane * 4; f0 < fp; f0 += 128) {
-      float s0 = 0.0f, s1 = 0.0f, s2 = 0.0f, s3 = 0.0f;
-      for (int p = lo; p < hi; ++p) {
-        float q[4];
-        load4(x + size_t(m0 + (key[p] & (BM - 1))) * fp + f0, q);
-        s0 += q[0];
-        s1 += q[1];
-        s2 += q[2];
-        s3 += q[3];
-      }
-      *reinterpret_cast<float4*>(entries + size_t(row) * fp + f0) =
-          make_float4(s0, s1, s2, s3);
+  const bool sp = spare[0] == t;
+  const float wsp = float(spare[1] + 1);
+  const float* u0 = ucheck + size_t(t) * 2 * fp;
+  const float* u1 = u0 + fp;
+  float res1 = 0.0f, res2 = 0.0f, mag1 = 0.0f, mag2 = 0.0f;
+  for (int f = tid; f < fp; f += kVerifyThreads) {
+    float o1 = 0.0f, o2 = 0.0f;
+    for (int j = 0; j < BM; ++j) {
+      const float v = entries[(r0 + j) * fp + f];
+      o1 += v;
+      o2 = fmaf(w[j], v, o2);
     }
-    if (lane == 0) {
-      ecnt[row] = float(hi - lo);
-      idx[(size_t(key[lo] / BM) << levels) + slot] = row;
+    if (sp) {
+      const float v = entries[sp_row * fp + f];
+      o1 += v;
+      o2 = fmaf(wsp, v, o2);
+    }
+    res1 = fmaxf(res1, fabsf(o1 - u0[f]));
+    res2 = fmaxf(res2, fabsf(o2 - u1[f]));
+    mag1 = fmaxf(mag1, fabsf(u0[f]));
+    mag2 = fmaxf(mag2, fabsf(u1[f]));
+  }
+  float c1 = 0.0f, c2 = 0.0f;
+  for (int j = tid; j < BM; j += kVerifyThreads) {
+    const float v = ecnt[r0 + j];
+    c1 += v;
+    c2 = fmaf(w[j], v, c2);
+  }
+  const float part[6] = {warp_max(res1), warp_max(res2), warp_max(mag1),
+                         warp_max(mag2), warp_sum(c1), warp_sum(c2)};
+  if (lane == 0)
+    for (int q = 0; q < 6; ++q) red[q][warp] = part[q];
+  __syncthreads();
+  if (tid == 0) {
+    float v[6] = {red[0][0], red[1][0], red[2][0], red[3][0], red[4][0],
+                  red[5][0]};
+    for (int k = 1; k < kWarps; ++k) {
+      for (int q = 0; q < 4; ++q) v[q] = fmaxf(v[q], red[q][k]);
+      v[4] += red[4][k];
+      v[5] += red[5][k];
+    }
+    const float e1 = ccheck[2 * t], e2 = ccheck[2 * t + 1];
+    const bool bad = v[0] > factor * fmaxf(v[2], 1.0f) ||
+                     v[1] > factor * fmaxf(v[3], 1.0f) ||
+                     fabsf(v[4] - e1) > factor * fmaxf(fabsf(e1), 1.0f) ||
+                     fabsf(v[5] - e2) > factor * fmaxf(fabsf(e2), 1.0f);
+    if (bad) {
+      atomicAdd(verdict, 1);
+      atomicMax(verdict + 1, nt - t);
     }
   }
 }
@@ -349,12 +315,24 @@ tree_reduce_kernel(const float* __restrict__ vals,
 }
 
 template <typename T, int BM>
-int launch_entries(const void* x, const int* argmin, const int* gate,
-                   float* entries, float* ecnt, int* idx, int true_m, int kp,
-                   int fp, int ntiles, cudaStream_t s) {
-  update_entries_kernel<T, BM><<<ntiles, kEntryThreads, 0, s>>>(
-      static_cast<const T*>(x), argmin, gate, entries, ecnt, idx, kp, fp,
-      true_m, ntiles, tree_levels(ntiles));
+int launch_entries(const void* x, const int* argmin, const int* tile,
+                   const int* gate, float* entries, float* ecnt, int* idx,
+                   int* ekey, int true_m, int kp, int fp, int ntiles,
+                   cudaStream_t s) {
+  update_entries_kernel<T, BM><<<tile != nullptr ? 1 : ntiles, kEntryThreads,
+                                 0, s>>>(
+      static_cast<const T*>(x), argmin, tile, gate, entries, ecnt, idx, ekey,
+      kp, fp, true_m, ntiles, tree_levels(ntiles));
+  return int(cudaGetLastError());
+}
+
+template <int BM>
+int launch_verify(const float* entries, const float* ecnt, const int* ekey,
+                  const int* spare, const float* ucheck, const float* ccheck,
+                  int* verdict, int ntiles, int fp, float factor,
+                  cudaStream_t s) {
+  verify_entries_kernel<BM><<<ntiles, kVerifyThreads, 0, s>>>(
+      entries, ecnt, ekey, spare, ucheck, ccheck, verdict, fp, factor);
   return int(cudaGetLastError());
 }
 
@@ -388,28 +366,49 @@ int launch_tree(const float* vals, const int* idx, const int* gate,
 extern "C" {
 
 // The per-tile pass: x (ntiles * block_m, fp) of dtype 0 f32, 1 bf16, 2
-// fp16 (16-byte aligned), argmin (ntiles * block_m,) int32, gate (a 0-d
-// int32 on the device, or null); entries (ntiles * block_m, fp) f32, ecnt
-// (ntiles * block_m,) f32, idx (kp, 2^ceil(log2 ntiles)) int32 filled with
-// -1 by the caller. Only present entries are written.
-int fk_update_entries(const void* x, const int* argmin, const int* gate,
-                      float* entries, float* ecnt, int* idx, int true_m,
-                      int kp, int fp, int block_m, int ntiles, int dtype,
-                      void* stream) {
+// fp16 (16-byte aligned), argmin (ntiles * block_m,) int32, tile and gate
+// (0-d int32 on the device, or null: every tile, ungated); entries (ntiles
+// * block_m, fp) f32, ecnt (ntiles * block_m,) f32, idx (kp, 2^ceil(log2
+// ntiles)) int32 filled with -1 by the caller, ekey (ntiles * block_m,)
+// int32 or null. Unkeyed, only present entries are written.
+int fk_update_entries(const void* x, const int* argmin, const int* tile,
+                      const int* gate, float* entries, float* ecnt, int* idx,
+                      int* ekey, int true_m, int kp, int fp, int block_m,
+                      int ntiles, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if ((block_m != 64 && block_m != 128) || fp <= 0 || fp % 4 ||
       ntiles <= 0 || kp <= 0 || kp > INT_MAX / block_m ||
       ntiles > INT_MAX / block_m)
     return int(cudaErrorInvalidValue);
 #define FK_ENTRIES(T)                                                         \
-  (block_m == 128 ? launch_entries<T, 128>(x, argmin, gate, entries, ecnt,    \
-                                           idx, true_m, kp, fp, ntiles, s)    \
-                  : launch_entries<T, 64>(x, argmin, gate, entries, ecnt,     \
-                                          idx, true_m, kp, fp, ntiles, s))
+  (block_m == 128                                                             \
+       ? launch_entries<T, 128>(x, argmin, tile, gate, entries, ecnt, idx,    \
+                                ekey, true_m, kp, fp, ntiles, s)              \
+       : launch_entries<T, 64>(x, argmin, tile, gate, entries, ecnt, idx,     \
+                               ekey, true_m, kp, fp, ntiles, s))
   if (dtype == 0) return FK_ENTRIES(float);
   if (dtype == 1) return FK_ENTRIES(__nv_bfloat16);
   if (dtype == 2) return FK_ENTRIES(__half);
 #undef FK_ENTRIES
+  return int(cudaErrorInvalidValue);
+}
+
+// The one-pass FT step's update verification (verify_entries_kernel) over
+// ntiles row tiles of block_m rows; verdict (2,) int32 zeroed by the
+// caller.
+int fk_verify_entries(const float* entries, const float* ecnt,
+                      const int* ekey, const int* spare, const float* ucheck,
+                      const float* ccheck, int* verdict, int block_m,
+                      int ntiles, int fp, float factor, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (ntiles <= 0 || fp <= 0 || ntiles > INT_MAX / block_m)
+    return int(cudaErrorInvalidValue);
+  if (block_m == 128)
+    return launch_verify<128>(entries, ecnt, ekey, spare, ucheck, ccheck,
+                              verdict, ntiles, fp, factor, s);
+  if (block_m == 64)
+    return launch_verify<64>(entries, ecnt, ekey, spare, ucheck, ccheck,
+                             verdict, ntiles, fp, factor, s);
   return int(cudaErrorInvalidValue);
 }
 

@@ -9,10 +9,12 @@ first use on a CUDA device a source is compiled for Hopper with
 into the package's git-ignored ``_build/`` directory and loaded with
 ``ctypes``; :func:`build_all` starts one nvcc per source, all at once.
 ``fk_kernels.cu`` holds every k-means kernel of the port: the tile kernel
-behind ``distance_argmin``, ``lloyd_step`` (one problem, or B stacked
-problems over a (row tile, problem) grid: ``fk_lloyd_step_batched``),
-``distance_argmin_ft`` and ``lloyd_step_ft``, the update epilogue launched
-alone (``fk_update_tiles``), the pruned one-pass step
+behind ``distance_argmin``, ``lloyd_step`` (one problem, its update as
+entries, or B stacked problems over a (row tile, problem) grid, the dense
+update: ``fk_lloyd_step_batched``), ``distance_argmin_ft`` and
+``lloyd_step_ft`` (at 2 bytes with the C encodings' pre-pass,
+``fk_lloyd_encode_lp``), the dense update epilogue launched alone
+(``fk_update_tiles``), the pruned one-pass step
 (``fk_lloyd_step_pruned``), each also for bf16 or fp16 inputs on the
 tensor cores (the ``*_lp`` entry points of :data:`LOWP_ENTRIES`, one more
 int argument before the stream: :data:`HALF_KINDS`), the f32 ABFT GEMM
@@ -25,9 +27,12 @@ the prefill, decode and f32 kernels, and ``fk_flash_workspace``, the decode
 kernel's workspace sizes). ``fk_abft_gemm.cu`` holds the 2-byte ABFT GEMM:
 its encodings pre-pass (``fk_abft_encode``) and the ``wgmma`` GEMM
 (``fk_abft_gemm``). ``fk_update.cu`` holds the two-pass centroid update's
-per-tile pass (``fk_update_entries``) and the fixed-order tree sum
-(``fk_tree_reduce``). ``fk_kernels.cu`` includes ``csrc/fk_mma.cuh`` (the
-tensor-core ``mma.sync`` helpers); ``fk_attention.cu`` and
+per-tile pass (``fk_update_entries``), the fixed-order tree sum
+(``fk_tree_reduce``) and the one-pass FT step's update verification
+(``fk_verify_entries``). ``fk_kernels.cu`` includes ``csrc/fk_mma.cuh`` (the
+tensor-core ``mma.sync`` helpers); ``fk_kernels.cu`` and ``fk_update.cu``
+include ``csrc/fk_entries.cuh`` (the per-tile entry writer and the tree's
+slots); ``fk_attention.cu`` and
 ``fk_abft_gemm.cu`` include ``csrc/fk_tma.cuh`` (mbarriers, TMA loads,
 tensor maps) and ``csrc/fk_wgmma.cuh`` (the ``wgmma`` wrappers);
 ``fk_kernels.cu`` and ``fk_abft_gemm.cu`` include ``csrc/fk_abft.cuh``
@@ -65,11 +70,11 @@ _L = ctypes.c_longlong
 # c_void_p, so 64-bit addresses are never cut to a 32-bit int)
 SIGNATURES: dict[str, tuple] = {
     "fk_distance_argmin": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
-    "fk_lloyd_step": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
-    "fk_distance_argmin_ft": (_P, _P, _P, _P, _P, _P, _P, _F, _I, _I, _I, _I,
-                              _I, _P),
-    "fk_lloyd_step_ft": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _F, _I,
-                         _I, _I, _I, _I, _I, _P),
+    "fk_lloyd_step": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                      _P),
+    "fk_distance_argmin_ft": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _F, _I, _I,
+                              _I, _I, _I, _P),
+    "fk_lloyd_step_ft": (_P,) * 16 + (_F, _I, _I, _I, _I, _I, _I, _P),
     "fk_update_tiles": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     "fk_lloyd_step_batched": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                               _I, _I, _P),
@@ -89,6 +94,8 @@ LOWP_ENTRIES = ("fk_distance_argmin", "fk_lloyd_step",
                 "fk_lloyd_step_ft", "fk_update_tiles", "fk_lloyd_step_pruned")
 SIGNATURES.update({f"{name}_lp": SIGNATURES[name][:-1] + (_I, _P)
                    for name in LOWP_ENTRIES})
+# the 2-byte FT kernels' pre-pass: c, cenc; kp, fp, dtype code; stream
+SIGNATURES["fk_lloyd_encode_lp"] = (_P, _P, _I, _I, _I, _P)
 # dtype code of the *_lp entry points, by torch dtype name
 HALF_KINDS = {"bfloat16": 0, "float16": 1}
 # q, k, v, q_positions, kv_positions, out; B, H, KV, Sq, Skv, hd; the
@@ -111,15 +118,19 @@ ABFT_GEMM_SIGNATURES: dict[str, tuple] = {
     "fk_abft_gemm": (_P, _P, _P, _P, _P, _P, _P, _P, _L, _F, _I, _I, _I, _I,
                      _I, _I, _I, _P),
 }
-# fk_update_entries: x, argmin, gate, entries, ecnt, idx; true_m, kp, fp,
-# block_m, ntiles, dtype (0 f32, 1 bf16, 2 fp16); stream. fk_tree_reduce:
+# fk_update_entries: x, argmin, tile, gate, entries, ecnt, idx, ekey;
+# true_m, kp, fp, block_m, ntiles, dtype (0 f32, 1 bf16, 2 fp16); stream.
+# fk_tree_reduce:
 # vals, idx, gate, out, out_idx; rows, slots, ntiles, rstride, tstride,
-# width, threads, vec, chunk_log2; stream.
+# width, threads, vec, chunk_log2; stream. fk_verify_entries: entries, ecnt,
+# ekey, spare, ucheck, ccheck, verdict; block_m, ntiles, fp, the threshold
+# factor; stream.
 UPDATE_SIGNATURES: dict[str, tuple] = {
-    "fk_update_entries": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                          _P),
+    "fk_update_entries": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                          _I, _P),
     "fk_tree_reduce": (_P, _P, _P, _P, _P, _I, _I, _I, _L, _L, _I, _I, _I,
                        _I, _P),
+    "fk_verify_entries": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P),
 }
 SOURCES: dict[str, dict[str, tuple]] = {
     "fk_kernels": SIGNATURES,

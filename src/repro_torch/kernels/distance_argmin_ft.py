@@ -16,17 +16,28 @@ located by the e2/e1 ratio, corrected in place, and the min/argmin runs on
 the corrected tile. An 8-word descriptor plants one fault; the kernel
 returns the detections per row tile.
 
-CUDA kernels: ``lloyd_tile_kernel<BM, true, false>`` (f32) and
-``lloyd_tile_mma_kernel<T, BM, true, false>`` (bf16, fp16) in
+CUDA kernels: ``lloyd_tile_kernel<BM, true, kNoUpdate>`` (f32) and
+``lloyd_tile_mma_kernel<T, BM, true, kNoUpdate>`` (bf16, fp16) in
 ``csrc/fk_kernels.cu``; the descriptor is injected after the last chunk of
 feature tile ``f_tile``, as on the TPU (at bf16 / fp16 into the ``mma.sync``
 fragment element of the lane that holds it). X and C are f32, bf16 or fp16;
-the checksums always run in f32 on the widened tiles, as the reference's
+the checksums run in f32 on the widened tiles, as the reference's
 ``xf``/``cf`` casts, and ``factor`` is the caller's
 ``threshold_factor(Fp, input dtype)``: 16 sqrt(Fp) max(eps_in, eps_f32),
-8,192x (fp16) to 65,536x (bf16) f32's. Bound on the H100: the distance
-GEMM, as ``distance_argmin``; the checksums add O((bm + bk) * Fp) work per
-tile and a shared-memory pass over the tile (the TPU verifies in VMEM).
+8,192x (fp16) to 65,536x (bf16) f32's. At f32 the expected checksums are
+CUDA-core FMAs on the staged chunks and the observed ones a pass over the
+tile in shared memory. At bf16 / fp16 they follow the paper's tensor-core
+scheme: :func:`encode_centroids` (``lloyd_encode_kernel<T>``, once a call)
+gives C's e1 / e2 encodings per centroid tile split into three 2-byte parts
+(``matmul_abft.split_encodings``), and the expected row checksums are one
+more ``mma.sync`` fragment beside the product; X's encodings are computed
+once a row tile (scratch ``xenc``) and the expected column checksums are
+FMAs on them; the observed checksums are sums over the stored tile in
+shared memory, a row's inside its min/argmin pass and a column's by one
+thread a column (summing them from the accumulator registers by warp
+shuffles was tried and dropped: it spilled registers and ran slower).
+Bound on the H100: the distance GEMM, as
+``distance_argmin``; the checksums add O((bm + bk) * Fp) work per tile.
 """
 from __future__ import annotations
 
@@ -35,6 +46,9 @@ import torch
 
 from repro_torch.kernels import _build, ref
 from repro_torch.kernels.distance_argmin import check_padded
+
+# the centroid tile the C encodings run over (the CUDA kernels' kBK)
+ENC_TILE = 128
 
 # [enabled, m_tile, c_tile, f_tile, row_in_tile, col_in_tile, delta bits, 0]
 INJ_LEN = 8
@@ -138,6 +152,61 @@ def distance_argmin_ft_plain(x, c, cn, inj, block_m, block_k, block_f,
     return mind, am, det
 
 
+def encode_centroids_plain(c: torch.Tensor) -> torch.Tensor:
+    """Plain version of :func:`encode_centroids`: e1 = sum_j C[j] and e2 =
+    sum_j (j + 1) C[j] over each centroid tile of ``ENC_TILE`` rows of c
+    (Kp, Fp), summed in j order in f32 (the kernel's order: each (j + 1) v
+    is exact, so its fma rounds once, as this add does), then split as
+    ``matmul_abft.split_encodings`` (Kp / 128, 8, Fp) in c's dtype."""
+    from repro_torch.kernels.matmul_abft import split_encodings
+    kp, fp = c.shape
+    cv = c.float().view(kp // ENC_TILE, ENC_TILE, fp)
+    e1 = torch.zeros((kp // ENC_TILE, fp), device=c.device)
+    e2 = torch.zeros_like(e1)
+    for j in range(ENC_TILE):
+        e1 = e1 + cv[:, j]
+        e2 = e2 + (j + 1) * cv[:, j]
+    return split_encodings(torch.stack((e1, e2), -1), ENC_TILE, c.dtype)
+
+
+def encode_centroids(c: torch.Tensor) -> torch.Tensor:
+    """The 2-byte FT kernels' pre-pass (``lloyd_encode_kernel<T>``): C's
+    split e1 / e2 encodings per centroid tile, (Kp / 128, 8, Fp) in c's
+    dtype (bf16 or fp16), the B operand of the row checksums' extra MMA.
+    Once a call: they depend on C alone."""
+    kp, fp = c.shape
+    if c.dtype not in (torch.bfloat16, torch.float16) or kp % ENC_TILE:
+        raise ValueError(f"encode_centroids takes bf16 / fp16 centroids "
+                         f"padded to {ENC_TILE} rows, got {c.dtype} "
+                         f"{tuple(c.shape)}")
+    if _build.on_cpu(c):
+        return encode_centroids_plain(c)
+    cenc = torch.empty((kp // ENC_TILE, 8, fp), dtype=c.dtype,
+                       device=c.device)
+    code = _build.library().lib.fk_lloyd_encode_lp(
+        _build.ptr(c, c.dtype, "c"), _build.ptr(cenc, c.dtype, "cenc"), kp,
+        fp, _build.HALF_KINDS[str(c.dtype).replace("torch.", "")],
+        _build.stream_of(c))
+    _build.check(code, "encode_centroids")
+    encode_centroids.launches += 1
+    return cenc
+
+
+encode_centroids.launches = 0
+
+
+def ft_scratch(x: torch.Tensor, c: torch.Tensor, block_m: int) -> tuple:
+    """(cenc pointer or None, xenc) of an FT launch: at 2 bytes the split C
+    encodings (:func:`encode_centroids`) and the X encodings' scratch
+    (Mp/bm, 2, Fp) f32; at f32 neither (the CUDA-core checksums)."""
+    if x.dtype == torch.float32:
+        return None, None, None
+    cenc = encode_centroids(c)
+    xenc = torch.empty((x.shape[0] // block_m, 2, x.shape[1]),
+                       dtype=torch.float32, device=x.device)
+    return cenc, _build.ptr(cenc, c.dtype, "cenc"), xenc
+
+
 def distance_argmin_ft(x: torch.Tensor, c: torch.Tensor, cn: torch.Tensor,
                        inj: torch.Tensor, *, block_m: int, block_k: int,
                        block_f: int, factor: float):
@@ -157,11 +226,13 @@ def distance_argmin_ft(x: torch.Tensor, c: torch.Tensor, cn: torch.Tensor,
     mind = torch.empty(mp, dtype=torch.float32, device=dev)
     am = torch.empty(mp, dtype=torch.int32, device=dev)
     det = torch.empty(mp // block_m, dtype=torch.int32, device=dev)
+    cenc, cenc_ptr, xenc = ft_scratch(x, c, block_m)
     code = _build.launch(
         "fk_distance_argmin_ft", dt, _build.ptr(x, dt, "x"),
         _build.ptr(c, dt, "c"), _build.ptr(cn, torch.float32, "cn"),
-        _build.ptr(inj, torch.int32, "inj"),
-        mind.data_ptr(), am.data_ptr(), det.data_ptr(), factor, mp,
+        cenc_ptr, _build.ptr(inj, torch.int32, "inj"),
+        mind.data_ptr(), am.data_ptr(), det.data_ptr(),
+        None if xenc is None else xenc.data_ptr(), factor, mp,
         c.shape[0], fp, block_m, block_f, _build.stream_of(x))
     _build.check(code, "distance_argmin_ft")
     distance_argmin_ft.launches += 1

@@ -3,44 +3,45 @@
 Replaces the Pallas TPU kernels ``lloyd_step`` of
 ``src/repro/kernels/lloyd_step.py`` (bodies ``_kernel``/``_kernel_smallk``,
 update epilogue ``_emit_update``) and, for B stacked problems,
-``lloyd_step_batched`` (body ``_kernel_batched``). It is ``distance_argmin`` plus, once a
-row tile's argmin is final, that tile's per-cluster partial sums
-(M/bm, Kp, Fp) and counts (M/bm, Kp); rows >= ``true_m`` are padding and
-enter neither. ``ops._tree_sum`` collapses the partial blocks (on the card
-``update.tree_sum``'s kernel, which reads each partial once).
+``lloyd_step_batched`` (body ``_kernel_batched``). It is ``distance_argmin``
+plus, once a row tile's argmin is final, that tile's per-cluster sums and
+counts; rows >= ``true_m`` are padding and enter neither.
 
-CUDA kernels: ``lloyd_tile_kernel<BM, false, true>`` (f32) and
-``lloyd_tile_mma_kernel<T, BM, false, true>`` (bf16, fp16) in
+CUDA kernels: ``lloyd_tile_kernel<BM, false, kEntryUpdate>`` (f32) and
+``lloyd_tile_mma_kernel<T, BM, false, kEntryUpdate>`` (bf16, fp16) in
 ``csrc/fk_kernels.cu`` (T the input dtype: f32 on the CUDA cores, bf16 or
-fp16 on the tensor cores, as ``distance_argmin``). Its update epilogue
-``emit_update`` ranks the tile's rows by (cluster, row) in shared memory;
-each (k, f) partial sum is then one thread's f32 sum over its cluster's
-rows in row order, starting from 0 (2-byte rows widened exactly). No
-atomics: the sums are deterministic, so :func:`tile_update` (the same
-``emit_update`` launched alone, ``update_tiles_kernel<T, BM>``) reproduces a
-tile bit for bit -- the contract ``ops._verify_update_partials`` rests on.
-A two-pass ``fused`` fit sums exactly as a ``lloyd`` fit does, at every
-input dtype, because its update (``update.compact_update``) writes the
-same per-tile sums for the present clusters only and combines them in
-``ops._tree_sum``'s tree.
+fp16 on the tensor cores, as ``distance_argmin``). The reference's epilogue
+writes a dense (Kp, Fp) block per row tile, ~97 % zeros at K = 1000 with
+rows in random order (4.3 GB a step at M = 2**20, F = 128); this one writes
+the tile's entries with the shared writer of ``csrc/fk_entries.cuh``
+(``update.update_entries``' layout): the tile's rows ranked by (cluster,
+row) with a bitonic sort in shared memory, one row per present cluster,
+each (k, f) sum one lane's f32 sum over its cluster's rows in row order
+from 0 (2-byte rows widened exactly), its count and ``idx[k][slot(t)]``.
+``ops.fused_lloyd`` sums them with the tree kernel over entries
+(``update.reduce_entries``), which gives the dense blocks' tree bits, so a
+``lloyd`` step sums bit for bit as a ``fused`` step (``update.compact_
+update``: the same writer) and as the plain dense specification
+(:func:`lloyd_step_plain`, then ``update.tree_sum_plain``). No atomics.
 
-Batched: :func:`lloyd_step_batched` launches the same instantiation (of
-the input dtype, f32, bf16 or fp16) over a (row tile, problem) grid;
-``blockIdx.y`` moves every base pointer to its problem's slab, so problem b
-of the launch is, bit for bit, :func:`lloyd_step` on problem b alone (the
+Batched: :func:`lloyd_step_batched` keeps the dense layout
+(``<.., false, kDenseUpdate>``, ``emit_update``) over a (row tile, problem)
+grid; ``blockIdx.y`` moves every base pointer to its problem's slab, so
+problem b of the launch is, bit for bit, one problem's dense step, whose
+tree (``ops._tree_sum``) is the single-problem entries' tree (the
 reference's contract, ``tests/test_batched.py``). The TPU kernel wants
 padded K to be one centroid tile; this one loops over 128-wide centroid
 tiles as the single-problem kernel does, so any K works.
+:func:`tile_update` launches ``emit_update`` alone (``update_tiles_kernel
+<T, BM>``): the dense route every other route is held to, and the CPU's
+two-pass update.
 
-Bound on the H100: the distance GEMM (2 * Mp * Kp * Fp FLOPs on f32 CUDA
-cores, or the bf16 / fp16 tensor cores) plus writing the partial-sum
-buffer, (Mp/bm) * Kp * Fp * 4 bytes (4.3 GB at M = 2**20, Kp = 1024,
-Fp = 128, bm = 128); at 2-byte inputs the buffer's bytes set the bound.
-The one-pass kernels still write the reference's dense layout; the
-two-pass update writes only the present (tile, cluster) entries
-(``update.update_entries``). X rows of the update are re-read from global
-memory (L2-resident right after the tile's GEMM) instead of from a
-shared-memory stash.
+Bound on the H100: the distance GEMM (2 * M * K * F FLOPs on f32 CUDA
+cores, or the bf16 / fp16 tensor cores: 0.27 ms at the shape above) and,
+at 2 bytes, about as much in bytes: 2-byte X once and the f32 entries
+(~0.5 GB). The batched step's dense partial-sum buffer bounds it by
+bytes. X rows of the update are re-read from global memory (L2-resident
+right after the tile's GEMM) instead of from a shared-memory stash.
 """
 from __future__ import annotations
 
@@ -48,21 +49,11 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import _build, ref
+from repro_torch.kernels import _build
+from repro_torch.kernels import update as _up
 from repro_torch.kernels.distance_argmin import (check_padded,
                                                  distance_argmin_plain)
-
-
-def tile_update_plain(x_tiles: torch.Tensor, am_tiles: torch.Tensor,
-                      valid: torch.Tensor, kp: int
-                      ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Plain update of row tiles: x_tiles (T, bm, Fp), am_tiles (T, bm),
-    valid (T, bm) bool -> sums (T, Kp, Fp), counts (T, Kp), f32 whatever
-    the rows' dtype. The single definition used for every tile and for a
-    recomputed one, so both sum in one order."""
-    ref.full_f32(x_tiles.device)
-    onehot = ref.one_hot(am_tiles, kp) * valid[..., None].float()
-    return torch.bmm(onehot.transpose(1, 2), x_tiles.float()), onehot.sum(1)
+from repro_torch.kernels.update import tile_update_plain
 
 
 def lloyd_step_plain(x: torch.Tensor, c: torch.Tensor, cn: torch.Tensor,
@@ -82,27 +73,33 @@ def lloyd_step(x: torch.Tensor, c: torch.Tensor, cn: torch.Tensor,
                true_m: int, *, block_m: int, block_k: int, block_f: int):
     """Raw one-pass kernel entry on pre-padded inputs (X and C f32, bf16 or
     fp16, as :func:`distance_argmin`). Returns (min (Mp,), argmin (Mp,),
-    sums (Mp/bm, Kp, Fp), counts (Mp/bm, Kp)), all f32 but argmin."""
+    entries (Mp, Fp), ecnt (Mp,), idx (Kp, 2**L)): the update in
+    ``update.update_entries``' layout (one row per present (tile, cluster)
+    pair; ``update.reduce_entries`` sums it), all f32 but argmin and idx.
+    On the CPU: :func:`lloyd_step_plain`'s dense blocks in that layout."""
     check_padded(x, c, cn, block_m, block_k, block_f)
     dt = _build.input_dtype(x, c)
     if _build.on_cpu(x, c, cn):
-        return lloyd_step_plain(x, c, cn, true_m, block_m)
+        mind, am, sums, counts = lloyd_step_plain(x, c, cn, true_m, block_m)
+        return (mind, am) + _up.dense_to_entries(sums, counts, block_m)
     mp, fp = x.shape
     kp = c.shape[0]
     nt = mp // block_m
     dev = x.device
     mind = torch.empty(mp, dtype=torch.float32, device=dev)
     am = torch.empty(mp, dtype=torch.int32, device=dev)
-    sums = torch.empty((nt, kp, fp), dtype=torch.float32, device=dev)
-    counts = torch.empty((nt, kp), dtype=torch.float32, device=dev)
+    entries = torch.empty((mp, fp), dtype=torch.float32, device=dev)
+    ecnt = torch.empty(mp, dtype=torch.float32, device=dev)
+    idx = torch.full((kp, 1 << _up.tree_levels(nt)), -1, dtype=torch.int32,
+                     device=dev)
     code = _build.launch(
         "fk_lloyd_step", dt, _build.ptr(x, dt, "x"), _build.ptr(c, dt, "c"),
         _build.ptr(cn, torch.float32, "cn"), mind.data_ptr(), am.data_ptr(),
-        sums.data_ptr(), counts.data_ptr(), true_m, mp, kp, fp, block_m,
-        block_f, _build.stream_of(x))
+        entries.data_ptr(), ecnt.data_ptr(), idx.data_ptr(), true_m, mp, kp,
+        fp, block_m, block_f, _build.stream_of(x))
     _build.check(code, "lloyd_step")
     lloyd_step.launches += 1
-    return mind, am, sums, counts
+    return mind, am, entries, ecnt, idx
 
 
 lloyd_step.launches = 0
@@ -120,12 +117,12 @@ def tile_update(xp: torch.Tensor, am: torch.Tensor, sums_p: torch.Tensor,
     Both stay on the data's device, so the caller never synchronises.
 
     On the card this launches ``emit_update`` alone (``update_tiles_kernel``),
-    the function the one-pass kernels run, so every tile sums bit for bit as
-    theirs: for one gated tile it is the recompute of
-    ``ops._verify_update_partials``; over all tiles it is the dense route
-    the compact update (``update.compact_update``) is held to bit for bit.
-    On the CPU it is :func:`tile_update_plain` on the same tiles, over all
-    tiles the two-pass update of ``ops.tiled_update``."""
+    the dense epilogue the batched and pruned kernels run, whose sums the
+    entry writer's equal: over all tiles it is the dense route the compact
+    update (``update.compact_update``) and the one-pass entries are held to
+    bit for bit (no card path launches it). On the CPU it is
+    :func:`tile_update_plain` on the same tiles, over all tiles the two-pass
+    update of ``ops.tiled_update``."""
     nt, kp, fp = sums_p.shape
     if _build.on_cpu(xp, am, sums_p):
         if tile is None:

@@ -4,10 +4,11 @@ main-path part of ``repro.kernels.ops``).
 Pads inputs to the kernel tile grid (masked so results are exact), builds
 the per-fit :class:`DataPlan` (one problem), :class:`QuantPlan` (one problem,
 quantised to int8) or :class:`BatchPlan` (B stacked problems), reduces
-per-row-tile partial sums (``update.tree_sum``), runs the two-pass update
+per-row-tile partial sums (``update.tree_sum``) or the one-pass kernels'
+entries (``update.reduce_entries``), runs the two-pass update
 (``update.compact_update`` on the card), verifies the one-pass FT kernel's
-update checksums, carries the pruned step's :class:`BoundsState` and plans
-injection descriptors.
+update checksums over its entries, carries the pruned step's
+:class:`BoundsState` and plans injection descriptors.
 
 The int8 path differs from the reference in one place. Its
 :class:`QuantPlan` also holds the padded f32 :class:`DataPlan` of the same
@@ -318,16 +319,20 @@ def tiled_update(plan: DataPlan, am: torch.Tensor, k: int, *,
 
 def fused_lloyd(x, c: torch.Tensor, params: Optional[KernelParams] = None):
     """One-pass Lloyd step: assignment plus the per-cluster sums/counts, X
-    read once. Returns (assign (M,) int32, true squared distance (M,) f32,
-    sums (K, F) f32, counts (K,) f32)."""
+    read once. The kernel emits its update as entries (one row per present
+    (row tile, cluster) pair), summed by the tree kernel over them
+    (``update.reduce_entries``): bit for bit the tree over the dense
+    per-tile blocks, so a ``lloyd`` step sums as a ``fused`` one. Returns
+    (assign (M,) int32, true squared distance (M,) f32, sums (K, F) f32,
+    counts (K,) f32)."""
     plan, cp, cn, params = _resolve_padded(x, c, params)
     k, m = c.shape[0], plan.m
-    mind, am, sums, counts = _ll.lloyd_step(
+    mind, am, entries, ecnt, idx = _ll.lloyd_step(
         plan.xp, cp, cn, m, block_m=params.block_m, block_k=params.block_k,
         block_f=params.block_f)
-    sums = _tree_sum(sums)[:k, :plan.f]
-    counts = _tree_sum(counts)[:k]
-    return am[:m], mind[:m] + plan.xn, sums, counts
+    sums, counts = _up.reduce_entries(
+        entries, ecnt, idx, ntiles=plan.xp.shape[0] // params.block_m)
+    return am[:m], mind[:m] + plan.xn, sums[:k, :plan.f], counts[:k]
 
 
 # Relative + absolute slack of the tile skip test: the bounds are f32 and
@@ -431,47 +436,37 @@ def fused_lloyd_pruned(x, c: torch.Tensor,
             _tree_sum(counts)[:k], new_bounds, skip.float().mean())
 
 
-def _verify_update_partials(plan: DataPlan, am: torch.Tensor,
-                            sums_p: torch.Tensor, counts_p: torch.Tensor,
-                            ucheck: torch.Tensor, ccheck: torch.Tensor,
-                            params: KernelParams) -> tuple:
-    """Verification interval of the fused update: compare each row tile's
-    observed e1/e2 checksums of its partial sums/counts with the expected
-    ones the kernel emitted, and recompute the first mismatched tile in
-    place (bit-identical to a clean one). Every mismatch is counted. Runs
-    without a host synchronisation: the recompute is told on the device
-    whether there is anything to do."""
-    ref.full_f32(sums_p.device)
-    num_m, kp, fp = sums_p.shape
-    w_k = torch.arange(1, kp + 1, dtype=torch.float32, device=sums_p.device)
-    obs1 = sums_p.sum(1)                                      # (num_m, fp)
-    obs2 = torch.matmul(w_k, sums_p)                          # (num_m, fp)
-    res1 = (obs1 - ucheck[:, 0]).abs()
-    res2 = (obs2 - ucheck[:, 1]).abs()
-    cres1 = (counts_p.sum(1) - ccheck[:, 0]).abs()
-    cres2 = ((w_k * counts_p).sum(1) - ccheck[:, 1]).abs()
-    # contraction length is the row tile; each e1/e2 pair thresholds
-    # against its own clean-side magnitude
-    factor = threshold_factor(params.block_m, plan.xp.dtype)
-    one = torch.ones((), device=sums_p.device)
-    scale1 = torch.maximum(ucheck[:, 0].abs().amax(1), one)
-    scale2 = torch.maximum(ucheck[:, 1].abs().amax(1), one)
-    bad = ((res1.amax(1) > factor * scale1)
-           | (res2.amax(1) > factor * scale2)
-           | (cres1 > factor * torch.maximum(ccheck[:, 0].abs(), one))
-           | (cres2 > factor * torch.maximum(ccheck[:, 1].abs(), one)))
-    n_bad = bad.sum().to(torch.int32)
-    worst = bad.to(torch.int32).argmax().to(torch.int32)
-    _ll.tile_update(plan.xp, am, sums_p, counts_p, true_m=plan.m,
-                    block_m=params.block_m, tile=worst, gate=n_bad)
-    return sums_p, counts_p, n_bad
+def _verify_update_entries(plan: DataPlan, am: torch.Tensor, out: list,
+                           ucheck: torch.Tensor, ccheck: torch.Tensor,
+                           params: KernelParams) -> torch.Tensor:
+    """Verification interval of the one-pass update: each row tile's
+    observed e1/e2 checksums of its keyed entries and counts against the
+    expected ones the kernel emitted (``lloyd_step_ft.verify_entries``: one
+    launch, one read of the entries; the rule
+    ``lloyd_step_ft.update_mismatch``); the first
+    mismatched tile is rewritten in place by the entry writer, its idx
+    column restored (bit-identical to a clean one; a spare row it pointed
+    at is dropped). Every mismatch is counted. Runs without a host
+    synchronisation: the recompute is told on the device whether there is
+    anything to do. ``am`` is the kernel's padded assignment. Returns the
+    count (0-d int32)."""
+    entries, ecnt, idx, ekey, spare = out
+    bm = params.block_m
+    n_bad, worst = _llft.verify_entries(
+        entries, ecnt, ekey, spare, ucheck, ccheck, block_m=bm,
+        factor=threshold_factor(bm, plan.xp.dtype))
+    _up.update_entries(plan.xp, am, idx.shape[0], true_m=plan.m,
+                       block_m=bm, tile=worst, gate=n_bad,
+                       out=(entries, ecnt, idx), ekey=ekey)
+    return n_bad
 
 
 def fused_lloyd_ft(x, c: torch.Tensor,
                    params: Optional[KernelParams] = None, *,
                    inj: Optional[torch.Tensor] = None):
     """One-pass FT Lloyd step: ABFT around the distance GEMM plus the
-    checksum-protected update. ``inj`` is a 12-word
+    checksum-protected update, emitted as keyed entries and summed by the
+    tree kernel over them. ``inj`` is a 12-word
     :func:`~repro_torch.kernels.lloyd_step_ft.make_injection` descriptor.
     Returns (assign (M,) int32, true squared distance (M,) f32, sums (K, F),
     counts (K,), detected (0-d int32): corrected distance errors plus
@@ -482,14 +477,13 @@ def fused_lloyd_ft(x, c: torch.Tensor,
     inj = inj.to(plan.xp.device)
     k, m = c.shape[0], plan.m
     factor = threshold_factor(plan.xp.shape[1], plan.xp.dtype)
-    mind, am, det, sums_p, counts_p, ucheck, ccheck = _llft.lloyd_step_ft(
+    mind, am, det, *out, ucheck, ccheck = _llft.lloyd_step_ft(
         plan.xp, cp, cn, inj, m, block_m=params.block_m,
         block_k=params.block_k, block_f=params.block_f, factor=factor)
-    sums_p, counts_p, det_up = _verify_update_partials(
-        plan, am, sums_p, counts_p, ucheck, ccheck, params)
-    sums = _tree_sum(sums_p)[:k, :plan.f]
-    counts = _tree_sum(counts_p)[:k]
-    return (am[:m], mind[:m] + plan.xn, sums, counts,
+    det_up = _verify_update_entries(plan, am, out, ucheck, ccheck, params)
+    sums, counts = _up.reduce_entries(
+        out[0], out[1], out[2], ntiles=plan.xp.shape[0] // params.block_m)
+    return (am[:m], mind[:m] + plan.xn, sums[:k, :plan.f], counts[:k],
             det.sum().to(torch.int32) + det_up)
 
 

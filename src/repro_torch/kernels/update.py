@@ -39,15 +39,21 @@ Two CUDA kernels in ``csrc/fk_update.cu``:
   each thread's features in registers, with a shift-reduce stack: two
   neighbours meet at the highest bit in which their slots differ. It reads
   sparse entries through ``idx`` or dense partials (T, rows, width) through
-  a tile stride and a row (problem) stride. No atomics.
+  a tile stride and a row (problem) stride. No atomics. Besides its
+  ``launches``, the wrapper counts each variant's in
+  ``tree_reduce.kernel_launches`` (``sparse``, ``dense``).
 
-:func:`compact_update` (the update: entries, then the tree over sums and
-over counts) is what ``ops.tiled_update`` runs on the card;
-:func:`tree_sum` is ``ops._tree_sum`` (the one-pass kernels' dense
-partials, one problem or a stack of them). Plain versions, used by the
-tests and on the CPU: :func:`update_plain` (the specification: dense
-:func:`~repro_torch.kernels.lloyd_step.tile_update_plain`, its present
-entries, the sparse tree), :func:`update_entries_plain`,
+:func:`compact_update` (the update: entries, then
+:func:`reduce_entries`, the tree over sums and over counts) is what
+``ops.tiled_update`` runs on the card; the one-pass kernels write the same
+entries from their epilogue (the writer of ``csrc/fk_entries.cuh``), and
+``ops.fused_lloyd`` / ``fused_lloyd_ft`` reduce them with
+:func:`reduce_entries`; :func:`update_entries` of one tile, keyed, is the
+FT step's recompute. :func:`tree_sum` is ``ops._tree_sum`` (the batched
+and pruned kernels' dense partials, one problem or a stack of them).
+Plain versions, used by the tests and on the CPU: :func:`update_plain`
+(the specification: dense :func:`tile_update_plain`, its present entries,
+the sparse tree), :func:`update_entries_plain` / :func:`dense_to_entries`,
 :func:`tree_reduce_plain` and :func:`tree_sum_plain` (the torch halving
 tree).
 
@@ -65,8 +71,7 @@ from typing import Optional
 import torch
 
 from repro_torch import hw
-from repro_torch.kernels import _build
-from repro_torch.kernels.lloyd_step import tile_update_plain
+from repro_torch.kernels import _build, ref
 
 # slots a tree chunk holds at most, as a power of two (kTreeMaxLevels)
 MAX_CHUNK_LOG2 = 8
@@ -75,6 +80,19 @@ MIN_CHUNK_LOG2 = 5
 TREE_THREADS = 128
 # dtype code of fk_update_entries
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+
+
+def tile_update_plain(x_tiles: torch.Tensor, am_tiles: torch.Tensor,
+                      valid: torch.Tensor, kp: int
+                      ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain update of row tiles: x_tiles (T, bm, Fp), am_tiles (T, bm),
+    valid (T, bm) bool -> sums (T, Kp, Fp), counts (T, Kp), f32 whatever
+    the rows' dtype. The single definition used for every tile and for a
+    recomputed one, so both sum in one order (the dense specification of
+    every update route)."""
+    ref.full_f32(x_tiles.device)
+    onehot = ref.one_hot(am_tiles, kp) * valid[..., None].float()
+    return torch.bmm(onehot.transpose(1, 2), x_tiles.float()), onehot.sum(1)
 
 
 def tree_levels(n: int) -> int:
@@ -179,16 +197,27 @@ def update_plain(x_tiles: torch.Tensor, am_tiles: torch.Tensor,
 
 
 def update_entries_plain(x_tiles: torch.Tensor, am_tiles: torch.Tensor,
-                         valid: torch.Tensor, kp: int) -> tuple:
+                         valid: torch.Tensor, kp: int,
+                         keys: bool = False) -> tuple:
     """Plain version of :func:`update_entries` in its layout: entries
     (T * bm, Fp) and ecnt (T * bm,) f32 (zeros where the kernel writes
-    nothing), idx (Kp, 2**L) int32."""
-    nt, bm, fp = x_tiles.shape
+    nothing), idx (Kp, 2**L) int32; with ``keys`` also ekey (T * bm,)
+    int32, each entry row's cluster, -1 past a tile's last entry (the keyed
+    layout: those rows are zeros)."""
     sums_p, counts_p = tile_update_plain(x_tiles, am_tiles, valid, kp)
+    return dense_to_entries(sums_p, counts_p, x_tiles.shape[1], keys)
+
+
+def dense_to_entries(sums_p: torch.Tensor, counts_p: torch.Tensor, bm: int,
+                     keys: bool = False) -> tuple:
+    """Dense per-tile blocks (sums (T, Kp, Fp), counts (T, Kp); a pair is
+    present where its count is > 0) in :func:`update_entries`' layout for
+    row tiles of ``bm`` rows, as :func:`update_entries_plain` returns it."""
+    nt, kp, fp = sums_p.shape
     present = counts_p > 0
     tile, k = present.nonzero(as_tuple=True)      # by tile, then cluster
     row = tile * bm + present.cumsum(1)[tile, k] - 1
-    dev = x_tiles.device
+    dev = sums_p.device
     entries = torch.zeros((nt * bm, fp), dtype=torch.float32, device=dev)
     ecnt = torch.zeros(nt * bm, dtype=torch.float32, device=dev)
     idx = torch.full((kp, 1 << tree_levels(nt)), -1, dtype=torch.int32,
@@ -196,46 +225,109 @@ def update_entries_plain(x_tiles: torch.Tensor, am_tiles: torch.Tensor,
     entries[row] = sums_p[tile, k]
     ecnt[row] = counts_p[tile, k]
     idx[k, tree_slots(nt, dev)[tile]] = row.to(torch.int32)
-    return entries, ecnt, idx
+    if not keys:
+        return entries, ecnt, idx
+    ekey = torch.full((nt * bm,), -1, dtype=torch.int32, device=dev)
+    ekey[row] = k.to(torch.int32)
+    return entries, ecnt, idx, ekey
+
+
+def _entries_tile_plain(xp, amp, kp, true_m, block_m, tile, out, ekey):
+    """:func:`update_entries` of the one tile ``tile`` into ``out`` (and
+    ``ekey``) in place, its idx column cleared first: the plain version of
+    the kernel's one-tile launch."""
+    entries, ecnt, idx = out
+    mp, fp = xp.shape
+    t = int(tile)
+    rows = torch.arange(t * block_m, (t + 1) * block_m)
+    ent, cnt, col, key = update_entries_plain(
+        xp[rows].view(1, block_m, fp), amp[rows].view(1, block_m),
+        (rows < true_m).view(1, block_m), kp, keys=True)
+    written = key >= 0 if ekey is None else slice(None)
+    entries[rows[written]] = ent[written]
+    ecnt[rows[written]] = cnt[written]
+    if ekey is not None:
+        ekey[rows] = key
+    slot = int(tree_slots(mp // block_m)[t])
+    idx[:, slot] = torch.where(col[:, 0] >= 0, col[:, 0] + t * block_m, -1)
 
 
 def update_entries(xp: torch.Tensor, amp: torch.Tensor, kp: int, *,
                    true_m: int, block_m: int,
-                   gate: Optional[torch.Tensor] = None) -> tuple:
+                   gate: Optional[torch.Tensor] = None,
+                   tile: Optional[torch.Tensor] = None,
+                   out: Optional[tuple] = None,
+                   ekey: Optional[torch.Tensor] = None) -> tuple:
     """The per-tile pass of :func:`compact_update` on padded X (Mp, Fp; f32,
     bf16 or fp16) and the padded assignment ``amp`` (Mp,) int32. Returns
     (entries (Mp, Fp), ecnt (Mp,), idx (Kp, 2**L)); rows >= ``true_m``
     enter nothing. With ``gate`` (0-d int32) it writes only when
-    ``gate > 0`` (idx is -1 throughout otherwise)."""
+    ``gate > 0`` (idx is -1 throughout otherwise).
+
+    ``out`` (entries, ecnt, idx) takes the result in place (buffers at
+    least that large: the one-pass FT step's have a spare row). ``ekey``
+    (keyed, as ``lloyd_step_ft`` writes its entries): each written row's
+    cluster, and a tile's rows past its last entry zeroed with key -1.
+    ``tile`` (0-d int32, with ``out``): only that row tile, its idx column
+    cleared first -- the FT recompute of a tile whose update checksums
+    mismatched. Tile and gate stay on the device: nothing waits on the
+    host."""
     mp, fp = xp.shape
     if mp % block_m or amp.shape != (mp,):
         raise ValueError(f"xp {tuple(xp.shape)} and amp {tuple(amp.shape)} "
                          f"are not padded to row tiles of {block_m}")
+    if tile is not None and out is None:
+        raise ValueError("update_entries of one tile writes into out")
     nt = mp // block_m
-    if _build.on_cpu(xp, amp):
+    tensors = [t for t in (xp, amp, gate, tile, ekey) if t is not None]
+    if _build.on_cpu(*tensors, *(out or ())):
+        closed = gate is not None and int(gate) <= 0
+        if tile is not None:
+            if not closed:
+                _entries_tile_plain(xp, amp, kp, true_m, block_m, tile, out,
+                                    ekey)
+            return out
         rows = torch.arange(mp).view(nt, block_m)
-        entries, ecnt, idx = update_entries_plain(
+        new = update_entries_plain(
             xp.view(nt, block_m, fp), amp.view(nt, block_m), rows < true_m,
-            kp)
-        if gate is not None and int(gate) <= 0:
-            entries.zero_()
-            ecnt.zero_()
-            idx.fill_(-1)
-        return entries, ecnt, idx
+            kp, keys=True)
+        if out is None:
+            if closed:
+                new[0].zero_()
+                new[1].zero_()
+                new[2].fill_(-1)
+            return new[:3]
+        if not closed:
+            for dst, src in zip(out, new[:3]):
+                dst[:src.shape[0]] = src
+            if ekey is not None:
+                ekey[:mp] = new[3]
+        return out
     i32, f32 = torch.int32, torch.float32
     dt = _build.input_dtype(xp)
-    entries = torch.empty((mp, fp), dtype=f32, device=xp.device)
-    ecnt = torch.empty(mp, dtype=f32, device=xp.device)
-    idx = torch.full((kp, 1 << tree_levels(nt)), -1, dtype=i32,
-                     device=xp.device)
+    if out is None:
+        out = (torch.empty((mp, fp), dtype=f32, device=xp.device),
+               torch.empty(mp, dtype=f32, device=xp.device),
+               torch.full((kp, 1 << tree_levels(nt)), -1, dtype=i32,
+                          device=xp.device))
+    entries, ecnt, idx = out
+    if (entries.shape[0] < mp or entries.shape[1] != fp
+            or ecnt.shape[0] < mp or idx.shape != (kp, 1 << tree_levels(nt))
+            or (ekey is not None and ekey.shape[0] < mp)):
+        raise ValueError(f"update_entries' buffers "
+                         f"{[tuple(t.shape) for t in out]} do not fit Mp "
+                         f"{mp}, Fp {fp}, Kp {kp}")
     code = _build.library("fk_update").lib.fk_update_entries(
         _build.ptr(xp, dt, "xp"), _build.ptr(amp, i32, "amp"),
+        None if tile is None else _build.ptr(tile, i32, "tile"),
         None if gate is None else _build.ptr(gate, i32, "gate"),
-        entries.data_ptr(), ecnt.data_ptr(), idx.data_ptr(), true_m, kp, fp,
-        block_m, nt, DTYPE_CODES[dt], _build.stream_of(xp))
+        _build.ptr(entries, f32, "entries"), _build.ptr(ecnt, f32, "ecnt"),
+        _build.ptr(idx, i32, "idx"),
+        None if ekey is None else _build.ptr(ekey, i32, "ekey"), true_m, kp,
+        fp, block_m, nt, DTYPE_CODES[dt], _build.stream_of(xp))
     _build.check(code, "update_entries", "fk_update")
     update_entries.launches += 1
-    return entries, ecnt, idx
+    return out
 
 
 update_entries.launches = 0
@@ -308,9 +400,11 @@ def tree_reduce(vals: torch.Tensor, idx: Optional[torch.Tensor],
         chunk_log2, _build.stream_of(vals))
     _build.check(code, "tree_reduce", "fk_update")
     tree_reduce.launches += 1
+    tree_reduce.kernel_launches["dense" if idx is None else "sparse"] += 1
 
 
 tree_reduce.launches = 0
+tree_reduce.kernel_launches = dict.fromkeys(("sparse", "dense"), 0)
 
 
 def _chunk_log2(slots: int, blocks: int, threads: int) -> int:
@@ -356,28 +450,42 @@ def tree_passes(vals: torch.Tensor, idx: Optional[torch.Tensor],
         vals, idx, slots = dst, dst_idx, nchunks
 
 
+def reduce_entries(entries: torch.Tensor, ecnt: torch.Tensor,
+                   idx: torch.Tensor, *, ntiles: int,
+                   out: Optional[tuple] = None,
+                   gate: Optional[torch.Tensor] = None
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(sums (Kp, Fp), counts (Kp,)) f32: the halving tree over ``ntiles``
+    row tiles of the entries (:func:`tree_passes` over the sums and over the
+    counts, leaves through ``idx`` (Kp, 2**L)), bit for bit
+    ``tree_sum_plain`` over the dense per-tile blocks they hold. ``out`` and
+    ``gate`` as :func:`compact_update`."""
+    kp, fp = idx.shape[0], entries.shape[1]
+    if out is None:
+        f32 = dict(dtype=torch.float32, device=entries.device)
+        out = (torch.empty((kp, fp), **f32), torch.empty(kp, **f32))
+    tree_passes(entries, idx, out[0], rows=kp, ntiles=ntiles, width=fp,
+                gate=gate)
+    tree_passes(ecnt, idx, out[1], rows=kp, ntiles=ntiles, width=1,
+                gate=gate)
+    return out
+
+
 def compact_update(xp: torch.Tensor, amp: torch.Tensor, kp: int, *,
                    true_m: int, block_m: int, out: Optional[tuple] = None,
                    gate: Optional[torch.Tensor] = None
                    ) -> tuple[torch.Tensor, torch.Tensor]:
     """Per-cluster (sums (Kp, Fp), counts (Kp,)) f32 of padded X (Mp, Fp)
     under the padded assignment ``amp`` (Mp,) int32, rows >= ``true_m``
-    left out, bit for bit ``tree_sum_plain`` over the one-pass kernels'
-    partials (:func:`update_entries`, then :func:`tree_passes` over the
-    sums and over the counts). ``out`` takes the result in place; with
-    ``gate`` (0-d int32) it is written only when ``gate > 0``, so a
-    recompute on a DMR mismatch never synchronises."""
-    mp, fp = xp.shape
-    nt = mp // block_m
+    left out, bit for bit ``tree_sum_plain`` over the dense per-tile
+    partials (:func:`update_entries`, then :func:`reduce_entries`). ``out``
+    takes the result in place; with ``gate`` (0-d int32) it is written only
+    when ``gate > 0``, so a recompute on a DMR mismatch never
+    synchronises."""
     entries, ecnt, idx = update_entries(xp, amp, kp, true_m=true_m,
                                         block_m=block_m, gate=gate)
-    if out is None:
-        out = (torch.empty((kp, fp), dtype=torch.float32, device=xp.device),
-               torch.empty(kp, dtype=torch.float32, device=xp.device))
-    tree_passes(entries, idx, out[0], rows=kp, ntiles=nt, width=fp,
-                gate=gate)
-    tree_passes(ecnt, idx, out[1], rows=kp, ntiles=nt, width=1, gate=gate)
-    return out
+    return reduce_entries(entries, ecnt, idx, ntiles=xp.shape[0] // block_m,
+                          out=out, gate=gate)
 
 
 def tree_sum(a: torch.Tensor, dim: int = 0) -> torch.Tensor:

@@ -33,13 +33,15 @@ from repro_torch.kernels import kmeanspp_init as kpp  # noqa: E402
 from repro_torch.kernels import lloyd_step as ll  # noqa: E402
 from repro_torch.kernels import lloyd_step_ft as llft  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
+from repro_torch.kernels import update as up  # noqa: E402
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py"]
 WRAPPERS = (da.distance_argmin, ll.lloyd_step, daft.distance_argmin_ft,
             llft.lloyd_step_ft, ll.tile_update, ll.lloyd_step_batched,
-            kpp.kmeanspp_round)
+            kpp.kmeanspp_round, daft.encode_centroids, llft.verify_entries,
+            up.update_entries, up.tree_reduce)
 
 
 def _imports(path):
@@ -79,6 +81,7 @@ def test_wrappers_count_no_launch_on_cpu():
     ops.fused_assign_ft(xt, c, p)
     ops.fused_lloyd_ft(xt, c, p, inj=llft.make_injection(
         update=(0, 1, 2, 2.0 ** 20)))
+    ops.fused_lloyd_ft(xt.bfloat16(), c, p)
     am = ops.fused_assign(xt, c, p)[0]
     ops.tiled_update(ops.plan_data(xt, ops.clamp_params(300, 150, 70, p)),
                      am, 150, use_dmr=True)
@@ -290,13 +293,13 @@ def test_distance_matrix_oracle():
 
 
 def test_recompute_update_is_bitwise_and_conditional():
-    """The plain recompute of one tile reproduces the one-pass partials
-    exactly, and leaves them alone when nothing mismatched."""
+    """The plain recompute of one tile reproduces the one-pass step's dense
+    partials (its plain specification) exactly, and leaves them alone when
+    nothing mismatched."""
     x, _ = make_blobs(300, 64, 5, seed=6)
     plan = ops.plan_data(torch.from_numpy(x), ops.KernelParams(64, 128, 32))
     cp, cn = ops._pad_centroids(plan.x[:9], 9, 128, plan.xp.shape[1])
-    _, am, sums, counts = ll.lloyd_step(plan.xp, cp, cn, plan.m, block_m=64,
-                                        block_k=128, block_f=32)
+    _, am, sums, counts = ll.lloyd_step_plain(plan.xp, cp, cn, plan.m, 64)
     ref_sums, ref_counts = sums.clone(), counts.clone()
     sums[4] = 7.0
     counts[4] = 7.0
@@ -311,13 +314,13 @@ def test_recompute_update_is_bitwise_and_conditional():
 
 @pytest.mark.parametrize("gate", [None, 0, 1])
 def test_tile_update_all_tiles(gate):
-    """Over every row tile the update reproduces the one-pass kernel's
-    partials bit for bit; a closed gate leaves the buffers alone."""
+    """Over every row tile the update reproduces the one-pass step's dense
+    partials (its plain specification) bit for bit; a closed gate leaves
+    the buffers alone."""
     x, _ = make_blobs(300, 64, 5, seed=8)
     plan = ops.plan_data(torch.from_numpy(x), ops.KernelParams(64, 128, 32))
     cp, cn = ops._pad_centroids(plan.x[:9], 9, 128, plan.xp.shape[1])
-    _, am, want_s, want_c = ll.lloyd_step(plan.xp, cp, cn, plan.m,
-                                          block_m=64, block_k=128, block_f=32)
+    _, am, want_s, want_c = ll.lloyd_step_plain(plan.xp, cp, cn, plan.m, 64)
     sums = torch.full_like(want_s, 7.0)
     counts = torch.full_like(want_c, 7.0)
     ll.tile_update(plan.xp, am, sums, counts, true_m=plan.m, block_m=64,

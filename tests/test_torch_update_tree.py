@@ -335,11 +335,13 @@ def test_tiled_update_matches_reference_protected_sums(kind, block_m,
 
 def test_wrappers_count_no_launch_on_cpu_and_refuse_other_devices():
     plan, am, amp, kp, _ = _update_case("random", 128, 300, torch.float32)
-    before = (up.update_entries.launches, up.tree_reduce.launches)
+    before = (up.update_entries.launches, up.tree_reduce.launches,
+              dict(up.tree_reduce.kernel_launches))
     up.compact_update(plan.xp, amp, kp, true_m=plan.m, block_m=128)
     up.tree_sum(torch.ones(5, 3, 4), 1)
     ops.tiled_update(plan, am, 300, use_dmr=True)
-    assert (up.update_entries.launches, up.tree_reduce.launches) == before
+    assert (up.update_entries.launches, up.tree_reduce.launches,
+            up.tree_reduce.kernel_launches) == before
     with pytest.raises(RuntimeError, match="CPU or on one CUDA"):
         up.tree_sum(torch.empty((4, 8), device="meta"))
     with pytest.raises(ValueError):
