@@ -89,10 +89,16 @@ Phases, one line each:
      (>= 99.9 %), inertia (1e-4), detections and the clean product's
      checksum residual over ``ft_matmul``'s threshold; a detect campaign
      (resolves to ``lloyd_ft``, centroids bitwise its clean fit's); the ABFT
-     GEMM (``ops.abft_matmul``) at the detect fit's product and at
-     internlm2-1.8b's FFN up-projection (8192 x 2048 x 8192), clean and with
-     a 5e4 fault, against its plain version, ``torch.matmul`` and
-     ``ft_matmul``; the DMR update (``centroid_update_dmr``) on the fused
+     GEMM (``ops.abft_matmul``, at f32 the split on the bf16 tensor cores)
+     at the detect fit's product and at internlm2-1.8b's FFN up-projection
+     (8192 x 2048 x 8192), clean and with a 5e4 fault, against its plain
+     version, ``torch.matmul`` in full f32 (TF32 off) and ``ft_matmul``,
+     with the kernel's own clean-residual margin (the threshold over the
+     largest clean residual of any tile) and its encodings pre-pass alone;
+     the f32 GEMM also at ``ABFT_TILE_CASES`` (clean, three faults, one
+     under the threshold, two launches bitwise, the encodings and Y's
+     planes bitwise their plain split); the DMR update
+     (``centroid_update_dmr``) on the fused
      fit's labels against its plain version, a corrupted shadow partial,
      ``index_add_`` + ``bincount`` and ``ops.tiled_update(use_dmr=True)``;
      the two kernels' rows;
@@ -233,15 +239,17 @@ FLASH_FP16_DECODE_BARS = FLASH_FP16_BARS + ((2.0 ** -12, 2.0 ** -10),)
 # a planted ABFT GEMM fault is this many times the threshold of its tile
 # (rounded up to a power of two), so it must be found at every dtype; the
 # corrected element then holds to f32 rounding at the fault's magnitude
-# (each package subtracts its own f32 checksum residual): 2^-16 |delta|
+# (each package subtracts its own f32 checksum residual): 2^-16 |delta| at
+# 2 bytes; at f32 the threshold is that tight rounding's own, and the
+# corrected element holds to the tile's clean residual, under its threshold
 ABFT_FAULT_OVER_THRESHOLD = 8.0
 ABFT_FIX_RTOL = 2.0 ** -16
-# phase 14: the 2-byte ABFT GEMM at the tiles its kernel treats apart, each
-# on a ragged (m, k, n): one warpgroup a tile under 64 rows with a 32-deep
-# k-step (8, 40 rows; Kp not a multiple of the 64-deep stage), an odd number
-# of D bands a warp (24 rows: one in warp 1) over ~15 jobs a block on the
-# two-band staging (Kp 64), several sub-tiles a tile with a 512-deep k-step
-# (256 x 256), the largest tile
+# phases 10 (f32) and 14 (bf16, fp16): the ABFT GEMM at the tiles its
+# kernel treats apart, each on a ragged (m, k, n): one warpgroup a tile
+# under 64 rows with a 32-deep k-step (8, 40 rows; Kp not a multiple of the
+# 64-deep stage), an odd number of D bands a warp (24 rows: one in warp 1)
+# over ~15 jobs a block on the two-band staging (Kp 64), several sub-tiles
+# a tile with a 512-deep k-step (256 x 256), the largest tile
 ABFT_TILE_CASES = (((8, 128, 32), (1000, 96, 300)),
                    ((40, 128, 32), (1000, 160, 500)),
                    ((24, 128, 32), (3000, 64, 4000)),
@@ -1579,6 +1587,7 @@ def phase_detect(torch, ops, hw, ll, mma, cud, KMeans, FaultPolicy,
     base = dict(n_clusters=K_FULL, max_iter=ITERS, tol=0.0, random_state=SEED)
     from repro_torch.kernels import update as up
     wrappers = {"matmul_abft": mma.matmul_abft,
+                "abft_encodings": mma.abft_encodings,
                 "centroid_update_dmr": cud.centroid_update_dmr,
                 "update_entries": up.update_entries,
                 "tree_reduce": up.tree_reduce}
@@ -1672,9 +1681,13 @@ def phase_detect(torch, ops, hw, ll, mma, cud, KMeans, FaultPolicy,
     del km_det, km_camp, det_labels
     torch.cuda.empty_cache()
 
-    # --- the ABFT GEMM against its plain version, then its times
+    # --- the ABFT GEMM against its plain version, then its times; the
+    # yardstick is torch.matmul in full f32 (main pins TF32 off)
     rows = []
     no_inj = mma.no_injection().cuda()
+    allow_tf32 = torch.backends.cuda.matmul.allow_tf32
+    expect(not allow_tf32, "torch.matmul's TF32 is on: the f32 yardstick "
+           "must run in full f32")
     for key, (xg, yg) in shapes.items():
         d, det, d_f, det_f, inj, (bm, bn, bk), tiles = gemm_out[key]
         m, k = xg.shape
@@ -1704,31 +1717,102 @@ def phase_detect(torch, ops, hw, ll, mma, cud, KMeans, FaultPolicy,
 
         def plain():
             return mma.matmul_abft_plain(xp, yp, no_inj, bm, bn, bk, factor)
+
+        def run(f):
+            return int(mma.matmul_abft(xp, yp, no_inj, block_m=bm,
+                                       block_n=bn, block_k=bk,
+                                       factor=f)[1].sum())
+        # the kernel's own clean-residual margin: log2 of the threshold over
+        # the largest clean residual of any tile lies in [lo, hi); lo > 0:
+        # no tile of the clean product is flagged
+        margin = clean_margin_log2(run, factor)
+        expect(margin[0] > 0.0, f"abft_matmul ({key}): a tile of the clean "
+               f"product is flagged (margin log2 {margin})")
+        # the bound: the six bf16 products of the split on the tensor
+        # cores, or the bytes of f32 X, Y and D; the f32 product on the
+        # CUDA cores beside it
         flops = 2.0 * m * n * k
-        b_ms, b_by = bound(flops, 4.0 * (m * k + k * n + m * n))
+        nbytes = 4.0 * (m * k + k * n + m * n)
+        b_ms, b_by = bound(6.0 * flops, nbytes, peak=hw.PEAK_FLOPS_BF16)
+        # the encodings pre-pass: f32 X and Y read once, E_X and E_Y out,
+        # Y's three bf16 planes written, then the expected column and row
+        # checksums E_X Y and X E_Y (4 (m-tiles) k n + 4 m k (n-tiles) FLOPs
+        # on the CUDA cores, written as pairs)
+        kpe = -(-kp // mma.ENC_K_ALIGN) * mma.ENC_K_ALIGN
+        nmt, nnt = mp // bm, np_ // bn
+        e_ms, e_by = bound(4.0 * (m + n) * k + 4.0 * (nmt * n + m * nnt) * k,
+                           4.0 * (m * k + k * n)
+                           + 8.0 * (nmt + nnt) * kpe + 6.0 * k * n
+                           + 8.0 * (nmt * n + m * nnt))
+        ex_k, ey_k, planes_k, ecol_k, erow_k = mma.abft_encodings(
+            xp, yp, block_m=bm, block_n=bn)
+        ex_p, ey_p, planes_p, ecol_p, erow_p = mma.abft_operands_plain(
+            xp, yp, bm, bn)
+        pairs = ((ex_k, ex_p), (ey_k, ey_p), (ecol_k, ecol_p),
+                 (erow_k, erow_p))
+        enc_abs = max(max_err(a_, b_) for a_, b_ in pairs)
+        enc_rel = max(max_err(a_, b_) / max(float(b_.abs().max()), 1.0)
+                      for a_, b_ in pairs)
+        planes_ok = bool(torch.equal(planes_k, planes_p))
+        expect(enc_rel <= 1e-5 and planes_ok,
+               f"abft_encodings ({key}) f32: E_X, E_Y and the expected "
+               f"checksums off their plain version by {enc_rel} "
+               f"(normalised), Y's planes bitwise: {planes_ok}")
+        del ex_k, ey_k, planes_k, ecol_k, erow_k, ex_p, ey_p, planes_p
+        del ecol_p, erow_p, pairs
         t = {"ms": cuda_ms(kern), "plain_ms": cuda_ms(plain, reps=2),
              "library_ms": cuda_ms(lambda: torch.matmul(xg, yg)),
+             "library_allow_tf32": allow_tf32,
              "ft_matmul_ms": cuda_ms(lambda: ft_matmul(xg, yg), reps=3),
              "bound_ms": b_ms, "bound_by": b_by,
-             "bound_padded_ms": bound(2.0 * mp * np_ * kp,
+             "bound_f32_cuda_core_ms": bound(flops, nbytes)[0],
+             "bound_padded_ms": bound(12.0 * mp * np_ * kp,
                                       4.0 * (mp * kp + kp * np_
-                                             + mp * np_))[0],
+                                             + mp * np_),
+                                      peak=hw.PEAK_FLOPS_BF16)[0],
+             "encode_ms": cuda_ms(lambda: mma.abft_encodings(
+                 xp, yp, block_m=bm, block_n=bn)),
+             "encode_plain_ms": cuda_ms(lambda: mma.abft_operands_plain(
+                 xp, yp, bm, bn), reps=2),
+             "encode_bound_ms": e_ms, "encode_bound_by": e_by,
+             "encodings_max_abs_err": enc_abs,
+             "clean_margin_log2": margin,
              "tiles": [bm, bn, bk], "max_abs_err": err,
              "fault_tile": [int(v) for v in inj[1:6].tolist()],
              "corrected_err_over_rtol": fix_err}
         rec[f"abft_matmul_{key}"] = t
         if key == "a":
             rows.append({"name": "matmul_abft", "route": "cuda",
-                         "source": "src/repro_torch/csrc/fk_kernels.cu",
+                         "source": "src/repro_torch/csrc/fk_abft_gemm.cu",
                          "replaces": "src/repro/kernels/matmul_abft.py:127",
                          "launches": launches["matmul_abft"],
                          "max_abs_err": err, "ms": t["ms"],
                          "plain_ms": t["plain_ms"], "bound_ms": b_ms,
                          "bound_by": b_by, "library_ms": t["library_ms"]})
+            rows.append({"name": "abft_encode", "route": "cuda",
+                         "source": "src/repro_torch/csrc/fk_abft_gemm.cu",
+                         "replaces": "src/repro/kernels/matmul_abft.py:127",
+                         "launches": launches["abft_encodings"],
+                         "max_abs_err": enc_abs, "ms": t["encode_ms"],
+                         "plain_ms": t["encode_plain_ms"],
+                         "bound_ms": e_ms, "bound_by": e_by,
+                         "library_ms": None})
         del xp, yp
         torch.cuda.empty_cache()
     del xb, wb, ya
     torch.cuda.empty_cache()
+    # the f32 GEMM at the tiles its kernel treats apart
+    rec["abft_tiles"] = []
+    gen = torch.Generator(device=dev).manual_seed(SEED + 23)
+    for tiles, (m, k, n) in ABFT_TILE_CASES:
+        xg = torch.randn(m, k, generator=gen, device=dev)
+        yg = torch.randn(k, n, generator=gen, device=dev)
+        rec["abft_tiles"].append(dict(
+            m=m, k=k, n=n, **abft_checks(torch, ops, mma, xg, yg,
+                                         torch.float32, under=True,
+                                         tiles=tiles)))
+        del xg, yg
+        torch.cuda.empty_cache()
 
     # --- the DMR update against its plain version, then its times
     ps, pc, pbad = cud.centroid_update_dmr_plain(x, labels_off, K_FULL,
@@ -1766,7 +1850,8 @@ def phase_detect(torch, ops, hw, ll, mma, cud, KMeans, FaultPolicy,
            "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": dmr_err}
     rec["centroid_update_dmr"] = dmr
     rec["library_calls"] = {
-        "matmul_abft": "torch.matmul(X, Y): the unprotected product",
+        "matmul_abft": "torch.matmul(X, Y) in full f32 (allow_tf32 False): "
+                       "the unprotected product",
         "centroid_update_dmr": "index_add_(0, labels, X) + bincount: one "
                                "unprotected update"}
     rows.append({"name": "centroid_update_dmr", "route": "cuda",
@@ -2756,9 +2841,10 @@ def abft_fault_delta(torch, ops, xg, yg, tiles, tile_ix, dt):
 
 def abft_checks(torch, ops, mma, xg, yg, dt, under: bool,
                 tiles=None) -> dict:
-    """The 2-byte ABFT GEMM on xg (m, k) . yg (k, n), both of dtype ``dt``,
-    against the plain product of the same values. ``tiles`` None: through
-    ``ops.abft_matmul`` at its own tiles, D compared on (m, n); ``tiles``
+    """The ABFT GEMM on xg (m, k) . yg (k, n), both of dtype ``dt`` (f32,
+    bf16 or fp16), against the plain product of the same values.
+    ``tiles`` None: through ``ops.abft_matmul`` at its own tiles, D
+    compared on (m, n); ``tiles``
     (bm, bn, bk): the raw entry ``matmul_abft`` on the padded inputs at those
     tiles (``ops.abft_tiles`` keeps the reference's alignments, k 128, so bk
     32 is reached only there), D compared on (Mp, Np). Clean: no detection,
@@ -2768,10 +2854,13 @@ def abft_checks(torch, ops, mma, xg, yg, dt, under: bool,
     row), col 31, and with ``tiles`` also in the last tile at its last row
     and column after the first and after the last k-step: one detection,
     every other element within rtol 1e-5 of the clean plain product, the
-    corrected one within ABFT_FIX_RTOL |delta|. With ``under``, a fault of a
-    64th of the threshold at the middle place: no detection, D off by it
-    there. The encodings pre-pass against its plain version (normalised
-    error under 1e-5)."""
+    corrected one within ABFT_FIX_RTOL |delta| at 2 bytes and within its
+    tile's threshold at f32 (the correction holds to the tile's clean
+    residual, which the threshold bounds; at f32 that is far over 2^-16
+    |delta|). With ``under``, a fault of a 64th of the threshold at the
+    middle place: no detection, D off by it there. The encodings pre-pass
+    against its plain version (normalised error under 1e-5), and its split
+    E_Y (2 bytes) or Y's planes (f32) bitwise their plain split."""
     m, k = xg.shape
     n = yg.shape[1]
     bm, bn, bk = tiles or ops.abft_tiles(m, n, k)
@@ -2808,17 +2897,25 @@ def abft_checks(torch, ops, mma, xg, yg, dt, under: bool,
     expect(all(bool(torch.equal(a, b)) for a, b in zip(r1, r2)),
            f"{what}: two clean launches differ")
     del r1, r2
-    ex, ey, esy = mma.abft_encodings(xp, yp, block_m=bm, block_n=bn)
+    ex, ey, esy, *ecol = mma.abft_encodings(xp, yp, block_m=bm, block_n=bn)
     mma.matmul_abft.launches, mma.abft_encodings.launches = counts
-    pex, pey, _ = mma.abft_encodings_plain(xp, yp, bm, bn)
+    pex, pey, _, *pecol = mma.abft_operands_plain(xp, yp, bm, bn)
+    # the encodings, and at f32 the expected column and row checksums
+    pairs = [(ex, pex), (ey, pey)] + list(zip(ecol, pecol))
     enc_err = max(max_err(a, b) / max(float(b.abs().max()), 1.0)
-                  for a, b in ((ex, pex), (ey, pey)))
-    enc_abs = max(max_err(ex, pex), max_err(ey, pey))
-    # the split of the kernel's own E_Y: the same rounding, bit for bit
-    split_ok = bool(torch.equal(esy, mma.split_encodings(ey, bn, dt)))
+                  for a, b in pairs)
+    enc_abs = max(max_err(a, b) for a, b in pairs)
+    del pairs, ecol, pecol
+    # the split of the kernel's own E_Y (2 bytes), or Y's planes (f32): the
+    # same rounding, bit for bit
+    want_op = (mma.y_planes_plain(yp) if dt == torch.float32
+               else mma.split_encodings(ey, bn, dt))
+    split_ok = bool(torch.equal(esy, want_op))
+    del want_op
     expect(enc_err <= 1e-5 and split_ok,
            f"{what}: encodings off their plain version by {enc_err} "
-           f"(normalised), split E_Y bitwise its plain split: {split_ok}")
+           f"(normalised), the GEMM's operand bitwise its plain split: "
+           f"{split_ok}")
     del ex, ey, esy, pex, pey
     row = min(7, bm - 1)
     places = [(nt[0] // 2, nt[1] // 2, nt[2] // 2, row, 31)]
@@ -2836,7 +2933,8 @@ def abft_checks(torch, ops, mma, xg, yg, dt, under: bool,
         fix = abs(float(d_f[gi, gj]) - float(pd[gi, gj]))
         d_f[gi, gj] = pd[gi, gj]
         ok_rest, _ = rel_ok(d_f, pd, 1e-5)
-        expect(int(det_f) == 1 and ok_rest and fix <= ABFT_FIX_RTOL * delta,
+        fix_bound = thr if dt == torch.float32 else ABFT_FIX_RTOL * delta
+        expect(int(det_f) == 1 and ok_rest and fix <= fix_bound,
                f"{what}: a fault of {delta} (threshold {thr}) at tile "
                f"{(ti, tj)} k-step {tk} ({r}, {c}) detected {int(det_f)} "
                f"times, corrected element off by {fix}, the rest within "

@@ -1,8 +1,8 @@
-// ABFT decode helpers shared by fk_kernels.cu (the tile kernels' and the
-// f32 ABFT GEMM's verification) and fk_abft_gemm.cu (the 2-byte ABFT
-// GEMM's): warp-wide reductions in a fixed order and locate_tile, the
-// reference's detect / locate rule on one verification tile's checksums in
-// shared memory.
+// ABFT decode helpers shared by fk_kernels.cu (the tile kernels'
+// verification) and fk_abft_gemm.cu (the ABFT GEMM's, at every dtype):
+// warp-wide reductions in a fixed order and locate_tile, the reference's
+// detect / locate rule on one verification tile's checksums in shared
+// memory.
 #pragma once
 
 #include <cuda_runtime.h>

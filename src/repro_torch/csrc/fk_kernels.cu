@@ -41,12 +41,9 @@
 // int8_tile_kernel replaces distance_argmin_int8.py distance_argmin_int8:
 // __dp4a over packed int8 words, the f32 scale correction, then the shared
 // min/argmin epilogue.
-// matmul_abft_kernel replaces matmul_abft.py matmul_abft at f32: a plain
-// SGEMM D = X Y with the dual-checksum ABFT per (bm x bn) output tile, one
-// block per tile, its k loop inside the block, the tile walked in 128 x 128
-// sub-tiles; warp 0 verifies the finished tile and corrects D in place.
-// (bf16 / fp16 X and Y: abft_gemm_kernel<T> in fk_abft_gemm.cu, wgmma fed
-// by TMA.)
+// matmul_abft.py matmul_abft (the ABFT GEMM) is not here: every dtype of
+// it, f32 included, is abft_gemm_kernel<T> in fk_abft_gemm.cu (wgmma fed
+// by TMA).
 // dmr_partials_kernel, dmr_reduce_kernel and dmr_verdict_kernel replace
 // centroid_update_dmr.py centroid_update_dmr: per (cluster group, row slab,
 // feature group) two replicas of the partial sums from one load of X (the
@@ -57,12 +54,12 @@
 // table's rows) = 10, lloyd_tile_mma_kernel 2 (T) x 2 (BM) x 5 = 20,
 // lloyd_encode_kernel 2 (T), update_tiles_kernel 3 (T) x 2 (BM),
 // kmeanspp_round_kernel 1, lloyd_pruned_kernel 2 (BM),
-// lloyd_pruned_mma_kernel 2 (T) x 2 (BM), int8_tile_kernel 2 (BM),
-// matmul_abft_kernel 1, the three DMR kernels: 53 kernels.
+// lloyd_pruned_mma_kernel 2 (T) x 2 (BM), int8_tile_kernel 2 (BM), the
+// three DMR kernels: 52 kernels.
 //
 // The epilogues are single __device__ definitions (tile_min_argmin,
 // fold_min, locate_and_correct, emit_update, emit_entries; the warp
-// reductions and locate_tile in fk_abft.cuh, shared with fk_abft_gemm.cu;
+// reductions in fk_abft.cuh, shared with fk_abft_gemm.cu;
 // write_entries in fk_entries.cuh, shared with fk_update.cu) so the
 // variants agree bit for bit by construction, as the reference's shared
 // tile_min_argmin/_emit_update do.
@@ -112,7 +109,6 @@
 // __dp4a on the CUDA cores does not reach (mma.sync/wgmma s8 is later
 // work).
 // The seeding round is bound by the bytes of X (one GEMV per round). The
-// f32 ABFT GEMM is bound by its 2*M*N*K FLOPs on the f32 CUDA cores. The
 // DMR update is bound by the bytes of X and the assignments, read once.
 // wgmma, TMA and a shared-memory X stash are later work.
 //
@@ -1618,280 +1614,6 @@ int launch_int8(const int* xq, const int* cq, const float* sx,
   return int(cudaGetLastError());
 }
 
-// --- ABFT GEMM (matmul_abft) ----------------------------------------------
-// One block per (bm x bn) output tile, walked in kMmSub x kMmSub sub-tiles.
-constexpr int kMmSub = 128;
-constexpr int kMmLd = kMmSub + 1;
-
-// Shared-memory layout of matmul_abft_kernel (4-byte words); the checksum
-// vectors follow the tile's bm and bn, known at launch.
-struct MmLayout {
-  int ds, xs, ys, part, enc, ecol1, ecol2, erow1, erow2, ocol1, ocol2,
-      orow1, orow2, words;
-  __host__ __device__ MmLayout(int bm, int bn) {
-    ds = 0;                          // kMmSub x kMmLd, one finished sub-tile
-    xs = ds + kMmSub * kMmLd;        // kChunk x kMmLd, X chunk transposed
-    ys = xs + kChunk * kMmLd;        // kChunk x kMmLd, Y chunk
-    part = ys + kChunk * kMmLd;      // 4 x 8 x kChunk encoding partials
-    enc = part + 4 * 8 * kChunk;     // 4 x kChunk encodings
-    ecol1 = enc + 4 * kChunk;        // expected checksums: bn, bn, bm, bm
-    ecol2 = ecol1 + bn;
-    erow1 = ecol2 + bn;
-    erow2 = erow1 + bm;
-    ocol1 = erow2 + bm;              // observed, then residuals
-    ocol2 = ocol1 + bn;
-    orow1 = ocol2 + bn;
-    orow2 = orow1 + bm;
-    words = orow2 + bm;
-  }
-};
-
-// The expected checksums of one resident k-chunk of the f32 ABFT GEMM:
-// the e1/e2 encodings of the X chunk over the sub-tile's rows and
-// of the Y chunk over its columns (8 partials per k, then a fixed-order
-// sum), then col1/col2 += enc(X) Y_chunk and row1/row2 += X_chunk enc(Y);
-// the weights are the row / column index within the whole tile, plus 1.
-// xv(k, r) and yv(k, c) read staged element (row r or column c, k) as f32.
-// Called by all threads.
-template <typename XV, typename YV>
-__device__ __forceinline__ void abft_encode_chunk(float* sm, const MmLayout& L,
-                                                  int rows, int rb, int cb,
-                                                  XV xv, YV yv) {
-  float* part = sm + L.part;
-  float* enc = sm + L.enc;
-  const int tid = threadIdx.x;
-  {
-    const int f = tid % kChunk, s = tid / kChunk;
-    float x1 = 0.0f, x2 = 0.0f, y1 = 0.0f, y2 = 0.0f;
-    for (int r = s; r < rows; r += 8) {
-      const float v = xv(f, r);
-      x1 += v;
-      x2 = fmaf(float(rb + r + 1), v, x2);
-    }
-    for (int c = s; c < kMmSub; c += 8) {
-      const float v = yv(f, c);
-      y1 += v;
-      y2 = fmaf(float(cb + c + 1), v, y2);
-    }
-    part[(0 * 8 + s) * kChunk + f] = x1;
-    part[(1 * 8 + s) * kChunk + f] = x2;
-    part[(2 * 8 + s) * kChunk + f] = y1;
-    part[(3 * 8 + s) * kChunk + f] = y2;
-  }
-  __syncthreads();
-  if (tid < 4 * kChunk) {
-    const int q = tid / kChunk, f = tid % kChunk;
-    float s = 0.0f;
-    for (int p = 0; p < 8; ++p) s += part[(q * 8 + p) * kChunk + f];
-    enc[q * kChunk + f] = s;
-  }
-  __syncthreads();
-  if (tid < kMmSub) {
-    float* c1 = sm + L.ecol1 + cb + tid;
-    float* c2 = sm + L.ecol2 + cb + tid;
-    float s1 = *c1, s2 = *c2;
-    for (int f = 0; f < kChunk; ++f) {
-      const float yv_f = yv(f, tid);
-      s1 = fmaf(enc[0 * kChunk + f], yv_f, s1);
-      s2 = fmaf(enc[1 * kChunk + f], yv_f, s2);
-    }
-    *c1 = s1;
-    *c2 = s2;
-  } else if (tid - kMmSub < rows) {
-    const int r = tid - kMmSub;
-    float* r1 = sm + L.erow1 + rb + r;
-    float* r2 = sm + L.erow2 + rb + r;
-    float s1 = *r1, s2 = *r2;
-    for (int f = 0; f < kChunk; ++f) {
-      const float xv_f = xv(f, r);
-      s1 = fmaf(xv_f, enc[2 * kChunk + f], s1);
-      s2 = fmaf(xv_f, enc[3 * kChunk + f], s2);
-    }
-    *r1 = s1;
-    *r2 = s2;
-  }
-}
-
-// A finished sub-tile in Ds: its observed checksums (fixed-order sums) into
-// the tile's, then the sub-tile to D. Called by all threads; ends with a
-// barrier.
-__device__ __forceinline__ void abft_subtile_out(float* sm, const MmLayout& L,
-                                                 float* __restrict__ d,
-                                                 size_t m0, int n0, int np,
-                                                 int rb, int cb, int rows) {
-  const float* Ds = sm + L.ds;
-  const int tid = threadIdx.x;
-  if (tid < kMmSub) {
-    float s1 = 0.0f, s2 = 0.0f;
-    for (int r = 0; r < rows; ++r) {
-      const float v = Ds[r * kMmLd + tid];
-      s1 += v;
-      s2 = fmaf(float(rb + r + 1), v, s2);
-    }
-    sm[L.ocol1 + cb + tid] += s1;
-    sm[L.ocol2 + cb + tid] += s2;
-  } else if (tid - kMmSub < rows) {
-    const int r = tid - kMmSub;
-    float s1 = 0.0f, s2 = 0.0f;
-    for (int c = 0; c < kMmSub; ++c) {
-      const float v = Ds[r * kMmLd + c];
-      s1 += v;
-      s2 = fmaf(float(cb + c + 1), v, s2);
-    }
-    sm[L.orow1 + rb + r] += s1;
-    sm[L.orow2 + rb + r] += s2;
-  }
-  for (int idx = tid; idx < rows * kMmSub; idx += kThreads) {
-    const int r = idx / kMmSub, c = idx % kMmSub;
-    d[(m0 + rb + r) * np + n0 + cb + c] = Ds[r * kMmLd + c];
-  }
-  __syncthreads();
-}
-
-// The finished tile: residuals (observed - expected, in place of the
-// observed checksums), then warp 0 verifies, corrects D in place and writes
-// the tile's detection. Called by all threads.
-__device__ __forceinline__ void abft_tile_verify(float* sm, const MmLayout& L,
-                                                 float* __restrict__ d,
-                                                 int* __restrict__ det,
-                                                 size_t m0, int n0, int np,
-                                                 int bm, int bn, int mt,
-                                                 int nt, float thr_factor) {
-  const int tid = threadIdx.x;
-  for (int t = tid; t < bn; t += kThreads) {
-    sm[L.ocol1 + t] -= sm[L.ecol1 + t];
-    sm[L.ocol2 + t] -= sm[L.ecol2 + t];
-  }
-  for (int t = tid; t < bm; t += kThreads) {
-    sm[L.orow1 + t] -= sm[L.erow1 + t];
-    sm[L.orow2 + t] -= sm[L.erow2 + t];
-  }
-  __syncthreads();
-  if (tid < 32) {
-    int i, j;
-    float delta;
-    const int detected = locate_tile(
-        sm + L.ecol1, sm + L.erow1, sm + L.ocol1, sm + L.ocol2, sm + L.orow1,
-        sm + L.orow2, bm, bn, tid, thr_factor, &i, &j, &delta);
-    if (tid == 0) {
-      // D's element was written by this block before the barrier above
-      if (detected) d[(m0 + i) * np + n0 + j] -= delta;
-      det[size_t(mt) * gridDim.y + nt] = detected;
-    }
-  }
-}
-
-// D = X Y for X (mp, kp), Y (kp, np) with the dual-checksum ABFT per
-// (bm x bn) tile (blockIdx.x = m-tile, blockIdx.y = n-tile). The expected
-// checksums accumulate from every staged chunk; a sub-tile's accumulator
-// goes through Ds (observed checksums, fixed-order sums) to D; warp 0 then
-// verifies the tile and corrects D in place. det (mp/bm, np/bn) gets the
-// tile's detection. inj: [enabled, m_tile, n_tile, k_step, row, col,
-// delta bits], planted after k-step k_step (bk deep).
-__global__ void __launch_bounds__(kThreads)
-matmul_abft_kernel(const float* __restrict__ x, const float* __restrict__ y,
-                   const int* __restrict__ inj, float* __restrict__ d,
-                   int* __restrict__ det, int np, int kp, int bm, int bn,
-                   int bk, float thr_factor) {
-  extern __shared__ float sm[];
-  const MmLayout L(bm, bn);
-  float* Ds = sm + L.ds;
-  float* Xs = sm + L.xs;
-  float* Ys = sm + L.ys;
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  const int mt = blockIdx.x, nt = blockIdx.y;
-  const size_t m0 = size_t(mt) * bm;
-  const int n0 = nt * bn;
-  const int nch = kp / kChunk, ch_per_step = bk / kChunk;
-  const DistInj dinj = load_dist_inj(inj);
-  const bool inj_tile = dinj.enabled && dinj.m_tile == mt &&
-                        dinj.c_tile == nt;
-  for (int t = tid; t < bn; t += kThreads)
-    sm[L.ecol1 + t] = sm[L.ecol2 + t] = sm[L.ocol1 + t] = sm[L.ocol2 + t] =
-        0.0f;
-  for (int t = tid; t < bm; t += kThreads)
-    sm[L.erow1 + t] = sm[L.erow2 + t] = sm[L.orow1 + t] = sm[L.orow2 + t] =
-        0.0f;
-
-  for (int rb = 0; rb < bm; rb += kMmSub) {
-    const int rows = bm - rb < kMmSub ? bm - rb : kMmSub;
-    for (int cb = 0; cb < bn; cb += kMmSub) {
-      float acc[8][8];
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = 0.0f;
-      for (int ch = 0; ch < nch; ++ch) {
-        const int k0 = ch * kChunk;
-        for (int idx = tid; idx < kMmSub * kChunk; idx += kThreads) {
-          const int r = idx / kChunk, f = idx % kChunk;
-          Xs[f * kMmLd + r] =
-              r < rows ? x[(m0 + rb + r) * kp + k0 + f] : 0.0f;
-        }
-        for (int idx = tid; idx < kChunk * kMmSub; idx += kThreads) {
-          const int f = idx / kMmSub, c = idx % kMmSub;
-          Ys[f * kMmLd + c] = y[size_t(k0 + f) * np + n0 + cb + c];
-        }
-        __syncthreads();
-#pragma unroll 4
-        for (int f = 0; f < kChunk; ++f) {
-          float a[8], b[8];
-#pragma unroll
-          for (int i = 0; i < 8; ++i) a[i] = Xs[f * kMmLd + ty + 16 * i];
-#pragma unroll
-          for (int j = 0; j < 8; ++j) b[j] = Ys[f * kMmLd + tx + 16 * j];
-#pragma unroll
-          for (int i = 0; i < 8; ++i)
-#pragma unroll
-            for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-        }
-        // expected checksums from the resident chunk
-        abft_encode_chunk(
-            sm, L, rows, rb, cb,
-            [&](int f, int r) { return Xs[f * kMmLd + r]; },
-            [&](int f, int c) { return Ys[f * kMmLd + c]; });
-        // simulated SEU: after the last chunk of k-step k_step
-        if (inj_tile && ch == (dinj.f_tile + 1) * ch_per_step - 1) {
-#pragma unroll
-          for (int i = 0; i < 8; ++i)
-#pragma unroll
-            for (int j = 0; j < 8; ++j)
-              if (rb + ty + 16 * i == dinj.row && cb + tx + 16 * j == dinj.col)
-                acc[i][j] += dinj.delta;
-        }
-        __syncthreads();
-      }
-
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j)
-          Ds[(ty + 16 * i) * kMmLd + tx + 16 * j] = acc[i][j];
-      __syncthreads();
-      abft_subtile_out(sm, L, d, m0, n0, np, rb, cb, rows);
-    }
-  }
-  abft_tile_verify(sm, L, d, det, m0, n0, np, bm, bn, mt, nt, thr_factor);
-}
-
-int launch_abft(const float* x, const float* y, const int* inj, float* d,
-                int* det, float thr_factor, int mp, int np, int kp, int bm,
-                int bn, int bk, cudaStream_t stream) {
-  if (bm < 8 || bm % 8 || (bm > kMmSub && bm % kMmSub) || bm > 1024 ||
-      bn < kMmSub || bn % kMmSub || bn > 1024 || bk < kChunk || bk % kChunk ||
-      mp < bm || mp % bm || np < bn || np % bn || kp < bk || kp % bk ||
-      np / bn > kMaxProblems)
-    return int(cudaErrorInvalidValue);
-  const size_t bytes = size_t(MmLayout(bm, bn).words) * 4;
-  cudaError_t e = cudaFuncSetAttribute(
-      matmul_abft_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      int(bytes));
-  if (e != cudaSuccess) return int(e);
-  matmul_abft_kernel<<<dim3(mp / bm, np / bn), kThreads, bytes, stream>>>(
-      x, y, inj, d, det, np, kp, bm, bn, bk, thr_factor);
-  return int(cudaGetLastError());
-}
-
 // --- DMR centroid update (centroid_update_dmr) ------------------------------
 constexpr int kDmrWarpClusters = 8;
 constexpr int kDmrClusters = (kThreads / 32) * kDmrWarpClusters;  // 64
@@ -2342,14 +2064,6 @@ int fk_kmeanspp_round(const float* x, const float* xn, const float* c,
                           static_cast<cudaStream_t>(stream)>>>(
       x, xn, c, d2, d2o, ts, np, f, bn);
   return int(cudaGetLastError());
-}
-
-// x (mp, kp), y (kp, np), d (mp, np) f32; det (mp/bm, np/bn) int32.
-int fk_matmul_abft(const float* x, const float* y, const int* inj, float* d,
-                   int* det, float thr_factor, int mp, int np, int kp, int bm,
-                   int bn, int bk, void* stream) {
-  return launch_abft(x, y, inj, d, det, thr_factor, mp, np, kp, bm, bn, bk,
-                     static_cast<cudaStream_t>(stream));
 }
 
 // x (m, f) f32, assign (m,) int32; part (2, slabs, k, f) f32 and cnt

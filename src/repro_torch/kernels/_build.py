@@ -17,16 +17,17 @@ update: ``fk_lloyd_step_batched``), ``distance_argmin_ft`` and
 (``fk_update_tiles``), the pruned one-pass step
 (``fk_lloyd_step_pruned``), each also for bf16 or fp16 inputs on the
 tensor cores (the ``*_lp`` entry points of :data:`LOWP_ENTRIES`, one more
-int argument before the stream: :data:`HALF_KINDS`), the f32 ABFT GEMM
-(``fk_matmul_abft``), the k-means++ D^2 round (``fk_kmeanspp_round``), the
+int argument before the stream: :data:`HALF_KINDS`), the k-means++ D^2
+round (``fk_kmeanspp_round``), the
 int8 distance kernel (``fk_distance_argmin_int8``) and the DMR centroid
 update (``fk_centroid_update_dmr``, three launches: partials, slab
 reduction, verdict). ``fk_attention.cu`` holds
 the LM stack's flash attention (``fk_flash_attention``, f32, bf16 or fp16:
 the prefill, decode and f32 kernels, and ``fk_flash_workspace``, the decode
-kernel's workspace sizes). ``fk_abft_gemm.cu`` holds the 2-byte ABFT GEMM:
-its encodings pre-pass (``fk_abft_encode``) and the ``wgmma`` GEMM
-(``fk_abft_gemm``). ``fk_update.cu`` holds the two-pass centroid update's
+kernel's workspace sizes). ``fk_abft_gemm.cu`` holds the ABFT GEMM at
+f32, bf16 and fp16: its encodings pre-pass (``fk_abft_encode``) and the
+``wgmma`` GEMM (``fk_abft_gemm``; at f32 on a three-way bf16 split of the
+operands). ``fk_update.cu`` holds the two-pass centroid update's
 per-tile pass (``fk_update_entries``), the fixed-order tree sum
 (``fk_tree_reduce``) and the one-pass FT step's update verification
 (``fk_verify_entries``). ``fk_kernels.cu`` includes ``csrc/fk_mma.cuh`` (the
@@ -83,7 +84,6 @@ SIGNATURES: dict[str, tuple] = {
                              _I, _I, _I, _P),
     "fk_distance_argmin_int8": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                 _P),
-    "fk_matmul_abft": (_P, _P, _P, _P, _P, _F, _I, _I, _I, _I, _I, _I, _P),
     "fk_centroid_update_dmr": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                                _I, _I, _I, _I, _F, _P),
 }
@@ -109,12 +109,15 @@ ATTENTION_SIGNATURES: dict[str, tuple] = {
                            _I, _I, _I, _I, _P, _P, _P),
     "fk_flash_workspace": (_I, _I, _I, _I, _I, _I, _I, _P),
 }
-# fk_abft_encode: x, y, ex, ey, esy; mp, np, kp, bm, bn, dtype code
-# (HALF_KINDS); stream. fk_abft_gemm: x, y, inj, ex, esy, d, det, the
-# workspace and its floats; the threshold factor; mp, np, kp, bm, bn, bk,
-# dtype code; stream.
+# fk_abft_encode: x, y, ex, ey, esy (the split E_Y at 2 bytes, Y's bf16
+# planes at f32), ecol and erow (f32: the expected column and row
+# checksums); mp, np, kp, bm, bn, dtype code (matmul_abft.GEMM_KINDS);
+# stream. fk_abft_gemm: x, Y's operand (y, or the planes at f32), inj, ex
+# and the split E_Y (erow and ecol at f32), d, det, the workspace and its
+# floats; the threshold factor; mp, np, kp, bm, bn, bk, dtype code; stream.
 ABFT_GEMM_SIGNATURES: dict[str, tuple] = {
-    "fk_abft_encode": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    "fk_abft_encode": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                       _P),
     "fk_abft_gemm": (_P, _P, _P, _P, _P, _P, _P, _P, _L, _F, _I, _I, _I, _I,
                      _I, _I, _I, _P),
 }

@@ -19,46 +19,51 @@ residual is degenerate) and one element corrected. An 8-word descriptor
 k-step of ``block_k``, row, col, delta) plants one fault after a k-step;
 the kernel returns the detections per (m-tile, n-tile).
 
-CUDA kernels. At f32 ``matmul_abft_kernel`` in ``csrc/fk_kernels.cu``:
-the TPU grid carries the accumulator across a sequential k axis in VMEM;
-here one thread block owns one output tile and runs the k loop inside,
-walking the tile in 128 x 128 sub-tiles over 32-deep chunks staged in
-shared memory, a CUDA-core SGEMM with an 8 x 8 register tile per thread
-whose finished sub-tile goes through shared memory (observed checksums)
-to D; warp 0 then verifies the tile and corrects D in place.
-
-At bf16 / fp16, two kernels in ``csrc/fk_abft_gemm.cu``:
+CUDA kernels, two in ``csrc/fk_abft_gemm.cu`` at every dtype:
 ``abft_encode_kernel<T>`` (:func:`abft_encodings`, plain version
-:func:`abft_encodings_plain`) computes the encodings once per call, E_X =
+:func:`abft_operands_plain`) computes the encodings once per call, E_X =
 (e1^T X_t, e2^T X_t) per m-tile and E_Y = (Y_t e1, Y_t e2) per n-tile, in
-f32 from the 2-byte values widened exactly; ``abft_gemm_kernel<T>`` is
+f32 (2-byte values widened exactly); ``abft_gemm_kernel<T>`` is
 persistent (a block an SM walking jobs of two m-tiles, one a consumer
 warpgroup, by one n-tile, in 128 x 128 sub-tiles): a producer warpgroup
-TMA-loads 64-deep k-stages of X (K-major) and Y (MN-major, read as it
-lies) into an ``mbarrier`` ring, the consumers run the product on
-``wgmma`` with f32 accumulators in registers, the row checksums X E_Y on
-the tensor cores too (E_Y split into three 2-byte parts a value,
-:func:`split_encodings`, an 8-column operand beside Y) and, under each
-stage's asynchronous MMA, the column checksums E_X Y_stage on the CUDA
-cores. The observed checksums are reduced from the accumulator
-registers, a tile is decoded only when its residual is over its threshold,
-and the located element is corrected in registers before D goes out by
-TMA stores (a tile of several sub-tiles, bm > 128 or bn > 128, keeps its
-checksum state in a workspace and patches the one element after its
-sub-tiles are stored). Rows past a tile under 128 rows are masked out of
-every sum and never stored. The fault lands after the 64-deep stage that
-ends its k-step.
+TMA-loads k-stages of X (K-major) and Y (MN-major, read as it lies) into
+an ``mbarrier`` ring and the consumers run the product on ``wgmma`` with
+f32 accumulators in registers. At bf16 / fp16, under each stage's
+asynchronous MMA, the column checksums E_X Y_stage run on the CUDA cores,
+and the row checksums X E_Y on the tensor cores (E_Y split into three
+2-byte parts a value, :func:`split_encodings`, an 8-column operand beside
+Y). At f32 the product is an f32-exact split on the bf16 tensor cores:
+each value is hi + mid + lo in bf16 (:func:`split3_plain`), the pre-pass
+writes Y's three planes (:func:`y_planes_plain`), each consumer thread
+splits its f32 X fragment in registers, and D accumulates the six
+products with i + j <= 2 (:func:`matmul_split_plain` emulates them); the
+dropped ones are at most 2^-23 |x||y|, under f32's own rounding. Each
+stage's products go into a fresh partial added to the accumulator on the
+CUDA cores (the tensor cores' own accumulation is not rounded to
+nearest). There the expected checksums come from the pre-pass
+(``abft_colsum_kernel`` and ``abft_rowsum_kernel``,
+:func:`column_checksums_plain`, :func:`row_checksums_plain`), which keeps
+their registers and FMAs out of the product's loop. The
+observed checksums are reduced from the accumulator registers, a tile is
+decoded only when its residual is over its threshold, and the located
+element is corrected in registers before D goes out by TMA stores (a
+tile of several sub-tiles, bm > 128 or bn > 128, keeps its checksum state
+in a workspace and patches the one element after its sub-tiles are
+stored). Rows past a tile under 128 rows are masked out of every sum and
+never stored. The fault lands after the stage that ends its k-step (64
+deep at 2 bytes, 32 at f32).
 
 Every sum has a fixed order, so a launch repeats bit for bit. Detections
 are written per tile (no atomics) and summed per m-tile by the wrapper.
 
-Bound on the H100: at f32, 2 * M * N * K FLOPs on the CUDA cores
-(67 TFLOP/s); at bf16 / fp16 the same FLOPs on the tensor cores (989
-TFLOP/s) or, for a short K, the bytes of the f32 D (3.35 TB/s). The
-checksums add, per tile, 2 bn K FMAs on the CUDA cores (overlapped with
-the product) and 8 bm K MACs on the tensor cores, and one read of X and Y
-for the encodings. The f32 kernel on the tensor cores (``wgmma`` with an
-f32-exact split) is later work.
+Bound on the H100: at bf16 / fp16, 2 * M * N * K FLOPs on the tensor
+cores (989 TFLOP/s) or, for a short K, the bytes of the f32 D (3.35 TB/s);
+at f32 six such products (a full-f32 product on the CUDA cores, 67
+TFLOP/s, takes 2.5 times as long). The checksums add, per tile, 2 bn K
+FMAs on the CUDA cores (overlapped with the product) and 8 bm K MACs on
+the tensor cores, and one read of X and Y for the encodings; at f32 the
+pre-pass's checksums instead, 4 (Mp/bm) K Np + 4 Mp K (Np/bn) FLOPs on the
+CUDA cores (X and Y read once more), and a write of Y's planes.
 """
 from __future__ import annotations
 
@@ -73,6 +78,11 @@ from repro_torch.kernels.distance_argmin_ft import (  # noqa: F401 (re-export)
 # k of the 2-byte kernel's ring stages: its encodings run to Kp rounded up
 # to this, zero past Kp
 ENC_K_ALIGN: int = 64
+# the C entry points' dtype codes
+GEMM_KINDS = {"bfloat16": 0, "float16": 1, "float32": 2}
+# bf16's largest finite value, (2 - 2^-7) 2^127: the split's hi saturates
+# here
+BF16_MAX: float = float.fromhex("0x1.fep+127")
 
 
 def _enc_k(kp: int) -> int:
@@ -129,6 +139,49 @@ def split_encodings(ey: torch.Tensor, block_n: int,
     return F.pad(split, (0, 0, 0, 2)).contiguous()
 
 
+def split3_plain(x: torch.Tensor
+                 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The f32 kernel's operand split: x (f32) as three bf16 tensors hi =
+    bf16(x) (saturated at :data:`BF16_MAX`), mid = bf16(x - hi), lo =
+    bf16(x - hi - mid), each rounded to nearest, the differences exact in
+    f32. hi + mid + lo == x exactly for every finite x of magnitude 2^-110
+    or more, and for 0 (each part takes the next 8 bits; bf16 has f32's
+    exponent range); below, the parts fall under bf16's subnormal spacing
+    and the sum is off by at most 2^-134. +-inf splits as (+-max, +-inf,
+    NaN) and NaN as (-max, NaN, NaN): the parts of a non-finite value sum
+    to NaN."""
+    x = x.float()
+    top = torch.tensor(BF16_MAX, dtype=torch.float32, device=x.device)
+    hi = torch.fmin(torch.fmax(x, -top), top).to(torch.bfloat16)
+    rest = x - hi.float()
+    mid = rest.to(torch.bfloat16)
+    lo = (rest - mid.float()).to(torch.bfloat16)
+    return hi, mid, lo
+
+
+def y_planes_plain(y: torch.Tensor) -> torch.Tensor:
+    """Plain version of the Y operand the f32 pre-pass writes: y (Kp, Np)
+    f32 as its three bf16 planes (3, Kp, Np), hi, mid, lo
+    (:func:`split3_plain`)."""
+    return torch.stack(split3_plain(y)).contiguous()
+
+
+def matmul_split_plain(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """Plain emulation of the f32 kernel's product: x (M, K) and y (K, N)
+    split three ways (:func:`split3_plain`), D the f32 sum of the six
+    products with i + j <= 2 (hi hi, hi mid, mid hi, hi lo, mid mid, lo
+    hi), each an f32 product of exactly widened parts. The dropped ones
+    (mid lo, lo mid, lo lo) are at most 2^-23 |x||y| together."""
+    ref.full_f32(x.device)
+    xs = [p.float() for p in split3_plain(x)]
+    ys = [p.float() for p in split3_plain(y)]
+    d = torch.zeros(x.shape[0], y.shape[1], dtype=torch.float32,
+                    device=x.device)
+    for i, j in ((0, 0), (0, 1), (1, 0), (0, 2), (1, 1), (2, 0)):
+        d = d + xs[i] @ ys[j]
+    return d
+
+
 def abft_encodings_plain(x: torch.Tensor, y: torch.Tensor, block_m: int,
                          block_n: int
                          ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -155,20 +208,64 @@ def abft_encodings_plain(x: torch.Tensor, y: torch.Tensor, block_m: int,
             split_encodings(ey, block_n, x.dtype))
 
 
+def column_checksums_plain(ex: torch.Tensor,
+                           y: torch.Tensor) -> torch.Tensor:
+    """Plain version of the f32 pre-pass's expected column checksums: for
+    E_X (Mp/bm, Kpe, 2) and y (Kp, Np) f32, (Mp/bm, Np, 2) with [mt, n] =
+    (sum_k E_X[mt, k, 0] y[k, n], sum_k E_X[mt, k, 1] y[k, n]), col1 and
+    col2 of every tile of m-tile mt."""
+    ref.full_f32(y.device)
+    return torch.einsum("mke,kn->mne", ex[:, :y.shape[0]],
+                        y.float()).contiguous()
+
+
+def row_checksums_plain(x: torch.Tensor, ey: torch.Tensor) -> torch.Tensor:
+    """Plain version of the f32 pre-pass's expected row checksums: for x
+    (Mp, Kp) f32 and E_Y (Np/bn, Kpe, 2), (Np/bn, Mp, 2) with [nt, m] =
+    (sum_k x[m, k] E_Y[nt, k, 0], sum_k x[m, k] E_Y[nt, k, 1]), row1 and
+    row2 of every tile of n-tile nt."""
+    ref.full_f32(x.device)
+    return torch.einsum("mk,nke->nme", x.float(),
+                        ey[:, :x.shape[1]]).contiguous()
+
+
+def abft_operands_plain(x: torch.Tensor, y: torch.Tensor, block_m: int,
+                        block_n: int) -> tuple[torch.Tensor, ...]:
+    """Plain version of the pre-pass's outputs for the GEMM: at bf16 /
+    fp16 :func:`abft_encodings_plain` (E_X, E_Y, split E_Y); at f32 E_X,
+    E_Y, Y's planes (:func:`y_planes_plain`), the B operands of the split
+    product, and the expected column and row checksums
+    (:func:`column_checksums_plain`, :func:`row_checksums_plain`)."""
+    ex, ey, esy = abft_encodings_plain(x, y, block_m, block_n)
+    if x.dtype == torch.float32:
+        return (ex, ey, y_planes_plain(y), column_checksums_plain(ex, y),
+                row_checksums_plain(x, ey))
+    return ex, ey, esy
+
+
+def _tma_ptr(t: torch.Tensor, dtype, what: str) -> int:
+    """Device pointer of a contiguous ``dtype`` tensor the kernels read
+    through TMA: it must start on a 16-byte boundary (at f32 too)."""
+    p = _build.ptr(t, dtype, what)
+    if p % 16:
+        raise ValueError(f"{what} must start on a 16-byte boundary, got "
+                         f"address {p:#x}")
+    return p
+
+
 def abft_encodings(x: torch.Tensor, y: torch.Tensor, *, block_m: int,
-                   block_n: int
-                   ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """The 2-byte ABFT GEMM's encodings pre-pass (``abft_encode_kernel``)
-    on pre-padded bf16 or fp16 x, y; its plain version on the CPU. Returns
-    (E_X, E_Y, split E_Y) as :func:`abft_encodings_plain`."""
+                   block_n: int) -> tuple[torch.Tensor, ...]:
+    """The ABFT GEMM's encodings pre-pass (``abft_encode_kernel``, at f32
+    then ``abft_colsum_kernel`` and ``abft_rowsum_kernel``) on pre-padded
+    f32, bf16 or fp16 x, y; its plain version on the CPU. Returns
+    :func:`abft_operands_plain`'s (E_X, E_Y, split E_Y) at 2 bytes, (E_X,
+    E_Y, Y's bf16 planes, the expected column and row checksums) at
+    f32."""
     check_tiles(x, y, block_m, block_n, 32)
     dt = _build.input_dtype(x, y)
     if _build.on_cpu(x, y):
-        return abft_encodings_plain(x, y, block_m, block_n)
-    code = _build.HALF_KINDS.get(str(dt).replace("torch.", ""))
-    if code is None:
-        raise ValueError(f"the encodings pre-pass takes bf16 or fp16, got "
-                         f"{dt}")
+        return abft_operands_plain(x, y, block_m, block_n)
+    code = GEMM_KINDS[str(dt).replace("torch.", "")]
     check_cuda_tiles(block_m, block_n, 32)
     mp, kp = x.shape
     np_ = y.shape[1]
@@ -177,14 +274,25 @@ def abft_encodings(x: torch.Tensor, y: torch.Tensor, *, block_m: int,
                      device=x.device)
     ey = torch.empty((np_ // block_n, kpe, 2), dtype=torch.float32,
                      device=x.device)
-    esy = torch.empty((np_ // block_n, 8, kpe), dtype=dt, device=x.device)
+    f32 = dt == torch.float32
+    if f32:
+        esy = torch.empty((3, kp, np_), dtype=torch.bfloat16,
+                          device=x.device)
+        ecol = torch.empty((mp // block_m, np_, 2), dtype=torch.float32,
+                           device=x.device)
+        erow = torch.empty((np_ // block_n, mp, 2), dtype=torch.float32,
+                           device=x.device)
+    else:
+        esy = torch.empty((np_ // block_n, 8, kpe), dtype=dt,
+                          device=x.device)
     err = _build.library("fk_abft_gemm").lib.fk_abft_encode(
-        _build.ptr(x, dt, "x"), _build.ptr(y, dt, "y"), ex.data_ptr(),
-        ey.data_ptr(), esy.data_ptr(), mp, np_, kp, block_m, block_n, code,
+        _tma_ptr(x, dt, "x"), _tma_ptr(y, dt, "y"), ex.data_ptr(),
+        ey.data_ptr(), esy.data_ptr(), ecol.data_ptr() if f32 else 0,
+        erow.data_ptr() if f32 else 0, mp, np_, kp, block_m, block_n, code,
         _build.stream_of(x))
     _build.check(err, "abft_encodings", "fk_abft_gemm")
     abft_encodings.launches += 1
-    return ex, ey, esy
+    return (ex, ey, esy, ecol, erow) if f32 else (ex, ey, esy)
 
 
 abft_encodings.launches = 0
@@ -207,7 +315,7 @@ def matmul_abft_plain(x: torch.Tensor, y: torch.Tensor, inj: torch.Tensor,
 
 def _gemm_workspace(dev: torch.device, block_m: int,
                     block_n: int) -> torch.Tensor:
-    """The 2-byte kernel's scratch for the checksum state of tiles larger
+    """The kernel's scratch for the checksum state of tiles larger
     than its 128 x 128 sub-tile: 2 x 6 x 1024 floats a block, a block an
     SM; empty for smaller tiles (their state stays in shared memory)."""
     if block_m <= 128 and block_n <= 128:
@@ -238,22 +346,23 @@ def matmul_abft(x: torch.Tensor, y: torch.Tensor, inj: torch.Tensor, *,
     det = torch.empty((mp // block_m, np_ // block_n), dtype=torch.int32,
                       device=dev)
     inj_p = _build.ptr(inj, torch.int32, "inj")
-    half = _build.HALF_KINDS.get(str(dt).replace("torch.", ""))
-    if half is None:
-        err = _build.library().lib.fk_matmul_abft(
-            _build.ptr(x, dt, "x"), _build.ptr(y, dt, "y"), inj_p,
-            d.data_ptr(), det.data_ptr(), factor, mp, np_, kp, block_m,
-            block_n, block_k, _build.stream_of(x))
-        _build.check(err, "matmul_abft")
+    kind = GEMM_KINDS[str(dt).replace("torch.", "")]
+    ex, _, op, *checks = abft_encodings(x, y, block_m=block_m,
+                                        block_n=block_n)
+    # Y's operand and the kernel's encodings: at 2 bytes y, E_X and the
+    # split E_Y (op); at f32 Y's planes (op) and the expected row and
+    # column checksums
+    if checks:
+        yb, ea, eb = op, checks[1], checks[0]
     else:
-        ex, _, esy = abft_encodings(x, y, block_m=block_m, block_n=block_n)
-        ws = _gemm_workspace(dev, block_m, block_n)
-        err = _build.library("fk_abft_gemm").lib.fk_abft_gemm(
-            _build.ptr(x, dt, "x"), _build.ptr(y, dt, "y"), inj_p,
-            ex.data_ptr(), esy.data_ptr(), d.data_ptr(), det.data_ptr(),
-            ws.data_ptr(), ws.numel(), factor, mp, np_, kp, block_m,
-            block_n, block_k, half, _build.stream_of(x))
-        _build.check(err, "matmul_abft", "fk_abft_gemm")
+        yb, ea, eb = y, ex, op
+    ws = _gemm_workspace(dev, block_m, block_n)
+    err = _build.library("fk_abft_gemm").lib.fk_abft_gemm(
+        _tma_ptr(x, dt, "x"), _tma_ptr(yb, yb.dtype, "y"), inj_p,
+        ea.data_ptr(), eb.data_ptr(), d.data_ptr(), det.data_ptr(),
+        ws.data_ptr(), ws.numel(), factor, mp, np_, kp, block_m, block_n,
+        block_k, kind, _build.stream_of(x))
+    _build.check(err, "matmul_abft", "fk_abft_gemm")
     matmul_abft.launches += 1
     return d, det.sum(1, dtype=torch.int32)
 

@@ -609,8 +609,9 @@ def abft_matmul(x: torch.Tensor, y: torch.Tensor, *,
     (M, K), Y (K, N) f32, bf16 or fp16. Pads to :func:`abft_tiles`,
     launches :func:`~repro_torch.kernels.matmul_abft.matmul_abft` (its plain
     version on the CPU) on X and Y in their promoted dtype (two 2-byte
-    inputs of one dtype stay 2-byte: the tensor-core kernel; a mix
-    promotes to f32, as ``jnp.dot`` does) and slices. The detection
+    inputs of one dtype stay 2-byte; a mix promotes to f32, as ``jnp.dot``
+    does; on the card every dtype runs on the tensor cores, f32 through an
+    f32-exact three-way bf16 split) and slices. The detection
     threshold is the inputs' dtype's, as the reference kernel's: a bf16
     product is held to bf16 rounding, not to f32's. ``inj`` is a
     :func:`~repro_torch.kernels.matmul_abft.make_injection` descriptor

@@ -1,4 +1,4 @@
-"""Where the 2-byte ABFT GEMM's time goes, on the card.
+"""Where the ABFT GEMM's time goes, on the card, at bf16, fp16 and f32.
 
 Builds ``csrc/fk_abft_gemm.cu`` as it is and in measurement variants (the
 source's ``FK_ABFT_CUT`` and ``FK_ABFT_RING`` macros, which the port's own
@@ -10,14 +10,19 @@ beforehand) on the same inputs, the variants interleaved round by round:
 * ``no_store``, ``no_colsum``, ``no_verify``: without the D stores, the
   column checksum products, or the verification epilogue (their D is
   wrong; what each saves is that part's exposed time);
-* ``product``: without all three (the loads and the ``wgmma`` products);
+* ``product``: without all three (the loads and the ``wgmma`` products;
+  at f32 also the in-register split of X and the partials' adds; at f32
+  ``no_colsum`` cuts nothing: the expected checksums are the
+  pre-pass's);
 * ``deep``, ``wide``: each ring configuration forced, at several K, to
-  test the rule that picks one (their D and detections must equal
-  ``full``'s bit for bit).
+  test the rule that picks one at 2 bytes (their D and detections must
+  equal ``full``'s bit for bit; f32 has the deep ring only).
 
-It also traces one ``ops.abft_matmul`` call per shape with
-``torch.profiler``: the device time of the encodings pre-pass and of the
-GEMM, and the card's idle share within the call.
+Beside them, the encodings pre-pass alone (``prepass_ms``; at f32 it also
+writes Y's three bf16 planes and computes the expected checksums). It also
+traces one ``ops.abft_matmul`` call per shape with ``torch.profiler``: the
+device time of the encodings pre-pass and of the GEMM, and the card's idle
+share within the call.
 
     PYTHONPATH=src python -m repro_torch.launch.abft_profile \\
         --out chiprun_out/abft_profile
@@ -84,8 +89,8 @@ def build_variants(names) -> dict:
 
 class Gemm:
     """One (m, k, n, dtype) problem at ``tiles`` (``ops.abft_tiles``'
-    by default), padded, with its encodings, output and workspace made
-    once."""
+    by default), padded, with its encodings (and at f32 Y's planes),
+    output and workspace made once."""
 
     def __init__(self, m: int, k: int, n: int, dt, seed: int, tiles=None):
         gen = torch.Generator(device="cuda").manual_seed(seed)
@@ -98,11 +103,16 @@ class Gemm:
         self.x = ops._pad_to(x, self.mp, self.kp)
         self.y = ops._pad_to(y, self.kp, self.np)
         self.xg, self.yg = x, y
-        self.half = _build.HALF_KINDS[str(dt).replace("torch.", "")]
+        self.kind = mma.GEMM_KINDS[str(dt).replace("torch.", "")]
         self.factor = ops.threshold_factor(self.kp, dt)
         self.inj = mma.no_injection().cuda()
-        self.ex, _, self.esy = mma.abft_encodings(
+        self.ex, self.ey, self.op, *checks = mma.abft_encodings(
             self.x, self.y, block_m=self.bm, block_n=self.bn)
+        # the kernel's operands: at 2 bytes y, E_X and the split E_Y; at
+        # f32 Y's planes and the expected row and column checksums
+        self.checks = checks
+        self.yb, self.ea, self.eb = ((self.op, checks[1], checks[0])
+                                     if checks else (self.y, self.ex, self.op))
         self.ws = mma._gemm_workspace(self.x.device, self.bm, self.bn)
         self.d = torch.empty(self.mp, self.np, device="cuda")
         self.det = torch.empty(self.mp // self.bm, self.np // self.bn,
@@ -110,13 +120,24 @@ class Gemm:
 
     def launch(self, lib) -> None:
         err = lib.lib.fk_abft_gemm(
-            self.x.data_ptr(), self.y.data_ptr(), self.inj.data_ptr(),
-            self.ex.data_ptr(), self.esy.data_ptr(), self.d.data_ptr(),
+            self.x.data_ptr(), self.yb.data_ptr(), self.inj.data_ptr(),
+            self.ea.data_ptr(), self.eb.data_ptr(), self.d.data_ptr(),
             self.det.data_ptr(), self.ws.data_ptr(), self.ws.numel(),
             self.factor, self.mp, self.np, self.kp, self.bm, self.bn,
-            self.bk, self.half, _build.stream_of(self.x))
+            self.bk, self.kind, _build.stream_of(self.x))
         if err:
             raise RuntimeError(f"fk_abft_gemm: CUDA error {err}")
+
+    def encode(self, lib) -> None:
+        """The encodings pre-pass into this problem's buffers."""
+        checks = [c.data_ptr() for c in self.checks] or [0, 0]
+        err = lib.lib.fk_abft_encode(
+            self.x.data_ptr(), self.y.data_ptr(), self.ex.data_ptr(),
+            self.ey.data_ptr(), self.op.data_ptr(), *checks, self.mp,
+            self.np, self.kp, self.bm, self.bn, self.kind,
+            _build.stream_of(self.x))
+        if err:
+            raise RuntimeError(f"fk_abft_encode: CUDA error {err}")
 
 
 def event_ms(fn, reps: int) -> float:
@@ -184,6 +205,8 @@ def main(argv=None) -> int:
     ap.add_argument("--out", default="chiprun_out/abft_profile")
     ap.add_argument("--rounds", type=int, default=5)
     ap.add_argument("--reps", type=int, default=5)
+    ap.add_argument("--dtypes", default="bfloat16,float16,float32",
+                    help="comma-separated input dtypes to profile")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA card")
@@ -198,20 +221,26 @@ def main(argv=None) -> int:
         results.append(rec)
         print(json.dumps(rec), flush=True)
 
-    emit({"device": torch.cuda.get_device_name(0),
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60).stdout.strip()
+    emit({"device": torch.cuda.get_device_name(0), "nvidia_smi": smi,
           "build_s": max(lib.build_seconds for lib in libs.values())})
-    for dt in (torch.bfloat16, torch.float16):
-        dtype = str(dt).replace("torch.", "")
+    for dtype in args.dtypes.split(","):
+        dt = getattr(torch, dtype)
         for tag, m, k, n in SHAPES:
             g = Gemm(m, k, n, dt, seed=0)
             ms = interleaved_ms(g, {v: libs[v] for v in SPLIT}, args.rounds,
                                 args.reps)
+            g.encode(libs["full"])
+            prepass = event_ms(lambda: g.encode(libs["full"]), args.reps)
             emit({"split": tag, "dtype": dtype, "m": m, "k": k, "n": n,
                   "tiles": [g.bm, g.bn, g.bk], "ms": ms,
+                  "prepass_ms": prepass,
                   "trace": trace(g, out, f"{tag}_{dtype}")})
             del g
             torch.cuda.empty_cache()
-        for k in RING_K:
+        for k in (RING_K if dt != torch.float32 else ()):
             g = Gemm(SHAPES[0][1], k, SHAPES[0][3], dt, seed=1,
                      tiles=RING_TILES)
             ring = {v: libs[v] for v in ("full", "deep", "wide")}
