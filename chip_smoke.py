@@ -19,9 +19,12 @@ F = 16 dimensions, K = 256 centroids (8-bit codes), N = 65,536 training rows
 each (FAISS ``max_points_per_centroid`` 256 x K; FAISS's ``niter`` = 25).
 Phases, one line each:
 
-  1. device: the card, its power limit, the kernels' build time;
+  1. device: the card, its power limit, the kernels' build time, ptxas
+     lines, and each f32 tile kernel instantiation's registers, spill
+     bytes and resident blocks an SM (two blocks at BM = 128);
   2. kernels vs their plain PyTorch versions (TF32 off) at M = 65,573,
-     F = 100, K = 1000 and 100, plus planted FT faults; the one-pass
+     F = 100, K = 1000 and 100, and F = 300 (Fp = 320), K = 1000, plus
+     planted FT faults; the one-pass
      steps' entries (``lloyd_step``: the tree over them) bit for bit the
      dense route (``tile_update``'s partials, then the torch tree) with a
      control (two leaves swapped) that must break the bits, and
@@ -40,7 +43,11 @@ Phases, one line each:
   5. per-kernel launches on the main path (phases 3-4), time per launch at
      the phase-3 shape, the plain version's time, the bound and a library
      yardstick (``torch.addmm`` + ``min``; ``index_add_`` for the update),
-     the compact update's per-tile pass and tree timed apart and together
+     each f32 row's share of its bound, ``lloyd_step`` bit for bit the
+     untouched pruned kernel at an all-zero skip mask (it keeps the first
+     f32 design's product loop and serial min/argmin: the witness that
+     the FMA chains did not move), the compact update's per-tile pass and
+     tree timed apart and together
      beside ``index_add_`` and their bounds, the tree kernel's dense
      variant on ``lloyd_step``-sized partials (the pruned fit's shape)
      beside the torch tree and ``sum(0)``, ``ops.tiled_update`` with and
@@ -100,7 +107,9 @@ Phases, one line each:
      planes bitwise their plain split); the DMR update
      (``centroid_update_dmr``) on the fused
      fit's labels against its plain version, a corrupted shadow partial,
-     ``index_add_`` + ``bincount`` and ``ops.tiled_update(use_dmr=True)``;
+     two ``index_add_`` + ``bincount`` updates and their compare (a DMR
+     update's work; one update beside it) and
+     ``ops.tiled_update(use_dmr=True)``;
      the two kernels' rows;
  11. the flash-attention kernel against its plain version (the f32 oracle)
      at internlm2-1.8b's prefill (B = 4, H = 16, KV = 8, S = 2048,
@@ -176,6 +185,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 M_FULL, F_FULL, K_FULL = 1_048_576, 128, 1000
 M_SMALL, F_SMALL = 65_573, 100
+F_WIDE = 300                    # phase 2's third shape: Fp = 320
 ITERS = 10
 SEED = 0
 B_PQ, N_PQ, F_PQ, K_PQ = 48, 65_536, 16, 256
@@ -325,6 +335,33 @@ def wall(fn):
     out = fn()
     torch.cuda.synchronize()
     return out, time.perf_counter() - t0
+
+
+def f32_tile_resources(da, log: str) -> dict:
+    """Every f32 ``lloyd_tile_kernel`` instantiation (BM 64 / 128 x the
+    five (FT, update) rows): ptxas' registers and spill bytes from the
+    build log, and the runtime's registers, local bytes, shared bytes and
+    resident blocks an SM at Fp = 128 (``distance_argmin.tile_resources``,
+    ``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)."""
+    import re
+    ptx, name = {}, None
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            m = re.search(r"17lloyd_tile_kernelILi(\d+)ELb(\d)ELi(\d)E", ln)
+            name = f"bm{m[1]}_ft{m[2]}_upd{m[3]}" if m else None
+        elif name and "registers" in ln:
+            ptx.setdefault(name, {})["ptxas_registers"] = int(
+                re.search(r"Used (\d+) registers", ln)[1])
+        elif name and "spill" in ln:
+            ptx.setdefault(name, {})["spill_bytes"] = sum(
+                int(v) for v in re.findall(r"(\d+) bytes spill", ln))
+    out = {}
+    for bm in (64, 128):
+        for ft, upd in ((0, 0), (0, 2), (0, 1), (1, 0), (1, 2)):
+            name = f"bm{bm}_ft{ft}_upd{upd}"
+            out[name] = {**ptx.get(name, {"spill_bytes": -1}),
+                         **da.tile_resources(bm, bool(ft), upd, 128)}
+    return out
 
 
 def max_err(a, b) -> float:
@@ -742,59 +779,63 @@ def phase_kernels(torch, ops, kern) -> dict:
     from repro_torch.kernels import update as up
     da, ll, daft, llft = kern
     out = {"phase": 2, "shapes": []}
-    for k in (1000, 100):
-        x_np, _ = make_blobs(M_SMALL, F_SMALL, k, seed=SEED + k)
+    # F = 300 (Fp = 320, ten feature chunks) beside F = 100: the f32 tile
+    # kernel's staging ring and X encodings at more chunks than four
+    for k, f in ((1000, F_SMALL), (100, F_SMALL), (1000, F_WIDE)):
+        seed = SEED + k + (f if f != F_SMALL else 0)
+        x_np, _ = make_blobs(M_SMALL, f, k, seed=seed)
         x = torch.from_numpy(x_np).cuda()
-        c = torch.from_numpy(blob_centers(k, F_SMALL, SEED + k)).cuda()
-        params = ops.clamp_params(M_SMALL, k, F_SMALL, ops.DEFAULT_PARAMS)
+        c = torch.from_numpy(blob_centers(k, f, seed)).cuda()
+        params = ops.clamp_params(M_SMALL, k, f, ops.DEFAULT_PARAMS)
         plan = ops.plan_data(x, params)
         kp = -(-k // params.block_k) * params.block_k
         cp, cn = ops._pad_centroids(c, k, kp, plan.xp.shape[1])
         tiles = dict(block_m=params.block_m, block_k=params.block_k,
                      block_f=params.block_f)
         factor = ops.threshold_factor(plan.xp.shape[1], torch.float32)
-        rec = {"k": k, "centroid_tiles": kp // params.block_k,
-               "tol_rel": 1e-5}
+        rec = {"k": k, "f": f, "fp": plan.xp.shape[1],
+               "centroid_tiles": kp // params.block_k, "tol_rel": 1e-5}
 
         md, am = da.distance_argmin(plan.xp, cp, cn, **tiles)
         md_p, am_p = da.distance_argmin_plain(plan.xp, cp, cn)
         ok, rec["distance_argmin_err"] = rel_ok(md, md_p, 1e-5)
-        expect(ok, f"distance_argmin min distances K={k}")
-        expect(bool((am == am_p).all()), f"distance_argmin labels K={k}")
+        expect(ok, f"distance_argmin min distances K={k} F={f}")
+        expect(bool((am == am_p).all()), f"distance_argmin labels K={k} F={f}")
 
         r = ll.lloyd_step(plan.xp, cp, cn, plan.m, **tiles)
         r_p = ll.lloyd_step_plain(plan.xp, cp, cn, plan.m, params.block_m)
         expect(bool((r[1] == am).all()) and bool(torch.equal(r[0], md)),
-               f"lloyd_step assignment differs from distance_argmin K={k}")
+               f"lloyd_step assignment differs from distance_argmin K={k} "
+               f"F={f}")
         r_sums = entry_sums(up, r, params.block_m)
         ok, rec["lloyd_step_sums_err"] = rel_ok(
             r_sums[0], up.tree_sum_plain(r_p[2]), 1e-5)
-        expect(ok, f"lloyd_step sums K={k}")
+        expect(ok, f"lloyd_step sums K={k} F={f}")
         expect(bool(torch.equal(r_sums[1], up.tree_sum_plain(r_p[3]))),
-               f"lloyd_step counts K={k}")
+               f"lloyd_step counts K={k} F={f}")
         rec["onepass_entries"] = check_onepass(
             torch, up, ll, r, plan.xp, kp, plan.m, params.block_m,
-            f"lloyd_step K={k}")
+            f"lloyd_step K={k} F={f}")
         # fused = lloyd = clean lloyd_ft, at the ops level
         fl = ops.fused_lloyd(plan, c)
         fused = ops.tiled_update(plan, fl[0], k)
         expect(all(bool(torch.equal(a, b)) for a, b in zip(fl[2:], fused)),
-               f"fused_lloyd sums are not the two-pass update's K={k}")
+               f"fused_lloyd sums are not the two-pass update's K={k} F={f}")
         mp = plan.xp.shape[0]
         rec["update_routes"] = {"kernel_labels": check_update_route(
             torch, up, ll, plan.xp, am, kp, plan.m, params.block_m,
-            f"labels of distance_argmin K={k}")}
+            f"labels of distance_argmin K={k} F={f}")}
         for i, kind in enumerate(UPDATE_LABELS):
             rec["update_routes"][kind] = check_update_route(
                 torch, up, ll, plan.xp,
                 update_labels(torch, kind, plan.m, mp, k, SEED + i), kp,
-                plan.m, params.block_m, f"{kind} labels K={k}")
+                plan.m, params.block_m, f"{kind} labels K={k} F={f}")
         expect(bool(torch.equal(up.tree_sum(r_p[2]),
                                 up.tree_sum_plain(r_p[2])))
                and bool(torch.equal(up.tree_sum(r_p[3]),
                                     up.tree_sum_plain(r_p[3]))),
                f"the tree kernel on dense one-pass partials is not bit for "
-               f"bit the torch tree K={k}")
+               f"bit the torch tree K={k} F={f}")
 
         no_d = daft.no_injection().cuda()
         f_md, f_am, f_det = daft.distance_argmin_ft(
@@ -804,20 +845,22 @@ def phase_kernels(torch, ops, kern) -> dict:
             params.block_f, factor)
         rec["clean_det"] = int(f_det.sum())
         expect(rec["clean_det"] == 0 and int(p_det.sum()) == 0,
-               f"clean distance_argmin_ft detected {rec['clean_det']} K={k}")
+               f"clean distance_argmin_ft detected {rec['clean_det']} "
+               f"K={k} F={f}")
         expect(bool(torch.equal(f_md, md)) and bool(torch.equal(f_am, am)),
-               f"clean distance_argmin_ft differs from distance_argmin K={k}")
+               f"clean distance_argmin_ft differs from distance_argmin "
+               f"K={k} F={f}")
         ok, rec["distance_argmin_ft_err"] = rel_ok(f_md, p_md, 1e-5)
         expect(ok and bool((p_am == am).all()),
-               f"distance_argmin_ft vs plain K={k}")
-        inj = ops.plan_injection_tile(M_SMALL, k, F_SMALL, params,
+               f"distance_argmin_ft vs plain K={k} F={f}")
+        inj = ops.plan_injection_tile(M_SMALL, k, f, params,
                                       row=M_SMALL // 3, col=k - 3, f_step=1,
                                       delta=2.0 ** 20).cuda()
         _, i_am, i_det = daft.distance_argmin_ft(plan.xp, cp, cn, inj,
                                                  factor=factor, **tiles)
         rec["fault_det"] = int(i_det.sum())
         expect(rec["fault_det"] == 1 and bool(torch.equal(i_am, am)),
-               f"distance fault not corrected once K={k}")
+               f"distance fault not corrected once K={k} F={f}")
 
         no_l = llft.no_injection().cuda()
         q = llft.lloyd_step_ft(plan.xp, cp, cn, no_l, plan.m, factor=factor,
@@ -825,21 +868,23 @@ def phase_kernels(torch, ops, kern) -> dict:
         q_p = llft.lloyd_step_ft_plain(plan.xp, cp, cn, no_l, plan.m,
                                        params.block_m, params.block_k,
                                        params.block_f, factor)
-        expect(int(q[2].sum()) == 0, f"clean lloyd_step_ft detected K={k}")
+        expect(int(q[2].sum()) == 0,
+               f"clean lloyd_step_ft detected K={k} F={f}")
         expect(bool(torch.equal(q[5], r[4])) and all(
             bool(torch.equal(a, b)) for a, b in zip(
                 entry_sums(up, q, params.block_m), r_sums)),
-               f"lloyd_step_ft entries / sums differ from lloyd_step K={k}")
+               f"lloyd_step_ft entries / sums differ from lloyd_step "
+               f"K={k} F={f}")
         ok, rec["lloyd_step_ft_ucheck_err"] = rel_ok(q[8], q_p[5], 1e-5)
         expect(ok and bool(torch.equal(q[9], q_p[6])),
-               f"lloyd_step_ft update checksums vs plain K={k}")
+               f"lloyd_step_ft update checksums vs plain K={k} F={f}")
         clean = ops.fused_lloyd_ft(plan, c, inj=no_l)
         expect(int(clean[4]) == 0 and all(
             bool(torch.equal(a, b)) for a, b in zip(clean[:4], fl)),
                f"clean fused_lloyd_ft detected {int(clean[4])} or is not "
-               f"fused_lloyd K={k}")
+               f"fused_lloyd K={k} F={f}")
         rec["ft_cases"] = check_ft_cases(torch, ops, llft, plan, c, cp, cn,
-                                         params, r[1], k, f"f32 K={k}")
+                                         params, r[1], k, f"f32 K={k} F={f}")
         out["shapes"].append(rec)
         del plan, r, r_p, q, q_p, fl, fused, clean
         torch.cuda.empty_cache()
@@ -1236,6 +1281,8 @@ def phase_batched_fit(torch, ops, hw, ll, kpp, bound, KMeans,
                      "bound_ms": b_ms, "bound_by": b_by,
                      "library_ms": cuda_ms(lfn, reps=20)})
         torch.cuda.empty_cache()
+    rec["f32_bound_share"] = {r["name"]: r["bound_ms"] / r["ms"]
+                              for r in rows[:1]}
     rows.append(dense_tree_row(torch, up, ll, plan, cp, cn, tiles, bound,
                                tree_kinds["dense"]))
     # the bound counts the GEMM the problem needs (F = 16); the kernel
@@ -1835,6 +1882,14 @@ def phase_detect(torch, ops, hw, ll, mma, cud, KMeans, FaultPolicy,
         return (torch.zeros(K_FULL, F_FULL, device=dev).index_add_(
                     0, lab_long, x),
                 torch.bincount(lab_long, minlength=K_FULL))
+
+    def library_dmr():
+        # a DMR update's work by library calls: two updates, then their
+        # compare into a verdict left on the card (index_add_'s float
+        # atomics add in no fixed order, so this verdict would also flag
+        # clean runs: it is a yardstick of time, not a DMR)
+        (s1, n1), (s2, n2) = library(), library()
+        return (s1 != s2).any() | (n1 != n2).any()
     params = ops.clamp_params(M_FULL, K_FULL, F_FULL, ops.DEFAULT_PARAMS)
     plan = ops.plan_data(x, params)
     m_f = float(M_FULL * F_FULL)
@@ -1844,7 +1899,8 @@ def phase_detect(torch, ops, hw, ll, mma, cud, KMeans, FaultPolicy,
                                                          K_FULL), reps=10),
            "plain_ms": cuda_ms(lambda: cud.centroid_update_dmr_plain(
                x, labels_off, K_FULL, hw.DMR_BLOCK_M), reps=2),
-           "library_ms": cuda_ms(library, reps=10),
+           "library_ms": cuda_ms(library_dmr, reps=10),
+           "library_one_update_ms": cuda_ms(library, reps=10),
            "tiled_update_dmr_ms": cuda_ms(lambda: ops.tiled_update(
                plan, labels_off, K_FULL, use_dmr=True), reps=3),
            "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": dmr_err}
@@ -1852,8 +1908,10 @@ def phase_detect(torch, ops, hw, ll, mma, cud, KMeans, FaultPolicy,
     rec["library_calls"] = {
         "matmul_abft": "torch.matmul(X, Y) in full f32 (allow_tf32 False): "
                        "the unprotected product",
-        "centroid_update_dmr": "index_add_(0, labels, X) + bincount: one "
-                               "unprotected update"}
+        "centroid_update_dmr": "two index_add_(0, labels, X) + bincount "
+                               "updates and their compare: a DMR "
+                               "update's work (library_one_update_ms: "
+                               "one update)"}
     rows.append({"name": "centroid_update_dmr", "route": "cuda",
                  "source": "src/repro_torch/csrc/fk_kernels.cu",
                  "replaces": "src/repro/kernels/centroid_update_dmr.py:72",
@@ -3674,12 +3732,17 @@ def main() -> int:
              for ln in lib.ptxas_log.splitlines()
              if "registers" in ln or "spill" in ln
              or "Compiling entry function" in ln or "C75" in ln]
+    f32_tiles = f32_tile_resources(da, libs["fk_kernels"].ptxas_log)
     emit({"phase": 1, "device": kind, "nvidia_smi": smi_line,
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "build_s": round(build_s, 3),
           "nvcc_s": {name: round(lib.build_seconds, 3)
                      for name, lib in libs.items()},
-          "ptxas": ptxas})
+          "f32_tile_kernel": f32_tiles, "ptxas": ptxas})
+    for name, r in f32_tiles.items():
+        expect(not name.startswith("bm128") or r["blocks_per_sm"] >= 2,
+               f"f32 lloyd_tile_kernel {name}: {r['blocks_per_sm']} block(s) "
+               f"an SM")
 
     kern = (da, ll, daft, llft)
     emit(phase_kernels(torch, ops, kern))
@@ -3695,7 +3758,8 @@ def main() -> int:
                 "lloyd_step_ft": llft.lloyd_step_ft,
                 "verify_entries": llft.verify_entries,
                 "update_entries": up.update_entries,
-                "tree_reduce": up.tree_reduce}
+                "tree_reduce": up.tree_reduce,
+                "prep_centroids": da.prep_centroids}
     for w in wrappers.values():
         w.launches = 0
     up.tree_reduce.kernel_launches.update(sparse=0, dense=0)
@@ -3852,6 +3916,46 @@ def main() -> int:
                      "bound_ms": b_ms, "bound_by": b_by,
                      "library_ms": lib_ms})
         torch.cuda.empty_cache()
+    f32_share = {r["name"]: r["bound_ms"] / r["ms"] for r in rows}
+    # the witness that lloyd_step's FMA chains and min/argmin did not move:
+    # the pruned kernel keeps the first f32 design's product loop and serial
+    # scan; at an all-zero skip mask its labels and minima are lloyd_step's,
+    # bitwise
+    skip0 = torch.zeros((nt, kp // params.block_k), dtype=torch.int32,
+                        device="cuda")
+    pr = llp.lloyd_step_pruned(plan.xp, cp, cn, (plan.xp ** 2).sum(1),
+                               skip0, plan.m, **tiles)
+    st = ll.lloyd_step(plan.xp, cp, cn, plan.m, **tiles)
+    pruned_witness = bool(torch.equal(pr[1], st[1])) and bool(torch.equal(
+        pr[0].view(torch.int32), st[0].view(torch.int32)))
+    expect(pruned_witness, "lloyd_step's minima / labels are not bit for bit "
+           "the pruned kernel's at an all-zero skip mask (phase-3 shape)")
+    del pr, st, skip0
+    torch.cuda.empty_cache()
+    # the f32 tile kernels' pre-pass: C feature-major, C's encodings (FT)
+    got = da.prep_centroids(cp, encodings=True)
+    want = da.prep_centroids_plain(cp, encodings=True)
+    expect(bool(torch.equal(got[0], want[0])) and bool(torch.equal(
+        got[1].view(torch.int32), want[1].view(torch.int32))),
+        "prep_centroids is not bit for bit its plain version")
+    nkt = kp // params.block_k
+    b_ms, b_by = bound(2.0 * K_FULL * F_FULL, 2.0 * c_bytes
+                       + 8.0 * nkt * F_FULL)
+    rows.append({"name": "prep_centroids", "route": "cuda",
+                 "source": "src/repro_torch/csrc/fk_kernels.cu",
+                 "replaces": "src/repro/kernels/distance_argmin.py:140 and "
+                             "distance_argmin_ft.py:207 (C staged "
+                             "feature-major for the f32 tile kernels and "
+                             "its checksum encodings; the port's own "
+                             "pre-pass)",
+                 "launches": launches["prep_centroids"], "max_abs_err": 0.0,
+                 "ms": cuda_ms(lambda: da.prep_centroids(cp, True), reps=20),
+                 "plain_ms": cuda_ms(lambda: da.prep_centroids_plain(
+                     cp, True), reps=2),
+                 "bound_ms": b_ms, "bound_by": b_by,
+                 "library_ms": cuda_ms(lambda: cp.t().contiguous(),
+                                       reps=20)})
+    del got, want
     # the dense update alone (emit_update over every row tile: the parent's
     # two-pass route, the reference every route is held to): bit for bit
     # the dense one-pass kernel's (the batched launch of one problem)
@@ -3897,7 +4001,10 @@ def main() -> int:
     rec_a, rows_a = compact_update_rows(torch, up, plan, am, kp, bm,
                                         sums_p, counts_p, x_bytes, bound,
                                         launches, "")
-    rec5 = {"phase": 5, **rec_a}
+    rec5 = {"phase": 5, **rec_a, "f32_bound_share": f32_share,
+            "lloyd_step_bitwise_pruned_zero_mask": pruned_witness,
+            "library_calls": {"prep_centroids": "c.t().contiguous(): the "
+                              "transpose alone, no encodings"}}
     rows.extend(rows_a)
     lloyd_tree = (up.tree_sum_plain(sums_p), up.tree_sum_plain(counts_p))
 

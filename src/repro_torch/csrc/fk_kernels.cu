@@ -52,10 +52,10 @@
 //
 // Instantiations: lloyd_tile_kernel 2 (BM = 64, 128) x 5 (kFT, kUpd: the
 // table's rows) = 10, lloyd_tile_mma_kernel 2 (T) x 2 (BM) x 5 = 20,
-// lloyd_encode_kernel 2 (T), update_tiles_kernel 3 (T) x 2 (BM),
-// kmeanspp_round_kernel 1, lloyd_pruned_kernel 2 (BM),
-// lloyd_pruned_mma_kernel 2 (T) x 2 (BM), int8_tile_kernel 2 (BM), the
-// three DMR kernels: 52 kernels.
+// lloyd_encode_kernel 2 (T), lloyd_prep_kernel 1 (the f32 kernel's
+// pre-pass), update_tiles_kernel 3 (T) x 2 (BM), kmeanspp_round_kernel 1,
+// lloyd_pruned_kernel 2 (BM), lloyd_pruned_mma_kernel 2 (T) x 2 (BM),
+// int8_tile_kernel 2 (BM), the three DMR kernels: 53 kernels.
 //
 // The epilogues are single __device__ definitions (tile_min_argmin,
 // fold_min, locate_and_correct, emit_update, emit_entries; the warp
@@ -71,21 +71,24 @@
 //   * one thread block owns one row tile of BM rows (the TPU grid's row axis);
 //     a loop over centroid tiles of kBK = 128 and feature chunks of kChunk =
 //     32 replaces the TPU's sequential (centroid, feature) grid axes;
-//   * f32: X and C chunks are staged transposed in shared memory; each of the
-//     256 threads keeps a (BM/16) x 8 f32 accumulator in registers (CUDA-core
-//     FMA, no tensor cores, no TF32);
+//   * f32: X and C chunks are staged row-major by 16-byte cp.async into a
+//     two-slot ring; each of the 256 threads keeps a (BM/16) x 8 f32
+//     accumulator in registers (CUDA-core FMA, no tensor cores, no TF32)
+//     fed by 16-byte shared loads (see lloyd_tile_kernel);
 //   * bf16/fp16: X and C chunks are staged row-major as T (16-byte loads);
 //     the 8 warps tile the BM x 128 accumulator 2 x 4, each warp (BM/2) x 32
 //     as (BM/32) x 4 m16n8 f32 fragments, two k16 mma.sync a chunk;
-//   * at the end of a centroid tile the accumulator goes to shared memory
-//     (Ds); row r's min/argmin is scanned by thread r with a strict '<', so
-//     the lowest index wins a tie inside a tile and the earlier tile wins a
-//     tie across tiles -- the jnp.argmin tie-break;
+//   * bf16/fp16 (and the pruned and int8 kernels): at the end of a centroid
+//     tile the accumulator goes to shared memory (Ds); row r's min/argmin
+//     is scanned by thread r with a strict '<', so the lowest index wins a
+//     tie inside a tile and the earlier tile wins a tie across tiles -- the
+//     jnp.argmin tie-break; f32: every thread scans its fragment and the
+//     row's 16 threads combine by shuffles (tile_fold), the same result;
 //   * ABFT (kFT), f32: expected e1/e2 column and row checksums accumulate
 //     in f32 from the staged chunks; at each (row tile, centroid tile)
 //     interval the observed checksums of Ds are compared, a fault is
-//     located by the e2/e1 ratio and corrected in Ds before the min/argmin
-//     scan (2 bytes: the same rule on tensor-core checksums, see
+//     located by the e2/e1 ratio and corrected before the min/argmin
+//     (2 bytes: the same rule on tensor-core checksums, see
 //     lloyd_tile_mma_kernel);
 //   * update: rows are ranked by (cluster, row) in shared memory and each
 //     (k, f) sum is one lane's sequential sum over its cluster's rows in
@@ -343,14 +346,13 @@ __device__ void emit_update(const int* am, int* key, int* order, int* skey,
 // plus delta, which idx[cluster][slot] then points at, so the tree and the
 // verification see the value the dense route would hold there. spare gets
 // (tile, cluster). Called by all threads of the block.
-template <typename T, int BM, bool kFT>
+template <typename T, int BM, bool kFT, typename L = Layout<BM>>
 __device__ void emit_entries(float* sm, int best_arg, const T* x, int mt,
                              int true_m, const EntryOut& o,
                              const int* __restrict__ inj,
                              int* __restrict__ spare,
                              float* __restrict__ ucheck,
                              float* __restrict__ ccheck) {
-  using L = Layout<BM>;
   using S = EntryScratch<BM, kThreads>;
   static_assert(S::kInts <= 4 * BM, "the int region holds the writer's");
   int* es = reinterpret_cast<int*>(sm) + L::kAm;
@@ -386,8 +388,268 @@ __device__ void emit_entries(float* sm, int best_arg, const T* x, int mt,
   }
 }
 
+// --- the f32 tile kernel: staging ring, encodings, min/argmin -------------
+// lloyd_tile_kernel<BM, kFT, kUpd> (f32 X and C, CUDA-core FMAs). Each
+// output element of a centroid tile is one FMA chain, acc = fmaf(x[f],
+// c[f], acc) for f = 0 .. Fp-1 in order from 0.0f; any thread layout that
+// keeps every chain gives the same bits, so the design below moves
+// nothing but where each chain runs and how its operands arrive:
+//   * staging: a pre-pass (lloyd_prep_kernel, once a call) writes C
+//     feature-major (ct); each step (one kChunk-feature chunk of one
+//     centroid tile) copies X's row tile chunk and C's centroid tile chunk
+//     feature-major (row f of a slot holds feature f of every row) into a
+//     two-slot ring: C by 16-byte cp.async from ct, X by 4-byte cp.async
+//     that transposes on the way (a warp copies 4 rows x 8 features at a
+//     time, 32-byte sectors of global memory, onto 32 distinct banks: a
+//     row of kPX = BM + 4 words); with a tile's first chunk come its norms
+//     cn (one of two slots). The next step's copies are issued right after
+//     the step's barrier and run under its FMAs, so a step takes one
+//     barrier;
+//   * FMAs (feature_fma): thread (tx, ty) = (tid % 16, tid / 16) owns rows
+//     4 ty .. 4 ty + 3 (and 64 + the same at BM = 128) and columns 4 tx ..
+//     4 tx + 3 and 64 + the same (frag_row, frag_col). Per feature it reads
+//     two 16-byte words of X and two of C (one and two at BM = 64): 4
+//     loads for 64 FMAs and 16 operand registers, where the first design's
+//     transposed scalar loads were 16 for 64. (Row-major chunks, 4
+//     features of a row a load, took 32 operand registers for an 8 x 8
+//     tile and spilled, or 20 loads a 256 FMAs for 4 x 16, and ran slower
+//     on an H100);
+//   * min/argmin (tile_fold): each thread scans its 8 columns of each row
+//     in column order (d = cn - 2 acc, the strict '<' of tile_min_argmin:
+//     the lower column wins a tie), then the row's 16 threads combine
+//     (value, column) pairs by shuffles, halving the rows a lane holds at
+//     each of the first log2(BM / 16) levels, so lane tx ends with row slot
+//     tx >> (4 - log2(BM / 16)) and keeps that row's running (min, argmin).
+//     Min is exact and the combine keeps the lowest column on equal values,
+//     so this is the serial scan's result; the scan's NaN rule (a NaN at
+//     the tile's column 0 makes the tile's minimum NaN, which never folds;
+//     later NaNs never win) is kept by the pair (-inf, -1) for a NaN at
+//     column 0, which wins every combine and is not folded, and +inf for a
+//     NaN first column of another thread. No Ds is staged for it;
+//   * FT (kFT): the expected checksums accumulate in the registers of
+//     thread tid < kBK (column tid: e1^T X and e2^T X against the column's
+//     C row) and kBK <= tid < kBK + BM (row tid - kBK: X's row against C's
+//     e1 and e2), each an FMA chain over f in order, from the chunk's
+//     encodings: C's from the pre-pass, staged with each chunk, and X's
+//     computed in the first centroid tile and kept for the row tile in
+//     shared memory (xenc, 2 x Fp words), both by chunk_encodings in the
+//     order of 8 strided partials a feature and then their fixed-order sum
+//     (one more barrier a step in the first centroid tile). At a tile's end
+//     the accumulator goes to Ds, its first BM / 2 rows over the ring slot
+//     the tile's last step read and the rest in a region of their own (a
+//     whole Ds beside the ring would leave one block an SM), so the next
+//     tile's first copy is in flight as in the other kernels; the observed
+//     checksums and residuals run as before, warp 0 decodes them with
+//     locate_and_correct's rule (locate_tile, fk_abft.cuh) and the thread
+//     that holds the located element subtracts the delta in its register.
+//     The simulated SEU lands after the FMAs of the same chunk as before;
+//   * update: the final labels go to shared memory for emit_update (dense)
+//     or emit_entries (entries), whose scratch is the ring.
+// Two blocks an SM: __launch_bounds__(kThreads, 2) holds a thread to 128
+// registers; the layout (F32Layout) is 70 KB at BM = 128, and the FT
+// kernels' 33 KB of Ds rows and 2 x Fp words of X encodings past it.
+__device__ __forceinline__ void cp_async4(float* smem, const float* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
+               "l"(gmem)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async16(float* smem, const float* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(gmem)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// Shared-memory layout of lloyd_tile_kernel (4-byte words). The names past
+// the ring are Layout<BM>'s, so emit_entries takes it.
+template <int BM>
+struct F32Layout {
+  // a slot: X's chunk then C's, both feature-major (kChunk rows of kPX =
+  // BM + 4, resp. kPC = kBK + 4 words: feature f of the tile's rows)
+  static constexpr int kPX = BM + 4, kPC = kBK + 4;
+  static constexpr int kXs = 0, kCs = kChunk * kPX;
+  static constexpr int kSlot = kCs + kChunk * kPC;
+  static constexpr int kRing = 2 * kSlot;
+  // Ds (BM x (kBK+1), FT): rows < BM / 2 over the ring slot just read,
+  // rows >= BM / 2 in their own region past xenc (kDsHi words)
+  static constexpr int kDsHi = BM / 2 * (kBK + 1);
+  // the entries' checksum partials (emit_entries), over the ring once its
+  // last chunk is read
+  static constexpr int kDs = 0;
+  static constexpr int kCn = kRing;                        // 2 x kBK
+  static constexpr int kEnc = kCn + 2 * kBK;     // 2 x C's e1, e2 (kFT)
+  static constexpr int kCol1 = kEnc + 4 * kChunk;          // expected
+  static constexpr int kCol2 = kCol1 + kBK;
+  static constexpr int kRow1 = kCol2 + kBK;
+  static constexpr int kRow2 = kRow1 + BM;
+  static constexpr int kResC1 = kRow2 + BM;                // residuals
+  static constexpr int kResC2 = kResC1 + kBK;
+  static constexpr int kResR1 = kResC2 + kBK;
+  static constexpr int kResR2 = kResR1 + BM;
+  static constexpr int kVerdict = kResR2 + BM;             // 4 words
+  // ints of the update, used past the last tile only: over the ring, past
+  // the entries' checksum partials (kThreads / 32 x 2 x 128 words at kDs)
+  static constexpr int kAm = kThreads / 32 * 2 * 128;
+  static constexpr int kKey = kAm + BM;
+  static constexpr int kOrder = kKey + BM;
+  static constexpr int kSKey = kOrder + BM;
+  static constexpr int kLab = kSKey + BM;                  // final labels
+  static constexpr int kXenc = kVerdict + 4;     // 2 x fp, then kDsHi (kFT)
+  static size_t bytes(bool ft, int fp) {
+    return size_t(kXenc + (ft ? 2 * fp + kDsHi : 0)) * 4;
+  }
+  static_assert(kPX % 4 == 0 && kPC % 4 == 0 && kSlot % 4 == 0 &&
+                    kCn % 4 == 0 && kEnc % 4 == 0 && kXenc % 4 == 0,
+                "16-byte aligned regions");
+  static_assert(kDsHi <= kSlot, "Ds's low rows fit a ring slot");
+  static_assert(kLab + BM <= kRing, "the update's ints fit over the ring");
+};
+
+// Thread (tx, ty) = (tid % 16, tid / 16) owns rows 4 ty + i (i < 4) and,
+// at BM = 128, 64 + 4 ty + i, and columns 4 tx + j and 64 + 4 tx + j (j <
+// 4): row slot i < BM / 16, column slot j < kTN, each in increasing order.
+__device__ __forceinline__ int frag_row(int ty, int i) {
+  return i < 4 ? 4 * ty + i : 64 + 4 * ty + i - 4;
+}
+__device__ __forceinline__ int frag_col(int tx, int j) {
+  return j < 4 ? 4 * tx + j : 64 + 4 * tx + j - 4;
+}
+
+// One feature f of a staged chunk into the thread's kTM x kTN accumulator:
+// acc[i][j] = fmaf(x[row i][f], c[col j][f], acc[i][j]). Both chunks are
+// feature-major, so a 16-byte load gives 4 rows (or columns) at f.
+template <int kTM>
+__device__ __forceinline__ void feature_fma(float (&acc)[kTM][kTN],
+                                            const float* xs, const float* cs,
+                                            int tx, int ty, int f) {
+  constexpr int kPX = 16 * kTM + 4, kPC = kBK + 4;
+  float a[kTM], b[kTN];
+  const float4 a0 = *reinterpret_cast<const float4*>(xs + f * kPX + 4 * ty);
+  a[0] = a0.x; a[1] = a0.y; a[2] = a0.z; a[3] = a0.w;
+  if constexpr (kTM == 8) {
+    const float4 a1 =
+        *reinterpret_cast<const float4*>(xs + f * kPX + 64 + 4 * ty);
+    a[4] = a1.x; a[5] = a1.y; a[6] = a1.z; a[7] = a1.w;
+  }
+  const float4 b0 = *reinterpret_cast<const float4*>(cs + f * kPC + 4 * tx);
+  const float4 b1 =
+      *reinterpret_cast<const float4*>(cs + f * kPC + 64 + 4 * tx);
+  b[0] = b0.x; b[1] = b0.y; b[2] = b0.z; b[3] = b0.w;
+  b[4] = b1.x; b[5] = b1.y; b[6] = b1.z; b[7] = b1.w;
+#pragma unroll
+  for (int i = 0; i < kTM; ++i)
+#pragma unroll
+    for (int j = 0; j < kTN; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+}
+
+// The e1 / e2 encodings of one staged chunk over its N rows (row r's
+// feature f at base[r * RS + f * FS]): partial p (0..7) sums rows p, p + 8,
+// .. in order (v, and (r + 1) v by fmaf), then e = 0 + part_0 + .. +
+// part_7 in that order. Warp w takes features 4 w .. 4 w + 3, lane 4 p + q
+// partial p of feature 4 w + q; every lane returns its feature's sums
+// (lanes q, p = 0, write).
+template <int N, int RS, int FS>
+__device__ __forceinline__ void chunk_encodings(const float* base, int lane,
+                                                int warp, float* e1,
+                                                float* e2) {
+  static_assert(kThreads / 32 * 4 == kChunk, "a warp takes 4 features");
+  const int p = lane / 4, q = lane % 4, f = 4 * warp + q;
+  float a1 = 0.0f, a2 = 0.0f;
+#pragma unroll 4
+  for (int r = p; r < N; r += 8) {
+    const float v = base[r * RS + f * FS];
+    a1 += v;
+    a2 = fmaf(float(r + 1), v, a2);
+  }
+  float s1 = 0.0f, s2 = 0.0f;
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    s1 += __shfl_sync(0xffffffffu, a1, 4 * k + q);
+    s2 += __shfl_sync(0xffffffffu, a2, 4 * k + q);
+  }
+  *e1 = s1;
+  *e2 = s2;
+}
+
+// One combine of the min/argmin: the lower value wins, the lower column on
+// equal values.
+__device__ __forceinline__ void min_pair(float* v, int* c, float ov, int oc) {
+  if (ov < *v || (ov == *v && oc < *c)) {
+    *v = ov;
+    *c = oc;
+  }
+}
+
+// The (value, column) pairs of N rows of a lane, reduced over the 16 lanes
+// of their rows (bits off, off / 2, .. 1 of the lane's tx): at each level
+// while a lane holds several rows it keeps half (the upper half where its
+// bit is set) and takes the partner's pairs of that half; then plain
+// combines.
+template <int N>
+__device__ __forceinline__ void row_reduce(float* v, int* c, int tx,
+                                           int off) {
+  if constexpr (N > 1) {
+    const bool upper = (tx & off) != 0;
+#pragma unroll
+    for (int h = 0; h < N / 2; ++h) {
+      const float sv = upper ? v[h] : v[h + N / 2];
+      const int sc = upper ? c[h] : c[h + N / 2];
+      v[h] = upper ? v[h + N / 2] : v[h];
+      c[h] = upper ? c[h + N / 2] : c[h];
+      min_pair(&v[h], &c[h], __shfl_xor_sync(0xffffffffu, sv, off),
+               __shfl_xor_sync(0xffffffffu, sc, off));
+    }
+    row_reduce<N / 2>(v, c, tx, off / 2);
+  } else {
+    for (; off > 0; off /= 2)
+      min_pair(&v[0], &c[0], __shfl_xor_sync(0xffffffffu, v[0], off),
+               __shfl_xor_sync(0xffffffffu, c[0], off));
+  }
+}
+
+// The min/argmin of one centroid tile folded into the running row state:
+// the lane's own scan of its 8 columns, row_reduce over the row's 16 lanes,
+// then fold_min by the lanes that own a row (tx % (16 / kTM) == 0; row
+// slot tx >> (4 - log2 kTM)).
+template <int kTM>
+__device__ __forceinline__ void tile_fold(const float (&acc)[kTM][kTN],
+                                          const float* cnt, int tx, int c0,
+                                          float* best, int* best_arg) {
+  float cnr[kTN];
+#pragma unroll
+  for (int j = 0; j < kTN; ++j) cnr[j] = cnt[frag_col(tx, j)];
+  float v[kTM];
+  int c[kTM];
+#pragma unroll
+  for (int i = 0; i < kTM; ++i) {
+    const float d0 = cnr[0] - 2.0f * acc[i][0];
+    const bool nan0 = d0 != d0;
+    v[i] = nan0 ? __int_as_float(tx == 0 ? int(0xff800000u) : 0x7f800000)
+                : d0;
+    c[i] = nan0 && tx == 0 ? -1 : frag_col(tx, 0);
+#pragma unroll
+    for (int j = 1; j < kTN; ++j) {
+      float d = cnr[j] - 2.0f * acc[i][j];
+      if (d < v[i]) {
+        v[i] = d;
+        c[i] = frag_col(tx, j);
+      }
+    }
+  }
+  row_reduce<kTM>(v, c, tx, 8);
+  if (tx % (16 / kTM) == 0 && c[0] >= 0)
+    fold_min(best, best_arg, v[0], c[0] + c0);
+}
+
 template <int BM, bool kFT, int kUpd>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 2)
 lloyd_tile_kernel(const float* __restrict__ x, const float* __restrict__ c,
                   const float* __restrict__ cn,
                   const float* __restrict__ cenc,
@@ -399,8 +661,9 @@ lloyd_tile_kernel(const float* __restrict__ x, const float* __restrict__ c,
                   float* __restrict__ ucheck, float* __restrict__ ccheck,
                   int kp, int fp, int bf, int true_m, int levels,
                   float thr_factor) {
-  using L = Layout<BM>;
+  using L = F32Layout<BM>;
   constexpr int kTM = BM / 16;
+  static_assert(kTM == 4 || kTM == 8, "row tiles of 64 or 128");
   if (kUpd == kDenseUpdate) {
     // problem blockIdx.y of a batched launch: every base pointer moves to
     // its problem's slab of nt = gridDim.x row tiles (offsets in size_t:
@@ -418,24 +681,75 @@ lloyd_tile_kernel(const float* __restrict__ x, const float* __restrict__ c,
     sums += pb * nt * kp * fp;
     counts += pb * nt * kp;
   }
-  extern __shared__ float sm[];
-  float* Ds = sm + L::kDs;
-  float* Xs = sm + L::kXs;
-  float* Cs = sm + L::kCs;
-  float* cnS = sm + L::kCn;
+  (void)xenc;
+  extern __shared__ __align__(16) float sm_f32[];
+  float* sm = sm_f32;
+  float* xencS = sm + L::kXenc;
   int* smi = reinterpret_cast<int*>(sm);
 
   const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  const int lane = tid % 32;
+  const int lane = tid % 32, warp = tid / 32;
   const int mt = blockIdx.x, m0 = mt * BM;
-  const int nkt = kp / kBK, nch = fp / kChunk, ch_per_tile = bf / kChunk;
-  DistInj dinj{0, 0, 0, 0, 0, 0, 0.0f};
-  if (kFT) dinj = load_dist_inj(inj);
-
-  float best = FLT_MAX;   // running row state, owned by thread tid < BM
+  const int nkt = kp / kBK, nch = fp / kChunk, nsteps = nkt * nch;
+  // the step after whose FMAs the distance-slot SEU lands (-1: none)
+  int inj_step = -1;
+  if (kFT) {
+    const DistInj d = load_dist_inj(inj);
+    const int ch = (d.f_tile + 1) * (bf / kChunk) - 1;
+    if (d.enabled && mt == d.m_tile && d.c_tile >= 0 && d.c_tile < nkt &&
+        ch >= 0 && ch < nch)
+      inj_step = d.c_tile * nch + ch;
+  }
+  // the running state of row frag_row(ty, tx >> (4 - log2 kTM)), kept by
+  // the lanes tx % (16 / kTM) == 0
+  float best = FLT_MAX;
   int best_arg = 0;
   int det_count = 0;      // owned by thread 0
 
+  // step s's copies into ring slot s % 2, feature-major: X's row tile at
+  // features f0 .. f0 + 31 by 4-byte copies that transpose (warp w copies
+  // blocks of 4 rows x 8 features: 32-byte sectors of global memory onto
+  // 32 distinct banks, lane (lane % 4, lane / 4) its (row, feature) in the
+  // block), C's centroid tile from the pre-pass's ct by 16-byte copies;
+  // with a tile's first chunk its norms; FT: the chunk's C encodings from
+  // the pre-pass (kEnc slot s % 2).
+  const int rl = lane % 4, fl = lane / 4;
+  int st_kt = 0, st_f0 = 0;   // the (centroid tile, feature) stage() copies
+  auto stage = [&](int s) {
+    const int kt = st_kt, f0 = st_f0;
+    st_f0 += kChunk;
+    if (st_f0 == fp) {
+      st_f0 = 0;
+      ++st_kt;
+    }
+    float* xs = sm + (s & 1) * L::kSlot + L::kXs + fl * L::kPX + rl;
+    float* cs = sm + (s & 1) * L::kSlot + L::kCs;
+    const float* xg = x + size_t(m0 + rl) * fp + f0 + fl;
+    const float* cgl = c + size_t(f0) * kp + kt * kBK;
+#pragma unroll
+    for (int it = 0; it < BM / 8; ++it) {
+      const int r = warp * (BM / 8) + 4 * (it / 4), f = 8 * (it % 4);
+      cp_async4(xs + f * L::kPX + r, xg + size_t(r) * fp + f);
+    }
+#pragma unroll
+    for (int it = 0; it < kChunk * kBK / 4 / kThreads; ++it) {
+      const int q = tid + it * kThreads, f = q / (kBK / 4), v = q % (kBK / 4);
+      cp_async16(cs + f * L::kPC + 4 * v, cgl + size_t(f) * kp + 4 * v);
+    }
+    if (f0 == 0 && tid < kBK / 4)
+      cp_async16(sm + L::kCn + (kt & 1) * kBK + 4 * tid,
+                 cn + kt * kBK + 4 * tid);
+    if (kFT && tid >= kThreads - 2 * kChunk / 4) {
+      const int q = tid - (kThreads - 2 * kChunk / 4);   // 0 .. 15
+      const int e = q / (kChunk / 4), v = q % (kChunk / 4);
+      cp_async16(sm + L::kEnc + (s & 1) * 2 * kChunk + e * kChunk + 4 * v,
+                 cenc + (size_t(kt) * 2 + e) * fp + f0 + 4 * v);
+    }
+    cp_async_commit();
+  };
+
+  stage(0);
+  int s = 0;
   for (int kt = 0; kt < nkt; ++kt) {
     const int c0 = kt * kBK;
     float acc[kTM][kTN];
@@ -443,113 +757,118 @@ lloyd_tile_kernel(const float* __restrict__ x, const float* __restrict__ c,
     for (int i = 0; i < kTM; ++i)
 #pragma unroll
       for (int j = 0; j < kTN; ++j) acc[i][j] = 0.0f;
-    if (tid < kBK) {
-      cnS[tid] = cn[c0 + tid];
-      if (kFT) sm[L::kCol1 + tid] = sm[L::kCol2 + tid] = 0.0f;
-    } else if (kFT && tid - kBK < BM) {
-      sm[L::kRow1 + tid - kBK] = sm[L::kRow2 + tid - kBK] = 0.0f;
-    }
+    // FT: the expected checksums of column tid (tid < kBK) or of row
+    // tid - kBK (kBK <= tid < kBK + BM)
+    float ce1 = 0.0f, ce2 = 0.0f;
 
-    for (int ch = 0; ch < nch; ++ch) {
+    for (int ch = 0; ch < nch; ++ch, ++s) {
       const int f0 = ch * kChunk;
-      for (int idx = tid; idx < BM * kChunk; idx += kThreads) {
-        const int r = idx / kChunk, f = idx % kChunk;
-        Xs[f * (BM + 1) + r] = x[size_t(m0 + r) * fp + f0 + f];
-      }
-      for (int idx = tid; idx < kBK * kChunk; idx += kThreads) {
-        const int r = idx / kChunk, f = idx % kChunk;
-        Cs[f * (kBK + 1) + r] = c[size_t(c0 + r) * fp + f0 + f];
-      }
+      cp_async_wait_all();
       __syncthreads();
-#pragma unroll 4
-      for (int f = 0; f < kChunk; ++f) {
-        float a[kTM], b[kTN];
-#pragma unroll
-        for (int i = 0; i < kTM; ++i) a[i] = Xs[f * (BM + 1) + ty + 16 * i];
-#pragma unroll
-        for (int j = 0; j < kTN; ++j) b[j] = Cs[f * (kBK + 1) + tx + 16 * j];
-#pragma unroll
-        for (int i = 0; i < kTM; ++i)
-#pragma unroll
-          for (int j = 0; j < kTN; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+      // the next step's copies (the next tile's first, at a tile's last
+      // step) run under this one's FMAs
+      if (s + 1 < nsteps) stage(s + 1);
+      const float* xs = sm + (s & 1) * L::kSlot + L::kXs;
+      const float* cs = sm + (s & 1) * L::kSlot + L::kCs;
+      if (kFT && kt == 0) {   // X's encodings, once a row tile
+        float e1, e2;
+        chunk_encodings<BM, 1, L::kPX>(xs, lane, warp, &e1, &e2);
+        if (lane < 4) {
+          xencS[f0 + 4 * warp + lane] = e1;
+          xencS[fp + f0 + 4 * warp + lane] = e2;
+        }
       }
+      // the chunk's FMAs, unrolled kU features at a time: the whole chunk,
+      // or half of it in the FT and entries kernels at BM = 128, whose
+      // extra state spilled more registers at the full unroll (ptxas)
+      constexpr int kU =
+          (kFT || kUpd == kEntryUpdate) && kTM == 8 ? kChunk / 2 : kChunk;
+#pragma unroll 1
+      for (int f1 = 0; f1 < kChunk; f1 += kU)
+#pragma unroll
+        for (int u = 0; u < kU; ++u)
+          feature_fma<kTM>(acc, xs, cs, tx, ty, f1 + u);
       if (kFT) {
-        // expected checksums from the resident chunk: e1/e2 encodings of
-        // the X and C chunks (8 partials per feature, then a fixed-order sum)
-        float* part = sm + L::kPart;
-        float* enc = sm + L::kEnc;
-        {
-          const int f = tid % kChunk, s = tid / kChunk;
-          float x1 = 0.0f, x2 = 0.0f, c1 = 0.0f, c2 = 0.0f;
-          for (int r = s; r < BM; r += 8) {
-            const float v = Xs[f * (BM + 1) + r];
-            x1 += v;
-            x2 = fmaf(float(r + 1), v, x2);
-          }
-          for (int r = s; r < kBK; r += 8) {
-            const float v = Cs[f * (kBK + 1) + r];
-            c1 += v;
-            c2 = fmaf(float(r + 1), v, c2);
-          }
-          part[(0 * 8 + s) * kChunk + f] = x1;
-          part[(1 * 8 + s) * kChunk + f] = x2;
-          part[(2 * 8 + s) * kChunk + f] = c1;
-          part[(3 * 8 + s) * kChunk + f] = c2;
-        }
-        __syncthreads();
-        if (tid < 4 * kChunk) {
-          const int q = tid / kChunk, f = tid % kChunk;
-          float s = 0.0f;
-          for (int p = 0; p < 8; ++p) s += part[(q * 8 + p) * kChunk + f];
-          enc[q * kChunk + f] = s;
-        }
-        __syncthreads();
+        if (kt == 0) __syncthreads();   // X's encodings are in place
+        const float* enc = sm + L::kEnc + (s & 1) * 2 * kChunk;
         if (tid < kBK) {
-          float s1 = sm[L::kCol1 + tid], s2 = sm[L::kCol2 + tid];
-          for (int f = 0; f < kChunk; ++f) {
-            const float cv = Cs[f * (kBK + 1) + tid];
-            s1 = fmaf(enc[0 * kChunk + f], cv, s1);
-            s2 = fmaf(enc[1 * kChunk + f], cv, s2);
+#pragma unroll
+          for (int f = 0; f < kChunk; f += 4) {
+            const float4 e1 =
+                *reinterpret_cast<const float4*>(xencS + f0 + f);
+            const float4 e2 =
+                *reinterpret_cast<const float4*>(xencS + fp + f0 + f);
+            const float w1[4] = {e1.x, e1.y, e1.z, e1.w};
+            const float w2[4] = {e2.x, e2.y, e2.z, e2.w};
+#pragma unroll
+            for (int k = 0; k < 4; ++k) {
+              const float cv = cs[(f + k) * L::kPC + tid];
+              ce1 = fmaf(w1[k], cv, ce1);
+              ce2 = fmaf(w2[k], cv, ce2);
+            }
           }
-          sm[L::kCol1 + tid] = s1;
-          sm[L::kCol2 + tid] = s2;
         } else if (tid - kBK < BM) {
-          const int r = tid - kBK;
-          float s1 = sm[L::kRow1 + r], s2 = sm[L::kRow2 + r];
-          for (int f = 0; f < kChunk; ++f) {
-            const float xv = Xs[f * (BM + 1) + r];
-            s1 = fmaf(xv, enc[2 * kChunk + f], s1);
-            s2 = fmaf(xv, enc[3 * kChunk + f], s2);
+          const float* xcol = xs + (tid - kBK);
+#pragma unroll
+          for (int f = 0; f < kChunk; f += 4) {
+            const float4 e1 = *reinterpret_cast<const float4*>(enc + f);
+            const float4 e2 =
+                *reinterpret_cast<const float4*>(enc + kChunk + f);
+            const float w1[4] = {e1.x, e1.y, e1.z, e1.w};
+            const float w2[4] = {e2.x, e2.y, e2.z, e2.w};
+#pragma unroll
+            for (int k = 0; k < 4; ++k) {
+              const float xv = xcol[(f + k) * L::kPX];
+              ce1 = fmaf(xv, w1[k], ce1);
+              ce2 = fmaf(xv, w2[k], ce2);
+            }
           }
-          sm[L::kRow1 + r] = s1;
-          sm[L::kRow2 + r] = s2;
         }
         // simulated SEU: after the last chunk of feature tile f_tile
-        if (dinj.enabled && mt == dinj.m_tile && kt == dinj.c_tile &&
-            ch == (dinj.f_tile + 1) * ch_per_tile - 1) {
+        if (s == inj_step) {
+          const DistInj d = load_dist_inj(inj);
 #pragma unroll
           for (int i = 0; i < kTM; ++i)
 #pragma unroll
             for (int j = 0; j < kTN; ++j)
-              if (ty + 16 * i == dinj.row && tx + 16 * j == dinj.col)
-                acc[i][j] += dinj.delta;
+              if (frag_row(ty, i) == d.row && frag_col(tx, j) == d.col)
+                acc[i][j] += d.delta;
         }
       }
-      __syncthreads();
     }
 
-#pragma unroll
-    for (int i = 0; i < kTM; ++i)
-#pragma unroll
-      for (int j = 0; j < kTN; ++j)
-        Ds[(ty + 16 * i) * (kBK + 1) + tx + 16 * j] = acc[i][j];
-    __syncthreads();
-
     if (kFT) {
+      // Ds: rows < BM / 2 over the slot this tile's last step read (free
+      // once every warp is past its FMAs: the barrier), the rest in DsHi
+      float* ds_lo = sm + ((s - 1) & 1) * L::kSlot;
+      float* ds_hi = xencS + 2 * fp;
+      auto ds_row = [&](int r) {
+        return r < BM / 2 ? ds_lo + r * (kBK + 1)
+                          : ds_hi + (r - BM / 2) * (kBK + 1);
+      };
+      __syncthreads();
+#pragma unroll
+      for (int i = 0; i < kTM; ++i)
+#pragma unroll
+        for (int j = 0; j < kTN; ++j)
+          ds_row(frag_row(ty, i))[frag_col(tx, j)] = acc[i][j];
+      if (tid < kBK) {
+        sm[L::kCol1 + tid] = ce1;
+        sm[L::kCol2 + tid] = ce2;
+      } else if (tid - kBK < BM) {
+        sm[L::kRow1 + tid - kBK] = ce1;
+        sm[L::kRow2 + tid - kBK] = ce2;
+      }
+      __syncthreads();
       if (tid < kBK) {
         float s1 = 0.0f, s2 = 0.0f;
-        for (int r = 0; r < BM; ++r) {
-          const float v = Ds[r * (kBK + 1) + tid];
+        for (int r = 0; r < BM / 2; ++r) {
+          const float v = ds_lo[r * (kBK + 1) + tid];
+          s1 += v;
+          s2 += float(r + 1) * v;
+        }
+        for (int r = BM / 2; r < BM; ++r) {
+          const float v = ds_hi[(r - BM / 2) * (kBK + 1) + tid];
           s1 += v;
           s2 += float(r + 1) * v;
         }
@@ -557,9 +876,10 @@ lloyd_tile_kernel(const float* __restrict__ x, const float* __restrict__ c,
         sm[L::kResC2 + tid] = s2 - sm[L::kCol2 + tid];
       } else if (tid - kBK < BM) {
         const int r = tid - kBK;
+        const float* dr = ds_row(r);
         float s1 = 0.0f, s2 = 0.0f;
         for (int cc = 0; cc < kBK; ++cc) {
-          const float v = Ds[r * (kBK + 1) + cc];
+          const float v = dr[cc];
           s1 += v;
           s2 += float(cc + 1) * v;
         }
@@ -567,38 +887,107 @@ lloyd_tile_kernel(const float* __restrict__ x, const float* __restrict__ c,
         sm[L::kResR2 + r] = s2 - sm[L::kRow2 + r];
       }
       __syncthreads();
+      // warp 0 decodes (locate_and_correct's rule, locate_tile); the
+      // thread that holds the located element subtracts the delta
       if (tid < 32) {
-        const int d = locate_and_correct<BM>(sm, lane, thr_factor);
-        if (tid == 0) det_count += d;
+        int li, lj;
+        float dl;
+        const int d = locate_tile(sm + L::kCol1, sm + L::kRow1,
+                                  sm + L::kResC1, sm + L::kResC2,
+                                  sm + L::kResR1, sm + L::kResR2, BM, kBK,
+                                  lane, thr_factor, &li, &lj, &dl);
+        if (tid == 0) {
+          det_count += d;
+          smi[L::kVerdict] = d;
+          smi[L::kVerdict + 1] = li;
+          smi[L::kVerdict + 2] = lj;
+          sm[L::kVerdict + 3] = dl;
+        }
       }
       __syncthreads();
+      if (smi[L::kVerdict]) {   // block-uniform
+        const int li = smi[L::kVerdict + 1], lj = smi[L::kVerdict + 2];
+        const float dl = sm[L::kVerdict + 3];
+#pragma unroll
+        for (int i = 0; i < kTM; ++i)
+#pragma unroll
+          for (int j = 0; j < kTN; ++j)
+            if (frag_row(ty, i) == li && frag_col(tx, j) == lj)
+              acc[i][j] -= dl;
+      }
     }
 
-    if (tid < BM) {
-      float lmin;
-      int larg;
-      tile_min_argmin(Ds + tid * (kBK + 1), cnS, c0, &lmin, &larg);
-      fold_min(&best, &best_arg, lmin, larg);
-    }
-    __syncthreads();
+    tile_fold<kTM>(acc, sm + L::kCn + (kt & 1) * kBK, tx, c0, &best,
+                   &best_arg);
   }
 
-  if (tid < BM) {
-    mind[m0 + tid] = best;
-    argmin[m0 + tid] = best_arg;
+  // the final labels, by row, for the writes and the update
+  constexpr int kOwnShift = kTM == 8 ? 1 : 2;
+  const int row = frag_row(ty, tx >> kOwnShift);
+  const bool owner = tx % (16 / kTM) == 0;
+  if (owner) {
+    mind[m0 + row] = best;
+    argmin[m0 + row] = best_arg;
   }
   if (kFT && tid == 0) det[mt] = det_count;
-  if constexpr (kUpd == kEntryUpdate) {
-    const EntryOut o{sums, counts, idx, ekey, kp, fp, levels, int(gridDim.x)};
-    emit_entries<float, BM, kFT>(sm, best_arg, x, mt, true_m, o, inj, spare,
-                                 ucheck, ccheck);
-  } else if constexpr (kUpd == kDenseUpdate) {
-    int* am = smi + L::kAm;
-    if (tid < BM) am[tid] = best_arg;
-    emit_update<float, BM>(am, smi + L::kKey, smi + L::kOrder,
-                           smi + L::kSKey, x, m0, true_m, kp, fp,
-                           sums + size_t(mt) * kp * fp,
-                           counts + size_t(mt) * kp);
+  if constexpr (kUpd != kNoUpdate) {
+    int* lab = smi + (kUpd == kDenseUpdate ? L::kAm : L::kLab);
+    __syncthreads();   // the ring is free: every warp is past its last chunk
+    if (owner) lab[row] = best_arg;
+    __syncthreads();
+    if constexpr (kUpd == kEntryUpdate) {
+      const int label = tid < BM ? lab[tid] : 0;
+      const EntryOut o{sums,   counts, idx,    ekey,
+                       kp,     fp,     levels, int(gridDim.x)};
+      emit_entries<float, BM, kFT, L>(sm, label, x, mt, true_m, o, inj,
+                                      spare, ucheck, ccheck);
+    } else {
+      emit_update<float, BM>(lab, smi + L::kKey, smi + L::kOrder,
+                             smi + L::kSKey, x, m0, true_m, kp, fp,
+                             sums + size_t(mt) * kp * fp,
+                             counts + size_t(mt) * kp);
+    }
+  }
+}
+
+// The f32 tile kernel's pre-pass, once a call (it depends on C alone): C
+// feature-major, ct (Fp, Kp) a problem, the layout its stage() copies 16
+// bytes at a time, and, for the FT instantiations, C's e1 / e2 encodings
+// per centroid tile, cenc (Kp / kBK, 2, Fp) a problem, by chunk_encodings
+// over the same staged chunk layout (the order of the 8 strided partials
+// a feature, then their fixed-order sum). Block (chunk, centroid tile,
+// problem). Bound by the bytes of C, read once and written once.
+__global__ void __launch_bounds__(kThreads)
+lloyd_prep_kernel(const float* __restrict__ c, float* __restrict__ ct,
+                  float* __restrict__ cenc, int kp, int fp) {
+  constexpr int kPC = kBK + 4;
+  __shared__ __align__(16) float cs[kChunk * kPC];
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int f0 = blockIdx.x * kChunk, kt = blockIdx.y, c0 = kt * kBK;
+  const size_t pb = blockIdx.z;
+  c += pb * kp * fp;
+  ct += pb * kp * fp;
+  // the chunk feature-major, by the tile kernel's lane map: warp w reads
+  // blocks of 4 rows x 8 features (32-byte sectors; 32 distinct banks)
+  const int rl = lane % 4, fl = lane / 4;
+#pragma unroll
+  for (int it = 0; it < kBK / 8; ++it) {
+    const int r = warp * (kBK / 8) + 4 * (it / 4) + rl, f = 8 * (it % 4) + fl;
+    cs[f * kPC + r] = c[size_t(c0 + r) * fp + f0 + f];
+  }
+  __syncthreads();
+  for (int q = tid; q < kChunk * kBK; q += kThreads) {
+    const int f = q / kBK, r = q % kBK;
+    ct[size_t(f0 + f) * kp + c0 + r] = cs[f * kPC + r];
+  }
+  if (cenc != nullptr) {
+    float e1, e2;
+    chunk_encodings<kBK, 1, kPC>(cs, lane, warp, &e1, &e2);
+    if (lane < 4) {
+      float* e = cenc + (pb * (kp / kBK) + kt) * 2 * fp + f0 + 4 * warp + lane;
+      e[0] = e1;
+      e[fp] = e2;
+    }
   }
 }
 
@@ -612,8 +1001,7 @@ lloyd_tile_kernel(const float* __restrict__ x, const float* __restrict__ c,
 // store() writes the accumulator to Ds. tile_min_argmin / fold_min,
 // locate_and_correct, emit_update and emit_entries are the f32 kernel's
 // own functions, so the instantiations of one T agree bit for bit. (The
-// f32 kernel keeps its inline product: the same code behind a product
-// object ran 0.5-3 % slower on an H100, PERF.md.)
+// f32 kernel has its own loop: staging ring, chunk_fma, tile_fold.)
 //
 // Its ABFT (kFT) is the paper's tensor-core scheme (as the 2-byte ABFT
 // GEMM's, fk_abft_gemm.cu), where the f32 kernel's runs on the CUDA cores:
@@ -1472,6 +1860,37 @@ constexpr auto tile_kernel() {
     return lloyd_tile_mma_kernel<T, BM, kFT, kUpd>;
 }
 
+// dynamic shared memory of a tile kernel: the f32 kernel's F32Layout (with
+// X's encodings, 2 x fp words, at kFT) or the 2-byte kernels' Layout
+template <typename T, int BM, bool kFT>
+size_t tile_bytes(int fp) {
+  if constexpr (std::is_same<T, float>::value)
+    return F32Layout<BM>::bytes(kFT, fp);
+  else
+    return Layout<BM>::kBytes;
+}
+
+// The f32 tile kernel's resources at one (BM, kFT, kUpd): out[0] resident
+// blocks an SM at Fp = fp, out[1] registers a thread, out[2] local-memory
+// bytes a thread (spills), out[3] dynamic shared memory bytes.
+template <int BM, bool kFT, int kUpd>
+int tile_resources(int fp, int* out) {
+  auto kernel = lloyd_tile_kernel<BM, kFT, kUpd>;
+  const size_t bytes = F32Layout<BM>::bytes(kFT, fp);
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(bytes));
+  if (e != cudaSuccess) return int(e);
+  cudaFuncAttributes attr;
+  e = cudaFuncGetAttributes(&attr, kernel);
+  if (e != cudaSuccess) return int(e);
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[0], kernel,
+                                                    kThreads, bytes);
+  out[1] = attr.numRegs;
+  out[2] = int(attr.localSizeBytes);
+  out[3] = int(bytes);
+  return int(e);
+}
+
 // A tile kernel's outputs and scratch past its distances: the FT ones (cenc
 // the split C encodings and xenc the X encodings' scratch of the 2-byte
 // kernels; det), the dense update's (sums, counts) or the entries' (sums,
@@ -1499,7 +1918,12 @@ int launch_tile(const T* x, const T* c, const float* cn, float* mind,
                 int* argmin, const TileArgs<T>& a, int nb, int mp, int kp,
                 int fp, int bf, int true_m, cudaStream_t stream) {
   auto kernel = tile_kernel<T, BM, kFT, kUpd>();
-  const size_t bytes = Layout<BM>::kBytes;
+  const size_t bytes = tile_bytes<T, BM, kFT>(fp);
+  // the f32 kernel stages X, C and cn 16 bytes a copy (cp.async)
+  if (std::is_same<T, float>::value &&
+      (reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(c) |
+       reinterpret_cast<uintptr_t>(cn)) % 16)
+    return int(cudaErrorMisalignedAddress);
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(bytes));
   if (e != cudaSuccess) return int(e);
@@ -1517,8 +1941,8 @@ int dispatch(int bm, const T* x, const T* c, const float* cn, float* mind,
   if ((bm != 64 && bm != 128) || mp % bm || kp % kBK || bf < kChunk ||
       bf % kChunk || fp % bf || nb < 1 || nb > kMaxProblems ||
       (nb > 1 && kUpd != kDenseUpdate) ||
-      (kFT && !std::is_same<T, float>::value &&
-       (a.cenc == nullptr || a.xenc == nullptr)))
+      (kFT && (a.cenc == nullptr ||
+               (!std::is_same<T, float>::value && a.xenc == nullptr))))
     return int(cudaErrorInvalidValue);
   if (bm == 128)
     return launch_tile<T, 128, kFT, kUpd>(x, c, cn, mind, argmin, a, nb, mp,
@@ -1809,6 +2233,22 @@ int pruned_dispatch(const T* x, const T* c, const float* cn, const float* xn,
 
 extern "C" {
 
+// The f32 tile kernel's pre-pass (lloyd_prep_kernel) over nb stacked
+// problems: c (nb, kp, fp) -> ct (nb, fp, kp) and, when cenc is not null,
+// cenc (nb, kp / 128, 2, fp). The f32 entry points below take ct where
+// their 2-byte twins take c, and the FT ones cenc.
+int fk_lloyd_prep(const float* c, float* ct, float* cenc, int nb, int kp,
+                  int fp, void* stream) {
+  if (nb < 1 || nb > 65535 || kp <= 0 || kp % kBK || kp / kBK > 65535 ||
+      fp <= 0 || fp % kChunk)
+    return int(cudaErrorInvalidValue);
+  lloyd_prep_kernel<<<dim3(fp / kChunk, kp / kBK, nb), kThreads, 0,
+                      static_cast<cudaStream_t>(stream)>>>(c, ct, cenc, kp,
+                                                           fp);
+  return int(cudaGetLastError());
+}
+
+// c: at f32 the pre-pass's ct (fp, kp) (fk_lloyd_prep), not C.
 int fk_distance_argmin(const float* x, const float* c, const float* cn,
                        float* mind, int* argmin, int mp, int kp, int fp,
                        int bm, int bf, void* stream) {
@@ -1849,18 +2289,19 @@ int fk_lloyd_step_batched(const float* x, const float* c, const float* cn,
       static_cast<cudaStream_t>(stream));
 }
 
-// cenc and xenc: the 2-byte kernels' split C encodings and X encodings'
-// scratch (null at f32, whose checksums run on the CUDA cores).
+// cenc: the 2-byte kernels' split C encodings, at f32 the pre-pass's
+// cenc (fk_lloyd_prep); xenc: the 2-byte kernels' X encodings' scratch
+// (null at f32, which keeps them in shared memory).
 int fk_distance_argmin_ft(const float* x, const float* c, const float* cn,
                           const void* cenc, const int* inj, float* mind,
                           int* argmin, int* det, float* xenc,
                           float thr_factor, int mp, int kp, int fp, int bm,
                           int bf, void* stream) {
   TileArgs<float> a{};
+  a.cenc = static_cast<const float*>(cenc);
   a.inj = inj;
   a.det = det;
   a.thr_factor = thr_factor;
-  (void)cenc;
   (void)xenc;
   return dispatch<float, true, kNoUpdate>(
       bm, x, c, cn, mind, argmin, a, 1, mp, kp, fp, bf, mp,
@@ -1877,15 +2318,34 @@ int fk_lloyd_step_ft(const float* x, const float* c, const float* cn,
                      float* ucheck, float* ccheck, float thr_factor,
                      int true_m, int mp, int kp, int fp, int bm, int bf,
                      void* stream) {
-  (void)cenc;
   (void)xenc;
-  const TileArgs<float> a{nullptr, inj,    det,    nullptr,
+  const TileArgs<float> a{static_cast<const float*>(cenc),
+                          inj,     det,    nullptr,
                           entries, ecnt,   idx,    ekey,
                           spare,   ucheck, ccheck, entry_levels(mp, bm),
                           thr_factor};
   return dispatch<float, true, kEntryUpdate>(
       bm, x, c, cn, mind, argmin, a, 1, mp, kp, fp, bf, true_m,
       static_cast<cudaStream_t>(stream));
+}
+
+// The f32 tile kernel's resources (tile_resources) at bm 64 or 128, ft 0/1
+// and upd (0 none, 1 dense, 2 entries; ft only with 0 or 2).
+int fk_tile_resources(int bm, int ft, int upd, int fp, int* out) {
+  const int v = (bm == 128 ? 100 : bm == 64 ? 0 : -1000) + 10 * ft + upd;
+  switch (v) {
+    case 0: return tile_resources<64, false, kNoUpdate>(fp, out);
+    case 1: return tile_resources<64, false, kDenseUpdate>(fp, out);
+    case 2: return tile_resources<64, false, kEntryUpdate>(fp, out);
+    case 10: return tile_resources<64, true, kNoUpdate>(fp, out);
+    case 12: return tile_resources<64, true, kEntryUpdate>(fp, out);
+    case 100: return tile_resources<128, false, kNoUpdate>(fp, out);
+    case 101: return tile_resources<128, false, kDenseUpdate>(fp, out);
+    case 102: return tile_resources<128, false, kEntryUpdate>(fp, out);
+    case 110: return tile_resources<128, true, kNoUpdate>(fp, out);
+    case 112: return tile_resources<128, true, kEntryUpdate>(fp, out);
+    default: return int(cudaErrorInvalidValue);
+  }
 }
 
 // tile and gate may be null: every one of n_tiles row tiles, ungated.

@@ -86,6 +86,10 @@ SIGNATURES: dict[str, tuple] = {
                                 _P),
     "fk_centroid_update_dmr": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                                _I, _I, _I, _I, _F, _P),
+    # the f32 tile kernel's resources: bm, ft, upd, fp, out (4 ints)
+    "fk_tile_resources": (_I, _I, _I, _I, _P),
+    # its pre-pass: c, ct, cenc (or null); nb, kp, fp; stream
+    "fk_lloyd_prep": (_P, _P, _P, _I, _I, _I, _P),
 }
 # the 2-byte entry points: their f32 twin's arguments, then the dtype code
 # (HALF_KINDS), then the stream
@@ -276,14 +280,15 @@ def on_cpu(*tensors) -> bool:
                        f"device, got {sorted(str(t.device) for t in tensors)}")
 
 
-def ptr(t, dtype, what: str) -> int:
+def ptr(t, dtype, what: str, *, vec16: bool = False) -> int:
     """Device pointer of a contiguous CUDA tensor of ``dtype``; a 2-byte
-    tensor must also be 16-byte aligned (the kernels stage it 16 bytes at a
-    time)."""
+    tensor, and any tensor with ``vec16`` (the f32 tile kernel's X, C and
+    norms), must also be 16-byte aligned (the kernels stage it 16 bytes at
+    a time)."""
     if t.dtype != dtype or not t.is_contiguous():
         raise ValueError(f"{what} must be a contiguous {dtype} tensor, got "
                          f"{t.dtype} (contiguous={t.is_contiguous()})")
-    if t.element_size() == 2 and t.data_ptr() % 16:
+    if (vec16 or t.element_size() == 2) and t.data_ptr() % 16:
         raise ValueError(f"{what} ({t.dtype}) must start on a 16-byte "
                          f"boundary, got address {t.data_ptr():#x}")
     return t.data_ptr()

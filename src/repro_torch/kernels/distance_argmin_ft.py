@@ -25,8 +25,11 @@ the checksums run in f32 on the widened tiles, as the reference's
 ``xf``/``cf`` casts, and ``factor`` is the caller's
 ``threshold_factor(Fp, input dtype)``: 16 sqrt(Fp) max(eps_in, eps_f32),
 8,192x (fp16) to 65,536x (bf16) f32's. At f32 the expected checksums are
-CUDA-core FMAs on the staged chunks and the observed ones a pass over the
-tile in shared memory. At bf16 / fp16 they follow the paper's tensor-core
+CUDA-core FMAs on the staged chunks, against C's encodings from the
+pre-pass (``distance_argmin.prep_centroids``, once a call, which also
+gives C feature-major) and X's, computed once a row tile; the observed ones
+are a pass over the tile in shared memory. At bf16 / fp16 they follow the
+paper's tensor-core
 scheme: :func:`encode_centroids` (``lloyd_encode_kernel<T>``, once a call)
 gives C's e1 / e2 encodings per centroid tile split into three 2-byte parts
 (``matmul_abft.split_encodings``), and the expected row checksums are one
@@ -45,7 +48,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import _build, ref
-from repro_torch.kernels.distance_argmin import check_padded
+from repro_torch.kernels.distance_argmin import check_padded, prep_centroids
 
 # the centroid tile the C encodings run over (the CUDA kernels' kBK)
 ENC_TILE = 128
@@ -196,15 +199,17 @@ encode_centroids.launches = 0
 
 
 def ft_scratch(x: torch.Tensor, c: torch.Tensor, block_m: int) -> tuple:
-    """(cenc pointer or None, xenc) of an FT launch: at 2 bytes the split C
-    encodings (:func:`encode_centroids`) and the X encodings' scratch
-    (Mp/bm, 2, Fp) f32; at f32 neither (the CUDA-core checksums)."""
+    """(C operand, C encodings, X encodings' scratch or None) of an FT
+    launch: at f32 the pre-pass's ct and encodings
+    (``distance_argmin.prep_centroids``; X's encodings stay in the
+    kernel's shared memory); at 2 bytes C, its split encodings
+    (:func:`encode_centroids`) and a (Mp/bm, 2, Fp) f32 scratch."""
     if x.dtype == torch.float32:
-        return None, None, None
-    cenc = encode_centroids(c)
+        ct, cenc = prep_centroids(c, encodings=True)
+        return ct, cenc, None
     xenc = torch.empty((x.shape[0] // block_m, 2, x.shape[1]),
                        dtype=torch.float32, device=x.device)
-    return cenc, _build.ptr(cenc, c.dtype, "cenc"), xenc
+    return c, encode_centroids(c), xenc
 
 
 def distance_argmin_ft(x: torch.Tensor, c: torch.Tensor, cn: torch.Tensor,
@@ -226,11 +231,13 @@ def distance_argmin_ft(x: torch.Tensor, c: torch.Tensor, cn: torch.Tensor,
     mind = torch.empty(mp, dtype=torch.float32, device=dev)
     am = torch.empty(mp, dtype=torch.int32, device=dev)
     det = torch.empty(mp // block_m, dtype=torch.int32, device=dev)
-    cenc, cenc_ptr, xenc = ft_scratch(x, c, block_m)
+    c_op, cenc, xenc = ft_scratch(x, c, block_m)
     code = _build.launch(
-        "fk_distance_argmin_ft", dt, _build.ptr(x, dt, "x"),
-        _build.ptr(c, dt, "c"), _build.ptr(cn, torch.float32, "cn"),
-        cenc_ptr, _build.ptr(inj, torch.int32, "inj"),
+        "fk_distance_argmin_ft", dt, _build.ptr(x, dt, "x", vec16=True),
+        _build.ptr(c_op, dt, "c", vec16=True),
+        _build.ptr(cn, torch.float32, "cn", vec16=True),
+        _build.ptr(cenc, cenc.dtype, "cenc"),
+        _build.ptr(inj, torch.int32, "inj"),
         mind.data_ptr(), am.data_ptr(), det.data_ptr(),
         None if xenc is None else xenc.data_ptr(), factor, mp,
         c.shape[0], fp, block_m, block_f, _build.stream_of(x))

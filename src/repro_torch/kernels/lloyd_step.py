@@ -51,7 +51,7 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels import update as _up
-from repro_torch.kernels.distance_argmin import (check_padded,
+from repro_torch.kernels.distance_argmin import (c_operand, check_padded,
                                                  distance_argmin_plain)
 from repro_torch.kernels.update import tile_update_plain
 
@@ -92,11 +92,13 @@ def lloyd_step(x: torch.Tensor, c: torch.Tensor, cn: torch.Tensor,
     ecnt = torch.empty(mp, dtype=torch.float32, device=dev)
     idx = torch.full((kp, 1 << _up.tree_levels(nt)), -1, dtype=torch.int32,
                      device=dev)
+    c_op = c_operand(c)
     code = _build.launch(
-        "fk_lloyd_step", dt, _build.ptr(x, dt, "x"), _build.ptr(c, dt, "c"),
-        _build.ptr(cn, torch.float32, "cn"), mind.data_ptr(), am.data_ptr(),
-        entries.data_ptr(), ecnt.data_ptr(), idx.data_ptr(), true_m, mp, kp,
-        fp, block_m, block_f, _build.stream_of(x))
+        "fk_lloyd_step", dt, _build.ptr(x, dt, "x", vec16=True),
+        _build.ptr(c_op, dt, "c", vec16=True),
+        _build.ptr(cn, torch.float32, "cn", vec16=True), mind.data_ptr(),
+        am.data_ptr(), entries.data_ptr(), ecnt.data_ptr(), idx.data_ptr(),
+        true_m, mp, kp, fp, block_m, block_f, _build.stream_of(x))
     _build.check(code, "lloyd_step")
     lloyd_step.launches += 1
     return mind, am, entries, ecnt, idx
@@ -206,9 +208,11 @@ def lloyd_step_batched(x: torch.Tensor, c: torch.Tensor, cn: torch.Tensor,
     sums = torch.empty((nb, nt, kp, fp), dtype=torch.float32, device=dev)
     counts = torch.empty((nb, nt, kp), dtype=torch.float32, device=dev)
     dt = x.dtype
+    c_op = c_operand(c)
     code = _build.launch(
-        "fk_lloyd_step_batched", dt, _build.ptr(x, dt, "x"),
-        _build.ptr(c, dt, "c"), _build.ptr(cn, torch.float32, "cn"),
+        "fk_lloyd_step_batched", dt, _build.ptr(x, dt, "x", vec16=True),
+        _build.ptr(c_op, dt, "c", vec16=True),
+        _build.ptr(cn, torch.float32, "cn", vec16=True),
         mind.data_ptr(), am.data_ptr(), sums.data_ptr(), counts.data_ptr(),
         true_m, nb, mp, kp, fp, block_m, block_f, _build.stream_of(x))
     _build.check(code, "lloyd_step_batched")

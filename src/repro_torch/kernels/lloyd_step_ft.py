@@ -289,10 +289,12 @@ def lloyd_step_ft(x: torch.Tensor, c: torch.Tensor, cn: torch.Tensor,
     spare = torch.full((2,), -1, dtype=i32, device=dev)
     ucheck = torch.empty((nt, 2, fp), dtype=f32, device=dev)
     ccheck = torch.empty((nt, 2), dtype=f32, device=dev)
-    cenc, cenc_ptr, xenc = ft_scratch(x, c, block_m)
+    c_op, cenc, xenc = ft_scratch(x, c, block_m)
     code = _build.launch(
-        "fk_lloyd_step_ft", dt, _build.ptr(x, dt, "x"),
-        _build.ptr(c, dt, "c"), _build.ptr(cn, f32, "cn"), cenc_ptr,
+        "fk_lloyd_step_ft", dt, _build.ptr(x, dt, "x", vec16=True),
+        _build.ptr(c_op, dt, "c", vec16=True),
+        _build.ptr(cn, f32, "cn", vec16=True),
+        _build.ptr(cenc, cenc.dtype, "cenc"),
         _build.ptr(inj, i32, "inj"), mind.data_ptr(), am.data_ptr(),
         det.data_ptr(), None if xenc is None else xenc.data_ptr(),
         entries.data_ptr(), ecnt.data_ptr(), idx.data_ptr(),

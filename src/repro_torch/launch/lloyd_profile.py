@@ -1,4 +1,5 @@
-"""The 2-byte FT tile kernels' checksum design, timed on the card.
+"""The tile kernels' designs, timed on the card: the 2-byte FT kernels'
+checksums and, with ``--f32``, the f32 kernel's loop.
 
 Builds ``csrc/fk_kernels.cu`` as it is (``full``) and, from copies of it
 with statements cut (``CUTS``), measurement variants (``cut_*``: without
@@ -16,6 +17,16 @@ fault, and its clean residual margin (log2 of the threshold over the
 largest clean residual, bisected).
 
     PYTHONPATH=src python -m repro_torch.launch.lloyd_profile --out DIR
+    PYTHONPATH=src python -m repro_torch.launch.lloyd_profile --f32 --out DIR
+
+``--f32`` builds the f32 variants instead (``F32_CUTS``: without the next
+chunk's copies (the FMAs then read stale chunks), without the FMAs,
+without the min / argmin (a 64-add pass keeps the accumulator live), and
+for the FT kernels without the chunk encodings, the expected checksums'
+FMAs, or the tile-end observed checksums and decode) and times
+``distance_argmin``, ``lloyd_step``, ``distance_argmin_ft`` and
+``lloyd_step_ft`` at f32 the same way, with the f32 tile kernel's ptxas
+lines and resident blocks an SM.
 
 Needs a CUDA card and ``nvcc``; prints one JSON object a measurement and
 writes them under ``--out`` (by default the package's git-ignored
@@ -34,6 +45,7 @@ import torch
 
 from repro_torch.data.blobs import make_blobs
 from repro_torch.kernels import _build, ops, update as up
+from repro_torch.kernels import distance_argmin as da
 from repro_torch.kernels import distance_argmin_ft as daft
 from repro_torch.kernels import lloyd_step_ft as llft
 
@@ -57,14 +69,50 @@ NO_DECODE = ("      if (res > thr_factor * fmaxf(mag, 1.0f)) {  // uniform\n",
 VARIANTS = {"full": (), "cut_col": ("col",), "cut_row": ("row",),
             "cut_tile": ("tile",), "cut_xenc": ("xenc",),
             "cut_all": ("col", "row", "tile", "xenc")}
+# The f32 lloyd_tile_kernel's parts, cut the same way (no decode cut of
+# their own: "obs" takes the decode with the observed checksums).
+F32_CUTS = {
+    "stage": [("      if (s + 1 < nsteps) stage(s + 1);\n", "")],
+    "fma": [("      for (int f1 = 0; f1 < kChunk; f1 += kU)\n",
+             "      for (int f1 = 0; f1 < 0; f1 += kU)\n")],
+    "epi": [("    tile_fold<kTM>(acc, sm + L::kCn + (kt & 1) * kBK, tx, c0, "
+             "&best,\n                   &best_arg);\n",
+             "    {\n      float t = 0.0f;\n      for (int i = 0; i < kTM; "
+             "++i)\n        for (int j = 0; j < kTN; ++j) t += acc[i][j];\n"
+             "      if (t == 1.25e-38f) best = t;\n    }\n")],
+    "enc": [("      if (kFT && kt == 0) {   // X's encodings",
+             "      if (false) {   // X's encodings")],
+    "chk": [("        if (tid < kBK) {\n#pragma unroll\n",
+             "        if (false) {\n#pragma unroll\n"),
+            ("        } else if (tid - kBK < BM) {\n"
+             "          const float* xcol",
+             "        } else if (false) {\n          const float* xcol")],
+    "obs": [("      if (tid < kBK) {\n        float s1 = 0.0f, s2 = 0.0f;\n"
+             "        for (int r = 0; r < BM / 2; ++r) {",
+             "      if (false) {\n        float s1 = 0.0f, s2 = 0.0f;\n"
+             "        for (int r = 0; r < BM / 2; ++r) {"),
+            ("      } else if (tid - kBK < BM) {\n        const int r = tid "
+             "- kBK;\n        const float* dr",
+             "      } else if (false) {\n        const int r = tid "
+             "- kBK;\n        const float* dr"),
+            ("        const int d = locate_tile(",
+             "        li = lj = 0;\n        dl = 0.0f;\n"
+             "        const int d = false && locate_tile(")],
+}
+F32_VARIANTS = {"full": (), "cut_stage": ("stage",), "cut_fma": ("fma",),
+                "cut_epi": ("epi",), "cut_enc": ("enc",),
+                "cut_chk": ("chk",), "cut_obs": ("obs",)}
 M, F, K = 1 << 20, 128, 1000
 
 
-def variant_source(src: Path, cuts: tuple) -> str:
-    """``src`` with the statements of ``cuts`` (and the decode) replaced;
-    a statement that is not in the source exactly once fails."""
+def variant_source(src: Path, cuts: tuple, table: dict = CUTS,
+                   extra: tuple = (NO_DECODE,)) -> str:
+    """``src`` with the statements of ``cuts`` (of ``table``; and the
+    ``extra`` pairs, the 2-byte decode) replaced; a statement that is not
+    in the source exactly once fails."""
     text = src.read_text()
-    for old, new in [pair for cut in cuts for pair in CUTS[cut]] + [NO_DECODE]:
+    for old, new in [pair for cut in cuts for pair in table[cut]] + list(
+            extra):
         if text.count(old) != 1:
             raise RuntimeError(f"cut anchor found {text.count(old)} times, "
                                f"not once: {old!r}")
@@ -72,19 +120,21 @@ def variant_source(src: Path, cuts: tuple) -> str:
     return text
 
 
-def build_variants() -> dict:
+def build_variants(f32: bool = False) -> dict:
     """Each variant's library, built in parallel into the package's
     ``_build/`` directory (named by variant and source hash)."""
     src, base = _build._paths("fk_kernels")
     _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
     procs = {}
-    for name, cuts in VARIANTS.items():
+    variants = F32_VARIANTS if f32 else VARIANTS
+    for name, cuts in variants.items():
         out = base.with_name(f"{base.stem}-{name}.so")
         vsrc = src
         if cuts:
             vsrc = out.with_suffix(".cu")
-            vsrc.write_text(variant_source(src, cuts))
+            vsrc.write_text(variant_source(src, cuts, F32_CUTS, ()) if f32
+                            else variant_source(src, cuts))
         procs[name] = (out, subprocess.Popen(
             [_build.nvcc_path(), *_build.NVCC_FLAGS, f"-I{src.parent}",
              "-o", str(out), str(vsrc)], stdout=subprocess.PIPE,
@@ -109,13 +159,17 @@ class Step:
         self.plan, self.cp, self.cn, _ = ops._resolve_padded(
             ops.plan_data(x.to(dt), self.params), c, None)
         self.dt = dt
-        self.half = _build.HALF_KINDS[str(dt).replace("torch.", "")]
+        # the dtype code of the 2-byte entry points; None: the f32 ones
+        self.half = _build.HALF_KINDS.get(str(dt).replace("torch.", ""))
         mp, fp = self.plan.xp.shape
         kp, bm = self.cp.shape[0], self.params.block_m
         nt = mp // bm
         self.mp, self.fp, self.kp, self.bm, self.nt = mp, fp, kp, bm, nt
         self.factor = ops.threshold_factor(fp, dt)
-        self.cenc = daft.encode_centroids(self.cp)
+        if self.half is None:    # f32: the pre-pass's ct and encodings
+            self.ct, self.cenc = da.prep_centroids(self.cp, encodings=True)
+        else:
+            self.cenc = daft.encode_centroids(self.cp)
         f32, i32 = dict(dtype=torch.float32, device="cuda"), dict(
             dtype=torch.int32, device="cuda")
         self.mind = torch.empty(mp, **f32)
@@ -138,6 +192,9 @@ class Step:
         if inj is None:
             inj = (daft if kind == "assign_ft" else llft).no_injection()
             inj = inj.cuda()
+        if self.half is None:
+            self.run_f32(lib, kind, inj, factor)
+            return
         if kind == "assign":
             err = lib.lib.fk_distance_argmin_lp(
                 x.data_ptr(), c.data_ptr(), cn.data_ptr(),
@@ -166,6 +223,42 @@ class Step:
         if err:
             raise RuntimeError(f"{kind}: CUDA error {err}")
 
+    def run_f32(self, lib, kind: str, inj, factor: float) -> None:
+        x, c, cn = self.plan.xp, self.ct, self.cn
+        s, bf = _build.stream_of(x), self.params.block_f
+        args = (self.mp, self.kp, self.fp, self.bm, bf, s)
+        if kind in ("lloyd", "lloyd_ft"):
+            self.idx.fill_(-1)
+            self.spare.fill_(-1)
+        if kind == "assign":
+            err = lib.lib.fk_distance_argmin(
+                x.data_ptr(), c.data_ptr(), cn.data_ptr(),
+                self.mind.data_ptr(), self.am.data_ptr(), *args)
+        elif kind == "lloyd":
+            err = lib.lib.fk_lloyd_step(
+                x.data_ptr(), c.data_ptr(), cn.data_ptr(),
+                self.mind.data_ptr(), self.am.data_ptr(),
+                self.entries.data_ptr(), self.ecnt.data_ptr(),
+                self.idx.data_ptr(), self.plan.m, *args)
+        elif kind == "assign_ft":
+            err = lib.lib.fk_distance_argmin_ft(
+                x.data_ptr(), c.data_ptr(), cn.data_ptr(),
+                self.cenc.data_ptr(), inj.data_ptr(), self.mind.data_ptr(),
+                self.am.data_ptr(),
+                self.det.data_ptr(), None, factor, *args)
+        else:
+            err = lib.lib.fk_lloyd_step_ft(
+                x.data_ptr(), c.data_ptr(), cn.data_ptr(),
+                self.cenc.data_ptr(), inj.data_ptr(), self.mind.data_ptr(),
+                self.am.data_ptr(),
+                self.det.data_ptr(), None, self.entries.data_ptr(),
+                self.ecnt.data_ptr(), self.idx.data_ptr(),
+                self.ekey.data_ptr(), self.spare.data_ptr(),
+                self.ucheck.data_ptr(), self.ccheck.data_ptr(), factor,
+                self.plan.m, *args)
+        if err:
+            raise RuntimeError(f"f32 {kind}: CUDA error {err}")
+
 
 def event_ms(fn, reps: int) -> float:
     start = torch.cuda.Event(enable_timing=True)
@@ -178,13 +271,14 @@ def event_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def interleaved_ms(step: Step, libs: dict, rounds: int, reps: int) -> dict:
+def interleaved_ms(step: Step, libs: dict, rounds: int, reps: int,
+                   kinds=("assign", "assign_ft", "lloyd_ft")) -> dict:
     """Each (variant, launch)'s ms: the median over ``rounds`` rounds, each
-    timing every variant's three launches in turn (one warm-up each)."""
+    timing every variant's launches in turn (one warm-up each)."""
     times: dict = {}
     for _ in range(rounds):
         for name, lib in libs.items():
-            for kind in ("assign", "assign_ft", "lloyd_ft"):
+            for kind in kinds:
                 step.run(lib, kind)
                 times.setdefault(f"{name}/{kind}", []).append(
                     event_ms(lambda: step.run(lib, kind), reps))
@@ -231,17 +325,84 @@ def ft_ptxas(log: str) -> dict:
     return out
 
 
+def f32_ptxas(log: str) -> dict:
+    """ptxas' registers and spills of each f32 tile kernel."""
+    out, name = {}, None
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            name = None
+            if "17lloyd_tile_kernel" in ln:
+                name = ln.split("17lloyd_tile_kernel")[1].split("EEv")[0]
+        elif name and ("registers" in ln or "spill" in ln):
+            out.setdefault(name, []).append(ln.split(":", 1)[-1].strip())
+    return out
+
+
+def main_f32(args, libs: dict, emit) -> None:
+    """The f32 split: each variant's four launches, interleaved (the
+    pre-pass runs once, outside the timed launches)."""
+    emit({"device": torch.cuda.get_device_name(0),
+          "build_s": max(lib.build_seconds for lib in libs.values()),
+          "ptxas": {name: f32_ptxas(lib.ptxas_log)
+                    for name, lib in libs.items()},
+          "blocks_per_sm": {f"bm{bm}_ft{ft}_upd{u}": da.tile_resources(
+              bm, bool(ft), u, F) for bm in (64, 128)
+              for ft, u in ((0, 0), (0, 2), (0, 1), (1, 0), (1, 2))}})
+    x_np, _ = make_blobs(M, F, K, seed=0)
+    x = torch.from_numpy(x_np).cuda()
+    del x_np
+    gen = torch.Generator().manual_seed(0)
+    c = x[torch.randperm(M, generator=gen)[:K].cuda()]
+    step = Step(x, c, torch.float32)
+    full = libs["full"]
+    plain_labels = outcome(step, full, "assign")[0]
+    fault = ops.plan_injection_tile(M, K, F, step.params, row=M // 3,
+                                    col=K - 3, f_step=1,
+                                    delta=2.0 ** 20).cuda()
+    det = {}
+    for kind, inj in (("assign_ft", None), ("assign_ft", fault),
+                      ("lloyd_ft", None)):
+        labels, n = outcome(step, full, kind, inj)
+        det[f"{kind}{'_fault' if inj is not None else ''}"] = {
+            "labels_equal_unprotected": bool(torch.equal(labels,
+                                                         plain_labels)),
+            "det": n}
+    # the SM clock and power while the launches run (nvidia-smi every
+    # 100 ms): the FMA bound's rate depends on the clock the card holds
+    smi = subprocess.Popen(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,power.draw",
+         "--format=csv,noheader,nounits", "-lms", "100"],
+        stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+    try:
+        ms = interleaved_ms(step, libs, args.rounds, args.reps,
+                            ("assign", "lloyd", "assign_ft", "lloyd_ft"))
+    finally:
+        smi.terminate()
+        samples = smi.communicate()[0].strip().splitlines()
+    clocks = [[float(v) for v in ln.split(",")] for ln in samples
+              if ln.count(",") == 2]
+    emit({"dtype": "float32", "m": M, "f": F, "k": K, "full": det,
+          "sm_clock_mhz": statistics.median([r[0] for r in clocks])
+          if clocks else None,
+          "sm_clock_max_mhz": clocks[0][1] if clocks else None,
+          "power_w": statistics.median([r[2] for r in clocks])
+          if clocks else None,
+          "ms": ms})
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=str(_build.BUILD_DIR / "lloyd_profile"))
     ap.add_argument("--rounds", type=int, default=5)
     ap.add_argument("--reps", type=int, default=5)
+    ap.add_argument("--f32", action="store_true",
+                    help="the f32 kernel's split instead of the 2-byte one")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA card")
     out = Path(args.out)
     out.mkdir(parents=True, exist_ok=True)
-    libs = build_variants()
+    libs = build_variants(args.f32)
     # the port's own library is the full variant: same source and flags
     _build._LIBS["fk_kernels"] = libs["full"]
     results = []
@@ -249,6 +410,11 @@ def main(argv=None) -> int:
     def emit(rec: dict) -> None:
         results.append(rec)
         print(json.dumps(rec), flush=True)
+
+    if args.f32:
+        main_f32(args, libs, emit)
+        (out / "results.json").write_text(json.dumps(results, indent=1))
+        return 0
 
     emit({"device": torch.cuda.get_device_name(0),
           "build_s": max(lib.build_seconds for lib in libs.values()),
