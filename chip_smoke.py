@@ -21,7 +21,9 @@ Phases, one line each:
 
   1. device: the card, its power limit, the kernels' build time, ptxas
      lines, and each f32 tile kernel instantiation's registers, spill
-     bytes and resident blocks an SM (two blocks at BM = 128);
+     bytes and resident blocks an SM (two blocks at BM = 128); the same of
+     the int8 tile kernel (s8 tensor cores) at Fp 128 and 1024, and ptxas'
+     registers and spills of the 2-byte batched step's entries variant;
   2. kernels vs their plain PyTorch versions (TF32 off) at M = 65,573,
      F = 100, K = 1000 and 100, and F = 300 (Fp = 320), K = 1000, plus
      planted FT faults; the one-pass
@@ -79,8 +81,10 @@ Phases, one line each:
      (every sum exact, so labels, sums, counts bitwise), the all-zero mask
      against ``lloyd_step`` bitwise (its partials' tree against the tree
      over the entries), int8 on float data bitwise against its
-     plain version (exact integer products on both sides) and on
-     quantisation-safe data against ``distance_argmin``;
+     plain version (exact integer products on both sides) at row tiles of
+     128 and 64, also at F = 300 (X stashed, three chunks) and F = 1000
+     (X's chunks streamed), and on quantisation-safe data against
+     ``distance_argmin``;
   9. at the phase-3 shape: ``lloyd_pruned`` fits bitwise equal to ``lloyd``
      fits with rows in random order (prune fraction near 0: the
      bookkeeping's cost) and sorted by generating label from the first row
@@ -89,7 +93,7 @@ Phases, one line each:
      inertia is at most 5 % above the ``fused`` fit's, one from the blob
      centres within 5 % of it, predict and score, and the exact inertia of
      int8 and ``fused`` fits from four more k-means++ seeds; the two
-     kernels' rows;
+     kernels' rows and the int8 kernel's share of its bound;
  10. ``FaultPolicy.detect()`` (offline ABFT, backend ``abft_offline``) fit,
      predict and score from phase 3's seeds at the phase-3 shape: ms/iter
      beside ``fused`` and ``lloyd_ft``, labels against the ``fused`` fit
@@ -144,8 +148,11 @@ Phases, one line each:
      margins of the two FT kernels at f32, bf16 and fp16 with the
      campaign's smallest delta against the thresholds.
  14. the rest of the 2-byte variants, at bf16 and fp16: (a) the batched
-     step (B = 7, N = 10,007, F = 20, K = 200 and 100; its partials' tree
-     bit for bit the ``movedim`` route), the pruned step (a
+     step (B = 7, N = 10,007, F = 20, K = 200 and 100; each problem's
+     entries, labels and sums bit for bit ``lloyd_step`` on that problem
+     alone, and the tree over all problems' entries bit for bit the dense
+     route, ``tile_update`` per problem then the tree, with a perturbed
+     entry as the control), the pruned step (a
      random mask on integer data; the all-zero mask bit for bit the 2-byte
      ``lloyd_step``) and the 2-byte ABFT GEMM (clean, a fault over the
      dtype's threshold, one under it, two launches bitwise equal, its
@@ -155,15 +162,19 @@ Phases, one line each:
      the fp16 bars with failing controls, through ``attend`` and the op;
      (b) ``BatchedKMeans`` at the PQ shape, 25 steps at tol = 0 bit for bit
      48 single-problem 2-byte ``lloyd`` fits from the same seeds, predict
-     and score; (c) ``lloyd_pruned`` at the phase-3 shape with rows sorted
-     by label, bit for bit the 2-byte ``lloyd`` fit (prune fraction,
+     and score, no dense launch (entries and the sparse tree only) and the
+     fit's peak memory; (c) ``lloyd_pruned`` at the phase-3 shape with rows
+     sorted by label, bit for bit the 2-byte ``lloyd`` fit (prune fraction,
      ms/iter); (d) ``FaultPolicy.detect()`` from phase 3's seeds (ms/iter,
      detections, labels against the same dtype's ``fused`` fit, the exact
      inertia of its centroids at most 5 % above that fit's) and the
      2-byte ABFT GEMM at phase 10's shapes (clean, a planted fault found
      and corrected, one under the threshold let through; launches of the
      GEMM and of its encodings pre-pass);
-     (e) the rows of the new kernels.
+     (e) the rows of the new kernels; the batched step's at the PQ shape
+     with the entries-vs-dense control, the tree over its entries timed
+     apart and the step's peak memory past X beside the dense blocks the
+     entries replace.
 
 A kernel's bound counts the work of the function at the true M, K and F,
 not at the padded tile grid; the padded figures are printed beside it.
@@ -186,6 +197,7 @@ ROOT = Path(__file__).resolve().parent
 M_FULL, F_FULL, K_FULL = 1_048_576, 128, 1000
 M_SMALL, F_SMALL = 65_573, 100
 F_WIDE = 300                    # phase 2's third shape: Fp = 320
+F_INT8_WIDE = 1000              # phase 8: the int8 kernel with X streamed
 ITERS = 10
 SEED = 0
 B_PQ, N_PQ, F_PQ, K_PQ = 48, 65_536, 16, 256
@@ -337,30 +349,58 @@ def wall(fn):
     return out, time.perf_counter() - t0
 
 
+def ptxas_of(log: str, pattern: str, name) -> dict:
+    """ptxas' registers and spill bytes of each kernel of the build log
+    whose mangled name matches ``pattern``, keyed by ``name(match)``."""
+    import re
+    ptx, key = {}, None
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            m = re.search(pattern, ln)
+            key = name(m) if m else None
+        elif key and "registers" in ln:
+            ptx.setdefault(key, {})["ptxas_registers"] = int(
+                re.search(r"Used (\d+) registers", ln)[1])
+        elif key and "spill" in ln:
+            ptx.setdefault(key, {})["spill_bytes"] = sum(
+                int(v) for v in re.findall(r"(\d+) bytes spill", ln))
+    return ptx
+
+
 def f32_tile_resources(da, log: str) -> dict:
     """Every f32 ``lloyd_tile_kernel`` instantiation (BM 64 / 128 x the
     five (FT, update) rows): ptxas' registers and spill bytes from the
     build log, and the runtime's registers, local bytes, shared bytes and
     resident blocks an SM at Fp = 128 (``distance_argmin.tile_resources``,
     ``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)."""
-    import re
-    ptx, name = {}, None
-    for ln in log.splitlines():
-        if "Compiling entry function" in ln:
-            m = re.search(r"17lloyd_tile_kernelILi(\d+)ELb(\d)ELi(\d)E", ln)
-            name = f"bm{m[1]}_ft{m[2]}_upd{m[3]}" if m else None
-        elif name and "registers" in ln:
-            ptx.setdefault(name, {})["ptxas_registers"] = int(
-                re.search(r"Used (\d+) registers", ln)[1])
-        elif name and "spill" in ln:
-            ptx.setdefault(name, {})["spill_bytes"] = sum(
-                int(v) for v in re.findall(r"(\d+) bytes spill", ln))
+    ptx = ptxas_of(log, r"17lloyd_tile_kernelILi(\d+)ELb(\d)ELi(\d)E",
+                   lambda m: f"bm{m[1]}_ft{m[2]}_upd{m[3]}")
     out = {}
     for bm in (64, 128):
         for ft, upd in ((0, 0), (0, 2), (0, 1), (1, 0), (1, 2)):
             name = f"bm{bm}_ft{ft}_upd{upd}"
             out[name] = {**ptx.get(name, {"spill_bytes": -1}),
                          **da.tile_resources(bm, bool(ft), upd, 128)}
+    return out
+
+
+def redesigned_resources(dai, log: str) -> dict:
+    """The tensor-core int8 kernel, ``int8_tile_kernel<BM>`` (ptxas'
+    registers and spills, and the runtime's at Fp = 128, the main path's,
+    and 1024, where X streams), and the 2-byte batched step's entries
+    variant, ``lloyd_tile_mma_kernel<T, BM, false, kBatchedEntries>``
+    (ptxas)."""
+    int8 = ptxas_of(log, r"16int8_tile_kernelILi(\d+)E",
+                    lambda m: f"bm{m[1]}")
+    out = {"int8_tile_kernel": {
+        name: {**int8.get(name, {"spill_bytes": -1}),
+               **{f"fp{fp}": dai.resources(int(name[2:]), fp)
+                  for fp in (128, 1024)}}
+        for name in ("bm64", "bm128")}}
+    out["lloyd_tile_mma_kernel_batched_entries"] = ptxas_of(
+        log, r"21lloyd_tile_mma_kernelI(13__nv_bfloat16|6__half)Li(\d+)"
+             r"ELb0ELi3E",
+        lambda m: f"{'bf16' if 'bfloat' in m[1] else 'fp16'}_bm{m[2]}")
     return out
 
 
@@ -460,13 +500,12 @@ def check_update_route(torch, up, ll, xp, amp, kp: int, true_m: int,
             "entries_err": err, "bitwise": True, "control_broke": broke}
 
 
-def check_tree_batched(torch, up, sums, counts, what: str,
-                       order_matters: bool = True) -> None:
-    """The tree kernel over a stack's partials (P, T, Kp, Fp) at the problem
-    stride, bit for bit the parent's ``movedim`` route. Control: problem
-    0's first and last tiles swapped, where the kernel must give the torch
-    tree's bits on the swapped tiles and, where ``order_matters``, other
-    bits than before."""
+def check_tree_batched(torch, up, sums, counts, what: str) -> None:
+    """The tree kernel over a stack's f32 partials (P, T, Kp, Fp) at the
+    problem stride, bit for bit the parent's ``movedim`` route. Control:
+    problem 0's first and last tiles swapped, where the kernel must give
+    the torch tree's bits on the swapped tiles and other bits than
+    before."""
     want = (up.tree_sum_plain(sums.movedim(1, 0)),
             up.tree_sum_plain(counts.movedim(1, 0)))
     got = (up.tree_sum(sums, 1), up.tree_sum(counts, 1))
@@ -480,8 +519,70 @@ def check_tree_batched(torch, up, sums, counts, what: str,
         expect(bool(torch.equal(up.tree_sum(swapped, 1)[0], ref_swapped)),
                f"{what}: on two tiles swapped the strided tree is not the "
                f"torch tree's bits")
-        expect(not order_matters or not torch.equal(ref_swapped, want[0][0]),
+        expect(not torch.equal(ref_swapped, want[0][0]),
                f"{what}: two tiles swapped kept the bits")
+
+
+def batched_sums(up, out, bm: int) -> tuple:
+    """(sums (B, Kp, Fp), counts (B, Kp)) of the 2-byte batched step's
+    entries (min, argmin, entries, ecnt, idx): one tree over B Kp rows."""
+    nb, mp = out[1].shape
+    sums, counts = up.reduce_entries(out[2], out[3], out[4], ntiles=mp // bm)
+    return sums.view(nb, -1, sums.shape[1]), counts.view(nb, -1)
+
+
+def same_problem(torch, up, got, i: int, one, bm: int, what: str) -> None:
+    """Problem i of the 2-byte batched step's entries bit for bit
+    ``lloyd_step``'s ``one`` on that problem alone: distances, labels, idx
+    (at the problem's rows, shifted by its entry rows), the present
+    entries and the tree's sums."""
+    mp, kp = got[1].shape[1], one[4].shape[0]
+    idx = got[4][i * kp:(i + 1) * kp]
+    rows = one[4][one[4] >= 0].long()
+    sums, counts = batched_sums(up, got, bm)
+    expect(bool(torch.equal(got[0][i], one[0]))
+           and bool(torch.equal(got[1][i], one[1]))
+           and bool(torch.equal(idx, torch.where(one[4] >= 0,
+                                                 one[4] + i * mp, -1)))
+           and bool(torch.equal(got[2][rows + i * mp], one[2][rows]))
+           and bool(torch.equal(got[3][rows + i * mp], one[3][rows]))
+           and all(bool(torch.equal(g, w)) for g, w in zip(
+               (sums[i], counts[i]), entry_sums(up, one, bm))),
+           f"{what} is not bit for bit lloyd_step")
+
+
+def batched_entries_control(torch, up, ll, xp, got, kp: int, true_m: int,
+                            bm: int, what: str) -> dict:
+    """The 2-byte batched step's entries and their tree bit for bit the
+    dense route on the kernel's own labels: ``update_tiles_kernel``
+    (``ll.tile_update``) per problem, then the tree kernel's dense variant
+    at the problem stride. Control: one present entry of problem 0 plus
+    1.0 must change that cluster's sum and nothing else."""
+    nb, mp, fp = xp.shape
+    nt = mp // bm
+    sums_p = torch.empty((nb, nt, kp, fp), device=xp.device)
+    counts_p = torch.empty((nb, nt, kp), device=xp.device)
+    for i in range(nb):
+        ll.tile_update(xp[i], got[1][i], sums_p[i], counts_p[i],
+                       true_m=true_m, block_m=bm)
+    want = (up.tree_sum(sums_p, 1), up.tree_sum(counts_p, 1))
+    sums = batched_sums(up, got, bm)
+    expect(all(bool(torch.equal(g, w)) for g, w in zip(sums, want)),
+           f"{what}: the batched entries' tree is not bit for bit the dense "
+           f"route")
+    per_k = (got[4][:kp] >= 0).sum(1)
+    busy = int(per_k.argmax())
+    row = int(got[4][busy][got[4][busy] >= 0][0])
+    moved = got[2].clone()
+    moved[row, 0] += 1.0
+    msums = batched_sums(up, (got[0], got[1], moved, got[3], got[4]), bm)[0]
+    other = torch.ones(nb, kp, dtype=torch.bool, device=xp.device)
+    other[0, busy] = False
+    expect(not torch.equal(msums[0, busy], sums[0][0, busy])
+           and bool(torch.equal(msums[other], sums[0][other])),
+           f"{what}: a perturbed entry did not move its cluster's sum alone")
+    return {"present_entries": int((got[4] >= 0).sum()),
+            "entries_vs_dense_bitwise": True, "control_broke": True}
 
 
 def entry_sums(up, out, bm: int) -> tuple:
@@ -1372,14 +1473,11 @@ def phase_pruned_int8_kernels(torch, ops, ll, llp, dai) -> dict:
                f"lloyd_step_pruned tmin or labels vs plain, no skips K={k}")
         del got, one, want
 
-        # int8 on float data: exact integer products on both sides
+        # int8 on float data: exact integer products on both sides, at
+        # both row tiles
         qplan, cq, sc, cn8, _ = ops._resolve_padded_int8(x, c, params)
-        got = dai.distance_argmin_int8(qplan.xq, cq, qplan.sx, sc, cn8, **tiles)
-        want = dai.distance_argmin_int8_plain(qplan.xq, cq, qplan.sx, sc, cn8)
-        rec["int8_min_err"] = max_err(got[0], want[0])
-        expect(bool(torch.equal(got[0], want[0]))
-               and bool(torch.equal(got[1], want[1])),
-               f"distance_argmin_int8 vs plain is not bitwise K={k}")
+        rec["int8_min_err"] = check_int8_bitwise(
+            torch, dai, qplan, cq, sc, cn8, bk, params.block_f, f"K={k}")
         # quantisation-safe data: bit for bit distance_argmin
         xs, cs = safe_rows(torch, M_SMALL, F_SMALL, SEED + k), \
             safe_rows(torch, k, F_SMALL, SEED + k + 1)
@@ -1389,9 +1487,44 @@ def phase_pruned_int8_kernels(torch, ops, ll, llp, dai) -> dict:
                f"distance_argmin_int8 on safe data is not distance_argmin "
                f"K={k}")
         out["shapes"].append(rec)
-        del x, plan, qplan, got, want, xs, cs
+        del x, plan, qplan, xs, cs
+        torch.cuda.empty_cache()
+    # the int8 kernel at more feature chunks: F 300 (Fp 320: X's row tile
+    # stashed, three chunks, the last of 64) and F 1000 (Fp 1024: X's
+    # chunks stream with C's, its row tile past the 48 KB stash)
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 8)
+    out["int8_wide"] = []
+    for f in (F_WIDE, F_INT8_WIDE):
+        k = 1000
+        params = ops.clamp_params(M_SMALL, k, f, ops.DEFAULT_PARAMS)
+        x = torch.randn(M_SMALL, f, generator=gen, device=DEV)
+        c = torch.randn(k, f, generator=gen, device=DEV)
+        qplan, cq, sc, cn8, _ = ops._resolve_padded_int8(x, c, params)
+        out["int8_wide"].append({"f": f, "k": k, "fp": qplan.xq.shape[1],
+                                 "min_err": check_int8_bitwise(
+                                     torch, dai, qplan, cq, sc, cn8,
+                                     params.block_k, params.block_f,
+                                     f"F={f}")})
+        del x, c, qplan, cq, sc, cn8
         torch.cuda.empty_cache()
     return out
+
+
+def check_int8_bitwise(torch, dai, qplan, cq, sc, cn8, bk: int, bf: int,
+                       what: str) -> float:
+    """The int8 kernel at row tiles of 128 and 64 bit for bit its plain
+    version; returns the largest |min - plain min| (0)."""
+    want = dai.distance_argmin_int8_plain(qplan.xq, cq, qplan.sx, sc, cn8)
+    err = 0.0
+    for bm in (128, 64):
+        got = dai.distance_argmin_int8(qplan.xq, cq, qplan.sx, sc, cn8,
+                                       block_m=bm, block_k=bk, block_f=bf)
+        err = max(err, max_err(got[0], want[0]))
+        expect(bool(torch.equal(got[0], want[0]))
+               and bool(torch.equal(got[1], want[1])),
+               f"distance_argmin_int8 (BM {bm}) vs plain is not bitwise "
+               f"{what}")
+    return err
 
 
 def phase_pruned_int8_fits(torch, ops, hw, llp, dai, KMeans, x, labels_true,
@@ -1605,11 +1738,13 @@ def phase_pruned_int8_fits(torch, ops, hw, llp, dai, KMeans, x, labels_true,
     rec["bound_padded_ms"]["distance_argmin_int8"] = bound(
         2.0 * mp * kp * fp, mp * fp + 12.0 * mp + kp * fp + 8.0 * kp,
         peak=hw.PEAK_OPS_INT8)[0]
+    i8_ms = cuda_ms(int8, reps=20)
+    rec["int8_bound_share"] = b_ms / i8_ms
     rows.append({"name": "distance_argmin_int8", "route": "cuda",
                  "source": "src/repro_torch/csrc/fk_kernels.cu",
                  "replaces": "src/repro/kernels/distance_argmin_int8.py:123",
                  "launches": launches["distance_argmin_int8"],
-                 "max_abs_err": i8_err, "ms": cuda_ms(int8, reps=20),
+                 "max_abs_err": i8_err, "ms": i8_ms,
                  "plain_ms": cuda_ms(int8_plain, reps=2),
                  "bound_ms": b_ms, "bound_by": b_by,
                  "library_ms": cuda_ms(int8_library)})
@@ -3088,36 +3223,23 @@ def phase_lowp_rest_kernels(torch, ops, ll, llp, mma, dtype) -> dict:
             ops.plan_data_batched(x.to(dt), params), c, None)
         tiles = dict(block_m=params.block_m, block_k=params.block_k,
                      block_f=params.block_f)
-        _, np_, fp = plan.xp.shape
         kp, bm = cp.shape[1], params.block_m
-        nt = np_ // bm
         rec = {"b": b, "n": n, "f": f, "k": k, "tol_rel": 1e-5}
-        got = ll.lloyd_step_batched(plan.xp, cp, cn, n, **tiles)
+        got = ll.lloyd_step_batched_entries(plan.xp, cp, cn, n, **tiles)
         want = ll.lloyd_step_batched_plain(plan.xp, cp, cn, n, bm)
         ok, rec["min_err"] = rel_ok(got[0], want[0], 1e-5)
         expect(ok, f"{dtype} lloyd_step_batched distances vs plain {rec}")
-        valid = (torch.arange(np_, device=x.device) < n).view(nt, bm)
-        near, s_err = 0, 0.0
+        near = 0
         for i in range(b):
             near += near_tie_rows(torch, plan.xp[i], cp[i], cn[i], got[1][i],
                                   want[1][i], f"{dtype} lloyd_step_batched "
                                   f"problem {i} K={k}")
-            # sums against the plain update of the kernel's own labels
-            s_p, c_p = ll.tile_update_plain(plan.xp[i].view(nt, bm, fp),
-                                            got[1][i].view(nt, bm), valid, kp)
-            ok, e = rel_ok(got[2][i], s_p, 1e-5)
-            expect(ok and bool(torch.equal(got[3][i], c_p)),
-                   f"{dtype} lloyd_step_batched problem {i} sums/counts vs "
-                   f"the plain update K={k}")
-            s_err = max(s_err, e)
             one = ll.lloyd_step(plan.xp[i], cp[i], cn[i], n, **tiles)
-            same_step(torch, up, [g[i] for g in got], one, bm,
-                      f"{dtype} batched problem {i} K={k}")
-        check_tree_batched(torch, up, got[2], got[3],
-                           f"{dtype} batched partials K={k}",
-                           order_matters=False)
-        rec.update(near_tie_labels=near, sums_err=s_err,
-                   tree_bitwise_movedim=True)
+            same_problem(torch, up, got, i, one, bm,
+                         f"{dtype} batched problem {i} K={k}")
+        rec.update(near_tie_labels=near,
+                   **batched_entries_control(torch, up, ll, plan.xp, got, kp,
+                                             n, bm, f"{dtype} K={k}"))
         out["batched"].append(rec)
         del x, c, plan, got, want, one
         torch.cuda.empty_cache()
@@ -3369,6 +3491,7 @@ def phase_lowp_rest(torch, ops, hw, ll, llp, mma, fa, attn, KMeans,
     Each path's launches are counted from zero just before it runs."""
     import torch.nn.functional as F
     from repro_torch.core.kmeans import means_from_sums
+    from repro_torch.kernels import update as up
     rec = {"phase": 14}
     rows = []
     rec_f, rows_f = phase_flash_fp16(torch, fa, attn, hw)
@@ -3398,17 +3521,26 @@ def phase_lowp_rest(torch, ops, hw, ll, llp, mma, fa, attn, KMeans,
         dt = getattr(torch, dtype)
         r = {"kernels": phase_lowp_rest_kernels(torch, ops, ll, llp, mma,
                                                 dtype)}
-        # --- (b) BatchedKMeans at the PQ shape
+        # --- (b) BatchedKMeans at the PQ shape: the entries route and the
+        # tree over them, with no dense launch
+        ll.lloyd_step_batched_entries.launches = 0
         ll.lloyd_step_batched.launches = 0
+        up.tree_reduce.kernel_launches.update(sparse=0, dense=0)
         bkm, fit_s = wall(lambda: BatchedKMeans(
             max_iter=PQ_ITERS, tol=0.0, compute_dtype=dtype, **pq_base)
             .fit(xq, centroids=seeds))
         labels = bkm.predict(xq)
         score = bkm.score(xq)
         torch.cuda.synchronize()
-        launches_b = ll.lloyd_step_batched.launches
-        expect(launches_b > 0, f"{dtype} lloyd_step_batched was not launched "
-               f"on the batched path")
+        launches_b = ll.lloyd_step_batched_entries.launches
+        tree_kinds = dict(up.tree_reduce.kernel_launches)
+        expect(launches_b > 0 and ll.lloyd_step_batched.launches == 0
+               and tree_kinds["sparse"] > 0 and tree_kinds["dense"] == 0,
+               f"{dtype} batched path: {launches_b} entries launches, "
+               f"{ll.lloyd_step_batched.launches} dense, trees {tree_kinds}")
+        fit_peak = peak_gb(lambda: BatchedKMeans(
+            max_iter=2, tol=0.0, compute_dtype=dtype, **pq_base)
+            .fit(xq, centroids=seeds))
         singles = []
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -3438,7 +3570,9 @@ def phase_lowp_rest(torch, ops, hw, ll, llp, mma, fa, attn, KMeans,
                         "singles_bitwise": B_PQ,
                         "score_sum": float(score.sum()),
                         "n_host_syncs": bkm._n_host_syncs,
-                        "launches": launches_b}
+                        "launches": launches_b,
+                        "tree_reduce_variants": tree_kinds,
+                        "fit_peak_gb_past_x": fit_peak}
         del singles, bkm, labels
         torch.cuda.empty_cache()
         # --- (c) lloyd_pruned at the phase-3 shape, rows sorted by label
@@ -3541,47 +3675,86 @@ def phase_lowp_rest(torch, ops, hw, ll, llp, mma, fa, attn, KMeans,
         cn_lo = cn.to(dt)
 
         def batched():
-            return ll.lloyd_step_batched(plan.xp, cp, cn, N_PQ, **pq_tiles)
+            return ll.lloyd_step_batched_entries(plan.xp, cp, cn, N_PQ,
+                                                 **pq_tiles)
 
         def batched_plain():
             return ll.lloyd_step_batched_plain(plan.xp, cp, cn, N_PQ,
                                                pq_params.block_m)
         # labels against the plain version's but for near ties, distances
-        # to rtol 1e-5, sums against the plain update of the kernel's own
-        # labels
+        # to rtol 1e-5, the entries' tree bit for bit the dense route on the
+        # kernel's own labels (with its control), sums to rtol 1e-5 of the
+        # plain version's on its labels
         k_out, p_out = batched(), batched_plain()
         ok, b_err = rel_ok(k_out[0], p_out[0], 1e-5)
         expect(ok, f"{dtype} lloyd_step_batched distances vs plain at the "
                f"PQ shape")
-        valid = (torch.arange(np_, device=x.device) < N_PQ).view(
-            nt, pq_params.block_m)
         near = 0
         for i in range(b_):
             near += near_tie_rows(torch, plan.xp[i], cp[i], cn[i],
                                   k_out[1][i], p_out[1][i],
                                   f"{dtype} lloyd_step_batched problem {i} "
                                   f"at the PQ shape")
+        ctl = batched_entries_control(torch, up, ll, plan.xp, k_out,
+                                      cp.shape[1], N_PQ, pq_params.block_m,
+                                      f"{dtype} at the PQ shape")
+        sums, counts = batched_sums(up, k_out, pq_params.block_m)
+        valid = (torch.arange(np_, device=x.device) < N_PQ).view(
+            nt, pq_params.block_m)
+        for i in range(b_):
             s_p, c_p = ll.tile_update_plain(
                 plan.xp[i].view(nt, pq_params.block_m, fp),
                 k_out[1][i].view(nt, pq_params.block_m), valid, cp.shape[1])
-            ok, e = rel_ok(k_out[2][i], s_p, 1e-5)
-            expect(ok and bool(torch.equal(k_out[3][i], c_p)),
+            ok, e = rel_ok(sums[i], s_p.sum(0), 1e-5)
+            expect(ok and bool(torch.equal(counts[i], c_p.sum(0))),
                    f"{dtype} lloyd_step_batched problem {i} sums/counts vs "
                    f"the plain update at the PQ shape")
             b_err = max(b_err, e)
-        r["batched"]["near_tie_labels_row"] = near
-        del k_out, p_out, s_p, c_p, valid
+        present = ctl["present_entries"]
+        r["batched"].update(near_tie_labels_row=near,
+                            entries_vs_dense=ctl)
+        del p_out, s_p, c_p, valid, sums, counts
+        # the step's peak past X: the entries route against the dense
+        # blocks the parent wrote, (B, T, Kp, Fp) + (B, T, Kp) f32
+        kp_pq = cp.shape[1]
+        r["batched"]["step_peak_gb_past_x"] = peak_gb(batched)
+        r["batched"]["dense_partials_gb"] = 4.0 * b_ * nt * kp_pq * (
+            fp + 1) / 1e9
+        # the kernel and the tree over its entries, timed apart
+        entries, ecnt, idx = k_out[2:]
+        del k_out
+
+        def tree():
+            return up.reduce_entries(entries, ecnt, idx, ntiles=nt)
+        lev = 1 << up.tree_levels(nt)
+        t_ms, t_by = bound(float(present) * (F_PQ + 1),
+                           4.0 * (present * (F_PQ + 1) + B_PQ * K_PQ * lev
+                                  + B_PQ * K_PQ * (F_PQ + 1)))
+        r["batched"]["tree_over_entries"] = {
+            "ms": cuda_ms(tree, reps=20), "bound_ms": t_ms, "bound_by": t_by,
+            "present_entries": present,
+            "present_per_tile": present / (b_ * nt)}
+        del entries, ecnt, idx
+        # the bound: 2-byte X and C read once, the labels and minima
+        # written, the present entries and their counts written, idx
+        # written (the true K; padded figures beside); the GEMM at the true
+        # K and F on the 2-byte tensor cores
         bq = float(B_PQ)
         b_ms, b_by = bound(
             2.0 * bq * N_PQ * K_PQ * F_PQ + bq * N_PQ * F_PQ,
             2.0 * bq * (N_PQ + K_PQ) * F_PQ + 4.0 * bq * K_PQ
-            + 8.0 * bq * N_PQ + 4.0 * bq * nt * K_PQ * (F_PQ + 1),
+            + 8.0 * bq * N_PQ + 4.0 * present * (F_PQ + 1)
+            + 4.0 * bq * K_PQ * lev,
             peak=hw.PEAK_FLOPS_BF16)
+        b_ms_ = cuda_ms(batched, reps=20)
+        r["batched"]["kernel_ms"] = b_ms_
+        r["batched"]["kernel_and_tree_ms"] = (
+            b_ms_ + r["batched"]["tree_over_entries"]["ms"])
         rows.append({"name": f"lloyd_step_batched_{tag}", "route": "cuda",
                      "source": "src/repro_torch/csrc/fk_kernels.cu",
                      "replaces": "src/repro/kernels/lloyd_step.py:278",
                      "launches": launches_b, "max_abs_err": b_err,
-                     "ms": cuda_ms(batched, reps=20),
+                     "ms": b_ms_,
                      "plain_ms": cuda_ms(batched_plain, reps=3),
                      "bound_ms": b_ms, "bound_by": b_by,
                      "library_ms": cuda_ms(lambda: torch.baddbmm(
@@ -3733,12 +3906,13 @@ def main() -> int:
              if "registers" in ln or "spill" in ln
              or "Compiling entry function" in ln or "C75" in ln]
     f32_tiles = f32_tile_resources(da, libs["fk_kernels"].ptxas_log)
+    redesigned = redesigned_resources(dai, libs["fk_kernels"].ptxas_log)
     emit({"phase": 1, "device": kind, "nvidia_smi": smi_line,
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "build_s": round(build_s, 3),
           "nvcc_s": {name: round(lib.build_seconds, 3)
                      for name, lib in libs.items()},
-          "f32_tile_kernel": f32_tiles, "ptxas": ptxas})
+          "f32_tile_kernel": f32_tiles, **redesigned, "ptxas": ptxas})
     for name, r in f32_tiles.items():
         expect(not name.startswith("bm128") or r["blocks_per_sm"] >= 2,
                f"f32 lloyd_tile_kernel {name}: {r['blocks_per_sm']} block(s) "

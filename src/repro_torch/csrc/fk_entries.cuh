@@ -107,13 +107,16 @@ __device__ __forceinline__ void load4(const __half* p, float* v) {
 // --- the writer ---------------------------------------------------------------
 
 // Where a launch's entries go. ntiles: the row tiles of the launch's X (the
-// tree's leaves); ekey may be null (unkeyed).
+// tree's leaves); ekey may be null (unkeyed); row0: the first entry row of
+// the launch's problem (a batched launch's problem b: b * ntiles * BM),
+// whose idx the caller has moved to the problem's rows.
 struct EntryOut {
   float* entries;
   float* ecnt;
   int* idx;
   int* ekey;
   int kp, fp, levels, ntiles;
+  size_t row0 = 0;
 };
 
 // Shared ints write_entries takes (caller-placed): key[BM], seg[BM + 1],
@@ -197,12 +200,17 @@ __device__ int write_entries(int label, const T* __restrict__ x, int t,
   if (tid == 0) seg[nseg] = nvalid;
   __syncthreads();
   const bool keyed = o.ekey != nullptr;
-  for (int fc = 0; fc < o.fp; fc += 128) {
-    const int f0 = fc + lane * 4;
+  // lanes an entry takes, 4 features a lane: where Fp is narrow a warp sums
+  // 32 / lpe entries at once, so every lane loads (the checksums' combine
+  // takes whole warps); each sum is the same whichever lane runs it
+  const int lpe = kChecks || o.fp > 64 ? 32 : o.fp > 32 ? 16 : 8;
+  const int epw = 32 / lpe, sl = lane % lpe, e0 = warp * epw + lane / lpe;
+  for (int fc = 0; fc < o.fp; fc += 4 * lpe) {
+    const int f0 = fc + sl * 4;
     float u0[4] = {0.0f, 0.0f, 0.0f, 0.0f}, u1[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-    for (int e = warp; e < nseg; e += kWarps) {
+    for (int e = e0; e < nseg; e += kWarps * epw) {
       const int lo = seg[e], hi = seg[e + 1];
-      const size_t row = size_t(m0) + e;
+      const size_t row = o.row0 + m0 + e;
       if (f0 < o.fp) {
         float s[4] = {0.0f, 0.0f, 0.0f, 0.0f};
         for (int p = lo; p < hi; ++p) {
@@ -222,7 +230,7 @@ __device__ int write_entries(int label, const T* __restrict__ x, int t,
         *reinterpret_cast<float4*>(o.entries + row * o.fp + f0) =
             make_float4(s[0], s[1], s[2], s[3]);
       }
-      if (fc == 0 && lane == 0) {
+      if (fc == 0 && sl == 0) {
         const int k = key[lo] / BM;
         o.ecnt[row] = float(hi - lo);
         o.idx[(size_t(k) << o.levels) + slot] = int(row);
@@ -230,12 +238,12 @@ __device__ int write_entries(int label, const T* __restrict__ x, int t,
       }
     }
     if (keyed) {
-      for (int e = nseg + warp; e < BM; e += kWarps) {
-        const size_t row = size_t(m0) + e;
+      for (int e = nseg + e0; e < BM; e += kWarps * epw) {
+        const size_t row = o.row0 + m0 + e;
         if (f0 < o.fp)
           *reinterpret_cast<float4*>(o.entries + row * o.fp + f0) =
               make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-        if (fc == 0 && lane == 0) {
+        if (fc == 0 && sl == 0) {
           o.ecnt[row] = 0.0f;
           o.ekey[row] = -1;
         }

@@ -15,19 +15,23 @@
 // reference's 2-byte templates): mma.sync m16n8k16 on the tensor cores with
 // f32 accumulation, its ABFT checksums on the tensor cores and in registers
 // (see the kernel), and the f32 kernel's decode, epilogues and update, for
-// every row of the table; lloyd_encode_kernel<T> is its FT rows' pre-pass.
+// every row of the table but the batched one's update, which is each
+// problem's entries (kBatchedEntries) in place of the dense blocks;
+// lloyd_encode_kernel<T> is its FT rows' pre-pass.
 //
 // The update: the single-problem one-pass steps (kEntryUpdate) write the
 // tile's entries (write_entries, fk_entries.cuh: one row per present
 // cluster, its sums, count and idx slot), the layout of the two-pass
 // update's update_entries_kernel (fk_update.cu), which reduces them with the
 // same tree kernel; O(M Fp) bytes, where the reference's dense (M/BM, Kp,
-// Fp) block is O(M Kp Fp / BM). The batched step keeps the dense block
-// (kDenseUpdate, emit_update) and is the single-problem kernel launched
-// over a (row tile, problem) grid: blockIdx.y picks the problem and moves
-// every base pointer to that problem's slab, so problem b of a batched
-// launch runs, bit for bit, the code one problem's dense launch runs. Only
-// <BM, false, kDenseUpdate> (and <T, BM, false, kDenseUpdate>) has the
+// Fp) block is O(M Kp Fp / BM). The batched step is the single-problem
+// kernel launched over a (row tile, problem) grid: blockIdx.y picks the
+// problem and moves every base pointer to that problem's slab, so problem
+// b of a batched launch runs, bit for bit, the code one problem's launch
+// runs. At f32 it keeps the dense block (<BM, false, kDenseUpdate>,
+// emit_update); at 2 bytes (<T, BM, false, kBatchedEntries>) problem b
+// writes lloyd_step's entries at entry rows b Mp .. and idx rows b Kp ..,
+// so one tree over B Kp rows sums every problem. Only those two have the
 // problem axis. Dense or entries, each (tile, k, f) sum is the same
 // sequence of adds, so their trees give the same bits.
 // kmeanspp_round_kernel replaces kmeanspp_init.py kmeanspp_round (one D^2
@@ -39,8 +43,9 @@
 // lloyd_pruned_mma_kernel<T, BM> is its bf16 / fp16 twin, whose trips run
 // lloyd_tile_mma_kernel's product.
 // int8_tile_kernel replaces distance_argmin_int8.py distance_argmin_int8:
-// __dp4a over packed int8 words, the f32 scale correction, then the shared
-// min/argmin epilogue.
+// mma.sync m16n8k32 s8 on the tensor cores over a stash of X's row tile and
+// a cp.async ring of C's chunks, then the f32 scale correction and the
+// min/argmin in registers (see the kernel).
 // matmul_abft.py matmul_abft (the ABFT GEMM) is not here: every dtype of
 // it, f32 included, is abft_gemm_kernel<T> in fk_abft_gemm.cu (wgmma fed
 // by TMA).
@@ -51,7 +56,8 @@
 // second pass and compared in a third. No float atomics anywhere.
 //
 // Instantiations: lloyd_tile_kernel 2 (BM = 64, 128) x 5 (kFT, kUpd: the
-// table's rows) = 10, lloyd_tile_mma_kernel 2 (T) x 2 (BM) x 5 = 20,
+// table's rows) = 10, lloyd_tile_mma_kernel 2 (T) x 2 (BM) x 5 (the
+// batched row with kBatchedEntries) = 20,
 // lloyd_encode_kernel 2 (T), lloyd_prep_kernel 1 (the f32 kernel's
 // pre-pass), update_tiles_kernel 3 (T) x 2 (BM), kmeanspp_round_kernel 1,
 // lloyd_pruned_kernel 2 (BM), lloyd_pruned_mma_kernel 2 (T) x 2 (BM),
@@ -78,12 +84,13 @@
 //   * bf16/fp16: X and C chunks are staged row-major as T (16-byte loads);
 //     the 8 warps tile the BM x 128 accumulator 2 x 4, each warp (BM/2) x 32
 //     as (BM/32) x 4 m16n8 f32 fragments, two k16 mma.sync a chunk;
-//   * bf16/fp16 (and the pruned and int8 kernels): at the end of a centroid
+//   * bf16/fp16 (and the pruned kernels): at the end of a centroid
 //     tile the accumulator goes to shared memory (Ds); row r's min/argmin
 //     is scanned by thread r with a strict '<', so the lowest index wins a
 //     tie inside a tile and the earlier tile wins a tie across tiles -- the
 //     jnp.argmin tie-break; f32: every thread scans its fragment and the
 //     row's 16 threads combine by shuffles (tile_fold), the same result;
+//     int8: the same rule from the MMA fragments (int8_tile_kernel);
 //   * ABFT (kFT), f32: expected e1/e2 column and row checksums accumulate
 //     in f32 from the staged chunks; at each (row tile, centroid tile)
 //     interval the observed checksums of Ds are compared, a fault is
@@ -104,16 +111,19 @@
 // from L2) and the update's entries (O(M Fp)). At bf16/fp16 the GEMM's
 // tensor-core bound (989 TFLOP/s) and the bytes of 2-byte X and the f32
 // entries are close (0.27 and 0.24 ms at M = 2^20, F = 128, K = 1000); the
-// batched step's dense partial-sum buffer bounds it by bytes.
+// f32 batched step's dense partial-sum buffer bounds it by bytes; the
+// 2-byte one writes the present entries only (~101 of 256 clusters a
+// 128-row tile at the PQ shape).
 // The 2-byte product is unpipelined (no ldmatrix, cp.async, wgmma or TMA).
 // The pruned step needs the GEMM of its computed tiles only; at 2-byte
 // inputs the partial-sum buffer's bytes bound it, as the update variants.
 // The int8 GEMM is bound by the int8 tensor cores' 1,979 Tera-op/s, which
-// __dp4a on the CUDA cores does not reach (mma.sync/wgmma s8 is later
-// work).
+// it runs on (mma.sync s8); its f32 epilogue over every distance comes
+// next.
 // The seeding round is bound by the bytes of X (one GEMV per round). The
 // DMR update is bound by the bytes of X and the assignments, read once.
-// wgmma, TMA and a shared-memory X stash are later work.
+// wgmma and TMA are later work here; the int8 kernel alone keeps a
+// shared-memory X stash.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler
 // -fPIC (no --use_fast_math: +inf norms of padded centroids must stay +inf
@@ -143,9 +153,16 @@ constexpr int kEnc1Shift = 7, kEnc2Shift = 14;
 static_assert(kBK == 128, "the encoding shifts are kBK = 128's");
 
 // The update a one-pass instantiation emits: none (distance_argmin[_ft]),
-// the dense (Kp, Fp) block of every row tile (lloyd_step_batched: emit_update)
-// or the tile's entries (lloyd_step, lloyd_step_ft: write_entries).
-enum UpdateMode { kNoUpdate = 0, kDenseUpdate = 1, kEntryUpdate = 2 };
+// the dense (Kp, Fp) block of every row tile (the f32 lloyd_step_batched:
+// emit_update), the tile's entries (lloyd_step, lloyd_step_ft:
+// write_entries) or, over a (row tile, problem) grid, each problem's
+// entries (the 2-byte lloyd_step_batched, lloyd_tile_mma_kernel only).
+enum UpdateMode {
+  kNoUpdate = 0,
+  kDenseUpdate = 1,
+  kEntryUpdate = 2,
+  kBatchedEntries = 3
+};
 
 // Injection descriptor slots, as in the reference:
 //   distance slot: [0] enabled [1] m_tile [2] c_tile [3] f_tile [4] row
@@ -1271,19 +1288,22 @@ lloyd_tile_mma_kernel(const T* __restrict__ x, const T* __restrict__ c,
                       float thr_factor) {
   using L = Layout<BM>;
   using P = MmaProduct<T, BM>;
-  if (kUpd == kDenseUpdate) {
-    // problem blockIdx.y of a batched launch, as in lloyd_tile_kernel: the
-    // one instantiation that lloyd_step_batched launches moves every base
-    // pointer to its problem's slab (a slab of 2-byte X is mp * fp * 2
-    // bytes, fp a multiple of 32: 16-byte alignment holds)
+  static_assert(kUpd != kDenseUpdate, "the 2-byte batched step writes entries");
+  if (kUpd == kBatchedEntries) {
+    // problem blockIdx.y of a batched launch: the one instantiation that
+    // lloyd_step_batched launches moves X's, C's, cn's and the labels' base
+    // pointers to its problem's slab (a slab of 2-byte X is mp * fp * 2
+    // bytes, fp a multiple of 32: 16-byte alignment holds) and its idx to
+    // the problem's kp rows; its entries go to rows pb * mp .. (the tile's
+    // writer, EntryOut::row0, below). Every other line is lloyd_step's, so
+    // problem b runs, bit for bit, the code one problem's launch runs.
     const size_t pb = blockIdx.y, nt = gridDim.x, mp = nt * BM;
     x += pb * mp * fp;
     c += pb * kp * fp;
     cn += pb * kp;
     mind += pb * mp;
     argmin += pb * mp;
-    sums += pb * nt * kp * fp;
-    counts += pb * nt * kp;
+    idx += (pb * kp) << levels;
   }
   // 16-byte aligned: the staging stores 16 bytes at a time
   extern __shared__ __align__(16) float sm_tile[];
@@ -1292,7 +1312,6 @@ lloyd_tile_mma_kernel(const T* __restrict__ x, const T* __restrict__ c,
   float* cnS = sm + L::kCn;
   float* enc = sm + L::kEnc;   // the chunk's X encodings: e1, then e2
   float* part = sm + L::kXs;   // a finished tile's expected column sums
-  int* smi = reinterpret_cast<int*>(sm);
 
   const int tid = threadIdx.x;
   const int lane = tid % 32;
@@ -1441,16 +1460,11 @@ lloyd_tile_mma_kernel(const T* __restrict__ x, const T* __restrict__ c,
     argmin[m0 + tid] = best_arg;
   }
   if (kFT && tid == 0) det[mt] = det_count;
-  if constexpr (kUpd == kEntryUpdate) {
-    const EntryOut o{sums, counts, idx, ekey, kp, fp, levels, int(gridDim.x)};
+  if constexpr (kUpd == kEntryUpdate || kUpd == kBatchedEntries) {
+    EntryOut o{sums, counts, idx, ekey, kp, fp, levels, int(gridDim.x)};
+    if (kUpd == kBatchedEntries) o.row0 = size_t(blockIdx.y) * gridDim.x * BM;
     emit_entries<T, BM, kFT>(sm, best_arg, x, mt, true_m, o, inj, spare,
                              ucheck, ccheck);
-  } else if constexpr (kUpd == kDenseUpdate) {
-    int* am = smi + L::kAm;
-    if (tid < BM) am[tid] = best_arg;
-    emit_update<T, BM>(am, smi + L::kKey, smi + L::kOrder, smi + L::kSKey,
-                       x, m0, true_m, kp, fp, sums + size_t(mt) * kp * fp,
-                       counts + size_t(mt) * kp);
   }
 }
 
@@ -1696,95 +1710,263 @@ lloyd_pruned_mma_kernel(const T* __restrict__ x, const T* __restrict__ c,
                        true_m, kp, fp, mind, argmin, sums, counts);
 }
 
-// int8 distance tile kernel: one block per row tile of BM rows, a loop over
-// centroid tiles of kBK and feature chunks of kChunk int8 values, staged in
-// shared memory as kChunk / 4 packed 32-bit words (transposed, like the f32
-// kernel's chunks). Each thread keeps a (BM/16) x 8 int32 accumulator and
-// adds four products per __dp4a: exact, so the order does not matter. The
-// epilogue is the reference's _scaled_acc, sx_i * (float(acc_ij) * sc_j), in
-// that order, into Ds, then the shared tile_min_argmin (d = cn - 2 v) and
-// fold_min.
-constexpr int kChunkWords = kChunk / 4;
+// --- the int8 tile kernel: s8 tensor cores, an epilogue in registers ------
+// int8_tile_kernel<BM> (one block of 256 threads a row tile of BM rows, a
+// walk over the centroid tiles of kBK = 128 in feature chunks of up to
+// kI8Chunk = 128 int8 values, one ring step each):
+//   * products: mma.sync m16n8k32 s8 -> s32 (fk_mma.cuh). The 8 warps tile
+//     the BM x 128 block 2 x 4: warp w owns rows (w / 4) BM/2 .. + BM/2 and
+//     columns (w % 4) 32 .. + 32 as (BM/32) x 4 m16n8 fragments, and a
+//     32-deep k-step takes BM/32 + 2 ldmatrix.x4 and BM/8 MMAs. The sums
+//     are exact int32 while Fp 128^2 < 2^31 (check_int8 refuses a wider
+//     Fp), so any order gives the integers the first design's __dp4a gave;
+//   * staging: X's row tile is copied once a block by 16-byte cp.async and
+//     kept for every centroid tile (the reference's stash) where BM (Fp +
+//     16) <= kI8StashMax bytes, else X's chunk streams with C's. C's chunks
+//     (with a tile's first chunk its scales sc and norms cn) run through a
+//     ring of kI8Stages slots: the copies of step s + kI8Stages - 1 are
+//     issued right after step s's barrier and run under its MMAs and
+//     epilogue, so a step takes one barrier. Rows lie at a pitch of the
+//     chunk + 16 bytes: ldmatrix's 8 rows of a matrix on distinct banks;
+//   * epilogue in registers, no Ds: at a tile's last chunk each lane turns
+//     its accumulators into d = cn_j - 2 (sx_i (float(acc_ij) sc_j)), in
+//     that order and rounded at each step (__fmul_rn, __fsub_rn: nothing
+//     contracts), the reference's _scaled_acc and tile_min_argmin's d; it
+//     scans its 8 columns of a row in column order with a strict '<', the
+//     quad combines (value, column) pairs by shuffles and the 4 warps of a
+//     row band through shared memory (min_pair: the lower value, the lower
+//     column on equal values), and the row's owner (thread tid < BM) folds
+//     the tile with fold_min. That is the serial scan's result: min is
+//     exact, and the scan's NaN rule is tile_fold's (a NaN at the tile's
+//     column 0 becomes (-inf, -1), which wins every combine and is never
+//     folded; a NaN first column of another lane starts its scan at +inf).
+// Bound on the H100: 2 Mp Kp Fp int8 operations at 1,979 Tera-op/s (0.136
+// ms at M = 2^20, K = 1000, F = 128, above X's bytes); the epilogue's
+// ~7 CUDA-core operations a distance, 2^30 distances there, come next, so
+// mma.sync (not wgmma) feeds the tensor cores fast enough. Two blocks an
+// SM: __launch_bounds__(kThreads, 2), 81 KB of shared memory at BM = 128
+// and Fp = 128.
+constexpr int kI8Chunk = 128;             // int8 features a ring step
+constexpr int kI8Pitch = kI8Chunk + 16;   // bytes a staged chunk row
+constexpr int kI8Stages = 3;              // ring slots
+constexpr int kI8StashMax = 48 * 1024;    // bytes of X's row tile kept whole
+// the widest Fp whose int32 sums are exact for any int8 values
+constexpr int kI8MaxFeatures = (0x7fffffff / (128 * 128));
+
+__device__ __forceinline__ void cp_async16b(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(gmem)
+               : "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Shared-memory layout of int8_tile_kernel (byte offsets, each 16-byte
+// aligned): X's stash at 0 (BM rows of Fp + 16 bytes) when it fits, the
+// ring (kI8Stages slots: C's chunk, then X's when X streams), the tiles'
+// sc and cn (kBK floats each, a pair a slot, by centroid tile), the rows'
+// sx, the row bands' (value, column) pairs (4 x BM).
+struct Int8Layout {
+  bool stash;
+  int xpitch;
+  size_t slot, ring, par, sx, xch, bytes;
+  __host__ __device__ Int8Layout(int bm, int fp) {
+    stash = size_t(bm) * (fp + 16) <= size_t(kI8StashMax);
+    xpitch = stash ? fp + 16 : kI8Pitch;
+    slot = size_t(kBK + (stash ? 0 : bm)) * kI8Pitch;
+    ring = stash ? size_t(bm) * xpitch : 0;
+    par = ring + kI8Stages * slot;
+    sx = par + size_t(kI8Stages) * 2 * kBK * 4;
+    xch = sx + size_t(bm) * 4;
+    bytes = xch + size_t(4) * bm * 8;
+  }
+};
 
 template <int BM>
-__global__ void __launch_bounds__(kThreads)
-int8_tile_kernel(const int* __restrict__ xq, const int* __restrict__ cq,
+__global__ void __launch_bounds__(kThreads, 2)
+int8_tile_kernel(const int8_t* __restrict__ xq, const int8_t* __restrict__ cq,
                  const float* __restrict__ sx, const float* __restrict__ sc,
                  const float* __restrict__ cn, float* __restrict__ mind,
-                 int* __restrict__ argmin, int kp, int fw) {
-  using L = Layout<BM>;
-  constexpr int kTM = BM / 16;
-  extern __shared__ float sm[];
-  float* Ds = sm + L::kDs;
-  int* Xw = reinterpret_cast<int*>(sm + L::kXs);  // kChunkWords x (BM + 1)
-  int* Cw = reinterpret_cast<int*>(sm + L::kCs);  // kChunkWords x (kBK + 1)
-  float* cnS = sm + L::kCn;
-  float* scS = sm + L::kCol1;
+                 int* __restrict__ argmin, int kp, int fp) {
+  constexpr int kWM = BM / 2, kMF = kWM / 16, kNF = 4;
+  static_assert(kMF == 2 || kMF == 4, "row tiles of 64 or 128");
+  extern __shared__ __align__(16) unsigned char sm_i8[];
+  const Int8Layout L(BM, fp);
+  unsigned char* ring = sm_i8 + L.ring;
+  float* par = reinterpret_cast<float*>(sm_i8 + L.par);
+  float* sxS = reinterpret_cast<float*>(sm_i8 + L.sx);
+  float2* xch = reinterpret_cast<float2*>(sm_i8 + L.xch);
 
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int g = lane / 4, t = lane % 4;
+  const int r0 = (warp / 4) * kWM, n0 = (warp % 4) * 32;
   const int m0 = blockIdx.x * BM;
-  const int nkt = kp / kBK, nch = fw / kChunkWords;
-  float sxv[kTM];
-#pragma unroll
-  for (int i = 0; i < kTM; ++i) sxv[i] = sx[m0 + ty + 16 * i];
+  const int nkt = kp / kBK, nch = (fp + kI8Chunk - 1) / kI8Chunk;
+  const int nsteps = nkt * nch;
 
+  // the copies of step s (centroid tile s / nch, chunk s % nch) into its
+  // slot as one cp.async group; an empty group past the last step
+  auto issue = [&](int s) {
+    if (s < nsteps) {
+      const int kt = s / nch, f0 = (s % nch) * kI8Chunk;
+      const int words = min(kI8Chunk, fp - f0) / 16;
+      unsigned char* slot = ring + size_t(s % kI8Stages) * L.slot;
+      for (int i = tid; i < kBK * 8; i += kThreads) {
+        const int r = i / 8, q = i % 8;
+        if (q < words)
+          cp_async16b(slot + r * kI8Pitch + 16 * q,
+                      cq + size_t(kt * kBK + r) * fp + f0 + 16 * q);
+      }
+      if (!L.stash)
+        for (int i = tid; i < BM * 8; i += kThreads) {
+          const int r = i / 8, q = i % 8;
+          if (q < words)
+            cp_async16b(slot + (kBK + r) * kI8Pitch + 16 * q,
+                        xq + size_t(m0 + r) * fp + f0 + 16 * q);
+        }
+      if (f0 == 0 && tid < kBK / 2) {
+        float* p = par + (kt % kI8Stages) * 2 * kBK;
+        const int h = tid / (kBK / 4), q = tid % (kBK / 4);
+        cp_async16b(p + h * kBK + 4 * q,
+                    (h == 0 ? sc : cn) + size_t(kt) * kBK + 4 * q);
+      }
+    }
+    cp_async_commit();
+  };
+
+  if (tid < BM) sxS[tid] = sx[m0 + tid];
+  if (L.stash) {   // X's row tile, in step 0's group
+    const int words = fp / 16;
+    for (int i = tid; i < BM * words; i += kThreads) {
+      const int r = i / words, q = i - r * words;
+      cp_async16b(sm_i8 + r * L.xpitch + 16 * q,
+                  xq + size_t(m0 + r) * fp + 16 * q);
+    }
+  }
+#pragma unroll
+  for (int s = 0; s < kI8Stages - 1; ++s) issue(s);
+
+  int acc[kMF][kNF][4];
+#pragma unroll
+  for (int i = 0; i < kMF; ++i)
+#pragma unroll
+    for (int j = 0; j < kNF; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0;
   float best = FLT_MAX;   // running row state, owned by thread tid < BM
   int best_arg = 0;
 
-  for (int kt = 0; kt < nkt; ++kt) {
+  for (int s = 0; s < nsteps; ++s) {
+    cp_async_wait<kI8Stages - 2>();
+    __syncthreads();
+    issue(s + kI8Stages - 1);
+    const int kt = s / nch, ch = s % nch;
+    const unsigned char* cs = ring + size_t(s % kI8Stages) * L.slot;
+    const unsigned char* xs =
+        L.stash ? sm_i8 + ch * kI8Chunk : cs + kBK * kI8Pitch;
+    const int nk = min(kI8Chunk, fp - ch * kI8Chunk) / 32;
+    // this lane's ldmatrix rows: C's matrices (rows n0 + 0..7 / 8..15,
+    // bytes +0 / +16) and X's (rows r0 + 0..7 / 8..15, bytes +0 / +16)
+    const unsigned char* bp = cs + (n0 + (lane & 7) + 8 * (lane >> 4)) *
+                                       kI8Pitch + 16 * ((lane >> 3) & 1);
+    const unsigned char* ap = xs + (r0 + (lane & 7) + 8 * ((lane >> 3) & 1)) *
+                                       L.xpitch + 16 * (lane >> 4);
+    for (int kk = 0; kk < nk; ++kk) {
+      uint32_t b[kNF][2];
+#pragma unroll
+      for (int jj = 0; jj < kNF / 2; ++jj) {
+        uint32_t r[4];
+        ldmatrix_x4(r, bp + 16 * jj * kI8Pitch + 32 * kk);
+        b[2 * jj][0] = r[0];
+        b[2 * jj][1] = r[1];
+        b[2 * jj + 1][0] = r[2];
+        b[2 * jj + 1][1] = r[3];
+      }
+#pragma unroll
+      for (int i = 0; i < kMF; ++i) {
+        uint32_t a[4];
+        ldmatrix_x4(a, ap + 16 * i * L.xpitch + 32 * kk);
+#pragma unroll
+        for (int j = 0; j < kNF; ++j)
+          mma_s8_16832(acc[i][j], a, b[j][0], b[j][1]);
+      }
+    }
+    if (ch != nch - 1) continue;
+
+    // the tile's epilogue: element (i, j, 2 h + e) of this lane is row r0
+    // + 16 i + g + 8 h, column n0 + 8 j + 2 t + e
     const int c0 = kt * kBK;
-    int acc[kTM][kTN];
+    const float* scS = par + (kt % kI8Stages) * 2 * kBK;
+    float scr[kNF][2], cnr[kNF][2];
 #pragma unroll
-    for (int i = 0; i < kTM; ++i)
-#pragma unroll
-      for (int j = 0; j < kTN; ++j) acc[i][j] = 0;
-    if (tid < kBK) {
-      cnS[tid] = cn[c0 + tid];
-      scS[tid] = sc[c0 + tid];
+    for (int j = 0; j < kNF; ++j) {
+      const float2 a =
+          *reinterpret_cast<const float2*>(scS + n0 + 8 * j + 2 * t);
+      const float2 b =
+          *reinterpret_cast<const float2*>(scS + kBK + n0 + 8 * j + 2 * t);
+      scr[j][0] = a.x;
+      scr[j][1] = a.y;
+      cnr[j][0] = b.x;
+      cnr[j][1] = b.y;
     }
-
-    for (int ch = 0; ch < nch; ++ch) {
-      const int w0 = ch * kChunkWords;
-      for (int idx = tid; idx < BM * kChunkWords; idx += kThreads) {
-        const int r = idx / kChunkWords, w = idx % kChunkWords;
-        Xw[w * (BM + 1) + r] = xq[size_t(m0 + r) * fw + w0 + w];
+    const bool col0 = n0 == 0 && t == 0;   // the lane of the tile's column 0
+#pragma unroll
+    for (int i = 0; i < kMF; ++i)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = r0 + 16 * i + g + 8 * h;
+        const float sxr = sxS[row];
+        float v = 0.0f;
+        int col = 0;
+#pragma unroll
+        for (int j = 0; j < kNF; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const float w = __fmul_rn(
+                sxr, __fmul_rn(__int2float_rn(acc[i][j][2 * h + e]),
+                               scr[j][e]));
+            const float d = __fsub_rn(cnr[j][e], __fmul_rn(2.0f, w));
+            const int cc = n0 + 8 * j + 2 * t + e;
+            if (j == 0 && e == 0) {
+              const bool nan0 = d != d;
+              v = nan0 ? __int_as_float(col0 ? int(0xff800000u) : 0x7f800000)
+                       : d;
+              col = nan0 && col0 ? -1 : cc;
+            } else if (d < v) {
+              v = d;
+              col = cc;
+            }
+          }
+#pragma unroll
+        for (int off = 1; off < 4; off <<= 1)
+          min_pair(&v, &col, __shfl_xor_sync(0xffffffffu, v, off),
+                   __shfl_xor_sync(0xffffffffu, col, off));
+        if (t == 0)
+          xch[(warp % 4) * BM + row] = make_float2(v, __int_as_float(col));
       }
-      for (int idx = tid; idx < kBK * kChunkWords; idx += kThreads) {
-        const int r = idx / kChunkWords, w = idx % kChunkWords;
-        Cw[w * (kBK + 1) + r] = cq[size_t(c0 + r) * fw + w0 + w];
-      }
-      __syncthreads();
-#pragma unroll
-      for (int w = 0; w < kChunkWords; ++w) {
-        int a[kTM], b[kTN];
-#pragma unroll
-        for (int i = 0; i < kTM; ++i) a[i] = Xw[w * (BM + 1) + ty + 16 * i];
-#pragma unroll
-        for (int j = 0; j < kTN; ++j) b[j] = Cw[w * (kBK + 1) + tx + 16 * j];
-#pragma unroll
-        for (int i = 0; i < kTM; ++i)
-#pragma unroll
-          for (int j = 0; j < kTN; ++j) acc[i][j] = __dp4a(a[i], b[j], acc[i][j]);
-      }
-      __syncthreads();
-    }
-
-#pragma unroll
-    for (int i = 0; i < kTM; ++i)
-#pragma unroll
-      for (int j = 0; j < kTN; ++j)
-        Ds[(ty + 16 * i) * (kBK + 1) + tx + 16 * j] =
-            sxv[i] * (float(acc[i][j]) * scS[tx + 16 * j]);
     __syncthreads();
-
     if (tid < BM) {
-      float lmin;
-      int larg;
-      tile_min_argmin(Ds + tid * (kBK + 1), cnS, c0, &lmin, &larg);
-      fold_min(&best, &best_arg, lmin, larg);
+      const float2 p = xch[tid];
+      float v = p.x;
+      int col = __float_as_int(p.y);
+#pragma unroll
+      for (int w = 1; w < 4; ++w) {
+        const float2 q = xch[w * BM + tid];
+        min_pair(&v, &col, q.x, __float_as_int(q.y));
+      }
+      if (col >= 0) fold_min(&best, &best_arg, v, col + c0);
     }
-    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < kMF; ++i)
+#pragma unroll
+      for (int j = 0; j < kNF; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[i][j][e] = 0;
   }
+  cp_async_wait<0>();
 
   if (tid < BM) {
     mind[m0 + tid] = best;
@@ -1870,13 +2052,11 @@ size_t tile_bytes(int fp) {
     return Layout<BM>::kBytes;
 }
 
-// The f32 tile kernel's resources at one (BM, kFT, kUpd): out[0] resident
-// blocks an SM at Fp = fp, out[1] registers a thread, out[2] local-memory
+// A kernel's resources with `bytes` of dynamic shared memory: out[0]
+// resident blocks an SM, out[1] registers a thread, out[2] local-memory
 // bytes a thread (spills), out[3] dynamic shared memory bytes.
-template <int BM, bool kFT, int kUpd>
-int tile_resources(int fp, int* out) {
-  auto kernel = lloyd_tile_kernel<BM, kFT, kUpd>;
-  const size_t bytes = F32Layout<BM>::bytes(kFT, fp);
+template <typename K>
+int kernel_resources(K kernel, size_t bytes, int* out) {
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(bytes));
   if (e != cudaSuccess) return int(e);
@@ -1889,6 +2069,13 @@ int tile_resources(int fp, int* out) {
   out[2] = int(attr.localSizeBytes);
   out[3] = int(bytes);
   return int(e);
+}
+
+// The f32 tile kernel's resources at one (BM, kFT, kUpd) and Fp = fp.
+template <int BM, bool kFT, int kUpd>
+int tile_resources(int fp, int* out) {
+  return kernel_resources(lloyd_tile_kernel<BM, kFT, kUpd>,
+                          F32Layout<BM>::bytes(kFT, fp), out);
 }
 
 // A tile kernel's outputs and scratch past its distances: the FT ones (cenc
@@ -1940,7 +2127,8 @@ int dispatch(int bm, const T* x, const T* c, const float* cn, float* mind,
              int fp, int bf, int true_m, cudaStream_t stream) {
   if ((bm != 64 && bm != 128) || mp % bm || kp % kBK || bf < kChunk ||
       bf % kChunk || fp % bf || nb < 1 || nb > kMaxProblems ||
-      (nb > 1 && kUpd != kDenseUpdate) ||
+      (nb > 1 && kUpd != kDenseUpdate && kUpd != kBatchedEntries) ||
+      (kUpd == kBatchedEntries && size_t(nb) * mp > size_t(INT_MAX)) ||
       (kFT && (a.cenc == nullptr ||
                (!std::is_same<T, float>::value && a.xenc == nullptr))))
     return int(cudaErrorInvalidValue);
@@ -2025,16 +2213,22 @@ int launch_pruned(const T* x, const T* c, const float* cn,
 }
 
 template <int BM>
-int launch_int8(const int* xq, const int* cq, const float* sx,
+int launch_int8(const int8_t* xq, const int8_t* cq, const float* sx,
                 const float* sc, const float* cn, float* mind, int* argmin,
                 int mp, int kp, int fp, cudaStream_t stream) {
+  if (fp > kI8MaxFeatures) return int(cudaErrorInvalidValue);
+  // 16-byte copies of X's and C's rows and of sc, cn
+  if ((reinterpret_cast<uintptr_t>(xq) | reinterpret_cast<uintptr_t>(cq) |
+       reinterpret_cast<uintptr_t>(sc) | reinterpret_cast<uintptr_t>(cn)) %
+      16)
+    return int(cudaErrorMisalignedAddress);
   auto kernel = int8_tile_kernel<BM>;
-  const size_t bytes = Layout<BM>::kBytes;
+  const size_t bytes = Int8Layout(BM, fp).bytes;
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(bytes));
   if (e != cudaSuccess) return int(e);
   kernel<<<mp / BM, kThreads, bytes, stream>>>(xq, cq, sx, sc, cn, mind,
-                                               argmin, kp, fp / 4);
+                                               argmin, kp, fp);
   return int(cudaGetLastError());
 }
 
@@ -2390,18 +2584,26 @@ int fk_lloyd_step_lp(const void* x, const void* c, const float* cn,
   });
 }
 
-// fk_lloyd_step_batched at 2-byte X and C: nb stacked problems
+// The batched step at 2-byte X and C: nb stacked problems as
+// fk_lloyd_step_batched's, each problem's update as fk_lloyd_step_lp's
+// entries. Problem b's row tile t writes entry rows (b mp / bm + t) bm ..
+// of entries (nb mp, fp) f32 and ecnt (nb mp,) f32, and problem b's
+// clusters are rows b kp .. of idx (nb kp, 2^ceil(log2 (mp / bm))) int32,
+// filled with -1 by the caller: one tree over the entries, rows nb kp,
+// sums every problem (update.reduce_entries).
 int fk_lloyd_step_batched_lp(const void* x, const void* c, const float* cn,
-                             float* mind, int* argmin, float* sums,
-                             float* counts, int true_m, int nb, int mp,
-                             int kp, int fp, int bm, int bf, int half,
-                             void* stream) {
+                             float* mind, int* argmin, float* entries,
+                             float* ecnt, int* idx, int true_m, int nb,
+                             int mp, int kp, int fp, int bm, int bf,
+                             int half, void* stream) {
   return by_half(half, [&](auto tag) {
     using T = typename decltype(tag)::type;
     TileArgs<T> a{};
-    a.sums = sums;
-    a.counts = counts;
-    return dispatch<T, false, kDenseUpdate>(
+    a.sums = entries;
+    a.counts = ecnt;
+    a.idx = idx;
+    a.levels = entry_levels(mp, bm);
+    return dispatch<T, false, kBatchedEntries>(
         bm, static_cast<const T*>(x), static_cast<const T*>(c), cn, mind,
         argmin, a, nb, mp, kp, fp, bf, true_m,
         static_cast<cudaStream_t>(stream));
@@ -2499,19 +2701,29 @@ int fk_lloyd_step_pruned_lp(const void* x, const void* c, const float* cn,
   });
 }
 
-// xq (mp, fp) and cq (kp, fp) int8, 4-byte aligned; sx (mp,), sc (kp,) and
-// cn (kp,) f32.
+// xq (mp, fp) and cq (kp, fp) int8, sc (kp,) and cn (kp,) f32, each
+// 16-byte aligned; sx (mp,) f32; fp <= kI8MaxFeatures.
 int fk_distance_argmin_int8(const void* xq, const void* cq, const float* sx,
                             const float* sc, const float* cn, float* mind,
                             int* argmin, int mp, int kp, int fp, int bm,
                             void* stream) {
   if (!tile_shape_ok(bm, mp, kp, fp)) return int(cudaErrorInvalidValue);
-  const int* xw = static_cast<const int*>(xq);
-  const int* cw = static_cast<const int*>(cq);
+  const int8_t* x8 = static_cast<const int8_t*>(xq);
+  const int8_t* c8 = static_cast<const int8_t*>(cq);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bm == 128)
-    return launch_int8<128>(xw, cw, sx, sc, cn, mind, argmin, mp, kp, fp, s);
-  return launch_int8<64>(xw, cw, sx, sc, cn, mind, argmin, mp, kp, fp, s);
+    return launch_int8<128>(x8, c8, sx, sc, cn, mind, argmin, mp, kp, fp, s);
+  return launch_int8<64>(x8, c8, sx, sc, cn, mind, argmin, mp, kp, fp, s);
+}
+
+// The int8 tile kernel's resources at bm 64 or 128 and Fp = fp, as
+// fk_tile_resources'.
+int fk_int8_resources(int bm, int fp, int* out) {
+  if (fp <= 0 || fp > kI8MaxFeatures) return int(cudaErrorInvalidValue);
+  const size_t bytes = Int8Layout(bm, fp).bytes;
+  if (bm == 128) return kernel_resources(int8_tile_kernel<128>, bytes, out);
+  if (bm == 64) return kernel_resources(int8_tile_kernel<64>, bytes, out);
+  return int(cudaErrorInvalidValue);
 }
 
 // nb problems of np = (np / bn) * bn rows and f features each.

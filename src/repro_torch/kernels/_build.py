@@ -10,8 +10,9 @@ into the package's git-ignored ``_build/`` directory and loaded with
 ``ctypes``; :func:`build_all` starts one nvcc per source, all at once.
 ``fk_kernels.cu`` holds every k-means kernel of the port: the tile kernel
 behind ``distance_argmin``, ``lloyd_step`` (one problem, its update as
-entries, or B stacked problems over a (row tile, problem) grid, the dense
-update: ``fk_lloyd_step_batched``), ``distance_argmin_ft`` and
+entries, or B stacked problems over a (row tile, problem) grid: at f32 the
+dense update, ``fk_lloyd_step_batched``, at 2 bytes each problem's entries,
+``fk_lloyd_step_batched_lp``), ``distance_argmin_ft`` and
 ``lloyd_step_ft`` (at 2 bytes with the C encodings' pre-pass,
 ``fk_lloyd_encode_lp``), the dense update epilogue launched alone
 (``fk_update_tiles``), the pruned one-pass step
@@ -19,7 +20,8 @@ update: ``fk_lloyd_step_batched``), ``distance_argmin_ft`` and
 tensor cores (the ``*_lp`` entry points of :data:`LOWP_ENTRIES`, one more
 int argument before the stream: :data:`HALF_KINDS`), the k-means++ D^2
 round (``fk_kmeanspp_round``), the
-int8 distance kernel (``fk_distance_argmin_int8``) and the DMR centroid
+int8 distance kernel on the s8 tensor cores (``fk_distance_argmin_int8``;
+``fk_int8_resources``, its occupancy) and the DMR centroid
 update (``fk_centroid_update_dmr``, three launches: partials, slab
 reduction, verdict). ``fk_attention.cu`` holds
 the LM stack's flash attention (``fk_flash_attention``, f32, bf16 or fp16:
@@ -86,18 +88,23 @@ SIGNATURES: dict[str, tuple] = {
                                 _P),
     "fk_centroid_update_dmr": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                                _I, _I, _I, _I, _F, _P),
-    # the f32 tile kernel's resources: bm, ft, upd, fp, out (4 ints)
+    # the f32 tile kernel's resources: bm, ft, upd, fp, out (4 ints); the
+    # int8 kernel's: bm, fp, out
     "fk_tile_resources": (_I, _I, _I, _I, _P),
+    "fk_int8_resources": (_I, _I, _P),
     # its pre-pass: c, ct, cenc (or null); nb, kp, fp; stream
     "fk_lloyd_prep": (_P, _P, _P, _I, _I, _I, _P),
 }
 # the 2-byte entry points: their f32 twin's arguments, then the dtype code
 # (HALF_KINDS), then the stream
 LOWP_ENTRIES = ("fk_distance_argmin", "fk_lloyd_step",
-                "fk_lloyd_step_batched", "fk_distance_argmin_ft",
-                "fk_lloyd_step_ft", "fk_update_tiles", "fk_lloyd_step_pruned")
+                "fk_distance_argmin_ft", "fk_lloyd_step_ft",
+                "fk_update_tiles", "fk_lloyd_step_pruned")
 SIGNATURES.update({f"{name}_lp": SIGNATURES[name][:-1] + (_I, _P)
                    for name in LOWP_ENTRIES})
+# the 2-byte batched step writes entries: x, c, cn, mind, argmin, entries,
+# ecnt, idx; true_m, nb, mp, kp, fp, bm, bf, dtype code; stream
+SIGNATURES["fk_lloyd_step_batched_lp"] = (_P,) * 8 + (_I,) * 8 + (_P,)
 # the 2-byte FT kernels' pre-pass: c, cenc; kp, fp, dtype code; stream
 SIGNATURES["fk_lloyd_encode_lp"] = (_P, _P, _I, _I, _I, _P)
 # dtype code of the *_lp entry points, by torch dtype name

@@ -15,16 +15,27 @@ On quantisation-safe data (integers in [-127, 127] with a +-127 in every
 row, so every scale is 1.0) ``acc`` holds the integers the f32 kernel sums
 and the result is bit for bit ``distance_argmin``'s.
 
-CUDA kernel: ``int8_tile_kernel<BM>`` in ``csrc/fk_kernels.cu``: the f32
-tile kernel's loop (row tile per block, centroid tiles of 128, 32-feature
-chunks in shared memory) on packed 32-bit words, four products per
-``__dp4a`` on the CUDA cores, then ``tile_min_argmin`` and ``fold_min``.
-The reference's ``smallk`` body needs no counterpart (one trip of the loop).
+CUDA kernel: ``int8_tile_kernel<BM>`` in ``csrc/fk_kernels.cu``. A block
+owns a row tile of BM rows and walks the centroid tiles of 128 in feature
+chunks of up to 128: the products on the int8 tensor cores
+(``mma.sync.m16n8k32`` s8 -> s32, fragments by ``ldmatrix``; the 8 warps
+tile the BM x 128 block 2 x 4), X's row tile copied once a block and kept
+(the reference's stash; where BM (Fp + 16) passes 48 KB, X's chunks stream
+with C's), C's chunks with their scales and norms through a three-slot
+``cp.async`` ring, and the epilogue in registers: each lane's distances
+in the order above, rounded at each step, a scan of its columns with a
+strict '<', the (value, column) pairs combined over the quad and over the
+4 warps of a row band, then ``fold_min`` across tiles -- the serial scan's
+result bit for bit (``tests/test_torch_int8_mma.py`` mirrors the
+fragments and the combines). The reference's ``smallk`` body needs no
+counterpart (one trip of the loop).
 
 Bound on the H100: 2 * Mp * Kp * Fp int8 operations at the tensor cores'
-1,979 Tera-op/s (``hw.PEAK_OPS_INT8``), above X's bytes (1 per value).
-``__dp4a`` does not reach that rate; ``mma.sync``/``wgmma`` on int8 tiles
-is later work.
+1,979 Tera-op/s (``hw.PEAK_OPS_INT8``), above X's bytes (1 per value);
+the epilogue's few CUDA-core operations a distance come next. The int32
+sums are exact while Fp * 128**2 < 2**31 (:data:`MAX_FEATURES`, which
+:func:`check_int8` holds), so any order of the products gives the plain
+version's integers.
 """
 from __future__ import annotations
 
@@ -34,10 +45,19 @@ from repro_torch.kernels import _build, ref
 from repro_torch.kernels.distance_argmin import check_padded
 
 
+# the widest padded feature count whose int32 sums are exact for any int8
+# values (|product| <= 128**2)
+MAX_FEATURES = (2 ** 31 - 1) // 128 ** 2
+
+
 def check_int8(xq: torch.Tensor, cq: torch.Tensor, sx: torch.Tensor,
                sc: torch.Tensor, cn: torch.Tensor, block_m: int, block_k: int,
                block_f: int) -> None:
     check_padded(xq, cq, cn, block_m, block_k, block_f)
+    if xq.shape[1] > MAX_FEATURES:
+        raise ValueError(f"{xq.shape[1]} padded features: the int8 kernel's "
+                         f"int32 sums are exact up to {MAX_FEATURES} "
+                         f"(Fp * 128**2 < 2**31)")
     if xq.dtype != torch.int8 or cq.dtype != torch.int8:
         raise ValueError(f"the int8 kernel takes int8 tiles, got {xq.dtype} "
                          f"and {cq.dtype}; quantise at the plan boundary "
@@ -86,21 +106,33 @@ def distance_argmin_int8(xq: torch.Tensor, cq: torch.Tensor,
     check_int8(xq, cq, sx, sc, cn, block_m, block_k, block_f)
     if _build.on_cpu(xq, cq, sx, sc, cn):
         return distance_argmin_int8_plain(xq, cq, sx, sc, cn)
-    if xq.data_ptr() % 4 or cq.data_ptr() % 4:
-        raise ValueError("int8 tiles must start on a 4-byte boundary (the "
-                         "kernel reads them as packed 32-bit words)")
     mp, fp = xq.shape
     mind = torch.empty(mp, dtype=torch.float32, device=xq.device)
     am = torch.empty(mp, dtype=torch.int32, device=xq.device)
     f32 = torch.float32
+    # the kernel copies X's and C's rows, sc and cn 16 bytes at a time
     code = _build.library().lib.fk_distance_argmin_int8(
-        _build.ptr(xq, torch.int8, "xq"), _build.ptr(cq, torch.int8, "cq"),
-        _build.ptr(sx, f32, "sx"), _build.ptr(sc, f32, "sc"),
-        _build.ptr(cn, f32, "cn"), mind.data_ptr(), am.data_ptr(), mp,
-        cq.shape[0], fp, block_m, _build.stream_of(xq))
+        _build.ptr(xq, torch.int8, "xq", vec16=True),
+        _build.ptr(cq, torch.int8, "cq", vec16=True),
+        _build.ptr(sx, f32, "sx"), _build.ptr(sc, f32, "sc", vec16=True),
+        _build.ptr(cn, f32, "cn", vec16=True), mind.data_ptr(),
+        am.data_ptr(), mp, cq.shape[0], fp, block_m, _build.stream_of(xq))
     _build.check(code, "distance_argmin_int8")
     distance_argmin_int8.launches += 1
     return mind, am
 
 
 distance_argmin_int8.launches = 0
+
+
+def resources(block_m: int, fp: int) -> dict:
+    """``int8_tile_kernel<block_m>`` on the card at Fp = ``fp``: resident
+    blocks an SM, registers and local-memory (spill) bytes a thread, and
+    its dynamic shared memory. Needs a CUDA card (the library's build)."""
+    import ctypes
+    out = (ctypes.c_int * 4)()
+    code = _build.library().lib.fk_int8_resources(block_m, fp, out)
+    _build.check(code, "int8 resources")
+    return dict(zip(("blocks_per_sm", "registers", "local_bytes",
+                     "smem_bytes"), out))
+

@@ -24,14 +24,21 @@ from 0 (2-byte rows widened exactly), its count and ``idx[k][slot(t)]``.
 update``: the same writer) and as the plain dense specification
 (:func:`lloyd_step_plain`, then ``update.tree_sum_plain``). No atomics.
 
-Batched: :func:`lloyd_step_batched` keeps the dense layout
-(``<.., false, kDenseUpdate>``, ``emit_update``) over a (row tile, problem)
+Batched: B stacked problems in one launch over a (row tile, problem)
 grid; ``blockIdx.y`` moves every base pointer to its problem's slab, so
-problem b of the launch is, bit for bit, one problem's dense step, whose
-tree (``ops._tree_sum``) is the single-problem entries' tree (the
-reference's contract, ``tests/test_batched.py``). The TPU kernel wants
-padded K to be one centroid tile; this one loops over 128-wide centroid
-tiles as the single-problem kernel does, so any K works.
+problem b of the launch runs, bit for bit, one problem's code. At f32
+:func:`lloyd_step_batched` keeps the dense layout (``<.., false,
+kDenseUpdate>``, ``emit_update``), whose tree (``ops._tree_sum``) is the
+single-problem entries' tree (the reference's contract,
+``tests/test_batched.py``). At bf16 / fp16 on the card
+:func:`lloyd_step_batched_entries` (``<T, .., false, kBatchedEntries>``)
+writes each problem's entries with ``lloyd_step``'s writer: problem b's
+row tile t at entry rows (b Np / bm + t) bm .., its clusters at idx rows
+b Kp .., so one tree over B Kp rows (``update.reduce_entries``) sums
+every problem, where the dense route wrote (B, Np / bm, Kp, Fp) f32
+blocks, ~60 % zeros at the PQ shape, and read them back. The TPU kernel
+wants padded K to be one centroid tile; this one loops over 128-wide
+centroid tiles as the single-problem kernel does, so any K works.
 :func:`tile_update` launches ``emit_update`` alone (``update_tiles_kernel
 <T, BM>``): the dense route every other route is held to, and the CPU's
 two-pass update.
@@ -39,9 +46,10 @@ two-pass update.
 Bound on the H100: the distance GEMM (2 * M * K * F FLOPs on f32 CUDA
 cores, or the bf16 / fp16 tensor cores: 0.27 ms at the shape above) and,
 at 2 bytes, about as much in bytes: 2-byte X once and the f32 entries
-(~0.5 GB). The batched step's dense partial-sum buffer bounds it by
-bytes. X rows of the update are re-read from global memory (L2-resident
-right after the tile's GEMM) instead of from a shared-memory stash.
+(~0.5 GB). The f32 batched step's dense partial-sum buffer bounds it by
+bytes; the 2-byte one by X, its present entries, idx and the labels. X
+rows of the update are re-read from global memory (L2-resident right
+after the tile's GEMM) instead of from a shared-memory stash.
 """
 from __future__ import annotations
 
@@ -191,14 +199,19 @@ def lloyd_step_batched_plain(x: torch.Tensor, c: torch.Tensor,
 def lloyd_step_batched(x: torch.Tensor, c: torch.Tensor, cn: torch.Tensor,
                        true_m: int, *, block_m: int, block_k: int,
                        block_f: int):
-    """Raw batched one-pass entry on pre-padded inputs: x (B, Np, Fp) and
-    c (B, Kp, Fp) of one dtype (f32, bf16 or fp16, as :func:`lloyd_step`),
-    cn (B, Kp) f32 (+inf in padded slots); every problem has ``true_m``
-    real rows. Returns (min (B, Np), argmin (B, Np), sums (B, Np/bm, Kp,
-    Fp), counts (B, Np/bm, Kp)), all f32 but argmin."""
+    """Raw batched one-pass entry on pre-padded inputs, the dense update:
+    x (B, Np, Fp) and c (B, Kp, Fp) of one dtype, cn (B, Kp) f32 (+inf in
+    padded slots); every problem has ``true_m`` real rows. Returns (min
+    (B, Np), argmin (B, Np), sums (B, Np/bm, Kp, Fp), counts (B, Np/bm,
+    Kp)), all f32 but argmin. On the card f32 only: a 2-byte stack writes
+    entries (:func:`lloyd_step_batched_entries`); on the CPU any dtype
+    (:func:`lloyd_step_batched_plain`)."""
     check_padded_batched(x, c, cn, block_m, block_k, block_f)
     if _build.on_cpu(x, c, cn):
         return lloyd_step_batched_plain(x, c, cn, true_m, block_m)
+    if x.dtype != torch.float32:
+        raise ValueError(f"the {x.dtype} batched step on the card writes "
+                         f"entries: lloyd_step_batched_entries")
     nb, mp, fp = x.shape
     kp = c.shape[1]
     nt = mp // block_m
@@ -207,12 +220,11 @@ def lloyd_step_batched(x: torch.Tensor, c: torch.Tensor, cn: torch.Tensor,
     am = torch.empty((nb, mp), dtype=torch.int32, device=dev)
     sums = torch.empty((nb, nt, kp, fp), dtype=torch.float32, device=dev)
     counts = torch.empty((nb, nt, kp), dtype=torch.float32, device=dev)
-    dt = x.dtype
-    c_op = c_operand(c)
-    code = _build.launch(
-        "fk_lloyd_step_batched", dt, _build.ptr(x, dt, "x", vec16=True),
-        _build.ptr(c_op, dt, "c", vec16=True),
-        _build.ptr(cn, torch.float32, "cn", vec16=True),
+    f32 = torch.float32
+    code = _build.library().lib.fk_lloyd_step_batched(
+        _build.ptr(x, f32, "x", vec16=True),
+        _build.ptr(c_operand(c), f32, "c", vec16=True),
+        _build.ptr(cn, f32, "cn", vec16=True),
         mind.data_ptr(), am.data_ptr(), sums.data_ptr(), counts.data_ptr(),
         true_m, nb, mp, kp, fp, block_m, block_f, _build.stream_of(x))
     _build.check(code, "lloyd_step_batched")
@@ -221,3 +233,48 @@ def lloyd_step_batched(x: torch.Tensor, c: torch.Tensor, cn: torch.Tensor,
 
 
 lloyd_step_batched.launches = 0
+
+
+def lloyd_step_batched_entries(x: torch.Tensor, c: torch.Tensor,
+                               cn: torch.Tensor, true_m: int, *,
+                               block_m: int, block_k: int, block_f: int):
+    """Raw batched one-pass entry whose update is each problem's entries:
+    x (B, Np, Fp) and c (B, Kp, Fp) bf16 or fp16 on the card (any dtype on
+    the CPU), cn (B, Kp) f32; every problem has ``true_m`` real rows.
+    Returns (min (B, Np), argmin (B, Np), entries (B Np, Fp), ecnt (B Np,),
+    idx (B Kp, 2**L)), L = ceil(log2(Np / bm)): problem b's entries in
+    :func:`lloyd_step`'s layout at entry rows b Np .. and idx rows b Kp ..
+    (``update.reduce_entries`` over ``Np / bm`` tiles sums every problem).
+    On the CPU: :func:`lloyd_step_batched_plain`'s dense blocks in that
+    layout (``update.dense_to_entries_batched``)."""
+    check_padded_batched(x, c, cn, block_m, block_k, block_f)
+    if _build.on_cpu(x, c, cn):
+        mind, am, sums, counts = lloyd_step_batched_plain(x, c, cn, true_m,
+                                                          block_m)
+        return (mind, am) + _up.dense_to_entries_batched(sums, counts,
+                                                         block_m)
+    code = _build.HALF_KINDS.get(str(x.dtype).replace("torch.", ""))
+    if code is None:
+        raise ValueError(f"the {x.dtype} batched step on the card keeps the "
+                         f"dense update: lloyd_step_batched")
+    nb, mp, fp = x.shape
+    kp = c.shape[1]
+    dev = x.device
+    mind = torch.empty((nb, mp), dtype=torch.float32, device=dev)
+    am = torch.empty((nb, mp), dtype=torch.int32, device=dev)
+    entries = torch.empty((nb * mp, fp), dtype=torch.float32, device=dev)
+    ecnt = torch.empty(nb * mp, dtype=torch.float32, device=dev)
+    idx = torch.full((nb * kp, 1 << _up.tree_levels(mp // block_m)), -1,
+                     dtype=torch.int32, device=dev)
+    dt = x.dtype
+    rc = _build.library().lib.fk_lloyd_step_batched_lp(
+        _build.ptr(x, dt, "x"), _build.ptr(c, dt, "c"),
+        _build.ptr(cn, torch.float32, "cn"), mind.data_ptr(), am.data_ptr(),
+        entries.data_ptr(), ecnt.data_ptr(), idx.data_ptr(), true_m, nb, mp,
+        kp, fp, block_m, block_f, code, _build.stream_of(x))
+    _build.check(rc, "lloyd_step_batched_entries")
+    lloyd_step_batched_entries.launches += 1
+    return mind, am, entries, ecnt, idx
+
+
+lloyd_step_batched_entries.launches = 0

@@ -556,22 +556,41 @@ def _resolve_padded_batched(x, c: torch.Tensor,
     return plan, cp, cn, params
 
 
+def _batched_writes_entries(xp: torch.Tensor) -> bool:
+    """Whether the batched step on ``xp`` runs the entries route: bf16 and
+    fp16 on the card; f32, and every dtype on the CPU, keep the dense
+    blocks (the same bits either way)."""
+    return xp.is_cuda and xp.dtype != torch.float32
+
+
 def fused_lloyd_batched(x, c: torch.Tensor,
                         params: Optional[KernelParams] = None):
     """One-pass Lloyd step for B stacked problems in one launch. ``x`` is a
-    raw (B, N, F) stack or a :class:`BatchPlan`; ``c`` is (B, K, F). The
-    row-tile partials collapse with :func:`_tree_sum` over axis 1, per
-    problem in the single-problem path's pairwise order, so problem b is
-    bit for bit :func:`fused_lloyd` on problem b. Returns (assign (B, N)
-    int32, true squared distance (B, N) f32, sums (B, K, F), counts
-    (B, K))."""
+    raw (B, N, F) stack or a :class:`BatchPlan`; ``c`` is (B, K, F). Each
+    problem's row tiles combine in the single-problem path's pairwise
+    tree, so problem b is bit for bit :func:`fused_lloyd` on problem b: at
+    bf16 / fp16 on the card the kernel writes each problem's entries and
+    one tree over B Kp rows sums them (``update.reduce_entries``); at f32,
+    and on the CPU, the dense row-tile partials collapse with
+    :func:`_tree_sum` over axis 1. Returns (assign (B, N) int32, true
+    squared distance (B, N) f32, sums (B, K, F), counts (B, K))."""
     plan, cp, cn, params = _resolve_padded_batched(x, c, params)
     k, n = c.shape[1], plan.n
-    mind, am, sums, counts = _ll.lloyd_step_batched(
-        plan.xp, cp, cn, n, block_m=params.block_m, block_k=params.block_k,
-        block_f=params.block_f)
-    sums = _tree_sum(sums, 1)[:, :k, :plan.f]
-    counts = _tree_sum(counts, 1)[:, :k]
+    tiles = dict(block_m=params.block_m, block_k=params.block_k,
+                 block_f=params.block_f)
+    if _batched_writes_entries(plan.xp):
+        mind, am, entries, ecnt, idx = _ll.lloyd_step_batched_entries(
+            plan.xp, cp, cn, n, **tiles)
+        nb, kp = cp.shape[:2]
+        sums, counts = _up.reduce_entries(
+            entries, ecnt, idx, ntiles=plan.xp.shape[1] // params.block_m)
+        sums = sums.view(nb, kp, -1)[:, :k, :plan.f]
+        counts = counts.view(nb, kp)[:, :k]
+    else:
+        mind, am, sums, counts = _ll.lloyd_step_batched(plan.xp, cp, cn, n,
+                                                        **tiles)
+        sums = _tree_sum(sums, 1)[:, :k, :plan.f]
+        counts = _tree_sum(counts, 1)[:, :k]
     return am[:, :n], mind[:, :n] + plan.xn, sums, counts
 
 

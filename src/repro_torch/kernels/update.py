@@ -49,8 +49,11 @@ Two CUDA kernels in ``csrc/fk_update.cu``:
 entries from their epilogue (the writer of ``csrc/fk_entries.cuh``), and
 ``ops.fused_lloyd`` / ``fused_lloyd_ft`` reduce them with
 :func:`reduce_entries`; :func:`update_entries` of one tile, keyed, is the
-FT step's recompute. :func:`tree_sum` is ``ops._tree_sum`` (the batched
-and pruned kernels' dense partials, one problem or a stack of them).
+FT step's recompute; the 2-byte batched step writes each problem's
+entries at its own entry and idx rows, and :func:`reduce_entries` over B
+Kp rows sums the stack (:func:`dense_to_entries_batched`, its layout from
+dense blocks). :func:`tree_sum` is ``ops._tree_sum`` (the f32 batched
+and the pruned kernels' dense partials, one problem or a stack of them).
 Plain versions, used by the tests and on the CPU: :func:`update_plain`
 (the specification: dense :func:`tile_update_plain`, its present entries,
 the sparse tree), :func:`update_entries_plain` / :func:`dense_to_entries`,
@@ -230,6 +233,24 @@ def dense_to_entries(sums_p: torch.Tensor, counts_p: torch.Tensor, bm: int,
     ekey = torch.full((nt * bm,), -1, dtype=torch.int32, device=dev)
     ekey[row] = k.to(torch.int32)
     return entries, ecnt, idx, ekey
+
+
+def dense_to_entries_batched(sums_p: torch.Tensor, counts_p: torch.Tensor,
+                             bm: int) -> tuple:
+    """A stack's dense blocks (sums (B, T, Kp, Fp), counts (B, T, Kp)) in
+    the 2-byte batched step's layout: problem b's :func:`dense_to_entries`
+    at entry rows b T bm .. (its row tile t at global tile b T + t) and
+    idx rows b Kp .., the idx values the global rows. Returns (entries
+    (B T bm, Fp), ecnt (B T bm,), idx (B Kp, 2**L)); the tree over them
+    with rows = B Kp (:func:`reduce_entries`, ``ntiles`` T) is each
+    problem's tree."""
+    nb, nt = sums_p.shape[:2]
+    parts = [dense_to_entries(sums_p[b], counts_p[b], bm) for b in range(nb)]
+    idx = [torch.where(p[2] >= 0, p[2] + b * nt * bm, -1)
+           for b, p in enumerate(parts)]
+    return (torch.cat([p[0] for p in parts]),
+            torch.cat([p[1] for p in parts]),
+            torch.cat(idx).to(torch.int32))
 
 
 def _entries_tile_plain(xp, amp, kp, true_m, block_m, tile, out, ekey):

@@ -1,5 +1,6 @@
 """The tile kernels' designs, timed on the card: the 2-byte FT kernels'
-checksums and, with ``--f32``, the f32 kernel's loop.
+checksums and, with ``--f32``, the f32 kernel's loop, with ``--batched``
+the 2-byte batched step's parts, with ``--int8`` the int8 kernel's.
 
 Builds ``csrc/fk_kernels.cu`` as it is (``full``) and, from copies of it
 with statements cut (``CUTS``), measurement variants (``cut_*``: without
@@ -18,6 +19,19 @@ largest clean residual, bisected).
 
     PYTHONPATH=src python -m repro_torch.launch.lloyd_profile --out DIR
     PYTHONPATH=src python -m repro_torch.launch.lloyd_profile --f32 --out DIR
+    PYTHONPATH=src python -m repro_torch.launch.lloyd_profile --batched \
+        --out DIR
+    PYTHONPATH=src python -m repro_torch.launch.lloyd_profile --int8 --out DIR
+
+``--batched`` builds the 2-byte batched step's variants (``BATCHED_CUTS``:
+without its update, the entries' writer; without the tiles' min / argmin
+scan; without both) and times ``fk_lloyd_step_batched_lp`` at the PQ
+shape (B 48, N 65,536, F 16, K 256) at bf16 and fp16, interleaved, beside
+the tree over its entries.
+
+``--int8`` builds the int8 tile kernel's variants (``INT8_CUTS``: without
+the s8 MMAs, without the distances' f32 arithmetic, without both) and
+times ``distance_argmin_int8`` at M = 2**20, F = 128, K = 1000.
 
 ``--f32`` builds the f32 variants instead (``F32_CUTS``: without the next
 chunk's copies (the FMAs then read stale chunks), without the FMAs,
@@ -102,7 +116,41 @@ F32_CUTS = {
 F32_VARIANTS = {"full": (), "cut_stage": ("stage",), "cut_fma": ("fma",),
                 "cut_epi": ("epi",), "cut_enc": ("enc",),
                 "cut_chk": ("chk",), "cut_obs": ("obs",)}
+# The 2-byte batched step's parts (lloyd_tile_mma_kernel, kBatchedEntries):
+# its update (the entries' writer) and the tile's min / argmin scan (the
+# row's first column kept live, and a label spread over the tile's columns
+# as the real ones are, so the writer's work stays alike).
+BATCHED_CUTS = {
+    "update": [("    if (kUpd == kBatchedEntries) o.row0 = size_t(blockIdx.y)"
+                " * gridDim.x * BM;\n",
+                "    if (kUpd == kBatchedEntries) return;\n")],
+    "scan": [("    } else if (tid < BM) {\n      tile_min_argmin(Ds + tid * "
+              "(kBK + 1), cnS, c0, &lmin, &larg);\n    }\n",
+              "    } else if (tid < BM) {\n      lmin = cnS[0] - 2.0f * "
+              "Ds[tid * (kBK + 1)];\n      larg = c0 + ((tid * 37 + mt * 11) "
+              "& (kBK - 1));\n    }\n")],
+}
+BATCHED_VARIANTS = {"full": (), "cut_update": ("update",),
+                    "cut_scan": ("scan",), "cut_both": ("update", "scan")}
+# The int8 tile kernel's parts: the s8 MMAs (an integer xor of the loaded
+# fragments in their place keeps the ldmatrix loads live) and the
+# distances' f32 arithmetic (the accumulator's bits scanned as they are).
+INT8_CUTS = {
+    "mma": [("          mma_s8_16832(acc[i][j], a, b[j][0], b[j][1]);\n",
+             "          acc[i][j][0] ^= int(a[0] ^ b[j][0] ^ b[j][1]);\n")],
+    "arith": [("            const float w = __fmul_rn(\n"
+               "                sxr, __fmul_rn(__int2float_rn(acc[i][j][2 * h "
+               "+ e]),\n                               scr[j][e]));\n"
+               "            const float d = __fsub_rn(cnr[j][e], "
+               "__fmul_rn(2.0f, w));\n",
+               "            const float d = __int_as_float(acc[i][j][2 * h + "
+               "e]);\n")],
+}
+INT8_VARIANTS = {"full": (), "cut_mma": ("mma",), "cut_arith": ("arith",),
+                 "cut_both": ("mma", "arith")}
 M, F, K = 1 << 20, 128, 1000
+# the batched step's shape: the PQ codebooks (chip_smoke.py phases 6-7, 14)
+B_PQ, N_PQ, F_PQ, K_PQ = 48, 65_536, 16, 256
 
 
 def variant_source(src: Path, cuts: tuple, table: dict = CUTS,
@@ -120,21 +168,25 @@ def variant_source(src: Path, cuts: tuple, table: dict = CUTS,
     return text
 
 
-def build_variants(f32: bool = False) -> dict:
-    """Each variant's library, built in parallel into the package's
-    ``_build/`` directory (named by variant and source hash)."""
+def build_variants(mode: str = "ft") -> dict:
+    """Each variant of ``mode`` (``ft``, ``f32``, ``batched`` or ``int8``): its
+    library, built in parallel into the package's ``_build/`` directory
+    (named by variant and source hash)."""
     src, base = _build._paths("fk_kernels")
     _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
     procs = {}
-    variants = F32_VARIANTS if f32 else VARIANTS
+    variants, table, extra = {
+        "ft": (VARIANTS, CUTS, (NO_DECODE,)),
+        "f32": (F32_VARIANTS, F32_CUTS, ()),
+        "batched": (BATCHED_VARIANTS, BATCHED_CUTS, ()),
+        "int8": (INT8_VARIANTS, INT8_CUTS, ())}[mode]
     for name, cuts in variants.items():
         out = base.with_name(f"{base.stem}-{name}.so")
         vsrc = src
         if cuts:
             vsrc = out.with_suffix(".cu")
-            vsrc.write_text(variant_source(src, cuts, F32_CUTS, ()) if f32
-                            else variant_source(src, cuts))
+            vsrc.write_text(variant_source(src, cuts, table, extra))
         procs[name] = (out, subprocess.Popen(
             [_build.nvcc_path(), *_build.NVCC_FLAGS, f"-I{src.parent}",
              "-o", str(out), str(vsrc)], stdout=subprocess.PIPE,
@@ -390,6 +442,100 @@ def main_f32(args, libs: dict, emit) -> None:
           "ms": ms})
 
 
+def main_batched(args, libs: dict, emit) -> None:
+    """The 2-byte batched step's split at the PQ shape: each variant's
+    launch (``fk_lloyd_step_batched_lp``) interleaved, beside the tree over
+    the full build's entries (``update.reduce_entries``)."""
+    import numpy as np
+    x = torch.from_numpy(np.stack([make_blobs(N_PQ, F_PQ, K_PQ, seed=i)[0]
+                                   for i in range(B_PQ)])).cuda()
+    gen = torch.Generator().manual_seed(0)
+    c = torch.stack([xi[torch.randperm(N_PQ, generator=gen)[:K_PQ].cuda()]
+                     for xi in x])
+    params = ops.clamp_params(N_PQ, K_PQ, F_PQ, ops.DEFAULT_PARAMS)
+    bm = params.block_m
+    for dt in (torch.bfloat16, torch.float16):
+        plan, cp, cn, _ = ops._resolve_padded_batched(
+            ops.plan_data_batched(x.to(dt), params), c, None)
+        nb, mp, fp = plan.xp.shape
+        kp, nt = cp.shape[1], mp // bm
+        half = _build.HALF_KINDS[str(dt).replace("torch.", "")]
+        f32, i32 = dict(dtype=torch.float32, device="cuda"), dict(
+            dtype=torch.int32, device="cuda")
+        mind, am = torch.empty((nb, mp), **f32), torch.empty((nb, mp), **i32)
+        entries = torch.empty((nb * mp, fp), **f32)
+        ecnt = torch.empty(nb * mp, **f32)
+        idx = torch.empty((nb * kp, 1 << up.tree_levels(nt)), **i32)
+
+        def run(lib):
+            idx.fill_(-1)
+            err = lib.lib.fk_lloyd_step_batched_lp(
+                plan.xp.data_ptr(), cp.data_ptr(), cn.data_ptr(),
+                mind.data_ptr(), am.data_ptr(), entries.data_ptr(),
+                ecnt.data_ptr(), idx.data_ptr(), N_PQ, nb, mp, kp, fp, bm,
+                params.block_f, half, _build.stream_of(plan.xp))
+            if err:
+                raise RuntimeError(f"batched: CUDA error {err}")
+        times: dict = {}
+        for _ in range(args.rounds):
+            for name, lib in libs.items():
+                run(lib)
+                times.setdefault(name, []).append(
+                    event_ms(lambda: run(lib), args.reps))
+        run(libs["full"])
+        fill_ms = event_ms(lambda: idx.fill_(-1), args.reps)
+        run(libs["full"])
+
+        def tree():
+            return up.reduce_entries(entries, ecnt, idx, ntiles=nt)
+        tree()      # the tree kernel's library is built at first use
+        emit({"dtype": str(dt).replace("torch.", ""), "b": nb, "n": N_PQ,
+              "f": F_PQ, "k": K_PQ, "bm": bm,
+              "present_entries": int((idx >= 0).sum()),
+              "idx_fill_ms": fill_ms,
+              "ms": {k: statistics.median(v) for k, v in times.items()},
+              "tree_over_entries_ms": event_ms(tree, args.reps)})
+        del plan, cp, cn, entries, ecnt, idx
+        torch.cuda.empty_cache()
+
+
+def main_int8(args, libs: dict, emit) -> None:
+    """The int8 tile kernel's split at M = 2**20, F = 128, K = 1000: each
+    variant's launch (``fk_distance_argmin_int8``, BM = 128) interleaved,
+    the full build's outputs bit for bit the plain version's."""
+    from repro_torch.kernels import distance_argmin_int8 as dai
+    x_np, _ = make_blobs(M, F, K, seed=0)
+    x = torch.from_numpy(x_np).cuda()
+    del x_np
+    gen = torch.Generator().manual_seed(0)
+    c = x[torch.randperm(M, generator=gen)[:K].cuda()]
+    params = ops.clamp_params(M, K, F, ops.DEFAULT_PARAMS)
+    plan, cq, sc, cn, _ = ops._resolve_padded_int8(x, c, params)
+    mp, fp = plan.xq.shape
+    mind = torch.empty(mp, dtype=torch.float32, device="cuda")
+    am = torch.empty(mp, dtype=torch.int32, device="cuda")
+
+    def run(lib):
+        err = lib.lib.fk_distance_argmin_int8(
+            plan.xq.data_ptr(), cq.data_ptr(), plan.sx.data_ptr(),
+            sc.data_ptr(), cn.data_ptr(), mind.data_ptr(), am.data_ptr(), mp,
+            cq.shape[0], fp, params.block_m, _build.stream_of(cq))
+        if err:
+            raise RuntimeError(f"int8: CUDA error {err}")
+    run(libs["full"])
+    want = dai.distance_argmin_int8_plain(plan.xq, cq, plan.sx, sc, cn)
+    bitwise = bool(torch.equal(mind, want[0]) and torch.equal(am, want[1]))
+    times: dict = {}
+    for _ in range(args.rounds):
+        for name, lib in libs.items():
+            run(lib)
+            times.setdefault(name, []).append(event_ms(lambda: run(lib),
+                                                       args.reps))
+    emit({"m": M, "f": F, "k": K, "bm": params.block_m,
+          "full_bitwise_plain": bitwise,
+          "ms": {k: statistics.median(v) for k, v in times.items()}})
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=str(_build.BUILD_DIR / "lloyd_profile"))
@@ -397,12 +543,18 @@ def main(argv=None) -> int:
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--f32", action="store_true",
                     help="the f32 kernel's split instead of the 2-byte one")
+    ap.add_argument("--batched", action="store_true",
+                    help="the 2-byte batched step's split")
+    ap.add_argument("--int8", action="store_true",
+                    help="the int8 tile kernel's split")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA card")
     out = Path(args.out)
     out.mkdir(parents=True, exist_ok=True)
-    libs = build_variants(args.f32)
+    mode = ("f32" if args.f32 else "batched" if args.batched
+            else "int8" if args.int8 else "ft")
+    libs = build_variants(mode)
     # the port's own library is the full variant: same source and flags
     _build._LIBS["fk_kernels"] = libs["full"]
     results = []
@@ -411,8 +563,9 @@ def main(argv=None) -> int:
         results.append(rec)
         print(json.dumps(rec), flush=True)
 
-    if args.f32:
-        main_f32(args, libs, emit)
+    if mode != "ft":
+        {"f32": main_f32, "batched": main_batched,
+         "int8": main_int8}[mode](args, libs, emit)
         (out / "results.json").write_text(json.dumps(results, indent=1))
         return 0
 
