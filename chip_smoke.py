@@ -22,8 +22,9 @@ Phases, one line each:
   1. device: the card, its power limit, the kernels' build time, ptxas
      lines, and each f32 tile kernel instantiation's registers, spill
      bytes and resident blocks an SM (two blocks at BM = 128); the same of
-     the int8 tile kernel (s8 tensor cores) at Fp 128 and 1024, and ptxas'
-     registers and spills of the 2-byte batched step's entries variant;
+     the int8 tile kernel (s8 tensor cores) at Fp 128 and 1024, and of
+     every 2-byte tile kernel instantiation at Fp 32 and 128 (FT ones also
+     320), each gated at two blocks an SM;
   2. kernels vs their plain PyTorch versions (TF32 off) at M = 65,573,
      F = 100, K = 1000 and 100, and F = 300 (Fp = 320), K = 1000, plus
      planted FT faults; the one-pass
@@ -45,14 +46,14 @@ Phases, one line each:
   5. per-kernel launches on the main path (phases 3-4), time per launch at
      the phase-3 shape, the plain version's time, the bound and a library
      yardstick (``torch.addmm`` + ``min``; ``index_add_`` for the update),
-     each f32 row's share of its bound, ``lloyd_step`` bit for bit the
-     untouched pruned kernel at an all-zero skip mask (it keeps the first
-     f32 design's product loop and serial min/argmin: the witness that
-     the FMA chains did not move), the compact update's per-tile pass and
+     each f32 row's share of its bound, ``lloyd_step``'s minima and labels
+     bit for bit each distance's FMA chain over the features in order
+     (``distance_argmin.fma_f32`` on the card, 8 row tiles against every
+     centroid, then the first minimum: the witness that the FMA chains
+     did not move), the compact update's per-tile pass and
      tree timed apart and together
      beside ``index_add_`` and their bounds, the tree kernel's dense
-     variant on ``lloyd_step``-sized partials (the pruned fit's shape)
-     beside the torch tree and ``sum(0)``, ``ops.tiled_update`` with and
+     variant on ``lloyd_step``-sized partials beside the torch tree and ``sum(0)``, ``ops.tiled_update`` with and
      without DMR (ms, peak GB), and the one-pass steps as a fit runs them
      (``fused_lloyd``, ``fused_lloyd_ft``: ms and peak GB past X; the tree
      over ``lloyd_step``'s entries, the ``tree_reduce`` row: the sparse
@@ -74,13 +75,13 @@ Phases, one line each:
      card, device-busy share), ``lloyd_step`` on one problem alone, and the
      launches, times, bounds and yardsticks of the two batched kernels and
      of the tree kernel's dense variant over the batched partials (the
-     ``tree_reduce_dense`` row: its launches are the batched fit's and
-     phase 9's pruned fits');
+     ``tree_reduce_dense`` row: its launches are the batched fit's);
   8. the pruned one-pass step and the int8 distance kernel against their
      plain versions at phase 2's shapes: a random skip mask on integer data
-     (every sum exact, so labels, sums, counts bitwise), the all-zero mask
-     against ``lloyd_step`` bitwise (its partials' tree against the tree
-     over the entries), int8 on float data bitwise against its
+     (every sum exact, so labels, every entry and the trees over them
+     bitwise the plain dense route's), the all-zero mask against
+     ``lloyd_step`` bitwise (minima, labels, every entry), int8 on float
+     data bitwise against its
      plain version (exact integer products on both sides) at row tiles of
      128 and 64, also at F = 300 (X stashed, three chunks) and F = 1000
      (X's chunks streamed), and on quantisation-safe data against
@@ -93,7 +94,10 @@ Phases, one line each:
      inertia is at most 5 % above the ``fused`` fit's, one from the blob
      centres within 5 % of it, predict and score, and the exact inertia of
      int8 and ``fused`` fits from four more k-means++ seeds; the two
-     kernels' rows and the int8 kernel's share of its bound;
+     kernels' rows (the pruned step at the sorted fit's third step's mask:
+     its peak memory past X, the tree over its entries, the no-skip step
+     beside ``lloyd_step`` on the same inputs) and the int8 kernel's share
+     of its bound;
  10. ``FaultPolicy.detect()`` (offline ABFT, backend ``abft_offline``) fit,
      predict and score from phase 3's seeds at the phase-3 shape: ms/iter
      beside ``fused`` and ``lloyd_ft``, labels against the ``fused`` fit
@@ -153,9 +157,9 @@ Phases, one line each:
      alone, and the tree over all problems' entries bit for bit the dense
      route, ``tile_update`` per problem then the tree, with a perturbed
      entry as the control), the pruned step (a
-     random mask on integer data; the all-zero mask bit for bit the 2-byte
-     ``lloyd_step``) and the 2-byte ABFT GEMM (clean, a fault over the
-     dtype's threshold, one under it, two launches bitwise equal, its
+     random mask on integer data, entries and trees bitwise; the all-zero
+     mask bit for bit the 2-byte ``lloyd_step``, every entry) and the
+     2-byte ABFT GEMM (clean, a fault over the dtype's threshold, one under it, two launches bitwise equal, its
      encodings pre-pass) against their plain versions, also at the tiles
      its kernel treats apart (``ABFT_TILE_CASES``), and the
      fp16 flash kernel at internlm2-1.8b's prefill and decode shapes under
@@ -174,7 +178,9 @@ Phases, one line each:
      (e) the rows of the new kernels; the batched step's at the PQ shape
      with the entries-vs-dense control, the tree over its entries timed
      apart and the step's peak memory past X beside the dense blocks the
-     entries replace.
+     entries replace; the pruned step's at the sorted fit's third step's
+     mask with its peak memory past X and the no-skip step beside
+     ``lloyd_step``.
 
 A kernel's bound counts the work of the function at the true M, K and F,
 not at the padded tile grid; the padded figures are printed beside it.
@@ -377,19 +383,21 @@ def f32_tile_resources(da, log: str) -> dict:
                    lambda m: f"bm{m[1]}_ft{m[2]}_upd{m[3]}")
     out = {}
     for bm in (64, 128):
-        for ft, upd in ((0, 0), (0, 2), (0, 1), (1, 0), (1, 2)):
+        for ft, upd in ((0, 0), (0, 2), (0, 1), (1, 0), (1, 2), (0, 4)):
             name = f"bm{bm}_ft{ft}_upd{upd}"
             out[name] = {**ptx.get(name, {"spill_bytes": -1}),
                          **da.tile_resources(bm, bool(ft), upd, 128)}
     return out
 
 
-def redesigned_resources(dai, log: str) -> dict:
+def redesigned_resources(da, dai, log: str) -> dict:
     """The tensor-core int8 kernel, ``int8_tile_kernel<BM>`` (ptxas'
     registers and spills, and the runtime's at Fp = 128, the main path's,
-    and 1024, where X streams), and the 2-byte batched step's entries
-    variant, ``lloyd_tile_mma_kernel<T, BM, false, kBatchedEntries>``
-    (ptxas)."""
+    and 1024, where X streams), and every 2-byte tile kernel,
+    ``lloyd_tile_mma_kernel<T, BM, kFT, kUpd>`` (ptxas' registers and
+    spills, the runtime's at Fp = 128, where X is kept, and at Fp = 32, the
+    PQ shape's; the FT ones also at 320, where X streams)."""
+    import torch
     int8 = ptxas_of(log, r"16int8_tile_kernelILi(\d+)E",
                     lambda m: f"bm{m[1]}")
     out = {"int8_tile_kernel": {
@@ -397,10 +405,22 @@ def redesigned_resources(dai, log: str) -> dict:
                **{f"fp{fp}": dai.resources(int(name[2:]), fp)
                   for fp in (128, 1024)}}
         for name in ("bm64", "bm128")}}
-    out["lloyd_tile_mma_kernel_batched_entries"] = ptxas_of(
+    ptx = ptxas_of(
         log, r"21lloyd_tile_mma_kernelI(13__nv_bfloat16|6__half)Li(\d+)"
-             r"ELb0ELi3E",
-        lambda m: f"{'bf16' if 'bfloat' in m[1] else 'fp16'}_bm{m[2]}")
+             r"ELb(\d)ELi(\d)E",
+        lambda m: f"{'bf16' if 'bfloat' in m[1] else 'fp16'}_bm{m[2]}"
+                  f"_ft{m[3]}_upd{m[4]}")
+    mma = {}
+    for dtype in ("bfloat16", "float16"):
+        tag = "bf16" if dtype == "bfloat16" else "fp16"
+        for bm in (64, 128):
+            for ft, upd in ((0, 0), (0, 2), (0, 3), (1, 0), (1, 2), (0, 4)):
+                name = f"{tag}_bm{bm}_ft{ft}_upd{upd}"
+                mma[name] = {**ptx.get(name, {"spill_bytes": -1}), **{
+                    f"fp{fp}": da.tile_resources(
+                        bm, bool(ft), upd, fp, dtype=getattr(torch, dtype))
+                    for fp in ((32, 128, 320) if ft else (32, 128))}}
+    out["lloyd_tile_mma_kernel"] = mma
     return out
 
 
@@ -593,17 +613,63 @@ def entry_sums(up, out, bm: int) -> tuple:
     return up.reduce_entries(ent, ecnt, idx, ntiles=out[1].shape[0] // bm)
 
 
+def same_entries(torch, got, want) -> bool:
+    """Two entry sets (entries, ecnt, idx) of one layout equal where they
+    are written: the same idx table and, at every entry row it points at,
+    the same sums and count (rows past a tile's entries are unwritten)."""
+    e, n, i = got
+    we, wn, wi = want
+    rows = i[i >= 0].long()
+    return (bool(torch.equal(i, wi)) and bool(torch.equal(e[rows], we[rows]))
+            and bool(torch.equal(n[rows], wn[rows])))
+
+
 def same_step(torch, up, dense, one, bm: int, what: str) -> None:
-    """A dense one-pass output (a batched problem's or the pruned step's:
-    min, argmin, per-tile partials, counts, ...) bit for bit ``lloyd_step``'s
-    ``one``: distances and labels equal, the tree kernel over its partials
-    equal to the tree over ``one``'s entries."""
+    """A dense one-pass output (a batched problem's: min, argmin, per-tile
+    partials, counts) bit for bit ``lloyd_step``'s ``one``: distances and
+    labels equal, the tree kernel over its partials equal to the tree over
+    ``one``'s entries."""
     got = (up.tree_sum(dense[2]), up.tree_sum(dense[3]))
     expect(bool(torch.equal(dense[0], one[0]))
            and bool(torch.equal(dense[1], one[1]))
            and all(bool(torch.equal(g, w))
                    for g, w in zip(got, entry_sums(up, one, bm))),
            f"{what} is not bit for bit lloyd_step")
+
+
+def same_entries_step(torch, got, one, what: str) -> None:
+    """The pruned step's outputs (min, argmin, entries, ecnt, idx, tmin) at
+    a mask that skips nothing bit for bit ``lloyd_step``'s ``one``:
+    distances, labels and every entry."""
+    expect(bool(torch.equal(got[0], one[0]))
+           and bool(torch.equal(got[1], one[1]))
+           and same_entries(torch, got[2:5], one[2:5]),
+           f"{what} is not bit for bit lloyd_step")
+
+
+def pruned_canon(up, out, bm: int) -> tuple:
+    """The pruned step's and its plain version's outputs in one form:
+    (min, argmin, sums (Kp, Fp), counts (Kp,), tmin), the kernel's entries
+    through the tree over them, the plain version's dense partials through
+    the torch tree."""
+    if len(out) == 6:
+        return (out[0], out[1], *up.reduce_entries(
+            out[2], out[3], out[4], ntiles=out[1].shape[0] // bm), out[5])
+    return (out[0], out[1], up.tree_sum_plain(out[2]),
+            up.tree_sum_plain(out[3]), out[4])
+
+
+def check_pruned_exact(torch, up, got, want, bm: int, what: str) -> None:
+    """The pruned step against its plain version on exact (integer) data:
+    labels, every entry (the plain partials in the entries' layout) and the
+    trees over them bit for bit."""
+    g, w = pruned_canon(up, got, bm), pruned_canon(up, want, bm)
+    expect(bool(torch.equal(got[1], want[1])), f"{what}: argmin")
+    expect(same_entries(torch, got[2:5],
+                        up.dense_to_entries(want[2], want[3], bm)),
+           f"{what}: entries")
+    expect(bool(torch.equal(g[2], w[2])) and bool(torch.equal(g[3], w[3])),
+           f"{what}: sums or counts")
 
 
 def canon(up, name: str, out, bm: int) -> tuple:
@@ -1446,12 +1512,11 @@ def phase_pruned_int8_kernels(torch, ops, ll, llp, dai) -> dict:
         got = llp.lloyd_step_pruned(plan.xp, cp, cn, xn, skip, plan.m, **tiles)
         want = llp.lloyd_step_pruned_plain(plan.xp, cp, cn, xn, skip, plan.m,
                                            bm, bk)
-        for i, what in ((1, "argmin"), (2, "sums"), (3, "counts")):
-            expect(bool(torch.equal(got[i], want[i])),
-                   f"lloyd_step_pruned {what} vs plain, random mask K={k}")
+        check_pruned_exact(torch, up, got, want, bm,
+                           f"lloyd_step_pruned vs plain, random mask K={k}")
         ok, rec["pruned_random_min_err"] = rel_ok(got[0], want[0], 1e-5)
         expect(ok, f"lloyd_step_pruned min vs plain, random mask K={k}")
-        ok, rec["pruned_random_tmin_err"] = rel_ok(got[4], want[4], 1e-5)
+        ok, rec["pruned_random_tmin_err"] = rel_ok(got[5], want[4], 1e-5)
         expect(ok, f"lloyd_step_pruned tmin vs plain, random mask K={k}")
         rec["random_mask_skipped"] = float(skip.float().mean())
         del got, want
@@ -1464,11 +1529,11 @@ def phase_pruned_int8_kernels(torch, ops, ll, llp, dai) -> dict:
         zero = torch.zeros_like(skip)
         got = llp.lloyd_step_pruned(plan.xp, cp, cn, xn, zero, plan.m, **tiles)
         one = ll.lloyd_step(plan.xp, cp, cn, plan.m, **tiles)
-        same_step(torch, up, got, one, bm,
-                  f"lloyd_step_pruned without skips K={k}")
+        same_entries_step(torch, got, one,
+                          f"lloyd_step_pruned without skips K={k}")
         want = llp.lloyd_step_pruned_plain(plan.xp, cp, cn, xn, zero, plan.m,
                                            bm, bk)
-        ok, rec["pruned_tmin_err"] = rel_ok(got[4], want[4], 1e-5)
+        ok, rec["pruned_tmin_err"] = rel_ok(got[5], want[4], 1e-5)
         expect(ok and bool(torch.equal(got[1], want[1])),
                f"lloyd_step_pruned tmin or labels vs plain, no skips K={k}")
         del got, one, want
@@ -1683,6 +1748,8 @@ def phase_pruned_int8_fits(torch, ops, hw, llp, dai, KMeans, x, labels_true,
         return llp.lloyd_step_pruned_plain(plan.xp, cp, cn, xn, skip, plan.m,
                                            bm, bk)
     k_out, p_out = pruned(), pruned_plain()
+    n_present = int((k_out[4] >= 0).sum())
+    k_out, p_out = pruned_canon(up, k_out, bm), pruned_canon(up, p_out, bm)
     expect(bool(torch.equal(k_out[1], p_out[1]))
            and bool(torch.equal(k_out[3], p_out[3])),
            "lloyd_step_pruned labels or counts vs plain at the phase-3 shape")
@@ -1690,18 +1757,33 @@ def phase_pruned_int8_fits(torch, ops, hw, llp, dai, KMeans, x, labels_true,
                  if a.is_floating_point())
     del k_out, p_out
     torch.cuda.empty_cache()
+    # the step's memory past X (the first design wrote 4.33 GB of dense
+    # partials here), the tree over its entries, and lloyd_step on the same
+    # inputs beside the no-skip step
+    from repro_torch.kernels import lloyd_step as ll
+    rec["pruned_step_peak_gb_past_x"] = peak_gb(pruned)
+    out = pruned()
+    rec["pruned_tree_over_entries_ms"] = cuda_ms(
+        lambda: up.reduce_entries(out[2], out[3], out[4], ntiles=nt))
+    rec["pruned_present_entries"] = n_present
+    del out
     rec["lloyd_step_pruned_no_skip_ms"] = cuda_ms(
         lambda: llp.lloyd_step_pruned(plan.xp, cp, cn, xn,
                                       torch.zeros_like(skip), plan.m,
                                       **tiles))
+    rec["lloyd_step_same_inputs_ms"] = cuda_ms(
+        lambda: ll.lloyd_step(plan.xp, cp, cn, plan.m, **tiles))
     m_f = float(M_FULL * F_FULL)
+    # the computed cells' GEMM against X read once, C, the labels and
+    # distances, the rows' norms, the entries and idx, the mask and bounds
     b_ms, b_by = bound(2.0 * cells * F_FULL + m_f,
                        4.0 * m_f + 4.0 * K_FULL * F_FULL + 12.0 * M_FULL
-                       + 4.0 * nt * K_FULL * (F_FULL + 1) + 8.0 * nt * nkt)
+                       + entry_bytes(n_present, F_FULL, K_FULL, nt)
+                       + 8.0 * nt * nkt)
     rec["bound_padded_ms"] = {"lloyd_step_pruned": bound(
         2.0 * computed * bm * bk * fp + mp * fp,
         4.0 * mp * fp + 4.0 * kp * fp + 12.0 * mp
-        + 4.0 * nt * kp * (fp + 1) + 8.0 * nt * nkt)[0]}
+        + entry_bytes(n_present, fp, kp, nt) + 8.0 * nt * nkt)[0]}
     rows = [{"name": "lloyd_step_pruned", "route": "cuda",
              "source": "src/repro_torch/csrc/fk_kernels.cu",
              "replaces": "src/repro/kernels/lloyd_step_pruned.py:189",
@@ -3267,12 +3349,11 @@ def phase_lowp_rest_kernels(torch, ops, ll, llp, mma, dtype) -> dict:
         got = llp.lloyd_step_pruned(plan.xp, cp, cn, xn, skip, plan.m, **tiles)
         want = llp.lloyd_step_pruned_plain(plan.xp, cp, cn, xn, skip, plan.m,
                                            bm, bk)
-        for i, what in ((1, "argmin"), (2, "sums"), (3, "counts")):
-            expect(bool(torch.equal(got[i], want[i])),
-                   f"{dtype} lloyd_step_pruned {what} vs plain, random mask "
-                   f"K={k}")
+        check_pruned_exact(torch, up, got, want, bm,
+                           f"{dtype} lloyd_step_pruned vs plain, random mask "
+                           f"K={k}")
         ok, rec["random_min_err"] = rel_ok(got[0], want[0], 1e-5)
-        ok2, rec["random_tmin_err"] = rel_ok(got[4], want[4], 1e-5)
+        ok2, rec["random_tmin_err"] = rel_ok(got[5], want[4], 1e-5)
         expect(ok and ok2, f"{dtype} lloyd_step_pruned min / tmin vs plain, "
                f"random mask K={k}")
         rec["random_mask_skipped"] = float(skip.float().mean())
@@ -3284,11 +3365,11 @@ def phase_lowp_rest_kernels(torch, ops, ll, llp, mma, dtype) -> dict:
         zero = torch.zeros_like(skip)
         got = llp.lloyd_step_pruned(plan.xp, cp, cn, xn, zero, plan.m, **tiles)
         one = ll.lloyd_step(plan.xp, cp, cn, plan.m, **tiles)
-        same_step(torch, up, got, one, bm,
-                  f"{dtype} lloyd_step_pruned without skips K={k}")
+        same_entries_step(torch, got, one,
+                          f"{dtype} lloyd_step_pruned without skips K={k}")
         want = llp.lloyd_step_pruned_plain(plan.xp, cp, cn, xn, zero, plan.m,
                                            bm, bk)
-        ok, rec["no_skip_tmin_sq_err"] = tile_bound_ok(torch, got[4], want[4],
+        ok, rec["no_skip_tmin_sq_err"] = tile_bound_ok(torch, got[5], want[4],
                                                        xn)
         expect(ok, f"{dtype} lloyd_step_pruned tmin vs plain K={k}: squared "
                f"bounds off by {rec['no_skip_tmin_sq_err']}")
@@ -3790,24 +3871,31 @@ def phase_lowp_rest(torch, ops, hw, ll, llp, mma, fa, attn, KMeans,
             return llp.lloyd_step_pruned_plain(plan.xp, cp, cn, xn, skip,
                                                plan.m, bm, bk)
         k_out, p_out = pruned(), pruned_plain()
+        n_present = int((k_out[4] >= 0).sum())
         r["pruned"]["near_tie_labels_row"] = near_tie_rows(
             torch, plan.xp, cp, cn, k_out[1], p_out[1],
             f"{dtype} lloyd_step_pruned at the phase-3 shape")
+        k_out, p_out = pruned_canon(up, k_out, bm), pruned_canon(up, p_out,
+                                                                 bm)
         pr_err = max(max_err(a, b) for a, b in zip(k_out, p_out)
                      if a.is_floating_point())
         del k_out, p_out
         torch.cuda.empty_cache()
         r["pruned"]["row_skipped"] = 1.0 - computed / (nt * nkt)
+        r["pruned"]["step_peak_gb_past_x"] = peak_gb(pruned)
+        r["pruned"]["present_entries"] = n_present
         r["pruned"]["no_skip_ms"] = cuda_ms(
             lambda: llp.lloyd_step_pruned(plan.xp, cp, cn, xn,
                                           torch.zeros_like(skip), plan.m,
                                           **tiles))
+        r["pruned"]["lloyd_step_same_inputs_ms"] = cuda_ms(
+            lambda: ll.lloyd_step(plan.xp, cp, cn, plan.m, **tiles))
         cn_lo = cn.to(dt)
         lib_ms = cuda_ms(lambda: torch.addmm(
             cn_lo[None, :], plan.xp, cp.T, beta=1.0, alpha=-2.0).min(dim=1))
         b_ms, b_by = bound(2.0 * cells * F_FULL + m_f,
                            2.0 * m_f + 2.0 * K_FULL * F_FULL + 12.0 * M_FULL
-                           + 4.0 * nt * K_FULL * (F_FULL + 1)
+                           + entry_bytes(n_present, F_FULL, K_FULL, nt)
                            + 8.0 * nt * nkt, peak=hw.PEAK_FLOPS_BF16)
         rows.append({"name": f"lloyd_step_pruned_{tag}", "route": "cuda",
                      "source": "src/repro_torch/csrc/fk_kernels.cu",
@@ -3906,7 +3994,7 @@ def main() -> int:
              if "registers" in ln or "spill" in ln
              or "Compiling entry function" in ln or "C75" in ln]
     f32_tiles = f32_tile_resources(da, libs["fk_kernels"].ptxas_log)
-    redesigned = redesigned_resources(dai, libs["fk_kernels"].ptxas_log)
+    redesigned = redesigned_resources(da, dai, libs["fk_kernels"].ptxas_log)
     emit({"phase": 1, "device": kind, "nvidia_smi": smi_line,
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "build_s": round(build_s, 3),
@@ -3917,6 +4005,10 @@ def main() -> int:
         expect(not name.startswith("bm128") or r["blocks_per_sm"] >= 2,
                f"f32 lloyd_tile_kernel {name}: {r['blocks_per_sm']} block(s) "
                f"an SM")
+    for name, r in redesigned["lloyd_tile_mma_kernel"].items():
+        expect(all(v["blocks_per_sm"] >= 2 for key, v in r.items()
+                   if key.startswith("fp")),
+               f"lloyd_tile_mma_kernel {name}: {r} (two blocks an SM)")
 
     kern = (da, ll, daft, llft)
     emit(phase_kernels(torch, ops, kern))
@@ -4092,19 +4184,26 @@ def main() -> int:
         torch.cuda.empty_cache()
     f32_share = {r["name"]: r["bound_ms"] / r["ms"] for r in rows}
     # the witness that lloyd_step's FMA chains and min/argmin did not move:
-    # the pruned kernel keeps the first f32 design's product loop and serial
-    # scan; at an all-zero skip mask its labels and minima are lloyd_step's,
-    # bitwise
-    skip0 = torch.zeros((nt, kp // params.block_k), dtype=torch.int32,
-                        device="cuda")
-    pr = llp.lloyd_step_pruned(plan.xp, cp, cn, (plan.xp ** 2).sum(1),
-                               skip0, plan.m, **tiles)
+    # for 8 row tiles spread over X (1024 rows) against every centroid, each
+    # distance's FMAs chained over the features in order on the card, each
+    # an f32 FMA emulated in f64 (distance_argmin.fma_f32), then cn - 2 acc
+    # and the first minimum: lloyd_step's minima and labels bit for bit
     st = ll.lloyd_step(plan.xp, cp, cn, plan.m, **tiles)
-    pruned_witness = bool(torch.equal(pr[1], st[1])) and bool(torch.equal(
-        pr[0].view(torch.int32), st[0].view(torch.int32)))
-    expect(pruned_witness, "lloyd_step's minima / labels are not bit for bit "
-           "the pruned kernel's at an all-zero skip mask (phase-3 shape)")
-    del pr, st, skip0
+    sample = torch.linspace(0, nt - 1, 8, device="cuda").round().long()
+    wrows = (sample[:, None] * params.block_m + torch.arange(
+        params.block_m, device="cuda")[None, :]).reshape(-1)
+    xw = plan.xp[wrows]
+    acc = torch.zeros((xw.shape[0], kp), dtype=torch.float32, device="cuda")
+    for f in range(fp):
+        acc = da.fma_f32(xw[:, f, None], cp[None, :, f], acc)
+    w_min, w_arg = ref.first_min(cn[None, :] - 2.0 * acc)
+    fma_witness = {"rows": int(wrows.numel()), "bitwise": bool(
+        torch.equal(w_arg, st[1][wrows])) and bool(torch.equal(
+            w_min.view(torch.int32), st[0][wrows].view(torch.int32)))}
+    expect(fma_witness["bitwise"], "lloyd_step's minima / labels are not "
+           "bit for bit the features' FMA chains (fma_f32) and their first "
+           "minimum (phase-3 shape)")
+    del st, xw, acc, w_min, w_arg
     torch.cuda.empty_cache()
     # the f32 tile kernels' pre-pass: C feature-major, C's encodings (FT)
     got = da.prep_centroids(cp, encodings=True)
@@ -4176,7 +4275,7 @@ def main() -> int:
                                         sums_p, counts_p, x_bytes, bound,
                                         launches, "")
     rec5 = {"phase": 5, **rec_a, "f32_bound_share": f32_share,
-            "lloyd_step_bitwise_pruned_zero_mask": pruned_witness,
+            "lloyd_step_fma_witness": fma_witness,
             "library_calls": {"prep_centroids": "c.t().contiguous(): the "
                               "transpose alone, no encodings"}}
     rows.extend(rows_a)

@@ -123,7 +123,7 @@ class KMeans:
         if batch_size is not None:
             raise NotImplementedError(
                 "mini-batch fits (batch_size=) are not ported yet; they come "
-                "with a later slice (ROADMAP Queue 1)")
+                "with a later slice")
         if predict_chunk_rows is not None and predict_chunk_rows < 1:
             raise ValueError(f"predict_chunk_rows must be >= 1, "
                              f"got {predict_chunk_rows}")
@@ -470,8 +470,9 @@ class KMeans:
 
     def to_service(self, **_: Any) -> Any:
         raise NotImplementedError(
-            "the serving layer (repro.serve) is not ported yet; it comes with "
-            "a later slice (ROADMAP Queue 1, item 8)")
+            "the k-means serving layer (repro.serve's compiled cells, "
+            "codebook store and service) is not ported yet; it comes with a "
+            "later slice")
 
     # ------------------------------------------------------------------
     # serializable state

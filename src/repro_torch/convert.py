@@ -68,8 +68,8 @@ def from_reference_state(state: dict) -> dict:
     if fault.pop("worker_loss", _REF_WORKER_LOSS) != _REF_WORKER_LOSS:
         raise NotImplementedError(
             "FaultPolicy(worker_loss='shrink') (elastic checkpoint-restart) "
-            "is not ported yet; it comes with the distributed slice (ROADMAP "
-            "Queue 1, item 10)")
+            "is not ported yet; it comes with the port of the distributed "
+            "fit and elastic checkpoint-restart (torch.distributed meshes)")
     if fault.get("injection") is not None:
         for key in _REF_BITS:
             fault["injection"].pop(key, None)

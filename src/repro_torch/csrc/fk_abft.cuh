@@ -52,8 +52,9 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// ABFT verification of one output tile, run by warp 0: locate_and_correct's
-// decode with the tile's sizes at run time. col1/row1 are the expected
+// ABFT verification of one output tile, run by warp 0: the reference's
+// detect / locate rule (a threshold on the expected side's scale, the
+// e2/e1 ratio) with the tile's sizes at run time. col1/row1 are the expected
 // checksums, rc*/rr* the residuals. Returns 1 if detected, with the element
 // (i, j) and the delta to subtract.
 __device__ int locate_tile(const float* col1, const float* row1,

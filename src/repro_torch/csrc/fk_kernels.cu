@@ -1,7 +1,7 @@
 // Hand-written Hopper (sm_90a) kernels for the FT K-means main paths.
 //
 // One templated tile kernel, lloyd_tile_kernel<BM, kFT, kUpd>, carries
-// five Pallas TPU kernels of the reference package:
+// six Pallas TPU kernels of the reference package:
 //
 //   kFT  kUpd      problems  replaces (src/repro/kernels/...)
 //   no   none      1         distance_argmin.py    distance_argmin
@@ -9,6 +9,7 @@
 //   no   dense     B         lloyd_step.py         lloyd_step_batched
 //   yes  none      1         distance_argmin_ft.py distance_argmin_ft
 //   yes  entries   1         lloyd_step_ft.py      lloyd_step_ft
+//   no   pruned    1         lloyd_step_pruned.py  lloyd_step_pruned
 //
 // Its inputs are f32 (CUDA-core FMAs). lloyd_tile_mma_kernel<T, BM, kFT,
 // kUpd> is the same kernel for __nv_bfloat16 or __half X and C (the
@@ -34,14 +35,14 @@
 // so one tree over B Kp rows sums every problem. Only those two have the
 // problem axis. Dense or entries, each (tile, k, f) sum is the same
 // sequence of adds, so their trees give the same bits.
+// The pruned step (kPrunedEntries, both kernels) walks only the centroid
+// tiles a (row tile, centroid tile) skip mask leaves: a block lists them
+// once, its staging ring prefetches through that list, a computed tile is
+// lloyd_step's code plus the tile's Euclidean bound, and the update is
+// lloyd_step's entries. Every mode is a compile-time parameter, so each
+// instantiation carries only its own code.
 // kmeanspp_round_kernel replaces kmeanspp_init.py kmeanspp_round (one D^2
 // seeding round over (row tile, problem)).
-// lloyd_pruned_kernel replaces lloyd_step_pruned.py lloyd_step_pruned: the
-// one-pass trip over a centroid tile, gated by a (row tile, centroid tile)
-// skip mask, plus the tile's Euclidean bound. It is a __global__ of its own,
-// so the instantiations above keep their signatures and code.
-// lloyd_pruned_mma_kernel<T, BM> is its bf16 / fp16 twin, whose trips run
-// lloyd_tile_mma_kernel's product.
 // int8_tile_kernel replaces distance_argmin_int8.py distance_argmin_int8:
 // mma.sync m16n8k32 s8 on the tensor cores over a stash of X's row tile and
 // a cp.async ring of C's chunks, then the f32 scale correction and the
@@ -55,17 +56,17 @@
 // shadow in reversed order within each 32-row group), summed per slab in a
 // second pass and compared in a third. No float atomics anywhere.
 //
-// Instantiations: lloyd_tile_kernel 2 (BM = 64, 128) x 5 (kFT, kUpd: the
-// table's rows) = 10, lloyd_tile_mma_kernel 2 (T) x 2 (BM) x 5 (the
-// batched row with kBatchedEntries) = 20,
+// Instantiations: lloyd_tile_kernel 2 (BM = 64, 128) x 6 (kFT, kUpd: the
+// table's rows) = 12, lloyd_tile_mma_kernel 2 (T) x 2 (BM) x 6 (the
+// batched row with kBatchedEntries) = 24,
 // lloyd_encode_kernel 2 (T), lloyd_prep_kernel 1 (the f32 kernel's
 // pre-pass), update_tiles_kernel 3 (T) x 2 (BM), kmeanspp_round_kernel 1,
-// lloyd_pruned_kernel 2 (BM), lloyd_pruned_mma_kernel 2 (T) x 2 (BM),
-// int8_tile_kernel 2 (BM), the three DMR kernels: 53 kernels.
+// int8_tile_kernel 2 (BM), the three DMR kernels: 51 kernels.
 //
 // The epilogues are single __device__ definitions (tile_min_argmin,
-// fold_min, locate_and_correct, emit_update, emit_entries; the warp
-// reductions in fk_abft.cuh, shared with fk_abft_gemm.cu;
+// fold_min, min_pair, emit_update, emit_entries; the warp reductions and
+// the ABFT decode, locate_tile, in fk_abft.cuh, shared with
+// fk_abft_gemm.cu;
 // write_entries in fk_entries.cuh, shared with fk_update.cu) so the
 // variants agree bit for bit by construction, as the reference's shared
 // tile_min_argmin/_emit_update do.
@@ -81,16 +82,19 @@
 //     two-slot ring; each of the 256 threads keeps a (BM/16) x 8 f32
 //     accumulator in registers (CUDA-core FMA, no tensor cores, no TF32)
 //     fed by 16-byte shared loads (see lloyd_tile_kernel);
-//   * bf16/fp16: X and C chunks are staged row-major as T (16-byte loads);
-//     the 8 warps tile the BM x 128 accumulator 2 x 4, each warp (BM/2) x 32
-//     as (BM/32) x 4 m16n8 f32 fragments, two k16 mma.sync a chunk;
-//   * bf16/fp16 (and the pruned kernels): at the end of a centroid
-//     tile the accumulator goes to shared memory (Ds); row r's min/argmin
-//     is scanned by thread r with a strict '<', so the lowest index wins a
-//     tie inside a tile and the earlier tile wins a tie across tiles -- the
-//     jnp.argmin tie-break; f32: every thread scans its fragment and the
-//     row's 16 threads combine by shuffles (tile_fold), the same result;
-//     int8: the same rule from the MMA fragments (int8_tile_kernel);
+//   * bf16/fp16: X's row tile is copied once by 16-byte cp.async and kept
+//     (streamed with C's chunks where it does not fit), C's chunks run
+//     through a three-slot cp.async ring; the 8 warps tile the BM x 128
+//     accumulator 2 x 4, each warp (BM/2) x 32 as (BM/32) x 4 m16n8 f32
+//     fragments loaded by ldmatrix, one k16 mma.sync a fragment a step;
+//   * min/argmin: the lowest index wins a tie inside a tile and the
+//     earlier tile wins a tie across tiles -- the jnp.argmin tie-break, the
+//     serial scan's strict '<' (tile_min_argmin). f32: every thread scans
+//     its fragment and the row's 16 threads combine by shuffles
+//     (tile_fold); bf16/fp16 and int8: every lane scans its MMA fragment,
+//     the quad and the row band's 4 warps combine (min_pair); the same
+//     result. The 2-byte FT kernels keep the stored tile (Ds) and thread
+//     r's serial scan, whose pass also sums the observed checksums;
 //   * ABFT (kFT), f32: expected e1/e2 column and row checksums accumulate
 //     in f32 from the staged chunks; at each (row tile, centroid tile)
 //     interval the observed checksums of Ds are compared, a fault is
@@ -114,15 +118,17 @@
 // f32 batched step's dense partial-sum buffer bounds it by bytes; the
 // 2-byte one writes the present entries only (~101 of 256 clusters a
 // 128-row tile at the PQ shape).
-// The 2-byte product is unpipelined (no ldmatrix, cp.async, wgmma or TMA).
-// The pruned step needs the GEMM of its computed tiles only; at 2-byte
-// inputs the partial-sum buffer's bytes bound it, as the update variants.
+// The 2-byte product runs mma.sync fed by ldmatrix from a cp.async ring
+// (not wgmma: its accumulation order is not mma.sync's, and the bits are
+// the bar).
+// The pruned step needs the GEMM of its computed tiles only, against X
+// read once and its entries.
 // The int8 GEMM is bound by the int8 tensor cores' 1,979 Tera-op/s, which
 // it runs on (mma.sync s8); its f32 epilogue over every distance comes
 // next.
 // The seeding round is bound by the bytes of X (one GEMV per round). The
 // DMR update is bound by the bytes of X and the assignments, read once.
-// wgmma and TMA are later work here; the int8 kernel alone keeps a
+// wgmma and TMA are later work here; the int8 and 2-byte kernels keep a
 // shared-memory X stash.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler
@@ -156,12 +162,15 @@ static_assert(kBK == 128, "the encoding shifts are kBK = 128's");
 // the dense (Kp, Fp) block of every row tile (the f32 lloyd_step_batched:
 // emit_update), the tile's entries (lloyd_step, lloyd_step_ft:
 // write_entries) or, over a (row tile, problem) grid, each problem's
-// entries (the 2-byte lloyd_step_batched, lloyd_tile_mma_kernel only).
+// entries (the 2-byte lloyd_step_batched, lloyd_tile_mma_kernel only), or
+// the entries of a walk over the centroid tiles a skip mask leaves
+// (lloyd_step_pruned, with each computed tile's Euclidean bound).
 enum UpdateMode {
   kNoUpdate = 0,
   kDenseUpdate = 1,
   kEntryUpdate = 2,
-  kBatchedEntries = 3
+  kBatchedEntries = 3,
+  kPrunedEntries = 4
 };
 
 // Injection descriptor slots, as in the reference:
@@ -186,32 +195,6 @@ __device__ __forceinline__ UpdInj load_upd_inj(const int* p) {
   UpdInj u{p[7], p[8], p[9], p[10], __int_as_float(p[11])};
   return u;
 }
-
-// Shared-memory layout of one block (dynamic shared memory, 4-byte words).
-template <int BM>
-struct Layout {
-  static constexpr int kDs = 0;                          // BM x (kBK+1)
-  static constexpr int kXs = kDs + BM * (kBK + 1);       // kChunk x (BM+1)
-  static constexpr int kCs = kXs + kChunk * (BM + 1);    // kChunk x (kBK+1)
-  static constexpr int kCn = kCs + kChunk * (kBK + 1);   // kBK
-  static constexpr int kCol1 = kCn + kBK;                // expected, kBK
-  static constexpr int kCol2 = kCol1 + kBK;
-  static constexpr int kRow1 = kCol2 + kBK;              // expected, BM
-  static constexpr int kRow2 = kRow1 + BM;
-  static constexpr int kResC1 = kRow2 + BM;              // residuals
-  static constexpr int kResC2 = kResC1 + kBK;
-  static constexpr int kResR1 = kResC2 + kBK;
-  static constexpr int kResR2 = kResR1 + BM;
-  static constexpr int kPart = kResR2 + BM;              // 4 x 8 x kChunk
-  static constexpr int kEnc = kPart + 4 * 8 * kChunk;    // 4 x kChunk
-  static constexpr int kAm = kEnc + 4 * kChunk;          // ints below
-  static constexpr int kKey = kAm + BM;
-  static constexpr int kOrder = kKey + BM;
-  static constexpr int kSKey = kOrder + BM;
-  static constexpr int kVerdict = kSKey + BM;            // 4 words
-  static constexpr int kWords = kVerdict + 4;
-  static constexpr size_t kBytes = size_t(kWords) * 4;
-};
 
 // Update-only layout (recompute kernel): the int region alone.
 template <int BM>
@@ -263,46 +246,7 @@ __device__ __forceinline__ void fold_min(float* best, int* arg, float lmin,
   }
 }
 
-// --- epilogue 3: ABFT verification interval of one (row, centroid) tile ---
-// Run by warp 0 after the residuals are in shared memory. Detect against
-// thr = factor * max(max|col1|, max|row1|, 1) (the expected, clean side),
-// locate with the e2/e1 ratio, correct Ds in place. Returns 1 if detected.
-template <int BM>
-__device__ int locate_and_correct(float* sm, int lane, float thr_factor) {
-  using L = Layout<BM>;
-  const float* col1 = sm + L::kCol1;
-  const float* row1 = sm + L::kRow1;
-  const float* rc1 = sm + L::kResC1;
-  const float* rc2 = sm + L::kResC2;
-  const float* rr1 = sm + L::kResR1;
-  const float* rr2 = sm + L::kResR2;
-  float sc = 0.0f;
-  for (int t = lane; t < kBK; t += 32) sc = fmaxf(sc, fabsf(col1[t]));
-  for (int t = lane; t < BM; t += 32) sc = fmaxf(sc, fabsf(row1[t]));
-  const float scale = fmaxf(warp_max(sc), 1.0f);
-  const float thr = thr_factor * scale;
-  float max_c, max_r;
-  int j, i_direct;
-  warp_absmax(rc1, kBK, lane, &max_c, &j);
-  warp_absmax(rr1, BM, lane, &max_r, &i_direct);
-  const int detected = (max_c > thr) || (max_r > thr);
-  if (lane == 0 && detected) {
-    const float dcol = rc1[j];
-    const float safe = dcol == 0.0f ? 1.0f : dcol;
-    const bool use_ratio = fabsf(dcol) > thr;
-    const int i = use_ratio ? clamp_index(rintf(rc2[j] / safe) - 1.0f, BM)
-                            : i_direct;
-    const float drow = rr1[i];
-    const float delta = fabsf(dcol) > fabsf(drow) ? dcol : drow;
-    const float safe_r = drow == 0.0f ? 1.0f : drow;
-    const int jj = use_ratio ? j
-                             : clamp_index(rintf(rr2[i] / safe_r) - 1.0f, kBK);
-    sm[L::kDs + i * (kBK + 1) + jj] -= delta;
-  }
-  return detected;
-}
-
-// --- epilogue 4: the one-pass update of one row tile ----------------------
+// --- epilogue 3: the one-pass update of one row tile ----------------------
 // am: the tile's final assignment (shared). Rows >= true_m are padding and
 // enter neither sums nor counts. Writes the tile's (kp, fp) partial sums and
 // (kp,) counts. Each (k, f) sum starts at 0 and adds its cluster's rows in
@@ -352,10 +296,10 @@ __device__ void emit_update(const int* am, int* key, int* order, int* skey,
   }
 }
 
-// --- epilogue 5: the one-pass update as entries (kEntryUpdate) -----------
+// --- epilogue 4: the one-pass update as entries (kEntryUpdate) -----------
 // write_entries on the tile's final labels (best_arg of thread tid < BM),
-// its scratch in the int region and, for the checksums' warp partials, in
-// Ds (free once the last centroid tile's min/argmin is folded). kFT: the
+// its ints at es (4 BM) and, for the checksums' warp partials, upart (8 x
+// 2 x 128 floats; both in space the tiles' loop no longer needs). kFT: the
 // tile's expected update checksums come from the rows the sums load; then
 // the simulated SEU of the update slot lands on the tile's entry of the
 // cluster, or, where the tile has no row of that cluster, on the spare
@@ -363,18 +307,17 @@ __device__ void emit_update(const int* am, int* key, int* order, int* skey,
 // plus delta, which idx[cluster][slot] then points at, so the tree and the
 // verification see the value the dense route would hold there. spare gets
 // (tile, cluster). Called by all threads of the block.
-template <typename T, int BM, bool kFT, typename L = Layout<BM>>
-__device__ void emit_entries(float* sm, int best_arg, const T* x, int mt,
-                             int true_m, const EntryOut& o,
+template <typename T, int BM, bool kFT>
+__device__ void emit_entries(int* es, float* upart, int best_arg, const T* x,
+                             int mt, int true_m, const EntryOut& o,
                              const int* __restrict__ inj,
                              int* __restrict__ spare,
                              float* __restrict__ ucheck,
                              float* __restrict__ ccheck) {
   using S = EntryScratch<BM, kThreads>;
   static_assert(S::kInts <= 4 * BM, "the int region holds the writer's");
-  int* es = reinterpret_cast<int*>(sm) + L::kAm;
   const int nseg = write_entries<T, BM, kThreads, kFT>(
-      best_arg, x, mt, true_m, o, false, es, sm + L::kDs,
+      best_arg, x, mt, true_m, o, false, es, upart,
       kFT ? ucheck + size_t(mt) * 2 * o.fp : nullptr,
       kFT ? ccheck + size_t(mt) * 2 : nullptr);
   if (!kFT) return;
@@ -457,7 +400,7 @@ __device__ void emit_entries(float* sm, int best_arg, const T* x, int mt,
 //     whole Ds beside the ring would leave one block an SM), so the next
 //     tile's first copy is in flight as in the other kernels; the observed
 //     checksums and residuals run as before, warp 0 decodes them with
-//     locate_and_correct's rule (locate_tile, fk_abft.cuh) and the thread
+//     the reference's decode rule (locate_tile, fk_abft.cuh) and the thread
 //     that holds the located element subtracts the delta in its register.
 //     The simulated SEU lands after the FMAs of the same chunk as before;
 //   * update: the final labels go to shared memory for emit_update (dense)
@@ -483,9 +426,18 @@ __device__ __forceinline__ void cp_async_commit() {
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
+__device__ __forceinline__ void cp_async16b(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(gmem)
+               : "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
 
-// Shared-memory layout of lloyd_tile_kernel (4-byte words). The names past
-// the ring are Layout<BM>'s, so emit_entries takes it.
+// Shared-memory layout of lloyd_tile_kernel (4-byte words).
 template <int BM>
 struct F32Layout {
   // a slot: X's chunk then C's, both feature-major (kChunk rows of kPX =
@@ -519,8 +471,13 @@ struct F32Layout {
   static constexpr int kSKey = kOrder + BM;
   static constexpr int kLab = kSKey + BM;                  // final labels
   static constexpr int kXenc = kVerdict + 4;     // 2 x fp, then kDsHi (kFT)
-  static size_t bytes(bool ft, int fp) {
-    return size_t(kXenc + (ft ? 2 * fp + kDsHi : 0)) * 4;
+  // pruned (never kFT): two tiles' warp bounds (2 x 8 words), the rows'
+  // squared norms (BM), then the computed tiles (ntiles + 1 ints: the
+  // list, then its length)
+  static constexpr int kPrune = kXenc;
+  static size_t bytes(bool ft, int fp, int ntiles = 0) {
+    return size_t(kXenc + (ft ? 2 * fp + kDsHi : 0) +
+                  (ntiles ? 16 + BM + ntiles + 1 : 0)) * 4;
   }
   static_assert(kPX % 4 == 0 && kPC % 4 == 0 && kSlot % 4 == 0 &&
                     kCn % 4 == 0 && kEnc % 4 == 0 && kXenc % 4 == 0,
@@ -604,6 +561,44 @@ __device__ __forceinline__ void min_pair(float* v, int* c, float ov, int oc) {
   }
 }
 
+// The pruned step's computed centroid tiles of row tile mt (skip[mt][kt]
+// == 0) in order into tiles[0 ..), their count into tiles[nkt], and a
+// skipped tile's bound, MIN_INIT (FLT_MAX): warp 0, 32 tiles a ballot.
+// Called by all threads (a barrier); returns the count.
+__device__ __forceinline__ int list_tiles(const int* __restrict__ skip,
+                                          float* __restrict__ tmin, int mt,
+                                          int nkt, int* tiles) {
+  if (threadIdx.x < 32) {
+    const int lane = threadIdx.x;
+    int n = 0;
+    for (int k0 = 0; k0 < nkt; k0 += 32) {
+      const int kt = k0 + lane;
+      const bool in = kt < nkt;
+      const bool skipped = in && skip[size_t(mt) * nkt + kt] != 0;
+      if (skipped) tmin[size_t(mt) * nkt + kt] = FLT_MAX;
+      const unsigned keep = __ballot_sync(0xffffffffu, in && !skipped);
+      if (in && !skipped) tiles[n + __popc(keep & ((1u << lane) - 1u))] = kt;
+      n += __popc(keep);
+    }
+    if (lane == 0) tiles[nkt] = n;
+  }
+  __syncthreads();
+  return tiles[nkt];
+}
+
+// A computed tile's bound: the nw (<= 8) warps' minima of tile ordinal q,
+// left in wmin[(q & 1) * 8 ..] by its epilogue, are read by warp 0 past the
+// next barrier (a step's, or the update's), so the bound costs no barrier
+// of its own; their min goes to the tile's cell. Called by warp 0.
+__device__ __forceinline__ void write_bound(const float* wmin, int q, int nw,
+                                            float* cell) {
+  const int lane = threadIdx.x;
+  float e = lane < nw ? wmin[(q & 1) * 8 + lane] : FLT_MAX;
+  for (int off = 4; off > 0; off >>= 1)
+    e = fminf(e, __shfl_xor_sync(0xffffffffu, e, off));
+  if (lane == 0) *cell = e;
+}
+
 // The (value, column) pairs of N rows of a lane, reduced over the 16 lanes
 // of their rows (bits off, off / 2, .. 1 of the lane's tx): at each level
 // while a lane holds several rows it keeps half (the upper half where its
@@ -634,9 +629,10 @@ __device__ __forceinline__ void row_reduce(float* v, int* c, int tx,
 // The min/argmin of one centroid tile folded into the running row state:
 // the lane's own scan of its 8 columns, row_reduce over the row's 16 lanes,
 // then fold_min by the lanes that own a row (tx % (16 / kTM) == 0; row
-// slot tx >> (4 - log2 kTM)).
+// slot tx >> (4 - log2 kTM)). Returns, on those lanes, the row's tile
+// minimum (-inf for a NaN at the tile's column 0).
 template <int kTM>
-__device__ __forceinline__ void tile_fold(const float (&acc)[kTM][kTN],
+__device__ __forceinline__ float tile_fold(const float (&acc)[kTM][kTN],
                                           const float* cnt, int tx, int c0,
                                           float* best, int* best_arg) {
   float cnr[kTN];
@@ -663,6 +659,7 @@ __device__ __forceinline__ void tile_fold(const float (&acc)[kTM][kTN],
   row_reduce<kTM>(v, c, tx, 8);
   if (tx % (16 / kTM) == 0 && c[0] >= 0)
     fold_min(best, best_arg, v[0], c[0] + c0);
+  return v[0];
 }
 
 template <int BM, bool kFT, int kUpd>
@@ -672,14 +669,17 @@ lloyd_tile_kernel(const float* __restrict__ x, const float* __restrict__ c,
                   const float* __restrict__ cenc,
                   const int* __restrict__ inj, float* __restrict__ mind,
                   int* __restrict__ argmin, int* __restrict__ det,
-                  float* __restrict__ xenc, float* __restrict__ sums,
+                  float* __restrict__ sums,
                   float* __restrict__ counts, int* __restrict__ idx,
                   int* __restrict__ ekey, int* __restrict__ spare,
                   float* __restrict__ ucheck, float* __restrict__ ccheck,
-                  int kp, int fp, int bf, int true_m, int levels,
-                  float thr_factor) {
+                  const float* __restrict__ xn, const int* __restrict__ skip,
+                  float* __restrict__ tmin, int kp, int fp, int bf,
+                  int true_m, int levels, float thr_factor) {
   using L = F32Layout<BM>;
   constexpr int kTM = BM / 16;
+  constexpr bool kPruned = kUpd == kPrunedEntries;
+  static_assert(!(kFT && kPruned), "the pruned step has no ABFT");
   static_assert(kTM == 4 || kTM == 8, "row tiles of 64 or 128");
   if (kUpd == kDenseUpdate) {
     // problem blockIdx.y of a batched launch: every base pointer moves to
@@ -698,7 +698,6 @@ lloyd_tile_kernel(const float* __restrict__ x, const float* __restrict__ c,
     sums += pb * nt * kp * fp;
     counts += pb * nt * kp;
   }
-  (void)xenc;
   extern __shared__ __align__(16) float sm_f32[];
   float* sm = sm_f32;
   float* xencS = sm + L::kXenc;
@@ -707,7 +706,15 @@ lloyd_tile_kernel(const float* __restrict__ x, const float* __restrict__ c,
   const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
   const int lane = tid % 32, warp = tid / 32;
   const int mt = blockIdx.x, m0 = mt * BM;
-  const int nkt = kp / kBK, nch = fp / kChunk, nsteps = nkt * nch;
+  const int nkt = kp / kBK, nch = fp / kChunk;
+  // the centroid tiles the steps walk: all, or the row tile's computed
+  // ones (pruned: listed once, a skipped tile's bound set to MIN_INIT)
+  float* wmin = sm + L::kPrune;
+  float* xnS = wmin + 16;
+  int* tiles = smi + L::kPrune + 16 + BM;
+  int ntiles = nkt;
+  if constexpr (kPruned) ntiles = list_tiles(skip, tmin, mt, nkt, tiles);
+  const int nsteps = ntiles * nch;
   // the step after whose FMAs the distance-slot SEU lands (-1: none)
   int inj_step = -1;
   if (kFT) {
@@ -728,16 +735,17 @@ lloyd_tile_kernel(const float* __restrict__ x, const float* __restrict__ c,
   // blocks of 4 rows x 8 features: 32-byte sectors of global memory onto
   // 32 distinct banks, lane (lane % 4, lane / 4) its (row, feature) in the
   // block), C's centroid tile from the pre-pass's ct by 16-byte copies;
-  // with a tile's first chunk its norms; FT: the chunk's C encodings from
-  // the pre-pass (kEnc slot s % 2).
+  // with a tile's first chunk its norms (slot: the tile's ordinal % 2);
+  // FT: the chunk's C encodings from the pre-pass (kEnc slot s % 2).
   const int rl = lane % 4, fl = lane / 4;
-  int st_kt = 0, st_f0 = 0;   // the (centroid tile, feature) stage() copies
+  int st_q = 0, st_f0 = 0;   // the (tile ordinal, feature) stage() copies
   auto stage = [&](int s) {
-    const int kt = st_kt, f0 = st_f0;
+    const int q = st_q, f0 = st_f0;
+    const int kt = kPruned ? tiles[q] : q;
     st_f0 += kChunk;
     if (st_f0 == fp) {
       st_f0 = 0;
-      ++st_kt;
+      ++st_q;
     }
     float* xs = sm + (s & 1) * L::kSlot + L::kXs + fl * L::kPX + rl;
     float* cs = sm + (s & 1) * L::kSlot + L::kCs;
@@ -754,7 +762,7 @@ lloyd_tile_kernel(const float* __restrict__ x, const float* __restrict__ c,
       cp_async16(cs + f * L::kPC + 4 * v, cgl + size_t(f) * kp + 4 * v);
     }
     if (f0 == 0 && tid < kBK / 4)
-      cp_async16(sm + L::kCn + (kt & 1) * kBK + 4 * tid,
+      cp_async16(sm + L::kCn + (q & 1) * kBK + 4 * tid,
                  cn + kt * kBK + 4 * tid);
     if (kFT && tid >= kThreads - 2 * kChunk / 4) {
       const int q = tid - (kThreads - 2 * kChunk / 4);   // 0 .. 15
@@ -765,10 +773,14 @@ lloyd_tile_kernel(const float* __restrict__ x, const float* __restrict__ c,
     cp_async_commit();
   };
 
-  stage(0);
+  // pruned: the rows' norms ride in step 0's group
+  if (kPruned && nsteps > 0 && tid < BM / 4)
+    cp_async16(xnS + 4 * tid, xn + m0 + 4 * tid);
+  if (!kPruned || nsteps > 0) stage(0);
   int s = 0;
-  for (int kt = 0; kt < nkt; ++kt) {
-    const int c0 = kt * kBK;
+  constexpr int kOwnShift = kTM == 8 ? 1 : 2;
+  for (int q = 0; q < ntiles; ++q) {
+    const int kt = kPruned ? tiles[q] : q, c0 = kt * kBK;
     float acc[kTM][kTN];
 #pragma unroll
     for (int i = 0; i < kTM; ++i)
@@ -782,6 +794,9 @@ lloyd_tile_kernel(const float* __restrict__ x, const float* __restrict__ c,
       const int f0 = ch * kChunk;
       cp_async_wait_all();
       __syncthreads();
+      if (kPruned && tid < 32 && ch == 0 && q > 0)
+        write_bound(wmin, q - 1, kThreads / 32,
+                    tmin + size_t(mt) * nkt + tiles[q - 1]);
       // the next step's copies (the next tile's first, at a tile's last
       // step) run under this one's FMAs
       if (s + 1 < nsteps) stage(s + 1);
@@ -799,7 +814,8 @@ lloyd_tile_kernel(const float* __restrict__ x, const float* __restrict__ c,
       // or half of it in the FT and entries kernels at BM = 128, whose
       // extra state spilled more registers at the full unroll (ptxas)
       constexpr int kU =
-          (kFT || kUpd == kEntryUpdate) && kTM == 8 ? kChunk / 2 : kChunk;
+          (kFT || kUpd == kEntryUpdate || kPruned) && kTM == 8 ? kChunk / 2
+                                                               : kChunk;
 #pragma unroll 1
       for (int f1 = 0; f1 < kChunk; f1 += kU)
 #pragma unroll
@@ -904,7 +920,7 @@ lloyd_tile_kernel(const float* __restrict__ x, const float* __restrict__ c,
         sm[L::kResR2 + r] = s2 - sm[L::kRow2 + r];
       }
       __syncthreads();
-      // warp 0 decodes (locate_and_correct's rule, locate_tile); the
+      // warp 0 decodes (the reference's rule, locate_tile); the
       // thread that holds the located element subtracts the delta
       if (tid < 32) {
         int li, lj;
@@ -934,12 +950,24 @@ lloyd_tile_kernel(const float* __restrict__ x, const float* __restrict__ c,
       }
     }
 
-    tile_fold<kTM>(acc, sm + L::kCn + (kt & 1) * kBK, tx, c0, &best,
-                   &best_arg);
+    const float lmin = tile_fold<kTM>(acc, sm + L::kCn + (q & 1) * kBK, tx,
+                                      c0, &best, &best_arg);
+    if constexpr (kPruned) {
+      // the tile's bound: each owner's row distance to the tile, padding
+      // rows bounding nothing (-inf, a NaN at column 0, gives 0, as the
+      // serial scan's NaN), the min over the warp, then (write_bound) over
+      // the block
+      const int r = frag_row(ty, tx >> kOwnShift);
+      float e = tx % (16 / kTM) == 0 && m0 + r < true_m
+                    ? sqrtf(fmaxf(lmin + xnS[r], 0.0f))
+                    : FLT_MAX;
+      for (int off = 16; off > 0; off >>= 1)
+        e = fminf(e, __shfl_xor_sync(0xffffffffu, e, off));
+      if (lane == 0) wmin[(q & 1) * 8 + warp] = e;
+    }
   }
 
   // the final labels, by row, for the writes and the update
-  constexpr int kOwnShift = kTM == 8 ? 1 : 2;
   const int row = frag_row(ty, tx >> kOwnShift);
   const bool owner = tx % (16 / kTM) == 0;
   if (owner) {
@@ -950,14 +978,17 @@ lloyd_tile_kernel(const float* __restrict__ x, const float* __restrict__ c,
   if constexpr (kUpd != kNoUpdate) {
     int* lab = smi + (kUpd == kDenseUpdate ? L::kAm : L::kLab);
     __syncthreads();   // the ring is free: every warp is past its last chunk
+    if (kPruned && tid < 32 && ntiles > 0)
+      write_bound(wmin, ntiles - 1, kThreads / 32,
+                  tmin + size_t(mt) * nkt + tiles[ntiles - 1]);
     if (owner) lab[row] = best_arg;
     __syncthreads();
-    if constexpr (kUpd == kEntryUpdate) {
+    if constexpr (kUpd == kEntryUpdate || kPruned) {
       const int label = tid < BM ? lab[tid] : 0;
       const EntryOut o{sums,   counts, idx,    ekey,
                        kp,     fp,     levels, int(gridDim.x)};
-      emit_entries<float, BM, kFT, L>(sm, label, x, mt, true_m, o, inj,
-                                      spare, ucheck, ccheck);
+      emit_entries<float, BM, kFT>(smi + L::kAm, sm + L::kDs, label, x, mt,
+                                   true_m, o, inj, spare, ucheck, ccheck);
     } else {
       emit_update<float, BM>(lab, smi + L::kKey, smi + L::kOrder,
                              smi + L::kSKey, x, m0, true_m, kp, fp,
@@ -1010,16 +1041,39 @@ lloyd_prep_kernel(const float* __restrict__ c, float* __restrict__ ct,
 
 // --- bf16 / fp16: the tile kernel on the tensor cores ----------------------
 // lloyd_tile_mma_kernel<T, BM, kFT, kUpd> is lloyd_tile_kernel above with
-// its f32 product replaced by MmaProduct<T, BM>: stage() copies one
-// kChunk-feature chunk of X's row tile and C's centroid tile to shared
-// memory (regions L::kXs, L::kCs), mac() adds the chunk's product on the
-// tensor cores, xs(f, r) / cs(f, r) read staged element (row r, feature f)
-// widened to f32, add_at() adds to one element (the simulated SEU),
-// store() writes the accumulator to Ds. tile_min_argmin / fold_min,
-// locate_and_correct, emit_update and emit_entries are the f32 kernel's
-// own functions, so the instantiations of one T agree bit for bit. (The
-// f32 kernel has its own loop: staging ring, chunk_fma, tile_fold.)
-//
+// its f32 product replaced by MmaProduct<T, BM>: mma.sync m16n8k16 with f32
+// accumulation, each accumulator one chain of k16 steps over the features
+// in order from 0.0f, so any staging that feeds the same instruction the
+// same operands in that order gives the same bits. The loop is the int8
+// kernel's (int8_tile_kernel below):
+//   * staging: X's row tile is copied once a block by 16-byte cp.async at a
+//     pitch of Fp + 8 elements (ldmatrix's 8 rows of a matrix on distinct
+//     banks) and kept for every centroid tile where it fits (MmaLayout: at
+//     most kMmaStashMax bytes, and two blocks an SM), else X's chunk streams
+//     with C's. C's chunks (with a tile's first chunk its norms cn, by tile
+//     ordinal into one of kMmaStages slots; at kFT with its 8 split encoding
+//     rows) run through a ring of kMmaStages slots: the copies of step s +
+//     kMmaStages - 1 are issued right after step s's barrier and run under
+//     its MMAs, so a step takes one barrier. A step is ck features: 64 with
+//     X kept (four k16 steps), 32 where X streams or at kFT;
+//   * fragments: ldmatrix_x4 (fk_mma.cuh) over X's rows and C's, the 8
+//     warps tiling the BM x 128 accumulator 2 x 4, each warp (BM/2) x 32 as
+//     (BM/32) x 4 m16n8 fragments: a k16 step takes BM/32 + 2 ldmatrix.x4
+//     and BM/8 MMAs;
+//   * epilogue in registers, no Ds (kFT false): each lane forms d = cn - 2
+//     acc over its fragment columns (tile_min_argmin's d), scans them in
+//     column order with a strict '<', the quad combines (value, column)
+//     pairs by shuffles and the 4 warps of a row band through shared memory
+//     (min_pair), and the row's owner (thread tid < BM) folds the tile with
+//     fold_min: the serial scan's result (tile_fold's and the int8 kernel's
+//     rule; a NaN at the tile's column 0 becomes (-inf, -1), never folded);
+//   * pruned (kPrunedEntries): the row tile's computed centroid tiles are
+//     listed in shared memory once (a skipped tile's bound is MIN_INIT), the
+//     steps walk that list, so the ring prefetches the next computed tile,
+//     and each computed tile writes its bound from the owners' tile minima,
+//     tmin = min over valid rows of sqrt(max(lmin + xn, 0)) (0 for the
+//     (-inf, -1) pair, as the serial scan's NaN gives); the update is the
+//     entries, as kEntryUpdate's.
 // Its ABFT (kFT) is the paper's tensor-core scheme (as the 2-byte ABFT
 // GEMM's, fk_abft_gemm.cu), where the f32 kernel's runs on the CUDA cores:
 //   * C's e1 / e2 encodings over each centroid tile come once a step from
@@ -1032,73 +1086,111 @@ lloyd_prep_kernel(const float* __restrict__ c, float* __restrict__ ct,
 //     (hi + mid) + lo and scaled back;
 //   * X's e1 / e2 encodings over the row tile are computed once, in the
 //     first centroid tile, from the staged chunks (8 partials a feature,
-//     then a fixed-order sum), kept in xenc (Mp/BM, 2, Fp) and reloaded with
-//     each later chunk; the expected column checksums e^T X C^T are
-//     CUDA-core FMAs on them with no barrier of their own: lane 4g + q of
-//     warp w takes columns 16 w + g and 16 w + g + 8, words q, q + 4, ..
-//     of the staged C rows (conflict-free), and a quad's shuffles sum the
-//     four partials at the tile's end;
-//   * the observed checksums are sums over the stored tile in shared memory:
-//     a row's in the pass that takes its min / argmin (tile_min_argmin
-//     <true>), a column's by one more thread (conflict-free; all 256
-//     threads at BM = 128), in the same step as the residuals and the
-//     block's maxima; a tile that detects is decoded, corrected and
-//     scanned again (taking the sums from the accumulator registers by
-//     warp shuffles instead made ptxas spill under the 128-register cap,
-//     and ran slower);
-//   * detection (the threshold rule on the expected side), location by
-//     the e2/e1 ratio, correction in Ds and the first-min are the f32
-//     kernel's (locate_and_correct, tile_min_argmin); the block first
-//     takes the same maxima (residuals, expected side) from its warps'
-//     maxima, so warp 0's decode runs only on a tile that detects;
-//   * two blocks an SM at every instantiation (__launch_bounds__ min 2:
-//     at most 128 registers a thread). Left to itself ptxas takes 128 and
-//     more for the FT and entry-update instantiations and 131-132 for the
-//     distance-only and dense-update ones (124 before this kernel held the
-//     FT and entry paths), one block an SM; on an H100 every variant then
-//     ran slower, the distance-only one 2.55 -> 3.55 ms and the batched
-//     one 4.09 -> 6.4 at M = 2^20, F = 128, K = 1000 and the PQ shape.
-//     Under the bound those two take 125 registers and spill nothing.
-//
-// MmaProduct: chunks staged row-major as T with a row pitch of kLd = kChunk
-// + 8 elements (80 bytes: a fragment load's 8 rows x 4 words fall in 32
-// distinct banks), 16 bytes a load. Warp w owns rows (w / 4) * BM/2 .. +
-// BM/2 and columns (w % 4) * 32 .. + 32, as kMF x kNF m16n8 fragments
-// (fk_mma.cuh); a chunk is two k-steps of 16.
+//     then a fixed-order sum), and kept in shared memory (2 x Fp floats); the
+//     expected column checksums e^T X C^T are CUDA-core FMAs on them with no
+//     barrier of their own: lane 4g + q of warp w takes columns 16 w + g and
+//     16 w + g + 8, words q, q + 4, .. of the staged C rows (conflict-free),
+//     and a quad's shuffles sum the four partials at the tile's end;
+//   * the observed checksums are sums over the stored tile in shared memory
+//     (Ds, laid over the ring: at kFT the ring prefetches no further than
+//     the tile's own chunks, so at its end the ring is idle, and the next
+//     tile's first copies are issued once Ds is read): a row's in the pass
+//     that takes its min / argmin (tile_min_argmin <true>), a column's by
+//     one more thread (conflict-free; all 256 threads at BM = 128), in the
+//     same step as the residuals and the block's maxima; a tile that detects
+//     is decoded (locate_tile, fk_abft.cuh), corrected and scanned again
+//     (taking the sums from the accumulator registers by warp shuffles
+//     instead made ptxas spill under the 128-register cap, and ran slower);
+//   * detection (the threshold rule on the expected side), location by the
+//     e2/e1 ratio, correction in Ds and the first-min are the f32 kernel's
+//     rule; the block first takes the same maxima (residuals, expected
+//     side) from its warps' maxima, so warp 0's decode runs only on a tile
+//     that detects;
+//   * two blocks an SM at every instantiation (__launch_bounds__ min 2: at
+//     most 128 registers a thread, and MmaLayout's bytes within
+//     kTwoBlockBytes). Left to itself ptxas took 128 and more registers for
+//     the first design's kernels, one block an SM; on an H100 every variant
+//     then ran slower, the distance-only one by 40 % and the batched one by
+//     57 % at M = 2^20, F = 128, K = 1000 and the PQ shape.
+constexpr int kMmaStages = 3;               // ring slots
+constexpr int kMmaStashMax = 48 * 1024;     // bytes of X's row tile kept whole
+constexpr int kMmaPad = 8;                  // elements past a staged row
+constexpr int kMmaWide = 64;                // features a step with X kept
+constexpr size_t kTwoBlockBytes = 113 * 1024;   // a block's, two an SM
+constexpr size_t kMmaEntryScratch = 8 * 1024;   // the FT writer's partials
+
+// Shared-memory layout of lloyd_tile_mma_kernel (byte offsets, each
+// 16-byte aligned): X's stash at 0 (BM rows of xpitch elements) when kept;
+// at un the ring (kMmaStages slots: C's chunk, at kFT its 8 encoding rows,
+// then X's chunk when X streams), with at kFT Ds (BM x (kBK + 1) f32) over
+// it and past the last tile the update's scratch; cn (kMmaStages x kBK);
+// the row bands' (value, column) pairs (4 x BM, kFT false); at kFT the
+// expected and residual checksums (col1, col2, resC1, resC2, then row1,
+// row2, resR1, resR2), the expected column sums [kBK][2] followed by X's
+// encodings' partials (2 x 8 x kChunk, also the warps' maxima), the
+// detection count and the injection's step (16 bytes), then X's encodings
+// (2 x Fp); pruned: two tiles' warp bounds (2 x 8), the rows' squared
+// norms (BM), the computed tiles (ntiles + 1 ints: the list, then its
+// length).
+struct MmaLayout {
+  bool stash;
+  int ck, cpitch, xpitch;
+  size_t slot, un, cn, xch, chk, part, xenc, prune, bytes;
+  __host__ __device__ MmaLayout(int bm, int fp, bool ft, int ntiles) {
+    place(bm, fp, ft, ntiles,
+          size_t(bm) * (fp + kMmaPad) * 2 <= size_t(kMmaStashMax));
+    if (stash && bytes > kTwoBlockBytes) place(bm, fp, ft, ntiles, false);
+  }
+  __host__ __device__ void place(int bm, int fp, bool ft, int ntiles,
+                                 bool s) {
+    stash = s;
+    ck = s && !ft && fp >= kMmaWide ? kMmaWide : kChunk;
+    cpitch = ck + kMmaPad;
+    xpitch = s ? fp + kMmaPad : cpitch;
+    un = s ? size_t(bm) * xpitch * 2 : 0;
+    slot = size_t(kBK + (ft ? 8 : 0) + (s ? 0 : bm)) * cpitch * 2;
+    size_t body = kMmaStages * slot;
+    if (ft && size_t(bm) * (kBK + 1) * 4 > body)
+      body = size_t(bm) * (kBK + 1) * 4;
+    cn = un + (body + 15) / 16 * 16;
+    xch = cn + size_t(kMmaStages) * kBK * 4;
+    chk = xch + (ft ? 0 : size_t(4) * bm * 8);
+    part = chk + (ft ? size_t(4) * (kBK + bm) * 4 : 0);
+    xenc = part + (ft ? size_t(2) * (kBK + 8 * kChunk) * 4 + 16 : 0);
+    prune = xenc + (ft ? size_t(2) * fp * 4 : 0);
+    bytes = prune + (ntiles ? size_t(16 + bm + ntiles + 1) * 4 : 0);
+  }
+};
+
+// MmaProduct: the accumulator of a warp's fragments and its operations.
+// Warp w owns rows (w / 4) * BM/2 .. + BM/2 and columns (w % 4) * 32 .. + 32,
+// as kMF x kNF m16n8 fragments (fk_mma.cuh); element (i, j, 2 h + e) of lane
+// 4 g + t is row r0 + 16 i + g + 8 h, column n0 + 8 j + 2 t + e.
 template <typename T, int BM>
 struct MmaProduct {
-  using L = Layout<BM>;
-  static constexpr int kLd = kChunk + 8;
-  static constexpr int kVec = 16 / int(sizeof(T));   // T values a 16-byte load
   static constexpr int kWM = BM / 2;                 // rows of a warp
   static constexpr int kMF = kWM / 16, kNF = 32 / 8;
   static_assert(sizeof(T) == 2, "2-byte input types only");
-  static_assert(BM * kLd <= 2 * kChunk * (BM + 1) &&
-                    (kBK + 8) * kLd <= 2 * kChunk * (kBK + 1),
-                "the staged chunks (C's with its 8 encoding rows) fit the "
-                "f32 layout's regions");
-  // a finished tile's expected column sums [col][2], in the X region
-  static constexpr int kColExp = 0;
-  static_assert(kColExp + kBK * 2 <= kChunk * (BM + 1),
-                "the expected column sums fit the X region");
+  static_assert(kMF == 2 || kMF == 4, "row tiles of 64 or 128");
   static_assert(kThreads / 32 * 16 == kBK, "a warp's 16 expected columns");
 
-  // the expected column checksums' FMAs of one staged chunk: this lane's
-  // columns 16 w + g (+ 8), words q + 4 s, on the chunk's X encodings
-  __device__ __forceinline__ static void col_fma(const float* sm,
-                                                 const float* enc,
+  // the expected column checksums' FMAs of one staged kChunk-feature chunk
+  // (C's rows at cs, pitch cp): this lane's columns 16 w + g (+ 8), words
+  // q + 4 s, on the chunk's X encodings e1 / e2
+  __device__ __forceinline__ static void col_fma(const T* cs, int cp,
+                                                 const float* e1p,
+                                                 const float* e2p,
                                                  float* ce1, float* ce2) {
-    const T* Ch = reinterpret_cast<const T*>(sm + L::kCs);
     const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
     const int col = 16 * warp + lane / 4, q = lane % 4;
 #pragma unroll
     for (int s = 0; s < 4; ++s) {
       const int f = 2 * (q + 4 * s);
-      const float2 e1 = *reinterpret_cast<const float2*>(enc + f);
-      const float2 e2 = *reinterpret_cast<const float2*>(enc + kChunk + f);
+      const float2 e1 = *reinterpret_cast<const float2*>(e1p + f);
+      const float2 e2 = *reinterpret_cast<const float2*>(e2p + f);
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
-        const uint32_t w = ld32(Ch + (col + 8 * h) * kLd + f);
+        const uint32_t w = ld32(cs + (col + 8 * h) * cp + f);
         const T* v = reinterpret_cast<const T*>(&w);
         const float v0 = to_f32(v[0]), v1 = to_f32(v[1]);
         ce1[h] = fmaf(e1.y, v1, fmaf(e1.x, v0, ce1[h]));
@@ -1107,9 +1199,8 @@ struct MmaProduct {
     }
   }
 
-
   // a lane's expected column partials summed over its quad, into
-  // part[kColExp + col * 2]
+  // part[col * 2]
   __device__ __forceinline__ static void col_out(float* part, float* ce1,
                                                  float* ce2) {
     const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -1123,8 +1214,8 @@ struct MmaProduct {
       }
       if (lane % 4 == 0) {
         const int col = 16 * warp + lane / 4 + 8 * h;
-        part[kColExp + col * 2] = a;
-        part[kColExp + col * 2 + 1] = b;
+        part[col * 2] = a;
+        part[col * 2 + 1] = b;
       }
     }
   }
@@ -1142,79 +1233,56 @@ struct MmaProduct {
     for (int e = 0; e < 4; ++e) chk[e] = 0.0f;
   }
 
-  template <int ROWS>
-  __device__ __forceinline__ static void stage_rows(const T* __restrict__ src,
-                                                    T* dst, int row0, int f0,
-                                                    int fp) {
-    constexpr int kPerRow = kChunk / kVec;
-    for (int idx = threadIdx.x; idx < ROWS * kPerRow; idx += kThreads) {
-      const int r = idx / kPerRow, q = idx % kPerRow;
-      *reinterpret_cast<uint4*>(dst + r * kLd + q * kVec) =
-          *reinterpret_cast<const uint4*>(src + size_t(row0 + r) * fp + f0 +
-                                          q * kVec);
-    }
-  }
-
-  __device__ __forceinline__ static void stage(const T* __restrict__ x,
-                                               const T* __restrict__ c,
-                                               float* sm, int m0, int c0,
-                                               int f0, int fp) {
-    stage_rows<BM>(x, reinterpret_cast<T*>(sm + L::kXs), m0, f0, fp);
-    stage_rows<kBK>(c, reinterpret_cast<T*>(sm + L::kCs), c0, f0, fp);
-  }
-
-  // centroid tile kt's 8 split encoding rows, below the staged C chunk
-  __device__ __forceinline__ static void stage_enc(const T* __restrict__ cenc,
-                                                   float* sm, int kt, int f0,
-                                                   int fp) {
-    stage_rows<8>(cenc, reinterpret_cast<T*>(sm + L::kCs) + kBK * kLd,
-                  kt * 8, f0, fp);
-  }
-
+  // nk k16 steps of one staged chunk, in feature order: X's rows at xs
+  // (pitch xp elements), C's at cs (pitch cp; kChk: C's 8 encoding rows
+  // below them, rows kBK ..). This lane's ldmatrix rows: X's matrices rows
+  // r0 + 0..7 / 8..15 at +0 / +8 elements, C's rows n0 + 0..7 / 8..15 of a
+  // pair of n8 fragments at +0 / +8.
   template <bool kChk>
-  __device__ __forceinline__ void mac(const float* sm) {
-    const T* Xh = reinterpret_cast<const T*>(sm + L::kXs);
-    const T* Ch = reinterpret_cast<const T*>(sm + L::kCs);
+  __device__ __forceinline__ void mac(const T* xs, int xp, const T* cs,
+                                      int cp, int nk) {
     const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
     const int g = lane / 4, t = lane % 4;
     const int r0 = (warp / 4) * kWM, n0 = (warp % 4) * 32;
+    const T* ap =
+        xs + (r0 + (lane & 7) + 8 * ((lane >> 3) & 1)) * xp + 8 * (lane >> 4);
+    const T* bp =
+        cs + (n0 + (lane & 7) + 8 * (lane >> 4)) * cp + 8 * ((lane >> 3) & 1);
+    const T* ep = cs + (kBK + g) * cp + 2 * t;
+    auto kstep = [&](int kk) {
+      uint32_t b[kNF][2];
 #pragma unroll
-    for (int ks = 0; ks < kChunk; ks += 16) {
-      uint32_t a[kMF][4], b[kNF][2];
+      for (int jj = 0; jj < kNF / 2; ++jj) {
+        uint32_t r[4];
+        ldmatrix_x4(r, bp + 16 * jj * cp + 16 * kk);
+        b[2 * jj][0] = r[0];
+        b[2 * jj][1] = r[1];
+        b[2 * jj + 1][0] = r[2];
+        b[2 * jj + 1][1] = r[3];
+      }
+      uint32_t e0 = 0, e1 = 0;
+      if (kChk) {
+        e0 = ld32(ep + 16 * kk);
+        e1 = ld32(ep + 16 * kk + 8);
+      }
 #pragma unroll
       for (int i = 0; i < kMF; ++i) {
-        const T* p = Xh + (r0 + 16 * i + g) * kLd + ks + 2 * t;
-        a[i][0] = ld32(p);
-        a[i][1] = ld32(p + 8 * kLd);
-        a[i][2] = ld32(p + 8);
-        a[i][3] = ld32(p + 8 * kLd + 8);
-      }
-#pragma unroll
-      for (int j = 0; j < kNF; ++j) {
-        const T* p = Ch + (n0 + 8 * j + g) * kLd + ks + 2 * t;
-        b[j][0] = ld32(p);
-        b[j][1] = ld32(p + 8);
-      }
-#pragma unroll
-      for (int i = 0; i < kMF; ++i)
+        uint32_t a[4];
+        ldmatrix_x4(a, ap + 16 * i * xp + 16 * kk);
 #pragma unroll
         for (int j = 0; j < kNF; ++j)
-          mma_16816<T>(acc[i][j], a[i], b[j][0], b[j][1]);
-      if (kChk) {
-        const T* p = Ch + (kBK + g) * kLd + ks + 2 * t;
-        const uint32_t e0 = ld32(p), e1 = ld32(p + 8);
-#pragma unroll
-        for (int i = 0; i < kMF; ++i)
-          if (i == warp % 4) mma_16816<T>(chk, a[i], e0, e1);
+          mma_16816<T>(acc[i][j], a, b[j][0], b[j][1]);
+        if (kChk && i == warp % 4) mma_16816<T>(chk, a, e0, e1);
       }
+    };
+    // kChk: the k16 steps stay a loop (unrolled, the FT kernels' extra
+    // state spilled under the 128-register cap)
+    if constexpr (kChk) {
+#pragma unroll 1
+      for (int kk = 0; kk < nk; ++kk) kstep(kk);
+    } else {
+      for (int kk = 0; kk < nk; ++kk) kstep(kk);
     }
-  }
-
-  __device__ __forceinline__ static float xs(const float* sm, int f, int r) {
-    return to_f32(reinterpret_cast<const T*>(sm + L::kXs)[r * kLd + f]);
-  }
-  __device__ __forceinline__ static float cs(const float* sm, int f, int r) {
-    return to_f32(reinterpret_cast<const T*>(sm + L::kCs)[r * kLd + f]);
   }
 
   // element e of fragment (i, j) of this lane: row r0 + 16 i + g + 8 (e / 2),
@@ -1271,6 +1339,56 @@ struct MmaProduct {
       }
     }
   }
+
+  // The tile's (value, column) of each of this lane's rows: d = cn - 2 acc
+  // over its fragment columns in column order (the strict '<' of
+  // tile_min_argmin; a NaN first column: (-inf, -1) at the tile's column 0,
+  // else +inf), combined over the quad (min_pair); lane t = 0 writes row
+  // band (w % 4)'s pair of each row to xch[(w % 4) * BM + row].
+  __device__ __forceinline__ void scan(const float* cnt, float2* xch) const {
+    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+    const int g = lane / 4, t = lane % 4;
+    const int r0 = (warp / 4) * kWM, n0 = (warp % 4) * 32;
+    float cnr[kNF][2];
+#pragma unroll
+    for (int j = 0; j < kNF; ++j) {
+      const float2 v = *reinterpret_cast<const float2*>(cnt + n0 + 8 * j +
+                                                         2 * t);
+      cnr[j][0] = v.x;
+      cnr[j][1] = v.y;
+    }
+    const bool col0 = n0 == 0 && t == 0;   // the lane of the tile's column 0
+#pragma unroll
+    for (int i = 0; i < kMF; ++i)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float v = 0.0f;
+        int col = 0;
+#pragma unroll
+        for (int j = 0; j < kNF; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const float d = cnr[j][e] - 2.0f * acc[i][j][2 * h + e];
+            const int cc = n0 + 8 * j + 2 * t + e;
+            if (j == 0 && e == 0) {
+              const bool nan0 = d != d;
+              v = nan0 ? __int_as_float(col0 ? int(0xff800000u) : 0x7f800000)
+                       : d;
+              col = nan0 && col0 ? -1 : cc;
+            } else if (d < v) {
+              v = d;
+              col = cc;
+            }
+          }
+#pragma unroll
+        for (int off = 1; off < 4; off <<= 1)
+          min_pair(&v, &col, __shfl_xor_sync(0xffffffffu, v, off),
+                   __shfl_xor_sync(0xffffffffu, col, off));
+        if (t == 0)
+          xch[(warp % 4) * BM + r0 + 16 * i + g + 8 * h] =
+              make_float2(v, __int_as_float(col));
+      }
+  }
 };
 
 template <typename T, int BM, bool kFT, int kUpd>
@@ -1280,15 +1398,18 @@ lloyd_tile_mma_kernel(const T* __restrict__ x, const T* __restrict__ c,
                       const T* __restrict__ cenc,
                       const int* __restrict__ inj, float* __restrict__ mind,
                       int* __restrict__ argmin, int* __restrict__ det,
-                      float* __restrict__ xenc, float* __restrict__ sums,
+                      float* __restrict__ sums,
                       float* __restrict__ counts, int* __restrict__ idx,
                       int* __restrict__ ekey, int* __restrict__ spare,
                       float* __restrict__ ucheck, float* __restrict__ ccheck,
+                      const float* __restrict__ xn,
+                      const int* __restrict__ skip, float* __restrict__ tmin,
                       int kp, int fp, int bf, int true_m, int levels,
                       float thr_factor) {
-  using L = Layout<BM>;
   using P = MmaProduct<T, BM>;
+  constexpr bool kPruned = kUpd == kPrunedEntries;
   static_assert(kUpd != kDenseUpdate, "the 2-byte batched step writes entries");
+  static_assert(!(kFT && kPruned), "the pruned step has no ABFT");
   if (kUpd == kBatchedEntries) {
     // problem blockIdx.y of a batched launch: the one instantiation that
     // lloyd_step_batched launches moves X's, C's, cn's and the labels' base
@@ -1305,109 +1426,185 @@ lloyd_tile_mma_kernel(const T* __restrict__ x, const T* __restrict__ c,
     argmin += pb * mp;
     idx += (pb * kp) << levels;
   }
-  // 16-byte aligned: the staging stores 16 bytes at a time
-  extern __shared__ __align__(16) float sm_tile[];
-  float* sm = sm_tile;
-  float* Ds = sm + L::kDs;
-  float* cnS = sm + L::kCn;
-  float* enc = sm + L::kEnc;   // the chunk's X encodings: e1, then e2
-  float* part = sm + L::kXs;   // a finished tile's expected column sums
+  extern __shared__ __align__(16) unsigned char sm_mma[];
+  const int nkt = kp / kBK;
+  const MmaLayout L(BM, fp, kFT, kPruned ? nkt : 0);
+  T* stash = reinterpret_cast<T*>(sm_mma);
+  unsigned char* ring = sm_mma + L.un;
+  float* Ds = reinterpret_cast<float*>(ring);   // kFT: over the ring
+  float* cnS = reinterpret_cast<float*>(sm_mma + L.cn);
+  float2* xch = reinterpret_cast<float2*>(sm_mma + L.xch);
+  float* part = reinterpret_cast<float*>(sm_mma + L.part);
+  float* xpart = part + 2 * kBK;   // also the warps' maxima
+  float* xencS = reinterpret_cast<float*>(sm_mma + L.xenc);
+  // kFT: the row tile's detections, and the step after whose MMAs the
+  // distance slot lands (-1: none), in shared memory: as registers they
+  // spilled under the 128-register cap
+  int* det_count = reinterpret_cast<int*>(xpart + 2 * 8 * kChunk);
+  int* inj_step = det_count + 1;
+  float* wmin = reinterpret_cast<float*>(sm_mma + L.prune);
+  float* xnS = wmin + 16;
+  int* tiles = reinterpret_cast<int*>(xnS + BM);
 
-  const int tid = threadIdx.x;
-  const int lane = tid % 32;
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
   const int mt = blockIdx.x, m0 = mt * BM;
-  const int nkt = kp / kBK, nch = fp / kChunk, ch_per_tile = bf / kChunk;
-  // the distance slot's (centroid tile, chunk) in this row tile, or -1: the
-  // rest of the descriptor is read where it lands
-  int inj_kt = -1, inj_ch = -1;
-  if (kFT && inj[0] && inj[1] == mt) {
-    inj_kt = inj[2];
-    inj_ch = (inj[3] + 1) * ch_per_tile - 1;
+  // a step's features and staged pitch: constants at kFT (kChunk, which
+  // the injection's chunk rule and the column checksums' FMAs take)
+  const int ck = kFT ? kChunk : L.ck, cpitch = kFT ? kChunk + kMmaPad
+                                                   : L.cpitch;
+  const int nch = (fp + ck - 1) / ck, erows = kFT ? 8 : 0;
+  // the injection's step: centroid tile c_tile, the last chunk of feature
+  // tile f_tile (kFT: ck = kChunk); the rest of the descriptor is read
+  // where it lands
+  if (kFT && tid == 0) {
+    *det_count = 0;
+    *inj_step = -1;
+    const int ch = (inj[3] + 1) * (bf / kChunk) - 1;
+    if (inj[0] && inj[1] == mt && inj[2] >= 0 && inj[2] < nkt && ch >= 0 &&
+        ch < nch)
+      *inj_step = inj[2] * nch + ch;
   }
+  // the centroid tiles the steps walk: all, or the row tile's computed ones
+  int ntiles = nkt;
+  if constexpr (kPruned) ntiles = list_tiles(skip, tmin, mt, nkt, tiles);
+  const int nsteps = ntiles * nch;
 
+  // the copies of step s (tile ordinal s / nch, chunk s % nch) into its
+  // slot as one cp.async group; an empty group past the last step or where
+  // real is false (kFT: a step of a later tile than the current one)
+  auto issue = [&](int s, bool real) {
+    if (real && s < nsteps) {
+      const int q = s / nch, ch = s - q * nch;
+      const int kt = kPruned ? tiles[q] : q;
+      const int f0 = ch * ck, words = min(ck, fp - f0) / 8;
+      const int wpr = ck / 8;   // 16-byte words a staged row
+      T* slot = reinterpret_cast<T*>(ring + size_t(s % kMmaStages) * L.slot);
+      for (int i = tid; i < kBK * wpr; i += kThreads) {
+        const int r = i / wpr, v = i - r * wpr;
+        if (v < words)
+          cp_async16b(slot + r * cpitch + 8 * v,
+                      c + size_t(kt * kBK + r) * fp + f0 + 8 * v);
+      }
+      if (kFT && tid < 8 * wpr) {
+        const int r = tid / wpr, v = tid - r * wpr;
+        if (v < words)
+          cp_async16b(slot + (kBK + r) * cpitch + 8 * v,
+                      cenc + size_t(kt * 8 + r) * fp + f0 + 8 * v);
+      }
+      if (!L.stash)
+        for (int i = tid; i < BM * wpr; i += kThreads) {
+          const int r = i / wpr, v = i - r * wpr;
+          if (v < words)
+            cp_async16b(slot + (kBK + erows + r) * cpitch + 8 * v,
+                        x + size_t(m0 + r) * fp + f0 + 8 * v);
+        }
+      if (ch == 0 && tid < kBK / 4)
+        cp_async16b(cnS + (q % kMmaStages) * kBK + 4 * tid,
+                    cn + size_t(kt) * kBK + 4 * tid);
+    }
+    cp_async_commit();
+  };
+
+  if (L.stash) {   // X's row tile, in step 0's group
+    const int words = fp / 8;
+    for (int i = tid; i < BM * words; i += kThreads) {
+      const int r = i / words, v = i - r * words;
+      cp_async16b(stash + r * L.xpitch + 8 * v,
+                  x + size_t(m0 + r) * fp + 8 * v);
+    }
+  }
+  if (kPruned && tid < BM / 4)   // the rows' norms, in step 0's group
+    cp_async16b(xnS + 4 * tid, xn + m0 + 4 * tid);
+#pragma unroll
+  for (int s = 0; s < kMmaStages - 1; ++s) issue(s, !kFT || s < nch);
+
+  P prod;
+  prod.zero();
+  float ce1[2] = {0.0f, 0.0f}, ce2[2] = {0.0f, 0.0f};
   float best = FLT_MAX;   // running row state, owned by thread tid < BM
   int best_arg = 0;
-  int det_count = 0;      // owned by thread 0
 
-  for (int kt = 0; kt < nkt; ++kt) {
-    const int c0 = kt * kBK;
-    P prod;
-    prod.zero();
-    float ce1[2] = {0.0f, 0.0f}, ce2[2] = {0.0f, 0.0f};
-    if (tid < kBK) cnS[tid] = cn[c0 + tid];
-
-    for (int ch = 0; ch < nch; ++ch) {
-      const int f0 = ch * kChunk;
-      P::stage(x, c, sm, m0, c0, f0, fp);
-      if (kFT) {
-        P::stage_enc(cenc, sm, kt, f0, fp);
-        if (kt > 0 && tid < 2 * kChunk)
-          enc[tid] = xenc[(size_t(mt) * 2 + tid / kChunk) * fp + f0 +
-                          tid % kChunk];
-      }
-      __syncthreads();
-      prod.template mac<kFT>(sm);
-      if (kFT) {
-        if (kt == 0) {
-          // X's encodings of the chunk, once a row tile: 8 partials a
-          // feature, then a fixed-order sum, kept for the later tiles
-          float* xpart = sm + L::kPart;
-          {
-            const int f = tid % kChunk, s = tid / kChunk;
-            float x1 = 0.0f, x2 = 0.0f;
-            for (int r = s; r < BM; r += 8) {
-              const float v = P::xs(sm, f, r);
-              x1 += v;
-              x2 = fmaf(float(r + 1), v, x2);
-            }
-            xpart[(0 * 8 + s) * kChunk + f] = x1;
-            xpart[(1 * 8 + s) * kChunk + f] = x2;
-          }
-          __syncthreads();
-          if (tid < 2 * kChunk) {
-            const int q = tid / kChunk, f = tid % kChunk;
-            float s = 0.0f;
-            for (int p = 0; p < 8; ++p) s += xpart[(q * 8 + p) * kChunk + f];
-            enc[tid] = s;
-            xenc[(size_t(mt) * 2 + q) * fp + f0 + f] = s;
-          }
-          __syncthreads();
-        }
-        // expected column checksums on the CUDA cores: e^T X_chunk C_chunk^T
-        P::col_fma(sm, enc, ce1, ce2);
-        // simulated SEU: after the last chunk of feature tile f_tile, into
-        // the accumulator element of the thread (lane) that holds it
-        if (kt == inj_kt && ch == inj_ch) {
-          const DistInj dinj = load_dist_inj(inj);
-          prod.add_at(dinj.row, dinj.col, dinj.delta);
-        }
-      }
-      __syncthreads();
-    }
-
-    prod.store(Ds);
-    if (kFT) {
-      prod.expected_rows(sm + L::kRow1, sm + L::kRow2);
-      P::col_out(part, ce1, ce2);
-    }
+  for (int s = 0, q = 0, ch = 0; s < nsteps; ++s) {
+    cp_async_wait<kMmaStages - 2>();
     __syncthreads();
-
-    float lmin = 0.0f;   // row tid < BM's (min, argmin) in this tile
-    int larg = 0;
+    if (kPruned && tid < 32 && ch == 0 && q > 0)
+      write_bound(wmin, q - 1, BM / 32, tmin + size_t(mt) * nkt + tiles[q - 1]);
+    issue(s + kMmaStages - 1, !kFT || (s + kMmaStages - 1) / nch == q);
+    const T* cs = reinterpret_cast<const T*>(ring +
+                                             size_t(s % kMmaStages) * L.slot);
+    const int f0 = ch * ck;
+    const T* xs = L.stash ? stash + f0 : cs + (kBK + erows) * cpitch;
+    const int xp = L.stash ? L.xpitch : cpitch;
+    prod.template mac<kFT>(xs, xp, cs, cpitch,
+                           kFT ? kChunk / 16 : min(ck, fp - f0) / 16);
     if (kFT) {
+      if (q == 0) {
+        // X's encodings of the chunk, once a row tile: 8 partials a
+        // feature, then a fixed-order sum, kept for the later tiles
+        {
+          const int f = tid % kChunk, sp = tid / kChunk;
+          float x1 = 0.0f, x2 = 0.0f;
+          for (int r = sp; r < BM; r += 8) {
+            const float v = to_f32(xs[r * xp + f]);
+            x1 += v;
+            x2 = fmaf(float(r + 1), v, x2);
+          }
+          xpart[(0 * 8 + sp) * kChunk + f] = x1;
+          xpart[(1 * 8 + sp) * kChunk + f] = x2;
+        }
+        __syncthreads();
+        if (tid < 2 * kChunk) {
+          const int h = tid / kChunk, f = tid % kChunk;
+          float sum = 0.0f;
+          for (int p = 0; p < 8; ++p) sum += xpart[(h * 8 + p) * kChunk + f];
+          xencS[h * fp + f0 + f] = sum;
+        }
+        __syncthreads();
+      }
+      // expected column checksums on the CUDA cores: e^T X_chunk C_chunk^T
+      P::col_fma(cs, cpitch, xencS + f0, xencS + fp + f0, ce1, ce2);
+      // simulated SEU: after the last chunk of feature tile f_tile, into
+      // the accumulator element of the thread (lane) that holds it
+      if (s == *inj_step) {
+        const DistInj dinj = load_dist_inj(inj);
+        prod.add_at(dinj.row, dinj.col, dinj.delta);
+      }
+    }
+    if (++ch < nch) continue;
+
+    // the tile's end
+    ch = 0;
+    const int kt = kPruned ? tiles[q] : q, c0 = kt * kBK;
+    const float* cq = cnS + (q % kMmaStages) * kBK;
+    if (kFT) {
+      float* col1 = reinterpret_cast<float*>(sm_mma + L.chk);
+      float* col2 = col1 + kBK;
+      float* resc1 = col2 + kBK;
+      float* resc2 = resc1 + kBK;
+      float* row1 = resc2 + kBK;
+      float* row2 = row1 + BM;
+      float* resr1 = row2 + BM;
+      float* resr2 = resr1 + BM;
+      __syncthreads();   // every warp is past its reads of the ring
+      prod.store(Ds);
+      prod.expected_rows(row1, row2);
+      P::col_out(part, ce1, ce2);
+      __syncthreads();
       // the observed checksums of Ds: row tid's in its min/argmin pass,
       // column tid - BM's by thread tid (conflict-free, all 256 threads at
       // BM = 128); residuals against the expected ones, and the block's
-      // largest |residual| and |expected| (locate_and_correct's detection
-      // rule) from the warps' maxima
+      // largest |residual| and |expected| (locate_tile's detection rule)
+      // from the warps' maxima
+      float lmin = 0.0f;   // row tid < BM's (min, argmin) in this tile
+      int larg = 0;
       float res = 0.0f, mag = 0.0f;
       if (tid < BM) {
         float o1, o2;
-        tile_min_argmin<true>(Ds + tid * (kBK + 1), cnS, c0, &lmin, &larg,
+        tile_min_argmin<true>(Ds + tid * (kBK + 1), cq, c0, &lmin, &larg,
                               &o1, &o2);
-        const float e1 = sm[L::kRow1 + tid];
-        sm[L::kResR1 + tid] = o1 - e1;
-        sm[L::kResR2 + tid] = o2 - sm[L::kRow2 + tid];
+        const float e1 = row1[tid];
+        resr1[tid] = o1 - e1;
+        resr2[tid] = o2 - row2[tid];
         res = fabsf(o1 - e1);
         mag = fabsf(e1);
       } else if (tid - BM < kBK) {
@@ -1418,19 +1615,19 @@ lloyd_tile_mma_kernel(const T* __restrict__ x, const T* __restrict__ c,
           o1 += v;
           o2 = fmaf(float(r + 1), v, o2);
         }
-        const float e1 = part[P::kColExp + cc * 2];
-        sm[L::kCol1 + cc] = e1;
-        sm[L::kResC1 + cc] = o1 - e1;
-        sm[L::kResC2 + cc] = o2 - part[P::kColExp + cc * 2 + 1];
+        const float e1 = part[cc * 2];
+        col1[cc] = e1;
+        resc1[cc] = o1 - e1;
+        resc2[cc] = o2 - part[cc * 2 + 1];
         res = fabsf(o1 - e1);
         mag = fabsf(e1);
       }
-      float* wmax = sm + L::kPart;   // [warp][2]
+      float* wmax = xpart;   // [warp][2]
       res = warp_max(res);
       mag = warp_max(mag);
       if (lane == 0) {
-        wmax[2 * (tid / 32)] = res;
-        wmax[2 * (tid / 32) + 1] = mag;
+        wmax[2 * warp] = res;
+        wmax[2 * warp + 1] = mag;
       }
       __syncthreads();
       for (int w = 0; w < kThreads / 32; ++w) {
@@ -1441,30 +1638,69 @@ lloyd_tile_mma_kernel(const T* __restrict__ x, const T* __restrict__ c,
         // a detecting tile: decode and correct Ds, then its rows' min /
         // argmin again on the corrected tile
         if (tid < 32) {
-          const int d = locate_and_correct<BM>(sm, lane, thr_factor);
-          if (tid == 0) det_count += d;
+          int li, lj;
+          float dl;
+          const int d = locate_tile(col1, row1, resc1, resc2, resr1, resr2,
+                                    BM, kBK, lane, thr_factor, &li, &lj, &dl);
+          if (tid == 0 && d) {
+            ++*det_count;
+            Ds[li * (kBK + 1) + lj] -= dl;
+          }
         }
         __syncthreads();
         if (tid < BM)
-          tile_min_argmin(Ds + tid * (kBK + 1), cnS, c0, &lmin, &larg);
+          tile_min_argmin(Ds + tid * (kBK + 1), cq, c0, &lmin, &larg);
       }
-    } else if (tid < BM) {
-      tile_min_argmin(Ds + tid * (kBK + 1), cnS, c0, &lmin, &larg);
+      if (tid < BM) fold_min(&best, &best_arg, lmin, larg);
+      __syncthreads();   // Ds is read: the ring takes the next tile's copies
+#pragma unroll
+      for (int i = 1; i < kMmaStages; ++i) issue(s + i, (s + i) / nch == q + 1);
+      ce1[0] = ce1[1] = ce2[0] = ce2[1] = 0.0f;
+    } else {
+      prod.scan(cq, xch);
+      __syncthreads();
+      if (tid < BM) {
+        const float2 p = xch[tid];
+        float v = p.x;
+        int col = __float_as_int(p.y);
+#pragma unroll
+        for (int w = 1; w < 4; ++w) {
+          const float2 o = xch[w * BM + tid];
+          min_pair(&v, &col, o.x, __float_as_int(o.y));
+        }
+        if (col >= 0) fold_min(&best, &best_arg, v, col + c0);
+        if (kPruned) {
+          // the row's Euclidean distance to this tile; padding rows bound
+          // nothing (a (-inf, -1) pair gives 0, as the serial scan's NaN)
+          float e = m0 + tid < true_m ? sqrtf(fmaxf(v + xnS[tid], 0.0f))
+                                      : FLT_MAX;
+          for (int off = 16; off > 0; off >>= 1)
+            e = fminf(e, __shfl_xor_sync(0xffffffffu, e, off));
+          if (lane == 0) wmin[(q & 1) * 8 + warp] = e;
+        }
+      }
     }
-    if (tid < BM) fold_min(&best, &best_arg, lmin, larg);
-    __syncthreads();
+    prod.zero();
+    ++q;
   }
+  cp_async_wait<0>();
 
   if (tid < BM) {
     mind[m0 + tid] = best;
     argmin[m0 + tid] = best_arg;
   }
-  if (kFT && tid == 0) det[mt] = det_count;
-  if constexpr (kUpd == kEntryUpdate || kUpd == kBatchedEntries) {
+  if (kFT && tid == 0) det[mt] = *det_count;
+  if constexpr (kUpd == kEntryUpdate || kUpd == kBatchedEntries || kPruned) {
+    __syncthreads();   // the ring is free: every warp is past its last read
+    if (kPruned && tid < 32 && ntiles > 0)
+      write_bound(wmin, ntiles - 1, BM / 32,
+                  tmin + size_t(mt) * nkt + tiles[ntiles - 1]);
     EntryOut o{sums, counts, idx, ekey, kp, fp, levels, int(gridDim.x)};
     if (kUpd == kBatchedEntries) o.row0 = size_t(blockIdx.y) * gridDim.x * BM;
-    emit_entries<T, BM, kFT>(sm, best_arg, x, mt, true_m, o, inj, spare,
-                             ucheck, ccheck);
+    emit_entries<T, BM, kFT>(
+        reinterpret_cast<int*>(ring + (kFT ? kMmaEntryScratch : 0)),
+        reinterpret_cast<float*>(ring), best_arg, x, mt, true_m, o, inj,
+        spare, ucheck, ccheck);
   }
 }
 
@@ -1515,201 +1751,6 @@ update_tiles_kernel(const T* __restrict__ x,
                      sums + size_t(mt) * kp * fp, counts + size_t(mt) * kp);
 }
 
-// The one-pass step of lloyd_tile_kernel<BM, false, true> with each trip over
-// a centroid tile gated by skip[mt * nkt + kt] (1 = the tile cannot win any
-// row of the row tile). The flag is read by every thread, after the previous
-// trip's last barrier, so the whole block skips staging, the FMA loop, the Ds
-// write and the fold together. A computed trip runs the tile kernel's code
-// (same FMA order, tile_min_argmin, fold_min), so where the mask skips only
-// tiles that strictly lose, the outputs are bit for bit lloyd_step's. It also
-// writes tmin[mt, kt] = min over the valid rows r of
-// sqrt(max(lmin_r + xn_r, 0)) (min is exact, so any order gives the same
-// bits); a skipped trip writes FLT_MAX there, a placeholder that the caller
-// replaces by the decayed bound. The final min/argmin writes and emit_update
-// run whatever the mask says. lloyd_pruned_mma_kernel below is the same step
-// for 2-byte X and C; the two share pruned_trip_end and pruned_finish.
-
-// The end of a computed trip, once Ds holds the tile's products: fold the
-// tile into each row's running (min, argmin) and write the tile's bound
-// tmin_cell. Called by all threads of the block.
-template <int BM>
-__device__ __forceinline__ void pruned_trip_end(
-    const float* Ds, const float* cnS, float* wmin, int c0, int m0,
-    int true_m, const float* __restrict__ xn, float* best, int* best_arg,
-    float* tmin_cell) {
-  const int tid = threadIdx.x;
-  if (tid < BM) {
-    float lmin;
-    int larg;
-    tile_min_argmin(Ds + tid * (kBK + 1), cnS, c0, &lmin, &larg);
-    fold_min(best, best_arg, lmin, larg);
-    // the row's Euclidean distance to this tile; padding rows bound nothing
-    float e = m0 + tid < true_m ? sqrtf(fmaxf(lmin + xn[m0 + tid], 0.0f))
-                                : FLT_MAX;
-    for (int off = 16; off > 0; off >>= 1)
-      e = fminf(e, __shfl_xor_sync(0xffffffffu, e, off));
-    if (tid % 32 == 0) wmin[tid / 32] = e;
-  }
-  __syncthreads();
-  if (tid == 0) {
-    float e = wmin[0];
-    for (int w = 1; w < BM / 32; ++w) e = fminf(e, wmin[w]);
-    *tmin_cell = e;
-  }
-}
-
-// The final min/argmin writes and the update of the row tile, whatever the
-// mask said. Called by all threads of the block.
-template <typename T, int BM>
-__device__ __forceinline__ void pruned_finish(
-    int* smi, const T* __restrict__ x, float best, int best_arg, int mt,
-    int true_m, int kp, int fp, float* __restrict__ mind,
-    int* __restrict__ argmin, float* __restrict__ sums,
-    float* __restrict__ counts) {
-  using L = Layout<BM>;
-  const int tid = threadIdx.x, m0 = mt * BM;
-  int* am = smi + L::kAm;
-  if (tid < BM) {
-    mind[m0 + tid] = best;
-    argmin[m0 + tid] = best_arg;
-    am[tid] = best_arg;
-  }
-  emit_update<T, BM>(am, smi + L::kKey, smi + L::kOrder, smi + L::kSKey, x,
-                     m0, true_m, kp, fp, sums + size_t(mt) * kp * fp,
-                     counts + size_t(mt) * kp);
-}
-
-template <int BM>
-__global__ void __launch_bounds__(kThreads)
-lloyd_pruned_kernel(const float* __restrict__ x, const float* __restrict__ c,
-                    const float* __restrict__ cn, const float* __restrict__ xn,
-                    const int* __restrict__ skip, float* __restrict__ mind,
-                    int* __restrict__ argmin, float* __restrict__ sums,
-                    float* __restrict__ counts, float* __restrict__ tmin,
-                    int kp, int fp, int true_m) {
-  using L = Layout<BM>;
-  constexpr int kTM = BM / 16;
-  extern __shared__ float sm[];
-  float* Ds = sm + L::kDs;
-  float* Xs = sm + L::kXs;
-  float* Cs = sm + L::kCs;
-  float* cnS = sm + L::kCn;
-  float* wmin = sm + L::kPart;  // BM / 32 warp minima of the tile bound
-
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  const int mt = blockIdx.x, m0 = mt * BM;
-  const int nkt = kp / kBK, nch = fp / kChunk;
-
-  float best = FLT_MAX;   // running row state, owned by thread tid < BM
-  int best_arg = 0;
-
-  for (int kt = 0; kt < nkt; ++kt) {
-    if (skip[mt * nkt + kt]) {   // block-uniform
-      if (tid == 0) tmin[mt * nkt + kt] = FLT_MAX;
-      continue;
-    }
-    const int c0 = kt * kBK;
-    float acc[kTM][kTN];
-#pragma unroll
-    for (int i = 0; i < kTM; ++i)
-#pragma unroll
-      for (int j = 0; j < kTN; ++j) acc[i][j] = 0.0f;
-    if (tid < kBK) cnS[tid] = cn[c0 + tid];
-
-    for (int ch = 0; ch < nch; ++ch) {
-      const int f0 = ch * kChunk;
-      for (int idx = tid; idx < BM * kChunk; idx += kThreads) {
-        const int r = idx / kChunk, f = idx % kChunk;
-        Xs[f * (BM + 1) + r] = x[size_t(m0 + r) * fp + f0 + f];
-      }
-      for (int idx = tid; idx < kBK * kChunk; idx += kThreads) {
-        const int r = idx / kChunk, f = idx % kChunk;
-        Cs[f * (kBK + 1) + r] = c[size_t(c0 + r) * fp + f0 + f];
-      }
-      __syncthreads();
-#pragma unroll 4
-      for (int f = 0; f < kChunk; ++f) {
-        float a[kTM], b[kTN];
-#pragma unroll
-        for (int i = 0; i < kTM; ++i) a[i] = Xs[f * (BM + 1) + ty + 16 * i];
-#pragma unroll
-        for (int j = 0; j < kTN; ++j) b[j] = Cs[f * (kBK + 1) + tx + 16 * j];
-#pragma unroll
-        for (int i = 0; i < kTM; ++i)
-#pragma unroll
-          for (int j = 0; j < kTN; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-      }
-      __syncthreads();
-    }
-
-#pragma unroll
-    for (int i = 0; i < kTM; ++i)
-#pragma unroll
-      for (int j = 0; j < kTN; ++j)
-        Ds[(ty + 16 * i) * (kBK + 1) + tx + 16 * j] = acc[i][j];
-    __syncthreads();
-    pruned_trip_end<BM>(Ds, cnS, wmin, c0, m0, true_m, xn, &best, &best_arg,
-                        tmin + mt * nkt + kt);
-  }
-  pruned_finish<float, BM>(reinterpret_cast<int*>(sm), x, best, best_arg,
-                           mt, true_m, kp, fp, mind, argmin, sums, counts);
-}
-
-// lloyd_pruned_kernel for bf16 / fp16 X and C: the same trips, skip test,
-// tile bound and update, with the product of lloyd_tile_mma_kernel
-// (MmaProduct<T, BM>: stage, mac and store in that kernel's order, then
-// tile_min_argmin and fold_min), so a computed trip gives the 2-byte
-// lloyd_step's Ds bit for bit, and where the mask skips only tiles that
-// lose strictly, every output is the 2-byte lloyd_step's. The f32 kernel
-// above keeps its own inline product (a product object cost the f32 tile
-// kernel 0.5-3 % on an H100, PERF.md).
-template <typename T, int BM>
-__global__ void __launch_bounds__(kThreads)
-lloyd_pruned_mma_kernel(const T* __restrict__ x, const T* __restrict__ c,
-                        const float* __restrict__ cn,
-                        const float* __restrict__ xn,
-                        const int* __restrict__ skip, float* __restrict__ mind,
-                        int* __restrict__ argmin, float* __restrict__ sums,
-                        float* __restrict__ counts, float* __restrict__ tmin,
-                        int kp, int fp, int true_m) {
-  using L = Layout<BM>;
-  using P = MmaProduct<T, BM>;
-  extern __shared__ __align__(16) float sm_pruned[];
-  float* sm = sm_pruned;
-  float* Ds = sm + L::kDs;
-  float* cnS = sm + L::kCn;
-
-  const int tid = threadIdx.x;
-  const int mt = blockIdx.x, m0 = mt * BM;
-  const int nkt = kp / kBK, nch = fp / kChunk;
-
-  float best = FLT_MAX;   // running row state, owned by thread tid < BM
-  int best_arg = 0;
-
-  for (int kt = 0; kt < nkt; ++kt) {
-    if (skip[mt * nkt + kt]) {   // block-uniform
-      if (tid == 0) tmin[mt * nkt + kt] = FLT_MAX;
-      continue;
-    }
-    const int c0 = kt * kBK;
-    P prod;
-    prod.zero();
-    if (tid < kBK) cnS[tid] = cn[c0 + tid];
-    for (int ch = 0; ch < nch; ++ch) {
-      P::stage(x, c, sm, m0, c0, ch * kChunk, fp);
-      __syncthreads();
-      prod.template mac<false>(sm);
-      __syncthreads();
-    }
-    prod.store(Ds);
-    __syncthreads();
-    pruned_trip_end<BM>(Ds, cnS, sm + L::kPart, c0, m0, true_m, xn, &best,
-                        &best_arg, tmin + mt * nkt + kt);
-  }
-  pruned_finish<T, BM>(reinterpret_cast<int*>(sm), x, best, best_arg, mt,
-                       true_m, kp, fp, mind, argmin, sums, counts);
-}
-
 // --- the int8 tile kernel: s8 tensor cores, an epilogue in registers ------
 // int8_tile_kernel<BM> (one block of 256 threads a row tile of BM rows, a
 // walk over the centroid tiles of kBK = 128 in feature chunks of up to
@@ -1753,16 +1794,6 @@ constexpr int kI8StashMax = 48 * 1024;    // bytes of X's row tile kept whole
 // the widest Fp whose int32 sums are exact for any int8 values
 constexpr int kI8MaxFeatures = (0x7fffffff / (128 * 128));
 
-__device__ __forceinline__ void cp_async16b(void* smem, const void* gmem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-               "l"(gmem)
-               : "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
 
 // Shared-memory layout of int8_tile_kernel (byte offsets, each 16-byte
 // aligned): X's stash at 0 (BM rows of Fp + 16 bytes) when it fits, the
@@ -2043,13 +2074,15 @@ constexpr auto tile_kernel() {
 }
 
 // dynamic shared memory of a tile kernel: the f32 kernel's F32Layout (with
-// X's encodings, 2 x fp words, at kFT) or the 2-byte kernels' Layout
-template <typename T, int BM, bool kFT>
-size_t tile_bytes(int fp) {
+// X's encodings, 2 x fp words, at kFT) or the 2-byte kernels' MmaLayout;
+// pruned, with the list of the kp / kBK centroid tiles
+template <typename T, int BM, bool kFT, int kUpd>
+size_t tile_bytes(int fp, int kp) {
+  const int ntiles = kUpd == kPrunedEntries ? kp / kBK : 0;
   if constexpr (std::is_same<T, float>::value)
-    return F32Layout<BM>::bytes(kFT, fp);
+    return F32Layout<BM>::bytes(kFT, fp, ntiles);
   else
-    return Layout<BM>::kBytes;
+    return MmaLayout(BM, fp, kFT, ntiles).bytes;
 }
 
 // A kernel's resources with `bytes` of dynamic shared memory: out[0]
@@ -2071,24 +2104,58 @@ int kernel_resources(K kernel, size_t bytes, int* out) {
   return int(e);
 }
 
-// The f32 tile kernel's resources at one (BM, kFT, kUpd) and Fp = fp.
-template <int BM, bool kFT, int kUpd>
-int tile_resources(int fp, int* out) {
-  return kernel_resources(lloyd_tile_kernel<BM, kFT, kUpd>,
-                          F32Layout<BM>::bytes(kFT, fp), out);
+// A tile kernel's resources at one (T, BM, kFT, kUpd), Fp = fp and Kp =
+// kp (the pruned mode's list of centroid tiles).
+template <typename T, int BM, bool kFT, int kUpd>
+int tile_resources(int fp, int kp, int* out) {
+  return kernel_resources(tile_kernel<T, BM, kFT, kUpd>(),
+                          tile_bytes<T, BM, kFT, kUpd>(fp, kp), out);
+}
+
+// tile_resources at bm 64 or 128, ft 0 / 1 and upd (a kUpd: 0 none, 1
+// dense (f32), 2 entries, 3 batched entries (2 bytes), 4 pruned entries;
+// ft only with 0 or 2)
+template <typename T>
+int tile_resources_of(int bm, int ft, int upd, int fp, int kp, int* out) {
+  const int v = (bm == 128 ? 100 : bm == 64 ? 0 : -1000) + 10 * ft + upd;
+  constexpr bool kF32 = std::is_same<T, float>::value;
+  switch (v) {
+    case 0: return tile_resources<T, 64, false, kNoUpdate>(fp, kp, out);
+    case 2: return tile_resources<T, 64, false, kEntryUpdate>(fp, kp, out);
+    case 4: return tile_resources<T, 64, false, kPrunedEntries>(fp, kp, out);
+    case 10: return tile_resources<T, 64, true, kNoUpdate>(fp, kp, out);
+    case 12: return tile_resources<T, 64, true, kEntryUpdate>(fp, kp, out);
+    case 100: return tile_resources<T, 128, false, kNoUpdate>(fp, kp, out);
+    case 102: return tile_resources<T, 128, false, kEntryUpdate>(fp, kp, out);
+    case 104:
+      return tile_resources<T, 128, false, kPrunedEntries>(fp, kp, out);
+    case 110: return tile_resources<T, 128, true, kNoUpdate>(fp, kp, out);
+    case 112: return tile_resources<T, 128, true, kEntryUpdate>(fp, kp, out);
+    default: break;
+  }
+  if constexpr (kF32) {
+    if (v == 1) return tile_resources<T, 64, false, kDenseUpdate>(fp, kp, out);
+    if (v == 101)
+      return tile_resources<T, 128, false, kDenseUpdate>(fp, kp, out);
+  } else {
+    if (v == 3)
+      return tile_resources<T, 64, false, kBatchedEntries>(fp, kp, out);
+    if (v == 103)
+      return tile_resources<T, 128, false, kBatchedEntries>(fp, kp, out);
+  }
+  return int(cudaErrorInvalidValue);
 }
 
 // A tile kernel's outputs and scratch past its distances: the FT ones (cenc
-// the split C encodings and xenc the X encodings' scratch of the 2-byte
-// kernels; det), the dense update's (sums, counts) or the entries' (sums,
-// counts as entries, ecnt; idx, ekey, spare, levels), the update checksums.
-// Pointers an instantiation does not use are null.
+// C's encodings, the injection descriptor, det), the dense update's (sums,
+// counts) or the entries' (sums, counts as entries, ecnt; idx, ekey, spare,
+// levels), the update checksums, the pruned step's. Pointers an
+// instantiation does not use are null.
 template <typename T>
 struct TileArgs {
   const T* cenc;
   const int* inj;
   int* det;
-  float* xenc;
   float* sums;
   float* counts;
   int* idx;
@@ -2098,6 +2165,9 @@ struct TileArgs {
   float* ccheck;
   int levels;
   float thr_factor;
+  const float* xn;   // pruned: the rows' squared norms, the skip mask and
+  const int* skip;   // the tile bounds out
+  float* tmin;
 };
 
 template <typename T, int BM, bool kFT, int kUpd>
@@ -2105,19 +2175,20 @@ int launch_tile(const T* x, const T* c, const float* cn, float* mind,
                 int* argmin, const TileArgs<T>& a, int nb, int mp, int kp,
                 int fp, int bf, int true_m, cudaStream_t stream) {
   auto kernel = tile_kernel<T, BM, kFT, kUpd>();
-  const size_t bytes = tile_bytes<T, BM, kFT>(fp);
-  // the f32 kernel stages X, C and cn 16 bytes a copy (cp.async)
-  if (std::is_same<T, float>::value &&
-      (reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(c) |
-       reinterpret_cast<uintptr_t>(cn)) % 16)
+  const size_t bytes = tile_bytes<T, BM, kFT, kUpd>(fp, kp);
+  // the kernels stage X, C, cn (the FT kernels' cenc, the pruned ones' xn)
+  // 16 bytes a copy (cp.async)
+  if ((reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(c) |
+       reinterpret_cast<uintptr_t>(cn) | reinterpret_cast<uintptr_t>(a.cenc) |
+       reinterpret_cast<uintptr_t>(a.xn)) %
+      16)
     return int(cudaErrorMisalignedAddress);
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(bytes));
   if (e != cudaSuccess) return int(e);
   kernel<<<dim3(mp / BM, nb), kThreads, bytes, stream>>>(
-      x, c, cn, a.cenc, a.inj, mind, argmin, a.det, a.xenc, a.sums, a.counts,
-      a.idx, a.ekey, a.spare, a.ucheck, a.ccheck, kp, fp, bf, true_m,
-      a.levels, a.thr_factor);
+      x, c, cn, a.cenc, a.inj, mind, argmin, a.det, a.sums, a.counts, a.idx, a.ekey, a.spare, a.ucheck, a.ccheck, a.xn, a.skip, a.tmin, kp,
+      fp, bf, true_m, a.levels, a.thr_factor);
   return int(cudaGetLastError());
 }
 
@@ -2129,8 +2200,9 @@ int dispatch(int bm, const T* x, const T* c, const float* cn, float* mind,
       bf % kChunk || fp % bf || nb < 1 || nb > kMaxProblems ||
       (nb > 1 && kUpd != kDenseUpdate && kUpd != kBatchedEntries) ||
       (kUpd == kBatchedEntries && size_t(nb) * mp > size_t(INT_MAX)) ||
-      (kFT && (a.cenc == nullptr ||
-               (!std::is_same<T, float>::value && a.xenc == nullptr))))
+      (kFT && a.cenc == nullptr) ||
+      (kUpd == kPrunedEntries &&
+       (a.xn == nullptr || a.skip == nullptr || a.tmin == nullptr)))
     return int(cudaErrorInvalidValue);
   if (bm == 128)
     return launch_tile<T, 128, kFT, kUpd>(x, c, cn, mind, argmin, a, nb, mp,
@@ -2186,30 +2258,6 @@ int by_half(int half, Fn fn) {
   if (half == 0) return fn(Tag<__nv_bfloat16>{});
   if (half == 1) return fn(Tag<__half>{});
   return int(cudaErrorInvalidValue);
-}
-
-// the pruned kernel of input type T: the f32 kernel or the tensor-core one
-template <typename T, int BM>
-constexpr auto pruned_kernel() {
-  if constexpr (std::is_same<T, float>::value)
-    return lloyd_pruned_kernel<BM>;
-  else
-    return lloyd_pruned_mma_kernel<T, BM>;
-}
-
-template <typename T, int BM>
-int launch_pruned(const T* x, const T* c, const float* cn,
-                  const float* xn, const int* skip, float* mind, int* argmin,
-                  float* sums, float* counts, float* tmin, int mp, int kp,
-                  int fp, int true_m, cudaStream_t stream) {
-  auto kernel = pruned_kernel<T, BM>();
-  const size_t bytes = Layout<BM>::kBytes;
-  cudaError_t e = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(bytes));
-  if (e != cudaSuccess) return int(e);
-  kernel<<<mp / BM, kThreads, bytes, stream>>>(
-      x, c, cn, xn, skip, mind, argmin, sums, counts, tmin, kp, fp, true_m);
-  return int(cudaGetLastError());
 }
 
 template <int BM>
@@ -2410,19 +2458,6 @@ bool tile_shape_ok(int bm, int mp, int kp, int fp) {
          kp % kBK == 0 && fp > 0 && fp % kChunk == 0;
 }
 
-template <typename T>
-int pruned_dispatch(const T* x, const T* c, const float* cn, const float* xn,
-                    const int* skip, float* mind, int* argmin, float* sums,
-                    float* counts, float* tmin, int true_m, int mp, int kp,
-                    int fp, int bm, cudaStream_t s) {
-  if (!tile_shape_ok(bm, mp, kp, fp)) return int(cudaErrorInvalidValue);
-  if (bm == 128)
-    return launch_pruned<T, 128>(x, c, cn, xn, skip, mind, argmin, sums,
-                                 counts, tmin, mp, kp, fp, true_m, s);
-  return launch_pruned<T, 64>(x, c, cn, xn, skip, mind, argmin, sums, counts,
-                              tmin, mp, kp, fp, true_m, s);
-}
-
 }  // namespace
 
 extern "C" {
@@ -2484,19 +2519,16 @@ int fk_lloyd_step_batched(const float* x, const float* c, const float* cn,
 }
 
 // cenc: the 2-byte kernels' split C encodings, at f32 the pre-pass's
-// cenc (fk_lloyd_prep); xenc: the 2-byte kernels' X encodings' scratch
-// (null at f32, which keeps them in shared memory).
+// cenc (fk_lloyd_prep). X's encodings stay in the kernels' shared memory.
 int fk_distance_argmin_ft(const float* x, const float* c, const float* cn,
                           const void* cenc, const int* inj, float* mind,
-                          int* argmin, int* det, float* xenc,
-                          float thr_factor, int mp, int kp, int fp, int bm,
+                          int* argmin, int* det, float thr_factor, int mp, int kp, int fp, int bm,
                           int bf, void* stream) {
   TileArgs<float> a{};
   a.cenc = static_cast<const float*>(cenc);
   a.inj = inj;
   a.det = det;
   a.thr_factor = thr_factor;
-  (void)xenc;
   return dispatch<float, true, kNoUpdate>(
       bm, x, c, cn, mind, argmin, a, 1, mp, kp, fp, bf, mp,
       static_cast<cudaStream_t>(stream));
@@ -2507,39 +2539,32 @@ int fk_distance_argmin_ft(const float* x, const float* c, const float* cn,
 // ucheck (mp / bm, 2, fp) and ccheck (mp / bm, 2).
 int fk_lloyd_step_ft(const float* x, const float* c, const float* cn,
                      const void* cenc, const int* inj, float* mind,
-                     int* argmin, int* det, float* xenc, float* entries,
-                     float* ecnt, int* idx, int* ekey, int* spare,
-                     float* ucheck, float* ccheck, float thr_factor,
-                     int true_m, int mp, int kp, int fp, int bm, int bf,
-                     void* stream) {
-  (void)xenc;
+                     int* argmin, int* det, float* entries, float* ecnt,
+                     int* idx, int* ekey, int* spare, float* ucheck,
+                     float* ccheck, float thr_factor, int true_m, int mp,
+                     int kp, int fp, int bm, int bf, void* stream) {
   const TileArgs<float> a{static_cast<const float*>(cenc),
-                          inj,     det,    nullptr,
-                          entries, ecnt,   idx,    ekey,
-                          spare,   ucheck, ccheck, entry_levels(mp, bm),
-                          thr_factor};
+                          inj,    det,    entries, ecnt,
+                          idx,    ekey,   spare,   ucheck,
+                          ccheck, entry_levels(mp, bm), thr_factor};
   return dispatch<float, true, kEntryUpdate>(
       bm, x, c, cn, mind, argmin, a, 1, mp, kp, fp, bf, true_m,
       static_cast<cudaStream_t>(stream));
 }
 
-// The f32 tile kernel's resources (tile_resources) at bm 64 or 128, ft 0/1
-// and upd (0 none, 1 dense, 2 entries; ft only with 0 or 2).
-int fk_tile_resources(int bm, int ft, int upd, int fp, int* out) {
-  const int v = (bm == 128 ? 100 : bm == 64 ? 0 : -1000) + 10 * ft + upd;
-  switch (v) {
-    case 0: return tile_resources<64, false, kNoUpdate>(fp, out);
-    case 1: return tile_resources<64, false, kDenseUpdate>(fp, out);
-    case 2: return tile_resources<64, false, kEntryUpdate>(fp, out);
-    case 10: return tile_resources<64, true, kNoUpdate>(fp, out);
-    case 12: return tile_resources<64, true, kEntryUpdate>(fp, out);
-    case 100: return tile_resources<128, false, kNoUpdate>(fp, out);
-    case 101: return tile_resources<128, false, kDenseUpdate>(fp, out);
-    case 102: return tile_resources<128, false, kEntryUpdate>(fp, out);
-    case 110: return tile_resources<128, true, kNoUpdate>(fp, out);
-    case 112: return tile_resources<128, true, kEntryUpdate>(fp, out);
-    default: return int(cudaErrorInvalidValue);
-  }
+// A tile kernel's resources (tile_resources_of) at bm 64 or 128, ft 0/1,
+// upd (0 none, 1 dense (f32), 2 entries, 3 batched entries (2 bytes), 4
+// pruned entries; ft only with 0 or 2), Fp = fp and Kp = kp, for f32 (half
+// = -1), bf16 (0) or fp16 (1) X and C.
+int fk_tile_resources(int bm, int ft, int upd, int fp, int kp, int half,
+                      int* out) {
+  if (fp <= 0 || fp % kChunk || kp <= 0 || kp % kBK)
+    return int(cudaErrorInvalidValue);
+  if (half < 0) return tile_resources_of<float>(bm, ft, upd, fp, kp, out);
+  return by_half(half, [&](auto tag) {
+    return tile_resources_of<typename decltype(tag)::type>(bm, ft, upd, fp,
+                                                           kp, out);
+  });
 }
 
 // tile and gate may be null: every one of n_tiles row tiles, ungated.
@@ -2610,12 +2635,10 @@ int fk_lloyd_step_batched_lp(const void* x, const void* c, const float* cn,
   });
 }
 
-// cenc (kp / 128, 8, fp) from fk_lloyd_encode_lp; xenc (mp / bm, 2, fp) f32
-// scratch.
+// cenc (kp / 128, 8, fp) from fk_lloyd_encode_lp
 int fk_distance_argmin_ft_lp(const void* x, const void* c, const float* cn,
                              const void* cenc, const int* inj, float* mind,
-                             int* argmin, int* det, float* xenc,
-                             float thr_factor, int mp, int kp, int fp,
+                             int* argmin, int* det, float thr_factor, int mp, int kp, int fp,
                              int bm, int bf, int half, void* stream) {
   return by_half(half, [&](auto tag) {
     using T = typename decltype(tag)::type;
@@ -2623,7 +2646,6 @@ int fk_distance_argmin_ft_lp(const void* x, const void* c, const float* cn,
     a.cenc = static_cast<const T*>(cenc);
     a.inj = inj;
     a.det = det;
-    a.xenc = xenc;
     a.thr_factor = thr_factor;
     return dispatch<T, true, kNoUpdate>(
         bm, static_cast<const T*>(x), static_cast<const T*>(c), cn, mind,
@@ -2633,15 +2655,15 @@ int fk_distance_argmin_ft_lp(const void* x, const void* c, const float* cn,
 
 int fk_lloyd_step_ft_lp(const void* x, const void* c, const float* cn,
                         const void* cenc, const int* inj, float* mind,
-                        int* argmin, int* det, float* xenc, float* entries,
-                        float* ecnt, int* idx, int* ekey, int* spare,
-                        float* ucheck, float* ccheck, float thr_factor,
-                        int true_m, int mp, int kp, int fp, int bm, int bf,
-                        int half, void* stream) {
+                        int* argmin, int* det, float* entries, float* ecnt,
+                        int* idx, int* ekey, int* spare, float* ucheck,
+                        float* ccheck, float thr_factor, int true_m, int mp,
+                        int kp, int fp, int bm, int bf, int half,
+                        void* stream) {
   return by_half(half, [&](auto tag) {
     using T = typename decltype(tag)::type;
-    const TileArgs<T> a{static_cast<const T*>(cenc), inj, det, xenc,
-                        entries, ecnt, idx, ekey, spare, ucheck, ccheck,
+    const TileArgs<T> a{static_cast<const T*>(cenc), inj, det, entries,
+                        ecnt, idx, ekey, spare, ucheck, ccheck,
                         entry_levels(mp, bm), thr_factor};
     return dispatch<T, true, kEntryUpdate>(
         bm, static_cast<const T*>(x), static_cast<const T*>(c), cn, mind,
@@ -2673,31 +2695,49 @@ int fk_update_tiles_lp(const void* x, const int* argmin, const int* tile,
   });
 }
 
-// skip: (mp / bm, kp / 128) int32; xn: (mp,) row squared norms; tmin:
-// (mp / bm, kp / 128) f32 out.
+// The pruned one-pass step: lloyd_step's outputs (at f32 c is the
+// pre-pass's ct) over the centroid tiles skip (mp / bm, kp / 128) int32
+// leaves (1: skipped), and tmin (mp / bm, kp / 128) f32, each computed
+// tile's bound (xn (mp,): the rows' squared norms, 0 in padded rows; a
+// skipped tile gets FLT_MAX).
 int fk_lloyd_step_pruned(const float* x, const float* c, const float* cn,
                          const float* xn, const int* skip, float* mind,
-                         int* argmin, float* sums, float* counts, float* tmin,
-                         int true_m, int mp, int kp, int fp, int bm,
-                         void* stream) {
-  return pruned_dispatch<float>(x, c, cn, xn, skip, mind, argmin, sums,
-                                counts, tmin, true_m, mp, kp, fp, bm,
-                                static_cast<cudaStream_t>(stream));
+                         int* argmin, float* entries, float* ecnt, int* idx,
+                         float* tmin, int true_m, int mp, int kp, int fp,
+                         int bm, int bf, void* stream) {
+  TileArgs<float> a{};
+  a.sums = entries;
+  a.counts = ecnt;
+  a.idx = idx;
+  a.levels = entry_levels(mp, bm);
+  a.xn = xn;
+  a.skip = skip;
+  a.tmin = tmin;
+  return dispatch<float, false, kPrunedEntries>(
+      bm, x, c, cn, mind, argmin, a, 1, mp, kp, fp, bf, true_m,
+      static_cast<cudaStream_t>(stream));
 }
 
-// fk_lloyd_step_pruned for bf16 (half = 0) or fp16 (half = 1) X and C,
-// 16-byte aligned
+// fk_lloyd_step_pruned for bf16 (half = 0) or fp16 (half = 1) X and C
 int fk_lloyd_step_pruned_lp(const void* x, const void* c, const float* cn,
                             const float* xn, const int* skip, float* mind,
-                            int* argmin, float* sums, float* counts,
-                            float* tmin, int true_m, int mp, int kp, int fp,
-                            int bm, int half, void* stream) {
+                            int* argmin, float* entries, float* ecnt,
+                            int* idx, float* tmin, int true_m, int mp, int kp,
+                            int fp, int bm, int bf, int half, void* stream) {
   return by_half(half, [&](auto tag) {
     using T = typename decltype(tag)::type;
-    return pruned_dispatch<T>(static_cast<const T*>(x),
-                              static_cast<const T*>(c), cn, xn, skip, mind,
-                              argmin, sums, counts, tmin, true_m, mp, kp, fp,
-                              bm, static_cast<cudaStream_t>(stream));
+    TileArgs<T> a{};
+    a.sums = entries;
+    a.counts = ecnt;
+    a.idx = idx;
+    a.levels = entry_levels(mp, bm);
+    a.xn = xn;
+    a.skip = skip;
+    a.tmin = tmin;
+    return dispatch<T, false, kPrunedEntries>(
+        bm, static_cast<const T*>(x), static_cast<const T*>(c), cn, mind,
+        argmin, a, 1, mp, kp, fp, bf, true_m,
+        static_cast<cudaStream_t>(stream));
   });
 }
 

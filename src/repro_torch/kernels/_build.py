@@ -16,7 +16,8 @@ dense update, ``fk_lloyd_step_batched``, at 2 bytes each problem's entries,
 ``lloyd_step_ft`` (at 2 bytes with the C encodings' pre-pass,
 ``fk_lloyd_encode_lp``), the dense update epilogue launched alone
 (``fk_update_tiles``), the pruned one-pass step
-(``fk_lloyd_step_pruned``), each also for bf16 or fp16 inputs on the
+(``fk_lloyd_step_pruned``: the tile kernel's pruned mode, its update as
+entries), each also for bf16 or fp16 inputs on the
 tensor cores (the ``*_lp`` entry points of :data:`LOWP_ENTRIES`, one more
 int argument before the stream: :data:`HALF_KINDS`), the k-means++ D^2
 round (``fk_kmeanspp_round``), the
@@ -75,22 +76,23 @@ SIGNATURES: dict[str, tuple] = {
     "fk_distance_argmin": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     "fk_lloyd_step": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                       _P),
-    "fk_distance_argmin_ft": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _F, _I, _I,
-                              _I, _I, _I, _P),
-    "fk_lloyd_step_ft": (_P,) * 16 + (_F, _I, _I, _I, _I, _I, _I, _P),
+    "fk_distance_argmin_ft": (_P, _P, _P, _P, _P, _P, _P, _P, _F, _I, _I, _I,
+                              _I, _I, _P),
+    "fk_lloyd_step_ft": (_P,) * 15 + (_F, _I, _I, _I, _I, _I, _I, _P),
     "fk_update_tiles": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     "fk_lloyd_step_batched": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                               _I, _I, _P),
     "fk_kmeanspp_round": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
-    "fk_lloyd_step_pruned": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
-                             _I, _I, _I, _P),
+    # x, c, cn, xn, skip, mind, argmin, entries, ecnt, idx, tmin; true_m,
+    # mp, kp, fp, bm, bf; stream
+    "fk_lloyd_step_pruned": (_P,) * 11 + (_I,) * 6 + (_P,),
     "fk_distance_argmin_int8": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                 _P),
     "fk_centroid_update_dmr": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                                _I, _I, _I, _I, _F, _P),
-    # the f32 tile kernel's resources: bm, ft, upd, fp, out (4 ints); the
-    # int8 kernel's: bm, fp, out
-    "fk_tile_resources": (_I, _I, _I, _I, _P),
+    # a tile kernel's resources: bm, ft, upd, fp, kp, dtype code (-1 f32,
+    # else HALF_KINDS'), out (4 ints); the int8 kernel's: bm, fp, out
+    "fk_tile_resources": (_I, _I, _I, _I, _I, _I, _P),
     "fk_int8_resources": (_I, _I, _P),
     # its pre-pass: c, ct, cenc (or null); nb, kp, fp; stream
     "fk_lloyd_prep": (_P, _P, _P, _I, _I, _I, _P),

@@ -27,7 +27,12 @@ shuffles (lowest index on ties: the serial scan's result bit for bit), and
 one lane of the row keeps its running minimum. At bf16 /
 fp16 each warp runs ``mma.sync`` m16n8k16 tiles on the tensor cores with
 f32 accumulation (products of 2-byte values are exact in f32, so the plain
-version's f32 product of the widened values is the same function). The
+version's f32 product of the widened values is the same function): X's row
+tile is copied once by ``cp.async`` and kept (streamed with C where it does
+not fit), C's chunks run through a three-slot ``cp.async`` ring, fragments
+come by ``ldmatrix``, and the min / argmin is taken in registers by the
+same scan-and-combine rule (X, C and cn must start on 16-byte boundaries
+at every dtype). The
 reference's ``_kernel_smallk`` body (padded K of one centroid tile) needs no
 body of its own here: the same loop then runs one centroid tile and folds
 it once.
@@ -36,8 +41,8 @@ Bound on the H100: 2 * Mp * Kp * Fp FLOPs on the f32 CUDA cores; the bytes
 (X once, C once per row tile from L2, two (M,) outputs) are far below it at
 K = 1000. At bf16 / fp16 the tensor cores' 989 TFLOP/s bound the GEMM
 (0.27 ms at M = 2**20, K = 1000, F = 128), near the bytes of X. The
-2-byte kernel stages without ``cp.async`` or TMA and runs ``mma.sync``,
-not ``wgmma``: pipelining it is later work.
+2-byte kernel runs ``mma.sync``, not ``wgmma``: ``wgmma`` accumulates in
+another order, and the kernels' outputs are held bit for bit.
 """
 from __future__ import annotations
 
@@ -187,15 +192,20 @@ def distance_argmin(x: torch.Tensor, c: torch.Tensor, cn: torch.Tensor, *,
 distance_argmin.launches = 0
 
 
-def tile_resources(block_m: int, ft: bool, update: int, fp: int) -> dict:
-    """The f32 tile kernel ``lloyd_tile_kernel<block_m, ft, update>``
-    (update 0 none, 1 dense, 2 entries) on the card: resident blocks an SM
-    at Fp = ``fp``, registers and local-memory (spill) bytes a thread, and
-    its dynamic shared memory. Needs a CUDA card (the library's build)."""
+def tile_resources(block_m: int, ft: bool, update: int, fp: int, *,
+                   kp: int = 1024, dtype=torch.float32) -> dict:
+    """A tile kernel on the card, ``lloyd_tile_kernel<block_m, ft,
+    update>`` (f32) or ``lloyd_tile_mma_kernel<T, block_m, ft, update>``
+    (bf16, fp16; update 0 none, 1 dense (f32), 2 entries, 3 batched
+    entries (2 bytes), 4 pruned entries): resident blocks an SM at Fp =
+    ``fp`` and Kp = ``kp``, registers and local-memory (spill) bytes a
+    thread, and its dynamic shared memory. Needs a CUDA card (the
+    library's build)."""
     import ctypes
     out = (ctypes.c_int * 4)()
+    half = _build.HALF_KINDS.get(str(dtype).replace("torch.", ""), -1)
     code = _build.library().lib.fk_tile_resources(block_m, int(ft), update,
-                                                  fp, out)
+                                                  fp, kp, half, out)
     _build.check(code, "tile_resources")
     return dict(zip(("blocks_per_sm", "registers", "local_bytes",
                      "smem_bytes"), out))

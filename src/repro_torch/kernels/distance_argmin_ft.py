@@ -34,7 +34,7 @@ scheme: :func:`encode_centroids` (``lloyd_encode_kernel<T>``, once a call)
 gives C's e1 / e2 encodings per centroid tile split into three 2-byte parts
 (``matmul_abft.split_encodings``), and the expected row checksums are one
 more ``mma.sync`` fragment beside the product; X's encodings are computed
-once a row tile (scratch ``xenc``) and the expected column checksums are
+once a row tile (kept in shared memory) and the expected column checksums are
 FMAs on them; the observed checksums are sums over the stored tile in
 shared memory, a row's inside its min/argmin pass and a column's by one
 thread a column (summing them from the accumulator registers by warp
@@ -198,18 +198,14 @@ def encode_centroids(c: torch.Tensor) -> torch.Tensor:
 encode_centroids.launches = 0
 
 
-def ft_scratch(x: torch.Tensor, c: torch.Tensor, block_m: int) -> tuple:
-    """(C operand, C encodings, X encodings' scratch or None) of an FT
-    launch: at f32 the pre-pass's ct and encodings
-    (``distance_argmin.prep_centroids``; X's encodings stay in the
-    kernel's shared memory); at 2 bytes C, its split encodings
-    (:func:`encode_centroids`) and a (Mp/bm, 2, Fp) f32 scratch."""
+def ft_scratch(x: torch.Tensor, c: torch.Tensor) -> tuple:
+    """(C operand, C encodings) of an FT launch: at f32 the pre-pass's ct
+    and encodings (``distance_argmin.prep_centroids``), at 2 bytes C and
+    its split encodings (:func:`encode_centroids`). X's encodings stay in
+    the kernels' shared memory."""
     if x.dtype == torch.float32:
-        ct, cenc = prep_centroids(c, encodings=True)
-        return ct, cenc, None
-    xenc = torch.empty((x.shape[0] // block_m, 2, x.shape[1]),
-                       dtype=torch.float32, device=x.device)
-    return c, encode_centroids(c), xenc
+        return prep_centroids(c, encodings=True)
+    return c, encode_centroids(c)
 
 
 def distance_argmin_ft(x: torch.Tensor, c: torch.Tensor, cn: torch.Tensor,
@@ -231,15 +227,14 @@ def distance_argmin_ft(x: torch.Tensor, c: torch.Tensor, cn: torch.Tensor,
     mind = torch.empty(mp, dtype=torch.float32, device=dev)
     am = torch.empty(mp, dtype=torch.int32, device=dev)
     det = torch.empty(mp // block_m, dtype=torch.int32, device=dev)
-    c_op, cenc, xenc = ft_scratch(x, c, block_m)
+    c_op, cenc = ft_scratch(x, c)
     code = _build.launch(
         "fk_distance_argmin_ft", dt, _build.ptr(x, dt, "x", vec16=True),
         _build.ptr(c_op, dt, "c", vec16=True),
         _build.ptr(cn, torch.float32, "cn", vec16=True),
         _build.ptr(cenc, cenc.dtype, "cenc"),
         _build.ptr(inj, torch.int32, "inj"),
-        mind.data_ptr(), am.data_ptr(), det.data_ptr(),
-        None if xenc is None else xenc.data_ptr(), factor, mp,
+        mind.data_ptr(), am.data_ptr(), det.data_ptr(), factor, mp,
         c.shape[0], fp, block_m, block_f, _build.stream_of(x))
     _build.check(code, "distance_argmin_ft")
     distance_argmin_ft.launches += 1

@@ -10,7 +10,10 @@ counts; rows >= ``true_m`` are padding and enter neither.
 CUDA kernels: ``lloyd_tile_kernel<BM, false, kEntryUpdate>`` (f32) and
 ``lloyd_tile_mma_kernel<T, BM, false, kEntryUpdate>`` (bf16, fp16) in
 ``csrc/fk_kernels.cu`` (T the input dtype: f32 on the CUDA cores, bf16 or
-fp16 on the tensor cores, as ``distance_argmin``). The reference's epilogue
+fp16 on the tensor cores, each on ``distance_argmin``'s loop: at 2 bytes
+X's row tile kept in shared memory, C's chunks on a ``cp.async`` ring,
+``ldmatrix`` fragments, the min / argmin in registers). The reference's
+epilogue
 writes a dense (Kp, Fp) block per row tile, ~97 % zeros at K = 1000 with
 rows in random order (4.3 GB a step at M = 2**20, F = 128); this one writes
 the tile's entries with the shared writer of ``csrc/fk_entries.cuh``
@@ -49,7 +52,8 @@ at 2 bytes, about as much in bytes: 2-byte X once and the f32 entries
 (~0.5 GB). The f32 batched step's dense partial-sum buffer bounds it by
 bytes; the 2-byte one by X, its present entries, idx and the labels. X
 rows of the update are re-read from global memory (L2-resident right
-after the tile's GEMM) instead of from a shared-memory stash.
+after the tile's GEMM): the entry writer is shared with the two-pass
+update, which has no stash.
 """
 from __future__ import annotations
 
@@ -127,7 +131,7 @@ def tile_update(xp: torch.Tensor, am: torch.Tensor, sums_p: torch.Tensor,
     Both stay on the data's device, so the caller never synchronises.
 
     On the card this launches ``emit_update`` alone (``update_tiles_kernel``),
-    the dense epilogue the batched and pruned kernels run, whose sums the
+    the dense epilogue the f32 batched kernel runs, whose sums the
     entry writer's equal: over all tiles it is the dense route the compact
     update (``update.compact_update``) and the one-pass entries are held to
     bit for bit (no card path launches it). On the CPU it is

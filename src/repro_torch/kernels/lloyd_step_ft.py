@@ -289,15 +289,14 @@ def lloyd_step_ft(x: torch.Tensor, c: torch.Tensor, cn: torch.Tensor,
     spare = torch.full((2,), -1, dtype=i32, device=dev)
     ucheck = torch.empty((nt, 2, fp), dtype=f32, device=dev)
     ccheck = torch.empty((nt, 2), dtype=f32, device=dev)
-    c_op, cenc, xenc = ft_scratch(x, c, block_m)
+    c_op, cenc = ft_scratch(x, c)
     code = _build.launch(
         "fk_lloyd_step_ft", dt, _build.ptr(x, dt, "x", vec16=True),
         _build.ptr(c_op, dt, "c", vec16=True),
         _build.ptr(cn, f32, "cn", vec16=True),
         _build.ptr(cenc, cenc.dtype, "cenc"),
         _build.ptr(inj, i32, "inj"), mind.data_ptr(), am.data_ptr(),
-        det.data_ptr(), None if xenc is None else xenc.data_ptr(),
-        entries.data_ptr(), ecnt.data_ptr(), idx.data_ptr(),
+        det.data_ptr(), entries.data_ptr(), ecnt.data_ptr(), idx.data_ptr(),
         ekey.data_ptr(), spare.data_ptr(), ucheck.data_ptr(),
         ccheck.data_ptr(), factor, true_m, mp, kp, fp, block_m, block_f,
         _build.stream_of(x))

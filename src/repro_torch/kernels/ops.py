@@ -411,8 +411,10 @@ def fused_lloyd_pruned(x, c: torch.Tensor,
     """One-pass Lloyd step with tile-granular triangle-inequality pruning:
     :func:`fused_lloyd` plus a carried :class:`BoundsState`. Skipping only
     omits folds that lose strictly, so assignments, distances, sums and
-    counts are bit for bit :func:`fused_lloyd`'s at the same tiles.
-    ``bounds=None`` (or a fresh state) computes every tile and seeds the
+    counts are bit for bit :func:`fused_lloyd`'s at the same tiles; the
+    kernel's update is its entries, summed as :func:`fused_lloyd` sums them
+    (``update.reduce_entries``). ``bounds=None`` (or a fresh state)
+    computes every tile and seeds the
     bounds. Nothing here reads the device. Returns (assign (M,) int32, true
     squared distance (M,), sums (K, F), counts (K,), new bounds, pruned
     tile fraction (0-d f32))."""
@@ -423,17 +425,19 @@ def fused_lloyd_pruned(x, c: torch.Tensor,
         bounds = init_bounds(m, k, plan.f, params, device=plan.xp.device)
     skip, tlb = prune_mask(bounds, cp, m, params)
     xnp = F.pad(plan.xn, (0, mp - m)).contiguous()
-    mind, am, sums, counts, tmin_k = _llp.lloyd_step_pruned(
+    mind, am, entries, ecnt, idx, tmin_k = _llp.lloyd_step_pruned(
         plan.xp, cp, cn, xnp, skip.contiguous(), m, block_m=params.block_m,
         block_k=params.block_k, block_f=params.block_f)
+    sums, counts = _up.reduce_entries(entries, ecnt, idx,
+                                      ntiles=mp // params.block_m)
     md = mind[:m] + plan.xn
     new_bounds = BoundsState(
         ub=md.clamp_min(0.0).sqrt(), assign=am[:m],
         # skipped cells keep the decayed bound; computed cells refresh it
         tmin=torch.where(skip == 1, tlb, tmin_k), c_prev=cp.float(),
         fresh=torch.zeros((), dtype=torch.bool, device=cp.device))
-    return (am[:m], md, _tree_sum(sums)[:k, :plan.f],
-            _tree_sum(counts)[:k], new_bounds, skip.float().mean())
+    return (am[:m], md, sums[:k, :plan.f], counts[:k], new_bounds,
+            skip.float().mean())
 
 
 def _verify_update_entries(plan: DataPlan, am: torch.Tensor, out: list,

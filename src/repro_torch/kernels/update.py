@@ -52,8 +52,9 @@ entries from their epilogue (the writer of ``csrc/fk_entries.cuh``), and
 FT step's recompute; the 2-byte batched step writes each problem's
 entries at its own entry and idx rows, and :func:`reduce_entries` over B
 Kp rows sums the stack (:func:`dense_to_entries_batched`, its layout from
-dense blocks). :func:`tree_sum` is ``ops._tree_sum`` (the f32 batched
-and the pruned kernels' dense partials, one problem or a stack of them).
+dense blocks); the pruned step writes ``lloyd_step``'s entries.
+:func:`tree_sum` is ``ops._tree_sum`` (the f32 batched kernel's dense
+partials, one problem or a stack of them).
 Plain versions, used by the tests and on the CPU: :func:`update_plain`
 (the specification: dense :func:`tile_update_plain`, its present entries,
 the sparse tree), :func:`update_entries_plain` / :func:`dense_to_entries`,

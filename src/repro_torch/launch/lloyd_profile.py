@@ -1,6 +1,8 @@
 """The tile kernels' designs, timed on the card: the 2-byte FT kernels'
-checksums and, with ``--f32``, the f32 kernel's loop, with ``--batched``
-the 2-byte batched step's parts, with ``--int8`` the int8 kernel's.
+checksums and, with ``--f32``, the f32 kernel's loop, with ``--mma`` the
+2-byte loop's parts, with ``--batched`` the 2-byte batched step's, with
+``--pruned`` the pruned mode's tile bound, with ``--int8`` the int8
+kernel's.
 
 Builds ``csrc/fk_kernels.cu`` as it is (``full``) and, from copies of it
 with statements cut (``CUTS``), measurement variants (``cut_*``: without
@@ -19,13 +21,26 @@ largest clean residual, bisected).
 
     PYTHONPATH=src python -m repro_torch.launch.lloyd_profile --out DIR
     PYTHONPATH=src python -m repro_torch.launch.lloyd_profile --f32 --out DIR
+    PYTHONPATH=src python -m repro_torch.launch.lloyd_profile --mma --out DIR
     PYTHONPATH=src python -m repro_torch.launch.lloyd_profile --batched \
+        --out DIR
+    PYTHONPATH=src python -m repro_torch.launch.lloyd_profile --pruned \
         --out DIR
     PYTHONPATH=src python -m repro_torch.launch.lloyd_profile --int8 --out DIR
 
+``--mma`` builds the 2-byte loop's variants (``MMA_CUTS``: without the
+``mma.sync`` products, without the min / argmin in registers, without the
+next steps' copies, without products and min / argmin) and times
+``distance_argmin`` and ``lloyd_step`` (rows 1h, 2h) at M = 2**20, F =
+128, K = 1000, bf16 and fp16, interleaved.
+
+``--pruned`` builds the pruned mode without its tile bound
+(``PRUNED_CUTS``) and times ``lloyd_step_pruned`` at the sorted fit's
+third step's mask and with no skips beside ``lloyd_step``, f32 and bf16.
+
 ``--batched`` builds the 2-byte batched step's variants (``BATCHED_CUTS``:
-without its update, the entries' writer; without the tiles' min / argmin
-scan; without both) and times ``fk_lloyd_step_batched_lp`` at the PQ
+without its update, the entries' writer; without the tiles' min / argmin;
+without both) and times ``fk_lloyd_step_batched_lp`` at the PQ
 shape (B 48, N 65,536, F 16, K 256) at bf16 and fp16, interleaved, beside
 the tree over its entries.
 
@@ -67,15 +82,21 @@ from repro_torch.kernels import lloyd_step_ft as llft
 # csrc/fk_kernels.cu (it must occur once) and what a cut puts in its place.
 # Every cut variant also leaves out the decode (NO_DECODE).
 CUTS = {
-    "col": [("        P::col_fma(sm, enc, ce1, ce2);\n", "")],
-    "row": [("      prod.template mac<kFT>(sm);\n",
-             "      prod.template mac<false>(sm);\n")],
-    "tile": [("    if (kFT) {\n      prod.expected_rows(",
-              "    if (false) {\n      prod.expected_rows("),
-             ("    if (kFT) {\n      // the observed checksums",
-              "    if (false) {\n      // the observed checksums")],
-    "xenc": [("        if (kt == 0) {\n          // X's encodings",
-              "        if (false) {\n          // X's encodings")],
+    "col": [("      P::col_fma(cs, cpitch, xencS + f0, xencS + fp + f0, ce1, "
+             "ce2);\n", "")],
+    "row": [("    prod.template mac<kFT>(xs, xp, cs, cpitch,\n",
+             "    prod.template mac<false>(xs, xp, cs, cpitch,\n")],
+    "tile": [("      prod.expected_rows(row1, row2);\n      P::col_out(part, "
+              "ce1, ce2);\n", ""),
+             ("        tile_min_argmin<true>(Ds + tid * (kBK + 1), cq, c0, "
+              "&lmin, &larg,\n                              &o1, &o2);\n",
+              "        tile_min_argmin(Ds + tid * (kBK + 1), cq, c0, &lmin, "
+              "&larg);\n        o1 = o2 = 0.0f;\n"),
+             ("      } else if (tid - BM < kBK) {\n        const int cc = tid "
+              "- BM;",
+              "      } else if (false) {\n        const int cc = tid - BM;")],
+    "xenc": [("      if (q == 0) {\n        // X's encodings of the chunk",
+              "      if (false) {\n        // X's encodings of the chunk")],
 }
 NO_DECODE = ("      if (res > thr_factor * fmaxf(mag, 1.0f)) {  // uniform\n",
              "      if (false) {\n")
@@ -89,11 +110,13 @@ F32_CUTS = {
     "stage": [("      if (s + 1 < nsteps) stage(s + 1);\n", "")],
     "fma": [("      for (int f1 = 0; f1 < kChunk; f1 += kU)\n",
              "      for (int f1 = 0; f1 < 0; f1 += kU)\n")],
-    "epi": [("    tile_fold<kTM>(acc, sm + L::kCn + (kt & 1) * kBK, tx, c0, "
-             "&best,\n                   &best_arg);\n",
-             "    {\n      float t = 0.0f;\n      for (int i = 0; i < kTM; "
-             "++i)\n        for (int j = 0; j < kTN; ++j) t += acc[i][j];\n"
-             "      if (t == 1.25e-38f) best = t;\n    }\n")],
+    "epi": [("    const float lmin = tile_fold<kTM>(acc, sm + L::kCn + (q & "
+             "1) * kBK, tx,\n                                      c0, &best, "
+             "&best_arg);\n",
+             "    const float lmin = 0.0f;\n    {\n      float t = 0.0f;\n"
+             "      for (int i = 0; i < kTM; ++i)\n        for (int j = 0; j "
+             "< kTN; ++j) t += acc[i][j];\n      if (t == 1.25e-38f) best = "
+             "t;\n    }\n")],
     "enc": [("      if (kFT && kt == 0) {   // X's encodings",
              "      if (false) {   // X's encodings")],
     "chk": [("        if (tid < kBK) {\n#pragma unroll\n",
@@ -109,27 +132,57 @@ F32_CUTS = {
              "- kBK;\n        const float* dr",
              "      } else if (false) {\n        const int r = tid "
              "- kBK;\n        const float* dr"),
-            ("        const int d = locate_tile(",
+            ("        const int d = locate_tile(sm + L::kCol1,",
              "        li = lj = 0;\n        dl = 0.0f;\n"
-             "        const int d = false && locate_tile(")],
+             "        const int d = false && locate_tile(sm + L::kCol1,")],
 }
 F32_VARIANTS = {"full": (), "cut_stage": ("stage",), "cut_fma": ("fma",),
                 "cut_epi": ("epi",), "cut_enc": ("enc",),
                 "cut_chk": ("chk",), "cut_obs": ("obs",)}
-# The 2-byte batched step's parts (lloyd_tile_mma_kernel, kBatchedEntries):
-# its update (the entries' writer) and the tile's min / argmin scan (the
-# row's first column kept live, and a label spread over the tile's columns
-# as the real ones are, so the writer's work stays alike).
+# The 2-byte tile kernel's loop (lloyd_tile_mma_kernel): its products (an
+# integer xor of the loaded fragments in place of each mma.sync keeps the
+# ldmatrix loads live), the tile's min / argmin in registers (the row's
+# first column kept live, and a label spread over the tile's columns as the
+# real ones are, so an update's work stays alike), the next steps' copies
+# (the MMAs then read the ring's stale slots).
+SCAN_CUT = ("      prod.scan(cq, xch);\n",
+            "      if (lane % 4 == 0)\n"
+            "        for (int i = 0; i < P::kMF; ++i)\n"
+            "          for (int h = 0; h < 2; ++h) {\n"
+            "            const int row = (warp / 4) * P::kWM + 16 * i + "
+            "lane / 4 + 8 * h;\n"
+            "            xch[(warp % 4) * BM + row] = make_float2(cq[0] - "
+            "2.0f * prod.acc[i][0][2 * h], __int_as_float((row * 37 + mt * "
+            "11 + warp) & (kBK - 1)));\n"
+            "          }\n")
+MMA_CUTS = {
+    "mma": [("          mma_16816<T>(acc[i][j], a, b[j][0], b[j][1]);\n",
+             "          acc[i][j][0] += __int_as_float(int((a[0] ^ b[j][0] ^ "
+             "b[j][1]) & 1u));\n")],
+    "scan": [SCAN_CUT],
+    "stage": [("    issue(s + kMmaStages - 1, !kFT || (s + kMmaStages - 1) / "
+               "nch == q);\n", "    cp_async_commit();\n")],
+}
+MMA_VARIANTS = {"full": (), "cut_mma": ("mma",), "cut_scan": ("scan",),
+                "cut_stage": ("stage",), "cut_mma_scan": ("mma", "scan")}
+# The 2-byte batched step's parts (kBatchedEntries): its update (the
+# entries' writer) and the tile's min / argmin.
 BATCHED_CUTS = {
     "update": [("    if (kUpd == kBatchedEntries) o.row0 = size_t(blockIdx.y)"
                 " * gridDim.x * BM;\n",
                 "    if (kUpd == kBatchedEntries) return;\n")],
-    "scan": [("    } else if (tid < BM) {\n      tile_min_argmin(Ds + tid * "
-              "(kBK + 1), cnS, c0, &lmin, &larg);\n    }\n",
-              "    } else if (tid < BM) {\n      lmin = cnS[0] - 2.0f * "
-              "Ds[tid * (kBK + 1)];\n      larg = c0 + ((tid * 37 + mt * 11) "
-              "& (kBK - 1));\n    }\n")],
+    "scan": [SCAN_CUT],
 }
+# The pruned mode's tile bound (both kernels): without the owners' row
+# bounds a computed tile's tmin is a stale minimum, so what the cut saves is
+# the bound's exposed time.
+PRUNED_CUTS = {
+    "bound": [("    if constexpr (kPruned) {\n      // the tile's bound",
+               "    if constexpr (false) {\n      // the tile's bound"),
+              ("        if (kPruned) {\n          // the row's Euclidean",
+               "        if (false) {\n          // the row's Euclidean")],
+}
+PRUNED_VARIANTS = {"full": (), "cut_bound": ("bound",)}
 BATCHED_VARIANTS = {"full": (), "cut_update": ("update",),
                     "cut_scan": ("scan",), "cut_both": ("update", "scan")}
 # The int8 tile kernel's parts: the s8 MMAs (an integer xor of the loaded
@@ -169,7 +222,8 @@ def variant_source(src: Path, cuts: tuple, table: dict = CUTS,
 
 
 def build_variants(mode: str = "ft") -> dict:
-    """Each variant of ``mode`` (``ft``, ``f32``, ``batched`` or ``int8``): its
+    """Each variant of ``mode`` (``ft``, ``f32``, ``mma``, ``batched``,
+    ``pruned`` or ``int8``): its
     library, built in parallel into the package's ``_build/`` directory
     (named by variant and source hash)."""
     src, base = _build._paths("fk_kernels")
@@ -179,7 +233,9 @@ def build_variants(mode: str = "ft") -> dict:
     variants, table, extra = {
         "ft": (VARIANTS, CUTS, (NO_DECODE,)),
         "f32": (F32_VARIANTS, F32_CUTS, ()),
+        "mma": (MMA_VARIANTS, MMA_CUTS, ()),
         "batched": (BATCHED_VARIANTS, BATCHED_CUTS, ()),
+        "pruned": (PRUNED_VARIANTS, PRUNED_CUTS, ()),
         "int8": (INT8_VARIANTS, INT8_CUTS, ())}[mode]
     for name, cuts in variants.items():
         out = base.with_name(f"{base.stem}-{name}.so")
@@ -227,7 +283,6 @@ class Step:
         self.mind = torch.empty(mp, **f32)
         self.am = torch.empty(mp, **i32)
         self.det = torch.empty(nt, **i32)
-        self.xenc = torch.empty((nt, 2, fp), **f32)
         self.entries = torch.empty((mp + 1, fp), **f32)
         self.ecnt = torch.empty(mp + 1, **f32)
         self.idx = torch.empty((kp, 1 << up.tree_levels(nt)), **i32)
@@ -237,79 +292,59 @@ class Step:
         self.ccheck = torch.empty((nt, 2), **f32)
 
     def run(self, lib, kind: str, inj=None, factor=None) -> None:
-        x, c, cn = self.plan.xp, self.cp, self.cn
-        s = _build.stream_of(x)
-        bf = self.params.block_f
+        """One launch of ``kind``: ``assign``, ``lloyd``, ``assign_ft``,
+        ``lloyd_ft``, ``pruned`` (at ``self.skip``) or ``pruned0`` (no
+        skips), through ``lib``'s entry point of the step's dtype."""
+        x, cn = self.plan.xp, self.cn
+        c = self.cp if self.half is not None else self.ct
         factor = self.factor if factor is None else factor
         if inj is None:
             inj = (daft if kind == "assign_ft" else llft).no_injection()
             inj = inj.cuda()
-        if self.half is None:
-            self.run_f32(lib, kind, inj, factor)
-            return
-        if kind == "assign":
-            err = lib.lib.fk_distance_argmin_lp(
-                x.data_ptr(), c.data_ptr(), cn.data_ptr(),
-                self.mind.data_ptr(), self.am.data_ptr(), self.mp, self.kp,
-                self.fp, self.bm, bf, self.half, s)
-        elif kind == "assign_ft":
-            err = lib.lib.fk_distance_argmin_ft_lp(
-                x.data_ptr(), c.data_ptr(), cn.data_ptr(),
-                self.cenc.data_ptr(), inj.data_ptr(), self.mind.data_ptr(),
-                self.am.data_ptr(), self.det.data_ptr(),
-                self.xenc.data_ptr(), factor, self.mp, self.kp, self.fp,
-                self.bm, bf, self.half, s)
-        else:
+        lp = "" if self.half is None else "_lp"
+        tail = (self.mp, self.kp, self.fp, self.bm, self.params.block_f) + (
+            () if self.half is None else (self.half,)) + (
+            _build.stream_of(x),)
+        head = (x.data_ptr(), c.data_ptr(), cn.data_ptr())
+        out = (self.mind.data_ptr(), self.am.data_ptr())
+        ent = (self.entries.data_ptr(), self.ecnt.data_ptr(),
+               self.idx.data_ptr())
+        if kind not in ("assign", "assign_ft"):
             self.idx.fill_(-1)
             self.spare.fill_(-1)
-            err = lib.lib.fk_lloyd_step_ft_lp(
-                x.data_ptr(), c.data_ptr(), cn.data_ptr(),
-                self.cenc.data_ptr(), inj.data_ptr(), self.mind.data_ptr(),
-                self.am.data_ptr(), self.det.data_ptr(),
-                self.xenc.data_ptr(), self.entries.data_ptr(),
-                self.ecnt.data_ptr(), self.idx.data_ptr(),
-                self.ekey.data_ptr(), self.spare.data_ptr(),
-                self.ucheck.data_ptr(), self.ccheck.data_ptr(), factor,
-                self.plan.m, self.mp, self.kp, self.fp, self.bm, bf,
-                self.half, s)
-        if err:
-            raise RuntimeError(f"{kind}: CUDA error {err}")
-
-    def run_f32(self, lib, kind: str, inj, factor: float) -> None:
-        x, c, cn = self.plan.xp, self.ct, self.cn
-        s, bf = _build.stream_of(x), self.params.block_f
-        args = (self.mp, self.kp, self.fp, self.bm, bf, s)
-        if kind in ("lloyd", "lloyd_ft"):
-            self.idx.fill_(-1)
-            self.spare.fill_(-1)
+        fn = getattr(lib.lib, {"assign": "fk_distance_argmin",
+                               "lloyd": "fk_lloyd_step",
+                               "assign_ft": "fk_distance_argmin_ft",
+                               "lloyd_ft": "fk_lloyd_step_ft"}.get(
+            kind, "fk_lloyd_step_pruned") + lp)
         if kind == "assign":
-            err = lib.lib.fk_distance_argmin(
-                x.data_ptr(), c.data_ptr(), cn.data_ptr(),
-                self.mind.data_ptr(), self.am.data_ptr(), *args)
+            err = fn(*head, *out, *tail)
         elif kind == "lloyd":
-            err = lib.lib.fk_lloyd_step(
-                x.data_ptr(), c.data_ptr(), cn.data_ptr(),
-                self.mind.data_ptr(), self.am.data_ptr(),
-                self.entries.data_ptr(), self.ecnt.data_ptr(),
-                self.idx.data_ptr(), self.plan.m, *args)
+            err = fn(*head, *out, *ent, self.plan.m, *tail)
         elif kind == "assign_ft":
-            err = lib.lib.fk_distance_argmin_ft(
-                x.data_ptr(), c.data_ptr(), cn.data_ptr(),
-                self.cenc.data_ptr(), inj.data_ptr(), self.mind.data_ptr(),
-                self.am.data_ptr(),
-                self.det.data_ptr(), None, factor, *args)
+            err = fn(*head, self.cenc.data_ptr(), inj.data_ptr(), *out,
+                     self.det.data_ptr(), factor, *tail)
+        elif kind == "lloyd_ft":
+            err = fn(*head, self.cenc.data_ptr(), inj.data_ptr(), *out,
+                     self.det.data_ptr(), *ent, self.ekey.data_ptr(),
+                     self.spare.data_ptr(), self.ucheck.data_ptr(),
+                     self.ccheck.data_ptr(), factor, self.plan.m, *tail)
         else:
-            err = lib.lib.fk_lloyd_step_ft(
-                x.data_ptr(), c.data_ptr(), cn.data_ptr(),
-                self.cenc.data_ptr(), inj.data_ptr(), self.mind.data_ptr(),
-                self.am.data_ptr(),
-                self.det.data_ptr(), None, self.entries.data_ptr(),
-                self.ecnt.data_ptr(), self.idx.data_ptr(),
-                self.ekey.data_ptr(), self.spare.data_ptr(),
-                self.ucheck.data_ptr(), self.ccheck.data_ptr(), factor,
-                self.plan.m, *args)
+            skip = self.skip if kind == "pruned" else torch.zeros_like(
+                self.skip)
+            err = fn(*head, self.xn.data_ptr(), skip.data_ptr(), *out, *ent,
+                     self.tmin.data_ptr(), self.plan.m, *tail)
         if err:
-            raise RuntimeError(f"f32 {kind}: CUDA error {err}")
+            raise RuntimeError(f"{self.dt} {kind}: CUDA error {err}")
+
+    def set_mask(self, skip: torch.Tensor) -> None:
+        """The pruned launches' skip mask, the rows' norms and the bounds'
+        buffer."""
+        self.skip = skip.contiguous()
+        self.xn = torch.nn.functional.pad(
+            self.plan.xn, (0, self.mp - self.plan.m)).contiguous()
+        self.tmin = torch.empty(skip.shape, dtype=torch.float32,
+                                device="cuda")
 
 
 def event_ms(fn, reps: int) -> float:
@@ -499,6 +534,83 @@ def main_batched(args, libs: dict, emit) -> None:
         torch.cuda.empty_cache()
 
 
+def mma_ptxas(log: str) -> dict:
+    """ptxas' registers and spills of each 2-byte tile kernel."""
+    out, name = {}, None
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            name = None
+            if "lloyd_tile_mma_kernel" in ln:
+                name = ln.split("lloyd_tile_mma_kernel")[1].split("EEv")[0]
+        elif name and ("registers" in ln or "spill" in ln):
+            out.setdefault(name, []).append(ln.split(":", 1)[-1].strip())
+    return out
+
+
+def main_mma(args, libs: dict, emit) -> None:
+    """The 2-byte loop's split at M = 2**20, F = 128, K = 1000: each
+    variant's ``distance_argmin`` and ``lloyd_step`` (rows 1h, 2h) at bf16
+    and fp16, interleaved; the full build's labels against the cut ones'
+    are not read (a cut's outputs are void)."""
+    emit({"device": torch.cuda.get_device_name(0),
+          "build_s": max(lib.build_seconds for lib in libs.values()),
+          "ptxas": {name: mma_ptxas(lib.ptxas_log)
+                    for name, lib in libs.items()}})
+    x_np, _ = make_blobs(M, F, K, seed=0)
+    x = torch.from_numpy(x_np).cuda()
+    del x_np
+    gen = torch.Generator().manual_seed(0)
+    c = x[torch.randperm(M, generator=gen)[:K].cuda()]
+    for dt in (torch.bfloat16, torch.float16):
+        step = Step(x, c, dt)
+        emit({"dtype": str(dt).replace("torch.", ""), "m": M, "f": F,
+              "k": K, "ms": interleaved_ms(step, libs, args.rounds,
+                                           args.reps, ("assign", "lloyd"))})
+        del step
+        torch.cuda.empty_cache()
+
+
+def main_pruned(args, libs: dict, emit) -> None:
+    """The pruned mode at M = 2**20, F = 128, K = 1000 with rows sorted by
+    label, at the sorted fit's third step's mask (two pruned steps from
+    each label's first row): ``lloyd_step_pruned`` at that mask and with no
+    skips beside ``lloyd_step``, f32 and bf16, each variant interleaved;
+    the full build's no-skip step against ``lloyd_step`` bit for bit."""
+    from repro_torch.core.kmeans import means_from_sums
+    x_np, labels_np = make_blobs(M, F, K, seed=0)
+    order = torch.from_numpy(labels_np).argsort(stable=True)
+    x = torch.from_numpy(x_np)[order].cuda()
+    lab = torch.from_numpy(labels_np)[order].cuda()
+    del x_np, labels_np
+    first = torch.searchsorted(lab, torch.arange(K, device=lab.device,
+                                                 dtype=lab.dtype))
+    for dt in (torch.float32, torch.bfloat16):
+        params = ops.clamp_params(M, K, F, ops.DEFAULT_PARAMS)
+        plan = ops.plan_data(x.to(dt), params)
+        c, bounds = x[first], None
+        for _ in range(2):
+            _, _, sums, counts, bounds, _ = ops.fused_lloyd_pruned(
+                plan, c, params, bounds=bounds)
+            c = means_from_sums(sums, counts, c)
+        del plan
+        step = Step(x, c, dt)
+        skip, _ = ops.prune_mask(bounds, step.cp, M, params)
+        step.set_mask(skip)
+        full = libs["full"]
+        step.run(full, "pruned0")
+        pruned0 = (step.mind.clone(), step.am.clone())
+        step.run(full, "lloyd")
+        bitwise = bool(torch.equal(pruned0[0], step.mind)
+                       and torch.equal(pruned0[1], step.am))
+        emit({"dtype": str(dt).replace("torch.", ""), "m": M, "f": F,
+              "k": K, "skipped": float(skip.float().mean()),
+              "no_skip_bitwise_lloyd_step": bitwise,
+              "ms": interleaved_ms(step, libs, args.rounds, args.reps,
+                                   ("pruned", "pruned0", "lloyd"))})
+        del step, bounds, sums, counts
+        torch.cuda.empty_cache()
+
+
 def main_int8(args, libs: dict, emit) -> None:
     """The int8 tile kernel's split at M = 2**20, F = 128, K = 1000: each
     variant's launch (``fk_distance_argmin_int8``, BM = 128) interleaved,
@@ -543,8 +655,12 @@ def main(argv=None) -> int:
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--f32", action="store_true",
                     help="the f32 kernel's split instead of the 2-byte one")
+    ap.add_argument("--mma", action="store_true",
+                    help="the 2-byte loop's split (rows 1h, 2h)")
     ap.add_argument("--batched", action="store_true",
                     help="the 2-byte batched step's split")
+    ap.add_argument("--pruned", action="store_true",
+                    help="the pruned mode's bound, beside lloyd_step")
     ap.add_argument("--int8", action="store_true",
                     help="the int8 tile kernel's split")
     args = ap.parse_args(argv)
@@ -552,7 +668,8 @@ def main(argv=None) -> int:
         raise SystemExit("needs a CUDA card")
     out = Path(args.out)
     out.mkdir(parents=True, exist_ok=True)
-    mode = ("f32" if args.f32 else "batched" if args.batched
+    mode = ("f32" if args.f32 else "mma" if args.mma
+            else "batched" if args.batched else "pruned" if args.pruned
             else "int8" if args.int8 else "ft")
     libs = build_variants(mode)
     # the port's own library is the full variant: same source and flags
@@ -564,8 +681,8 @@ def main(argv=None) -> int:
         print(json.dumps(rec), flush=True)
 
     if mode != "ft":
-        {"f32": main_f32, "batched": main_batched,
-         "int8": main_int8}[mode](args, libs, emit)
+        {"f32": main_f32, "mma": main_mma, "batched": main_batched,
+         "pruned": main_pruned, "int8": main_int8}[mode](args, libs, emit)
         (out / "results.json").write_text(json.dumps(results, indent=1))
         return 0
 

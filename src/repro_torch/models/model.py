@@ -8,8 +8,8 @@ device, no mesh: the reference's sharding hints have no counterpart.
 
 Ported: dense decoders of ``ATTN`` and ``ATTN_LOCAL`` blocks (internlm2,
 gemma3, minicpm, nemotron). RG-LRU, SSD and MoE blocks, the encoder-decoder
-and the vision/audio frontends raise ``NotImplementedError`` naming their
-slice (ROADMAP Queue 1 item 12).
+and the vision/audio frontends raise ``NotImplementedError`` naming the
+missing block or frontend.
 
 Weights are drawn from a seed (``init``), in f32 on the model's device,
 and cast to ``cfg.param_dtype``; they never require grad: serving runs
@@ -27,7 +27,7 @@ from repro_torch.configs.base import ATTN, ATTN_LOCAL, ArchConfig
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import layers as L
 
-_LATER = "comes with a later slice of the port (ROADMAP Queue 1 item 12)"
+_LATER = "comes with a later slice of the port"
 
 
 def check_supported(cfg: ArchConfig) -> None:

@@ -63,6 +63,7 @@ from repro_torch.kernels import lloyd_step as ll  # noqa: E402
 from repro_torch.kernels import lloyd_step_pruned as llp  # noqa: E402
 from repro_torch.kernels import matmul_abft as mma  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.kernels import update as up  # noqa: E402
 from repro_torch.models import attention as t_attn  # noqa: E402
 
 DTYPES = ["bfloat16", "float16"]
@@ -268,10 +269,15 @@ def test_pruned_kernel_matches_reference_kernel(tiles, dtype):
         interpret=True)
     np.testing.assert_array_equal(got[0].numpy(), np.asarray(want[0])[:, 0])
     np.testing.assert_array_equal(got[1].numpy(), np.asarray(want[1])[:, 0])
-    np.testing.assert_array_equal(got[2].numpy(), np.asarray(want[2]))
-    np.testing.assert_array_equal(got[3].numpy(), np.asarray(want[3]))
+    # the update as entries: the reference's dense per-tile partials in the
+    # entries' layout, every (tile, cluster) entry
+    want_entries = up.dense_to_entries(torch.from_numpy(np.array(want[2])),
+                                       torch.from_numpy(np.array(want[3])),
+                                       bm)
+    for g, w in zip(got[2:5], want_entries):
+        np.testing.assert_array_equal(g.numpy(), w.numpy())
     computed = skip == 0
-    _close(got[4].numpy()[computed], np.asarray(want[4])[computed])
+    _close(got[5].numpy()[computed], np.asarray(want[4])[computed])
 
 
 def _clustered(m, k, f, seed=0, sep=8.0):

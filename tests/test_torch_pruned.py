@@ -146,7 +146,7 @@ def test_plain_kernel_skips_and_bounds():
     xn = (x * x).sum(1)
     xn[200:] = 0.0
     skip = torch.tensor([[0, 1], [1, 1]], dtype=torch.int32)
-    mind, am, _, counts, tmin = llp.lloyd_step_pruned(
+    mind, am, _, ecnt, _, tmin = llp.lloyd_step_pruned(
         x, c, cn, xn, skip, 200, block_m=128, block_k=128, block_f=32)
     d = cn[None, :] - 2.0 * (x @ c.T)
     assert torch.equal(am[:128], d[:128, :128].argmin(1).to(torch.int32))
@@ -157,7 +157,7 @@ def test_plain_kernel_skips_and_bounds():
     assert float(tmin[0, 0]) == float(e.min())
     assert bool((tmin[0, 1:] == llp.MIN_INIT).all())
     assert bool((tmin[1] == llp.MIN_INIT).all())
-    assert float(counts.sum()) == 200.0
+    assert float(ecnt.sum()) == 200.0
 
 
 def test_wrapper_counts_no_launch_on_cpu_and_refuses_other_devices():
