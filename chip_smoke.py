@@ -24,7 +24,8 @@ Phases, one line each:
      bytes and resident blocks an SM (two blocks at BM = 128); the same of
      the int8 tile kernel (s8 tensor cores) at Fp 128 and 1024, and of
      every 2-byte tile kernel instantiation at Fp 32 and 128 (FT ones also
-     320), each gated at two blocks an SM;
+     320), each gated at two blocks an SM; and the f32 flash kernel's at
+     head dims 64, 128 and 256 and the DMR update's kernels';
   2. kernels vs their plain PyTorch versions (TF32 off) at M = 65,573,
      F = 100, K = 1000 and 100, and F = 300 (Fp = 320), K = 1000, plus
      planted FT faults; the one-pass
@@ -117,17 +118,26 @@ Phases, one line each:
      fit's labels against its plain version, a corrupted shadow partial,
      two ``index_add_`` + ``bincount`` updates and their compare (a DMR
      update's work; one update beside it) and
-     ``ops.tiled_update(use_dmr=True)``;
+     ``ops.tiled_update(use_dmr=True)``; the DMR update's cases: on the
+     fused fit's labels, every row in one cluster, half of them in one, a
+     short last slab and labels -1 and >= K, each against its plain
+     version, two launches and ``dmr_walk_plain`` (its order of adds) bit
+     for bit, a fault a quarter of the threshold let through beside the
+     flagged ``SHADOW_FAULT``, and the skewed cases' times;
      the two kernels' rows;
  11. the flash-attention kernel against its plain version (the f32 oracle)
      at internlm2-1.8b's prefill (B = 4, H = 16, KV = 8, S = 2048,
      hd = 128, bf16, causal) and decode (one query, a 2080-slot cache with
      cold slots; bf16 and f32) shapes, each under its bars with a control
      that must fail them, with its time, the plain version's, SDPA's and
-     the bounds; the f32 kernel at the prefill shape beside f32 SDPA; the
-     tensor-core kernel on a decode's K/V; the reference test's f32 shape,
-     windows, ragged ends, a fully masked row (mean of v, or zero with
-     ``zero_empty_rows``), head dims 256 and 16, strided views;
+     the bounds; the f32 kernel at the prefill shape beside f32 SDPA, its
+     tile-skip share and strided views; the tensor-core kernel on a
+     decode's K/V; the reference test's f32 shape, windows, ragged ends, a
+     fully masked row (mean of v, or zero with ``zero_empty_rows``), head
+     dims 256 and 16, strided views; the f32 kernel on shuffled, holed and
+     non-monotone positions, at head dims 64 and 256, GQA groups 1, 3, 4,
+     8 and 16 (the heads a block packs), Sq 17 on a cold-slot cache, and
+     with masked rows inside its tiles under both ``zero_empty_rows``;
  12. ``repro_torch.launch.serve`` serving 8 requests of internlm2-1.8b at
      full width and depth (seeded weights; waves of 4, prompt 2048, 32
      generated tokens; 1536 flash launches), the first wave teacher-forced
@@ -422,6 +432,27 @@ def redesigned_resources(da, dai, log: str) -> dict:
                     for fp in ((32, 128, 320) if ft else (32, 128))}}
     out["lloyd_tile_mma_kernel"] = mma
     return out
+
+
+def attention_dmr_resources(cud, fa, libs) -> dict:
+    """The f32 flash kernel, ``flash_f32_kernel<hd>`` at hd 64, 128 and
+    256, and the DMR update's kernels: ptxas' registers and spill bytes
+    from the build logs, and the runtime's resident blocks an SM,
+    registers, local bytes and shared bytes (the f32 kernel at each hd, the
+    DMR gather at 16-byte and 4-byte loads)."""
+    f32 = ptxas_of(libs["fk_attention"].ptxas_log,
+                   r"flash_f32_kernelILi(\d+)E", lambda m: f"hd{m[1]}")
+    dmr = ptxas_of(libs["fk_kernels"].ptxas_log,
+                   r"(dmr_[a-z]+_kernel)(?:IL[ib](\d)E)?",
+                   lambda m: m[1] + (f"<{m[2]}>" if m[2] else ""))
+    for v in (1, 4):
+        dmr[f"dmr_gather_kernel<{v}>"] = {
+            **dmr.get(f"dmr_gather_kernel<{v}>", {"spill_bytes": -1}),
+            **cud.gather_resources(v)}
+    return {"flash_f32_kernel": {
+        f"hd{hd}": {**f32.get(f"hd{hd}", {"spill_bytes": -1}),
+                    **fa.f32_resources(hd)} for hd in (64, 128, 256)},
+            "dmr_kernels": dmr}
 
 
 def max_err(a, b) -> float:
@@ -2093,6 +2124,7 @@ def phase_detect(torch, ops, hw, ll, mma, cud, KMeans, FaultPolicy,
            f"{int(pbad_f)})")
     del ps, pc, sums, counts
     torch.cuda.empty_cache()
+    dmr_cases, dmr_case_ms = dmr_checks(torch, cud, hw, x, labels_off)
     lab_long = labels_off.long()
 
     def library():
@@ -2120,7 +2152,8 @@ def phase_detect(torch, ops, hw, ll, mma, cud, KMeans, FaultPolicy,
            "library_one_update_ms": cuda_ms(library, reps=10),
            "tiled_update_dmr_ms": cuda_ms(lambda: ops.tiled_update(
                plan, labels_off, K_FULL, use_dmr=True), reps=3),
-           "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": dmr_err}
+           "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": dmr_err,
+           "cases": dmr_cases, **dmr_case_ms}
     rec["centroid_update_dmr"] = dmr
     rec["library_calls"] = {
         "matmul_abft": "torch.matmul(X, Y) in full f32 (allow_tf32 False): "
@@ -2139,6 +2172,86 @@ def phase_detect(torch, ops, hw, ll, mma, cud, KMeans, FaultPolicy,
     del plan
     torch.cuda.empty_cache()
     return rec, rows
+
+
+def dmr_checks(torch, cud, hw, x, labels) -> tuple[dict, dict]:
+    """The DMR update kernel's cases on the card, each against its plain
+    version (sums within rtol 1e-5 of the largest, counts equal, clean
+    verdicts), against ``dmr_walk_plain`` (the walk's order of adds: sums,
+    counts and verdict bit for bit) and against a second launch (bit for
+    bit): at K = 1000 the fused fit's labels, every row in one cluster,
+    half of them in one, a short last slab (M not a multiple of the slab)
+    and labels -1 and >= K; phase 2's M and F = 100; K = 5000 at F = 16;
+    then ``SHADOW_FAULT``, which must flag, beside a
+    fault a quarter of the threshold, which must not. Returns (the cases'
+    record, the skewed cases' times)."""
+    dev = x.device
+    m, k = x.shape[0], K_FULL
+    gen = torch.Generator(device=dev).manual_seed(SEED + 26)
+    half = labels.clone()
+    half[torch.rand(m, generator=gen, device=dev) < 0.5] = 7
+    outside = labels.clone()
+    r = torch.rand(m, generator=gen, device=dev)
+    outside[r < 0.1] = -1
+    outside[(r >= 0.1) & (r < 0.15)] = k + 3
+    ragged = m - 12_345
+    one = torch.full_like(labels, 3)
+    # phase 2's M and F = 100 (a feature a lane, 4-byte loads; a second
+    # slab of 37 rows), and K = 5000 (the bucketing's chunks grow to keep
+    # its histogram small)
+    x100 = torch.randn(M_SMALL, F_SMALL, generator=gen, device=dev)
+    x16 = torch.randn(200_000, 16, generator=gen, device=dev)
+    cases = {"fused_labels": (x, labels, k), "one_cluster": (x, one, k),
+             "half_in_one": (x, half, k),
+             "ragged_last_slab": (x[:ragged], labels[:ragged], k),
+             "labels_outside_0_k": (x, outside, k),
+             "f100": (x100, labels[:M_SMALL], k),
+             "k5000_f16": (x16, torch.randint(
+                 0, 5000, (200_000,), generator=gen, device=dev,
+                 dtype=labels.dtype), 5000)}
+    rec = {}
+    for name, (xc, ac, kc) in cases.items():
+        s1, c1, b1 = cud.centroid_update_dmr(xc, ac, kc)
+        s2, c2, b2 = cud.centroid_update_dmr(xc, ac, kc)
+        ws, wc, wb = cud.dmr_walk_plain(xc, ac, kc, hw.DMR_BLOCK_M)
+        ps, pc, pb = cud.centroid_update_dmr_plain(xc, ac, kc,
+                                                   hw.DMR_BLOCK_M)
+        ok, err = rel_ok(s1, ps, 1e-5)
+        repeat = bool(torch.equal(s1, s2) and torch.equal(c1, c2)
+                      and int(b1) == int(b2))
+        walk = bool(torch.equal(s1, ws) and torch.equal(c1, wc)
+                    and int(b1) == int(wb))
+        counts_ok = bool(torch.equal(c1, pc))
+        expect(ok and counts_ok and int(b1) == 0 and int(pb) == 0
+               and repeat and walk,
+               f"centroid_update_dmr ({name}): err {err}, counts equal "
+               f"{counts_ok}, bad {int(b1)}/{int(pb)}, two launches bitwise "
+               f"{repeat}, the walk's bits {walk}")
+        rec[name] = {"shape": [*xc.shape, kc], "max_abs_err": err,
+                     "counts_equal": counts_ok, "repeat_bitwise": repeat,
+                     "walk_bitwise": walk}
+        del s1, c1, s2, c2, ws, wc, ps, pc
+        torch.cuda.empty_cache()
+    del x100, x16
+    sums = cud.centroid_update_dmr(x, labels, k)[0]
+    under = (SHADOW_FAULT[0], SHADOW_FAULT[1], SHADOW_FAULT[2],
+             0.25e-4 * max(float(sums.abs().max()), 1.0))
+    flags = {}
+    for name, fault in (("shadow_fault", SHADOW_FAULT),
+                        ("under_threshold", under)):
+        flags[name] = (int(cud.centroid_update_dmr(
+            x, labels, k, shadow_fault=fault)[2]), int(
+            cud.centroid_update_dmr_plain(x, labels, k, hw.DMR_BLOCK_M,
+                                          shadow_fault=fault)[2]))
+    expect(flags["shadow_fault"] == (1, 1)
+           and flags["under_threshold"] == (0, 0),
+           f"centroid_update_dmr faults (kernel, plain): {flags}, the "
+           f"second {under[3]} under a threshold of {4 * under[3]}")
+    rec["fault_flags_kernel_plain"] = flags
+    times = {f"{name}_ms": cuda_ms(lambda: cud.centroid_update_dmr(
+        x, a, k), reps=10) for name, a in (("one_cluster", one),
+                                            ("half_in_one", half))}
+    return rec, times
 
 
 def decode_plan(fa, b, h, kvh, sq, skv, hd, dtype) -> dict:
@@ -2313,6 +2426,20 @@ def phase_flash(torch, fa, hw) -> tuple[dict, list]:
         **bound(flops, bytes_f, hw.PEAK_FLOPS_F32),
         "full_work_ms": 1e3 * full_flops / hw.PEAK_FLOPS_F32}
     prefill_f32["tflops_useful"] = flops / prefill_f32["ms"] / 1e9
+    # the kernel's own tiles: hb heads of a GQA group x pb positions a
+    # block against KV tiles of bk keys; the skip share at this shape
+    hb, pb, bk = fa.f32_tiles(hd, h // kvh)
+    prefill_f32["tiles"] = dict(tile_shares(fa, pos, pos, pb, bk),
+                                heads_a_block=hb, positions_a_block=pb,
+                                keys_a_tile=bk)
+    prefill_f32["full_tile_work_visited_ms"] = (
+        1e3 * (1.0 - prefill_f32["tiles"]["dead_share"]) * full_flops
+        / hw.PEAK_FLOPS_F32)
+    expect(bool(torch.equal(fa.flash_attention(*transposed(q, k, v), pos,
+                                               pos),
+                            fa.flash_attention(q, k, v, pos, pos))),
+           "flash_attention f32 on strided views differs from contiguous "
+           "inputs")
     rec["prefill_f32"] = prefill_f32
     del q, k, v
     torch.cuda.empty_cache()
@@ -2434,7 +2561,34 @@ def phase_flash(torch, fa, hw) -> tuple[dict, list]:
             ("decode_hd256", (2, 8, 2, 2, skv, 256), bf16, ar[valid - 2:valid],
              kpos, True, 0),
             ("hd16_padded", (1, 4, 2, 100, 100, 16), f32, ar[:100], ar[:100],
-             True, 0)]:
+             True, 0),
+            # the f32 kernel: positions out of order, head dims, GQA packing
+            # (groups 1, 3, 4, 8, 16: 1, 1, 4, 8, 8 heads a block), Sq just
+            # past the decode kernel's on a cold-slot cache
+            ("f32_shuffled_kpos", (2, 4, 2, 333, 333, 128), f32, ar[:333],
+             perm, True, 0),
+            ("f32_holes_window", (2, 4, 2, 333, 333, 128), f32, ar[:333],
+             holes, True, 100),
+            ("f32_non_monotone_qpos", (1, 4, 1, 200, 257, 64), f32,
+             shuffled_q, ar[:257], True, 0),
+            ("f32_hd64", (1, 8, 4, 300, 300, 64), f32, ar[:300], ar[:300],
+             True, 0),
+            ("f32_hd256", (1, 8, 4, 257, 257, 256), f32, ar[:257], ar[:257],
+             True, 0),
+            ("f32_hd256_window", (2, 4, 2, 300, 300, 256), f32, ar[:300],
+             ar[:300], True, 77),
+            ("f32_g1", (1, 4, 4, 200, 200, 128), f32, ar[:200], ar[:200],
+             True, 0),
+            ("f32_g3", (1, 6, 2, 150, 190, 64), f32, ar[40:190], ar[:190],
+             True, 0),
+            ("f32_g4_window", (1, 8, 2, 200, 200, 128), f32, ar[:200],
+             ar[:200], True, 33),
+            ("f32_g8", (1, 16, 2, 130, 130, 64), f32, ar[:130], ar[:130],
+             True, 0),
+            ("f32_g16_full", (1, 16, 1, 100, 120, 128), f32, ar[:100],
+             ar[:120], False, 0),
+            ("f32_sq17_cold_slots", (2, 8, 2, 17, skv, 128), f32,
+             ar[valid - 17:valid], kpos, True, 0)]:
         q, k, v = qkv(bb, hh, kk, sq, skv_, d, dt)
         errs[name] = check(name, q, k, v, qp, kp, causal, window)[1]
     # a fully masked row: the mean of v, as the reference kernel gives;
@@ -2445,6 +2599,16 @@ def phase_flash(torch, fa, hw) -> tuple[dict, list]:
         q, k, v = qkv(1, 4, 2, 512, 512, 64, dt)
         qp = ar[:512]
         errs[name] = masked_row(name, q, k, v, qp, qp + 1, bars_of(dt), [0])
+    # the f32 kernel's empty rows: at the start, inside and at the end of a
+    # block's tile, GQA groups 4 (packed) and 1, head dims 128 and 256
+    for name, (hh, kk, d, empty) in (
+            ("f32_masked_rows_g4", (8, 2, 128, [0, 37, 130, 299])),
+            ("f32_masked_rows_hd256", (4, 4, 256, [5, 64, 200]))):
+        q, k, v = qkv(1, hh, kk, 300, 300, d, f32)
+        qp = ar[:300].clone()
+        qp[empty] = -5
+        errs[name] = masked_row(name, q, k, v, qp, ar[:300], FLASH_F32_BARS,
+                                empty)
     for dt, bars in ((f32, FLASH_F32_BARS), (bf16, FLASH_DECODE_BARS)):
         name = "decode_masked_rows_" + str(dt).split(".")[1]
         q, k, v = qkv(2, 8, 2, 4, skv, hd, dt)
@@ -3995,12 +4159,15 @@ def main() -> int:
              or "Compiling entry function" in ln or "C75" in ln]
     f32_tiles = f32_tile_resources(da, libs["fk_kernels"].ptxas_log)
     redesigned = redesigned_resources(da, dai, libs["fk_kernels"].ptxas_log)
+    redesigned.update(attention_dmr_resources(cud, fa, libs))
     emit({"phase": 1, "device": kind, "nvidia_smi": smi_line,
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "build_s": round(build_s, 3),
           "nvcc_s": {name: round(lib.build_seconds, 3)
                      for name, lib in libs.items()},
           "f32_tile_kernel": f32_tiles, **redesigned, "ptxas": ptxas})
+    for name, r in redesigned["flash_f32_kernel"].items():
+        expect(r["blocks_per_sm"] >= 1, f"flash_f32_kernel {name}: {r}")
     for name, r in f32_tiles.items():
         expect(not name.startswith("bm128") or r["blocks_per_sm"] >= 2,
                f"f32 lloyd_tile_kernel {name}: {r['blocks_per_sm']} block(s) "

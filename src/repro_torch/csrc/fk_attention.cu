@@ -91,19 +91,35 @@
 //     (__threadfence and an atomic ticket, reset by that block for the next
 //     launch) combines the partials and writes the rows: one launch a call.
 //     The wrapper allocates the partials and keeps the tickets.
-//   * flash_f32_kernel<HD> (f32 at Sq > 16): 64-row query tiles of f32
-//     FMAs on the CUDA cores (no tensor cores in f32 without TF32, which
-//     would change the arithmetic). The query tile (once) and each K and V
-//     tile are staged in shared memory as f32, rows padded by 4 words.
-//     Thread (ty, tx) = (tid / 16, tid % 16) owns query rows ty * 4 + i and
-//     keys tx + 16 j (j < 4); row max and row sum are butterflies over the
-//     16 lanes that share ty; p goes through shared memory to P V. It
-//     visits and masks every tile.
+//   * flash_f32_kernel<HD> (f32 at Sq > 16): f32 FMAs on the CUDA cores
+//     with accurate expf (no tensor cores in f32 without TF32, which would
+//     change the arithmetic). A block of 8 warps packs hb query heads of
+//     one GQA group (the largest power of two dividing the group, at most
+//     8) x 128 / hb positions (64 / hb at hd 256) into 128 rows (64), so
+//     one K / V tile serves every head of the run. It walks the KV tiles
+//     of 64 keys (32 at hd 256) by the rule above (every warp classifies
+//     the same tiles from the positions): dead tiles are not fetched,
+//     fully live ones are not masked. K and V go through a two-stage
+//     cp.async ring, so the next live tile's copies overlap this tile's
+//     FMAs; Q is staged once; Q and K rows keep their 16-byte chunks
+//     XOR-swizzled by (row & 7), so the reads are conflict-free with no
+//     padding (224 KB of shared memory at hd 128). A warp owns 16 rows (8
+//     at hd 256) in row groups of 4: a lane holds S for its 4 rows x 8
+//     keys (2 at hd 256) and O for its 4 rows x 16 columns (8 at hd 64):
+//     at hd 128, 12 16-byte shared reads feed 128 FMAs of S and 5 feed 64
+//     of P V (a 4 x 4 tile: 8 per 64). Row max and row sum are butterflies
+//     over the 8 (16) lanes of a row group. P cannot stay in registers (a
+//     lane's S keys are not its P V keys); it goes through a buffer of the
+//     warp's own, behind a __syncwarp, not a block barrier. A row
+//     with no valid key and zero_empty == 0 takes the mean of v over all
+//     Skv keys (its lanes sum v), as the prefill kernel does.
+//     kernels/flash_attention.py's flash_f32_walk_plain states the walk.
 //
 // The entry point picks the kernel from Sq, the dtype and hd, and the
 // decode kernel's rows and splits from the group and the shapes
 // (decode_plan). Bound on the H100: at prefill the 4 * B * H * hd FLOPs of
-// each (query, valid key) pair (989 TFLOP/s); at decode the bytes of the
+// each (query, valid key) pair (989 TFLOP/s; 67 TFLOP/s on the CUDA cores
+// at f32); at decode the bytes of the
 // KV cache, read once per launch (3.35 TB/s). The prefill kernel's tensor
 // maps come from cuTensorMapEncodeTiled, reached through
 // cudaGetDriverEntryPoint (no link against the driver library); that and
@@ -315,113 +331,150 @@ __device__ __forceinline__ void store(__half* p, float x) {
 // --- f32 at Sq > 16: CUDA-core tiles ----------------------------------------
 
 constexpr int kF32Threads = 256;
-constexpr int kF32BQ = 64;         // query rows a block (4 per thread row)
-constexpr int kF32BK = 64;         // keys per KV tile
+constexpr int kF32Warps = kF32Threads / 32;
+constexpr int kF32MaxHeads = 8;    // GQA heads packed in one block, most
 
-// Shared memory of one block, in 4-byte words: Q (BQ x LD), K and V
-// (BK x LD), P (BQ x (BK + 1)) and the tile's key positions.
+// The shape of flash_f32_kernel<HD>. A warp owns WR packed query rows in RG
+// row groups of 4 (lane = rg * KG + kg); for S the lane holds its 4 rows x
+// KPL keys kg + KG j, for O its 4 rows x CPL float4 columns 4 kg + 4 KG h.
+// Shared memory in floats: Q (RB rows), two stages of K and V (BK keys
+// each) and each warp's P (BK x WR). Q and K rows keep their 16-byte
+// chunks XOR-swizzled by (row & 7), so the lanes' 16-byte reads of
+// different rows hit different banks without padding.
 template <int HD>
-struct F32Smem {
-  static constexpr int LD = HD + 4;
-  static constexpr int PLD = kF32BK + 1;
+struct F32Tile {
+  static constexpr int RG = HD <= 128 ? 4 : 2;
+  static constexpr int KG = 32 / RG;
+  static constexpr int WR = 4 * RG;
+  static constexpr int RB = kF32Warps * WR;   // 128 rows, 64 at hd 256
+  static constexpr int BK = HD <= 128 ? 64 : 32;
+  static constexpr int KPL = BK / KG;
+  static constexpr int CH = HD / 4;           // 16-byte chunks a row
+  static constexpr int CPL = HD / (4 * KG);
   static constexpr int q = 0;
-  static constexpr int k = q + kF32BQ * LD;
-  static constexpr int v = k + kF32BK * LD;
-  static constexpr int p = v + kF32BK * LD;
-  static constexpr int kpos = p + kF32BQ * PLD;
-  static constexpr int words = kpos + kF32BK;
+  static constexpr int stage = 2 * BK * HD;   // K, then V
+  static constexpr int kv = q + RB * HD;
+  static constexpr int p = kv + 2 * stage;
+  static constexpr int words = p + kF32Warps * BK * WR;
   static constexpr size_t bytes = size_t(words) * 4;
 };
 
-// rows x HD floats from row 0 (row stride rs) into shared rows of LD words;
-// rows at or past nrows are zero
-template <int HD, int LD>
-__device__ __forceinline__ void stage_f32(float* dst, const float* src,
-                                          long long rs, int nrows, int rows) {
-  constexpr int per_row = HD / 4;
-  for (int idx = threadIdx.x; idx < rows * per_row; idx += kF32Threads) {
-    const int r = idx / per_row;
-    const int d = (idx - r * per_row) * 4;
-    float4 val = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-    if (r < nrows) val = *reinterpret_cast<const float4*>(src + r * rs + d);
-    *reinterpret_cast<float4*>(dst + r * LD + d) = val;
-  }
-}
-
 template <int HD>
-__global__ void __launch_bounds__(kF32Threads)
+__global__ void __launch_bounds__(kF32Threads, 1)
 flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, const int* __restrict__ qpos,
-                 const int* __restrict__ kpos, float* __restrict__ out, int H,
-                 int group, int Sq, int Skv, long long qsb, long long qsh,
-                 long long qss, long long ksb, long long ksh, long long kss,
-                 long long vsb, long long vsh, long long vss, long long osb,
-                 long long osh, long long oss, int causal, int window,
-                 int zero_empty) {
-  using S = F32Smem<HD>;
-  constexpr int RI = kF32BQ / 16;    // query rows a thread owns
-  constexpr int NC = HD / 64;        // 64-column groups of the output
+                 const int* __restrict__ kpos, float* __restrict__ out,
+                 int KV, int group, int hb, int Sq, int Skv, long long qsb,
+                 long long qsh, long long qss, long long ksb, long long ksh,
+                 long long kss, long long vsb, long long vsh, long long vss,
+                 long long osb, long long osh, long long oss, int causal,
+                 int window, int zero_empty) {
+  using S = F32Tile<HD>;
+  constexpr int RG = S::RG, KG = S::KG, WR = S::WR, RB = S::RB, BK = S::BK;
+  constexpr int KPL = S::KPL, CH = S::CH, CPL = S::CPL;
   extern __shared__ __align__(16) float smem[];
-  float* Qs = smem + S::q;
-  float* Ks = smem + S::k;
-  float* Vs = smem + S::v;
-  float* Ps = smem + S::p;
-  int* Kp = reinterpret_cast<int*>(smem + S::kpos);
+  const float4* Q4 = reinterpret_cast<const float4*>(smem + S::q);
+  const int tid = threadIdx.x, lane = tid & 31, w = tid >> 5;
+  const int rg = lane / KG, kg = lane % KG;
+  float* Pw = smem + S::p + w * BK * WR;
 
-  const int tid = threadIdx.x;
-  const int tx = tid & 15, ty = tid >> 4;
-  const int bh = blockIdx.y;
-  const int b = bh / H, h = bh - b * H;
-  const int kvh = h / group;
-  const int q0 = blockIdx.x * kF32BQ;
+  // block: (batch, KV head, run of hb heads of its group), query tile;
+  // query tiles go out last first (the longest causal walks start first)
+  const int hruns = group / hb;
+  const int b = blockIdx.x / (KV * hruns);
+  const int rest = blockIdx.x - b * KV * hruns;
+  const int kvh = rest / hruns;
+  const int h0 = kvh * group + (rest - kvh * hruns) * hb;
+  const int pb = RB / hb;                     // query positions a block
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * pb;
+  const int nq = min(pb, Sq - q0);
+  const int nt = (Skv + BK - 1) / BK;
   const float* kb = k + b * ksb + kvh * ksh;
   const float* vb = v + b * vsb + kvh * vsh;
 
-  stage_f32<HD, S::LD>(Qs, q + b * qsb + h * qsh + q0 * qss, qss, Sq - q0,
-                       kF32BQ);
+  // Q: row r is head h0 + r / pb at position q0 + r % pb, zero past Sq
+  for (int i = tid; i < RB * CH; i += kF32Threads) {
+    const int r = i / CH, c = i - (i / CH) * CH;
+    const int pi = r % pb;
+    const bool full = pi < nq;
+    const float* src = full ? q + b * qsb + (h0 + r / pb) * qsh
+                                  + (q0 + pi) * qss + c * 4
+                            : q;
+    cp_async16(smem + S::q + r * HD + ((c ^ (r & 7)) << 2), src, full);
+  }
+  auto stage_kv = [&](int t, int st) {
+    float* ks = smem + S::kv + st * S::stage;
+    float* vs = ks + BK * HD;
+    for (int i = tid; i < BK * CH; i += kF32Threads) {
+      const int j = i / CH, c = i - (i / CH) * CH;
+      const int kk = t * BK + j;
+      const bool full = kk < Skv;
+      cp_async16(ks + j * HD + ((c ^ (j & 7)) << 2),
+                 full ? kb + kk * kss + c * 4 : kb, full);
+      cp_async16(vs + j * HD + c * 4, full ? vb + kk * vss + c * 4 : vb,
+                 full);
+    }
+  };
+  int qmin, qmax;
+  query_bounds(qpos, q0, nq, qmin, qmax);
+  // the next KV tile from t that is not dead (nt: none), and its class;
+  // every warp walks the same tiles
+  auto next_live = [&](int t, int& cls) {
+    for (; t < nt; ++t) {
+      cls = tile_class(kpos, t * BK, BK, Skv, qmin, qmax, causal, window);
+      if (cls != kDead) break;
+    }
+    return t;
+  };
 
-  int qp[RI];
-  float m[RI], l[RI], acc[RI][NC][4];
+  int row[4], qp[4];
+  float m[4], l[4], acc[4][CPL][4];
 #pragma unroll
-  for (int i = 0; i < RI; ++i) {
-    const int qi = q0 + ty * RI + i;
-    qp[i] = qi < Sq ? qpos[qi] : 0;
+  for (int i = 0; i < 4; ++i) {
+    row[i] = w * WR + rg + RG * i;
+    const int pi = row[i] % pb;
+    qp[i] = pi < nq ? __ldg(qpos + q0 + pi) : 0;
     m[i] = kNeg;
     l[i] = 0.0f;
 #pragma unroll
-    for (int c = 0; c < NC; ++c)
+    for (int h = 0; h < CPL; ++h)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][c][e] = 0.0f;
+      for (int e = 0; e < 4; ++e) acc[i][h][e] = 0.0f;
   }
 
-  for (int k0 = 0; k0 < Skv; k0 += kF32BK) {
-    __syncthreads();   // the previous tile's readers are done
-    stage_f32<HD, S::LD>(Ks, kb + k0 * kss, kss, Skv - k0, kF32BK);
-    stage_f32<HD, S::LD>(Vs, vb + k0 * vss, vss, Skv - k0, kF32BK);
-    if (tid < kF32BK) Kp[tid] = k0 + tid < Skv ? kpos[k0 + tid] : 0;
+  int cls = kDead, cls1 = kDead;
+  int t = next_live(0, cls);
+  if (t < nt) stage_kv(t, 0);
+  cp_commit();
+  int t1 = t < nt ? next_live(t + 1, cls1) : nt;
+  if (t1 < nt) stage_kv(t1, 1);
+  cp_commit();
+  for (int st = 0; t < nt; st ^= 1) {
+    cp_wait<1>();
     __syncthreads();
+    const float4* K4 =
+        reinterpret_cast<const float4*>(smem + S::kv + st * S::stage);
+    const float4* V4 = K4 + BK * CH;
+    const int k0 = t * BK;
 
-    // S = Q K^T for rows ty * RI + i, keys tx + 16 j
-    float s[RI][4];
+    // S = Q K^T: rows row[i], keys kg + KG j, over the head dim in order
+    float s[4][KPL];
 #pragma unroll
-    for (int i = 0; i < RI; ++i)
+    for (int i = 0; i < 4; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.0f;
+      for (int j = 0; j < KPL; ++j) s[i][j] = 0.0f;
 #pragma unroll 4
-    for (int d = 0; d < HD; d += 4) {
-      float4 a[RI], bk[4];
+    for (int c = 0; c < CH; ++c) {
+      float4 a[4], bk[KPL];
 #pragma unroll
-      for (int i = 0; i < RI; ++i)
-        a[i] = *reinterpret_cast<const float4*>(Qs + (ty * RI + i) * S::LD
-                                                + d);
+      for (int i = 0; i < 4; ++i) a[i] = Q4[row[i] * CH + (c ^ (row[i] & 7))];
 #pragma unroll
-      for (int j = 0; j < 4; ++j)
-        bk[j] = *reinterpret_cast<const float4*>(Ks + (tx + 16 * j) * S::LD
-                                                 + d);
+      for (int j = 0; j < KPL; ++j)
+        bk[j] = K4[(kg + KG * j) * CH + (c ^ (kg & 7))];
 #pragma unroll
-      for (int i = 0; i < RI; ++i)
+      for (int i = 0; i < 4; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
+        for (int j = 0; j < KPL; ++j) {
           s[i][j] = fmaf(a[i].x, bk[j].x, s[i][j]);
           s[i][j] = fmaf(a[i].y, bk[j].y, s[i][j]);
           s[i][j] = fmaf(a[i].z, bk[j].z, s[i][j]);
@@ -429,80 +482,118 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
         }
     }
 
-    // mask, online softmax (the row's 16 lanes share ty), P to shared memory
-    float sc[RI];
+    // mask (live tiles only), online softmax over the row's KG lanes; P to
+    // the warp's buffer, slot rg * 4 + i of each key
+    const bool masked = cls != kFull;
+    int kp[KPL];
+    bool ex[KPL];
 #pragma unroll
-    for (int i = 0; i < RI; ++i) {
+    for (int j = 0; j < KPL; ++j) {
+      ex[j] = !masked || k0 + kg + KG * j < Skv;
+      kp[j] = masked && ex[j] ? __ldg(kpos + k0 + kg + KG * j) : 0;
+    }
+    float sc[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
       float mx = kNeg;
-      bool ex[4];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int c = tx + 16 * j;
-        ex[j] = k0 + c < Skv;
-        s[i][j] = ex[j] && key_valid(Kp[c], qp[i], causal, window)
-                      ? s[i][j] : kNeg;
+      for (int j = 0; j < KPL; ++j) {
+        if (masked && !(ex[j] && key_valid(kp[j], qp[i], causal, window)))
+          s[i][j] = kNeg;
         if (ex[j]) mx = fmaxf(mx, s[i][j]);
       }
 #pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
+      for (int off = KG / 2; off > 0; off >>= 1)
         mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
       const float m_new = fmaxf(m[i], mx);
       float psum = 0.0f;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p = ex[j] ? expf(s[i][j] - m_new) : 0.0f;
-        psum += p;
-        Ps[(ty * RI + i) * S::PLD + tx + 16 * j] = p;
+      for (int j = 0; j < KPL; ++j) {
+        s[i][j] = ex[j] ? expf(s[i][j] - m_new) : 0.0f;
+        psum += s[i][j];
       }
 #pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
+      for (int off = KG / 2; off > 0; off >>= 1)
         psum += __shfl_xor_sync(0xffffffffu, psum, off);
       sc[i] = expf(m[i] - m_new);
       l[i] = l[i] * sc[i] + psum;
       m[i] = m_new;
     }
-    __syncthreads();
+#pragma unroll
+    for (int j = 0; j < KPL; ++j)
+      *reinterpret_cast<float4*>(Pw + (kg + KG * j) * WR + rg * 4) =
+          make_float4(s[0][j], s[1][j], s[2][j], s[3][j]);
+    __syncwarp();
 
-    // acc = acc * scale + P V for rows ty * RI + i, columns c*64 + tx*4 + e
+    // O = O * scale + P V: rows row[i], columns 4 kg + 4 KG h
 #pragma unroll
-    for (int i = 0; i < RI; ++i)
+    for (int i = 0; i < 4; ++i)
 #pragma unroll
-      for (int c = 0; c < NC; ++c)
+      for (int h = 0; h < CPL; ++h)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) acc[i][c][e] *= sc[i];
+        for (int e = 0; e < 4; ++e) acc[i][h][e] *= sc[i];
 #pragma unroll 4
-    for (int jj = 0; jj < kF32BK; ++jj) {
-      float a[RI];
+    for (int kk = 0; kk < BK; ++kk) {
+      const float4 p = *reinterpret_cast<const float4*>(Pw + kk * WR
+                                                        + rg * 4);
+      const float pr[4] = {p.x, p.y, p.z, p.w};
 #pragma unroll
-      for (int i = 0; i < RI; ++i) a[i] = Ps[(ty * RI + i) * S::PLD + jj];
+      for (int h = 0; h < CPL; ++h) {
+        const float4 bv = V4[kk * CH + kg + KG * h];
 #pragma unroll
-      for (int c = 0; c < NC; ++c) {
-        const float4 bv = *reinterpret_cast<const float4*>(
-            Vs + jj * S::LD + c * 64 + tx * 4);
-#pragma unroll
-        for (int i = 0; i < RI; ++i) {
-          acc[i][c][0] = fmaf(a[i], bv.x, acc[i][c][0]);
-          acc[i][c][1] = fmaf(a[i], bv.y, acc[i][c][1]);
-          acc[i][c][2] = fmaf(a[i], bv.z, acc[i][c][2]);
-          acc[i][c][3] = fmaf(a[i], bv.w, acc[i][c][3]);
+        for (int i = 0; i < 4; ++i) {
+          acc[i][h][0] = fmaf(pr[i], bv.x, acc[i][h][0]);
+          acc[i][h][1] = fmaf(pr[i], bv.y, acc[i][h][1]);
+          acc[i][h][2] = fmaf(pr[i], bv.z, acc[i][h][2]);
+          acc[i][h][3] = fmaf(pr[i], bv.w, acc[i][h][3]);
         }
       }
     }
+    __syncthreads();   // every warp is done with this stage
+    int cls2 = kDead;
+    const int t2 = t1 < nt ? next_live(t1 + 1, cls2) : nt;
+    if (t2 < nt) stage_kv(t2, st);
+    cp_commit();
+    t = t1;
+    cls = cls1;
+    t1 = t2;
+    cls1 = cls2;
   }
+  cp_wait<0>();
 
+  // a row with no valid key: zero with zero_empty, else the mean of v over
+  // all Skv keys (the reference kernel's exp(NEG - NEG) = 1 for every key)
 #pragma unroll
-  for (int i = 0; i < RI; ++i) {
-    const int qi = q0 + ty * RI + i;
-    if (qi >= Sq) continue;
+  for (int i = 0; i < 4; ++i) {
+    const int pi = row[i] % pb;
+    if (pi >= nq) continue;
+    const bool empty = m[i] == kNeg;
+    if (empty && !zero_empty) {
+#pragma unroll
+      for (int h = 0; h < CPL; ++h)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[i][h][e] = 0.0f;
+      for (int j = 0; j < Skv; ++j)
+#pragma unroll
+        for (int h = 0; h < CPL; ++h) {
+          const float4 x = *reinterpret_cast<const float4*>(
+              vb + j * vss + 4 * kg + 4 * KG * h);
+          acc[i][h][0] += x.x;
+          acc[i][h][1] += x.y;
+          acc[i][h][2] += x.z;
+          acc[i][h][3] += x.w;
+        }
+      l[i] = float(Skv);
+    }
     const float den = fmaxf(l[i], 1e-30f);
-    const bool zero = zero_empty && m[i] == kNeg;
-    float* orow = out + b * osb + h * osh + qi * oss;
+    const bool zero = zero_empty && empty;
+    float* orow = out + b * osb + (h0 + row[i] / pb) * osh + (q0 + pi) * oss;
 #pragma unroll
-    for (int c = 0; c < NC; ++c)
-      *reinterpret_cast<float4*>(orow + c * 64 + tx * 4) =
+    for (int h = 0; h < CPL; ++h)
+      *reinterpret_cast<float4*>(orow + 4 * kg + 4 * KG * h) =
           zero ? make_float4(0.0f, 0.0f, 0.0f, 0.0f)
-               : make_float4(acc[i][c][0] / den, acc[i][c][1] / den,
-                             acc[i][c][2] / den, acc[i][c][3] / den);
+               : make_float4(acc[i][h][0] / den, acc[i][h][1] / den,
+                             acc[i][h][2] / den, acc[i][h][3] / den);
   }
 }
 
@@ -1194,18 +1285,29 @@ cudaError_t smem_attr(K kern, size_t bytes) {
                               int(bytes));
 }
 
+// heads of a GQA group one f32 block packs: the largest power of two that
+// divides the group, at most kF32MaxHeads
+int f32_heads(int group) {
+  int hb = 1;
+  while (hb < kF32MaxHeads && group % (2 * hb) == 0) hb *= 2;
+  return hb;
+}
+
 template <int HD>
 int launch_f32(const Args& a) {
-  using L = F32Smem<HD>;
+  using L = F32Tile<HD>;
   auto kern = flash_f32_kernel<HD>;
   cudaError_t e = smem_attr(kern, L::bytes);
   if (e != cudaSuccess) return int(e);
   const long long* st = a.st;
-  const dim3 grid((a.Sq + kF32BQ - 1) / kF32BQ, a.B * a.H);
+  const int group = a.H / a.KV, hb = f32_heads(group);
+  const int nqt = (a.Sq + L::RB / hb - 1) / (L::RB / hb);
+  if (nqt > 65535) return int(cudaErrorInvalidValue);
+  const dim3 grid(a.B * a.KV * (group / hb), nqt);
   kern<<<grid, kF32Threads, L::bytes, a.s>>>(
       static_cast<const float*>(a.q), static_cast<const float*>(a.k),
       static_cast<const float*>(a.v), a.qpos, a.kpos,
-      static_cast<float*>(a.out), a.H, a.H / a.KV, a.Sq, a.Skv, st[0], st[1],
+      static_cast<float*>(a.out), a.KV, group, hb, a.Sq, a.Skv, st[0], st[1],
       st[2], st[3], st[4], st[5], st[6], st[7], st[8], st[9], st[10], st[11],
       a.causal, a.window, a.zero_empty);
   return int(cudaGetLastError());
@@ -1341,6 +1443,30 @@ int fk_flash_attention(const void* q, const void* k, const void* v,
   if (dtype == 1) return by_hd<__nv_bfloat16>(hd, a);
   if (dtype == 2) return by_hd<__half>(hd, a);
   return f32_by_hd(hd, a);
+}
+
+// flash_f32_kernel<hd>'s resources: resident blocks an SM, registers and
+// local bytes a thread, dynamic shared bytes (out, 4 ints).
+int fk_flash_f32_resources(int hd, int* out) {
+  auto get = [&](auto kern, size_t bytes) {
+    cudaError_t e = smem_attr(kern, bytes);
+    if (e != cudaSuccess) return int(e);
+    cudaFuncAttributes attr;
+    e = cudaFuncGetAttributes(&attr, kern);
+    if (e != cudaSuccess) return int(e);
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[0], kern,
+                                                      kF32Threads, bytes);
+    out[1] = attr.numRegs;
+    out[2] = int(attr.localSizeBytes);
+    out[3] = int(bytes);
+    return int(e);
+  };
+  switch (hd) {
+    case 64: return get(flash_f32_kernel<64>, F32Tile<64>::bytes);
+    case 128: return get(flash_f32_kernel<128>, F32Tile<128>::bytes);
+    case 256: return get(flash_f32_kernel<256>, F32Tile<256>::bytes);
+    default: return int(cudaErrorInvalidValue);
+  }
 }
 
 // sizes[0]: f32 values of the decode kernel's partials, sizes[1]: ints of

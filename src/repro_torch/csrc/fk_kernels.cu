@@ -50,18 +50,23 @@
 // matmul_abft.py matmul_abft (the ABFT GEMM) is not here: every dtype of
 // it, f32 included, is abft_gemm_kernel<T> in fk_abft_gemm.cu (wgmma fed
 // by TMA).
-// dmr_partials_kernel, dmr_reduce_kernel and dmr_verdict_kernel replace
-// centroid_update_dmr.py centroid_update_dmr: per (cluster group, row slab,
-// feature group) two replicas of the partial sums from one load of X (the
-// shadow in reversed order within each 32-row group), summed per slab in a
-// second pass and compared in a third. No float atomics anywhere.
+// dmr_bucket_kernel<kPlace> (histogram, then scatter), dmr_scan_kernel,
+// dmr_gather_kernel<V>, dmr_reduce_kernel and dmr_verdict_kernel replace
+// centroid_update_dmr.py centroid_update_dmr: each row slab's rows
+// bucketed by cluster (a stable counting sort: histogram, scan, ranks by
+// __match_any_sync in row order), then one warp a (slab, chunk of up to
+// 512 of a cluster's rows, feature group) loads 8 rows at once and adds
+// them into two register replicas (the shadow in reversed order within
+// each group of 8), the chunks summed per slab and the slabs in slab order
+// in a fifth pass, compared in a sixth. X is read once, no float atomics.
 //
 // Instantiations: lloyd_tile_kernel 2 (BM = 64, 128) x 6 (kFT, kUpd: the
 // table's rows) = 12, lloyd_tile_mma_kernel 2 (T) x 2 (BM) x 6 (the
 // batched row with kBatchedEntries) = 24,
 // lloyd_encode_kernel 2 (T), lloyd_prep_kernel 1 (the f32 kernel's
 // pre-pass), update_tiles_kernel 3 (T) x 2 (BM), kmeanspp_round_kernel 1,
-// int8_tile_kernel 2 (BM), the three DMR kernels: 51 kernels.
+// int8_tile_kernel 2 (BM), the seven DMR kernels (bucket at kPlace 0, 1;
+// gather at V = 1, 4): 55 kernels.
 //
 // The epilogues are single __device__ definitions (tile_min_argmin,
 // fold_min, min_pair, emit_update, emit_entries; the warp reductions and
@@ -127,7 +132,9 @@
 // it runs on (mma.sync s8); its f32 epilogue over every distance comes
 // next.
 // The seeding round is bound by the bytes of X (one GEMV per round). The
-// DMR update is bound by the bytes of X and the assignments, read once.
+// DMR update is bound by the bytes of X and the assignments, read once:
+// its gather keeps 8 row loads of up to 512 bytes a warp in flight, and
+// its bucketing reads the assignments twice and writes M row indices.
 // wgmma and TMA are later work here; the int8 and 2-byte kernels keep a
 // shared-memory X stash.
 //
@@ -2281,135 +2288,349 @@ int launch_int8(const int8_t* xq, const int8_t* cq, const float* sx,
 }
 
 // --- DMR centroid update (centroid_update_dmr) ------------------------------
-constexpr int kDmrWarpClusters = 8;
-constexpr int kDmrClusters = (kThreads / 32) * kDmrWarpClusters;  // 64
-constexpr int kDmrScan = 1024;   // assignments staged per step
+// Bucket each slab's rows by cluster (a stable counting sort), then gather:
+// a warp owns (slab, a chunk of one cluster's bucket, a feature group),
+// knows its rows ahead and keeps kDmrGroup row loads in flight. See the
+// header of this file and kernels/centroid_update_dmr.py.
+constexpr int kDmrChunk = 512;        // bucket rows a gather warp walks
+constexpr int kDmrGroup = 8;          // rows it loads at once
+constexpr int kDmrHistRows = 1024;    // rows a bucketing warp walks (least)
+constexpr int kDmrHistCells = 1 << 17;  // clusters x chunks of a slab, most
+constexpr int kDmrScanThreads = 1024;
+constexpr int kDmrPrefetch = 8;       // 32-row groups of labels a warp loads
+constexpr int kDmrScanBatch = 4;      // 16-byte loads a lane has in flight
 
-// Shared-memory layout of dmr_partials_kernel (4-byte words).
-struct DmrLayout {
-  static constexpr int kSa = 0;                              // kDmrScan ints
-  static constexpr int kAcc1 = kSa + kDmrScan;               // clusters x 32
-  static constexpr int kAcc2 = kAcc1 + kDmrClusters * 32;
-  static constexpr int kBuf = kAcc2 + kDmrClusters * 32;     // warps x 32 x 32
-  static constexpr int kN1 = kBuf + (kThreads / 32) * 32 * 32;  // ints
-  static constexpr int kN2 = kN1 + kDmrClusters;
-  static constexpr int kWords = kN2 + kDmrClusters;
-  static constexpr size_t kBytes = size_t(kWords) * 4;
+// The launch's scratch: int offsets (pos, off, cst, items, nitems, idx,
+// wcnt) and float offsets (part, red), in elements.
+struct DmrPlan {
+  int slabs, hrows, nch, hstride, cap, nred;
+  size_t pos, off, cst, items, nitems, idx, wcnt, ints;
+  size_t part, red, floats;
 };
 
-// Pass 1: block (cluster group, slab, 32-feature group). Warp w owns the
-// kDmrWarpClusters clusters from k0, lane l feature col. For each 32-row
-// group a ballot finds the warp's rows; each is loaded once. The primary
-// replica adds them in row order; the shadow adds the same values, kept in
-// shared memory, in reversed order (a different association into other
-// accumulators: two computations, not one). Counts are exact integers.
+DmrPlan dmr_plan(int m, int f, int k, int slab_rows) {
+  DmrPlan p;
+  p.slabs = m > slab_rows ? (m + slab_rows - 1) / slab_rows : 1;
+  p.hrows = kDmrHistRows < slab_rows ? kDmrHistRows : slab_rows;
+  p.nch = (slab_rows + p.hrows - 1) / p.hrows;
+  while ((long long)k * p.nch > kDmrHistCells && p.hrows < slab_rows) {
+    p.hrows = 2 * p.hrows < slab_rows ? 2 * p.hrows : slab_rows;
+    p.nch = (slab_rows + p.hrows - 1) / p.hrows;
+  }
+  p.hstride = (k * p.nch + 3) / 4 * 4;   // a slab's cells, 16-byte rows
+  // a slab's chunks: sum over clusters of ceil(n_a / kDmrChunk)
+  p.cap = (slab_rows + kDmrChunk - 1) / kDmrChunk + k;
+  p.nred = int((size_t(k) * f + kThreads - 1) / kThreads);
+  const size_t s = size_t(p.slabs);
+  p.pos = 0;
+  p.off = p.pos + s * p.hstride;
+  p.cst = p.off + s * (k + 1);
+  p.items = p.cst + s * k;
+  p.nitems = p.items + s * p.cap;
+  p.idx = p.nitems + s;
+  p.wcnt = p.idx + size_t(m > 0 ? m : 1);
+  p.ints = p.wcnt + s * p.cap;
+  p.part = 0;
+  p.red = 2 * s * p.cap * f;
+  p.floats = p.red + size_t(p.nred) * 3;
+  return p;
+}
+
+// Passes 1 and 3: warp (slab s, chunk c) walks its rows 32 at a time in
+// row order, kDmrPrefetch groups of labels loaded at once, each group's
+// rows of one cluster found by __match_any_sync. Pass 1 (kPlace false)
+// counts them into the cell pos[s hstride + a nch + c]; the counts do not
+// depend on the order. Pass 3 (kPlace true), after the scan has made each
+// cell the first free bucket slot of that chunk's rows of that cluster,
+// places each row at the cell's next slot plus its rank among the group's
+// rows of its cluster, so each bucket holds its rows in row order,
+// whatever order the warps run in. Each cell is one warp's, so its
+// integer atomics return the slots in the warp's order.
+template <bool kPlace>
 __global__ void __launch_bounds__(kThreads)
-dmr_partials_kernel(const float* __restrict__ x,
-                    const int* __restrict__ assign,
-                    float* __restrict__ part1, float* __restrict__ part2,
-                    int* __restrict__ cnt1, int* __restrict__ cnt2, int m,
-                    int f, int k, int slab_rows, int fs, int fk, int ff,
-                    float fdelta) {
-  using L = DmrLayout;
-  extern __shared__ float sm[];
-  int* smi = reinterpret_cast<int*>(sm);
-  const int tid = threadIdx.x, w = tid / 32, lane = tid % 32;
-  const int k0 = blockIdx.x * kDmrClusters + w * kDmrWarpClusters;
-  const int slab = blockIdx.y;
-  const int r0 = slab * slab_rows;
-  const int r1 = m - r0 < slab_rows ? m : r0 + slab_rows;
-  const int col = blockIdx.z * 32 + lane;
-  const bool has_col = col < f;
-  float* acc1 = sm + L::kAcc1 + w * kDmrWarpClusters * 32;
-  float* acc2 = sm + L::kAcc2 + w * kDmrWarpClusters * 32;
-  float* buf = sm + L::kBuf + w * 32 * 32;
-  int* n1 = smi + L::kN1 + w * kDmrWarpClusters;
-  int* n2 = smi + L::kN2 + w * kDmrWarpClusters;
-  for (int c = 0; c < kDmrWarpClusters; ++c)
-    acc1[c * 32 + lane] = acc2[c * 32 + lane] = 0.0f;
-  if (lane < kDmrWarpClusters) n1[lane] = n2[lane] = 0;
-  __syncwarp();
-  for (int c0 = r0; c0 < r1; c0 += kDmrScan) {
-    __syncthreads();
-    for (int t = tid; t < kDmrScan; t += kThreads)
-      smi[L::kSa + t] = c0 + t < r1 ? assign[c0 + t] : -1;
-    __syncthreads();
-    const int n = r1 - c0 < kDmrScan ? r1 - c0 : kDmrScan;
-    for (int g = 0; g < n; g += 32) {
-      const int* sa = smi + L::kSa + g;
-      const int a = sa[lane];
-      const bool own = a >= k0 && a < k0 + kDmrWarpClusters && a < k;
-      const unsigned mask = __ballot_sync(0xffffffffu, own);
-      if (mask == 0u) continue;
-      int cnt = 0;
-      for (unsigned mm = mask; mm != 0u; mm &= mm - 1u) {
-        const int i = __ffs(mm) - 1;
-        const int slot = sa[i] - k0;
-        const float v = has_col ? x[size_t(c0 + g + i) * f + col] : 0.0f;
-        acc1[slot * 32 + lane] += v;
-        buf[cnt * 32 + lane] = v;
-        if (lane == 0) n1[slot] += 1;
-        ++cnt;
-      }
-      int j = cnt - 1;
-      for (unsigned mm = mask; mm != 0u; --j) {
-        const int i = 31 - __clz(mm);
-        mm &= ~(1u << i);
-        const int slot = sa[i] - k0;
-        acc2[slot * 32 + lane] += buf[j * 32 + lane];
-        if (lane == 0) n2[slot] += 1;
+dmr_bucket_kernel(const int* __restrict__ assign, int* __restrict__ pos,
+                  int* __restrict__ idx, int m, int k, int slab_rows,
+                  DmrPlan p) {
+  const int lane = threadIdx.x & 31;
+  const int gw = blockIdx.x * (kThreads / 32) + threadIdx.x / 32;
+  if (gw >= p.slabs * p.nch) return;
+  const int s = gw / p.nch, c = gw - s * p.nch;
+  const int r0 = s * slab_rows + c * p.hrows;
+  const int r1 = min(min(r0 + p.hrows, s * slab_rows + slab_rows), m);
+  int* cell = pos + size_t(s) * p.hstride + c;
+  for (int g = r0; g < r1; g += 32 * kDmrPrefetch) {
+    int lab[kDmrPrefetch];
+#pragma unroll
+    for (int u = 0; u < kDmrPrefetch; ++u) {
+      const int r = g + 32 * u + lane;
+      lab[u] = r < r1 ? __ldg(assign + r) : -1;
+    }
+#pragma unroll
+    for (int u = 0; u < kDmrPrefetch; ++u) {
+      const int a = lab[u];
+      const bool valid = a >= 0 && a < k;
+      const unsigned peers = __match_any_sync(0xffffffffu, valid ? a : -1);
+      const int leader = __ffs(peers) - 1;
+      int first = 0;
+      if (valid && lane == leader)
+        first = atomicAdd(cell + size_t(a) * p.nch, __popc(peers));
+      if constexpr (kPlace) {
+        first = __shfl_sync(0xffffffffu, first, leader);
+        if (valid)
+          idx[first + __popc(peers & ((1u << lane) - 1u))] =
+              g + 32 * u + lane;
       }
     }
-  }
-  __syncwarp();
-  for (int c = 0; c < kDmrWarpClusters && k0 + c < k; ++c) {
-    if (!has_col) break;
-    const int kk = k0 + c;
-    const size_t o = (size_t(slab) * k + kk) * f + col;
-    part1[o] = acc1[c * 32 + lane];
-    float v2 = acc2[c * 32 + lane];
-    if (slab == fs && kk == fk && col == ff) v2 += fdelta;  // debug fault
-    part2[o] = v2;
-  }
-  if (blockIdx.z == 0 && lane < kDmrWarpClusters && k0 + lane < k) {
-    cnt1[size_t(slab) * k + k0 + lane] = n1[lane];
-    cnt2[size_t(slab) * k + k0 + lane] = n2[lane];
   }
 }
 
-// Pass 2: sums[kf] = the slabs' primary partials in slab order (the shadow
-// likewise), counts from the integer partials; per block the largest
-// |sums - sums2|, the largest |sums| and whether any count differs, into
-// red (3 floats per block).
+// Exclusive prefix of v over the block's threads (in thread order), and
+// the block's total; wsum holds 33 ints.
+__device__ int block_exclusive_scan(int v, int* wsum, int& total) {
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  const int nw = blockDim.x >> 5;
+  int incl = v;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int t = __shfl_up_sync(0xffffffffu, incl, o);
+    if (lane >= o) incl += t;
+  }
+  if (lane == 31) wsum[w] = incl;
+  __syncthreads();
+  if (w == 0) {
+    const int x = lane < nw ? wsum[lane] : 0;
+    int xi = x;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int t = __shfl_up_sync(0xffffffffu, xi, o);
+      if (lane >= o) xi += t;
+    }
+    wsum[lane] = xi - x;
+    if (lane == 31) wsum[32] = xi;
+  }
+  __syncthreads();
+  const int r = wsum[w] + incl - v;
+  total = wsum[32];
+  __syncthreads();
+  return r;
+}
+
+// Pass 2, a block a slab: the histogram's exclusive scan in (cluster,
+// chunk) order turns each cell into the slab's first bucket position of
+// that chunk's rows of that cluster (pos, absolute in idx); off[a] is
+// cluster a's bucket start in the slab (off[k]: the slab's valid rows);
+// then each cluster's ceil(n_a / kDmrChunk) gather items from cst[a], in
+// cluster order, items[t] naming the cluster of item t, nitems the count.
+__global__ void __launch_bounds__(kDmrScanThreads)
+dmr_scan_kernel(int* __restrict__ pos, int* __restrict__ off,
+                int* __restrict__ cst, int* __restrict__ items,
+                int* __restrict__ nitems, int k, int slab_rows, DmrPlan p) {
+  __shared__ int wsum[33];
+  const int s = blockIdx.x, t = threadIdx.x, lane = t & 31, w = t >> 5;
+  int* cell = pos + size_t(s) * p.hstride;
+  int* o = off + size_t(s) * (k + 1);
+  // warp w scans the cells [e0, e1) (e0 a multiple of 128), each lane 4
+  // cells of a 16-byte load, kDmrScanBatch loads in flight
+  const int n = k * p.nch;
+  constexpr int kSpan = 128 * kDmrScanBatch;
+  const int per = (n + kDmrScanThreads / 32 - 1) / (kDmrScanThreads / 32);
+  const int seg = (per + 127) / 128 * 128;
+  const int e0 = min(w * seg, n), e1 = min(e0 + seg, n);
+  const int4* cell4 = reinterpret_cast<const int4*>(cell);
+  auto load = [&](int g, int4* v) {
+#pragma unroll
+    for (int b = 0; b < kDmrScanBatch; ++b) {
+      const int e = g + 128 * b + 4 * lane;   // cells past e1 are padding
+      v[b] = e < e1 ? cell4[e / 4] : make_int4(0, 0, 0, 0);
+    }
+  };
+  int sum = 0;
+  for (int g = e0; g < e1; g += kSpan) {
+    int4 v[kDmrScanBatch];
+    load(g, v);
+#pragma unroll
+    for (int b = 0; b < kDmrScanBatch; ++b) sum += v[b].x + v[b].y + v[b].z
+                                                   + v[b].w;
+  }
+#pragma unroll
+  for (int d = 16; d > 0; d >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, d);
+  int total;
+  int run = block_exclusive_scan(lane == 0 ? sum : 0, wsum, total);
+  run = __shfl_sync(0xffffffffu, run, 0);
+  const int base = s * slab_rows;
+  for (int g = e0; g < e1; g += kSpan) {
+    int4 v[kDmrScanBatch];
+    load(g, v);
+#pragma unroll
+    for (int b = 0; b < kDmrScanBatch; ++b) {
+      const int c4[4] = {v[b].x, v[b].y, v[b].z, v[b].w};
+      const int mine = c4[0] + c4[1] + c4[2] + c4[3];
+      int incl = mine;
+#pragma unroll
+      for (int d = 1; d < 32; d <<= 1) {
+        const int u = __shfl_up_sync(0xffffffffu, incl, d);
+        if (lane >= d) incl += u;
+      }
+      int excl = run + incl - mine;
+      const int e = g + 128 * b + 4 * lane;
+      int out[4];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        if (e + q < e1 && (e + q) % p.nch == 0) o[(e + q) / p.nch] = excl;
+        out[q] = base + excl;
+        excl += c4[q];
+      }
+      if (e < e1)
+        reinterpret_cast<int4*>(cell)[e / 4] =
+            make_int4(out[0], out[1], out[2], out[3]);
+      run += __shfl_sync(0xffffffffu, incl, 31);
+    }
+  }
+  if (t == 0) o[k] = total;
+  __syncthreads();
+  const int perk = (k + kDmrScanThreads - 1) / kDmrScanThreads;
+  const int a0 = min(t * perk, k), a1 = min(a0 + perk, k);
+  int nc = 0;
+  for (int a = a0; a < a1; ++a)
+    nc += (o[a + 1] - o[a] + kDmrChunk - 1) / kDmrChunk;
+  int ctotal;
+  int crun = block_exclusive_scan(nc, wsum, ctotal);
+  int* cs = cst + size_t(s) * k;
+  int* it = items + size_t(s) * p.cap;
+  for (int a = a0; a < a1; ++a) {
+    const int na = (o[a + 1] - o[a] + kDmrChunk - 1) / kDmrChunk;
+    cs[a] = crun;
+    for (int j = 0; j < na; ++j) it[crun + j] = a;
+    crun += na;
+  }
+  if (t == 0) nitems[s] = ctotal;
+}
+
+// Pass 4: warp (item t of slab s, feature group blockIdx.z) walks the
+// item's chunk of its cluster's bucket: up to kDmrChunk rows, in row
+// order, kDmrGroup rows loaded at once (V features a lane: 16-byte loads
+// when V = 4). The primary replica adds a group's rows in ascending order,
+// the shadow the same loaded values in descending order within the group,
+// each into its own registers; rows past the chunk add +0.0 (exact: a sum
+// from +0.0 is never -0.0). Writes the item's two partials and, for the
+// shadow's counts, the rows it walked.
+template <int V>
+__global__ void __launch_bounds__(kThreads)
+dmr_gather_kernel(const float* __restrict__ x, const int* __restrict__ idx,
+                  const int* __restrict__ off, const int* __restrict__ cst,
+                  const int* __restrict__ items,
+                  const int* __restrict__ nitems, float* __restrict__ part1,
+                  float* __restrict__ part2, int* __restrict__ wcnt, int f,
+                  int k, int slab_rows, DmrPlan p) {
+  const int lane = threadIdx.x & 31;
+  const int t = blockIdx.x * (kThreads / 32) + threadIdx.x / 32;
+  const int s = blockIdx.y;
+  if (t >= nitems[s]) return;
+  const int a = items[size_t(s) * p.cap + t];
+  const int j = t - cst[size_t(s) * k + a];
+  const int* o = off + size_t(s) * (k + 1);
+  const int b0 = o[a] + j * kDmrChunk;
+  const int n = min(kDmrChunk, o[a + 1] - b0);
+  const int* rows = idx + size_t(s) * slab_rows + b0;
+  const int col = (blockIdx.z * 32 + lane) * V;
+  const bool has = col < f;
+  float acc1[V], acc2[V];
+#pragma unroll
+  for (int e = 0; e < V; ++e) acc1[e] = acc2[e] = 0.0f;
+  int walked = 0;
+  for (int g0 = 0; g0 < n; g0 += 32) {
+    const int nr = min(32, n - g0);
+    const int mine = lane < nr ? __ldg(rows + g0 + lane) : 0;
+    for (int h = 0; h < nr; h += kDmrGroup) {
+      float v[kDmrGroup][V];
+#pragma unroll
+      for (int q = 0; q < kDmrGroup; ++q) {
+        const int r = __shfl_sync(0xffffffffu, mine, h + q);
+        if (h + q < nr && has) {
+          const float* src = x + size_t(r) * f + col;
+          if constexpr (V == 4) {
+            const float4 w = __ldg(reinterpret_cast<const float4*>(src));
+            v[q][0] = w.x;
+            v[q][1] = w.y;
+            v[q][2] = w.z;
+            v[q][3] = w.w;
+          } else {
+            v[q][0] = __ldg(src);
+          }
+        } else {
+#pragma unroll
+          for (int e = 0; e < V; ++e) v[q][e] = 0.0f;
+        }
+      }
+#pragma unroll
+      for (int q = 0; q < kDmrGroup; ++q)
+#pragma unroll
+        for (int e = 0; e < V; ++e) acc1[e] += v[q][e];
+#pragma unroll
+      for (int q = kDmrGroup - 1; q >= 0; --q)
+#pragma unroll
+        for (int e = 0; e < V; ++e) acc2[e] += v[q][e];
+      walked += min(kDmrGroup, nr - h);
+    }
+  }
+  const size_t it = size_t(s) * p.cap + t;
+  if (has) {
+#pragma unroll
+    for (int e = 0; e < V; ++e) {
+      part1[it * f + col + e] = acc1[e];
+      part2[it * f + col + e] = acc2[e];
+    }
+  }
+  if (blockIdx.z == 0 && lane == 0) wcnt[it] = walked;
+}
+
+// Pass 5: thread (a, col) sums slab s's partial of cluster a -- its
+// chunks' partials in chunk order, from +0.0 -- then the slabs in slab
+// order, for each replica; the debug fault lands on slab fs's shadow
+// partial; counts: the primary's from the buckets, the shadow's from the
+// rows the gather walked. Per block the largest |sums - sums2|, the
+// largest |sums| and whether a count differs, into red (3 floats a block).
 __global__ void __launch_bounds__(kThreads)
 dmr_reduce_kernel(const float* __restrict__ part1,
                   const float* __restrict__ part2,
-                  const int* __restrict__ cnt1, const int* __restrict__ cnt2,
-                  int slabs, int k, int f, float* __restrict__ sums,
-                  float* __restrict__ counts, float* __restrict__ red) {
+                  const int* __restrict__ off, const int* __restrict__ cst,
+                  const int* __restrict__ wcnt, int f, int k, DmrPlan p,
+                  int fs, int fk, int ff, float fdelta,
+                  float* __restrict__ sums, float* __restrict__ counts,
+                  float* __restrict__ red) {
   __shared__ float wred[3][kThreads / 32];
   const int tid = threadIdx.x, lane = tid % 32, w = tid / 32;
-  const size_t kf = size_t(k) * f;
-  const size_t idx = size_t(blockIdx.x) * kThreads + tid;
+  const size_t i = size_t(blockIdx.x) * kThreads + tid;
   float diff = 0.0f, mag = 0.0f, cbad = 0.0f;
-  if (idx < kf) {
+  if (i < size_t(k) * f) {
+    const int a = int(i / f), col = int(i - size_t(a) * f);
     float s1 = 0.0f, s2 = 0.0f;
-    for (int s = 0; s < slabs; ++s) {
-      s1 += part1[s * kf + idx];
-      s2 += part2[s * kf + idx];
+    int c1 = 0, c2 = 0;
+    for (int s = 0; s < p.slabs; ++s) {
+      const int* o = off + size_t(s) * (k + 1);
+      const int na = o[a + 1] - o[a];
+      const int nc = (na + kDmrChunk - 1) / kDmrChunk;
+      const size_t t0 = size_t(s) * p.cap + cst[size_t(s) * k + a];
+      float q1 = 0.0f, q2 = 0.0f;
+#pragma unroll 16
+      for (int j = 0; j < nc; ++j) {
+        q1 += part1[(t0 + j) * f + col];
+        q2 += part2[(t0 + j) * f + col];
+      }
+      if (col == 0)
+        for (int j = 0; j < nc; ++j) c2 += wcnt[t0 + j];
+      if (s == fs && a == fk && col == ff) q2 += fdelta;  // debug fault
+      s1 += q1;
+      s2 += q2;
+      c1 += na;
     }
-    sums[idx] = s1;
+    sums[i] = s1;
     diff = fabsf(s1 - s2);
     mag = fabsf(s1);
-  }
-  if (idx < size_t(k)) {
-    int c1 = 0, c2 = 0;
-    for (int s = 0; s < slabs; ++s) {
-      c1 += cnt1[size_t(s) * k + idx];
-      c2 += cnt2[size_t(s) * k + idx];
+    if (col == 0) {
+      counts[a] = float(c1);
+      cbad = c1 != c2 ? 1.0f : 0.0f;
     }
-    counts[idx] = float(c1);
-    cbad = c1 != c2 ? 1.0f : 0.0f;
   }
   diff = warp_max(diff);
   mag = warp_max(mag);
@@ -2422,12 +2643,12 @@ dmr_reduce_kernel(const float* __restrict__ part1,
   __syncthreads();
   if (tid < 3) {
     float v = 0.0f;
-    for (int i = 0; i < kThreads / 32; ++i) v = fmaxf(v, wred[tid][i]);
+    for (int q = 0; q < kThreads / 32; ++q) v = fmaxf(v, wred[tid][q]);
     red[size_t(blockIdx.x) * 3 + tid] = v;
   }
 }
 
-// Pass 3: bad = max|sums - sums2| > 1e-4 * max(max|sums|, 1) or a count
+// Pass 6: bad = max|sums - sums2| > 1e-4 * max(max|sums|, 1) or a count
 // differs (the reference's comparison).
 __global__ void __launch_bounds__(kThreads)
 dmr_verdict_kernel(const float* __restrict__ red, int nblocks,
@@ -2778,40 +2999,85 @@ int fk_kmeanspp_round(const float* x, const float* xn, const float* c,
   return int(cudaGetLastError());
 }
 
-// x (m, f) f32, assign (m,) int32; part (2, slabs, k, f) f32 and cnt
-// (2, slabs, k) int32 scratch; sums (k, f), counts (k,); red
-// (ceil(k*f/256), 3) f32 scratch; bad a 0-d int32. fs < 0: no debug fault.
-int fk_centroid_update_dmr(const float* x, const int* assign, float* part,
-                           int* cnt, float* sums, float* counts, float* red,
+// The DMR gather kernel's resources at V = 1 or 4 features a lane:
+// resident blocks an SM, registers and local bytes a thread, shared bytes.
+int fk_dmr_resources(int v, int* out) {
+  if (v == 4) return kernel_resources(dmr_gather_kernel<4>, 0, out);
+  if (v == 1) return kernel_resources(dmr_gather_kernel<1>, 0, out);
+  return int(cudaErrorInvalidValue);
+}
+
+// Scratch of fk_centroid_update_dmr for these shapes: sizes[0] ints,
+// sizes[1] floats.
+int fk_dmr_workspace(int m, int f, int k, int slab_rows, long long* sizes) {
+  if (m < 0 || f < 1 || k < 1 || slab_rows < 32 || slab_rows % 32)
+    return int(cudaErrorInvalidValue);
+  const DmrPlan p = dmr_plan(m, f, k, slab_rows);
+  sizes[0] = (long long)p.ints;
+  sizes[1] = (long long)p.floats;
+  return 0;
+}
+
+// x (m, f) f32, assign (m,) int32; iwork and fwork the scratch
+// fk_dmr_workspace sizes (no state kept between launches); sums (k, f),
+// counts (k,) f32; bad a 0-d int32. fs < 0: no debug fault. Six launches
+// and a memset: histogram, scan, scatter, gather, slab sums, verdict.
+int fk_centroid_update_dmr(const float* x, const int* assign, int* iwork,
+                           float* fwork, float* sums, float* counts,
                            int* bad, int m, int f, int k, int slab_rows,
                            int fs, int fk, int ff, float fdelta,
                            void* stream) {
   if (m < 0 || f < 1 || k < 1 || slab_rows < 32 || slab_rows % 32)
     return int(cudaErrorInvalidValue);
-  const int slabs = m > slab_rows ? (m + slab_rows - 1) / slab_rows : 1;
-  const int fgroups = (f + 31) / 32;
-  if (slabs > kMaxProblems || fgroups > kMaxProblems)
+  const DmrPlan p = dmr_plan(m, f, k, slab_rows);
+  const int fgroups4 = (f + 127) / 128, fgroups1 = (f + 31) / 32;
+  if (p.slabs > kMaxProblems || fgroups1 > kMaxProblems)
     return int(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t e = cudaFuncSetAttribute(
-      dmr_partials_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      int(DmrLayout::kBytes));
+  int* pos = iwork + p.pos;
+  int* off = iwork + p.off;
+  int* cst = iwork + p.cst;
+  int* items = iwork + p.items;
+  int* nitems = iwork + p.nitems;
+  int* idx = iwork + p.idx;
+  int* wcnt = iwork + p.wcnt;
+  float* part1 = fwork + p.part;
+  float* part2 = part1 + size_t(p.slabs) * p.cap * f;
+  float* red = fwork + p.red;
+  cudaError_t e = cudaMemsetAsync(pos, 0, size_t(p.slabs) * p.hstride * 4, s);
   if (e != cudaSuccess) return int(e);
-  const size_t skf = size_t(slabs) * k * f, sk = size_t(slabs) * k;
-  dmr_partials_kernel<<<dim3((k + kDmrClusters - 1) / kDmrClusters, slabs,
-                             fgroups),
-                        kThreads, DmrLayout::kBytes, s>>>(
-      x, assign, part, part + skf, cnt, cnt + sk, m, f, k, slab_rows, fs, fk,
-      ff, fdelta);
+  const int hblocks = (p.slabs * p.nch + kThreads / 32 - 1) / (kThreads / 32);
+  dmr_bucket_kernel<false><<<hblocks, kThreads, 0, s>>>(assign, pos, idx, m,
+                                                        k, slab_rows, p);
   e = cudaGetLastError();
   if (e != cudaSuccess) return int(e);
-  const int nred = int((size_t(k) * f + kThreads - 1) / kThreads);
-  dmr_reduce_kernel<<<nred, kThreads, 0, s>>>(part, part + skf, cnt,
-                                              cnt + sk, slabs, k, f, sums,
-                                              counts, red);
+  dmr_scan_kernel<<<p.slabs, kDmrScanThreads, 0, s>>>(pos, off, cst, items,
+                                                      nitems, k, slab_rows, p);
   e = cudaGetLastError();
   if (e != cudaSuccess) return int(e);
-  dmr_verdict_kernel<<<1, kThreads, 0, s>>>(red, nred, bad);
+  dmr_bucket_kernel<true><<<hblocks, kThreads, 0, s>>>(assign, pos, idx, m, k,
+                                                       slab_rows, p);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return int(e);
+  const bool vec = f % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  const dim3 ggrid((p.cap + kThreads / 32 - 1) / (kThreads / 32), p.slabs,
+                   vec ? fgroups4 : fgroups1);
+  if (vec)
+    dmr_gather_kernel<4><<<ggrid, kThreads, 0, s>>>(
+        x, idx, off, cst, items, nitems, part1, part2, wcnt, f, k, slab_rows,
+        p);
+  else
+    dmr_gather_kernel<1><<<ggrid, kThreads, 0, s>>>(
+        x, idx, off, cst, items, nitems, part1, part2, wcnt, f, k, slab_rows,
+        p);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return int(e);
+  dmr_reduce_kernel<<<p.nred, kThreads, 0, s>>>(part1, part2, off, cst, wcnt,
+                                                f, k, p, fs, fk, ff, fdelta,
+                                                sums, counts, red);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return int(e);
+  dmr_verdict_kernel<<<1, kThreads, 0, s>>>(red, p.nred, bad);
   return int(cudaGetLastError());
 }
 

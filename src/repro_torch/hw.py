@@ -63,9 +63,10 @@ ABFT_ALIGN_N: int = 128
 ABFT_ALIGN_K: int = 128
 
 # Rows per slab of the DMR centroid update (centroid_update_dmr): each
-# thread block owns 64 clusters x 32 features of one slab, so the two
-# replicas' partial sums take 2 * ceil(M / DMR_BLOCK_M) * K * F * 4 bytes
-# (16 MB at M = 2**20, K = 1000, F = 128) and X is read once.
+# slab's rows are bucketed by cluster and gathered in chunks of up to
+# centroid_update_dmr.WALK_CHUNK rows of one cluster, so the two replicas'
+# chunk partials take 2 * slabs * (DMR_BLOCK_M / WALK_CHUNK + K) * F * 4
+# bytes (18.5 MB at M = 2**20, K = 1000, F = 128) and X is read once.
 DMR_BLOCK_M: int = 65_536
 
 # Tiles of the flash-attention kernels (flash_attention), fixed in
@@ -80,12 +81,17 @@ DMR_BLOCK_M: int = 65_536
 # producer warp, 288 threads) against KV tiles of FLASH_BLOCK_K keys (32 at
 # head dim 256) in a ring of three stages, Q and K/V as 2-byte values: 65,
 # 129 and 161 KB of shared memory at head dims 64, 128 and 256 (one block
-# an SM at 128). f32 at Sq > 16 runs the CUDA-core kernel: 64 query rows,
-# FLASH_BLOCK_K keys, staged as f32 (118 KB at 128, 217 KB at 256). The
+# an SM at 128). f32 at Sq > 16 runs the CUDA-core kernel: FLASH_F32_ROWS
+# packed rows (GQA heads x positions; 64 at head dim 256) against KV tiles
+# of FLASH_F32_BLOCK_K keys (32 at 256) in a two-stage ring, staged as f32
+# (128, 224 and 200 KB at head dims 64, 128 and 256, one block an SM;
+# flash_attention.f32_tiles gives a launch's tiles). The
 # widest head dim built is 256 (64 and 128 are the others; narrower ones
 # are zero-padded to 64).
 FLASH_DECODE_MAX_SQ: int = 16
 FLASH_DECODE_TILE_BYTES: int = 32_768
 FLASH_BLOCK_Q: int = 128
 FLASH_BLOCK_K: int = 64
+FLASH_F32_ROWS: int = 128
+FLASH_F32_BLOCK_K: int = 64
 FLASH_HEAD_DIMS: tuple[int, ...] = (64, 128, 256)

@@ -23,8 +23,9 @@ int argument before the stream: :data:`HALF_KINDS`), the k-means++ D^2
 round (``fk_kmeanspp_round``), the
 int8 distance kernel on the s8 tensor cores (``fk_distance_argmin_int8``;
 ``fk_int8_resources``, its occupancy) and the DMR centroid
-update (``fk_centroid_update_dmr``, three launches: partials, slab
-reduction, verdict). ``fk_attention.cu`` holds
+update (``fk_centroid_update_dmr``: the rows bucketed by cluster, a
+gather of two replicas, the slab sums and the verdict; ``fk_dmr_workspace``,
+its scratch sizes). ``fk_attention.cu`` holds
 the LM stack's flash attention (``fk_flash_attention``, f32, bf16 or fp16:
 the prefill, decode and f32 kernels, and ``fk_flash_workspace``, the decode
 kernel's workspace sizes). ``fk_abft_gemm.cu`` holds the ABFT GEMM at
@@ -88,8 +89,13 @@ SIGNATURES: dict[str, tuple] = {
     "fk_lloyd_step_pruned": (_P,) * 11 + (_I,) * 6 + (_P,),
     "fk_distance_argmin_int8": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                 _P),
-    "fk_centroid_update_dmr": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                               _I, _I, _I, _I, _F, _P),
+    # x, assign, iwork, fwork, sums, counts, bad; m, f, k, slab_rows, the
+    # debug fault's slab, cluster, feature and delta; stream
+    "fk_centroid_update_dmr": (_P,) * 7 + (_I,) * 7 + (_F, _P),
+    # m, f, k, slab_rows and the address of 2 long longs it fills
+    "fk_dmr_workspace": (_I, _I, _I, _I, _P),
+    # the DMR gather kernel's resources: V (1 or 4), out (4 ints)
+    "fk_dmr_resources": (_I, _P),
     # a tile kernel's resources: bm, ft, upd, fp, kp, dtype code (-1 f32,
     # else HALF_KINDS'), out (4 ints); the int8 kernel's: bm, fp, out
     "fk_tile_resources": (_I, _I, _I, _I, _I, _I, _P),
@@ -121,6 +127,8 @@ ATTENTION_SIGNATURES: dict[str, tuple] = {
                            _L, _L, _L, _L, _L, _L, _L, _L, _L, _L, _L, _L,
                            _I, _I, _I, _I, _P, _P, _P),
     "fk_flash_workspace": (_I, _I, _I, _I, _I, _I, _I, _P),
+    # the f32 kernel's resources: hd, out (4 ints)
+    "fk_flash_f32_resources": (_I, _P),
 }
 # fk_abft_encode: x, y, ex, ey, esy (the split E_Y at 2 bytes, Y's bf16
 # planes at f32), ecol and erow (f32: the expected column and row

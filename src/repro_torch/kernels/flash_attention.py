@@ -30,14 +30,16 @@ and the bounds:
 * ``flash_prefill_kernel`` for bf16 / fp16 at Sq > 16, head dims 64, 128
   and 256: 128-row query tiles, two warpgroups on ``wgmma`` fed by a
   producer warp's TMA loads through an ``mbarrier`` ring.
-* ``flash_f32_kernel`` for f32 at Sq > 16 (CUDA cores).
+* ``flash_f32_kernel`` for f32 at Sq > 16: f32 FMAs on the CUDA cores, a
+  block packing the query heads of a GQA group (:func:`f32_tiles`) so one
+  K / V tile serves them all, K / V on a two-stage ``cp.async`` ring.
 
-The prefill and decode kernels skip KV tiles that no query of the tile
-sees and leave the mask out of tiles that every query sees whole, decided
-from the positions (:func:`live_tiles` states the rule);
-:func:`flash_split_plain` states the decode kernel's split-and-combine
-walk. Both are plain PyTorch for the tests: nothing on the card's path
-calls them.
+Every kernel skips KV tiles that no query of the tile sees and leaves the
+mask out of tiles that every query sees whole, decided from the positions
+(:func:`live_tiles` states the rule); :func:`flash_split_plain` states the
+decode kernel's split-and-combine walk and :func:`flash_f32_walk_plain`
+the f32 kernel's walk. They are plain PyTorch for the tests: nothing on
+the card's path calls them.
 
 Every kernel reads q, k, v and writes the output through their (batch,
 head, sequence) strides, so transposed views of (B, S, H, hd) tensors need
@@ -193,6 +195,90 @@ def flash_split_plain(q, k, v, q_positions, kv_positions, *,
     if zero_empty_rows:
         out = torch.where((big_m == NEG)[..., None], 0.0, out)
     return out.to(q.dtype)
+
+
+# GQA heads one f32 block packs, most (csrc/fk_attention.cu: kF32MaxHeads)
+F32_MAX_HEADS = 8
+
+
+def f32_tiles(hd: int, group: int) -> tuple[int, int, int]:
+    """The f32 kernel's tiles at a head dim of 64, 128 or 256 and a GQA
+    group: (heads a block packs, the largest power of two dividing the
+    group up to ``F32_MAX_HEADS``; query positions a block, its rows over
+    the heads; keys a KV tile)."""
+    rows, bk = hw.FLASH_F32_ROWS, hw.FLASH_F32_BLOCK_K
+    if hd > 128:
+        rows, bk = rows // 2, bk // 2
+    hb = 1
+    while hb < F32_MAX_HEADS and group % (2 * hb) == 0:
+        hb *= 2
+    return hb, rows // hb, bk
+
+
+def f32_resources(hd: int) -> dict:
+    """``flash_f32_kernel<hd>`` on the card: resident blocks an SM,
+    registers and local-memory (spill) bytes a thread, dynamic shared
+    bytes. Needs a CUDA card (the library's build)."""
+    out = (ctypes.c_int * 4)()
+    _build.check(_build.library("fk_attention").lib.fk_flash_f32_resources(
+        hd, out), "flash_f32 resources", "fk_attention")
+    return dict(zip(("blocks_per_sm", "registers", "local_bytes",
+                     "smem_bytes"), out))
+
+
+def flash_f32_walk_plain(q, k, v, q_positions, kv_positions, *,
+                         causal: bool = True, window: int = 0,
+                         zero_empty_rows: bool = False) -> torch.Tensor:
+    """The f32 kernel's walk in plain PyTorch (q (B, H, Sq, hd); k, v (B,
+    KV, Skv, hd); f32): blocks of :func:`f32_tiles` ``hb`` heads of one GQA
+    group x ``pb`` query positions, packed head-major into rows; per block
+    the KV tiles of ``bk`` keys in order, those :func:`live_tiles` calls
+    DEAD for the block's positions skipped, the mask applied in LIVE tiles
+    only; per tile s = q k^T, m_new = max(m, rowmax s), p = exp(s - m_new),
+    l = l exp(m - m_new) + sum p, acc = acc exp(m - m_new) + p v; a row
+    left with m = NEG is zero with ``zero_empty_rows``, else the mean of v
+    over all keys; out = acc / max(l, 1e-30)."""
+    b, h, sq, hd = q.shape
+    kvh, skv = k.shape[1], k.shape[2]
+    g = h // kvh
+    hdp = next(d for d in hw.FLASH_HEAD_DIMS if d >= hd)
+    hb, pb, bk = f32_tiles(hdp, g)
+    qf = q.float().view(b, kvh, g // hb, hb, sq, hd)
+    kf, vf = k.float(), v.float()
+    mask = position_mask(q_positions, kv_positions, causal,
+                         window).expand(sq, skv)
+    neg = torch.tensor(NEG, device=q.device)
+    out = torch.empty(b, kvh, g // hb, hb, sq, hd, device=q.device)
+    for q0 in range(0, sq, pb):
+        qs = slice(q0, min(q0 + pb, sq))
+        n = qs.stop - q0
+        cls = live_tiles(q_positions[qs], kv_positions, pb, bk, causal,
+                         window)[0]
+        rmask = mask[qs].repeat(hb, 1)          # packed rows: head-major
+        for run in range(g // hb):
+            x = qf[:, :, run, :, qs].reshape(b, kvh, hb * n, hd)
+            m = torch.full(x.shape[:3], NEG, device=q.device)
+            l = torch.zeros_like(m)
+            acc = torch.zeros_like(x)
+            for t in range(cls.shape[0]):
+                if cls[t] == DEAD:
+                    continue
+                ks = slice(t * bk, min((t + 1) * bk, skv))
+                s = torch.matmul(x, kf[:, :, ks].transpose(-1, -2))
+                if cls[t] == LIVE:
+                    s = torch.where(rmask[:, ks], s, neg)
+                m_new = torch.maximum(m, s.amax(-1))
+                p = torch.exp(s - m_new[..., None])
+                scale = torch.exp(m - m_new)
+                l = l * scale + p.sum(-1)
+                acc = acc * scale[..., None] + torch.matmul(p, vf[:, :, ks])
+                m = m_new
+            empty = (m == NEG)[..., None]
+            o = acc / l.clamp(min=1e-30)[..., None]
+            o = torch.where(empty, 0.0 if zero_empty_rows
+                            else vf.mean(2, keepdim=True), o)
+            out[:, :, run, :, qs] = o.view(b, kvh, hb, n, hd)
+    return out.view(b, h, sq, hd).to(q.dtype)
 
 
 def _check_shapes(q, k, v, q_positions, kv_positions, window):
