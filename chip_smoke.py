@@ -191,6 +191,30 @@ Phases, one line each:
      entries replace; the pruned step's at the sorted fit's third step's
      mask with its peak memory past X and the no-skip step beside
      ``lloyd_step``.
+ 15. (a) ``KMeans(batch_size=131_072)`` fits at the phase-3 shape from
+     phase 3's seeds (``fused``, ``lloyd``, ``lloyd_ft`` clean and under a
+     campaign, int8, ``detect``, bf16 ``lloyd``): each step's centroids bit
+     for bit a hand-driven loop of the same backend wrapper over numpy's
+     batches, clean detections 0, the campaign's > 0 with the clean fit's
+     centroids, ``labels_`` = ``predict(X)``, ms/iter; (b) the autotune
+     table: ``measure_score`` of every candidate tile of the assign, lloyd,
+     lloyd_ft, serve and init kinds at f32 and bf16 at the phase-3 shape
+     and at the serve buckets, the measured and model winners (built
+     tiles), the measured table saved and read back, the model keeping
+     (128, 128, 32) at phases 3 / 7 / 13's shapes, the shared-memory model
+     against the kernels' own bytes, and one graph replay's latency (the
+     serve model's per-launch constant); (c) ``KMeans.to_service()`` of the
+     fused, lloyd_ft and a bf16 model at ``DEFAULT_BUCKETS`` and at
+     ``plan_ladder``'s ladder, one CUDA graph a bucket: requests of 0, 1,
+     127, 128, 129, 2048 and 5000 rows bit for bit ``predict`` with no
+     eager launch, a stream of 1000 requests with three publishes (one
+     mid-flight from the ``on_dispatch`` hook) and a refine, each answer
+     bit for bit the predict of its codebook version, captures unchanged,
+     the state's round trip; each bucket's replay beside eager predict,
+     requests/s of the started micro-batcher beside one predict a
+     request, and the card's idle share over the stream. Phase 15's
+     launches (graph replays times each cell's kernels) are added to the
+     rows of the kernels line.
 
 A kernel's bound counts the work of the function at the true M, K and F,
 not at the padded tile grid; the padded figures are printed beside it.
@@ -288,6 +312,15 @@ ABFT_FIX_RTOL = 2.0 ** -16
 # 64-deep stage), an odd number of D bands a warp (24 rows: one in warp 1)
 # over ~15 jobs a block on the two-band staging (Kp 64), several sub-tiles
 # a tile with a 512-deep k-step (256 x 256), the largest tile
+# phase 15: mini-batch fits of 131,072 rows a step (~131 a centroid at K =
+# 1000, inside FAISS's 39 K - 256 K training rows), 10 steps; serving at
+# the port's DEFAULT_BUCKETS, requests of no row, one, a bucket less, at and
+# past one, and past the top one; a stream of 1000 requests of
+# log-uniform size 1-8192 from seed 0, eight submitting threads
+MB_BATCH, MB_ITERS = 131_072, 10
+SERVE_BUCKETS = (128, 512, 2048)
+SERVE_SIZES = (0, 1, 127, 128, 129, 2048, 5000)
+STREAM_REQUESTS, STREAM_MAX_ROWS, STREAM_THREADS = 1000, 8192, 8
 ABFT_TILE_CASES = (((8, 128, 32), (1000, 96, 300)),
                    ((40, 128, 32), (1000, 160, 500)),
                    ((24, 128, 32), (3000, 64, 4000)),
@@ -4111,6 +4144,547 @@ def phase_lowp_rest(torch, ops, hw, ll, llp, mma, fa, attn, KMeans,
     return rec, rows
 
 
+# --- phase 15: mini-batch fits, the Hopper autotune table, k-means serving --
+
+def counts_of(wrappers: dict) -> dict:
+    return {name: w.launches for name, w in wrappers.items()}
+
+
+def add_counts(total: dict, tag: str, counts: dict, scale: int = 1) -> None:
+    """Add launch counts to ``total`` under the kernels line's row names
+    (a 2-byte path's rows end in ``_bf16``; the tree and the FT update's
+    verification, f32 kernels at every X dtype, keep theirs)."""
+    for name, n in counts.items():
+        key = f"{name}_{tag}" if tag and name not in (
+            "tree_reduce", "verify_entries") else name
+        total[key] = total.get(key, 0) + scale * n
+
+
+def hand_minibatch(torch, np, ops, km_mod, fault_mod, km, x, c0) -> list:
+    """``km``'s mini-batch fit driven by hand: each step draws numpy's
+    batch (``default_rng(random_state + 1).choice(M, B, replace=False)``),
+    plans it at the table's tiles for the batch (quantised for int8), runs
+    the fit's backend wrapper with a disarmed descriptor and updates.
+    Returns each step's centroids."""
+    rng = np.random.default_rng(km.random_state + 1)
+    backend = km._backend
+    m, f = x.shape
+    kind = backend.kernel_kind if backend.takes_params else "assign"
+    p = ops.clamp_params(MB_BATCH, K_FULL, F_FULL, km.autotune.lookup(
+        MB_BATCH, K_FULL, F_FULL, kind=kind, dtype=km.compute_dtype)[1])
+    int8 = km.compute_dtype == torch.int8
+    cast = torch.float32 if int8 else km.compute_dtype
+    c, steps = c0, []
+    for _ in range(km.n_iter_):
+        idx = rng.choice(m, MB_BATCH, replace=False)
+        batch = x[torch.from_numpy(idx).to(x.device)]
+        plan = ops.plan_data_int8(batch, p) if int8 \
+            else ops.plan_data(batch.to(cast), p)
+        kw = {"params": p} if backend.takes_params else {}
+        if backend.takes_injection:
+            kw["inj"] = fault_mod.no_step_injection(
+                backend.kernel_kind).to(x.device)
+        out = backend(plan, c.to(cast), **kw)
+        if backend.fuses_update:
+            c = km_mod.means_from_sums(out[3], out[4], c)
+        else:
+            c = km_mod.centroid_update(plan, out[0], K_FULL, c,
+                                       use_dmr=km._use_dmr)[0]
+        steps.append(c)
+    return steps
+
+
+def phase_minibatch(torch, np, ops, KMeans, FaultPolicy, InjectionCampaign,
+                    x, c_init, wrappers) -> tuple[dict, dict]:
+    """Phase 15 (a): ``KMeans(batch_size=MB_BATCH)`` fits on phase 3's data
+    from phase 3's seeds, ``MB_ITERS`` steps at tol = 0: ``fused``,
+    ``lloyd``, ``lloyd_ft`` clean and under a campaign, int8, ``detect``
+    and bf16 ``lloyd``. Each step's centroids bit for bit a hand-driven
+    loop of the same wrapper over numpy's batches (so the fit drew numpy's
+    indices), clean ``lloyd_ft`` detects 0, the campaign > 0 with the clean
+    fit's centroids, ``labels_`` = ``predict(X)``. ms/iter (the final
+    predict over X included) is a reading. Returns the record and the fits'
+    launches by row name."""
+    from repro_torch.core import fault as fault_mod
+    from repro_torch.core import kmeans as km_mod
+    camp = FaultPolicy.correct(injection=InjectionCampaign(rate=1.0,
+                                                           targets="both"))
+    cases = {"fused": dict(), "lloyd": dict(backend="lloyd"),
+             "lloyd_ft": dict(fault=FaultPolicy.correct()),
+             "campaign": dict(fault=camp), "int8": dict(compute_dtype="int8"),
+             "detect": dict(fault=FaultPolicy.detect()),
+             "lloyd_bf16": dict(backend="lloyd", compute_dtype="bfloat16")}
+    base = dict(n_clusters=K_FULL, max_iter=MB_ITERS, tol=0.0,
+                batch_size=MB_BATCH, random_state=SEED)
+    rec = {"phase": 15, "part": "a: mini-batch fits", "m": M_FULL,
+           "f": F_FULL, "k": K_FULL, "batch": MB_BATCH, "iters": MB_ITERS}
+    launches: dict = {}
+    fits = {}
+    for name, kw in cases.items():
+        for w in wrappers.values():
+            w.launches = 0
+        steps = []
+        km, fit_s = wall(lambda: KMeans(**base, **kw).fit(
+            x, centroids=c_init,
+            on_iteration=lambda it, c, *_: steps.append(c.clone())))
+        add_counts(launches, "bf16" if name.endswith("bf16") else "",
+                   counts_of(wrappers))
+        # host-clock readings swing between runs: three more fits, median
+        again = sorted(wall(lambda: KMeans(**base, **kw).fit(
+            x, centroids=c_init))[1] for _ in range(3))
+        r = {"ms_per_iter": 1e3 * again[1] / km.n_iter_,
+             "ms_per_iter_runs": [1e3 * t / km.n_iter_
+                                  for t in (fit_s, *again)],
+             "n_iter": km.n_iter_, "inertia": km.inertia_,
+             "detected": km.detected_errors_,
+             "host_syncs": km._n_host_syncs}
+        if name != "campaign":
+            hand = hand_minibatch(torch, np, ops, km_mod, fault_mod, km, x,
+                                  c_init)
+            r["steps_bitwise_hand_loop"] = len(hand) == len(steps) == \
+                MB_ITERS and all(bool(torch.equal(a, b))
+                                 for a, b in zip(steps, hand))
+            expect(r["steps_bitwise_hand_loop"],
+                   f"mini-batch {name}: a step's centroids are not bit for "
+                   f"bit the hand-driven loop over numpy's batches")
+            del hand
+        r["labels_equal_predict"] = bool(torch.equal(km.labels_,
+                                                      km.predict(x)))
+        expect(r["labels_equal_predict"],
+               f"mini-batch {name}: labels_ differ from predict(X)")
+        expect(bool(torch.isfinite(km.cluster_centers_).all()),
+               f"mini-batch {name}: centroids not finite")
+        rec[name] = r
+        fits[name] = km
+        del steps
+        torch.cuda.empty_cache()
+    # where a step's time goes: numpy's draw on the host, and a trace of
+    # the lloyd and int8 fits (kernels, device-busy share)
+    draw_rng = np.random.default_rng(SEED + 1)
+    draws = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        draw_rng.choice(M_FULL, MB_BATCH, replace=False)
+        draws.append(1e3 * (time.perf_counter() - t0))
+    rec["numpy_draw_ms"] = sorted(draws)[2]
+    for name in ("lloyd", "int8"):
+        rec[f"trace_{name}"] = device_trace(torch, lambda: KMeans(
+            **base, **cases[name]).fit(x, centroids=c_init))
+    expect(fits["lloyd_ft"].detected_errors_ == 0,
+           f"clean mini-batch lloyd_ft detected "
+           f"{fits['lloyd_ft'].detected_errors_}")
+    expect(fits["campaign"].detected_errors_ > 0,
+           "the mini-batch campaign detected nothing")
+    rec["campaign_bitwise_clean"] = bool(torch.equal(
+        fits["campaign"].cluster_centers_, fits["lloyd_ft"].cluster_centers_))
+    expect(rec["campaign_bitwise_clean"], "mini-batch campaign centroids are "
+           "not bit for bit the clean lloyd_ft fit's")
+    rec["lloyd_bitwise_fused"] = bool(torch.equal(
+        fits["lloyd"].cluster_centers_, fits["fused"].cluster_centers_))
+    expect(rec["lloyd_bitwise_fused"], "mini-batch lloyd centroids are not "
+           "bit for bit the fused fit's")
+    return rec, launches
+
+
+def graph_replay_us(torch, n: int = 200) -> float:
+    """Median host time of one replay of a one-kernel CUDA graph and a
+    synchronise: the serve model's per-launch constant."""
+    buf = torch.zeros(1, device=DEV)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        buf.add_(1.0)
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        buf.add_(1.0)
+    times = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        graph.replay()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    times.sort()
+    return 1e6 * times[n // 2]
+
+
+def phase_autotune(torch, ops, hw, da, dai) -> dict:
+    """Phase 15 (b): ``measure_score`` of every candidate of the assign,
+    lloyd, lloyd_ft, serve and init kinds at f32 and bf16, at the full shape
+    and at the serve buckets, beside the model's winner (both must be built
+    tiles); the measured table written to a temporary file and read back;
+    the model's lookup at phases 3 / 7 / 13's shapes = today's tiles; the
+    shared-memory model against the kernels' own bytes; the serve model's
+    per-launch constant measured."""
+    import tempfile
+    from repro_torch.api import AutotuneCache
+    from repro_torch.core import autotune as at
+    today = ops.DEFAULT_PARAMS
+    rec = {"phase": 15, "part": "b: autotune"}
+    shapes = [(M_FULL, K_FULL, F_FULL)] + [(b, K_FULL, F_FULL)
+                                           for b in SERVE_BUCKETS]
+    table, agree, total = {}, 0, 0
+    with tempfile.TemporaryDirectory() as tmp:
+        path = str(Path(tmp) / "autotune_table.json")
+        measured = AutotuneCache(path)
+        for dtype in ("float32", "bfloat16"):
+            for kind in ("assign", "lloyd", "lloyd_ft", "serve", "init"):
+                for m, k, f in shapes:
+                    ms = {}
+                    for p in at.parameter_space(dtype, kind):
+                        if at.feasible(p, dtype, kind=kind, shape=(m, k, f)):
+                            ms[p] = 1e3 * at.measure_score(
+                                m, k, f, p, dtype=dtype, kind=kind)
+                    won = min(ms, key=ms.get)
+                    variant, model = at.select_params(m, k, f, kind=kind,
+                                                      dtype=dtype)
+                    for p in (won, model):
+                        if kind == "init":
+                            expect(p.block_m == hw.INIT_BLOCK_N,
+                                   f"init winner {p} is not the built row "
+                                   f"tile")
+                        else:
+                            ops.check_cuda_params(ops.clamp_params(m, k, f,
+                                                                   p))
+                    measured.put(m, k, f, won, kind=kind, dtype=dtype,
+                                 variant=variant)
+                    same = ops.clamp_params(m, k, f, won) == \
+                        ops.clamp_params(m, k, f, model)
+                    agree += same
+                    total += 1
+                    table[f"{kind}/{dtype}/{m}"] = {
+                        "ms": {f"bm{p.block_m}": v for p, v in ms.items()},
+                        "measured": ops.clamp_params(m, k, f, won).block_m,
+                        "model": ops.clamp_params(m, k, f, model).block_m,
+                        "model_ms": 1e3 * at.model_score(
+                            m, k, f, model, dtype=dtype, kind=kind),
+                        "agree": same}
+                    torch.cuda.empty_cache()
+        measured.save()
+        loaded = AutotuneCache(path)
+        for key, r in table.items():
+            kind, dtype, m = key.split("/")
+            got = loaded.lookup(int(m), K_FULL, F_FULL, kind=kind,
+                                dtype=dtype)[1]
+            expect(ops.clamp_params(int(m), K_FULL, F_FULL, got).block_m
+                   == r["measured"], f"the saved table lost {key}")
+    rec["candidates"] = table
+    rec["model_agrees"] = f"{agree} of {total}"
+    # the invariant: at phases 3 / 7 / 13's shapes the model keeps today's
+    # tiles, so those phases launch what the parent launched
+    cache = AutotuneCache()
+    checks = [(kind, dt, M_FULL, K_FULL, F_FULL, 1)
+              for dt in ("float32", "bfloat16", "float16")
+              for kind in ("assign", "lloyd", "lloyd_ft", "pruned")]
+    checks += [("batched", dt, N_PQ, K_PQ, F_PQ, B_PQ)
+               for dt in ("float32", "bfloat16", "float16")]
+    checks += [("lloyd", "float32", N_PQ, K_PQ, F_PQ, 1),
+               ("int8", "int8", M_FULL, K_FULL, F_FULL, 1)]
+    for kind, dt, m, k, f, b in checks:
+        got = cache.lookup(m, k, f, kind=kind, dtype=dt, batch=b)[1]
+        expect(ops.clamp_params(m, k, f, got) == ops.clamp_params(
+            m, k, f, today), f"the model moved {kind}/{dt} at {(m, k, f)} "
+            f"to {got}")
+    rec["invariant_shapes"] = len(checks)
+    # the shared-memory model against the kernels' own bytes at Fp 128
+    smem = {}
+    for bm in hw.SUPPORTED_BLOCK_M:
+        for dt, code in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+            for kind, ft, upd in (("assign", False, 0), ("lloyd_ft", True, 2),
+                                  ("pruned", False, 4)):
+                got = da.tile_resources(bm, ft, upd, 128, kp=1024,
+                                        dtype=dt)["smem_bytes"]
+                want = at.tile_smem_bytes(bm, 128, kind=kind, kp=1024,
+                                          dtype=dt)
+                smem[f"{kind}_{code}_bm{bm}"] = got
+                expect(got == want, f"tile_smem_bytes {kind} {code} bm {bm}:"
+                       f" model {want}, kernel {got}")
+        got = dai.resources(bm, 128)["smem_bytes"]
+        smem[f"int8_bm{bm}"] = got
+        expect(got == at.tile_smem_bytes(bm, 128, kind="int8"),
+               f"tile_smem_bytes int8 bm {bm}: kernel {got}")
+    rec["smem_bytes_fp128"] = smem
+    rec["serve_launch_us"] = graph_replay_us(torch)
+    rec["hw_serve_launch_us"] = 1e6 * hw.SERVE_LAUNCH_S
+    return rec
+
+
+def stream_sizes(np) -> np.ndarray:
+    """The request stream: log-uniform row counts 1-STREAM_MAX_ROWS from
+    seed 0."""
+    rng = np.random.default_rng(0)
+    return np.floor(np.exp(rng.uniform(0.0, np.log(STREAM_MAX_ROWS + 1),
+                                       STREAM_REQUESTS))).astype(np.int64)
+
+
+def same_bits(torch, r, want) -> bool:
+    """A ServeResult's labels and distances bit for bit ``want`` (assign,
+    sq-dist) on the device."""
+    am, md = want[0].cpu(), want[1].cpu()
+    return bool(torch.equal(torch.from_numpy(r.labels), am)) and bool(
+        torch.equal(torch.from_numpy(r.sq_dists).view(torch.int32),
+                    md.view(torch.int32)))
+
+
+def phase_serving(torch, np, ops, KMeans, x, c_init, km_off, km_ft,
+                  wrappers) -> tuple[dict, dict]:
+    """Phase 15 (c): ``to_service()`` of phase 3's fused model, phase 4's
+    lloyd_ft model and a bf16 fused model, at ``SERVE_BUCKETS`` and at
+    ``plan_ladder``'s ladder: one CUDA graph a bucket (captures = buckets),
+    ``ops.row_norms`` independent of the row count, requests of
+    ``SERVE_SIZES`` rows bitwise ``predict`` (labels and
+    distances; det 0), no eager launch while serving (the wrappers'
+    counters do not move); then a stream of ``STREAM_REQUESTS`` requests
+    with three publishes (one from the ``on_dispatch`` hook mid-flight, whose
+    batch keeps its version) and a refine, each answer bitwise the predict
+    of its version's codebook, captures unchanged, and ``from_state(
+    get_state())`` serving the same; readings: each bucket's replay and
+    dispatch beside eager predict, requests/s of the started micro-batcher
+    beside one predict a request, and the card's idle share over the
+    stream. Launches: the cells' construction (warm-up + capture) counted by
+    the wrappers plus each kernel's calls a cell times its replays."""
+    from repro_torch.serve import DEFAULT_BUCKETS, KMeansService, plan_ladder
+    expect(SERVE_BUCKETS == DEFAULT_BUCKETS, f"SERVE_BUCKETS {SERVE_BUCKETS}"
+           f" are not the serving layer's DEFAULT_BUCKETS {DEFAULT_BUCKETS}")
+    x_host = x.cpu().numpy()
+    rng = np.random.default_rng(SEED)
+    rec = {"phase": 15, "part": "c: serving",
+           "row_norms": row_norm_invariance(torch, ops)}
+    launches: dict = {}
+    km_bf16 = KMeans(K_FULL, compute_dtype="bfloat16", max_iter=2, tol=0.0,
+                     random_state=SEED).fit(x, centroids=c_init)
+    models = {"fused": (km_off, ""), "lloyd_ft": (km_ft, ""),
+              "fused_bf16": (km_bf16, "bf16")}
+    requests = {m: x_host[rng.choice(M_FULL, m, replace=False)]
+                for m in SERVE_SIZES}
+    for name, (km, tag) in models.items():
+        plan = plan_ladder(K_FULL, F_FULL, dtype=km.compute_dtype)
+        r = {"predict_backend": km._predict_backend().name,
+             "planned_buckets": list(plan.buckets),
+             "planned_window_us": plan.window_us}
+        for ladder_name, buckets in (("default", SERVE_BUCKETS),
+                                     ("planned", plan.buckets)):
+            for w in wrappers.values():
+                w.launches = 0
+            svc, build_s = wall(lambda: km.to_service(buckets=buckets))
+            built = counts_of(wrappers)
+            comp = svc.compiler
+            expect(comp.captures == len(buckets),
+                   f"{name}: {comp.captures} captures for {len(buckets)} "
+                   f"buckets")
+            per_call = {}
+            for key, n in built.items():
+                expect(n % (2 * len(buckets)) == 0,
+                       f"{name}: {key} launched {n} times building "
+                       f"{len(buckets)} cells")
+                per_call[key] = n // (2 * len(buckets))
+            bitwise = True
+            for m, q in requests.items():
+                before = counts_of(wrappers)
+                got = svc.predict(q)
+                expect(counts_of(wrappers) == before,
+                       f"{name}: serving {m} rows launched a kernel "
+                       f"eagerly")
+                want = km._predict_full(torch.as_tensor(q, device=DEV))
+                ok = same_bits(torch, got, want)
+                expect(ok, f"{name} ({ladder_name} buckets): {m} rows "
+                       f"not bit for bit predict")
+                expect(int(got.detected) == 0 and got.version == 1,
+                       f"{name}: {m} rows detected {got.detected}, version "
+                       f"{got.version}")
+                bitwise &= ok
+            replays = dict(comp.replays)
+            add_counts(launches, tag, built)
+            add_counts(launches, tag, per_call, sum(replays.values()))
+            r[ladder_name] = {"buckets": list(buckets),
+                              "build_s": build_s,
+                              "captures": comp.captures,
+                              "replays": replays,
+                              "kernels_a_replay": {k: v for k, v
+                                                   in per_call.items() if v},
+                              "bitwise_predict": bitwise}
+            if ladder_name == "default":
+                r["buckets_ms"] = bucket_times(torch, km, svc, x_host)
+            del svc, comp
+            torch.cuda.empty_cache()
+        rec[name] = r
+    rec["stream"], stream_counts = serve_stream(
+        torch, np, KMeans, KMeansService, km_off, x_host, wrappers)
+    add_counts(launches, "", stream_counts)
+    return rec, launches
+
+
+def row_norm_invariance(torch, ops) -> dict:
+    """``ops.row_norms`` of a request's rows bit for bit those rows' norms
+    in a larger X (the bucket a request is served in), at F 100, 128 and
+    300 and 1-511 rows; beside it, how many row counts a plain
+    ``(x ** 2).sum(1)`` of the prefix moves (the control)."""
+    gen = torch.Generator(device=DEV).manual_seed(SEED)
+    out = {}
+    for f in (100, F_FULL, 300):
+        xr = torch.randn(4096, f, generator=gen, device=DEV)
+        full = ops.row_norms(xr)
+        ms = (1, 2, 3, 7, 8, 15, 16, 17, 100, 127, 511)
+        moved = [m for m in ms if not torch.equal(ops.row_norms(xr[:m]),
+                                                  full[:m])]
+        expect(not moved, f"ops.row_norms at F {f} moves with the row "
+               f"count: {moved}")
+        plain = (xr ** 2).sum(1)
+        out[f"f{f}_plain_sum_moves_at"] = [
+            m for m in ms if not torch.equal((xr[:m] ** 2).sum(1), plain[:m])]
+    return out
+
+
+def bucket_times(torch, km, svc, x_host) -> dict:
+    """Each bucket's graph replay (device ms, CUDA events), its dispatch of
+    a bucket-sized request (host ms, answer on the host) and eager
+    ``predict`` of the same rows (host ms, answer on the host)."""
+    out = {}
+    for b, cell in svc.compiler._cells.items():
+        q = x_host[:b]
+
+        def dispatch():
+            return [t.cpu() for t in svc.compiler.dispatch(
+                q, km.cluster_centers_)]
+
+        def eager():
+            return [t.cpu() for t in km._predict_full(
+                torch.as_tensor(q, device=DEV))]
+        host = {}
+        for what, fn in (("dispatch", dispatch), ("predict", eager)):
+            fn()
+            ts = []
+            for _ in range(21):
+                _, s = wall(fn)
+                ts.append(1e3 * s)
+            host[what] = sorted(ts)[10]
+        out[str(b)] = {"replay_ms": cuda_ms(cell.graph.replay, reps=20),
+                       "dispatch_host_ms": host["dispatch"],
+                       "predict_host_ms": host["predict"]}
+    return out
+
+
+def serve_stream(torch, np, KMeans, KMeansService, km_off, x_host,
+                 wrappers) -> tuple[dict, dict]:
+    """The request stream through a fused f32 service at SERVE_BUCKETS:
+    (1) one request at a time, publishes at requests 250 and 750, a publish
+    from the ``on_dispatch`` hook while request 400's batch is in flight
+    (that batch keeps its version, the next serves the new one), a refine
+    at 500; every answer bit for bit the predict of its version's
+    codebook; captures unchanged; the state's round trip serving the same;
+    (2) readings: requests/s one at a time, with the window loop started
+    (the planned window, and none) and STREAM_THREADS submitting threads,
+    and one eager predict a request;
+    the card's idle share over the first 200 requests of each. Returns the
+    record and the launches of (1): the cells' construction, their
+    replays and the refine's step."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from repro_torch.serve import plan_ladder
+    window_s = 1e-6 * plan_ladder(K_FULL, F_FULL).window_us
+    sizes = stream_sizes(np)
+    offs = np.random.default_rng(1).integers(0, M_FULL - STREAM_MAX_ROWS,
+                                             STREAM_REQUESTS)
+    reqs = [x_host[o:o + s] for o, s in zip(offs, sizes)]
+    km = KMeans.from_state(km_off.get_state())        # refine moves it
+    chk = KMeans.from_state(km_off.get_state())
+    armed = {"on": False, "pinned": None}
+    svc = None
+
+    def hook(cb):
+        if armed["on"]:
+            armed["on"] = False
+            armed["pinned"] = cb.version
+            svc.publish(cb.centroids * 1.0001)
+    for w in wrappers.values():
+        w.launches = 0
+    svc = KMeansService.from_estimator(km, buckets=SERVE_BUCKETS,
+                                       on_dispatch=hook)
+    counts = counts_of(wrappers)
+    per_call = {k: n // (2 * len(SERVE_BUCKETS)) for k, n in counts.items()}
+    rec = {"requests": STREAM_REQUESTS, "rows": int(sizes.sum()),
+           "sizes_min_median_max": [int(sizes.min()), int(np.median(sizes)),
+                                    int(sizes.max())]}
+    versions, bitwise = [], True
+    for i, q in enumerate(reqs):
+        if i in (250, 750):
+            svc.publish(svc.store.current().centroids * 0.9999)
+        elif i == 500:
+            before = counts_of(wrappers)
+            svc.refine(x_host[:65_536])
+            add_counts(counts, "", {k: n - before[k] for k, n
+                                    in counts_of(wrappers).items()})
+        armed["on"] = i == 400
+        before = counts_of(wrappers)
+        got = svc.predict(q)
+        expect(counts_of(wrappers) == before,
+               f"stream request {i} launched a kernel eagerly")
+        versions.append(got.version)
+        chk.cluster_centers_ = svc.store.get(got.version).centroids
+        ok = same_bits(torch, got, chk._predict_full(
+            torch.as_tensor(q, device=DEV)))
+        bitwise &= ok
+        expect(ok, f"stream request {i} ({len(q)} rows, version "
+               f"{got.version}) not bit for bit predict on that codebook")
+    replays = sum(svc.compiler.replays.values())
+    add_counts(counts, "", per_call, replays)
+    expect(armed["pinned"] == versions[400] and versions[401] ==
+           versions[400] + 1, f"the batch hot-swapped mid-flight did not "
+           f"keep its version: pinned {armed['pinned']}, served "
+           f"{versions[400]}, next {versions[401]}")
+    expect(versions == sorted(versions) and versions[-1] == 5,
+           f"stream versions {sorted(set(versions))}")
+    expect(svc.compiler.captures == len(SERVE_BUCKETS),
+           f"captures moved to {svc.compiler.captures} over the stream")
+    rec.update({"bitwise_predict_of_version": bitwise,
+                "versions": sorted(set(versions)),
+                "hot_swap_pinned": armed["pinned"],
+                "captures": svc.compiler.captures,
+                "replays": dict(svc.compiler.replays)})
+    again = KMeansService.from_state(svc.get_state())
+    rt = True
+    for q in reqs[:50]:
+        a, b = again.predict(q), svc.predict(q)
+        rt &= bool(np.array_equal(a.labels, b.labels)) and bool(
+            np.array_equal(a.sq_dists.view(np.int32),
+                           b.sq_dists.view(np.int32))) \
+            and a.version == b.version
+    expect(rt, "from_state(get_state()) does not serve bit for bit")
+    rec["state_round_trip_bitwise"] = rt
+    rec["state_round_trip_captures"] = again.compiler.captures
+    del again
+    # readings
+    _, one_s = wall(lambda: [svc.predict(q) for q in reqs])
+
+    def eager_all():
+        for q in reqs:
+            am, md, _ = km._predict_full(torch.as_tensor(q, device=DEV))
+            am.cpu(), md.cpu()
+    _, eager_s = wall(eager_all)
+    pool_s = {}
+    for window in (window_s, 0.0):
+        svc.batcher.window_s = window
+        svc.start()
+        with ThreadPoolExecutor(STREAM_THREADS) as pool:
+            _, pool_s[window] = wall(lambda: list(pool.map(svc.predict,
+                                                           reqs)))
+        svc.stop()
+    rec["requests_per_s"] = {
+        "service_one_at_a_time": STREAM_REQUESTS / one_s,
+        "service_started_threads": STREAM_REQUESTS / pool_s[window_s],
+        "service_started_threads_no_window": STREAM_REQUESTS / pool_s[0.0],
+        "eager_predict_each": STREAM_REQUESTS / eager_s,
+        "threads": STREAM_THREADS, "window_us": 1e6 * window_s}
+    rec["trace_service"] = device_trace(
+        torch, lambda: [svc.predict(q) for q in reqs[:200]])
+    rec["trace_eager_predict"] = device_trace(
+        torch, lambda: [[t.cpu() for t in km._predict_full(
+            torch.as_tensor(q, device=DEV))[:2]] for q in reqs[:200]])
+    return rec, counts
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4540,6 +5114,30 @@ def main() -> int:
         FaultPolicy, x, labels_true, c_init, bound)
     emit(rec14)
     rows.extend(rows14)
+
+    # --- phase 15: mini-batch fits, autotune, k-means serving ---------------
+    wrappers15 = dict(wrappers, distance_argmin_int8=dai.distance_argmin_int8,
+                      encode_centroids=daft.encode_centroids)
+    rec15a, launches15 = phase_minibatch(torch, np, ops, KMeans, FaultPolicy,
+                                         InjectionCampaign, x, c_init,
+                                         wrappers15)
+    emit(rec15a)
+    emit(phase_autotune(torch, ops, hw, da, dai))
+    rec15c, launches_c = phase_serving(torch, np, ops, KMeans, x, c_init,
+                                       km_off, km_ft, wrappers15)
+    emit(rec15c)
+    add_counts(launches15, "", launches_c)
+    for name in ("distance_argmin", "distance_argmin_bf16",
+                 "distance_argmin_ft", "lloyd_step", "lloyd_step_ft",
+                 "lloyd_step_bf16", "distance_argmin_int8", "prep_centroids"):
+        expect(launches15.get(name, 0) > 0,
+               f"{name} was not launched on phase 15's paths")
+    by_name = {r["name"]: r for r in rows}
+    added = {name: n for name, n in launches15.items() if name in by_name}
+    for name, n in added.items():
+        by_name[name]["launches"] += n
+    emit({"phase": 15, "part": "launches added to the kernels line",
+          "launches": added})
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi_line, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -6,7 +6,9 @@
     km2 = KMeans.from_state(km.get_state())
 
 Protection is a :class:`~repro_torch.api.policy.FaultPolicy`, resolved to a
-registered assignment backend. The full-batch fit builds its
+registered assignment backend; tiles come from an injectable
+:class:`~repro_torch.api.cache.AutotuneCache` (``autotune=``), keyed by the
+backend's kernel kind and the compute dtype. The full-batch fit builds its
 :class:`~repro_torch.kernels.ops.DataPlan` (a
 :class:`~repro_torch.kernels.ops.QuantPlan` for ``compute_dtype="int8"``)
 once, from X cast to the compute dtype (bf16 and fp16 plans hold 2-byte X;
@@ -17,7 +19,9 @@ reads progress once per ``sync_every`` iterations, through
 :func:`_host_read`. A pruned backend (``supports_bounds``) carries its
 :class:`~repro_torch.kernels.ops.BoundsState` from step to step on the
 device, from a fresh state at every fit; its per-step prune fractions cross
-to the host in the same reads.
+to the host in the same reads. A mini-batch fit (``batch_size=``) draws
+the reference's batches from numpy and reads the host once an iteration;
+``to_service()`` hands a fitted model to ``repro_torch.serve``.
 """
 from __future__ import annotations
 
@@ -28,6 +32,7 @@ from typing import Any, Callable, Optional
 import numpy as np
 import torch
 
+from repro_torch.api.cache import AutotuneCache, default_cache
 from repro_torch.api.policy import FaultPolicy, InjectionCampaign
 from repro_torch.api.registry import AssignmentBackend, get_backend
 from repro_torch.core import fault as fault_mod
@@ -89,10 +94,12 @@ class KMeans:
     compute dtype, as the reference's. int8 picks the quantised ``int8``
     backend (an unprotected, assignment-only kernel) and keeps X and the
     centroids f32 at the kernel boundary, since int8 is quantisation per
-    row, not a cast. ``batch_size`` belongs to a later slice and raises
-    ``NotImplementedError``. ``init`` is "kmeans++" or "random", as in the
-    reference; the fused seeding belongs to
-    :class:`~repro_torch.batch.BatchedKMeans`.
+    row, not a cast. ``batch_size`` makes ``fit`` run sampled mini-batches
+    of that many rows an iteration (``partial_fit`` streams the caller's
+    blocks either way). ``autotune`` is the tile table (default: the
+    process cache, ``default_cache()``); an explicit ``params`` wins over
+    it. ``init`` is "kmeans++" or "random", as in the reference; the fused
+    seeding belongs to :class:`~repro_torch.batch.BatchedKMeans`.
 
     Attributes: ``cluster_centers_`` (K, F) f32 and ``labels_`` (M,) int32
     tensors on ``device``; ``inertia_``, ``n_iter_``, ``detected_errors_``
@@ -107,6 +114,7 @@ class KMeans:
                  backend: Optional[str] = None,
                  batch_size: Optional[int] = None,
                  params: Optional[ops.KernelParams] = None,
+                 autotune: Optional[AutotuneCache] = None,
                  sync_every: int = 10, compute_dtype: Any = "float32",
                  predict_chunk_rows: Optional[int] = None,
                  random_state: int = 0, device: Any = "cuda") -> None:
@@ -120,10 +128,8 @@ class KMeans:
         if dtype not in _COMPUTE_DTYPES:
             raise ValueError(f"compute_dtype must be one of {_COMPUTE_DTYPES}"
                              f", got {compute_dtype!r}")
-        if batch_size is not None:
-            raise NotImplementedError(
-                "mini-batch fits (batch_size=) are not ported yet; they come "
-                "with a later slice")
+        if batch_size is not None and batch_size < 1:
+            raise ValueError(f"batch_size must be >= 1, got {batch_size}")
         if predict_chunk_rows is not None and predict_chunk_rows < 1:
             raise ValueError(f"predict_chunk_rows must be >= 1, "
                              f"got {predict_chunk_rows}")
@@ -135,6 +141,7 @@ class KMeans:
         self.backend = backend
         self.batch_size = batch_size
         self.params = params
+        self.autotune = autotune if autotune is not None else default_cache()
         self.sync_every = sync_every
         self.compute_dtype = getattr(torch, dtype)
         self.predict_chunk_rows = predict_chunk_rows
@@ -196,9 +203,8 @@ class KMeans:
         recomputes only on a mismatch."""
         x = self._cast(x)
         if params is None:
-            p = self.params if self.params is not None else ops.DEFAULT_PARAMS
-            return ops.plan_data(x, ops.clamp_params(
-                x.shape[0], self.n_clusters, x.shape[1], p))
+            return ops.plan_data(x, self._tiles(x.shape[0], x.shape[1],
+                                                "assign"))
         if self._backend.supports_int8:
             return ops.plan_data_int8(x, params)
         return ops.plan_data(x, params)
@@ -210,16 +216,27 @@ class KMeans:
                 x = x.copy()
         return torch.as_tensor(x, dtype=torch.float32, device=self.device)
 
+    def _tiles(self, m: int, f: int, kind: str) -> ops.KernelParams:
+        """Tiles of one kernel kind at one problem shape: the explicit
+        override, else the autotune table's winner for the kind and the
+        compute dtype, clamped to the shape."""
+        if self.params is not None:
+            p = self.params
+        else:
+            _, p = self.autotune.lookup(m, self.n_clusters, f, kind=kind,
+                                        dtype=self.compute_dtype)
+        return ops.clamp_params(m, self.n_clusters, f, p)
+
     def _resolve_params(self, m: int, f: int, *,
                         backend: Optional[AssignmentBackend] = None
                         ) -> Optional[ops.KernelParams]:
-        """Tiles for one problem shape: the explicit override, else the
-        port's H100 defaults, clamped to the shape."""
+        """Tiles for one problem shape, by the backend's kernel kind (a
+        one-pass backend never gets an assignment-only winner); None for a
+        backend without tiles."""
         backend = backend if backend is not None else self._backend
         if not backend.takes_params:
             return None
-        p = self.params if self.params is not None else ops.DEFAULT_PARAMS
-        return ops.clamp_params(m, self.n_clusters, f, p)
+        return self._tiles(m, f, backend.kernel_kind)
 
     def _predict_backend(self) -> AssignmentBackend:
         """Prediction is assignment-only, at the fit's protection level: a
@@ -287,6 +304,8 @@ class KMeans:
         if centroids is None:
             centroids = self.init_centroids(x)
         centroids = self._tensor(centroids)
+        if self.batch_size is not None:
+            return self._fit_minibatch(x, centroids, on_iteration)
         return self._fit_fullbatch(x, centroids, on_iteration)
 
     def _fit_fullbatch(self, x: torch.Tensor, centroids: torch.Tensor,
@@ -381,6 +400,64 @@ class KMeans:
         self.inertia_ = inertia_host
         return self
 
+    def _fit_minibatch(self, x: torch.Tensor, centroids: torch.Tensor,
+                       on_iteration: Optional[Callable]) -> "KMeans":
+        """Sampled mini-batch Lloyd, the reference's loop: each iteration
+        draws ``min(batch_size, M)`` distinct rows from
+        ``np.random.default_rng(random_state + 1)`` (the reference's draws,
+        index for index) and its campaign draw from the fit's campaign
+        stream, gathers the rows on the device and runs one unpruned step of
+        the backend on them, at the batch's own tiles and plan (an int8
+        batch is quantised as a fit's X is). The host reads the step's
+        inertia and shift once an iteration; the fit stops at ``shift <
+        tol`` and ends with one predict over all of X (``labels_``,
+        ``inertia_`` and its detections). The draws are host work (numpy's
+        draw without replacement permutes M indices), so the next batch is
+        drawn while the device runs this step: the same draws in the same
+        order."""
+        m, f = x.shape
+        rows = min(self.batch_size, m)
+        rng = np.random.default_rng(self.random_state + 1)
+        inj_rng = self._campaign_rng()
+        backend = self._backend
+        self.prune_history_ = []           # mini-batch steps run unpruned
+        total_det = torch.zeros((), dtype=torch.int32, device=x.device)
+        self._n_host_syncs = 0
+        it = 0
+        idx = rng.choice(m, rows, replace=False)
+        for it in range(self.max_iter):
+            batch = x[torch.from_numpy(idx).to(x.device)]
+            params = self._resolve_params(rows, f)
+            inj = None
+            if backend.takes_injection:
+                inj = self._draw_injection(inj_rng, rows, f,
+                                           params).to(x.device)
+            xa = self._plan(batch, params)
+            out = backend(xa, self._cast(centroids), params=params, inj=inj)
+            _, md, det, new_c, _ = self._apply_update(out, xa, centroids)
+            shift = ((new_c - centroids) ** 2).sum().sqrt()
+            centroids = new_c
+            total_det = total_det + det.to(torch.int32)
+            if it + 1 < self.max_iter:
+                idx = rng.choice(m, rows, replace=False)
+            inertia_h, shift_h = _host_read((md.sum(), shift))
+            self._n_host_syncs += 1
+            if on_iteration is not None:
+                on_iteration(it, centroids, float(inertia_h), float(shift_h))
+            if float(shift_h) < self.tol:
+                break
+
+        self.cluster_centers_ = centroids
+        self.n_iter_ = it + 1
+        self._counts = None
+        am, dist, det = self._predict_full(x)
+        det_h, inertia_h = _host_read((total_det + det, dist.sum()))
+        self._n_host_syncs += 1
+        self.detected_errors_ = int(det_h)
+        self.labels_ = am
+        self.inertia_ = float(inertia_h)
+        return self
+
     def partial_fit(self, x: Any) -> "KMeans":
         """One streaming update from a data block (the first call seeds):
         centres move by count-weighted running means. A pruned backend runs
@@ -468,11 +545,21 @@ class KMeans:
         self._check_fitted()
         return -float(self._predict_full(self._tensor(x))[1].sum())
 
-    def to_service(self, **_: Any) -> Any:
-        raise NotImplementedError(
-            "the k-means serving layer (repro.serve's compiled cells, "
-            "codebook store and service) is not ported yet; it comes with a "
-            "later slice")
+    def to_service(self, *, buckets: Optional[tuple] = None,
+                   window_s: Optional[float] = None) -> Any:
+        """Hand the fitted model to the online serving layer: a
+        :class:`repro_torch.serve.KMeansService` whose predict cells (one
+        CUDA graph per row bucket on the card) run this model's predict
+        backend at its compute dtype, its centroids hot-swappable through a
+        versioned store and this estimator as its refinement loop
+        (``service.refine`` -> :meth:`partial_fit`). Bucket ladder and
+        batching window default to the plan stored in the autotune cache
+        (``repro_torch.serve.tuning.plan_ladder``), else
+        ``DEFAULT_BUCKETS`` and no window."""
+        self._check_fitted()
+        from repro_torch.serve import KMeansService  # circular-import-safe
+        return KMeansService.from_estimator(self, buckets=buckets,
+                                            window_s=window_s)
 
     # ------------------------------------------------------------------
     # serializable state
@@ -517,10 +604,12 @@ class KMeans:
         }
 
     @classmethod
-    def from_state(cls, state: dict, *, device: Any = None) -> "KMeans":
+    def from_state(cls, state: dict, *, device: Any = None,
+                   autotune: Optional[AutotuneCache] = None) -> "KMeans":
         """Rebuild a fitted estimator from :meth:`get_state` output (or from
         ``repro_torch.convert.from_reference_state``). ``device`` overrides
-        the state's device; the default is "cuda"."""
+        the state's device; the default is "cuda". ``autotune`` is the new
+        estimator's tile table (default: the process cache)."""
         cfg = state["config"]
         fp = cfg["fault"]
         camp = fp.get("injection")
@@ -535,7 +624,7 @@ class KMeans:
                  sync_every=cfg.get("sync_every", 10),
                  compute_dtype=cfg.get("compute_dtype", "float32"),
                  predict_chunk_rows=cfg.get("predict_chunk_rows"),
-                 random_state=cfg["random_state"],
+                 random_state=cfg["random_state"], autotune=autotune,
                  device=device or cfg.get("device") or "cuda")
         km.cluster_centers_ = km._tensor(state["cluster_centers"])
         counts = state.get("counts")

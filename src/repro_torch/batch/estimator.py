@@ -25,6 +25,7 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
+from repro_torch.api.cache import AutotuneCache, default_cache
 from repro_torch.api.estimator import (NotFittedError, _dtype_name,
                                        _host_read, resolve_device)
 from repro_torch.api.registry import (AssignmentBackend, BackendCapabilityError,
@@ -41,10 +42,12 @@ class BatchedKMeans:
 
     Parameters are the reference's (``n_clusters``, ``max_iter``, ``tol``,
     ``init``, ``backend``, ``params``, ``sync_every``, ``compute_dtype``,
-    ``random_state``) plus ``device`` ("cuda" by default, "cpu" for the
-    kernels' plain versions). There is no ``autotune``: tiles are explicit
-    ``KernelParams`` or ``ops.DEFAULT_PARAMS``, clamped to one problem's
-    shape. ``compute_dtype`` is "float32", "bfloat16" or "float16", as in
+    ``random_state``, ``autotune``) plus ``device`` ("cuda" by default,
+    "cpu" for the kernels' plain versions). Tiles are explicit
+    ``KernelParams`` or the ``autotune`` table's winner of the ``batched``
+    kind at the compute dtype and the stack's B bucket (default table: the
+    process cache), clamped to one problem's shape. ``compute_dtype`` is
+    "float32", "bfloat16" or "float16", as in
     the reference: X is cast once per fit (the plan) and the centroids per
     step, at the kernel boundary; seeding runs on the uncast f32 rows, and
     centroids, distances and inertia stay f32.
@@ -65,6 +68,7 @@ class BatchedKMeans:
                  tol: float = 1e-4, init: str = "kmeans++",
                  backend: Optional[str] = None,
                  params: Optional[ops.KernelParams] = None,
+                 autotune: Optional[AutotuneCache] = None,
                  sync_every: int = 10, compute_dtype: Any = "float32",
                  random_state: int = 0, device: Any = "cuda") -> None:
         if n_clusters < 1:
@@ -83,6 +87,7 @@ class BatchedKMeans:
         self.init = init
         self.backend = backend
         self.params = params
+        self.autotune = autotune if autotune is not None else default_cache()
         self.sync_every = sync_every
         self.compute_dtype = getattr(torch, dtype)
         self.random_state = random_state
@@ -138,8 +143,14 @@ class BatchedKMeans:
                              f"for one problem")
         return x
 
-    def _resolve_params(self, n: int, f: int) -> ops.KernelParams:
-        p = self.params if self.params is not None else ops.DEFAULT_PARAMS
+    def _resolve_params(self, bsz: int, n: int,
+                        f: int) -> ops.KernelParams:
+        if self.params is not None:
+            p = self.params
+        else:
+            _, p = self.autotune.lookup(n, self.n_clusters, f,
+                                        kind=self._backend.kernel_kind,
+                                        dtype=self.compute_dtype, batch=bsz)
         return ops.clamp_params(n, self.n_clusters, f, p)
 
     def init_centroids(self, x: Any) -> torch.Tensor:
@@ -174,7 +185,7 @@ class BatchedKMeans:
         if centroids.shape != (bsz, self.n_clusters, f):
             raise ValueError(f"centroids must be {(bsz, self.n_clusters, f)},"
                              f" got {tuple(centroids.shape)}")
-        params = self._resolve_params(n, f)
+        params = self._resolve_params(bsz, n, f)
         # the plan holds X in the compute dtype; reseeding donors are its
         # rows (the reference's plan.x), the seeds came from the f32 rows
         plan = ops.plan_data_batched(self._cast(x), params)
@@ -234,7 +245,7 @@ class BatchedKMeans:
                 f"predict wants (B, N, F) with B={c.shape[0]} fitted "
                 f"problems of F={c.shape[2]} features, got shape "
                 f"{tuple(x.shape)}")
-        params = self._resolve_params(x.shape[1], x.shape[2])
+        params = self._resolve_params(*x.shape)
         return self._backend(self._cast(x), self._cast(c),
                              params=params)[:2]
 
@@ -280,11 +291,13 @@ class BatchedKMeans:
         }
 
     @classmethod
-    def from_state(cls, state: dict, *,
-                   device: Any = None) -> "BatchedKMeans":
+    def from_state(cls, state: dict, *, device: Any = None,
+                   autotune: Optional[AutotuneCache] = None
+                   ) -> "BatchedKMeans":
         """Rebuild a fitted estimator from :meth:`get_state` output (or from
         ``repro_torch.convert.from_reference_batched_state``). ``device``
-        overrides the state's; the default is "cuda"."""
+        overrides the state's; the default is "cuda". ``autotune`` is the
+        new estimator's tile table."""
         cfg = state["config"]
         tiles = cfg.get("params")
         bkm = cls(cfg["n_clusters"], max_iter=cfg["max_iter"], tol=cfg["tol"],
@@ -292,7 +305,7 @@ class BatchedKMeans:
                   params=None if tiles is None else ops.KernelParams(*tiles),
                   sync_every=cfg.get("sync_every", 10),
                   compute_dtype=cfg.get("compute_dtype", "float32"),
-                  random_state=cfg["random_state"],
+                  random_state=cfg["random_state"], autotune=autotune,
                   device=device or cfg.get("device") or "cuda")
         bkm.cluster_centers_ = bkm._stack(state["cluster_centers"])
         bkm.n_iter_ = np.asarray(state["n_iter"])

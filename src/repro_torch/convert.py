@@ -25,6 +25,14 @@ packages but for ``config["device"]``; the reference's host-only backend
 ``lloyd_batched_xla`` becomes the port's ``lloyd_batched`` (its plain
 version is the port's CPU path), and every other name passes through.
 
+Service states (``KMeansService.get_state()``) have the same keys in both
+packages: the store's codebooks (f32 numpy arrays by version), the serving
+config (backend, K, F, buckets, dtype name, window) and the wrapped
+estimator's state. :func:`from_reference_service_state` maps the config's
+backend name and the estimator state as above, so a reference service's
+state serves from the port with the reference's labels;
+:func:`to_reference_service_state` goes the other way.
+
 LM weights and caches: the reference's ``LM.init`` tree stacks full periods
 of the layer pattern (``params["periods"][slot][...]`` with a leading
 ``n_periods`` dimension, remainder layers in ``params["tail"]``), and so do
@@ -116,6 +124,33 @@ def to_reference_batched_state(state: dict) -> dict:
     out = _batched_arrays(state)
     out["config"].pop("device", None)
     return out
+
+
+def _service_state(state: dict, backend_map: dict, estimator) -> dict:
+    out = copy.deepcopy({k: v for k, v in state.items()
+                         if k not in ("store", "estimator")})
+    store = state["store"]
+    out["store"] = {"keep": store["keep"], "current": store["current"],
+                    "codebooks": {str(v): np.asarray(c, np.float32)
+                                  for v, c in store["codebooks"].items()}}
+    cfg = out["config"]
+    cfg["backend"] = backend_map.get(cfg["backend"], cfg["backend"])
+    est = state.get("estimator")
+    out["estimator"] = None if est is None else estimator(est)
+    return out
+
+
+def from_reference_service_state(state: dict) -> dict:
+    """Reference ``KMeansService.get_state()`` dict -> the port's (device
+    left to ``KMeansService.from_state``)."""
+    return _service_state(state, _REF_BACKENDS, from_reference_state)
+
+
+def to_reference_service_state(state: dict) -> dict:
+    """Port ``KMeansService.get_state()`` dict -> the reference's. The
+    port's kernel backends keep their names, which the reference also
+    registers."""
+    return _service_state(state, {}, to_reference_state)
 
 
 def _tensor(a) -> torch.Tensor:

@@ -62,7 +62,7 @@ def _row_norms(x) -> torch.Tensor:
     x = ops.f32_plan(x)
     if isinstance(x, ops.DataPlan):
         return x.xn
-    return (x.float() ** 2).sum(1)
+    return ops.row_norms(x)
 
 
 def _data(x) -> torch.Tensor:

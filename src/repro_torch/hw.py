@@ -15,6 +15,14 @@ PEAK_FLOPS_F32: float = 67e12          # CUDA cores, FMA = 2 FLOPs
 PEAK_FLOPS_TF32: float = 495e12        # tensor cores
 PEAK_FLOPS_BF16: float = 989e12        # tensor cores (fp16 the same)
 PEAK_OPS_INT8: float = 1979e12         # tensor cores, int8 op/s (MAC = 2)
+# shared memory: 128 bytes a clock an SM at the 1,980 MHz boost clock
+SM_CLOCK_HZ: float = 1.98e9
+SMEM_BW: float = SMS * 128 * SM_CLOCK_HZ   # 33.45e12 bytes/s
+# The serve model's per-launch cost (core.autotune.model_score, kind
+# "serve"): one CUDA graph replay of a one-kernel cell and a synchronize,
+# host clock, median of 200: 22.4 us (chip_smoke.py phase 15 (b),
+# "serve_launch_us", NVIDIA H100 80GB HBM3 at 700.00 W)
+SERVE_LAUNCH_S: float = 22.4e-6
 
 # Default verification tile of the port's kernels (KernelParams): one thread
 # block of 256 threads owns BLOCK_M rows; the kernel walks centroid

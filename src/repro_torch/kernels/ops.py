@@ -18,8 +18,9 @@ quantisation-safe X and centroids is then bit for bit one ``fused`` step
 (labels, min distances, sums, counts). The reference's update is plain XLA
 outside any kernel, so nothing compared across the packages changes.
 A tensor on the CPU runs every kernel's plain version; a CUDA tensor runs
-the kernels. Tiles come from explicit :class:`KernelParams` or the port's
-H100 defaults (``repro_torch.hw``); an autotuned table is later work.
+the kernels. Tiles come from explicit :class:`KernelParams`, the
+estimators' autotune table (``repro_torch.api.cache``) or the port's H100
+defaults (``repro_torch.hw``).
 
 Compute dtypes: every tile entry (:func:`fused_assign`,
 :func:`fused_lloyd`, :func:`fused_assign_ft`, :func:`fused_lloyd_ft`,
@@ -70,6 +71,14 @@ class KernelParams:
 
 DEFAULT_PARAMS = KernelParams()
 
+# Kernel kinds of the tile-selection table (the reference's vocabulary,
+# ``repro.kernels.ops.PLAN_KINDS``): winners are keyed by kind, so a tile
+# chosen for the assignment-only kernel never reaches the one-pass ones.
+# ``serve`` is the assignment kernel as a predict cell, ``init`` the
+# k-means++ round.
+PLAN_KINDS: tuple[str, ...] = ("assign", "lloyd", "lloyd_ft", "batched",
+                               "pruned", "int8", "init", "serve")
+
 
 def check_cuda_params(params: KernelParams) -> None:
     """Raise for a tile the CUDA kernels are not built for."""
@@ -107,11 +116,31 @@ class DataPlan:
     params: Optional[KernelParams]
 
 
+# Rows under which a row-norm sum on the card runs over a zero-padded copy:
+# under 512 rows torch's reduction picks its threads by the row count, so a
+# row's sum order (and its last bit) would depend on how many rows came
+# with it (seen at F = 100 and 300 on the H100 below 16 rows)
+NORM_MIN_ROWS = 512
+
+
+def row_norms(x: torch.Tensor) -> torch.Tensor:
+    """f32 row squared norms of (m, f) ``x``, each row's bits those it has
+    in any larger X on the same device: on the card fewer than
+    :data:`NORM_MIN_ROWS` rows are summed as rows of a zero-padded
+    512-row copy, so a served request's distances are bit for bit
+    ``predict``'s on the same rows whatever the bucket."""
+    xf = x.float()
+    m = xf.shape[0]
+    if xf.is_cuda and 0 < m < NORM_MIN_ROWS:
+        return (F.pad(xf, (0, 0, 0, NORM_MIN_ROWS - m)) ** 2).sum(1)[:m]
+    return (xf ** 2).sum(1)
+
+
 def plan_data(x: torch.Tensor,
               params: Optional[KernelParams] = None) -> DataPlan:
     """Build the per-fit :class:`DataPlan` (pad + row norms, once)."""
     m, f = x.shape
-    xn = (x.float() ** 2).sum(1)
+    xn = row_norms(x)
     if params is None:
         return DataPlan(x=x, xp=x, xn=xn, m=m, f=f, params=None)
     mp = _round_up(m, params.block_m)
@@ -532,7 +561,7 @@ def plan_data_batched(x: torch.Tensor, params: KernelParams) -> BatchPlan:
     Each problem's norms are :func:`plan_data`'s own op on its (n, f) slab,
     so a problem's true distances are bit for bit a single fit's."""
     _, n, f = x.shape
-    xn = torch.stack([(xb.float() ** 2).sum(1) for xb in x])
+    xn = torch.stack([row_norms(xb) for xb in x])
     np_ = _round_up(n, params.block_m)
     fp = _round_up(f, params.block_f)
     xp = F.pad(x, (0, fp - f, 0, np_ - n)).contiguous()

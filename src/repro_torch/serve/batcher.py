@@ -12,8 +12,8 @@ The batcher is generic over the dispatch function: any callable taking
 the concatenated ``(rows, ...)`` batch and returning a tuple whose
 row-shaped entries scatter per request (other entries — version tags,
 detection counters — fan out to every ticket unchanged). The LM launcher
-(``repro_torch.launch.serve``) rides it; the k-means service of the
-reference (bucketed predict cells, codebook store) is not ported yet.
+(``repro_torch.launch.serve``) and the k-means service
+(``repro_torch.serve.service``) share it.
 """
 from __future__ import annotations
 
@@ -92,7 +92,7 @@ class MicroBatcher:
     (tests, benchmarks), or ``start()`` a background loop that flushes
     ``window_s`` after each first arrival — the window is the latency the
     slowest-arriving request pays to share a launch, tuned alongside the
-    bucket ladder (the reference's ``repro.serve.tuning``; not ported yet).
+    bucket ladder (``repro_torch.serve.tuning.plan_ladder``).
     """
 
     def __init__(self, dispatch: Callable[[Any], tuple], *,

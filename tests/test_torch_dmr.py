@@ -141,8 +141,10 @@ def test_forced_mismatch_takes_the_recompute(monkeypatch):
 
 
 def test_raw_update_sums_as_fused_does():
-    """The raw backends' update runs at the fused backend's tiles, so given
-    the same labels it sums bit for bit as a fused fit's update."""
+    """The raw backends' update runs at the fused backend's tiles (the
+    autotune table's assign winner at the shape), so given the same labels
+    it sums bit for bit as a fused fit's update; raw X handed to
+    ``protected_sums`` alone is planned at the default tiles."""
     x, _ = make_blobs(1500, 20, 7, seed=5)
     xt = torch.from_numpy(x)
     am = torch.from_numpy(np.random.default_rng(1).integers(
@@ -153,7 +155,9 @@ def test_raw_update_sums_as_fused_does():
         got = km_mod.protected_sums(xt, am, 7, use_dmr=dmr)
         assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
     km = KMeans(7, fault=FaultPolicy.detect(), device="cpu")
+    p_fused = KMeans(7, device="cpu")._resolve_params(1500, 20)
     plan = km._plan(xt, None)
-    assert isinstance(plan, ops.DataPlan) and plan.params == p
+    assert isinstance(plan, ops.DataPlan) and plan.params == p_fused
+    want = ops.tiled_update(ops.plan_data(xt, p_fused), am, 7, use_dmr=True)
     got = km_mod.protected_sums(plan, am, 7)
-    assert torch.equal(got[0], want[0])
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])

@@ -285,12 +285,6 @@ def test_protected_int8_refused_like_reference():
         JKMeans(4, compute_dtype="int8", fault=JFaultPolicy.correct())
 
 
-@pytest.mark.parametrize("kw", [dict(compute_dtype="int8", batch_size=64)])
-def test_later_slices_still_raise(kw):
-    with pytest.raises(NotImplementedError):
-        KMeans(4, device="cpu", **kw)
-
-
 def test_state_interchange():
     """A reference int8 state (host backend ``int8_xla``) loads into the
     port as ``int8`` and predicts the reference's labels; the port's state

@@ -144,9 +144,7 @@ def test_default_tiles_are_buildable():
 
 
 @pytest.mark.parametrize("kw,err", [
-    (dict(batch_size=64), NotImplementedError),
     (dict(init="kmeans++-fused"), ValueError),
-    (dict(fault=FaultPolicy.detect(), batch_size=64), NotImplementedError),
     (dict(compute_dtype="float64"), ValueError),
     (dict(init="nope"), ValueError),
 ])
@@ -166,12 +164,6 @@ def test_fused_init_refused_like_reference():
             make()
         errors.append(type(info.value))
     assert errors == [ValueError, ValueError]
-
-
-def test_to_service_not_ported():
-    km = KMeans(2, max_iter=1, device="cpu").fit(np.eye(4, dtype=np.float32))
-    with pytest.raises(NotImplementedError, match="serving"):
-        km.to_service()
 
 
 def test_policy_resolution():
