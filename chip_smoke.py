@@ -11,7 +11,10 @@ offline (``detect``), pruned (``backend="lloyd_pruned"``), quantised
 "bfloat16"/"float16"``, tensor cores), at M = 2**20 rows x F = 128 features x
 K = 1000 clusters; internlm2-1.8b serving (``repro_torch.launch.serve``,
 prefill + greedy decode through the micro-batcher on the flash kernel;
-fp16 flash attention through ``attend``);
+fp16 flash attention through ``attend``) and every other LM family of the
+reference that fits the card (MoE, Mamba-2 SSD, the RG-LRU hybrid, the
+whisper encoder-decoder, the qwen2-vl vision stub and three more dense
+archs, each at full width and depth);
 and ``repro_torch.batch.BatchedKMeans`` seeding, fit, predict and score at
 the width of product-quantisation codebook training for an IVF-PQ index
 over 768-d embeddings: B = 48 sub-quantisers of
@@ -215,6 +218,28 @@ Phases, one line each:
      request, and the card's idle share over the stream. Phase 15's
      launches (graph replays times each cell's kernels) are added to the
      rows of the kernels line.
+ 16. ``repro_torch.launch.serve`` at full width and depth, one arch at a
+     time (``FAMILY_ARCHS``: olmoe-1b-7b, mamba2-1.3b, recurrentgemma-9b,
+     whisper-medium, qwen2-vl-7b, gemma3-4b, minicpm-2b, nemotron-4-15b;
+     seeded weights, each model freed before the next): one wave of 2
+     requests, prompt 2048 (whisper: 384 decoder tokens over 1500 zero
+     audio frames; qwen2-vl: 256 zero patch embeddings fused over the
+     first positions), 16 generated tokens, the flash launches by kernel
+     gated to one a prefill and attention layer (encoder layers and
+     cross-attentions included) and one a decode step and layer; the
+     wave again, teacher-forced, through the kernel and the plain attention
+     routes (logits within 5e-2 x max|logit|, and a control, the kernel
+     route's first step from caches that forgot the prompt, that must fail
+     the bar); mamba2 and olmoe (the latter at the reference test's no-drop
+     capacity factor) prefill + decode against the full forward under the
+     same bar and control; the flash kernel against its plain version at
+     every shape and positions each model handed it (head dims 64 and 256,
+     GQA groups 1, 2, 6, 7 and 16, the non-causal encoder and
+     cross-attention, qwen2-vl's zero-position patch prefix); each arch's
+     peak memory, prefill ms a wave, decode ms a step, tokens/s, kernels a
+     decode step and idle shares (``torch.profiler``); the bf16 / fp16
+     prefill and decode kernels' registers and spills. Phase 16's flash
+     launches are added to the two flash rows of the kernels line.
 
 A kernel's bound counts the work of the function at the true M, K and F,
 not at the padded tile grid; the padded figures are printed beside it.
@@ -318,6 +343,26 @@ ABFT_FIX_RTOL = 2.0 ** -16
 # past one, and past the top one; a stream of 1000 requests of
 # log-uniform size 1-8192 from seed 0, eight submitting threads
 MB_BATCH, MB_ITERS = 131_072, 10
+# phase 16: every other LM family of the reference that fits one card
+# (src/repro/configs/*.py at full width and depth, seeded weights; llama4's
+# 400 B parameters do not fit), one wave of 2 requests, prompt 2048
+# (whisper: a 384-token decoder prompt over its 1500 encoder frames), 16
+# generated tokens; the MoE arch's decode-vs-forward check at the
+# reference test's no-drop capacity factor (tests/test_models.py)
+FAMILY_ARCHS = ("olmoe-1b-7b", "mamba2-1.3b", "recurrentgemma-9b",
+                "whisper-medium", "qwen2-vl-7b", "gemma3-4b", "minicpm-2b",
+                "nemotron-4-15b")
+FAMILY_BATCH, FAMILY_PROMPT, FAMILY_GEN = 2, 2048, 16
+WHISPER_PROMPT = 384
+FAMILY_NO_DROP = 100.0
+# the teacher-forced bar: LM_LOGIT_RTOL, or this many times the plain
+# route's own distance from itself with P V in f32 (a rounding-sized change
+# of every attention) where the model amplifies rounding more (olmoe's
+# experts are drawn at fan-in E, as the reference draws them)
+FAMILY_FLOOR_FACTOR = 2.0
+# decode against the full forward in f32 (the reference test's precision):
+# its bar for the SMOKE models, x max|logit|
+FAMILY_DECODE_RTOL = 2e-4
 SERVE_BUCKETS = (128, 512, 2048)
 SERVE_SIZES = (0, 1, 127, 128, 129, 2048, 5000)
 STREAM_REQUESTS, STREAM_MAX_ROWS, STREAM_THREADS = 1000, 8192, 8
@@ -2811,6 +2856,385 @@ def phase_lm_serve(torch, fa, KMeans, FaultPolicy,
     return rec
 
 
+def forget_context(torch, caches):
+    """A copy of decode caches that has forgotten its context: every KV slot
+    cold (NEG_POS; K and V copied, so the decode's write lands in the copy),
+    RG-LRU and SSD states and conv windows zero, the encoder's output zero.
+    A decode step from it is the serving checks' control."""
+    from repro_torch.models.model import LMCaches
+    enc = caches.encoder_out
+    out = LMCaches(encoder_out=None if enc is None else torch.zeros_like(enc))
+    for c in caches:
+        new = {}
+        for key, st in c.items():
+            if key == "kv":
+                new[key] = type(st)(st.k.clone(), st.v.clone(),
+                                    torch.full_like(st.positions, NEG_POS))
+            else:
+                new[key] = type(st)(*(torch.zeros_like(t) for t in st))
+        out.append(new)
+    return out
+
+
+def route_flips(own: list, pinned: list) -> float:
+    """The share of (layer, token) choices whose own top-k differs from the
+    pinned one (0 without MoE layers)."""
+    from repro_torch.launch.lm_rounding import choice_flips
+    flips = choice_flips(own, pinned)
+    return sum(flips) / len(flips) if flips else 0.0
+
+
+def logit_err(a, b) -> float:
+    """max |a - b| over max |b|, in f32 (a wave's logits are GBs)."""
+    return float((a - b).abs_().max()) / float(b.abs().max())
+
+
+def family_flash_counts(fa, cfg, torch, prompt: int, gen: int) -> dict:
+    """The flash launches by kernel of serving one wave of ``prompt`` +
+    ``gen`` tokens: at prefill one for each attention layer and
+    cross-attention (Sq = prompt) and encoder layer (Sq = encoder_seq); a
+    decode launch (Sq = 1) a step after the first token for each attention
+    layer and cross-attention."""
+    n_attn = sum(cfg.pattern_for_layer(i) in ("attn", "attn_local")
+                 for i in range(cfg.num_layers))
+    cross = cfg.num_layers if cfg.encoder_decoder else 0
+    want = dict.fromkeys(fa.flash_attention.kernel_launches, 0)
+    want[fa.kernel_for(prompt, torch.bfloat16)] += n_attn + cross
+    if cfg.encoder_decoder:
+        want[fa.kernel_for(cfg.encoder_seq, torch.bfloat16)] += \
+            cfg.encoder_layers
+    want[fa.kernel_for(1, torch.bfloat16)] += (gen - 1) * (n_attn + cross)
+    return want
+
+
+def flash_resources(log: str) -> dict:
+    """ptxas' registers and spill bytes of every bf16 / fp16 prefill and
+    decode kernel instantiation (``flash_prefill_kernel<T, hd>``,
+    ``flash_decode_kernel<T, hd, R>``) from the build log."""
+    dtypes = {"f": "f32", "6__half": "fp16", "13__nv_bfloat16": "bf16"}
+    return ptxas_of(
+        log, r"(flash_prefill_kernel|flash_decode_kernel)I(13__nv_bfloat16"
+             r"|6__half|f)Li(\d+)E(?:Li(\d+)E)?",
+        lambda m: f"{m[1]}<{dtypes[m[2]]}, hd{m[3]}"
+                  + (f", R{m[4]}" if m[4] else "") + ">")
+
+
+@contextlib.contextmanager
+def recorded_flash_calls(attn, calls: dict):
+    """``attention``'s flash calls recorded by shape (B, H, KV, Sq, Skv, hd,
+    dtype, causal, window), with the first call's positions; the calls
+    still run the kernel."""
+    kernel = attn.flash_attention
+
+    def record(q, k, v, qpos, kpos, *, causal=True, window=0, **kw):
+        key = (*q.shape[:3], k.shape[1], k.shape[2], q.shape[3],
+               str(q.dtype).split(".")[1], bool(causal), int(window))
+        if key not in calls:
+            calls[key] = (qpos.clone(), kpos.clone())
+        return kernel(q, k, v, qpos, kpos, causal=causal, window=window, **kw)
+    attn.flash_attention = record
+    try:
+        yield calls
+    finally:
+        attn.flash_attention = kernel
+
+
+def check_flash_shapes(torch, fa, calls: dict) -> dict:
+    """The flash kernel at each recorded shape and positions, on random q,
+    k, v (q scaled as attend scales it), against its plain version in f32
+    under phase 11's bf16 bars (the decode bars at Sq <= 16), with the
+    kernel's time and the plain version's."""
+    gen = torch.Generator(device=DEV).manual_seed(SEED)
+    out = {}
+    for key, (qpos, kpos) in calls.items():
+        b, h, sq, kvh, skv, hd, dt, causal, window = key
+        dtype = getattr(torch, dt)
+
+        def draw(*shape):
+            return torch.randn(*shape, generator=gen, device=DEV)
+        q = (draw(b, h, sq, hd) * hd ** -0.5).to(dtype)
+        k, v = draw(b, kvh, skv, hd).to(dtype), draw(b, kvh, skv, hd).to(dtype)
+        bars = FLASH_DECODE_BARS if sq <= 16 else FLASH_BF16_BARS
+
+        def run():
+            return fa.flash_attention(q, k, v, qpos, kpos, causal=causal,
+                                      window=window, zero_empty_rows=True)
+
+        def plain():
+            return fa.flash_attention_plain(q, k, v, qpos, kpos,
+                                            causal=causal, window=window,
+                                            zero_empty_rows=True)
+        got = run()
+        want = fa.flash_attention_plain(q.float(), k.float(), v.float(),
+                                        qpos, kpos, causal=causal,
+                                        window=window, zero_empty_rows=True)
+        d, w = (got.double() - want.double()).abs(), want.double().abs()
+        ratio = max(float((d / (a + r * w)).max()) for a, r in bars)
+        name = (f"b{b}_h{h}_kv{kvh}_sq{sq}_skv{skv}_hd{hd}"
+                f"{'_causal' if causal else '_full'}"
+                + (f"_w{window}" if window else ""))
+        expect(ratio <= 1.0, f"flash_attention at {name}: error {ratio} x "
+               f"its bar")
+        timer = queued_ms if sq <= 16 else cuda_ms
+        out[name] = {"kernel": fa.kernel_for(sq, dtype),
+                     "err_over_bar": ratio,
+                     "qpos_zero_prefix": int((qpos == 0).sum()),
+                     "cold_kv_slots": int((kpos < 0).sum()),
+                     "ms": timer(run),
+                     "plain_ms": timer(plain) if sq <= 16 else cuda_ms(
+                         plain, reps=1)}
+        del q, k, v, got, want, d, w
+    torch.cuda.empty_cache()
+    return out
+
+
+def decode_vs_forward(torch, lm, batch: dict, seq, prompt: int) -> dict:
+    """``lm``'s prefill of the first ``prompt`` tokens of ``seq`` and decode
+    of the rest, token by token, against its full forward over ``seq``
+    (MoE choices pinned to the forward's): each step's error over
+    max|logit|, the control (the first step from caches that forgot their
+    context) and the share of MoE choices the pin held."""
+    from repro_torch.launch.lm_rounding import pinned_routes
+    own_f = []
+    with pinned_routes(own_f):
+        full, _ = lm(dict(batch, tokens=seq))
+    own = []
+    with pinned_routes(own, [r[:, :prompt] for r in own_f]):
+        _, caches = lm.prefill(dict(batch, tokens=seq[:, :prompt]),
+                               seq.shape[1] + 1)
+    flips = [route_flips(own, [r[:, :prompt] for r in own_f])]
+    errs, ctl = [], None
+    for pos in range(prompt, seq.shape[1]):
+        tok = seq[:, pos:pos + 1]
+        pin = [r[:, pos:pos + 1] for r in own_f]
+        if pos == prompt:
+            with pinned_routes([], pin):
+                lc, _ = lm.decode_step(forget_context(torch, caches), tok,
+                                       pos)
+            ctl = logit_err(lc[:, 0], full[:, pos])
+            del lc
+        own = []
+        with pinned_routes(own, pin):
+            dl, caches = lm.decode_step(caches, tok, pos)
+        errs.append(logit_err(dl[:, 0], full[:, pos]))
+        flips.append(route_flips(own, pin))
+    del full, caches
+    out = {"max_err_over_max_logit": max(errs), "errs": errs,
+           "control_context_forgotten": ctl}
+    if own_f:
+        out["moe_route_flips_if_unpinned"] = flips
+    return out
+
+
+def phase_lm_families(torch, fa, attn, attention_log: str
+                      ) -> tuple[list, dict]:
+    """Phase 16: every LM family of the reference that fits one card, at
+    full width and depth with seeded weights (``FAMILY_ARCHS``), one at a
+    time, each model freed before the next. For each: ``launch.serve.main``
+    serves one wave of FAMILY_BATCH requests (prompt FAMILY_PROMPT,
+    whisper WHISPER_PROMPT over its 1500 encoder frames; FAMILY_GEN
+    generated tokens) with the flash kernel's launches counted by kernel
+    and gated; the peak memory; the wave again, teacher-forced, through the
+    kernel and the plain ``attend`` routes (logits within LM_LOGIT_RTOL x
+    max|logit| at the prefill and every decode step, or FAMILY_FLOOR_FACTOR
+    times the plain route's distance from itself with P V in f32 where
+    that is larger, MoE choices pinned to the kernel route's, and a
+    control, the kernel route's first step from caches that forgot their
+    context, that must fail the bar); for mamba2
+    (no attention) and the MoE arch, prefill + decode against the full
+    forward of the same model in f32 (the MoE arch at the reference test's
+    no-drop capacity factor, choices pinned to the forward's) within
+    FAMILY_DECODE_RTOL, with the same control, and mamba2's bf16 drift
+    recorded; the flash kernel against its plain version at every shape
+    and positions the model handed it; ``torch.profiler`` traces of one
+    prefill and one decode step (kernels a decode step, idle share).
+    Returns (one record an arch, then a summary; the flash launches by
+    kernel)."""
+    import dataclasses
+    import gc
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.launch.lm_rounding import attention_route, pinned_routes
+    from repro_torch.models import LM
+    from repro_torch.models.model import greedy
+    recs, total = [], dict.fromkeys(fa.flash_attention.kernel_launches, 0)
+    for arch in FAMILY_ARCHS:
+        t_arch = time.perf_counter()
+        cfg = get_config(arch, smoke=LM_SMOKE)
+        prompt = WHISPER_PROMPT if cfg.encoder_decoder else FAMILY_PROMPT
+        argv = ["--arch", arch, "--smoke" if LM_SMOKE else "--no-smoke",
+                "--requests", str(FAMILY_BATCH), "--batch", str(FAMILY_BATCH),
+                "--prompt-len", str(prompt), "--gen", str(FAMILY_GEN),
+                "--device", DEV]
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base_mem = torch.cuda.memory_allocated()
+        for name in fa.flash_attention.kernel_launches:
+            fa.flash_attention.kernel_launches[name] = 0
+        text = io.StringIO()
+        with contextlib.redirect_stdout(text):
+            out = serve.main(argv)
+        torch.cuda.synchronize()
+        by_kernel = dict(fa.flash_attention.kernel_launches)
+        peak_gb = (torch.cuda.max_memory_allocated() - base_mem) / 1e9
+        lines = text.getvalue().strip().splitlines()
+        expect(f"served {FAMILY_BATCH}/{FAMILY_BATCH}" in text.getvalue(),
+               f"{arch}: the launcher did not serve every request: {lines}")
+        expect(out["finite"], f"{arch}: non-finite logits while serving")
+        want_by = family_flash_counts(fa, cfg, torch, prompt, FAMILY_GEN)
+        expect(by_kernel == want_by, f"{arch}: flash kernels launched "
+               f"{by_kernel} while serving, want {want_by}")
+        expect(out["flash_launches"] == by_kernel,
+               f"{arch}: the launcher counted {out['flash_launches']}")
+        for name, n in by_kernel.items():
+            total[name] += n
+        rec = {"phase": 16, "arch": arch, "family": cfg.family,
+               "params_b": cfg.param_count() / 1e9, "launcher": lines,
+               "batch": FAMILY_BATCH, "prompt": prompt, "gen": FAMILY_GEN,
+               "peak_gb": peak_gb, "flash_launches_by_kernel": by_kernel,
+               "prefill_ms": out["prefill_ms"][0],
+               "decode_ms_per_step": out["decode_ms_per_step"],
+               "tokens_per_s": out["tokens_per_s"],
+               "serve_s": out["seconds"]}
+        # --- teacher-forced: the kernel route against the plain route
+        dev = torch.device(DEV)
+        prompts = torch.as_tensor(out["prompts"], dtype=torch.int32,
+                                  device=dev)
+        forced = torch.as_tensor(out["generated"], dtype=torch.int32,
+                                 device=dev)
+        batch = serve.frontend_inputs(cfg, FAMILY_BATCH, dev)
+        batch["tokens"] = prompts
+        seq = torch.cat([prompts, forced[:, :FAMILY_GEN - 1]], dim=1)
+        max_len = prompt + FAMILY_GEN
+        has_attn = cfg.num_heads > 0
+        lm = LM(cfg, device=DEV, seed=0)
+        calls: dict = {}
+        with torch.no_grad():
+            if has_attn:
+                # three routes, MoE choices pinned to the kernel route's:
+                # the kernel (k), the plain math (p), and the plain math
+                # with P V in f32 (f), whose distance from p is the model's
+                # own sensitivity to a rounding-sized change of attention
+                rk, rp, rf = [], [], []
+                with recorded_flash_calls(attn, calls), pinned_routes(rk):
+                    logits_k, caches_k = lm.prefill(batch, max_len)
+                expect(bool(torch.isfinite(logits_k).all()),
+                       f"{arch}: non-finite prefill logits")
+                with plain_attention(attn), pinned_routes(rp, rk):
+                    logits_p, caches_p = lm.prefill(batch, max_len)
+                errs = [logit_err(logits_k, logits_p)]
+                agree = [float((greedy(logits_k) == greedy(logits_p))
+                               .float().mean())]
+                del logits_k
+                with attention_route("plain_f32_pv"), \
+                        pinned_routes(rf, rk):
+                    logits_f, caches_f = lm.prefill(batch, max_len)
+                floor = [logit_err(logits_f, logits_p)]
+                flips = [route_flips(rp, rk)]
+                del logits_p, logits_f
+                torch.cuda.empty_cache()
+                ctl = None
+                for t in range(FAMILY_GEN - 1):
+                    tok, pos = forced[:, t:t + 1], prompt + t
+                    rk, rp = [], []
+                    with recorded_flash_calls(attn, calls), \
+                            pinned_routes(rk):
+                        lk, caches_k = lm.decode_step(caches_k, tok, pos)
+                    with plain_attention(attn), pinned_routes(rp, rk):
+                        lp, caches_p = lm.decode_step(caches_p, tok, pos)
+                    with attention_route("plain_f32_pv"), \
+                            pinned_routes([], rk):
+                        lf, caches_f = lm.decode_step(caches_f, tok, pos)
+                    errs.append(logit_err(lk, lp))
+                    floor.append(logit_err(lf, lp))
+                    flips.append(route_flips(rp, rk))
+                    agree.append(float((greedy(lk) == greedy(lp))
+                                       .float().mean()))
+                    if t == 0:
+                        with pinned_routes([], rk):
+                            lc, _ = lm.decode_step(
+                                forget_context(torch, caches_k), tok, pos)
+                        ctl = logit_err(lc, lp)
+                        del lc
+                bar = max(LM_LOGIT_RTOL, FAMILY_FLOOR_FACTOR * max(floor))
+                expect(max(errs) <= bar, f"{arch}: kernel-route logits "
+                       f"{max(errs)} x max|logit| from the plain route, bar "
+                       f"{bar} (prefill, then each decode step: {errs}; the "
+                       f"plain route's own rounding floor: {floor})")
+                expect(ctl > bar, f"{arch}: control (the context forgotten) "
+                       f"{ctl} x max|logit|; the bar {bar} would not catch "
+                       f"it")
+                rec["teacher_forced"] = {
+                    "max_err_over_max_logit": max(errs),
+                    "prefill_err": errs[0], "decode_errs": errs[1:],
+                    "rounding_floor": floor, "bar": bar,
+                    "control_context_forgotten": ctl,
+                    "greedy_agreement_kernel_vs_plain": agree}
+                if cfg.moe is not None:
+                    rec["teacher_forced"]["moe_route_flips_if_unpinned"] = \
+                        flips
+                del caches_p, caches_f
+            # --- traces: one prefill and one decode step of the kernel route
+            rec["prefill_trace"] = device_trace(
+                torch, lambda: lm.prefill(batch, max_len))
+            if not has_attn:
+                _, caches_k = lm.prefill(batch, max_len)
+            last = prompt + FAMILY_GEN - 1
+            rec["decode_trace"] = device_trace(
+                torch, lambda: lm.decode_step(caches_k, forced[:, -1:], last))
+            rec["kernels_a_decode_step"] = rec["decode_trace"]["kernels"]
+            del caches_k
+            # --- prefill + decode against the full forward at bf16: the
+            # drift, recorded (mamba2: no attention routes to compare)
+            if not has_attn:
+                rec["decode_vs_forward_bf16"] = decode_vs_forward(
+                    torch, lm, batch, seq, prompt)
+        del lm
+        gc.collect()
+        torch.cuda.empty_cache()
+        # --- the same in f32, gated: the reference test's check at full
+        # width and depth (MoE at its no-drop capacity factor)
+        if cfg.moe is not None or not has_attn:
+            fcfg = dataclasses.replace(cfg, dtype="float32",
+                                       param_dtype="float32")
+            if cfg.moe is not None:
+                fcfg = dataclasses.replace(fcfg, moe=dataclasses.replace(
+                    cfg.moe, capacity_factor=FAMILY_NO_DROP))
+            lm = LM(fcfg, device=DEV, seed=0)
+            with torch.no_grad():
+                d = decode_vs_forward(torch, lm, batch, seq, prompt)
+            expect(d["max_err_over_max_logit"] <= FAMILY_DECODE_RTOL,
+                   f"{arch}: f32 decode {d['max_err_over_max_logit']} x "
+                   f"max|logit| from the full forward ({d['errs']})")
+            expect(d["control_context_forgotten"] > FAMILY_DECODE_RTOL,
+                   f"{arch}: decode-vs-forward control "
+                   f"{d['control_context_forgotten']} x max|logit|; the bar "
+                   f"would not catch it")
+            rec["decode_vs_forward_f32"] = dict(
+                d, tolerance=FAMILY_DECODE_RTOL,
+                capacity_factor=None if cfg.moe is None else FAMILY_NO_DROP)
+            del lm
+            gc.collect()
+            torch.cuda.empty_cache()
+        if has_attn:
+            expect(bool(calls), f"{arch}: no flash call recorded")
+            rec["flash_shapes"] = check_flash_shapes(torch, fa, calls)
+        rec["arch_s"] = time.perf_counter() - t_arch
+        emit(rec)
+        recs.append(rec)
+    summary = {"phase": 16, "part": "summary",
+               "flash_kernel_resources": flash_resources(attention_log),
+               "flash_launches_by_kernel": total, "archs": {
+                   r["arch"]: {k: r.get(k) for k in (
+                       "prefill_ms", "decode_ms_per_step", "tokens_per_s",
+                       "peak_gb", "kernels_a_decode_step")}
+                   | {"decode_idle_share": r["decode_trace"]["idle_share"],
+                      "prefill_idle_share": r["prefill_trace"]["idle_share"]}
+                   for r in recs}}
+    return recs + [summary], total
+
+
 def near_tie_rows(torch, xp, cp, cn, am, am_p, what: str) -> int:
     """Rows whose kernel label differs from the plain version's. Each must be
     a near tie of the plain distances (the two best within LOWP_TIE_RTOL of
@@ -5138,6 +5562,15 @@ def main() -> int:
         by_name[name]["launches"] += n
     emit({"phase": 15, "part": "launches added to the kernels line",
           "launches": added})
+
+    # --- phase 16: every LM family that fits the card -----------------------
+    recs16, by_kernel16 = phase_lm_families(torch, fa, attn,
+                                            libs["fk_attention"].ptxas_log)
+    emit(recs16[-1])
+    by_name["flash_attention"]["launches"] += by_kernel16[
+        "flash_prefill_kernel"]
+    by_name["flash_attention_decode"]["launches"] += by_kernel16[
+        "flash_decode_kernel"]
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi_line, flush=True)
     print(json.dumps({"ok": True, "device": {

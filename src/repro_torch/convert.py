@@ -35,11 +35,12 @@ state serves from the port with the reference's labels;
 
 LM weights and caches: the reference's ``LM.init`` tree stacks full periods
 of the layer pattern (``params["periods"][slot][...]`` with a leading
-``n_periods`` dimension, remainder layers in ``params["tail"]``), and so do
-its prefill caches. :func:`lm_params_from_reference` and
-:func:`lm_caches_from_reference` unstack both into the port's per-layer
-``LM.state_dict()`` and cache list, from numpy arrays (bf16 arrays as
-``ml_dtypes.bfloat16``, which numpy reports as ``bfloat16``).
+``n_periods`` dimension, remainder layers in ``params["tail"]``, the
+encoder's layers in ``params["encoder"]``), and so do its prefill caches.
+:func:`lm_params_from_reference` and :func:`lm_caches_from_reference`
+unstack both into the port's per-layer ``LM.state_dict()`` and cache list
+(``LMCaches``, with the encoder's output), from numpy arrays (bf16 arrays
+as ``ml_dtypes.bfloat16``, which numpy reports as ``bfloat16``).
 """
 from __future__ import annotations
 
@@ -183,25 +184,45 @@ def _map(tree, fn):
     return fn(tree)
 
 
+def _flatten(tree: dict, prefix: str, out: dict) -> dict:
+    for name, v in tree.items():
+        if isinstance(v, dict):
+            _flatten(v, f"{prefix}{name}.", out)
+        else:
+            out[f"{prefix}{name}"] = _tensor(v)
+    return out
+
+
 def lm_params_from_reference(params: dict, cfg) -> dict:
     """The reference ``LM.init`` params (numpy leaves) -> the port's
     ``LM.state_dict()`` for ``cfg`` (CPU tensors; ``load_state_dict`` copies
-    them to the model's device)."""
-    sd = {f"embed.{k}": _tensor(v) for k, v in params["embed"].items()}
-    sd["final_norm.scale"] = _tensor(params["final_norm"]["scale"])
+    them to the model's device): ``layers.{i}.{block}.{name}`` with nested
+    blocks dotted further (``ffn.shared.wi``, ``mix.norm.scale``), and an
+    encoder-decoder's ``params["encoder"]``, stacked over its layers, as
+    ``encoder.{i}.*``."""
+    sd = _flatten(params["embed"], "embed.", {})
+    _flatten(params["final_norm"], "final_norm.", sd)
     for i, layer in enumerate(_layer_trees(params, cfg)):
-        for block, names in layer.items():
-            for name, a in names.items():
-                sd[f"layers.{i}.{block}.{name}"] = _tensor(a)
+        _flatten(layer, f"layers.{i}.", sd)
+    if "encoder" in params:
+        for i in range(cfg.encoder_layers):
+            _flatten(_map(params["encoder"], lambda a, i=i: a[i]),
+                     f"encoder.{i}.", sd)
     return sd
 
 
 def lm_caches_from_reference(caches: dict, cfg, device=None) -> list:
-    """The reference's prefill caches (numpy leaves, ``KVCache``
-    namedtuples) -> the port's per-layer cache list on ``device``."""
+    """The reference's prefill caches (numpy leaves; ``KVCache``,
+    ``RGLRUCache`` and ``SSMCache`` namedtuples) -> the port's
+    ``LMCaches`` on ``device``, ``encoder_out`` included."""
     from repro_torch.models.attention import KVCache
-    out = []
-    for layer in _layer_trees(caches, cfg):
-        kv = layer["kv"]
-        out.append({"kv": KVCache(*(_tensor(a).to(device) for a in kv))})
-    return out
+    from repro_torch.models.model import LMCaches
+    from repro_torch.models.rglru import RGLRUCache
+    from repro_torch.models.ssm import SSMCache
+    kinds = {"kv": KVCache, "rglru": RGLRUCache, "ssm": SSMCache}
+    enc = caches.get("encoder_out")
+    return LMCaches(
+        ({key: kinds[key](*(_tensor(a).to(device) for a in st))
+          for key, st in layer.items()}
+         for layer in _layer_trees(caches, cfg)),
+        encoder_out=None if enc is None else _tensor(enc).to(device))

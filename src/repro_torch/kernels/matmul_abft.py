@@ -166,19 +166,32 @@ def y_planes_plain(y: torch.Tensor) -> torch.Tensor:
     return torch.stack(split3_plain(y)).contiguous()
 
 
+SPLIT_K_STEP = 16      # the f32 kernel's k-step: one wgmma m64n64k16 deep
+
+
 def matmul_split_plain(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     """Plain emulation of the f32 kernel's product: x (M, K) and y (K, N)
     split three ways (:func:`split3_plain`), D the f32 sum of the six
     products with i + j <= 2 (hi hi, hi mid, mid hi, hi lo, mid mid, lo
     hi), each an f32 product of exactly widened parts. The dropped ones
-    (mid lo, lo mid, lo lo) are at most 2^-23 |x||y| together."""
+    (mid lo, lo mid, lo lo) are at most 2^-23 |x||y| together.
+
+    In the kernel's order of adds: each 16-deep k-step's six products, in
+    that order, into a fresh f32 partial, the partial then added to D. (The
+    tensor cores' own order within one 16-deep product is not IEEE; an f32
+    sum of its 16 terms stands for it.)"""
     ref.full_f32(x.device)
     xs = [p.float() for p in split3_plain(x)]
     ys = [p.float() for p in split3_plain(y)]
     d = torch.zeros(x.shape[0], y.shape[1], dtype=torch.float32,
                     device=x.device)
-    for i, j in ((0, 0), (0, 1), (1, 0), (0, 2), (1, 1), (2, 0)):
-        d = d + xs[i] @ ys[j]
+    for k0 in range(0, x.shape[1], SPLIT_K_STEP):
+        ks = slice(k0, k0 + SPLIT_K_STEP)
+        part = None
+        for i, j in ((0, 0), (0, 1), (1, 0), (0, 2), (1, 1), (2, 0)):
+            prod = xs[i][:, ks] @ ys[j][ks]
+            part = prod if part is None else part + prod
+        d = d + part
     return d
 
 

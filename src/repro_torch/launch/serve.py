@@ -1,23 +1,27 @@
 """Serving launcher: micro-batched prefill + greedy decode on one device.
 
-The port of ``repro.launch.serve``. The request queue rides the generic
-micro-batching layer, :class:`~repro_torch.serve.MicroBatcher`. Each
-request submits its ``(1, prompt_len)`` prompt; the batcher coalesces a
-wave into one row-concatenated batch, the dispatch function pads it to the
-fixed batch, runs prefill + greedy decode once, and the batcher scatters
-each request its generated row. Weights are drawn from seed 0, as the
-reference draws them from ``PRNGKey(0)``.
+The port of ``repro.launch.serve``, for every arch of ``ARCH_IDS``. The
+request queue rides the generic micro-batching layer,
+:class:`~repro_torch.serve.MicroBatcher`. Each request submits its ``(1,
+prompt_len)`` prompt; the batcher coalesces a wave into one
+row-concatenated batch, the dispatch function pads it to the fixed batch,
+runs prefill + greedy decode once, and the batcher scatters each request
+its generated row. Weights are drawn from seed 0, as the
+reference draws them from ``PRNGKey(0)``. As there, whisper's wave gets
+zero ``audio_embeds`` (batch, encoder_seq, d_model) and qwen2-vl's zero
+``patch_embeds`` (batch, num_patches, d_model), f32.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch internlm2-1.8b \\
         --no-smoke --requests 8 --batch 4 --prompt-len 2048 --gen 32
-    PYTHONPATH=src python -m repro_torch.launch.serve --arch internlm2-1.8b \\
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-1.3b \\
         --smoke --device cpu --requests 2 --batch 2 --prompt-len 8 --gen 4
 
 The reference's ``--smoke`` is ``store_true`` with ``default=True``, so it
 can never build a full config; here ``--no-smoke`` does. ``main`` returns
 the run's figures (prefill and decode seconds per wave, measured with a
-device synchronise at each phase boundary) for callers such as
-``chip_smoke.py``.
+device synchronise at each phase boundary, and the flash kernel's launches
+by kernel) for callers such as ``chip_smoke.py``, and prints prefill ms a
+wave, decode ms a step and tokens/s.
 """
 import argparse
 import time
@@ -26,6 +30,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs import ARCH_IDS, get_config
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.models import LM
 from repro_torch.models.model import greedy
 from repro_torch.serve import MicroBatcher
@@ -35,6 +40,22 @@ def _clock(device: torch.device) -> float:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     return time.perf_counter()
+
+
+def frontend_inputs(cfg, batch: int, device) -> dict:
+    """The stub frontends' inputs of one wave, as the reference's launcher
+    gives them: zero audio frames (whisper), zero patch embeddings
+    (qwen2-vl), f32; an empty dict for text-only archs."""
+    out = {}
+    if cfg.frontend == "audio_stub":
+        out["audio_embeds"] = torch.zeros(
+            (batch, cfg.encoder_seq, cfg.d_model), dtype=torch.float32,
+            device=device)
+    if cfg.frontend == "vision_stub":
+        out["patch_embeds"] = torch.zeros(
+            (batch, cfg.num_patches, cfg.d_model), dtype=torch.float32,
+            device=device)
+    return out
 
 
 def main(argv=None) -> dict:
@@ -64,9 +85,11 @@ def main(argv=None) -> dict:
         if rows < args.batch:              # pad the tail wave
             prompts = np.concatenate(
                 [prompts, np.repeat(prompts[-1:], args.batch - rows, 0)])
-        tokens = torch.as_tensor(prompts, dtype=torch.int32, device=dev)
+        batch = frontend_inputs(cfg, args.batch, dev)
+        batch["tokens"] = torch.as_tensor(prompts, dtype=torch.int32,
+                                          device=dev)
         t0 = _clock(dev)
-        logits, caches = lm.prefill({"tokens": tokens}, max_len=max_len)
+        logits, caches = lm.prefill(batch, max_len=max_len)
         tok = greedy(logits)
         finite = torch.isfinite(logits).all()
         t1 = _clock(dev)
@@ -82,6 +105,7 @@ def main(argv=None) -> dict:
         stats["decode_steps"] += len(generated) - 1
         return torch.cat(generated, dim=1)[:rows], finite
 
+    launches0 = dict(fa.flash_attention.kernel_launches)
     batcher = MicroBatcher(generate)
     rng = np.random.default_rng(0)
     queue = [rng.integers(0, cfg.vocab_size, size=(1, args.prompt_len))
@@ -103,9 +127,18 @@ def main(argv=None) -> dict:
             print(f"served {served}/{args.requests} requests")
     dt = time.time() - t0
     where = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "CPU"
+    flash = {name: n - launches0[name]
+             for name, n in fa.flash_attention.kernel_launches.items()}
+    prefill_ms = [1e3 * t for t in stats["prefill_s"]]
+    decode_ms = 1e3 * sum(stats["decode_s"]) / max(stats["decode_steps"], 1)
+    print(f"{args.arch}: prefill {', '.join(f'{t:.1f}' for t in prefill_ms)}"
+          f" ms a wave, decode {decode_ms:.2f} ms a step, flash launches "
+          f"{flash}")
     print(f"{total_tokens} tokens in {dt:.1f}s "
           f"({total_tokens / dt:.1f} tok/s greedy, {where})")
     return dict(stats, served=served, requests=args.requests,
+                prefill_ms=prefill_ms, decode_ms_per_step=decode_ms,
+                tokens_per_s=total_tokens / dt, flash_launches=flash,
                 tokens=total_tokens, seconds=dt, finite=finite,
                 prompts=prompts,
                 generated=torch.cat(outs).numpy() if outs else None)

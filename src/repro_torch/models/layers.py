@@ -145,6 +145,17 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
     return out.to(x.dtype)
 
 
+def sinusoidal_positions(seq: int, d: int, offset: int = 0,
+                         device=None) -> torch.Tensor:
+    """Whisper-style fixed sinusoidal embeddings (seq, d) in f32: the sines
+    of the d/2 frequencies, then their cosines."""
+    pos = torch.arange(seq, dtype=torch.float32, device=device) + offset
+    dim = torch.arange(0, d, 2, dtype=torch.float32, device=device)
+    inv = torch.exp(-math.log(10_000.0) * dim / d)
+    ang = pos[:, None] * inv[None, :]
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
 # ---------------------------------------------------------------------------
 # Embedding / logits
 # ---------------------------------------------------------------------------

@@ -6,83 +6,176 @@ one block per layer in an ``nn.ModuleList`` and loops over it, and its
 caches are one dict per layer (``convert`` maps both stackings). One
 device, no mesh: the reference's sharding hints have no counterpart.
 
-Ported: dense decoders of ``ATTN`` and ``ATTN_LOCAL`` blocks (internlm2,
-gemma3, minicpm, nemotron). RG-LRU, SSD and MoE blocks, the encoder-decoder
-and the vision/audio frontends raise ``NotImplementedError`` naming the
-missing block or frontend.
+Every family of the reference: dense and MoE decoders (``ATTN`` and
+``ATTN_LOCAL`` blocks, the MoE FFN on every ``moe.interleave``-th layer),
+Mamba-2 (``SSM`` blocks, no FFN), the RecurrentGemma hybrid (``RGLRU``
+blocks), the vision stub's early fusion (patch embeddings over the first
+positions, M-RoPE grid positions for them) and the whisper-style
+encoder-decoder (a non-causal encoder over the audio frames with
+sinusoidal positions, a cross-attention in every decoder layer). The
+encoder runs in the model's activation dtype: the audio frames plus their
+positions are rounded to it once (the reference keeps the frames' dtype,
+so f32 frames would carry an f32 residual stream into a bf16 decoder).
 
 Weights are drawn from a seed (``init``), in f32 on the model's device,
-and cast to ``cfg.param_dtype``; they never require grad: serving runs
-without autograd, training is a later slice.
+and cast to ``cfg.param_dtype`` (f32 leaves of the SSD and RG-LRU blocks
+stay f32); they never require grad: serving runs without autograd,
+training is a later slice.
 """
 from __future__ import annotations
 
-from typing import Any
+from typing import Any, Optional
 
 import torch
 from torch import nn
 
 from repro_torch.api.estimator import resolve_device
-from repro_torch.configs.base import ATTN, ATTN_LOCAL, ArchConfig
+from repro_torch.configs.base import ATTN, ATTN_LOCAL, RGLRU, SSM, ArchConfig
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import layers as L
+from repro_torch.models import moe as moe_mod
+from repro_torch.models import rglru as rglru_mod
+from repro_torch.models import ssm as ssm_mod
 
-_LATER = "comes with a later slice of the port"
+KINDS = (ATTN, ATTN_LOCAL, RGLRU, SSM)
+FRONTENDS = ("none", "vision_stub", "audio_stub")
 
 
 def check_supported(cfg: ArchConfig) -> None:
-    """Raise ``NotImplementedError`` for what this slice does not port."""
-    if cfg.encoder_decoder:
-        raise NotImplementedError(f"{cfg.name}: the encoder-decoder {_LATER}")
-    if cfg.frontend != "none":
-        raise NotImplementedError(f"{cfg.name}: the {cfg.frontend} frontend "
-                                  f"{_LATER}")
-    if cfg.moe is not None:
-        raise NotImplementedError(f"{cfg.name}: MoE blocks {_LATER}")
+    """Raise ``ValueError`` for a block kind or frontend no model has."""
+    if cfg.frontend not in FRONTENDS:
+        raise ValueError(f"{cfg.name}: unknown frontend {cfg.frontend!r}")
     for i in range(cfg.num_layers):
-        kind = cfg.pattern_for_layer(i)
-        if kind not in (ATTN, ATTN_LOCAL):
-            raise NotImplementedError(f"{cfg.name}: {kind!r} blocks {_LATER}")
+        if cfg.pattern_for_layer(i) not in KINDS:
+            raise ValueError(f"{cfg.name}: unknown block kind "
+                             f"{cfg.pattern_for_layer(i)!r}")
 
 
-def _frozen(params: dict) -> nn.ParameterDict:
-    return nn.ParameterDict({name: nn.Parameter(t, requires_grad=False)
-                             for name, t in params.items()})
+def _moe_on_layer(cfg: ArchConfig, layer_idx: int) -> bool:
+    return cfg.moe is not None and \
+        layer_idx % cfg.moe.interleave == cfg.moe.interleave - 1
+
+
+class Params(nn.Module):
+    """A (nested) dict of frozen parameters, indexed like the dict: tensors
+    become ``nn.Parameter``s that never require grad, sub-dicts (MoE's
+    ``shared`` MLP, the SSD block's ``norm``) ``Params`` of their own, so
+    the state-dict keys are the dotted paths of the reference's tree."""
+
+    def __init__(self, params: dict):
+        super().__init__()
+        for name, v in params.items():
+            if isinstance(v, dict):
+                self.add_module(name, Params(v))
+            else:
+                self.register_parameter(
+                    name, nn.Parameter(v, requires_grad=False))
+
+    def __getitem__(self, name: str):
+        return getattr(self, name)
+
+    def __contains__(self, name: str) -> bool:
+        return name in self._parameters or name in self._modules
 
 
 class Block(nn.Module):
-    """One decoder layer: norm -> attention -> residual, norm -> MLP ->
-    residual. ``kind`` is ``ATTN`` or ``ATTN_LOCAL`` (ring-buffer window)."""
+    """One layer: norm -> mixer -> residual, [norm -> cross-attention ->
+    residual], [norm -> MLP or MoE -> residual]. The mixer is attention
+    (``ATTN``, or ``ATTN_LOCAL`` with a ring-buffer window), an RG-LRU or
+    an SSD block; SSD blocks have no FFN."""
 
     def __init__(self, cfg: ArchConfig, kind: str, gen: torch.Generator,
-                 dtype: torch.dtype):
+                 dtype: torch.dtype, *, moe: bool = False,
+                 cross: bool = False):
         super().__init__()
         dev = gen.device
-        self.cfg = cfg
+        self.cfg, self.kind, self.cross_attends = cfg, kind, cross
         self.window = cfg.local_window if kind == ATTN_LOCAL else 0
-        self.norm1 = _frozen(L.init_rmsnorm(cfg.d_model, dtype, dev))
-        self.mix = _frozen(attn_mod.init_attention(gen, cfg, dtype))
-        self.norm2 = _frozen(L.init_rmsnorm(cfg.d_model, dtype, dev))
-        self.ffn = _frozen(L.init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.mlp_act,
-                                      dtype))
+        self.norm1 = Params(L.init_rmsnorm(cfg.d_model, dtype, dev))
+        if kind in (ATTN, ATTN_LOCAL):
+            self.mix = Params(attn_mod.init_attention(gen, cfg, dtype))
+        elif kind == RGLRU:
+            self.mix = Params(rglru_mod.init_rglru(gen, cfg, dtype))
+        elif kind == SSM:
+            self.mix = Params(ssm_mod.init_ssm(gen, cfg, dtype))
+        else:
+            raise ValueError(kind)
+        if cross:
+            self.norm_x = Params(L.init_rmsnorm(cfg.d_model, dtype, dev))
+            self.cross = Params(attn_mod.init_attention(gen, cfg, dtype))
+        self.moe = moe and kind != SSM
+        if kind != SSM:
+            self.norm2 = Params(L.init_rmsnorm(cfg.d_model, dtype, dev))
+            self.ffn = Params(moe_mod.init_moe(gen, cfg, dtype) if self.moe
+                              else L.init_mlp(gen, cfg.d_model, cfg.d_ff,
+                                              cfg.mlp_act, dtype))
+
+    def init_cache(self, batch: int, max_len: int, dtype: torch.dtype,
+                   device) -> dict:
+        """This layer's empty decode cache."""
+        if self.kind == RGLRU:
+            return {"rglru": rglru_mod.init_cache(self.cfg, batch, dtype,
+                                                  device)}
+        if self.kind == SSM:
+            return {"ssm": ssm_mod.init_cache(self.cfg, batch, dtype,
+                                              device)}
+        return {"kv": attn_mod.init_cache(self.cfg, batch, max_len,
+                                          window=self.window, dtype=dtype,
+                                          device=device)}
 
     def forward(self, x, *, positions, cache=None, pos=None,
-                make_cache=False, max_len=0, causal=True):
-        """Returns (x, new_cache)."""
+                make_cache=False, max_len=0, causal=True, encoder_out=None):
+        """Returns (x, the new cache or None, the MoE aux loss)."""
         cfg = self.cfg
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
         h = L.rmsnorm(self.norm1, x, cfg.norm_eps)
-        out, kv = attn_mod.apply_attention(
-            cfg, self.mix, h, positions=positions, causal=causal,
-            window=self.window, cache=cache["kv"] if cache else None, pos=pos,
-            make_cache=make_cache, max_len=max_len)
+        if self.kind in (ATTN, ATTN_LOCAL):
+            out, st = attn_mod.apply_attention(
+                cfg, self.mix, h, positions=positions, causal=causal,
+                window=self.window, cache=cache["kv"] if cache else None,
+                pos=pos, make_cache=make_cache, max_len=max_len)
+            key = "kv"
+        else:
+            if make_cache and cache is None:
+                cache = self.init_cache(x.shape[0], max_len, x.dtype,
+                                        x.device)
+            key = "rglru" if self.kind == RGLRU else "ssm"
+            apply = rglru_mod.apply_rglru if self.kind == RGLRU \
+                else ssm_mod.apply_ssm
+            out, st = apply(cfg, self.mix, h,
+                            cache=cache[key] if cache else None)
         x = x + out
-        h = L.rmsnorm(self.norm2, x, cfg.norm_eps)
-        x = x + L.apply_mlp(self.ffn, h, cfg.mlp_act)
-        return x, (None if kv is None else {"kv": kv})
+
+        if self.cross_attends and encoder_out is not None:
+            h = L.rmsnorm(self.norm_x, x, cfg.norm_eps)
+            out, _ = attn_mod.apply_attention(cfg, self.cross, h,
+                                              positions=positions,
+                                              kv_input=encoder_out)
+            x = x + out
+
+        if self.kind != SSM:
+            h = L.rmsnorm(self.norm2, x, cfg.norm_eps)
+            if self.moe:
+                out, aux = moe_mod.apply_moe(cfg, self.ffn, h)
+            else:
+                out = L.apply_mlp(self.ffn, h, cfg.mlp_act)
+            x = x + out
+        return x, (None if st is None else {key: st}), aux
+
+
+class LMCaches(list):
+    """Decode caches: one dict a decoder layer (``{"kv": KVCache}``,
+    ``{"rglru": RGLRUCache}`` or ``{"ssm": SSMCache}``), and for an
+    encoder-decoder the encoder's output, ``encoder_out`` (else None)."""
+
+    def __init__(self, layers=(), encoder_out: Optional[torch.Tensor] = None):
+        super().__init__(layers)
+        self.encoder_out = encoder_out
 
 
 class LM(nn.Module):
-    """A decoder LM on one device (``"cuda"`` unless asked for the CPU)."""
+    """An LM of any family on one device (``"cuda"`` unless asked for the
+    CPU)."""
 
     def __init__(self, cfg: ArchConfig, *, device: Any = "cuda",
                  seed: int = 0):
@@ -100,76 +193,129 @@ class LM(nn.Module):
         cfg = self.cfg
         dtype = getattr(torch, cfg.param_dtype)
         gen = torch.Generator(device=self.device).manual_seed(seed)
-        self.embed = _frozen(L.init_embed(gen, cfg.padded_vocab, cfg.d_model,
-                                          dtype, cfg.tie_embeddings))
-        self.final_norm = _frozen(L.init_rmsnorm(cfg.d_model, dtype,
-                                                 self.device))
+        self.embed = Params(L.init_embed(gen, cfg.padded_vocab, cfg.d_model,
+                                         dtype, cfg.tie_embeddings))
+        self.final_norm = Params(L.init_rmsnorm(cfg.d_model, dtype,
+                                                self.device))
         self.layers = nn.ModuleList(
-            Block(cfg, cfg.pattern_for_layer(i), gen, dtype)
+            Block(cfg, cfg.pattern_for_layer(i), gen, dtype,
+                  moe=_moe_on_layer(cfg, i), cross=cfg.encoder_decoder)
             for i in range(cfg.num_layers))
+        self.encoder = nn.ModuleList(
+            Block(cfg, ATTN, gen, dtype, moe=_moe_on_layer(cfg, 0))
+            for _ in range(cfg.encoder_layers if cfg.encoder_decoder else 0))
         return self
 
     # -- embedding / positions ----------------------------------------------
 
-    def _positions(self, b: int, s: int, offset: int = 0) -> torch.Tensor:
-        return (torch.arange(s, dtype=torch.int32, device=self.device)
-                + offset)[None, :].expand(b, s)
+    def _positions(self, batch: dict, b: int, s: int,
+                   offset: int = 0) -> torch.Tensor:
+        """(B, S) positions, or (B, S, 3) M-RoPE streams (t, h, w): the
+        fused patch prefix of a prefill takes its grid's (0, row, column)."""
+        base = torch.arange(s, dtype=torch.int32, device=self.device) + offset
+        if not self.cfg.mrope_sections:
+            return base[None, :].expand(b, s)
+        pos = base[None, :, None].expand(b, s, 3).clone()
+        if "patch_embeds" in batch and offset == 0:
+            npatch = batch["patch_embeds"].shape[1]
+            side = max(int(npatch ** 0.5), 1)
+            idx = torch.arange(npatch, dtype=torch.int32, device=self.device)
+            pos[:, :npatch] = torch.stack(
+                [torch.zeros_like(idx), idx // side, idx % side], dim=-1)
+        return pos
 
-    def _embed_inputs(self, tokens: torch.Tensor) -> torch.Tensor:
-        x = L.embed(self.embed, tokens)
+    def _embed_inputs(self, batch: dict) -> torch.Tensor:
+        x = L.embed(self.embed, batch["tokens"])
+        if self.cfg.frontend == "vision_stub" and "patch_embeds" in batch:
+            patches = batch["patch_embeds"]
+            x = torch.cat([patches.to(x.dtype), x[:, patches.shape[1]:]],
+                          dim=1)
         return L.scaled(x, self.cfg.d_model ** 0.5)
 
     def _head(self, x: torch.Tensor) -> torch.Tensor:
         x = L.rmsnorm(self.final_norm, x, self.cfg.norm_eps)
         return L.logits(self.embed, x, tie=self.cfg.tie_embeddings)
 
+    # -- encoder (whisper) ----------------------------------------------------
+
+    def encode(self, audio_embeds: torch.Tensor) -> torch.Tensor:
+        """The encoder stack over (B, S, D) audio frames (non-causal, with
+        sinusoidal positions), in the model's activation dtype."""
+        b, s, d = audio_embeds.shape
+        sin = L.sinusoidal_positions(s, d, device=audio_embeds.device)
+        x = (audio_embeds + sin.to(audio_embeds.dtype)[None]).to(self.dtype)
+        positions = torch.arange(s, dtype=torch.int32,
+                                 device=self.device)[None, :].expand(b, s)
+        for layer in self.encoder:
+            x, _, _ = layer(x, positions=positions, causal=False)
+        return x
+
+    def _encoder_out(self, batch: dict) -> Optional[torch.Tensor]:
+        if not self.cfg.encoder_decoder:
+            return None
+        return self.encode(batch["audio_embeds"].to(self.device))
+
     # -- full-sequence forward -----------------------------------------------
 
     def forward(self, batch: dict):
-        """Full-sequence forward. Returns (logits f32, aux_loss), aux 0 for
-        the dense blocks ported here."""
+        """Full-sequence forward. Returns (logits f32, aux_loss): the summed
+        MoE load-balancing loss (0 without MoE layers)."""
         tokens = batch["tokens"]
         b, s = tokens.shape
-        x = self._embed_inputs(tokens)
-        positions = self._positions(b, s)
+        x = self._embed_inputs(batch)
+        positions = self._positions(batch, b, s)
+        encoder_out = self._encoder_out(batch)
+        aux = torch.zeros((), dtype=torch.float32, device=self.device)
         for layer in self.layers:
-            x, _ = layer(x, positions=positions)
-        return self._head(x), torch.zeros((), device=self.device)
+            x, _, a = layer(x, positions=positions, encoder_out=encoder_out)
+            aux = aux + a
+        return self._head(x), aux
 
     # -- serving --------------------------------------------------------------
 
-    def init_caches(self, batch: int, max_len: int) -> list[dict]:
-        """Empty caches, one dict per layer (ring buffers on local layers)."""
-        return [{"kv": attn_mod.init_cache(self.cfg, batch, max_len,
-                                           window=layer.window,
-                                           dtype=self.dtype,
-                                           device=self.device)}
-                for layer in self.layers]
+    def init_caches(self, batch: int, max_len: int) -> LMCaches:
+        """Empty caches: one dict a layer (ring buffers on local layers,
+        zero states on RG-LRU and SSD layers), and zero encoder states."""
+        enc = None
+        if self.cfg.encoder_decoder:
+            enc = torch.zeros((batch, self.cfg.encoder_seq, self.cfg.d_model),
+                              dtype=self.dtype, device=self.device)
+        return LMCaches((layer.init_cache(batch, max_len, self.dtype,
+                                          self.device)
+                         for layer in self.layers), encoder_out=enc)
 
     def prefill(self, batch: dict, max_len: int):
         """Forward over the prompt, building decode caches.
 
-        Returns (logits (B, S, V) f32, caches)."""
+        Returns (logits (B, S, V) f32, caches); an encoder-decoder keeps the
+        encoder's output in ``caches.encoder_out``."""
         tokens = batch["tokens"]
         b, s = tokens.shape
-        x = self._embed_inputs(tokens)
-        positions = self._positions(b, s)
-        caches = []
+        x = self._embed_inputs(batch)
+        positions = self._positions(batch, b, s)
+        encoder_out = self._encoder_out(batch)
+        caches = LMCaches(encoder_out=encoder_out)
         for layer in self.layers:
-            x, c = layer(x, positions=positions, make_cache=True,
-                         max_len=max_len)
+            x, c, _ = layer(x, positions=positions, make_cache=True,
+                            max_len=max_len, encoder_out=encoder_out)
             caches.append(c)
         return self._head(x), caches
 
-    def decode_step(self, caches: list[dict], tokens: torch.Tensor, pos: int):
+    def decode_step(self, caches: list, tokens: torch.Tensor, pos: int, *,
+                    encoder_out: Optional[torch.Tensor] = None):
         """One token for every sequence. tokens (B, 1), pos an int.
 
-        Writes the token's keys and values into ``caches`` in place and
-        returns (logits (B, 1, V) f32, caches)."""
-        x = self._embed_inputs(tokens)
-        positions = self._positions(tokens.shape[0], 1, offset=int(pos))
+        Writes the token's keys and values into ``caches`` in place (and
+        each RG-LRU / SSD layer's new state into its dict) and returns
+        (logits (B, 1, V) f32, caches)."""
+        if encoder_out is None:
+            encoder_out = getattr(caches, "encoder_out", None)
+        x = self._embed_inputs({"tokens": tokens})
+        positions = self._positions({}, tokens.shape[0], 1, offset=int(pos))
         for layer, cache in zip(self.layers, caches):
-            x, _ = layer(x, positions=positions, cache=cache, pos=pos)
+            x, new, _ = layer(x, positions=positions, cache=cache, pos=pos,
+                              encoder_out=encoder_out)
+            cache.update(new)
         return self._head(x), caches
 
 
@@ -178,4 +324,4 @@ def greedy(logits: torch.Tensor) -> torch.Tensor:
     return torch.argmax(logits[:, -1:], dim=-1).to(torch.int32)
 
 
-__all__ = ["LM", "Block", "check_supported", "greedy"]
+__all__ = ["LM", "LMCaches", "Block", "Params", "check_supported", "greedy"]

@@ -1,9 +1,13 @@
 """The port's LM serving stack against the reference, on the CPU.
 
-Configs, ``ft_einsum``, the layers, and the internlm2 and gemma3 SMOKE
-models (forward, prefill logits and caches, decode steps) with weights
+Configs, ``ft_einsum``, the layers, and the dense SMOKE models (internlm2,
+gemma3's ring buffer, minicpm's head dim 64 and padded vocab, nemotron's
+squared ReLU and untied embeddings: forward, prefill logits and caches,
+decode steps) with weights
 carried across by ``convert.lm_params_from_reference``; the micro-batcher
-and the launcher. SMOKE configs run in f32; XLA and PyTorch sum in other
+and the launcher, for every arch. The other families have files of their own
+(``tests/test_torch_lm_{moe,ssm,rglru,encdec}.py``). SMOKE configs run in
+f32; XLA and PyTorch sum in other
 orders, so logits are held within ``LOGIT_RTOL`` x max|logit| and greedy
 tokens must be equal. Inputs are made from a seed with numpy.
 """
@@ -26,11 +30,14 @@ from repro_torch.ft import abft_dense as t_abft  # noqa: E402
 from repro_torch.launch import serve as t_serve  # noqa: E402
 from repro_torch.models import LM  # noqa: E402
 from repro_torch.models import layers as t_layers  # noqa: E402
+from repro_torch.models.model import check_supported  # noqa: E402
 from repro_torch.serve import MicroBatcher  # noqa: E402
 
 LOGIT_RTOL = 1e-4          # x max|logit|, f32 through a few layers
 DECODE_RTOL = 2e-4         # the reference's decode-vs-forward bar
-ARCHS = ("internlm2-1.8b", "gemma3-4b")   # gemma3: ATTN_LOCAL + ring buffer
+# gemma3: ATTN_LOCAL + ring buffer; minicpm: hd 64, vocab 509 padded to
+# 512; nemotron: relu2, untied embeddings
+ARCHS = ("internlm2-1.8b", "gemma3-4b", "minicpm-2b", "nemotron-4-15b")
 
 
 # --- configs ----------------------------------------------------------------
@@ -46,13 +53,37 @@ def test_configs_equal_reference(arch, smoke):
     assert ours.resolved_head_dim == theirs.resolved_head_dim
 
 
-@pytest.mark.parametrize("arch", ["mamba2-1.3b", "recurrentgemma-9b",
-                                  "olmoe-1b-7b", "whisper-medium",
-                                  "qwen2-vl-7b",
-                                  "llama4-maverick-400b-a17b"])
-def test_later_slices_raise(arch):
-    with pytest.raises(NotImplementedError, match="later slice"):
-        LM(get_config(arch, smoke=True), device="cpu")
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_every_arch_builds_and_serves(arch):
+    """Every SMOKE config builds on the CPU (``check_supported`` refuses
+    none) and serves a prefill and two decode steps with finite logits;
+    ``init_caches`` gives each layer the cache kind of its block."""
+    cfg = get_config(arch, smoke=True)
+    check_supported(cfg)
+    lm = LM(cfg, device="cpu")
+    batch = t_serve.frontend_inputs(cfg, 2, "cpu")
+    batch["tokens"] = torch.from_numpy(_tokens(cfg, 2, 20, 7))
+    with torch.no_grad():
+        logits, caches = lm.prefill(batch, max_len=22)
+        for t in (20, 21):
+            step, caches = lm.decode_step(caches, batch["tokens"][:, -1:], t)
+            assert step.shape == (2, 1, cfg.padded_vocab)
+            assert bool(torch.isfinite(step).all())
+    assert logits.shape == (2, 20, cfg.padded_vocab)
+    assert bool(torch.isfinite(logits).all())
+    kinds = {"attn": "kv", "attn_local": "kv", "rglru": "rglru", "ssd": "ssm"}
+    empty = lm.init_caches(2, 22)
+    for i, (c, e) in enumerate(zip(caches, empty)):
+        assert c.keys() == e.keys() == {kinds[cfg.pattern_for_layer(i)]}
+    assert (caches.encoder_out is None) == (not cfg.encoder_decoder)
+
+
+def test_check_supported_refuses_unknown_blocks():
+    cfg = get_config("internlm2-1.8b", smoke=True)
+    with pytest.raises(ValueError, match="block kind"):
+        check_supported(dataclasses.replace(cfg, layer_pattern=("mlp",)))
+    with pytest.raises(ValueError, match="frontend"):
+        check_supported(dataclasses.replace(cfg, frontend="video"))
 
 
 def test_lm_defaults_to_cuda():
@@ -369,8 +400,11 @@ def test_batcher_submit_rejects_non_batches():
 
 # --- the launcher -------------------------------------------------------------
 
-@pytest.mark.parametrize("arch,prompt", [("internlm2-1.8b", 8),
-                                         ("gemma3-4b", 20)])
+@pytest.mark.parametrize("arch,prompt", [
+    ("internlm2-1.8b", 8), ("gemma3-4b", 20), ("minicpm-2b", 8),
+    ("nemotron-4-15b", 8), ("mamba2-1.3b", 8), ("recurrentgemma-9b", 20),
+    ("olmoe-1b-7b", 8), ("llama4-maverick-400b-a17b", 8),
+    ("whisper-medium", 8), ("qwen2-vl-7b", 20)])
 def test_launcher_serves_on_cpu(arch, prompt, capsys):
     out = t_serve.main(["--arch", arch, "--smoke", "--device", "cpu",
                         "--requests", "2", "--batch", "2", "--gen", "4",
@@ -380,10 +414,14 @@ def test_launcher_serves_on_cpu(arch, prompt, capsys):
     assert out["served"] == 2 and out["tokens"] == 8 and out["finite"]
     assert out["decode_steps"] == 3 and len(out["prefill_s"]) == 1
     assert out["generated"].shape == (2, 4)
+    assert len(out["prefill_ms"]) == 1 and out["tokens_per_s"] > 0
+    assert sum(out["flash_launches"].values()) == 0     # the CPU route
     # the launcher's greedy tokens are the model's own greedy decode
-    lm = LM(get_config(arch, smoke=True), device="cpu", seed=0)
-    toks = torch.from_numpy(out["prompts"]).to(torch.int32)
-    logits, caches = lm.prefill({"tokens": toks}, max_len=prompt + 4)
+    cfg = get_config(arch, smoke=True)
+    lm = LM(cfg, device="cpu", seed=0)
+    batch = t_serve.frontend_inputs(cfg, 2, "cpu")
+    batch["tokens"] = torch.from_numpy(out["prompts"]).to(torch.int32)
+    logits, caches = lm.prefill(batch, max_len=prompt + 4)
     tok = logits[:, -1:].argmax(-1).to(torch.int32)
     gen = [tok]
     for t in range(prompt, prompt + 3):
