@@ -240,6 +240,32 @@ Phases, one line each:
      decode step and idle shares (``torch.profiler``); the bf16 / fp16
      prefill and decode kernels' registers and spills. Phase 16's flash
      launches are added to the two flash rows of the kernels line.
+ 17. training (``repro_torch.train``): the flash kernel's gradient, the
+     forward kernel with its row log-sum-exp output (bit for bit the
+     output without it; the lse against the plain logsumexp) and the
+     three backward kernels of ``csrc/fk_attention_bwd.cu`` against
+     ``flash_attention_backward_plain`` at internlm2-1.8b's training shape
+     (a micro-batch of 2 x 4096, H 16, KV 8, hd 128, causal) and at hd 64,
+     GQA groups 1 / 2 / 7, a window, non-causal, ragged and empty-row cases
+     and fp16, each under twice the plain version's own bf16 rounding
+     floor with a control (one key dropped from the backward's mask) that
+     must break it, two launches bit for bit, f32 and hd 256 with grad
+     refused; then internlm2-1.8b at full width and depth (seeded
+     weights), the reference's train_4k step cut to a global batch of 8 x
+     4096 in 4 micro-batches: the first micro-batch's loss and worst
+     per-leaf gradient norm through the kernel route within
+     FAMILY_FLOOR_FACTOR times the plain attention route's distance from
+     itself with P V in f32, a control (dq scaled by DQ_CONTROL_SCALE)
+     that must break the leaf bar; 5 AdamW steps through the launcher's
+     command (``launch.train.main``: ``--arch internlm2-1.8b --seq 4096
+     --batch 8 --grad-accum 4 --steps 5 --ckpt-every 0``) with a finite
+     loss, the backward kernels' launches counted over them and gated,
+     step ms, tokens/s, peak memory; on the launcher's state once more a
+     ``torch.profiler`` trace of a step (idle share, and the device time
+     of the step's forward / backward / accumulate / optimizer
+     ``record_function`` ranges) and one ``cfg.abft`` step beside; the
+     backward kernels' rows (their launches the 5 steps'; the forward
+     launches are added to the flash_attention row).
 
 A kernel's bound counts the work of the function at the true M, K and F,
 not at the padded tile grid; the padded figures are printed beside it.
@@ -255,6 +281,7 @@ import json
 import math
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -366,6 +393,34 @@ FAMILY_DECODE_RTOL = 2e-4
 SERVE_BUCKETS = (128, 512, 2048)
 SERVE_SIZES = (0, 1, 127, 128, 129, 2048, 5000)
 STREAM_REQUESTS, STREAM_MAX_ROWS, STREAM_THREADS = 1000, 8192, 8
+# phase 17: internlm2-1.8b training at full width and depth, the train_4k
+# step (seq 4096, global batch 256) cut to a global batch of 8 in 4
+# micro-batches of 2 x 4096 on one card; 5 steps at the reference
+# launcher's lr; the backward kernels held to twice the plain version's own
+# rounding floor (the plain gradient with P and dS rounded where the kernels
+# round them, and the result in the input dtype, against it in f32)
+TRAIN_ARCH, TRAIN_SEQ, TRAIN_BATCH, TRAIN_ACCUM = "internlm2-1.8b", 4096, 8, 4
+TRAIN_STEPS, TRAIN_LR = 5, 3e-4
+# the first step's control: every layer's dq scaled by this (a gradient 3 %
+# off), which FAMILY_FLOOR_FACTOR times the plain route's own floor must
+# catch
+DQ_CONTROL_SCALE = 0.97
+BWD_FLOOR_FACTOR = 2.0
+# the forward's lse against the plain logsumexp (f32, ex2.approx in the
+# kernel's sums: ~1e-6 measured)
+LSE_ATOL = 1e-4
+# name: (B, H, KV, Sq, Skv, hd, causal, window, query holes, key holes,
+# dtype)
+BWD_CASES = {
+    "internlm2_train": (2, 16, 8, 4096, 4096, 128, True, 0, (), (), "bf16"),
+    "hd64_g1_noncausal": (2, 4, 4, 300, 333, 64, False, 0, (), (), "bf16"),
+    "g2_ragged": (1, 4, 2, 1000, 1300, 128, True, 0, (), (), "bf16"),
+    "g7_window": (1, 7, 1, 500, 500, 128, True, 100, (), (), "bf16"),
+    "empty_rows": (1, 4, 2, 200, 200, 128, True, 0, (0, 77, 199),
+                   tuple(range(50, 60)), "bf16"),
+    "fp16_hd64": (1, 4, 2, 257, 257, 64, True, 0, (), (), "fp16"),
+    "sq5": (2, 4, 2, 5, 40, 128, True, 0, (), (), "bf16"),
+}
 ABFT_TILE_CASES = (((8, 128, 32), (1000, 96, 300)),
                    ((40, 128, 32), (1000, 160, 500)),
                    ((24, 128, 32), (3000, 64, 4000)),
@@ -1356,12 +1411,50 @@ def phase_batched_kernels(torch, ops, hw, ll, kpp) -> dict:
     return out
 
 
-def device_trace(torch, fn) -> dict:
+def range_split(prof, names) -> dict:
+    """The device time of each ``record_function`` range of ``names`` in a
+    finished ``torch.profiler`` trace: every kernel, copy and set is
+    charged to the range whose host interval (on any thread: the autograd
+    engine launches the backward from a thread of its own) holds the
+    runtime call that launched it, matched by CUPTI correlation id. Each
+    range's host ms beside; ``attributed_share`` is the device time so
+    charged over all of it."""
+    from torch.autograd import DeviceType
+    events = prof.profiler.kineto_results.events()
+    spans = {n: [] for n in names}
+    launched, device = {}, []
+    for e in events:
+        name = e.name()
+        if e.device_type() == DeviceType.CPU:
+            if name in spans:
+                spans[name].append((e.start_ns(), e.end_ns()))
+            elif name.startswith("cu"):
+                launched[e.correlation_id()] = e.start_ns()
+        elif e.device_type() == DeviceType.CUDA and name not in spans \
+                and not getattr(e, "is_user_annotation", lambda: False)():
+            device.append((e.correlation_id(), e.duration_ns()))
+    out = {n: {"host_ms": sum(b - a for a, b in sp) / 1e6, "device_ms": 0.0,
+               "count": len(sp)} for n, sp in spans.items()}
+    total = 0.0
+    for corr, dur in device:
+        total += dur / 1e6
+        at = launched.get(corr)
+        for n, sp in spans.items():
+            if at is not None and any(a <= at <= b for a, b in sp):
+                out[n]["device_ms"] += dur / 1e6
+                break
+    got = sum(r["device_ms"] for r in out.values())
+    return {"ranges": out, "device_ms": total,
+            "attributed_share": got / total if total else None}
+
+
+def device_trace(torch, fn, ranges=()) -> dict:
     """Run ``fn`` once under ``torch.profiler`` (CPU and CUDA activity):
     the kernels it put on the card, the card's busy time (the union of its
     kernel, copy and set intervals) against the traced wall time, and the
-    five kernels that took the most device time. Busy and idle are None
-    when the trace holds no device event."""
+    five kernels that took the most device time; with ``ranges``, the
+    :func:`range_split` of those ``record_function`` ranges. Busy and idle
+    are None when the trace holds no device event."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -1372,7 +1465,9 @@ def device_trace(torch, fn) -> dict:
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
     dev = sorted((e.time_range.start, e.time_range.end, e.name)
-                 for e in prof.events() if e.device_type == DeviceType.CUDA)
+                 for e in prof.events() if e.device_type == DeviceType.CUDA
+                 and e.name not in ranges
+                 and not getattr(e, "is_user_annotation", False))
     busy_us, reach = 0.0, float("-inf")
     for start, end, _ in dev:
         busy_us += max(0.0, end - max(start, reach))
@@ -1383,10 +1478,13 @@ def device_trace(torch, fn) -> dict:
         per_name[name] = per_name.get(name, 0.0) + (end - start) / 1e3
     top = sorted(per_name.items(), key=lambda kv: -kv[1])[:5]
     busy_ms = busy_us / 1e3 if dev else None
-    return {"kernels": len(kernels), "device_events": len(dev),
-            "busy_ms": busy_ms, "wall_ms": wall_ms,
-            "idle_share": None if busy_ms is None else 1.0 - busy_ms / wall_ms,
-            "top_kernels_ms": {name[:80]: ms for name, ms in top}}
+    rec = {"kernels": len(kernels), "device_events": len(dev),
+           "busy_ms": busy_ms, "wall_ms": wall_ms,
+           "idle_share": None if busy_ms is None else 1.0 - busy_ms / wall_ms,
+           "top_kernels_ms": {name[:80]: ms for name, ms in top}}
+    if ranges:
+        rec["split"] = range_split(prof, ranges)
+    return rec
 
 
 def seeds_are_rows(torch, x, seeds) -> bool:
@@ -5109,6 +5207,403 @@ def serve_stream(torch, np, KMeans, KMeansService, km_off, x_host,
     return rec, counts
 
 
+
+def bwd_case(torch, fa, hw, name: str, gen) -> tuple[dict, tuple]:
+    """One case of BWD_CASES: the forward with and without lse (bit for bit
+    where both run the prefill kernel, Sq > 16), the lse against the plain
+    logsumexp, dq / dk / dv from the kernels against
+    ``flash_attention_backward_plain`` in f32 under BWD_FLOOR_FACTOR times
+    the plain version's own rounding floor, a control that must break that
+    bar (the backward given a mask without the key of the largest |dv|),
+    two launches bit for bit. Returns (record, the case's tensors)."""
+    b, h, kv, sq, skv, hd, causal, window, qholes, kholes, dt = \
+        BWD_CASES[name]
+    dtype = {"bf16": torch.bfloat16, "fp16": torch.float16}[dt]
+
+    def draw(*shape):
+        return torch.randn(*shape, generator=gen, device=DEV)
+    q = (draw(b, h, sq, hd) * hd ** -0.5).to(dtype)
+    k, v, do = (draw(*sh).to(dtype) for sh in
+                ((b, kv, skv, hd), (b, kv, skv, hd), (b, h, sq, hd)))
+    qpos = torch.arange(skv - sq, skv, dtype=torch.int32, device=DEV)
+    kpos = torch.arange(skv, dtype=torch.int32, device=DEV)
+    qpos[list(qholes)] = -5
+    kpos[list(kholes)] = -1
+    opts = dict(causal=causal, window=window)
+    out, lse = fa._launch(q, k, v, qpos, kpos, causal, window, True,
+                          with_lse=True)
+    with torch.no_grad():
+        out0 = fa.flash_attention(q, k, v, qpos, kpos, zero_empty_rows=True,
+                                  **opts)
+    rec = {"shape": [b, h, kv, sq, skv, hd], "dtype": dt, **opts,
+           "forward_with_lse_bitwise": bool(torch.equal(out, out0))}
+    if sq > hw.FLASH_DECODE_MAX_SQ:
+        expect(rec["forward_with_lse_bitwise"], f"backward {name}: the "
+               f"forward with lse is not bit for bit the forward without")
+    lse_p = fa.flash_lse_plain(q, k, qpos, kpos, **opts)
+    fin = torch.isfinite(lse_p)
+    expect(bool(torch.equal(torch.isinf(lse), ~fin)),
+           f"backward {name}: lse's +inf rows are not the empty rows")
+    rec["lse_err"] = float((lse[fin] - lse_p[fin]).abs().max())
+    expect(rec["lse_err"] <= LSE_ATOL, f"backward {name}: lse error "
+           f"{rec['lse_err']} > {LSE_ATOL}")
+    got = fa.flash_attention_backward(q, k, v, out, do, lse, qpos, kpos,
+                                      **opts)
+    again = fa.flash_attention_backward(q, k, v, out, do, lse, qpos, kpos,
+                                        **opts)
+    rec["two_launches_bitwise"] = all(bool(torch.equal(a, c))
+                                      for a, c in zip(got, again))
+    expect(rec["two_launches_bitwise"], f"backward {name}: two launches "
+           f"differ")
+    del again
+    f32 = [t.float() for t in (q, k, v, out, do)]
+    want = fa.flash_attention_backward_plain(*f32, lse_p, qpos, kpos, **opts)
+    rounded = fa.flash_attention_backward_plain(*f32, lse_p, qpos, kpos,
+                                                round_to=dtype, **opts)
+    errs, ctrl = {}, {}
+    for n, g, w, r in zip("qkv", got, want, rounded):
+        floor = float((r.to(dtype).float() - w).abs().max())
+        err = float((g.float() - w).abs().max())
+        bar = BWD_FLOOR_FACTOR * floor
+        errs["d" + n] = {"err": err, "floor": floor, "bar": bar,
+                         "err_over_bar": err / bar,
+                         "max": float(w.abs().max())}
+        expect(bool(torch.isfinite(g).all()) and err <= bar,
+               f"backward {name} d{n}: error {err} > {bar} (floor {floor})")
+    del rounded, f32
+    j = int(want[2].abs().amax(dim=(0, 1, 3)).argmax())
+    seen = kpos.clone()
+    seen[j] = -1
+    bad = fa.flash_attention_backward(q, k, v, out, do, lse, qpos, seen,
+                                      **opts)
+    for n, g, w in zip("qkv", bad, want):
+        ctrl["d" + n] = float((g.float() - w).abs().max()) \
+            / errs["d" + n]["bar"]
+    expect(max(ctrl.values()) > 1.0, f"backward {name}: control (key {j} "
+           f"dropped) within the bars {ctrl}; the bars would not catch it")
+    del bad
+    rec.update(grads=errs, control_key_dropped_over_bar=ctrl)
+    return rec, (q, k, v, out, do, lse, qpos, kpos, want)
+
+
+def bwd_rows(torch, fa, hw, t: tuple, errs: dict,
+             launches: dict) -> tuple[dict, list]:
+    """At the training shape: each backward kernel's time through its
+    wrapper (CUDA events), beside the whole backward, the plain backward,
+    SDPA's backward (the library yardstick for the three together) and the
+    forward with and without lse; each kernel's bound from this run's
+    causal pairs. Returns (record, the three kernel rows)."""
+    import torch.nn.functional as F
+    q, k, v, out, do, lse, qpos, kpos, _ = t
+    b, h, sq, hd = q.shape
+    kvh, skv = k.shape[1], k.shape[2]
+    pairs = b * h * int(fa.position_mask(qpos, kpos, True, 0).sum())
+    e = q.element_size()
+    qb, kb, lb = b * h * sq * hd * e, b * kvh * skv * hd * e, b * h * sq * 4
+
+    def bound(flops, nbytes):
+        t_ops, t_bytes = flops / hw.PEAK_FLOPS_BF16, nbytes / hw.HBM_BW
+        return (1e3 * max(t_ops, t_bytes),
+                "operations" if t_ops >= t_bytes else "bytes")
+    dsum = fa.flash_bwd_prep(out, do)
+    dsum_plain = (do.float() * out.float()).sum(-1)
+    prep_err = float((dsum - dsum_plain).abs().max())
+    expect(prep_err <= 1e-5 * float(dsum_plain.abs().max()),
+           f"flash_bwd_prep: D error {prep_err}")
+    kernels = {
+        "flash_bwd_prep": (lambda: fa.flash_bwd_prep(out, do),
+                           lambda: (do.float() * out.float()).sum(-1),
+                           lambda: torch.einsum("bhsd,bhsd->bhs", do, out),
+                           bound(2.0 * b * h * sq * hd, 2 * qb + lb),
+                           prep_err),
+        "flash_bwd_dkdv": (lambda: fa.flash_bwd_dkdv(
+                               q, k, v, do, lse, dsum, qpos, kpos),
+                           None, None,
+                           bound(8.0 * hd * pairs, 2 * qb + 4 * kb + 2 * lb),
+                           max(errs["dk"]["err"], errs["dv"]["err"])),
+        "flash_bwd_dq": (lambda: fa.flash_bwd_dq(
+                             q, k, v, do, lse, dsum, qpos, kpos),
+                         None, None,
+                         bound(6.0 * hd * pairs, 3 * qb + 2 * kb + 2 * lb),
+                         errs["dq"]["err"])}
+    plain_ms = cuda_ms(lambda: fa.flash_attention_backward_plain(
+        q, k, v, out, do, lse, qpos, kpos), reps=2)
+    whole_ms = cuda_ms(lambda: fa.flash_attention_backward(
+        q, k, v, out, do, lse, qpos, kpos), reps=10)
+    qq, kk, vv = (x.detach().requires_grad_(True) for x in (q, k, v))
+    o = F.scaled_dot_product_attention(qq, kk, vv, is_causal=True, scale=1.0,
+                                       enable_gqa=True)
+    sdpa_ms = cuda_ms(lambda: torch.autograd.grad(
+        o, (qq, kk, vv), do, retain_graph=True), reps=10)
+    del o, qq, kk, vv
+    fwd_lse_ms = cuda_ms(lambda: fa._launch(q, k, v, qpos, kpos, True, 0,
+                                            True, with_lse=True), reps=20)
+    with torch.no_grad():
+        fwd_ms = cuda_ms(lambda: fa.flash_attention(
+            q, k, v, qpos, kpos, zero_empty_rows=True), reps=20)
+    rows, times = [], {}
+    common = {"route": "cuda",
+              "source": "src/repro_torch/csrc/fk_attention_bwd.cu",
+              "replaces": "src/repro/models/attention.py:79 (XLA autodiff "
+                          "of _attend_local; no Pallas kernel has a "
+                          "backward)"}
+    for name, (kfn, pfn, lfn, (b_ms, b_by), err) in kernels.items():
+        times[name] = cuda_ms(kfn, reps=10)
+        rows.append(dict(common, name=name, launches=launches[name],
+                         max_abs_err=err, ms=times[name],
+                         plain_ms=cuda_ms(pfn, reps=5) if pfn else plain_ms,
+                         bound_ms=b_ms, bound_by=b_by,
+                         library_ms=cuda_ms(lfn, reps=10) if lfn else None))
+    # the gradient's own work: S, dP, dV, dK and dQ once each, 10 hd FLOPs
+    # a causal pair; the two-kernel design computes S and dP a second time
+    # in flash_bwd_dq (14 hd), which that row's bound counts as its
+    # function's least work, so the three rows' bounds add up to more
+    bwd_bound = bound(10.0 * hd * pairs, 4 * qb + 4 * kb + 2 * lb)[0]
+    design_bound = bound(14.0 * hd * pairs, 4 * qb + 4 * kb + 2 * lb)[0]
+    rec = {"shape": [b, h, kvh, sq, skv, hd], "causal_pairs": pairs,
+           "kernel_ms": times, "backward_ms": whole_ms,
+           "backward_bound_ms": bwd_bound,
+           "backward_bound_share": bwd_bound / whole_ms,
+           "two_kernel_design_bound_ms": design_bound,
+           "bound_note": "backward_bound_ms: 10 hd FLOPs a causal pair "
+                         "(S, dP, dV, dK, dQ once); flash_bwd_dq's row: 6 "
+                         "hd (S and dP recomputed, then dQ), "
+                         "flash_bwd_dkdv's: 8 hd",
+           "plain_backward_ms": plain_ms, "sdpa_backward_ms": sdpa_ms,
+           "backward_over_sdpa": whole_ms / sdpa_ms,
+           "forward_with_lse_ms": fwd_lse_ms, "forward_ms": fwd_ms,
+           "library_call": "F.scaled_dot_product_attention(is_causal=True, "
+                           "enable_gqa=True) backward (torch.autograd.grad): "
+                           "dq, dk and dv together"}
+    return rec, rows
+
+
+@contextlib.contextmanager
+def scaled_dq(fa, factor: float):
+    """The flash backward with ``flash_bwd_dq``'s result scaled by
+    ``factor``: the control that the first training step's gradient bar
+    must catch."""
+    real = fa.flash_bwd_dq
+
+    def scaled(*args, **kwargs):
+        return real(*args, **kwargs) * factor
+    scaled.launches = 0            # the wrapper counts through its name
+    fa.flash_bwd_dq = scaled
+    try:
+        yield
+    finally:
+        fa.flash_bwd_dq = real
+
+
+def grad_norms(torch, lm, batch: dict) -> tuple[float, dict]:
+    """The loss of ``batch`` and each parameter's gradient norm (f32), the
+    gradients dropped after."""
+    lm.requires_grad_(True)
+    try:
+        loss, _ = lm.loss(batch)
+        loss.backward()
+        norms = {n: float(p.grad.float().norm())
+                 for n, p in lm.named_parameters()}
+        return float(loss.detach()), norms
+    finally:
+        for p in lm.parameters():
+            p.grad = None
+        lm.requires_grad_(False)
+
+
+def route_distance(a: tuple, b: tuple) -> dict:
+    """Relative distance of two (loss, norms) readings: the loss's and the
+    worst leaf's (norm difference over the norm)."""
+    leaf = {n: abs(a[1][n] - b[1][n]) / max(b[1][n], 1e-30) for n in b[1]}
+    worst = max(leaf, key=leaf.get)
+    return {"loss": abs(a[0] - b[0]) / abs(b[0]),
+            "worst_leaf": worst, "worst_leaf_norm": leaf[worst],
+            "leaf_norms": leaf}
+
+
+def phase_train(torch, fa, hw) -> tuple[list, list, dict]:
+    """Phase 17: the flash kernel's gradient (BWD_CASES, the backward
+    kernels' rows at the training shape) and internlm2-1.8b training at
+    full width and depth (see the module docstring). Returns (the records,
+    the three backward rows, the forward kernel's launches in the 5
+    steps)."""
+    import dataclasses
+    import gc
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenPipeline
+    from repro_torch.launch import train as train_launch
+    from repro_torch.launch.lm_rounding import attention_route
+    from repro_torch.models import LM
+    from repro_torch.train import build_train_step
+    from repro_torch.train.steps import SPLIT_RANGES
+    gen = torch.Generator(device=DEV).manual_seed(SEED)
+    recs = []
+    # --- (a) the backward kernels against their plain version -------------
+    cases, errs_main, main = {}, None, None
+    for name in BWD_CASES:
+        rec, t = bwd_case(torch, fa, hw, name, gen)
+        cases[name] = rec
+        if name == "internlm2_train":
+            errs_main, main = rec["grads"], t
+        else:
+            del t
+        torch.cuda.empty_cache()
+    refused = {}
+    for what, dt, hd in (("f32", torch.float32, 128),
+                         ("hd256", torch.bfloat16, 256)):
+        q = torch.zeros((1, 2, 32, hd), dtype=dt, device=DEV,
+                        requires_grad=True)
+        pos = torch.arange(32, dtype=torch.int32, device=DEV)
+        try:
+            fa.flash_attention(q, q, q, pos, pos, zero_empty_rows=True)
+            refused[what] = False
+        except fa.FlashGradUnsupported as e:
+            refused[what] = str(e)
+        expect(refused[what] is not False,
+               f"flash_attention with grad at {what} did not raise")
+    recs.append({"phase": 17, "part": "backward kernels",
+                 "bars": {"floor_factor": BWD_FLOOR_FACTOR,
+                          "lse_atol": LSE_ATOL},
+                 "cases": cases, "refused_with_grad": refused})
+    emit(recs[-1])
+
+    # --- (b) internlm2-1.8b at full width and depth ------------------------
+    argv = ["--arch", TRAIN_ARCH, "--seq", str(TRAIN_SEQ), "--batch",
+            str(TRAIN_BATCH), "--grad-accum", str(TRAIN_ACCUM), "--steps",
+            str(TRAIN_STEPS), "--lr", str(TRAIN_LR), "--ckpt-every", "0",
+            "--device", DEV]
+    cfg = get_config(TRAIN_ARCH)
+    lm = LM(cfg, device=DEV, seed=0)
+    pipe = TokenPipeline(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, device=DEV)
+    mb = TRAIN_BATCH // TRAIN_ACCUM
+    micro = {k: v[:mb] for k, v in pipe.next_batch(0).items()}
+    # the first micro-batch through the kernel, plain and plain-f32-PV
+    # attention routes, and the kernel route with dq scaled (the control):
+    # loss and every leaf's gradient norm
+    routes = {}
+    for route in ("kernel", "plain", "plain_f32_pv", "control"):
+        with attention_route("kernel" if route == "control" else route), \
+                (scaled_dq(fa, DQ_CONTROL_SCALE) if route == "control"
+                 else contextlib.nullcontext()):
+            routes[route] = grad_norms(torch, lm, micro)
+        gc.collect()
+        torch.cuda.empty_cache()
+    d_kernel = route_distance(routes["kernel"], routes["plain"])
+    d_floor = route_distance(routes["plain_f32_pv"], routes["plain"])
+    d_ctrl = route_distance(routes["control"], routes["plain"])
+    bar_loss = FAMILY_FLOOR_FACTOR * d_floor["loss"]
+    bar_leaf = FAMILY_FLOOR_FACTOR * d_floor["worst_leaf_norm"]
+    first = {"loss_kernel": routes["kernel"][0],
+             "loss_plain": routes["plain"][0],
+             "loss_plain_f32_pv": routes["plain_f32_pv"][0],
+             "loss_rel": d_kernel["loss"], "loss_bar": bar_loss,
+             "floor_loss_rel": d_floor["loss"],
+             "worst_leaf": d_kernel["worst_leaf"],
+             "worst_leaf_norm_rel": d_kernel["worst_leaf_norm"],
+             "leaf_bar": bar_leaf,
+             "floor_worst_leaf": d_floor["worst_leaf"],
+             "floor_worst_leaf_norm_rel": d_floor["worst_leaf_norm"],
+             "control_dq_scale": DQ_CONTROL_SCALE,
+             "control_worst_leaf": d_ctrl["worst_leaf"],
+             "control_worst_leaf_over_bar": d_ctrl["worst_leaf_norm"]
+             / bar_leaf}
+    expect(d_kernel["loss"] <= bar_loss, f"training step 1: kernel route "
+           f"loss {routes['kernel'][0]} vs plain {routes['plain'][0]}, "
+           f"{d_kernel['loss']} > {bar_loss}")
+    expect(d_kernel["worst_leaf_norm"] <= bar_leaf, f"training step 1: "
+           f"{d_kernel['worst_leaf']}'s gradient norm "
+           f"{d_kernel['worst_leaf_norm']} from the plain route's > "
+           f"{bar_leaf}")
+    expect(d_ctrl["worst_leaf_norm"] > bar_leaf, f"training step 1: the "
+           f"control (dq x {DQ_CONTROL_SCALE}) is within the bar "
+           f"{bar_leaf}: {d_ctrl['worst_leaf_norm']}")
+    del routes, lm, micro
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the main path: the launcher's command, its counts set to 0 just before
+    wrappers = {n: getattr(fa, n) for n in ("flash_bwd_prep",
+                                            "flash_bwd_dkdv",
+                                            "flash_bwd_dq")}
+    for w in wrappers.values():
+        w.launches = 0
+    for name in fa.flash_attention.kernel_launches:
+        fa.flash_attention.kernel_launches[name] = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    text = io.StringIO()
+    with tempfile.TemporaryDirectory() as ckpt, \
+            contextlib.redirect_stdout(text):
+        t0 = time.perf_counter()
+        records = train_launch.main(argv + ["--ckpt-dir", ckpt])
+        train_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    launches = {n: w.launches for n, w in wrappers.items()}
+    fwd = dict(fa.flash_attention.kernel_launches)
+    lines = text.getvalue().strip().splitlines()
+    expect(f"batch={TRAIN_BATCH}x{TRAIN_SEQ} grad_accum={TRAIN_ACCUM}"
+           in lines[0] and lines[-1] == "done; snapshots: []",
+           f"the launcher printed {lines}")
+    for n, c in launches.items():
+        expect(c > 0, f"{n} was not launched by the training steps")
+    expect(fwd["flash_prefill_kernel"] > 0 and fwd["flash_decode_kernel"]
+           == 0, f"training forward launches {fwd}")
+    expect(all(math.isfinite(r["loss"]) for r in records)
+           and len(records) == TRAIN_STEPS,
+           f"training losses {[r['loss'] for r in records]}")
+    steady = sorted(r["s"] for r in records[1:])
+    step_s = steady[len(steady) // 2]
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the launcher's state once more: one step to warm the allocator, then
+    # a traced step (its split from the step's record_function ranges),
+    # one step with ABFT on every projection and one without
+    run = train_launch.setup(train_launch.parse(argv))
+    lm, opt, step_fn, pipe = (run[k] for k in ("lm", "opt", "step_fn",
+                                               "pipe"))
+    step_fn(lm, opt, pipe.next_batch(TRAIN_STEPS))
+    trace = device_trace(torch, lambda: step_fn(
+        lm, opt, pipe.next_batch(TRAIN_STEPS + 1)), ranges=SPLIT_RANGES)
+    split = {n.split(".")[1] + "_ms": r["device_ms"]
+             for n, r in trace["split"]["ranges"].items()}
+    abft_step = build_train_step(dataclasses.replace(run["cfg"], abft=True),
+                                 run["shape"], run["tcfg"], device=DEV)
+    (m_abft, abft_s) = wall(lambda: abft_step(
+        lm, opt, pipe.next_batch(TRAIN_STEPS + 2)))
+    (m_plain, plain_s) = wall(lambda: step_fn(
+        lm, opt, pipe.next_batch(TRAIN_STEPS + 3)))
+    expect(math.isfinite(float(m_abft["loss"])), f"ABFT step loss "
+           f"{float(m_abft['loss'])}")
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    rec = {"phase": 17, "part": "training", "arch": TRAIN_ARCH,
+           "params": cfg.param_count(), "argv": argv,
+           "shape": {"seq": TRAIN_SEQ, "global_batch": TRAIN_BATCH,
+                     "grad_accum": TRAIN_ACCUM,
+                     "reference_shape": "train_4k: seq 4096, global batch "
+                                        "256"},
+           "first_step_routes": first,
+           "steps": records, "launcher": lines, "train_s": train_s,
+           "step_ms_median": 1e3 * step_s, "tokens_per_s": tokens / step_s,
+           "peak_gb": peak, "split_device_ms": split,
+           "split_share": {k: v / sum(split.values())
+                           for k, v in split.items()},
+           "step_trace": trace,
+           "abft_step": {"loss": float(m_abft["loss"]), "s": abft_s,
+                         "plain_step_loss": float(m_plain["loss"]),
+                         "plain_step_s": plain_s},
+           "backward_launches": launches, "forward_launches": fwd}
+    del lm, opt, step_fn, abft_step, run
+    gc.collect()
+    torch.cuda.empty_cache()
+    rec11b, rows = bwd_rows(torch, fa, hw, main, errs_main, launches)
+    del main
+    gc.collect()
+    torch.cuda.empty_cache()
+    rec["backward_kernels"] = rec11b
+    recs.append(rec)
+    return recs, rows, fwd
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5571,6 +6066,12 @@ def main() -> int:
         "flash_prefill_kernel"]
     by_name["flash_attention_decode"]["launches"] += by_kernel16[
         "flash_decode_kernel"]
+
+    # --- phase 17: training: the attention gradient, internlm2-1.8b -------
+    recs17, rows17, fwd17 = phase_train(torch, fa, hw)
+    emit(recs17[-1])
+    by_name["flash_attention"]["launches"] += fwd17["flash_prefill_kernel"]
+    rows.extend(rows17)
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi_line, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -41,6 +41,9 @@ encoder's layers in ``params["encoder"]``), and so do its prefill caches.
 unstack both into the port's per-layer ``LM.state_dict()`` and cache list
 (``LMCaches``, with the encoder's output), from numpy arrays (bf16 arrays
 as ``ml_dtypes.bfloat16``, which numpy reports as ``bfloat16``).
+:func:`opt_state_from_reference` maps the reference's AdamW state (``m``
+and ``v`` trees shaped like the params, an int32 ``step``) onto the port's
+``init_opt_state`` layout, so both packages can train from one state.
 """
 from __future__ import annotations
 
@@ -226,3 +229,13 @@ def lm_caches_from_reference(caches: dict, cfg, device=None) -> list:
           for key, st in layer.items()}
          for layer in _layer_trees(caches, cfg)),
         encoder_out=None if enc is None else _tensor(enc).to(device))
+
+
+def opt_state_from_reference(opt: dict, cfg) -> dict:
+    """The reference's ``init_opt_state`` / ``adamw_update`` state (numpy
+    leaves) -> the port's: {"m": {name: tensor}, "v": {...}, "step": int32
+    tensor}, keyed like ``LM.named_parameters()`` (CPU tensors)."""
+    return {"m": lm_params_from_reference(opt["m"], cfg),
+            "v": lm_params_from_reference(opt["v"], cfg),
+            "step": torch.tensor(int(np.asarray(opt["step"])),
+                                 dtype=torch.int32)}

@@ -115,6 +115,12 @@
 //     Skv keys (its lanes sum v), as the prefill kernel does.
 //     kernels/flash_attention.py's flash_f32_walk_plain states the walk.
 //
+// The prefill kernel also writes, when the caller gives it an lse pointer
+// (bf16 / fp16; the entry point then runs it at every Sq), each row's
+// log-sum-exp m + log(l) in f32, +inf for a row with no valid key: the
+// input of the backward kernels of fk_attention_bwd.cu. A null pointer
+// leaves the launch and the output bits as they were.
+//
 // The entry point picks the kernel from Sq, the dtype and hd, and the
 // decode kernel's rows and splits from the group and the shapes
 // (decode_plan). Bound on the H100: at prefill the 4 * B * H * hd FLOPs of
@@ -671,7 +677,8 @@ flash_prefill_kernel(const __grid_constant__ CUtensorMap kmap,
                    const __grid_constant__ CUtensorMap vmap,
                    const T* __restrict__ q, const T* __restrict__ v,
                    const int* __restrict__ qpos, const int* __restrict__ kpos,
-                   T* __restrict__ out, int H, int group, int Sq, int Skv,
+                   T* __restrict__ out, float* __restrict__ lse, int H,
+                   int group, int Sq, int Skv,
                    long long qsb, long long qsh, long long qss, long long vsb,
                    long long vsh, long long vss, long long osb, long long osh,
                    long long oss, int causal, int window, int zero_empty) {
@@ -878,6 +885,11 @@ flash_prefill_kernel(const __grid_constant__ CUtensorMap kmap,
   for (int r = 0; r < 2; ++r) {
     const int qi = row0 + g + 8 * r;
     if (qi >= Sq) continue;
+    // the row's log-sum-exp for the backward kernels (fk_attention_bwd.cu):
+    // +inf for a row with no valid key
+    if (lse && tig == 0)
+      lse[(long long)bh * Sq + qi] =
+          m[r] == kNeg ? INFINITY : m[r] + logf(l[r]);
     if (m[r] == kNeg) {
       empty_rows |= 1u << (g + 8 * r);
       if (!zero_empty) continue;
@@ -1275,6 +1287,7 @@ struct Args {
   int causal, window, zero_empty;
   float* part;
   int* tickets;
+  float* lse;
   cudaStream_t s;
 };
 
@@ -1332,7 +1345,8 @@ int launch_prefill(const Args& a) {
   const dim3 grid(a.B * a.H, nqt);
   kern<<<grid, kPfThreads, W::bytes, a.s>>>(
       km, vm, static_cast<const T*>(a.q), static_cast<const T*>(a.v), a.qpos,
-      a.kpos, static_cast<T*>(a.out), a.H, a.H / a.KV, a.Sq, a.Skv, st[0],
+      a.kpos, static_cast<T*>(a.out), a.lse, a.H, a.H / a.KV, a.Sq, a.Skv,
+      st[0],
       st[1], st[2], st[6], st[7], st[8], st[9], st[10], st[11], a.causal,
       a.window, a.zero_empty);
   return int(cudaGetLastError());
@@ -1374,7 +1388,9 @@ int launch_decode(const Args& a) {
 
 template <typename T>
 int by_hd(int hd, const Args& a) {
-  const bool decode = a.Sq <= kDecodeMaxSq;
+  // with an lse output every Sq runs the prefill kernel (the only one that
+  // writes it)
+  const bool decode = a.Sq <= kDecodeMaxSq && !a.lse;
   switch (hd) {
     case 64:
       return decode ? launch_decode<T, 64>(a) : launch_prefill<T, 64>(a);
@@ -1423,7 +1439,10 @@ extern "C" {
 // serialised on one stream; else flash_prefill_kernel for a 2-byte dtype
 // and flash_f32_kernel for f32 (partials and tickets unused, may be null).
 // zero_empty != 0 writes zero for a row with no valid key (else the mean of
-// v, as the reference kernel).
+// v, as the reference kernel). lse, when not null (bf16 / fp16 only): each
+// row's log-sum-exp m + log(l) in f32, (B, H, Sq) contiguous, +inf for a
+// row with no valid key; every Sq then runs the prefill kernel. A null lse
+// leaves the launch and its output bits as they were.
 int fk_flash_attention(const void* q, const void* k, const void* v,
                        const int* qpos, const int* kpos, void* out, int B,
                        int H, int KV, int Sq, int Skv, int hd, long long qsb,
@@ -1432,14 +1451,16 @@ int fk_flash_attention(const void* q, const void* k, const void* v,
                        long long vsh, long long vss, long long osb,
                        long long osh, long long oss, int causal, int window,
                        int zero_empty, int dtype, void* partials,
-                       void* tickets, void* stream) {
-  if (bad_shape(B, H, KV, Sq, Skv, hd, dtype) || window < 0)
+                       void* tickets, float* lse, void* stream) {
+  if (bad_shape(B, H, KV, Sq, Skv, hd, dtype) || window < 0 ||
+      (lse && dtype == 0))
     return int(cudaErrorInvalidValue);
   const long long st[12] = {qsb, qsh, qss, ksb, ksh, kss,
                             vsb, vsh, vss, osb, osh, oss};
   const Args a{q, k, v, qpos, kpos, out, B, H, KV, Sq, Skv, st, causal,
                window, zero_empty, static_cast<float*>(partials),
-               static_cast<int*>(tickets), static_cast<cudaStream_t>(stream)};
+               static_cast<int*>(tickets), lse,
+               static_cast<cudaStream_t>(stream)};
   if (dtype == 1) return by_hd<__nv_bfloat16>(hd, a);
   if (dtype == 2) return by_hd<__half>(hd, a);
   return f32_by_hd(hd, a);

@@ -1,6 +1,8 @@
-"""Fault tolerance for the LM stack: ABFT-protected dense projections."""
+"""Fault tolerance for the LM stack: ABFT-protected dense projections and
+checkpoint / restart of the train loop."""
 from repro_torch.ft.abft_dense import (FTContext, configure, detect_correct,
                                        ft_einsum, ft_enabled)
+from repro_torch.ft.checkpoint import Checkpointer
 
-__all__ = ["FTContext", "configure", "detect_correct", "ft_einsum",
-           "ft_enabled"]
+__all__ = ["Checkpointer", "FTContext", "configure", "detect_correct",
+           "ft_einsum", "ft_enabled"]

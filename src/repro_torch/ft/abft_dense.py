@@ -14,13 +14,17 @@ location:  flat token index t = round((obs2-exp2)_j / (obs1-exp1)_j) - 1;
 correction: D[t, j] -= delta (at most one upset per product).
 
 :func:`detect_correct` is that step on a finished product ``d``, so a test
-can corrupt ``d`` first. Only the forward is ported: serving runs under
-``torch.no_grad()``, and the backward (the reference's ``custom_vjp``)
-comes with the training slice. Everything stays on the device: no host
-read decides a correction.
+can corrupt ``d`` first. With FT enabled and autograd recording, the
+protected product is :class:`_Protected`, the reference's ``custom_vjp``:
+its forward is the einsum and the check, with no graph through the
+checksums; its backward is the reference's ``_bwd``, the two plain
+einsums of the gradient cast to the inputs' dtypes (a correction is a
+constant shift of one output element, so it has no gradient of its own).
+Everything stays on the device: no host read decides a correction.
 """
 from __future__ import annotations
 
+import contextlib
 import threading
 from typing import Optional
 
@@ -46,6 +50,19 @@ def configure(enabled: bool):
 
 def ft_enabled() -> bool:
     return _CTX.enabled
+
+
+@contextlib.contextmanager
+def enabled_as(enabled: bool):
+    """This thread's switch set to ``enabled`` for the block, then restored
+    (autograd recomputes a checkpointed block on its own device thread,
+    which must see the switch the forward saw)."""
+    before = _CTX.enabled
+    _CTX.enabled = enabled
+    try:
+        yield
+    finally:
+        _CTX.enabled = before
 
 
 def _parse(spec: str, x, w):
@@ -122,6 +139,30 @@ def detect_correct(spec: str, x: torch.Tensor, w: torch.Tensor,
     return out
 
 
+class _Protected(torch.autograd.Function):
+    """``detect_correct(einsum(spec, x, w))`` with the reference's backward
+    (``src/repro/ft/abft_dense.py`` ``_bwd``): gx = g . w over the output
+    labels, gw = x . g over the batch labels, each cast to its input's
+    dtype."""
+
+    @staticmethod
+    def forward(ctx, spec, parsed, x, w):
+        ctx.save_for_backward(x, w)
+        ctx.spec_parts = parsed
+        return detect_correct(spec, x, w, torch.einsum(spec, x, w))
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        batch_labels, contracted, out_labels = ctx.spec_parts
+        k, o = "".join(contracted), "".join(out_labels)
+        gx = torch.einsum(f"{batch_labels}{o},{k}{o}->{batch_labels}{k}",
+                          g, w)
+        gw = torch.einsum(f"{batch_labels}{k},{batch_labels}{o}->{k}{o}",
+                          x, g)
+        return None, None, gx.to(x.dtype), gw.to(w.dtype)
+
+
 def ft_einsum(spec: str, x: torch.Tensor, w: torch.Tensor, *,
               enabled: Optional[bool] = None) -> torch.Tensor:
     """einsum with optional einsum-native ABFT protection.
@@ -130,7 +171,9 @@ def ft_einsum(spec: str, x: torch.Tensor, w: torch.Tensor, *,
     x (k..., out...). Other specs run as plain einsum.
     """
     on = _CTX.enabled if enabled is None else enabled
-    d = torch.einsum(spec, x, w)
-    if not on or _parse(spec, x, w) is None:
-        return d
-    return detect_correct(spec, x, w, d)
+    parsed = _parse(spec, x, w) if on else None
+    if parsed is None:
+        return torch.einsum(spec, x, w)
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+        return _Protected.apply(spec, parsed, x, w)
+    return detect_correct(spec, x, w, torch.einsum(spec, x, w))

@@ -28,7 +28,9 @@ gather of two replicas, the slab sums and the verdict; ``fk_dmr_workspace``,
 its scratch sizes). ``fk_attention.cu`` holds
 the LM stack's flash attention (``fk_flash_attention``, f32, bf16 or fp16:
 the prefill, decode and f32 kernels, and ``fk_flash_workspace``, the decode
-kernel's workspace sizes). ``fk_abft_gemm.cu`` holds the ABFT GEMM at
+kernel's workspace sizes); ``fk_attention_bwd.cu`` its gradient
+(``fk_flash_bwd_prep``, ``fk_flash_bwd_dkdv``, ``fk_flash_bwd_dq``, on
+``mma.sync``; it includes ``csrc/fk_mma.cuh``). ``fk_abft_gemm.cu`` holds the ABFT GEMM at
 f32, bf16 and fp16: its encodings pre-pass (``fk_abft_encode``) and the
 ``wgmma`` GEMM (``fk_abft_gemm``; at f32 on a three-way bf16 split of the
 operands). ``fk_update.cu`` holds the two-pass centroid update's
@@ -120,12 +122,13 @@ HALF_KINDS = {"bfloat16": 0, "float16": 1}
 # q, k, v, q_positions, kv_positions, out; B, H, KV, Sq, Skv, hd; the
 # (batch, head, sequence) element strides of q, k, v and out; causal,
 # window, zero_empty, dtype (0 f32, 1 bf16, 2 fp16); the decode kernel's
-# partials and tickets; stream. fk_flash_workspace: B, H, KV, Sq, Skv, hd,
-# dtype and the address of 4 long longs it fills.
+# partials and tickets; the optional f32 lse output; stream.
+# fk_flash_workspace: B, H, KV, Sq, Skv, hd, dtype and the address of 4
+# long longs it fills.
 ATTENTION_SIGNATURES: dict[str, tuple] = {
     "fk_flash_attention": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                            _L, _L, _L, _L, _L, _L, _L, _L, _L, _L, _L, _L,
-                           _I, _I, _I, _I, _P, _P, _P),
+                           _I, _I, _I, _I, _P, _P, _P, _P),
     "fk_flash_workspace": (_I, _I, _I, _I, _I, _I, _I, _P),
     # the f32 kernel's resources: hd, out (4 ints)
     "fk_flash_f32_resources": (_I, _P),
@@ -156,9 +159,22 @@ UPDATE_SIGNATURES: dict[str, tuple] = {
                        _I, _P),
     "fk_verify_entries": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P),
 }
+# the attention gradient (fk_attention_bwd.cu). fk_flash_bwd_prep: o,
+# dout, D; B, H, Sq, hd; the address of 6 long long strides ((o, dout) x
+# (batch, head, sequence)); dtype (1 bf16, 2 fp16); stream.
+# fk_flash_bwd_dkdv: q, k, v, dout, lse, D, q_positions, kv_positions, dk,
+# dv; B, H, KV, Sq, Skv, hd; the address of 18 strides ((q, k, v, dout, dk,
+# dv) x (batch, head, sequence)); causal, window, dtype; stream.
+# fk_flash_bwd_dq: the same with dq for dk, dv and 15 strides.
+ATTENTION_BWD_SIGNATURES: dict[str, tuple] = {
+    "fk_flash_bwd_prep": (_P, _P, _P, _I, _I, _I, _I, _P, _I, _P),
+    "fk_flash_bwd_dkdv": (_P,) * 10 + (_I,) * 6 + (_P, _I, _I, _I, _P),
+    "fk_flash_bwd_dq": (_P,) * 9 + (_I,) * 6 + (_P, _I, _I, _I, _P),
+}
 SOURCES: dict[str, dict[str, tuple]] = {
     "fk_kernels": SIGNATURES,
     "fk_attention": ATTENTION_SIGNATURES,
+    "fk_attention_bwd": ATTENTION_BWD_SIGNATURES,
     "fk_abft_gemm": ABFT_GEMM_SIGNATURES,
     "fk_update": UPDATE_SIGNATURES,
 }

@@ -52,6 +52,25 @@ softmax of the reference's test oracle with the kernel's finite ``NEG``.
 A CUDA tensor launches the kernel or raises; the wrapper counts its calls
 that launch (``flash_attention.launches``) and, by kernel,
 ``flash_attention.kernel_launches``.
+
+The gradient. The reference trains through XLA's autodiff of the plain
+attention; its Pallas kernel has no backward. The port's kernel writes its
+result through ctypes, outside autograd, so :class:`FlashAttentionFn`
+carries it: with grad mode on and q, k or v requiring grad,
+:func:`flash_attention` runs the prefill kernel with a row log-sum-exp
+output (``lse``, every Sq, bf16 / fp16) and its backward
+:func:`flash_attention_backward` launches the three kernels of
+``csrc/fk_attention_bwd.cu``: ``flash_bwd_prep_kernel`` (D = rowsum(dO o
+O), :func:`flash_bwd_prep`), ``flash_bwd_dkdv_kernel``
+(:func:`flash_bwd_dkdv`) and ``flash_bwd_dq_kernel`` (:func:`flash_bwd_dq`),
+each wrapper counting its launches in ``.launches``. Under ``no_grad`` serving
+keeps its launch: no lse, the same bits. The backward takes ``attend``'s
+contract, ``zero_empty_rows=True`` (a row with no valid key is a zero
+output: zero dq, nothing to dk or dv), head dims up to 128 and bf16 / fp16
+inputs; anything else with grad on the card raises
+:class:`FlashGradUnsupported`. :func:`flash_attention_backward_plain` is its
+plain version in f32 (the tests' and ``chip_smoke.py``'s; on the CPU the
+function's launches run the plain versions).
 """
 from __future__ import annotations
 
@@ -97,6 +116,62 @@ def flash_attention_plain(q, k, v, q_positions, kv_positions, *,
     if zero_empty_rows:
         p = p * mask.any(dim=-1, keepdim=True)
     return torch.matmul(p, vv).to(q.dtype)
+
+
+def flash_lse_plain(q, k, q_positions, kv_positions, *, causal: bool = True,
+                    window: int = 0) -> torch.Tensor:
+    """Each query row's log-sum-exp over its valid keys' scores q . k in f32,
+    (B, H, Sq); +inf for a row with no valid key (the kernel's ``lse``)."""
+    g = q.shape[1] // k.shape[1]
+    kk = k.float().repeat_interleave(g, dim=1)
+    s = torch.matmul(q.float(), kk.transpose(-1, -2))
+    mask = position_mask(q_positions, kv_positions, causal, window)
+    s = torch.where(mask, s, torch.tensor(-float("inf"), device=s.device))
+    lse = torch.logsumexp(s, dim=-1)
+    return torch.where(mask.any(-1), lse, torch.tensor(float("inf"),
+                                                       device=s.device))
+
+
+def flash_attention_backward_plain(q, k, v, o, do, lse, q_positions,
+                                   kv_positions, *, causal: bool = True,
+                                   window: int = 0,
+                                   zero_empty_rows: bool = True,
+                                   round_to: torch.dtype | None = None):
+    """Plain PyTorch gradient of :func:`flash_attention` in f32, from its
+    output ``o`` and row log-sum-exp ``lse``: P = exp(S - lse) on the valid
+    pairs, dV = P^T dO, dP = dO V^T, D = rowsum(dO o O), dS = P o (dP - D),
+    dQ = dS K, dK = dS^T Q, dK and dV summed over each KV head's group.
+    Returns (dq, dk, dv) in q's, k's and v's dtypes. A row with no valid key
+    (lse = +inf) gets zero dq and adds nothing to dk and dv; without
+    ``zero_empty_rows`` its output was the mean of v, which adds dO / Skv
+    to every key's dv. ``round_to`` rounds P and dS to that dtype before
+    their products, where the kernels do (the rounding floor of the
+    kernels' arithmetic)."""
+    b, h, sq, hd = q.shape
+    kvh, skv = k.shape[1], k.shape[2]
+    g = h // kvh
+    qf, dof, of = q.float(), do.float(), o.float()
+    kk = k.float().repeat_interleave(g, dim=1)
+    vv = v.float().repeat_interleave(g, dim=1)
+    s = torch.matmul(qf, kk.transpose(-1, -2))
+    mask = position_mask(q_positions, kv_positions, causal, window)
+    p = torch.where(mask, torch.exp(s - lse.float()[..., None]),
+                    torch.zeros((), device=s.device))
+    dp = torch.matmul(dof, vv.transpose(-1, -2))
+    dsum = (dof * of).sum(-1, keepdim=True)
+    ds = p * (dp - dsum)
+    if round_to is not None:
+        p, ds = p.to(round_to).float(), ds.to(round_to).float()
+    dq = torch.matmul(ds, kk)
+    dk = torch.matmul(ds.transpose(-1, -2), qf)
+    dv = torch.matmul(p.transpose(-1, -2), dof)
+    dk = dk.view(b, kvh, g, skv, hd).sum(2)
+    dv = dv.view(b, kvh, g, skv, hd).sum(2)
+    if not zero_empty_rows:
+        empty = ~mask.any(-1)                              # (Sq,)
+        mean = (dof * empty[:, None]).sum(2).view(b, kvh, g, hd).sum(2)
+        dv = dv + (mean / skv)[:, :, None, :]
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def live_tiles(q_positions: torch.Tensor, kv_positions: torch.Tensor,
@@ -309,6 +384,72 @@ def _strides(t: torch.Tensor, what: str) -> list[int]:
     return st
 
 
+class FlashGradUnsupported(NotImplementedError):
+    """A gradient of :func:`flash_attention` on the card that the backward
+    kernels do not take: f32 inputs, a head dim above
+    :data:`GRAD_MAX_HEAD_DIM`, or ``zero_empty_rows=False``."""
+
+
+# the widest head dim the backward kernels are built for (64 and 128)
+GRAD_MAX_HEAD_DIM = 128
+
+
+def _padded_hd(hd: int) -> int:
+    hdp = next((d for d in hw.FLASH_HEAD_DIMS if d >= hd), None)
+    if hdp is None:
+        raise ValueError(f"head dim {hd} > {hw.FLASH_HEAD_DIMS[-1]}, the "
+                         f"widest the kernel is built for")
+    return hdp
+
+
+def _check_grad(q, hd: int, zero_empty_rows: bool) -> None:
+    if q.dtype not in (torch.bfloat16, torch.float16):
+        raise FlashGradUnsupported(
+            f"flash_attention's backward kernels take bf16 / fp16 inputs, "
+            f"got {q.dtype} with grad (an f32 backward is not written yet)")
+    if _padded_hd(hd) > GRAD_MAX_HEAD_DIM:
+        raise FlashGradUnsupported(
+            f"flash_attention's backward kernels take head dims up to "
+            f"{GRAD_MAX_HEAD_DIM}, got {hd} with grad")
+    if not zero_empty_rows:
+        raise FlashGradUnsupported(
+            "flash_attention's backward kernels take zero_empty_rows=True "
+            "(attend's contract)")
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """:func:`flash_attention` with its gradient: the forward kernel with a
+    row log-sum-exp output, the backward kernels of
+    :func:`flash_attention_backward` (on CPU tensors both run their plain
+    versions)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, q_positions, kv_positions, causal, window,
+                zero_empty_rows):
+        if _build.on_cpu(q, k, v, q_positions, kv_positions):
+            out = flash_attention_plain(q, k, v, q_positions, kv_positions,
+                                        causal=causal, window=window,
+                                        zero_empty_rows=zero_empty_rows)
+            lse = flash_lse_plain(q, k, q_positions, kv_positions,
+                                  causal=causal, window=window)
+        else:
+            _check_grad(q, q.shape[3], zero_empty_rows)
+            out, lse = _launch(q, k, v, q_positions, kv_positions, causal,
+                               window, zero_empty_rows, with_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse, q_positions, kv_positions)
+        ctx.opts = (causal, window, zero_empty_rows)
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse, qpos, kpos = ctx.saved_tensors
+        causal, window, zero_empty_rows = ctx.opts
+        dq, dk, dv = flash_attention_backward(
+            q, k, v, out, do, lse, qpos, kpos, causal=causal, window=window,
+            zero_empty_rows=zero_empty_rows)
+        return dq, dk, dv, None, None, None, None, None
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     q_positions: torch.Tensor, kv_positions: torch.Tensor, *,
                     causal: bool = True, window: int = 0,
@@ -320,12 +461,25 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     with no valid key is the mean of v, or zero with ``zero_empty_rows``.
     The reference's ``block_q``/``block_k``/``interpret`` are TPU tiling
     controls; the kernels pick their tiles themselves (``hw.FLASH_*``).
+    With grad mode on and q, k or v requiring grad the call goes through
+    :class:`FlashAttentionFn`.
     """
     _check_shapes(q, k, v, q_positions, kv_positions, window)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return FlashAttentionFn.apply(q, k, v, q_positions, kv_positions,
+                                      causal, window, zero_empty_rows)
     if _build.on_cpu(q, k, v, q_positions, kv_positions):
         return flash_attention_plain(q, k, v, q_positions, kv_positions,
                                      causal=causal, window=window,
                                      zero_empty_rows=zero_empty_rows)
+    return _launch(q, k, v, q_positions, kv_positions, causal, window,
+                   zero_empty_rows)[0]
+
+
+def _launch(q, k, v, q_positions, kv_positions, causal: bool, window: int,
+            zero_empty_rows: bool, *, with_lse: bool = False):
+    """The forward kernel on CUDA tensors: (out, lse or None)."""
     if not (q.dtype == k.dtype == v.dtype) or q.dtype not in _DTYPES:
         raise ValueError(f"q, k, v must share a dtype in float32/bfloat16/"
                          f"float16, got {q.dtype}, {k.dtype}, {v.dtype}")
@@ -333,16 +487,15 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     kvh, skv = k.shape[1], k.shape[2]
     if skv < 1:
         raise ValueError("flash_attention needs at least one key")
-    hdp = next((d for d in hw.FLASH_HEAD_DIMS if d >= hd), None)
-    if hdp is None:
-        raise ValueError(f"head dim {hd} > {hw.FLASH_HEAD_DIMS[-1]}, the "
-                         f"widest the kernel is built for")
+    hdp = _padded_hd(hd)
     if hdp != hd:
         q, k, v = (F.pad(t, (0, hdp - hd)) for t in (q, k, v))
     out = torch.empty((b, sq, h, hdp), dtype=q.dtype,
                       device=q.device).transpose(1, 2)
+    lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device) \
+        if with_lse else None
     if sq == 0:
-        return out[..., :hd]
+        return out[..., :hd], lse
     qpos = q_positions.to(torch.int32).contiguous()
     kpos = kv_positions.to(torch.int32).contiguous()
     strides = (_strides(q, "q") + _strides(k, "k") + _strides(v, "v")
@@ -350,7 +503,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     lib = _build.library("fk_attention").lib
     dev = q.device
     stream = _build.stream_of(q)
-    name = kernel_for(sq, q.dtype)
+    name = kernel_for(sq, q.dtype, with_lse)
     part = tickets = None
     if name == "flash_decode_kernel":
         if dev.index != torch.cuda.current_device():
@@ -365,11 +518,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         kpos.data_ptr(), out.data_ptr(), b, h, kvh, sq, skv, hdp, *strides,
         int(causal), int(window), int(zero_empty_rows), _DTYPES[q.dtype],
         None if part is None else part.data_ptr(),
-        None if tickets is None else tickets.data_ptr(), stream)
+        None if tickets is None else tickets.data_ptr(),
+        None if lse is None else lse.data_ptr(), stream)
     _build.check(code, "flash_attention", "fk_attention")
     flash_attention.launches += 1
     flash_attention.kernel_launches[name] += 1
-    return out if hdp == hd else out[..., :hd]
+    return (out if hdp == hd else out[..., :hd]), lse
 
 
 flash_attention.launches = 0
@@ -377,9 +531,10 @@ flash_attention.kernel_launches = dict.fromkeys(
     ("flash_prefill_kernel", "flash_decode_kernel", "flash_f32_kernel"), 0)
 
 
-def kernel_for(sq: int, dtype: torch.dtype) -> str:
-    """The kernel the C entry point launches for Sq query rows of dtype."""
-    if sq <= hw.FLASH_DECODE_MAX_SQ:
+def kernel_for(sq: int, dtype: torch.dtype, with_lse: bool = False) -> str:
+    """The kernel the C entry point launches for Sq query rows of dtype
+    (with an lse output, always the prefill kernel)."""
+    if sq <= hw.FLASH_DECODE_MAX_SQ and not with_lse:
         return "flash_decode_kernel"
     if dtype == torch.float32:
         return "flash_f32_kernel"
@@ -412,3 +567,136 @@ def _decode_workspace(lib, dev: torch.device, stream: int,
         tickets = torch.zeros(sizes[1], dtype=torch.int32, device=dev)
     _WORKSPACE[(dev.index, stream)] = (part, tickets)
     return part, tickets
+
+
+def _addressable(t: torch.Tensor) -> torch.Tensor:
+    """``t`` if the kernels can address it through its strides, else a
+    contiguous copy."""
+    try:
+        _strides(t, "")
+        return t
+    except ValueError:
+        return t.contiguous()
+
+
+def _like_heads(t: torch.Tensor) -> torch.Tensor:
+    """An empty (B, N, S, hd) tensor stored as (B, S, N, hd), the layout
+    ``attend``'s transposed views have."""
+    b, n, s, d = t.shape
+    return torch.empty((b, s, n, d), dtype=t.dtype,
+                       device=t.device).transpose(1, 2)
+
+
+def flash_attention_backward(q, k, v, out, do, lse, q_positions,
+                             kv_positions, *, causal: bool = True,
+                             window: int = 0, zero_empty_rows: bool = True):
+    """(dq, dk, dv) of :func:`flash_attention` from its output ``out`` and
+    row log-sum-exp ``lse`` (B, H, Sq) f32. On CPU tensors
+    :func:`flash_attention_backward_plain`; on CUDA tensors the three
+    kernels of ``csrc/fk_attention_bwd.cu`` (:func:`flash_bwd_prep`, then
+    :func:`flash_bwd_dkdv` and :func:`flash_bwd_dq`), or
+    :class:`FlashGradUnsupported` for what they do not take. Head dims under
+    64 are zero-padded (a copy), as the forward pads them."""
+    _check_shapes(q, k, v, q_positions, kv_positions, window)
+    if _build.on_cpu(q, k, v, out, do, lse, q_positions, kv_positions):
+        return flash_attention_backward_plain(
+            q, k, v, out, do, lse, q_positions, kv_positions, causal=causal,
+            window=window, zero_empty_rows=zero_empty_rows)
+    b, h, sq, hd = q.shape
+    _check_grad(q, hd, zero_empty_rows)
+    if not (q.dtype == k.dtype == v.dtype == out.dtype == do.dtype):
+        raise ValueError(f"q, k, v, out and do must share a dtype, got "
+                         f"{q.dtype}, {k.dtype}, {v.dtype}, {out.dtype}, "
+                         f"{do.dtype}")
+    if lse.dtype != torch.float32 or tuple(lse.shape) != (b, h, sq):
+        raise ValueError(f"lse must be f32 (B, H, Sq), got {lse.dtype} "
+                         f"{tuple(lse.shape)}")
+    hdp = _padded_hd(hd)
+    ops = [q, k, v, out, do]
+    if hdp != hd:
+        ops = [F.pad(t, (0, hdp - hd)) for t in ops]
+    q, k, v, out, do = (_addressable(t) for t in ops)
+    if sq == 0:
+        return (_like_heads(q)[..., :hd], torch.zeros_like(k)[..., :hd],
+                torch.zeros_like(v)[..., :hd])
+    lse = lse.contiguous()
+    qpos = q_positions.to(torch.int32).contiguous()
+    kpos = kv_positions.to(torch.int32).contiguous()
+    dsum = flash_bwd_prep(out, do)
+    dk, dv = flash_bwd_dkdv(q, k, v, do, lse, dsum, qpos, kpos,
+                            causal=causal, window=window)
+    dq = flash_bwd_dq(q, k, v, do, lse, dsum, qpos, kpos, causal=causal,
+                      window=window)
+    if hdp != hd:
+        return dq[..., :hd], dk[..., :hd], dv[..., :hd]
+    return dq, dk, dv
+
+
+
+def _stride_array(*tensors) -> ctypes.Array:
+    flat = [x for t in tensors for x in _strides(t, "operand")]
+    return (ctypes.c_longlong * len(flat))(*flat)
+
+
+def flash_bwd_prep(out: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
+    """``flash_bwd_prep_kernel``: D = rowsum(dO o O) in f32, (B, H, Sq), of
+    two bf16 / fp16 CUDA tensors (B, H, Sq, hd) that the kernels can
+    address (hd 64 or 128). Plain version: ``(do.float() *
+    out.float()).sum(-1)``."""
+    b, h, sq, hd = out.shape
+    dsum = torch.empty((b, h, sq), dtype=torch.float32, device=out.device)
+    st = _stride_array(out, do)
+    lib = _build.library("fk_attention_bwd").lib
+    _build.check(lib.fk_flash_bwd_prep(
+        out.data_ptr(), do.data_ptr(), dsum.data_ptr(), b, h, sq, hd,
+        ctypes.addressof(st), _DTYPES[out.dtype], _build.stream_of(out)),
+        "flash_bwd_prep", "fk_attention_bwd")
+    flash_bwd_prep.launches += 1
+    return dsum
+
+
+def flash_bwd_dkdv(q, k, v, do, lse, dsum, qpos, kpos, *,
+                   causal: bool = True, window: int = 0):
+    """``flash_bwd_dkdv_kernel``: (dk, dv) of the operands
+    :func:`flash_attention_backward` checked and made addressable, int32
+    positions, f32 lse and D (B, H, Sq) contiguous; stored as (B, Skv, KV,
+    hd) transposed views. Plain version: the dk and dv of
+    :func:`flash_attention_backward_plain`."""
+    b, h, sq, hd = q.shape
+    kvh, skv = k.shape[1], k.shape[2]
+    dk, dv = _like_heads(k), _like_heads(v)
+    st = _stride_array(q, k, v, do, dk, dv)
+    lib = _build.library("fk_attention_bwd").lib
+    _build.check(lib.fk_flash_bwd_dkdv(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+        lse.data_ptr(), dsum.data_ptr(), qpos.data_ptr(), kpos.data_ptr(),
+        dk.data_ptr(), dv.data_ptr(), b, h, kvh, sq, skv, hd,
+        ctypes.addressof(st), int(causal), int(window), _DTYPES[q.dtype],
+        _build.stream_of(q)), "flash_bwd_dkdv", "fk_attention_bwd")
+    flash_bwd_dkdv.launches += 1
+    return dk, dv
+
+
+def flash_bwd_dq(q, k, v, do, lse, dsum, qpos, kpos, *, causal: bool = True,
+                 window: int = 0) -> torch.Tensor:
+    """``flash_bwd_dq_kernel``: dq of the same operands, stored as a (B,
+    Sq, H, hd) transposed view. Plain version: the dq of
+    :func:`flash_attention_backward_plain`."""
+    b, h, sq, hd = q.shape
+    kvh, skv = k.shape[1], k.shape[2]
+    dq = _like_heads(q)
+    st = _stride_array(q, k, v, do, dq)
+    lib = _build.library("fk_attention_bwd").lib
+    _build.check(lib.fk_flash_bwd_dq(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+        lse.data_ptr(), dsum.data_ptr(), qpos.data_ptr(), kpos.data_ptr(),
+        dq.data_ptr(), b, h, kvh, sq, skv, hd, ctypes.addressof(st),
+        int(causal), int(window), _DTYPES[q.dtype], _build.stream_of(q)),
+        "flash_bwd_dq", "fk_attention_bwd")
+    flash_bwd_dq.launches += 1
+    return dq
+
+
+flash_bwd_prep.launches = 0
+flash_bwd_dkdv.launches = 0
+flash_bwd_dq.launches = 0

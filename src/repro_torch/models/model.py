@@ -19,8 +19,12 @@ so f32 frames would carry an f32 residual stream into a bf16 decoder).
 
 Weights are drawn from a seed (``init``), in f32 on the model's device,
 and cast to ``cfg.param_dtype`` (f32 leaves of the SSD and RG-LRU blocks
-stay f32); they never require grad: serving runs without autograd,
-training is a later slice.
+stay f32). They are frozen (serving runs without autograd) until a trainer
+calls ``lm.requires_grad_(True)``. :meth:`LM.loss` is the reference's
+training loss; with ``cfg.remat`` and grad enabled every block (decoder and
+encoder) runs under ``torch.utils.checkpoint`` (non-reentrant), the
+reference's ``jax.checkpoint`` of its scanned periods taken one layer at a
+time: a block's activations are recomputed in the backward.
 """
 from __future__ import annotations
 
@@ -28,9 +32,11 @@ from typing import Any, Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.api.estimator import resolve_device
 from repro_torch.configs.base import ATTN, ATTN_LOCAL, RGLRU, SSM, ArchConfig
+from repro_torch.ft import abft_dense
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import layers as L
 from repro_torch.models import moe as moe_mod
@@ -57,8 +63,8 @@ def _moe_on_layer(cfg: ArchConfig, layer_idx: int) -> bool:
 
 
 class Params(nn.Module):
-    """A (nested) dict of frozen parameters, indexed like the dict: tensors
-    become ``nn.Parameter``s that never require grad, sub-dicts (MoE's
+    """A (nested) dict of parameters, indexed like the dict: tensors become
+    ``nn.Parameter``s, frozen until ``requires_grad_(True)``, sub-dicts (MoE's
     ``shared`` MLP, the SSD block's ``norm``) ``Params`` of their own, so
     the state-dict keys are the dotted paths of the reference's tree."""
 
@@ -247,8 +253,21 @@ class LM(nn.Module):
         positions = torch.arange(s, dtype=torch.int32,
                                  device=self.device)[None, :].expand(b, s)
         for layer in self.encoder:
-            x, _, _ = layer(x, positions=positions, causal=False)
+            x, _, _ = self._run(layer, x, positions=positions, causal=False)
         return x
+
+    def _run(self, layer, x, **kw):
+        """One block, under ``torch.utils.checkpoint`` when ``cfg.remat``
+        and grad are on (the reference's ``jax.checkpoint``). The recompute
+        runs on autograd's thread with the ABFT switch of the forward."""
+        if not (self.cfg.remat and torch.is_grad_enabled()):
+            return layer(x, **kw)
+        on = abft_dense.ft_enabled()
+
+        def block(x, **kw):
+            with abft_dense.enabled_as(on):
+                return layer(x, **kw)
+        return checkpoint(block, x, use_reentrant=False, **kw)
 
     def _encoder_out(self, batch: dict) -> Optional[torch.Tensor]:
         if not self.cfg.encoder_decoder:
@@ -267,9 +286,28 @@ class LM(nn.Module):
         encoder_out = self._encoder_out(batch)
         aux = torch.zeros((), dtype=torch.float32, device=self.device)
         for layer in self.layers:
-            x, _, a = layer(x, positions=positions, encoder_out=encoder_out)
+            x, _, a = self._run(layer, x, positions=positions,
+                                encoder_out=encoder_out)
             aux = aux + a
         return self._head(x), aux
+
+    def loss(self, batch: dict):
+        """The reference's training loss: mean next-token cross-entropy of
+        the f32 logits (padded-vocabulary columns set to -1e30 first) plus
+        0.01 x the MoE aux loss. Returns (loss, {"ce", "aux"}). The label's
+        log-probability is a gather; the reference's one-hot contraction
+        gives the same f32 value (every other term of its sum is +-0)."""
+        cfg = self.cfg
+        logits, aux = self.forward(batch)
+        if cfg.padded_vocab != cfg.vocab_size:
+            pad = torch.arange(cfg.padded_vocab,
+                               device=logits.device) >= cfg.vocab_size
+            logits = logits.masked_fill(pad, -1e30)
+        logp = torch.log_softmax(logits, dim=-1)
+        labels = batch["labels"].to(logp.device, torch.int64)
+        nll = -torch.gather(logp, -1, labels[..., None])[..., 0]
+        ce = nll.mean()
+        return ce + 0.01 * aux, {"ce": ce, "aux": aux}
 
     # -- serving --------------------------------------------------------------
 
