@@ -27,8 +27,10 @@ Phases, one line each:
      bytes and resident blocks an SM (two blocks at BM = 128); the same of
      the int8 tile kernel (s8 tensor cores) at Fp 128 and 1024, and of
      every 2-byte tile kernel instantiation at Fp 32 and 128 (FT ones also
-     320), each gated at two blocks an SM; and the f32 flash kernel's at
-     head dims 64, 128 and 256 and the DMR update's kernels';
+     320), each gated at two blocks an SM; the f32 flash kernel's at
+     head dims 64, 128 and 256 and the DMR update's kernels'; and the
+     attention backward's wgmma kernels' (dK / dV and dQ at bf16 / fp16 x
+     hd 64 / 128) with each role's registers after setmaxnreg;
   2. kernels vs their plain PyTorch versions (TF32 off) at M = 65,573,
      F = 100, K = 1000 and 100, and F = 300 (Fp = 320), K = 1000, plus
      planted FT faults; the one-pass
@@ -250,7 +252,8 @@ Phases, one line each:
      and fp16, each under twice the plain version's own bf16 rounding
      floor with a control (one key dropped from the backward's mask) that
      must break it, two launches bit for bit, f32 and hd 256 with grad
-     refused; then internlm2-1.8b at full width and depth (seeded
+     refused (one more case straddles the kernels' 128-row blocks and
+     64-row steps: ragged Sq and Skv, a window, holes, fp16); then internlm2-1.8b at full width and depth (seeded
      weights), the reference's train_4k step cut to a global batch of 8 x
      4096 in 4 micro-batches: the first micro-batch's loss and worst
      per-leaf gradient norm through the kernel route within
@@ -263,9 +266,11 @@ Phases, one line each:
      step ms, tokens/s, peak memory; on the launcher's state once more a
      ``torch.profiler`` trace of a step (idle share, and the device time
      of the step's forward / backward / accumulate / optimizer
-     ``record_function`` ranges) and one ``cfg.abft`` step beside; the
-     backward kernels' rows (their launches the 5 steps'; the forward
-     launches are added to the flash_attention row).
+     ``record_function`` ranges) and one ``cfg.abft`` step beside; each
+     backward kernel's ms and share of its own bound, the gradient's
+     10-hd share and SDPA's backward beside; the backward kernels' rows
+     (their launches the 5 steps'; the forward launches are added to the
+     flash_attention row).
 
 A kernel's bound counts the work of the function at the true M, K and F,
 not at the padded tile grid; the padded figures are printed beside it.
@@ -420,6 +425,10 @@ BWD_CASES = {
                    tuple(range(50, 60)), "bf16"),
     "fp16_hd64": (1, 4, 2, 257, 257, 64, True, 0, (), (), "fp16"),
     "sq5": (2, 4, 2, 5, 40, 128, True, 0, (), (), "bf16"),
+    # across the backward's 128-row blocks and 64-row steps: ragged Sq and
+    # Skv, a window, key holes inside a block, query holes, fp16
+    "straddle_fp16": (1, 4, 2, 777, 1029, 128, True, 300, (5, 400),
+                      tuple(range(120, 140)), "fp16"),
 }
 ABFT_TILE_CASES = (((8, 128, 32), (1000, 96, 300)),
                    ((40, 128, 32), (1000, 160, 500)),
@@ -586,6 +595,28 @@ def attention_dmr_resources(cud, fa, libs) -> dict:
         f"hd{hd}": {**f32.get(f"hd{hd}", {"spill_bytes": -1}),
                     **fa.f32_resources(hd)} for hd in (64, 128, 256)},
             "dmr_kernels": dmr}
+
+
+def flash_bwd_resources(torch, fa, log: str) -> dict:
+    """The backward's two wgmma kernels, ``flash_bwd_dkdv_kernel<T, hd>``
+    and ``flash_bwd_dq_kernel<T, hd>`` at bf16 / fp16 x hd 64 / 128:
+    ptxas' registers and spill bytes from the build log (ptxas reports the
+    count a thread starts with, before setmaxnreg), and the runtime's
+    resident blocks an SM, registers, local bytes, shared bytes and the
+    registers of each role after setmaxnreg
+    (``flash_attention.bwd_resources``)."""
+    tags = {"6__half": "fp16", "13__nv_bfloat16": "bf16"}
+    ptx = ptxas_of(log, r"flash_bwd_(dkdv|dq)_kernelI(13__nv_bfloat16|6__half)"
+                        r"Li(\d+)E",
+                   lambda m: f"{m[1]}_{tags[m[2]]}_hd{m[3]}")
+    out = {}
+    for kern in ("dkdv", "dq"):
+        for tag, dt in (("bf16", torch.bfloat16), ("fp16", torch.float16)):
+            for hd in (64, 128):
+                name = f"{kern}_{tag}_hd{hd}"
+                out[name] = {**ptx.get(name, {"spill_bytes": -1}),
+                             **fa.bwd_resources(kern, dt, hd)}
+    return out
 
 
 def max_err(a, b) -> float:
@@ -5347,8 +5378,10 @@ def bwd_rows(torch, fa, hw, t: tuple, errs: dict,
               "replaces": "src/repro/models/attention.py:79 (XLA autodiff "
                           "of _attend_local; no Pallas kernel has a "
                           "backward)"}
+    shares = {}
     for name, (kfn, pfn, lfn, (b_ms, b_by), err) in kernels.items():
         times[name] = cuda_ms(kfn, reps=10)
+        shares[name] = b_ms / times[name]
         rows.append(dict(common, name=name, launches=launches[name],
                          max_abs_err=err, ms=times[name],
                          plain_ms=cuda_ms(pfn, reps=5) if pfn else plain_ms,
@@ -5361,7 +5394,8 @@ def bwd_rows(torch, fa, hw, t: tuple, errs: dict,
     bwd_bound = bound(10.0 * hd * pairs, 4 * qb + 4 * kb + 2 * lb)[0]
     design_bound = bound(14.0 * hd * pairs, 4 * qb + 4 * kb + 2 * lb)[0]
     rec = {"shape": [b, h, kvh, sq, skv, hd], "causal_pairs": pairs,
-           "kernel_ms": times, "backward_ms": whole_ms,
+           "kernel_ms": times, "kernel_bound_share": shares,
+           "backward_ms": whole_ms,
            "backward_bound_ms": bwd_bound,
            "backward_bound_share": bwd_bound / whole_ms,
            "two_kernel_design_bound_ms": design_bound,
@@ -5653,6 +5687,8 @@ def main() -> int:
     f32_tiles = f32_tile_resources(da, libs["fk_kernels"].ptxas_log)
     redesigned = redesigned_resources(da, dai, libs["fk_kernels"].ptxas_log)
     redesigned.update(attention_dmr_resources(cud, fa, libs))
+    redesigned["flash_bwd_kernels"] = flash_bwd_resources(
+        torch, fa, libs["fk_attention_bwd"].ptxas_log)
     emit({"phase": 1, "device": kind, "nvidia_smi": smi_line,
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "build_s": round(build_s, 3),
@@ -5661,6 +5697,8 @@ def main() -> int:
           "f32_tile_kernel": f32_tiles, **redesigned, "ptxas": ptxas})
     for name, r in redesigned["flash_f32_kernel"].items():
         expect(r["blocks_per_sm"] >= 1, f"flash_f32_kernel {name}: {r}")
+    for name, r in redesigned["flash_bwd_kernels"].items():
+        expect(r["blocks_per_sm"] >= 1, f"flash_bwd {name}: {r}")
     for name, r in f32_tiles.items():
         expect(not name.startswith("bm128") or r["blocks_per_sm"] >= 2,
                f"f32 lloyd_tile_kernel {name}: {r['blocks_per_sm']} block(s) "

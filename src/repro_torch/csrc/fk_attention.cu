@@ -130,7 +130,7 @@
 // maps come from cuTensorMapEncodeTiled, reached through
 // cudaGetDriverEntryPoint (no link against the driver library); that and
 // the mbarrier / TMA helpers live in fk_tma.cuh, shared with
-// fk_abft_gemm.cu.
+// fk_abft_gemm.cu and fk_attention_bwd.cu.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler
 // -fPIC (no --use_fast_math: expf and the final division stay accurate).
@@ -909,27 +909,6 @@ flash_prefill_kernel(const __grid_constant__ CUtensorMap kmap,
                              ob, oss, row0);
 }
 
-// a 4-d map over (hd, Skv, KV, B) of a 2-byte tensor with the given element
-// strides, boxes of {64, rows, 1, 1}, 128-byte swizzle, zeros past the end
-bool kv_map(CUtensorMap* map, const void* base, bool bf16, int hd, int Skv,
-            int KV, int B, long long ss, long long sh, long long sb,
-            int rows) {
-  EncodeTiled fn = encode_tiled();
-  if (!fn) return false;
-  const cuuint64_t dims[4] = {cuuint64_t(hd), cuuint64_t(Skv), cuuint64_t(KV),
-                              cuuint64_t(B)};
-  const cuuint64_t strides[3] = {cuuint64_t(ss) * 2, cuuint64_t(sh) * 2,
-                                 cuuint64_t(sb) * 2};
-  const cuuint32_t box[4] = {64, cuuint32_t(rows), 1, 1};
-  const cuuint32_t estr[4] = {1, 1, 1, 1};
-  return fn(map, bf16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
-                      : CU_TENSOR_MAP_DATA_TYPE_FLOAT16,
-            4, const_cast<void*>(base), dims, strides, box, estr,
-            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 // --- decode (Sq <= 16): split-KV with GQA packing on the CUDA cores --------
 
 constexpr int kDcWarps = 4;
@@ -1332,10 +1311,10 @@ int launch_prefill(const Args& a) {
   const long long* st = a.st;
   CUtensorMap km, vm;
   const bool bf = std::is_same<T, __nv_bfloat16>::value;
-  if (!kv_map(&km, a.k, bf, HD, a.Skv, a.KV, a.B, st[5], st[4], st[3],
-              W::bk) ||
-      !kv_map(&vm, a.v, bf, HD, a.Skv, a.KV, a.B, st[8], st[7], st[6],
-              W::bk))
+  if (!head_map(&km, a.k, bf, HD, a.Skv, a.KV, a.B, st[5], st[4], st[3],
+                W::bk) ||
+      !head_map(&vm, a.v, bf, HD, a.Skv, a.KV, a.B, st[8], st[7], st[6],
+                W::bk))
     return int(cudaErrorInvalidValue);
   auto kern = flash_prefill_kernel<T, HD>;
   cudaError_t e = smem_attr(kern, W::bytes);

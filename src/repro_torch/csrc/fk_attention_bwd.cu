@@ -23,96 +23,100 @@
 //                                            flash_bwd_dkdv_kernel
 //   dQ = dS K                                flash_bwd_dq_kernel
 //
-// Every product runs on mma.sync m16n8k16 (fk_mma.cuh) on bf16 or fp16
-// operands with f32 accumulation: S, dP and S^T, dP^T from the inputs, and
-// P (for dV) and dS (for dK and dQ) rounded to the input type first, as
-// the forward rounds P before P V. Accumulators stay in f32 registers and
-// are rounded once, at the end, to the input type.
+// Products run on bf16 or fp16 operands with f32 accumulation; P (for dV)
+// and dS (for dK and dQ) are rounded to the input type first, as the
+// forward rounds P before P V. Accumulators stay in f32 registers and are
+// rounded once, at the end, to the input type.
 //
-//   * flash_bwd_prep_kernel<T>: one warp a query row, D in f32.
-//   * flash_bwd_dkdv_kernel<T, HD>: one block of four warps per (batch, KV
-//     head, tile of 64 keys); warp w owns keys 16 w .. 16 w + 15 and their
-//     dK and dV rows (2 x HD / 2 f32 a thread). K and V are staged once;
-//     the block walks the group's query heads for every query tile of 64
-//     rows that the tile rule (fk_attention.cu's header: dead, live, fully
-//     live, from the positions' bounds) does not call dead, Q, dO, lse and
-//     D of the next (tile, head) on a two-stage cp.async ring while it
-//     computes this one, in halves of 32 query rows (S^T and dP^T, 16 f32
-//     a thread each). Every dK / dV element has one owner thread and a
-//     fixed walk: no atomics, two launches give the same bits.
-//   * flash_bwd_dq_kernel<T, HD>: one block of four warps per (batch,
-//     query head, tile of 64 query rows); warp w owns rows 16 w ..
-//     16 w + 15 and their dQ (HD / 2 f32 a thread). Q and dO are staged
-//     once; the live KV tiles of 64 keys come through a two-stage cp.async
-//     ring; S and dP are 32 f32 a thread each.
+// Hopper's shape, as the forward's prefill kernel (fk_attention.cu): a
+// block of 384 threads is two consumer warpgroups and a producer
+// warpgroup. The producer's registers are cut to 24 a thread and the
+// consumers' raised to 240 (setmaxnreg; the role broadcast warp-uniform),
+// since a consumer holds two f32 accumulators of 64 rows x hd. One warp of
+// the producer warpgroup works, the other three exit: it decides each
+// step's tile by position (the tile rule of fk_attention.cu's header:
+// dead, live, fully live, from the positions' bounds; a dead tile is not
+// loaded) and TMA-loads it (64-value panels of 128 bytes, 128-byte swizzle,
+// zeros past the tensor's end) into a ring of three stages, each guarded by
+// a "full" mbarrier (the TMA's bytes) and an "empty" one (the 256 consumer
+// threads). A stage's index of -1 ends the walk. The consumers classify the
+// step once more for their own 64 rows (a tile dead for them is skipped, a
+// fully live one not masked) and run every product as wgmma.mma_async
+// (fk_wgmma.cuh) from shared memory:
 //
-// Shared tiles keep rows padded by 16 bytes (HD + 8 values), so the
-// ldmatrix row addresses of a warp fall in distinct banks. Fully live
-// tiles skip the per-score mask; keys past Skv are zero rows whose P is
-// forced to 0 (dQ) or whose dK / dV rows are never written (dK, dV); query
-// rows past Sq are zero rows with lse = +inf, so their P is 0.
+//   * flash_bwd_dkdv_kernel<T, HD>: one block per (batch, KV head, 128
+//     keys); warpgroup w owns keys 64 w .. 64 w + 63 and their dK and dV
+//     (2 x HD / 2 f32 a thread). The producer loads the block's K and V
+//     once, then walks the query tiles of 64 rows that are live for the
+//     block's keys, each over the group's query heads, loading Q and dO by
+//     TMA and the rows' lse, D and positions by its lanes. Per step S^T =
+//     K Q^T and dP^T = V dO^T (m64n64k16, both operands K-major), P^T and
+//     dS^T on the accumulator fragments, then dV += P^T dO and dK += dS^T Q
+//     (m64nHDk16, A from registers: S^T's accumulator layout is the A
+//     fragment's; Q and dO read as the MN-major B operand, imm-trans-b), so
+//     P and dS never go through shared memory. Key tile 0, the longest
+//     causal walk, goes first (blockIdx.y).
+//   * flash_bwd_dq_kernel<T, HD>: one block per (batch, query head, 128
+//     rows); warpgroup w owns rows 64 w .. 64 w + 63 and their dQ (HD / 2
+//     f32 a thread). Q and dO are loaded once; the producer walks the KV
+//     tiles of 64 keys that are live for the block's rows. Per step S = Q
+//     K^T and dP = dO V^T (K-major), dS on the fragments, dQ += dS K (A from
+//     registers, K MN-major): the forward's structure with one more
+//     product. Query tiles go out last first (blockIdx.y reversed), so the
+//     longest causal walks start first.
+//   * flash_bwd_prep_kernel<T>: one warp a query row, D in f32 (3 % of the
+//     backward at the training shape; folding it into the dQ kernel would
+//     make the dK / dV kernel wait for dQ's).
+//
+// No atomics: every dK / dV / dQ element has one owner thread and a fixed
+// walk, so two launches give the same bits. (FA3's fused design adds dQ
+// partials from the dK / dV walk into an f32 buffer with atomics, which
+// changes bits between launches; ordered, it moves about a GB more at the
+// training shape.) Query rows past Sq are zero rows (TMA) with lse = +inf,
+// so their P is 0; keys past Skv are zero rows, masked, never fully live,
+// and their dK / dV rows are not written.
 //
 // Bound on the H100: per (query, valid key) pair and query head, 8 HD FLOPs
 // in the dK / dV kernel (S^T, dP^T, dV, dK) and 6 HD in the dQ kernel (S,
-// dP, dQ), at 989 TFLOP/s; the prep kernel by its bytes (O and dO read, D
-// written; 3.35 TB/s). This is the first, simple design: mma.sync with a
-// cp.async ring, not wgmma with TMA.
+// dP, dQ), at 989 TFLOP/s; the gradient itself needs 10 HD (S and dP
+// once); the prep kernel by its bytes (O and dO read, D written; 3.35
+// TB/s). hd 64 and 128 are built. At hd 256 the dK + dV accumulators of 64
+// keys would be 256 f32 a thread: a warpgroup would own half of hd (two
+// passes over the walk, or four consumer warpgroups of 32 columns' dK /
+// dV each).
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler
 // -fPIC (no --use_fast_math).
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <climits>
 #include <cstdint>
+#include <type_traits>
 
-#include "fk_mma.cuh"
+#include "fk_tma.cuh"
+#include "fk_wgmma.cuh"
 
 namespace {
 
 constexpr float kLog2e = 1.4426950408889634f;
-constexpr int kThreads = 128;       // four warps
-constexpr int kBM = 64;             // query rows a tile
-constexpr int kBN = 64;             // keys a tile
-constexpr int kPad = 8;             // values of padding a shared row
+constexpr int kThreads = 384;       // two consumer warpgroups, a producer one
+constexpr int kConsumers = 256;
+constexpr int kProducerRegs = 24;   // a thread, after setmaxnreg
+constexpr int kConsumerRegs = 240;
+constexpr int kRows = 64;           // a warpgroup's keys (dK/dV), rows (dQ)
+constexpr int kBlock = 128;         // a block's keys (dK/dV), rows (dQ)
+constexpr int kTile = 64;           // a step's query rows (dK/dV), keys (dQ)
+constexpr int kStages = 3;
 constexpr int kMaxRows = 65535;     // a grid dimension
 
 enum TileClass : int { kDead = 0, kLive = 1, kFull = 2 };
 
-// element strides of the operands, (batch, head, sequence) each, passed by
-// value: (q, k, v, dO, dK, dV) to the dK / dV kernel, (q, k, v, dO, dQ) to
-// the dQ kernel
-struct Strides {
-  long long v[18];
+// element strides (batch, head, sequence) of the outputs: dk and dv, or dq
+struct OutStrides {
+  long long v[6];
 };
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool full) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   static_cast<unsigned>(__cvta_generic_to_shared(dst))),
-               "l"(src), "r"(full ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// four 8 x 8 matrices of 2-byte values, each delivered transposed
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r,
-                                                  const void* smem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(s)
-      : "memory");
-}
 
 // 2^x on the SFU, as the forward's (ex2.approx.ftz: -inf gives +0)
 __device__ __forceinline__ float fast_exp2(float x) {
@@ -120,6 +124,11 @@ __device__ __forceinline__ float fast_exp2(float x) {
   asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
   return y;
 }
+
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+__device__ __forceinline__ float to_f32(__half v) { return __half2float(v); }
 
 template <typename T>
 __device__ __forceinline__ uint32_t pack2(float lo, float hi);
@@ -197,45 +206,61 @@ __device__ __forceinline__ int pair_class(int qmin, int qmax, int kmin,
   return kLive;
 }
 
-// rows [row0, row0 + 64) of a (rows, HD) operand with row stride ss into a
-// shared tile of HD + kPad values a row; rows at or past n are zeros
+// S (64 x 64) = A B^T over HD, both K-major 128-byte-swizzled tiles: A's
+// panels a_panel bytes apart, B's b_panel (wgmma m64n64k16, HD / 16 steps)
 template <typename T, int HD>
-__device__ __forceinline__ void stage_rows(T* dst, const T* __restrict__ src,
-                                           long long ss, int row0, int n) {
-  constexpr int CH = HD / 8;        // 16-byte chunks a row
-  for (int idx = threadIdx.x; idx < 64 * CH; idx += kThreads) {
-    const int r = idx / CH, c = idx - (idx / CH) * CH;
-    const bool ok = row0 + r < n;
-    cp_async16(dst + r * (HD + kPad) + c * 8,
-               ok ? src + (long long)(row0 + r) * ss + c * 8 : src, ok);
+__device__ __forceinline__ void wgmma_abt(float* s, const unsigned char* a,
+                                          int a_panel,
+                                          const unsigned char* b,
+                                          int b_panel) {
+#pragma unroll
+  for (int kk = 0; kk < HD / 16; ++kk) {
+    const int off = (kk & 3) << 5;
+    wgmma_ss_n64(s, sw128_desc(a + (kk >> 2) * a_panel + off, 16),
+                 sw128_desc(b + (kk >> 2) * b_panel + off, 16), kk > 0, T());
   }
 }
 
-// the A fragment (16 x 16) of rows r0.., columns c0.. of a padded tile
-template <int LD, typename T>
-__device__ __forceinline__ void frag_a(uint32_t* a, const T* tile, int r0,
-                                       int c0) {
-  const int lane = threadIdx.x & 31;
-  ldmatrix_x4(a, tile + (r0 + (lane & 15)) * LD + c0 + (lane >> 4) * 8);
+// D (64 x HD) += A B over 64 rows of B: A from registers (four k16 steps
+// of the mma.sync A fragment, pairs packed in T), B a 64-row tile with HD
+// contiguous (MN-major, imm-trans-b), its 64-value panels kTile * 128
+// bytes apart
+template <typename T, int HD>
+__device__ __forceinline__ void wgmma_ab(float* d, const uint32_t (*a)[2],
+                                         const unsigned char* b) {
+#pragma unroll
+  for (int j = 0; j < kTile / 16; ++j) {
+    const uint32_t f[4] = {a[2 * j][0], a[2 * j][1], a[2 * j + 1][0],
+                           a[2 * j + 1][1]};
+    const uint64_t db = sw128_desc(b + j * 16 * 128, kTile * 128);
+    if constexpr (HD == 64) wgmma_rs_n64(d, f, db, T());
+    else wgmma_rs_n128(d, f, db, T());
+  }
 }
 
-// B fragments of two n8 tiles (n0.., n0 + 8..) x k16 (k0..) of a tile
-// stored [n][k] (k contiguous): b[0], b[1] n-tile 0, b[2], b[3] n-tile 1
-template <int LD, typename T>
-__device__ __forceinline__ void frag_b_nk(uint32_t* b, const T* tile, int n0,
-                                          int k0) {
-  const int lane = threadIdx.x & 31, i = lane >> 3;
-  ldmatrix_x4(b, tile + (n0 + (lane & 7) + (i >> 1) * 8) * LD + k0
-                     + (i & 1) * 8);
+// rows [0, 64) of a warpgroup's f32 accumulator (64 x HD, wgmma's layout)
+// rounded to T into rows row0 + r of out (stride ss), rows at or past n
+// not written
+template <typename T, int HD>
+__device__ __forceinline__ void store_rows(T* __restrict__ out, long long ss,
+                                           int row0, int n, const float* d) {
+  const int lane = threadIdx.x & 31, wi = (threadIdx.x >> 5) & 3;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + 16 * wi + (lane >> 2) + 8 * r;
+    if (row >= n) continue;
+    T* o = out + row * ss + 2 * (lane & 3);
+#pragma unroll
+    for (int nt = 0; nt < HD / 8; ++nt)
+      *reinterpret_cast<uint32_t*>(o + nt * 8) =
+          pack2<T>(d[nt * 4 + 2 * r], d[nt * 4 + 2 * r + 1]);
+  }
 }
 
-// the same from a tile stored [k][n] (n contiguous), transposed on load
-template <int LD, typename T>
-__device__ __forceinline__ void frag_b_kn(uint32_t* b, const T* tile, int k0,
-                                          int n0) {
-  const int lane = threadIdx.x & 31, i = lane >> 3;
-  ldmatrix_x4_trans(b, tile + (k0 + (lane & 7) + (i & 1) * 8) * LD + n0
-                           + (i >> 1) * 8);
+template <int N>
+__device__ __forceinline__ void zero(float* d) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) d[i] = 0.0f;
 }
 
 // --- D = rowsum(dO o O) ------------------------------------------------------
@@ -263,385 +288,417 @@ flash_bwd_prep_kernel(const T* __restrict__ o, const T* __restrict__ dout,
   if (lane == 0) dsum[(long long)blockIdx.y * Sq + i] = acc;
 }
 
-// --- dK, dV --------------------------------------------------------------
+// --- dK, dV ------------------------------------------------------------------
 
 template <int HD>
-struct KvShape {
-  static constexpr int ld = HD + kPad;
-  static constexpr int tile = kBM * ld;              // values of one tile
-  // K, V, then two stages of (Q, dO), then two of (lse, D, qpos)
-  static constexpr size_t bytes = size_t(6) * tile * 2 + 2 * 3 * kBM * 4;
+struct KvSmem {
+  static constexpr int panels = HD / 64;
+  static constexpr int kv_bytes = kBlock * HD * 2;   // K or V of the block
+  static constexpr int tile_bytes = kTile * HD * 2;  // Q or dO of a step
+  static constexpr int stage_bytes = 2 * tile_bytes;
+  static constexpr int k = 0;
+  static constexpr int v = kv_bytes;
+  static constexpr int ring = 2 * kv_bytes;
+  // each stage's rows: lse, D (f32) and positions (int), kTile each
+  static constexpr int rows = ring + kStages * stage_bytes;
+  // each stage's (query tile or -1, head of the group, qmin, qmax)
+  static constexpr int info = rows + kStages * 3 * kTile * 4;
+  static constexpr int bars = info + kStages * 4 * 4;  // full, empty, kv
+  static constexpr size_t bytes = size_t(bars) + (2 * kStages + 1) * 8 + 1024;
 };
 
 template <typename T, int HD>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                      const T* __restrict__ v, const T* __restrict__ dout,
+__global__ void __launch_bounds__(kThreads, 1)
+flash_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap qmap,
+                      const __grid_constant__ CUtensorMap gmap,
+                      const __grid_constant__ CUtensorMap kmap,
+                      const __grid_constant__ CUtensorMap vmap,
                       const float* __restrict__ lse,
                       const float* __restrict__ dsum,
                       const int* __restrict__ qpos,
                       const int* __restrict__ kpos, T* __restrict__ dk,
                       T* __restrict__ dv, int H, int KV, int Sq, int Skv,
-                      const Strides st, int causal, int window) {
-  using W = KvShape<HD>;
-  constexpr int LD = W::ld;
-  constexpr int DT = HD / 8;                         // n8 tiles of HD
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* Ks = reinterpret_cast<T*>(smem_raw);
-  T* Vs = Ks + W::tile;
-  T* Qs = Vs + W::tile;                              // [2] stages
-  T* Ds = Qs + 2 * W::tile;                          // dO, [2] stages
-  float* ls = reinterpret_cast<float*>(Ds + 2 * W::tile);   // [2][kBM]
-  float* dd = ls + 2 * kBM;                                 // [2][kBM]
-  int* qps = reinterpret_cast<int*>(dd + 2 * kBM);          // [2][kBM]
+                      const OutStrides os, int causal, int window) {
+  using W = KvSmem<HD>;
+  extern __shared__ unsigned char smw_raw[];
+  unsigned char* smw = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smw_raw) + 1023) & ~uintptr_t(1023));
+  float* ls = reinterpret_cast<float*>(smw + W::rows);     // [stage][kTile]
+  float* ds = ls + kStages * kTile;
+  int* qs = reinterpret_cast<int*>(ds + kStages * kTile);
+  int* info = reinterpret_cast<int*>(smw + W::info);       // [stage][4]
+  uint64_t* full = reinterpret_cast<uint64_t*>(smw + W::bars);
+  uint64_t* empty = full + kStages;
+  uint64_t* kvbar = empty + kStages;
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, tig = lane & 3;
   const int b = blockIdx.x / KV, kvh = blockIdx.x - (blockIdx.x / KV) * KV;
   const int group = H / KV;
-  const int k0 = blockIdx.y * kBN;
-  // strides (elements): q, k, v, dO, dk, dv x (batch, head, sequence)
-  const long long qsb = st.v[0], qsh = st.v[1], qss = st.v[2];
-  const long long ksb = st.v[3], ksh = st.v[4], kss = st.v[5];
-  const long long vsb = st.v[6], vsh = st.v[7], vss = st.v[8];
-  const long long gsb = st.v[9], gsh = st.v[10], gss = st.v[11];
-  const long long dksb = st.v[12], dksh = st.v[13], dkss = st.v[14];
-  const long long dvsb = st.v[15], dvsh = st.v[16], dvss = st.v[17];
+  const int k0 = blockIdx.y * kBlock;
 
+  if (tid == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full + s, 32);          // the producer's lanes
+      mbar_init(empty + s, kConsumers);
+    }
+    mbar_init(kvbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  // warpgroup 2 produces; the role broadcast from lane 0 is visibly
+  // warp-uniform, so ptxas gives each role its setmaxnreg count
+  const int role = __shfl_sync(0xffffffffu, warp >> 2, 0);
+  if (role == 2) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs)
+                 : "memory");
+    if (warp != 8) return;
+    if (lane == 0) {
+      mbar_expect_tx(kvbar, 2 * W::kv_bytes);
+#pragma unroll
+      for (int p = 0; p < W::panels; ++p) {
+        tma_load(smw + W::k + p * kBlock * 128, &kmap, kvbar, p * 64, k0, kvh,
+                 b);
+        tma_load(smw + W::v + p * kBlock * 128, &vmap, kvbar, p * 64, k0, kvh,
+                 b);
+      }
+    }
+    int kmin, kmax, kcnt;
+    key_bounds(kpos, k0, kBlock, Skv, kmin, kmax, kcnt);
+    const int nqt = (Sq + kTile - 1) / kTile;
+    // the first query tile at or after qt that is live for the block
+    int qmin = 0, qmax = 0;
+    auto next_live = [&](int qt) {
+      for (; qt < nqt; ++qt) {
+        query_bounds(qpos, qt * kTile, min(kTile, Sq - qt * kTile), qmin,
+                     qmax);
+        if (pair_class(qmin, qmax, kmin, kmax, kcnt, kBlock, causal,
+                       window) != kDead)
+          break;
+      }
+      return qt;
+    };
+    int qt = next_live(0), j = 0;
+    for (int it = 0;; ++it) {
+      const int st = it % kStages;
+      mbar_wait(empty + st, ((it / kStages) & 1) ^ 1);
+      const bool more = qt < nqt;
+      const int h = kvh * group + j;
+      if (more) {
+        const long long row = ((long long)b * H + h) * Sq;
+        for (int i = lane; i < kTile; i += 32) {
+          const int qi = qt * kTile + i;
+          ls[st * kTile + i] = qi < Sq ? lse[row + qi] : INFINITY;
+          ds[st * kTile + i] = qi < Sq ? dsum[row + qi] : 0.0f;
+          qs[st * kTile + i] = qi < Sq ? qpos[qi] : 0;
+        }
+      }
+      if (lane == 0) {
+        int* in = info + 4 * st;
+        in[0] = more ? qt : -1;
+        in[1] = j;
+        in[2] = qmin;
+        in[3] = qmax;
+      }
+      if (lane == 0 && more) {
+        unsigned char* Qs = smw + W::ring + st * W::stage_bytes;
+        mbar_expect_tx(full + st, W::stage_bytes);
+#pragma unroll
+        for (int p = 0; p < W::panels; ++p) {
+          tma_load(Qs + p * kTile * 128, &qmap, full + st, p * 64,
+                   qt * kTile, h, b);
+          tma_load(Qs + W::tile_bytes + p * kTile * 128, &gmap, full + st,
+                   p * 64, qt * kTile, h, b);
+        }
+      } else {
+        mbar_arrive(full + st);
+      }
+      if (!more) return;
+      if (++j == group) {
+        j = 0;
+        qt = next_live(qt + 1);
+      }
+    }
+  }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs)
+               : "memory");
+
+  // consumers: warpgroup wg owns keys kw .. kw + 63
+  const int wg = warp >> 2, wi = warp & 3;
+  const int g = lane >> 2, tg = lane & 3;
+  const int kw = k0 + kRows * wg;
   int kmin, kmax, kcnt;
-  key_bounds(kpos, k0, kBN, Skv, kmin, kmax, kcnt);
-  const int nqt = (Sq + kBM - 1) / kBM;
-  // the first live query tile at or after qt, nqt if none
-  auto next_tile = [&](int qt) {
-    for (; qt < nqt; ++qt) {
-      int qmin, qmax;
-      query_bounds(qpos, qt * kBM, min(kBM, Sq - qt * kBM), qmin, qmax);
-      if (pair_class(qmin, qmax, kmin, kmax, kcnt, kBN, causal, window) !=
-          kDead)
-        return qt;
-    }
-    return nqt;
-  };
-  auto tile_cls = [&](int qt) {
-    int qmin, qmax;
-    query_bounds(qpos, qt * kBM, min(kBM, Sq - qt * kBM), qmin, qmax);
-    return pair_class(qmin, qmax, kmin, kmax, kcnt, kBN, causal, window);
-  };
-  // stage (query tile qt, head j of the group) into stage s
-  auto stage = [&](int qt, int j, int s) {
-    const int h = kvh * group + j;
-    const int q0 = qt * kBM;
-    stage_rows<T, HD>(Qs + s * W::tile, q + b * qsb + h * qsh, qss, q0, Sq);
-    stage_rows<T, HD>(Ds + s * W::tile, dout + b * gsb + h * gsh, gss, q0,
-                      Sq);
-    if (tid < kBM) {
-      const int i = q0 + tid;
-      const long long row = ((long long)b * H + h) * Sq + i;
-      ls[s * kBM + tid] = i < Sq ? lse[row] : INFINITY;
-      dd[s * kBM + tid] = i < Sq ? dsum[row] : 0.0f;
-      qps[s * kBM + tid] = i < Sq ? qpos[i] : 0;
-    }
-  };
-
-  int qt = next_tile(0);
-  stage_rows<T, HD>(Ks, k + b * ksb + kvh * ksh, kss, k0, Skv);
-  stage_rows<T, HD>(Vs, v + b * vsb + kvh * vsh, vss, k0, Skv);
-  if (qt < nqt) stage(qt, 0, 0);
-  cp_commit();
-
-  // this thread's keys: rows g and g + 8 of the warp's 16
-  const int kr0 = 16 * warp + g;
+  key_bounds(kpos, kw, kRows, Skv, kmin, kmax, kcnt);
   int kp[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    const int key = k0 + kr0 + 8 * r;
+    const int key = kw + 16 * wi + g + 8 * r;
     kp[r] = key < Skv ? __ldg(kpos + key) : -1;
   }
-  float dka[DT][4], dva[DT][4];
-#pragma unroll
-  for (int n = 0; n < DT; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dka[n][e] = dva[n][e] = 0.0f;
+  float dka[HD / 2], dva[HD / 2];
+  zero<HD / 2>(dka);
+  zero<HD / 2>(dva);
+  const unsigned char* Kw = smw + W::k + kRows * wg * 128;
+  const unsigned char* Vw = smw + W::v + kRows * wg * 128;
+  mbar_wait(kvbar, 0);
 
-  int j = 0, s = 0;
-  while (qt < nqt) {
-    const int cls = tile_cls(qt);
-    // the next (tile, head) into the other stage
-    int nqt_next = qt, nj = j + 1;
-    if (nj == group) {
-      nj = 0;
-      nqt_next = next_tile(qt + 1);
+  for (int it = 0;; ++it) {
+    const int st = it % kStages;
+    mbar_wait(full + st, (it / kStages) & 1);
+    const volatile int* in = info + 4 * st;
+    if (in[0] < 0) break;
+    const int cls = pair_class(in[2], in[3], kmin, kmax, kcnt, kRows, causal,
+                               window);
+    if (cls != kDead) {
+      const unsigned char* Qt = smw + W::ring + st * W::stage_bytes;
+      const unsigned char* Gt = Qt + W::tile_bytes;
+      // S^T = K Q^T and dP^T = V dO^T: 64 keys x 64 queries
+      float sa[32], pa[32];
+      wg_fence();
+      wgmma_abt<T, HD>(sa, Kw, kBlock * 128, Qt, kTile * 128);
+      wgmma_abt<T, HD>(pa, Vw, kBlock * 128, Gt, kTile * 128);
+      wg_commit();
+      wg_wait0();
+      fence_regs<32>(sa);
+      fence_regs<32>(pa);
+      // P^T = exp(S^T - lse) on the valid pairs, dS^T = P^T o (dP^T - D),
+      // rounded to T in pairs: the A fragments of dV's and dK's products
+      const float* lt = ls + st * kTile;
+      const float* dt = ds + st * kTile;
+      const int* qpt = qs + st * kTile;
+      uint32_t pp[8][2], sp[8][2];
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt) {
+        const int c = nt * 8 + 2 * tg;             // query columns c, c + 1
+        const float2 l2 = *reinterpret_cast<const float2*>(lt + c);
+        const float2 d2 = *reinterpret_cast<const float2*>(dt + c);
+        const int2 q2 = *reinterpret_cast<const int2*>(qpt + c);
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          float p0 = fast_exp2((sa[nt * 4 + 2 * r] - l2.x) * kLog2e);
+          float p1 = fast_exp2((sa[nt * 4 + 2 * r + 1] - l2.y) * kLog2e);
+          if (cls == kLive) {
+            if (!key_valid(kp[r], q2.x, causal, window)) p0 = 0.0f;
+            if (!key_valid(kp[r], q2.y, causal, window)) p1 = 0.0f;
+          }
+          pp[nt][r] = pack2<T>(p0, p1);
+          sp[nt][r] = pack2<T>(p0 * (pa[nt * 4 + 2 * r] - d2.x),
+                               p1 * (pa[nt * 4 + 2 * r + 1] - d2.y));
+        }
+      }
+      // dV += P^T dO and dK += dS^T Q over the 64 queries
+      fence_regs<HD / 2>(dva);
+      fence_regs<HD / 2>(dka);
+      wg_fence();
+      wgmma_ab<T, HD>(dva, pp, Gt);
+      wgmma_ab<T, HD>(dka, sp, Qt);
+      wg_commit();
+      wg_wait0();
+      fence_regs<HD / 2>(dva);
+      fence_regs<HD / 2>(dka);
     }
-    if (nqt_next < nqt) stage(nqt_next, nj, s ^ 1);
-    cp_commit();
-    cp_wait<1>();
-    __syncthreads();
-
-    const T* Qt = Qs + s * W::tile;
-    const T* Dt = Ds + s * W::tile;
-    const float* lt = ls + s * kBM;
-    const float* dt = dd + s * kBM;
-    const int* qpt = qps + s * kBM;
-#pragma unroll 1
-    for (int half = 0; half < 2; ++half) {
-      const int c0 = 32 * half;                      // query columns
-      // S^T = K Q^T and dP^T = V dO^T: 16 keys x 32 queries
-      float sa[4][4], pa[4][4];
-#pragma unroll
-      for (int n = 0; n < 4; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) sa[n][e] = pa[n][e] = 0.0f;
-#pragma unroll
-      for (int kk = 0; kk < HD / 16; ++kk) {
-        uint32_t ak[4], av[4];
-        frag_a<LD>(ak, Ks, 16 * warp, kk * 16);
-        frag_a<LD>(av, Vs, 16 * warp, kk * 16);
-#pragma unroll
-        for (int np = 0; np < 2; ++np) {
-          uint32_t bq[4], bd[4];
-          frag_b_nk<LD>(bq, Qt, c0 + np * 16, kk * 16);
-          frag_b_nk<LD>(bd, Dt, c0 + np * 16, kk * 16);
-          mma_16816<T>(sa[2 * np], ak, bq[0], bq[1]);
-          mma_16816<T>(sa[2 * np + 1], ak, bq[2], bq[3]);
-          mma_16816<T>(pa[2 * np], av, bd[0], bd[1]);
-          mma_16816<T>(pa[2 * np + 1], av, bd[2], bd[3]);
-        }
-      }
-      // P^T = exp(S^T - lse) on the valid pairs, dS^T = P^T o (dP^T - D)
-      uint32_t pp[2][4], ds[2][4];
-#pragma unroll
-      for (int n = 0; n < 4; ++n) {
-        float p[4], d[4];
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int col = c0 + n * 8 + 2 * tig + (e & 1);
-          float x = fast_exp2((sa[n][e] - lt[col]) * kLog2e);
-          if (cls == kLive && !key_valid(kp[e >> 1], qpt[col], causal, window))
-            x = 0.0f;
-          p[e] = x;
-          d[e] = x * (pa[n][e] - dt[col]);
-        }
-        // the C fragments of n-tiles 2 m, 2 m + 1 are the A fragment of
-        // k-step m
-        const int m = n >> 1, hi = (n & 1) * 2;
-        pp[m][hi] = pack2<T>(p[0], p[1]);
-        pp[m][hi + 1] = pack2<T>(p[2], p[3]);
-        ds[m][hi] = pack2<T>(d[0], d[1]);
-        ds[m][hi + 1] = pack2<T>(d[2], d[3]);
-      }
-      // dV += P^T dO, dK += dS^T Q over the 32 queries
-#pragma unroll
-      for (int m = 0; m < 2; ++m) {
-        const uint32_t ap[4] = {pp[m][0], pp[m][1], pp[m][2], pp[m][3]};
-        const uint32_t as[4] = {ds[m][0], ds[m][1], ds[m][2], ds[m][3]};
-#pragma unroll
-        for (int np = 0; np < DT / 2; ++np) {
-          uint32_t bd[4], bq[4];
-          frag_b_kn<LD>(bd, Dt, c0 + m * 16, np * 16);
-          frag_b_kn<LD>(bq, Qt, c0 + m * 16, np * 16);
-          mma_16816<T>(dva[2 * np], ap, bd[0], bd[1]);
-          mma_16816<T>(dva[2 * np + 1], ap, bd[2], bd[3]);
-          mma_16816<T>(dka[2 * np], as, bq[0], bq[1]);
-          mma_16816<T>(dka[2 * np + 1], as, bq[2], bq[3]);
-        }
-      }
-    }
-    __syncthreads();                 // stage s is free for the next copy
-    qt = nqt_next;
-    j = nj;
-    s ^= 1;
+    mbar_arrive(empty + st);
   }
-  cp_wait<0>();
 
-  // the warp's 16 keys, rows g and g + 8, columns 8 n + 2 tig, + 1
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int key = k0 + kr0 + 8 * r;
-    if (key >= Skv) continue;
-    T* krow = dk + b * dksb + kvh * dksh + key * dkss + 2 * tig;
-    T* vrow = dv + b * dvsb + kvh * dvsh + key * dvss + 2 * tig;
-#pragma unroll
-    for (int n = 0; n < DT; ++n) {
-      *reinterpret_cast<uint32_t*>(krow + n * 8) =
-          pack2<T>(dka[n][2 * r], dka[n][2 * r + 1]);
-      *reinterpret_cast<uint32_t*>(vrow + n * 8) =
-          pack2<T>(dva[n][2 * r], dva[n][2 * r + 1]);
-    }
-  }
+  store_rows<T, HD>(dk + b * os.v[0] + kvh * os.v[1], os.v[2], kw, Skv, dka);
+  store_rows<T, HD>(dv + b * os.v[3] + kvh * os.v[4], os.v[5], kw, Skv, dva);
 }
 
-// --- dQ ------------------------------------------------------------------
+// --- dQ ----------------------------------------------------------------------
 
 template <int HD>
-struct QShape {
-  static constexpr int ld = HD + kPad;
-  static constexpr int tile = kBM * ld;
-  // Q, dO, then two stages of (K, V)
-  static constexpr size_t bytes = size_t(6) * tile * 2;
+struct QSmem {
+  static constexpr int panels = HD / 64;
+  static constexpr int q_bytes = kBlock * HD * 2;    // Q or dO of the block
+  static constexpr int tile_bytes = kTile * HD * 2;  // K or V of a step
+  static constexpr int stage_bytes = 2 * tile_bytes;
+  static constexpr int q = 0;
+  static constexpr int g = q_bytes;
+  static constexpr int ring = 2 * q_bytes;
+  // each stage's (KV tile or -1, kmin, kmax, valid keys)
+  static constexpr int info = ring + kStages * stage_bytes;
+  static constexpr int bars = info + kStages * 4 * 4;  // full, empty, q
+  static constexpr size_t bytes = size_t(bars) + (2 * kStages + 1) * 8 + 1024;
 };
 
 template <typename T, int HD>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, const T* __restrict__ dout,
+__global__ void __launch_bounds__(kThreads, 1)
+flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap qmap,
+                    const __grid_constant__ CUtensorMap gmap,
+                    const __grid_constant__ CUtensorMap kmap,
+                    const __grid_constant__ CUtensorMap vmap,
                     const float* __restrict__ lse,
                     const float* __restrict__ dsum,
                     const int* __restrict__ qpos, const int* __restrict__ kpos,
                     T* __restrict__ dq, int H, int KV, int Sq, int Skv,
-                    const Strides st, int causal, int window) {
-  using W = QShape<HD>;
-  constexpr int LD = W::ld;
-  constexpr int DT = HD / 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* Qs = reinterpret_cast<T*>(smem_raw);
-  T* Ds = Qs + W::tile;
-  T* Ks = Ds + W::tile;                              // [2] stages of K, V
-  T* Vs = Ks + 2 * W::tile;
+                    const OutStrides os, int causal, int window) {
+  using W = QSmem<HD>;
+  extern __shared__ unsigned char smw_raw[];
+  unsigned char* smw = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smw_raw) + 1023) & ~uintptr_t(1023));
+  int* info = reinterpret_cast<int*>(smw + W::info);       // [stage][4]
+  uint64_t* full = reinterpret_cast<uint64_t*>(smw + W::bars);
+  uint64_t* empty = full + kStages;
+  uint64_t* qbar = empty + kStages;
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, tig = lane & 3;
   const int b = blockIdx.x / H, h = blockIdx.x - (blockIdx.x / H) * H;
   const int kvh = h / (H / KV);
   // the longest causal walks first
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * kBM;
-  const int nq = min(kBM, Sq - q0);
-  const long long qsb = st.v[0], qsh = st.v[1], qss = st.v[2];
-  const long long ksb = st.v[3], ksh = st.v[4], kss = st.v[5];
-  const long long vsb = st.v[6], vsh = st.v[7], vss = st.v[8];
-  const long long gsb = st.v[9], gsh = st.v[10], gss = st.v[11];
-  const long long dqsb = st.v[12], dqsh = st.v[13], dqss = st.v[14];
-  const T* kb = k + b * ksb + kvh * ksh;
-  const T* vb = v + b * vsb + kvh * vsh;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kBlock;
+  const int nq = min(kBlock, Sq - q0);
+  const int ntiles = (Skv + kTile - 1) / kTile;
 
-  int qmin, qmax;
-  query_bounds(qpos, q0, nq, qmin, qmax);
-  const int ntiles = (Skv + kBN - 1) / kBN;
-  auto tile_cls = [&](int t) {
-    int kmin, kmax, cnt;
-    key_bounds(kpos, t * kBN, kBN, Skv, kmin, kmax, cnt);
-    return pair_class(qmin, qmax, kmin, kmax, cnt, kBN, causal, window);
-  };
-  auto next_tile = [&](int t) {
-    for (; t < ntiles; ++t)
-      if (tile_cls(t) != kDead) return t;
-    return ntiles;
-  };
-
-  stage_rows<T, HD>(Qs, q + b * qsb + h * qsh, qss, q0, Sq);
-  stage_rows<T, HD>(Ds, dout + b * gsb + h * gsh, gss, q0, Sq);
-  int t = next_tile(0);
-  if (t < ntiles) {
-    stage_rows<T, HD>(Ks, kb, kss, t * kBN, Skv);
-    stage_rows<T, HD>(Vs, vb, vss, t * kBN, Skv);
+  if (tid == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, kConsumers);
+    }
+    mbar_init(qbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  cp_commit();
+  __syncthreads();
 
-  // this thread's rows g and g + 8 of the warp's 16
-  const int qr0 = 16 * warp + g;
+  const int role = __shfl_sync(0xffffffffu, warp >> 2, 0);
+  if (role == 2) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs)
+                 : "memory");
+    if (warp != 8) return;
+    if (lane == 0) {
+      mbar_expect_tx(qbar, 2 * W::q_bytes);
+#pragma unroll
+      for (int p = 0; p < W::panels; ++p) {
+        tma_load(smw + W::q + p * kBlock * 128, &qmap, qbar, p * 64, q0, h, b);
+        tma_load(smw + W::g + p * kBlock * 128, &gmap, qbar, p * 64, q0, h, b);
+      }
+    }
+    int qmin, qmax;
+    query_bounds(qpos, q0, nq, qmin, qmax);
+    int kmin = 0, kmax = 0, kcnt = 0;
+    // the first KV tile at or after t that is live for the block's rows
+    auto next_live = [&](int t) {
+      for (; t < ntiles; ++t) {
+        key_bounds(kpos, t * kTile, kTile, Skv, kmin, kmax, kcnt);
+        if (pair_class(qmin, qmax, kmin, kmax, kcnt, kTile, causal,
+                       window) != kDead)
+          break;
+      }
+      return t;
+    };
+    int t = next_live(0);
+    for (int it = 0;; ++it) {
+      const int st = it % kStages;
+      mbar_wait(empty + st, ((it / kStages) & 1) ^ 1);
+      const bool more = t < ntiles;
+      if (lane == 0) {
+        int* in = info + 4 * st;
+        in[0] = more ? t : -1;
+        in[1] = kmin;
+        in[2] = kmax;
+        in[3] = kcnt;
+        if (more) {
+          unsigned char* Ks = smw + W::ring + st * W::stage_bytes;
+          mbar_expect_tx(full + st, W::stage_bytes);
+#pragma unroll
+          for (int p = 0; p < W::panels; ++p) {
+            tma_load(Ks + p * kTile * 128, &kmap, full + st, p * 64,
+                     t * kTile, kvh, b);
+            tma_load(Ks + W::tile_bytes + p * kTile * 128, &vmap, full + st,
+                     p * 64, t * kTile, kvh, b);
+          }
+        } else {
+          mbar_arrive(full + st);
+        }
+      }
+      __syncwarp();
+      if (!more) return;
+      t = next_live(t + 1);
+    }
+  }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs)
+               : "memory");
+
+  // consumers: warpgroup wg owns rows q0 + 64 wg .. + 63
+  const int wg = warp >> 2, wi = warp & 3;
+  const int g = lane >> 2, tg = lane & 3;
+  const int r0 = kRows * wg;
+  const int nw = min(kRows, nq - r0);              // its rows below Sq
+  int qmin, qmax;
+  query_bounds(qpos, q0 + r0, nw, qmin, qmax);
   float lr[2], dr[2];
   int qp[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    const int i = q0 + qr0 + 8 * r;
+    const int i = q0 + r0 + 16 * wi + g + 8 * r;
     const long long row = ((long long)b * H + h) * Sq + i;
     lr[r] = i < Sq ? lse[row] : INFINITY;
     dr[r] = i < Sq ? dsum[row] : 0.0f;
     qp[r] = i < Sq ? qpos[i] : 0;
   }
-  float dqa[DT][4];
-#pragma unroll
-  for (int n = 0; n < DT; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dqa[n][e] = 0.0f;
+  float dqa[HD / 2];
+  zero<HD / 2>(dqa);
+  const unsigned char* Qw = smw + W::q + r0 * 128;
+  const unsigned char* Gw = smw + W::g + r0 * 128;
+  mbar_wait(qbar, 0);
 
-  int s = 0;
-  while (t < ntiles) {
-    const int cls = tile_cls(t);
-    const int k0 = t * kBN;
-    const int tn = next_tile(t + 1);
-    if (tn < ntiles) {
-      stage_rows<T, HD>(Ks + (s ^ 1) * W::tile, kb, kss, tn * kBN, Skv);
-      stage_rows<T, HD>(Vs + (s ^ 1) * W::tile, vb, vss, tn * kBN, Skv);
-    }
-    cp_commit();
-    cp_wait<1>();
-    __syncthreads();
-    const T* Kt = Ks + s * W::tile;
-    const T* Vt = Vs + s * W::tile;
-
-    // S = Q K^T and dP = dO V^T: 16 rows x 64 keys
-    float sa[8][4], pa[8][4];
+  for (int it = 0;; ++it) {
+    const int st = it % kStages;
+    mbar_wait(full + st, (it / kStages) & 1);
+    const volatile int* in = info + 4 * st;
+    const int t = in[0];
+    if (t < 0) break;
+    const int cls = nw > 0 ? pair_class(qmin, qmax, in[1], in[2], in[3],
+                                        kTile, causal, window)
+                           : kDead;
+    if (cls != kDead) {
+      const unsigned char* Kt = smw + W::ring + st * W::stage_bytes;
+      const unsigned char* Vt = Kt + W::tile_bytes;
+      // S = Q K^T and dP = dO V^T: 64 rows x 64 keys
+      float sa[32], pa[32];
+      wg_fence();
+      wgmma_abt<T, HD>(sa, Qw, kBlock * 128, Kt, kTile * 128);
+      wgmma_abt<T, HD>(pa, Gw, kBlock * 128, Vt, kTile * 128);
+      wg_commit();
+      wg_wait0();
+      fence_regs<32>(sa);
+      fence_regs<32>(pa);
+      // dS = P o (dP - D), P = exp(S - lse) on the valid pairs
+      const int k0 = t * kTile;
+      uint32_t sp[8][2];
 #pragma unroll
-    for (int n = 0; n < 8; ++n)
+      for (int nt = 0; nt < 8; ++nt) {
 #pragma unroll
-      for (int e = 0; e < 4; ++e) sa[n][e] = pa[n][e] = 0.0f;
+        for (int r = 0; r < 2; ++r) {
+          float d[2];
 #pragma unroll
-    for (int kk = 0; kk < HD / 16; ++kk) {
-      uint32_t aq[4], ad[4];
-      frag_a<LD>(aq, Qs, 16 * warp, kk * 16);
-      frag_a<LD>(ad, Ds, 16 * warp, kk * 16);
-#pragma unroll
-      for (int np = 0; np < 4; ++np) {
-        uint32_t bk[4], bv[4];
-        frag_b_nk<LD>(bk, Kt, np * 16, kk * 16);
-        frag_b_nk<LD>(bv, Vt, np * 16, kk * 16);
-        mma_16816<T>(sa[2 * np], aq, bk[0], bk[1]);
-        mma_16816<T>(sa[2 * np + 1], aq, bk[2], bk[3]);
-        mma_16816<T>(pa[2 * np], ad, bv[0], bv[1]);
-        mma_16816<T>(pa[2 * np + 1], ad, bv[2], bv[3]);
+          for (int e = 0; e < 2; ++e) {
+            const int key = k0 + nt * 8 + 2 * tg + e;
+            float x = fast_exp2((sa[nt * 4 + 2 * r + e] - lr[r]) * kLog2e);
+            if (cls == kLive &&
+                (key >= Skv || !key_valid(__ldg(kpos + key), qp[r], causal,
+                                          window)))
+              x = 0.0f;
+            d[e] = x * (pa[nt * 4 + 2 * r + e] - dr[r]);
+          }
+          sp[nt][r] = pack2<T>(d[0], d[1]);
+        }
       }
+      // dQ += dS K over the 64 keys
+      fence_regs<HD / 2>(dqa);
+      wg_fence();
+      wgmma_ab<T, HD>(dqa, sp, Kt);
+      wg_commit();
+      wg_wait0();
+      fence_regs<HD / 2>(dqa);
     }
-    // dS = P o (dP - D), P = exp(S - lse) on the valid pairs
-    uint32_t ds[4][4];
-#pragma unroll
-    for (int n = 0; n < 8; ++n) {
-      float d[4];
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int key = k0 + n * 8 + 2 * tig + (e & 1);
-        const int r = e >> 1;
-        float x = fast_exp2((sa[n][e] - lr[r]) * kLog2e);
-        if (cls == kLive &&
-            (key >= Skv || !key_valid(__ldg(kpos + key), qp[r], causal,
-                                      window)))
-          x = 0.0f;
-        d[e] = x * (pa[n][e] - dr[r]);
-      }
-      const int m = n >> 1, hi = (n & 1) * 2;
-      ds[m][hi] = pack2<T>(d[0], d[1]);
-      ds[m][hi + 1] = pack2<T>(d[2], d[3]);
-    }
-    // dQ += dS K over the 64 keys
-#pragma unroll
-    for (int m = 0; m < 4; ++m) {
-      const uint32_t as[4] = {ds[m][0], ds[m][1], ds[m][2], ds[m][3]};
-#pragma unroll
-      for (int np = 0; np < DT / 2; ++np) {
-        uint32_t bk[4];
-        frag_b_kn<LD>(bk, Kt, m * 16, np * 16);
-        mma_16816<T>(dqa[2 * np], as, bk[0], bk[1]);
-        mma_16816<T>(dqa[2 * np + 1], as, bk[2], bk[3]);
-      }
-    }
-    __syncthreads();
-    t = tn;
-    s ^= 1;
+    mbar_arrive(empty + st);
   }
-  cp_wait<0>();
 
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int i = q0 + qr0 + 8 * r;
-    if (i >= Sq) continue;
-    T* row = dq + b * dqsb + h * dqsh + i * dqss + 2 * tig;
-#pragma unroll
-    for (int n = 0; n < DT; ++n)
-      *reinterpret_cast<uint32_t*>(row + n * 8) =
-          pack2<T>(dqa[n][2 * r], dqa[n][2 * r + 1]);
-  }
+  store_rows<T, HD>(dq + b * os.v[0] + h * os.v[1], os.v[2], q0 + r0, Sq,
+                    dqa);
 }
 
-// --- launches --------------------------------------------------------------
+// --- launches ----------------------------------------------------------------
 
 template <typename K>
 cudaError_t smem_attr(K kern, size_t bytes) {
@@ -666,41 +723,93 @@ int prep(const void* o, const void* dout, float* dsum, int B, int H, int Sq,
   return int(cudaGetLastError());
 }
 
+// the operands of both gradient kernels: q, k, v, dout with 12 element
+// strides ((q, k, v, dout) x (batch, head, sequence)), lse, D, positions
+struct Operands {
+  const void* q;
+  const void* k;
+  const void* v;
+  const void* dout;
+  const float* lse;
+  const float* dsum;
+  const int* qpos;
+  const int* kpos;
+  int B, H, KV, Sq, Skv;
+  const long long* st;
+  int causal, window;
+  cudaStream_t s;
+};
+
+// the four tensor maps: q and dout in boxes of q_rows, k and v of kv_rows
 template <typename T, int HD>
-int dkdv(const void* q, const void* k, const void* v, const void* dout,
-         const float* lse, const float* dsum, const int* qpos,
-         const int* kpos, void* dk, void* dv, int B, int H, int KV, int Sq,
-         int Skv, const Strides& st, int causal, int window,
-         cudaStream_t s) {
+bool maps(const Operands& a, int q_rows, int kv_rows, CUtensorMap* m) {
+  const bool bf = std::is_same<T, __nv_bfloat16>::value;
+  const long long* st = a.st;
+  return head_map(m + 0, a.q, bf, HD, a.Sq, a.H, a.B, st[2], st[1], st[0],
+                  q_rows) &&
+         head_map(m + 1, a.dout, bf, HD, a.Sq, a.H, a.B, st[11], st[10],
+                  st[9], q_rows) &&
+         head_map(m + 2, a.k, bf, HD, a.Skv, a.KV, a.B, st[5], st[4], st[3],
+                  kv_rows) &&
+         head_map(m + 3, a.v, bf, HD, a.Skv, a.KV, a.B, st[8], st[7], st[6],
+                  kv_rows);
+}
+
+template <typename T, int HD>
+int dkdv(const Operands& a, void* dk, void* dv, const OutStrides& os) {
+  CUtensorMap m[4];
+  if (!maps<T, HD>(a, kTile, kBlock, m)) return int(cudaErrorInvalidValue);
   auto kern = flash_bwd_dkdv_kernel<T, HD>;
-  cudaError_t e = smem_attr(kern, KvShape<HD>::bytes);
+  cudaError_t e = smem_attr(kern, KvSmem<HD>::bytes);
   if (e != cudaSuccess) return int(e);
-  const int nkt = (Skv + kBN - 1) / kBN;
-  if (nkt > 65535 || B * KV > kMaxRows) return int(cudaErrorInvalidValue);
-  kern<<<dim3(B * KV, nkt), kThreads, KvShape<HD>::bytes, s>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dout), lse, dsum, qpos,
-      kpos, static_cast<T*>(dk), static_cast<T*>(dv), H, KV, Sq, Skv, st,
-      causal, window);
+  const int nkt = (a.Skv + kBlock - 1) / kBlock;
+  if (nkt > 65535 || a.B * a.KV > kMaxRows) return int(cudaErrorInvalidValue);
+  kern<<<dim3(a.B * a.KV, nkt), kThreads, KvSmem<HD>::bytes, a.s>>>(
+      m[0], m[1], m[2], m[3], a.lse, a.dsum, a.qpos, a.kpos,
+      static_cast<T*>(dk), static_cast<T*>(dv), a.H, a.KV, a.Sq, a.Skv, os,
+      a.causal, a.window);
   return int(cudaGetLastError());
 }
 
 template <typename T, int HD>
-int dq_launch(const void* q, const void* k, const void* v, const void* dout,
-              const float* lse, const float* dsum, const int* qpos,
-              const int* kpos, void* dq, int B, int H, int KV, int Sq,
-              int Skv, const Strides& st, int causal, int window,
-              cudaStream_t s) {
+int dq_launch(const Operands& a, void* dq, const OutStrides& os) {
+  CUtensorMap m[4];
+  if (!maps<T, HD>(a, kBlock, kTile, m)) return int(cudaErrorInvalidValue);
   auto kern = flash_bwd_dq_kernel<T, HD>;
-  cudaError_t e = smem_attr(kern, QShape<HD>::bytes);
+  cudaError_t e = smem_attr(kern, QSmem<HD>::bytes);
   if (e != cudaSuccess) return int(e);
-  const int nqt = (Sq + kBM - 1) / kBM;
-  if (nqt > 65535 || B * H > kMaxRows) return int(cudaErrorInvalidValue);
-  kern<<<dim3(B * H, nqt), kThreads, QShape<HD>::bytes, s>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dout), lse, dsum, qpos,
-      kpos, static_cast<T*>(dq), H, KV, Sq, Skv, st, causal, window);
+  const int nqt = (a.Sq + kBlock - 1) / kBlock;
+  if (nqt > 65535 || a.B * a.H > kMaxRows) return int(cudaErrorInvalidValue);
+  kern<<<dim3(a.B * a.H, nqt), kThreads, QSmem<HD>::bytes, a.s>>>(
+      m[0], m[1], m[2], m[3], a.lse, a.dsum, a.qpos, a.kpos,
+      static_cast<T*>(dq), a.H, a.KV, a.Sq, a.Skv, os, a.causal, a.window);
   return int(cudaGetLastError());
+}
+
+// a kernel's resident blocks an SM, registers and local bytes a thread,
+// dynamic shared bytes, and the setmaxnreg counts of its two roles
+template <typename K>
+int resources(K kern, size_t bytes, int* out) {
+  cudaError_t e = smem_attr(kern, bytes);
+  if (e != cudaSuccess) return int(e);
+  cudaFuncAttributes attr;
+  e = cudaFuncGetAttributes(&attr, kern);
+  if (e != cudaSuccess) return int(e);
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[0], kern, kThreads,
+                                                    bytes);
+  out[1] = attr.numRegs;
+  out[2] = int(attr.localSizeBytes);
+  out[3] = int(bytes);
+  out[4] = kProducerRegs;
+  out[5] = kConsumerRegs;
+  return int(e);
+}
+
+template <typename T, int HD>
+int resources_of(int which, int* out) {
+  return which == 0
+             ? resources(flash_bwd_dkdv_kernel<T, HD>, KvSmem<HD>::bytes, out)
+             : resources(flash_bwd_dq_kernel<T, HD>, QSmem<HD>::bytes, out);
 }
 
 }  // namespace
@@ -722,7 +831,8 @@ int fk_flash_bwd_prep(const void* o, const void* dout, float* dsum, int B,
 // dK and dV (B, KV, Skv, hd) of q (B, H, Sq, hd), k, v (B, KV, Skv, hd) and
 // dout (B, H, Sq, hd), from lse and D (B, H, Sq) f32 contiguous. strides:
 // 18 element strides, (q, k, v, dout, dk, dv) x (batch, head, sequence),
-// each row 16-byte aligned, the head dim contiguous.
+// each a multiple of 16 bytes, bases 16-byte aligned, the head dim
+// contiguous.
 int fk_flash_bwd_dkdv(const void* q, const void* k, const void* v,
                       const void* dout, const float* lse, const float* dsum,
                       const int* qpos, const int* kpos, void* dk, void* dv,
@@ -731,23 +841,16 @@ int fk_flash_bwd_dkdv(const void* q, const void* k, const void* v,
                       int dtype, void* stream) {
   if (bad_shape(B, H, KV, Sq, Skv, hd, dtype) || window < 0)
     return int(cudaErrorInvalidValue);
-  Strides st;
-  for (int i = 0; i < 18; ++i) st.v[i] = strides[i];
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const Operands a{q, k, v, dout, lse, dsum, qpos, kpos, B, H, KV, Sq, Skv,
+                   strides, causal, window,
+                   static_cast<cudaStream_t>(stream)};
+  OutStrides os;
+  for (int i = 0; i < 6; ++i) os.v[i] = strides[12 + i];
   if (dtype == 1)
-    return hd == 64 ? dkdv<__nv_bfloat16, 64>(q, k, v, dout, lse, dsum, qpos,
-                                              kpos, dk, dv, B, H, KV, Sq,
-                                              Skv, st, causal, window, s)
-                    : dkdv<__nv_bfloat16, 128>(q, k, v, dout, lse, dsum,
-                                               qpos, kpos, dk, dv, B, H, KV,
-                                               Sq, Skv, st, causal, window,
-                                               s);
-  return hd == 64 ? dkdv<__half, 64>(q, k, v, dout, lse, dsum, qpos, kpos,
-                                     dk, dv, B, H, KV, Sq, Skv, st, causal,
-                                     window, s)
-                  : dkdv<__half, 128>(q, k, v, dout, lse, dsum, qpos, kpos,
-                                      dk, dv, B, H, KV, Sq, Skv, st, causal,
-                                      window, s);
+    return hd == 64 ? dkdv<__nv_bfloat16, 64>(a, dk, dv, os)
+                    : dkdv<__nv_bfloat16, 128>(a, dk, dv, os);
+  return hd == 64 ? dkdv<__half, 64>(a, dk, dv, os)
+                  : dkdv<__half, 128>(a, dk, dv, os);
 }
 
 // dQ (B, H, Sq, hd), the same operands; strides: 15 element strides,
@@ -759,25 +862,31 @@ int fk_flash_bwd_dq(const void* q, const void* k, const void* v,
                     int causal, int window, int dtype, void* stream) {
   if (bad_shape(B, H, KV, Sq, Skv, hd, dtype) || window < 0)
     return int(cudaErrorInvalidValue);
-  Strides st;
-  for (int i = 0; i < 15; ++i) st.v[i] = strides[i];
-  st.v[15] = st.v[16] = st.v[17] = 0;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const Operands a{q, k, v, dout, lse, dsum, qpos, kpos, B, H, KV, Sq, Skv,
+                   strides, causal, window,
+                   static_cast<cudaStream_t>(stream)};
+  OutStrides os;
+  for (int i = 0; i < 3; ++i) os.v[i] = strides[12 + i];
+  os.v[3] = os.v[4] = os.v[5] = 0;
   if (dtype == 1)
-    return hd == 64 ? dq_launch<__nv_bfloat16, 64>(q, k, v, dout, lse, dsum,
-                                                   qpos, kpos, dq, B, H, KV,
-                                                   Sq, Skv, st, causal,
-                                                   window, s)
-                    : dq_launch<__nv_bfloat16, 128>(q, k, v, dout, lse, dsum,
-                                                    qpos, kpos, dq, B, H, KV,
-                                                    Sq, Skv, st, causal,
-                                                    window, s);
-  return hd == 64 ? dq_launch<__half, 64>(q, k, v, dout, lse, dsum, qpos,
-                                          kpos, dq, B, H, KV, Sq, Skv, st,
-                                          causal, window, s)
-                  : dq_launch<__half, 128>(q, k, v, dout, lse, dsum, qpos,
-                                           kpos, dq, B, H, KV, Sq, Skv, st,
-                                           causal, window, s);
+    return hd == 64 ? dq_launch<__nv_bfloat16, 64>(a, dq, os)
+                    : dq_launch<__nv_bfloat16, 128>(a, dq, os);
+  return hd == 64 ? dq_launch<__half, 64>(a, dq, os)
+                  : dq_launch<__half, 128>(a, dq, os);
+}
+
+// which 0: flash_bwd_dkdv_kernel, 1: flash_bwd_dq_kernel, at dtype (1 bf16,
+// 2 fp16) and hd (64, 128): out[0..5] = resident blocks an SM, registers and
+// local (spill) bytes a thread, dynamic shared bytes, the producer's and
+// the consumers' registers a thread after setmaxnreg.
+int fk_flash_bwd_resources(int which, int dtype, int hd, int* out) {
+  if ((which != 0 && which != 1) || bad_shape(1, 1, 1, 1, 1, hd, dtype))
+    return int(cudaErrorInvalidValue);
+  if (dtype == 1)
+    return hd == 64 ? resources_of<__nv_bfloat16, 64>(which, out)
+                    : resources_of<__nv_bfloat16, 128>(which, out);
+  return hd == 64 ? resources_of<__half, 64>(which, out)
+                  : resources_of<__half, 128>(which, out);
 }
 
 const char* fk_error_string(int code) {

@@ -1,5 +1,6 @@
 // Hopper (sm_90a) plumbing shared by the kernels fed by the Tensor Memory
-// Accelerator: fk_attention.cu's flash_prefill_kernel and fk_abft_gemm.cu's
+// Accelerator: fk_attention.cu's flash_prefill_kernel, fk_attention_bwd.cu's
+// flash_bwd_dkdv_kernel and flash_bwd_dq_kernel, and fk_abft_gemm.cu's
 // abft_gemm_kernel.
 //
 //   mbarriers        mbar_init, mbar_expect_tx, mbar_arrive, mbar_wait
@@ -14,7 +15,9 @@
 //                    compiler from moving accumulator accesses across them;
 //   host             encode_tiled (cuTensorMapEncodeTiled, reached through
 //                    cudaGetDriverEntryPoint: no link against the driver
-//                    library) and sm_count (the device's SMs, cached).
+//                    library), head_map (the attention kernels' 4-d map of
+//                    a (B, heads, S, hd) operand) and sm_count (the
+//                    device's SMs, cached).
 #pragma once
 
 #include <cuda.h>
@@ -130,6 +133,27 @@ inline EncodeTiled encode_tiled() {
       fn = reinterpret_cast<EncodeTiled>(p);
   }
   return fn;
+}
+
+// a 4-d map over (hd, S, heads, B) of a 2-byte tensor with the given element
+// strides, boxes of {64, rows, 1, 1}, 128-byte swizzle, zeros past the end
+inline bool head_map(CUtensorMap* map, const void* base, bool bf16, int hd,
+                     int S, int heads, int B, long long ss, long long sh,
+                     long long sb, int rows) {
+  EncodeTiled fn = encode_tiled();
+  if (!fn) return false;
+  const cuuint64_t dims[4] = {cuuint64_t(hd), cuuint64_t(S),
+                              cuuint64_t(heads), cuuint64_t(B)};
+  const cuuint64_t strides[3] = {cuuint64_t(ss) * 2, cuuint64_t(sh) * 2,
+                                 cuuint64_t(sb) * 2};
+  const cuuint32_t box[4] = {64, cuuint32_t(rows), 1, 1};
+  const cuuint32_t estr[4] = {1, 1, 1, 1};
+  return fn(map, bf16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                      : CU_TENSOR_MAP_DATA_TYPE_FLOAT16,
+            4, const_cast<void*>(base), dims, strides, box, estr,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 inline int sm_count() {

@@ -29,8 +29,9 @@ its scratch sizes). ``fk_attention.cu`` holds
 the LM stack's flash attention (``fk_flash_attention``, f32, bf16 or fp16:
 the prefill, decode and f32 kernels, and ``fk_flash_workspace``, the decode
 kernel's workspace sizes); ``fk_attention_bwd.cu`` its gradient
-(``fk_flash_bwd_prep``, ``fk_flash_bwd_dkdv``, ``fk_flash_bwd_dq``, on
-``mma.sync``; it includes ``csrc/fk_mma.cuh``). ``fk_abft_gemm.cu`` holds the ABFT GEMM at
+(``fk_flash_bwd_prep``, ``fk_flash_bwd_dkdv``, ``fk_flash_bwd_dq`` on
+``wgmma`` + TMA, and ``fk_flash_bwd_resources``, their occupancy).
+``fk_abft_gemm.cu`` holds the ABFT GEMM at
 f32, bf16 and fp16: its encodings pre-pass (``fk_abft_encode``) and the
 ``wgmma`` GEMM (``fk_abft_gemm``; at f32 on a three-way bf16 split of the
 operands). ``fk_update.cu`` holds the two-pass centroid update's
@@ -39,9 +40,9 @@ per-tile pass (``fk_update_entries``), the fixed-order tree sum
 (``fk_verify_entries``). ``fk_kernels.cu`` includes ``csrc/fk_mma.cuh`` (the
 tensor-core ``mma.sync`` helpers); ``fk_kernels.cu`` and ``fk_update.cu``
 include ``csrc/fk_entries.cuh`` (the per-tile entry writer and the tree's
-slots); ``fk_attention.cu`` and
-``fk_abft_gemm.cu`` include ``csrc/fk_tma.cuh`` (mbarriers, TMA loads,
-tensor maps) and ``csrc/fk_wgmma.cuh`` (the ``wgmma`` wrappers);
+slots); ``fk_attention.cu``, ``fk_attention_bwd.cu`` and
+``fk_abft_gemm.cu`` include ``csrc/fk_tma.cuh`` (mbarriers, TMA loads, tensor maps) and
+``csrc/fk_wgmma.cuh`` (the ``wgmma`` wrappers);
 ``fk_kernels.cu`` and ``fk_abft_gemm.cu`` include ``csrc/fk_abft.cuh``
 (the ABFT decode, ``locate_tile``). A library's
 file name carries a hash of its source and the headers of ``csrc/``, so an
@@ -166,10 +167,12 @@ UPDATE_SIGNATURES: dict[str, tuple] = {
 # dv; B, H, KV, Sq, Skv, hd; the address of 18 strides ((q, k, v, dout, dk,
 # dv) x (batch, head, sequence)); causal, window, dtype; stream.
 # fk_flash_bwd_dq: the same with dq for dk, dv and 15 strides.
+# fk_flash_bwd_resources: kernel (0 dK / dV, 1 dQ), dtype, hd, 6 ints out.
 ATTENTION_BWD_SIGNATURES: dict[str, tuple] = {
     "fk_flash_bwd_prep": (_P, _P, _P, _I, _I, _I, _I, _P, _I, _P),
     "fk_flash_bwd_dkdv": (_P,) * 10 + (_I,) * 6 + (_P, _I, _I, _I, _P),
     "fk_flash_bwd_dq": (_P,) * 9 + (_I,) * 6 + (_P, _I, _I, _I, _P),
+    "fk_flash_bwd_resources": (_I, _I, _I, _P),
 }
 SOURCES: dict[str, dict[str, tuple]] = {
     "fk_kernels": SIGNATURES,

@@ -63,7 +63,12 @@ output (``lse``, every Sq, bf16 / fp16) and its backward
 ``csrc/fk_attention_bwd.cu``: ``flash_bwd_prep_kernel`` (D = rowsum(dO o
 O), :func:`flash_bwd_prep`), ``flash_bwd_dkdv_kernel``
 (:func:`flash_bwd_dkdv`) and ``flash_bwd_dq_kernel`` (:func:`flash_bwd_dq`),
-each wrapper counting its launches in ``.launches``. Under ``no_grad`` serving
+each wrapper counting its launches in ``.launches``. The last two are
+Hopper's shape: two consumer warpgroups on ``wgmma`` fed through a TMA
+ring by a producer warp, blocks of :data:`BWD_BLOCK` keys (dK / dV) or
+query rows (dQ), :data:`BWD_ROWS` a warpgroup, walking steps of
+:data:`BWD_TILE` query rows (dK / dV) or keys (dQ) by the tile rule of
+:func:`live_tiles`; no atomics, so two launches give the same bits. Under ``no_grad`` serving
 keeps its launch: no lse, the same bits. The backward takes ``attend``'s
 contract, ``zero_empty_rows=True`` (a row with no valid key is a zero
 output: zero dq, nothing to dk or dv), head dims up to 128 and bf16 / fp16
@@ -392,6 +397,13 @@ class FlashGradUnsupported(NotImplementedError):
 
 # the widest head dim the backward kernels are built for (64 and 128)
 GRAD_MAX_HEAD_DIM = 128
+# the backward kernels' tiles (csrc/fk_attention_bwd.cu: kBlock, kRows,
+# kTile): a dK / dV block's keys and a dQ block's query rows; a consumer
+# warpgroup's share of them; a walk step's query rows (dK / dV) or keys
+# (dQ). The producer skips a step by live_tiles at (BWD_TILE, BWD_BLOCK)
+# (dK / dV) or (BWD_BLOCK, BWD_TILE) (dQ); a warpgroup skips or unmasks it
+# by live_tiles at (BWD_TILE, BWD_ROWS) or (BWD_ROWS, BWD_TILE)
+BWD_BLOCK, BWD_ROWS, BWD_TILE = 128, 64, 64
 
 
 def _padded_hd(hd: int) -> int:
@@ -700,3 +712,19 @@ def flash_bwd_dq(q, k, v, do, lse, dsum, qpos, kpos, *, causal: bool = True,
 flash_bwd_prep.launches = 0
 flash_bwd_dkdv.launches = 0
 flash_bwd_dq.launches = 0
+
+
+def bwd_resources(kernel: str, dtype: torch.dtype, hd: int) -> dict:
+    """``flash_bwd_dkdv_kernel`` or ``flash_bwd_dq_kernel`` (``kernel``:
+    "dkdv" or "dq") at bf16 / fp16 and hd 64 / 128 on the card: resident
+    blocks an SM, registers and local-memory (spill) bytes a thread as the
+    runtime reports them, dynamic shared bytes, and the registers a thread
+    of each role after ``setmaxnreg`` (producer, consumers). Needs a CUDA
+    card (the library's build)."""
+    out = (ctypes.c_int * 6)()
+    _build.check(_build.library("fk_attention_bwd").lib.fk_flash_bwd_resources(
+        {"dkdv": 0, "dq": 1}[kernel], _DTYPES[dtype], hd, out),
+        "flash_bwd resources", "fk_attention_bwd")
+    return dict(zip(("blocks_per_sm", "registers", "local_bytes",
+                     "smem_bytes", "producer_registers",
+                     "consumer_registers"), out))
