@@ -271,6 +271,25 @@ Phases, one line each:
      10-hd share and SDPA's backward beside; the backward kernels' rows
      (their launches the 5 steps'; the forward launches are added to the
      flash_attention row).
+ 18. the distributed and elastic fit (``repro_torch.dist.
+     DistributedKMeans``) in ranks spawned by ``dist.sharding.run_ranks``
+     (``spawn``; they load the kernels built here): a 1-rank NCCL group
+     (``mesh2d(1)``) fitting ``lloyd`` and ``lloyd_ft`` bit for bit phases
+     3-4's fits, ms/iter beside the single-device fit's, host reads, the
+     reduce's ms a step; a 2-rank gloo group on the one card (each rank
+     2^19 rows of phase 3's matrix rounded to integers, so every partial
+     sum is exact): ``fused``, ``lloyd``, ``fused_ft`` and ``lloyd_ft`` bit
+     for bit the single-device fits, the int8 cross-host hop
+     (``mesh2d(2, hosts=2)``) within the reference's bars (centroids 0.15,
+     inertia 0.02) with 0 detected, a ``lloyd_ft`` campaign bit for bit its
+     clean fit with the ranks' detections summed, the elastic drill (rank 1
+     lost at iteration 5, snapshots every 5: one restart, bit for bit the
+     1-rank fit; restart seconds), the reduce's ms a step (one hop; two
+     hops with int8), and the PQ stack split 24 / 24 over the problem axis
+     (``mesh2d(1, 2)``) bit for bit ``BatchedKMeans``; empty clusters of
+     every fit. Two ranks time-share one card: no figure of this phase is a
+     scaling figure. Its launches of rows 1-5, 4b, T (and Td), V and P are
+     added to the kernels line.
 
 A kernel's bound counts the work of the function at the true M, K and F,
 not at the padded tile grid; the padded figures are printed beside it.
@@ -284,6 +303,7 @@ import contextlib
 import io
 import json
 import math
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -5638,6 +5658,431 @@ def phase_train(torch, fa, hw) -> tuple[list, list, dict]:
     return recs, rows, fwd
 
 
+# --- phase 18: the distributed and elastic fit ------------------------------
+
+# the reference tests' bars for the int8 hop against the exact fit
+# (tests/test_mesh2d.py)
+INT8_HOP_CENTROID_BAR, INT8_HOP_INERTIA_BAR = 0.15, 0.02
+# the int8 fit's first step against its plain PyTorch version (the same
+# integer partial sums, quantised and summed on the card), relative to the
+# centroids' largest magnitude; the quantisation must move that step by
+# more than ten times this bar, or the gate could not tell the hop from
+# an exact one
+INT8_STEP_RTOL = 1e-6
+DIST_TIMEOUT_S = 300            # each group of ranks' time limit
+DIST_REDUCE_REPS = 50
+# the process group's backend of the 1-rank and the 2-rank group, each
+# rank on the card
+DIST_BACKENDS = {"one_rank": "nccl", "two_ranks": "gloo"}
+# rows 1-5, 4b, T, V and P of the kernels line: the wrappers a distributed
+# fit's steps launch
+DIST_ROWS = ("distance_argmin", "lloyd_step", "distance_argmin_ft",
+             "lloyd_step_ft", "lloyd_step_batched", "update_entries",
+             "tree_reduce", "verify_entries", "prep_centroids")
+
+
+def dist_counts() -> dict:
+    """Launches so far of the distributed fit's kernels (the tree by
+    variant: ``tree_reduce`` sparse, ``tree_reduce_dense`` dense)."""
+    from repro_torch.kernels import distance_argmin as da
+    from repro_torch.kernels import distance_argmin_ft as daft
+    from repro_torch.kernels import lloyd_step as ll
+    from repro_torch.kernels import lloyd_step_ft as llft
+    from repro_torch.kernels import update as up
+    out = counts_of({
+        "distance_argmin": da.distance_argmin, "lloyd_step": ll.lloyd_step,
+        "distance_argmin_ft": daft.distance_argmin_ft,
+        "lloyd_step_ft": llft.lloyd_step_ft,
+        "lloyd_step_batched": ll.lloyd_step_batched,
+        "update_entries": up.update_entries,
+        "verify_entries": llft.verify_entries,
+        "prep_centroids": da.prep_centroids})
+    out["tree_reduce"] = up.tree_reduce.kernel_launches["sparse"]
+    out["tree_reduce_dense"] = up.tree_reduce.kernel_launches["dense"]
+    return out
+
+
+def dist_estimator(backend: str, policy: str, tiles, sizes: dict, device):
+    """A phase-3 ``KMeans`` (``sizes``: K, iterations at tol 0; seed 0) on
+    ``backend`` under ``policy`` ("off", "correct", "campaign" or
+    "elastic"), its tiles pinned."""
+    from repro_torch.api import FaultPolicy, InjectionCampaign, KMeans
+    from repro_torch.kernels import ops
+    fault = {"off": FaultPolicy.off(), "correct": FaultPolicy.correct(),
+             "campaign": FaultPolicy.correct(injection=InjectionCampaign(
+                 rate=1.0, targets="both")),
+             "elastic": FaultPolicy.elastic()}[policy]
+    return KMeans(sizes["k"], max_iter=sizes["iters"], tol=0.0,
+                  random_state=SEED, fault=fault, backend=backend,
+                  params=ops.KernelParams(*tiles), device=device)
+
+
+def dist_fit(torch, d, x, c, k: int) -> dict:
+    """One timed distributed fit of this rank's block of ``x``: its
+    replicated centroids and this rank's labels (numpy), the reduced
+    inertia and detections, this rank's own detections, ms/iter, host
+    reads, and the empty clusters (counts summed over the mesh)."""
+    from repro_torch.dist.reduce import psum
+    xs = d.shard_data(x)
+    (cent, am, inertia, iters, det), s = wall(lambda: d.fit(xs, c))
+    counts = psum(torch.bincount(am.long(), minlength=k).float(), d._all)
+    return {"centroids": cent.cpu().numpy(), "labels": am.cpu().numpy(),
+            "inertia": inertia, "iters": iters, "det": det,
+            "local_det": d.local_detected_, "ms_per_iter": 1e3 * s / iters,
+            "host_reads": d._n_host_syncs,
+            "empty_clusters": int((counts == 0).sum())}
+
+
+def reduce_ms(torch, d, sizes: dict, dev) -> dict:
+    """Host ms of one checked ``reduce_update`` of a step's (K, F) sums and
+    (K,) counts over ``d``'s hops (every rank calls it), synchronised, and
+    a ``torch.profiler`` trace of as many calls (device-busy ms a call,
+    the top kernels and copies)."""
+    from repro_torch.dist.reduce import reduce_update
+    sums = torch.randn(sizes["k"], sizes["f"], device=dev)
+    cnt = torch.rand(sizes["k"], device=dev)
+    res = torch.zeros_like(sums) if d._compress else None
+
+    def run():
+        return reduce_update(sums, cnt, intra=d._intra, cross=d._cross,
+                             compress=d._compress, residual=res,
+                             checked=True, m_total=sizes["m"],
+                             extra=torch.zeros(2, device=dev))
+    for _ in range(5):
+        run()
+    _, s = wall(lambda: [run() for _ in range(DIST_REDUCE_REPS)])
+    trace = device_trace(torch, lambda: [run() for _ in range(
+        DIST_REDUCE_REPS)])
+    busy = trace["busy_ms"]
+    return {"ms": 1e3 * s / DIST_REDUCE_REPS,
+            "traced_busy_ms": None if busy is None
+            else busy / DIST_REDUCE_REPS,
+            "traced_wall_ms": trace["wall_ms"] / DIST_REDUCE_REPS,
+            "trace": trace}
+
+
+def dist_one_rank(rank, world, device, tmp: str, tiles: dict,
+                  sizes: dict) -> dict:
+    """Phase 18 on a 1-rank NCCL group: ``lloyd`` and ``lloyd_ft`` on phase
+    3's data and seeds through ``DistributedKMeans`` on ``mesh2d(1)``, each
+    beside the same single-device fit run here (one warm-up fit first)."""
+    import numpy as np
+    import torch
+    from repro_torch.dist.kmeans_dist import DistributedKMeans
+    from repro_torch.dist.sharding import mesh2d
+    from repro_torch.kernels import ref
+    ref.full_f32(device)
+    x = torch.from_numpy(np.load(f"{tmp}/x.npy")).to(device)
+    c = np.load(f"{tmp}/c.npy")
+    out = {"launches": {}}
+    for name, policy in (("lloyd", "off"), ("lloyd_ft", "correct")):
+        def est():
+            return dist_estimator(name, policy, tiles[name], sizes, device)
+        est().fit(x, centroids=c)
+        before = dist_counts()
+        d = DistributedKMeans(est(), mesh2d(1))
+        dist_fit(torch, d, x, c, sizes["k"])    # warm: NCCL starts lazily
+        r = dist_fit(torch, d, x, c, sizes["k"])
+        add_counts(out["launches"], "", {
+            k: v - before[k] for k, v in dist_counts().items()})
+        single, s = wall(lambda: est().fit(x, centroids=c))
+        r["single_ms_per_iter"] = 1e3 * s / single.n_iter_
+        r["single_host_reads"] = single._n_host_syncs
+        r["single_bitwise"] = bool(np.array_equal(
+            r["centroids"], single.cluster_centers_.cpu().numpy()))
+        r["reduce_ms_per_step"] = reduce_ms(torch, d, sizes, device)
+        out[name] = r
+    return out
+
+
+def dist_two_ranks(rank, world, device, tmp: str, tiles: dict,
+                   pq_tiles: tuple, sizes: dict) -> dict:
+    """Phase 18 on a 2-rank gloo group on one card: exact row-mode fits of
+    the integer matrix (``mesh2d(2)``, one hop), the int8 hop
+    (``mesh2d(2, hosts=2)``; its first step alone too), a ``lloyd_ft``
+    campaign, the reduce's ms a
+    step, the elastic drill (rank 1 lost at iteration 5, snapshots every 5)
+    and the PQ stack split over the problem axis (``mesh2d(1, 2)``)."""
+    import numpy as np
+    import torch
+    from repro_torch.batch import BatchedKMeans
+    from repro_torch.dist.kmeans_dist import DistributedKMeans
+    from repro_torch.dist.reduce import ReducePlan
+    from repro_torch.dist.sharding import mesh2d
+    from repro_torch.ft import Checkpointer, FailureSchedule
+    from repro_torch.kernels import ops, ref
+    ref.full_f32(device)
+    xi = np.load(f"{tmp}/xi.npy", mmap_mode="r")
+    ci = np.load(f"{tmp}/ci.npy")
+    before = dist_counts()
+    out = {}
+    # (key, backend, policy, reduce plan, mesh, iterations); a warm-up fit
+    # first
+    it = sizes["iters"]
+    fits = (("warm-up", "lloyd", "off", None, mesh2d(2), it),
+            ("fused", "fused", "off", None, mesh2d(2), it),
+            ("lloyd", "lloyd", "off", None, mesh2d(2), it),
+            ("fused_ft", "fused_ft", "correct", None, mesh2d(2), it),
+            ("lloyd_ft", "lloyd_ft", "correct", None, mesh2d(2), it),
+            ("int8", "lloyd_ft", "correct", ReducePlan.compressed(),
+             mesh2d(2, hosts=2), it),
+            ("int8_step1", "lloyd_ft", "correct", ReducePlan.compressed(),
+             mesh2d(2, hosts=2), 1),
+            ("campaign", "lloyd_ft", "campaign", None, mesh2d(2), it))
+    hops = {}
+    for key, backend, policy, plan, mesh, iters in fits:
+        d = DistributedKMeans(dist_estimator(
+            backend, policy, tiles[backend], dict(sizes, iters=iters),
+            device), mesh, reduce=plan)
+        out[key] = dist_fit(torch, d, xi, ci, sizes["k"])
+        hops[key] = d
+    del out["warm-up"]
+    counts = dist_counts()
+    out["reduce_ms_per_step"] = {
+        "one_hop": reduce_ms(torch, hops["lloyd_ft"], sizes, device),
+        "two_hops_int8": reduce_ms(torch, hops["int8"], sizes, device)}
+    drill_counts = dist_counts()
+    ck = Checkpointer(f"{tmp}/drill", async_write=False)
+    d = DistributedKMeans(dist_estimator("lloyd_ft", "elastic",
+                                         tiles["lloyd_ft"], sizes, device),
+                          mesh2d(2))
+    res, s = wall(lambda: d.fit_elastic(
+        xi, ci, checkpointer=ck, checkpoint_interval=5,
+        on_iteration=FailureSchedule({5: (1,)})))
+    out["drill"] = None if res is None else {
+        "centroids": res[0].cpu().numpy(), "labels": res[1].cpu().numpy(),
+        "iters": res[3], "det": res[4], "restarts": res[5],
+        "mesh": d.mesh.flat(), "restart_s": d.restart_seconds_,
+        "fit_s": s, "snapshots": ck.available_steps()}
+    after_drill = dist_counts()
+    xs = np.load(f"{tmp}/pq_x.npy", mmap_mode="r")
+    cs = np.load(f"{tmp}/pq_c.npy")
+    d = DistributedKMeans(BatchedKMeans(
+        sizes["k_pq"], max_iter=sizes["pq_iters"], tol=0.0,
+        random_state=SEED, params=ops.KernelParams(*pq_tiles),
+        device=device), mesh2d(1, 2))
+    xl = d.shard_data(xs)
+    (cent, am, inertia, iters, det), s = wall(lambda: d.fit(xl, cs))
+    out["problems"] = {"centroids": cent.cpu().numpy(),
+                       "labels": am.cpu().numpy(), "iters": iters,
+                       "ms_per_iter": 1e3 * s / sizes["pq_iters"],
+                       "host_reads": d._n_host_syncs}
+    end = dist_counts()
+    # the reduce's timing launches no kernel; count the fits' launches
+    out["launches"] = {k: counts[k] - before[k] + end[k] - drill_counts[k]
+                       for k in end}
+    out["drill_launches"] = {k: after_drill[k] - drill_counts[k]
+                             for k in end}
+    return out
+
+
+def int8_first_step(torch, xi, ci) -> tuple:
+    """The int8 hop's first step from ``ci`` on ``mesh2d(2, hosts=2)`` in
+    plain PyTorch: each host's exact partial sums over its half of ``xi``,
+    quantised and dequantised, summed over the hosts, as centroids (numpy);
+    and the exact step's centroids beside them."""
+    from repro_torch.dist.compression import dequantize, quantize
+    from repro_torch.kernels import ref
+    deq = exact = counts = 0
+    for half in xi.chunk(2):
+        _, _, sums, n = ref.lloyd_step(half, ci)
+        deq = deq + dequantize(*quantize(sums), xi.shape[1])
+        exact = exact + sums
+        counts = counts + n
+
+    def means(sums):
+        return torch.where((counts > 0)[:, None],
+                           sums / counts.clamp_min(1.0)[:, None],
+                           ci).cpu().numpy()
+    return means(deq), means(exact)
+
+
+def phase_dist(torch, np, ops, KMeans, BatchedKMeans, x, c_init, km_ll,
+               km_ft, smi_line: str) -> tuple[dict, dict]:
+    """Phase 18: ``repro_torch.dist.DistributedKMeans`` on the card, in
+    ranks spawned by ``run_ranks`` (phases 1-17 initialised CUDA here, so a
+    forked child could not use the card); the children load the kernels
+    built above. Returns the record and the phase's launches by row."""
+    from repro_torch.dist.sharding import run_ranks
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_dist_")
+    try:
+        return dist_checks(torch, np, ops, KMeans, BatchedKMeans, x, c_init,
+                           km_ll, km_ft, smi_line, run_ranks, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def dist_checks(torch, np, ops, KMeans, BatchedKMeans, x, c_init, km_ll,
+                km_ft, smi_line, run_ranks, tmp) -> tuple[dict, dict]:
+    """Phase 18's data, single-device fits, ranks and gates (files under
+    ``tmp``)."""
+    sizes = {"m": M_FULL, "f": F_FULL, "k": K_FULL, "iters": ITERS,
+             "k_pq": K_PQ, "pq_iters": PQ_ITERS}
+    dev = x.device
+    xi = torch.round(x)         # integer-valued: every partial sum exact
+    ci = torch.round(c_init)    # rows of xi (the seeds are rows of x)
+    np.save(f"{tmp}/x.npy", x.cpu().numpy())
+    np.save(f"{tmp}/c.npy", c_init.cpu().numpy())
+    np.save(f"{tmp}/xi.npy", xi.cpu().numpy())
+    np.save(f"{tmp}/ci.npy", ci.cpu().numpy())
+    pq_x, pq_c = pq_stack(torch, B_PQ, N_PQ, F_PQ, K_PQ)
+    np.save(f"{tmp}/pq_x.npy", pq_x.cpu().numpy())
+    np.save(f"{tmp}/pq_c.npy", pq_c.cpu().numpy())
+    tiles = {}
+    for name in ("fused", "lloyd", "fused_ft", "lloyd_ft"):
+        p = KMeans(K_FULL, backend=name, device=dev, fault=None if name in (
+            "fused", "lloyd") else km_ft.fault)._resolve_params(M_FULL,
+                                                                F_FULL)
+        tiles[name] = (p.block_m, p.block_k, p.block_f)
+    pq_p = ops.clamp_params(N_PQ, K_PQ, F_PQ, ops.DEFAULT_PARAMS)
+    pq_tiles = (pq_p.block_m, pq_p.block_k, pq_p.block_f)
+    # the single-device fits the gates hold the ranks to, here on the card
+    single = {name: dist_estimator(name, pol, tiles[name], sizes, dev).fit(
+        xi, centroids=ci) for name, pol in (
+        ("fused", "off"), ("lloyd", "off"), ("fused_ft", "correct"),
+        ("lloyd_ft", "correct"))}
+    bkm, bkm_s = wall(lambda: BatchedKMeans(
+        K_PQ, max_iter=PQ_ITERS, tol=0.0, random_state=SEED, params=pq_p,
+        device=dev).fit(pq_x, centroids=pq_c))
+    single_empty = {name: int((torch.bincount(
+        km.labels_.long(), minlength=K_FULL) == 0).sum())
+        for name, km in single.items()}
+    int8_want, exact_step1 = int8_first_step(torch, xi, ci)
+    del xi, ci, pq_x
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    one = run_ranks(dist_one_rank, 1, device="cuda",
+                    backend=DIST_BACKENDS["one_rank"],
+                    timeout=DIST_TIMEOUT_S, args=(tmp, tiles, sizes))[0]
+    one_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    two = run_ranks(dist_two_ranks, 2, device="cuda",
+                    backend=DIST_BACKENDS["two_ranks"],
+                    timeout=DIST_TIMEOUT_S, args=(tmp, tiles, pq_tiles,
+                                                  sizes))
+    two_s = time.perf_counter() - t0
+
+    # 1 rank, NCCL: bit for bit phases 3-4's single-device fits
+    for name, km in (("lloyd", km_ll), ("lloyd_ft", km_ft)):
+        r = one[name]
+        expect(np.array_equal(r["centroids"],
+                              km.cluster_centers_.cpu().numpy())
+               and np.array_equal(r["labels"], km.labels_.cpu().numpy())
+               and r["iters"] == km.n_iter_ and r["single_bitwise"],
+               f"1-rank NCCL {name} fit is not bit for bit the "
+               f"single-device fit")
+        expect(r["det"] == 0, f"1-rank NCCL {name}: clean fit detected "
+               f"{r['det']}")
+
+    # 2 ranks, gloo: exact row mode bit for bit the single-device fits
+    def labels(key):
+        return np.concatenate([two[r][key]["labels"] for r in (0, 1)])
+    for name, km in single.items():
+        r = two[0][name]
+        expect(np.array_equal(r["centroids"],
+                              km.cluster_centers_.cpu().numpy())
+               and np.array_equal(two[1][name]["centroids"], r["centroids"])
+               and np.array_equal(labels(name), km.labels_.cpu().numpy())
+               and r["iters"] == km.n_iter_,
+               f"2-rank gloo {name} fit is not bit for bit the "
+               f"single-device fit on the integer matrix")
+        expect(r["det"] == 0, f"2-rank {name}: clean fit detected "
+               f"{r['det']}")
+    exact, q = two[0]["lloyd_ft"], two[0]["int8"]
+    int8_c = float(np.abs(q["centroids"] - exact["centroids"]).max()
+                   / np.abs(exact["centroids"]).max())
+    int8_in = abs(q["inertia"] - exact["inertia"]) / exact["inertia"]
+    expect(int8_c < INT8_HOP_CENTROID_BAR and int8_in < INT8_HOP_INERTIA_BAR
+           and q["det"] == 0, f"int8 hop: centroids {int8_c}, inertia "
+           f"{int8_in}, detected {q['det']}")
+    # the hop really quantised: its first step is the plain version's
+    step1 = two[0]["int8_step1"]
+    scale = float(np.abs(int8_want).max())
+    int8_step = float(np.abs(step1["centroids"] - int8_want).max() / scale)
+    int8_gap = float(np.abs(int8_want - exact_step1).max() / scale)
+    expect(int8_step <= INT8_STEP_RTOL and int8_gap > 10 * INT8_STEP_RTOL
+           and np.array_equal(two[1]["int8_step1"]["centroids"],
+                              step1["centroids"]) and step1["det"] == 0,
+           f"int8 hop's first step: {int8_step} of the centroids' scale "
+           f"from its plain version (bar {INT8_STEP_RTOL}), quantisation "
+           f"moved it by {int8_gap}, detected {step1['det']}")
+    camp = two[0]["campaign"]
+    local = [two[r]["campaign"]["local_det"] for r in (0, 1)]
+    expect(np.array_equal(camp["centroids"], exact["centroids"])
+           and np.array_equal(labels("campaign"), labels("lloyd_ft"))
+           and min(local) > 0 and camp["det"] == sum(local),
+           f"2-rank campaign: not bit for bit its clean fit, or detections "
+           f"{camp['det']} not the ranks' {local}")
+    drill = two[0]["drill"]
+    expect(two[1]["drill"] is None and drill is not None
+           and drill["restarts"] == 1 and drill["mesh"] == [0]
+           and np.array_equal(drill["centroids"],
+                              single["lloyd_ft"].cluster_centers_.cpu()
+                              .numpy())
+           and np.array_equal(drill["labels"],
+                              single["lloyd_ft"].labels_.cpu().numpy())
+           and drill["iters"] == ITERS,
+           "elastic drill: not one restart onto rank 0 ending bit for bit "
+           "the 1-rank fit")
+    pc = np.concatenate([two[r]["problems"]["centroids"] for r in (0, 1)])
+    pl = np.concatenate([two[r]["problems"]["labels"] for r in (0, 1)])
+    expect(np.array_equal(pc, bkm.cluster_centers_.cpu().numpy())
+           and np.array_equal(pl, bkm.labels_.cpu().numpy()),
+           "problem axis (24 / 24 over two ranks) is not bit for bit the "
+           "single-device BatchedKMeans fit")
+
+    launches: dict = {}
+    for part in (one["launches"], two[0]["launches"], two[1]["launches"]):
+        add_counts(launches, "", part)
+    for name in DIST_ROWS:
+        expect(launches.get(name, 0) > 0,
+               f"{name} was not launched on phase 18's paths")
+    empty = {"single_device": single_empty}
+    for key in ("fused", "lloyd", "fused_ft", "lloyd_ft", "int8",
+                "campaign"):
+        empty[f"2_ranks_{key}"] = two[0][key]["empty_clusters"]
+    for key in ("lloyd", "lloyd_ft"):
+        empty[f"1_rank_{key}"] = one[key]["empty_clusters"]
+    rec = {
+        "phase": 18, "nvidia_smi": smi_line,
+        "backends": DIST_BACKENDS,
+        "note": "two ranks on one card time-share it: no figure of this "
+                "phase is a scaling figure",
+        "one_rank_nccl": {
+            key: {"bitwise_single_device": True,
+                  "ms_per_iter": one[key]["ms_per_iter"],
+                  "single_device_ms_per_iter":
+                      one[key]["single_ms_per_iter"],
+                  "host_reads": one[key]["host_reads"],
+                  "single_device_host_reads":
+                      one[key]["single_host_reads"],
+                  "reduce_ms_per_step": one[key]["reduce_ms_per_step"]}
+            for key in ("lloyd", "lloyd_ft")},
+        "two_ranks_gloo": {
+            "exact_bitwise": sorted(single),
+            "ms_per_iter": {key: two[0][key]["ms_per_iter"] for key in (
+                "fused", "lloyd", "fused_ft", "lloyd_ft", "int8",
+                "campaign")},
+            "reduce_ms_per_step": two[0]["reduce_ms_per_step"],
+            "int8_hop": {"centroid_rel_err": int8_c,
+                         "inertia_rel_err": int8_in, "detected": q["det"],
+                         "first_step_rel_err_to_plain": int8_step,
+                         "first_step_quantisation_gap": int8_gap},
+            "campaign_detected": camp["det"], "campaign_by_rank": local,
+            "drill": {k: drill[k] for k in ("iters", "restarts", "mesh",
+                                            "restart_s", "fit_s",
+                                            "snapshots")},
+            "drill_launches": two[0]["drill_launches"],
+            "problem_axis_ms_per_iter": two[0]["problems"]["ms_per_iter"],
+            "problem_axis_host_reads": two[0]["problems"]["host_reads"],
+            "single_device_batched_ms_per_iter": 1e3 * bkm_s / PQ_ITERS},
+        "empty_clusters": empty,
+        "spawn_and_run_s": {"one_rank": one_s, "two_ranks": two_s},
+        "launches": launches}
+    return rec, launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -6110,6 +6555,14 @@ def main() -> int:
     emit(recs17[-1])
     by_name["flash_attention"]["launches"] += fwd17["flash_prefill_kernel"]
     rows.extend(rows17)
+
+    # --- phase 18: the distributed and elastic fit ----------------------
+    torch.cuda.empty_cache()
+    rec18, launches18 = phase_dist(torch, np, ops, KMeans, BatchedKMeans, x,
+                                   c_init, km_ll, km_ft, smi_line)
+    emit(rec18)
+    for name, n in launches18.items():
+        by_name[name]["launches"] += n
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi_line, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -595,6 +595,7 @@ class KMeans:
                 "fault": {
                     "mode": self.fault.mode,
                     "update_dmr": self.fault.update_dmr,
+                    "worker_loss": self.fault.worker_loss,
                     "injection": (None if camp is None else {
                         "rate": camp.rate, "seed": camp.seed,
                         "targets": camp.targets}),
@@ -615,7 +616,8 @@ class KMeans:
         camp = fp.get("injection")
         fault = FaultPolicy(
             mode=fp["mode"], update_dmr=fp["update_dmr"],
-            injection=None if camp is None else InjectionCampaign(**camp))
+            injection=None if camp is None else InjectionCampaign(**camp),
+            worker_loss=fp.get("worker_loss", "fail"))   # pre-v3 states
         tiles = cfg.get("params")
         km = cls(cfg["n_clusters"], max_iter=cfg["max_iter"], tol=cfg["tol"],
                  init=cfg["init"], fault=fault, backend=cfg["backend"],

@@ -6,7 +6,11 @@ the Wu-et-al. baseline, backend ``abft_offline``) or ``"correct"`` (the
 fused online ABFT detect -> locate -> correct kernel, resolved to the
 one-pass FT kernel, whose epilogue checksums also protect the update).
 ``update_dmr`` protects the update of two-pass backends; ``injection``
-attaches an SEU campaign (§V-C). Resolution is the same on every device:
+attaches an SEU campaign (§V-C); ``worker_loss`` is the answer to a
+whole-worker (fail-stop) loss in a distributed fit: ``"fail"`` raises
+:class:`~repro_torch.ft.elastic.WorkerLossError`, ``"shrink"`` lets
+``DistributedKMeans.fit_elastic`` shrink the mesh, restore the last
+snapshot and resume. Resolution is the same on every device:
 ``off`` -> ``fused``, ``detect`` -> ``abft_offline``, ``correct`` and any
 campaign -> ``lloyd_ft`` (in-kernel injection is its surface).
 """
@@ -20,6 +24,7 @@ from repro_torch.api.registry import (AssignmentBackend, BackendCapabilityError,
 
 MODES = ("off", "detect", "correct")
 TARGETS = ("auto", "distance", "update", "both")
+WORKER_LOSS = ("fail", "shrink")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -68,11 +73,15 @@ class FaultPolicy:
     mode: str = "off"
     update_dmr: Optional[bool] = None
     injection: Optional[InjectionCampaign] = None
+    worker_loss: str = "fail"
 
     def __post_init__(self) -> None:
         if self.mode not in MODES:
             raise ValueError(f"FaultPolicy.mode must be one of {MODES}, "
                              f"got {self.mode!r}")
+        if self.worker_loss not in WORKER_LOSS:
+            raise ValueError(f"FaultPolicy.worker_loss must be one of "
+                             f"{WORKER_LOSS}, got {self.worker_loss!r}")
         if self.injection is not None and self.mode == "off":
             raise ValueError(
                 "an injection campaign needs a protected assignment backend; "
@@ -96,6 +105,17 @@ class FaultPolicy:
                 injection: Optional[InjectionCampaign] = None
                 ) -> "FaultPolicy":
         return cls(mode="correct", update_dmr=update_dmr, injection=injection)
+
+    @classmethod
+    def elastic(cls, *, mode: str = "correct",
+                update_dmr: Optional[bool] = None,
+                injection: Optional[InjectionCampaign] = None
+                ) -> "FaultPolicy":
+        """The whole ladder: SEUs corrected in the kernel (``mode="correct"``
+        by default), whole-worker losses survived by shrinking the mesh and
+        restoring the last snapshot (``worker_loss="shrink"``)."""
+        return cls(mode=mode, update_dmr=update_dmr, injection=injection,
+                   worker_loss="shrink")
 
     @property
     def protected(self) -> bool:

@@ -20,7 +20,7 @@ compute dtype.
 """
 from __future__ import annotations
 
-from typing import Any, Optional
+from typing import Any, Callable, Optional
 
 import numpy as np
 import torch
@@ -35,6 +35,39 @@ from repro_torch.kernels import kmeanspp_init, ops
 
 _INITS = ("kmeans++", "random", "kmeans++-fused")
 _COMPUTE_DTYPES = ("float32", "bfloat16", "float16")
+
+
+def make_batched_chunk(backend: AssignmentBackend,
+                       params: ops.KernelParams, cast: Callable,
+                       tol: float, n_steps: int) -> Callable:
+    """The ``n_steps``-step batched Lloyd chunk that both drivers run:
+    :class:`BatchedKMeans` on the whole stack and the problem-axis mode of
+    ``repro_torch.dist.DistributedKMeans`` on each rank's problems, so a
+    problem's arithmetic (freeze masks, reseeding, sums) is the same on
+    both. The returned callable maps ``(plan, centroids, am, inertia, done,
+    det)`` (``plan`` a ``BatchPlan``) to ``((centroids, am, inertia, done,
+    det), live)``, ``live`` the (n_steps, B) mask of the problems each step
+    moved: every step launches the batched kernel over all problems, and a
+    converged problem's state passes through unchanged."""
+
+    def chunk(plan, centroids, am, inertia, done, det):
+        live_hist = []
+        for _ in range(n_steps):
+            am_n, md, det_i, sums, counts = backend(
+                plan, cast(centroids), params=params)
+            new_c = km_mod.means_from_sums(sums, counts, centroids)
+            shift = ((new_c - centroids) ** 2).sum((1, 2)).sqrt()
+            new_c = km_mod.reseed_empty(plan.x, new_c, counts, md)
+            live = ~done
+            centroids = torch.where(live[:, None, None], new_c, centroids)
+            am = torch.where(live[:, None], am_n, am)
+            inertia = torch.where(live, md.sum(1), inertia)
+            done = done | (shift < tol)
+            det = det + det_i.to(torch.int32)
+            live_hist.append(live)
+        return (centroids, am, inertia, done, det), torch.stack(live_hist)
+
+    return chunk
 
 
 class BatchedKMeans:
@@ -200,23 +233,12 @@ class BatchedKMeans:
         self._n_host_syncs = 0
         while it0 < self.max_iter:
             n_steps = min(self.sync_every, self.max_iter - it0)
-            live_hist = []
-            for _ in range(n_steps):
-                am_n, md, det_i, sums, counts = self._backend(
-                    plan, self._cast(centroids), params=params)
-                new_c = km_mod.means_from_sums(sums, counts, centroids)
-                shift = ((new_c - centroids) ** 2).sum((1, 2)).sqrt()
-                new_c = km_mod.reseed_empty(plan.x, new_c, counts, md)
-                # a converged problem freezes: later steps pass its state on
-                live = ~done
-                centroids = torch.where(live[:, None, None], new_c, centroids)
-                am = torch.where(live[:, None], am_n, am)
-                inertia = torch.where(live, md.sum(1), inertia)
-                done = done | (shift < self.tol)
-                det = det + det_i.to(torch.int32)
-                live_hist.append(live)
+            chunk = make_batched_chunk(self._backend, params, self._cast,
+                                       self.tol, n_steps)
+            (centroids, am, inertia, done, det), live_hist = chunk(
+                plan, centroids, am, inertia, done, det)
             # the chunk boundary: the only device->host read of the window
-            done_h, live_h = _host_read((done, torch.stack(live_hist)))
+            done_h, live_h = _host_read((done, live_hist))
             self._n_host_syncs += 1
             iters += live_h.numpy().sum(0).astype(np.int64)
             it0 += n_steps

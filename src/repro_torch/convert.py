@@ -2,10 +2,12 @@
 
 ``repro.api.KMeans.get_state()`` and ``repro_torch.api.KMeans.get_state()``
 both return flat dicts of plain types and numpy arrays with the same keys,
-but for three: the port adds ``config["device"]``, and it has no
-``fault["worker_loss"]`` (whole-worker loss belongs to the distributed
-slice) and no ``injection["bit_low"/"bit_high"]`` (no draw reads them).
-Going to the reference, these get the reference's defaults.
+but for two: the port adds ``config["device"]``, and it has no
+``injection["bit_low"/"bit_high"]`` (no draw reads them). Going to the
+reference, these get the reference's defaults. ``fault["worker_loss"]``
+("fail" or "shrink", the elastic policy of ``FaultPolicy.elastic()``) passes
+through in both directions; a reference state from before it existed loads
+as "fail".
 ``config["params"]`` keeps its meaning in both, because ``KernelParams``
 names the same tile, and ``config["compute_dtype"]`` ("float32",
 "bfloat16", "float16" or "int8") passes through in both directions: a model
@@ -52,7 +54,6 @@ import copy
 import numpy as np
 import torch
 
-_REF_WORKER_LOSS = "fail"
 _REF_BACKENDS = {"int8_xla": "int8", "lloyd_pruned_xla": "lloyd_pruned",
                  "lloyd_xla": "lloyd", "lloyd_ft_xla": "lloyd_ft"}
 _REF_BITS = {"bit_low": 20, "bit_high": 30}
@@ -69,19 +70,13 @@ def _arrays_f32(state: dict) -> dict:
 
 def from_reference_state(state: dict) -> dict:
     """Reference ``get_state()`` dict -> the port's (device left to
-    ``KMeans.from_state``, "cuda" unless it is given). A state whose policy
-    shrinks the mesh on a worker loss raises: that needs the distributed
-    slice."""
+    ``KMeans.from_state``, "cuda" unless it is given)."""
     out = _arrays_f32(state)
     cfg = out["config"]
     cfg["device"] = None
     cfg["backend"] = _REF_BACKENDS.get(cfg["backend"], cfg["backend"])
     fault = cfg["fault"]
-    if fault.pop("worker_loss", _REF_WORKER_LOSS) != _REF_WORKER_LOSS:
-        raise NotImplementedError(
-            "FaultPolicy(worker_loss='shrink') (elastic checkpoint-restart) "
-            "is not ported yet; it comes with the port of the distributed "
-            "fit and elastic checkpoint-restart (torch.distributed meshes)")
+    fault.setdefault("worker_loss", "fail")
     if fault.get("injection") is not None:
         for key in _REF_BITS:
             fault["injection"].pop(key, None)
@@ -93,7 +88,7 @@ def to_reference_state(state: dict) -> dict:
     out = _arrays_f32(state)
     cfg = out["config"]
     cfg.pop("device", None)
-    cfg["fault"]["worker_loss"] = _REF_WORKER_LOSS
+    cfg["fault"].setdefault("worker_loss", "fail")
     if cfg["fault"].get("injection") is not None:
         cfg["fault"]["injection"].update(_REF_BITS)
     return out

@@ -1,8 +1,13 @@
-"""Fault tolerance for the LM stack: ABFT-protected dense projections and
-checkpoint / restart of the train loop."""
+"""Fault tolerance beyond the kernels: ABFT-protected dense projections,
+checkpoint / restart of the train loop and the elastic fit, and the elastic
+decision layer (``elastic``: worker loss, the rescale plans, stragglers)."""
+from repro_torch.ft import elastic
 from repro_torch.ft.abft_dense import (FTContext, configure, detect_correct,
                                        ft_einsum, ft_enabled)
 from repro_torch.ft.checkpoint import Checkpointer
+from repro_torch.ft.elastic import (FailureSchedule, WorkerLossError,
+                                    plan_rescale_rows)
 
 __all__ = ["Checkpointer", "FTContext", "configure", "detect_correct",
-           "ft_einsum", "ft_enabled"]
+           "elastic", "ft_einsum", "ft_enabled", "FailureSchedule",
+           "WorkerLossError", "plan_rescale_rows"]

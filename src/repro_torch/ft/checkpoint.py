@@ -16,7 +16,8 @@ keyed by the "/"-joined path. bf16 tensors are stored widened to f32 (exact;
 numpy has no bf16) with their dtype in the manifest, and ``restore``
 returns flat numpy arrays for the caller to cast back, as the reference's
 launcher casts each to its parameter's dtype. The reference's multi-host
-``local_only`` save belongs to the distributed slice.
+``local_only`` save is not ported: in a distributed fit the lowest live
+rank writes every snapshot (``repro_torch.dist.kmeans_dist``).
 """
 from __future__ import annotations
 

@@ -4,7 +4,7 @@ The port of ``repro.launch.train``: seeded init, the micro-batched AdamW
 step (``repro_torch.train.build_train_step``), the synthetic token
 pipeline, asynchronous atomic checkpoints and ``--restore`` for fail-stop
 recovery, the ABFT switch. Weights are drawn from seed 0. The reference's
-mesh flags and its straggler hooks belong to the distributed slice.
+mesh flags and its straggler hooks wait for the LM-side sharding.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch internlm2-1.8b \\
         --smoke --device cpu --steps 10 [--abft] [--restore]

@@ -18,7 +18,8 @@ any product and return zero for a query row with no valid key.
 Decode writes the new token into the cache it is given, in place (the
 reference returns an updated copy; the port saves a copy of the whole cache
 per layer and step). The reference's context-parallel ``shard_map`` branch
-of ``attend`` belongs to the distributed slice: the port has no mesh.
+of ``attend`` waits for the LM-side sharding: the port's meshes
+(``repro_torch.dist``) serve the k-means fit only.
 
 All projections route through ft_einsum (paper ABFT, config-switched).
 """

@@ -1,7 +1,7 @@
 """The train step: micro-batched gradients, then AdamW.
 
 The port of ``repro.train.steps.build_train_step`` on one device (no mesh:
-sharding comes with the distributed slice). The reference jits a step
+LM-side sharding is not ported yet). The reference jits a step
 that splits the batch into ``grad_accum`` micro-batches, adds each one's
 gradients into a buffer of ``accum_dtype`` (f32 unless the config says
 bf16), divides by the count and runs AdamW; the port runs the same eagerly:

@@ -175,14 +175,14 @@ def test_state_to_reference(data, mode):
 
 
 def test_state_fields_the_port_lacks():
-    """The reference's worker-loss and bit-range keys: filled with the
-    reference's defaults on the way out, dropped on the way in, and a
-    policy that shrinks the mesh is refused until its slice."""
+    """The reference's bit-range keys: filled with the reference's defaults
+    on the way out, dropped on the way in; the worker-loss policy passes
+    through both ways, the elastic one included."""
     camp = dict(rate=1.0, seed=3, targets="both")
     jk = _ref(JFaultPolicy.correct(injection=JCampaign(**camp)), None)
     jk.cluster_centers_ = np.eye(K, F, dtype=np.float32)
     state = convert.from_reference_state(jk.get_state())
-    assert "worker_loss" not in state["config"]["fault"]
+    assert state["config"]["fault"]["worker_loss"] == "fail"
     km = KMeans.from_state(state, device="cpu")
     assert km.fault.injection == InjectionCampaign(**camp)
     back = convert.to_reference_state(km.get_state())
@@ -192,8 +192,11 @@ def test_state_fields_the_port_lacks():
     assert JKMeans.from_state(back).fault == jk.fault
     elastic = _ref(JFaultPolicy.elastic(), None)
     elastic.cluster_centers_ = jk.cluster_centers_
-    with pytest.raises(NotImplementedError, match="distributed"):
-        convert.from_reference_state(elastic.get_state())
+    km = KMeans.from_state(convert.from_reference_state(elastic.get_state()),
+                           device="cpu")
+    assert km.fault == FaultPolicy.elastic()
+    back = convert.to_reference_state(km.get_state())
+    assert JKMeans.from_state(back).fault == elastic.fault
 
 
 def test_state_round_trip_in_port(data):
