@@ -5259,16 +5259,20 @@ def serve_stream(torch, np, KMeans, KMeansService, km_off, x_host,
 
 
 
-def bwd_case(torch, fa, hw, name: str, gen) -> tuple[dict, tuple]:
-    """One case of BWD_CASES: the forward with and without lse (bit for bit
+def bwd_case(torch, fa, hw, name: str, gen,
+             cases: dict = BWD_CASES) -> tuple[dict, tuple]:
+    """One case of ``cases``: the forward with and without lse (bit for bit
     where both run the prefill kernel, Sq > 16), the lse against the plain
     logsumexp, dq / dk / dv from the kernels against
     ``flash_attention_backward_plain`` in f32 under BWD_FLOOR_FACTOR times
     the plain version's own rounding floor, a control that must break that
     bar (the backward given a mask without the key of the largest |dv|),
-    two launches bit for bit. Returns (record, the case's tensors)."""
+    two launches bit for bit. The queries sit at the keys' last Sq
+    positions, or from a twelfth entry's position on (a context-parallel
+    shard). Returns (record, the case's tensors)."""
     b, h, kv, sq, skv, hd, causal, window, qholes, kholes, dt = \
-        BWD_CASES[name]
+        cases[name][:11]
+    start = cases[name][11] if len(cases[name]) > 11 else skv - sq
     dtype = {"bf16": torch.bfloat16, "fp16": torch.float16}[dt]
 
     def draw(*shape):
@@ -5276,7 +5280,7 @@ def bwd_case(torch, fa, hw, name: str, gen) -> tuple[dict, tuple]:
     q = (draw(b, h, sq, hd) * hd ** -0.5).to(dtype)
     k, v, do = (draw(*sh).to(dtype) for sh in
                 ((b, kv, skv, hd), (b, kv, skv, hd), (b, h, sq, hd)))
-    qpos = torch.arange(skv - sq, skv, dtype=torch.int32, device=DEV)
+    qpos = torch.arange(start, start + sq, dtype=torch.int32, device=DEV)
     kpos = torch.arange(skv, dtype=torch.int32, device=DEV)
     qpos[list(qholes)] = -5
     kpos[list(kholes)] = -1
@@ -5286,7 +5290,8 @@ def bwd_case(torch, fa, hw, name: str, gen) -> tuple[dict, tuple]:
     with torch.no_grad():
         out0 = fa.flash_attention(q, k, v, qpos, kpos, zero_empty_rows=True,
                                   **opts)
-    rec = {"shape": [b, h, kv, sq, skv, hd], "dtype": dt, **opts,
+    rec = {"shape": [b, h, kv, sq, skv, hd], "dtype": dt, "q_start": start,
+           **opts,
            "forward_with_lse_bitwise": bool(torch.equal(out, out0))}
     if sq > hw.FLASH_DECODE_MAX_SQ:
         expect(rec["forward_with_lse_bitwise"], f"backward {name}: the "
@@ -6083,6 +6088,541 @@ def dist_checks(torch, np, ops, KMeans, BatchedKMeans, x, c_init, km_ll,
     return rec, launches
 
 
+# --- phase 19: LM training on a (data, model) mesh of ranks ----------------
+
+MESH_ARCH = "internlm2-1.8b"
+MESH_SMOKE = False              # full width and depth
+# 4 gloo ranks share the card: make_local_mesh(2), (data 2, model 2); the
+# train_4k cell (seq 4096, global batch 256) cut to a global batch of 4 in
+# 2 micro-batches (one row a data rank a micro-batch)
+MESH_RANKS, MESH_MODEL_PARALLEL = 4, 2
+MESH_SEQ, MESH_BATCH, MESH_ACCUM, MESH_LR = 4096, 4, 2, 1e-3
+MESH_TIMEOUT_S = 900
+# the sharded step against the single-rank step on the same weights (seed
+# 0) and batch. The CPU bf16 run of the same mesh at SMOKE
+# (tests/test_torch_lm_sharding.py) gave: loss 7.5e-5 and grad norm 5.2e-4
+# relative; after the AdamW step 0.59 % of a leaf's elements moved past
+# lr / 20 (AdamW's first step moves a parameter by lr x sign(g), so a
+# gradient within rounding of zero flips), each by at most 2 lr + one bf16
+# rounding of the leaf's largest; the same share as the port's own
+# single-device step against the reference's, so the mesh adds nothing to
+# the single device's own rounding floor. Loss and grad norm: 24 layers of
+# bf16 sums in other orders, x 50 and x 40. The worst leaf's moved share:
+# at most MESH_FLOOR_FACTOR x the floor measured in the same run, the
+# single-rank step with the plain attention route (the chunked math)
+# against the kernel route (phase 17's rule). A fixed 5 % share, stated
+# before the first full-size run, was below that floor (5.9 %): see
+# PERF.md, phase 19's first runs.
+MESH_LOSS_RTOL = 5e-3
+MESH_GNORM_RTOL = 2e-2
+MESH_FLOOR_FACTOR = FAMILY_FLOOR_FACTOR
+# each leaf's gradient norm as the step hands it to AdamW, against the
+# single-rank step's: the largest relative difference over the leaves at
+# most MESH_FLOOR_FACTOR x the same reading of the plain-route step (the
+# floor, measured in the same run), and never under MESH_LEAF_GNORM_MIN_RTOL.
+# AdamW's first step moves every element by about lr x sign(g), so the
+# parameters' gates cannot see a leaf's gradient at a wrong scale (a
+# partial sum summed twice, a sum left unreduced: 2x or 1/2x); this gate
+# does. Stated before its first run on the card.
+MESH_LEAF_GNORM_MIN_RTOL = 1e-2
+# the flash kernels on a context-parallel query shard: (B, H, KV, Sq, Skv,
+# hd, causal, window, query holes, key holes, dtype, first query position)
+# - both shards (b)'s sharded step launches them on (one row a data rank a
+# micro-batch, model 2: Sq 2048 at 0 or 2048), the last shard of a 4-way
+# split at internlm2-1.8b's shape, and a middle shard of a ragged fp16
+# split (keys past the queries: dead tiles)
+SHARD_CASES = {
+    "mesh_step_shard0": (1, 16, 8, 2048, 4096, 128, True, 0, (), (),
+                         "bf16", 0),
+    "mesh_step_shard1": (1, 16, 8, 2048, 4096, 128, True, 0, (), (),
+                         "bf16", 2048),
+    "internlm2_last_shard": (2, 16, 8, 1024, 4096, 128, True, 0, (), (),
+                             "bf16", 3072),
+    "ragged_fp16_shard2": (1, 4, 2, 333, 1332, 128, True, 0, (), (),
+                           "fp16", 666),
+}
+MESH_BWD_ROWS = ("flash_bwd_prep", "flash_bwd_dkdv", "flash_bwd_dq")
+
+
+def flash_counts(fa) -> dict:
+    """The flash kernels' launches so far: the forward by kernel, each
+    backward wrapper."""
+    out = dict(fa.flash_attention.kernel_launches)
+    out.update({n: getattr(fa, n).launches for n in MESH_BWD_ROWS})
+    return out
+
+
+def zero_flash_counts(fa) -> None:
+    for n in fa.flash_attention.kernel_launches:
+        fa.flash_attention.kernel_launches[n] = 0
+    for n in MESH_BWD_ROWS:
+        getattr(fa, n).launches = 0
+
+
+def shard_forward(torch, fa, name: str, gen) -> dict:
+    """SHARD_CASES[name]'s forward (the prefill kernel) against its plain
+    version in f32 under the flash bars, a control that sees one key past
+    the causal edge (it must break them), two launches bit for bit."""
+    b, h, kv, sq, skv, hd, causal, window, _, _, dt, start = \
+        SHARD_CASES[name]
+    dtype = {"bf16": torch.bfloat16, "fp16": torch.float16}[dt]
+    bars = FLASH_BF16_BARS if dt == "bf16" else FLASH_FP16_BARS
+
+    def draw(*shape):
+        return torch.randn(*shape, generator=gen, device=DEV)
+    q = (draw(b, h, sq, hd) * hd ** -0.5).to(dtype)
+    k, v = (draw(b, kv, skv, hd).to(dtype) for _ in range(2))
+    qpos = torch.arange(start, start + sq, dtype=torch.int32, device=DEV)
+    kpos = torch.arange(skv, dtype=torch.int32, device=DEV)
+    want = fa.flash_attention_plain(q.float(), k.float(), v.float(), qpos,
+                                    kpos, causal=causal, window=window)
+
+    def ratio(got):
+        d, w = (got.double() - want.double()).abs(), want.double().abs()
+        return max(float((d / (a + r * w)).max()) for a, r in bars)
+    got = fa.flash_attention(q, k, v, qpos, kpos, causal=causal,
+                             window=window)
+    again = fa.flash_attention(q, k, v, qpos, kpos, causal=causal,
+                               window=window)
+    rec = {"err_over_bar": ratio(got), "max_abs_err": max_err(got, want),
+           "two_launches_bitwise": bool(torch.equal(got, again)),
+           "control_past_causal_edge": ratio(fa.flash_attention(
+               q, k, v, qpos, (kpos - 1).clamp(min=0), causal=causal,
+               window=window))}
+    expect(rec["err_over_bar"] <= 1.0, f"shard {name}: forward error "
+           f"{rec['err_over_bar']} x its bar")
+    expect(rec["two_launches_bitwise"], f"shard {name}: two forward "
+           f"launches differ")
+    expect(rec["control_past_causal_edge"] > 1.0, f"shard {name}: the "
+           f"control is within the bars {rec['control_past_causal_edge']}")
+    return rec
+
+
+def shard_times(torch, fa, hw, gen) -> list:
+    """The flash kernels' device ms on each rank's query shard of a 4-way
+    split at internlm2-1.8b's training shape (B 2, H 16, KV 8, S 4096, hd
+    128, bf16, causal): the forward with lse and the backward's three
+    kernels, beside the shard's live tiles (the causal split is not
+    balanced: the last shard meets the most)."""
+    b, h, kv, s, hd, tp = 2, 16, 8, 4096, 128, 4
+    n = s // tp
+
+    def draw(*shape):
+        return torch.randn(*shape, generator=gen, device=DEV).to(
+            torch.bfloat16)
+    k, v = draw(b, kv, s, hd), draw(b, kv, s, hd)
+    kpos = torch.arange(s, dtype=torch.int32, device=DEV)
+    out = []
+    for r in range(tp):
+        q, do = draw(b, h, n, hd) * hd ** -0.5, draw(b, h, n, hd)
+        qpos = kpos[r * n:(r + 1) * n]
+        o, lse = fa._launch(q, k, v, qpos, kpos, True, 0, True,
+                            with_lse=True)
+        out.append({
+            "shard": r, "q_positions": [r * n, (r + 1) * n - 1],
+            "forward_ms": cuda_ms(lambda: fa._launch(
+                q, k, v, qpos, kpos, True, 0, True, with_lse=True), reps=20),
+            "backward_ms": cuda_ms(lambda: fa.flash_attention_backward(
+                q, k, v, o, do, lse, qpos, kpos, causal=True), reps=20),
+            "live_tiles": tile_shares(fa, qpos, kpos, hw.FLASH_BLOCK_Q,
+                                      hw.FLASH_BLOCK_K)})
+    return out
+
+
+def mesh_conf() -> dict:
+    """Phase 19's cell, handed to the ranks (a spawned rank imports this
+    module afresh)."""
+    return {"arch": MESH_ARCH, "smoke": MESH_SMOKE, "seq": MESH_SEQ,
+            "batch": MESH_BATCH, "accum": MESH_ACCUM, "lr": MESH_LR,
+            "model_parallel": MESH_MODEL_PARALLEL}
+
+
+def mesh_setup(torch, device, mesh, conf: dict):
+    """Phase 19's model (seed 0, placed on ``mesh`` when one is given), its
+    optimizer state, step and batch (TokenPipeline seed 0, step 0)."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data import TokenPipeline
+    from repro_torch.dist import sharding as shd
+    from repro_torch.models import LM
+    from repro_torch.train import build_train_step, init_opt_state
+    from repro_torch.train.optimizer import TrainConfig
+    cfg = get_config(conf["arch"], smoke=conf["smoke"])
+    shape = ShapeConfig("mesh", seq_len=conf["seq"],
+                        global_batch=conf["batch"], kind="train")
+    tcfg = TrainConfig(learning_rate=conf["lr"], warmup_steps=1,
+                       total_steps=10, grad_accum=conf["accum"])
+    lm = LM(cfg, device=device, seed=SEED)
+    if mesh is not None:
+        shd.shard_params(mesh, lm, lm.param_axes())
+    opt = init_opt_state(dict(lm.named_parameters()), tcfg)
+    step = build_train_step(cfg, shape, tcfg, device=device, mesh=mesh)
+    batch = TokenPipeline(cfg.vocab_size, conf["seq"], conf["batch"],
+                          device=device).next_batch(0)
+    return lm, opt, step, batch
+
+
+def timed(torch, device, fn):
+    """(fn(), host seconds), synchronised on a card."""
+    sync = torch.cuda.synchronize if device.type == "cuda" else (
+        lambda: None)
+    sync()
+    t0 = time.perf_counter()
+    out = fn()
+    sync()
+    return out, time.perf_counter() - t0
+
+
+def peak_of(torch, device, reset: bool = False) -> float:
+    """This process's peak device GB (None off the card); ``reset`` starts
+    a new window."""
+    if device.type != "cuda":
+        return None
+    if reset:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    return torch.cuda.max_memory_allocated() / 1e9
+
+
+@contextlib.contextmanager
+def leaf_grad_squares(torch, sink: dict):
+    """Each leaf's sum of squared gradients as the step hands the gradients
+    to AdamW (``optimizer.adamw_update``), into ``sink`` as device scalars:
+    on a mesh ``DTensor``s still partial over the shards, no collective and
+    no read inside the timed step (:func:`leaf_grad_norms` reads them)."""
+    from repro_torch.train import optimizer as opt_mod
+    keep = opt_mod.adamw_update
+
+    def update(params, grads, opt_state, cfg):
+        with torch.no_grad():
+            for n in params:
+                sink[n] = torch.sum(torch.square(grads[n].float()))
+        return keep(params, grads, opt_state, cfg)
+    opt_mod.adamw_update = update
+    try:
+        yield sink
+    finally:
+        opt_mod.adamw_update = keep
+
+
+def leaf_grad_norms(sink: dict) -> dict:
+    """The norms of :func:`leaf_grad_squares`' sums, each over the whole
+    leaf (a collective on a mesh: every rank, in one order)."""
+    return {n: math.sqrt(float(t.full_tensor() if hasattr(t, "full_tensor")
+                               else t)) for n, t in sink.items()}
+
+
+def gnorm_rel(norms: dict, want: dict) -> dict:
+    """{leaf: relative difference of its gradient norm from ``want``'s}."""
+    return {n: abs(norms[n] - want[n]) / max(want[n], 1e-30) for n in want}
+
+
+def leaf_stats(torch, lm, single: str, rank: int, lr: float) -> dict:
+    """Every parameter gathered whole (a collective: every rank), on rank 0
+    against the single-rank step's (``single``, a ``torch.save``d state):
+    the largest difference, its bar (2 lr + one bf16 rounding of the
+    leaf's largest) and the share of elements moved past lr / 20."""
+    want = torch.load(single, mmap=True) if rank == 0 else None
+    out = {}
+    with torch.no_grad():
+        for n, p in lm.named_parameters():
+            full = p.full_tensor() if hasattr(p, "full_tensor") else p
+            if rank == 0:
+                w = want[n].to(full.device).float()
+                d = (full.float() - w).abs()
+                out[n] = {"max": float(d.max()),
+                          "bar": 2 * lr + 2.0 ** -8 * float(w.abs().max()),
+                          "moved": float((d > lr / 20).float().mean())}
+                del w, d
+            del full
+    return out
+
+
+def mesh_rank(rank, world, device, single: str, conf: dict) -> dict:
+    """Phase 19 (b) on one of MESH_RANKS gloo ranks: one step of the
+    sharded model on make_local_mesh(MESH_MODEL_PARALLEL), its counts set
+    to 0 just before; then the control, the same step with k's and v's
+    gradients leaving ``attend`` unsummed over ``model``. Each: loss, grad
+    norm, seconds, this rank's peak GB and flash launches, and (rank 0) the
+    leaves against the single-rank step's."""
+    import gc
+
+    import torch
+    from torch.distributed.tensor import Replicate
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import attention
+    ref.full_f32(device)
+    mesh = make_local_mesh(conf["model_parallel"], device=device.type)
+    out = {"mesh": dict(zip(mesh.mesh_dim_names, mesh.shape))}
+    keep = attention.Partial
+    for mode in ("sharded", "unsummed"):
+        gc.collect()
+        peak_of(torch, device, reset=True)
+        lm, opt, step, batch = mesh_setup(torch, device, mesh, conf)
+        attention.Partial = Replicate if mode == "unsummed" else keep
+        squares: dict = {}
+        try:
+            zero_flash_counts(fa)
+            with leaf_grad_squares(torch, squares):
+                m, s = timed(torch, device, lambda: step(lm, opt, batch))
+            launches = flash_counts(fa)
+        finally:
+            attention.Partial = keep
+        out[mode] = {"loss": float(m["loss"]),
+                     "grad_norm": float(m["grad_norm"]), "step_s": s,
+                     "peak_gb": peak_of(torch, device),
+                     "launches": launches,
+                     "leaf_grad_norms": leaf_grad_norms(squares),
+                     "leaves": leaf_stats(torch, lm, single, rank,
+                                          conf["lr"])}
+        del lm, opt, step, batch, m, squares
+    return out
+
+
+def mesh_launch_rank(rank, world, device, argv: list) -> dict:
+    """Phase 19 (c) on one of 2 gloo ranks: the launcher's ``main`` on the
+    default local mesh (data 2), its counts set to 0 just before."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    from repro_torch.launch import train as train_launch
+    ref.full_f32(device)
+    zero_flash_counts(fa)
+    text = io.StringIO()
+    with contextlib.redirect_stdout(text):
+        records = train_launch.main(argv)
+    return {"records": records, "launches": flash_counts(fa),
+            "printed": text.getvalue().splitlines()}
+
+
+def gather_route_rank(rank, world, device) -> dict:
+    """Phase 19 (d) on one rank: the functional all-gather of a CUDA tensor
+    with ``sharding.stage_gathers_through_host`` installed, whether it went
+    through host copies, and whether it gathered every rank's tensor."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.dist import sharding as shd
+    shd.stage_gathers_through_host()
+    staged = []
+    keep = shd._gather_on_host
+
+    def counted(*a):
+        staged.append(1)
+        return keep(*a)
+    shd._gather_on_host = counted
+    try:
+        x = torch.arange(6.0, device=device).reshape(2, 3)
+        out = torch.ops._c10d_functional.wait_tensor(
+            torch.ops._c10d_functional.all_gather_into_tensor(
+                x + rank, world, dist.group.WORLD.group_name))
+    finally:
+        shd._gather_on_host = keep
+    want = torch.cat([x + r for r in range(world)])
+    return {"backend": dist.get_backend(), "through_host": len(staged),
+            "gathered": bool(torch.equal(out, want))}
+
+
+def worst_leaf(leaves: dict) -> str:
+    return max(leaves, key=lambda n: leaves[n]["moved"])
+
+
+def mesh_bars(single: dict, run: dict, floor: dict) -> dict:
+    """The sharded run against the single-rank step: loss, grad norm, the
+    worst leaf (largest moved share, against MESH_FLOOR_FACTOR x the
+    floor's), each leaf's gradient norm (the largest relative difference,
+    against MESH_FLOOR_FACTOR x the floor's, at least
+    MESH_LEAF_GNORM_MIN_RTOL) and whether each is within its bar."""
+    leaves = run["leaves"]
+    worst = worst_leaf(leaves)
+    over = {n: r["max"] / r["bar"] for n, r in leaves.items()}
+    rel = gnorm_rel(run["leaf_grad_norms"], single["leaf_grad_norms"])
+    gworst = max(rel, key=rel.get)
+    out = {"loss_rel": abs(run["loss"] - single["loss"]) / abs(
+        single["loss"]),
+        "leaf_grad_norm_worst": gworst,
+        "leaf_grad_norm_rel": rel[gworst],
+        "leaf_grad_norm_bar": max(
+            MESH_FLOOR_FACTOR * floor["leaf_grad_norm_rel"],
+            MESH_LEAF_GNORM_MIN_RTOL),
+        "grad_norm_rel": abs(run["grad_norm"] - single["grad_norm"])
+        / abs(single["grad_norm"]),
+        "worst_leaf": worst, "worst_leaf_moved": leaves[worst]["moved"],
+        "worst_leaf_max": leaves[worst]["max"],
+        "largest_max_over_bar": max(over.values()),
+        "largest_max_leaf": max(over, key=over.get)}
+    out["within"] = {
+        "loss": out["loss_rel"] <= MESH_LOSS_RTOL,
+        "grad_norm": out["grad_norm_rel"] <= MESH_GNORM_RTOL,
+        "moved": out["worst_leaf_moved"]
+        <= MESH_FLOOR_FACTOR * floor["worst_leaf_moved"],
+        "max": out["largest_max_over_bar"] <= 1.0,
+        "leaf_grad_norm": out["leaf_grad_norm_rel"]
+        <= out["leaf_grad_norm_bar"]}
+    return out
+
+
+def phase_mesh(torch, fa, hw, smi_line: str) -> tuple[dict, dict]:
+    """Phase 19: (a) the flash forward and backward on context-parallel
+    query shards (SHARD_CASES) against their plain versions, each with a
+    control, and the kernels' ms on each shard of a 4-way split; (b)
+    MESH_ARCH at full width and depth, one step on MESH_RANKS gloo ranks
+    sharing the card on a (data 2, model 2) mesh, against the single-rank
+    step on the same weights and batch under the MESH_* bars (the floors
+    of the moved share and of each leaf's gradient norm: the single-rank
+    step with the plain attention route),
+    with the control (k / v gradients unsummed over ``model``) that must
+    break them; (c) the launcher's ``main`` on 2 gloo ranks (data 2) for 2
+    steps; (d) the host staging of the functional all-gather taken by a
+    gloo group on the card (2 ranks) and left alone by NCCL (1 rank).
+    Returns the record and the launches of (b)'s and (c)'s main paths, all
+    ranks summed, by kernel."""
+    import gc
+    from repro_torch.dist.sharding import run_ranks
+    from repro_torch.launch.lm_rounding import attention_route
+    gen = torch.Generator(device=DEV).manual_seed(SEED)
+    rec = {"phase": 19, "nvidia_smi": smi_line,
+           "bars": {"loss_rtol": MESH_LOSS_RTOL,
+                    "grad_norm_rtol": MESH_GNORM_RTOL,
+                    "moved_share": f"{MESH_FLOOR_FACTOR} x the plain "
+                                   f"route's worst leaf",
+                    "leaf_grad_norm_rtol": f"{MESH_FLOOR_FACTOR} x the "
+                    f"plain route's worst leaf, at least "
+                    f"{MESH_LEAF_GNORM_MIN_RTOL}",
+                    "leaf_max": "2 lr + 2^-8 max|w|"}}
+    # --- (a) the kernels on a query shard at an offset -----------------------
+    shards = {}
+    for name in SHARD_CASES:
+        fwd = shard_forward(torch, fa, name, gen)
+        bwd, t = bwd_case(torch, fa, hw, name, gen, cases=SHARD_CASES)
+        del t
+        shards[name] = {"forward": fwd, "backward": bwd}
+        torch.cuda.empty_cache()
+    rec["shards"] = shards
+    rec["shard_times"] = shard_times(torch, fa, hw, gen)
+    gc.collect()
+    torch.cuda.empty_cache()
+    # --- (b) the sharded step against the single-rank step -------------------
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
+    try:
+        dev = torch.device(DEV)
+        lm, opt, step, batch = mesh_setup(torch, dev, None, mesh_conf())
+        peak_of(torch, dev, reset=True)
+        with leaf_grad_squares(torch, {}) as squares:
+            m, s = timed(torch, dev, lambda: step(lm, opt, batch))
+        single = {"loss": float(m["loss"]), "grad_norm": float(
+            m["grad_norm"]), "step_s": s, "peak_gb": peak_of(torch, dev),
+            "leaf_grad_norms": leaf_grad_norms(squares)}
+        torch.save({n: p.detach().cpu() for n, p in lm.named_parameters()},
+                   f"{tmp}/single.pt")
+        del lm, opt, step, batch, m
+        gc.collect()
+        torch.cuda.empty_cache()
+        # the floor: the same step through the plain attention route
+        with attention_route("plain"), leaf_grad_squares(
+                torch, {}) as squares:
+            lm, opt, step, batch = mesh_setup(torch, dev, None, mesh_conf())
+            m, _ = timed(torch, dev, lambda: step(lm, opt, batch))
+        plain = leaf_stats(torch, lm, f"{tmp}/single.pt", 0, MESH_LR)
+        rel = gnorm_rel(leaf_grad_norms(squares), single["leaf_grad_norms"])
+        floor = {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+                 "worst_leaf": worst_leaf(plain),
+                 "worst_leaf_moved": plain[worst_leaf(plain)]["moved"],
+                 "leaf_grad_norm_worst": max(rel, key=rel.get),
+                 "leaf_grad_norm_rel": max(rel.values())}
+        del lm, opt, step, batch, m, plain, squares
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        ranks = run_ranks(mesh_rank, MESH_RANKS, device=DEV,
+                          backend="gloo", timeout=MESH_TIMEOUT_S,
+                          args=(f"{tmp}/single.pt", mesh_conf()))
+        mesh_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    keys = ("loss", "grad_norm", "leaves", "leaf_grad_norms")
+    sharded = {k: ranks[0]["sharded"][k] for k in keys}
+    control = {k: ranks[0]["unsummed"][k] for k in keys}
+    got = mesh_bars(single, sharded, floor)
+    ctrl = mesh_bars(single, control, floor)
+    metrics = [(r["sharded"]["loss"], r["sharded"]["grad_norm"])
+               for r in ranks]
+    expect(metrics.count(metrics[0]) == len(metrics),
+           f"the ranks' losses / grad norms differ: {metrics}")
+    for r in ranks:
+        la = r["sharded"]["launches"]
+        expect(la["flash_prefill_kernel"] > 0 and all(
+            la[n] > 0 for n in MESH_BWD_ROWS), f"a rank's sharded step "
+            f"launched {la}")
+    expect(math.isfinite(sharded["loss"]), f"sharded loss {sharded['loss']}")
+    expect(all(got["within"].values()), f"the sharded step is outside its "
+           f"bars: {got}")
+    expect(not ctrl["within"]["leaf_grad_norm"], f"the control (k / v "
+           f"gradients unsummed) is within the leaves' gradient-norm bar: "
+           f"{ctrl}")
+    peaks = [r["sharded"]["peak_gb"] for r in ranks]
+    rec["step"] = {
+        "arch": MESH_ARCH, "mesh": ranks[0]["mesh"], "ranks": MESH_RANKS,
+        "cut": f"train_4k's global batch 256 cut to {MESH_BATCH} (seq "
+               f"{MESH_SEQ}, full width and depth)",
+        "backend": "gloo", "seq": MESH_SEQ, "global_batch": MESH_BATCH,
+        "grad_accum": MESH_ACCUM, "lr": MESH_LR,
+        "single": {k: v for k, v in single.items()
+                   if k != "leaf_grad_norms"},
+        "floor_plain_route": floor,
+        "sharded": {"loss": sharded["loss"],
+                    "grad_norm": sharded["grad_norm"], **got},
+        "control_unsummed_kv": {"loss": control["loss"],
+                                "grad_norm": control["grad_norm"], **ctrl},
+        "step_s_by_rank": [r["sharded"]["step_s"] for r in ranks],
+        "peak_gb_by_rank": peaks, "peak_gb_sum": sum(p or 0 for p in peaks),
+        "flash_launches_by_rank": [r["sharded"]["launches"] for r in ranks],
+        "spawn_and_run_s": mesh_s}
+    # --- (c) the launcher on 2 ranks, the default local mesh ----------------
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_launch_") as ckpt:
+        argv = ["--arch", MESH_ARCH, "--seq", str(MESH_SEQ), "--batch",
+                str(MESH_BATCH), "--grad-accum", str(MESH_ACCUM), "--steps",
+                "2", "--ckpt-every", "0", "--ckpt-dir", ckpt, "--device",
+                DEV, "--backend", "gloo", "--lr", str(MESH_LR)] + (
+                    ["--smoke"] if MESH_SMOKE else [])
+        t0 = time.perf_counter()
+        two = run_ranks(mesh_launch_rank, 2, device=DEV, backend="gloo",
+                        timeout=MESH_TIMEOUT_S, args=(argv,))
+        launch_s = time.perf_counter() - t0
+    losses = [[x["loss"] for x in r["records"]] for r in two]
+    expect(all(len(ls) == 2 and all(math.isfinite(x) for x in ls)
+               for ls in losses) and losses[0] == losses[1],
+           f"the launcher's losses on 2 ranks: {losses}")
+    for r in two:
+        la = r["launches"]
+        expect(la["flash_prefill_kernel"] > 0 and all(
+            la[n] > 0 for n in MESH_BWD_ROWS), f"a launcher rank launched "
+            f"{la}")
+    rec["launcher"] = {"argv": argv, "losses_by_rank": losses,
+                       "step_s_by_rank": [[x["s"] for x in r["records"]]
+                                          for r in two],
+                       "printed": two[0]["printed"], "spawn_and_run_s":
+                       launch_s,
+                       "flash_launches_by_rank": [r["launches"]
+                                                  for r in two]}
+    # --- (d) the gather's route by backend ---------------------------------
+    routes = {"gloo": run_ranks(gather_route_rank, 2, device=DEV,
+                                backend="gloo", timeout=300),
+              "nccl": run_ranks(gather_route_rank, 1, device=DEV,
+                                backend="nccl", timeout=300)}
+    expect(all(r["gathered"] for rs in routes.values() for r in rs),
+           f"the staged gather's results: {routes}")
+    expect(all(r["through_host"] == 1 for r in routes["gloo"])
+           and all(r["through_host"] == 0 for r in routes["nccl"]),
+           f"the gather's routes: {routes}")
+    rec["gather_routes"] = routes
+    launches: dict = {}
+    for la in [r["sharded"]["launches"] for r in ranks] + [
+            r["launches"] for r in two]:
+        add_counts(launches, "", la)
+    return rec, launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -6563,6 +7103,16 @@ def main() -> int:
     emit(rec18)
     for name, n in launches18.items():
         by_name[name]["launches"] += n
+
+    # --- phase 19: LM training on a (data, model) mesh of ranks -------------
+    torch.cuda.empty_cache()
+    rec19, launches19 = phase_mesh(torch, fa, hw, smi_line)
+    emit(rec19)
+    by_name = {r["name"]: r for r in rows}
+    by_name["flash_attention"]["launches"] += launches19[
+        "flash_prefill_kernel"]
+    for name in MESH_BWD_ROWS:
+        by_name[name]["launches"] += launches19[name]
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi_line, flush=True)
     print(json.dumps({"ok": True, "device": {

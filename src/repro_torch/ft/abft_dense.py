@@ -29,6 +29,7 @@ import threading
 from typing import Optional
 
 import torch
+from torch.distributed.tensor import DTensor
 
 
 class FTContext(threading.local):
@@ -168,9 +169,18 @@ def ft_einsum(spec: str, x: torch.Tensor, w: torch.Tensor, *,
     """einsum with optional einsum-native ABFT protection.
 
     Supported specs are the LM stack's projection forms -- (batch..., k...)
-    x (k..., out...). Other specs run as plain einsum.
+    x (k..., out...). Other specs run as plain einsum. ``DTensor`` operands
+    (a mesh) run ``repro_torch.dist.sharding.contract``, without ABFT.
     """
     on = _CTX.enabled if enabled is None else enabled
+    if isinstance(x, DTensor) or isinstance(w, DTensor):
+        parsed = _parse(spec, x, w)
+        if on or parsed is None:
+            raise NotImplementedError(
+                f"ft_einsum {spec!r} on DTensors: only the LM projections "
+                f"without ABFT run on a mesh")
+        from repro_torch.dist.sharding import contract
+        return contract(spec, x, w, parsed)
     parsed = _parse(spec, x, w) if on else None
     if parsed is None:
         return torch.einsum(spec, x, w)

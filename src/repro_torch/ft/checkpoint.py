@@ -1,4 +1,5 @@
-"""Checkpoint / restart for fail-stop faults, on one process.
+"""Checkpoint / restart for fail-stop faults, on one process or a group of
+ranks.
 
 The port of ``repro.ft.checkpoint.Checkpointer`` for the train loop:
 
@@ -18,6 +19,14 @@ returns flat numpy arrays for the caller to cast back, as the reference's
 launcher casts each to its parameter's dtype. The reference's multi-host
 ``local_only`` save is not ported: in a distributed fit the lowest live
 rank writes every snapshot (``repro_torch.dist.kmeans_dist``).
+
+On a mesh (``group``: the ranks that save together) every rank calls
+``save`` and ``wait``: a ``DTensor`` leaf is gathered whole (a collective,
+so the ranks save the same keys in the same order), the group's first rank
+writes, and ``wait`` returns on every rank once its snapshots are durable.
+A snapshot holds whole tensors whatever the mesh, so one written on a mesh
+restores on one device and the reverse (``repro_torch.dist.sharding.like``
+places a restored tensor as its parameter is placed).
 """
 from __future__ import annotations
 
@@ -30,6 +39,8 @@ from typing import Any, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
 
 
 def flatten(state: Any, prefix: str = "") -> dict:
@@ -43,9 +54,12 @@ def flatten(state: Any, prefix: str = "") -> dict:
 
 
 def _host(leaf) -> tuple[np.ndarray, str]:
-    """A leaf as a host numpy array (bf16 widened to f32) and its dtype."""
+    """A leaf as a host numpy array (bf16 widened to f32) and its dtype; a
+    ``DTensor`` gathered whole first."""
     if isinstance(leaf, torch.Tensor):
         t = leaf.detach()
+        if isinstance(t, DTensor):
+            t = t.full_tensor()
         name = str(t.dtype).replace("torch.", "")
         if t.dtype == torch.bfloat16:
             t = t.float()
@@ -56,9 +70,11 @@ def _host(leaf) -> tuple[np.ndarray, str]:
 
 class Checkpointer:
     def __init__(self, directory: str, *, keep: int = 3,
-                 async_write: bool = True):
+                 async_write: bool = True, group: Any = None):
         self.directory = directory
         self.keep = keep
+        self.group = group
+        self.writes = group is None or dist.get_rank(group) == 0
         os.makedirs(directory, exist_ok=True)
         self._q: "queue.Queue" = queue.Queue()
         self._async = async_write
@@ -75,6 +91,8 @@ class Checkpointer:
         arrays, dtypes = {}, {}
         for key, leaf in flatten(state).items():
             arrays[key], dtypes[key] = _host(leaf)
+        if not self.writes:
+            return
         payload = (step, arrays, dtypes)
         if self._async:
             self._q.put(payload)
@@ -110,9 +128,12 @@ class Checkpointer:
         return sorted(out)
 
     def wait(self) -> None:
-        """Block until all queued snapshots are durable."""
+        """Block until all queued snapshots are durable (on a group: the
+        writing rank's, on every rank)."""
         if self._async:
             self._q.join()
+        if self.group is not None:
+            dist.barrier(group=self.group)
         if self._errors:
             raise self._errors[0]
 

@@ -17,9 +17,17 @@ any product and return zero for a query row with no valid key.
 
 Decode writes the new token into the cache it is given, in place (the
 reference returns an updated copy; the port saves a copy of the whole cache
-per layer and step). The reference's context-parallel ``shard_map`` branch
-of ``attend`` waits for the LM-side sharding: the port's meshes
-(``repro_torch.dist``) serve the k-means fit only.
+per layer and step).
+
+On a mesh (``repro_torch.dist.sharding.active_mesh``, ``DTensor`` inputs)
+:func:`attend` runs the same routes on each rank's local tensors through
+``local_map`` (the reference's ``shard_map``). Context parallelism: with a
+``model`` axis of tp > 1 and Sq divisible by it, the query sequence (and
+its positions) is split over ``model`` while k / v are replicated, so the
+flash kernels run on a query shard whose positions start at r * Sq / tp;
+k's and v's gradients leave the body as partial sums over ``model``
+(``in_grad_placements``), the reference's "small psums for the k/v
+gradients". Otherwise the rows split over the data axes only.
 
 All projections route through ft_einsum (paper ABFT, config-switched).
 """
@@ -28,7 +36,10 @@ from __future__ import annotations
 from typing import NamedTuple, Optional
 
 import torch
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+from torch.distributed.tensor.experimental import local_map
 
+from repro_torch.dist import sharding as shd
 from repro_torch.ft.abft_dense import ft_einsum
 from repro_torch.kernels.flash_attention import (flash_attention,
                                                   position_mask)
@@ -36,6 +47,11 @@ from repro_torch.models import layers as L
 
 Q_CHUNK = 1024
 NEG_POS = -(1 << 30)
+
+
+def _tp_size() -> int:
+    mesh = shd.active_mesh()
+    return shd.mesh_shape(mesh).get("model", 1) if mesh is not None else 1
 
 
 class KVCache(NamedTuple):
@@ -56,14 +72,15 @@ def init_cache(cfg, batch: int, max_len: int, *, window: int = 0,
                               device=device))
 
 
-def init_attention(gen: torch.Generator, cfg, dtype: torch.dtype) -> dict:
+def init_attention(gen: torch.Generator, cfg,
+                   dtype: torch.dtype) -> L.Tree:
     d = cfg.d_model
     hd = cfg.resolved_head_dim
     specs = {
-        "wq": (d, cfg.num_heads, hd),
-        "wk": (d, cfg.num_kv_heads, hd),
-        "wv": (d, cfg.num_kv_heads, hd),
-        "wo": (cfg.num_heads, hd, d),
+        "wq": ((d, cfg.num_heads, hd), ("embed", "heads", "head_dim")),
+        "wk": ((d, cfg.num_kv_heads, hd), ("embed", "kv_heads", "head_dim")),
+        "wv": ((d, cfg.num_kv_heads, hd), ("embed", "kv_heads", "head_dim")),
+        "wo": ((cfg.num_heads, hd, d), ("heads", "head_dim", "embed")),
     }
     return L.build(gen, specs, dtype)
 
@@ -122,11 +139,43 @@ def attend(q, k, v, *, q_positions, kv_positions, causal: bool = True,
       valid = kpos >= 0 & (causal -> kpos <= qpos)
                         & (window -> kpos > qpos - window)
     Query head h reads KV head h // (H / KV). A row with no valid key is
-    zero. CUDA tensors run the flash kernel, CPU tensors the chunked math.
+    zero. CUDA tensors run the flash kernel, CPU tensors the chunked math;
+    ``DTensor`` q / k / v run them on each rank's shard (module docstring).
     """
     route = _attend_local if q.device.type == "cpu" else _attend_kernel
-    return route(q, k, v, q_positions=q_positions, kv_positions=kv_positions,
-                 causal=causal, window=window, chunk=chunk)
+    mesh = shd.active_mesh()
+    if mesh is None or not isinstance(q, DTensor):
+        return route(q, k, v, q_positions=q_positions,
+                     kv_positions=kv_positions, causal=causal,
+                     window=window, chunk=chunk)
+    sizes = shd.mesh_shape(mesh)
+    b, sq = q.shape[0], q.shape[1]
+    tp = sizes.get("model", 1)
+    daxes = shd.data_axes(mesh)
+    dp = 1
+    for a in daxes:
+        dp *= sizes[a]
+    row = Shard(0) if b % dp == 0 and b >= dp else Replicate()
+    split = tp > 1 and sq > 1 and sq % tp == 0
+    rows = tuple(row if a != "model" else Replicate() for a in sizes)
+    qs = tuple(row if a != "model" else Shard(1) if split else Replicate()
+               for a in sizes)
+    kv_grad = tuple(row if a != "model" else Partial() if split
+                    else Replicate() for a in sizes)
+    if split:
+        n = sq // tp
+        r = mesh.get_local_rank("model")
+        q_positions = q_positions[r * n:(r + 1) * n]
+        chunk = max(min(chunk, n), 128)
+
+    def body(q, k, v):
+        return route(q, k, v, q_positions=q_positions,
+                     kv_positions=kv_positions, causal=causal,
+                     window=window, chunk=chunk)
+    return local_map(body, out_placements=(qs,),
+                     in_placements=(qs, rows, rows),
+                     in_grad_placements=(qs, kv_grad, kv_grad),
+                     device_mesh=mesh, redistribute_inputs=True)(q, k, v)
 
 
 def apply_attention(cfg, params, x, *, positions, causal=True, window=0,
@@ -142,6 +191,10 @@ def apply_attention(cfg, params, x, *, positions, causal=True, window=0,
                           cache in place)
       * cross-attention:  kv_input = encoder states (no rope, no cache)
     """
+    # Sequence parallelism (Megatron-SP flavoured): the projections shard
+    # over the query sequence; k / v are gathered over ``model`` for attend.
+    if x.shape[1] > 1 and x.shape[1] % _tp_size() == 0:
+        x = shd.constrain(x, ("batch", "seq_tp", None))
     kv_src = kv_input if kv_input is not None else x
     q = ft_einsum("bsd,dhk->bshk", x, params["wq"])
     k = ft_einsum("bsd,dhk->bshk", kv_src, params["wk"])

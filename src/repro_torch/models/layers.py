@@ -1,9 +1,11 @@
 """Shared LM building blocks: seeded parameters, norms, MLPs, RoPE, embedding.
 
-The port of ``repro.models.layers``. Every ``init_*`` returns a dict of
-tensors drawn from an explicit ``torch.Generator`` (the reference returns
-the params with their logical sharding axes; the port runs on one device
-and has none). Every ``apply_*`` is a plain function of a params mapping.
+The port of ``repro.models.layers``. Every ``init_*`` returns a
+:class:`Tree`: a dict of tensors drawn from an explicit ``torch.Generator``
+whose ``axes`` hold each tensor's logical axis names (the reference's
+second, mirrored tree; ``repro_torch.dist.sharding`` maps them onto a
+mesh). The axes ride beside the tensors, so the draws are the same with or
+without a mesh. Every ``apply_*`` is a plain function of a params mapping.
 Dense contractions route through ``repro_torch.ft.abft_dense.ft_einsum``,
 so the paper's ABFT protection is a config switch, not a code change.
 
@@ -18,7 +20,10 @@ from typing import Mapping, Optional
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
+from repro_torch.dist.sharding import (constrain, contract, fsdp_hint,
+                                      lookup)
 from repro_torch.ft.abft_dense import ft_einsum
 
 
@@ -26,10 +31,34 @@ from repro_torch.ft.abft_dense import ft_einsum
 # Param construction
 # ---------------------------------------------------------------------------
 
+class Tree(dict):
+    """A dict of parameters (or of sub-``Tree``s) with ``axes``: {name:
+    logical axis names} for each tensor entry."""
+
+    def __init__(self, params: Optional[dict] = None,
+                 axes: Optional[dict] = None):
+        super().__init__(params or {})
+        self.axes = dict(axes or {})
+
+    def add(self, name: str, value, axes: Optional[tuple] = None) -> None:
+        self[name] = value
+        if axes is not None:
+            self.axes[name] = tuple(axes)
+
+
+class MetaGenerator:
+    """Stands for a generator on the ``meta`` device (torch has none):
+    parameters drawn from it are shapes only, for placements at any
+    size."""
+    device = torch.device("meta")
+
+
 def param(gen: torch.Generator, shape: tuple, dtype: torch.dtype, *,
           scale: Optional[float] = None) -> torch.Tensor:
     """Normal(0, scale) weight, drawn in f32 on the generator's device and
     cast to ``dtype``; ``scale`` defaults to 1/sqrt(fan_in)."""
+    if gen.device.type == "meta":
+        return torch.empty(shape, dtype=dtype, device="meta")
     if scale is None:
         fan_in = shape[0] if len(shape) >= 2 else shape[-1]
         scale = 1.0 / math.sqrt(max(fan_in, 1))
@@ -38,15 +67,16 @@ def param(gen: torch.Generator, shape: tuple, dtype: torch.dtype, *,
     return w.to(dtype)
 
 
-def build(gen: torch.Generator, specs: dict, dtype: torch.dtype) -> dict:
-    """specs: {name: shape} or {name: (shape, scale)}; drawn in order."""
-    params = {}
+def build(gen: torch.Generator, specs: dict, dtype: torch.dtype) -> Tree:
+    """specs: {name: (shape, axes)} or {name: (shape, axes, scale)}; drawn
+    in order. Each entry's axes are ``fsdp_hint``-promoted when it is
+    large."""
+    params = Tree()
     for name, spec in specs.items():
-        if isinstance(spec[0], tuple):
-            shape, scale = spec
-        else:
-            shape, scale = spec, None
-        params[name] = param(gen, tuple(shape), dtype, scale=scale)
+        shape, axes = tuple(spec[0]), spec[1]
+        scale = spec[2] if len(spec) > 2 else None
+        params.add(name, param(gen, shape, dtype, scale=scale),
+                   fsdp_hint(shape, axes))
     return params
 
 
@@ -54,8 +84,9 @@ def build(gen: torch.Generator, specs: dict, dtype: torch.dtype) -> dict:
 # Norms
 # ---------------------------------------------------------------------------
 
-def init_rmsnorm(d: int, dtype: torch.dtype, device) -> dict:
-    return {"scale": torch.ones((d,), dtype=dtype, device=device)}
+def init_rmsnorm(d: int, dtype: torch.dtype, device) -> Tree:
+    return Tree({"scale": torch.ones((d,), dtype=dtype, device=device)},
+                {"scale": ("embed",)})
 
 
 def rmsnorm(params: Mapping, x: torch.Tensor,
@@ -76,11 +107,11 @@ def mlp_gated(act: str) -> bool:
 
 
 def init_mlp(gen: torch.Generator, d: int, f: int, act: str,
-             dtype: torch.dtype) -> dict:
+             dtype: torch.dtype) -> Tree:
+    specs = {"wi": ((d, f), ("embed", "mlp"))}
     if mlp_gated(act):
-        specs = {"wi": (d, f), "wg": (d, f), "wo": (f, d)}
-    else:
-        specs = {"wi": (d, f), "wo": (f, d)}
+        specs["wg"] = ((d, f), ("embed", "mlp"))
+    specs["wo"] = ((f, d), ("mlp", "embed"))
     return build(gen, specs, dtype)
 
 
@@ -161,16 +192,18 @@ def sinusoidal_positions(seq: int, d: int, offset: int = 0,
 # ---------------------------------------------------------------------------
 
 def init_embed(gen: torch.Generator, vocab: int, d: int, dtype: torch.dtype,
-               tie: bool) -> dict:
+               tie: bool) -> Tree:
     # stddev 1/sqrt(d): with the sqrt(d) input multiplier this gives
     # unit-variance activations AND O(1) tied logits.
-    specs = {"embedding": ((vocab, d), d ** -0.5)}
+    specs = {"embedding": ((vocab, d), ("vocab", "embed"), d ** -0.5)}
     if not tie:
-        specs["unembed"] = (d, vocab)
+        specs["unembed"] = ((d, vocab), ("embed", "vocab"))
     return build(gen, specs, dtype)
 
 
 def embed(params: Mapping, tokens: torch.Tensor) -> torch.Tensor:
+    if isinstance(params["embedding"], DTensor):
+        return lookup(params["embedding"], tokens)
     return params["embedding"][tokens]
 
 
@@ -185,6 +218,10 @@ def logits(params: Mapping, x: torch.Tensor, *, tie: bool) -> torch.Tensor:
     """f32 logits (B, S, V). The operands are upcast, so a bf16 model's
     products are exact in f32 and accumulate in f32, as the reference's
     ``preferred_element_type=float32``; a bf16-output product would round
-    the logits and move greedy ties."""
+    the logits and move greedy ties. On a mesh they stay vocab-sharded."""
     w = params["embedding"].float().t() if tie else params["unembed"].float()
-    return torch.matmul(x.float(), w)
+    if isinstance(w, DTensor):
+        out = contract("bsd,dv->bsv", x.float(), w, ("bs", ["d"], "v"))
+    else:
+        out = torch.matmul(x.float(), w)
+    return constrain(out, ("batch", None, "vocab"))

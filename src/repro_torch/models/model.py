@@ -3,8 +3,12 @@
 The port of ``repro.models.model``. The reference stacks full periods of
 its ``layer_pattern`` and runs them under ``jax.lax.scan``; the port keeps
 one block per layer in an ``nn.ModuleList`` and loops over it, and its
-caches are one dict per layer (``convert`` maps both stackings). One
-device, no mesh: the reference's sharding hints have no counterpart.
+caches are one dict per layer (``convert`` maps both stackings). Every
+parameter carries its logical axes (:meth:`LM.param_axes`, the reference's
+axes tree keyed by state-dict name), and the residual stream is pinned to
+the batch sharding after each mixer and FFN (``sharding.constrain``, a
+no-op without a mesh): ``repro_torch.train`` runs the model on a ``(data,
+model)`` mesh of ranks with its parameters as ``DTensor``s.
 
 Every family of the reference: dense and MoE decoders (``ATTN`` and
 ``ATTN_LOCAL`` blocks, the MoE FFN on every ``moe.interleave``-th layer),
@@ -20,7 +24,8 @@ so f32 frames would carry an f32 residual stream into a bf16 decoder).
 Weights are drawn from a seed (``init``), in f32 on the model's device,
 and cast to ``cfg.param_dtype`` (f32 leaves of the SSD and RG-LRU blocks
 stay f32). They are frozen (serving runs without autograd) until a trainer
-calls ``lm.requires_grad_(True)``. :meth:`LM.loss` is the reference's
+calls ``lm.requires_grad_(True)``. ``LM(cfg, device="meta")`` holds
+shapes only (placements at any size). :meth:`LM.loss` is the reference's
 training loss; with ``cfg.remat`` and grad enabled every block (decoder and
 encoder) runs under ``torch.utils.checkpoint`` (non-reentrant), the
 reference's ``jax.checkpoint`` of its scanned periods taken one layer at a
@@ -36,6 +41,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.api.estimator import resolve_device
 from repro_torch.configs.base import ATTN, ATTN_LOCAL, RGLRU, SSM, ArchConfig
+from repro_torch.dist import sharding as shd
 from repro_torch.ft import abft_dense
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import layers as L
@@ -66,10 +72,12 @@ class Params(nn.Module):
     """A (nested) dict of parameters, indexed like the dict: tensors become
     ``nn.Parameter``s, frozen until ``requires_grad_(True)``, sub-dicts (MoE's
     ``shared`` MLP, the SSD block's ``norm``) ``Params`` of their own, so
-    the state-dict keys are the dotted paths of the reference's tree."""
+    the state-dict keys are the dotted paths of the reference's tree.
+    ``axes`` holds each parameter's logical axes (``layers.Tree.axes``)."""
 
     def __init__(self, params: dict):
         super().__init__()
+        self.axes = dict(getattr(params, "axes", {}))
         for name, v in params.items():
             if isinstance(v, dict):
                 self.add_module(name, Params(v))
@@ -150,7 +158,7 @@ class Block(nn.Module):
                 else ssm_mod.apply_ssm
             out, st = apply(cfg, self.mix, h,
                             cache=cache[key] if cache else None)
-        x = x + out
+        x = shd.constrain(x + out, ("batch", None, None))
 
         if self.cross_attends and encoder_out is not None:
             h = L.rmsnorm(self.norm_x, x, cfg.norm_eps)
@@ -165,7 +173,7 @@ class Block(nn.Module):
                 out, aux = moe_mod.apply_moe(cfg, self.ffn, h)
             else:
                 out = L.apply_mlp(self.ffn, h, cfg.mlp_act)
-            x = x + out
+            x = shd.constrain(x + out, ("batch", None, None))
         return x, (None if st is None else {key: st}), aux
 
 
@@ -181,14 +189,15 @@ class LMCaches(list):
 
 class LM(nn.Module):
     """An LM of any family on one device (``"cuda"`` unless asked for the
-    CPU)."""
+    CPU; ``"meta"`` for shapes only)."""
 
     def __init__(self, cfg: ArchConfig, *, device: Any = "cuda",
                  seed: int = 0):
         super().__init__()
         check_supported(cfg)
         self.cfg = cfg
-        self.device = resolve_device(device)
+        self.device = torch.device("meta") if torch.device(
+            device).type == "meta" else resolve_device(device)
         self.dtype = getattr(torch, cfg.dtype)
         self.init(seed)
 
@@ -198,7 +207,8 @@ class LM(nn.Module):
         """Draw every weight anew from ``seed`` (norm scales are ones)."""
         cfg = self.cfg
         dtype = getattr(torch, cfg.param_dtype)
-        gen = torch.Generator(device=self.device).manual_seed(seed)
+        gen = L.MetaGenerator() if self.device.type == "meta" else \
+            torch.Generator(device=self.device).manual_seed(seed)
         self.embed = Params(L.init_embed(gen, cfg.padded_vocab, cfg.d_model,
                                          dtype, cfg.tie_embeddings))
         self.final_norm = Params(L.init_rmsnorm(cfg.d_model, dtype,
@@ -211,6 +221,14 @@ class LM(nn.Module):
             Block(cfg, ATTN, gen, dtype, moe=_moe_on_layer(cfg, 0))
             for _ in range(cfg.encoder_layers if cfg.encoder_decoder else 0))
         return self
+
+    def param_axes(self) -> dict:
+        """{state-dict name: logical axes} of every parameter (the
+        reference's axes tree; its stacked leaves' leading "layers" axis
+        has no counterpart here)."""
+        return {f"{path}.{name}" if path else name: mod.axes[name]
+                for path, mod in self.named_modules()
+                if isinstance(mod, Params) for name in mod._parameters}
 
     # -- embedding / positions ----------------------------------------------
 
@@ -259,13 +277,14 @@ class LM(nn.Module):
     def _run(self, layer, x, **kw):
         """One block, under ``torch.utils.checkpoint`` when ``cfg.remat``
         and grad are on (the reference's ``jax.checkpoint``). The recompute
-        runs on autograd's thread with the ABFT switch of the forward."""
+        runs on autograd's thread with the ABFT switch and the mesh of the
+        forward."""
         if not (self.cfg.remat and torch.is_grad_enabled()):
             return layer(x, **kw)
-        on = abft_dense.ft_enabled()
+        on, mesh = abft_dense.ft_enabled(), shd.active_mesh()
 
         def block(x, **kw):
-            with abft_dense.enabled_as(on):
+            with abft_dense.enabled_as(on), shd.mesh_as(mesh):
                 return layer(x, **kw)
         return checkpoint(block, x, use_reentrant=False, **kw)
 

@@ -24,15 +24,18 @@ from repro_torch.ft.abft_dense import ft_einsum
 from repro_torch.models import layers as L
 
 
-def init_moe(gen: torch.Generator, cfg, dtype: torch.dtype) -> dict:
+def init_moe(gen: torch.Generator, cfg,
+             dtype: torch.dtype) -> L.Tree:
     """Router (D, E), expert weights ``wi`` / ``wg`` (E, D, F) (``wg`` when
     the activation is gated) and ``wo`` (E, F, D), and the ``shared`` MLP
     when ``cfg.moe.shared_expert``."""
     d, f = cfg.d_model, cfg.d_ff
     e = cfg.moe.num_experts
-    specs = {"router": (d, e), "wi": (e, d, f), "wo": (e, f, d)}
+    specs = {"router": ((d, e), ("embed", "experts")),
+             "wi": ((e, d, f), ("experts", "embed", "expert_mlp")),
+             "wo": ((e, f, d), ("experts", "expert_mlp", "embed"))}
     if L.mlp_gated(cfg.mlp_act):
-        specs["wg"] = (e, d, f)
+        specs["wg"] = ((e, d, f), ("experts", "embed", "expert_mlp"))
     params = L.build(gen, specs, dtype)
     if cfg.moe.shared_expert:
         params["shared"] = L.init_mlp(gen, d, f, cfg.mlp_act, dtype)

@@ -41,15 +41,18 @@ def init_cache(cfg, batch: int, dtype: torch.dtype,
                     device=device))
 
 
-def init_rglru(gen: torch.Generator, cfg, dtype: torch.dtype) -> dict:
+def init_rglru(gen: torch.Generator, cfg,
+               dtype: torch.dtype) -> L.Tree:
     d = cfg.d_model
     w = cfg.rglru_width or d
-    params = L.build(gen, {"in_x": (d, w), "in_gate": (d, w),
-                           "conv_w": (cfg.conv_width, w), "out": (w, d)},
-                     dtype)
+    params = L.build(gen, {"in_x": ((d, w), ("embed", "mlp")),
+                           "in_gate": ((d, w), ("embed", "mlp")),
+                           "conv_w": ((cfg.conv_width, w), ("conv", None)),
+                           "out": ((w, d), ("mlp", "embed"))}, dtype)
     for name in ("lambda_p", "w_a", "b_a", "w_i", "b_i"):
-        params[name] = torch.full((w,), 0.5 if name == "lambda_p" else 0.0,
-                                  dtype=torch.float32, device=gen.device)
+        params.add(name, torch.full((w,), 0.5 if name == "lambda_p" else 0.0,
+                                    dtype=torch.float32, device=gen.device),
+                   ("mlp",))
     return params
 
 

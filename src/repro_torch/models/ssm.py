@@ -46,18 +46,22 @@ def init_cache(cfg, batch: int, dtype: torch.dtype, device=None) -> SSMCache:
                     device=device))
 
 
-def init_ssm(gen: torch.Generator, cfg, dtype: torch.dtype) -> dict:
+def init_ssm(gen: torch.Generator, cfg,
+             dtype: torch.dtype) -> L.Tree:
     d = cfg.d_model
     inner, h, p, n = dims(cfg)
     dev = gen.device
     params = L.build(gen, {
         # z (gate), x, B, C, dt packed in one input projection
-        "in_proj": (d, 2 * inner + 2 * n + h),
-        "conv_w": (cfg.conv_width, inner + 2 * n),
-        "out_proj": (inner, d)}, dtype)
-    params["A_log"] = torch.zeros((h,), dtype=torch.float32, device=dev)
-    params["D"] = torch.ones((h,), dtype=torch.float32, device=dev)
-    params["dt_bias"] = torch.zeros((h,), dtype=torch.float32, device=dev)
+        "in_proj": ((d, 2 * inner + 2 * n + h), ("embed", "mlp")),
+        "conv_w": ((cfg.conv_width, inner + 2 * n), ("conv", None)),
+        "out_proj": ((inner, d), ("mlp", "embed"))}, dtype)
+    params.add("A_log", torch.zeros((h,), dtype=torch.float32, device=dev),
+               (None,))
+    params.add("D", torch.ones((h,), dtype=torch.float32, device=dev),
+               (None,))
+    params.add("dt_bias", torch.zeros((h,), dtype=torch.float32,
+                                      device=dev), (None,))
     params["norm"] = L.init_rmsnorm(inner, dtype, dev)
     return params
 

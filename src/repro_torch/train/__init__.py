@@ -1,4 +1,5 @@
-"""LM training on one device: the train config, AdamW, the train step."""
+"""LM training on one device or a mesh of ranks: the train config, AdamW,
+the train step."""
 from repro_torch.train.optimizer import (TrainConfig, adamw_update,
                                          init_opt_state, lr_at)
 from repro_torch.train.steps import build_train_step

@@ -10,6 +10,11 @@ stay on the device: a step reads nothing back to the host. Where the
 reference returns new arrays (donated to the jit), the port updates the
 parameters, ``m`` and ``v`` in place under ``torch.no_grad()``: at full
 width a second copy of each would not fit beside the first.
+
+On a mesh the parameters are ``DTensor``s: ``m`` and ``v`` take their
+placements, every update is elementwise on the local shards, and the clip's
+global norm sums the squares of the whole tensors (each shard's partial
+sum reduced over the ranks that split it), never of one rank's shards.
 """
 from __future__ import annotations
 
@@ -18,6 +23,7 @@ import math
 from typing import Mapping
 
 import torch
+from torch.distributed.tensor import DTensor
 
 
 @dataclasses.dataclass(frozen=True)
@@ -63,22 +69,26 @@ def lr_at(cfg: TrainConfig, step) -> torch.Tensor:
 
 def init_opt_state(params: Mapping[str, torch.Tensor],
                    cfg: TrainConfig) -> dict:
-    """Zero moments in ``opt_state_dtype`` beside each parameter, and the
-    int32 step counter on the parameters' device."""
+    """Zero moments in ``opt_state_dtype`` beside each parameter (with its
+    placements, on a mesh), and the int32 step counter on the parameters'
+    device."""
     dt = getattr(torch, cfg.opt_state_dtype)
     dev = next(iter(params.values())).device
-    return {"m": {n: torch.zeros(p.shape, dtype=dt, device=p.device)
+    return {"m": {n: torch.zeros_like(p, dtype=dt)
                   for n, p in params.items()},
-            "v": {n: torch.zeros(p.shape, dtype=dt, device=p.device)
+            "v": {n: torch.zeros_like(p, dtype=dt)
                   for n, p in params.items()},
             "step": torch.zeros((), dtype=torch.int32, device=dev)}
 
 
 def global_norm(tensors) -> torch.Tensor:
-    """sqrt of the sum of every tensor's squares, in f32."""
+    """sqrt of the sum of every tensor's squares, in f32 (a ``DTensor``'s
+    over the whole tensor)."""
     total = None
     for t in tensors:
         sq = torch.sum(torch.square(t.to(torch.float32)))
+        if isinstance(sq, DTensor):
+            sq = sq.full_tensor()
         total = sq if total is None else total + sq
     return torch.sqrt(total)
 
@@ -89,7 +99,9 @@ def adamw_update(params: Mapping[str, torch.Tensor],
                  cfg: TrainConfig) -> dict:
     """One AdamW step, in place: ``params``, ``opt_state["m"]`` and
     ``["v"]`` are overwritten and ``["step"]`` advanced. Returns the
-    metrics {"lr", "grad_norm"} as device tensors."""
+    metrics {"lr", "grad_norm"} as device tensors. On a mesh it runs
+    inside the step's ``sharding.mesh_as`` (plain scalars meet the
+    ``DTensor``s as replicated ones)."""
     step = opt_state["step"] + 1
     lr = lr_at(cfg, step)
     gnorm = global_norm(grads[n] for n in params)
