@@ -115,11 +115,12 @@
 //     Skv keys (its lanes sum v), as the prefill kernel does.
 //     kernels/flash_attention.py's flash_f32_walk_plain states the walk.
 //
-// The prefill kernel also writes, when the caller gives it an lse pointer
-// (bf16 / fp16; the entry point then runs it at every Sq), each row's
+// The prefill and f32 kernels also write, when the caller gives them an
+// lse pointer (the entry point then runs them at every Sq), each row's
 // log-sum-exp m + log(l) in f32, +inf for a row with no valid key: the
-// input of the backward kernels of fk_attention_bwd.cu. A null pointer
-// leaves the launch and the output bits as they were.
+// input of the backward kernels of fk_attention_bwd.cu (bf16 / fp16) and
+// fk_attention_bwd_f32.cu (f32). A null pointer leaves the launch and the
+// output bits as they were.
 //
 // The entry point picks the kernel from Sq, the dtype and hd, and the
 // decode kernel's rows and splits from the group and the shapes
@@ -374,7 +375,7 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  long long qsh, long long qss, long long ksb, long long ksh,
                  long long kss, long long vsb, long long vsh, long long vss,
                  long long osb, long long osh, long long oss, int causal,
-                 int window, int zero_empty) {
+                 int window, int zero_empty, float* __restrict__ lse) {
   using S = F32Tile<HD>;
   constexpr int RG = S::RG, KG = S::KG, WR = S::WR, RB = S::RB, BK = S::BK;
   constexpr int KPL = S::KPL, CH = S::CH, CPL = S::CPL;
@@ -574,6 +575,11 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const int pi = row[i] % pb;
     if (pi >= nq) continue;
     const bool empty = m[i] == kNeg;
+    // the row's log-sum-exp for the backward kernels
+    // (fk_attention_bwd_f32.cu): +inf for a row with no valid key
+    if (lse && kg == 0)
+      lse[((long long)b * KV * group + h0 + row[i] / pb) * Sq + q0 + pi] =
+          empty ? INFINITY : m[i] + logf(l[i]);
     if (empty && !zero_empty) {
 #pragma unroll
       for (int h = 0; h < CPL; ++h)
@@ -1301,7 +1307,7 @@ int launch_f32(const Args& a) {
       static_cast<const float*>(a.v), a.qpos, a.kpos,
       static_cast<float*>(a.out), a.KV, group, hb, a.Sq, a.Skv, st[0], st[1],
       st[2], st[3], st[4], st[5], st[6], st[7], st[8], st[9], st[10], st[11],
-      a.causal, a.window, a.zero_empty);
+      a.causal, a.window, a.zero_empty, a.lse);
   return int(cudaGetLastError());
 }
 
@@ -1382,7 +1388,8 @@ int by_hd(int hd, const Args& a) {
 }
 
 int f32_by_hd(int hd, const Args& a) {
-  if (a.Sq <= kDecodeMaxSq) {
+  // with an lse output every Sq runs flash_f32_kernel (as by_hd)
+  if (a.Sq <= kDecodeMaxSq && !a.lse) {
     switch (hd) {
       case 64: return launch_decode<float, 64>(a);
       case 128: return launch_decode<float, 128>(a);
@@ -1418,10 +1425,11 @@ extern "C" {
 // serialised on one stream; else flash_prefill_kernel for a 2-byte dtype
 // and flash_f32_kernel for f32 (partials and tickets unused, may be null).
 // zero_empty != 0 writes zero for a row with no valid key (else the mean of
-// v, as the reference kernel). lse, when not null (bf16 / fp16 only): each
-// row's log-sum-exp m + log(l) in f32, (B, H, Sq) contiguous, +inf for a
-// row with no valid key; every Sq then runs the prefill kernel. A null lse
-// leaves the launch and its output bits as they were.
+// v, as the reference kernel). lse, when not null: each row's log-sum-exp
+// m + log(l) in f32, (B, H, Sq) contiguous, +inf for a row with no valid
+// key; every Sq then runs the prefill kernel (bf16 / fp16) or
+// flash_f32_kernel (f32). A null lse leaves the launch and its output bits
+// as they were.
 int fk_flash_attention(const void* q, const void* k, const void* v,
                        const int* qpos, const int* kpos, void* out, int B,
                        int H, int KV, int Sq, int Skv, int hd, long long qsb,
@@ -1431,8 +1439,7 @@ int fk_flash_attention(const void* q, const void* k, const void* v,
                        long long osh, long long oss, int causal, int window,
                        int zero_empty, int dtype, void* partials,
                        void* tickets, float* lse, void* stream) {
-  if (bad_shape(B, H, KV, Sq, Skv, hd, dtype) || window < 0 ||
-      (lse && dtype == 0))
+  if (bad_shape(B, H, KV, Sq, Skv, hd, dtype) || window < 0)
     return int(cudaErrorInvalidValue);
   const long long st[12] = {qsb, qsh, qss, ksb, ksh, kss,
                             vsb, vsh, vss, osb, osh, oss};

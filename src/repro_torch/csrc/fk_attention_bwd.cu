@@ -80,10 +80,13 @@
 // in the dK / dV kernel (S^T, dP^T, dV, dK) and 6 HD in the dQ kernel (S,
 // dP, dQ), at 989 TFLOP/s; the gradient itself needs 10 HD (S and dP
 // once); the prep kernel by its bytes (O and dO read, D written; 3.35
-// TB/s). hd 64 and 128 are built. At hd 256 the dK + dV accumulators of 64
-// keys would be 256 f32 a thread: a warpgroup would own half of hd (two
-// passes over the walk, or four consumer warpgroups of 32 columns' dK /
-// dV each).
+// TB/s). hd 64, 128 and 256 are built. At hd 256 (KvShape, QShape) a dK /
+// dV block is 64 keys whose dK and dV the two consumer warpgroups split by
+// hd half (64 + 64 f32 a thread): each computes the block's S^T and dP^T
+// over all of hd itself, so the dK / dV kernel does 12 hd FLOPs a pair
+// there (S^T and dP^T twice), in a two-stage ring; the dQ kernel walks
+// steps of 32 keys (m64n32k16 for S and dP, m64n256k16 for dQ += dS K) in
+// a two-stage ring. Both keep the rules above: no atomics, the same walk.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler
 // -fPIC (no --use_fast_math).
@@ -112,6 +115,32 @@ constexpr int kStages = 3;
 constexpr int kMaxRows = 65535;     // a grid dimension
 
 enum TileClass : int { kDead = 0, kLive = 1, kFull = 2 };
+
+// The dK / dV kernel's shape by head dim: keys a block, ring stages, and
+// the dK / dV columns a consumer warpgroup owns. Up to hd 128 warpgroup w
+// owns keys 64 w .. 64 w + 63 of a 128-key block, all of hd. At hd 256 the
+// two warpgroups share one block of 64 keys and own one half of hd each
+// (64 + 64 f32 of dK and dV a thread, as at hd 128); each computes the
+// block's S^T and dP^T over the whole hd itself, so those two products run
+// twice (no shared-memory exchange, no extra barrier). K and V of 64 keys
+// (64 KB) and two stages of Q and dO (64 KB each) fit the 227 KB.
+template <int HD>
+struct KvShape {
+  static constexpr bool split = HD > 128;
+  static constexpr int block = split ? kRows : kBlock;
+  static constexpr int stages = split ? 2 : kStages;
+  static constexpr int cols = split ? HD / 2 : HD;
+};
+
+// The dQ kernel's: keys a walk step and ring stages. At hd 256 a step is
+// 32 keys, as the forward's prefill kernel walks them: dQ (128 f32 a
+// thread), S and dP (16 each) fit the consumers' registers, and Q and dO of
+// 128 rows (128 KB) leave room for two stages of K and V.
+template <int HD>
+struct QShape {
+  static constexpr int tile = HD > 128 ? 32 : kTile;
+  static constexpr int stages = HD > 128 ? 2 : kStages;
+};
 
 // element strides (batch, head, sequence) of the outputs: dk and dv, or dq
 struct OutStrides {
@@ -206,9 +235,10 @@ __device__ __forceinline__ int pair_class(int qmin, int qmax, int kmin,
   return kLive;
 }
 
-// S (64 x 64) = A B^T over HD, both K-major 128-byte-swizzled tiles: A's
-// panels a_panel bytes apart, B's b_panel (wgmma m64n64k16, HD / 16 steps)
-template <typename T, int HD>
+// S (64 x N) = A B^T over HD, both K-major 128-byte-swizzled tiles: A's
+// panels a_panel bytes apart, B's b_panel (wgmma m64nNk16, N 32 or 64, HD
+// / 16 steps)
+template <typename T, int HD, int N = 64>
 __device__ __forceinline__ void wgmma_abt(float* s, const unsigned char* a,
                                           int a_panel,
                                           const unsigned char* b,
@@ -216,25 +246,28 @@ __device__ __forceinline__ void wgmma_abt(float* s, const unsigned char* a,
 #pragma unroll
   for (int kk = 0; kk < HD / 16; ++kk) {
     const int off = (kk & 3) << 5;
-    wgmma_ss_n64(s, sw128_desc(a + (kk >> 2) * a_panel + off, 16),
-                 sw128_desc(b + (kk >> 2) * b_panel + off, 16), kk > 0, T());
+    const uint64_t da = sw128_desc(a + (kk >> 2) * a_panel + off, 16);
+    const uint64_t db = sw128_desc(b + (kk >> 2) * b_panel + off, 16);
+    if constexpr (N == 32) wgmma_ss_n32(s, da, db, kk > 0, T());
+    else wgmma_ss_n64(s, da, db, kk > 0, T());
   }
 }
 
-// D (64 x HD) += A B over 64 rows of B: A from registers (four k16 steps
-// of the mma.sync A fragment, pairs packed in T), B a 64-row tile with HD
-// contiguous (MN-major, imm-trans-b), its 64-value panels kTile * 128
-// bytes apart
-template <typename T, int HD>
+// D (64 x N) += A B over KT rows of B: A from registers (KT / 16 k16 steps
+// of the mma.sync A fragment, pairs packed in T), B a KT-row tile with its
+// N columns contiguous (MN-major, imm-trans-b), its 64-value panels KT *
+// 128 bytes apart
+template <typename T, int N, int KT>
 __device__ __forceinline__ void wgmma_ab(float* d, const uint32_t (*a)[2],
                                          const unsigned char* b) {
 #pragma unroll
-  for (int j = 0; j < kTile / 16; ++j) {
+  for (int j = 0; j < KT / 16; ++j) {
     const uint32_t f[4] = {a[2 * j][0], a[2 * j][1], a[2 * j + 1][0],
                            a[2 * j + 1][1]};
-    const uint64_t db = sw128_desc(b + j * 16 * 128, kTile * 128);
-    if constexpr (HD == 64) wgmma_rs_n64(d, f, db, T());
-    else wgmma_rs_n128(d, f, db, T());
+    const uint64_t db = sw128_desc(b + j * 16 * 128, KT * 128);
+    if constexpr (N == 64) wgmma_rs_n64(d, f, db, T());
+    else if constexpr (N == 128) wgmma_rs_n128(d, f, db, T());
+    else wgmma_rs_n256(d, f, db, T());
   }
 }
 
@@ -292,19 +325,21 @@ flash_bwd_prep_kernel(const T* __restrict__ o, const T* __restrict__ dout,
 
 template <int HD>
 struct KvSmem {
+  static constexpr int NS = KvShape<HD>::stages;
   static constexpr int panels = HD / 64;
-  static constexpr int kv_bytes = kBlock * HD * 2;   // K or V of the block
+  // K or V of the block
+  static constexpr int kv_bytes = KvShape<HD>::block * HD * 2;
   static constexpr int tile_bytes = kTile * HD * 2;  // Q or dO of a step
   static constexpr int stage_bytes = 2 * tile_bytes;
   static constexpr int k = 0;
   static constexpr int v = kv_bytes;
   static constexpr int ring = 2 * kv_bytes;
   // each stage's rows: lse, D (f32) and positions (int), kTile each
-  static constexpr int rows = ring + kStages * stage_bytes;
+  static constexpr int rows = ring + NS * stage_bytes;
   // each stage's (query tile or -1, head of the group, qmin, qmax)
-  static constexpr int info = rows + kStages * 3 * kTile * 4;
-  static constexpr int bars = info + kStages * 4 * 4;  // full, empty, kv
-  static constexpr size_t bytes = size_t(bars) + (2 * kStages + 1) * 8 + 1024;
+  static constexpr int info = rows + NS * 3 * kTile * 4;
+  static constexpr int bars = info + NS * 4 * 4;  // full, empty, kv
+  static constexpr size_t bytes = size_t(bars) + (2 * NS + 1) * 8 + 1024;
 };
 
 template <typename T, int HD>
@@ -320,24 +355,26 @@ flash_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap qmap,
                       T* __restrict__ dv, int H, int KV, int Sq, int Skv,
                       const OutStrides os, int causal, int window) {
   using W = KvSmem<HD>;
+  using P = KvShape<HD>;
+  constexpr int KB = P::block, NS = P::stages, AW = P::cols;
   extern __shared__ unsigned char smw_raw[];
   unsigned char* smw = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smw_raw) + 1023) & ~uintptr_t(1023));
   float* ls = reinterpret_cast<float*>(smw + W::rows);     // [stage][kTile]
-  float* ds = ls + kStages * kTile;
-  int* qs = reinterpret_cast<int*>(ds + kStages * kTile);
+  float* ds = ls + NS * kTile;
+  int* qs = reinterpret_cast<int*>(ds + NS * kTile);
   int* info = reinterpret_cast<int*>(smw + W::info);       // [stage][4]
   uint64_t* full = reinterpret_cast<uint64_t*>(smw + W::bars);
-  uint64_t* empty = full + kStages;
-  uint64_t* kvbar = empty + kStages;
+  uint64_t* empty = full + NS;
+  uint64_t* kvbar = empty + NS;
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int b = blockIdx.x / KV, kvh = blockIdx.x - (blockIdx.x / KV) * KV;
   const int group = H / KV;
-  const int k0 = blockIdx.y * kBlock;
+  const int k0 = blockIdx.y * KB;
 
   if (tid == 0) {
-    for (int s = 0; s < kStages; ++s) {
+    for (int s = 0; s < NS; ++s) {
       mbar_init(full + s, 32);          // the producer's lanes
       mbar_init(empty + s, kConsumers);
     }
@@ -357,14 +394,14 @@ flash_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap qmap,
       mbar_expect_tx(kvbar, 2 * W::kv_bytes);
 #pragma unroll
       for (int p = 0; p < W::panels; ++p) {
-        tma_load(smw + W::k + p * kBlock * 128, &kmap, kvbar, p * 64, k0, kvh,
+        tma_load(smw + W::k + p * KB * 128, &kmap, kvbar, p * 64, k0, kvh,
                  b);
-        tma_load(smw + W::v + p * kBlock * 128, &vmap, kvbar, p * 64, k0, kvh,
+        tma_load(smw + W::v + p * KB * 128, &vmap, kvbar, p * 64, k0, kvh,
                  b);
       }
     }
     int kmin, kmax, kcnt;
-    key_bounds(kpos, k0, kBlock, Skv, kmin, kmax, kcnt);
+    key_bounds(kpos, k0, KB, Skv, kmin, kmax, kcnt);
     const int nqt = (Sq + kTile - 1) / kTile;
     // the first query tile at or after qt that is live for the block
     int qmin = 0, qmax = 0;
@@ -372,7 +409,7 @@ flash_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap qmap,
       for (; qt < nqt; ++qt) {
         query_bounds(qpos, qt * kTile, min(kTile, Sq - qt * kTile), qmin,
                      qmax);
-        if (pair_class(qmin, qmax, kmin, kmax, kcnt, kBlock, causal,
+        if (pair_class(qmin, qmax, kmin, kmax, kcnt, KB, causal,
                        window) != kDead)
           break;
       }
@@ -380,8 +417,8 @@ flash_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap qmap,
     };
     int qt = next_live(0), j = 0;
     for (int it = 0;; ++it) {
-      const int st = it % kStages;
-      mbar_wait(empty + st, ((it / kStages) & 1) ^ 1);
+      const int st = it % NS;
+      mbar_wait(empty + st, ((it / NS) & 1) ^ 1);
       const bool more = qt < nqt;
       const int h = kvh * group + j;
       if (more) {
@@ -423,10 +460,12 @@ flash_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap qmap,
   asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs)
                : "memory");
 
-  // consumers: warpgroup wg owns keys kw .. kw + 63
+  // consumers: warpgroup wg owns keys kw .. kw + 63, dK / dV columns cw ..
+  // cw + AW - 1
   const int wg = warp >> 2, wi = warp & 3;
   const int g = lane >> 2, tg = lane & 3;
-  const int kw = k0 + kRows * wg;
+  const int kw = k0 + (P::split ? 0 : kRows * wg);
+  const int cw = P::split ? AW * wg : 0;
   int kmin, kmax, kcnt;
   key_bounds(kpos, kw, kRows, Skv, kmin, kmax, kcnt);
   int kp[2];
@@ -435,16 +474,17 @@ flash_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap qmap,
     const int key = kw + 16 * wi + g + 8 * r;
     kp[r] = key < Skv ? __ldg(kpos + key) : -1;
   }
-  float dka[HD / 2], dva[HD / 2];
-  zero<HD / 2>(dka);
-  zero<HD / 2>(dva);
-  const unsigned char* Kw = smw + W::k + kRows * wg * 128;
-  const unsigned char* Vw = smw + W::v + kRows * wg * 128;
+  float dka[AW / 2], dva[AW / 2];
+  zero<AW / 2>(dka);
+  zero<AW / 2>(dva);
+  const int kr = P::split ? 0 : kRows * wg;        // the keys' first row
+  const unsigned char* Kw = smw + W::k + kr * 128;
+  const unsigned char* Vw = smw + W::v + kr * 128;
   mbar_wait(kvbar, 0);
 
   for (int it = 0;; ++it) {
-    const int st = it % kStages;
-    mbar_wait(full + st, (it / kStages) & 1);
+    const int st = it % NS;
+    mbar_wait(full + st, (it / NS) & 1);
     const volatile int* in = info + 4 * st;
     if (in[0] < 0) break;
     const int cls = pair_class(in[2], in[3], kmin, kmax, kcnt, kRows, causal,
@@ -455,8 +495,8 @@ flash_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap qmap,
       // S^T = K Q^T and dP^T = V dO^T: 64 keys x 64 queries
       float sa[32], pa[32];
       wg_fence();
-      wgmma_abt<T, HD>(sa, Kw, kBlock * 128, Qt, kTile * 128);
-      wgmma_abt<T, HD>(pa, Vw, kBlock * 128, Gt, kTile * 128);
+      wgmma_abt<T, HD>(sa, Kw, KB * 128, Qt, kTile * 128);
+      wgmma_abt<T, HD>(pa, Vw, KB * 128, Gt, kTile * 128);
       wg_commit();
       wg_wait0();
       fence_regs<32>(sa);
@@ -486,39 +526,45 @@ flash_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap qmap,
                                p1 * (pa[nt * 4 + 2 * r + 1] - d2.y));
         }
       }
-      // dV += P^T dO and dK += dS^T Q over the 64 queries
-      fence_regs<HD / 2>(dva);
-      fence_regs<HD / 2>(dka);
+      // dV += P^T dO and dK += dS^T Q over the 64 queries, columns cw ..
+      // cw + AW - 1 (dO's and Q's panels from cw / 64 on)
+      const int pc = (cw / 64) * kTile * 128;
+      fence_regs<AW / 2>(dva);
+      fence_regs<AW / 2>(dka);
       wg_fence();
-      wgmma_ab<T, HD>(dva, pp, Gt);
-      wgmma_ab<T, HD>(dka, sp, Qt);
+      wgmma_ab<T, AW, kTile>(dva, pp, Gt + pc);
+      wgmma_ab<T, AW, kTile>(dka, sp, Qt + pc);
       wg_commit();
       wg_wait0();
-      fence_regs<HD / 2>(dva);
-      fence_regs<HD / 2>(dka);
+      fence_regs<AW / 2>(dva);
+      fence_regs<AW / 2>(dka);
     }
     mbar_arrive(empty + st);
   }
 
-  store_rows<T, HD>(dk + b * os.v[0] + kvh * os.v[1], os.v[2], kw, Skv, dka);
-  store_rows<T, HD>(dv + b * os.v[3] + kvh * os.v[4], os.v[5], kw, Skv, dva);
+  store_rows<T, AW>(dk + b * os.v[0] + kvh * os.v[1] + cw, os.v[2], kw, Skv,
+                    dka);
+  store_rows<T, AW>(dv + b * os.v[3] + kvh * os.v[4] + cw, os.v[5], kw, Skv,
+                    dva);
 }
 
 // --- dQ ----------------------------------------------------------------------
 
 template <int HD>
 struct QSmem {
+  static constexpr int NS = QShape<HD>::stages;
   static constexpr int panels = HD / 64;
   static constexpr int q_bytes = kBlock * HD * 2;    // Q or dO of the block
-  static constexpr int tile_bytes = kTile * HD * 2;  // K or V of a step
+  // K or V of a step
+  static constexpr int tile_bytes = QShape<HD>::tile * HD * 2;
   static constexpr int stage_bytes = 2 * tile_bytes;
   static constexpr int q = 0;
   static constexpr int g = q_bytes;
   static constexpr int ring = 2 * q_bytes;
   // each stage's (KV tile or -1, kmin, kmax, valid keys)
-  static constexpr int info = ring + kStages * stage_bytes;
-  static constexpr int bars = info + kStages * 4 * 4;  // full, empty, q
-  static constexpr size_t bytes = size_t(bars) + (2 * kStages + 1) * 8 + 1024;
+  static constexpr int info = ring + NS * stage_bytes;
+  static constexpr int bars = info + NS * 4 * 4;  // full, empty, q
+  static constexpr size_t bytes = size_t(bars) + (2 * NS + 1) * 8 + 1024;
 };
 
 template <typename T, int HD>
@@ -533,13 +579,14 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap qmap,
                     T* __restrict__ dq, int H, int KV, int Sq, int Skv,
                     const OutStrides os, int causal, int window) {
   using W = QSmem<HD>;
+  constexpr int TK = QShape<HD>::tile, NS = QShape<HD>::stages;
   extern __shared__ unsigned char smw_raw[];
   unsigned char* smw = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smw_raw) + 1023) & ~uintptr_t(1023));
   int* info = reinterpret_cast<int*>(smw + W::info);       // [stage][4]
   uint64_t* full = reinterpret_cast<uint64_t*>(smw + W::bars);
-  uint64_t* empty = full + kStages;
-  uint64_t* qbar = empty + kStages;
+  uint64_t* empty = full + NS;
+  uint64_t* qbar = empty + NS;
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int b = blockIdx.x / H, h = blockIdx.x - (blockIdx.x / H) * H;
@@ -547,10 +594,10 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap qmap,
   // the longest causal walks first
   const int q0 = (gridDim.y - 1 - blockIdx.y) * kBlock;
   const int nq = min(kBlock, Sq - q0);
-  const int ntiles = (Skv + kTile - 1) / kTile;
+  const int ntiles = (Skv + TK - 1) / TK;
 
   if (tid == 0) {
-    for (int s = 0; s < kStages; ++s) {
+    for (int s = 0; s < NS; ++s) {
       mbar_init(full + s, 1);
       mbar_init(empty + s, kConsumers);
     }
@@ -578,8 +625,8 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap qmap,
     // the first KV tile at or after t that is live for the block's rows
     auto next_live = [&](int t) {
       for (; t < ntiles; ++t) {
-        key_bounds(kpos, t * kTile, kTile, Skv, kmin, kmax, kcnt);
-        if (pair_class(qmin, qmax, kmin, kmax, kcnt, kTile, causal,
+        key_bounds(kpos, t * TK, TK, Skv, kmin, kmax, kcnt);
+        if (pair_class(qmin, qmax, kmin, kmax, kcnt, TK, causal,
                        window) != kDead)
           break;
       }
@@ -587,8 +634,8 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap qmap,
     };
     int t = next_live(0);
     for (int it = 0;; ++it) {
-      const int st = it % kStages;
-      mbar_wait(empty + st, ((it / kStages) & 1) ^ 1);
+      const int st = it % NS;
+      mbar_wait(empty + st, ((it / NS) & 1) ^ 1);
       const bool more = t < ntiles;
       if (lane == 0) {
         int* in = info + 4 * st;
@@ -601,10 +648,10 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap qmap,
           mbar_expect_tx(full + st, W::stage_bytes);
 #pragma unroll
           for (int p = 0; p < W::panels; ++p) {
-            tma_load(Ks + p * kTile * 128, &kmap, full + st, p * 64,
-                     t * kTile, kvh, b);
-            tma_load(Ks + W::tile_bytes + p * kTile * 128, &vmap, full + st,
-                     p * 64, t * kTile, kvh, b);
+            tma_load(Ks + p * TK * 128, &kmap, full + st, p * 64,
+                     t * TK, kvh, b);
+            tma_load(Ks + W::tile_bytes + p * TK * 128, &vmap, full + st,
+                     p * 64, t * TK, kvh, b);
           }
         } else {
           mbar_arrive(full + st);
@@ -642,31 +689,31 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap qmap,
   mbar_wait(qbar, 0);
 
   for (int it = 0;; ++it) {
-    const int st = it % kStages;
-    mbar_wait(full + st, (it / kStages) & 1);
+    const int st = it % NS;
+    mbar_wait(full + st, (it / NS) & 1);
     const volatile int* in = info + 4 * st;
     const int t = in[0];
     if (t < 0) break;
     const int cls = nw > 0 ? pair_class(qmin, qmax, in[1], in[2], in[3],
-                                        kTile, causal, window)
+                                        TK, causal, window)
                            : kDead;
     if (cls != kDead) {
       const unsigned char* Kt = smw + W::ring + st * W::stage_bytes;
       const unsigned char* Vt = Kt + W::tile_bytes;
-      // S = Q K^T and dP = dO V^T: 64 rows x 64 keys
-      float sa[32], pa[32];
+      // S = Q K^T and dP = dO V^T: 64 rows x TK keys
+      float sa[TK / 2], pa[TK / 2];
       wg_fence();
-      wgmma_abt<T, HD>(sa, Qw, kBlock * 128, Kt, kTile * 128);
-      wgmma_abt<T, HD>(pa, Gw, kBlock * 128, Vt, kTile * 128);
+      wgmma_abt<T, HD, TK>(sa, Qw, kBlock * 128, Kt, TK * 128);
+      wgmma_abt<T, HD, TK>(pa, Gw, kBlock * 128, Vt, TK * 128);
       wg_commit();
       wg_wait0();
-      fence_regs<32>(sa);
-      fence_regs<32>(pa);
+      fence_regs<TK / 2>(sa);
+      fence_regs<TK / 2>(pa);
       // dS = P o (dP - D), P = exp(S - lse) on the valid pairs
-      const int k0 = t * kTile;
-      uint32_t sp[8][2];
+      const int k0 = t * TK;
+      uint32_t sp[TK / 8][2];
 #pragma unroll
-      for (int nt = 0; nt < 8; ++nt) {
+      for (int nt = 0; nt < TK / 8; ++nt) {
 #pragma unroll
         for (int r = 0; r < 2; ++r) {
           float d[2];
@@ -683,10 +730,10 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap qmap,
           sp[nt][r] = pack2<T>(d[0], d[1]);
         }
       }
-      // dQ += dS K over the 64 keys
+      // dQ += dS K over the TK keys
       fence_regs<HD / 2>(dqa);
       wg_fence();
-      wgmma_ab<T, HD>(dqa, sp, Kt);
+      wgmma_ab<T, HD, TK>(dqa, sp, Kt);
       wg_commit();
       wg_wait0();
       fence_regs<HD / 2>(dqa);
@@ -709,7 +756,21 @@ cudaError_t smem_attr(K kern, size_t bytes) {
 
 bool bad_shape(int B, int H, int KV, int Sq, int Skv, int hd, int dtype) {
   return B < 1 || H < 1 || KV < 1 || H % KV || Sq < 1 || Skv < 1 ||
-         (hd != 64 && hd != 128) || (dtype != 1 && dtype != 2);
+         (hd != 64 && hd != 128 && hd != 256) || (dtype != 1 && dtype != 2);
+}
+
+// F<T, HD>::run(args...) at the dtype code (1 bf16, 2 fp16) and hd (64,
+// 128, 256) that bad_shape let through
+template <template <typename, int> class F, typename... A>
+int by_type_hd(int dtype, int hd, A&&... args) {
+  if (dtype == 1) {
+    if (hd == 64) return F<__nv_bfloat16, 64>::run(args...);
+    if (hd == 128) return F<__nv_bfloat16, 128>::run(args...);
+    return F<__nv_bfloat16, 256>::run(args...);
+  }
+  if (hd == 64) return F<__half, 64>::run(args...);
+  if (hd == 128) return F<__half, 128>::run(args...);
+  return F<__half, 256>::run(args...);
 }
 
 template <typename T>
@@ -758,11 +819,12 @@ bool maps(const Operands& a, int q_rows, int kv_rows, CUtensorMap* m) {
 template <typename T, int HD>
 int dkdv(const Operands& a, void* dk, void* dv, const OutStrides& os) {
   CUtensorMap m[4];
-  if (!maps<T, HD>(a, kTile, kBlock, m)) return int(cudaErrorInvalidValue);
+  constexpr int KB = KvShape<HD>::block;
+  if (!maps<T, HD>(a, kTile, KB, m)) return int(cudaErrorInvalidValue);
   auto kern = flash_bwd_dkdv_kernel<T, HD>;
   cudaError_t e = smem_attr(kern, KvSmem<HD>::bytes);
   if (e != cudaSuccess) return int(e);
-  const int nkt = (a.Skv + kBlock - 1) / kBlock;
+  const int nkt = (a.Skv + KB - 1) / KB;
   if (nkt > 65535 || a.B * a.KV > kMaxRows) return int(cudaErrorInvalidValue);
   kern<<<dim3(a.B * a.KV, nkt), kThreads, KvSmem<HD>::bytes, a.s>>>(
       m[0], m[1], m[2], m[3], a.lse, a.dsum, a.qpos, a.kpos,
@@ -774,7 +836,8 @@ int dkdv(const Operands& a, void* dk, void* dv, const OutStrides& os) {
 template <typename T, int HD>
 int dq_launch(const Operands& a, void* dq, const OutStrides& os) {
   CUtensorMap m[4];
-  if (!maps<T, HD>(a, kBlock, kTile, m)) return int(cudaErrorInvalidValue);
+  if (!maps<T, HD>(a, kBlock, QShape<HD>::tile, m))
+    return int(cudaErrorInvalidValue);
   auto kern = flash_bwd_dq_kernel<T, HD>;
   cudaError_t e = smem_attr(kern, QSmem<HD>::bytes);
   if (e != cudaSuccess) return int(e);
@@ -812,6 +875,24 @@ int resources_of(int which, int* out) {
              : resources(flash_bwd_dq_kernel<T, HD>, QSmem<HD>::bytes, out);
 }
 
+template <typename T, int HD>
+struct DkdvOf {
+  static int run(const Operands& a, void* dk, void* dv,
+                 const OutStrides& os) {
+    return dkdv<T, HD>(a, dk, dv, os);
+  }
+};
+template <typename T, int HD>
+struct DqOf {
+  static int run(const Operands& a, void* dq, const OutStrides& os) {
+    return dq_launch<T, HD>(a, dq, os);
+  }
+};
+template <typename T, int HD>
+struct ResourcesOf {
+  static int run(int which, int* out) { return resources_of<T, HD>(which, out); }
+};
+
 }  // namespace
 
 extern "C" {
@@ -846,11 +927,7 @@ int fk_flash_bwd_dkdv(const void* q, const void* k, const void* v,
                    static_cast<cudaStream_t>(stream)};
   OutStrides os;
   for (int i = 0; i < 6; ++i) os.v[i] = strides[12 + i];
-  if (dtype == 1)
-    return hd == 64 ? dkdv<__nv_bfloat16, 64>(a, dk, dv, os)
-                    : dkdv<__nv_bfloat16, 128>(a, dk, dv, os);
-  return hd == 64 ? dkdv<__half, 64>(a, dk, dv, os)
-                  : dkdv<__half, 128>(a, dk, dv, os);
+  return by_type_hd<DkdvOf>(dtype, hd, a, dk, dv, os);
 }
 
 // dQ (B, H, Sq, hd), the same operands; strides: 15 element strides,
@@ -868,25 +945,17 @@ int fk_flash_bwd_dq(const void* q, const void* k, const void* v,
   OutStrides os;
   for (int i = 0; i < 3; ++i) os.v[i] = strides[12 + i];
   os.v[3] = os.v[4] = os.v[5] = 0;
-  if (dtype == 1)
-    return hd == 64 ? dq_launch<__nv_bfloat16, 64>(a, dq, os)
-                    : dq_launch<__nv_bfloat16, 128>(a, dq, os);
-  return hd == 64 ? dq_launch<__half, 64>(a, dq, os)
-                  : dq_launch<__half, 128>(a, dq, os);
+  return by_type_hd<DqOf>(dtype, hd, a, dq, os);
 }
 
 // which 0: flash_bwd_dkdv_kernel, 1: flash_bwd_dq_kernel, at dtype (1 bf16,
-// 2 fp16) and hd (64, 128): out[0..5] = resident blocks an SM, registers and
+// 2 fp16) and hd (64, 128, 256): out[0..5] = resident blocks an SM, registers and
 // local (spill) bytes a thread, dynamic shared bytes, the producer's and
 // the consumers' registers a thread after setmaxnreg.
 int fk_flash_bwd_resources(int which, int dtype, int hd, int* out) {
   if ((which != 0 && which != 1) || bad_shape(1, 1, 1, 1, 1, hd, dtype))
     return int(cudaErrorInvalidValue);
-  if (dtype == 1)
-    return hd == 64 ? resources_of<__nv_bfloat16, 64>(which, out)
-                    : resources_of<__nv_bfloat16, 128>(which, out);
-  return hd == 64 ? resources_of<__half, 64>(which, out)
-                  : resources_of<__half, 128>(which, out);
+  return by_type_hd<ResourcesOf>(dtype, hd, which, out);
 }
 
 const char* fk_error_string(int code) {

@@ -28,9 +28,12 @@ gather of two replicas, the slab sums and the verdict; ``fk_dmr_workspace``,
 its scratch sizes). ``fk_attention.cu`` holds
 the LM stack's flash attention (``fk_flash_attention``, f32, bf16 or fp16:
 the prefill, decode and f32 kernels, and ``fk_flash_workspace``, the decode
-kernel's workspace sizes); ``fk_attention_bwd.cu`` its gradient
-(``fk_flash_bwd_prep``, ``fk_flash_bwd_dkdv``, ``fk_flash_bwd_dq`` on
-``wgmma`` + TMA, and ``fk_flash_bwd_resources``, their occupancy).
+kernel's workspace sizes); ``fk_attention_bwd.cu`` its gradient at bf16 /
+fp16 (``fk_flash_bwd_prep``, ``fk_flash_bwd_dkdv``, ``fk_flash_bwd_dq`` on
+``wgmma`` + TMA, and ``fk_flash_bwd_resources``, their occupancy);
+``fk_attention_bwd_f32.cu`` the f32 gradient on the CUDA cores
+(``fk_flash_bwd_f32_prep``, ``fk_flash_bwd_f32_dkdv``,
+``fk_flash_bwd_f32_dq``, ``fk_flash_bwd_f32_resources``).
 ``fk_abft_gemm.cu`` holds the ABFT GEMM at
 f32, bf16 and fp16: its encodings pre-pass (``fk_abft_encode``) and the
 ``wgmma`` GEMM (``fk_abft_gemm``; at f32 on a three-way bf16 split of the
@@ -174,10 +177,20 @@ ATTENTION_BWD_SIGNATURES: dict[str, tuple] = {
     "fk_flash_bwd_dq": (_P,) * 9 + (_I,) * 6 + (_P, _I, _I, _I, _P),
     "fk_flash_bwd_resources": (_I, _I, _I, _P),
 }
+# its f32 twin (fk_attention_bwd_f32.cu): the same arguments without the
+# dtype. fk_flash_bwd_f32_resources: kernel (0 dK / dV, 1 dQ), hd, 4 ints
+# out.
+ATTENTION_BWD_F32_SIGNATURES: dict[str, tuple] = {
+    "fk_flash_bwd_f32_prep": (_P, _P, _P, _I, _I, _I, _I, _P, _P),
+    "fk_flash_bwd_f32_dkdv": (_P,) * 10 + (_I,) * 6 + (_P, _I, _I, _P),
+    "fk_flash_bwd_f32_dq": (_P,) * 9 + (_I,) * 6 + (_P, _I, _I, _P),
+    "fk_flash_bwd_f32_resources": (_I, _I, _P),
+}
 SOURCES: dict[str, dict[str, tuple]] = {
     "fk_kernels": SIGNATURES,
     "fk_attention": ATTENTION_SIGNATURES,
     "fk_attention_bwd": ATTENTION_BWD_SIGNATURES,
+    "fk_attention_bwd_f32": ATTENTION_BWD_F32_SIGNATURES,
     "fk_abft_gemm": ABFT_GEMM_SIGNATURES,
     "fk_update": UPDATE_SIGNATURES,
 }

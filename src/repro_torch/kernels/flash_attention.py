@@ -57,25 +57,31 @@ The gradient. The reference trains through XLA's autodiff of the plain
 attention; its Pallas kernel has no backward. The port's kernel writes its
 result through ctypes, outside autograd, so :class:`FlashAttentionFn`
 carries it: with grad mode on and q, k or v requiring grad,
-:func:`flash_attention` runs the prefill kernel with a row log-sum-exp
-output (``lse``, every Sq, bf16 / fp16) and its backward
-:func:`flash_attention_backward` launches the three kernels of
-``csrc/fk_attention_bwd.cu``: ``flash_bwd_prep_kernel`` (D = rowsum(dO o
-O), :func:`flash_bwd_prep`), ``flash_bwd_dkdv_kernel``
+:func:`flash_attention` runs the prefill kernel (bf16 / fp16) or the f32
+kernel with a row log-sum-exp output (``lse``, every Sq) and its backward
+:func:`flash_attention_backward` launches three kernels. At bf16 / fp16
+those of ``csrc/fk_attention_bwd.cu``: ``flash_bwd_prep_kernel`` (D =
+rowsum(dO o O), :func:`flash_bwd_prep`), ``flash_bwd_dkdv_kernel``
 (:func:`flash_bwd_dkdv`) and ``flash_bwd_dq_kernel`` (:func:`flash_bwd_dq`),
-each wrapper counting its launches in ``.launches``. The last two are
-Hopper's shape: two consumer warpgroups on ``wgmma`` fed through a TMA
-ring by a producer warp, blocks of :data:`BWD_BLOCK` keys (dK / dV) or
-query rows (dQ), :data:`BWD_ROWS` a warpgroup, walking steps of
-:data:`BWD_TILE` query rows (dK / dV) or keys (dQ) by the tile rule of
-:func:`live_tiles`; no atomics, so two launches give the same bits. Under ``no_grad`` serving
-keeps its launch: no lse, the same bits. The backward takes ``attend``'s
-contract, ``zero_empty_rows=True`` (a row with no valid key is a zero
-output: zero dq, nothing to dk or dv), head dims up to 128 and bf16 / fp16
-inputs; anything else with grad on the card raises
-:class:`FlashGradUnsupported`. :func:`flash_attention_backward_plain` is its
-plain version in f32 (the tests' and ``chip_smoke.py``'s; on the CPU the
-function's launches run the plain versions).
+each wrapper counting its launches in ``.launches`` (the hd-256
+instantiations also in ``.launches_hd256``). The last two are Hopper's
+shape: two consumer warpgroups on ``wgmma`` fed through a TMA ring by a
+producer warp, blocks of :data:`BWD_BLOCK` keys (dK / dV; 64 at hd 256,
+where the warpgroups split hd) or query rows (dQ), :data:`BWD_ROWS` a
+warpgroup, walking steps of :data:`BWD_TILE` query rows (dK / dV) or keys
+(dQ; 32 at hd 256) by the tile rule of :func:`live_tiles`; no atomics, so
+two launches give the same bits. At f32 those of
+``csrc/fk_attention_bwd_f32.cu`` on the CUDA cores
+(:func:`flash_bwd_f32_prep`, :func:`flash_bwd_f32_dkdv`,
+:func:`flash_bwd_f32_dq`, the f32 forward's tiles). Under ``no_grad``
+serving keeps its launch: no lse, the same bits. The backward takes every
+dtype and head dim the forward takes (up to :data:`GRAD_MAX_HEAD_DIM`)
+under ``attend``'s contract, ``zero_empty_rows=True`` (a row with no valid
+key is a zero output: zero dq, nothing to dk or dv); with grad on the card
+``zero_empty_rows=False`` raises :class:`FlashGradUnsupported`.
+:func:`flash_attention_backward_plain` is its plain version in f32 (the
+tests' and ``chip_smoke.py``'s; on the CPU the function's launches run the
+plain versions).
 """
 from __future__ import annotations
 
@@ -151,22 +157,24 @@ def flash_attention_backward_plain(q, k, v, o, do, lse, q_positions,
     ``zero_empty_rows`` its output was the mean of v, which adds dO / Skv
     to every key's dv. ``round_to`` rounds P and dS to that dtype before
     their products, where the kernels do (the rounding floor of the
-    kernels' arithmetic)."""
+    kernels' arithmetic). f64 inputs are computed in f64 (the f32
+    kernels' reference)."""
     b, h, sq, hd = q.shape
     kvh, skv = k.shape[1], k.shape[2]
     g = h // kvh
-    qf, dof, of = q.float(), do.float(), o.float()
-    kk = k.float().repeat_interleave(g, dim=1)
-    vv = v.float().repeat_interleave(g, dim=1)
+    ct = torch.float64 if q.dtype == torch.float64 else torch.float32
+    qf, dof, of = q.to(ct), do.to(ct), o.to(ct)
+    kk = k.to(ct).repeat_interleave(g, dim=1)
+    vv = v.to(ct).repeat_interleave(g, dim=1)
     s = torch.matmul(qf, kk.transpose(-1, -2))
     mask = position_mask(q_positions, kv_positions, causal, window)
-    p = torch.where(mask, torch.exp(s - lse.float()[..., None]),
-                    torch.zeros((), device=s.device))
+    p = torch.where(mask, torch.exp(s - lse.to(ct)[..., None]),
+                    torch.zeros((), dtype=ct, device=s.device))
     dp = torch.matmul(dof, vv.transpose(-1, -2))
     dsum = (dof * of).sum(-1, keepdim=True)
     ds = p * (dp - dsum)
     if round_to is not None:
-        p, ds = p.to(round_to).float(), ds.to(round_to).float()
+        p, ds = p.to(round_to).to(ct), ds.to(round_to).to(ct)
     dq = torch.matmul(ds, kk)
     dk = torch.matmul(ds.transpose(-1, -2), qf)
     dv = torch.matmul(p.transpose(-1, -2), dof)
@@ -391,12 +399,12 @@ def _strides(t: torch.Tensor, what: str) -> list[int]:
 
 class FlashGradUnsupported(NotImplementedError):
     """A gradient of :func:`flash_attention` on the card that the backward
-    kernels do not take: f32 inputs, a head dim above
-    :data:`GRAD_MAX_HEAD_DIM`, or ``zero_empty_rows=False``."""
+    kernels do not take: ``zero_empty_rows=False`` (no LM path asks for
+    it)."""
 
 
-# the widest head dim the backward kernels are built for (64 and 128)
-GRAD_MAX_HEAD_DIM = 128
+# the widest head dim the backward kernels are built for (64, 128, 256)
+GRAD_MAX_HEAD_DIM = 256
 # the backward kernels' tiles (csrc/fk_attention_bwd.cu: kBlock, kRows,
 # kTile): a dK / dV block's keys and a dQ block's query rows; a consumer
 # warpgroup's share of them; a walk step's query rows (dK / dV) or keys
@@ -404,6 +412,14 @@ GRAD_MAX_HEAD_DIM = 128
 # (dK / dV) or (BWD_BLOCK, BWD_TILE) (dQ); a warpgroup skips or unmasks it
 # by live_tiles at (BWD_TILE, BWD_ROWS) or (BWD_ROWS, BWD_TILE)
 BWD_BLOCK, BWD_ROWS, BWD_TILE = 128, 64, 64
+# at hd 256 (KvShape, QShape): a dK / dV block is BWD_ROWS keys whose dK and
+# dV columns the two warpgroups split in halves of BWD_HALF_HD, and a dQ
+# walk step is BWD_TILE_HD256 keys
+BWD_HALF_HD, BWD_TILE_HD256 = 128, 32
+# the f32 backward's tiles by head dim (csrc/fk_attention_bwd_f32.cu: Tile):
+# (rows a block: keys for dK / dV, query rows for dQ; a walk step's query
+# rows or keys)
+BWD_F32_TILES = {64: (64, 64), 128: (64, 32), 256: (32, 32)}
 
 
 def _padded_hd(hd: int) -> int:
@@ -415,14 +431,6 @@ def _padded_hd(hd: int) -> int:
 
 
 def _check_grad(q, hd: int, zero_empty_rows: bool) -> None:
-    if q.dtype not in (torch.bfloat16, torch.float16):
-        raise FlashGradUnsupported(
-            f"flash_attention's backward kernels take bf16 / fp16 inputs, "
-            f"got {q.dtype} with grad (an f32 backward is not written yet)")
-    if _padded_hd(hd) > GRAD_MAX_HEAD_DIM:
-        raise FlashGradUnsupported(
-            f"flash_attention's backward kernels take head dims up to "
-            f"{GRAD_MAX_HEAD_DIM}, got {hd} with grad")
     if not zero_empty_rows:
         raise FlashGradUnsupported(
             "flash_attention's backward kernels take zero_empty_rows=True "
@@ -605,10 +613,13 @@ def flash_attention_backward(q, k, v, out, do, lse, q_positions,
     """(dq, dk, dv) of :func:`flash_attention` from its output ``out`` and
     row log-sum-exp ``lse`` (B, H, Sq) f32. On CPU tensors
     :func:`flash_attention_backward_plain`; on CUDA tensors the three
-    kernels of ``csrc/fk_attention_bwd.cu`` (:func:`flash_bwd_prep`, then
-    :func:`flash_bwd_dkdv` and :func:`flash_bwd_dq`), or
-    :class:`FlashGradUnsupported` for what they do not take. Head dims under
-    64 are zero-padded (a copy), as the forward pads them."""
+    kernels of ``csrc/fk_attention_bwd.cu`` at bf16 / fp16
+    (:func:`flash_bwd_prep`, then :func:`flash_bwd_dkdv` and
+    :func:`flash_bwd_dq`) or of ``csrc/fk_attention_bwd_f32.cu`` at f32
+    (:func:`flash_bwd_f32_prep`, :func:`flash_bwd_f32_dkdv`,
+    :func:`flash_bwd_f32_dq`), or :class:`FlashGradUnsupported` for what
+    they do not take. Head dims other than 64, 128 and 256 are zero-padded
+    (a copy), as the forward pads them."""
     _check_shapes(q, k, v, q_positions, kv_positions, window)
     if _build.on_cpu(q, k, v, out, do, lse, q_positions, kv_positions):
         return flash_attention_backward_plain(
@@ -634,11 +645,16 @@ def flash_attention_backward(q, k, v, out, do, lse, q_positions,
     lse = lse.contiguous()
     qpos = q_positions.to(torch.int32).contiguous()
     kpos = kv_positions.to(torch.int32).contiguous()
-    dsum = flash_bwd_prep(out, do)
-    dk, dv = flash_bwd_dkdv(q, k, v, do, lse, dsum, qpos, kpos,
-                            causal=causal, window=window)
-    dq = flash_bwd_dq(q, k, v, do, lse, dsum, qpos, kpos, causal=causal,
-                      window=window)
+    if q.dtype == torch.float32:
+        prep, dkdv, dq_fn = flash_bwd_f32_prep, flash_bwd_f32_dkdv, \
+            flash_bwd_f32_dq
+    else:
+        prep, dkdv, dq_fn = flash_bwd_prep, flash_bwd_dkdv, flash_bwd_dq
+    dsum = prep(out, do)
+    dk, dv = dkdv(q, k, v, do, lse, dsum, qpos, kpos, causal=causal,
+                  window=window)
+    dq = dq_fn(q, k, v, do, lse, dsum, qpos, kpos, causal=causal,
+               window=window)
     if hdp != hd:
         return dq[..., :hd], dk[..., :hd], dv[..., :hd]
     return dq, dk, dv
@@ -653,7 +669,7 @@ def _stride_array(*tensors) -> ctypes.Array:
 def flash_bwd_prep(out: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
     """``flash_bwd_prep_kernel``: D = rowsum(dO o O) in f32, (B, H, Sq), of
     two bf16 / fp16 CUDA tensors (B, H, Sq, hd) that the kernels can
-    address (hd 64 or 128). Plain version: ``(do.float() *
+    address (hd 64, 128 or 256). Plain version: ``(do.float() *
     out.float()).sum(-1)``."""
     b, h, sq, hd = out.shape
     dsum = torch.empty((b, h, sq), dtype=torch.float32, device=out.device)
@@ -686,6 +702,7 @@ def flash_bwd_dkdv(q, k, v, do, lse, dsum, qpos, kpos, *,
         ctypes.addressof(st), int(causal), int(window), _DTYPES[q.dtype],
         _build.stream_of(q)), "flash_bwd_dkdv", "fk_attention_bwd")
     flash_bwd_dkdv.launches += 1
+    flash_bwd_dkdv.launches_hd256 += hd == 256
     return dk, dv
 
 
@@ -706,21 +723,92 @@ def flash_bwd_dq(q, k, v, do, lse, dsum, qpos, kpos, *, causal: bool = True,
         int(causal), int(window), _DTYPES[q.dtype], _build.stream_of(q)),
         "flash_bwd_dq", "fk_attention_bwd")
     flash_bwd_dq.launches += 1
+    flash_bwd_dq.launches_hd256 += hd == 256
     return dq
 
 
 flash_bwd_prep.launches = 0
-flash_bwd_dkdv.launches = 0
-flash_bwd_dq.launches = 0
+flash_bwd_dkdv.launches = flash_bwd_dkdv.launches_hd256 = 0
+flash_bwd_dq.launches = flash_bwd_dq.launches_hd256 = 0
+
+
+def flash_bwd_f32_prep(out: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
+    """``flash_bwd_f32_prep_kernel``: D = rowsum(dO o O), (B, H, Sq), of two
+    f32 CUDA tensors (B, H, Sq, hd) that the kernels can address (hd 64,
+    128 or 256). Plain version: ``(do * out).sum(-1)``."""
+    b, h, sq, hd = out.shape
+    dsum = torch.empty((b, h, sq), dtype=torch.float32, device=out.device)
+    st = _stride_array(out, do)
+    lib = _build.library("fk_attention_bwd_f32").lib
+    _build.check(lib.fk_flash_bwd_f32_prep(
+        out.data_ptr(), do.data_ptr(), dsum.data_ptr(), b, h, sq, hd,
+        ctypes.addressof(st), _build.stream_of(out)),
+        "flash_bwd_f32_prep", "fk_attention_bwd_f32")
+    flash_bwd_f32_prep.launches += 1
+    return dsum
+
+
+def flash_bwd_f32_dkdv(q, k, v, do, lse, dsum, qpos, kpos, *,
+                       causal: bool = True, window: int = 0):
+    """``flash_bwd_f32_dkdv_kernel``: (dk, dv) of f32 operands as
+    :func:`flash_bwd_dkdv` takes them. Plain version: the dk and dv of
+    :func:`flash_attention_backward_plain`."""
+    b, h, sq, hd = q.shape
+    kvh, skv = k.shape[1], k.shape[2]
+    dk, dv = _like_heads(k), _like_heads(v)
+    st = _stride_array(q, k, v, do, dk, dv)
+    lib = _build.library("fk_attention_bwd_f32").lib
+    _build.check(lib.fk_flash_bwd_f32_dkdv(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+        lse.data_ptr(), dsum.data_ptr(), qpos.data_ptr(), kpos.data_ptr(),
+        dk.data_ptr(), dv.data_ptr(), b, h, kvh, sq, skv, hd,
+        ctypes.addressof(st), int(causal), int(window), _build.stream_of(q)),
+        "flash_bwd_f32_dkdv", "fk_attention_bwd_f32")
+    flash_bwd_f32_dkdv.launches += 1
+    return dk, dv
+
+
+def flash_bwd_f32_dq(q, k, v, do, lse, dsum, qpos, kpos, *,
+                     causal: bool = True, window: int = 0) -> torch.Tensor:
+    """``flash_bwd_f32_dq_kernel``: dq of the same f32 operands, stored as a
+    (B, Sq, H, hd) transposed view. Plain version: the dq of
+    :func:`flash_attention_backward_plain`."""
+    b, h, sq, hd = q.shape
+    kvh, skv = k.shape[1], k.shape[2]
+    dq = _like_heads(q)
+    st = _stride_array(q, k, v, do, dq)
+    lib = _build.library("fk_attention_bwd_f32").lib
+    _build.check(lib.fk_flash_bwd_f32_dq(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+        lse.data_ptr(), dsum.data_ptr(), qpos.data_ptr(), kpos.data_ptr(),
+        dq.data_ptr(), b, h, kvh, sq, skv, hd, ctypes.addressof(st),
+        int(causal), int(window), _build.stream_of(q)),
+        "flash_bwd_f32_dq", "fk_attention_bwd_f32")
+    flash_bwd_f32_dq.launches += 1
+    return dq
+
+
+flash_bwd_f32_prep.launches = 0
+flash_bwd_f32_dkdv.launches = 0
+flash_bwd_f32_dq.launches = 0
 
 
 def bwd_resources(kernel: str, dtype: torch.dtype, hd: int) -> dict:
     """``flash_bwd_dkdv_kernel`` or ``flash_bwd_dq_kernel`` (``kernel``:
-    "dkdv" or "dq") at bf16 / fp16 and hd 64 / 128 on the card: resident
-    blocks an SM, registers and local-memory (spill) bytes a thread as the
-    runtime reports them, dynamic shared bytes, and the registers a thread
-    of each role after ``setmaxnreg`` (producer, consumers). Needs a CUDA
-    card (the library's build)."""
+    "dkdv" or "dq") at bf16 / fp16 and hd 64 / 128 / 256 on the card:
+    resident blocks an SM, registers and local-memory (spill) bytes a
+    thread as the runtime reports them, dynamic shared bytes, and the
+    registers a thread of each role after ``setmaxnreg`` (producer,
+    consumers); at f32 the f32 kernels' first four. Needs a CUDA card (the
+    library's build)."""
+    if dtype == torch.float32:
+        out = (ctypes.c_int * 4)()
+        _build.check(_build.library(
+            "fk_attention_bwd_f32").lib.fk_flash_bwd_f32_resources(
+                {"dkdv": 0, "dq": 1}[kernel], hd, out),
+            "flash_bwd_f32 resources", "fk_attention_bwd_f32")
+        return dict(zip(("blocks_per_sm", "registers", "local_bytes",
+                         "smem_bytes"), out))
     out = (ctypes.c_int * 6)()
     _build.check(_build.library("fk_attention_bwd").lib.fk_flash_bwd_resources(
         {"dkdv": 0, "dq": 1}[kernel], _DTYPES[dtype], hd, out),

@@ -26,8 +26,11 @@ prints the step lines.
 
 ``--batch`` and ``--seq`` cut the shape's global batch and sequence (one
 card holds internlm2-1.8b's train_4k step at a global batch of about 8 x
-4096, not 256); ``--grad-accum`` overrides the reference launcher's 2
-micro-batches. ``--ckpt-every 0`` writes no snapshot at all (at full width
+4096, not 256), ``--layers`` the decoder's depth (an arch whose weights,
+gradients and f32 moments pass one card's 80 GB); ``--grad-accum``
+overrides the reference launcher's 2 micro-batches. A vision- or
+audio-stub arch's batches carry the frontend embeddings of the
+reference's ``input_specs`` (``data.synthetic.frontend_embeds``). ``--ckpt-every 0`` writes no snapshot at all (at full width
 one is ~22 GB). ``main`` returns the run's per-step records for callers
 such as ``chip_smoke.py``; ``setup(parse(argv))`` gives the model, state
 and step that ``main`` starts from.
@@ -126,6 +129,9 @@ def parse(argv=None) -> argparse.Namespace:
                     help="global batch (default: the shape's)")
     ap.add_argument("--seq", type=int, default=0,
                     help="sequence length (default: the shape's)")
+    ap.add_argument("--layers", type=int, default=0,
+                    help="decoder layers (default: the config's; a cut of "
+                         "depth where the state does not fit one card)")
     ap.add_argument("--grad-accum", type=int, default=0,
                     help="micro-batches a step (default: the config's "
                          "override, else 2)")
@@ -166,6 +172,8 @@ def setup(args: argparse.Namespace) -> dict:
     cfg = get_config(args.arch, smoke=args.smoke)
     if args.abft:
         cfg = dataclasses.replace(cfg, abft=True)
+    if args.layers:
+        cfg = dataclasses.replace(cfg, num_layers=args.layers)
     check_mesh_supported(cfg, mesh)
     shape = ShapeConfig("smoke", seq_len=64, global_batch=8, kind="train") \
         if args.smoke else SHAPES[args.shape]
@@ -190,8 +198,8 @@ def setup(args: argparse.Namespace) -> dict:
                                         mesh=mesh),
             "lm": lm,
             "opt": init_opt_state(dict(lm.named_parameters()), tcfg),
-            "pipe": TokenPipeline(cfg.vocab_size, shape.seq_len,
-                                  shape.global_batch, device=dev)}
+            "pipe": TokenPipeline.for_config(cfg, shape.seq_len,
+                                             shape.global_batch, device=dev)}
 
 
 def main(argv=None) -> list[dict]:

@@ -99,11 +99,20 @@ def _ssd_chunk(state: torch.Tensor, chunk, *, A: torch.Tensor):
     xf, bf, cf = x.float(), bm.float(), cm.float()
     dA = dt * A[None, None, :]                         # (B,L,H) negative
     cs = torch.cumsum(dA, dim=1)                       # (B,L,H)
-    # intra-chunk: M[t,s] = C_t.B_s * exp(cs_t - cs_s) * dt_s   (s <= t)
+    # intra-chunk: M[t,s] = C_t.B_s * exp(cs_t - cs_s) * dt_s   (s <= t).
+    # The exponent is masked before exp (the reference masks the product
+    # after it): for s > t, cs_t - cs_s > 0 can pass f32's range over a
+    # chunk, and exp's inf times where's zero gradient is NaN in the
+    # backward (mamba2-1.3b at 4096 tokens). The kept entries are the same
+    # exp of the same value.
     scores = torch.einsum("bln,bsn->bls", cf, bf)
-    decay = torch.exp(cs[:, :, None, :] - cs[:, None, :, :])    # (B,L,S,H)
     n = x.shape[1]
     tri = torch.tril(torch.ones((n, n), dtype=torch.bool, device=x.device))
+    seg = torch.where(tri[None, :, :, None],
+                      cs[:, :, None, :] - cs[:, None, :, :],
+                      torch.full((), -torch.inf, dtype=cs.dtype,
+                                 device=x.device))          # (B,L,S,H)
+    decay = torch.exp(seg)
     m = torch.where(tri[None, :, :, None], scores[..., None] * decay,
                     torch.zeros((), dtype=decay.dtype, device=x.device))
     y_diag = torch.einsum("blsh,bsh,bshp->blhp", m, dt, xf)

@@ -193,7 +193,7 @@ def test_names_chip_smoke_reads():
         "fk_flash_bwd_prep", "fk_flash_bwd_dkdv", "fk_flash_bwd_dq",
         "fk_flash_bwd_resources"}
     assert callable(fa.bwd_resources)
-    assert fa.GRAD_MAX_HEAD_DIM == 128
+    assert fa.GRAD_MAX_HEAD_DIM == 256
     text = SRC.read_text()
     for kernel in ("flash_bwd_prep_kernel", "flash_bwd_dkdv_kernel",
                    "flash_bwd_dq_kernel"):
