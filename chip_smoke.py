@@ -313,13 +313,15 @@ Phases, one line each:
      only where bf16 weights and gradients and f32 moments pass 80 GB
      (each cut in the record, every layer kind kept): the first
      micro-batch's loss and worst leaf gradient norm through the kernel
-     route within FAMILY_FLOOR_FACTOR times the largest distance between
-     two of three plain computations (PHASE20_FLOOR_ROUTES; MoE choices
-     pinned to the kernel route's), over the leaves those agree on within
-     PHASE20_LEAF_SPREAD_MAX, the dq x 0.97 control breaking the leaf bar
-     (whisper's leaf gate and control recorded, ROUTE_LEAF_GATE_RECORDED),
-     no leaf's gradient None, non-finite or zero where the plain route's
-     is not (mamba2: its step twice, bit for bit);
+     route within FAMILY_FLOOR_FACTOR times the plain attention route's
+     floor, its largest distance from itself under four draws of its own
+     rounding (P V in f32, phase 17's, and P on PHASE20_GRIDS' shifted
+     grids; MoE choices pinned to the kernel route's): the leaves whose
+     floor is within PHASE20_GATED_FLOOR under twice their largest floor,
+     which the dq x 0.97 control must break, every leaf under twice the
+     largest floor of all, the others at most PHASE20_MAX_LOOSE of the
+     leaves; no leaf's gradient None, non-finite or zero where the plain
+     route's is not (mamba2: its step twice, bit for bit);
      then 2 AdamW steps through the launcher (``launch.train.main``, the
      counts set to 0 just before): s a step, tokens/s, peak GB, the
      forward and backward kernels' launches (hd 256 on gemma3 and
@@ -5467,14 +5469,15 @@ def f32_forward_row(torch, fa, hw, t: tuple) -> dict:
 
 
 # the rows of the kernels line each timing case of BWD_CASES gives: (row
-# name, wrapper); row 11b at hd 128, 11b-256 (the same wrappers at hd 256,
-# their prep row 11b's), 11bf (f32); every row's library call is SDPA's
-# backward (dq, dk and dv together) at the same call
+# name, wrapper); row 11b at hd 128, 11b-256 (the same wrappers at hd 256),
+# 11bf (f32); the dK / dV and dQ rows' library call is SDPA's backward
+# (dq, dk and dv together) at the same call
 BWD_ROW_CASES = {
     "internlm2_train": (("flash_bwd_prep", "flash_bwd_prep"),
                         ("flash_bwd_dkdv", "flash_bwd_dkdv"),
                         ("flash_bwd_dq", "flash_bwd_dq")),
-    "gemma3_hd256": (("flash_bwd_dkdv_hd256", "flash_bwd_dkdv"),
+    "gemma3_hd256": (("flash_bwd_prep_hd256", "flash_bwd_prep"),
+                     ("flash_bwd_dkdv_hd256", "flash_bwd_dkdv"),
                      ("flash_bwd_dq_hd256", "flash_bwd_dq")),
     "internlm2_f32": (("flash_bwd_f32_prep", "flash_bwd_f32_prep"),
                       ("flash_bwd_f32_dkdv", "flash_bwd_f32_dkdv"),
@@ -5511,16 +5514,27 @@ def bwd_rows(torch, fa, hw, t: tuple, errs: dict, launches: dict,
     prep = fa.flash_bwd_f32_prep if f32 else fa.flash_bwd_prep
     dkdv = fa.flash_bwd_f32_dkdv if f32 else fa.flash_bwd_dkdv
     dq = fa.flash_bwd_f32_dq if f32 else fa.flash_bwd_dq
-    dsum = prep(out, do)
-    dsum_plain = (do.float() * out.float()).sum(-1)
+    # D: rowsum(dO o O) at f32; at 2 bytes rowsum(P o dP), the dQ walk's S
+    # and dP (4 hd FLOPs a live pair), which no single library call gives
+    if f32:
+        run_prep, prep_plain, prep_library, prep_bound = (
+            lambda: prep(out, do), lambda: (do * out).sum(-1),
+            lambda: torch.einsum("bhsd,bhsd->bhs", do, out),
+            bound(2.0 * b * h * sq * hd, 2 * qb + lb))
+    else:
+        run_prep, prep_plain, prep_library, prep_bound = (
+            lambda: prep(q, k, v, do, lse, qpos, kpos, **opts),
+            lambda: fa.flash_bwd_prep_plain(q, k, v, do, lse, qpos, kpos,
+                                            **opts),
+            None, bound(4.0 * hd * pairs, 2 * qb + 2 * kb + 2 * lb))
+    dsum = run_prep()
+    dsum_plain = prep_plain()
     prep_err = float((dsum - dsum_plain).abs().max())
     expect(prep_err <= 1e-5 * float(dsum_plain.abs().max()),
            f"{prep.__name__}: D error {prep_err}")
     kernels = {
-        prep.__name__: (lambda: prep(out, do),
-                        lambda: (do.float() * out.float()).sum(-1),
-                        lambda: torch.einsum("bhsd,bhsd->bhs", do, out),
-                        bound(2.0 * b * h * sq * hd, 2 * qb + lb), prep_err),
+        prep.__name__: (run_prep, prep_plain, prep_library, prep_bound,
+                        prep_err),
         dkdv.__name__: (lambda: dkdv(q, k, v, do, lse, dsum, qpos, kpos,
                                      **opts),
                         None, None,
@@ -5576,22 +5590,25 @@ def bwd_rows(torch, fa, hw, t: tuple, errs: dict, launches: dict,
                          library_ms=cuda_ms(lfn, reps=10) if lfn
                          else None))
     # the gradient's own work: S, dP, dV, dK and dQ once each, 10 hd FLOPs
-    # a live pair; the two-kernel design computes S and dP a second time
-    # in the dQ kernel (14 hd; at hd 256 the dK / dV kernel's warpgroups
-    # compute S^T and dP^T once each: 18 hd), which each row's bound counts
-    # at its function's least work (8 and 6 hd)
+    # a live pair; the design computes S and dP a second time in the dQ
+    # kernel and, at 2 bytes, a third in the prep kernel's D (18 hd, 14 at
+    # f32; at hd 256 the dK / dV kernel's warpgroups compute S^T and dP^T
+    # once each: 4 hd more), which each row's bound counts at its
+    # function's least work (4, 8 and 6 hd)
     bwd_bound = bound(10.0 * hd * pairs, 4 * qb + 4 * kb + 2 * lb)[0]
-    design_bound = bound(14.0 * hd * pairs, 4 * qb + 4 * kb + 2 * lb)[0]
+    design_bound = bound((14.0 if f32 else 18.0) * hd * pairs,
+                         4 * qb + 4 * kb + 2 * lb)[0]
     rec = {"case": case, "shape": [b, h, kvh, sq, skv, hd],
            "dtype": str(q.dtype), "live_pairs": pairs, "kernel_ms": times,
            "kernel_bound_share": shares, "backward_ms": whole_ms,
            "backward_bound_ms": bwd_bound,
            "backward_bound_share": bwd_bound / whole_ms,
-           "two_kernel_design_bound_ms": design_bound,
+           "design_bound_ms": design_bound,
            "bound_note": "backward_bound_ms: 10 hd FLOPs a live pair "
                          "(S, dP, dV, dK, dQ once); the dQ kernel's row: 6 "
                          "hd (S and dP recomputed, then dQ), the dK / dV "
-                         "kernel's: 8 hd",
+                         "kernel's: 8 hd, the 2-byte prep kernel's: 4 hd "
+                         "(S and dP for D)",
            "plain_backward_ms": plain_ms, "sdpa_backward_ms": sdpa_ms,
            "sdpa_error": sdpa_error,
            "backward_over_sdpa": None if sdpa_ms is None
@@ -6851,32 +6868,19 @@ CKPT_ARCH = "whisper-medium"
 SMOKE_LAUNCH_ARGV = ["--smoke", "--steps", "3", "--device", DEV,
                      "--ckpt-every", "0"]
 SMOKE_LOSS_RTOL, SMOKE_LEAF_RTOL = 1e-5, 1e-4
-# the first step's floor: the largest distance between any two of the
-# plain route and two rounding-sized changes of it, P V in f32 (phase 17's
-# floor) and plain math with the kernels' rounding points both ways (P and
-# dS rounded where they round them, D from the rounded output: the rounding
-# points BWD_CASES's floors take for the kernels). A loss is one number, so one change's distance is one draw of
-# the rounding's effect: whisper-medium's kernel-route loss sat at 4.5 x
-# phase 17's floor alone, qwen2-vl-7b's at 1.02 x the larger of two
-# changes' distances from the plain route (PERF.md, phase 20's runs)
-PHASE20_FLOOR_ROUTES = ("plain_f32_pv", "plain_kernel")
-# a leaf whose gradient norm the plain computations disagree on by more
-# than a third of the control's change (dq x 0.97: 3 %) cannot tell the
-# control from rounding, so the leaf gate reads the others and records it:
-# whisper-medium's random 24 + 24 layers leave its frames and tokens
-# sharing most of their direction, and the gradients of several of its
-# attention weights are cancelling remainders (the plain computations 35 %
-# apart on one, the kernel route 7.4x off on another; PERF.md)
-PHASE20_LEAF_SPREAD_MAX = (1.0 - DQ_CONTROL_SCALE) / 3
-# archs whose leaf gate (and the control, read against it) is recorded, not
-# gated: whisper-medium at random initialisation. Its plain computations
-# disagree by up to 86 % on 134 of its 554 leaves, and on the
-# leaves they agree on within 1 % the dq x 0.97 control moved the worst by
-# 4.2 % and the kernel route another by 3.8 % (`layers.3.cross.wq`;
-# PERF.md): the gate cannot tell a 3 % dq error from rounding
-# there. Its kernels are held at its shapes by phase 17's whisper_cross
-# case and the hd-64 cases; its loss gate stays
-ROUTE_LEAF_GATE_RECORDED = ("whisper-medium",)
+# the first step's floor: phase 17's P V in f32 and the plain route with P
+# rounded on three shifted grids (lm_rounding's plain_grid), four draws of
+# the plain route's own rounding that share nothing with the kernels'
+# arithmetic; the floor of the loss and of each leaf is the largest of
+# their distances from the plain route. One draw is not a floor: the four
+# put whisper-medium's loss 2.6e-6 to 2.1e-5 from the plain route (PERF.md)
+PHASE20_GRIDS = (1.37, 1.61, 1.83)
+# a leaf whose floor passes a third of the control's 3 % cannot tell the
+# control from rounding: it is held under twice the largest floor of any
+# leaf instead of twice the largest floor of the others, and such leaves
+# are counted, at most this share of an arch's
+PHASE20_GATED_FLOOR = (1.0 - DQ_CONTROL_SCALE) / 3
+PHASE20_MAX_LOOSE = 0.25
 
 
 def bwd_counts(fa) -> dict:
@@ -6885,6 +6889,7 @@ def bwd_counts(fa) -> dict:
     out = {n: getattr(fa, n).launches for n in (
         "flash_bwd_prep", "flash_bwd_dkdv", "flash_bwd_dq",
         "flash_bwd_f32_prep", "flash_bwd_f32_dkdv", "flash_bwd_f32_dq")}
+    out["flash_bwd_prep_hd256"] = fa.flash_bwd_prep.launches_hd256
     out["flash_bwd_dkdv_hd256"] = fa.flash_bwd_dkdv.launches_hd256
     out["flash_bwd_dq_hd256"] = fa.flash_bwd_dq.launches_hd256
     out.update(fa.flash_attention.kernel_launches)
@@ -6895,28 +6900,31 @@ def zero_counts(fa) -> None:
     for n in ("flash_bwd_prep", "flash_bwd_dkdv", "flash_bwd_dq",
               "flash_bwd_f32_prep", "flash_bwd_f32_dkdv", "flash_bwd_f32_dq"):
         getattr(fa, n).launches = 0
+    fa.flash_bwd_prep.launches_hd256 = 0
     fa.flash_bwd_dkdv.launches_hd256 = fa.flash_bwd_dq.launches_hd256 = 0
     for name in fa.flash_attention.kernel_launches:
         fa.flash_attention.kernel_launches[name] = 0
 
 
 def first_step_routes(torch, fa, lm, micro: dict, has_attn: bool,
-                      moe: bool, leaf_recorded: bool = False) -> dict:
+                      moe: bool) -> dict:
     """The first micro-batch's loss and leaf gradient norms through the
-    kernel and plain attention routes, two rounding-sized changes of the
-    plain route (P V in f32, phase 17's; the kernels' rounding points in
-    plain math) and the kernel route with dq scaled (the control), MoE
-    choices pinned to the kernel route's; phase 17's gates per arch with
-    the floor the largest distance between two of the three plain
-    computations (PHASE20_FLOOR_ROUTES), over the leaves they agree on
-    within PHASE20_LEAF_SPREAD_MAX. Without attention: the kernel route
-    twice, bit for bit."""
+    kernel and plain attention routes, the plain route's four draws of its
+    own rounding (P V in f32, P on PHASE20_GRIDS' grids) and the kernel
+    route with dq scaled (the control), MoE choices pinned to the kernel
+    route's: phase 17's gates per arch, the floor the draws' largest
+    distance from the plain route, the loss's and each leaf's. The leaves
+    whose floor is at most PHASE20_GATED_FLOOR are gated at twice their
+    largest floor, which the control must break; every leaf at twice the
+    largest floor of all; the others counted, at most PHASE20_MAX_LOOSE of
+    the leaves. Without attention: the kernel route twice, bit for bit."""
     import gc
     from repro_torch.launch.lm_rounding import attention_route, pinned_routes
     own = []
     routes = {}
-    names = ("kernel", "plain", *PHASE20_FLOOR_ROUTES, "control") \
-        if has_attn else ("kernel", "again")
+    draws = ("plain_f32_pv", *(f"plain_grid:{c}" for c in PHASE20_GRIDS))
+    names = ("kernel", "plain", *draws, "control") if has_attn \
+        else ("kernel", "again")
     for route in names:
         pin = (pinned_routes(own) if route == "kernel" else
                pinned_routes([], list(own))) if moe \
@@ -6945,58 +6953,49 @@ def first_step_routes(torch, fa, lm, micro: dict, has_attn: bool,
     expect(not zero, f"leaves with a zero gradient where the plain "
            f"route's is not: {zero}")
     pair = {r: (routes[r]["loss"], routes[r]["norms"]) for r in routes}
-    # the floor: the largest distance between two of the plain computations,
-    # the loss's and each leaf's; a leaf they disagree on by more than
-    # PHASE20_LEAF_SPREAD_MAX is recorded, not gated
-    plains = ("plain", *PHASE20_FLOOR_ROUTES)
-    loss_floor, spread = 0.0, {}
-    for i, a in enumerate(plains):
-        for b in plains[i + 1:]:
-            d = route_distance(pair[a], pair[b])
-            loss_floor = max(loss_floor, d["loss"])
-            for n, x in d["leaf_norms"].items():
-                spread[n] = max(spread.get(n, 0.0), x)
-    kept = [n for n, x in spread.items() if x <= PHASE20_LEAF_SPREAD_MAX]
-    d_kernel = route_distance(pair["kernel"], pair["plain"])
-    d_ctrl = route_distance(pair["control"], pair["plain"])
-
-    def worst(d):
-        n = max(kept, key=d["leaf_norms"].get)
-        return n, d["leaf_norms"][n]
-    floor_leaf = max(spread[n] for n in kept)
+    dist = {r: route_distance(pair[r], pair["plain"]) for r in pair
+            if r != "plain"}
+    loss_floor = max(dist[r]["loss"] for r in draws)
+    floor = {n: max(dist[r]["leaf_norms"][n] for r in draws)
+             for n in p["norms"]}
+    gated = [n for n in floor if floor[n] <= PHASE20_GATED_FLOOR]
+    loose = sorted(set(floor) - set(gated), key=floor.get, reverse=True)
     bar_loss = FAMILY_FLOOR_FACTOR * loss_floor
-    bar_leaf = FAMILY_FLOOR_FACTOR * floor_leaf
-    k_leaf, k_rel = worst(d_kernel)
-    c_leaf, c_rel = worst(d_ctrl)
-    ill = sorted((n for n in spread if n not in kept), key=spread.get)
+    bar_leaf = FAMILY_FLOOR_FACTOR * max(floor[n] for n in gated)
+    bar_all = FAMILY_FLOOR_FACTOR * max(floor.values())
+    kl, cl = dist["kernel"]["leaf_norms"], dist["control"]["leaf_norms"]
+    k_leaf = max(gated, key=kl.get)
+    k_any = max(kl, key=kl.get)
+    c_leaf = max(gated, key=cl.get)
     out = {"losses": {r: routes[r]["loss"] for r in routes},
-           "loss_rel": d_kernel["loss"], "loss_floor": loss_floor,
-           "loss_bar": bar_loss, "worst_leaf": k_leaf,
-           "worst_leaf_norm_rel": k_rel, "leaf_floor": floor_leaf,
-           "floor_worst_leaf": max(kept, key=spread.get),
-           "leaf_bar": bar_leaf, "leaves_gated": len(kept),
-           "leaves_recorded_not_gated": {
-               n: {"plain_spread": spread[n],
-                   "kernel": d_kernel["leaf_norms"][n]}
-               for n in ill[::-1][:12]},
-           "leaves_not_gated": len(ill),
+           "loss_rel": dist["kernel"]["loss"],
+           "draws_loss_rel": {r: dist[r]["loss"] for r in draws},
+           "loss_bar": bar_loss, "leaves": len(floor),
+           "leaves_gated": len(gated), "worst_leaf": k_leaf,
+           "worst_leaf_norm_rel": kl[k_leaf],
+           "floor_worst_leaf": max(gated, key=floor.get),
+           "leaf_bar": bar_leaf, "worst_any_leaf": k_any,
+           "worst_any_leaf_norm_rel": kl[k_any], "any_leaf_bar": bar_all,
+           "loose_leaves": len(loose), "loose_share": len(loose)
+           / len(floor),
+           "loosest": {n: {"floor": floor[n], "kernel": kl[n]}
+                       for n in loose[:8]},
            "control_worst_leaf": c_leaf,
-           "control_over_bar": c_rel / max(bar_leaf, 1e-30)}
-    d_kernel = dict(d_kernel, worst_leaf=k_leaf, worst_leaf_norm=k_rel)
-    d_ctrl = dict(d_ctrl, worst_leaf_norm=c_rel)
-    out["leaf_gate"] = "recorded" if leaf_recorded else "gated"
+           "control_over_bar": cl[c_leaf] / bar_leaf}
     emit({"phase": 20, "part": "first step's routes", **out})
-    expect(d_kernel["loss"] <= bar_loss, f"step 1 loss: kernel route "
-           f"{k['loss']} vs plain {p['loss']}: {d_kernel['loss']} > "
+    expect(out["loss_rel"] <= bar_loss, f"step 1 loss: kernel route "
+           f"{k['loss']} vs plain {p['loss']}: {out['loss_rel']} > "
            f"{bar_loss}")
-    if leaf_recorded:
-        return out
-    expect(d_kernel["worst_leaf_norm"] <= bar_leaf, f"step 1: "
-           f"{d_kernel['worst_leaf']}'s gradient norm "
-           f"{d_kernel['worst_leaf_norm']} from the plain route's > {bar_leaf}")
-    expect(d_ctrl["worst_leaf_norm"] > bar_leaf, f"step 1: the control (dq x "
+    expect(kl[k_leaf] <= bar_leaf, f"step 1: {k_leaf}'s gradient norm "
+           f"{kl[k_leaf]} from the plain route's > {bar_leaf}")
+    expect(kl[k_any] <= bar_all, f"step 1: {k_any}'s gradient norm "
+           f"{kl[k_any]} from the plain route's > {bar_all}")
+    expect(out["loose_share"] <= PHASE20_MAX_LOOSE, f"step 1: "
+           f"{len(loose)} of {len(floor)} leaves' floors pass "
+           f"{PHASE20_GATED_FLOOR}")
+    expect(cl[c_leaf] > bar_leaf, f"step 1: the control (dq x "
            f"{DQ_CONTROL_SCALE}) is within the bar {bar_leaf}: "
-           f"{d_ctrl['worst_leaf_norm']}")
+           f"{cl[c_leaf]}")
     return out
 
 
@@ -7040,8 +7039,7 @@ def train_family(torch, fa, arch: str) -> tuple[dict, dict]:
     mb = batch // accum
     micro = {k: v[:mb] for k, v in pipe.next_batch(0).items()}
     rec["first_step_routes"] = first_step_routes(
-        torch, fa, lm, micro, has_attn, cfg.moe is not None,
-        leaf_recorded=arch in ROUTE_LEAF_GATE_RECORDED)
+        torch, fa, lm, micro, has_attn, cfg.moe is not None)
     del lm, micro
     gc.collect()
     torch.cuda.empty_cache()
@@ -7070,7 +7068,8 @@ def train_family(torch, fa, arch: str) -> tuple[dict, dict]:
                and counts["flash_bwd_dkdv"] > 0 and counts["flash_bwd_dq"] > 0
                and counts["flash_bwd_prep"] > 0,
                f"{arch}: the attention kernels were not launched: {counts}")
-        expect(not wide or (counts["flash_bwd_dkdv_hd256"] > 0
+        expect(not wide or (counts["flash_bwd_prep_hd256"] > 0
+                            and counts["flash_bwd_dkdv_hd256"] > 0
                             and counts["flash_bwd_dq_hd256"] > 0),
                f"{arch}: the hd-256 backward was not launched: {counts}")
     gc.collect()
@@ -7740,15 +7739,16 @@ def main() -> int:
         "flash_f32_kernel"]
     # rows 11b and 11b-256 share the wrappers: the hd-256 launches are their
     # own rows'
-    for name in ("flash_bwd_dkdv", "flash_bwd_dq"):
+    for name in ("flash_bwd_prep", "flash_bwd_dkdv", "flash_bwd_dq"):
         by_name[name]["launches"] += launches20[name] \
             - launches20[name + "_hd256"]
         by_name[name + "_hd256"]["launches"] += launches20[name + "_hd256"]
-    for name in ("flash_bwd_prep", "flash_bwd_f32_prep", "flash_bwd_f32_dkdv",
+    for name in ("flash_bwd_f32_prep", "flash_bwd_f32_dkdv",
                  "flash_bwd_f32_dq"):
         by_name[name]["launches"] += launches20[name]
-    for name in ("flash_attention_f32", "flash_bwd_dkdv_hd256",
-                 "flash_bwd_dq_hd256", "flash_bwd_f32_prep",
+    for name in ("flash_attention_f32", "flash_bwd_prep_hd256",
+                 "flash_bwd_dkdv_hd256", "flash_bwd_dq_hd256",
+                 "flash_bwd_f32_prep",
                  "flash_bwd_f32_dkdv", "flash_bwd_f32_dq"):
         expect(by_name[name]["launches"] > 0, f"{name} was not launched on "
                f"phase 20's main paths")

@@ -17,8 +17,9 @@
 // lse = m + log(l) (+inf for a row with no valid key, whose output is zero:
 // it gets zero dq and adds nothing to dk or dv):
 //
-//   D  = rowsum(dO o O)                      flash_bwd_prep_kernel
-//   P  = exp(S - lse), dP = dO V^T, dS = P o (dP - D)
+//   P  = exp(S - lse), dP = dO V^T
+//   D  = rowsum(P o dP)                      flash_bwd_prep_kernel
+//   dS = P o (dP - D)
 //   dV = sum over the group's heads of P^T dO, dK = ... dS^T Q
 //                                            flash_bwd_dkdv_kernel
 //   dQ = dS K                                flash_bwd_dq_kernel
@@ -27,6 +28,16 @@
 // and dS (for dK and dQ) are rounded to the input type first, as the
 // forward rounds P before P V. Accumulators stay in f32 registers and are
 // rounded once, at the end, to the input type.
+//
+// D is the row sum of P o dP over the same P and dP the other two kernels
+// compute, not dO . O: then every row of dS sums to zero up to f32
+// rounding, as the plain gradient's does. D from the rounded output is off
+// by dO . (O - P V), a rounding of O's size, so a row's dS sums to that
+// times one, not to zero; dQ = dS K then carries that sum times the keys'
+// common direction, and dK's sum over the keys carries it times the
+// queries'. Where a model's tokens share most of their direction (deep
+// random layers: whisper-medium's decoder and encoder), that term is many
+// times the cancelling gradient it rides on (chip_smoke.py phase 20).
 //
 // Hopper's shape, as the forward's prefill kernel (fk_attention.cu): a
 // block of 384 threads is two consumer warpgroups and a producer
@@ -64,9 +75,10 @@
 //     registers, K MN-major): the forward's structure with one more
 //     product. Query tiles go out last first (blockIdx.y reversed), so the
 //     longest causal walks start first.
-//   * flash_bwd_prep_kernel<T>: one warp a query row, D in f32 (3 % of the
-//     backward at the training shape; folding it into the dQ kernel would
-//     make the dK / dV kernel wait for dQ's).
+//   * flash_bwd_prep_kernel<T, HD>: the dQ kernel's walk with S and dP
+//     only (dq_walk<DSUM>), D = rowsum(P o dP) summed by each thread over
+//     its columns and steps, then over the quad of a row's threads in a
+//     fixed order. It runs first: the dK / dV and dQ kernels read D.
 //
 // No atomics: every dK / dV / dQ element has one owner thread and a fixed
 // walk, so two launches give the same bits. (FA3's fused design adds dQ
@@ -78,9 +90,8 @@
 //
 // Bound on the H100: per (query, valid key) pair and query head, 8 HD FLOPs
 // in the dK / dV kernel (S^T, dP^T, dV, dK) and 6 HD in the dQ kernel (S,
-// dP, dQ), at 989 TFLOP/s; the gradient itself needs 10 HD (S and dP
-// once); the prep kernel by its bytes (O and dO read, D written; 3.35
-// TB/s). hd 64, 128 and 256 are built. At hd 256 (KvShape, QShape) a dK /
+// dP, dQ) and 4 HD in the prep kernel (S, dP), at 989 TFLOP/s; the
+// gradient itself needs 10 HD (S and dP once). hd 64, 128 and 256 are built. At hd 256 (KvShape, QShape) a dK /
 // dV block is 64 keys whose dK and dV the two consumer warpgroups split by
 // hd half (64 + 64 f32 a thread): each computes the block's S^T and dP^T
 // over all of hd itself, so the dK / dV kernel does 12 hd FLOPs a pair
@@ -294,31 +305,6 @@ template <int N>
 __device__ __forceinline__ void zero(float* d) {
 #pragma unroll
   for (int i = 0; i < N; ++i) d[i] = 0.0f;
-}
-
-// --- D = rowsum(dO o O) ------------------------------------------------------
-
-template <typename T>
-__global__ void __launch_bounds__(256)
-flash_bwd_prep_kernel(const T* __restrict__ o, const T* __restrict__ dout,
-                      float* __restrict__ dsum, int H, int Sq, int hd,
-                      long long osb, long long osh, long long oss,
-                      long long dsb, long long dsh, long long dss) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int i = blockIdx.x * 8 + warp;
-  if (i >= Sq) return;
-  const int b = blockIdx.y / H, h = blockIdx.y - (blockIdx.y / H) * H;
-  const T* orow = o + b * osb + h * osh + i * oss;
-  const T* drow = dout + b * dsb + h * dsh + i * dss;
-  float acc = 0.0f;
-  for (int d = 2 * lane; d < hd; d += 64) {
-    acc = fmaf(to_f32(orow[d]), to_f32(drow[d]), acc);
-    acc = fmaf(to_f32(orow[d + 1]), to_f32(drow[d + 1]), acc);
-  }
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    acc += __shfl_xor_sync(0xffffffffu, acc, off);
-  if (lane == 0) dsum[(long long)blockIdx.y * Sq + i] = acc;
 }
 
 // --- dK, dV ------------------------------------------------------------------
@@ -567,17 +553,18 @@ struct QSmem {
   static constexpr size_t bytes = size_t(bars) + (2 * NS + 1) * 8 + 1024;
 };
 
-template <typename T, int HD>
-__global__ void __launch_bounds__(kThreads, 1)
-flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap qmap,
-                    const __grid_constant__ CUtensorMap gmap,
-                    const __grid_constant__ CUtensorMap kmap,
-                    const __grid_constant__ CUtensorMap vmap,
-                    const float* __restrict__ lse,
-                    const float* __restrict__ dsum,
-                    const int* __restrict__ qpos, const int* __restrict__ kpos,
-                    T* __restrict__ dq, int H, int KV, int Sq, int Skv,
-                    const OutStrides os, int causal, int window) {
+// The walk of a block of 128 query rows over its live KV tiles. DSUM false:
+// dQ += dS K, dS = P o (dP - D) from D (dsum, read). DSUM true, the D pass:
+// S and dP only, D = rowsum(P o dP) over the same tiles, written to dsum
+// (each thread sums its columns a step, then over the steps; the quad of
+// a row's threads adds in a fixed order).
+template <typename T, int HD, bool DSUM>
+__device__ __forceinline__ void dq_walk(
+    const CUtensorMap& qmap, const CUtensorMap& gmap, const CUtensorMap& kmap,
+    const CUtensorMap& vmap, const float* __restrict__ lse,
+    float* __restrict__ dsum, const int* __restrict__ qpos,
+    const int* __restrict__ kpos, T* __restrict__ dq, int H, int KV, int Sq,
+    int Skv, const OutStrides& os, int causal, int window) {
   using W = QSmem<HD>;
   constexpr int TK = QShape<HD>::tile, NS = QShape<HD>::stages;
   extern __shared__ unsigned char smw_raw[];
@@ -679,11 +666,12 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap qmap,
     const int i = q0 + r0 + 16 * wi + g + 8 * r;
     const long long row = ((long long)b * H + h) * Sq + i;
     lr[r] = i < Sq ? lse[row] : INFINITY;
-    dr[r] = i < Sq ? dsum[row] : 0.0f;
+    dr[r] = !DSUM && i < Sq ? dsum[row] : 0.0f;
     qp[r] = i < Sq ? qpos[i] : 0;
   }
-  float dqa[HD / 2];
-  zero<HD / 2>(dqa);
+  float dqa[DSUM ? 1 : HD / 2];
+  zero<DSUM ? 1 : HD / 2>(dqa);
+  float dacc[2] = {0.0f, 0.0f};
   const unsigned char* Qw = smw + W::q + r0 * 128;
   const unsigned char* Gw = smw + W::g + r0 * 128;
   mbar_wait(qbar, 0);
@@ -709,9 +697,11 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap qmap,
       wg_wait0();
       fence_regs<TK / 2>(sa);
       fence_regs<TK / 2>(pa);
-      // dS = P o (dP - D), P = exp(S - lse) on the valid pairs
+      // P = exp(S - lse) on the valid pairs; dS = P o (dP - D), or (the D
+      // pass) the step's sums of P o dP
       const int k0 = t * TK;
       uint32_t sp[TK / 8][2];
+      float part[2] = {0.0f, 0.0f};
 #pragma unroll
       for (int nt = 0; nt < TK / 8; ++nt) {
 #pragma unroll
@@ -725,24 +715,72 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap qmap,
                 (key >= Skv || !key_valid(__ldg(kpos + key), qp[r], causal,
                                           window)))
               x = 0.0f;
-            d[e] = x * (pa[nt * 4 + 2 * r + e] - dr[r]);
+            if constexpr (DSUM)
+              part[r] = fmaf(x, pa[nt * 4 + 2 * r + e], part[r]);
+            else
+              d[e] = x * (pa[nt * 4 + 2 * r + e] - dr[r]);
           }
-          sp[nt][r] = pack2<T>(d[0], d[1]);
+          if constexpr (!DSUM) sp[nt][r] = pack2<T>(d[0], d[1]);
         }
       }
-      // dQ += dS K over the TK keys
-      fence_regs<HD / 2>(dqa);
-      wg_fence();
-      wgmma_ab<T, HD, TK>(dqa, sp, Kt);
-      wg_commit();
-      wg_wait0();
-      fence_regs<HD / 2>(dqa);
+      if constexpr (DSUM) {
+        dacc[0] += part[0];
+        dacc[1] += part[1];
+      } else {
+        // dQ += dS K over the TK keys
+        fence_regs<HD / 2>(dqa);
+        wg_fence();
+        wgmma_ab<T, HD, TK>(dqa, sp, Kt);
+        wg_commit();
+        wg_wait0();
+        fence_regs<HD / 2>(dqa);
+      }
     }
     mbar_arrive(empty + st);
   }
 
-  store_rows<T, HD>(dq + b * os.v[0] + h * os.v[1], os.v[2], q0 + r0, Sq,
-                    dqa);
+  if constexpr (DSUM) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float x = dacc[r];
+      x += __shfl_xor_sync(0xffffffffu, x, 1);
+      x += __shfl_xor_sync(0xffffffffu, x, 2);
+      const int i = q0 + r0 + 16 * wi + g + 8 * r;
+      if (tg == 0 && i < Sq) dsum[((long long)b * H + h) * Sq + i] = x;
+    }
+  } else {
+    store_rows<T, HD>(dq + b * os.v[0] + h * os.v[1], os.v[2], q0 + r0, Sq,
+                      dqa);
+  }
+}
+
+template <typename T, int HD>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap qmap,
+                    const __grid_constant__ CUtensorMap gmap,
+                    const __grid_constant__ CUtensorMap kmap,
+                    const __grid_constant__ CUtensorMap vmap,
+                    const float* __restrict__ lse, float* __restrict__ dsum,
+                    const int* __restrict__ qpos, const int* __restrict__ kpos,
+                    T* __restrict__ dq, int H, int KV, int Sq, int Skv,
+                    const OutStrides os, int causal, int window) {
+  dq_walk<T, HD, false>(qmap, gmap, kmap, vmap, lse, dsum, qpos, kpos, dq, H,
+                        KV, Sq, Skv, os, causal, window);
+}
+
+template <typename T, int HD>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_bwd_prep_kernel(const __grid_constant__ CUtensorMap qmap,
+                      const __grid_constant__ CUtensorMap gmap,
+                      const __grid_constant__ CUtensorMap kmap,
+                      const __grid_constant__ CUtensorMap vmap,
+                      const float* __restrict__ lse, float* __restrict__ dsum,
+                      const int* __restrict__ qpos,
+                      const int* __restrict__ kpos, T* __restrict__ dq, int H,
+                      int KV, int Sq, int Skv, const OutStrides os,
+                      int causal, int window) {
+  dq_walk<T, HD, true>(qmap, gmap, kmap, vmap, lse, dsum, qpos, kpos, dq, H,
+                       KV, Sq, Skv, os, causal, window);
 }
 
 // --- launches ----------------------------------------------------------------
@@ -771,17 +809,6 @@ int by_type_hd(int dtype, int hd, A&&... args) {
   if (hd == 64) return F<__half, 64>::run(args...);
   if (hd == 128) return F<__half, 128>::run(args...);
   return F<__half, 256>::run(args...);
-}
-
-template <typename T>
-int prep(const void* o, const void* dout, float* dsum, int B, int H, int Sq,
-         int hd, const long long* st, cudaStream_t s) {
-  const dim3 grid((Sq + 7) / 8, B * H);
-  if (B * H > kMaxRows) return int(cudaErrorInvalidValue);
-  flash_bwd_prep_kernel<T><<<grid, 256, 0, s>>>(
-      static_cast<const T*>(o), static_cast<const T*>(dout), dsum, H, Sq, hd,
-      st[0], st[1], st[2], st[3], st[4], st[5]);
-  return int(cudaGetLastError());
 }
 
 // the operands of both gradient kernels: q, k, v, dout with 12 element
@@ -833,19 +860,22 @@ int dkdv(const Operands& a, void* dk, void* dv, const OutStrides& os) {
   return int(cudaGetLastError());
 }
 
-template <typename T, int HD>
+// the dQ kernel, or with DSUM its D pass (writing a.dsum)
+template <typename T, int HD, bool DSUM>
 int dq_launch(const Operands& a, void* dq, const OutStrides& os) {
   CUtensorMap m[4];
   if (!maps<T, HD>(a, kBlock, QShape<HD>::tile, m))
     return int(cudaErrorInvalidValue);
-  auto kern = flash_bwd_dq_kernel<T, HD>;
+  auto kern = DSUM ? flash_bwd_prep_kernel<T, HD>
+                   : flash_bwd_dq_kernel<T, HD>;
   cudaError_t e = smem_attr(kern, QSmem<HD>::bytes);
   if (e != cudaSuccess) return int(e);
   const int nqt = (a.Sq + kBlock - 1) / kBlock;
   if (nqt > 65535 || a.B * a.H > kMaxRows) return int(cudaErrorInvalidValue);
   kern<<<dim3(a.B * a.H, nqt), kThreads, QSmem<HD>::bytes, a.s>>>(
-      m[0], m[1], m[2], m[3], a.lse, a.dsum, a.qpos, a.kpos,
-      static_cast<T*>(dq), a.H, a.KV, a.Sq, a.Skv, os, a.causal, a.window);
+      m[0], m[1], m[2], m[3], a.lse, const_cast<float*>(a.dsum), a.qpos,
+      a.kpos, static_cast<T*>(dq), a.H, a.KV, a.Sq, a.Skv, os, a.causal,
+      a.window);
   return int(cudaGetLastError());
 }
 
@@ -885,7 +915,13 @@ struct DkdvOf {
 template <typename T, int HD>
 struct DqOf {
   static int run(const Operands& a, void* dq, const OutStrides& os) {
-    return dq_launch<T, HD>(a, dq, os);
+    return dq_launch<T, HD, false>(a, dq, os);
+  }
+};
+template <typename T, int HD>
+struct PrepOf {
+  static int run(const Operands& a, const OutStrides& os) {
+    return dq_launch<T, HD, true>(a, nullptr, os);
   }
 };
 template <typename T, int HD>
@@ -897,16 +933,22 @@ struct ResourcesOf {
 
 extern "C" {
 
-// D = rowsum(dO o O) in f32, (B, H, Sq) contiguous. o and dout: bf16
-// (dtype 1) or fp16 (dtype 2), (batch, head, sequence) element strides in
-// st[0..2] (o) and st[3..5] (dout), the head dim contiguous.
-int fk_flash_bwd_prep(const void* o, const void* dout, float* dsum, int B,
-                      int H, int Sq, int hd, const long long* st, int dtype,
-                      void* stream) {
-  if (bad_shape(B, H, H, Sq, 1, hd, dtype)) return int(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return dtype == 1 ? prep<__nv_bfloat16>(o, dout, dsum, B, H, Sq, hd, st, s)
-                    : prep<__half>(o, dout, dsum, B, H, Sq, hd, st, s);
+// D = rowsum(P o dP) in f32, (B, H, Sq) contiguous, into dsum, of the
+// operands of fk_flash_bwd_dq (lse, positions; 12 element strides, (q, k,
+// v, dout) x (batch, head, sequence)): the dQ kernel's walk with S and dP
+// only.
+int fk_flash_bwd_prep(const void* q, const void* k, const void* v,
+                      const void* dout, const float* lse, float* dsum,
+                      const int* qpos, const int* kpos, int B, int H, int KV,
+                      int Sq, int Skv, int hd, const long long* strides,
+                      int causal, int window, int dtype, void* stream) {
+  if (bad_shape(B, H, KV, Sq, Skv, hd, dtype) || window < 0)
+    return int(cudaErrorInvalidValue);
+  const Operands a{q, k, v, dout, lse, dsum, qpos, kpos, B, H, KV, Sq, Skv,
+                   strides, causal, window,
+                   static_cast<cudaStream_t>(stream)};
+  const OutStrides os{};
+  return by_type_hd<PrepOf>(dtype, hd, a, os);
 }
 
 // dK and dV (B, KV, Skv, hd) of q (B, H, Sq, hd), k, v (B, KV, Skv, hd) and

@@ -163,16 +163,17 @@ UPDATE_SIGNATURES: dict[str, tuple] = {
                        _I, _P),
     "fk_verify_entries": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P),
 }
-# the attention gradient (fk_attention_bwd.cu). fk_flash_bwd_prep: o,
-# dout, D; B, H, Sq, hd; the address of 6 long long strides ((o, dout) x
-# (batch, head, sequence)); dtype (1 bf16, 2 fp16); stream.
+# the attention gradient (fk_attention_bwd.cu). fk_flash_bwd_prep: q, k,
+# v, dout, lse, D (written), q_positions, kv_positions; B, H, KV, Sq, Skv,
+# hd; the address of 12 long long strides ((q, k, v, dout) x (batch, head,
+# sequence)); causal, window, dtype (1 bf16, 2 fp16); stream.
 # fk_flash_bwd_dkdv: q, k, v, dout, lse, D, q_positions, kv_positions, dk,
 # dv; B, H, KV, Sq, Skv, hd; the address of 18 strides ((q, k, v, dout, dk,
 # dv) x (batch, head, sequence)); causal, window, dtype; stream.
 # fk_flash_bwd_dq: the same with dq for dk, dv and 15 strides.
 # fk_flash_bwd_resources: kernel (0 dK / dV, 1 dQ), dtype, hd, 6 ints out.
 ATTENTION_BWD_SIGNATURES: dict[str, tuple] = {
-    "fk_flash_bwd_prep": (_P, _P, _P, _I, _I, _I, _I, _P, _I, _P),
+    "fk_flash_bwd_prep": (_P,) * 8 + (_I,) * 6 + (_P, _I, _I, _I, _P),
     "fk_flash_bwd_dkdv": (_P,) * 10 + (_I,) * 6 + (_P, _I, _I, _I, _P),
     "fk_flash_bwd_dq": (_P,) * 9 + (_I,) * 6 + (_P, _I, _I, _I, _P),
     "fk_flash_bwd_resources": (_I, _I, _I, _P),

@@ -61,7 +61,8 @@ carries it: with grad mode on and q, k or v requiring grad,
 kernel with a row log-sum-exp output (``lse``, every Sq) and its backward
 :func:`flash_attention_backward` launches three kernels. At bf16 / fp16
 those of ``csrc/fk_attention_bwd.cu``: ``flash_bwd_prep_kernel`` (D =
-rowsum(dO o O), :func:`flash_bwd_prep`), ``flash_bwd_dkdv_kernel``
+rowsum(P o dP), the dQ kernel's walk without its product,
+:func:`flash_bwd_prep`), ``flash_bwd_dkdv_kernel``
 (:func:`flash_bwd_dkdv`) and ``flash_bwd_dq_kernel`` (:func:`flash_bwd_dq`),
 each wrapper counting its launches in ``.launches`` (the hd-256
 instantiations also in ``.launches_hd256``). The last two are Hopper's
@@ -149,9 +150,13 @@ def flash_attention_backward_plain(q, k, v, o, do, lse, q_positions,
                                    zero_empty_rows: bool = True,
                                    round_to: torch.dtype | None = None):
     """Plain PyTorch gradient of :func:`flash_attention` in f32, from its
-    output ``o`` and row log-sum-exp ``lse``: P = exp(S - lse) on the valid
-    pairs, dV = P^T dO, dP = dO V^T, D = rowsum(dO o O), dS = P o (dP - D),
-    dQ = dS K, dK = dS^T Q, dK and dV summed over each KV head's group.
+    row log-sum-exp ``lse``: P = exp(S - lse) on the valid pairs, dV = P^T
+    dO, dP = dO V^T, D = rowsum(P o dP) (:func:`flash_bwd_prep_plain`),
+    dS = P o (dP - D), dQ = dS K, dK = dS^T Q, dK and dV summed over each KV
+    head's group. ``o``, the forward's output, is not read: the f32 kernels
+    take D = rowsum(dO o O), equal to it up to f32 rounding (at bf16 / fp16
+    O's rounding would leave each row of dS summing to dO . (O - P V), not
+    to zero; ``csrc/fk_attention_bwd.cu``'s header).
     Returns (dq, dk, dv) in q's, k's and v's dtypes. A row with no valid key
     (lse = +inf) gets zero dq and adds nothing to dk and dv; without
     ``zero_empty_rows`` its output was the mean of v, which adds dO / Skv
@@ -163,7 +168,7 @@ def flash_attention_backward_plain(q, k, v, o, do, lse, q_positions,
     kvh, skv = k.shape[1], k.shape[2]
     g = h // kvh
     ct = torch.float64 if q.dtype == torch.float64 else torch.float32
-    qf, dof, of = q.to(ct), do.to(ct), o.to(ct)
+    qf, dof = q.to(ct), do.to(ct)
     kk = k.to(ct).repeat_interleave(g, dim=1)
     vv = v.to(ct).repeat_interleave(g, dim=1)
     s = torch.matmul(qf, kk.transpose(-1, -2))
@@ -171,7 +176,7 @@ def flash_attention_backward_plain(q, k, v, o, do, lse, q_positions,
     p = torch.where(mask, torch.exp(s - lse.to(ct)[..., None]),
                     torch.zeros((), dtype=ct, device=s.device))
     dp = torch.matmul(dof, vv.transpose(-1, -2))
-    dsum = (dof * of).sum(-1, keepdim=True)
+    dsum = (p * dp).sum(-1, keepdim=True)
     ds = p * (dp - dsum)
     if round_to is not None:
         p, ds = p.to(round_to).to(ct), ds.to(round_to).to(ct)
@@ -185,6 +190,21 @@ def flash_attention_backward_plain(q, k, v, o, do, lse, q_positions,
         mean = (dof * empty[:, None]).sum(2).view(b, kvh, g, hd).sum(2)
         dv = dv + (mean / skv)[:, :, None, :]
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def flash_bwd_prep_plain(q, k, v, do, lse, q_positions, kv_positions, *,
+                         causal: bool = True,
+                         window: int = 0) -> torch.Tensor:
+    """:func:`flash_bwd_prep`'s plain version: D = rowsum(P o dP) in f32,
+    (B, H, Sq)."""
+    g = q.shape[1] // k.shape[1]
+    kk = k.float().repeat_interleave(g, dim=1)
+    vv = v.float().repeat_interleave(g, dim=1)
+    s = torch.matmul(q.float(), kk.transpose(-1, -2))
+    mask = position_mask(q_positions, kv_positions, causal, window)
+    p = torch.where(mask, torch.exp(s - lse[..., None]),
+                    torch.zeros((), device=s.device))
+    return (p * torch.matmul(do.float(), vv.transpose(-1, -2))).sum(-1)
 
 
 def live_tiles(q_positions: torch.Tensor, kv_positions: torch.Tensor,
@@ -646,11 +666,12 @@ def flash_attention_backward(q, k, v, out, do, lse, q_positions,
     qpos = q_positions.to(torch.int32).contiguous()
     kpos = kv_positions.to(torch.int32).contiguous()
     if q.dtype == torch.float32:
-        prep, dkdv, dq_fn = flash_bwd_f32_prep, flash_bwd_f32_dkdv, \
-            flash_bwd_f32_dq
+        dkdv, dq_fn = flash_bwd_f32_dkdv, flash_bwd_f32_dq
+        dsum = flash_bwd_f32_prep(out, do)
     else:
-        prep, dkdv, dq_fn = flash_bwd_prep, flash_bwd_dkdv, flash_bwd_dq
-    dsum = prep(out, do)
+        dkdv, dq_fn = flash_bwd_dkdv, flash_bwd_dq
+        dsum = flash_bwd_prep(q, k, v, do, lse, qpos, kpos, causal=causal,
+                              window=window)
     dk, dv = dkdv(q, k, v, do, lse, dsum, qpos, kpos, causal=causal,
                   window=window)
     dq = dq_fn(q, k, v, do, lse, dsum, qpos, kpos, causal=causal,
@@ -666,20 +687,25 @@ def _stride_array(*tensors) -> ctypes.Array:
     return (ctypes.c_longlong * len(flat))(*flat)
 
 
-def flash_bwd_prep(out: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
-    """``flash_bwd_prep_kernel``: D = rowsum(dO o O) in f32, (B, H, Sq), of
-    two bf16 / fp16 CUDA tensors (B, H, Sq, hd) that the kernels can
-    address (hd 64, 128 or 256). Plain version: ``(do.float() *
-    out.float()).sum(-1)``."""
-    b, h, sq, hd = out.shape
-    dsum = torch.empty((b, h, sq), dtype=torch.float32, device=out.device)
-    st = _stride_array(out, do)
+def flash_bwd_prep(q, k, v, do, lse, qpos, kpos, *, causal: bool = True,
+                   window: int = 0) -> torch.Tensor:
+    """``flash_bwd_prep_kernel``: D = rowsum(P o dP) in f32, (B, H, Sq)
+    contiguous, P = exp(S - lse) on the valid pairs and dP = dO V^T, of the
+    operands :func:`flash_bwd_dq` takes (the dQ kernel's walk with S and dP
+    only). Plain version: :func:`flash_bwd_prep_plain`."""
+    b, h, sq, hd = q.shape
+    kvh, skv = k.shape[1], k.shape[2]
+    dsum = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    st = _stride_array(q, k, v, do)
     lib = _build.library("fk_attention_bwd").lib
     _build.check(lib.fk_flash_bwd_prep(
-        out.data_ptr(), do.data_ptr(), dsum.data_ptr(), b, h, sq, hd,
-        ctypes.addressof(st), _DTYPES[out.dtype], _build.stream_of(out)),
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+        lse.data_ptr(), dsum.data_ptr(), qpos.data_ptr(), kpos.data_ptr(),
+        b, h, kvh, sq, skv, hd, ctypes.addressof(st), int(causal),
+        int(window), _DTYPES[q.dtype], _build.stream_of(q)),
         "flash_bwd_prep", "fk_attention_bwd")
     flash_bwd_prep.launches += 1
+    flash_bwd_prep.launches_hd256 += hd == 256
     return dsum
 
 
@@ -727,7 +753,7 @@ def flash_bwd_dq(q, k, v, do, lse, dsum, qpos, kpos, *, causal: bool = True,
     return dq
 
 
-flash_bwd_prep.launches = 0
+flash_bwd_prep.launches = flash_bwd_prep.launches_hd256 = 0
 flash_bwd_dkdv.launches = flash_bwd_dkdv.launches_hd256 = 0
 flash_bwd_dq.launches = flash_bwd_dq.launches_hd256 = 0
 

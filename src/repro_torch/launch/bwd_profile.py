@@ -158,7 +158,7 @@ def main(argv=None) -> None:
     times = {name: {kern: [] for kern in kernels} for name in libs}
     try:
         _build._LIBS["fk_attention_bwd"] = libs["full"]
-        dsum = fa.flash_bwd_prep(out, do)
+        dsum = fa.flash_bwd_prep(q, k, v, do, lse, pos, pos)
         for _ in range(args.rounds):
             for name, lib in libs.items():
                 _build._LIBS["fk_attention_bwd"] = lib

@@ -25,78 +25,50 @@ import json
 import torch
 
 from repro_torch.configs import get_config
-from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ref
 from repro_torch.models import LM
 from repro_torch.models import attention as attn
-from repro_torch.models import layers as L
 from repro_torch.models import moe
 
 PROMPT, BATCH = 2048, 2
 
 
-class _KernelRounding(torch.autograd.Function):
-    """Plain attention of a query chunk with the flash kernels' rounding
-    points both ways (q (B, H, Sq, hd) scaled, k, v (B, KV, Skv, hd)): the
-    forward is the prefill kernel's walk over its KV tiles (64 keys, 32 at
-    hd 256: an online softmax, P = exp(s - running max) rounded to v's
-    dtype before P V, f32 sums, the division after, the output rounded
-    once: ``flash_split_plain``), the backward the kernels' plain version
-    with P and dS rounded where they round them and D from the rounded
-    output (``flash_attention_backward_plain(round_to=)``)."""
-
-    @staticmethod
-    def forward(ctx, q, k, v, qpos, kpos, causal, window):
-        out = fa.flash_split_plain(q, k, v, qpos, kpos, causal=causal,
-                                   window=window, zero_empty_rows=True,
-                                   splits=1,
-                                   block_k=32 if q.shape[3] > 128 else 64)
-        lse = fa.flash_lse_plain(q, k, qpos, kpos, causal=causal,
-                                 window=window)
-        ctx.save_for_backward(q, k, v, out, lse, qpos, kpos)
-        ctx.opts = (causal, window)
-        return out
-
-    @staticmethod
-    def backward(ctx, do):
-        q, k, v, out, lse, qpos, kpos = ctx.saved_tensors
-        causal, window = ctx.opts
-        dq, dk, dv = fa.flash_attention_backward_plain(
-            q, k, v, out, do, lse, qpos, kpos, causal=causal, window=window,
-            round_to=q.dtype)
-        return dq, dk, dv, None, None, None, None
-
-
-def _attend_kernel_rounding(q, k, v, *, q_positions, kv_positions, causal,
-                            window, chunk=attn.Q_CHUNK):
-    """``attend``'s kernel route with :class:`_KernelRounding` in place of
-    the kernels, query chunk by query chunk."""
-    qs = L.scaled(q, q.shape[-1] ** -0.5).transpose(1, 2)
-    kt, vt = k.transpose(1, 2), v.transpose(1, 2)
-    outs = [_KernelRounding.apply(qs[:, :, a:a + chunk], kt, vt,
-                                  q_positions[a:a + chunk], kv_positions,
-                                  causal, window)
-            for a in range(0, qs.shape[2], chunk)]
-    return torch.cat(outs, dim=2).transpose(1, 2)
+def _grid_block(shift: float):
+    """``attention._block_attend`` with P rounded to v's dtype on a grid
+    scaled by ``shift`` (P shift rounded, the product over shift, in f32):
+    the plain route's own rounding of P, drawn again."""
+    def block(q, k, v, mask):
+        s = torch.einsum("bqkgd,bskd->bkgqs", q.float(), k.float())
+        while mask.dim() < s.dim():
+            mask = mask[None]
+        p = torch.softmax(s.masked_fill(~mask, -1e30), dim=-1)
+        p = p.masked_fill(~mask.any(dim=-1, keepdim=True), 0.0)
+        p = (p * shift).to(v.dtype).float()
+        return (torch.einsum("bkgqs,bskd->bqkgd", p, v.float())
+                / shift).to(v.dtype)
+    return block
 
 
 @contextlib.contextmanager
 def attention_route(name: str):
     """``attend`` on the card through ``kernel`` (the flash kernel),
     ``plain`` (the chunked math), ``plain_f32_pv`` (P V in f32) or
-    ``plain_kernel`` (plain math with the kernels' rounding points both
-    ways: two rounding-sized changes of the plain route)."""
-    kernel = attn._attend_kernel
+    ``plain_grid:<shift>`` (P rounded on a grid scaled by the shift:
+    rounding-sized changes of the plain route that share nothing with the
+    kernels' arithmetic)."""
+    kernel, block = attn._attend_kernel, attn._block_attend
 
     def f32_pv(q, k, v, **kw):
         return attn._attend_local(q, k.float(), v.float(), **kw).to(q.dtype)
+    if name.startswith("plain_grid:"):
+        attn._block_attend = _grid_block(float(name.split(":")[1]))
+        name = "plain"
     attn._attend_kernel = {"kernel": kernel, "plain": attn._attend_local,
-                           "plain_f32_pv": f32_pv,
-                           "plain_kernel": _attend_kernel_rounding}[name]
+                           "plain_f32_pv": f32_pv}[name]
     try:
         yield
     finally:
-        attn._attend_kernel = kernel
+        attn._attend_kernel, attn._block_attend = kernel, block
 
 
 @contextlib.contextmanager

@@ -202,18 +202,7 @@ def apply_attention(cfg, params, x, *, positions, causal=True, window=0,
     dev = x.device
 
     if kv_input is not None:
-        # cross-attention: every encoder frame visible, no rope. The keys
-        # are centred over the frames first (in f32, then rounded): a shift
-        # common to every key adds one constant q . c to a row's scores,
-        # which the softmax drops, so the output is the reference's up to
-        # rounding. A deep encoder's frames share most of their direction
-        # (whisper-medium's 24 random layers on the card), so uncentred keys
-        # leave dq = dS K a sum that cancels down to a small remainder, and
-        # the flash backward's bf16 rounding of dS turned that remainder of
-        # a cross-attention norm's gradient into noise 22x its size
-        # (chip_smoke.py phase 20); centred, the terms are the
-        # remainder's size.
-        k = (k.float() - k.float().mean(dim=1, keepdim=True)).to(k.dtype)
+        # cross-attention: every encoder frame visible, no rope.
         skv = k.shape[1]
         out = attend(q, k, v,
                      q_positions=torch.zeros(x.shape[1], dtype=torch.int32,

@@ -18,9 +18,9 @@ held:
   its own, the scores over all of hd) against the whole gradient;
 * the tile constants against the sources, and the names ``chip_smoke.py``
   reads;
-* dq with dS rounded as the kernels round it, over keys that share most of
-  their direction, uncentred and centred as the model's cross-attention
-  centres them.
+* the rows of dS summing to zero with D = rowsum(P o dP), the prep
+  kernel's, over keys and values that share most of their direction, where
+  D from the rounded output leaves dq off by more than itself.
 
 Everything runs in f32, so the bar is f32 rounding through a few sums:
 ``RTOL`` x max|grad| per tensor (the bar of ``tests/test_torch_flash_bwd.py``).
@@ -266,40 +266,82 @@ def test_check_grad_takes_every_dtype_and_head_dim(dtype, hd):
         fa._check_grad(q, hd, False)
 
 
-@pytest.mark.parametrize("spread", [1e-2, 1e-3])
-def test_centred_keys_keep_dq_at_its_rounding(spread):
-    """Keys that share most of their direction (a deep encoder's frames,
-    whisper-medium's cross-attention on the card) make dq = dS K a sum that
-    cancels to a small remainder: with dS rounded to bf16, as the kernels
-    round it, dq's error is then a large share of dq. Centred over the keys
-    (``models.attention.apply_attention``'s cross-attention, the softmax
-    unchanged by the common shift), it is back at bf16's rounding. Read
-    against the plain backward in f64; keys N(c, spread^2) with |c| ~ 1."""
+@pytest.mark.parametrize("spread", [1e-1, 1e-2])
+def test_ds_rows_sum_to_zero_over_shared_directions(spread):
+    """Keys and values that share most of their direction (a deep random
+    model's tokens and frames: whisper-medium's on the card) make dq = dS K
+    a sum that cancels to a small remainder, which holds only while each
+    row of dS sums to zero. D = rowsum(P o dP) (``flash_bwd_prep_plain``,
+    the prep kernel's) keeps the row sums at f32's rounding; D from the
+    rounded output, dO . O, leaves them at dO . (O - P V), O's rounding
+    times the shared value, and dq off by more than itself. Read against
+    the plain backward in f64; keys and values N(c, spread^2), |c| ~ 8."""
     rng = np.random.default_rng(3)
     b, h, sq, skv, hd = 1, 4, 64, 1500, 64
-    common = rng.normal(size=(hd,))
-    q, do = (torch.from_numpy(rng.normal(size=(b, h, sq, hd)).astype(
-        np.float32)).to(torch.bfloat16) for _ in range(2))
-    q = (q.float() * 0.125).to(torch.bfloat16)
-    k = torch.from_numpy((common + spread * rng.normal(size=(b, h, skv, hd)))
-                         .astype(np.float32)).to(torch.bfloat16)
-    v = torch.from_numpy(rng.normal(size=(b, h, skv, hd)).astype(
-        np.float32)).to(torch.bfloat16)
+    ck, cv = rng.normal(size=(hd,)), rng.normal(size=(hd,))
+
+    def bf16(x):
+        return torch.from_numpy(x.astype(np.float32)).to(torch.bfloat16)
+    q = bf16(0.125 * rng.normal(size=(b, h, sq, hd)))
+    do = bf16(rng.normal(size=(b, h, sq, hd)))
+    k = bf16(ck + spread * rng.normal(size=(b, h, skv, hd)))
+    v = bf16(cv + spread * rng.normal(size=(b, h, skv, hd)))
     qp = torch.zeros(sq, dtype=torch.int32)
-    kp = torch.zeros(skv, dtype=torch.int32)
-    errs = {}
-    for centred in (False, True):
-        kk = (k.float() - k.float().mean(2, keepdim=True)).to(k.dtype) \
-            if centred else k
-        out = fa.flash_attention_plain(q, kk, v, qp, kp, causal=False,
+    kp = torch.arange(skv, dtype=torch.int32)
+    out = fa.flash_attention_plain(q, k, v, qp, kp, causal=False,
+                                   zero_empty_rows=True)
+    lse = fa.flash_lse_plain(q, k, qp, kp, causal=False)
+    f = [t.float() for t in (q, k, v, out, do)]
+    exact = fa.flash_attention_backward_plain(
+        *(t.double() for t in f), lse.double(), qp, kp, causal=False)
+    got = fa.flash_attention_backward_plain(*f, lse, qp, kp, causal=False)
+    qf, kf, vf, of, dof = f
+    p = torch.exp(qf @ kf.transpose(-1, -2) - lse[..., None])
+    dp = dof @ vf.transpose(-1, -2)
+    d_new = fa.flash_bwd_prep_plain(q, k, v, do, lse, qp, kp,
+                                    causal=False)[..., None]
+    d_out = (dof * of).sum(-1, keepdim=True)
+    scale = (p * (dp - d_new)).abs().sum(-1)
+    rows = {n: float(((p * (dp - d)).sum(-1).abs() / scale).max())
+            for n, d in (("prep", d_new), ("output", d_out))}
+    assert rows["prep"] < 2.0 ** -12, rows
+    assert rows["output"] > 100 * rows["prep"], rows
+
+    def rel(a, w):
+        return float((a.double() - w).norm() / w.norm())
+    dq_out = (p * (dp - d_out)) @ kf
+    assert rel(got[0], exact[0]) < 2.0 ** -5
+    assert rel(dq_out, exact[0]) > 100 * rel(got[0], exact[0])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_prep_plain_is_do_dot_pv(dtype):
+    """``flash_bwd_prep_plain``, the 2-byte prep kernel's plain version: D =
+    rowsum(P o dP) = dO . (P V), P from lse, in f32; zero for a row with no
+    valid key. At f32 it is the f32 kernels' dO . O up to f32 rounding;
+    held against dO . (P V) in f64 with a window and a query hole."""
+    rng = np.random.default_rng(11)
+    b, h, kv, s, hd = 2, 4, 2, 50, 16
+    dt = getattr(torch, dtype)
+    q, do = (torch.from_numpy(rng.normal(size=(b, h, s, hd)).astype(
+        np.float32)).to(dt) for _ in range(2))
+    k, v = (torch.from_numpy(rng.normal(size=(b, kv, s, hd)).astype(
+        np.float32)).to(dt) for _ in range(2))
+    pos = torch.arange(s, dtype=torch.int32)
+    qpos = pos.clone()
+    qpos[7] = -3                                   # a row with no key
+    lse = fa.flash_lse_plain(q, k, qpos, pos, window=9)
+    got = fa.flash_bwd_prep_plain(q, k, v, do, lse, qpos, pos, window=9)
+    mask = fa.position_mask(qpos, pos, True, 9)
+    kk, vv = (t.double().repeat_interleave(h // kv, dim=1) for t in (k, v))
+    sc = torch.where(mask, q.double() @ kk.transpose(-1, -2),
+                     torch.tensor(-np.inf, dtype=torch.float64))
+    pv = torch.softmax(sc, -1).nan_to_num(0.0) @ vv
+    want = (do.double() * pv).sum(-1)
+    scale = float((do.double().abs() * pv.abs()).sum(-1).max())
+    assert float((got.double() - want).abs().max()) <= 1e-5 * scale
+    assert torch.all(got[:, :, 7] == 0)
+    if dtype == "float32":
+        out = fa.flash_attention_plain(q, k, v, qpos, pos, window=9,
                                        zero_empty_rows=True)
-        lse = fa.flash_lse_plain(q, kk, qp, kp, causal=False)
-        f = [t.float() for t in (q, kk, v, out, do)]
-        exact = fa.flash_attention_backward_plain(
-            *(t.double() for t in f), lse.double(), qp, kp, causal=False)
-        rounded = fa.flash_attention_backward_plain(
-            *f, lse, qp, kp, causal=False, round_to=torch.bfloat16)
-        errs[centred] = float((rounded[0].double() - exact[0]).norm()
-                              / exact[0].norm())
-    assert errs[True] < 2.0 ** -8, errs          # bf16's rounding
-    assert errs[False] > 16 * errs[True], errs   # the cancelling sum's
+        assert float((got - (do * out).sum(-1)).abs().max()) <= 1e-5 * scale
